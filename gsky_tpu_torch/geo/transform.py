@@ -1,0 +1,126 @@
+"""Affine geotransforms, bounding boxes and extent reprojection.
+
+Counterpart of `gsky_tpu/geo/transform.py` (host numpy path): `BBox`,
+`GeoTransform` and `transform_bbox`, with the reference's arithmetic
+order so both packages compute the same float64 coordinates.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import numpy as np
+
+from .crs import CRS
+
+
+@dataclass(frozen=True)
+class BBox:
+    """Axis-aligned bounding box in some CRS: (xmin, ymin, xmax, ymax)."""
+
+    xmin: float
+    ymin: float
+    xmax: float
+    ymax: float
+
+    @property
+    def width(self) -> float:
+        return self.xmax - self.xmin
+
+    @property
+    def height(self) -> float:
+        return self.ymax - self.ymin
+
+    def intersects(self, other: "BBox") -> bool:
+        return not (self.xmax <= other.xmin or other.xmax <= self.xmin
+                    or self.ymax <= other.ymin or other.ymax <= self.ymin)
+
+    def to_polygon_wkt(self) -> str:
+        return (f"POLYGON(({self.xmin} {self.ymin},{self.xmax} {self.ymin},"
+                f"{self.xmax} {self.ymax},{self.xmin} {self.ymax},"
+                f"{self.xmin} {self.ymin}))")
+
+
+@dataclass(frozen=True)
+class GeoTransform:
+    """GDAL-style affine geotransform.
+
+    ``x = x0 + col*dx + row*rx``, ``y = y0 + col*ry + row*dy`` where
+    (x0, y0) is the outer corner of pixel (0, 0)."""
+
+    x0: float
+    dx: float
+    rx: float
+    y0: float
+    ry: float
+    dy: float
+
+    @classmethod
+    def from_gdal(cls, g: Sequence[float]) -> "GeoTransform":
+        return cls(g[0], g[1], g[2], g[3], g[4], g[5])
+
+    def to_gdal(self) -> Tuple[float, ...]:
+        return (self.x0, self.dx, self.rx, self.y0, self.ry, self.dy)
+
+    @classmethod
+    def from_bbox(cls, bbox: BBox, width: int, height: int) -> "GeoTransform":
+        """North-up transform covering bbox with width x height pixels."""
+        return cls(bbox.xmin, bbox.width / width, 0.0,
+                   bbox.ymax, 0.0, -bbox.height / height)
+
+    def pixel_to_geo(self, col, row):
+        """(col,row) pixel coords (fractional, origin at corner) -> (x,y)."""
+        x = self.x0 + col * self.dx + row * self.rx
+        y = self.y0 + col * self.ry + row * self.dy
+        return x, y
+
+    def geo_to_pixel(self, x, y):
+        """(x,y) -> fractional (col,row)."""
+        det = self.dx * self.dy - self.rx * self.ry
+        inv_dx = self.dy / det
+        inv_rx = -self.rx / det
+        inv_ry = -self.ry / det
+        inv_dy = self.dx / det
+        dxv = x - self.x0
+        dyv = y - self.y0
+        col = inv_dx * dxv + inv_rx * dyv
+        row = inv_ry * dxv + inv_dy * dyv
+        return col, row
+
+    def bbox(self, width: int, height: int) -> BBox:
+        xs, ys = [], []
+        for c, r in ((0, 0), (width, 0), (0, height), (width, height)):
+            x, y = self.pixel_to_geo(c, r)
+            xs.append(x)
+            ys.append(y)
+        return BBox(min(xs), min(ys), max(xs), max(ys))
+
+    @property
+    def is_north_up(self) -> bool:
+        return self.rx == 0.0 and self.ry == 0.0
+
+    def scaled(self, fx: float, fy: float) -> "GeoTransform":
+        """Transform for the same extent at resolution scaled by (fx, fy)
+        (fx > 1 means coarser pixels) — the overview georeferencing."""
+        return GeoTransform(self.x0, self.dx * fx, self.rx * fy,
+                            self.y0, self.ry * fx, self.dy * fy)
+
+
+def transform_bbox(bbox: BBox, src: CRS, dst: CRS, densify: int = 21) -> BBox:
+    """Reproject a bbox by densified edge sampling."""
+    if src == dst:
+        return bbox
+    t = np.linspace(0.0, 1.0, densify)
+    xs = bbox.xmin + t * bbox.width
+    ys = bbox.ymin + t * bbox.height
+    ex = np.concatenate([xs, xs, np.full_like(t, bbox.xmin),
+                         np.full_like(t, bbox.xmax)])
+    ey = np.concatenate([np.full_like(t, bbox.ymin),
+                         np.full_like(t, bbox.ymax), ys, ys])
+    ox, oy = src.transform_to(dst, ex, ey)
+    ok = np.isfinite(ox) & np.isfinite(oy)
+    if not ok.any():
+        raise ValueError("bbox does not transform into destination CRS")
+    return BBox(float(np.min(ox[ok])), float(np.min(oy[ok])),
+                float(np.max(ox[ok])), float(np.max(oy[ok])))

@@ -1,0 +1,239 @@
+"""Band expressions: parsing of `rgb_products` entries.
+
+Counterpart of the parsing half of `gsky_tpu/ops/expr.py`: the same
+tokenizer, grammar and `parse_band_expressions` contract, so a request's
+variable list and output names match the reference.  The GetMap slice
+serves plain-variable entries only; evaluating an expression AST is the
+band-algebra slice's work and raises NotImplementedError here.
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import List, Sequence, Tuple
+
+_TOKEN_RE = re.compile(r"""
+    (?P<num>\d+\.\d*(?:[eE][-+]?\d+)?|\.\d+(?:[eE][-+]?\d+)?|\d+(?:[eE][-+]?\d+)?)
+  | (?P<name>\[[^\]]+\]|[A-Za-z_][A-Za-z0-9_:.#]*)
+  | (?P<op>\*\*|==|!=|<=|>=|&&|\|\||[-+*/%()<>!?:,])
+  | (?P<ws>\s+)
+""", re.X)
+
+# function names the grammar recognises (calls parse as ("call", ...))
+_FUNCS = frozenset(("abs", "sqrt", "log", "log10", "exp", "sin", "cos",
+                    "tan", "floor", "ceil", "min", "max", "pow"))
+
+
+def tokenize(src: str) -> List[Tuple[str, str]]:
+    out = []
+    pos = 0
+    while pos < len(src):
+        m = _TOKEN_RE.match(src, pos)
+        if not m:
+            raise ValueError(f"bad token at {src[pos:pos+10]!r} in {src!r}")
+        pos = m.end()
+        kind = m.lastgroup
+        if kind == "ws":
+            continue
+        out.append((kind, m.group()))
+    out.append(("eof", ""))
+    return out
+
+
+# AST nodes: ("num", v) ("var", name) ("un", op, a) ("bin", op, a, b)
+# ("tern", c, a, b) ("call", fname, [args])
+
+class _Parser:
+    def __init__(self, tokens):
+        self.toks = tokens
+        self.i = 0
+
+    def peek(self):
+        return self.toks[self.i]
+
+    def take(self, val=None):
+        k, v = self.toks[self.i]
+        if val is not None and v != val:
+            raise ValueError(f"expected {val!r}, got {v!r}")
+        self.i += 1
+        return k, v
+
+    def parse(self):
+        node = self.ternary()
+        if self.peek()[0] != "eof":
+            raise ValueError(f"trailing tokens at {self.peek()[1]!r}")
+        return node
+
+    def ternary(self):
+        cond = self.or_()
+        if self.peek()[1] == "?":
+            self.take("?")
+            a = self.ternary()
+            self.take(":")
+            b = self.ternary()
+            return ("tern", cond, a, b)
+        return cond
+
+    def _left(self, ops, sub):
+        node = sub()
+        while self.peek()[1] in ops:
+            op = self.take()[1]
+            node = ("bin", op, node, sub())
+        return node
+
+    def or_(self):
+        return self._left(("||",), self.and_)
+
+    def and_(self):
+        return self._left(("&&",), self.cmp)
+
+    def cmp(self):
+        return self._left(("==", "!=", "<", "<=", ">", ">="), self.add)
+
+    def add(self):
+        return self._left(("+", "-"), self.mul)
+
+    def mul(self):
+        return self._left(("*", "/", "%"), self.unary)
+
+    def unary(self):
+        if self.peek()[1] in ("-", "!"):
+            op = self.take()[1]
+            return ("un", op, self.unary())
+        return self.power()
+
+    def power(self):
+        node = self.atom()
+        if self.peek()[1] == "**":
+            self.take()
+            return ("bin", "**", node, self.unary())  # right assoc
+        return node
+
+    def atom(self):
+        k, v = self.peek()
+        if v == "(":
+            self.take("(")
+            node = self.ternary()
+            self.take(")")
+            return node
+        if k == "num":
+            self.take()
+            return ("num", float(v))
+        if k == "name":
+            self.take()
+            name = v[1:-1] if v.startswith("[") else v
+            if self.peek()[1] == "(" and name in _FUNCS:
+                self.take("(")
+                args = [self.ternary()]
+                while self.peek()[1] == ",":
+                    self.take(",")
+                    args.append(self.ternary())
+                self.take(")")
+                return ("call", name, args)
+            return ("var", name)
+        raise ValueError(f"unexpected token {v!r}")
+
+
+def _collect_vars(node, acc):
+    tag = node[0]
+    if tag == "var":
+        acc.append(node[1])
+    elif tag == "un":
+        _collect_vars(node[2], acc)
+    elif tag == "bin":
+        _collect_vars(node[2], acc)
+        _collect_vars(node[3], acc)
+    elif tag == "tern":
+        for n in node[1:]:
+            _collect_vars(n, acc)
+    elif tag == "call":
+        for n in node[2]:
+            _collect_vars(n, acc)
+
+
+@dataclass
+class CompiledExpr:
+    """A parsed band expression."""
+
+    src: str
+    variables: List[str]
+    _ast: tuple = field(repr=False, default=None)
+
+    def __call__(self, env, xp=None):
+        raise NotImplementedError(
+            "band-expression evaluation is not ported yet: "
+            f"{self.src!r}")
+
+
+_CACHE_CAP = 512
+_cache: "OrderedDict[str, CompiledExpr]" = OrderedDict()
+_cache_lock = threading.Lock()
+
+
+def compile_expr(src: str) -> CompiledExpr:
+    with _cache_lock:
+        ce = _cache.get(src)
+        if ce is not None:
+            _cache.move_to_end(src)
+            return ce
+    ast = _Parser(tokenize(src)).parse()
+    vars_ = []
+    _collect_vars(ast, vars_)
+    seen = set()
+    uniq = [v for v in vars_ if not (v in seen or seen.add(v))]
+    ce = CompiledExpr(src, uniq, ast)
+    with _cache_lock:
+        _cache.setdefault(src, ce)
+        _cache.move_to_end(src)
+        while len(_cache) > _CACHE_CAP:
+            _cache.popitem(last=False)
+        return _cache[src]
+
+
+@dataclass
+class BandExpressions:
+    """Parsed `rgb_products` list."""
+
+    expressions: List[CompiledExpr]
+    expr_names: List[str]          # output namespace per entry
+    var_list: List[str]            # union of referenced bands (fetch list)
+    expr_var_ref: List[List[str]]  # per-entry referenced bands
+    expr_text: List[str]
+    passthrough: bool              # all entries are bare band names
+
+
+def parse_band_expressions(bands: Sequence[str]) -> BandExpressions:
+    """Parse entries like ``"ndvi = (nir-red)/(nir+red)"`` or plain band
+    names; ``name = expr`` binds the output namespace (at most one
+    '=').  A single-part entry is a band NAME and is never parsed."""
+    exprs, names, texts, var_refs = [], [], [], []
+    var_list: List[str] = []
+    seen = set()
+    has_expr = False
+    for b in bands:
+        parts = [p.strip() for p in b.split("=")]
+        if not parts or any(not p for p in parts):
+            raise ValueError(f"invalid expression: {b!r}")
+        if len(parts) == 1:
+            name = body = parts[0]
+            ce = CompiledExpr(body, [body], ("var", body))
+        elif len(parts) == 2:
+            name, body = parts[0], parts[1]
+            ce = compile_expr(body)
+        else:
+            raise ValueError(f"invalid expression: {b!r}")
+        if ce._ast[0] != "var":
+            has_expr = True
+        exprs.append(ce)
+        names.append(name)
+        texts.append(b)
+        var_refs.append(list(ce.variables))
+        for v in ce.variables:
+            if v not in seen:
+                seen.add(v)
+                var_list.append(v)
+    return BandExpressions(exprs, names, var_list, var_refs, texts,
+                           passthrough=not has_expr)

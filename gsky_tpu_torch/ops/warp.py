@@ -1,0 +1,209 @@
+"""Reprojection warp: control-grid upsample, resampling taps, composite.
+
+Counterpart of the device half of `gsky_tpu/ops/warp.py` on the GetMap
+path, as plain PyTorch ops:
+
+- `_bilerp_grid`: the dense dst->src coordinate grid rebuilt from the
+  sparse control points (the approx-transformer analogue);
+- `_cubic_weights`: Catmull-Rom weights, a = -0.5;
+- `granule_sample`: ONE granule's per-pixel body — affine, true-extent
+  NaN poisoning, window rebase, nearest / bilinear / cubic taps with
+  tap-side validity — written once and shared by the plain versions of
+  both hand kernels (`ops.paged`, `ops.warp_render`), which differ only
+  in how a tap is fetched.  `csrc/warp_render.cu` implements the same
+  body in CUDA C++;
+- `composite_scale`: first-valid composite across namespaces + byte
+  scaling.
+
+Op order is the reference's, term for term, so that results agree to
+the bit wherever the reference itself does not contract a multiply-add.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .scale import _log10, _masked_extrema, auto_byte_scale, scale_to_byte
+
+NEAR = ("near", "nearest")
+METHODS = NEAR + ("bilinear", "cubic")
+
+
+def _bilerp_grid(ctrl, h: int, w: int, step: int):
+    """Upsample a control-point grid (gh, gw) f32 to (h, w) by bilinear
+    interpolation between every ``step``-th dst pixel centre."""
+    gh, gw = ctrl.shape
+    dev = ctrl.device
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] / step
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :] / step
+    y0 = torch.clamp(torch.floor(yy).to(torch.int32), 0, gh - 2)
+    x0 = torch.clamp(torch.floor(xx).to(torch.int32), 0, gw - 2)
+    ty = yy - y0
+    tx = xx - x0
+    y0 = y0.long()
+    x0 = x0.long()
+    c00 = ctrl[y0, x0]
+    c10 = ctrl[y0 + 1, x0]
+    c01 = ctrl[y0, x0 + 1]
+    c11 = ctrl[y0 + 1, x0 + 1]
+    return (c00 * (1 - ty) + c10 * ty) * (1 - tx) \
+        + (c01 * (1 - ty) + c11 * ty) * tx
+
+
+def fma(x, y, z):
+    """Single-rounded float32 ``x * y + z`` (IEEE fusedMultiplyAdd).
+
+    PyTorch has no fma op.  The f32 product is exact in float64; the
+    float64 sum is taken with round-to-odd (TwoSum error term, then the
+    last bit forced odd when inexact), which makes the final rounding to
+    float32 correctly rounded — no double-rounding error."""
+    x, y, z = (torch.as_tensor(v, dtype=torch.float32) for v in (x, y, z))
+    dev = next((v.device for v in (x, y, z) if v.dim()), x.device)
+    a = x.to(dev, torch.float64) * y.to(dev, torch.float64)
+    b = z.to(dev, torch.float64)
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    bump = (err != 0) & even & torch.isfinite(s)
+    s = torch.where(bump, torch.nextafter(s, s + err), s)
+    return s.to(torch.float32)
+
+
+def _cubic_weights(f):
+    """Catmull-Rom (a=-0.5) weights for taps at offsets -1,0,1,2, with
+    w1's multiply-add fused where the reference's XLA lowering fuses it
+    (``(a+2)*f3 - (a+3)*f2`` as ``fma(-(a+3), f2, (a+2)*f3)``)."""
+    a = -0.5
+    f2 = f * f
+    f3 = f2 * f
+    w0 = a * (f3 - 2 * f2 + f)
+    w1 = fma(-(a + 3), f2, (a + 2) * f3) + 1
+    w2 = -(a + 2) * f3 + (2 * a + 3) * f2 - a * f
+    w3 = a * (f2 - f3)
+    return (w0, w1, w2, w3)
+
+
+def granule_sample(sx, sy, p, method: str, wr: int, wc: int, fetch):
+    """One granule's resample onto the dst grid.
+
+    sx/sy (h, w) f32 origin-relative src-CRS coords; ``p`` the granule's
+    16-wide f32 params row (slots 0-5 affine, 6/7 true extent, 8 nodata,
+    11/12 window origin); (wr, wc) the window extent taps are clipped
+    to; ``fetch(ri, ci)`` the window value at clipped int64 indices.
+    Returns (val (h, w) f32, ok (h, w) bool)."""
+    if method not in METHODS:
+        raise KeyError(f"unknown resample method {method!r}")
+    # the affine and the tap sum use fused multiply-adds exactly where
+    # the reference's XLA lowering contracts them; every other op rounds
+    # on its own (the CUDA kernels build with -fmad=false and call fmaf
+    # at the same places)
+    cols = fma(p[2], sy, fma(p[1], sx, p[0])) - 0.5
+    rows = fma(p[5], sy, fma(p[4], sx, p[3])) - 0.5
+    oob = (rows < -0.5) | (rows > p[6] - 0.5) \
+        | (cols < -0.5) | (cols > p[7] - 0.5)
+    rows = torch.where(oob, torch.full_like(rows, float("nan")), rows)
+    rows = rows - p[11]     # window-origin rebase (exact: integer
+    cols = cols - p[12]     # <= 4096 off an f32 coordinate < 2^12)
+    nd = p[8]
+
+    def tap(ri, ci, inb):
+        v = fetch(ri.clamp(0, wr - 1).long(), ci.clamp(0, wc - 1).long())
+        ok = inb & torch.isfinite(v) & (v != nd)
+        return torch.where(ok, v, torch.zeros_like(v)), ok
+
+    if method in NEAR:
+        finite = torch.isfinite(rows) & torch.isfinite(cols)
+        # 0.5 + 1e-10 rounds to 0.5 in f32; NaN coordinates are zeroed
+        # before the int conversion (their taps are masked by `finite`)
+        zero = torch.zeros_like(rows)
+        ri = torch.floor(torch.where(finite, rows, zero) + 0.5) \
+            .to(torch.int32)
+        ci = torch.floor(torch.where(finite, cols, zero) + 0.5) \
+            .to(torch.int32)
+        inb = (ri >= 0) & (ri < wr) & (ci >= 0) & (ci < wc) & finite
+        return tap(ri, ci, inb)
+    finite = torch.isfinite(rows) & torch.isfinite(cols)
+    rows = torch.where(finite, rows, torch.full_like(rows, -10.0))
+    cols = torch.where(finite, cols, torch.full_like(cols, -10.0))
+    r0 = torch.floor(rows)
+    c0 = torch.floor(cols)
+    fr = rows - r0
+    fc = cols - c0
+    r0 = r0.to(torch.int32)
+    c0 = c0.to(torch.int32)
+    if method == "bilinear":
+        taps = [(dr, dc, (fr if dr else 1 - fr) * (fc if dc else 1 - fc))
+                for dr in (0, 1) for dc in (0, 1)]
+        thresh = 1e-6
+    else:                       # cubic (Catmull-Rom)
+        wr_ = _cubic_weights(fr)
+        wc_ = _cubic_weights(fc)
+        taps = [(dr - 1, dc - 1, wr_[dr] * wc_[dc])
+                for dr in range(4) for dc in range(4)]
+        thresh = 0.05
+    terms = []
+    wacc = torch.zeros_like(rows)
+    for dr, dc, wt in taps:
+        ri = r0 + dr
+        ci = c0 + dc
+        inb = (ri >= 0) & (ri < wr) & (ci >= 0) & (ci < wc)
+        v, okt = tap(ri, ci, inb)
+        okf = okt.to(torch.float32)
+        terms.append((wt * okf, v))
+        wacc = wacc + wt * okf
+    # acc = sum of (wt*okf)*v in tap order; the second add fuses the
+    # FIRST product into the rounded second one, every later add fuses
+    # its own product
+    acc = fma(terms[0][0], terms[0][1], terms[1][0] * terms[1][1])
+    for wo, v in terms[2:]:
+        acc = fma(wo, v, acc)
+    ok = finite & (wacc > thresh)
+    val = acc / torch.where(wacc > thresh, wacc, torch.ones_like(wacc))
+    return val, ok
+
+
+def mosaic_update(canv, best, val, ok, prio, ns):
+    """Strictly-greater priority mosaic step for one granule into
+    per-namespace canv/best (n_ns, h, w), in place: first-seen wins
+    ties, which equals the reference's argmax because priorities are
+    unique by contract."""
+    ninf = torch.full_like(val, float("-inf"))
+    for m in range(canv.shape[0]):
+        member = ns == float(m)
+        s_m = torch.where(member & ok, prio, ninf)
+        take = s_m > best[m]
+        canv[m] = torch.where(take, val, canv[m])
+        best[m] = torch.where(take, s_m, best[m])
+
+
+def params16(params):
+    """(B, >=11) f32 granule params -> the kernels' (B, 16) rows, with
+    the window-origin slots 11/12 zero (the whole scene is the window)."""
+    out = torch.zeros((params.shape[0], 16), dtype=torch.float32,
+                      device=params.device)
+    out[:, :11] = params[:, :11].to(torch.float32)
+    return out
+
+
+def composite_scale(canv, vals, scale_params, auto: bool,
+                    colour_scale: int):
+    """First-valid composite across namespace canvases + byte scaling:
+    canv (n_ns, h, w) f32, vals (n_ns, h, w) bool -> uint8 (h, w),
+    255 = nodata.  ``scale_params`` is (offset, scale, clip)."""
+    # jnp.argmax on bool picks the lowest True index; torch.argmax takes
+    # no bool, and returns the first maximum of the uint8 cast
+    idx = torch.argmax(vals.to(torch.uint8), dim=0)
+    data = torch.gather(canv, 0, idx[None])[0]
+    ok = vals.any(dim=0)
+    if auto:
+        if colour_scale == 1:
+            logged = _log10(data)
+            bad = ~torch.isfinite(logged)
+            data = torch.where(bad, torch.zeros_like(logged), logged)
+            ok = ok & ~bad
+        mn, mx = _masked_extrema(data, ok)
+        return auto_byte_scale(data, ok, mn, mx, ok.any())
+    return scale_to_byte(data, ok, float(scale_params[0]),
+                         float(scale_params[1]), float(scale_params[2]),
+                         colour_scale=colour_scale, auto=False)

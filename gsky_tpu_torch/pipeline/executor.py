@@ -1,0 +1,406 @@
+"""The warp executor: cached scenes -> one fused warp-render dispatch.
+
+Counterpart of `gsky_tpu/pipeline/executor.py` on the single-band
+GetMap path.  `render_byte_scenes` groups a tile's granules by (source
+CRS, bucket shape, dtype), builds the sparse control grid once per
+(dst grid, src CRS) on the host in float64, and dispatches:
+
+- the paged leg (kernel B1) when the page pool can stage every
+  granule's footprint pages (`_paged_from_group`);
+- the bucketed leg (kernel B2) over the dense scene stack otherwise —
+  page budget exceeded or every pool slot pinned.
+
+The scene stack of the bucketed leg is built only when that leg runs:
+the paged leg never reads it.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..geo.crs import CRS, parse_crs
+from ..geo.transform import GeoTransform
+from ..ops.paged import PARAMS_W, page_slots, render_byte_paged
+from ..ops.warp_render import render_scenes
+from .pages import PagePool
+from .scene_cache import DeviceScene, SceneCache
+
+_WIN_MARGIN = 2  # covers cubic's +2 tap and f32-vs-f64 coord rounding
+# host-clock stages of one tile: "index" is recorded by the tile
+# pipeline, the rest by `render_byte_scenes` ("dispatch" is the host
+# side of the kernel launch and epilogue; the device runs asynchronously)
+SPANS = ("index", "groups", "tables", "dispatch")
+
+
+def _bucket_pow2(n: int, lo: int = 1) -> int:
+    """Next power of two >= n (granule- and namespace-count padding)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _granule_bounds(p: np.ndarray, cx: np.ndarray, cy: np.ndarray):
+    """Raw gather-footprint bounds (r_lo, r_hi, c_lo, c_hi) of ONE
+    granule's param row, or None when it has no finite coords.  The
+    affine commutes with the bilinear upsample, so the dense extremes
+    are bounded by the affine at the control points (f64 here)."""
+    # clamp to the kernel's oob thresholds: coords past the true extent
+    # are NaN-poisoned on device and never gathered
+    cols = np.clip(p[0] + p[1] * cx + p[2] * cy - 0.5, -1.0, p[7])
+    rows = np.clip(p[3] + p[4] * cx + p[5] * cy - 0.5, -1.0, p[6])
+    ok = np.isfinite(rows) & np.isfinite(cols)
+    if not ok.any():
+        return None
+    r_lo = math.floor(float(rows[ok].min())) - _WIN_MARGIN
+    c_lo = math.floor(float(cols[ok].min())) - _WIN_MARGIN
+    # one extra pixel on the high edge: the device recomputes coords in
+    # f32, which can land just past the f64 bound and bump floor() by one
+    r_hi = math.floor(float(rows[ok].max())) + _WIN_MARGIN + 2
+    c_hi = math.floor(float(cols[ok].max())) + _WIN_MARGIN + 2
+    return r_lo, r_hi, c_lo, c_hi
+
+
+def _inv_gt_params(gt: GeoTransform, ox: float, oy: float):
+    """Origin-folded inverse geotransform (src-CRS coords relative to
+    (ox, oy) -> granule pixel): params[:6] of every scene kernel —
+    col = p0 + p1*sx + p2*sy, row = p3 + p4*sx + p5*sy."""
+    det = gt.dx * gt.dy - gt.rx * gt.ry
+    inv = (gt.dy / det, -gt.rx / det, -gt.ry / det, gt.dx / det)
+    a0 = inv[0] * (ox - gt.x0) + inv[1] * (oy - gt.y0)
+    a3 = inv[2] * (ox - gt.x0) + inv[3] * (oy - gt.y0)
+    return (a0, inv[0], inv[1], a3, inv[2], inv[3])
+
+
+@dataclass
+class SceneGroup:
+    """Device inputs of one (source CRS, bucket, dtype) granule group."""
+
+    scenes: List[DeviceScene]
+    ctrl: np.ndarray            # (2, gh, gw) f32 origin-relative coords
+    ctrl_dev: torch.Tensor      # the same on the device
+    params: np.ndarray          # (B, 11) f64, B = pow2(len(scenes))
+    step: int
+    skey: tuple                 # scene serials + B: the stack's cache key
+
+
+class WarpExecutor:
+    """Dispatches cached-scene tiles to the fused warp-render kernels."""
+
+    _GEO_CACHE_MAX = 256
+    _STACK_CACHE_MAX = 4
+    _STRIDE_CACHE_MAX = 8192
+
+    def __init__(self, device="cuda", cache: Optional[SceneCache] = None,
+                 pool: Optional[PagePool] = None):
+        self.device = resolve_device(device)
+        self.cache = cache or SceneCache(device=self.device)
+        self.pool = pool or PagePool(device=self.device)
+        self._geo_cache: OrderedDict = OrderedDict()
+        self._stack_cache: OrderedDict = OrderedDict()
+        self._stride_cache: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+        # dispatch counts by leg — "where do renders actually go"
+        self.paged_engaged = 0
+        self.paged_declined = 0
+        # seconds per stage, summed over calls (SPANS)
+        self.spans = dict.fromkeys(SPANS, 0.0)
+
+    def add_span(self, name: str, t0: float) -> float:
+        """Add the time since ``t0`` to stage ``name``; returns now."""
+        now = time.perf_counter()
+        with self._lock:
+            self.spans[name] += now - t0
+        return now
+
+    def _geo_cache_get(self, key):
+        with self._lock:
+            hit = self._geo_cache.get(key)
+            if hit is not None:
+                self._geo_cache.move_to_end(key)
+            return hit
+
+    def _geo_cache_put(self, key, value):
+        with self._lock:
+            self._geo_cache[key] = value
+            self._geo_cache.move_to_end(key)
+            while len(self._geo_cache) > self._GEO_CACHE_MAX:
+                self._geo_cache.popitem(last=False)
+
+    def _ctrl_geo_coords(self, dst_gt: GeoTransform, dst_crs: CRS,
+                         height: int, width: int, src_crs: CRS,
+                         step: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Sparse control-point grid: dst pixel centres at every
+        ``step``-th row/col projected into src CRS (f64, host).  The step
+        halves until the bilinear reconstruction error at cell midpoints
+        is within 0.125 px (GDAL's approx-transformer bound).  Returns
+        (sx, sy, actual_step)."""
+        key = ("ctrl", dst_gt.to_gdal(), dst_crs, height, width, src_crs,
+               step)
+        hit = self._geo_cache_get(key)
+        if hit is not None:
+            return hit
+        while True:
+            gh = (height - 1 + step - 1) // step + 1
+            gw = (width - 1 + step - 1) // step + 1
+            c = np.arange(gw, dtype=np.float64) * step + 0.5
+            r = np.arange(gh, dtype=np.float64) * step + 0.5
+            C, R = np.meshgrid(c, r)
+            x, y = dst_gt.pixel_to_geo(C, R)
+            sx, sy = dst_crs.transform_to(src_crs, x, y)
+            sx = np.asarray(sx, np.float64)
+            sy = np.asarray(sy, np.float64)
+            if step <= 2 or self._ctrl_err_px(
+                    sx, sy, dst_gt, dst_crs, src_crs, step) <= 0.125:
+                break
+            step //= 2
+        self._geo_cache_put(key, (sx, sy, step))
+        return sx, sy, step
+
+    @staticmethod
+    def _ctrl_err_px(sx: np.ndarray, sy: np.ndarray, dst_gt: GeoTransform,
+                     dst_crs: CRS, src_crs: CRS, step: int) -> float:
+        """Max bilinear-interpolation error of the ctrl grid at cell
+        midpoints, in units of local source-coords-per-dst-pixel."""
+        gh, gw = sx.shape
+        if gh < 2 or gw < 2:
+            return 0.0
+        c = (np.arange(gw - 1, dtype=np.float64) + 0.5) * step + 0.5
+        r = (np.arange(gh - 1, dtype=np.float64) + 0.5) * step + 0.5
+        C, R = np.meshgrid(c, r)
+        x, y = dst_gt.pixel_to_geo(C, R)
+        ex, ey = dst_crs.transform_to(src_crs, x, y)
+        ix = 0.25 * (sx[:-1, :-1] + sx[:-1, 1:] + sx[1:, :-1]
+                     + sx[1:, 1:])
+        iy = 0.25 * (sy[:-1, :-1] + sy[:-1, 1:] + sy[1:, :-1]
+                     + sy[1:, 1:])
+        du = np.hypot(sx[:-1, 1:] - sx[:-1, :-1],
+                      sy[:-1, 1:] - sy[:-1, :-1]) / step
+        dv = np.hypot(sx[1:, :-1] - sx[:-1, :-1],
+                      sy[1:, :-1] - sy[:-1, :-1]) / step
+        scale = np.maximum(np.maximum(du, dv), 1e-12)
+        with np.errstate(invalid="ignore"):
+            px = np.hypot(np.asarray(ex) - ix, np.asarray(ey) - iy) / scale
+        if not px.size or np.all(np.isnan(px)):
+            return 0.0
+        return float(np.nanmax(px))
+
+    def _granule_stride(self, g, dst_gt: GeoTransform, dst_crs: CRS,
+                        height: int, width: int) -> float:
+        """Source pixels stepped per dst pixel for a granule under this
+        request — drives the scene cache's overview-level choice."""
+        key = (dst_gt.to_gdal(), dst_crs, height, width,
+               g.srs, tuple(g.geo_transform or ()))
+        with self._lock:
+            hit = self._stride_cache.get(key)
+            if hit is not None:
+                self._stride_cache.move_to_end(key)
+                return hit
+        try:
+            src_crs = parse_crs(g.srs) if g.srs else None
+        except ValueError:
+            src_crs = None
+        if src_crs is None:
+            return 1.0
+        sx, sy, step = self._ctrl_geo_coords(dst_gt, dst_crs, height,
+                                             width, src_crs, 16)
+        ggt = GeoTransform.from_gdal(g.geo_transform)
+        col, row = ggt.geo_to_pixel(sx, sy)
+        with np.errstate(invalid="ignore"):
+            dr = np.nanmedian(np.abs(np.diff(row, axis=0))) / step
+            dc = np.nanmedian(np.abs(np.diff(col, axis=1))) / step
+        stride = min(float(dr), float(dc))
+        stride = stride if np.isfinite(stride) and stride > 1.0 else 1.0
+        with self._lock:
+            self._stride_cache[key] = stride
+            while len(self._stride_cache) > self._STRIDE_CACHE_MAX:
+                self._stride_cache.popitem(last=False)
+        return stride
+
+    def _scene_groups(self, granules, ns_ids, prios, dst_gt, dst_crs,
+                      height, width) -> Optional[List[SceneGroup]]:
+        """Device inputs grouped by (source CRS, bucket shape, dtype);
+        None when any scene is uncacheable."""
+        scenes = []
+        for g in granules:
+            stride = self._granule_stride(g, dst_gt, dst_crs, height,
+                                          width)
+            s = self.cache.get(g, stride)
+            if s is None:
+                return None
+            scenes.append(s)
+        by_key: Dict[tuple, List[int]] = {}
+        for i, s in enumerate(scenes):
+            by_key.setdefault((s.crs.name(), s.bucket, str(s.dtype)),
+                              []).append(i)
+        groups = []
+        for idxs in by_key.values():
+            gs = [scenes[i] for i in idxs]
+            s0 = gs[0]
+            sx, sy, step = self._ctrl_geo_coords(
+                dst_gt, dst_crs, height, width, s0.crs, 16)
+            ox, oy = s0.gt.x0, s0.gt.y0
+            ctrl = np.stack([sx - ox, sy - oy]).astype(np.float32)
+            dkey = ("ctrldev", dst_gt.to_gdal(), dst_crs, height, width,
+                    s0.crs, ox, oy)
+            ctrl_dev = self._geo_cache_get(dkey)
+            if ctrl_dev is None:
+                ctrl_dev = torch.from_numpy(ctrl).to(self.device)
+                self._geo_cache_put(dkey, ctrl_dev)
+            B = _bucket_pow2(len(gs))
+            params = np.zeros((B, 11), np.float64)
+            params[:, 10] = -1.0
+            for k, (i, s) in enumerate(zip(idxs, gs)):
+                params[k, :6] = _inv_gt_params(s.gt, ox, oy)
+                params[k, 6] = s.height
+                params[k, 7] = s.width
+                params[k, 8] = s.nodata
+                params[k, 9] = prios[i]
+                params[k, 10] = ns_ids[i]
+            groups.append(SceneGroup(gs, ctrl, ctrl_dev, params, step,
+                                     tuple(s.serial for s in gs) + (B,)))
+        return groups
+
+    def _stack(self, group: SceneGroup) -> torch.Tensor:
+        """(B, bh, bw) scene stack of a group, padding rows repeating the
+        first scene (their ns id is -1, so they never win)."""
+        with self._lock:
+            stack = self._stack_cache.get(group.skey)
+            if stack is not None:
+                self._stack_cache.move_to_end(group.skey)
+                return stack
+        devs = [s.dev for s in group.scenes]
+        devs += [devs[0]] * (group.skey[-1] - len(devs))
+        stack = torch.stack(devs)
+        with self._lock:
+            self._stack_cache[group.skey] = stack
+            while len(self._stack_cache) > self._STACK_CACHE_MAX:
+                self._stack_cache.popitem(last=False)
+        return stack
+
+    def _paged_from_group(self, group: SceneGroup):
+        """Page tables + 16-wide kernel params for one scene group, or
+        None when the paged leg cannot serve it (page budget exceeded,
+        or the pool full of pinned pages).
+
+        Returns (tables (T, S) int32, params16 (T, 16) f32, real_pages).
+        Page coverage per granule comes from the same `_granule_bounds`
+        margins the bucketed window uses; table slots come back PINNED
+        and the caller must `pool.unpin(tables)` once its dispatch is
+        enqueued."""
+        pool = self.pool
+        pr, pc = pool.page_rows, pool.page_cols
+        cx = np.asarray(group.ctrl[0], np.float64)
+        cy = np.asarray(group.ctrl[1], np.float64)
+        params64 = group.params
+        gs = group.scenes
+        T = int(params64.shape[0])
+        spans = []
+        maxnpg = 1
+        cap = page_slots()
+        for k in range(T):
+            p = params64[k]
+            if p[10] < 0 or k >= len(gs):
+                spans.append(None)      # batch-padding row
+                continue
+            made = _granule_bounds(p, cx, cy)
+            if made is None:
+                spans.append(None)      # nothing to gather
+                continue
+            r_lo, r_hi, c_lo, c_hi = made
+            bh, bw = int(gs[k].dev.shape[0]), int(gs[k].dev.shape[1])
+            i0 = max(0, r_lo) // pr
+            i1 = min(-(-bh // pr) - 1, r_hi // pr)
+            j0 = max(0, c_lo) // pc
+            j1 = min(-(-bw // pc) - 1, c_hi // pc)
+            if i1 < i0 or j1 < j0:
+                spans.append(None)      # footprint entirely off-scene
+                continue
+            npg = (i1 - i0 + 1) * (j1 - j0 + 1)
+            if npg > cap:
+                return None
+            maxnpg = max(maxnpg, npg)
+            spans.append((i0, i1, j0, j1))
+        S = _bucket_pow2(maxnpg)
+        tables = np.zeros((T, S), np.int32)
+        params16 = np.zeros((T, PARAMS_W), np.float32)
+        params16[:, :11] = params64[:, :11].astype(np.float32)
+        pinned = []
+        real_pages = 0
+        for k, span in enumerate(spans):
+            if span is None:
+                # zero-extent row (slots 13/14 stay 0): every tap is
+                # out of window, exactly a bucketed all-masked granule
+                continue
+            i0, i1, j0, j1 = span
+            s = gs[k]
+            slots = pool.table_for(s.dev, s.serial, i0, i1, j0, j1)
+            if slots is None:
+                for t in pinned:
+                    pool.unpin(t)
+                return None
+            pinned.append(slots)
+            tables[k, :slots.size] = slots
+            real_pages += int(slots.size)
+            params16[k, 11] = i0 * pr
+            params16[k, 12] = j0 * pc
+            params16[k, 13] = (i1 - i0 + 1) * pr
+            params16[k, 14] = (j1 - j0 + 1) * pc
+            params16[k, 15] = j1 - j0 + 1
+        return tables, params16, real_pages
+
+    def render_byte_scenes(self, granules, ns_ids: Sequence[int],
+                           prios: Sequence[float], dst_gt: GeoTransform,
+                           dst_crs: CRS, height: int, width: int,
+                           n_ns: int, method: str = "near",
+                           offset: float = 0.0, scale: float = 0.0,
+                           clip: float = 0.0, colour_scale: int = 0,
+                           auto: bool = True):
+        """Whole-tile fast path: cached scenes -> PNG-ready uint8 (H, W)
+        tensor on the executor's device (255 = nodata), or None when the
+        granule set is not one uniform group or a scene is uncacheable."""
+        t = time.perf_counter()
+        groups = self._scene_groups(granules, ns_ids, prios, dst_gt,
+                                    dst_crs, height, width)
+        t = self.add_span("groups", t)
+        if groups is None or len(groups) != 1:
+            return None
+        group = groups[0]
+        sp = np.array([offset, scale, clip], np.float32)
+        statics = (method, _bucket_pow2(n_ns), (height, width), group.step,
+                   auto, colour_scale)
+        made = self._paged_from_group(group)
+        t = self.add_span("tables", t)
+        if made is not None:
+            tables, params16, _ = made
+            with self._lock:
+                self.paged_engaged += 1
+            dev = self.device
+            try:
+                with self.pool.locked_pool() as pool:
+                    out = render_byte_paged(
+                        pool, torch.from_numpy(tables[None]).to(dev),
+                        torch.from_numpy(params16).to(dev),
+                        group.ctrl_dev[None], torch.from_numpy(sp[None]),
+                        *statics)
+            finally:
+                self.pool.unpin(tables)
+            self.add_span("dispatch", t)
+            return out[0]
+        with self._lock:
+            self.paged_declined += 1
+        params = torch.from_numpy(group.params.astype(np.float32)) \
+            .to(self.device)
+        out = render_scenes(self._stack(group), group.ctrl_dev, params,
+                            torch.from_numpy(sp), *statics)
+        self.add_span("dispatch", t)
+        return out

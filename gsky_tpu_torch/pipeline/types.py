@@ -1,0 +1,93 @@
+"""Request and granule types for the tile pipeline.
+
+Counterpart of `gsky_tpu/pipeline/types.py`, trimmed to the fields the
+single-band GetMap path reads.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+from ..geo.crs import CRS, EPSG3857
+from ..geo.transform import BBox, GeoTransform
+from ..ops.expr import BandExpressions, parse_band_expressions
+
+
+@dataclass
+class MaskSpec:
+    """A quality/cloud mask band."""
+
+    id: str
+    value: str = ""
+    bit_tests: List[str] = field(default_factory=list)
+    data_source: str = ""
+    inclusive: bool = False
+
+
+@dataclass
+class AxisSelector:
+    """Selection on a non-spatial axis: a value range or explicit
+    indices."""
+
+    name: str
+    start: Optional[float] = None
+    end: Optional[float] = None
+    in_values: Optional[List[float]] = None
+    idx_start: Optional[int] = None
+    idx_end: Optional[int] = None
+    idx_step: int = 1
+    order: int = 0
+    aggregate: int = 1
+
+
+@dataclass
+class GeoTileRequest:
+    """One tile render request (GetMap tile)."""
+
+    collection: str                       # MAS gpath
+    bands: Sequence[str]                  # rgb_products entries
+    bbox: BBox
+    crs: CRS = EPSG3857
+    width: int = 256
+    height: int = 256
+    start_time: Optional[float] = None    # unix seconds
+    end_time: Optional[float] = None
+    axes: List[AxisSelector] = field(default_factory=list)
+    mask: Optional[MaskSpec] = None
+    resample: str = "near"                # near | bilinear | cubic
+    query_limit: int = 0
+    polygon_segments: int = 2
+
+    _exprs: Optional[BandExpressions] = None
+
+    @property
+    def band_exprs(self) -> BandExpressions:
+        if self._exprs is None:
+            object.__setattr__(self, "_exprs",
+                               parse_band_expressions(list(self.bands)))
+        return self._exprs
+
+    def dst_gt(self) -> GeoTransform:
+        return GeoTransform.from_bbox(self.bbox, self.width, self.height)
+
+
+@dataclass
+class Granule:
+    """One unit of warp work: (file, band, axis combination)."""
+
+    path: str
+    ds_name: str
+    namespace: str                        # output namespace (+axis suffix)
+    base_namespace: str                   # the MAS namespace it came from
+    band: int                             # 1-based band
+    time_index: Optional[int]
+    timestamp: float
+    srs: str
+    geo_transform: List[float]
+    nodata: float
+    array_type: str = "Float32"
+    is_netcdf: bool = False
+    var_name: str = ""
+    geo_loc: Optional[Dict] = None
+    polygon: str = ""

@@ -1,0 +1,306 @@
+"""Port parity, kernel tier: the plain PyTorch versions of the two
+warp-render kernels (B1 paged, B2 bucketed) against the JAX package's
+Pallas kernels in interpret mode, plus the plain ops around them
+(`_bilerp_grid`, `_cubic_weights`, `composite_scale`, `scale_to_byte`).
+
+Every input is built once with numpy (float32/int32 explicitly: the
+suite runs JAX with x64 on) and handed to both packages.  Tolerances:
+nearest is bit-exact; bilinear and cubic canvases are within 2 ulp
+(the port fuses the multiply-adds XLA's CPU lowering of the reference
+contracts, so they agree to the bit on these inputs, but the stated
+bound is the contract); the winning-priority planes (`best`) are exact;
+byte tiles are identical."""
+
+import importlib
+from fractions import Fraction
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gsky_tpu.ops import paged as jpaged
+from gsky_tpu.ops import pallas_tpu as jpt
+from gsky_tpu.pipeline.pages import PagePool as JPagePool
+
+# gsky_tpu.ops re-exports functions named `warp` and `scale_to_byte`
+# over its submodules, so the modules are fetched by name
+jwarp = importlib.import_module("gsky_tpu.ops.warp")
+jscale = importlib.import_module("gsky_tpu.ops.scale")
+
+from gsky_tpu_torch.carry import pool_from_reference
+from gsky_tpu_torch.ops import paged as tpaged
+from gsky_tpu_torch.ops import scale as tscale
+from gsky_tpu_torch.ops import warp as twarp
+from gsky_tpu_torch.ops import warp_render as trender
+
+PR, PC = 64, 128
+
+
+@pytest.fixture(autouse=True)
+def _tmp_ledger(tmp_path, monkeypatch):
+    """Hermetic race ledger for the JAX kernels."""
+    monkeypatch.setenv("GSKY_KERNEL_LEDGER", str(tmp_path / "ledger.jsonl"))
+
+
+def _inputs(seed=0, B=4, S=96, h=64, w=64, step=16, n_ns=2, lo=1.0,
+            hi=4000.0, c_lo=4.0, c_hi=None):
+    """tests/test_paged.py::_inputs as numpy: NaN patches, an
+    all-nodata granule, two namespaces, unique priorities."""
+    rng = np.random.default_rng(seed)
+    stack = rng.uniform(lo, hi, (B, S, S)).astype(np.float32)
+    stack[0, 10:20, 10:20] = np.nan
+    if B > 1:
+        stack[1, :, :] = -999.0
+    gh = (h - 1 + step - 1) // step + 1
+    gw = (w - 1 + step - 1) // step + 1
+    if c_hi is None:
+        c_hi = S - 12.0
+    ctrl = np.stack([
+        np.linspace(c_lo, c_hi, gw, dtype=np.float32)[None, :].repeat(gh, 0),
+        np.linspace(c_lo, c_hi, gh, dtype=np.float32)[:, None].repeat(gw, 1)])
+    params = np.zeros((B, 11), np.float32)
+    for k in range(B):
+        params[k] = [0.4 * k - 0.2, 1.01, 0.02, 0.3 * k, -0.01, 0.99,
+                     S, S, -999.0, 100.0 - k, k % n_ns]
+    return stack, ctrl.astype(np.float32), params, h, w, step, n_ns
+
+
+def _stage_full(pool, stack, params, serial0=100, T=None):
+    """Stage every granule's whole scene into the JAX pool; (T, S)
+    tables and (T, 16) params (rows past the stack are padding)."""
+    B = stack.shape[0]
+    T = T or B
+    tabs, grids = [], []
+    for k in range(B):
+        sh, sw = stack[k].shape
+        ni, nj = -(-sh // pool.page_rows), -(-sw // pool.page_cols)
+        tabs.append(pool.table_for(jnp.asarray(stack[k]), serial0 + k,
+                                   0, ni - 1, 0, nj - 1))
+        grids.append((ni, nj))
+    S = 1
+    while S < max(t.size for t in tabs):
+        S *= 2
+    tables = np.zeros((T, S), np.int32)
+    p16 = np.zeros((T, 16), np.float32)
+    p16[:, 10] = -1.0
+    p16[:B, :11] = params[:, :11]
+    for k, (t, (ni, nj)) in enumerate(zip(tabs, grids)):
+        tables[k, :t.size] = t
+        p16[k, 13] = ni * pool.page_rows
+        p16[k, 14] = nj * pool.page_cols
+        p16[k, 15] = nj
+    return tables, p16
+
+
+def _ref_pool(stack, params, T=None):
+    pool = JPagePool(capacity=64, page_rows=PR, page_cols=PC)
+    tables, p16 = _stage_full(pool, stack, params, T=T)
+    return pool, tables, p16
+
+
+def _jax_paged(pool, tables, p16, ctrl, method, n_ns, hw, step):
+    with pool.locked_pool() as parr:
+        c, b = jpaged.warp_scored_paged(
+            parr, jnp.asarray(tables[None]), jnp.asarray(p16),
+            jnp.asarray(ctrl)[None], method, n_ns, hw, step,
+            interpret=True)
+    return np.asarray(c[0]), np.asarray(b[0])
+
+
+def _torch_paged(jpool, tables, p16, ctrl, method, n_ns, hw, step):
+    tpool = pool_from_reference(np.asarray(jpool._pool), jpool._slots,
+                                device="cpu")
+    with tpool.locked_pool() as parr:
+        c, b = tpaged.warp_scored_paged(
+            parr, torch.from_numpy(tables[None]), torch.from_numpy(p16),
+            torch.from_numpy(ctrl)[None], method, n_ns, hw, step)
+    return c[0].numpy(), b[0].numpy()
+
+
+def _check(method, cj, bj, ct, bt):
+    np.testing.assert_array_equal(bj, bt)
+    if method == "near":
+        np.testing.assert_array_equal(cj, ct)
+    else:
+        np.testing.assert_array_almost_equal_nulp(cj, ct, nulp=2)
+
+
+METHODS = ["near", "bilinear", "cubic"]
+
+
+class TestPagedB1:
+    @pytest.mark.parametrize("method", METHODS)
+    @pytest.mark.parametrize("n_ns", [1, 2])
+    def test_plain_vs_pallas_interpret(self, method, n_ns):
+        stack, ctrl, params, h, w, step, _ = _inputs(seed=1, n_ns=n_ns)
+        pool, tables, p16 = _ref_pool(stack, params)
+        cj, bj = _jax_paged(pool, tables, p16, ctrl, method, n_ns,
+                            (h, w), step)
+        ct, bt = _torch_paged(pool, tables, p16, ctrl, method, n_ns,
+                              (h, w), step)
+        _check(method, cj, bj, ct, bt)
+
+    @pytest.mark.parametrize("method", METHODS)
+    def test_ragged_padding_rows_and_page_crossings(self, method):
+        # 3 granules padded to T=4 (padding row: ns -1, null table);
+        # 96-px scenes over 64x128 pages: every tile crosses page rows
+        stack, ctrl, params, h, w, step, n_ns = _inputs(seed=2, B=3)
+        pool, tables, p16 = _ref_pool(stack, params, T=4)
+        assert (tables[3] == 0).all() and p16[3, 10] == -1.0
+        cj, bj = _jax_paged(pool, tables, p16, ctrl, method, n_ns,
+                            (h, w), step)
+        ct, bt = _torch_paged(pool, tables, p16, ctrl, method, n_ns,
+                              (h, w), step)
+        _check(method, cj, bj, ct, bt)
+        assert np.isfinite(bt).any()
+
+    def test_null_tables_all_invalid(self):
+        stack, ctrl, params, h, w, step, n_ns = _inputs(seed=3)
+        pool, tables, p16 = _ref_pool(stack, params)
+        tables[:] = 0                   # every tap hits the NaN page
+        cj, bj = _jax_paged(pool, tables, p16, ctrl, "bilinear", n_ns,
+                            (h, w), step)
+        ct, bt = _torch_paged(pool, tables, p16, ctrl, "bilinear", n_ns,
+                              (h, w), step)
+        _check("bilinear", cj, bj, ct, bt)
+        assert np.isneginf(bt).all() and (ct == 0).all()
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        launches = trender.paged_render_kernel.launches
+        stack, ctrl, params, h, w, step, n_ns = _inputs(seed=4, B=2)
+        pool, tables, p16 = _ref_pool(stack, params)
+        _torch_paged(pool, tables, p16, ctrl, "near", n_ns, (h, w), step)
+        assert trender.paged_render_kernel.launches == launches
+
+
+class TestBucketedB2:
+    @pytest.mark.parametrize("method", METHODS)
+    @pytest.mark.parametrize("n_ns", [1, 2])
+    def test_plain_vs_pallas_interpret(self, method, n_ns):
+        stack, ctrl, params, h, w, step, _ = _inputs(seed=5, n_ns=n_ns,
+                                                     S=128)
+        cj, bj = jpt.warp_scenes_scored_pallas(
+            jnp.asarray(stack), jnp.asarray(ctrl), jnp.asarray(params),
+            method, n_ns, (h, w), step, interpret=True)
+        ct, bt = trender.warp_scenes_scored(
+            torch.from_numpy(stack), torch.from_numpy(ctrl),
+            torch.from_numpy(params), method, n_ns, (h, w), step)
+        _check(method, np.asarray(cj), np.asarray(bj), ct.numpy(),
+               bt.numpy())
+
+    @pytest.mark.parametrize("method", METHODS)
+    def test_kernel_plain_vs_argmax_reference(self, method):
+        # the loop-form mosaic of B2's plain version against the JAX
+        # package's argmax-form XLA reference (no Pallas)
+        stack, ctrl, params, h, w, step, n_ns = _inputs(seed=6, S=128)
+        cj, bj = jwarp.warp_scenes_ctrl_scored(
+            jnp.asarray(stack), jnp.asarray(ctrl), jnp.asarray(params),
+            method, n_ns, (h, w), step)
+        ct, bt = trender.warp_scenes_scored(
+            torch.from_numpy(stack), torch.from_numpy(ctrl),
+            torch.from_numpy(params), method, n_ns, (h, w), step)
+        _check(method, np.asarray(cj), np.asarray(bj), ct.numpy(),
+               bt.numpy())
+
+    @pytest.mark.parametrize("method", METHODS)
+    def test_render_bytes_vs_xla_reference(self, method):
+        stack, ctrl, params, h, w, step, n_ns = _inputs(seed=7, S=128)
+        sp = np.array([0.0, 0.0, 0.0], np.float32)
+        bj = np.asarray(jwarp.render_scenes_ctrl(
+            jnp.asarray(stack), jnp.asarray(ctrl), jnp.asarray(params),
+            jnp.asarray(sp), method, n_ns, (h, w), step))
+        bt = trender.render_scenes(
+            torch.from_numpy(stack), torch.from_numpy(ctrl),
+            torch.from_numpy(params), torch.from_numpy(sp), method, n_ns,
+            (h, w), step).numpy()
+        diff = np.count_nonzero(bj != bt)
+        if method == "near":
+            assert diff == 0
+        else:
+            assert diff <= bj.size // 1000
+
+
+class TestPlainOps:
+    @pytest.mark.parametrize("hw,step", [((64, 64), 16), ((256, 256), 16),
+                                         ((100, 70), 8)])
+    def test_bilerp_grid_identical(self, hw, step):
+        h, w = hw
+        rng = np.random.default_rng(11)
+        gh = (h - 1 + step - 1) // step + 1
+        gw = (w - 1 + step - 1) // step + 1
+        ctrl = rng.uniform(-3e4, 3e4, (gh, gw)).astype(np.float32)
+        gj = np.asarray(jwarp._bilerp_grid(jnp.asarray(ctrl), h, w, step))
+        gt = twarp._bilerp_grid(torch.from_numpy(ctrl), h, w, step).numpy()
+        np.testing.assert_array_equal(gj, gt)
+
+    def test_cubic_weights(self):
+        # w0, w2, w3 round exactly as the reference's op sequence; w1 is
+        # the multiply-add the reference kernels fuse (the kernel parity
+        # tests above pin that form), so against the unfused eager
+        # sequence it may differ by the one rounding the fusion removes
+        # (an ulp of the O(1) intermediate, not of w1, which nears 0)
+        f = np.random.default_rng(12).uniform(0, 1, 4096).astype(np.float32)
+        wj = [np.asarray(a) for a in jwarp._cubic_weights(jnp.asarray(f))]
+        wt = [b.numpy() for b in twarp._cubic_weights(torch.from_numpy(f))]
+        for k in (0, 2, 3):
+            np.testing.assert_array_equal(wj[k], wt[k])
+        np.testing.assert_allclose(wj[1], wt[1], rtol=0, atol=2.0 ** -23)
+
+    def test_fma_single_rounding(self):
+        rng = np.random.default_rng(15)
+        x, y, z = (rng.standard_normal(20000).astype(np.float32)
+                   for _ in range(3))
+        got = twarp.fma(torch.from_numpy(x), torch.from_numpy(y),
+                        torch.from_numpy(z)).numpy()
+        for i in range(0, 20000, 97):
+            e = Fraction(float(x[i])) * Fraction(float(y[i])) \
+                + Fraction(float(z[i]))
+            lo = np.float32(float(e))
+            # correctly rounded: no float32 is closer to the exact value
+            cands = [np.nextafter(lo, np.float32(-np.inf)), lo,
+                     np.nextafter(lo, np.float32(np.inf))]
+            best = min(cands, key=lambda c: abs(Fraction(float(c)) - e))
+            assert got[i] == best
+
+    @pytest.mark.parametrize("auto", [True, False])
+    @pytest.mark.parametrize("colour_scale", [0, 1])
+    def test_composite_scale_identical(self, auto, colour_scale):
+        rng = np.random.default_rng(13)
+        canv = rng.uniform(0.5, 3000.0, (2, 64, 64)).astype(np.float32)
+        vals = rng.uniform(size=(2, 64, 64)) > 0.3
+        sp = np.array([-10.0, 0.0, 2500.0], np.float32)
+        bj = np.asarray(jwarp.composite_scale(
+            jnp.asarray(canv), jnp.asarray(vals), jnp.asarray(sp), auto,
+            colour_scale))
+        bt = twarp.composite_scale(torch.from_numpy(canv),
+                                   torch.from_numpy(vals),
+                                   torch.from_numpy(sp), auto,
+                                   colour_scale).numpy()
+        np.testing.assert_array_equal(bj, bt)
+
+    @pytest.mark.parametrize("auto", [True, False])
+    @pytest.mark.parametrize("colour_scale", [0, 1])
+    @pytest.mark.parametrize("osc", [(0.0, 0.0, 300.0), (5.0, 0.3, 0.0)])
+    def test_scale_to_byte_identical(self, auto, colour_scale, osc):
+        rng = np.random.default_rng(14)
+        data = rng.uniform(0.01, 1000.0, (64, 64)).astype(np.float32)
+        data[0, :8] = [1.0, 10.0, 100.0, 1000.0, 0.0, -1.0, np.nan, 2.5]
+        valid = rng.uniform(size=(64, 64)) > 0.2
+        bj = np.asarray(jscale.scale_to_byte(
+            jnp.asarray(data), jnp.asarray(valid), *osc,
+            colour_scale=colour_scale, auto=auto))
+        bt = tscale.scale_to_byte(torch.from_numpy(data),
+                                  torch.from_numpy(valid), *osc,
+                                  colour_scale=colour_scale,
+                                  auto=auto).numpy()
+        np.testing.assert_array_equal(bj, bt)
+
+
+def test_cuda_tensor_on_cpu_only_build_raises_not_falls_back():
+    """The wrappers never fall back: a non-CPU, non-CUDA tensor raises."""
+    t = torch.zeros((1, 8, 8), device="meta")
+    with pytest.raises(ValueError):
+        trender.warp_render_scored(t, t[0], t[0], torch.zeros((1, 16)),
+                                   "near", 1)
