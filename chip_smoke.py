@@ -16,18 +16,34 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    through `TilePipeline(device="cuda").render_composite_byte` — every
    tile through kernel B1;
 4. the decline leg: tiles with GSKY_PAGE_SLOTS=1, served by kernel B2;
-5. card vs CPU: tiles again with ``device="cpu"`` (the plain versions).
+5. card vs CPU: tiles again with ``device="cpu"`` (the plain versions);
+6. kernel B3 (the drill's masked stats) against its plain version on
+   the card: B in {1, 7, 129, 1000, 1024} x N in {1, 2047, 2049, 16384,
+   262144}, with an all-invalid row, values on the clip bounds and
+   NaN / +-inf where valid is False; counts and sums bit-exact;
+7. the WPS drill end to end at real size: a 1000-timestep float32 stack
+   of 512 x 512 at 0.004 degrees (EPSG:4326, MODIS-500 m-like, nodata
+   -9999 block) written with the port's NetCDF writer and crawled into
+   the port's MAS store; one cold request (host reads while the stack
+   uploads), then warm requests through
+   `DrillPipeline(device="cuda").process`, each through kernel B3 on a
+   (1024, 262144) input, plus one with deciles=9; warm results equal the
+   cold (host numpy) result;
+8. card vs CPU: the drill over the first 100 timesteps through
+   ``device="cpu"`` (exact and deciles) equals the card's.
 
 Then each kernel's device time (torch.profiler) is taken at the main
-path's shapes beside its plain version and its memory bound: the bytes
-of the source pixels its taps need, read once, plus its other inputs
-and outputs.  The last line of standard output is the
+path's shapes beside its plain version and its memory bound: for B1/B2
+the bytes of the source pixels their taps need, read once, plus their
+other inputs and outputs; for B3 its inputs read once and outputs
+written once.  The last line of standard output is the
 JSON result the harness reads; the line before it gives the card's name
 and power limit, and a "kernels" JSON line precedes them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -43,6 +59,16 @@ N_TILES = 32
 METHODS = ("near", "bilinear", "cubic")
 NS = "LC08_B4"
 SCENE_H, SCENE_W = 7681, 7821
+# the drill (BASELINE config 5): 1000 timesteps, 512 x 512 at 0.004 deg
+DRILL_T, DRILL_HW, DRILL_RES = 1000, 512, 0.004
+DRILL_X0, DRILL_Y0 = 130.0, -20.0
+# non-rectangular, its window ~390 x 400 px: bucket 512, B3 input
+# (1024, 262144)
+DRILL_POLY = ("POLYGON((130.20 -20.22,131.76 -20.30,131.80 -21.78,"
+              "130.95 -21.82,130.22 -21.40,130.20 -20.22))")
+N_WARM = 10
+B3_SHAPES_B = (1, 7, 129, 1000, 1024)
+B3_SHAPES_N = (1, 2047, 2049, 16384, 262144)
 
 
 def log(*a):
@@ -310,10 +336,11 @@ class PlainCalls:
     """Counts calls of the kernels' plain versions while installed."""
 
     def __init__(self):
-        from gsky_tpu_torch.ops import paged, warp_render
+        from gsky_tpu_torch.ops import paged, stats, warp_render
         self.calls = 0
         self._mods = [(paged, "paged_render_scored_plain"),
-                      (warp_render, "warp_render_scored_plain")]
+                      (warp_render, "warp_render_scored_plain"),
+                      (stats, "masked_stats_plain")]
         self._orig = [getattr(m, n) for m, n in self._mods]
         for (m, n), f in zip(self._mods, self._orig):
             setattr(m, n, self._counted(f))
@@ -388,13 +415,295 @@ def bound_bytes(sx, sy, params, method, n_ns, extra=0):
         + params.numel() * 4 + extra
 
 
+def b3_edge_inputs(B, N, seed):
+    """B3 inputs made on the card: normal data x 100, valid 70%; row 0
+    all invalid; the last row (when there are two or more) holds values
+    on the clip bounds (valid); NaN and +-inf where valid is False."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    data = torch.randn((B, N), generator=g, device="cuda") * 100.0
+    valid = torch.rand((B, N), generator=g, device="cuda") > 0.3
+    valid[0] = False
+    if B > 1:
+        data[-1, ::7] = -80.0
+        data[-1, 3::7] = 120.0
+        valid[-1, ::7] = True
+        valid[-1, 3::7] = True
+    r = torch.rand((B, N), generator=g, device="cuda")
+    bad = ~valid
+    data[bad & (r < 0.2)] = float("nan")
+    data[bad & (r > 0.9)] = float("inf")
+    data[bad & (r > 0.8) & (r <= 0.9)] = float("-inf")
+    return data.contiguous(), valid.contiguous()
+
+
+def phase_b3_kernel():
+    """B3 against its plain version on the card at every (B, N) of the
+    phase's grid: counts and sums bit-exact (both sum each of 2048 lanes
+    in chunk order, then one fixed lane tree).  Returns (comparisons,
+    max |sum difference|)."""
+    import torch
+    from gsky_tpu_torch.ops import stats
+    n, err = 0, 0.0
+    saved = stats.masked_stats_kernel.launches
+    for B in B3_SHAPES_B:
+        for N in B3_SHAPES_N:
+            data, valid = b3_edge_inputs(B, N, seed=B * 7 + N)
+            s, c = stats.masked_stats(data, valid, -80.0, 120.0)
+            sp, cp = stats.masked_stats_plain(data, valid, -80.0, 120.0)
+            torch.cuda.synchronize()
+            if not torch.equal(c, cp):
+                raise AssertionError(f"B3 ({B}, {N}): counts differ")
+            if not torch.equal(s, sp):
+                d = float((s - sp).abs().max())
+                raise AssertionError(f"B3 ({B}, {N}): sums not bit-exact "
+                                     f"(max |diff| {d})")
+            if c[0] != 0 or s[0] != 0:
+                raise AssertionError(f"B3 ({B}, {N}): invalid row counted")
+            err = max(err, float((s - sp).abs().max()))
+            n += 1
+            del data, valid
+    stats.masked_stats_kernel.launches = saved
+    return n, err
+
+
+def write_drill_stack(path):
+    """A 1000-step NDVI-like float32 stack (8-day steps from 2000-01-01:
+    a smooth field, a seasonal cycle and noise; a -9999 nodata block
+    inside the polygon), written with the port's NetCDF-3 writer."""
+    from gsky_tpu_torch.geo.crs import EPSG4326
+    from gsky_tpu_torch.io.netcdf import write_netcdf3
+    T, hw = DRILL_T, DRILL_HW
+    rng = np.random.default_rng(5)
+    x = DRILL_X0 + DRILL_RES * (np.arange(hw) + 0.5)
+    y = DRILL_Y0 - DRILL_RES * (np.arange(hw) + 0.5)
+    times = 946684800.0 + 8 * 86400.0 * np.arange(T)
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32)
+    base = 0.3 + 0.2 * np.sin(xx / 37.0) * np.cos(yy / 53.0)
+    season = 0.15 * np.sin(2 * np.pi * np.arange(T) * 8 / 365.25)
+    data = np.empty((T, hw, hw), np.float32)
+    for t in range(T):
+        data[t] = base + np.float32(season[t]) \
+            + 0.05 * rng.standard_normal((hw, hw), dtype=np.float32)
+    data[:, 100:160, 300:380] = -9999.0
+    write_netcdf3(path, {"ndvi": data}, x, y, EPSG4326, times=times,
+                  nodata=-9999.0)
+    return times
+
+
+def same_drill(ref, got, what, rtol=1e-5):
+    """Dates and counts equal, values within ``rtol``, over the
+    namespaces of ``ref``; returns the largest relative difference."""
+    if got.dates != ref.dates or not set(ref.values) <= set(got.values):
+        raise AssertionError(f"{what}: dates or namespaces differ")
+    worst = 0.0
+    for k in ref.values:
+        if list(map(int, got.counts[k])) != list(map(int, ref.counts[k])):
+            raise AssertionError(f"{what}: counts of {k} differ")
+        a = np.asarray(ref.values[k], np.float64)
+        b = np.asarray(got.values[k], np.float64)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"{what}: NaN rows of {k} differ")
+        ok = ~np.isnan(a)
+        rel = np.abs(a[ok] - b[ok]) / np.maximum(np.abs(a[ok]), 1e-30)
+        if rel.size:
+            worst = max(worst, float(rel.max()))
+        if worst > rtol:
+            raise AssertionError(f"{what}: {k} differs by {worst} > {rtol}")
+    return worst
+
+
+def phase_drill(root, card):
+    """Phases 7 and 8.  Returns (B3 launches of the warm run, the
+    arguments B3 got on the main path)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gsky_tpu_torch.index.client import MASClient
+    from gsky_tpu_torch.index.crawler import extract
+    from gsky_tpu_torch.index.store import MASStore
+    from gsky_tpu_torch.ops import paged, stats, warp_render
+    from gsky_tpu_torch.pipeline import drill as tdrill
+    from gsky_tpu_torch.pipeline.types import GeoDrillRequest
+    t0 = time.perf_counter()
+    path = os.path.join(root, "modis_ndvi_stack.nc")
+    times = write_drill_stack(path)
+    store = MASStore()
+    rec = extract(path)
+    if rec.get("error"):
+        raise AssertionError(rec["error"])
+    store.ingest(rec)
+    log(f"phase 7: {DRILL_T} x {DRILL_HW} x {DRILL_HW} f32 stack "
+        f"({os.path.getsize(path) / 1e9:.3f} GB) written + crawled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    os.environ.pop("GSKY_DRILL_CACHE", None)   # default: async upload
+    pipe = tdrill.DrillPipeline(MASClient(store), device="cuda")
+    req = GeoDrillRequest(collection=root, bands=["ndvi"],
+                          geometry_wkt=DRILL_POLY, approx=False)
+    stats.masked_stats_kernel.launches = 0
+    t0 = time.perf_counter()
+    cold = pipe.process(req)
+    cold_s = time.perf_counter() - t0
+    if stats.masked_stats_kernel.launches or len(cold.dates) != DRILL_T:
+        raise AssertionError("cold request did not take the host path")
+    t0 = time.perf_counter()
+    if not pipe.cache.wait_idle(600):
+        raise AssertionError("stack upload did not finish")
+    log(f"phase 7: cold drill {cold_s * 1e3:.1f} ms (host reads + numpy); "
+        f"stack resident after {time.perf_counter() - t0:.1f} s more")
+
+    # the main path: warm drills, counts from 0
+    captured = []
+    b3_call = tdrill.masked_stats
+
+    def capture(*a):
+        if not captured:
+            captured.append(a)
+        return b3_call(*a)
+
+    tdrill.masked_stats = capture
+    plain = PlainCalls()
+    for k in (paged.paged_render_kernel, warp_render.warp_render_kernel,
+              stats.masked_stats_kernel):
+        k.launches = 0
+    for k in pipe.spans:
+        pipe.spans[k] = 0.0
+    lat, warm = [], []
+    try:
+        for _ in range(N_WARM):
+            t0 = time.perf_counter()
+            warm.append(pipe.process(req))
+            lat.append(time.perf_counter() - t0)
+        spans = {k: v / N_WARM * 1e3 for k, v in pipe.spans.items()}
+        t0 = time.perf_counter()
+        dec = pipe.process(dataclasses.replace(req, deciles=9))
+        dec_s = time.perf_counter() - t0
+    finally:
+        tdrill.masked_stats = b3_call
+        plain.remove()
+    b3_launches = stats.masked_stats_kernel.launches
+    if b3_launches < N_WARM + 1 or plain.calls \
+            or paged.paged_render_kernel.launches \
+            or warp_render.warp_render_kernel.launches:
+        raise AssertionError(f"warm drills: B3 {b3_launches} (want >= "
+                             f"{N_WARM + 1}), plain calls {plain.calls}")
+    d, v = captured[0][:2]
+    want = (1 << (DRILL_T - 1).bit_length(), min(512, DRILL_HW) ** 2)
+    if tuple(d.shape) != want:
+        raise AssertionError(f"B3 main-path shape {tuple(d.shape)}, "
+                             f"want {want}")
+    worst = max(same_drill(cold, w, "warm vs cold") for w in warm)
+    worst = max(worst, same_drill(cold, dec, "deciles run vs cold"))
+    if len([k for k in dec.values if "_d" in k]) != 9:
+        raise AssertionError("deciles missing")
+    if not all(np.isfinite(dec.values[f"ndvi_d{i}"]).all()
+               for i in range(1, 10)):
+        raise AssertionError("non-finite deciles")
+    wall = sum(lat)
+    log(f"phase 7: {N_WARM} warm drills, {N_WARM / wall:.2f} drills/s, "
+        f"p50 {np.median(lat) * 1e3:.2f} ms, p90 "
+        f"{np.percentile(lat, 90) * 1e3:.2f} ms, "
+        f"{DRILL_T * N_WARM / wall:.0f} timesteps/s; deciles=9 drill "
+        f"{dec_s * 1e3:.1f} ms; B3 launches {b3_launches}, plain calls 0; "
+        f"warm = cold within rel {worst:.3g} ({card})")
+    log("phase 7 breakdown, ms per warm drill (host clock): " + ", ".join(
+        f"{k} {val:.4f}" for k, val in spans.items()))
+    # device time per drill, on a second pass under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            pipe.process(req)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in avgs)
+    b3_us = sum(e.self_device_time_total for e in avgs
+                if "masked_stats_kernel" in e.key)
+    top = sorted(((e.self_device_time_total, e.key) for e in avgs
+                  if e.self_device_time_total > 0), reverse=True)[:6]
+    stats.masked_stats_kernel.launches = b3_launches
+    log(f"phase 7 device: busy {dev_us / 3 / 1e3:.4f} ms per drill, of "
+        f"which B3 {b3_us / 3 / 1e3:.4f} ms; top: " + "; ".join(
+            f"{k[:60]} {us / 3 / 1e3:.4f}" for us, k in top))
+
+    # -- phase 8: card vs CPU over the first 100 timesteps ------------
+    os.environ["GSKY_DRILL_CACHE"] = "sync"
+    try:
+        cpu = tdrill.DrillPipeline(MASClient(store), device="cpu")
+        t0 = time.perf_counter()
+        for kw in ({}, {"deciles": 9}):
+            r = dataclasses.replace(req, start_time=float(times[0]),
+                                    end_time=float(times[99]), **kw)
+            on_card = pipe.process(r)
+            on_cpu = cpu.process(r)
+            if len(on_card.dates) != 100:
+                raise AssertionError("phase 8 window is not 100 steps")
+            w8 = same_drill(on_cpu, on_card, f"card vs cpu {kw}")
+            for k in on_cpu.values:
+                if "_d" in k and on_cpu.values[k] != on_card.values[k]:
+                    raise AssertionError(f"card vs cpu: {k} not equal")
+        cpu.cache.clear()
+    finally:
+        os.environ.pop("GSKY_DRILL_CACHE", None)
+    log(f"phase 8: CPU drills over 100 steps match the card (rel "
+        f"{w8:.3g}, deciles equal) in {time.perf_counter() - t0:.1f} s")
+    pipe.cache.clear()
+    return b3_launches, captured[0]
+
+
+def time_b3(args, card):
+    """B3's device time at the main path's (1024, 262144) inputs beside
+    its bound (inputs read once, outputs written once, over the memory
+    rate), its plain version and the same function composed from
+    PyTorch's own reductions.  Returns (ms, plain ms, bound ms, library
+    ms, max |kernel - plain|)."""
+    import torch
+    from gsky_tpu_torch.ops import stats
+    d, v, lo, hi = args
+    v8 = v.view(torch.uint8)
+
+    def b3():
+        return stats.masked_stats(d, v, lo, hi)
+
+    def b3p():
+        return stats.masked_stats_plain(d, v, lo, hi)
+
+    flo, fhi = stats.clip_f32(lo, hi)
+
+    def library():
+        inclip = (v8 != 0) & (d >= flo) & (d <= fhi)
+        return torch.where(inclip, d, 0.0).sum(-1), \
+            inclip.sum(-1, dtype=torch.int32)
+
+    saved = stats.masked_stats_kernel.launches
+    s, c = b3()
+    sp, cp = b3p()
+    sl, cl = library()
+    torch.cuda.synchronize()
+    if not (torch.equal(s, sp) and torch.equal(c, cp) and torch.equal(c, cl)):
+        raise AssertionError("B3 main-path inputs: kernel != plain")
+    err = float((s - sp).abs().max())
+    ms = kernel_device_ms(b3, "masked_stats_kernel")
+    call = cuda_time_ms(b3)
+    pms = cuda_time_ms(b3p, reps=3)
+    lms = cuda_time_ms(library, reps=10)
+    stats.masked_stats_kernel.launches = saved
+    B, N = d.shape
+    nbytes = B * N * 4 + B * N + B * 8
+    bd = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"timing B3 ({B}, {N}): device {ms:.5f} ms (per call with host "
+        f"{call:.4f}), bound {bd:.5f} ms ({nbytes} bytes, "
+        f"{100 * bd / ms:.1f}% of bound), plain {pms:.3f} ms, library "
+        f"(where+sum+count) {lms:.4f} ms, library vs kernel sums max "
+        f"|diff| {float((sl - s).abs().max()):.3g} ({card})")
+    return ms, pms, bd, lms, err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    from gsky_tpu_torch.ops import paged, warp_render
+    from gsky_tpu_torch.ops import cuda_lib, paged, stats, warp_render
     from gsky_tpu_torch.ops.warp import _bilerp_grid
     t_start = time.perf_counter()
     card = card_facts()
@@ -403,10 +712,12 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
-    lib = warp_render.build_library()
-    warp_render._library()
-    log(f"phase 1: built {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    libs = [warp_render.LIBRARY, stats.LIBRARY]
+    built = cuda_lib.build_all(libs)       # one nvcc per source, at once
+    for lib in libs:
+        lib.load()
+    log(f"phase 1: built {', '.join(os.path.relpath(b, ROOT) for b in built)}"
+        f" in {time.perf_counter() - t0:.2f} s")
 
     # -- phase 2: kernels vs plain on the card ------------------------
     n_cmp = phase_kernels()
@@ -444,6 +755,7 @@ def main() -> int:
         plain = PlainCalls()
         paged.paged_render_kernel.launches = 0
         warp_render.warp_render_kernel.launches = 0
+        stats.masked_stats_kernel.launches = 0
         card_tiles, lat = {}, []
         t0 = time.perf_counter()
         for method in METHODS:
@@ -454,10 +766,12 @@ def main() -> int:
         b2_main = warp_render.warp_render_kernel.launches
         plain.remove()
         n_main = N_TILES * len(METHODS)
-        if b1_launches != n_main or b2_main != 0 or plain.calls:
+        if b1_launches != n_main or b2_main != 0 or plain.calls \
+                or stats.masked_stats_kernel.launches:
             raise AssertionError(
                 f"main path: B1 {b1_launches} (want {n_main}), B2 "
-                f"{b2_main}, plain calls {plain.calls}")
+                f"{b2_main}, B3 {stats.masked_stats_kernel.launches}, "
+                f"plain calls {plain.calls}")
         p50 = float(np.median(lat)) * 1e3
         log(f"phase 3: {n_main} tiles, {n_main / wall:.1f} tiles/s, p50 "
             f"{p50:.2f} ms, p90 {np.percentile(lat, 90) * 1e3:.2f} ms "
@@ -576,9 +890,22 @@ def main() -> int:
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
+    # -- phases 6-8: the drill and kernel B3 -------------------------
+    n_b3, b3_err = phase_b3_kernel()
+    log(f"phase 6: {n_b3} B3-vs-plain comparisons bit-exact")
+    drill_root = os.path.join(ROOT, "build", "smoke_drill")
+    shutil.rmtree(drill_root, ignore_errors=True)
+    os.makedirs(drill_root)
+    try:
+        b3_launches, b3_args = phase_drill(drill_root, card)
+        b3_row = time_b3(b3_args, card)
+    finally:
+        shutil.rmtree(drill_root, ignore_errors=True)
+
     # the kernels line reports the bilinear row (the GetMap default
     # interpolated method); every method's numbers are logged above
     m, err1, ms1, pms1, bd1, err2, ms2, pms2, bd2 = rows[1]
+    b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
     kernels = {"kernels": [
         {"name": "paged_render (B1)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
@@ -594,6 +921,13 @@ def main() -> int:
          "max_abs_err": max(r[5] for r in rows),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,
          "bound_by": "bytes", "library_ms": None},
+        {"name": "masked_stats (B3)", "route": "cuda",
+         "source": "gsky_tpu_torch/csrc/masked_stats.cu",
+         "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
+         "launches": b3_launches,
+         "max_abs_err": max(b3_err, b3_main_err),
+         "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
+         "bound_by": "bytes", "library_ms": b3_lib},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)

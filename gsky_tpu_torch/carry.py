@@ -1,9 +1,9 @@
 """Carrying state across from the JAX package.
 
-This system's state is data, not weights: staged page pools and device
-scenes.  These helpers load a JAX-side snapshot, taken as numpy arrays,
-into the port's containers, so both packages can be fed identical
-staged pages.
+This system's state is data, not weights: staged page pools, device
+scenes and resident drill stacks.  These helpers load a JAX-side
+snapshot, taken as numpy arrays, into the port's containers, so both
+packages can be fed identical state.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from .device import resolve_device
 from .geo.crs import CRS
 from .geo.transform import GeoTransform
+from .pipeline.drill_cache import DeviceStack, stack_from_numpy
 from .pipeline.pages import PagePool
 from .pipeline.scene_cache import DeviceScene
 
@@ -50,3 +51,11 @@ def scene_from_numpy(data: np.ndarray, height: int, width: int,
     return DeviceScene(dev=dev, height=int(height), width=int(width),
                        nodata=float(nodata), gt=gt, crs=crs,
                        serial=int(serial))
+
+
+def drill_stack_from_numpy(stack_np: np.ndarray, nodata,
+                           device="cuda") -> DeviceStack:
+    """A resident drill `DeviceStack` from the (T, H, W) native-dtype
+    array a JAX `DeviceStack.dev` holds (``np.asarray(st.dev)``) and its
+    nodata (NaN or None when absent)."""
+    return stack_from_numpy(np.array(stack_np), nodata, device)

@@ -100,6 +100,11 @@ class GeoTransform:
     def is_north_up(self) -> bool:
         return self.rx == 0.0 and self.ry == 0.0
 
+    def window(self, col0: int, row0: int) -> "GeoTransform":
+        """Transform for a sub-window starting at pixel (col0, row0)."""
+        x0, y0 = self.pixel_to_geo(col0, row0)
+        return GeoTransform(x0, self.dx, self.rx, y0, self.ry, self.dy)
+
     def scaled(self, fx: float, fy: float) -> "GeoTransform":
         """Transform for the same extent at resolution scaled by (fx, fy)
         (fx > 1 means coarser pixels) — the overview georeferencing."""

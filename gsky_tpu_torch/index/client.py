@@ -47,6 +47,8 @@ class Dataset:
     polygon: str
     nodata: float
     axes: List[DatasetAxis] = field(default_factory=list)
+    means: Optional[List[float]] = None
+    sample_counts: Optional[List[int]] = None
     geo_loc: Optional[Dict] = None
     overviews: Optional[List[Dict]] = None
 
@@ -65,6 +67,8 @@ class Dataset:
             polygon=j.get("polygon", ""),
             nodata=float(j.get("nodata") or 0.0),
             axes=[DatasetAxis.from_json(a) for a in (j.get("axes") or [])],
+            means=j.get("means"),
+            sample_counts=j.get("sample_counts"),
             geo_loc=j.get("geo_loc"),
             overviews=j.get("overviews"),
         )

@@ -1,9 +1,11 @@
 """MAS — the metadata index, sqlite-backed.
 
 Counterpart of `gsky_tpu/index/store.py`, trimmed to what the GetMap
-tile path asks of it: ingest of crawler records and the
+and drill paths ask of it: ingest of crawler records and the
 ``?intersects&metadata=gdal`` query (bbox R*Tree prefilter in EPSG:4326,
-then an exact polygon test), with the same JSON record shape.
+then an exact polygon test), with the same JSON record shape, including
+the crawler's per-timestep means and sample counts (the drill's fast
+path) and geolocation records.
 """
 
 from __future__ import annotations
@@ -64,6 +66,9 @@ CREATE TABLE IF NOT EXISTS datasets(
     min_stamp REAL, max_stamp REAL,               -- unix seconds
     timestamps TEXT,       -- JSON array of RFC3339
     axes TEXT,
+    means TEXT,
+    sample_counts TEXT,
+    geo_loc TEXT,
     overviews TEXT
 );
 CREATE INDEX IF NOT EXISTS idx_ds_path ON datasets(path);
@@ -174,8 +179,9 @@ class MASStore:
             conn.execute(
                 "INSERT INTO datasets(path, ds_name, namespace, array_type,"
                 " srs, geo_transform, polygon, nodata, xmin, ymin, xmax,"
-                " ymax, min_stamp, max_stamp, timestamps, axes, overviews)"
-                " VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                " ymax, min_stamp, max_stamp, timestamps, axes, means,"
+                " sample_counts, geo_loc, overviews)"
+                " VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
                 (path,
                  ds.get("ds_name", path),
                  sanitize_namespace(ds.get("namespace", "")),
@@ -190,6 +196,10 @@ class MASStore:
                  unix[-1] if unix else None,
                  json.dumps([fmt_time(t) for t in unix]),
                  json.dumps(ds.get("axes")) if ds.get("axes") else None,
+                 json.dumps(ds.get("means")) if ds.get("means") else None,
+                 json.dumps(ds.get("sample_counts"))
+                 if ds.get("sample_counts") else None,
+                 json.dumps(ds.get("geo_loc")) if ds.get("geo_loc") else None,
                  json.dumps(ds.get("overviews"))
                  if ds.get("overviews") else None))
             n += 1
@@ -291,6 +301,10 @@ class MASStore:
                 if r["overviews"] else None,
                 "nodata": r["nodata"] if r["nodata"] is not None else 0.0,
                 "axes": json.loads(r["axes"]) if r["axes"] else None,
+                "means": json.loads(r["means"]) if r["means"] else None,
+                "sample_counts": json.loads(r["sample_counts"])
+                if r["sample_counts"] else None,
+                "geo_loc": json.loads(r["geo_loc"]) if r["geo_loc"] else None,
             } for r in out_rows]}
         # callers annotate the records they get, so the cache keeps its
         # own per-record copies

@@ -1,19 +1,24 @@
-"""Band expressions: parsing of `rgb_products` entries.
+"""Band expressions: parsing of `rgb_products` entries, and their
+evaluation over numpy values.
 
-Counterpart of the parsing half of `gsky_tpu/ops/expr.py`: the same
-tokenizer, grammar and `parse_band_expressions` contract, so a request's
-variable list and output names match the reference.  The GetMap slice
-serves plain-variable entries only; evaluating an expression AST is the
-band-algebra slice's work and raises NotImplementedError here.
+Counterpart of `gsky_tpu/ops/expr.py`: the same tokenizer, grammar and
+`parse_band_expressions` contract, so a request's variable list and
+output names match the reference, and the same evaluator (`_emit`),
+which the drill's merge runs over per-date float64 scalars.  Evaluation
+over torch tensors on the card (the fused band algebra of the GetMap
+path) is not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 import re
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
 
 _TOKEN_RE = re.compile(r"""
     (?P<num>\d+\.\d*(?:[eE][-+]?\d+)?|\.\d+(?:[eE][-+]?\d+)?|\d+(?:[eE][-+]?\d+)?)
@@ -22,9 +27,13 @@ _TOKEN_RE = re.compile(r"""
   | (?P<ws>\s+)
 """, re.X)
 
-# function names the grammar recognises (calls parse as ("call", ...))
-_FUNCS = frozenset(("abs", "sqrt", "log", "log10", "exp", "sin", "cos",
-                    "tan", "floor", "ceil", "min", "max", "pow"))
+# the functions the grammar recognises (calls parse as ("call", ...))
+_FUNCS = {
+    "abs": np.abs, "sqrt": np.sqrt, "log": np.log, "log10": np.log10,
+    "exp": np.exp, "sin": np.sin, "cos": np.cos, "tan": np.tan,
+    "floor": np.floor, "ceil": np.ceil,
+    "min": np.minimum, "max": np.maximum, "pow": np.power,
+}
 
 
 def tokenize(src: str) -> List[Tuple[str, str]]:
@@ -154,6 +163,63 @@ def _collect_vars(node, acc):
             _collect_vars(n, acc)
 
 
+def _emit(node, env, xp):
+    tag = node[0]
+    if tag == "num":
+        return node[1]
+    if tag == "var":
+        return env[node[1]]
+    if tag == "un":
+        a = _emit(node[2], env, xp)
+        if node[1] == "-":
+            return -a
+        return xp.where(a != 0, 0.0, 1.0)
+    if tag == "bin":
+        op = node[1]
+        a = _emit(node[2], env, xp)
+        b = _emit(node[3], env, xp)
+        if op == "+":
+            return a + b
+        if op == "-":
+            return a - b
+        if op == "*":
+            return a * b
+        if op == "/":
+            return a / b
+        if op == "%":
+            # Go math.Mod semantics (truncated, sign of the dividend),
+            # not Python's floored modulo
+            return xp.fmod(a, b) if hasattr(xp, "fmod") else math.fmod(a, b)
+        if op == "**":
+            return a ** b
+        if op == "==":
+            return (a == b) * 1.0
+        if op == "!=":
+            return (a != b) * 1.0
+        if op == "<":
+            return (a < b) * 1.0
+        if op == "<=":
+            return (a <= b) * 1.0
+        if op == ">":
+            return (a > b) * 1.0
+        if op == ">=":
+            return (a >= b) * 1.0
+        if op == "&&":
+            return ((a != 0) & (b != 0)) * 1.0
+        if op == "||":
+            return ((a != 0) | (b != 0)) * 1.0
+        raise ValueError(op)
+    if tag == "tern":
+        c = _emit(node[1], env, xp)
+        a = _emit(node[2], env, xp)
+        b = _emit(node[3], env, xp)
+        return xp.where(c != 0, a, b)
+    if tag == "call":
+        args = [_emit(n, env, xp) for n in node[2]]
+        return _FUNCS[node[1]](*args)
+    raise ValueError(tag)
+
+
 @dataclass
 class CompiledExpr:
     """A parsed band expression."""
@@ -162,10 +228,17 @@ class CompiledExpr:
     variables: List[str]
     _ast: tuple = field(repr=False, default=None)
 
-    def __call__(self, env, xp=None):
-        raise NotImplementedError(
-            "band-expression evaluation is not ported yet: "
-            f"{self.src!r}")
+    def __call__(self, env: Dict[str, object], xp=np):
+        """Evaluate over numpy values (arrays or scalars) in ``env``."""
+        if xp is not np:
+            raise NotImplementedError(
+                "band-expression evaluation over torch tensors is not "
+                f"ported yet: {self.src!r}")
+        missing = [v for v in self.variables if v not in env]
+        if missing:
+            raise KeyError(f"expression {self.src!r} missing bands "
+                           f"{missing}")
+        return _emit(self._ast, env, xp)
 
 
 _CACHE_CAP = 512

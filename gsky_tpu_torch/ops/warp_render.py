@@ -11,75 +11,31 @@ in `ops.warp`):
   `gsky_tpu/ops/pallas_tpu.py::_warp_render_kernel`: the same body,
   gathering from a dense (B, bh, bw) scene stack.
 
-The library is compiled with nvcc on first use into ``build/`` beside
-the package (keyed by the source's content hash) and loaded through
-ctypes with a plain C interface.  Each wrapper launches its kernel for
-CUDA tensors and counts the launch; for CPU tensors it runs the plain
-PyTorch version beside it.  There is no fallback: a CUDA launch that
-fails raises.
+The library is built and bound by `ops.cuda_lib` (nvcc at first use
+into ``build/``, ctypes, ``cudaGetLastError`` after every launch).
+Each wrapper launches its kernel for CUDA tensors and counts the
+launch; for CPU tensors it runs the plain PyTorch version beside it.
+There is no fallback: a CUDA launch that fails raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
+from .cuda_lib import CudaLibrary, Kernel, check_cuda
 from .warp import METHODS, NEAR, _bilerp_grid, composite_scale, \
     granule_sample, mosaic_update, params16
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "warp_render.cu"
-_BUILD = _SRC.parent.parent.parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 # n_ns values the kernels are instantiated for (n_ns is pow2-bucketed)
 MAX_NS = 8
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda, "bin", "nvcc")
-    return cand if os.path.exists(cand) else "nvcc"
-
-
-def build_library() -> Path:
-    """Compile csrc/warp_render.cu into build/ unless a library built
-    from the same source already exists; returns its path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD / f"libwarp_render-{tag}.so"
-    if out.exists():
-        return out
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                   check=True)
-    os.replace(tmp, out)
-    return out
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.launch_paged_render.argtypes = \
-                [ci, ci] + [vp] * 7 + [ci] * 6 + [vp]
-            lib.launch_paged_render.restype = ci
-            lib.launch_warp_render.argtypes = \
-                [ci, ci] + [vp] * 6 + [ci] * 5 + [vp]
-            lib.launch_warp_render.restype = ci
-            _lib = lib
-        return _lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+LIBRARY = CudaLibrary("warp_render.cu", {
+    "launch_paged_render": [_CI, _CI] + [_VP] * 7 + [_CI] * 6,
+    "launch_warp_render": [_CI, _CI] + [_VP] * 6 + [_CI] * 5,
+})
 
 
 def method_code(method: str) -> int:
@@ -88,38 +44,8 @@ def method_code(method: str) -> int:
     return 0 if method in NEAR else (1 if method == "bilinear" else 2)
 
 
-class Kernel:
-    """One C launch entry point of the library, with its launch count
-    (incremented only where the kernel is launched)."""
-
-    def __init__(self, symbol: str):
-        self.symbol = symbol
-        self.launches = 0
-        self._lock = threading.Lock()
-
-    def __call__(self, *args) -> None:
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_library(), self.symbol)(*args, stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
-        with self._lock:
-            self.launches += 1
-
-
-paged_render_kernel = Kernel("launch_paged_render")
-warp_render_kernel = Kernel("launch_warp_render")
-
-
-def check_cuda(*tensors, dtypes):
-    """Device, dtype and contiguity checks before pointers go to C."""
-    dev = tensors[0].device
-    for t, dt in zip(tensors, dtypes):
-        if t.device != dev:
-            raise ValueError(f"tensor on {t.device}, expected {dev}")
-        if t.dtype != dt:
-            raise TypeError(f"tensor of {t.dtype}, expected {dt}")
-        if not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
+paged_render_kernel = Kernel(LIBRARY, "launch_paged_render")
+warp_render_kernel = Kernel(LIBRARY, "launch_warp_render")
 
 
 def check_ns(n_ns: int) -> None:

@@ -1,7 +1,7 @@
-"""Open-file handle cache for granule reads.
+"""Open-file handle cache for granule and drill reads.
 
 Counterpart of `gsky_tpu/pipeline/decode.py::_HandleCache`, for the
-GeoTIFF granules this slice serves.
+GeoTIFF and NetCDF-3 files the port serves.
 """
 
 from __future__ import annotations
@@ -10,20 +10,21 @@ import threading
 from typing import Dict, List
 
 from ..io.geotiff import GeoTIFF
+from ..io.netcdf import NetCDF
 
 
 class _HandleCache:
-    """LRU of open GeoTIFF handles with a per-path open latch:
+    """LRU of open GeoTIFF / NetCDF handles with a per-path open latch:
     concurrent callers for one path wait for the first opener."""
 
     def __init__(self, max_handles: int = 64):
         self._lock = threading.Lock()
-        self._handles: Dict[str, GeoTIFF] = {}
+        self._handles: Dict[str, object] = {}
         self._order: List[str] = []
         self._opening: Dict[str, threading.Event] = {}
         self._max = max_handles
 
-    def get(self, path: str) -> GeoTIFF:
+    def get(self, path: str, is_netcdf: bool = False):
         while True:
             with self._lock:
                 h = self._handles.get(path)
@@ -37,7 +38,7 @@ class _HandleCache:
             # cached handle means the open failed — retry it ourselves)
             ev.wait()
         try:
-            h = GeoTIFF(path)
+            h = NetCDF(path) if is_netcdf else GeoTIFF(path)
         except BaseException:
             with self._lock:
                 self._opening.pop(path, None)

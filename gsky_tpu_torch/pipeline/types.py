@@ -1,7 +1,7 @@
-"""Request and granule types for the tile pipeline.
+"""Request, granule and result types for the tile and drill pipelines.
 
 Counterpart of `gsky_tpu/pipeline/types.py`, trimmed to the fields the
-single-band GetMap path reads.
+single-band GetMap path and the WPS drill read.
 """
 
 from __future__ import annotations
@@ -91,3 +91,47 @@ class Granule:
     var_name: str = ""
     geo_loc: Optional[Dict] = None
     polygon: str = ""
+
+
+@dataclass
+class GeoDrillRequest:
+    """WPS polygon drill request (`drill_types.go`)."""
+
+    collection: str
+    bands: Sequence[str]
+    geometry_wkt: str                     # in EPSG:4326
+    start_time: Optional[float] = None
+    end_time: Optional[float] = None
+    clip_lower: float = -3.0e38
+    clip_upper: float = 3.0e38
+    deciles: int = 0
+    pixel_count: bool = False
+    band_strides: int = 1
+    approx: bool = True                   # use the crawler stats fast path
+    # VRT granules (`drill_indexer.go:318-346`): not ported yet
+    vrt_url: str = ""
+    vrt_xml: str = ""
+    mask_namespaces: Sequence[str] = ()
+    # large-polygon tiling (`drill_indexer.go:115-137`): the polygon
+    # splits into index tiles of this size in degrees; 0 disables
+    index_tile_x_size: float = 0.0
+    index_tile_y_size: float = 0.0
+
+    _exprs: Optional[BandExpressions] = None
+
+    @property
+    def band_exprs(self) -> BandExpressions:
+        if self._exprs is None:
+            object.__setattr__(self, "_exprs",
+                               parse_band_expressions(list(self.bands)))
+        return self._exprs
+
+
+@dataclass
+class DrillResult:
+    """Per-date aggregated statistics: rows indexed by timestamp."""
+
+    dates: List[float]                                  # unix, sorted
+    values: Dict[str, List[float]]                      # namespace -> series
+    counts: Dict[str, List[int]]
+    raw_namespaces: List[str] = field(default_factory=list)

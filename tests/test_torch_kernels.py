@@ -1,7 +1,8 @@
 """Port parity, kernel tier: the plain PyTorch versions of the two
-warp-render kernels (B1 paged, B2 bucketed) against the JAX package's
-Pallas kernels in interpret mode, plus the plain ops around them
-(`_bilerp_grid`, `_cubic_weights`, `composite_scale`, `scale_to_byte`).
+warp-render kernels (B1 paged, B2 bucketed) and of the drill's masked
+stats kernel (B3) against the JAX package's Pallas kernels in interpret
+mode, plus the plain ops around them (`_bilerp_grid`, `_cubic_weights`,
+`composite_scale`, `scale_to_byte`).
 
 Every input is built once with numpy (float32/int32 explicitly: the
 suite runs JAX with x64 on) and handed to both packages.  Tolerances:
@@ -9,7 +10,10 @@ nearest is bit-exact; bilinear and cubic canvases are within 2 ulp
 (the port fuses the multiply-adds XLA's CPU lowering of the reference
 contracts, so they agree to the bit on these inputs, but the stated
 bound is the contract); the winning-priority planes (`best`) are exact;
-byte tiles are identical."""
+byte tiles are identical.  B3: counts exact, means within rtol 1e-5 of
+the Pallas kernel's (its final lane sum is XLA's `jnp.sum`, whose order
+XLA picks: the bound the JAX package holds itself to); the plain
+version's own summation order is pinned bit for bit."""
 
 import importlib
 from fractions import Fraction
@@ -32,6 +36,7 @@ jscale = importlib.import_module("gsky_tpu.ops.scale")
 from gsky_tpu_torch.carry import pool_from_reference
 from gsky_tpu_torch.ops import paged as tpaged
 from gsky_tpu_torch.ops import scale as tscale
+from gsky_tpu_torch.ops import stats as tstats
 from gsky_tpu_torch.ops import warp as twarp
 from gsky_tpu_torch.ops import warp_render as trender
 
@@ -304,3 +309,112 @@ def test_cuda_tensor_on_cpu_only_build_raises_not_falls_back():
     with pytest.raises(ValueError):
         trender.warp_render_scored(t, t[0], t[0], torch.zeros((1, 16)),
                                    "near", 1)
+
+
+def _b3_inputs(seed, B, N, edge=False):
+    """data/valid as numpy; with ``edge``: an all-invalid row, values on
+    the clip bounds, and NaN / +-inf where valid is False."""
+    rng = np.random.default_rng(seed)
+    data = (rng.normal(size=(B, N)) * 100).astype(np.float32)
+    valid = rng.uniform(size=(B, N)) > 0.3
+    if edge:
+        valid[0] = False
+        data[-1, ::7] = -80.0
+        data[-1, 3::7] = 120.0
+        valid[-1, ::7] = True
+        valid[-1, 3::7] = True
+        bad = ~valid
+        bad[0] = True
+        data[bad & (rng.uniform(size=(B, N)) < 0.3)] = np.nan
+        data[bad & (rng.uniform(size=(B, N)) < 0.1)] = np.inf
+        data[bad & (rng.uniform(size=(B, N)) < 0.1)] = -np.inf
+    return data, valid
+
+
+def _b3_means(s, c):
+    s, c = np.asarray(s), np.asarray(c)
+    return np.where(c > 0, s / np.maximum(c, 1), 0.0)
+
+
+def _b3_order_reference(data, valid, lo, hi):
+    """B3's documented order in numpy float32: each of 2048 lanes summed
+    over the row's chunks in order (masked and tail lanes add 0.0), then
+    the pairwise lane tree."""
+    B, N = data.shape
+    nch = -(-N // tstats.CHUNK)
+    inclip = valid & (data >= np.float32(lo)) & (data <= np.float32(hi))
+    vals = np.zeros((B, nch * tstats.CHUNK), np.float32)
+    vals[:, :N] = np.where(inclip, data, np.float32(0.0))
+    acc = np.zeros((B, tstats.CHUNK), np.float32)
+    for c in range(nch):
+        acc = acc + vals[:, c * tstats.CHUNK:(c + 1) * tstats.CHUNK]
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0], inclip.sum(-1).astype(np.int32)
+
+
+class TestMaskedStatsB3:
+    """Shapes of tests/test_pallas.py::TestStatsKernel, then tails, empty
+    rows and the edge values the card check also uses."""
+
+    @pytest.mark.parametrize("B,N,lo,hi,edge", [
+        (5, 7000, -80.0, 120.0, False),
+        (3, 500, -3.0e38, 3.0e38, False),
+        (1000, 4096, -2.0, 2.0, False),
+        (1, 1, -80.0, 120.0, False),
+        (7, 2047, -80.0, 120.0, True),
+        (129, 2049, -80.0, 120.0, True),
+        (4, 16384, -80.0, 120.0, True),
+    ])
+    def test_plain_vs_pallas_interpret(self, B, N, lo, hi, edge):
+        data, valid = _b3_inputs(B * 31 + N, B, N, edge)
+        if (B, N) == (3, 500):
+            valid[:] = False                  # empty bands
+        sj, cj = jpt.masked_stats_pallas(jnp.asarray(data),
+                                         jnp.asarray(valid), lo, hi,
+                                         interpret=True)
+        st, ct = tstats.masked_stats(torch.from_numpy(data),
+                                     torch.from_numpy(valid), lo, hi)
+        assert st.dtype == torch.float32 and ct.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(cj), ct.numpy())
+        np.testing.assert_allclose(_b3_means(st, ct), _b3_means(sj, cj),
+                                   rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("B,N", [(3, 1), (5, 2048), (6, 2049),
+                                     (2, 10000)])
+    def test_plain_summation_order_is_pinned(self, B, N):
+        data, valid = _b3_inputs(N, B, N, edge=True)
+        s, c = tstats.masked_stats_plain(torch.from_numpy(data),
+                                         torch.from_numpy(valid),
+                                         -80.0, 120.0)
+        rs, rc = _b3_order_reference(data, valid, -80.0, 120.0)
+        np.testing.assert_array_equal(s.numpy(), rs)
+        np.testing.assert_array_equal(c.numpy(), rc)
+
+    def test_uint8_valid_and_clip_rounded_to_f32(self):
+        data, valid = _b3_inputs(3, 4, 3000)
+        lo = 0.1                                   # not a float32
+        a = tstats.masked_stats(torch.from_numpy(data),
+                                torch.from_numpy(valid), lo, 50.0)
+        b = tstats.masked_stats(torch.from_numpy(data),
+                                torch.from_numpy(valid.astype(np.uint8)),
+                                float(np.float32(lo)), 50.0)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    def test_wrapper_takes_plain_version_on_cpu(self, monkeypatch):
+        calls = []
+        plain = tstats.masked_stats_plain
+        monkeypatch.setattr(tstats, "masked_stats_plain",
+                            lambda *a: calls.append(1) or plain(*a))
+        launches = tstats.masked_stats_kernel.launches
+        data, valid = _b3_inputs(1, 2, 100)
+        tstats.masked_stats(torch.from_numpy(data), torch.from_numpy(valid))
+        assert calls == [1]
+        assert tstats.masked_stats_kernel.launches == launches
+
+    def test_non_cpu_non_cuda_tensor_raises(self):
+        t = torch.zeros((2, 8), device="meta")
+        with pytest.raises(ValueError):
+            tstats.masked_stats(t, t.bool())
+
