@@ -30,15 +30,36 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    (1024, 262144) input, plus one with deciles=9; warm results equal the
    cold (host numpy) result;
 8. card vs CPU: the drill over the first 100 timesteps through
-   ``device="cpu"`` (exact and deciles) equals the card's.
+   ``device="cpu"`` (exact and deciles) equals the card's;
+9. kernel B4 (the first-valid mosaic) against its plain version on the
+   card: T in {1, 2, 3, 8, 128} x (H, W) in {(1, 1), (255, 257),
+   (256, 256), (1000, 1000), (2048, 2048)}, valid as bool and as int8,
+   with all-invalid pixels, NaN / +-inf / -0.0 in valid layers and
+   NaN / inf in invalid ones; out bit-exact, ok equal;
+10. the masked temporal mosaic end to end at Landsat scale: 8
+   acquisitions 16 days apart of one path/row (7681 x 7821, EPSG:32755,
+   30 m, shifted 0-60 px between dates), each three single-band
+   GeoTIFFs (LC08_B4 and LC08_B5 int16 nodata -999, pixel_qa uint16
+   nodata 1 with cloud and shadow blobs over 20-40% of each date),
+   crawled into the port's MAS store; 32 tiles per request through
+   `TilePipeline(device="cuda").process` + `scale_to_byte` with a
+   cloud-and-shadow bit-test mask: LC08_B4 near / bilinear / cubic and
+   NDVI bilinear, every namespace mosaic through B4 (160 launches at
+   T = 8); the masked tiles differ from no-op-mask ones, and the no-op
+   nearest tiles agree with the fused `render_composite_byte`;
+11. card vs CPU: two tiles per request of phase 10 through
+   ``device="cpu"``.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound: for B1/B2
 the bytes of the source pixels their taps need, read once, plus their
 other inputs and outputs; for B3 its inputs read once and outputs
-written once.  The last line of standard output is the
-JSON result the harness reads; the line before it gives the card's name
-and power limit, and a "kernels" JSON line precedes them.
+written once; for B4 the bytes its early-exit scan needs on those
+inputs (the full-read bound is logged beside it), and again at
+(128, 2048, 2048) where every pixel scans all layers.  The last line of
+standard output is the JSON result the harness reads; the line before
+it gives the card's name and power limit, and a "kernels" JSON line
+precedes them.
 """
 
 from __future__ import annotations
@@ -69,6 +90,21 @@ DRILL_POLY = ("POLYGON((130.20 -20.22,131.76 -20.30,131.80 -21.78,"
 N_WARM = 10
 B3_SHAPES_B = (1, 7, 129, 1000, 1024)
 B3_SHAPES_N = (1, 2047, 2049, 16384, 262144)
+B4_SHAPES_T = (1, 2, 3, 8, 128)
+B4_SHAPES_HW = ((1, 1), (255, 257), (256, 256), (1000, 1000), (2048, 2048))
+# the masked temporal mosaic (BASELINE config 3): 8 acquisitions, 16 days
+# apart from 2020-01-01, of LC08_B4 / LC08_B5 / pixel_qa
+MOSAIC_DATES = 8
+MOSAIC_T0 = 1577836800.0                      # 2020-01-01T00:00Z
+CLOUD_SHADOW = ["100000", "100000", "1000", "1000"]
+NDVI = "ndvi=(LC08_B5-LC08_B4)/(LC08_B5+LC08_B4)"
+# (bands, method, scale_to_byte style) per phase-10 request
+MOSAIC_REQS = (
+    (["LC08_B4"], "near", dict(clip=2000.0)),
+    (["LC08_B4"], "bilinear", dict(clip=2000.0)),
+    (["LC08_B4"], "cubic", dict(clip=2000.0)),
+    ([NDVI], "bilinear", dict(auto=True)),
+)
 
 
 def log(*a):
@@ -99,27 +135,39 @@ def cuda_time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, kernel, reps=50):
+def kernel_device_ms(fn, kernel, reps=50, tries=3):
     """Device time of one launch of ``kernel`` (a __global__ name) per
     call of ``fn``: torch.profiler's CUDA kernel records, so host work
-    between launches is not counted."""
+    between launches is not counted.  The tracer can drop records (one
+    window saw 9 of 50 launches), so a window that saw fewer than half
+    is taken again, up to ``tries`` windows; the mean is over the
+    launches of the fullest one.  It fails when no window saw a launch
+    or one saw more launches than calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if kernel in e.key and e.self_device_time_total > 0]
-    count = sum(e.count for e in evs)
-    # the tracer may drop a record at the edge of the window, so the
-    # mean is over the launches it saw, which must be most of them
-    if not reps // 2 <= count <= reps:
-        raise AssertionError(f"profiler saw {count} {kernel} launches "
-                             f"of {reps}")
-    return sum(e.self_device_time_total for e in evs) / count / 1e3
+    count, total = 0, 0.0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if kernel in e.key and e.self_device_time_total > 0]
+        n = sum(e.count for e in evs)
+        if n > reps:
+            raise AssertionError(f"profiler saw {n} {kernel} launches "
+                                 f"of {reps}")
+        if n > count:
+            count = n
+            total = sum(e.self_device_time_total for e in evs)
+        if count >= reps // 2:
+            break
+        log(f"profiler saw {n} {kernel} launches of {reps}; again")
+    if count == 0:
+        raise AssertionError(f"profiler saw no {kernel} launch")
+    return total / count / 1e3
 
 
 def ulp_diff(a, b):
@@ -242,14 +290,15 @@ def write_archive(root, shape=(SCENE_H, SCENE_W)):
     return paths
 
 
-def tile_boxes():
-    """32 native-resolution 256-px EPSG:3857 tiles (8 x 4) over the
-    overlap, starting at the newest scene's nodata corner."""
+def tile_boxes(x0=500000.0 + 9000.0 + 12000.0,
+               y0=6200000.0 - 9000.0 - 12000.0):
+    """32 native-resolution 256-px EPSG:3857 tiles (8 x 4) from the UTM
+    point (x0, y0) east and south; by default over the phase-3 overlap,
+    starting at the newest scene's nodata corner."""
     from gsky_tpu_torch.geo.crs import parse_crs
     from gsky_tpu_torch.geo.transform import BBox, transform_bbox
     utm = parse_crs("EPSG:32755")
     merc = parse_crs("EPSG:3857")
-    x0, y0 = 500000.0 + 9000.0 + 12000.0, 6200000.0 - 9000.0 - 12000.0
     c = transform_bbox(BBox(x0, y0, x0 + 1, y0 + 1), utm, merc)
     lat = np.degrees(np.arctan(np.sinh(c.ymin / 6378137.0)))
     res = 30.0 / np.cos(np.radians(lat))     # ~30 m on the ground
@@ -336,11 +385,14 @@ class PlainCalls:
     """Counts calls of the kernels' plain versions while installed."""
 
     def __init__(self):
-        from gsky_tpu_torch.ops import paged, stats, warp_render
+        from gsky_tpu_torch.ops import (first_valid, mosaic, paged, stats,
+                                        warp_render)
         self.calls = 0
         self._mods = [(paged, "paged_render_scored_plain"),
                       (warp_render, "warp_render_scored_plain"),
-                      (stats, "masked_stats_plain")]
+                      (stats, "masked_stats_plain"),
+                      (first_valid, "mosaic_first_valid_plain"),
+                      (mosaic, "mosaic_first_valid")]
         self._orig = [getattr(m, n) for m, n in self._mods]
         for (m, n), f in zip(self._mods, self._orig):
             setattr(m, n, self._counted(f))
@@ -697,13 +749,436 @@ def time_b3(args, card):
     return ms, pms, bd, lms, err
 
 
+def b4_edge_inputs(T, H, W, seed):
+    """B4 inputs made on the card: normal data x 50; valid with a density
+    that lets deep stacks reach late layers; an all-invalid column band
+    (W >= 7); NaN / +-inf / -0.0 in 20% of valid entries, NaN / inf in
+    30% of invalid ones."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    stack = torch.randn((T, H, W), generator=g, device="cuda") * 50.0
+    valid = torch.rand((T, H, W), generator=g, device="cuda") \
+        < (0.5 if T <= 8 else 0.03)
+    if W >= 7:
+        valid[:, :, :W // 7] = False
+    r = torch.rand((T, H, W), generator=g, device="cuda")
+    nan, inf = float("nan"), float("inf")
+    for lo, val in ((0.0, nan), (0.05, inf), (0.10, -inf), (0.15, -0.0)):
+        stack = torch.where(valid & (r >= lo) & (r < lo + 0.05),
+                            torch.full((), val, device="cuda"), stack)
+    stack = torch.where(~valid & (r < 0.2), torch.full((), nan, device="cuda"),
+                        stack)
+    stack = torch.where(~valid & (r >= 0.2) & (r < 0.3),
+                        torch.full((), inf, device="cuda"), stack)
+    return stack.contiguous(), valid.contiguous()
+
+
+def b4_same(a, b, what):
+    """Kernel vs plain: out bit-exact (as int32), ok equal."""
+    import torch
+    if not torch.equal(a[1], b[1]):
+        raise AssertionError(f"{what}: ok differs")
+    if not torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)):
+        n = int((a[0].view(torch.int32) != b[0].view(torch.int32)).sum())
+        raise AssertionError(f"{what}: {n} values not bit-exact")
+
+
+def phase_b4_kernel():
+    """B4 against its plain version at every (T, H, W) of the phase's
+    grid, valid as bool and as int8.  Returns the comparisons made."""
+    import torch
+    from gsky_tpu_torch.ops import first_valid as fv
+    saved = fv.first_valid_kernel.launches
+    n = 0
+    for T in B4_SHAPES_T:
+        for H, W in B4_SHAPES_HW:
+            stack, valid = b4_edge_inputs(T, H, W, seed=T * 7919 + H + W)
+            want = fv.mosaic_first_valid_plain(stack, valid)
+            for v in (valid, valid.to(torch.int8)):
+                got = fv.mosaic_first_valid_kernel(stack, v)
+                torch.cuda.synchronize()
+                b4_same(got, want, f"B4 ({T}, {H}, {W}) {v.dtype}")
+                n += 1
+            bits = want[0].view(torch.int32)
+            if bool((bits[~want[1]] != 0).any()):
+                raise AssertionError("B4 fill is not +0.0")
+            del stack, valid, want, got
+    fv.first_valid_kernel.launches = saved
+    return n
+
+
+def mosaic_dates():
+    """(YYYYMMDD, unix seconds) of the phase-10 acquisitions."""
+    import datetime as dt
+    out = []
+    for i in range(MOSAIC_DATES):
+        t = MOSAIC_T0 + 16 * 86400.0 * i
+        out.append((dt.datetime.fromtimestamp(t, dt.timezone.utc)
+                    .strftime("%Y%m%d"), t))
+    return out
+
+
+def _blob_mask(rng, shape, frac, cell=32):
+    """A blobby mask covering ~``frac`` of ``shape``: a smoothed random
+    field on a ``cell``-px grid, thresholded at its quantile, then
+    blown up to full size."""
+    gh, gw = shape[0] // cell + 2, shape[1] // cell + 2
+    f = rng.standard_normal((gh, gw)).astype(np.float32)
+    for _ in range(3):                       # three 3x3 box passes
+        f = (f + np.roll(f, 1, 0) + np.roll(f, -1, 0)) / 3.0
+        f = (f + np.roll(f, 1, 1) + np.roll(f, -1, 1)) / 3.0
+    m = f > np.quantile(f, 1.0 - frac)
+    return np.repeat(np.repeat(m, cell, 0), cell, 1)[:shape[0], :shape[1]]
+
+
+def write_mosaic_archive(root, shape=(SCENE_H, SCENE_W)):
+    """8 acquisitions x {LC08_B4, LC08_B5, pixel_qa}, written uncompressed
+    and tiled with the port's writer; returns [(path, namespace)].  A
+    date's three files share its timestamp (the file name's date)."""
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import GeoTransform
+    from gsky_tpu_torch.io.geotiff import write_geotiff
+    h, w = shape
+    utm = parse_crs("EPSG:32755")
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    collar = (xx + yy) < 1500
+    out = []
+    for i, (date, _) in enumerate(mosaic_dates()):
+        rng = np.random.default_rng(40 + i)
+        dx, dy = (int(v) for v in rng.integers(0, 61, 2))
+        gt = GeoTransform(500000.0 + 30.0 * dx, 30.0, 0.0,
+                          6200000.0 - 30.0 * dy, 0.0, -30.0)
+        red = (900.0 + 500.0 * np.sin(xx / (97.0 + 7 * i))
+               * np.cos(yy / 131.0)).astype(np.int16)
+        red += rng.integers(-60, 61, (h, w), dtype=np.int16)
+        nir = (2500.0 + 800.0 * np.cos(xx / 173.0)
+               * np.sin(yy / (89.0 + 5 * i))).astype(np.int16)
+        nir += rng.integers(-90, 91, (h, w), dtype=np.int16)
+        cloud = _blob_mask(rng, shape, rng.uniform(0.15, 0.25))
+        shadow = _blob_mask(rng, shape, rng.uniform(0.05, 0.15), 16) & ~cloud
+        qa = np.full(shape, 322, np.uint16)   # clear
+        qa[cloud] = 352                       # bit 5: cloud
+        qa[shadow] = 328                      # bit 3: cloud shadow
+        for arr, fill in ((red, -999), (nir, -999), (qa, 1)):
+            arr[collar] = fill
+        for ns, arr, nd in (("LC08_B4", red, -999), ("LC08_B5", nir, -999),
+                            ("pixel_qa", qa, 1)):
+            p = os.path.join(root, f"{ns}_{date}_T1.tif")
+            write_geotiff(p, arr, gt, utm, nodata=nd, compress=False)
+            out.append((p, ns))
+        del red, nir, qa, cloud, shadow
+    return out
+
+
+def mosaic_boxes():
+    """32 native-resolution tiles inside every acquisition's footprint."""
+    return tile_boxes(600000.0, 6100000.0)
+
+
+def mosaic_request(root, box, bands, method, mask):
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import BBox
+    from gsky_tpu_torch.pipeline.types import GeoTileRequest
+    dates = mosaic_dates()
+    return GeoTileRequest(collection=root, bands=list(bands),
+                          bbox=BBox(*box), crs=parse_crs("EPSG:3857"),
+                          width=256, height=256,
+                          start_time=dates[0][1] - 86400.0,
+                          end_time=dates[-1][1] + 86400.0, mask=mask,
+                          resample=method)
+
+
+def render_masked(pipe, root, boxes, bands, method, mask, style):
+    """GetMap tiles through `process` + `scale_to_byte` + readback.
+    Returns (host uint8 tiles, per-tile seconds, scale s, readback s)."""
+    import torch
+    from gsky_tpu_torch.ops.scale import scale_to_byte
+    clock = time.perf_counter
+    tiles, secs = [], []
+    t_scale = t_read = 0.0
+    for box in boxes:
+        req = mosaic_request(root, box, bands, method, mask)
+        t0 = clock()
+        res = pipe.process(req)
+        t1 = clock()
+        planes = [scale_to_byte(res.data[n], res.valid[n], **style)
+                  for n in res.namespaces]
+        t2 = clock()
+        host = [p.cpu().numpy() for p in planes]
+        t3 = clock()
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize()
+        secs.append(clock() - t0)
+        t_scale += t2 - t1
+        t_read += t3 - t2
+        tile = host[0]
+        if len(host) != 1 or tile.dtype != np.uint8 \
+                or tile.shape != (256, 256):
+            raise AssertionError(f"bad tile {bands} {method} {box}")
+        if (tile == 255).all():
+            raise AssertionError(f"tile {box} is all nodata")
+        tiles.append(tile)
+    return tiles, secs, t_scale, t_read
+
+
+class CaptureB4:
+    """Keeps every B4 call's (stack, valid) while installed; the
+    wrapper it calls counts launches as always."""
+
+    def __init__(self):
+        from gsky_tpu_torch.ops import first_valid
+        self.mod = first_valid
+        self.orig = first_valid.mosaic_first_valid_kernel
+        self.args = []
+        first_valid.mosaic_first_valid_kernel = self._call
+
+    def _call(self, stack, valid):
+        self.args.append((stack, valid))
+        return self.orig(stack, valid)
+
+    def remove(self):
+        self.mod.mosaic_first_valid_kernel = self.orig
+
+
+def b4_needed_bytes(valid):
+    """Bytes B4's early-exit scan must move on these inputs: per pixel
+    the valid bytes up to the first valid layer (all T where none is),
+    the 4-byte value it copies, and 5 bytes of output."""
+    import torch
+    v = valid != 0
+    ok = v.any(0)
+    first = torch.argmax(v.to(torch.uint8), 0)
+    k = torch.where(ok, first + 1, torch.full_like(first, v.shape[0]))
+    return int(k.sum()) + 4 * int(ok.sum()) + 5 * ok.numel()
+
+
+def phase_mosaic(root, card):
+    """Phases 10 and 11.  Returns (B4 launches of the main path, the
+    first main-path B4 arguments)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gsky_tpu_torch.index.crawler import extract
+    from gsky_tpu_torch.index.store import MASStore
+    from gsky_tpu_torch.ops import first_valid, paged, stats, warp_render
+    from gsky_tpu_torch.ops.scale import scale_to_byte
+    from gsky_tpu_torch.pipeline.types import MaskSpec
+    t0 = time.perf_counter()
+    paths = write_mosaic_archive(root)
+    store = MASStore()
+    for p, ns in paths:
+        rec = extract(p)
+        if rec.get("error"):
+            raise AssertionError(rec["error"])
+        for ds in rec["geo_metadata"]:
+            ds["namespace"] = ns
+        store.ingest(rec)
+    size = sum(os.path.getsize(p) for p, _ in paths)
+    log(f"phase 10: {len(paths)} GeoTIFFs ({size / 1e9:.3f} GB) written + "
+        f"crawled in {time.perf_counter() - t0:.1f} s")
+    boxes = mosaic_boxes()
+    mask = MaskSpec(id="pixel_qa", bit_tests=list(CLOUD_SHADOW))
+    noop = MaskSpec(id="pixel_qa", value="0")
+    pipe = make_pipeline(store, "cuda")
+    # warm-up (handles, allocator): one tile per request, not counted
+    for bands, method, style in MOSAIC_REQS:
+        render_masked(pipe, root, boxes[:1], bands, method, mask, style)
+
+    # -- the main path: masked tiles, counts from 0 --------------------
+    ex = pipe.executor
+    for k in ex.spans:
+        ex.spans[k] = 0.0
+    cap = CaptureB4()
+    plain = PlainCalls()
+    for k in (paged.paged_render_kernel, warp_render.warp_render_kernel,
+              stats.masked_stats_kernel, first_valid.first_valid_kernel):
+        k.launches = 0
+    card_tiles, lat = {}, []
+    t_scale = t_read = 0.0
+    t0 = time.perf_counter()
+    try:
+        for bands, method, style in MOSAIC_REQS:
+            tiles, secs, ts, tr = render_masked(pipe, root, boxes, bands,
+                                                method, mask, style)
+            card_tiles[(bands[0], method)] = tiles
+            lat += secs
+            t_scale += ts
+            t_read += tr
+        wall = time.perf_counter() - t0
+    finally:
+        cap.remove()
+        plain.remove()
+    b4_launches = first_valid.first_valid_kernel.launches
+    others = (paged.paged_render_kernel.launches,
+              warp_render.warp_render_kernel.launches,
+              stats.masked_stats_kernel.launches)
+    n_tiles = N_TILES * len(MOSAIC_REQS)
+    want = N_TILES * (3 + 2)
+    shapes = {tuple(s.shape) for s, _ in cap.args}
+    if b4_launches != want or plain.calls or any(others) \
+            or shapes != {(MOSAIC_DATES, 256, 256)}:
+        raise AssertionError(
+            f"phase 10 main path: B4 {b4_launches} (want {want}), B1/B2/B3 "
+            f"{others}, plain calls {plain.calls}, B4 shapes {shapes}")
+    spans = {k: v / n_tiles * 1e3 for k, v in ex.spans.items()
+             if k in ("index", "decode", "warp", "bitmask", "mosaic",
+                      "expr")}
+    spans.update(scale=t_scale / n_tiles * 1e3,
+                 readback=t_read / n_tiles * 1e3)
+    log(f"phase 10: {n_tiles} masked tiles, {n_tiles / wall:.2f} tiles/s, "
+        f"p50 {np.median(lat) * 1e3:.2f} ms, p90 "
+        f"{np.percentile(lat, 90) * 1e3:.2f} ms; B4 launches {b4_launches} "
+        f"at T = {MOSAIC_DATES}, plain calls 0 ({card})")
+    log("phase 10 breakdown, ms per tile (host clock): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in spans.items()))
+    main_args = cap.args[0]
+
+    # -- checks after the main path ---------------------------------------
+    # the same tiles with a no-op mask: what the mask excluded
+    cap_noop = CaptureB4()
+    noop_tiles = {}
+    try:
+        for bands, method, style in MOSAIC_REQS:
+            noop_tiles[(bands[0], method)], _, _, _ = render_masked(
+                pipe, root, boxes, bands, method, noop, style)
+    finally:
+        cap_noop.remove()
+    kept = sum(int(v.sum()) for _, v in cap.args)
+    total = sum(int(v.sum()) for _, v in cap_noop.args)
+    excluded = 1.0 - kept / total
+    differ = {k: int(sum(np.count_nonzero(a != b) for a, b in
+                         zip(card_tiles[k], noop_tiles[k])))
+              for k in card_tiles}
+    if not excluded > 0 or not all(differ.values()):
+        raise AssertionError(f"mask excluded {excluded}, differing bytes "
+                             f"{differ}")
+    del cap, cap_noop
+    # nearest no-op tiles against the fused route over the same archive
+    style = MOSAIC_REQS[0][2]
+    flips = 0
+    total_px = 0
+    for box, mod in zip(boxes, noop_tiles[("LC08_B4", "near")]):
+        req = mosaic_request(root, box, ["LC08_B4"], "near", None)
+        fused = pipe.render_composite_byte(req, auto=False, **style)
+        if fused is None:
+            raise AssertionError(f"fused route declined {box}")
+        fused = fused.cpu().numpy()
+        if not np.array_equal(fused == 255, mod == 255):
+            raise AssertionError(f"fused vs modular: nodata differs {box}")
+        ok = mod != 255
+        flips += int(np.count_nonzero(fused[ok] != mod[ok]))
+        total_px += int(ok.sum())
+    if flips > 0.02 * total_px:
+        raise AssertionError(f"fused vs modular: {flips} of {total_px} "
+                             f"bytes differ")
+    log(f"phase 10: mask excluded {100 * excluded:.2f}% of valid "
+        f"pixel-layers; masked vs no-op bytes differ {differ}; no-op near "
+        f"vs fused route: nodata equal, {flips} of {total_px} bytes "
+        f"({100 * flips / total_px:.3f}%) differ")
+
+    # device busy share of a masked tile, on a pass under the profiler
+    bands, method, style = MOSAIC_REQS[1]
+    clock = time.perf_counter
+    t0 = clock()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render_masked(pipe, root, boxes[:8], bands, method, mask, style)
+        torch.cuda.synchronize()
+    prof_wall = (clock() - t0) / 8 * 1e3
+    avgs = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in avgs)
+    b4_us = sum(e.self_device_time_total for e in avgs
+                if "first_valid_kernel" in e.key)
+    top = sorted(((e.self_device_time_total, e.key) for e in avgs
+                  if e.self_device_time_total > 0), reverse=True)[:6]
+    first_valid.first_valid_kernel.launches = b4_launches
+    log(f"phase 10 device (bilinear, 8 tiles under the profiler): busy "
+        f"{dev_us / 8 / 1e3:.4f} ms per tile of {prof_wall:.3f} ms wall "
+        f"({100 * dev_us / 8 / 1e3 / prof_wall:.2f}%), of which B4 "
+        f"{b4_us / 8 / 1e3:.5f} ms; top: " + "; ".join(
+            f"{k[:50]} {us / 8 / 1e3:.4f}" for us, k in top))
+
+    # -- phase 11: card vs CPU --------------------------------------------
+    cpu = make_pipeline(store, "cpu")
+    t0 = time.perf_counter()
+    worst = 0
+    for bands, method, style in MOSAIC_REQS:
+        got, _, _, _ = render_masked(cpu, root, boxes[:2], bands, method,
+                                     mask, style)
+        for a, b in zip(card_tiles[(bands[0], method)][:2], got):
+            d = int(np.count_nonzero(a != b))
+            worst = max(worst, d)
+            if (method == "near" and d) or d > a.size // 1000:
+                raise AssertionError(f"card vs cpu {bands} {method}: {d} "
+                                     f"bytes differ")
+    first_valid.first_valid_kernel.launches = b4_launches
+    log(f"phase 11: CPU tiles match the card (worst {worst} bytes of "
+        f"65536; {time.perf_counter() - t0:.1f} s)")
+    del cpu, pipe
+    return b4_launches, main_args
+
+
+def time_b4(args, card):
+    """B4's device time at the main path's inputs and at (128, 2048,
+    2048) with every pixel scanning all layers, beside its bound, its
+    plain version and the same function composed from PyTorch's own ops.
+    Returns the main-path row (ms, plain ms, bound ms, library ms, max
+    |kernel - plain|)."""
+    import torch
+    from gsky_tpu_torch.ops import first_valid as fv
+    saved = fv.first_valid_kernel.launches
+    rows = []
+    T, H, W = 128, 2048, 2048
+    deep = torch.zeros((T, H, W), dtype=torch.bool, device="cuda")
+    deep[-1, :, ::2] = True                   # only the last layer valid
+    big = (torch.randn((T, H, W), device="cuda"), deep)
+    for what, (stack, valid) in (("main path", args), ("deep", big)):
+        def b4():
+            return fv.mosaic_first_valid_kernel(stack, valid)
+
+        def b4p():
+            return fv.mosaic_first_valid_plain(stack, valid)
+
+        def library():
+            idx = valid.to(torch.uint8).argmax(0)
+            out = torch.gather(stack, 0, idx[None])[0]
+            ok = valid.any(0)
+            return torch.where(ok, out, 0.0), ok
+
+        got, want, lib = b4(), b4p(), library()
+        torch.cuda.synchronize()
+        b4_same(got, want, f"B4 {what}")
+        b4_same(lib, want, f"B4 library {what}")
+        ms = kernel_device_ms(b4, "first_valid_kernel")
+        call = cuda_time_ms(b4)
+        pms = cuda_time_ms(b4p, reps=5)
+        lms = cuda_time_ms(library, reps=10)
+        t, h, w = stack.shape
+        full = t * h * w * 5 + h * w * 5
+        need = b4_needed_bytes(valid)
+        bd = need / HBM_BYTES_PER_S * 1e3
+        rows.append((ms, pms, bd, lms, 0.0))
+        if what == "main path":
+            what += ", launch-bound at this size,"
+        log(f"timing B4 {what} ({t}, {h}, {w}): device {ms:.5f} ms (per "
+            f"call with host {call:.4f}), bound {bd:.6f} ms ({need} bytes "
+            f"its scan needs; {100 * bd / ms:.2f}% of bound), full-read "
+            f"bound {full / HBM_BYTES_PER_S * 1e3:.6f} ms ({full} bytes), "
+            f"plain {pms:.4f} ms, library (argmax+gather+any+where) "
+            f"{lms:.4f} ms ({card})")
+    fv.first_valid_kernel.launches = saved
+    del big, deep
+    return rows[0]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    from gsky_tpu_torch.ops import cuda_lib, paged, stats, warp_render
+    from gsky_tpu_torch.ops import (cuda_lib, first_valid, paged, stats,
+                                    warp_render)
     from gsky_tpu_torch.ops.warp import _bilerp_grid
     t_start = time.perf_counter()
     card = card_facts()
@@ -712,7 +1187,7 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
-    libs = [warp_render.LIBRARY, stats.LIBRARY]
+    libs = [warp_render.LIBRARY, stats.LIBRARY, first_valid.LIBRARY]
     built = cuda_lib.build_all(libs)       # one nvcc per source, at once
     for lib in libs:
         lib.load()
@@ -902,6 +1377,19 @@ def main() -> int:
     finally:
         shutil.rmtree(drill_root, ignore_errors=True)
 
+    # -- phases 9-11: the masked temporal mosaic and kernel B4 ---------
+    n_b4 = phase_b4_kernel()
+    log(f"phase 9: {n_b4} B4-vs-plain comparisons bit-exact")
+    mosaic_root = os.path.join(ROOT, "build", "smoke_mosaic")
+    shutil.rmtree(mosaic_root, ignore_errors=True)
+    os.makedirs(mosaic_root)
+    try:
+        b4_launches, b4_args = phase_mosaic(mosaic_root, card)
+        b4_row = time_b4(b4_args, card)
+        del b4_args
+    finally:
+        shutil.rmtree(mosaic_root, ignore_errors=True)
+
     # the kernels line reports the bilinear row (the GetMap default
     # interpolated method); every method's numbers are logged above
     m, err1, ms1, pms1, bd1, err2, ms2, pms2, bd2 = rows[1]
@@ -928,6 +1416,12 @@ def main() -> int:
          "max_abs_err": max(b3_err, b3_main_err),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
+        {"name": "first_valid (B4)", "route": "cuda",
+         "source": "gsky_tpu_torch/csrc/first_valid.cu",
+         "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
+         "launches": b4_launches, "max_abs_err": b4_row[4],
+         "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
+         "bound_by": "bytes", "library_ms": b4_row[3]},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)

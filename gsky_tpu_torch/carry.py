@@ -1,9 +1,9 @@
 """Carrying state across from the JAX package.
 
 This system's state is data, not weights: staged page pools, device
-scenes and resident drill stacks.  These helpers load a JAX-side
-snapshot, taken as numpy arrays, into the port's containers, so both
-packages can be fed identical state.
+scenes, decoded granule windows and resident drill stacks.  These
+helpers load a JAX-side snapshot, taken as numpy arrays, into the
+port's containers, so both packages can be fed identical state.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from .device import resolve_device
 from .geo.crs import CRS
 from .geo.transform import GeoTransform
+from .pipeline.decode import DecodedWindow
 from .pipeline.drill_cache import DeviceStack, stack_from_numpy
 from .pipeline.pages import PagePool
 from .pipeline.scene_cache import DeviceScene
@@ -51,6 +52,20 @@ def scene_from_numpy(data: np.ndarray, height: int, width: int,
     return DeviceScene(dev=dev, height=int(height), width=int(width),
                        nodata=float(nodata), gt=gt, crs=crs,
                        serial=int(serial))
+
+
+def decoded_window_from_numpy(data: np.ndarray, valid: np.ndarray,
+                              window_gt: GeoTransform, src_crs: CRS,
+                              granule, device="cuda") -> DecodedWindow:
+    """A port `DecodedWindow` on ``device`` from a JAX `DecodedWindow`'s
+    numpy data (h, w) f32 and valid (h, w) bool, its window geotransform
+    and source CRS (taken as the port's types) and the port's granule."""
+    dev = resolve_device(device)
+    return DecodedWindow(
+        granule,
+        torch.from_numpy(np.ascontiguousarray(data, np.float32)).to(dev),
+        torch.from_numpy(np.ascontiguousarray(valid, bool)).to(dev),
+        window_gt, src_crs)
 
 
 def drill_stack_from_numpy(stack_np: np.ndarray, nodata,

@@ -111,6 +111,17 @@ class GeoTransform:
         return GeoTransform(self.x0, self.dx * fx, self.rx * fy,
                             self.y0, self.ry * fx, self.dy * fy)
 
+    def decimated(self, st: int) -> "GeoTransform":
+        """Transform for a [::st, ::st] strided sampling of this grid:
+        decimated pixel k holds the value of full-resolution pixel
+        k*st, so the origin shifts back by (st-1)/2 pixels to keep
+        sample centres where they were."""
+        return GeoTransform(
+            self.x0 - (st - 1) / 2 * (self.dx + self.rx),
+            self.dx * st, self.rx * st,
+            self.y0 - (st - 1) / 2 * (self.ry + self.dy),
+            self.ry * st, self.dy * st)
+
 
 def transform_bbox(bbox: BBox, src: CRS, dst: CRS, densify: int = 21) -> BBox:
     """Reproject a bbox by densified edge sampling."""

@@ -1,12 +1,23 @@
 """Band expressions: parsing of `rgb_products` entries, and their
-evaluation over numpy values.
+evaluation over numpy values or torch tensors.
 
 Counterpart of `gsky_tpu/ops/expr.py`: the same tokenizer, grammar and
 `parse_band_expressions` contract, so a request's variable list and
-output names match the reference, and the same evaluator (`_emit`),
-which the drill's merge runs over per-date float64 scalars.  Evaluation
-over torch tensors on the card (the fused band algebra of the GetMap
-path) is not ported yet.
+output names match the reference, and the same evaluator (`_emit`).
+The drill's merge runs it over per-date float64 scalars (``xp=np``);
+the modular GetMap path over float32 tensors on the pipeline's device
+(``xp=torch``, `CompiledExpr.eval_masked`).
+
+Over torch, each xp has its own function table (the reference binds
+its table to jnp whatever xp is).  Float32 stays float32 as JAX's weak
+types keep it: Python constants combine with tensors in the tensor's
+dtype, `where` of two constants is float32, and constant-only calls
+round through float32.  Two PyTorch habits would change bits and are
+avoided: a division by or of a Python scalar divides by a 0-d tensor
+(PyTorch on CUDA multiplies by the scalar's reciprocal instead), and
+``log10`` is ``log(x) / log(10)`` as `jnp.log10` lowers.  ``%`` is
+`torch.fmod` (truncated, sign of the dividend).  The fused band-algebra
+epilogue (`fingerprint`, `render_expr_paged`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 _TOKEN_RE = re.compile(r"""
     (?P<num>\d+\.\d*(?:[eE][-+]?\d+)?|\.\d+(?:[eE][-+]?\d+)?|\d+(?:[eE][-+]?\d+)?)
@@ -163,17 +175,79 @@ def _collect_vars(node, acc):
             _collect_vars(n, acc)
 
 
+def _as_tensor(x, like):
+    """A Python scalar as a 0-d float32 tensor on ``like``'s device."""
+    return torch.full((), float(x), dtype=torch.float32, device=like.device)
+
+
+def _tensor_args(args):
+    """Scalars among ``args`` as 0-d float32 tensors beside the first
+    tensor; None when no argument is a tensor."""
+    like = next((a for a in args if isinstance(a, torch.Tensor)), None)
+    if like is None:
+        return None
+    return [a if isinstance(a, torch.Tensor) else _as_tensor(a, like)
+            for a in args]
+
+
+def _torch_call(tfn, nfn):
+    """A function of the torch table: tensors through ``tfn``, an
+    all-constant call through ``nfn`` in float32."""
+    def call(*args):
+        targs = _tensor_args(args)
+        if targs is None:
+            return float(nfn(*(np.float32(a) for a in args)))
+        return tfn(*targs)
+    return call
+
+
+def _log10(x):
+    return torch.log(x) / torch.log(_as_tensor(10.0, x))
+
+
+_TORCH_FUNCS = {
+    name: _torch_call(tfn, getattr(np, nname))
+    for name, tfn, nname in (
+        ("abs", torch.abs, "abs"), ("sqrt", torch.sqrt, "sqrt"),
+        ("log", torch.log, "log"), ("log10", _log10, "log10"),
+        ("exp", torch.exp, "exp"), ("sin", torch.sin, "sin"),
+        ("cos", torch.cos, "cos"), ("tan", torch.tan, "tan"),
+        ("floor", torch.floor, "floor"), ("ceil", torch.ceil, "ceil"),
+        ("min", torch.minimum, "minimum"), ("max", torch.maximum, "maximum"),
+        ("pow", torch.pow, "power"))}
+
+
+def _twhere(c, a, b):
+    if not isinstance(c, torch.Tensor):
+        return a if c else b
+    return torch.where(c, a, b)
+
+
+def _tdiv(a, b):
+    targs = _tensor_args((a, b))
+    return a / b if targs is None else targs[0] / targs[1]
+
+
+def _tfmod(a, b):
+    targs = _tensor_args((a, b))
+    if targs is None:
+        return float(np.fmod(np.float32(a), np.float32(b)))
+    return torch.fmod(*targs)
+
+
 def _emit(node, env, xp):
     tag = node[0]
     if tag == "num":
         return node[1]
     if tag == "var":
         return env[node[1]]
+    over_torch = xp is torch
+    where = _twhere if over_torch else xp.where
     if tag == "un":
         a = _emit(node[2], env, xp)
         if node[1] == "-":
             return -a
-        return xp.where(a != 0, 0.0, 1.0)
+        return where(a != 0, 0.0, 1.0)
     if tag == "bin":
         op = node[1]
         a = _emit(node[2], env, xp)
@@ -185,10 +259,12 @@ def _emit(node, env, xp):
         if op == "*":
             return a * b
         if op == "/":
-            return a / b
+            return _tdiv(a, b) if over_torch else a / b
         if op == "%":
             # Go math.Mod semantics (truncated, sign of the dividend),
             # not Python's floored modulo
+            if over_torch:
+                return _tfmod(a, b)
             return xp.fmod(a, b) if hasattr(xp, "fmod") else math.fmod(a, b)
         if op == "**":
             return a ** b
@@ -213,10 +289,10 @@ def _emit(node, env, xp):
         c = _emit(node[1], env, xp)
         a = _emit(node[2], env, xp)
         b = _emit(node[3], env, xp)
-        return xp.where(c != 0, a, b)
+        return where(c != 0, a, b)
     if tag == "call":
         args = [_emit(n, env, xp) for n in node[2]]
-        return _FUNCS[node[1]](*args)
+        return (_TORCH_FUNCS if over_torch else _FUNCS)[node[1]](*args)
     raise ValueError(tag)
 
 
@@ -229,16 +305,34 @@ class CompiledExpr:
     _ast: tuple = field(repr=False, default=None)
 
     def __call__(self, env: Dict[str, object], xp=np):
-        """Evaluate over numpy values (arrays or scalars) in ``env``."""
-        if xp is not np:
-            raise NotImplementedError(
-                "band-expression evaluation over torch tensors is not "
-                f"ported yet: {self.src!r}")
+        """Evaluate over the values in ``env``: numpy arrays or scalars
+        (``xp=np``), or torch tensors (``xp=torch``)."""
+        if xp is not np and xp is not torch:
+            raise ValueError(f"unsupported array module {xp!r}")
         missing = [v for v in self.variables if v not in env]
         if missing:
             raise KeyError(f"expression {self.src!r} missing bands "
                            f"{missing}")
         return _emit(self._ast, env, xp)
+
+    def eval_masked(self, env, valid_env, device="cpu"):
+        """Evaluate over torch tensors and combine validity: valid iff
+        every referenced band is valid and the result is finite; 0.0
+        elsewhere.  ``device`` places the result of a constant-only
+        expression."""
+        out = self(env, torch)
+        if not isinstance(out, torch.Tensor):
+            out = torch.tensor(float(out), dtype=torch.float32,
+                               device=device)
+        ok = None
+        for v in self.variables:
+            m = valid_env[v]
+            ok = m if ok is None else (ok & m)
+        if ok is None:
+            ok = torch.ones(out.shape, dtype=torch.bool, device=out.device)
+        # expressions can create new NaN/Inf (division by zero etc.)
+        ok = ok & torch.isfinite(out)
+        return torch.where(ok, out, 0.0), ok
 
 
 _CACHE_CAP = 512

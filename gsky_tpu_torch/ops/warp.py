@@ -1,7 +1,7 @@
 """Reprojection warp: control-grid upsample, resampling taps, composite.
 
 Counterpart of the device half of `gsky_tpu/ops/warp.py` on the GetMap
-path, as plain PyTorch ops:
+paths, as plain PyTorch ops:
 
 - `_bilerp_grid`: the dense dst->src coordinate grid rebuilt from the
   sparse control points (the approx-transformer analogue);
@@ -13,7 +13,10 @@ path, as plain PyTorch ops:
   in how a tap is fetched.  `csrc/warp_render.cu` implements the same
   body in CUDA C++;
 - `composite_scale`: first-valid composite across namespaces + byte
-  scaling.
+  scaling;
+- `warp_gather_batch`: the modular path's dense-coordinate gather warp
+  of decoded windows (`_nearest`, `_bilinear`, `_cubic`), batched over
+  a leading granule axis as the reference vmaps it.
 
 Op order is the reference's, term for term, so that results agree to
 the bit wherever the reference itself does not contract a multiply-add.
@@ -161,6 +164,111 @@ def granule_sample(sx, sy, p, method: str, wr: int, wc: int, fetch):
     ok = finite & (wacc > thresh)
     val = acc / torch.where(wacc > thresh, wacc, torch.ones_like(wacc))
     return val, ok
+
+
+def _sat_int32(x):
+    """float32 -> int32 the way XLA converts: NaN to 0, out-of-range
+    values saturate (torch's own cast gives INT_MIN for NaN and inf).
+    Only the clipped tap index of an invalid pixel depends on it."""
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    # 2147483520 is the largest float32 below 2^31
+    return x.clamp(-2147483648.0, 2147483520.0).to(torch.int32)
+
+
+def _gather2d(src, ri, ci):
+    """Per-granule flat gather from src (B, H, W) at pre-clipped integer
+    indices ri/ci (B, h, w)."""
+    B, H, W = src.shape
+    idx = (ri.long() * W + ci.long()).reshape(B, -1)
+    return src.reshape(B, -1).gather(1, idx).reshape(ri.shape)
+
+
+def _nearest(src, valid, rows, cols):
+    H, W = src.shape[-2:]
+    # the C kernel's (int)(px + 1e-10) in corner-based coords; in f32
+    # 0.5 + 1e-10 is 0.5
+    ri = _sat_int32(torch.floor(rows + 0.5))
+    ci = _sat_int32(torch.floor(cols + 0.5))
+    inb = (ri >= 0) & (ri < H) & (ci >= 0) & (ci < W) \
+        & torch.isfinite(rows) & torch.isfinite(cols)
+    ri = ri.clamp(0, H - 1)
+    ci = ci.clamp(0, W - 1)
+    return _gather2d(src, ri, ci), inb & _gather2d(valid, ri, ci)
+
+
+def _interp(src, valid, rows, cols, taps_of, thresh):
+    """Shared body of `_bilinear` and `_cubic`: ``taps_of(fr, fc)`` gives
+    [(dr, dc, weight)].  Where XLA's CPU lowering of the reference
+    contracts multiply-adds, this fuses them (`fma`): the weight masked by
+    tap validity is a select (so an invalid tap weighs +0.0), and the tap
+    sum fuses the FIRST product into the rounded second, then every later
+    product into the running sum.  A source value is never zeroed: a NaN
+    under an invalid tap poisons the sum, as in the reference."""
+    H, W = src.shape[-2:]
+    finite = torch.isfinite(rows) & torch.isfinite(cols)
+    rows = torch.where(finite, rows, torch.full_like(rows, -10.0))
+    cols = torch.where(finite, cols, torch.full_like(cols, -10.0))
+    r0 = torch.floor(rows)
+    c0 = torch.floor(cols)
+    fr = rows - r0
+    fc = cols - c0
+    r0 = _sat_int32(r0)
+    c0 = _sat_int32(c0)
+    zero = torch.zeros_like(rows)
+    terms = []
+    wacc = zero
+    for dr, dc, w in taps_of(fr, fc):
+        ri = r0 + dr
+        ci = c0 + dc
+        inb = (ri >= 0) & (ri < H) & (ci >= 0) & (ci < W)
+        ric = ri.clamp(0, H - 1)
+        cic = ci.clamp(0, W - 1)
+        v = _gather2d(src, ric, cic)
+        wo = torch.where(inb & _gather2d(valid, ric, cic), w, zero)
+        terms.append((wo, v))
+        wacc = wacc + wo
+    acc = fma(terms[0][0], terms[0][1], terms[1][0] * terms[1][1])
+    for wo, v in terms[2:]:
+        acc = fma(wo, v, acc)
+    big = wacc > thresh
+    return acc / torch.where(big, wacc, torch.ones_like(wacc)), finite & big
+
+
+def _bilinear(src, valid, rows, cols):
+    return _interp(src, valid, rows, cols, lambda fr, fc: [
+        (dr, dc, (fr if dr else 1 - fr) * (fc if dc else 1 - fc))
+        for dr in (0, 1) for dc in (0, 1)], 1e-6)
+
+
+def _cubic(src, valid, rows, cols):
+    def taps(fr, fc):
+        wr = _cubic_weights(fr)
+        wc = _cubic_weights(fc)
+        return [(dr - 1, dc - 1, wr[dr] * wc[dc])
+                for dr in range(4) for dc in range(4)]
+    # require meaningful positive total weight (cubic weights can cancel)
+    return _interp(src, valid, rows, cols, taps, 0.05)
+
+
+_GATHER = {"near": _nearest, "nearest": _nearest, "bilinear": _bilinear,
+           "cubic": _cubic}
+
+
+def warp_gather_batch(src, valid, rows, cols, method: str = "near"):
+    """Resample each granule of src (B, H, W) f32 with validity valid
+    (B, H, W) bool at fractional index coordinates rows/cols (B, h, w)
+    f32 (integer k = the centre of source pixel k).  Returns (out (B, h,
+    w) f32, ok (B, h, w) bool), on the inputs' device."""
+    if method not in _GATHER:
+        raise KeyError(f"unknown resample method {method!r}")
+    return _GATHER[method](src, valid, rows, cols)
+
+
+def warp_gather(src, valid, rows, cols, method: str = "near"):
+    """`warp_gather_batch` of one (H, W) granule."""
+    out, ok = warp_gather_batch(src[None], valid[None], rows[None],
+                                cols[None], method)
+    return out[0], ok[0]
 
 
 def mosaic_update(canv, best, val, ok, prio, ns):

@@ -1,9 +1,10 @@
-"""The warp executor: cached scenes -> one fused warp-render dispatch.
+"""The warp executor: cached scenes -> one fused warp-render dispatch,
+and decoded windows -> batched gather warps.
 
-Counterpart of `gsky_tpu/pipeline/executor.py` on the single-band
-GetMap path.  `render_byte_scenes` groups a tile's granules by (source
-CRS, bucket shape, dtype), builds the sparse control grid once per
-(dst grid, src CRS) on the host in float64, and dispatches:
+Counterpart of `gsky_tpu/pipeline/executor.py` on the GetMap paths.
+`render_byte_scenes` groups a tile's granules by (source CRS, bucket
+shape, dtype), builds the sparse control grid once per (dst grid, src
+CRS) on the host in float64, and dispatches:
 
 - the paged leg (kernel B1) when the page pool can stage every
   granule's footprint pages (`_paged_from_group`);
@@ -12,6 +13,11 @@ CRS, bucket shape, dtype), builds the sparse control grid once per
 
 The scene stack of the bucketed leg is built only when that leg runs:
 the paged leg never reads it.
+
+`warp_all` serves the modular (mask-band) path: every decoded window is
+projected per dst pixel on the host (float64, cached per dst grid and
+source CRS), padded into source-shape buckets and warped by one
+`warp_gather_batch` per bucket; results stay on the device.
 """
 
 from __future__ import annotations
@@ -30,15 +36,33 @@ from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import GeoTransform
 from ..ops.paged import PARAMS_W, page_slots, render_byte_paged
+from ..ops.warp import warp_gather_batch
 from ..ops.warp_render import render_scenes
+from .decode import DecodedWindow
 from .pages import PagePool
 from .scene_cache import DeviceScene, SceneCache
 
 _WIN_MARGIN = 2  # covers cubic's +2 tap and f32-vs-f64 coord rounding
-# host-clock stages of one tile: "index" is recorded by the tile
+# host-clock stages of one fused tile: "index" is recorded by the tile
 # pipeline, the rest by `render_byte_scenes` ("dispatch" is the host
 # side of the kernel launch and epilogue; the device runs asynchronously)
 SPANS = ("index", "groups", "tables", "dispatch")
+# the modular (mask-band) path's stages, all recorded by
+# `TilePipeline.render`; they appear in `spans` once that path runs
+MODULAR_SPANS = ("index", "decode", "warp", "bitmask", "mosaic", "expr")
+# padded source-window shape buckets (H and W independently bucketed)
+_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def _bucket_in(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return int(math.ceil(n / 4096) * 4096)
+
+
+def _bucket(n: int) -> int:
+    return _bucket_in(n, _BUCKETS)
 
 
 def _bucket_pow2(n: int, lo: int = 1) -> int:
@@ -112,14 +136,16 @@ class WarpExecutor:
         # dispatch counts by leg — "where do renders actually go"
         self.paged_engaged = 0
         self.paged_declined = 0
-        # seconds per stage, summed over calls (SPANS)
+        # seconds per stage, summed over calls (SPANS, MODULAR_SPANS)
         self.spans = dict.fromkeys(SPANS, 0.0)
+        # window-batch dispatches of `warp_all` by (bh, bw, B)
+        self.bucket_stats: Dict[tuple, int] = {}
 
     def add_span(self, name: str, t0: float) -> float:
         """Add the time since ``t0`` to stage ``name``; returns now."""
         now = time.perf_counter()
         with self._lock:
-            self.spans[name] += now - t0
+            self.spans[name] = self.spans.get(name, 0.0) + now - t0
         return now
 
     def _geo_cache_get(self, key):
@@ -135,6 +161,71 @@ class WarpExecutor:
             self._geo_cache.move_to_end(key)
             while len(self._geo_cache) > self._GEO_CACHE_MAX:
                 self._geo_cache.popitem(last=False)
+
+    def _dst_geo_coords(self, dst_gt: GeoTransform, dst_crs: CRS,
+                        height: int, width: int,
+                        src_crs: CRS) -> Tuple[np.ndarray, np.ndarray]:
+        """(sx, sy): every dst pixel centre projected into src CRS (f64,
+        host), cached — shared by every granule in that CRS."""
+        key = (dst_gt.to_gdal(), dst_crs, height, width, src_crs)
+        hit = self._geo_cache_get(key)
+        if hit is not None:
+            return hit
+        c = np.arange(width, dtype=np.float64) + 0.5
+        r = np.arange(height, dtype=np.float64) + 0.5
+        C, R = np.meshgrid(c, r)
+        x, y = dst_gt.pixel_to_geo(C, R)
+        sx, sy = dst_crs.transform_to(src_crs, x, y)
+        sx = np.asarray(sx, np.float64)
+        sy = np.asarray(sy, np.float64)
+        self._geo_cache_put(key, (sx, sy))
+        return sx, sy
+
+    def warp_all(self, windows: Sequence[Optional[DecodedWindow]],
+                 dst_gt: GeoTransform, dst_crs: CRS, height: int,
+                 width: int, method: str = "near"):
+        """Warp every decoded window onto the dst grid.  Returns, per
+        input, (data (H, W) f32, ok (H, W) bool) tensors on the device,
+        or None for a None window.  Windows are padded into (bucket(h),
+        bucket(w)) source shapes and the granule count of each bucket to
+        a power of two, with padding rows that gather nothing."""
+        jobs = []
+        for i, wdw in enumerate(windows):
+            if wdw is None:
+                continue
+            sx, sy = self._dst_geo_coords(dst_gt, dst_crs, height, width,
+                                          wdw.src_crs)
+            col, row = wdw.window_gt.geo_to_pixel(sx, sy)
+            jobs.append((i, wdw, (row - 0.5).astype(np.float32),
+                         (col - 0.5).astype(np.float32)))
+        results: List[Optional[Tuple[torch.Tensor, torch.Tensor]]] = \
+            [None] * len(windows)
+        buckets: Dict[Tuple[int, int], list] = {}
+        for job in jobs:
+            h, w = job[1].data.shape
+            buckets.setdefault((_bucket(h), _bucket(w)), []).append(job)
+        dev = self.device
+        for (bh, bw), batch in buckets.items():
+            B = _bucket_pow2(len(batch))
+            with self._lock:
+                key = (bh, bw, B)
+                self.bucket_stats[key] = self.bucket_stats.get(key, 0) + 1
+            src = torch.zeros((B, bh, bw), dtype=torch.float32, device=dev)
+            valid = torch.zeros((B, bh, bw), dtype=torch.bool, device=dev)
+            rows = np.full((B, height, width), -1e6, np.float32)
+            cols = np.full((B, height, width), -1e6, np.float32)
+            for k, (_, wdw, r, c) in enumerate(batch):
+                rows[k] = r
+                cols[k] = c
+                h, w = wdw.data.shape
+                src[k, :h, :w] = wdw.data
+                valid[k, :h, :w] = wdw.valid
+            out, ok = warp_gather_batch(
+                src, valid, torch.from_numpy(rows).to(dev),
+                torch.from_numpy(cols).to(dev), method)
+            for k, (i, _, _, _) in enumerate(batch):
+                results[i] = (out[k], ok[k])
+        return results
 
     def _ctrl_geo_coords(self, dst_gt: GeoTransform, dst_crs: CRS,
                          height: int, width: int, src_crs: CRS,

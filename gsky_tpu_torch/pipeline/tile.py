@@ -1,23 +1,44 @@
-"""The tile pipeline: index -> fused scene warp + mosaic + byte scale.
+"""The tile pipeline: index -> warp -> mosaic -> band expressions.
 
-Counterpart of the GetMap half of `gsky_tpu/pipeline/tile.py`:
-`render_composite_byte` runs one MAS query, expands granules, assigns
-namespace slots and newest-first mosaic priorities (`ns_prio`), and
-hands the tile to `WarpExecutor.render_byte_scenes`.
+Counterpart of the GetMap half of `gsky_tpu/pipeline/tile.py`, two
+routes:
+
+- `render_composite_byte`, the fused single-band route: one MAS query,
+  granule expansion, namespace slots and newest-first mosaic priorities
+  (`ns_prio`), then `WarpExecutor.render_byte_scenes` (kernels B1/B2);
+- `process` -> `render`, the modular route a layer with a mask band
+  takes (the reference's `tile_merger.go` path): decode every granule's
+  window, warp them per resampling method (the mask band always
+  nearest), turn the mask band into per-timestamp exclusions, mosaic
+  each namespace newest-first (kernel B4), evaluate the band
+  expressions.  Everything after decode stays on the device.
+
+Not ported here: the geolocation branch of `render`, remote workers,
+and `_render_fused` (a `process` without a mask band), each of which
+raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..index.client import MASClient
 from ..index.store import fmt_time
-from ..ops.mosaic import priority_order
+from ..ops import mosaic as M
+from ..ops.expr import BandExpressions
+from ..ops.raster import DTYPE_NP
+from ..resilience import check_partial
+from .decode import decode_all
 from .executor import WarpExecutor
 from .granule import expand_granules
-from .types import GeoTileRequest, Granule
+from .types import GeoTileRequest, Granule, TileResult
+
+_DECODE_WORKERS = 8       # threads reading one tile's granule windows
 
 
 def ns_prio(gs: Sequence[Granule]):
@@ -30,7 +51,7 @@ def ns_prio(gs: Sequence[Granule]):
             ns_index[g.namespace] = len(ns_names)
             ns_names.append(g.namespace)
     ns_ids = [ns_index[g.namespace] for g in gs]
-    order = priority_order([g.timestamp for g in gs])
+    order = M.priority_order([g.timestamp for g in gs])
     prio = [0.0] * len(gs)
     for rank, i in enumerate(order):
         prio[i] = float(len(gs) - rank)
@@ -41,15 +62,21 @@ class TilePipeline:
     def __init__(self, mas: MASClient,
                  executor: Optional[WarpExecutor] = None, device="cuda"):
         """``device`` ("cuda" by default) places the scene cache, the
-        page pool and the kernels; without CUDA it must be "cpu", which
-        runs the kernels' plain PyTorch versions."""
+        page pool, decoded windows and the kernels; without CUDA it must
+        be "cpu", which runs the kernels' plain PyTorch versions."""
         self.device = resolve_device(device)
         self.mas = mas
         self.executor = executor or WarpExecutor(device=self.device)
 
     def index(self, req: GeoTileRequest) -> List[Granule]:
-        """One MAS query + axis intersection."""
+        """MAS query + axis intersection, plus the mask band: in the
+        data collection's query when it has no ``data_source``, else by
+        a second query of that collection."""
         namespaces = list(req.band_exprs.var_list)
+        if req.mask is not None and req.mask.id \
+                and not req.mask.data_source:
+            if req.mask.id not in namespaces:
+                namespaces.append(req.mask.id)
         kw = dict(srs=req.crs.name(), wkt=req.bbox.to_polygon_wkt(),
                   namespaces=",".join(namespaces),
                   nseg=req.polygon_segments, limit=req.query_limit)
@@ -58,8 +85,16 @@ class TilePipeline:
         if req.end_time is not None:
             kw["until"] = fmt_time(req.end_time)
         datasets = self.mas.intersects(req.collection, **kw)
-        return expand_granules(datasets, req.start_time, req.end_time,
-                               req.axes)
+        granules = expand_granules(datasets, req.start_time, req.end_time,
+                                   req.axes)
+        if req.mask is not None and req.mask.data_source:
+            mkw = dict(kw, namespaces=req.mask.id)
+            mds = self.mas.intersects(req.mask.data_source, **mkw)
+            granules += expand_granules(mds, req.start_time, req.end_time,
+                                        req.axes)
+        return granules
+
+    # -- the fused single-band route -----------------------------------
 
     def composite_prep(self, req: GeoTileRequest):
         """ONE index pass for the fused composite path: (granules,
@@ -69,7 +104,7 @@ class TilePipeline:
             return None
         if any(ce._ast[0] != "var" for ce in req.band_exprs.expressions):
             raise NotImplementedError(
-                "band algebra is not ported yet: "
+                "fused band algebra is not ported yet (ROADMAP A.7): "
                 f"{req.band_exprs.expr_text}")
         granules = self.index(req)
         if not granules:
@@ -101,3 +136,169 @@ class TilePipeline:
             return None
         return self.composite_dispatch(req, made, offset, scale, clip,
                                        colour_scale, auto)
+
+    # -- the modular route ---------------------------------------------
+
+    def process(self, req: GeoTileRequest) -> TileResult:
+        t0 = time.perf_counter()
+        granules = self.index(req)
+        self.executor.add_span("index", t0)
+        return self.render(req, granules)
+
+    def render(self, req: GeoTileRequest,
+               granules: List[Granule]) -> TileResult:
+        exprs = req.band_exprs
+        H, W = req.height, req.width
+        dev = self.device
+        if not granules:
+            return _empty_result(exprs, H, W, dev)
+        mask_id = req.mask.id if req.mask is not None else None
+        if mask_id is None:
+            raise NotImplementedError(
+                "process() without a mask band (_render_fused) is not "
+                "ported yet (ROADMAP A.12); use render_composite_byte")
+        ex = self.executor
+        # mask bands always resample nearest: interpolating bitfields is
+        # meaningless
+        is_mask = [g.base_namespace == mask_id for g in granules]
+        warped: List[Optional[Tuple[torch.Tensor, torch.Tensor]]] = \
+            [None] * len(granules)
+        for method, idxs in (
+                (req.resample, [i for i, m in enumerate(is_mask) if not m]),
+                ("near", [i for i, m in enumerate(is_mask) if m])):
+            if not idxs:
+                continue
+            if any(granules[i].geo_loc for i in idxs):
+                raise NotImplementedError(
+                    "curvilinear granules on the modular route are not "
+                    "ported yet (ROADMAP A.8)")
+            t = time.perf_counter()
+            errs: List[Exception] = []
+            ws = decode_all([granules[i] for i in idxs], req.bbox, req.crs,
+                            method, _DECODE_WORKERS, dst_hw=(H, W),
+                            errors=errs, device=dev)
+            check_partial(len(errs), len(idxs), "decode")
+            t = ex.add_span("decode", t)
+            wr = ex.warp_all(ws, req.dst_gt(), req.crs, H, W, method)
+            for k, i in enumerate(idxs):
+                warped[i] = wr[k]
+            ex.add_span("warp", t)
+
+        # group warped granules by namespace; the mask band becomes
+        # per-timestamp exclusions
+        t = time.perf_counter()
+        by_ns: Dict[str, List[Tuple[Granule, torch.Tensor,
+                                    torch.Tensor]]] = {}
+        mask_by_stamp: Dict[float, torch.Tensor] = {}
+        for g, wr in zip(granules, warped):
+            if wr is None:
+                continue
+            data, ok = wr
+            if g.base_namespace == mask_id:
+                band, storage = _restore_int(data, g.array_type)
+                excl = M.compute_bit_mask(band, req.mask.value or None,
+                                          req.mask.bit_tests, storage)
+                excl = excl & ok
+                if req.mask.inclusive:
+                    excl = ~excl & ok
+                prev = mask_by_stamp.get(g.timestamp)
+                mask_by_stamp[g.timestamp] = \
+                    excl if prev is None else (prev | excl)
+                if mask_id not in exprs.var_list:
+                    continue
+            by_ns.setdefault(g.namespace, []).append((g, data, ok))
+        t = ex.add_span("bitmask", t)
+
+        # mosaic per namespace (newest wins, older fills holes)
+        data_env: Dict[str, torch.Tensor] = {}
+        valid_env: Dict[str, torch.Tensor] = {}
+        for ns, items in by_ns.items():
+            rasters = [d for _, d, _ in items]
+            valids = []
+            for g, _, ok in items:
+                excl = mask_by_stamp.get(g.timestamp)
+                valids.append(ok & ~excl if excl is not None else ok)
+            stamps = [g.timestamp for g, _, _ in items]
+            data_env[ns], valid_env[ns] = M.mosaic_stack(rasters, valids,
+                                                         stamps)
+        t = ex.add_span("mosaic", t)
+        out = evaluate_expressions(exprs, data_env, valid_env, H, W, dev,
+                                   granule_count=len(granules),
+                                   file_count=len({g.path
+                                                   for g in granules}))
+        ex.add_span("expr", t)
+        return out
+
+
+def evaluate_expressions(exprs: BandExpressions,
+                         data_env: Dict[str, torch.Tensor],
+                         valid_env: Dict[str, torch.Tensor],
+                         H: int, W: int, device="cpu",
+                         granule_count: int = 0,
+                         file_count: int = 0) -> TileResult:
+    """Band-expression evaluation over the mosaic canvases.  Variables
+    the index produced with axis suffixes (``var#axis=value``) are
+    matched to the plain variable when unambiguous; a missing variable
+    gives an all-invalid zero plane."""
+    out_data: Dict[str, torch.Tensor] = {}
+    out_valid: Dict[str, torch.Tensor] = {}
+    names: List[str] = []
+
+    def lookup(var: str) -> Optional[str]:
+        if var in data_env:
+            return var
+        cands = [k for k in data_env if k.split("#")[0] == var]
+        return cands[0] if len(cands) == 1 else None
+
+    for ce, name in zip(exprs.expressions, exprs.expr_names):
+        keys = [lookup(var) for var in ce.variables]
+        if any(k is None for k in keys):
+            out_data[name] = torch.zeros((H, W), dtype=torch.float32,
+                                         device=device)
+            out_valid[name] = torch.zeros((H, W), dtype=torch.bool,
+                                          device=device)
+        elif ce._ast[0] == "var":
+            out_data[name] = data_env[keys[0]].to(torch.float32)
+            out_valid[name] = valid_env[keys[0]]
+        else:
+            env = {v: data_env[k] for v, k in zip(ce.variables, keys)}
+            venv = {v: valid_env[k] for v, k in zip(ce.variables, keys)}
+            o, ok = ce.eval_masked(env, venv, device=device)
+            out_data[name] = o.to(torch.float32)
+            out_valid[name] = ok
+        names.append(name)
+
+    # axis-expanded outputs with no expression pass through as extra
+    # namespaces
+    for k in data_env:
+        if "#" in k and k not in out_data:
+            out_data[k] = data_env[k].to(torch.float32)
+        if "#" in k and k not in out_valid:
+            out_valid[k] = valid_env[k]
+            names.append(k)
+    return TileResult(out_data, out_valid, names, granule_count, file_count)
+
+
+def _restore_int(data: torch.Tensor, array_type: str):
+    """Warped mask bands come back float32: (integer tensor, numpy
+    storage dtype) for the bitwise tests.  The cast is XLA's — NaN to 0,
+    truncation toward zero, saturation at the storage dtype's range —
+    and the result is held in the widened dtype `compute_bit_mask`
+    tests in (uint16 as int32, uint32 as int64)."""
+    dt = np.dtype(DTYPE_NP.get(array_type, np.int32))
+    if dt.kind not in "iu":
+        dt = np.dtype(np.int32)
+    info = np.iinfo(dt)
+    x = torch.where(torch.isnan(data), torch.zeros_like(data), data)
+    x = x.clamp(-2.0 ** 40, 2.0 ** 40).to(torch.int64)
+    x = x.clamp(int(info.min), int(info.max))
+    return x.to(M._WIDE[dt]), dt
+
+
+def _empty_result(exprs: BandExpressions, H: int, W: int,
+                  device="cpu") -> TileResult:
+    data = {n: torch.zeros((H, W), dtype=torch.float32, device=device)
+            for n in exprs.expr_names}
+    valid = {n: torch.zeros((H, W), dtype=torch.bool, device=device)
+             for n in exprs.expr_names}
+    return TileResult(data, valid, list(exprs.expr_names), 0, 0)

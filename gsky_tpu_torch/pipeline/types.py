@@ -1,13 +1,15 @@
 """Request, granule and result types for the tile and drill pipelines.
 
 Counterpart of `gsky_tpu/pipeline/types.py`, trimmed to the fields the
-single-band GetMap path and the WPS drill read.
+GetMap paths and the WPS drill read.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
+
+import torch
 
 from ..geo.crs import CRS, EPSG3857
 from ..geo.transform import BBox, GeoTransform
@@ -91,6 +93,18 @@ class Granule:
     var_name: str = ""
     geo_loc: Optional[Dict] = None
     polygon: str = ""
+
+
+@dataclass
+class TileResult:
+    """Per-namespace float32 canvases + validity masks, as tensors on
+    the pipeline's device."""
+
+    data: Dict[str, torch.Tensor]         # namespace -> (H, W) float32
+    valid: Dict[str, torch.Tensor]        # namespace -> (H, W) bool
+    namespaces: List[str]                 # output order
+    granule_count: int = 0
+    file_count: int = 0
 
 
 @dataclass

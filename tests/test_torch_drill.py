@@ -410,8 +410,13 @@ def test_expression_evaluation_identical(src):
 
 
 def test_expression_over_torch_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        texpr.compile_expr("a + 1")({"a": torch.ones(2)}, xp=torch)
+    # evaluation over torch tensors is ported (tests/test_torch_mosaic.py
+    # holds it against JAX); an array module other than numpy or torch
+    # is refused
+    got = texpr.compile_expr("a + 1")({"a": torch.ones(2)}, xp=torch)
+    assert torch.equal(got, torch.full((2,), 2.0))
+    with pytest.raises(ValueError, match="array module"):
+        texpr.compile_expr("a + 1")({"a": np.ones(2)}, xp=jnp)
 
 
 # ---------------------------------------------------------------------------

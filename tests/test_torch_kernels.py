@@ -1,8 +1,9 @@
 """Port parity, kernel tier: the plain PyTorch versions of the two
-warp-render kernels (B1 paged, B2 bucketed) and of the drill's masked
-stats kernel (B3) against the JAX package's Pallas kernels in interpret
-mode, plus the plain ops around them (`_bilerp_grid`, `_cubic_weights`,
-`composite_scale`, `scale_to_byte`).
+warp-render kernels (B1 paged, B2 bucketed), of the drill's masked
+stats kernel (B3) and of the first-valid mosaic kernel (B4) against the
+JAX package's Pallas kernels in interpret mode, plus the plain ops
+around them (`_bilerp_grid`, `_cubic_weights`, `composite_scale`,
+`scale_to_byte`, the argmax-form and weighted mosaics).
 
 Every input is built once with numpy (float32/int32 explicitly: the
 suite runs JAX with x64 on) and handed to both packages.  Tolerances:
@@ -13,7 +14,8 @@ bound is the contract); the winning-priority planes (`best`) are exact;
 byte tiles are identical.  B3: counts exact, means within rtol 1e-5 of
 the Pallas kernel's (its final lane sum is XLA's `jnp.sum`, whose order
 XLA picks: the bound the JAX package holds itself to); the plain
-version's own summation order is pinned bit for bit."""
+version's own summation order is pinned bit for bit.  B4: out and ok
+bit-exact, the 0.0 fill and NaN / -0.0 / inf values included."""
 
 import importlib
 from fractions import Fraction
@@ -24,6 +26,7 @@ import torch
 
 import jax.numpy as jnp
 
+from gsky_tpu.ops import mosaic as jmosaic
 from gsky_tpu.ops import paged as jpaged
 from gsky_tpu.ops import pallas_tpu as jpt
 from gsky_tpu.pipeline.pages import PagePool as JPagePool
@@ -34,6 +37,8 @@ jwarp = importlib.import_module("gsky_tpu.ops.warp")
 jscale = importlib.import_module("gsky_tpu.ops.scale")
 
 from gsky_tpu_torch.carry import pool_from_reference
+from gsky_tpu_torch.ops import first_valid as tfv
+from gsky_tpu_torch.ops import mosaic as tmosaic
 from gsky_tpu_torch.ops import paged as tpaged
 from gsky_tpu_torch.ops import scale as tscale
 from gsky_tpu_torch.ops import stats as tstats
@@ -418,3 +423,128 @@ class TestMaskedStatsB3:
         with pytest.raises(ValueError):
             tstats.masked_stats(t, t.bool())
 
+
+
+def _b4_inputs(seed, T, H, W, edge=False, p_valid=0.4):
+    """stack (T, H, W) f32 x 50 and valid bool; with ``edge``: an
+    all-invalid column band, NaN / +-inf / -0.0 in valid layers, and
+    NaN / inf in invalid ones."""
+    rng = np.random.default_rng(seed)
+    stack = (rng.normal(size=(T, H, W)) * 50).astype(np.float32)
+    valid = rng.uniform(size=(T, H, W)) < p_valid
+    if edge:
+        valid[:, :, : max(1, W // 5)] = False
+        special = np.array([np.nan, np.inf, -np.inf, -0.0], np.float32)
+        pick = rng.uniform(size=(T, H, W)) < 0.2
+        stack[pick] = special[rng.integers(0, 4, int(pick.sum()))]
+        # a NaN with a payload, to show the value moves as bits
+        stack.view(np.uint32)[0, 0, -1] = 0x7fc12345
+        valid[0, 0, -1] = True
+        bad = ~valid & (rng.uniform(size=(T, H, W)) < 0.3)
+        stack[bad] = np.where(rng.uniform(size=int(bad.sum())) < 0.5,
+                              np.nan, np.inf).astype(np.float32)
+    return stack, valid
+
+
+def _b4_check(stack, valid, valid_dtype=np.bool_):
+    oj, okj = jpt.mosaic_first_valid_pallas(
+        jnp.asarray(stack), jnp.asarray(valid.astype(valid_dtype)),
+        interpret=True)
+    ot, okt = tfv.mosaic_first_valid_kernel(
+        torch.from_numpy(stack),
+        torch.from_numpy(valid.astype(valid_dtype)))
+    assert ot.dtype == torch.float32 and okt.dtype == torch.bool
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    np.testing.assert_array_equal(ot.numpy().view(np.int32),
+                                  np.asarray(oj).view(np.int32))
+    return ot.numpy(), okt.numpy()
+
+
+class TestFirstValidB4:
+    """Shapes of tests/test_pallas.py::TestMosaicKernel, then T in
+    {1, 3, 8, 128}, ragged H/W and the special values."""
+
+    def test_matches_pallas_on_the_reference_shape(self):
+        stack, valid = _b4_inputs(7, 6, 200, 300)
+        _b4_check(stack, valid)
+
+    def test_all_invalid_fills_positive_zero(self):
+        stack = np.ones((3, 64, 64), np.float32)
+        out, ok = _b4_check(stack, np.zeros((3, 64, 64), bool))
+        assert not ok.any() and (out.view(np.int32) == 0).all()
+
+    def test_priority_order_wins(self):
+        stack = np.stack([np.full((32, 32), 9.0, np.float32),
+                          np.full((32, 32), 5.0, np.float32)])
+        out, _ = _b4_check(stack, np.ones((2, 32, 32), bool))
+        assert (out == 9.0).all()
+
+    @pytest.mark.parametrize("T", [1, 3, 8, 128])
+    @pytest.mark.parametrize("hw", [(1, 1), (37, 45), (130, 129)])
+    def test_ragged_shapes_and_special_values(self, T, hw):
+        if T == 128 and hw == (130, 129):
+            hw = (20, 131)          # keep the interpreter quick
+        stack, valid = _b4_inputs(T * 1000 + hw[1], T, *hw, edge=True,
+                                  p_valid=0.15 if T > 8 else 0.4)
+        _b4_check(stack, valid)
+
+    def test_int8_valid_mask(self):
+        stack, valid = _b4_inputs(21, 8, 40, 50, edge=True)
+        _b4_check(stack, valid, np.int8)
+        a = tfv.mosaic_first_valid_kernel(torch.from_numpy(stack),
+                                          torch.from_numpy(valid))
+        b = tfv.mosaic_first_valid_kernel(
+            torch.from_numpy(stack),
+            torch.from_numpy(valid.astype(np.uint8)))
+        assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+        assert torch.equal(a[1], b[1])
+
+    def test_wrapper_takes_plain_version_on_cpu(self, monkeypatch):
+        calls = []
+        plain = tfv.mosaic_first_valid_plain
+        monkeypatch.setattr(tfv, "mosaic_first_valid_plain",
+                            lambda *a: calls.append(1) or plain(*a))
+        launches = tfv.first_valid_kernel.launches
+        stack, valid = _b4_inputs(3, 2, 8, 8)
+        tfv.mosaic_first_valid_kernel(torch.from_numpy(stack),
+                                      torch.from_numpy(valid))
+        assert calls == [1]
+        assert tfv.first_valid_kernel.launches == launches
+
+    def test_non_cpu_non_cuda_tensor_raises(self):
+        t = torch.zeros((2, 8, 8), device="meta")
+        with pytest.raises(ValueError):
+            tfv.mosaic_first_valid_kernel(t, t.bool())
+
+
+class TestMosaicForms:
+    """The argmax form (padded T > 128) and the weighted blend against
+    the JAX package's XLA functions, bit for bit."""
+
+    @pytest.mark.parametrize("T", [1, 5, 129])
+    def test_argmax_form_identical(self, T):
+        stack, valid = _b4_inputs(T, T, 33, 47, edge=True, p_valid=0.05)
+        oj, okj = jmosaic.mosaic_first_valid(jnp.asarray(stack),
+                                             jnp.asarray(valid))
+        ot, okt = tmosaic.mosaic_first_valid(torch.from_numpy(stack),
+                                             torch.from_numpy(valid))
+        np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+        np.testing.assert_array_equal(ot.numpy().view(np.int32),
+                                      np.asarray(oj).view(np.int32))
+        # the all-invalid fill is the top layer's value, not 0.0
+        assert (~okt.numpy()).any()
+
+    @pytest.mark.parametrize("T", [1, 2, 4, 8, 32])
+    def test_weighted_identical(self, T):
+        rng = np.random.default_rng(T)
+        stack = rng.uniform(-1000, 1000, (T, 60, 70)).astype(np.float32)
+        valid = rng.uniform(size=(T, 60, 70)) > 0.3
+        w = rng.uniform(0.1, 3, T).astype(np.float32)
+        oj, okj = jmosaic.mosaic_weighted(jnp.asarray(stack),
+                                          jnp.asarray(valid), jnp.asarray(w))
+        ot, okt = tmosaic.mosaic_weighted(torch.from_numpy(stack),
+                                          torch.from_numpy(valid),
+                                          torch.from_numpy(w))
+        np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+        np.testing.assert_array_equal(ot.numpy().view(np.int32),
+                                      np.asarray(oj).view(np.int32))
