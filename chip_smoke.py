@@ -8,13 +8,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 1. card facts and the kernel build (nvcc, from gsky_tpu_torch/csrc);
 2. kernels B1 (paged) and B2 (bucketed) against their plain PyTorch
    versions on the card: near/bilinear/cubic, 1 and 2 namespaces, page
-   crossings, padding rows (ns -1) and null-page tables;
+   crossings, padding rows (ns -1) and null-page tables; then B1 on
+   64-slot page windows of 1400 x 1400 scenes: a zoomed-out (3.5 source
+   pixels a pixel) tile rotated 30 degrees, whose staged boxes exceed
+   the budget in some blocks (the kernel's count of blocks that read the
+   pool directly equals `ops.paged.block_boxes`' prediction, > 0), a
+   250 x 250 tile whose blocks' boxes cross page rows and columns, and
+   a tile at the scene's corner, with boxes clipped at window edges;
 3. end to end at real size: four overlapping Landsat-8-size granules
    (7681 x 7821 int16, 30 m, EPSG:32755, nodata -999) written with the
    port's GeoTIFF writer, crawled into the port's MAS store, and 32
    GetMap tiles of 256 x 256 EPSG:3857 per resampling method rendered
    through `TilePipeline(device="cuda").render_composite_byte` — every
-   tile through kernel B1;
+   tile through kernel B1, none of its blocks over the staging budget
+   (the direct-block count is 0, as `block_boxes` predicts);
 4. the decline leg: tiles with GSKY_PAGE_SLOTS=1, served by kernel B2;
 5. card vs CPU: tiles again with ``device="cpu"`` (the plain versions);
 6. kernel B3 (the drill's masked stats) against its plain version on
@@ -32,10 +39,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 8. card vs CPU: the drill over the first 100 timesteps through
    ``device="cpu"`` (exact and deciles) equals the card's;
 9. kernel B4 (the first-valid mosaic) against its plain version on the
-   card: T in {1, 2, 3, 8, 128} x (H, W) in {(1, 1), (255, 257),
+   card: T in {1, 2, 3, 8, 9, 13, 128} x (H, W) in {(1, 1), (255, 257),
    (256, 256), (1000, 1000), (2048, 2048)}, valid as bool and as int8,
    with all-invalid pixels, NaN / +-inf / -0.0 in valid layers and
-   NaN / inf in invalid ones; out bit-exact, ok equal;
+   NaN / inf in invalid ones, and stacks and valid masks viewed at a
+   storage offset of one element (views off 16-byte alignment); out
+   bit-exact, ok equal;
 10. the masked temporal mosaic end to end at Landsat scale: 8
    acquisitions 16 days apart of one path/row (7681 x 7821, EPSG:32755,
    30 m, shifted 0-60 px between dates), each three single-band
@@ -51,7 +60,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``device="cpu"``.
 
 Then each kernel's device time (torch.profiler) is taken at the main
-path's shapes beside its plain version and its memory bound: for B1/B2
+path's shapes beside its plain version and its memory bound (B1 with a
+warm L2 and again with a 64 MB buffer written before every launch, as
+a tile finds its pages cold): for B1/B2
 the bytes of the source pixels their taps need, read once, plus their
 other inputs and outputs; for B3 its inputs read once and outputs
 written once; for B4 the bytes its early-exit scan needs on those
@@ -90,7 +101,22 @@ DRILL_POLY = ("POLYGON((130.20 -20.22,131.76 -20.30,131.80 -21.78,"
 N_WARM = 10
 B3_SHAPES_B = (1, 7, 129, 1000, 1024)
 B3_SHAPES_N = (1, 2047, 2049, 16384, 262144)
-B4_SHAPES_T = (1, 2, 3, 8, 128)
+B4_SHAPES_T = (1, 2, 3, 8, 9, 13, 128)
+# (T, H, W) at which B4's inputs are also viewed at a storage offset of
+# one element
+B4_OFFSET_SHAPES = ((8, 256, 256), (13, 255, 257), (9, 1000, 1000))
+# phase-2 B1 cases on 64-slot page windows: (name, (h, w), (scale,
+# degrees, x0, y0)) of the dst grid over a 1400 x 1400 scene
+B1_SCENE = 1400
+B1_CASES = (
+    ("zoomed-out rotated", (256, 256), (3.5, 30.0, 700.0, 60.0)),
+    ("250 x 250 across pages", (250, 250), (1.0, 5.0, 380.0, 60.0)),
+    ("scene corner", (256, 256), (1.0, 0.0, -12.0, -6.0)),
+)
+L2_FLUSH_BYTES = 64 << 20     # written between launches for a cold L2
+# B4 is timed at the first main-path call's inputs and every 16th after
+# it: a tile's cloud and nodata set how far its pixels scan
+B4_TIMED_EVERY = 16
 B4_SHAPES_HW = ((1, 1), (255, 257), (256, 256), (1000, 1000), (2048, 2048))
 # the masked temporal mosaic (BASELINE config 3): 8 acquisitions, 16 days
 # apart from 2020-01-01, of LC08_B4 / LC08_B5 / pixel_qa
@@ -135,14 +161,16 @@ def cuda_time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, kernel, reps=50, tries=3):
+def kernel_device_ms(fn, kernel, reps=50, tries=6, between=None):
     """Device time of one launch of ``kernel`` (a __global__ name) per
     call of ``fn``: torch.profiler's CUDA kernel records, so host work
-    between launches is not counted.  The tracer can drop records (one
-    window saw 9 of 50 launches), so a window that saw fewer than half
-    is taken again, up to ``tries`` windows; the mean is over the
-    launches of the fullest one.  It fails when no window saw a launch
-    or one saw more launches than calls."""
+    between launches is not counted.  ``between``, when given, runs
+    before every call (its own kernels are filtered out by name).  The
+    tracer can drop records (windows saw 9, and 0, of 50 launches), so
+    a window that saw fewer than half is taken again, up to ``tries``
+    windows; the mean is over the launches of the fullest one.  It
+    fails when no window saw a launch or one saw more launches than
+    calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -151,6 +179,8 @@ def kernel_device_ms(fn, kernel, reps=50, tries=3):
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if between is not None:
+                    between()
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
@@ -197,14 +227,14 @@ def check_pair(method, ck, bk, cp, bp, what):
     return float((ck - cp).abs().max())
 
 
-def phase_kernels():
+def phase_kernels(dev="cuda"):
     """B1 and B2 against their plain versions on synthetic inputs that
     hit every edge case; returns the number of comparisons."""
     import torch
     from gsky_tpu_torch.ops import paged, warp_render
     from gsky_tpu_torch.ops.warp import _bilerp_grid, params16
     from gsky_tpu_torch.pipeline.pages import PagePool
-    dev = torch.device("cuda")
+    dev = torch.device(dev)
     rng = np.random.default_rng(0)
     S_px, h, w, step = 700, 256, 256, 16
     B = 4
@@ -261,8 +291,99 @@ def phase_kernels():
                 stack_d, sx, sy, p16, method, n_ns)
             check_pair(method, ck, bk, cp, bp, f"B2 {method} n_ns={n_ns}")
             n += 2
-    torch.cuda.synchronize()
     return n
+
+
+def b1_grid(h, w, scale, degrees, x0, y0, dev):
+    """sx/sy (1, h, w) f32 on ``dev``: a dst grid rotated by ``degrees``
+    and zoomed out by ``scale`` source pixels a pixel, from (x0, y0)."""
+    import torch
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64) + 0.5
+    a = np.radians(degrees)
+    sx = x0 + scale * (np.cos(a) * xx - np.sin(a) * yy)
+    sy = y0 + scale * (np.sin(a) * xx + np.cos(a) * yy)
+    return tuple(torch.from_numpy(v.astype(np.float32)[None]).to(dev)
+                 for v in (sx, sy))
+
+
+def predicted_direct_blocks(sx, sy, params, method):
+    """`block_boxes`' count of B1 blocks that read the pool directly,
+    over N tiles: sx/sy (N, h, w), params (N*T, 16)."""
+    from gsky_tpu_torch.ops.paged import block_boxes
+    T = params.shape[0] // sx.shape[0]
+    total = 0
+    for n in range(sx.shape[0]):
+        _, fits = block_boxes(sx[n], sy[n], params[n * T:(n + 1) * T],
+                              method)
+        total += int((~fits).any(-1).sum())
+    return total
+
+
+def phase_b1_cases(dev="cuda"):
+    """B1 against its plain version on 64-slot page windows of three
+    1400 x 1400 scenes plus a padding row (`B1_CASES`): granule 0 a
+    whole-scene window, granule 1 a window of page rows 2-7 and columns
+    1-2 with an offset affine (boxes clip at its edges), granule 2 a
+    narrower true extent.  Per call the kernel's direct-block count must
+    equal `block_boxes`' prediction.  Returns (comparisons, direct
+    blocks counted, direct blocks predicted); the zoomed-out case must
+    give a count > 0."""
+    import torch
+    from gsky_tpu_torch.ops import paged
+    from gsky_tpu_torch.pipeline.pages import PagePool
+    dev = torch.device(dev)
+    rng = np.random.default_rng(11)
+    S_px, pr, pc, slots = B1_SCENE, 128, 512, 64
+    ni, nj = -(-S_px // pr), -(-S_px // pc)
+    pool = PagePool(capacity=3 * ni * nj + 1, page_rows=pr, page_cols=pc,
+                    device=dev)
+    tables = np.zeros((4, slots), np.int32)
+    p16 = np.zeros((4, 16), np.float32)
+    windows = ((0, ni - 1, 0, nj - 1), (2, 7, 1, 2), (0, ni - 1, 0, nj - 1))
+    for k, (i0, i1, j0, j1) in enumerate(windows):
+        scene = rng.uniform(-500, 4000, (S_px, S_px)).astype(np.float32)
+        scene[200 + 90 * k:260 + 90 * k, 300:420] = np.nan
+        scene[900:1000, 100 + 200 * k:300 + 200 * k] = -999.0
+        t = pool.table_for(torch.from_numpy(scene).to(dev), 2000 + k,
+                           i0, i1, j0, j1)
+        tables[k, :t.size] = t
+        p16[k] = [0.0, 1.0, 0.0, 0.0, 0.0, 1.0, S_px, S_px, -999.0,
+                  100.0 - k, k % 2, i0 * pr, j0 * pc, (i1 - i0 + 1) * pr,
+                  (j1 - j0 + 1) * pc, j1 - j0 + 1]
+    p16[1, [0, 3]] = (3.25, -2.5)
+    p16[2, [6, 7]] = (1100.0, 900.0)
+    p16[3, 10] = -1.0                         # padding row, zero window
+    tab_d = torch.from_numpy(tables[None]).to(dev)
+    n = counted = predicted = 0
+    for name, (h, w), grid in B1_CASES:
+        sx, sy = b1_grid(h, w, *grid, dev)
+        for n_ns in (1, 2):
+            prm = torch.from_numpy(p16).to(dev)
+            if n_ns == 1:
+                prm[:3, 10] = 0.0
+            for method in METHODS:
+                want = predicted_direct_blocks(sx, sy, prm, method)
+                paged.reset_direct_blocks(dev)
+                with pool.locked_pool() as parr:
+                    ck, bk = paged.paged_render_scored(
+                        parr, tab_d, prm, sx, sy, method, n_ns)
+                    cp, bp = paged.paged_render_scored_plain(
+                        parr, tab_d, prm, sx, sy, method, n_ns)
+                got = paged.direct_blocks(dev)
+                check_pair(method, ck, bk, cp, bp,
+                           f"B1 {name} {method} n_ns={n_ns}")
+                if got != want:
+                    raise AssertionError(
+                        f"B1 {name} {method}: {got} blocks read the pool "
+                        f"directly, block_boxes predicts {want}")
+                if name.startswith("zoomed") and not want:
+                    raise AssertionError(f"B1 {name}: no box over budget")
+                if not bool((bk > float("-inf")).any()):
+                    raise AssertionError(f"B1 {name}: nothing rendered")
+                counted += got
+                predicted += want
+                n += 1
+    return n, counted, predicted
 
 
 def write_archive(root, shape=(SCENE_H, SCENE_W)):
@@ -336,6 +457,37 @@ def render(pipe, root, boxes, method):
     return tiles, secs
 
 
+def main_operands(pipe, root, box):
+    """B1's and B2's operands as the fused route builds them for the
+    tile ``box`` of phase 3: (host page tables, then tables, params, sx,
+    sy and the granules' dense stack for B2 on the pipeline's device)."""
+    import torch
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import BBox, GeoTransform
+    from gsky_tpu_torch.ops.warp import _bilerp_grid
+    from gsky_tpu_torch.pipeline.tile import ns_prio
+    from gsky_tpu_torch.pipeline.types import GeoTileRequest
+    ex = pipe.executor
+    dst_gt = GeoTransform.from_bbox(BBox(*box), 256, 256)
+    merc = parse_crs("EPSG:3857")
+    req = GeoTileRequest(collection=root, bands=[NS], bbox=BBox(*box),
+                         crs=merc)
+    granules = pipe.index(req)
+    _, ns_ids, prio = ns_prio(granules)
+    group = ex._scene_groups(granules, ns_ids, prio, dst_gt, merc,
+                             256, 256)[0]
+    tables, p16, _ = ex._paged_from_group(group)
+    ex.pool.unpin(tables)
+    dev = ex.device
+    tab_d = torch.from_numpy(tables[None]).to(dev)
+    p16_d = torch.from_numpy(p16).to(dev)
+    sx = _bilerp_grid(group.ctrl_dev[0], 256, 256, group.step)[None] \
+        .contiguous()
+    sy = _bilerp_grid(group.ctrl_dev[1], 256, 256, group.step)[None] \
+        .contiguous()
+    return tables, tab_d, p16_d, sx, sy, ex._stack(group)
+
+
 def stage_breakdown(pipe, root, boxes, method):
     """Per-stage host clock of warm GetMap tiles, read from the spans
     `TilePipeline.render_composite_byte` and `render_byte_scenes` record,
@@ -379,6 +531,25 @@ def stage_breakdown(pipe, root, boxes, method):
     n = len(boxes)
     return ({k: v / n * 1e3 for k, v in spans.items()}, wall / n * 1e3,
             dev_us / n / 1e3, b1_us / n / 1e3)
+
+
+class CaptureB1:
+    """Keeps every B1 call's (sx, sy, params, method) while installed;
+    the wrapper it calls counts launches as always."""
+
+    def __init__(self):
+        from gsky_tpu_torch.ops import paged
+        self.mod = paged
+        self.orig = paged.paged_render_scored
+        self.args = []
+        paged.paged_render_scored = self._call
+
+    def _call(self, pool, tables, params, sx, sy, method, n_ns):
+        self.args.append((sx, sy, params, method))
+        return self.orig(pool, tables, params, sx, sy, method, n_ns)
+
+    def remove(self):
+        self.mod.paged_render_scored = self.orig
 
 
 class PlainCalls:
@@ -803,8 +974,31 @@ def phase_b4_kernel():
             if bool((bits[~want[1]] != 0).any()):
                 raise AssertionError("B4 fill is not +0.0")
             del stack, valid, want, got
+    for T, H, W in B4_OFFSET_SHAPES:
+        stack, valid = b4_edge_inputs(T, H, W, seed=T * 31 + H)
+        want = fv.mosaic_first_valid_plain(stack, valid)
+        for v in (valid, valid.to(torch.int8)):
+            for s_in, v_in in ((at_offset(stack), v), (stack, at_offset(v)),
+                               (at_offset(stack), at_offset(v))):
+                got = fv.mosaic_first_valid_kernel(s_in, v_in)
+                torch.cuda.synchronize()
+                b4_same(got, want, f"B4 ({T}, {H}, {W}) {v.dtype} at "
+                        f"offsets {s_in.storage_offset()}, "
+                        f"{v_in.storage_offset()}")
+                n += 1
+        del stack, valid, want, got
     fv.first_valid_kernel.launches = saved
     return n
+
+
+def at_offset(x):
+    """A contiguous copy of ``x`` viewed one element into its storage,
+    off 16-byte alignment."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def mosaic_dates():
@@ -953,18 +1147,10 @@ def b4_needed_bytes(valid):
     return int(k.sum()) + 4 * int(ok.sum()) + 5 * ok.numel()
 
 
-def phase_mosaic(root, card):
-    """Phases 10 and 11.  Returns (B4 launches of the main path, the
-    first main-path B4 arguments)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def crawl(paths):
+    """A MAS store of the port's crawler records of (path, namespace)."""
     from gsky_tpu_torch.index.crawler import extract
     from gsky_tpu_torch.index.store import MASStore
-    from gsky_tpu_torch.ops import first_valid, paged, stats, warp_render
-    from gsky_tpu_torch.ops.scale import scale_to_byte
-    from gsky_tpu_torch.pipeline.types import MaskSpec
-    t0 = time.perf_counter()
-    paths = write_mosaic_archive(root)
     store = MASStore()
     for p, ns in paths:
         rec = extract(p)
@@ -973,9 +1159,30 @@ def phase_mosaic(root, card):
         for ds in rec["geo_metadata"]:
             ds["namespace"] = ns
         store.ingest(rec)
+    return store
+
+
+def mosaic_store(root):
+    """Phase 10's archive written under ``root`` and crawled."""
+    t0 = time.perf_counter()
+    paths = write_mosaic_archive(root)
+    store = crawl(paths)
     size = sum(os.path.getsize(p) for p, _ in paths)
     log(f"phase 10: {len(paths)} GeoTIFFs ({size / 1e9:.3f} GB) written + "
         f"crawled in {time.perf_counter() - t0:.1f} s")
+    return store
+
+
+def phase_mosaic(root, card):
+    """Phases 10 and 11.  Returns (B4 launches of the main path, the
+    main path's B4 arguments: the first call's and every
+    `B4_TIMED_EVERY`-th after it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gsky_tpu_torch.ops import first_valid, paged, stats, warp_render
+    from gsky_tpu_torch.ops.scale import scale_to_byte
+    from gsky_tpu_torch.pipeline.types import MaskSpec
+    store = mosaic_store(root)
     boxes = mosaic_boxes()
     mask = MaskSpec(id="pixel_qa", bit_tests=list(CLOUD_SHADOW))
     noop = MaskSpec(id="pixel_qa", value="0")
@@ -1031,7 +1238,7 @@ def phase_mosaic(root, card):
         f"at T = {MOSAIC_DATES}, plain calls 0 ({card})")
     log("phase 10 breakdown, ms per tile (host clock): " + ", ".join(
         f"{k} {v:.4f}" for k, v in spans.items()))
-    main_args = cap.args[0]
+    main_args = cap.args[::B4_TIMED_EVERY]
 
     # -- checks after the main path ---------------------------------------
     # the same tiles with a no-op mask: what the mask excluded
@@ -1118,11 +1325,13 @@ def phase_mosaic(root, card):
     return b4_launches, main_args
 
 
-def time_b4(args, card):
-    """B4's device time at the main path's inputs and at (128, 2048,
-    2048) with every pixel scanning all layers, beside its bound, its
-    plain version and the same function composed from PyTorch's own ops.
-    Returns the main-path row (ms, plain ms, bound ms, library ms, max
+def time_b4(main_args, card):
+    """B4's device time at the main path's inputs (``main_args``, a
+    sample of its calls: the mean over them, the first beside it) and at
+    (128, 2048, 2048) with every pixel scanning all layers, beside its
+    bound, its plain version and the same function composed from
+    PyTorch's own ops (those two at the first input).  Returns the
+    main-path row (mean ms, plain ms, mean bound ms, library ms, max
     |kernel - plain|)."""
     import torch
     from gsky_tpu_torch.ops import first_valid as fv
@@ -1132,7 +1341,23 @@ def time_b4(args, card):
     deep = torch.zeros((T, H, W), dtype=torch.bool, device="cuda")
     deep[-1, :, ::2] = True                   # only the last layer valid
     big = (torch.randn((T, H, W), device="cuda"), deep)
-    for what, (stack, valid) in (("main path", args), ("deep", big)):
+    for what, inputs in (("main path", main_args), ("deep", [big])):
+        ms, bd = [], []
+        for k, (stack, valid) in enumerate(inputs):
+            def b4():
+                return fv.mosaic_first_valid_kernel(stack, valid)
+            b4_same(b4(), fv.mosaic_first_valid_plain(stack, valid),
+                    f"B4 {what}")
+            ms.append(kernel_device_ms(b4, "first_valid_kernel"))
+            bd.append(b4_needed_bytes(valid) / HBM_BYTES_PER_S * 1e3)
+            if what == "main path":
+                v = valid != 0
+                log(f"timing B4 main-path call {k * B4_TIMED_EVERY}: "
+                    f"{ms[-1]:.5f} ms; pixels valid at layer 0 "
+                    f"{100 * float(v[0].float().mean()):.2f}%, at no "
+                    f"layer {100 * float((~v.any(0)).float().mean()):.2f}%")
+        stack, valid = inputs[0]
+
         def b4():
             return fv.mosaic_first_valid_kernel(stack, valid)
 
@@ -1145,24 +1370,21 @@ def time_b4(args, card):
             ok = valid.any(0)
             return torch.where(ok, out, 0.0), ok
 
-        got, want, lib = b4(), b4p(), library()
-        torch.cuda.synchronize()
-        b4_same(got, want, f"B4 {what}")
-        b4_same(lib, want, f"B4 library {what}")
-        ms = kernel_device_ms(b4, "first_valid_kernel")
+        b4_same(library(), b4p(), f"B4 library {what}")
         call = cuda_time_ms(b4)
         pms = cuda_time_ms(b4p, reps=5)
         lms = cuda_time_ms(library, reps=10)
         t, h, w = stack.shape
         full = t * h * w * 5 + h * w * 5
-        need = b4_needed_bytes(valid)
-        bd = need / HBM_BYTES_PER_S * 1e3
-        rows.append((ms, pms, bd, lms, 0.0))
+        mean, mbd = float(np.mean(ms)), float(np.mean(bd))
+        rows.append((mean, pms, mbd, lms, 0.0))
         if what == "main path":
-            what += ", launch-bound at this size,"
-        log(f"timing B4 {what} ({t}, {h}, {w}): device {ms:.5f} ms (per "
-            f"call with host {call:.4f}), bound {bd:.6f} ms ({need} bytes "
-            f"its scan needs; {100 * bd / ms:.2f}% of bound), full-read "
+            what = (f"main path, launch-bound at this size, mean over "
+                    f"{len(ms)} calls (first {ms[0]:.5f}, min "
+                    f"{min(ms):.5f}, max {max(ms):.5f}),")
+        log(f"timing B4 {what} ({t}, {h}, {w}): device {mean:.5f} ms (per "
+            f"call with host {call:.4f}), bound {mbd:.6f} ms (the bytes "
+            f"its scan needs; {100 * mbd / mean:.2f}% of bound), full-read "
             f"bound {full / HBM_BYTES_PER_S * 1e3:.6f} ms ({full} bytes), "
             f"plain {pms:.4f} ms, library (argmax+gather+any+where) "
             f"{lms:.4f} ms ({card})")
@@ -1179,7 +1401,6 @@ def main() -> int:
         return 2
     from gsky_tpu_torch.ops import (cuda_lib, first_valid, paged, stats,
                                     warp_render)
-    from gsky_tpu_torch.ops.warp import _bilerp_grid
     t_start = time.perf_counter()
     card = card_facts()
     log(f"card: {card}")
@@ -1199,25 +1420,24 @@ def main() -> int:
     if paged.paged_render_kernel.launches == 0 or \
             warp_render.warp_render_kernel.launches == 0:
         raise AssertionError("phase 2 launched no kernel")
-    log(f"phase 2: {n_cmp} kernel-vs-plain comparisons passed")
+    t0 = time.perf_counter()
+    n_b1, direct, predicted = phase_b1_cases()
+    if direct != predicted or direct == 0:
+        raise AssertionError(f"phase 2: {direct} direct blocks, block_boxes "
+                             f"predicts {predicted}")
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_cmp} kernel-vs-plain comparisons passed; B1 on "
+        f"64-slot windows: {n_b1} more, {direct} blocks read the pool "
+        f"directly as block_boxes predicts ({predicted}) "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 3: end to end at real size -----------------------------
-    from gsky_tpu_torch.index.crawler import extract
-    from gsky_tpu_torch.index.store import MASStore
     data_root = os.path.join(ROOT, "build", "smoke_archive")
     shutil.rmtree(data_root, ignore_errors=True)
     os.makedirs(data_root)
     try:
         t0 = time.perf_counter()
-        paths = write_archive(data_root)
-        store = MASStore()
-        for p in paths:
-            rec = extract(p)
-            if rec.get("error"):
-                raise AssertionError(rec["error"])
-            for ds in rec["geo_metadata"]:
-                ds["namespace"] = NS
-            store.ingest(rec)
+        store = crawl((p, NS) for p in write_archive(data_root))
         log(f"phase 3: archive written + crawled in "
             f"{time.perf_counter() - t0:.1f} s")
         boxes = tile_boxes()
@@ -1227,19 +1447,26 @@ def main() -> int:
         t0 = time.perf_counter()
         render(pipe, data_root, boxes[:1], "near")
         log(f"phase 3: scene cache warm in {time.perf_counter() - t0:.1f} s")
+        cap = CaptureB1()
         plain = PlainCalls()
         paged.paged_render_kernel.launches = 0
         warp_render.warp_render_kernel.launches = 0
         stats.masked_stats_kernel.launches = 0
+        paged.reset_direct_blocks()
         card_tiles, lat = {}, []
         t0 = time.perf_counter()
-        for method in METHODS:
-            card_tiles[method], secs = render(pipe, data_root, boxes, method)
-            lat += secs
-        wall = time.perf_counter() - t0
+        try:
+            for method in METHODS:
+                card_tiles[method], secs = render(pipe, data_root, boxes,
+                                                  method)
+                lat += secs
+            wall = time.perf_counter() - t0
+        finally:
+            plain.remove()
+            cap.remove()
         b1_launches = paged.paged_render_kernel.launches
         b2_main = warp_render.warp_render_kernel.launches
-        plain.remove()
+        direct = paged.direct_blocks()
         n_main = N_TILES * len(METHODS)
         if b1_launches != n_main or b2_main != 0 or plain.calls \
                 or stats.masked_stats_kernel.launches:
@@ -1247,10 +1474,19 @@ def main() -> int:
                 f"main path: B1 {b1_launches} (want {n_main}), B2 "
                 f"{b2_main}, B3 {stats.masked_stats_kernel.launches}, "
                 f"plain calls {plain.calls}")
+        predicted = sum(predicted_direct_blocks(sx, sy, prm, m)
+                        for sx, sy, prm, m in cap.args)
+        if direct or predicted or len(cap.args) != n_main:
+            raise AssertionError(
+                f"main path: {direct} B1 blocks read the pool directly "
+                f"(block_boxes predicts {predicted} over {len(cap.args)} "
+                f"calls), want 0")
+        del cap
         p50 = float(np.median(lat)) * 1e3
         log(f"phase 3: {n_main} tiles, {n_main / wall:.1f} tiles/s, p50 "
             f"{p50:.2f} ms, p90 {np.percentile(lat, 90) * 1e3:.2f} ms "
-            f"({card}); pool {pipe.executor.pool.stats()}")
+            f"({card}); B1 blocks over the staging budget 0 (predicted "
+            f"0); pool {pipe.executor.pool.stats()}")
 
         spans, wall_ms, dev_ms, b1_ms = stage_breakdown(
             pipe, data_root, boxes, "bilinear")
@@ -1295,32 +1531,14 @@ def main() -> int:
 
         # -- kernel timing at the main path's shapes --------------------
         ex = pipe.executor
-        from gsky_tpu_torch.pipeline.tile import ns_prio
-        from gsky_tpu_torch.geo.crs import parse_crs
-        from gsky_tpu_torch.geo.transform import BBox, GeoTransform
-        box = boxes[0]
-        dst_gt = GeoTransform.from_bbox(BBox(*box), 256, 256)
-        merc = parse_crs("EPSG:3857")
-        from gsky_tpu_torch.pipeline.types import GeoTileRequest
-        req = GeoTileRequest(collection=data_root, bands=[NS],
-                             bbox=BBox(*box), crs=merc)
-        granules = pipe.index(req)
-        _, ns_ids, prio = ns_prio(granules)
-        group = ex._scene_groups(granules, ns_ids, prio, dst_gt, merc,
-                                 256, 256)[0]
-        tables, p16, _ = ex._paged_from_group(group)
-        ex.pool.unpin(tables)
+        tables, tab_d, p16_d, sx, sy, stack = main_operands(
+            pipe, data_root, boxes[0])
         dev = torch.device("cuda")
-        tab_d = torch.from_numpy(tables[None]).to(dev)
-        p16_d = torch.from_numpy(p16).to(dev)
-        sx = _bilerp_grid(group.ctrl_dev[0], 256, 256, group.step)[None] \
-            .contiguous()
-        sy = _bilerp_grid(group.ctrl_dev[1], 256, 256, group.step)[None] \
-            .contiguous()
-        stack = ex._stack(group)
         p16s = torch.zeros_like(p16_d)
         p16s[:, :11] = p16_d[:, :11]
         rows = []
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=dev)
         for method in METHODS:
             with ex.pool.locked_pool() as parr:
                 def b1():
@@ -1335,6 +1553,8 @@ def main() -> int:
                 err1 = check_pair(method, ck, bk, cp, bp, f"B1 main {method}")
                 saved = paged.paged_render_kernel.launches
                 ms1 = kernel_device_ms(b1, "paged_render")
+                ms1c = kernel_device_ms(b1, "paged_render",
+                                        between=flush.zero_)
                 call1, pms1 = cuda_time_ms(b1), cuda_time_ms(b1p, reps=3)
                 paged.paged_render_kernel.launches = saved
 
@@ -1356,12 +1576,14 @@ def main() -> int:
             by1 = by2 + tables.nbytes
             bd1, bd2 = (by / HBM_BYTES_PER_S * 1e3 for by in (by1, by2))
             rows.append((method, err1, ms1, pms1, bd1, err2, ms2, pms2, bd2))
-            log(f"timing {method}: B1 device {ms1:.5f} ms (per call with "
+            log(f"timing {method}: B1 device {ms1:.5f} ms warm L2, "
+                f"{ms1c:.5f} ms cold L2 (per call with "
                 f"host {call1:.4f}, plain {pms1:.3f}), bound {bd1:.5f} ms; "
                 f"B2 device {ms2:.5f} ms (per call with host {call2:.4f}, "
                 f"plain {pms2:.3f}), bound {bd2:.5f} ms; bound bytes "
                 f"{by1} / {by2} [T={tables.shape[0]} S={tables.shape[1]}] "
                 f"({card})")
+        del flush
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 

@@ -77,10 +77,14 @@ class CudaLibrary:
 
 def build_all(libs: Sequence[CudaLibrary]) -> List[Path]:
     """Build every library that is not built yet, one nvcc each, all
-    started together; raises if any compile fails."""
-    started = [lib.start_build() for lib in libs]
+    started together (libraries of the same content build once);
+    raises if any compile fails."""
+    started = {}
+    for lib in libs:
+        if lib.target() not in started:
+            started[lib.target()] = (lib, lib.start_build())
     failed = []
-    for lib, (out, tmp, proc) in zip(libs, started):
+    for lib, (out, tmp, proc) in started.values():
         if proc is None:
             continue
         if proc.wait() != 0:
@@ -89,7 +93,7 @@ def build_all(libs: Sequence[CudaLibrary]) -> List[Path]:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError(f"nvcc failed for {', '.join(failed)}")
-    return [out for out, _, _ in started]
+    return [lib.target() for lib in libs]
 
 
 class Kernel:

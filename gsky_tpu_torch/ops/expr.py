@@ -32,6 +32,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 _TOKEN_RE = re.compile(r"""
     (?P<num>\d+\.\d*(?:[eE][-+]?\d+)?|\.\d+(?:[eE][-+]?\d+)?|\d+(?:[eE][-+]?\d+)?)
   | (?P<name>\[[^\]]+\]|[A-Za-z_][A-Za-z0-9_:.#]*)
@@ -315,11 +317,17 @@ class CompiledExpr:
                            f"{missing}")
         return _emit(self._ast, env, xp)
 
-    def eval_masked(self, env, valid_env, device="cpu"):
+    def eval_masked(self, env, valid_env, device=None):
         """Evaluate over torch tensors and combine validity: valid iff
         every referenced band is valid and the result is finite; 0.0
         elsewhere.  ``device`` places the result of a constant-only
-        expression."""
+        expression; left out, it is the device of the tensors given, or
+        the card where there are none (raising without CUDA)."""
+        if device is None:
+            device = next((v.device for v in (*env.values(),
+                                              *valid_env.values())
+                           if isinstance(v, torch.Tensor)), "cuda")
+        device = resolve_device(device)
         out = self(env, torch)
         if not isinstance(out, torch.Tensor):
             out = torch.tensor(float(out), dtype=torch.float32,

@@ -8,21 +8,26 @@ drive kernel B1, the paged warp-render (`csrc/warp_render.cu`,
 replacing `gsky_tpu/ops/paged.py::_paged_render_kernel`).
 
 The JAX program materialises ``pool[tables]`` in an XLA prologue and
-DMAs each granule's page block into VMEM.  Kernel B1 instead walks the
-table itself: each tap reads ``pool[tables[n, t, lp]]`` directly, so the
-gathered page block is never written out; the function computed is the
-same.  The Pallas VMEM eligibility gate (`paged_vmem_ok`) has no
-counterpart for the same reason: B1 stages nothing in shared memory.
+DMAs each granule's whole page block into VMEM.  A Hopper block's
+shared memory cannot hold a page block, so kernel B1 stages each output
+block's own tap footprint instead: per (block, granule) the box of the
+in-bounds taps of its pixels, walked out of the table into shared
+memory; a box over `STAGE_BUDGET` is read from the pool directly, and
+the blocks that do so are counted on the device (`direct_blocks`).
+`block_boxes` is the plain mirror of those boxes.  The function
+computed is the same; the Pallas VMEM eligibility gate
+(`paged_vmem_ok`) has no counterpart.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import torch
 
-from .warp import _bilerp_grid, composite_scale, granule_sample, \
-    mosaic_update
+from .warp import NEAR, _bilerp_grid, composite_scale, granule_coords, \
+    granule_sample, mosaic_update
 from .warp_render import check_cuda, check_ns, method_code, \
     paged_render_kernel
 
@@ -31,6 +36,46 @@ from .warp_render import check_cuda, check_ns, method_code, \
 # window origin, 13/14 the page-aligned window extent, 15 the page
 # columns per page row (the table's row stride)
 PARAMS_W = 16
+
+# B1's output block, (rows, cols): kRows x kCols in csrc/warp_render.cu
+BLOCK = (8, 32)
+# B1's staging budget: the dynamic shared memory of a block, in bytes.
+# At native resolution a 32 x 8 block's cubic footprint in one granule
+# is about (32 + 3) x (8 + 3) f32 = 1.5 KB; eight granules staged at
+# once take 12 KB, which leaves the SM room for many blocks.  A box of
+# one granule larger than this is read from the pool directly.
+STAGE_BUDGET = 12 * 1024
+
+_direct_lock = threading.Lock()
+_direct = {}            # torch.device -> (1,) int32 count on that device
+
+
+def _device_key(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _direct_counter(device) -> torch.Tensor:
+    dev = _device_key(device)
+    with _direct_lock:
+        t = _direct.get(dev)
+        if t is None:
+            t = _direct[dev] = torch.zeros(1, dtype=torch.int32,
+                                           device=dev)
+        return t
+
+
+def direct_blocks(device="cuda") -> int:
+    """Blocks of kernel B1 on ``device`` that read a granule's taps from
+    the pool directly (a box over `STAGE_BUDGET`) since the last
+    `reset_direct_blocks`.  Reading it synchronises with the device."""
+    return int(_direct_counter(device).item())
+
+
+def reset_direct_blocks(device="cuda") -> None:
+    _direct_counter(device).zero_()
 
 
 def page_shape():
@@ -48,6 +93,11 @@ def page_shape():
     return pr, pc
 
 
+# most table slots a granule may list: page_slots()' cap, and the size of
+# kernel B1's shared-memory copy of a table (kMaxSlots)
+MAX_SLOTS = 64
+
+
 def page_slots() -> int:
     """Max page-table slots per granule (GSKY_PAGE_SLOTS, default 8):
     windows needing more pages decline to the bucketed path."""
@@ -55,7 +105,7 @@ def page_slots() -> int:
         s = int(os.environ.get("GSKY_PAGE_SLOTS", "8"))
     except ValueError:
         s = 8
-    return max(1, min(64, s))
+    return max(1, min(MAX_SLOTS, s))
 
 
 def table_gather_bytes(tables, pr: int, pc: int) -> int:
@@ -100,6 +150,64 @@ def paged_render_scored_plain(pool, tables, params, sx, sy, method: str,
     return canv, best
 
 
+def block_boxes(sx, sy, params, method: str, block=BLOCK):
+    """Plain mirror of kernel B1's staged boxes for one tile: sx/sy
+    (h, w) f32, params (T, 16) f32 -> (boxes, fits).  ``boxes`` (by, bx,
+    T, 4) int64 holds, per output block of ``block`` = (rows, cols)
+    pixels and granule, (r_lo, r_hi, c_lo, c_hi) of the window-relative
+    source elements its in-bounds taps read (r_lo > r_hi where there is
+    none: padding rows, off-window or non-finite coordinates); ``fits``
+    (by, bx, T) bool is False where the box the kernel would stage — its
+    columns widened to whole 16-byte quads, [c_lo & ~3, (c_hi | 3)] —
+    is larger than `STAGE_BUDGET`, and the kernel reads it from the pool
+    directly.  A block counts in `direct_blocks` when any of its
+    granules does not fit."""
+    h, w = sx.shape
+    bh, bw = block
+    nby, nbx = -(-h // bh), -(-w // bw)
+    big = 1 << 40
+    empty = torch.tensor([big, -big, big, -big], dtype=torch.int64,
+                         device=sx.device)
+    T = int(params.shape[0])
+    boxes = empty.repeat(nby, nbx, T, 1)
+    lo, span = (0, 0) if method in NEAR else \
+        ((0, 1) if method == "bilinear" else (-1, 3))
+    for t in range(T):
+        p = params[t]
+        if not float(p[10]) >= 0:
+            continue                          # padding row
+        rows, cols = granule_coords(sx, sy, p)
+        finite = torch.isfinite(rows) & torch.isfinite(cols)
+        if method in NEAR:
+            zero = torch.zeros_like(rows)
+            r0 = torch.floor(torch.where(finite, rows, zero) + 0.5)
+            c0 = torch.floor(torch.where(finite, cols, zero) + 0.5)
+        else:
+            ten = torch.full_like(rows, -10.0)
+            r0 = torch.floor(torch.where(finite, rows, ten))
+            c0 = torch.floor(torch.where(finite, cols, ten))
+        r0, c0 = r0.to(torch.int64), c0.to(torch.int64)
+        wr, wc = int(p[13]), int(p[14])
+        one = torch.stack([(r0 + lo).clamp_min(0),
+                           (r0 + lo + span).clamp_max(wr - 1),
+                           (c0 + lo).clamp_min(0),
+                           (c0 + lo + span).clamp_max(wc - 1)], -1)
+        has = (one[..., 0] <= one[..., 1]) & (one[..., 2] <= one[..., 3])
+        if method in NEAR:
+            has &= finite
+        one = torch.where(has[..., None], one, empty)
+        grid = empty.repeat(nby * bh, nbx * bw, 1)
+        grid[:h, :w] = one
+        grid = grid.reshape(nby, bh, nbx, bw, 4)
+        boxes[:, :, t, 0::2] = grid[..., 0::2].amin(dim=(1, 3))
+        boxes[:, :, t, 1::2] = grid[..., 1::2].amax(dim=(1, 3))
+    has = (boxes[..., 0] <= boxes[..., 1]) & (boxes[..., 2] <= boxes[..., 3])
+    elems = (boxes[..., 1] - boxes[..., 0] + 1) \
+        * ((boxes[..., 3] | 3) + 1 - (boxes[..., 2] & ~3))
+    fits = ~has | (elems * 4 <= STAGE_BUDGET)
+    return boxes, fits
+
+
 def paged_render_scored(pool, tables, params, sx, sy, method: str,
                         n_ns: int):
     """Kernel B1 on CUDA tensors, its plain version on CPU tensors."""
@@ -118,13 +226,19 @@ def paged_render_scored(pool, tables, params, sx, sy, method: str,
     if params.shape != (N * T, PARAMS_W) or sx.shape != (N, h, w) \
             or sy.shape != sx.shape:
         raise ValueError("bad B1 operand shapes")
+    if not 1 <= S <= MAX_SLOTS:
+        raise ValueError(f"B1 takes 1 to {MAX_SLOTS} table slots, got {S}")
+    if pc % 4:
+        raise ValueError(f"B1 stages whole 16-byte quads: page columns "
+                         f"{pc} must be a multiple of 4")
     canv = torch.empty((N, n_ns, h, w), dtype=torch.float32,
                        device=pool.device)
     best = torch.empty_like(canv)
     paged_render_kernel(method_code(method), n_ns, pool.data_ptr(),
                         tables.data_ptr(), params.data_ptr(), sx.data_ptr(),
                         sy.data_ptr(), canv.data_ptr(), best.data_ptr(),
-                        N, T, S, pr, pc, h * w)
+                        N, T, S, pr, pc, h, w, STAGE_BUDGET,
+                        _direct_counter(pool.device).data_ptr())
     return canv, best
 
 

@@ -6,6 +6,8 @@ paths, as plain PyTorch ops:
 - `_bilerp_grid`: the dense dst->src coordinate grid rebuilt from the
   sparse control points (the approx-transformer analogue);
 - `_cubic_weights`: Catmull-Rom weights, a = -0.5;
+- `granule_coords`: one granule's window-relative source coordinates,
+  shared by the taps and by B1's staged boxes (`ops.paged.block_boxes`);
 - `granule_sample`: ONE granule's per-pixel body — affine, true-extent
   NaN poisoning, window rebase, nearest / bilinear / cubic taps with
   tap-side validity — written once and shared by the plain versions of
@@ -87,16 +89,12 @@ def _cubic_weights(f):
     return (w0, w1, w2, w3)
 
 
-def granule_sample(sx, sy, p, method: str, wr: int, wc: int, fetch):
-    """One granule's resample onto the dst grid.
-
-    sx/sy (h, w) f32 origin-relative src-CRS coords; ``p`` the granule's
-    16-wide f32 params row (slots 0-5 affine, 6/7 true extent, 8 nodata,
-    11/12 window origin); (wr, wc) the window extent taps are clipped
-    to; ``fetch(ri, ci)`` the window value at clipped int64 indices.
-    Returns (val (h, w) f32, ok (h, w) bool)."""
-    if method not in METHODS:
-        raise KeyError(f"unknown resample method {method!r}")
+def granule_coords(sx, sy, p):
+    """One granule's window-relative source coordinates (rows, cols) at
+    each dst pixel: the affine (slots 0-5), NaN rows outside the true
+    extent (6/7), the window-origin rebase (11/12).  The taps of
+    `granule_sample` and the staged boxes of `ops.paged.block_boxes`
+    both start here, as the CUDA kernels' `granule_coords` does."""
     # the affine and the tap sum use fused multiply-adds exactly where
     # the reference's XLA lowering contracts them; every other op rounds
     # on its own (the CUDA kernels build with -fmad=false and call fmaf
@@ -108,6 +106,20 @@ def granule_sample(sx, sy, p, method: str, wr: int, wc: int, fetch):
     rows = torch.where(oob, torch.full_like(rows, float("nan")), rows)
     rows = rows - p[11]     # window-origin rebase (exact: integer
     cols = cols - p[12]     # <= 4096 off an f32 coordinate < 2^12)
+    return rows, cols
+
+
+def granule_sample(sx, sy, p, method: str, wr: int, wc: int, fetch):
+    """One granule's resample onto the dst grid.
+
+    sx/sy (h, w) f32 origin-relative src-CRS coords; ``p`` the granule's
+    16-wide f32 params row (slots 0-5 affine, 6/7 true extent, 8 nodata,
+    11/12 window origin); (wr, wc) the window extent taps are clipped
+    to; ``fetch(ri, ci)`` the window value at clipped int64 indices.
+    Returns (val (h, w) f32, ok (h, w) bool)."""
+    if method not in METHODS:
+        raise KeyError(f"unknown resample method {method!r}")
+    rows, cols = granule_coords(sx, sy, p)
     nd = p[8]
 
     def tap(ri, ci, inb):

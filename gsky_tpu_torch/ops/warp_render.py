@@ -33,7 +33,7 @@ MAX_NS = 8
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("warp_render.cu", {
-    "launch_paged_render": [_CI, _CI] + [_VP] * 7 + [_CI] * 6,
+    "launch_paged_render": [_CI, _CI] + [_VP] * 7 + [_CI] * 8 + [_VP],
     "launch_warp_render": [_CI, _CI] + [_VP] * 6 + [_CI] * 5,
 })
 

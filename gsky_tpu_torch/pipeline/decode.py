@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import BBox, GeoTransform, transform_bbox
 from ..io.geotiff import GeoTIFF
@@ -106,15 +107,17 @@ def dst_stride_px(gt: GeoTransform, src_bbox: BBox,
 def decode_window(granule: Granule, dst_bbox: BBox, dst_crs: CRS,
                   resample: str = "near",
                   dst_hw: Optional[Tuple[int, int]] = None,
-                  device="cpu") -> Optional[DecodedWindow]:
+                  device="cuda") -> Optional[DecodedWindow]:
     """Read the source window covering dst_bbox (+ resample margin) and
-    upload it to ``device``.  Returns None when the granule doesn't
-    intersect the tile.  With ``dst_hw`` = (height, width), zoomed-out
-    requests read a GeoTIFF overview or a strided NetCDF hyperslab."""
+    upload it to ``device`` (the card unless the caller asks for the
+    CPU).  Returns None when the granule doesn't intersect the tile.
+    With ``dst_hw`` = (height, width), zoomed-out requests read a
+    GeoTIFF overview or a strided NetCDF hyperslab."""
     if granule.geo_loc:
         raise NotImplementedError(
             f"curvilinear granule {granule.path}: the geolocation route "
             "is not ported yet (ROADMAP A.8)")
+    dev = resolve_device(device)
     src_crs = parse_crs(granule.srs) if granule.srs else dst_crs
     gt = GeoTransform.from_gdal(granule.geo_transform)
     try:
@@ -164,7 +167,6 @@ def decode_window(granule: Granule, dst_bbox: BBox, dst_crs: CRS,
             data = h.read(granule.band, win)
         nodata = granule.nodata if granule.nodata is not None else h.nodata
     valid = nodata_mask(data, nodata)
-    dev = torch.device(device)
     return DecodedWindow(
         granule, torch.from_numpy(data.astype(np.float32)).to(dev),
         torch.from_numpy(valid).to(dev), gt.window(win[0], win[1]), src_crs)
@@ -189,13 +191,15 @@ def decode_all(granules: List[Granule], dst_bbox: BBox, dst_crs: CRS,
                resample: str = "near", workers: int = 8,
                dst_hw: Optional[Tuple[int, int]] = None,
                errors: Optional[List[Exception]] = None,
-               device="cpu") -> List[Optional[DecodedWindow]]:
+               device="cuda") -> List[Optional[DecodedWindow]]:
     """Decode all granule windows concurrently, preserving order.
 
     A ``None`` slot means EITHER the granule doesn't intersect the tile
     OR its decode raised; pass ``errors`` to collect the raised
     exceptions for the partial-failure policy (`check_partial`).
-    NotImplementedError is never absorbed."""
+    NotImplementedError is never absorbed, nor is a device that cannot
+    be had: ``device`` is resolved before any read."""
+    device = resolve_device(device)
     if not granules:
         return []
     with cf.ThreadPoolExecutor(min(workers, len(granules))) as ex:
@@ -206,7 +210,7 @@ def decode_all(granules: List[Granule], dst_bbox: BBox, dst_crs: CRS,
 
 
 def _safe_decode(g, dst_bbox, dst_crs, resample, dst_hw=None, errors=None,
-                 device="cpu"):
+                 device="cuda"):
     try:
         return decode_window(g, dst_bbox, dst_crs, resample, dst_hw, device)
     except NotImplementedError:

@@ -233,13 +233,15 @@ class TilePipeline:
 def evaluate_expressions(exprs: BandExpressions,
                          data_env: Dict[str, torch.Tensor],
                          valid_env: Dict[str, torch.Tensor],
-                         H: int, W: int, device="cpu",
+                         H: int, W: int, device="cuda",
                          granule_count: int = 0,
                          file_count: int = 0) -> TileResult:
     """Band-expression evaluation over the mosaic canvases.  Variables
     the index produced with axis suffixes (``var#axis=value``) are
     matched to the plain variable when unambiguous; a missing variable
-    gives an all-invalid zero plane."""
+    gives an all-invalid zero plane on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     out_data: Dict[str, torch.Tensor] = {}
     out_valid: Dict[str, torch.Tensor] = {}
     names: List[str] = []
@@ -296,7 +298,8 @@ def _restore_int(data: torch.Tensor, array_type: str):
 
 
 def _empty_result(exprs: BandExpressions, H: int, W: int,
-                  device="cpu") -> TileResult:
+                  device="cuda") -> TileResult:
+    device = resolve_device(device)
     data = {n: torch.zeros((H, W), dtype=torch.float32, device=device)
             for n in exprs.expr_names}
     valid = {n: torch.zeros((H, W), dtype=torch.bool, device=device)

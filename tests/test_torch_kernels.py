@@ -185,6 +185,117 @@ class TestPagedB1:
         assert trender.paged_render_kernel.launches == launches
 
 
+def _b1_grid(h, w, scale, angle, x0, y0):
+    """sx/sy (h, w) f32: a dst grid rotated by ``angle`` degrees and
+    zoomed out by ``scale`` source pixels a dst pixel, from (x0, y0)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64) + 0.5
+    a = np.radians(angle)
+    sx = x0 + scale * (np.cos(a) * xx - np.sin(a) * yy)
+    sy = y0 + scale * (np.sin(a) * xx + np.cos(a) * yy)
+    return (torch.from_numpy(sx.astype(np.float32)),
+            torch.from_numpy(sy.astype(np.float32)))
+
+
+def _b1_params():
+    """Four granules over one 300 x 300 scene: a whole-scene window, a
+    window of page rows 1.. and page columns 1.. (64 x 128 pages), an
+    offset affine with a narrow true extent, and a padding row."""
+    p16 = np.zeros((4, 16), np.float32)
+    for k in range(4):
+        p16[k, [1, 5]] = 1.0
+        p16[k, [6, 7]] = 300.0
+        p16[k, 8] = -999.0
+        p16[k, 9] = 10.0 - k
+        p16[k, [13, 14]] = (320, 384)
+        p16[k, 15] = 3
+    p16[1, [11, 12, 13, 14, 15]] = (64, 128, 192, 128, 1)
+    p16[2, [0, 3, 6, 7]] = (7.25, -3.5, 120.0, 260.0)
+    p16[3, 10] = -1.0
+    return torch.from_numpy(p16)
+
+
+def _brute_boxes(sx, sy, p16, method, block):
+    """Every in-bounds tap of every pixel, enumerated tap by tap, reduced
+    per (block, granule): {(by, bx, t): (r_lo, r_hi, c_lo, c_hi)}."""
+    offs = {"near": (0,), "bilinear": (0, 1), "cubic": (-1, 0, 1, 2)}
+    bh, bw = block
+    out = {}
+    for t, p in enumerate(p16):
+        if not float(p[10]) >= 0:
+            continue
+        rows, cols = (v.numpy() for v in twarp.granule_coords(sx, sy, p))
+        finite = np.isfinite(rows) & np.isfinite(cols)
+        if method == "near":
+            r0 = np.floor(np.where(finite, rows, 0.0).astype(np.float32)
+                          + np.float32(0.5))
+            c0 = np.floor(np.where(finite, cols, 0.0).astype(np.float32)
+                          + np.float32(0.5))
+        else:
+            r0 = np.floor(np.where(finite, rows, -10.0))
+            c0 = np.floor(np.where(finite, cols, -10.0))
+        wr, wc = int(p[13]), int(p[14])
+        for y in range(sx.shape[0]):
+            for x in range(sx.shape[1]):
+                for dr in offs[method]:
+                    for dc in offs[method]:
+                        ri, ci = int(r0[y, x]) + dr, int(c0[y, x]) + dc
+                        if not (0 <= ri < wr and 0 <= ci < wc):
+                            continue
+                        if method == "near" and not finite[y, x]:
+                            continue
+                        key = (y // bh, x // bw, t)
+                        b = out.get(key, (ri, ri, ci, ci))
+                        out[key] = (min(b[0], ri), max(b[1], ri),
+                                    min(b[2], ci), max(b[3], ci))
+    return out
+
+
+# (scale, degrees, x0, y0): native, rotated across the window's edges,
+# zoomed out and rotated so that boxes exceed the staging budget
+B1_GRIDS = {"identity": (1.0, 0.0, 20.0, 30.0),
+            "rotated": (1.0, 30.0, 40.0, -10.0),
+            "zoomed_out": (3.5, 30.0, 150.0, -20.0)}
+
+
+class TestB1StagedBoxes:
+    @pytest.mark.parametrize("method", METHODS)
+    @pytest.mark.parametrize("grid", sorted(B1_GRIDS))
+    def test_block_boxes_match_brute_force(self, method, grid):
+        sx, sy = _b1_grid(20, 70, *B1_GRIDS[grid])
+        p16 = _b1_params()
+        boxes, fits = tpaged.block_boxes(sx, sy, p16, method)
+        want = _brute_boxes(sx, sy, p16, method, tpaged.BLOCK)
+        nby, nbx, T = fits.shape
+        assert (nby, nbx, T) == (3, 3, 4)
+        for by in range(nby):
+            for bx in range(nbx):
+                for t in range(T):
+                    b = tuple(int(v) for v in boxes[by, bx, t])
+                    w = want.get((by, bx, t))
+                    if w is None:
+                        assert b[0] > b[1] and b[2] > b[3]
+                        assert bool(fits[by, bx, t])
+                        continue
+                    assert b == w, (by, bx, t)
+                    # the staged box: whole 16-byte column quads
+                    elems = (w[1] - w[0] + 1) \
+                        * ((w[3] | 3) + 1 - (w[2] & ~3))
+                    assert bool(fits[by, bx, t]) == \
+                        (elems * 4 <= tpaged.STAGE_BUDGET)
+        assert not any(t == 3 for _, _, t in want)   # the padding row
+        if grid == "zoomed_out":
+            assert not bool(fits.all())
+        else:
+            assert bool(fits.all())
+
+    def test_direct_counter_is_not_touched_by_the_plain_version(self):
+        tpaged.reset_direct_blocks("cpu")
+        stack, ctrl, params, h, w, step, n_ns = _inputs(seed=5, B=2)
+        pool, tables, p16 = _ref_pool(stack, params)
+        _torch_paged(pool, tables, p16, ctrl, "cubic", n_ns, (h, w), step)
+        assert tpaged.direct_blocks("cpu") == 0
+
+
 class TestBucketedB2:
     @pytest.mark.parametrize("method", METHODS)
     @pytest.mark.parametrize("n_ns", [1, 2])
@@ -314,6 +425,59 @@ def test_cuda_tensor_on_cpu_only_build_raises_not_falls_back():
     with pytest.raises(ValueError):
         trender.warp_render_scored(t, t[0], t[0], torch.zeros((1, 16)),
                                    "near", 1)
+
+
+def test_build_all_compiles_each_content_once(tmp_path, monkeypatch):
+    """Two libraries of one content (a source and its copy in another
+    checkout, as kernel_pair.py builds them) share a target and one nvcc;
+    the others build beside it.  nvcc is a stand-in script here."""
+    from gsky_tpu_torch.ops import cuda_lib
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    runs = tmp_path / "runs"
+    nvcc.write_text("#!/bin/sh\necho x >> %s\n" % runs +
+                    'while [ $# -gt 0 ]; do [ "$1" = -o ] && out=$2; '
+                    'shift; done\necho lib > "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(cuda_lib, "BUILD", tmp_path / "build")
+    srcs = []
+    for name, text in (("a/k.cu", "one"), ("b/k.cu", "one"),
+                       ("c/k.cu", "two")):
+        src = tmp_path / name
+        src.parent.mkdir()
+        src.write_text(text)
+        srcs.append(cuda_lib.CudaLibrary(str(src), {}))
+    out = cuda_lib.build_all(srcs)
+    assert out[0] == out[1] != out[2]
+    assert all(p.read_text() == "lib\n" for p in out)
+    assert runs.read_text().count("x") == 2
+    assert cuda_lib.build_all(srcs) == out          # built: no nvcc
+    assert runs.read_text().count("x") == 2
+
+
+def test_kernel_pair_needs_a_card_and_imports_no_jax():
+    """kernel_pair.py, which times kernels built from several checkouts,
+    imports nothing of JAX and exits non-zero without CUDA."""
+    import ast
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tree = ast.parse(open(os.path.join(repo, "kernel_pair.py")).read())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else [node.module or ""]
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib", "gsky_tpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "kernel_pair.py", "build/none"],
+                       cwd=repo, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "is_available() is False" in r.stderr
+    assert "{" not in r.stdout
 
 
 def _b3_inputs(seed, B, N, edge=False):

@@ -544,7 +544,7 @@ class TestDecode:
                                            hw)
                 tw = tdecode.decode_window(
                     tg, BBox(c.xmin, c.ymin, c.xmax, c.ymax),
-                    parse_crs(MERC), method, hw)
+                    parse_crs(MERC), method, hw, device="cpu")
                 _same_window(jw, tw)
         # zoomed out far enough to read from an overview: a window whose
         # pixels are 2 or 4 source pixels wide
@@ -575,7 +575,7 @@ class TestDecode:
             jw = jdecode.decode_window(jg, JBBox(*box), e, "bilinear", hw)
             tw = tdecode.decode_window(tg, BBox(*box),
                                        parse_crs("EPSG:4326"), "bilinear",
-                                       hw)
+                                       hw, device="cpu")
             _same_window(jw, tw)
         assert abs(tw.window_gt.dx) > 0.02          # strided
 
@@ -586,7 +586,7 @@ class TestDecode:
         jreq, _ = _requests(archive["root"], ["LC08_B4"], "near", None)
         jgs = JTilePipeline(JMASClient(archive["jstore"])).index(jreq)
         tws = tdecode.decode_all(gs, treq.bbox, treq.crs, "near",
-                                 dst_hw=(96, 80))
+                                 dst_hw=(96, 80), device="cpu")
         jws = jdecode.decode_all(jgs, jreq.bbox, jreq.crs, "near",
                                  dst_hw=(96, 80))
         for jw, tw in zip(jws, tws):
@@ -596,7 +596,7 @@ class TestDecode:
         bad = dataclasses.replace(gs[0], path="/nonexistent.tif")
         errs = []
         out = tdecode.decode_all([bad] + gs[1:], treq.bbox, treq.crs,
-                                 errors=errs)
+                                 errors=errs, device="cpu")
         assert out[0] is None and len(errs) == 1
         before = degrade.degraded["decode"]
         res = tp.render(dataclasses.replace(
@@ -708,7 +708,8 @@ def test_expression_over_torch_matches_jax(src):
         {"a": jnp.asarray(va), "b": jnp.asarray(vb)})
     to, tok = texpr.compile_expr(src).eval_masked(
         {"a": torch.from_numpy(a), "b": torch.from_numpy(b)},
-        {"a": torch.from_numpy(va), "b": torch.from_numpy(vb)})
+        {"a": torch.from_numpy(va), "b": torch.from_numpy(vb)},
+        device="cpu")
     np.testing.assert_array_equal(tok.numpy(), np.asarray(wok))
     nulp = max((u for f, u in _ULP.items() if f in src), default=0)
     for g, w in ((got.numpy(), want),
@@ -721,7 +722,7 @@ def test_expression_over_torch_matches_jax(src):
 
 def test_constant_expressions_stay_float32():
     ce = texpr.compile_expr("sqrt(4) + 1 > 2 ? 0.5 : 1")
-    out, ok = ce.eval_masked({}, {})
+    out, ok = ce.eval_masked({}, {}, device="cpu")
     assert out.dtype == torch.float32 and out.item() == 0.5 and ok.item()
     c = texpr.compile_expr("a > 0 ? 2 : 3")(
         {"a": torch.tensor([1.0, -1.0])}, xp=torch)

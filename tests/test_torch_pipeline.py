@@ -313,3 +313,37 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         WarpExecutor()
     with pytest.raises(RuntimeError, match="CUDA"):
         PagePool(capacity=4)
+
+
+def _default_device_calls():
+    """The port's public functions below the entry points, each called
+    with no device: a granule window decode, a decode of several, the
+    expression evaluation over an empty environment, and a constant-only
+    masked expression (no tensor to take a device from)."""
+    from gsky_tpu_torch.ops.expr import compile_expr, \
+        parse_band_expressions
+    from gsky_tpu_torch.pipeline import decode
+    from gsky_tpu_torch.pipeline.tile import evaluate_expressions
+    from gsky_tpu_torch.pipeline.types import Granule
+    g = Granule("/nonexistent.tif", "ds", "b", "b", 1, None, 0.0,
+                "EPSG:32755", [0.0, 30.0, 0.0, 0.0, 0.0, -30.0], -999.0)
+    box, crs = BBox(0.0, -300.0, 300.0, 0.0), parse_crs("EPSG:32755")
+    return {
+        "decode_window": lambda: decode.decode_window(g, box, crs),
+        "decode_all": lambda: decode.decode_all([g], box, crs),
+        "evaluate_expressions": lambda: evaluate_expressions(
+            parse_band_expressions(["b"]), {}, {}, 4, 4),
+        "eval_masked": lambda: compile_expr("1 + 2").eval_masked({}, {}),
+    }
+
+
+@pytest.mark.parametrize("name", ["decode_window", "decode_all",
+                                  "evaluate_expressions", "eval_masked"])
+def test_functions_below_the_entry_points_default_to_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    call = _default_device_calls()[name]
+    # no fallback: the missing card raises, it is not absorbed as a
+    # failed granule or answered on the CPU
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
