@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 1. card facts and the kernel build (nvcc, from gsky_tpu_torch/csrc);
 2. kernels B1 (paged) and B2 (bucketed) against their plain PyTorch
    versions on the card: near/bilinear/cubic, 1 and 2 namespaces, page
-   crossings, padding rows (ns -1) and null-page tables; then B1 on
+   crossings, padding rows (ns -1) and null-page tables, B2 also over 40
+   separate scenes (more than its launch carries by value: their
+   pointers go in a device table); then B1 on
    64-slot page windows of 1400 x 1400 scenes: a zoomed-out (3.5 source
    pixels a pixel) tile rotated 30 degrees, whose staged boxes exceed
    the budget in some blocks (the kernel's count of blocks that read the
@@ -22,8 +24,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    through `TilePipeline(device="cuda").render_composite_byte` — every
    tile through kernel B1, none of its blocks over the staging budget
    (the direct-block count is 0, as `block_boxes` predicts);
-4. the decline leg: tiles with GSKY_PAGE_SLOTS=1, served by kernel B2;
-5. card vs CPU: tiles again with ``device="cpu"`` (the plain versions);
+4. the decline leg: tiles with GSKY_PAGE_SLOTS=1, served by kernel B2,
+   which reads the cached scenes where they lie (the first tile is the
+   group's first decline; its latency is logged);
+4b. the decline leg as requests reach it: 8 tiles at 2x and 8 at 4x the
+   native ground resolution per method at default settings, whose
+   windows need more than 8 pages: every one declines to B2 (B2 once a
+   tile, B1 never, no plain version); then one tile whose windows need
+   17-32 pages, with GSKY_PAGE_SLOTS=32, declined by the reference's
+   VMEM gate alone; the device memory peak over phases 4-4b beside
+   `torch.stack` of the four scenes, the copy the dense-stack decline
+   leg made;
+5. card vs CPU: tiles of phases 3 and 4b again with ``device="cpu"``
+   (the plain versions);
 6. kernel B3 (the drill's masked stats) against its plain version on
    the card: B in {1, 7, 129, 1000, 1024} x N in {1, 2047, 2049, 16384,
    262144}, with an all-invalid row, values on the clip bounds and
@@ -60,11 +73,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``device="cpu"``.
 
 Then each kernel's device time (torch.profiler) is taken at the main
-path's shapes beside its plain version and its memory bound (B1 with a
-warm L2 and again with a 64 MB buffer written before every launch, as
-a tile finds its pages cold): for B1/B2
+path's shapes beside its plain version and its memory bound (B1 and B2
+with a warm L2 and again with a 64 MB buffer written before every
+launch, as a tile finds its pages cold; B2 at phase 3's native tile and
+at a 2x and a 4x tile, the inputs its decline leg gets; an empty
+kernel's launch beside them): for B1/B2
 the bytes of the source pixels their taps need, read once, plus their
-other inputs and outputs; for B3 its inputs read once and outputs
+other inputs and outputs (B2 also the 32-byte sectors its taps touch);
+for B3 its inputs read once and outputs
 written once; for B4 the bytes its early-exit scan needs on those
 inputs (the full-read bound is logged beside it), and again at
 (128, 2048, 2048) where every pixel scans all layers.  The last line of
@@ -114,6 +130,15 @@ B1_CASES = (
     ("scene corner", (256, 256), (1.0, 0.0, -12.0, -6.0)),
 )
 L2_FLUSH_BYTES = 64 << 20     # written between launches for a cold L2
+# phase 4b: 8 tiles (4 x 2) per method at each of these multiples of the
+# native ground resolution; their windows need more than the default 8
+# pages, so each declines to B2
+ZOOMS = (2.0, 4.0)
+# the gate tile (16 < pages <= 32) is the first such among tiles at these
+GATE_ZOOMS = (3.0, 3.5)
+# B2 is timed at (a) phase 3's first native tile, (b) the first 2x tile
+# and (c) the first 4x tile
+B2_INPUTS = (("a", None), ("b", 2.0), ("c", 4.0))
 # B4 is timed at the first main-path call's inputs and every 16th after
 # it: a tile's cloud and nodata set how far its pixels scan
 B4_TIMED_EVERY = 16
@@ -291,6 +316,30 @@ def phase_kernels(dev="cuda"):
                 stack_d, sx, sy, p16, method, n_ns)
             check_pair(method, ck, bk, cp, bp, f"B2 {method} n_ns={n_ns}")
             n += 2
+    # B2 over more scenes than its launch carries by value: separate
+    # tensors, their pointers in a device table
+    B = warp_render.INLINE_SCENES + 8
+    S_px = 300
+    scenes = [torch.from_numpy(rng.uniform(-500, 4000, (S_px, S_px))
+                               .astype(np.float32)).to(dev) for _ in range(B)]
+    for k in range(0, B, 5):
+        scenes[k][50 + k:90 + k, 30:200] = float("nan")
+    ctrl = np.stack([
+        np.linspace(-20, 280, gw, dtype=np.float32)[None, :].repeat(gh, 0),
+        np.linspace(-10, 290, gh, dtype=np.float32)[:, None].repeat(gw, 1)])
+    params = np.zeros((B, 11), np.float32)
+    for k in range(B):
+        params[k] = [3.0 * (k % 7) - 9.0, 1.0, 0.0, 2.0 * (k % 5) - 4.0, 0.0,
+                     1.0, S_px - k, S_px, -999.0, float(B - k), k % 2]
+    p16 = params16(torch.from_numpy(params).to(dev))
+    sx, sy = (_bilerp_grid(torch.from_numpy(ctrl).to(dev), h, w, step)
+              .contiguous())
+    for method in METHODS:
+        ck, bk = warp_render.warp_render_scored(scenes, sx, sy, p16, method, 2)
+        cp, bp = warp_render.warp_render_scored_plain(scenes, sx, sy, p16,
+                                                      method, 2)
+        check_pair(method, ck, bk, cp, bp, f"B2 {method} over {B} scenes")
+        n += 1
     return n
 
 
@@ -412,21 +461,27 @@ def write_archive(root, shape=(SCENE_H, SCENE_W)):
 
 
 def tile_boxes(x0=500000.0 + 9000.0 + 12000.0,
-               y0=6200000.0 - 9000.0 - 12000.0):
-    """32 native-resolution 256-px EPSG:3857 tiles (8 x 4) from the UTM
-    point (x0, y0) east and south; by default over the phase-3 overlap,
-    starting at the newest scene's nodata corner."""
+               y0=6200000.0 - 9000.0 - 12000.0, zoom=1.0, nx=8, ny=4):
+    """nx x ny 256-px EPSG:3857 tiles (32 by default) at ``zoom`` times
+    the native ground resolution from the UTM point (x0, y0) east and
+    south; by default native, over the phase-3 overlap, starting at the
+    newest scene's nodata corner."""
     from gsky_tpu_torch.geo.crs import parse_crs
     from gsky_tpu_torch.geo.transform import BBox, transform_bbox
     utm = parse_crs("EPSG:32755")
     merc = parse_crs("EPSG:3857")
     c = transform_bbox(BBox(x0, y0, x0 + 1, y0 + 1), utm, merc)
     lat = np.degrees(np.arctan(np.sinh(c.ymin / 6378137.0)))
-    res = 30.0 / np.cos(np.radians(lat))     # ~30 m on the ground
+    res = 30.0 * zoom / np.cos(np.radians(lat))  # 30 m x zoom on the ground
     size = 256 * res
     return [(c.xmin + i * size, c.ymin - (j + 1) * size,
              c.xmin + (i + 1) * size, c.ymin - j * size)
-            for j in range(4) for i in range(8)]
+            for j in range(ny) for i in range(nx)]
+
+
+def zoom_boxes(zoom):
+    """Phase 4b's 8 tiles at ``zoom`` x the native ground resolution."""
+    return tile_boxes(zoom=zoom, nx=4, ny=2)
 
 
 def render(pipe, root, boxes, method):
@@ -457,35 +512,53 @@ def render(pipe, root, boxes, method):
     return tiles, secs
 
 
-def main_operands(pipe, root, box):
-    """B1's and B2's operands as the fused route builds them for the
-    tile ``box`` of phase 3: (host page tables, then tables, params, sx,
-    sy and the granules' dense stack for B2 on the pipeline's device)."""
-    import torch
+def tile_group(pipe, root, box):
+    """The scene group the fused route builds for the 256-px tile
+    ``box``."""
     from gsky_tpu_torch.geo.crs import parse_crs
     from gsky_tpu_torch.geo.transform import BBox, GeoTransform
-    from gsky_tpu_torch.ops.warp import _bilerp_grid
     from gsky_tpu_torch.pipeline.tile import ns_prio
     from gsky_tpu_torch.pipeline.types import GeoTileRequest
-    ex = pipe.executor
     dst_gt = GeoTransform.from_bbox(BBox(*box), 256, 256)
     merc = parse_crs("EPSG:3857")
     req = GeoTileRequest(collection=root, bands=[NS], bbox=BBox(*box),
                          crs=merc)
     granules = pipe.index(req)
     _, ns_ids, prio = ns_prio(granules)
-    group = ex._scene_groups(granules, ns_ids, prio, dst_gt, merc,
-                             256, 256)[0]
-    tables, p16, _ = ex._paged_from_group(group)
+    return pipe.executor._scene_groups(granules, ns_ids, prio, dst_gt, merc,
+                                       256, 256)[0]
+
+
+def main_operands(pipe, root, box):
+    """B1's operands as the fused route builds them for the tile ``box``
+    of phase 3: host page tables, then tables, params, sx and sy (N = 1)
+    on the pipeline's device."""
+    import torch
+    from gsky_tpu_torch.ops.warp import _bilerp_grid
+    ex = pipe.executor
+    group = tile_group(pipe, root, box)
+    tables, p16, _ = ex._paged_from_group(group, 1)
     ex.pool.unpin(tables)
     dev = ex.device
     tab_d = torch.from_numpy(tables[None]).to(dev)
     p16_d = torch.from_numpy(p16).to(dev)
-    sx = _bilerp_grid(group.ctrl_dev[0], 256, 256, group.step)[None] \
-        .contiguous()
-    sy = _bilerp_grid(group.ctrl_dev[1], 256, 256, group.step)[None] \
-        .contiguous()
-    return tables, tab_d, p16_d, sx, sy, ex._stack(group)
+    sx, sy = _bilerp_grid(group.ctrl_dev[:, None], 256, 256, group.step)
+    return tables, tab_d, p16_d, sx.contiguous(), sy.contiguous()
+
+
+def b2_operands(pipe, root, box):
+    """B2's operands as the decline leg builds them for the tile ``box``:
+    the group's cached scenes (read where they lie), params (B, 16)
+    without padding rows, sx and sy (256, 256)."""
+    import torch
+    from gsky_tpu_torch.ops.warp import _bilerp_grid, params16
+    group = tile_group(pipe, root, box)
+    n = len(group.scenes)
+    p16 = params16(torch.from_numpy(group.params[:n].astype(np.float32))
+                   .to(pipe.executor.device))
+    sx, sy = _bilerp_grid(group.ctrl_dev, 256, 256, group.step)
+    return [s.dev for s in group.scenes], p16, sx.contiguous(), \
+        sy.contiguous()
 
 
 def stage_breakdown(pipe, root, boxes, method):
@@ -594,48 +667,196 @@ def compare_tiles(method, ref, got, what):
             raise AssertionError(f"{what} {method}: {diff} bytes differ")
 
 
-def tap_footprint_px(sx, sy, params, method):
-    """Distinct source pixels one call's taps need: per granule, every
-    tap of a finite, in-extent coordinate that lands inside the scene,
-    counted once (what the kernels must read; nodata pixels included,
-    padding outside the true extent not).  sx/sy (h, w), params (B, 16)
-    with the window origin in slots 11/12."""
+def granule_taps(sx, sy, p, method):
+    """One granule's taps that a kernel must read: (rows, cols) int64 of
+    every tap of a finite, in-extent coordinate that lands inside the
+    scene's true (H, W) extent (nodata pixels included, padding not).
+    sx/sy (h, w), p a 16-wide params row."""
     import torch
     from gsky_tpu_torch.ops.warp import NEAR, fma
     offs = (0,) if method in NEAR else \
         ((0, 1) if method == "bilinear" else (-1, 0, 1, 2))
+    H, W = int(p[6]), int(p[7])
+    cols = fma(p[2], sy, fma(p[1], sx, p[0])) - 0.5
+    rows = fma(p[5], sy, fma(p[4], sx, p[3])) - 0.5
+    ok = torch.isfinite(rows) & torch.isfinite(cols) \
+        & (rows >= -0.5) & (rows <= H - 0.5) \
+        & (cols >= -0.5) & (cols <= W - 0.5)
+    shift = 0.5 if method in NEAR else 0.0
+    r0 = torch.floor(torch.where(ok, rows, 0.0) + shift).long()
+    c0 = torch.floor(torch.where(ok, cols, 0.0) + shift).long()
+    rs, cs = [], []
+    for dr in offs:
+        for dc in offs:
+            ri, ci = r0 + dr, c0 + dc
+            m = ok & (ri >= 0) & (ri < H) & (ci >= 0) & (ci < W)
+            rs.append(ri[m])
+            cs.append(ci[m])
+    return torch.cat(rs), torch.cat(cs)
+
+
+def tap_footprint_px(sx, sy, params, method):
+    """Distinct source pixels one call's taps need, over its granules
+    (what the kernels must read).  sx/sy (h, w), params (B, 16) with the
+    window origin in slots 11/12."""
     total = 0
     for p in params:
         if float(p[10]) < 0:
             continue                          # padding row
-        H, W = int(p[6]), int(p[7])
-        cols = fma(p[2], sy, fma(p[1], sx, p[0])) - 0.5
-        rows = fma(p[5], sy, fma(p[4], sx, p[3])) - 0.5
-        ok = torch.isfinite(rows) & torch.isfinite(cols) \
-            & (rows >= -0.5) & (rows <= H - 0.5) \
-            & (cols >= -0.5) & (cols <= W - 0.5)
-        shift = 0.5 if method in NEAR else 0.0
-        r0 = torch.floor(torch.where(ok, rows, 0.0) + shift).long()
-        c0 = torch.floor(torch.where(ok, cols, 0.0) + shift).long()
-        seen = torch.zeros(H * W, dtype=torch.bool, device=sx.device)
-        for dr in offs:
-            for dc in offs:
-                ri, ci = r0 + dr, c0 + dc
-                m = ok & (ri >= 0) & (ri < H) & (ci >= 0) & (ci < W)
-                seen[(ri * W + ci)[m]] = True
-        total += int(seen.sum())
+        ri, ci = granule_taps(sx, sy, p, method)
+        total += int((ri * int(p[7]) + ci).unique().numel())
     return total
+
+
+def tap_sectors(sx, sy, params, method, scenes):
+    """Distinct 32-byte sectors of device memory B2's taps touch, reading
+    granule t from ``scenes[t]`` (each (WR, WC) f32 where it lies): at
+    zoom-out a warp's taps fall in separate sectors, so this is the floor
+    a gather can reach."""
+    total = 0
+    for p, scene in zip(params, scenes):
+        if float(p[10]) < 0:
+            continue
+        ri, ci = granule_taps(sx, sy, p, method)
+        addr = scene.data_ptr() + 4 * (ri * scene.shape[1] + ci)
+        total += int((addr // 32).unique().numel())
+    return total
+
+
+def other_bytes(sx, params, n_ns):
+    """The bytes of a warp-render call besides its taps: sx/sy and params
+    read, canv/best written."""
+    h, w = sx.shape[-2:]
+    return 2 * h * w * 4 + 2 * n_ns * h * w * 4 + params.numel() * 4
 
 
 def bound_bytes(sx, sy, params, method, n_ns, extra=0):
     """Least bytes one call moves: the taps' source pixels read once,
-    sx/sy and params read, canv/best written, plus ``extra`` (B1's
-    page tables)."""
+    plus the other operands (`other_bytes`) and ``extra`` (B1's page
+    tables)."""
     h, w = sx.shape[-2:]
     px = tap_footprint_px(sx.reshape(h, w), sy.reshape(h, w), params,
                           method)
-    return px * 4 + 2 * h * w * 4 + 2 * n_ns * h * w * 4 \
-        + params.numel() * 4 + extra
+    return px * 4 + other_bytes(sx, params, n_ns) + extra
+
+
+def phase_zoomed(pipe, root):
+    """Phase 4b: `zoom_boxes` at each of `ZOOMS` per method through the
+    fused route at default settings.  Every tile declines (its windows
+    need more than `page_slots()` pages) and goes to B2: B2 launches once
+    a tile, B1 never, no plain version runs, the gate declines none.
+    Returns ({(zoom, method): host tiles}, per-tile seconds, B2
+    launches)."""
+    from gsky_tpu_torch.ops import paged, warp_render
+    ex = pipe.executor
+    for zoom in ZOOMS:                    # scenes cached, handles open
+        render(pipe, root, zoom_boxes(zoom)[:1], "near")
+    declined, gated = ex.paged_declined, ex.paged_gated
+    plain = PlainCalls()
+    warp_render.warp_render_kernel.launches = 0
+    paged.paged_render_kernel.launches = 0
+    tiles, lat = {}, []
+    try:
+        for zoom in ZOOMS:
+            for method in METHODS:
+                tiles[(zoom, method)], secs = render(pipe, root,
+                                                     zoom_boxes(zoom), method)
+                lat += secs
+    finally:
+        plain.remove()
+    n = len(tiles) * len(zoom_boxes(ZOOMS[0]))
+    got = (ex.paged_declined - declined, ex.paged_gated - gated,
+           warp_render.warp_render_kernel.launches,
+           paged.paged_render_kernel.launches, plain.calls)
+    if got != (n, 0, n, 0, 0):
+        raise AssertionError(f"phase 4b over {n} tiles: declined, gated, "
+                             f"B2, B1, plain calls {got}")
+    return tiles, lat, n
+
+
+def phase_gate(pipe, root):
+    """A tile whose windows need 17 to 32 pages, with GSKY_PAGE_SLOTS=32:
+    no window exceeds the slots, the page list pads to 32 slots, and the
+    reference's VMEM gate (`ops.paged.paged_vmem_ok`) alone declines it
+    to B2.  Returns the pages its largest window needs."""
+    from gsky_tpu_torch.ops import paged, warp_render
+    ex = pipe.executor
+    for box in (b for z in GATE_ZOOMS for b in tile_boxes(zoom=z, nx=4,
+                                                          ny=2)):
+        made = ex.page_spans(tile_group(pipe, root, box), paged.MAX_SLOTS)
+        if made is not None and 16 < made[1] <= 32:
+            break
+    else:
+        raise AssertionError("no tile with windows of 17 to 32 pages")
+    before = (ex.paged_declined, ex.paged_gated,
+              warp_render.warp_render_kernel.launches,
+              paged.paged_render_kernel.launches)
+    os.environ["GSKY_PAGE_SLOTS"] = "32"
+    try:
+        render(pipe, root, [box], "bilinear")
+    finally:
+        del os.environ["GSKY_PAGE_SLOTS"]
+    after = (ex.paged_declined, ex.paged_gated,
+             warp_render.warp_render_kernel.launches,
+             paged.paged_render_kernel.launches)
+    if tuple(b - a for a, b in zip(before, after)) != (1, 1, 1, 0):
+        raise AssertionError(f"gate tile: declined, gated, B2, B1 went "
+                             f"from {before} to {after}")
+    return made[1]
+
+
+def time_b2(pipe, root, native_box, flush, card):
+    """B2's device time at `B2_INPUTS`: (a) phase 3's native tile
+    ``native_box``, (b) and (c) the first tiles at 2x and 4x the native
+    ground resolution, which the decline leg gets at default settings;
+    near, bilinear and cubic, warm and cold L2, beside its plain version
+    and two bounds: the distinct source pixels its taps need x 4 B, and
+    the distinct 32-byte sectors they touch x 32 B, each plus the other
+    operands.  Logs the device time of a launch that does nothing first.
+    Returns {(input, method): (ms, cold ms, plain ms, pixel bound ms,
+    sector bound ms, max |kernel - plain|)}."""
+    import torch
+    from gsky_tpu_torch.ops import warp_render
+    from gsky_tpu_torch.ops.paged import page_slots
+    saved = warp_render.warp_render_kernel.launches
+    dev = torch.device("cuda")
+    empty = kernel_device_ms(lambda: warp_render.empty_kernel(dev),
+                             "empty_kernel")
+    log(f"timing: a launch of an empty kernel {empty:.5f} ms ({card})")
+    rows = {}
+    for name, zoom in B2_INPUTS:
+        box = native_box if zoom is None else zoom_boxes(zoom)[0]
+        if zoom is not None and pipe.executor.page_spans(
+                tile_group(pipe, root, box), page_slots()) is not None:
+            raise AssertionError(f"B2 input ({name}) fits the paged leg")
+        scenes, p16, sx, sy = b2_operands(pipe, root, box)
+        for method in METHODS:
+            def b2():
+                return warp_render.warp_render_scored(scenes, sx, sy, p16,
+                                                      method, 1)
+
+            def b2p():
+                return warp_render.warp_render_scored_plain(
+                    scenes, sx, sy, p16, method, 1)
+            ck, bk = b2()
+            cp, bp = b2p()
+            err = check_pair(method, ck, bk, cp, bp, f"B2 ({name}) {method}")
+            ms = kernel_device_ms(b2, "warp_render")
+            cold = kernel_device_ms(b2, "warp_render", between=flush.zero_)
+            call, pms = cuda_time_ms(b2), cuda_time_ms(b2p, reps=3)
+            other = other_bytes(sx, p16, 1)
+            px = tap_footprint_px(sx, sy, p16, method)
+            sec = tap_sectors(sx, sy, p16, method, scenes)
+            bd_px = (4 * px + other) / HBM_BYTES_PER_S * 1e3
+            bd_sec = (32 * sec + other) / HBM_BYTES_PER_S * 1e3
+            rows[(name, method)] = (ms, cold, pms, bd_px, bd_sec, err)
+            log(f"timing B2 ({name}) {method}: device {ms:.5f} ms warm L2, "
+                f"{cold:.5f} ms cold L2 (per call with host {call:.4f}, "
+                f"plain {pms:.3f}); bounds {bd_px:.5f} ms ({px} pixels) and "
+                f"{bd_sec:.5f} ms ({sec} sectors), + {other} bytes of other "
+                f"operands; B = {len(scenes)} ({card})")
+    warp_render.warp_render_kernel.launches = saved
+    return rows
 
 
 def b3_edge_inputs(B, N, seed):
@@ -1498,26 +1719,68 @@ def main() -> int:
             f"{b1_ms:.5f} ({card})")
 
         # -- phase 4: the decline leg through B2 ------------------------
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        log(f"phase 4: device memory before the decline phases: allocated "
+            f"{base} B, peak so far {torch.cuda.max_memory_allocated()} B")
+        torch.cuda.reset_peak_memory_stats()
         plain = PlainCalls()
         os.environ["GSKY_PAGE_SLOTS"] = "1"
         warp_render.warp_render_kernel.launches = 0
         paged.paged_render_kernel.launches = 0
-        decl = {}
+        decl, first_decline = {}, None
         try:
             for method in METHODS:
-                decl[method], _ = render(pipe, data_root, boxes[:2], method)
+                decl[method], secs = render(pipe, data_root, boxes[:2], method)
+                if first_decline is None:       # a group's first decline
+                    first_decline = secs[0]
         finally:
             del os.environ["GSKY_PAGE_SLOTS"]
-        b2_launches = warp_render.warp_render_kernel.launches
+        b2_forced = warp_render.warp_render_kernel.launches
         plain.remove()
-        if b2_launches != 2 * len(METHODS) or plain.calls \
+        if b2_forced != 2 * len(METHODS) or plain.calls \
                 or paged.paged_render_kernel.launches:
-            raise AssertionError(f"decline leg: B2 {b2_launches}, plain "
+            raise AssertionError(f"decline leg: B2 {b2_forced}, plain "
                                  f"{plain.calls}")
         for method in METHODS:
             compare_tiles(method, card_tiles[method][:2], decl[method],
                           "B2 vs B1")
-        log(f"phase 4: {b2_launches} tiles through B2, bytes match B1")
+        log(f"phase 4: {b2_forced} tiles through B2, bytes match B1; the "
+            f"first (the group's first decline) took "
+            f"{first_decline * 1e3:.3f} ms")
+
+        # -- phase 4b: zoomed-out tiles decline at default settings -----
+        t0 = time.perf_counter()
+        zoom_tiles, zoom_lat, b2_launches = phase_zoomed(pipe, data_root)
+        log(f"phase 4b: {b2_launches} tiles at {', '.join(map(str, ZOOMS))}x "
+            f"the native ground resolution all declined to B2 (B2 launches "
+            f"{b2_launches}, B1 0, plain calls 0); p50 "
+            f"{np.median(zoom_lat) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(zoom_lat, 90) * 1e3:.2f} ms "
+            f"({time.perf_counter() - t0:.1f} s; {card})")
+        npg = phase_gate(pipe, data_root)
+        log(f"gate: a tile whose windows need {npg} pages, with "
+            f"GSKY_PAGE_SLOTS=32, declined through the VMEM gate alone "
+            f"(32-slot page list)")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"decline phases (4, 4b, gate): device memory peak {peak} B, "
+            f"{peak - base} B over the {base} B allocated before them")
+        # what the dense-stack decline leg paid on a group's first
+        # decline: a copy of the group's scenes
+        scenes = [s.dev for s in tile_group(pipe, data_root, boxes[0]).scenes]
+        t0 = time.perf_counter()
+        stacked = torch.stack(scenes)
+        torch.cuda.synchronize()
+        stack_first = (time.perf_counter() - t0) * 1e3
+        nbytes = stacked.numel() * 4
+        del stacked
+        stack_warm = cuda_time_ms(lambda: torch.stack(scenes), reps=5)
+        del scenes
+        torch.cuda.empty_cache()
+        log(f"torch.stack of the group's four scenes ({nbytes} B): "
+            f"{stack_first:.3f} ms first (allocation included), "
+            f"{stack_warm:.4f} ms warm ({card})")
 
         # -- phase 5: card vs CPU ---------------------------------------
         cpu = make_pipeline(store, "cpu")
@@ -1525,18 +1788,21 @@ def main() -> int:
         for method in METHODS:
             got, _ = render(cpu, data_root, boxes[:2], method)
             compare_tiles(method, card_tiles[method][:2], got, "card vs cpu")
-        log(f"phase 5: CPU tiles match the card "
+            for zoom in ZOOMS:
+                got, _ = render(cpu, data_root, zoom_boxes(zoom)[:2], method)
+                compare_tiles(method, zoom_tiles[(zoom, method)][:2], got,
+                              f"card vs cpu at {zoom}x")
+        log(f"phase 5: CPU tiles match the card, native and at "
+            f"{', '.join(map(str, ZOOMS))}x "
             f"({time.perf_counter() - t0:.1f} s)")
         del cpu
 
         # -- kernel timing at the main path's shapes --------------------
         ex = pipe.executor
-        tables, tab_d, p16_d, sx, sy, stack = main_operands(
-            pipe, data_root, boxes[0])
+        tables, tab_d, p16_d, sx, sy = main_operands(pipe, data_root,
+                                                     boxes[0])
         dev = torch.device("cuda")
-        p16s = torch.zeros_like(p16_d)
-        p16s[:, :11] = p16_d[:, :11]
-        rows = []
+        b1_rows = []
         flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                             device=dev)
         for method in METHODS:
@@ -1557,32 +1823,14 @@ def main() -> int:
                                         between=flush.zero_)
                 call1, pms1 = cuda_time_ms(b1), cuda_time_ms(b1p, reps=3)
                 paged.paged_render_kernel.launches = saved
-
-            def b2():
-                return warp_render.warp_render_scored(stack, sx[0], sy[0],
-                                                      p16s, method, 1)
-
-            def b2p():
-                return warp_render.warp_render_scored_plain(
-                    stack, sx[0], sy[0], p16s, method, 1)
-            ck, bk = b2()
-            cp, bp = b2p()
-            err2 = check_pair(method, ck, bk, cp, bp, f"B2 main {method}")
-            saved = warp_render.warp_render_kernel.launches
-            ms2 = kernel_device_ms(b2, "warp_render")
-            call2, pms2 = cuda_time_ms(b2), cuda_time_ms(b2p, reps=3)
-            warp_render.warp_render_kernel.launches = saved
-            by2 = bound_bytes(sx, sy, p16s, method, 1)
-            by1 = by2 + tables.nbytes
-            bd1, bd2 = (by / HBM_BYTES_PER_S * 1e3 for by in (by1, by2))
-            rows.append((method, err1, ms1, pms1, bd1, err2, ms2, pms2, bd2))
+            by1 = bound_bytes(sx, sy, p16_d, method, 1, tables.nbytes)
+            bd1 = by1 / HBM_BYTES_PER_S * 1e3
+            b1_rows.append((method, err1, ms1, pms1, bd1))
             log(f"timing {method}: B1 device {ms1:.5f} ms warm L2, "
-                f"{ms1c:.5f} ms cold L2 (per call with "
-                f"host {call1:.4f}, plain {pms1:.3f}), bound {bd1:.5f} ms; "
-                f"B2 device {ms2:.5f} ms (per call with host {call2:.4f}, "
-                f"plain {pms2:.3f}), bound {bd2:.5f} ms; bound bytes "
-                f"{by1} / {by2} [T={tables.shape[0]} S={tables.shape[1]}] "
-                f"({card})")
+                f"{ms1c:.5f} ms cold L2 (per call with host {call1:.4f}, "
+                f"plain {pms1:.3f}), bound {bd1:.5f} ms ({by1} bytes) "
+                f"[T={tables.shape[0]} S={tables.shape[1]}] ({card})")
+        b2_rows = time_b2(pipe, data_root, boxes[0], flush, card)
         del flush
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
@@ -1612,23 +1860,26 @@ def main() -> int:
     finally:
         shutil.rmtree(mosaic_root, ignore_errors=True)
 
-    # the kernels line reports the bilinear row (the GetMap default
-    # interpolated method); every method's numbers are logged above
-    m, err1, ms1, pms1, bd1, err2, ms2, pms2, bd2 = rows[1]
+    # the kernels line reports the bilinear rows (the GetMap default
+    # interpolated method): B1 at phase 3's tile, B2 at input (c), the
+    # 4x zoomed-out tile; every method's and input's numbers are logged
+    # above
+    m, err1, ms1, pms1, bd1 = b1_rows[1]
+    ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
     kernels = {"kernels": [
         {"name": "paged_render (B1)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/paged.py:173",
          "launches": b1_launches,
-         "max_abs_err": max(r[1] for r in rows),
+         "max_abs_err": max(r[1] for r in b1_rows),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
          "bound_by": "bytes", "library_ms": None},
         {"name": "warp_render (B2)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
          "launches": b2_launches,
-         "max_abs_err": max(r[5] for r in rows),
+         "max_abs_err": max(r[5] for r in b2_rows.values()),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,
          "bound_by": "bytes", "library_ms": None},
         {"name": "masked_stats (B3)", "route": "cuda",

@@ -12,8 +12,8 @@
 // (`granule_sample`, its coordinates from `granule_coords`) with three
 // fetch front ends: B1 reads a block's staged footprint in shared memory
 // (`StagedFetch`) or, for a footprint over the budget, walks the page
-// table into the pool (`PageWalk`); B2 reads a dense (B, WR, WC) scene
-// stack (`DenseFetch`).  The plain PyTorch versions
+// table into the pool (`PageWalk`); B2 reads each granule's cached scene
+// where it lies (`SceneFetch`).  The plain PyTorch versions
 // (gsky_tpu_torch/ops/warp.py::granule_sample and its callers) are the
 // same arithmetic, op for op.
 //
@@ -73,8 +73,32 @@
 // indices, no integer division after the plan (`div_small`), one plan
 // per block, four columns per cp.async, granules interleaved.
 //
-// B2 design (unchanged): one thread per output pixel, the granule loop
-// inside the thread, taps read from the dense stack through L1/L2.
+// B2 design.  The Pallas kernel indexes one dense (B, WR, WC) stack,
+// because a BlockSpec cuts one array; its first port read such a stack,
+// which the executor built by copying the group's cached scenes (4 x
+// 7936 x 7936 f32, 1 GB, for four Landsat scenes).  Here:
+// - each granule is read from its own cached scene through a base
+//   pointer; the group's scenes share one (WR, WC) bucket, so WC is the
+//   row stride of every one.  Up to kInline pointers travel by value in
+//   the launch's parameters (a __grid_constant__ struct, no upload); a
+//   call over more granules passes a device table of them, which the
+//   wrapper builds once per pointer list;
+// - the executor drops the group's padding rows (namespace -1: they
+//   never win the mosaic) before the launch;
+// - 2-D blocks of kB2Rows x kB2Cols output pixels, a warp on consecutive
+//   columns, so a block's taps fall on few source rows;
+// - per round of up to kB2Round granules, the params rows and scene
+//   pointers go to shared memory once per block;
+// - the granules are sampled one after another, each mosaicked as it
+//   comes.  Sampling them four at a time (two for cubic), all their taps
+//   issued before any is used, as B1 does, measured slower on an H100
+//   at zoomed-out bilinear tiles (kernel_pair.py; PERF.md, B2's
+//   design), so the simpler loop is kept;
+// - 32-bit in-scene indices (the wrapper checks WR * WC < 2^31: a stack
+//   of scenes can exceed 2^31 floats, one scene cannot);
+// - no shared-memory staging: at the zoomed-out tiles that reach this
+//   leg a tap lands 2-8 source pixels from its neighbour's, so a block
+//   has nothing to reuse, and at native resolution L1 catches the reuse.
 //
 // Bit parity with the reference needs its op order everywhere, IEEE
 // division for acc / wacc, and multiply-adds fused exactly where XLA's
@@ -82,10 +106,13 @@
 // -fmad=false and the code calls __fmaf_rn at those places — the affine,
 // w1 of the cubic weights, and the tap sum (whose second add fuses the
 // FIRST product into the rounded second one).  B2's index arithmetic is
-// clipped before any load, so a padding granule (zero extent, clip bound
-// -1) still reads a valid address; B1 reads only in-bounds taps.  A
+// clipped to the scene before any load, so a granule of zero extent still
+// reads a valid address; B1 reads only in-bounds taps.  A
 // masked tap contributes 0 whatever it would have read, so neither
 // choice changes a result.
+//
+// Launch floor: `empty_kernel` does nothing; its device time is what a
+// launch of any kernel here costs at least.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -118,7 +145,6 @@ __device__ __forceinline__ long long pool_offset(const int* table, int S,
 // for in-bounds taps only.
 struct StagedFetch {
   static constexpr bool kGuarded = true;
-  using Index = int;
   const float* box;  // shared memory, box_w floats a row
   int r_lo, c_lo, box_w;
   __device__ __forceinline__ float operator()(int ri, int ci) const {
@@ -130,7 +156,6 @@ struct StagedFetch {
 // table into the pool itself, in 32-bit.
 struct PageWalk {
   static constexpr bool kGuarded = true;
-  using Index = int;
   const float* pool;
   const int* table;  // S slots of this tile and granule (shared memory)
   int S, pr, pc, ppc;
@@ -141,29 +166,26 @@ struct PageWalk {
   }
 };
 
-// B2 front end: dense (WR, WC) scene of this granule, read at clipped
-// indices for every tap.
-struct DenseFetch {
+// B2 front end: this granule's cached (WR, WC) scene, read at clipped
+// 32-bit indices for every tap.
+struct SceneFetch {
   static constexpr bool kGuarded = false;
-  using Index = long long;
   const float* scene;
-  long long wc;
-  __device__ __forceinline__ float operator()(long long ri,
-                                              long long ci) const {
-    return scene[ri * wc + ci];
+  int wc;
+  __device__ __forceinline__ float operator()(int ri, int ci) const {
+    return __ldg(scene + ri * wc + ci);
   }
 };
 
-__device__ __forceinline__ long long clampi(long long v, long long lo,
-                                            long long hi) {
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
   // jnp.clip / torch.clamp order: max with lo first, then min with hi
   v = v < lo ? lo : v;
   return v > hi ? hi : v;
 }
 
-template <class Fetch, class I = typename Fetch::Index>
-__device__ __forceinline__ float tap(const Fetch& fetch, I ri, I ci,
-                                     bool inb, I wr, I wc, float nd,
+template <class Fetch>
+__device__ __forceinline__ float tap(const Fetch& fetch, int ri, int ci,
+                                     bool inb, int wr, int wc, float nd,
                                      bool& ok) {
   float v;
   if constexpr (Fetch::kGuarded) {
@@ -227,20 +249,19 @@ __device__ __forceinline__ bool tap_box(float rows, float cols, int wr,
 }
 
 // One granule's resample at one dst pixel: returns the value, sets ok.
-// Tap indices are the fetch's Index type: long long for B2 (as before),
-// int for B1 (window-relative, far below 2^31).
-template <int METHOD, class Fetch, class I = typename Fetch::Index>
+// Tap indices are 32-bit: window- or scene-relative, below 2^31.
+template <int METHOD, class Fetch>
 __device__ __forceinline__ float granule_sample(float sx, float sy,
                                                 const float* p,
-                                                const Fetch& fetch, I wr,
-                                                I wc, bool& ok) {
+                                                const Fetch& fetch, int wr,
+                                                int wc, bool& ok) {
   float rows, cols;
   granule_coords(sx, sy, p, rows, cols);
   const float nd = p[8];
   const bool finite = isfinite(rows) && isfinite(cols);
   if (METHOD == NEAR) {
-    I ri = finite ? (I)(int)floorf(rows + 0.5f) : 0;
-    I ci = finite ? (I)(int)floorf(cols + 0.5f) : 0;
+    int ri = finite ? (int)floorf(rows + 0.5f) : 0;
+    int ci = finite ? (int)floorf(cols + 0.5f) : 0;
     bool inb = ri >= 0 && ri < wr && ci >= 0 && ci < wc && finite;
     return tap(fetch, ri, ci, inb, wr, wc, nd, ok);
   }
@@ -250,8 +271,8 @@ __device__ __forceinline__ float granule_sample(float sx, float sy,
   const float c0f = floorf(cols);
   const float fr = rows - r0f;
   const float fc = cols - c0f;
-  const I r0 = (int)r0f;
-  const I c0 = (int)c0f;
+  const int r0 = (int)r0f;
+  const int c0 = (int)c0f;
   // tap sum: acc = fma(w0, v0, w1 * v1), then acc = fma(wk, vk, acc)
   float acc = 0.0f, wacc = 0.0f, w_first = 0.0f, v_first = 0.0f;
   int k = 0;
@@ -261,7 +282,7 @@ __device__ __forceinline__ float granule_sample(float sx, float sy,
     for (int dr = 0; dr < 2; ++dr) {
       for (int dc = 0; dc < 2; ++dc) {
         float wt = (dr ? fr : 1.0f - fr) * (dc ? fc : 1.0f - fc);
-        I ri = r0 + dr, ci = c0 + dc;
+        int ri = r0 + dr, ci = c0 + dc;
         bool inb = ri >= 0 && ri < wr && ci >= 0 && ci < wc;
         bool okt;
         float v = tap(fetch, ri, ci, inb, wr, wc, nd, okt);
@@ -286,7 +307,7 @@ __device__ __forceinline__ float granule_sample(float sx, float sy,
     for (int dr = 0; dr < 4; ++dr) {
       for (int dc = 0; dc < 4; ++dc) {
         float wt = wrr[dr] * wcc[dc];
-        I ri = r0 + dr - 1, ci = c0 + dc - 1;
+        int ri = r0 + dr - 1, ci = c0 + dc - 1;
         bool inb = ri >= 0 && ri < wr && ci >= 0 && ci < wc;
         bool okt;
         float v = tap(fetch, ri, ci, inb, wr, wc, nd, okt);
@@ -635,37 +656,71 @@ paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
   if (tid == 0 && took_direct) atomicAdd(direct, 1u);
 }
 
-// B2: grid (ceil(hw / block), 1, 1).  stack (B, WR, WC); params (B, 16);
-// sx/sy (hw); canv/best (NS, hw).
+// B2's output block: kB2Rows x kB2Cols pixels, a warp on consecutive
+// columns.
+constexpr int kB2Rows = 8, kB2Cols = 32, kB2Threads = kB2Rows * kB2Cols;
+constexpr int kB2Round = 32;  // granules whose params go to shared memory
+constexpr int kInline = 32;   // scene pointers passed by value (wrapper:
+                              // ops/warp_render.py INLINE_SCENES)
+struct ScenePtrs {
+  const float* p[kInline];
+};
+
+// B2: grid (ceil(w / kB2Cols), ceil(h / kB2Rows)), kB2Threads threads.
+// Granule t's scene is ptrs.p[t] (B <= kInline) or table[t], each
+// (WR, WC) f32 row-major; params (B, 16); sx/sy (h, w); canv/best
+// (NS, h, w).
 template <int METHOD, int NS>
-__global__ void warp_render(const float* __restrict__ stack,
-                            const float* __restrict__ params,
-                            const float* __restrict__ sxs,
-                            const float* __restrict__ sys,
-                            float* __restrict__ canv_out,
-                            float* __restrict__ best_out, int B, int WR,
-                            int WC, int hw) {
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= hw) return;
-  const float sx = sxs[pix];
-  const float sy = sys[pix];
+__global__ void __launch_bounds__(kB2Threads)
+warp_render(const __grid_constant__ ScenePtrs ptrs,
+            const float* const* __restrict__ table,
+            const float* __restrict__ params, const float* __restrict__ sxs,
+            const float* __restrict__ sys, float* __restrict__ canv_out,
+            float* __restrict__ best_out, int B, int WR, int WC, int h,
+            int w) {
+  __shared__ float prm[kB2Round * 16];
+  __shared__ const float* scn[kB2Round];
+  const int tid = threadIdx.x;
+  const int x = blockIdx.x * kB2Cols + tid % kB2Cols;
+  const int y = blockIdx.y * kB2Rows + tid / kB2Cols;
+  const bool live = x < w && y < h;
+  const int hw = h * w;
+  const int pix = y * w + x;
+  float sx = 0.0f, sy = 0.0f;
+  if (live) {
+    sx = sxs[pix];
+    sy = sys[pix];
+  }
   float canv[NS], best[NS];
 #pragma unroll
   for (int m = 0; m < NS; ++m) {
     canv[m] = 0.0f;
     best[m] = -INFINITY;
   }
-  for (int t = 0; t < B; ++t) {
-    const float* p = params + t * 16;
-    DenseFetch fetch{stack + (long long)t * WR * WC, WC};
-    bool ok;
-    float val = granule_sample<METHOD>(sx, sy, p, fetch, WR, WC, ok);
-    mosaic<NS>(canv, best, val, ok, p[9], p[10]);
+  for (int t0 = 0; t0 < B; t0 += kB2Round) {
+    const int nr = min(kB2Round, B - t0);
+    for (int i = tid; i < nr * 16; i += kB2Threads) {
+      prm[i] = params[t0 * 16 + i];
+    }
+    for (int g = tid; g < nr; g += kB2Threads) {
+      scn[g] = table != nullptr ? table[t0 + g] : ptrs.p[t0 + g];
+    }
+    __syncthreads();
+    if (live) {
+      for (int g = 0; g < nr; ++g) {
+        const float* p = prm + g * 16;
+        SceneFetch f{scn[g], WC};
+        bool ok;
+        const float val = granule_sample<METHOD>(sx, sy, p, f, WR, WC, ok);
+        mosaic<NS>(canv, best, val, ok, p[9], p[10]);
+      }
+    }
+    if (t0 + kB2Round < B) __syncthreads();  // the next round reuses prm
   }
-  store<NS>(canv_out, best_out, pix, hw, canv, best);
+  if (live) store<NS>(canv_out, best_out, pix, hw, canv, best);
 }
 
-constexpr int kBlock = 256;
+__global__ void empty_kernel() {}
 
 template <int METHOD, int NS>
 void paged_launch(const float* pool, const int* tables, const float* params,
@@ -684,12 +739,13 @@ void paged_launch(const float* pool, const int* tables, const float* params,
 }
 
 template <int METHOD, int NS>
-void warp_launch(const float* stack, const float* params, const float* sx,
-                 const float* sy, float* canv, float* best, int B, int WR,
-                 int WC, int hw, cudaStream_t st) {
-  dim3 grid((hw + kBlock - 1) / kBlock, 1, 1);
-  warp_render<METHOD, NS><<<grid, kBlock, 0, st>>>(
-      stack, params, sx, sy, canv, best, B, WR, WC, hw);
+void warp_launch(ScenePtrs ptrs, const float* const* table,
+                 const float* params, const float* sx, const float* sy,
+                 float* canv, float* best, int B, int WR, int WC, int h,
+                 int w, cudaStream_t st) {
+  dim3 grid((w + kB2Cols - 1) / kB2Cols, (h + kB2Rows - 1) / kB2Rows, 1);
+  warp_render<METHOD, NS><<<grid, kB2Threads, 0, st>>>(
+      ptrs, table, params, sx, sy, canv, best, B, WR, WC, h, w);
 }
 
 template <template <int, int> class F, class... A>
@@ -743,16 +799,33 @@ extern "C" int launch_paged_render(int method, int ns, const void* pool,
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
-extern "C" int launch_warp_render(int method, int ns, const void* stack,
-                                  const void* params, const void* sx,
-                                  const void* sy, void* canv, void* best,
-                                  int B, int WR, int WC, int h, int w,
-                                  void* stream) {
-  const int hw = h * w;
-  if (hw == 0) return 0;
+// B2 takes its B granules' scene pointers as a host array `scenes` when
+// B <= kInline (copied into the launch's parameters), else as a device
+// array `table` of B pointers; each scene is (WR, WC) f32, WR * WC <
+// 2^31.
+extern "C" int launch_warp_render(int method, int ns,
+                                  const void* const* scenes,
+                                  const void* table, const void* params,
+                                  const void* sx, const void* sy, void* canv,
+                                  void* best, int B, int WR, int WC, int h,
+                                  int w, void* stream) {
+  if (h == 0 || w == 0) return 0;
+  ScenePtrs ptrs{};
+  if (B <= kInline) {
+    for (int t = 0; t < B; ++t) ptrs.p[t] = (const float*)scenes[t];
+    table = nullptr;
+  } else if (table == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
   int rc = dispatch<WarpRun>(
-      method, ns, (const float*)stack, (const float*)params,
+      method, ns, ptrs, (const float* const*)table, (const float*)params,
       (const float*)sx, (const float*)sy, (float*)canv, (float*)best, B, WR,
-      WC, hw, (cudaStream_t)stream);
+      WC, h, w, (cudaStream_t)stream);
   return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// The launch floor: one launch of a kernel that does nothing.
+extern "C" int launch_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

@@ -98,7 +98,9 @@ def build_all(libs: Sequence[CudaLibrary]) -> List[Path]:
 
 class Kernel:
     """One C launch entry point of a library, with its launch count
-    (incremented only where the kernel is launched)."""
+    (incremented only where the kernel is launched).  A call names the
+    device its operands lie on: the kernel launches there, on that
+    device's current stream, whichever device is current."""
 
     def __init__(self, library: CudaLibrary, symbol: str):
         self.library = library
@@ -106,9 +108,11 @@ class Kernel:
         self.launches = 0
         self._lock = threading.Lock()
 
-    def __call__(self, *args) -> None:
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(self.library.load(), self.symbol)(*args, stream)
+    def __call__(self, device, *args) -> None:
+        fn = getattr(self.library.load(), self.symbol)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
         with self._lock:

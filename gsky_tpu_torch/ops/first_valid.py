@@ -62,6 +62,6 @@ def mosaic_first_valid_kernel(stack, valid):
     T, H, W = stack.shape
     out = torch.empty((H, W), dtype=torch.float32, device=stack.device)
     ok = torch.empty((H, W), dtype=torch.bool, device=stack.device)
-    first_valid_kernel(stack.data_ptr(), valid.data_ptr(), T, H * W,
-                       out.data_ptr(), ok.data_ptr())
+    first_valid_kernel(stack.device, stack.data_ptr(), valid.data_ptr(), T,
+                       H * W, out.data_ptr(), ok.data_ptr())
     return out, ok

@@ -15,8 +15,12 @@ in-bounds taps of its pixels, walked out of the table into shared
 memory; a box over `STAGE_BUDGET` is read from the pool directly, and
 the blocks that do so are counted on the device (`direct_blocks`).
 `block_boxes` is the plain mirror of those boxes.  The function
-computed is the same; the Pallas VMEM eligibility gate
-(`paged_vmem_ok`) has no counterpart.
+computed is the same.
+
+`paged_vmem_ok` is the reference's VMEM eligibility gate with its
+constants.  B1 has no VMEM and no such limit: the gate is kept as a
+routing rule, so that the port sends a tile to the same leg (B1 or B2)
+as the reference does.
 """
 
 from __future__ import annotations
@@ -106,6 +110,24 @@ def page_slots() -> int:
     except ValueError:
         s = 8
     return max(1, min(MAX_SLOTS, s))
+
+
+# the reference's paged-leg gate (`gsky_tpu/ops/pallas_tpu.py`
+# `_WARP_BLK`, `_WARP_VMEM_BUDGET`): one output block of 128 x 128 and a
+# 10 MiB working set
+GATE_BLOCK = 128
+GATE_BUDGET = 10 * 1024 * 1024
+
+
+def paged_vmem_ok(slots: int, n_ns: int, pr: int, pc: int) -> bool:
+    """The reference's `paged_vmem_ok`: whether a page list of ``slots``
+    (pr, pc) f32 pages, double-buffered, plus the ``n_ns`` canv/best
+    accumulators and the sx/sy blocks (each x2) fits its VMEM budget.
+    False sends the tile to the bucketed leg, as in the reference."""
+    pages = slots * pr * pc * 4 * 2
+    acc = n_ns * GATE_BLOCK * GATE_BLOCK * 4 * 2 * 2
+    grids = GATE_BLOCK * GATE_BLOCK * 4 * 2 * 2
+    return pages + acc + grids <= GATE_BUDGET
 
 
 def table_gather_bytes(tables, pr: int, pc: int) -> int:
@@ -234,18 +256,17 @@ def paged_render_scored(pool, tables, params, sx, sy, method: str,
     canv = torch.empty((N, n_ns, h, w), dtype=torch.float32,
                        device=pool.device)
     best = torch.empty_like(canv)
-    paged_render_kernel(method_code(method), n_ns, pool.data_ptr(),
-                        tables.data_ptr(), params.data_ptr(), sx.data_ptr(),
-                        sy.data_ptr(), canv.data_ptr(), best.data_ptr(),
-                        N, T, S, pr, pc, h, w, STAGE_BUDGET,
+    paged_render_kernel(pool.device, method_code(method), n_ns,
+                        pool.data_ptr(), tables.data_ptr(), params.data_ptr(),
+                        sx.data_ptr(), sy.data_ptr(), canv.data_ptr(),
+                        best.data_ptr(), N, T, S, pr, pc, h, w, STAGE_BUDGET,
                         _direct_counter(pool.device).data_ptr())
     return canv, best
 
 
 def _dense_grids(ctrls, h: int, w: int, step: int):
-    sx = torch.stack([_bilerp_grid(c[0], h, w, step) for c in ctrls])
-    sy = torch.stack([_bilerp_grid(c[1], h, w, step) for c in ctrls])
-    return sx.contiguous(), sy.contiguous()
+    grids = _bilerp_grid(ctrls, h, w, step)       # (N, 2, h, w)
+    return grids[:, 0].contiguous(), grids[:, 1].contiguous()
 
 
 def warp_scored_paged(pool, tables, params, ctrls, method: str = "near",

@@ -80,6 +80,6 @@ def masked_stats(data, valid, clip_lower=-3.0e38, clip_upper=3.0e38):
     lo, hi = clip_f32(clip_lower, clip_upper)
     sums = torch.empty((B,), dtype=torch.float32, device=data.device)
     counts = torch.empty((B,), dtype=torch.int32, device=data.device)
-    masked_stats_kernel(data.data_ptr(), valid.data_ptr(), lo, hi, B, N,
-                        sums.data_ptr(), counts.data_ptr())
+    masked_stats_kernel(data.device, data.data_ptr(), valid.data_ptr(), lo,
+                        hi, B, N, sums.data_ptr(), counts.data_ptr())
     return sums, counts

@@ -8,11 +8,11 @@ CRS) on the host in float64, and dispatches:
 
 - the paged leg (kernel B1) when the page pool can stage every
   granule's footprint pages (`_paged_from_group`);
-- the bucketed leg (kernel B2) over the dense scene stack otherwise —
-  page budget exceeded or every pool slot pinned.
-
-The scene stack of the bucketed leg is built only when that leg runs:
-the paged leg never reads it.
+- the bucketed leg (kernel B2) otherwise — page budget exceeded, the
+  reference's VMEM gate (`ops.paged.paged_vmem_ok`) refused the page
+  list, or every pool slot pinned.  B2 reads each granule from its
+  cached scene through a per-granule base pointer: no dense copy of the
+  group's scenes is made.
 
 `warp_all` serves the modular (mask-band) path: every decoded window is
 projected per dst pixel on the host (float64, cached per dst grid and
@@ -35,7 +35,8 @@ import torch
 from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import GeoTransform
-from ..ops.paged import PARAMS_W, page_slots, render_byte_paged
+from ..ops.paged import PARAMS_W, page_slots, paged_vmem_ok, \
+    render_byte_paged
 from ..ops.warp import warp_gather_batch
 from ..ops.warp_render import render_scenes
 from .decode import DecodedWindow
@@ -114,14 +115,12 @@ class SceneGroup:
     ctrl_dev: torch.Tensor      # the same on the device
     params: np.ndarray          # (B, 11) f64, B = pow2(len(scenes))
     step: int
-    skey: tuple                 # scene serials + B: the stack's cache key
 
 
 class WarpExecutor:
     """Dispatches cached-scene tiles to the fused warp-render kernels."""
 
     _GEO_CACHE_MAX = 256
-    _STACK_CACHE_MAX = 4
     _STRIDE_CACHE_MAX = 8192
 
     def __init__(self, device="cuda", cache: Optional[SceneCache] = None,
@@ -130,12 +129,13 @@ class WarpExecutor:
         self.cache = cache or SceneCache(device=self.device)
         self.pool = pool or PagePool(device=self.device)
         self._geo_cache: OrderedDict = OrderedDict()
-        self._stack_cache: OrderedDict = OrderedDict()
         self._stride_cache: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
-        # dispatch counts by leg — "where do renders actually go"
+        # dispatch counts by leg — "where do renders actually go";
+        # `paged_gated` counts the declines the VMEM gate alone made
         self.paged_engaged = 0
         self.paged_declined = 0
+        self.paged_gated = 0
         # seconds per stage, summed over calls (SPANS, MODULAR_SPANS)
         self.spans = dict.fromkeys(SPANS, 0.0)
         # window-batch dispatches of `warp_all` by (bh, bw, B)
@@ -357,48 +357,21 @@ class WarpExecutor:
                 params[k, 8] = s.nodata
                 params[k, 9] = prios[i]
                 params[k, 10] = ns_ids[i]
-            groups.append(SceneGroup(gs, ctrl, ctrl_dev, params, step,
-                                     tuple(s.serial for s in gs) + (B,)))
+            groups.append(SceneGroup(gs, ctrl, ctrl_dev, params, step))
         return groups
 
-    def _stack(self, group: SceneGroup) -> torch.Tensor:
-        """(B, bh, bw) scene stack of a group, padding rows repeating the
-        first scene (their ns id is -1, so they never win)."""
-        with self._lock:
-            stack = self._stack_cache.get(group.skey)
-            if stack is not None:
-                self._stack_cache.move_to_end(group.skey)
-                return stack
-        devs = [s.dev for s in group.scenes]
-        devs += [devs[0]] * (group.skey[-1] - len(devs))
-        stack = torch.stack(devs)
-        with self._lock:
-            self._stack_cache[group.skey] = stack
-            while len(self._stack_cache) > self._STACK_CACHE_MAX:
-                self._stack_cache.popitem(last=False)
-        return stack
-
-    def _paged_from_group(self, group: SceneGroup):
-        """Page tables + 16-wide kernel params for one scene group, or
-        None when the paged leg cannot serve it (page budget exceeded,
-        or the pool full of pinned pages).
-
-        Returns (tables (T, S) int32, params16 (T, 16) f32, real_pages).
-        Page coverage per granule comes from the same `_granule_bounds`
-        margins the bucketed window uses; table slots come back PINNED
-        and the caller must `pool.unpin(tables)` once its dispatch is
-        enqueued."""
-        pool = self.pool
-        pr, pc = pool.page_rows, pool.page_cols
+    def page_spans(self, group: SceneGroup, cap: int):
+        """Each granule's page-grid window (i0, i1, j0, j1), None for a
+        padding row or one with nothing to gather, and the most pages one
+        window needs; None when a window needs more than ``cap`` pages."""
+        pr, pc = self.pool.page_rows, self.pool.page_cols
         cx = np.asarray(group.ctrl[0], np.float64)
         cy = np.asarray(group.ctrl[1], np.float64)
         params64 = group.params
         gs = group.scenes
-        T = int(params64.shape[0])
         spans = []
         maxnpg = 1
-        cap = page_slots()
-        for k in range(T):
+        for k in range(int(params64.shape[0])):
             p = params64[k]
             if p[10] < 0 or k >= len(gs):
                 spans.append(None)      # batch-padding row
@@ -421,7 +394,34 @@ class WarpExecutor:
                 return None
             maxnpg = max(maxnpg, npg)
             spans.append((i0, i1, j0, j1))
+        return spans, maxnpg
+
+    def _paged_from_group(self, group: SceneGroup, n_pad: int):
+        """Page tables + 16-wide kernel params for one scene group, or
+        None when the paged leg cannot serve it: a window over
+        `page_slots()` pages, a page list the reference's VMEM gate
+        refuses for ``n_pad`` (the pow2-padded namespace count), or the
+        pool full of pinned pages.
+
+        Returns (tables (T, S) int32, params16 (T, 16) f32, real_pages).
+        Page coverage per granule comes from the same `_granule_bounds`
+        margins the bucketed window uses; table slots come back PINNED
+        and the caller must `pool.unpin(tables)` once its dispatch is
+        enqueued."""
+        pool = self.pool
+        pr, pc = pool.page_rows, pool.page_cols
+        made = self.page_spans(group, page_slots())
+        if made is None:
+            return None
+        spans, maxnpg = made
         S = _bucket_pow2(maxnpg)
+        if not paged_vmem_ok(S, n_pad, pr, pc):
+            with self._lock:
+                self.paged_gated += 1
+            return None
+        params64 = group.params
+        gs = group.scenes
+        T = int(params64.shape[0])
         tables = np.zeros((T, S), np.int32)
         params16 = np.zeros((T, PARAMS_W), np.float32)
         params16[:, :11] = params64[:, :11].astype(np.float32)
@@ -467,9 +467,10 @@ class WarpExecutor:
             return None
         group = groups[0]
         sp = np.array([offset, scale, clip], np.float32)
-        statics = (method, _bucket_pow2(n_ns), (height, width), group.step,
-                   auto, colour_scale)
-        made = self._paged_from_group(group)
+        n_pad = _bucket_pow2(n_ns)
+        statics = (method, n_pad, (height, width), group.step, auto,
+                   colour_scale)
+        made = self._paged_from_group(group, n_pad)
         t = self.add_span("tables", t)
         if made is not None:
             tables, params16, _ = made
@@ -489,9 +490,13 @@ class WarpExecutor:
             return out[0]
         with self._lock:
             self.paged_declined += 1
-        params = torch.from_numpy(group.params.astype(np.float32)) \
+        # B2 reads the cached scenes where they are; the group's padding
+        # rows (ns -1, after the real granules) never win the mosaic, so
+        # they are dropped here
+        n = len(group.scenes)
+        params = torch.from_numpy(group.params[:n].astype(np.float32)) \
             .to(self.device)
-        out = render_scenes(self._stack(group), group.ctrl_dev, params,
-                            torch.from_numpy(sp), *statics)
+        out = render_scenes([s.dev for s in group.scenes], group.ctrl_dev,
+                            params, torch.from_numpy(sp), *statics)
         self.add_span("dispatch", t)
         return out

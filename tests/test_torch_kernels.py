@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from gsky_tpu.ops import mosaic as jmosaic
@@ -343,6 +344,52 @@ class TestBucketedB2:
             assert diff <= bj.size // 1000
 
 
+    @pytest.mark.parametrize("method", METHODS)
+    @pytest.mark.parametrize("n_ns", [1, 2])
+    def test_scene_sequence_zoomed_out_rotated(self, method, n_ns):
+        # B2 as the decline leg calls it: three scenes handed over one by
+        # one, the padding row dropped; against the stacked form with the
+        # padding row and against the Pallas kernel, on a grid 3x zoomed
+        # out and rotated 30 degrees
+        rng = np.random.default_rng(21)
+        B, S, h, w, step = 4, 256, 64, 64, 16
+        stack = rng.uniform(1.0, 4000.0, (B, S, S)).astype(np.float32)
+        stack[0, 40:70, 60:120] = np.nan
+        stack[1, 100:180, :] = -999.0
+        gh = gw = (h - 1 + step - 1) // step + 1
+        cc, rr = np.meshgrid(np.arange(gw) * step + 0.5,
+                             np.arange(gh) * step + 0.5)
+        a = np.radians(30.0)
+        ctrl = np.stack([110.0 + 3.0 * (np.cos(a) * cc - np.sin(a) * rr),
+                         3.0 * (np.sin(a) * cc + np.cos(a) * rr)]) \
+            .astype(np.float32)
+        params = np.zeros((B, 11), np.float32)
+        for k in range(B):
+            params[k] = [0.4 * k - 0.2, 1.01, 0.02, 0.3 * k, -0.01, 0.99,
+                         S, S, -999.0, 100.0 - k, k % n_ns]
+        params[B - 1, 10] = -1.0                  # the padding row
+        cj, bj = jpt.warp_scenes_scored_pallas(
+            jnp.asarray(stack), jnp.asarray(ctrl), jnp.asarray(params),
+            method, n_ns, (h, w), step, interpret=True)
+        scenes = torch.from_numpy(stack)
+        ct, bt = trender.warp_scenes_scored(
+            scenes, torch.from_numpy(ctrl), torch.from_numpy(params),
+            method, n_ns, (h, w), step)
+        cs, bs = trender.warp_scenes_scored(
+            [scenes[k] for k in range(B - 1)], torch.from_numpy(ctrl),
+            torch.from_numpy(params[:B - 1]), method, n_ns, (h, w), step)
+        assert torch.equal(cs, ct) and torch.equal(bs, bt)
+        _check(method, np.asarray(cj), np.asarray(bj), cs.numpy(),
+               bs.numpy())
+        assert (bs > float("-inf")).any() and (bs == float("-inf")).any()
+
+    def test_pointer_tables_are_keyed_by_their_content(self):
+        t = trender._pointer_table("cpu", [16, 32, 48])
+        assert t.dtype == torch.int64 and t.tolist() == [16, 32, 48]
+        assert trender._pointer_table("cpu", [16, 32, 48]) is t
+        assert trender._pointer_table("cpu", [16, 32]) is not t
+
+
 class TestPlainOps:
     @pytest.mark.parametrize("hw,step", [((64, 64), 16), ((256, 256), 16),
                                          ((100, 70), 8)])
@@ -352,7 +399,10 @@ class TestPlainOps:
         gh = (h - 1 + step - 1) // step + 1
         gw = (w - 1 + step - 1) // step + 1
         ctrl = rng.uniform(-3e4, 3e4, (gh, gw)).astype(np.float32)
-        gj = np.asarray(jwarp._bilerp_grid(jnp.asarray(ctrl), h, w, step))
+        # the reference's programs run the upsample under jit, where
+        # XLA fuses its multiply-adds; eager JAX rounds every op apart
+        jgrid = jax.jit(jwarp._bilerp_grid, static_argnums=(1, 2, 3))
+        gj = np.asarray(jgrid(jnp.asarray(ctrl), h, w, step))
         gt = twarp._bilerp_grid(torch.from_numpy(ctrl), h, w, step).numpy()
         np.testing.assert_array_equal(gj, gt)
 
@@ -425,6 +475,47 @@ def test_cuda_tensor_on_cpu_only_build_raises_not_falls_back():
     with pytest.raises(ValueError):
         trender.warp_render_scored(t, t[0], t[0], torch.zeros((1, 16)),
                                    "near", 1)
+
+
+def test_kernel_launches_on_its_operands_device(monkeypatch):
+    """A launch enters its operands' device and takes that device's
+    current stream, whichever device is current."""
+    from gsky_tpu_torch.ops import cuda_lib
+    seen = []
+
+    class Device:
+        def __init__(self, device):
+            seen.append(("device", device))
+
+        def __enter__(self):
+            seen.append("enter")
+
+        def __exit__(self, *exc):
+            seen.append("exit")
+
+    class Stream:
+        cuda_stream = 1234
+
+    def current_stream(device=None):
+        seen.append(("stream", device))
+        return Stream()
+
+    class Library:
+        def load(self):
+            return self
+
+        def launch_x(self, *args):
+            seen.append(("launch", args))
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    kernel = cuda_lib.Kernel(Library(), "launch_x")
+    dev = torch.device("cuda", 1)
+    kernel(dev, 7, 8)
+    assert seen == [("device", dev), "enter", ("stream", dev),
+                    ("launch", (7, 8, 1234)), "exit"]
+    assert kernel.launches == 1
 
 
 def test_build_all_compiles_each_content_once(tmp_path, monkeypatch):

@@ -99,6 +99,24 @@ def _bbox3857(dx=0.0, dy=0.0, size=9000.0):
     return (x0, y0, x0 + size, y0 + size)
 
 
+def _zoomed_bbox3857(zoom, cx=612000.0, cy=6092500.0, px=256):
+    """A ``px``-pixel EPSG:3857 tile centred on the UTM point (cx, cy) at
+    ``zoom`` times the archive's 30 m ground resolution; by default over
+    the scenes' east edge, so that it holds nodata."""
+    utm = jparse_crs("EPSG:32755")
+    merc = jparse_crs("EPSG:3857")
+    c = jtransform_bbox(JBBox(cx, cy, cx + 1.0, cy + 1.0), utm, merc)
+    lat = np.degrees(np.arctan(np.sinh(c.ymin / 6378137.0)))
+    half = px * 30.0 * zoom / np.cos(np.radians(lat)) / 2
+    return (c.xmin - half, c.ymin - half, c.xmin + half, c.ymin + half)
+
+
+def _utm_bbox3857(x0, y0, x1, y1):
+    b = jtransform_bbox(JBBox(x0, y0, x1, y1), jparse_crs("EPSG:32755"),
+                        jparse_crs("EPSG:3857"))
+    return (b.xmin, b.ymin, b.xmax, b.ymax)
+
+
 def _render_both(archive, method, box, hw=(96, 80), env=None):
     env = env or {}
     saved = {k: os.environ.get(k) for k in
@@ -107,12 +125,13 @@ def _render_both(archive, method, box, hw=(96, 80), env=None):
     os.environ.update({"GSKY_PALLAS": "interpret", "GSKY_WAVES": "0",
                        "GSKY_RENDER_BATCH": "0", **env})
     jpages.reset_default_pool()
+    jex = JWarpExecutor()
     try:
         jreq = JRequest(collection=archive["root"], bands=[NS],
                         bbox=JBBox(*box), crs=jparse_crs("EPSG:3857"),
                         width=hw[1], height=hw[0], resample=method)
         jtile = np.asarray(JTilePipeline(
-            JMASClient(archive["jstore"]), executor=JWarpExecutor())
+            JMASClient(archive["jstore"]), executor=jex)
             .render_composite_byte(jreq))
         treq = GeoTileRequest(collection=archive["root"], bands=[NS],
                               bbox=BBox(*box), crs=parse_crs("EPSG:3857"),
@@ -126,7 +145,7 @@ def _render_both(archive, method, box, hw=(96, 80), env=None):
             else:
                 os.environ[k] = v
         jpages.reset_default_pool()
-    return jtile, ttile.numpy(), pipe
+    return jtile, ttile.numpy(), pipe, jex
 
 
 def _assert_match(method, jtile, ttile):
@@ -142,31 +161,41 @@ def _assert_match(method, jtile, ttile):
 class TestSlice:
     @pytest.mark.parametrize("method", ["near", "bilinear", "cubic"])
     def test_paged_leg_matches_jax_pipeline(self, archive, method):
-        jtile, ttile, pipe = _render_both(archive, method, _bbox3857())
+        jtile, ttile, pipe, _ = _render_both(archive, method, _bbox3857())
         _assert_match(method, jtile, ttile)
         assert pipe.executor.paged_engaged == 1
         assert pipe.executor.paged_declined == 0
 
-    @pytest.mark.parametrize("method", ["near", "bilinear", "cubic"])
-    def test_bucketed_leg_matches_jax_pipeline(self, archive, method):
-        # one page slot per granule: both packages decline the paged leg
+    @pytest.mark.parametrize("method,zoom", [
+        pytest.param(m, z, id=m if z == 1 else f"{m}-zoom{z}")
+        for z in (1, 2, 4) for m in ("near", "bilinear", "cubic")])
+    def test_bucketed_leg_matches_jax_pipeline(self, archive, method, zoom):
+        # zoom 1: one page slot per granule.  Zoom 2 and 4: a 256-px tile
+        # at 2x and 4x the native ground resolution needs windows of more
+        # than the default 8 pages.  Both packages decline the paged leg
         # and render through the bucketed kernel
-        jtile, ttile, pipe = _render_both(archive, method, _bbox3857(),
-                                          env={"GSKY_PAGE_SLOTS": "1"})
+        if zoom == 1:
+            jtile, ttile, pipe, jex = _render_both(
+                archive, method, _bbox3857(), env={"GSKY_PAGE_SLOTS": "1"})
+        else:
+            jtile, ttile, pipe, jex = _render_both(
+                archive, method, _zoomed_bbox3857(zoom), hw=(256, 256))
         _assert_match(method, jtile, ttile)
         assert pipe.executor.paged_declined == 1
+        assert (jex.paged_engaged, jex.paged_declined) == (0, 1)
+        assert pipe.executor.paged_gated == 0
 
     @pytest.mark.parametrize("slots", [None, "1"])
     def test_stage_spans_cover_both_legs(self, archive, slots):
         env = {"GSKY_PAGE_SLOTS": slots} if slots else {}
-        _, _, pipe = _render_both(archive, "near", _bbox3857(), env=env)
+        _, _, pipe, _ = _render_both(archive, "near", _bbox3857(), env=env)
         spans = pipe.executor.spans
         assert set(spans) == {"index", "groups", "tables", "dispatch"}
         assert all(v > 0 for v in spans.values()), spans
 
     def test_fixed_scale_and_second_tile(self, archive):
         box = _bbox3857(dx=4000.0, dy=-3000.0)
-        jtile, ttile, _ = _render_both(archive, "near", box)
+        jtile, ttile, _, _ = _render_both(archive, "near", box)
         _assert_match("near", jtile, ttile)
 
     def test_index_and_granules_match(self, archive):
@@ -183,6 +212,58 @@ class TestSlice:
             [(g.path, g.namespace, g.timestamp, g.nodata,
               tuple(g.geo_transform)) for g in tg]
         assert len(tg) == 3
+
+
+@pytest.fixture(scope="module")
+def big_archive(tmp_path_factory):
+    """Two 1300-px granules: bucket 1536, a grid of 12 x 3 pages of
+    128 x 512, so that one window can need more than 16 pages."""
+    root = str(tmp_path_factory.mktemp("torch_big_archive"))
+    paths = _archive(root, scenes=2, size=1300)
+    jstore, tstore = _stores(paths)
+    return {"root": root, "paths": paths, "jstore": jstore,
+            "tstore": tstore}
+
+
+# (UTM box, pages the larger granule's window needs): scene 0 rows
+# 300-500 x columns 100-400; rows 100-1200 x columns 100-1200
+GATE_WINDOWS = {
+    "3pages": ((593000.0, 6090000.0, 602000.0, 6096000.0), 3),
+    "30pages": ((593000.0, 6069000.0, 626000.0, 6102000.0), 30),
+}
+
+
+class TestPagedGate:
+    """The reference declines the paged leg when its page list fails the
+    VMEM gate (S * 128 * 512 * 4 * 2 bytes of pages, double-buffered,
+    plus accumulators, over 10 MiB: S = 32 always).  The port routes
+    every tile to the same leg as the reference."""
+
+    @pytest.mark.parametrize("window", sorted(GATE_WINDOWS))
+    @pytest.mark.parametrize("slots", ["1", "8", "16", "32"])
+    def test_port_takes_the_reference_leg(self, big_archive, slots,
+                                          window):
+        box, pages = GATE_WINDOWS[window]
+        jtile, ttile, pipe, jex = _render_both(
+            big_archive, "near", _utm_bbox3857(*box), hw=(32, 32),
+            env={"GSKY_PAGE_SLOTS": slots})
+        ex = pipe.executor
+        assert (ex.paged_engaged, ex.paged_declined) == \
+            (jex.paged_engaged, jex.paged_declined)
+        np.testing.assert_array_equal(jtile, ttile)
+        capped = pages > int(slots)
+        gated = not capped and pages > 16
+        assert ex.paged_declined == int(capped or gated)
+        assert ex.paged_gated == int(gated)
+
+    def test_gate_constants(self):
+        from gsky_tpu.ops import paged as jpaged
+        from gsky_tpu_torch.ops import paged as tpaged
+        for slots in (1, 2, 4, 8, 16, 32, 64):
+            for n_ns in (1, 2, 4, 8):
+                for pr, pc in ((128, 512), (64, 128), (256, 1024)):
+                    assert tpaged.paged_vmem_ok(slots, n_ns, pr, pc) == \
+                        jpaged.paged_vmem_ok(slots, n_ns, pr, pc)
 
 
 class TestGeoTIFF:
