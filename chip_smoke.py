@@ -70,7 +70,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    T = 8); the masked tiles differ from no-op-mask ones, and the no-op
    nearest tiles agree with the fused `render_composite_byte`;
 11. card vs CPU: two tiles per request of phase 10 through
-   ``device="cpu"``.
+   ``device="cpu"``;
+12. the OWS front end over HTTP: the port's `OWSServer(device="cuda")`
+   behind the standard library's threaded HTTP server on an ephemeral
+   127.0.0.1 port, over a config.json, answering WMS GetMap requests
+   (256 x 256 EPSG:3857 image/png) sent with urllib.  12a, over phase
+   3's archive: 32 native tiles bilinear, 4 near and 4 cubic (one B1
+   launch each), 8 tiles at 4x the native ground resolution (one B2
+   each), a palette layer, a tile past the layer's zoom limit (the
+   placeholder, no launch), and 8 tiles of a layer over two of phase
+   3's granules and two new UTM-56S ones of the same size, which
+   `_render_fused` warps as two source-CRS groups (two B2 launches a
+   tile); the 32 native tiles again from 4 client threads (the same
+   bodies).  12b, over phase 10's archive: the masked LC08_B4 and NDVI
+   layers, 8 tiles each through B4.  Every kernel count is set to 0
+   before each route and must equal its route's launches after it;
+   two tiles per route from a second `OWSServer(device="cpu")` decode
+   to the same RGBA (nearest) or within 0.1% of bytes; tiles/s, p50,
+   p90 and the share of a request's wall time outside the pipeline
+   (parse, encode, socket) are logged per route.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -1394,16 +1412,16 @@ def mosaic_store(root):
     return store
 
 
-def phase_mosaic(root, card):
-    """Phases 10 and 11.  Returns (B4 launches of the main path, the
-    main path's B4 arguments: the first call's and every
-    `B4_TIMED_EVERY`-th after it)."""
+def phase_mosaic(root, store, card):
+    """Phases 10 and 11 over phase 10's archive under ``root``, crawled
+    into ``store``.  Returns (B4 launches of the main path, the main
+    path's B4 arguments: the first call's and every `B4_TIMED_EVERY`-th
+    after it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from gsky_tpu_torch.ops import first_valid, paged, stats, warp_render
     from gsky_tpu_torch.ops.scale import scale_to_byte
     from gsky_tpu_torch.pipeline.types import MaskSpec
-    store = mosaic_store(root)
     boxes = mosaic_boxes()
     mask = MaskSpec(id="pixel_qa", bit_tests=list(CLOUD_SHADOW))
     noop = MaskSpec(id="pixel_qa", value="0")
@@ -1614,6 +1632,315 @@ def time_b4(main_args, card):
     return rows[0]
 
 
+# -- phase 12: the OWS front end over HTTP ---------------------------------
+
+# 12a: the two-CRS layer's UTM-56S granules start at these UTM-55S
+# points (carried across the zone line) and its tiles at this one
+CRS_ORIGINS = ((620000.0, 6160000.0), (623000.0, 6157000.0))
+CRS_TILES_AT = (640000.0, 6140000.0)
+HTTP_CPU_TILES = 2           # tiles per route held against the CPU server
+
+
+def write_crs_archive(root, data_paths, shape=(SCENE_H, SCENE_W)):
+    """The two-CRS layer's collection under ``root``: two of phase 3's
+    granules (hard links) and two new UTM-56S granules of the same size
+    over them.  Returns the four paths."""
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import GeoTransform
+    from gsky_tpu_torch.io.geotiff import write_geotiff
+    h, w = shape
+    u55, u56 = parse_crs("EPSG:32755"), parse_crs("EPSG:32756")
+    rng = np.random.default_rng(56)
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    paths = []
+    for p in data_paths[:2]:
+        paths.append(os.path.join(root, os.path.basename(p)))
+        os.link(p, paths[-1])
+    for i, (x, y) in enumerate(CRS_ORIGINS):
+        ox, oy = u55.transform_to(u56, np.array([x]), np.array([y]))
+        gt = GeoTransform(float(ox[0]), 30.0, 0.0, float(oy[0]), 0.0, -30.0)
+        field = 2000.0 + 1200.0 * np.cos(xx / (70.0 + 13 * i)) \
+            * np.sin(yy / (110.0 - 7 * i))
+        data = (field + rng.normal(0, 100, (h, w))
+                .astype(np.float32)).astype(np.int16)
+        data[(xx + yy) < 1500] = -999
+        paths.append(os.path.join(root, f"LC08_202001{14 + i:02d}_T1.tif"))
+        write_geotiff(paths[-1], data, gt, u56, nodata=-999, compress=False)
+    return paths
+
+
+def iso(t):
+    from gsky_tpu_torch.index.store import fmt_time
+    return fmt_time(t)
+
+
+def getmap_url(base, layer, box, style="", time_range=None):
+    q = (f"service=WMS&request=GetMap&version=1.3.0&layers={layer}"
+         f"&styles={style}&crs=EPSG:3857"
+         f"&bbox={','.join(repr(float(v)) for v in box)}"
+         f"&width=256&height=256&format=image/png")
+    if time_range:
+        q += f"&time={iso(time_range[0])},{iso(time_range[1])}"
+    return f"{base}/ows?{q}"
+
+
+def http_get(url):
+    """(status, content type, body, seconds) of one GET over a socket."""
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=120) as r:
+        body = r.read()
+        return r.status, r.headers["Content-Type"], body, \
+            time.perf_counter() - t0
+
+
+class OwsPair:
+    """The port's OWSServer on the card and on the CPU over one config
+    directory and MAS store; the card's behind a standard-library HTTP
+    server on an ephemeral 127.0.0.1 port."""
+
+    def __init__(self, conf_dir, layers, store):
+        from gsky_tpu_torch.index.client import MASClient
+        from gsky_tpu_torch.server.config import ConfigWatcher
+        from gsky_tpu_torch.server.ows import OWSServer
+        os.makedirs(conf_dir, exist_ok=True)
+        with open(os.path.join(conf_dir, "config.json"), "w") as fp:
+            json.dump({"service_config": {"mas_address": "in-process"},
+                       "layers": layers}, fp)
+        client = MASClient(store)
+        watcher = ConfigWatcher(conf_dir, lambda a: client,
+                                install_signal=False)
+        self.card = OWSServer(watcher, lambda a: client, device="cuda")
+        self.cpu = OWSServer(watcher, lambda a: client, device="cpu")
+        self.httpd = self.card.serve("127.0.0.1", 0)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+    def cpu_body(self, url):
+        from urllib.parse import parse_qs, urlsplit
+        u = urlsplit(url)
+        r = self.cpu.handle(u.path, parse_qs(u.query), "")
+        if r.status != 200:
+            raise AssertionError(f"CPU server: {r.status} {r.body[:300]}")
+        return r.body
+
+
+def run_route(pair, name, urls, want, card, expect_data=True):
+    """GET ``urls`` serially with every kernel count set to 0 just
+    before; the counts after must equal ``want`` ({"B1": n, ...}).
+    Returns the bodies and logs tiles/s, p50, p90 and the share of a
+    request's wall time outside the pipeline."""
+    from gsky_tpu_torch.io.png import decode_png
+    from gsky_tpu_torch.ops import first_valid, paged, stats, warp_render
+    kernels = {"B1": paged.paged_render_kernel,
+               "B2": warp_render.warp_render_kernel,
+               "B3": stats.masked_stats_kernel,
+               "B4": first_valid.first_valid_kernel}
+    srv = pair.card
+    before = dict(srv.spans)
+    for k in kernels.values():
+        k.launches = 0
+    bodies, lat = [], []
+    t0 = time.perf_counter()
+    for url in urls:
+        status, ctype, body, secs = http_get(url)
+        if (status, ctype) != (200, "image/png"):
+            raise AssertionError(f"{name}: {status} {ctype} {body[:300]}")
+        bodies.append(body)
+        lat.append(secs)
+    wall = time.perf_counter() - t0
+    got = {k: v.launches for k, v in kernels.items()}
+    full = {k: want.get(k, 0) for k in kernels}
+    if got != full:
+        raise AssertionError(f"{name}: launches {got}, want {full}")
+    for body in bodies:
+        img = decode_png(body)
+        if img.shape != (256, 256, 4):
+            raise AssertionError(f"{name}: decoded {img.shape}")
+        if expect_data != bool(img[..., 3].any()):
+            raise AssertionError(f"{name}: tile has data: "
+                                 f"{bool(img[..., 3].any())}")
+    sp = {k: srv.spans[k] - before[k] for k in srv.spans}
+    client = sum(lat)
+    log(f"phase 12 {name}: {len(urls)} tiles over HTTP, "
+        f"{len(urls) / wall:.2f} tiles/s, p50 {np.median(lat) * 1e3:.3f} "
+        f"ms, p90 {np.percentile(lat, 90) * 1e3:.3f} ms; launches {got}; "
+        f"outside the pipeline {100 * (1 - sp['render'] / client):.2f}% "
+        f"of a request's wall time (parse "
+        f"{sp['parse'] / len(urls) * 1e3:.4f} ms, encode "
+        f"{sp['encode'] / len(urls) * 1e3:.4f} ms, socket and HTTP "
+        f"{(client - sp['handle']) / len(urls) * 1e3:.4f} ms; render "
+        f"{sp['render'] / len(urls) * 1e3:.4f} ms) ({card})")
+    return bodies
+
+
+def same_decoded(method, card_body, cpu_body, what):
+    """Card vs CPU bodies: decoded RGBA identical for nearest, at most
+    0.1% of bytes differing otherwise.  Returns the bytes that differ."""
+    from gsky_tpu_torch.io.png import decode_png
+    a, b = decode_png(card_body), decode_png(cpu_body)
+    d = int(np.count_nonzero(a != b))
+    if (method == "near" and d) or d > a.size // 1000:
+        raise AssertionError(f"{what}: {d} decoded bytes differ")
+    return d
+
+
+def phase_ows_fused(data_root, data_paths, card):
+    """Phase 12a over phase 3's archive: the port's OWS server on the
+    card over HTTP.  Plain layer: 32 native tiles bilinear (sent
+    serially, then from 4 client threads: the same bodies), 4 near, 4
+    cubic, one B1 launch each; 8 tiles at 4x the native ground
+    resolution, one B2 each; a palette layer; a tile past the zoom
+    limit (the placeholder, no launch); a layer over two of phase 3's
+    granules and two UTM-56S ones, 8 tiles through `_render_fused`, two
+    B2 launches each.  Then two tiles per route from the CPU server."""
+    import concurrent.futures as cf
+    crs_root = data_root + "_crs"
+    shutil.rmtree(crs_root, ignore_errors=True)
+    os.makedirs(crs_root)
+    try:
+        t0 = time.perf_counter()
+        crs_paths = write_crs_archive(crs_root, data_paths)
+        store = crawl([(p, NS) for p in data_paths]
+                      + [(p, "B4X") for p in crs_paths])
+        log(f"phase 12a: two UTM-56S granules written, both collections "
+            f"crawled in {time.perf_counter() - t0:.1f} s")
+        styles = [{"name": m, "title": m, "rgb_products": [NS],
+                   "resample": m} for m in METHODS]
+        layers = [
+            {"name": "landsat", "data_source": data_root,
+             "rgb_products": [NS], "styles": styles},
+            {"name": "landsat_palette", "data_source": data_root,
+             "rgb_products": [NS], "clip_value": 6000,
+             "palette": {"interpolate": True, "colours": [
+                 {"R": 0, "G": 0, "B": 128, "A": 255},
+                 {"R": 40, "G": 200, "B": 40, "A": 255},
+                 {"R": 255, "G": 255, "B": 0, "A": 255}]}},
+            {"name": "landsat_limited", "data_source": data_root,
+             "rgb_products": [NS], "zoom_limit": 100.0},
+            {"name": "two_crs", "data_source": crs_root,
+             "rgb_products": ["B4X"], "resample": "bilinear"},
+        ]
+        pair = OwsPair(os.path.join(crs_root, "conf"), layers, store)
+        try:
+            return ows_fused_routes(pair, card, cf)
+        finally:
+            pair.close()
+    finally:
+        shutil.rmtree(crs_root, ignore_errors=True)
+
+
+def ows_fused_routes(pair, card, cf):
+    # TIME ranges (the end exclusive) over every granule of a layer
+    t_days = (1578614400.0, 1578960000.0)        # 2020-01-10 .. 01-14
+    t_crs = (1578614400.0, 1579132800.0)         # 2020-01-10 .. 01-16
+    native = tile_boxes()
+    zoomed = zoom_boxes(4.0)
+    crs_boxes = tile_boxes(*CRS_TILES_AT, nx=4, ny=2)
+    # route: (urls, launches it must make, resampling method)
+    routes = {
+        "native bilinear": ([getmap_url(pair.base, "landsat", b,
+                                        "bilinear", t_days)
+                             for b in native], {"B1": len(native)},
+                            "bilinear"),
+        "native near": ([getmap_url(pair.base, "landsat", b, "near",
+                                    t_days) for b in native[:4]],
+                        {"B1": 4}, "near"),
+        "native cubic": ([getmap_url(pair.base, "landsat", b, "cubic",
+                                     t_days) for b in native[4:8]],
+                         {"B1": 4}, "cubic"),
+        "4x zoomed-out": ([getmap_url(pair.base, "landsat", b, "bilinear",
+                                      t_days) for b in zoomed],
+                          {"B2": len(zoomed)}, "bilinear"),
+        "palette": ([getmap_url(pair.base, "landsat_palette", b, "",
+                                t_days) for b in native[:2]],
+                    {"B1": 2}, "near"),
+        "placeholder": ([getmap_url(pair.base, "landsat_limited",
+                                    zoomed[0], "", t_days)], {}, "near"),
+        "two-CRS": ([getmap_url(pair.base, "two_crs", b, "", t_crs)
+                     for b in crs_boxes], {"B2": 2 * len(crs_boxes)},
+                    "bilinear"),
+    }
+    # warm-up (scene uploads, handles): one tile of each layer, uncounted
+    for urls, _, _ in routes.values():
+        http_get(urls[0])
+    bodies = {name: run_route(pair, name, urls, want, card,
+                              expect_data=name != "placeholder")
+              for name, (urls, want, _) in routes.items()}
+
+    # the 32 native tiles again, from 4 client threads at once
+    urls = routes["native bilinear"][0]
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(4) as pool:
+        conc = list(pool.map(http_get, urls))
+    wall = time.perf_counter() - t0
+    if [c[2] for c in conc] != bodies["native bilinear"]:
+        raise AssertionError("phase 12a: concurrent bodies differ from "
+                             "the serial ones")
+    lat = [c[3] for c in conc]
+    log(f"phase 12a: the 32 native tiles from 4 client threads: "
+        f"{len(urls) / wall:.2f} tiles/s, p50 {np.median(lat) * 1e3:.3f} "
+        f"ms, p90 {np.percentile(lat, 90) * 1e3:.3f} ms; bodies equal the "
+        f"serial ones ({card})")
+
+    t0 = time.perf_counter()
+    worst = {}
+    for name, (urls, _, method) in routes.items():
+        worst[name] = max(
+            same_decoded(method, body, pair.cpu_body(url), name)
+            for url, body in zip(urls[:HTTP_CPU_TILES],
+                                 bodies[name][:HTTP_CPU_TILES]))
+    log(f"phase 12a: CPU server bodies match the card's (decoded bytes "
+        f"differing, worst tile per route: {worst}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return {name: len(urls) for name, (urls, _, _) in routes.items()}
+
+
+def phase_ows_masked(root, store, card):
+    """Phase 12b over phase 10's archive: the masked layer (pixel_qa
+    bit tests) LC08_B4 bilinear and the NDVI expression, 8 tiles each
+    over HTTP through `process` and B4 (one launch per namespace a
+    tile); two tiles each from the CPU server."""
+    mask = {"id": "pixel_qa", "bit_tests": CLOUD_SHADOW}
+    layers = [
+        {"name": "masked_b4", "data_source": root,
+         "rgb_products": ["LC08_B4"], "resample": "bilinear",
+         "mask": mask, "clip_value": 2000},
+        {"name": "masked_ndvi", "data_source": root, "rgb_products": [NDVI],
+         "resample": "bilinear", "mask": mask},
+    ]
+    dates = mosaic_dates()
+    t_range = (dates[0][1] - 86400.0, dates[-1][1] + 86400.0)
+    boxes = mosaic_boxes()[:8]
+    pair = OwsPair(os.path.join(root, "conf"), layers, store)
+    try:
+        routes = {
+            "masked LC08_B4": ([getmap_url(pair.base, "masked_b4", b, "",
+                                           t_range) for b in boxes],
+                               {"B4": len(boxes)}),
+            "masked NDVI": ([getmap_url(pair.base, "masked_ndvi", b, "",
+                                        t_range) for b in boxes],
+                            {"B4": 2 * len(boxes)}),
+        }
+        for urls, _ in routes.values():
+            http_get(urls[0])
+        worst = {}
+        for name, (urls, want) in routes.items():
+            bodies = run_route(pair, name, urls, want, card)
+            worst[name] = max(
+                same_decoded("bilinear", body, pair.cpu_body(url), name)
+                for url, body in zip(urls[:HTTP_CPU_TILES],
+                                     bodies[:HTTP_CPU_TILES]))
+        log(f"phase 12b: CPU server bodies match the card's (decoded "
+            f"bytes differing, worst tile per route: {worst})")
+    finally:
+        pair.close()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1658,7 +1985,8 @@ def main() -> int:
     os.makedirs(data_root)
     try:
         t0 = time.perf_counter()
-        store = crawl((p, NS) for p in write_archive(data_root))
+        data_paths = write_archive(data_root)
+        store = crawl((p, NS) for p in data_paths)
         log(f"phase 3: archive written + crawled in "
             f"{time.perf_counter() - t0:.1f} s")
         boxes = tile_boxes()
@@ -1832,6 +2160,12 @@ def main() -> int:
                 f"[T={tables.shape[0]} S={tables.shape[1]}] ({card})")
         b2_rows = time_b2(pipe, data_root, boxes[0], flush, card)
         del flush
+
+        # -- phase 12a: the OWS front end over HTTP ----------------------
+        t0 = time.perf_counter()
+        http_a = phase_ows_fused(data_root, data_paths, card)
+        log(f"phase 12a: {sum(http_a.values())} GetMap requests over HTTP "
+            f"passed ({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -1854,9 +2188,16 @@ def main() -> int:
     shutil.rmtree(mosaic_root, ignore_errors=True)
     os.makedirs(mosaic_root)
     try:
-        b4_launches, b4_args = phase_mosaic(mosaic_root, card)
+        mosaic = mosaic_store(mosaic_root)
+        b4_launches, b4_args = phase_mosaic(mosaic_root, mosaic, card)
         b4_row = time_b4(b4_args, card)
         del b4_args
+
+        # -- phase 12b: masked layers over HTTP --------------------------
+        t0 = time.perf_counter()
+        phase_ows_masked(mosaic_root, mosaic, card)
+        log(f"phase 12b: masked GetMap requests over HTTP passed "
+            f"({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(mosaic_root, ignore_errors=True)
 

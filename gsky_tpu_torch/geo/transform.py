@@ -1,7 +1,7 @@
 """Affine geotransforms, bounding boxes and extent reprojection.
 
 Counterpart of `gsky_tpu/geo/transform.py` (host numpy path): `BBox`,
-`GeoTransform` and `transform_bbox`, with the reference's arithmetic
+`GeoTransform`, `transform_bbox` and `pixel_resolution`, with the reference's arithmetic
 order so both packages compute the same float64 coordinates.
 """
 
@@ -12,7 +12,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from .crs import CRS
+from .crs import CRS, EPSG3857
 
 
 @dataclass(frozen=True)
@@ -140,3 +140,9 @@ def transform_bbox(bbox: BBox, src: CRS, dst: CRS, densify: int = 21) -> BBox:
         raise ValueError("bbox does not transform into destination CRS")
     return BBox(float(np.min(ox[ok])), float(np.min(oy[ok])),
                 float(np.max(ox[ok])), float(np.max(oy[ok])))
+
+
+def pixel_resolution(bbox: BBox, crs: CRS, width: int, height: int) -> float:
+    """EPSG:3857 metres per pixel of a request (the zoom-limit test)."""
+    c = transform_bbox(bbox, crs, EPSG3857)
+    return max(c.width / width, c.height / height)

@@ -2,7 +2,8 @@
 
 Counterpart of `gsky_tpu/index/client.py`, in-process transport only:
 `MASClient(store)` answers ``?intersects&metadata=gdal`` from a
-`MASStore` and parses the records into `Dataset`s.
+`MASStore` and parses the records into `Dataset`s, and ``?timestamps``
+(a layer's dates).
 """
 
 from __future__ import annotations
@@ -88,3 +89,10 @@ class MASClient:
             namespaces=namespaces.split(",") if namespaces else None,
             metadata="gdal", limit=limit)
         return [Dataset.from_json(j) for j in resp.get("gdal") or []]
+
+    def timestamps(self, gpath: str, *, time: str = "", until: str = "",
+                   namespaces: str = "", token: str = "") -> Dict:
+        return self._store.timestamps(
+            gpath, time=time, until=until,
+            namespaces=namespaces.split(",") if namespaces else None,
+            token=token)

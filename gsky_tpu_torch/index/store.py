@@ -1,16 +1,18 @@
 """MAS — the metadata index, sqlite-backed.
 
 Counterpart of `gsky_tpu/index/store.py`, trimmed to what the GetMap
-and drill paths ask of it: ingest of crawler records and the
+and drill paths ask of it: ingest of crawler records, the
 ``?intersects&metadata=gdal`` query (bbox R*Tree prefilter in EPSG:4326,
 then an exact polygon test), with the same JSON record shape, including
 the crawler's per-timestep means and sample counts (the drill's fast
-path) and geolocation records.
+path) and geolocation records, and the ``?timestamps`` query with its
+cache token (a layer's dates).
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import hashlib
 import json
 import math
 import re
@@ -40,6 +42,11 @@ def parse_time(s: str) -> float:
         except ValueError:
             continue
     raise ValueError(f"cannot parse time {s!r}")
+
+
+def timestamps_token(result) -> str:
+    """The ?timestamps cache token: a digest of the answer's list."""
+    return hashlib.md5(json.dumps(list(result)).encode()).hexdigest()
 
 
 def fmt_time(t: float) -> str:
@@ -316,6 +323,36 @@ class MASStore:
                 self._query_cache.popitem(last=False)
         return value
 
+
+    def timestamps(self, gpath: str, time: str = "", until: str = "",
+                   namespaces: Optional[Sequence[str]] = None,
+                   token: str = "") -> Dict:
+        """`mas_timestamps`: the distinct sorted timestamps under
+        ``gpath`` within [time, until] (until defaults to now), with the
+        cache-token protocol: a matching token short-circuits to an
+        empty list (the caller keeps its cache)."""
+        t_a = parse_time(time) if time else None
+        t_b = parse_time(until) if until else dt.datetime.now(
+            dt.timezone.utc).timestamp()
+        sql = ("SELECT timestamps FROM datasets WHERE path LIKE ? "
+               "ESCAPE '\\'")
+        args: List = [_like_prefix(gpath)]
+        if namespaces:
+            sql += " AND namespace IN (%s)" % ",".join("?" * len(namespaces))
+            args += list(namespaces)
+        with self._maybe_lock():
+            rows = self._conn().execute(sql, args).fetchall()
+        stamps = set()
+        for (ts_json,) in rows:
+            for s in json.loads(ts_json or "[]"):
+                t = parse_time(s)
+                if (t_a is None or t >= t_a) and t <= t_b:
+                    stamps.add(t)
+        result = [fmt_time(t) for t in sorted(stamps)]
+        query_token = timestamps_token(result)
+        if token and token == query_token:
+            return {"timestamps": [], "token": token}
+        return {"timestamps": result, "token": query_token}
 
 def sanitize_namespace(ns: str) -> str:
     """`regexp_replace(trim(ns), '[^a-zA-Z0-9_]', '_')` — the namespace

@@ -81,3 +81,9 @@ def scale_to_byte(data, valid, offset=0.0, scale=0.0, clip=0.0,
     v = torch.clamp_min(v, 0.0)
     b = torch.clamp(torch.floor(v * float(scale_e)), 0, 254).to(torch.uint8)
     return torch.where(valid, b, torch.full_like(b, NODATA_BYTE))
+
+
+def scale_params_auto(offset, scale, clip) -> bool:
+    """Auto min-max scaling applies when no offset, scale or clip is
+    configured."""
+    return offset == 0.0 and scale == 0.0 and clip == 0.0

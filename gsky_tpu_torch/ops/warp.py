@@ -16,6 +16,8 @@ paths, as plain PyTorch ops:
   body in CUDA C++;
 - `composite_scale`: first-valid composite across namespaces + byte
   scaling;
+- `combine_scored`: per-pixel priority combine of partial mosaics (one
+  per source-CRS group);
 - `warp_gather_batch`: the modular path's dense-coordinate gather warp
   of decoded windows (`_nearest`, `_bilinear`, `_cubic`), batched over
   a leading granule axis as the reference vmaps it.
@@ -333,3 +335,14 @@ def composite_scale(canv, vals, scale_params, auto: bool,
     return scale_to_byte(data, ok, float(scale_params[0]),
                          float(scale_params[1]), float(scale_params[2]),
                          colour_scale=colour_scale, auto=False)
+
+
+def combine_scored(canvs, bests):
+    """Combine G partial mosaics by per-pixel priority: canvs and bests
+    (G, n_ns, h, w) f32 (best -inf = no data) -> (canvases (n_ns, h, w)
+    with 0.0 where no partial has data, valids bool).  Ties go to the
+    first partial, as `jnp.argmax` gives them."""
+    idx = torch.argmax(bests, dim=0)
+    canv = torch.gather(canvs, 0, idx[None])[0]
+    ok = bests.amax(dim=0) > float("-inf")
+    return torch.where(ok, canv, torch.zeros_like(canv)), ok

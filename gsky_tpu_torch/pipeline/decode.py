@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import math
+import re
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -197,8 +198,9 @@ def decode_all(granules: List[Granule], dst_bbox: BBox, dst_crs: CRS,
     A ``None`` slot means EITHER the granule doesn't intersect the tile
     OR its decode raised; pass ``errors`` to collect the raised
     exceptions for the partial-failure policy (`check_partial`).
-    NotImplementedError is never absorbed, nor is a device that cannot
-    be had: ``device`` is resolved before any read."""
+    NotImplementedError is never absorbed, nor is a failure of the card
+    (`_device_failure`: out of memory, a failed CUDA call), nor a device
+    that cannot be had: ``device`` is resolved before any read."""
     device = resolve_device(device)
     if not granules:
         return []
@@ -209,6 +211,19 @@ def decode_all(granules: List[Granule], dst_bbox: BBox, dst_crs: CRS,
             granules))
 
 
+def _device_failure(e: BaseException) -> bool:
+    """Whether ``e`` is a failure of the card rather than of a granule:
+    device memory exhausted, or a failed CUDA call (torch's error for
+    one, or a message naming a CUDA error)."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    acc = getattr(torch, "AcceleratorError", None)
+    if acc is not None and isinstance(e, acc):
+        return True
+    return isinstance(e, RuntimeError) and \
+        re.search(r"\bCUDA (\w+ )?error", str(e)) is not None
+
+
 def _safe_decode(g, dst_bbox, dst_crs, resample, dst_hw=None, errors=None,
                  device="cuda"):
     try:
@@ -216,7 +231,10 @@ def _safe_decode(g, dst_bbox, dst_crs, resample, dst_hw=None, errors=None,
     except NotImplementedError:
         raise
     except Exception as e:
-        # failures degrade to an empty granule, not a failed request
+        # a granule's own read or format failure degrades to a missing
+        # granule; a failure of the card fails the request
+        if _device_failure(e):
+            raise
         if errors is not None:
             errors.append(e)
         return None

@@ -14,7 +14,16 @@ CRS) on the host in float64, and dispatches:
   cached scene through a per-granule base pointer: no dense copy of the
   group's scenes is made.
 
-`warp_all` serves the modular (mask-band) path: every decoded window is
+`warp_mosaic_scenes` is the same dispatch for the modular route without
+a mask band (`TilePipeline._render_fused`), stopping at the scored
+per-namespace canvases: one group goes through B1 or B2 as above;
+several source-CRS groups go each through B2 and are combined by
+priority (`ops.warp.combine_scored`).  `warp_mosaic` is its decoded-
+window leg, taken when a scene is uncacheable: per source CRS, the
+windows (validity NaN-encoded) go through B2 with the group's own
+control grid, then the same combine.
+
+`warp_all` serves the masked route: every decoded window is
 projected per dst pixel on the host (float64, cached per dst grid and
 source CRS), padded into source-shape buckets and warped by one
 `warp_gather_batch` per bucket; results stay on the device.
@@ -36,9 +45,9 @@ from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import GeoTransform
 from ..ops.paged import PARAMS_W, page_slots, paged_vmem_ok, \
-    render_byte_paged
-from ..ops.warp import warp_gather_batch
-from ..ops.warp_render import render_scenes
+    render_byte_paged, warp_scored_paged
+from ..ops.warp import combine_scored, warp_gather_batch
+from ..ops.warp_render import render_scenes, warp_scenes_scored
 from .decode import DecodedWindow
 from .pages import PagePool
 from .scene_cache import DeviceScene, SceneCache
@@ -448,6 +457,108 @@ class WarpExecutor:
             params16[k, 14] = (j1 - j0 + 1) * pc
             params16[k, 15] = j1 - j0 + 1
         return tables, params16, real_pages
+
+    def _group_scored(self, group: SceneGroup, method: str, n_pad: int,
+                      height: int, width: int):
+        """Kernel B2 over one scene group (padding rows dropped): the
+        scored (canvases, best) (n_pad, H, W)."""
+        n = len(group.scenes)
+        params = torch.from_numpy(group.params[:n].astype(np.float32)) \
+            .to(self.device)
+        return warp_scenes_scored([s.dev for s in group.scenes],
+                                  group.ctrl_dev, params, method, n_pad,
+                                  (height, width), group.step)
+
+    def warp_mosaic_scenes(self, granules, ns_ids: Sequence[int],
+                           prios: Sequence[float], dst_gt: GeoTransform,
+                           dst_crs: CRS, height: int, width: int,
+                           n_ns: int, method: str = "near"):
+        """Fused warp + per-namespace mosaic from the cached scenes:
+        (canvases (n_pad, H, W) f32, valids bool) on the device, or None
+        when a scene is uncacheable.  One group: B1 when the page pool
+        serves it (same gate and declines as `render_byte_scenes`),
+        else B2.  Several groups (granules across source CRSs): B2 per
+        group, then a per-pixel priority combine."""
+        groups = self._scene_groups(granules, ns_ids, prios, dst_gt,
+                                    dst_crs, height, width)
+        if groups is None:
+            return None
+        n_pad = _bucket_pow2(n_ns)
+        if len(groups) > 1:
+            parts = [self._group_scored(g, method, n_pad, height, width)
+                     for g in groups]
+            return combine_scored(torch.stack([c for c, _ in parts]),
+                                  torch.stack([b for _, b in parts]))
+        group = groups[0]
+        made = self._paged_from_group(group, n_pad)
+        if made is None:
+            with self._lock:
+                self.paged_declined += 1
+            canv, best = self._group_scored(group, method, n_pad, height,
+                                            width)
+            return canv, best > float("-inf")
+        tables, params16, _ = made
+        with self._lock:
+            self.paged_engaged += 1
+        dev = self.device
+        try:
+            with self.pool.locked_pool() as pool:
+                canv, best = warp_scored_paged(
+                    pool, torch.from_numpy(tables[None]).to(dev),
+                    torch.from_numpy(params16).to(dev),
+                    group.ctrl_dev[None], method, n_pad, (height, width),
+                    group.step)
+        finally:
+            self.pool.unpin(tables)
+        return canv[0], best[0] > float("-inf")
+
+    def warp_mosaic(self, windows: Sequence[DecodedWindow],
+                    ns_ids: Sequence[int], prios: Sequence[float],
+                    dst_gt: GeoTransform, dst_crs: CRS, height: int,
+                    width: int, n_ns: int, method: str = "near"):
+        """Fused warp + per-namespace mosaic of decoded windows, one B2
+        launch per source CRS with that CRS's control grid: (canvases
+        (n_pad, H, W) f32, valids bool).  B2 takes scenes of one shape,
+        so a group's windows are padded on the device into one NaN
+        stack of the largest window's shape; validity is NaN-encoded
+        (params[8] = NaN: a tap is valid when finite) and each window's
+        true extent rejects the padding."""
+        by_crs: Dict[CRS, List[int]] = {}
+        for i, wdw in enumerate(windows):
+            by_crs.setdefault(wdw.src_crs, []).append(i)
+        n_pad = _bucket_pow2(n_ns)
+        dev = self.device
+        parts = []
+        for crs, idxs in by_crs.items():
+            sx, sy, step = self._ctrl_geo_coords(dst_gt, dst_crs, height,
+                                                 width, crs, 16)
+            gs = [windows[i] for i in idxs]
+            bh = max(g.data.shape[0] for g in gs)
+            bw = max(g.data.shape[1] for g in gs)
+            src = torch.full((len(gs), bh, bw), float("nan"),
+                             dtype=torch.float32, device=dev)
+            params = np.zeros((len(gs), 11), np.float64)
+            ox, oy = gs[0].window_gt.x0, gs[0].window_gt.y0
+            ctrl = np.stack([sx - ox, sy - oy]).astype(np.float32)
+            for k, (i, wdw) in enumerate(zip(idxs, gs)):
+                h0, w0 = wdw.data.shape
+                src[k, :h0, :w0] = torch.where(wdw.valid, wdw.data,
+                                               float("nan"))
+                params[k, :6] = _inv_gt_params(wdw.window_gt, ox, oy)
+                params[k, 6] = h0
+                params[k, 7] = w0
+                params[k, 8] = np.nan
+                params[k, 9] = prios[i]
+                params[k, 10] = ns_ids[i]
+            parts.append(warp_scenes_scored(
+                src, torch.from_numpy(ctrl).to(dev),
+                torch.from_numpy(params.astype(np.float32)).to(dev),
+                method, n_pad, (height, width), step))
+        if len(parts) == 1:
+            canv, best = parts[0]
+            return canv, best > float("-inf")
+        return combine_scored(torch.stack([c for c, _ in parts]),
+                              torch.stack([b for _, b in parts]))
 
     def render_byte_scenes(self, granules, ns_ids: Sequence[int],
                            prios: Sequence[float], dst_gt: GeoTransform,

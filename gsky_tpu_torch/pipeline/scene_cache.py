@@ -1,7 +1,9 @@
 """Device-resident source-scene cache.
 
 Counterpart of `gsky_tpu/pipeline/scene_cache.py` (classic read path):
-each (path, band, level) source raster is decoded once, NaN-encoded as
+each (path, band or variable and timestep, level) source raster — a
+GeoTIFF band at an overview level, or a NetCDF variable's timestep read
+at a power-of-two stride — is decoded once, NaN-encoded as
 f32 (invalid pixels — nodata or non-finite — become NaN, so a tap's
 validity is one isfinite test), padded with NaN to 256-multiples and
 kept on the device; every later tile warps from the cached tensor.
@@ -93,13 +95,23 @@ class SceneCache:
 
     def _pick_level(self, g: Granule, stride: float) -> int:
         """Decimation level for a request stepping ``stride`` source
-        pixels per dst pixel: the coarsest GeoTIFF overview that fits."""
+        pixels per dst pixel: the coarsest GeoTIFF overview that fits,
+        or a power-of-two read stride for NetCDF (quantised, so that a
+        zoom sweep shares cache entries)."""
         if stride < 2.0:
             return 1
         try:
-            h = self._handles.get(g.path)
+            h = self._handles.get(g.path, g.is_netcdf)
         except (OSError, ValueError):
             return 1
+        if g.is_netcdf:
+            v = h.variables.get(g.var_name)
+            H, W = (v.shape[-2], v.shape[-1]) if v is not None else (2, 2)
+            lv = 1
+            while lv * 2 <= stride and H // (lv * 2) >= 2 \
+                    and W // (lv * 2) >= 2:
+                lv *= 2
+            return lv
         best = 1
         for f, _ in h.overviews:
             if f <= stride:
@@ -149,18 +161,34 @@ class SceneCache:
     def _load(self, g: Granule, level: int = 1) -> Optional[DeviceScene]:
         gt = GeoTransform.from_gdal(g.geo_transform)
         try:
-            h = self._handles.get(g.path)
-            W, H = h.width, h.height
-            ovr = None
-            if level > 1 and h.overviews:
-                fx, fy, ovr = h.pick_overview(float(level))
-            if ovr is not None:
-                gt = gt.scaled(fx, fy)
-                W, H = ovr.width, ovr.height
-            if H * W > self._max_scene_px:
-                return None
-            nodata = g.nodata if g.nodata is not None else h.nodata
-            data = h.read(g.band, (0, 0, W, H), ifd=ovr)
+            h = self._handles.get(g.path, g.is_netcdf)
+            if g.is_netcdf:
+                v = h.variables.get(g.var_name)
+                if v is None:
+                    return None
+                H, W = v.shape[-2], v.shape[-1]
+                st = level if level > 1 and H // level >= 2 \
+                    and W // level >= 2 else 1
+                Ho, Wo = H // st, W // st
+                if Ho * Wo > self._max_scene_px:
+                    return None
+                data = h.read_slice(g.var_name, g.time_index,
+                                    (0, 0, Wo * st, Ho * st), step=st)
+                if st > 1:
+                    gt = gt.decimated(st)
+                nodata = g.nodata if g.nodata is not None else v.nodata
+            else:
+                W, H = h.width, h.height
+                ovr = None
+                if level > 1 and h.overviews:
+                    fx, fy, ovr = h.pick_overview(float(level))
+                if ovr is not None:
+                    gt = gt.scaled(fx, fy)
+                    W, H = ovr.width, ovr.height
+                if H * W > self._max_scene_px:
+                    return None
+                nodata = g.nodata if g.nodata is not None else h.nodata
+                data = h.read(g.band, (0, 0, W, H), ifd=ovr)
         except (OSError, ValueError) as e:
             # uncacheable stays a visible degradation, never a crash
             log.warning("scene uncacheable: %s (%s: %s)", g.path,

@@ -6,16 +6,22 @@ routes:
 - `render_composite_byte`, the fused single-band route: one MAS query,
   granule expansion, namespace slots and newest-first mosaic priorities
   (`ns_prio`), then `WarpExecutor.render_byte_scenes` (kernels B1/B2);
-- `process` -> `render`, the modular route a layer with a mask band
-  takes (the reference's `tile_merger.go` path): decode every granule's
-  window, warp them per resampling method (the mask band always
-  nearest), turn the mask band into per-timestamp exclusions, mosaic
-  each namespace newest-first (kernel B4), evaluate the band
-  expressions.  Everything after decode stays on the device.
+- `process` -> `render`, the modular route the OWS front end falls back
+  to.  Without a mask band it is `_render_fused`: the cached scenes
+  warped and mosaicked per namespace in one dispatch per source-CRS
+  group (`WarpExecutor.warp_mosaic_scenes`, B1 or B2), else the decoded
+  windows (`WarpExecutor.warp_mosaic`, B2).  With a mask band (the
+  reference's `tile_merger.go` path) every granule's window is decoded
+  and warped per resampling method (the mask band always nearest), the
+  mask band becomes per-timestamp exclusions and each namespace is
+  mosaicked newest-first (kernel B4).  Band expressions are evaluated
+  last; everything after decode stays on the device.
 
-Not ported here: the geolocation branch of `render`, remote workers,
-and `_render_fused` (a `process` without a mask band), each of which
-raises NotImplementedError naming its ROADMAP item.
+The index queries the MAS once, or, for a coarse request over a layer
+with a known extent and ``index_res_limit``, in index tiles
+(`_index_subdivision`).  Not ported here: the geolocation branch of the
+masked route and remote workers; each raises NotImplementedError naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..geo.crs import EPSG4326
+from ..geo.transform import BBox, transform_bbox
 from ..index.client import MASClient
 from ..index.store import fmt_time
 from ..ops import mosaic as M
@@ -84,15 +92,76 @@ class TilePipeline:
             kw["time"] = fmt_time(req.start_time)
         if req.end_time is not None:
             kw["until"] = fmt_time(req.end_time)
-        datasets = self.mas.intersects(req.collection, **kw)
+        datasets = self._index_query(req, kw, req.collection)
         granules = expand_granules(datasets, req.start_time, req.end_time,
                                    req.axes)
         if req.mask is not None and req.mask.data_source:
             mkw = dict(kw, namespaces=req.mask.id)
-            mds = self.mas.intersects(req.mask.data_source, **mkw)
+            mds = self._index_query(req, mkw, req.mask.data_source)
             granules += expand_granules(mds, req.start_time, req.end_time,
                                         req.axes)
         return granules
+
+    def _index_query(self, req: GeoTileRequest, kw: Dict,
+                     collection: str):
+        """One MAS ?intersects, or one per index tile of
+        `_index_subdivision`, deduplicated by (file, dataset, namespace)
+        in first-seen order.  The reference queries the index tiles
+        from a thread pool over HTTP; the port's MAS is in-process (an
+        in-memory store answers one query at a time), so they run one
+        after another, in the same order."""
+        sub = self._index_subdivision(req)
+        if sub is None:
+            return self.mas.intersects(collection, **kw)
+        seen = set()
+        out = []
+        for wkt4326 in sub:
+            part = self.mas.intersects(collection,
+                                       **dict(kw, srs="EPSG:4326",
+                                              wkt=wkt4326))
+            for ds in part:
+                k = (ds.file_path, ds.ds_name, ds.namespace)
+                if k not in seen:
+                    seen.add(k)
+                    out.append(ds)
+        return out
+
+    @staticmethod
+    def _index_subdivision(req: GeoTileRequest):
+        """None to query as one; [] when the request misses the layer's
+        extent; else the index tiles' EPSG:4326 polygons: the request's
+        bbox clipped to ``spatial_extent``, on a 256-px virtual grid, in
+        tiles of 256 * index_tile_{x,y}_size pixels, when that grid is
+        coarser than ``index_res_limit`` degrees a pixel."""
+        if req.index_res_limit <= 0 or req.query_limit > 0 \
+                or not req.spatial_extent:
+            return None
+        try:
+            ll = transform_bbox(req.bbox, req.crs, EPSG4326)
+        except ValueError:
+            return None
+        ext = req.spatial_extent
+        xmin = max(ll.xmin, ext[0])
+        ymin = max(ll.ymin, ext[1])
+        xmax = min(ll.xmax, ext[2])
+        ymax = min(ll.ymax, ext[3])
+        if xmax < xmin or ymax < ymin:
+            return []
+        res_w = res_h = 256
+        xres = (xmax - xmin) / res_w
+        yres = (ymax - ymin) / res_h
+        if max(xres, yres) <= req.index_res_limit:
+            return None
+        mx = int(res_w * req.index_tile_x_size)
+        my = int(res_h * req.index_tile_y_size)
+        mx = mx if mx > 0 else res_w
+        my = my if my > 0 else res_h
+        if mx >= res_w and my >= res_h:
+            return None
+        return [BBox(xmin + x * xres, ymin + y * yres,
+                     min(xmin + (x + mx) * xres, xmax),
+                     min(ymin + (y + my) * yres, ymax)).to_polygon_wkt()
+                for y in range(0, res_h, my) for x in range(0, res_w, mx)]
 
     # -- the fused single-band route -----------------------------------
 
@@ -154,9 +223,7 @@ class TilePipeline:
             return _empty_result(exprs, H, W, dev)
         mask_id = req.mask.id if req.mask is not None else None
         if mask_id is None:
-            raise NotImplementedError(
-                "process() without a mask band (_render_fused) is not "
-                "ported yet (ROADMAP A.12); use render_composite_byte")
+            return self._render_fused(req, granules)
         ex = self.executor
         # mask bands always resample nearest: interpolating bitfields is
         # meaningless
@@ -222,6 +289,46 @@ class TilePipeline:
             data_env[ns], valid_env[ns] = M.mosaic_stack(rasters, valids,
                                                          stamps)
         t = ex.add_span("mosaic", t)
+        out = evaluate_expressions(exprs, data_env, valid_env, H, W, dev,
+                                   granule_count=len(granules),
+                                   file_count=len({g.path
+                                                   for g in granules}))
+        ex.add_span("expr", t)
+        return out
+
+    def _render_fused(self, req: GeoTileRequest,
+                      granules: List[Granule]) -> TileResult:
+        """A request without a mask band: the cached scenes warped and
+        mosaicked per namespace in one dispatch per source-CRS group;
+        when a scene is uncacheable, the decoded windows instead; then
+        the band expressions."""
+        exprs = req.band_exprs
+        H, W = req.height, req.width
+        dev = self.device
+        ex = self.executor
+        t = time.perf_counter()
+        ns_names, ns_ids, prio = ns_prio(granules)
+        sc = ex.warp_mosaic_scenes(granules, ns_ids, prio, req.dst_gt(),
+                                   req.crs, H, W, len(ns_names),
+                                   req.resample)
+        if sc is None:
+            errs: List[Exception] = []
+            ws = decode_all(granules, req.bbox, req.crs, req.resample,
+                            _DECODE_WORKERS, dst_hw=(H, W), errors=errs,
+                            device=dev)
+            check_partial(len(errs), len(granules), "decode")
+            t = ex.add_span("decode", t)
+            live = [(g, w) for g, w in zip(granules, ws) if w is not None]
+            if not live:
+                return _empty_result(exprs, H, W, dev)
+            ns_names, ns_ids, prio = ns_prio([g for g, _ in live])
+            sc = ex.warp_mosaic([w for _, w in live], ns_ids, prio,
+                                req.dst_gt(), req.crs, H, W, len(ns_names),
+                                req.resample)
+        canv, vals = sc
+        t = ex.add_span("warp", t)
+        data_env = {n: canv[i] for i, n in enumerate(ns_names)}
+        valid_env = {n: vals[i] for i, n in enumerate(ns_names)}
         out = evaluate_expressions(exprs, data_env, valid_env, H, W, dev,
                                    granule_count=len(granules),
                                    file_count=len({g.path

@@ -60,6 +60,15 @@ class GeoTileRequest:
     resample: str = "near"                # near | bilinear | cubic
     query_limit: int = 0
     polygon_segments: int = 2
+    # the layer's known extent in EPSG:4326 (xmin, ymin, xmax, ymax) and
+    # the index subdivision it enables (`TilePipeline._index_subdivision`):
+    # a request coarser than ``index_res_limit`` degrees a pixel over a
+    # 256-px virtual grid is queried in index tiles of
+    # 256 * index_tile_{x,y}_size pixels; <= 0 disables
+    spatial_extent: Optional[Sequence[float]] = None
+    index_tile_x_size: float = 0.0
+    index_tile_y_size: float = 0.0
+    index_res_limit: float = 0.0
 
     _exprs: Optional[BandExpressions] = None
 

@@ -610,6 +610,42 @@ class TestDecode:
                 [dataclasses.replace(g, path="/nonexistent.tif")
                  for g in gs])
 
+    @pytest.mark.parametrize("kind", ["oom", "accelerator", "cuda call",
+                                      "io", "format"])
+    def test_device_failures_pass_through_safe_decode(self, archive,
+                                                      monkeypatch, kind):
+        """A failure of the card fails the request; a granule's own read
+        or format failure degrades to a missing granule."""
+        _, treq = _requests(archive["root"], ["LC08_B4"], "near", None)
+        gs = TilePipeline(MASClient(archive["tstore"]),
+                          device="cpu").index(treq)
+        acc = getattr(torch, "AcceleratorError", None)
+        if kind == "accelerator" and acc is None:
+            pytest.skip("this torch has no AcceleratorError")
+        exc = {"oom": lambda: torch.cuda.OutOfMemoryError(
+                   "CUDA out of memory. Tried to allocate 2.00 GiB"),
+               "accelerator": lambda: acc(
+                   "CUDA error: an illegal memory access was encountered"),
+               "cuda call": lambda: RuntimeError(
+                   "launch_warp_render failed: CUDA error 700"),
+               "io": lambda: OSError("short read"),
+               "format": lambda: ValueError("not a TIFF file")}[kind]
+
+        def failing(*a, **k):
+            raise exc()
+
+        monkeypatch.setattr(tdecode, "decode_window", failing)
+        errs = []
+        if kind in ("io", "format"):
+            out = tdecode.decode_all(gs, treq.bbox, treq.crs, errors=errs,
+                                     device="cpu")
+            assert out == [None] * len(gs) and len(errs) == len(gs)
+        else:
+            with pytest.raises(RuntimeError):
+                tdecode.decode_all(gs, treq.bbox, treq.crs, errors=errs,
+                                   device="cpu")
+            assert errs == []
+
     def test_geoloc_granule_is_refused(self, archive):
         _, treq = _requests(archive["root"], ["LC08_B4"], "near",
                             MASKS["value"])
@@ -733,12 +769,24 @@ def test_constant_expressions_stay_float32():
 # entry point
 # ---------------------------------------------------------------------------
 
-def test_process_defaults_to_cuda_and_needs_a_mask_band(archive):
+def test_process_defaults_to_cuda_and_needs_a_mask_band(archive, jax_b4):
+    """`process` runs on the card unless asked for the CPU.  Without a
+    mask band it takes `_render_fused` (the cached scenes, one dispatch
+    per source-CRS group), as the reference's does: the same valid
+    pixels and the same values there."""
     _, treq = _requests(archive["root"], ["LC08_B4"], "near",
                         MASKS["value"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TilePipeline(MASClient(archive["tstore"])).process(treq)
-    pipe = TilePipeline(MASClient(archive["tstore"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        pipe.process(dataclasses.replace(treq, mask=None))
+    jreq, treq = _requests(archive["root"], ["LC08_B4"], "near", None)
+    jres, tres, _ = _process_both(archive["jstore"], archive["tstore"],
+                                  jreq, treq)
+    assert tres.namespaces == jres.namespaces == ["LC08_B4"]
+    jv = np.asarray(jres.valid["LC08_B4"])
+    tv = tres.valid["LC08_B4"].numpy()
+    np.testing.assert_array_equal(tv, jv)
+    assert jv.any()
+    np.testing.assert_array_equal(
+        tres.data["LC08_B4"].numpy()[tv],
+        np.asarray(jres.data["LC08_B4"], np.float32)[jv])
