@@ -147,6 +147,9 @@ B1_CASES = (
     ("250 x 250 across pages", (250, 250), (1.0, 5.0, 380.0, 60.0)),
     ("scene corner", (256, 256), (1.0, 0.0, -12.0, -6.0)),
 )
+# B3's K-block form in phase 2: (K, B, N); the last is phase 7's wave
+B3_WAVE_K = ((1, 7, 2049), (4, 129, 16384), (16, 3, 262144),
+             (64, 2, 4097), (4, 1024, 262144))
 L2_FLUSH_BYTES = 64 << 20     # written between launches for a cold L2
 # phase 4b: 8 tiles (4 x 2) per method at each of these multiples of the
 # native ground resolution; their windows need more than the default 8
@@ -453,6 +456,135 @@ def phase_b1_cases(dev="cuda"):
     return n, counted, predicted
 
 
+def phase_wave_kernels(dev="cuda"):
+    """The wave forms of B1 and B3 against their plain versions on the
+    card.  B1 with ``sb_of``: three 1400 x 1400 scenes behind two
+    superblock rows of 64-slot union windows, eight lanes (four per row,
+    each its own grid and its params' window set to its row's union, as
+    `pipeline.autoplan` writes them); per lane the canvases equal the
+    lane rendered alone from its row without ``sb_of``, and the
+    direct-block count equals `block_boxes`' prediction.  B3's K-block
+    form at K in `B3_WAVE_K`: sums and counts bit-exact against its
+    plain version and against one per-call launch per block.  Returns
+    (comparisons, max |B3 sum difference|)."""
+    import torch
+    from gsky_tpu_torch.ops import paged, stats
+    from gsky_tpu_torch.pipeline.pages import PagePool
+    dev = torch.device(dev)
+    rng = np.random.default_rng(13)
+    S_px, pr, pc, slots = B1_SCENE, 128, 512, 64
+    ni, nj = -(-S_px // pr), -(-S_px // pc)
+    pool = PagePool(capacity=3 * ni * nj + 1, page_rows=pr, page_cols=pc,
+                    device=dev)
+    tabs = []
+    for k in range(3):
+        scene = rng.uniform(-500, 4000, (S_px, S_px)).astype(np.float32)
+        scene[150 + 80 * k:220 + 80 * k, 250:400] = np.nan
+        scene[800:900, 100 + 150 * k:260 + 150 * k] = -999.0
+        tabs.append(pool.table_for(torch.from_numpy(scene).to(dev),
+                                   3000 + k, 0, ni - 1, 0, nj - 1))
+    # row 0: granules 0, 1 over their whole grids; row 1: granules 1, 2
+    # over page rows 1-8 and columns 0-1, granule 0 a padding row
+    rows = (((0, ni - 1, 0, nj - 1), (0, ni - 1, 0, nj - 1), None),
+            (None, (1, 8, 0, 1), (1, 8, 0, 1)))
+    G, T = 2, 3
+    tables = np.zeros((G, T, slots), np.int32)
+    lanes = 8
+    sb_of = np.array([0, 1] * (lanes // 2), np.int32)
+    p16 = np.zeros((lanes, T, 16), np.float32)
+    for g, row in enumerate(rows):
+        for t, win in enumerate(row):
+            if win is None:
+                continue
+            i0, i1, j0, j1 = win
+            full = tabs[t].reshape(ni, nj)
+            sub = full[i0:i1 + 1, j0:j1 + 1].reshape(-1)
+            tables[g, t, :sub.size] = sub
+    for n in range(lanes):
+        for t, win in enumerate(rows[sb_of[n]]):
+            if win is None:
+                p16[n, t, 10] = -1.0
+                continue
+            i0, i1, j0, j1 = win
+            p16[n, t] = [0.25 * n, 1.0, 0.0, -0.5 * n, 0.0, 1.0, S_px,
+                         S_px, -999.0, 100.0 - t, t % 2, i0 * pr, j0 * pc,
+                         (i1 - i0 + 1) * pr, (j1 - j0 + 1) * pc,
+                         j1 - j0 + 1]
+    grids = [b1_grid(256, 256, *([1.0, 0.0] if n % 4 else [2.0, 20.0]),
+                     200.0 + 37.0 * n, 150.0 + 53.0 * n, dev)
+             for n in range(lanes)]
+    sx = torch.cat([g[0] for g in grids]).contiguous()
+    sy = torch.cat([g[1] for g in grids]).contiguous()
+    tab_d = torch.from_numpy(tables).to(dev)
+    sb_d = torch.from_numpy(sb_of).to(dev)
+    n_cmp = 0
+    for n_ns in (1, 2):
+        prm = torch.from_numpy(p16.reshape(lanes * T, 16)).to(dev)
+        if n_ns == 1:
+            prm[:, 10] = torch.where(prm[:, 10] >= 0, 0.0, -1.0)
+        for method in METHODS:
+            want = predicted_direct_blocks(sx, sy, prm, method)
+            paged.reset_direct_blocks(dev)
+            with pool.locked_pool() as parr:
+                ck, bk = paged.paged_render_scored(
+                    parr, tab_d, prm, sx, sy, method, n_ns, sb_d)
+                cp, bp = paged.paged_render_scored_plain(
+                    parr, tab_d, prm, sx, sy, method, n_ns, sb_d)
+                saved = paged.paged_render_kernel.launches
+                alone = [paged.paged_render_scored(
+                    parr, tab_d[sb_of[n]][None].contiguous(),
+                    prm[n * T:(n + 1) * T].contiguous(),
+                    sx[n:n + 1].contiguous(), sy[n:n + 1].contiguous(),
+                    method, n_ns) for n in range(lanes)]
+                paged.paged_render_kernel.launches = saved
+            got = paged.direct_blocks(dev)
+            check_pair(method, ck, bk, cp, bp,
+                       f"B1 sb_of {method} n_ns={n_ns}")
+            for n, (ca, ba) in enumerate(alone):
+                if not (torch.equal(ca[0], ck[n])
+                        and torch.equal(ba[0], bk[n])):
+                    raise AssertionError(f"B1 sb_of {method}: lane {n} "
+                                         f"differs from its launch alone")
+            if got != want:
+                raise AssertionError(f"B1 sb_of {method}: {got} direct "
+                                     f"blocks, block_boxes predicts {want}")
+            if not bool((bk > float("-inf")).any()):
+                raise AssertionError("B1 sb_of: nothing rendered")
+            n_cmp += 1 + lanes
+    del pool
+    err = 0.0
+    saved = (stats.masked_stats_kernel.launches,
+             stats.masked_stats_many_kernel.launches)
+    for K, B, N in B3_WAVE_K:
+        blocks = [b3_edge_inputs(B, N, seed=1000 * K + k) for k in range(K)]
+        datas = [d for d, _ in blocks]
+        valids = [v for _, v in blocks]
+        s, c = stats.masked_stats_many(datas, valids, -80.0, 120.0)
+        if B * N * K <= (1 << 28):
+            sp, cp = stats.masked_stats_many_plain(datas, valids, -80.0,
+                                                   120.0)
+        else:       # the plain version's stack would not fit: per block
+            parts = [stats.masked_stats_plain(d, v, -80.0, 120.0)
+                     for d, v in blocks]
+            sp = torch.stack([a for a, _ in parts])
+            cp = torch.stack([b for _, b in parts])
+        one = [stats.masked_stats(d, v, -80.0, 120.0) for d, v in blocks]
+        torch.cuda.synchronize()
+        if not (torch.equal(c, cp) and torch.equal(s, sp)):
+            raise AssertionError(f"B3 K-block ({K}, {B}, {N}) differs from "
+                                 f"its plain version")
+        for k, (s1, c1) in enumerate(one):
+            if not (torch.equal(s[k], s1) and torch.equal(c[k], c1)):
+                raise AssertionError(f"B3 K-block ({K}, {B}, {N}): block "
+                                     f"{k} differs from its own launch")
+        err = max(err, float((s - sp).abs().max()))
+        n_cmp += 2
+        del blocks, datas, valids
+    (stats.masked_stats_kernel.launches,
+     stats.masked_stats_many_kernel.launches) = saved
+    return n_cmp, err
+
+
 def write_archive(root, shape=(SCENE_H, SCENE_W)):
     """Four overlapping Landsat-8-size granules, 2020-01-10..13."""
     h, w = shape
@@ -625,19 +757,22 @@ def stage_breakdown(pipe, root, boxes, method):
 
 
 class CaptureB1:
-    """Keeps every B1 call's (sx, sy, params, method) while installed;
-    the wrapper it calls counts launches as always."""
+    """Keeps every B1 call's (sx, sy, params, method) while installed
+    (with ``full``, its whole argument list); the wrapper it calls counts
+    launches as always."""
 
-    def __init__(self):
+    def __init__(self, full=False):
         from gsky_tpu_torch.ops import paged
         self.mod = paged
         self.orig = paged.paged_render_scored
+        self.full = full
         self.args = []
         paged.paged_render_scored = self._call
 
-    def _call(self, pool, tables, params, sx, sy, method, n_ns):
-        self.args.append((sx, sy, params, method))
-        return self.orig(pool, tables, params, sx, sy, method, n_ns)
+    def _call(self, pool, tables, params, sx, sy, method, n_ns, sb_of=None):
+        self.args.append((pool, tables, params, sx, sy, method, n_ns, sb_of)
+                         if self.full else (sx, sy, params, method))
+        return self.orig(pool, tables, params, sx, sy, method, n_ns, sb_of)
 
     def remove(self):
         self.mod.paged_render_scored = self.orig
@@ -976,8 +1111,8 @@ def same_drill(ref, got, what, rtol=1e-5):
 
 
 def phase_drill(root, card):
-    """Phases 7 and 8.  Returns (B3 launches of the warm run, the
-    arguments B3 got on the main path)."""
+    """Phases 7, 13c and 8.  Returns (B3 launches of the warm run, the
+    arguments B3 got on the main path, B3's K-block launches in 13c)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from gsky_tpu_torch.index.client import MASClient
@@ -1086,6 +1221,12 @@ def phase_drill(root, card):
         f"which B3 {b3_us / 3 / 1e3:.4f} ms; top: " + "; ".join(
             f"{k[:60]} {us / 3 / 1e3:.4f}" for us, k in top))
 
+    # -- phase 13c: concurrent warm drills in one wave -----------------
+    kb_launches, kb_args = phase_wave_drills(pipe, req, card)
+    stats.masked_stats_kernel.launches = b3_launches
+    time_b3_blocks(kb_args, card)
+    del kb_args
+
     # -- phase 8: card vs CPU over the first 100 timesteps ------------
     os.environ["GSKY_DRILL_CACHE"] = "sync"
     try:
@@ -1108,7 +1249,7 @@ def phase_drill(root, card):
     log(f"phase 8: CPU drills over 100 steps match the card (rel "
         f"{w8:.3g}, deciles equal) in {time.perf_counter() - t0:.1f} s")
     pipe.cache.clear()
-    return b3_launches, captured[0]
+    return b3_launches, captured[0], kb_launches
 
 
 def time_b3(args, card):
@@ -1941,6 +2082,468 @@ def phase_ows_masked(root, store, card):
         pair.close()
 
 
+# -- phase 13: wave serving ------------------------------------------------
+
+WAVE_THREADS = 16            # 13a: in-process request threads
+ANIM_REPEAT = 3              # 13b: each animation request timed this often
+WAVE_DRILLS = 4              # 13c: concurrent warm drills
+WAVE_DRILL_ROUNDS = 5
+DAY = 86400.0
+
+
+class WavesOn:
+    """Phases 3-12 pin GSKY_WAVES=0 and GSKY_TILE_PIPELINE=0 (their
+    per-call meaning); inside this block the defaults hold again (waves,
+    the staged GetMap path), with ``extra`` knobs set, and a fresh wave
+    scheduler and planner counters."""
+
+    KEYS = ("GSKY_WAVES", "GSKY_TILE_PIPELINE", "GSKY_WAVE_TICK_MS")
+
+    def __init__(self, **extra):
+        self.extra = extra
+
+    def __enter__(self):
+        from gsky_tpu_torch.pipeline import autoplan, waves
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        for k in self.KEYS:
+            os.environ.pop(k, None)
+        os.environ.update(self.extra)
+        waves.reset_waves()
+        autoplan.reset_plan_state()
+        return waves
+
+    def __exit__(self, *exc):
+        from gsky_tpu_torch.pipeline import waves
+        waves.reset_waves()
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def wave_stats_of(waves):
+    """The stats of the card's wave scheduler ({} before its first
+    request)."""
+    import torch
+    return waves.wave_stats().get(str(torch.device(
+        "cuda", torch.cuda.current_device())), {})
+
+
+def render_threads(pipe, root, boxes, method, threads):
+    """``boxes`` through `render_composite_byte` from ``threads`` threads
+    at once: (host tiles in box order, per-tile seconds, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import BBox
+    from gsky_tpu_torch.pipeline.types import GeoTileRequest
+    merc = parse_crs("EPSG:3857")
+
+    def one(box):
+        req = GeoTileRequest(collection=root, bands=[NS], bbox=BBox(*box),
+                             crs=merc, width=256, height=256,
+                             resample=method)
+        t0 = time.perf_counter()
+        out = pipe.render_composite_byte(req)
+        if out is None:
+            raise AssertionError(f"tile {box} not rendered")
+        tile = out if isinstance(out, np.ndarray) else out.cpu().numpy()
+        return tile, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        res = list(ex.map(one, boxes))
+    return [r[0] for r in res], [r[1] for r in res], time.perf_counter() - t0
+
+
+def phase_wave_tiles(pipe, root, boxes, card_tiles, card):
+    """Phase 13a: phase 3's 32 native tiles per method from
+    `WAVE_THREADS` threads, per call (GSKY_WAVES=0) and then with waves
+    on, in the same run.  Per call the bodies equal phase 3's; with
+    waves the nearest bodies are identical to them and the others within
+    0.1% of bytes, through fewer B1 launches than tiles and no B2 or
+    plain version.  Returns (B1 launches of the wave runs, the bilinear
+    run's largest B1 launch's arguments)."""
+    import torch
+    from gsky_tpu_torch.ops import first_valid, paged, stats, warp_render
+    from gsky_tpu_torch.pipeline import autoplan
+    kernels = (paged.paged_render_kernel, warp_render.warp_render_kernel,
+               stats.masked_stats_kernel, first_valid.first_valid_kernel)
+    b1_total, biggest = 0, None
+    for method in METHODS:
+        pc_tiles, pc_lat, pc_wall = render_threads(pipe, root, boxes, method,
+                                                   WAVE_THREADS)
+        for a, b in zip(card_tiles[method], pc_tiles):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"13a {method}: per-call tiles from "
+                                     f"threads differ from phase 3's")
+        with WavesOn() as waves:
+            cap = CaptureB1(full=True)
+            plain = PlainCalls()
+            for k in kernels:
+                k.launches = 0
+            declined = pipe.executor.paged_declined
+            try:
+                w_tiles, w_lat, w_wall = render_threads(
+                    pipe, root, boxes, method, WAVE_THREADS)
+            finally:
+                cap.remove()
+                plain.remove()
+            b1, b2 = (paged.paged_render_kernel.launches,
+                      warp_render.warp_render_kernel.launches)
+            st = wave_stats_of(waves)
+            plan = autoplan.plan_stats()
+        if not 0 < b1 < len(boxes) or b2 or plain.calls or st["failed"] \
+                or pipe.executor.paged_declined != declined \
+                or sum(n * c for n, c in st["occupancy"].items()) \
+                != len(boxes):
+            raise AssertionError(
+                f"13a {method}: B1 {b1} for {len(boxes)} tiles, B2 {b2}, "
+                f"plain {plain.calls}, waves {st}")
+        diff = [int(np.count_nonzero(a != b))
+                for a, b in zip(card_tiles[method], w_tiles)]
+        if (method == "near" and any(diff)) or max(diff) > 65536 // 1000:
+            raise AssertionError(f"13a {method}: wave bodies differ from "
+                                 f"per-call ones by {diff} bytes")
+        b1_total += b1
+        if method == "bilinear":
+            biggest = max(cap.args, key=lambda a: a[3].shape[0])
+        log(f"phase 13a {method}: {len(boxes)} tiles from {WAVE_THREADS} "
+            f"threads; waves: {len(boxes) / w_wall:.1f} tiles/s, p50 "
+            f"{np.median(w_lat) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(w_lat, 90) * 1e3:.2f} ms, B1 launches {b1} "
+            f"for {len(boxes)} tiles, occupancy {st['occupancy']}, "
+            f"superblock lanes {st['superblock_lanes']} (planner: "
+            f"{plan['superblocks']} superblocks, {plan['merged_lanes']} "
+            f"lanes merged), bytes differing from per call {sum(diff)} "
+            f"(worst tile {max(diff)}); per call (GSKY_WAVES=0): "
+            f"{len(boxes) / pc_wall:.1f} tiles/s, p50 "
+            f"{np.median(pc_lat) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(pc_lat, 90) * 1e3:.2f} ms ({card})")
+    torch.cuda.synchronize()
+    return b1_total, biggest
+
+
+def time_b1_wave(pipe, args, per_tile_ms, card):
+    """B1's device time for one wave launch at phase 13a's largest
+    bilinear wave, beside the per-tile launch of phase 3 and the bound
+    (every lane's tap pixels, operands and outputs)."""
+    from gsky_tpu_torch.ops import paged
+    pool, tables, params, sx, sy, method, n_ns, sb_of = args
+    N = sx.shape[0]
+    T = params.shape[0] // N
+    saved = paged.paged_render_kernel.launches
+    with pipe.executor.pool.locked_pool():
+        ms = kernel_device_ms(lambda: paged.paged_render_scored(
+            pool, tables, params, sx, sy, method, n_ns, sb_of),
+            "paged_render")
+    paged.paged_render_kernel.launches = saved
+    nbytes = sum(bound_bytes(sx[n], sy[n], params[n * T:(n + 1) * T],
+                             method, n_ns) for n in range(N)) \
+        + tables.numel() * 4
+    bd = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"timing B1 wave ({N} lanes, {method}, "
+        f"{'superblock rows ' + str(tables.shape[0]) if sb_of is not None else 'no superblock'}"
+        f"): device {ms:.5f} ms, {ms / N:.5f} ms a lane against "
+        f"{per_tile_ms:.5f} ms a tile per call; bound {bd:.5f} ms "
+        f"({nbytes} bytes) ({card})")
+    return ms, N, bd
+
+
+def anim_url(base, layer, box, style, times, fmt="image/apng"):
+    q = (f"service=WMS&request=GetMap&version=1.3.0&layers={layer}"
+         f"&styles={style}&crs=EPSG:3857"
+         f"&bbox={','.join(repr(float(v)) for v in box)}"
+         f"&width=256&height=256&format={fmt}"
+         f"&time={','.join(iso(t) for t in times)}")
+    return f"{base}/ows?{q}"
+
+
+def http_get_headers(url):
+    """(status, headers, body, seconds) of one GET over a socket."""
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=300) as r:
+        body = r.read()
+        return r.status, dict(r.headers), body, time.perf_counter() - t0
+
+
+def occupancy_delta(before, after):
+    return {n: c - before.get(n, 0) for n, c in after.items()
+            if c - before.get(n, 0)}
+
+
+def phase_anim(root, store, card):
+    """Phase 13b over phase 10's archive, its layer without a mask (near
+    and bilinear) and its masked layer, over HTTP with the server's
+    defaults (staged path, waves): an 8-frame APNG over the 8 dates and
+    a 16-frame one at each date and 4 days after it (no exact match:
+    the nearest date, so each pair shares a granule set and merges into
+    a superblock); every decoded frame equals a lone GetMap at the date
+    it resolved to (nearest identical, bilinear within 0.1% of bytes).
+    A masked 4-frame APNG goes through the serial leg (B4, no B1).
+    Returns the B1 launches of the animation requests."""
+    from gsky_tpu_torch.io.png import apng_frames, decode_png
+    from gsky_tpu_torch.ops import first_valid, paged, stats, warp_render
+    from gsky_tpu_torch.pipeline import autoplan
+    kernels = {"B1": paged.paged_render_kernel,
+               "B2": warp_render.warp_render_kernel,
+               "B3": stats.masked_stats_kernel,
+               "B4": first_valid.first_valid_kernel}
+    mask = {"id": "pixel_qa", "bit_tests": CLOUD_SHADOW}
+    layers = [
+        {"name": "plain_b4", "data_source": root,
+         "rgb_products": ["LC08_B4"],
+         "styles": [{"name": m, "title": m, "rgb_products": ["LC08_B4"],
+                     "resample": m} for m in ("near", "bilinear")]},
+        {"name": "masked_b4", "data_source": root,
+         "rgb_products": ["LC08_B4"], "resample": "bilinear",
+         "mask": mask, "clip_value": 2000},
+    ]
+    dates = [t for _, t in mosaic_dates()]
+    box = mosaic_boxes()[0]
+    b1_total = 0
+    with WavesOn() as waves:
+        pair = OwsPair(os.path.join(root, "conf_anim"), layers, store)
+        try:
+            # lone GetMaps at every date: the frames' references (and
+            # the scene loads, outside the timed requests)
+            t0 = time.perf_counter()
+            lone = {}
+            for style in ("near", "bilinear"):
+                for t in dates:
+                    st_, ct, body, _ = http_get(anim_url(
+                        pair.base, "plain_b4", box, style, [t], "image/png"))
+                    if (st_, ct) != (200, "image/png"):
+                        raise AssertionError(f"13b lone GetMap {st_} {ct}")
+                    lone[(style, t)] = decode_png(body)
+            log(f"phase 13b: {len(lone)} lone GetMaps (8 scene loads) in "
+                f"{time.perf_counter() - t0:.1f} s")
+            pairs = [x for t in dates for x in (t, t + 4 * DAY)]
+            for name, times, resolved in (
+                    ("8 dates", dates, dates),
+                    ("16 frames, dates and 4 days after",
+                     pairs, [t for t in dates for _ in (0, 1)])):
+                for style in ("near", "bilinear"):
+                    for k in kernels.values():
+                        k.launches = 0
+                    autoplan.reset_plan_state()
+                    before = wave_stats_of(waves)
+                    lat, worst = [], 0
+                    for _ in range(ANIM_REPEAT):
+                        status, hdr, body, secs = http_get_headers(anim_url(
+                            pair.base, "plain_b4", box, style, times))
+                        if status != 200 or \
+                                hdr.get("Content-Type") != "image/apng" or \
+                                hdr.get("X-Gsky-Anim-Frames") != \
+                                str(len(times)):
+                            raise AssertionError(f"13b {name}: {status} "
+                                                 f"{hdr}")
+                        frames = [decode_png(f) for f in apng_frames(body)]
+                        if len(frames) != len(times):
+                            raise AssertionError(f"13b {name}: "
+                                                 f"{len(frames)} frames")
+                        for f, t in zip(frames, resolved):
+                            d = int(np.count_nonzero(f != lone[(style, t)]))
+                            worst = max(worst, d)
+                            if (style == "near" and d) or d > f.size // 1000:
+                                raise AssertionError(
+                                    f"13b {name} {style}: a frame differs "
+                                    f"from its lone GetMap by {d} bytes")
+                        lat.append(secs)
+                    after = wave_stats_of(waves)
+                    got = {k: v.launches for k, v in kernels.items()}
+                    occ = occupancy_delta(before.get("occupancy", {}),
+                                          after["occupancy"])
+                    sbl = after["superblock_lanes"] - \
+                        before.get("superblock_lanes", 0)
+                    n_frames = len(times) * ANIM_REPEAT
+                    waves_n = sum(occ.values())
+                    if not 0 < got["B1"] < n_frames or got["B2"] \
+                            or got["B4"] or after["failed"] \
+                            or sum(n * c for n, c in occ.items()) != n_frames:
+                        raise AssertionError(f"13b {name} {style}: {got}, "
+                                             f"occupancy {occ}")
+                    if len(times) == 16 and not sbl:
+                        raise AssertionError(f"13b {name}: no superblock")
+                    b1_total += got["B1"]
+                    log(f"phase 13b {name} {style}: {ANIM_REPEAT} requests "
+                        f"of {len(times)} frames, p50 "
+                        f"{np.median(lat) * 1e3:.1f} ms, max "
+                        f"{max(lat) * 1e3:.1f} ms; B1 launches {got['B1']} "
+                        f"for {n_frames} frames ({n_frames / waves_n:.2f} "
+                        f"frames a wave, occupancy {occ}), superblock lanes "
+                        f"{sbl} ({autoplan.plan_stats()['superblocks']} "
+                        f"superblocks); frames vs lone GetMaps: worst "
+                        f"{worst} bytes ({card})")
+            # a masked layer: each frame through the modular route (B4)
+            times = dates[:4]
+            lone_m = [decode_png(http_get(anim_url(
+                pair.base, "masked_b4", box, "", [t], "image/png"))[2])
+                for t in times]
+            for k in kernels.values():
+                k.launches = 0
+            before = wave_stats_of(waves)
+            status, hdr, body, secs = http_get_headers(anim_url(
+                pair.base, "masked_b4", box, "", times))
+            got = {k: v.launches for k, v in kernels.items()}
+            frames = [decode_png(f) for f in apng_frames(body)]
+            after = wave_stats_of(waves)
+            if status != 200 or hdr.get("X-Gsky-Anim-Frames") != "4" \
+                    or got["B1"] or got["B2"] or got["B4"] < 4 \
+                    or after.get("requests", 0) != before.get("requests", 0) \
+                    or any(not np.array_equal(f, m)
+                           for f, m in zip(frames, lone_m)):
+                raise AssertionError(f"13b masked animation: {status} "
+                                     f"{hdr} {got}")
+            log(f"phase 13b masked 4 frames: {secs * 1e3:.1f} ms, serial "
+                f"leg, B4 launches {got['B4']}, B1 0, frames equal lone "
+                f"GetMaps ({card})")
+        finally:
+            pair.close()
+    return b1_total
+
+
+def phase_wave_drills(pipe, req, card):
+    """Phase 13c: `WAVE_DRILLS` concurrent warm drills over phase 7's
+    resident stack.  Per call first (GSKY_WAVES=0, B3 once a drill);
+    then one wave of all four through one launch of B3's K-block form
+    (no per-call B3), results equal to the per-call ones: a barrier in
+    front of the scheduler's `drill_stats` hands the four to it
+    together, since their host stages, under one interpreter lock,
+    spread their arrivals over more than a window on a slow host; then
+    `WAVE_DRILL_ROUNDS` rounds without the barrier for drills/s.
+    Returns (K-block launches of the wave runs, the four blocks B3 got,
+    clip bounds)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from gsky_tpu_torch.ops import stats
+    from gsky_tpu_torch.pipeline.waves import WaveScheduler
+
+    def rounds(n):
+        outs, lat = [], []
+
+        def one():
+            t0 = time.perf_counter()
+            r = pipe.process(req)
+            return r, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(WAVE_DRILLS) as ex:
+            for _ in range(n):
+                for r, secs in ex.map(lambda _: one(), range(WAVE_DRILLS)):
+                    outs.append(r)
+                    lat.append(secs)
+        return outs, lat, time.perf_counter() - t0
+
+    stats.masked_stats_kernel.launches = 0
+    ref, pc_lat, pc_wall = rounds(WAVE_DRILL_ROUNDS)
+    pc_b3 = stats.masked_stats_kernel.launches
+    captured = []
+    many = stats.masked_stats_many
+
+    def capture(datas, valids, lo, hi):
+        if not captured:
+            captured.append((list(datas), list(valids), lo, hi))
+        return many(datas, valids, lo, hi)
+
+    barrier = threading.Barrier(WAVE_DRILLS)
+    submit = WaveScheduler.drill_stats
+
+    def together(self, *a):
+        barrier.wait(timeout=300)
+        return submit(self, *a)
+
+    stats.masked_stats_many = capture
+    WaveScheduler.drill_stats = together
+    try:
+        with WavesOn() as waves:
+            stats.masked_stats_kernel.launches = 0
+            stats.masked_stats_many_kernel.launches = 0
+            one_wave, _, _ = rounds(1)
+            st = wave_stats_of(waves)
+            k1 = (stats.masked_stats_many_kernel.launches,
+                  stats.masked_stats_kernel.launches)
+        WaveScheduler.drill_stats = submit
+        if k1 != (1, 0) or st["occupancy"] != {WAVE_DRILLS: 1}:
+            raise AssertionError(f"13c: K-block / per-call B3 launches {k1}, "
+                                 f"occupancy {st['occupancy']}")
+        for r in one_wave:
+            same_drill(ref[0], r, "13c one wave vs per call", rtol=0.0)
+        with WavesOn() as waves:
+            stats.masked_stats_kernel.launches = 0
+            stats.masked_stats_many_kernel.launches = 0
+            outs, w_lat, w_wall = rounds(WAVE_DRILL_ROUNDS)
+            st = wave_stats_of(waves)
+            kw = (stats.masked_stats_many_kernel.launches,
+                  stats.masked_stats_kernel.launches)
+    finally:
+        WaveScheduler.drill_stats = submit
+        stats.masked_stats_many = many
+    for r in outs:
+        same_drill(ref[0], r, "13c waves vs per call", rtol=0.0)
+    n = WAVE_DRILLS * WAVE_DRILL_ROUNDS
+    log(f"phase 13c: {WAVE_DRILLS} concurrent warm drills handed to the "
+        f"scheduler together: 1 wave, 1 B3 K-block launch, 0 per-call, "
+        f"results equal per call; {WAVE_DRILL_ROUNDS} rounds as they "
+        f"come: {n / w_wall:.2f} drills/s, p50 "
+        f"{np.median(w_lat) * 1e3:.2f} ms, p90 "
+        f"{np.percentile(w_lat, 90) * 1e3:.2f} ms, K-block launches "
+        f"{kw[0]}, per-call B3 {kw[1]}, occupancy {st['occupancy']}; per "
+        f"call (GSKY_WAVES=0): {n / pc_wall:.2f} drills/s, p50 "
+        f"{np.median(pc_lat) * 1e3:.2f} ms, p90 "
+        f"{np.percentile(pc_lat, 90) * 1e3:.2f} ms, B3 launches {pc_b3} "
+        f"({card})")
+    return 1 + kw[0], captured[0]
+
+
+def time_b3_blocks(args, card):
+    """B3's K-block form at phase 13c's four (1024, 262144) blocks: its
+    device time, its plain version (a stack, then the per-row
+    reduction), the library's reductions over the same blocks stacked
+    (the stack made outside the timing) and the bound (every block read
+    once, outputs written once)."""
+    import torch
+    from gsky_tpu_torch.ops import stats
+    datas, valids, lo, hi = args
+    K = len(datas)
+    B, N = datas[0].shape
+
+    def kb():
+        return stats.masked_stats_many(datas, valids, lo, hi)
+
+    def kbp():
+        return stats.masked_stats_many_plain(datas, valids, lo, hi)
+
+    d = torch.stack(datas)
+    v8 = torch.stack(valids).view(torch.uint8)
+    flo, fhi = stats.clip_f32(lo, hi)
+
+    def library():
+        inclip = (v8 != 0) & (d >= flo) & (d <= fhi)
+        return torch.where(inclip, d, 0.0).sum(-1), \
+            inclip.sum(-1, dtype=torch.int32)
+
+    saved = stats.masked_stats_many_kernel.launches
+    s, c = kb()
+    sp, cp = kbp()
+    torch.cuda.synchronize()
+    if not (torch.equal(s, sp) and torch.equal(c, cp)):
+        raise AssertionError("B3 K-block: kernel != plain")
+    ms = kernel_device_ms(kb, "masked_stats_many_kernel", reps=20)
+    pms = cuda_time_ms(kbp, reps=2)
+    lms = cuda_time_ms(library, reps=5)
+    stats.masked_stats_many_kernel.launches = saved
+    del d, v8
+    nbytes = K * (B * N * 5 + B * 8)
+    bd = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"timing B3 K-block ({K} x ({B}, {N})): device {ms:.5f} ms, bound "
+        f"{bd:.5f} ms ({nbytes} bytes, {100 * bd / ms:.1f}% of bound), "
+        f"plain {pms:.3f} ms, library over the stack (where+sum+count) "
+        f"{lms:.4f} ms ({card})")
+    return ms, pms, bd, lms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1978,6 +2581,16 @@ def main() -> int:
         f"64-slot windows: {n_b1} more, {direct} blocks read the pool "
         f"directly as block_boxes predicts ({predicted}) "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_wave, b3k_err = phase_wave_kernels()
+    log(f"phase 2: wave forms: B1 with sb_of and B3's K-block form, "
+        f"{n_wave} comparisons with their plain versions and their "
+        f"per-call launches passed ({time.perf_counter() - t0:.1f} s)")
+
+    # phases 3-12 measure the per-call path, their meaning since PR 1-7:
+    # waves and the staged GetMap path off (phase 13 turns them on)
+    os.environ["GSKY_WAVES"] = "0"
+    os.environ["GSKY_TILE_PIPELINE"] = "0"
 
     # -- phase 3: end to end at real size -----------------------------
     data_root = os.path.join(ROOT, "build", "smoke_archive")
@@ -2166,6 +2779,14 @@ def main() -> int:
         http_a = phase_ows_fused(data_root, data_paths, card)
         log(f"phase 12a: {sum(http_a.values())} GetMap requests over HTTP "
             f"passed ({time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 13a: concurrent tiles in waves -------------------------
+        t0 = time.perf_counter()
+        b1_waves, wave_args = phase_wave_tiles(pipe, data_root, boxes,
+                                               card_tiles, card)
+        time_b1_wave(pipe, wave_args, b1_rows[1][2], card)
+        del wave_args
+        log(f"phase 13a: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -2176,7 +2797,8 @@ def main() -> int:
     shutil.rmtree(drill_root, ignore_errors=True)
     os.makedirs(drill_root)
     try:
-        b3_launches, b3_args = phase_drill(drill_root, card)
+        b3_launches, b3_args, b3_wave_launches = phase_drill(drill_root,
+                                                             card)
         b3_row = time_b3(b3_args, card)
     finally:
         shutil.rmtree(drill_root, ignore_errors=True)
@@ -2198,13 +2820,19 @@ def main() -> int:
         phase_ows_masked(mosaic_root, mosaic, card)
         log(f"phase 12b: masked GetMap requests over HTTP passed "
             f"({time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 13b: TIME animations over HTTP -------------------------
+        t0 = time.perf_counter()
+        b1_anim = phase_anim(mosaic_root, mosaic, card)
+        log(f"phase 13b: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(mosaic_root, ignore_errors=True)
 
     # the kernels line reports the bilinear rows (the GetMap default
     # interpolated method): B1 at phase 3's tile, B2 at input (c), the
     # 4x zoomed-out tile; every method's and input's numbers are logged
-    # above
+    # above.  Launches: every main path's run, phase 13's wave runs
+    # included (B1 over a wave's lanes, B3's K-block form)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -2212,7 +2840,7 @@ def main() -> int:
         {"name": "paged_render (B1)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/paged.py:173",
-         "launches": b1_launches,
+         "launches": b1_launches + b1_waves + b1_anim,
          "max_abs_err": max(r[1] for r in b1_rows),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
          "bound_by": "bytes", "library_ms": None},
@@ -2226,8 +2854,8 @@ def main() -> int:
         {"name": "masked_stats (B3)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/masked_stats.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
-         "launches": b3_launches,
-         "max_abs_err": max(b3_err, b3_main_err),
+         "launches": b3_launches + b3_wave_launches,
+         "max_abs_err": max(b3_err, b3_main_err, b3k_err),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
         {"name": "first_valid (B4)", "route": "cuda",

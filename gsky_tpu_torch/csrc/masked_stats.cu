@@ -22,6 +22,13 @@
 // thread's registers, 128..1 in shared memory.  `ops/stats.py::
 // masked_stats_plain` runs the same order, so kernel and plain version
 // agree to the bit.  Built with -fmad=false; there is no multiply anyway.
+//
+// K-block form (`launch_masked_stats_many`, the drill's wave lane): K
+// drills' (B, N) blocks reduced by one launch, grid (B, K), each block
+// read where it lies through a table of K base pointers passed by value
+// in the launch's parameters (kMaxBlocks, the wave's largest size), so
+// no (K, B, N) stack is copied first.  Each row runs the same body, so a
+// row's result is bit-identical to the per-call launch's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,16 +38,20 @@ namespace {
 constexpr int kChunk = 2048;
 constexpr int kThreads = 256;
 constexpr int kLanes = kChunk / kThreads;  // 8 lanes per thread
+constexpr int kMaxBlocks = 64;  // the K-block form's table (the wave cap)
 
-__global__ void __launch_bounds__(kThreads)
-masked_stats_kernel(const float* __restrict__ data,
-                    const uint8_t* __restrict__ valid, float lo, float hi,
-                    int n, float* __restrict__ sums,
-                    int* __restrict__ counts) {
+struct BlockPtrs {
+  const float* data[kMaxBlocks];
+  const uint8_t* valid[kMaxBlocks];
+};
+
+// One row of n pixels: the whole block of kThreads threads reduces it
+// into *sum and *count.
+__device__ __forceinline__ void row_stats(const float* __restrict__ d,
+                                          const uint8_t* __restrict__ v,
+                                          float lo, float hi, int n,
+                                          float* sum, int* count) {
   const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;
-  const float* d = data + row * (size_t)n;
-  const uint8_t* v = valid + row * (size_t)n;
 
   float acc[kLanes];
 #pragma unroll
@@ -90,9 +101,31 @@ masked_stats_kernel(const float* __restrict__ data,
     __syncthreads();
   }
   if (tid == 0) {
-    sums[row] = ssum[0];
-    counts[row] = scnt[0];
+    *sum = ssum[0];
+    *count = scnt[0];
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+masked_stats_kernel(const float* __restrict__ data,
+                    const uint8_t* __restrict__ valid, float lo, float hi,
+                    int n, float* __restrict__ sums,
+                    int* __restrict__ counts) {
+  const size_t row = blockIdx.x;
+  row_stats(data + row * (size_t)n, valid + row * (size_t)n, lo, hi, n,
+            sums + row, counts + row);
+}
+
+// grid (B, K): row blockIdx.x of block blockIdx.y; sums/counts (K, B).
+__global__ void __launch_bounds__(kThreads)
+masked_stats_many_kernel(const __grid_constant__ BlockPtrs ptrs, float lo,
+                         float hi, int b, int n, float* __restrict__ sums,
+                         int* __restrict__ counts) {
+  const size_t row = blockIdx.x;
+  const int k = blockIdx.y;
+  const size_t out = (size_t)k * b + row;
+  row_stats(ptrs.data[k] + row * (size_t)n, ptrs.valid[k] + row * (size_t)n,
+            lo, hi, n, sums + out, counts + out);
 }
 
 }  // namespace
@@ -106,5 +139,27 @@ extern "C" int launch_masked_stats(const void* data, const void* valid,
   masked_stats_kernel<<<b, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)data, (const uint8_t*)valid, lo, hi, n, (float*)sums,
       (int*)counts);
+  return (int)cudaGetLastError();
+}
+
+// K blocks, each (b, n): data[k] f32 and valid[k] bytes, host arrays of K
+// device pointers (copied into the launch's parameters); sums/counts (K,
+// b).
+extern "C" int launch_masked_stats_many(const void* const* data,
+                                        const void* const* valid, float lo,
+                                        float hi, int k, int b, int n,
+                                        void* sums, void* counts,
+                                        void* stream) {
+  if (k < 1 || k > kMaxBlocks || b < 1 || n < 1 ||
+      n > 0x7fffffff - kChunk) {
+    return (int)cudaErrorInvalidValue;
+  }
+  BlockPtrs ptrs{};
+  for (int i = 0; i < k; ++i) {
+    ptrs.data[i] = (const float*)data[i];
+    ptrs.valid[i] = (const uint8_t*)valid[i];
+  }
+  masked_stats_many_kernel<<<dim3(b, k), kThreads, 0, (cudaStream_t)stream>>>(
+      ptrs, lo, hi, b, n, (float*)sums, (int*)counts);
   return (int)cudaGetLastError();
 }

@@ -409,9 +409,13 @@ constexpr int kTapGroup = METHOD == CUBIC ? 2 : 4;
 
 // B1: grid (ceil(w / kCols), ceil(h / kRows), N), kB1Threads threads,
 // `budget` floats of dynamic shared memory.  pool (cap, pr, pc), pc a
-// multiple of 4; tables (N, T, S), S <= kMaxSlots; params (N*T, 16);
-// sx/sy (N, h, w); canv/best (N, NS, h, w); `direct` counts the blocks
-// that read a granule from the pool directly.  Per round of up to kPlan
+// multiple of 4; tables (N, T, S), S <= kMaxSlots, or, with `sb_of`, (G,
+// T, S): a wave's superblock tables, lane n reading row sb_of[n] (the
+// wave planner's union windows: lane n's params slots 11-15 already
+// carry its row's window, so the boxes, the staging and the taps are as
+// without it); params (N*T, 16); sx/sy (N, h, w); canv/best (N, NS, h,
+// w); `direct` counts the blocks that read a granule from the pool
+// directly.  Per round of up to kPlan
 // granules: 0. params and tables to shared memory; 1. the boxes; 2. the
 // plan (warp 0); 3. the staging; 4. the taps; a barrier after each of
 // 0-3.
@@ -422,7 +426,8 @@ paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
              const float* __restrict__ sxs, const float* __restrict__ sys,
              float* __restrict__ canv_out, float* __restrict__ best_out,
              int T, int S, int pr, int pc, int h, int w, int budget,
-             unsigned int* __restrict__ direct) {
+             unsigned int* __restrict__ direct,
+             const int* __restrict__ sb_of) {
   extern __shared__ __align__(16) float stage[];
   __shared__ float prm[kPlan * 16];       // the round's params rows
   __shared__ int tab[kPlan * kMaxSlots];  // and page tables, S apart
@@ -441,7 +446,7 @@ paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
   const long long hw = (long long)h * w;
   const long long pix = (long long)y * w + x;
   const float* pn = params + n * T * 16;
-  const int* tn = tables + n * T * S;
+  const int* tn = tables + (sb_of != nullptr ? sb_of[n] : n) * T * S;
   const int page = pr * pc;
   const float inv_pr = __frcp_rn((float)pr), inv_pc = __frcp_rn((float)pc);
   float sx = 0.0f, sy = 0.0f;
@@ -726,7 +731,8 @@ template <int METHOD, int NS>
 void paged_launch(const float* pool, const int* tables, const float* params,
                   const float* sx, const float* sy, float* canv, float* best,
                   int N, int T, int S, int pr, int pc, int h, int w,
-                  int stage_bytes, unsigned int* direct, cudaStream_t st) {
+                  int stage_bytes, unsigned int* direct, const int* sb_of,
+                  cudaStream_t st) {
   if (stage_bytes > 48 * 1024) {
     cudaFuncSetAttribute(paged_render<METHOD, NS>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -735,7 +741,7 @@ void paged_launch(const float* pool, const int* tables, const float* params,
   dim3 grid((w + kCols - 1) / kCols, (h + kRows - 1) / kRows, N);
   paged_render<METHOD, NS><<<grid, kB1Threads, stage_bytes, st>>>(
       pool, tables, params, sx, sy, canv, best, T, S, pr, pc, h, w,
-      stage_bytes / (int)sizeof(float), direct);
+      stage_bytes / (int)sizeof(float), direct, sb_of);
 }
 
 template <int METHOD, int NS>
@@ -778,15 +784,16 @@ struct WarpRun {
 // Plain C interface (ctypes): returns cudaGetLastError() after the launch,
 // or -1 for a (method, ns) pair that is not instantiated.  B1 takes the
 // tile as (h, w), its staging budget in bytes (the dynamic shared memory
-// of a block) and the device counter of blocks that read the pool
-// directly.
+// of a block), the device counter of blocks that read the pool directly
+// and `sb_of`: null, or N int32 rows of `tables` (then (G, T, S)), one a
+// lane.
 extern "C" int launch_paged_render(int method, int ns, const void* pool,
                                    const void* tables, const void* params,
                                    const void* sx, const void* sy,
                                    void* canv, void* best, int N, int T,
                                    int S, int pr, int pc, int h, int w,
                                    int stage_bytes, void* direct,
-                                   void* stream) {
+                                   const void* sb_of, void* stream) {
   if (N == 0 || h == 0 || w == 0) return 0;
   if (S < 1 || S > kMaxSlots || pc % 4 || stage_bytes % 16) {
     return (int)cudaErrorInvalidValue;
@@ -795,7 +802,7 @@ extern "C" int launch_paged_render(int method, int ns, const void* pool,
       method, ns, (const float*)pool, (const int*)tables,
       (const float*)params, (const float*)sx, (const float*)sy,
       (float*)canv, (float*)best, N, T, S, pr, pc, h, w, stage_bytes,
-      (unsigned int*)direct, (cudaStream_t)stream);
+      (unsigned int*)direct, (const int*)sb_of, (cudaStream_t)stream);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 

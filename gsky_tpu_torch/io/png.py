@@ -8,6 +8,11 @@ four bands RGBA.  The reference encodes through PIL; the bytes here
 differ from PIL's (rows are written unfiltered), the decoded pixels do
 not.  `decode_png` reads 8-bit greyscale, palette, RGB and RGBA images
 with any of the five row filters, so it reads PIL's PNGs too.
+
+`ApngAssembler` splices encoded PNG frames into one Animated PNG (a
+TIME animation's container) by chunk surgery alone: no pixel is decoded
+and nothing is compressed again, so frame 0's IDAT stream is the lone
+GetMap's.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -218,3 +223,108 @@ def decode_png(data: bytes) -> np.ndarray:
         out[..., 3][(px == key).all(-1)] = 0
     return out
 
+
+
+def _png_chunks(data: bytes) -> Iterator[Tuple[bytes, bytes]]:
+    """(type, payload) of each chunk of one PNG byte stream."""
+    if data[:8] != _SIG:
+        raise ValueError("not a PNG stream")
+    off, n = 8, len(data)
+    while off + 12 <= n:
+        ln = struct.unpack(">I", data[off:off + 4])[0]
+        yield data[off + 4:off + 8], data[off + 8:off + 8 + ln]
+        off += 12 + ln
+
+
+class ApngAssembler:
+    """An Animated PNG built frame by frame from encoded PNGs of one
+    size and palette.  ``frame(png)`` returns the frame's container
+    bytes: frame 0 brings the signature, its IHDR, the ``acTL`` chunk
+    and its own ancillary chunks (palette, transparency); every frame an
+    ``fcTL`` (the whole canvas, replacing the last frame) and its IDAT
+    data, typed ``fdAT`` after frame 0.  ``trailer()`` closes it."""
+
+    def __init__(self, num_frames: int, delay_ms: int = 500,
+                 num_plays: int = 0):
+        if num_frames < 1:
+            raise ValueError("APNG needs at least one frame")
+        self.num_frames = int(num_frames)
+        self.delay_ms = max(1, min(65535, int(delay_ms)))
+        self.num_plays = int(num_plays)
+        self._seq = 0
+        self._n = 0
+        self._w = 0
+        self._h = 0
+
+    def _next_seq(self) -> int:
+        s = self._seq
+        self._seq += 1
+        return s
+
+    def _fctl(self) -> bytes:
+        return _chunk(b"fcTL", struct.pack(
+            ">IIIIIHHBB", self._next_seq(), self._w, self._h, 0, 0,
+            self.delay_ms, 1000, 0, 0))
+
+    def frame(self, png: bytes) -> bytes:
+        if self._n >= self.num_frames:
+            raise ValueError("more frames than declared in acTL")
+        head: List[Tuple[bytes, bytes]] = []
+        idats: List[bytes] = []
+        for typ, payload in _png_chunks(png):
+            if typ == b"IDAT":
+                idats.append(payload)
+            elif typ != b"IEND" and not idats:
+                head.append((typ, payload))
+        if not idats or not head or head[0][0] != b"IHDR":
+            raise ValueError("malformed PNG frame")
+        parts: List[bytes] = []
+        if self._n == 0:
+            ihdr = head[0][1]
+            self._w, self._h = struct.unpack(">II", ihdr[0:8])
+            parts.append(_SIG)
+            parts.append(_chunk(b"IHDR", ihdr))
+            parts.append(_chunk(b"acTL", struct.pack(
+                ">II", self.num_frames, self.num_plays)))
+            parts.extend(_chunk(typ, payload) for typ, payload in head[1:])
+            parts.append(self._fctl())
+            parts.extend(_chunk(b"IDAT", payload) for payload in idats)
+        else:
+            parts.append(self._fctl())
+            for payload in idats:
+                parts.append(_chunk(
+                    b"fdAT", struct.pack(">I", self._next_seq()) + payload))
+        self._n += 1
+        return b"".join(parts)
+
+    def trailer(self) -> bytes:
+        if self._n != self.num_frames:
+            raise ValueError(
+                f"assembled {self._n} of {self.num_frames} frames")
+        return _chunk(b"IEND", b"")
+
+
+def encode_apng(frames: Sequence[bytes], delay_ms: int = 500,
+                num_plays: int = 0) -> bytes:
+    """Encoded PNG frames -> one Animated PNG."""
+    asm = ApngAssembler(len(frames), delay_ms, num_plays)
+    return b"".join([asm.frame(f) for f in frames] + [asm.trailer()])
+
+
+def apng_frames(data: bytes) -> List[bytes]:
+    """The frames of an Animated PNG as stand-alone PNGs (its header
+    chunks, then each frame's IDAT or fdAT data as IDAT)."""
+    head: List[bytes] = []
+    frames: List[List[bytes]] = []
+    for typ, payload in _png_chunks(data):
+        if typ == b"fcTL":
+            frames.append([])
+        elif typ == b"IDAT":
+            frames[-1].append(payload)
+        elif typ == b"fdAT":
+            frames[-1].append(payload[4:])
+        elif typ not in (b"acTL", b"IEND"):
+            head.append(_chunk(typ, payload))
+    return [_SIG + b"".join(head)
+            + b"".join(_chunk(b"IDAT", p) for p in parts)
+            + _chunk(b"IEND", b"") for parts in frames]

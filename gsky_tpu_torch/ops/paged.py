@@ -21,6 +21,13 @@ computed is the same.
 constants.  B1 has no VMEM and no such limit: the gate is kept as a
 routing rule, so that the port sends a tile to the same leg (B1 or B2)
 as the reference does.
+
+A wave (`pipeline.waves`) renders N tiles in one B1 launch.  With the
+wave planner's superblocks (`pipeline.autoplan`) its tables are (G, T,
+S), G <= N union windows, and ``sb_of`` (N,) int32 gives each lane its
+row; the JAX program gathers ``pool[tables][sb_of]``, B1 reads the row
+in place.  `wave_drill_stats` reduces a drill wave's K blocks through
+B3's K-block form.
 """
 
 from __future__ import annotations
@@ -139,11 +146,15 @@ def table_gather_bytes(tables, pr: int, pc: int) -> int:
 
 
 def paged_render_scored_plain(pool, tables, params, sx, sy, method: str,
-                              n_ns: int):
+                              n_ns: int, sb_of=None):
     """Plain PyTorch version of kernel B1: pool (cap, pr, pc) f32,
     tables (N, T, S) int32, params (N*T, 16) f32, sx/sy (N, h, w) f32 ->
-    (canv, best) each (N, n_ns, h, w) f32, best -inf = invalid."""
-    N, T, S = tables.shape
+    (canv, best) each (N, n_ns, h, w) f32, best -inf = invalid.  With
+    ``sb_of`` (N,) int32, tables is (G, T, S) and lane n reads row
+    sb_of[n]."""
+    _, T, S = tables.shape
+    N = int(sx.shape[0])
+    rows = range(N) if sb_of is None else [int(g) for g in sb_of.tolist()]
     pr, pc = int(pool.shape[1]), int(pool.shape[2])
     page = pr * pc
     h, w = sx.shape[1:]
@@ -151,12 +162,12 @@ def paged_render_scored_plain(pool, tables, params, sx, sy, method: str,
                        device=sx.device)
     best = torch.full((N, n_ns, h, w), float("-inf"), dtype=torch.float32,
                       device=sx.device)
-    for n in range(N):
+    for n, row in enumerate(rows):
         for t in range(T):
             p = params[n * T + t]
             # the kernel walks the table per tap; here the granule's
             # page block is gathered once and indexed flat
-            flat = pool[tables[n, t].long()].reshape(S * page)
+            flat = pool[tables[row, t].long()].reshape(S * page)
             ppc = int(p[15])
 
             def fetch(ri, ci, flat=flat, ppc=ppc):
@@ -231,28 +242,41 @@ def block_boxes(sx, sy, params, method: str, block=BLOCK):
 
 
 def paged_render_scored(pool, tables, params, sx, sy, method: str,
-                        n_ns: int):
-    """Kernel B1 on CUDA tensors, its plain version on CPU tensors."""
+                        n_ns: int, sb_of=None):
+    """Kernel B1 on CUDA tensors, its plain version on CPU tensors.
+    ``sb_of``: None, or (N,) int32 rows of a (G, T, S) ``tables``."""
     if pool.device.type == "cpu":
         return paged_render_scored_plain(pool, tables, params, sx, sy,
-                                         method, n_ns)
+                                         method, n_ns, sb_of)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
     check_ns(n_ns)
     check_cuda(pool, tables, params, sx, sy,
                dtypes=[torch.float32, torch.int32, torch.float32,
                        torch.float32, torch.float32])
-    N, T, S = tables.shape
+    G, T, S = tables.shape
+    N = int(sx.shape[0])
     cap, pr, pc = pool.shape
     h, w = sx.shape[1:]
     if params.shape != (N * T, PARAMS_W) or sx.shape != (N, h, w) \
-            or sy.shape != sx.shape:
+            or sy.shape != sx.shape \
+            or (sb_of is None and G != N) \
+            or (sb_of is not None and tuple(sb_of.shape) != (N,)):
         raise ValueError("bad B1 operand shapes")
     if not 1 <= S <= MAX_SLOTS:
         raise ValueError(f"B1 takes 1 to {MAX_SLOTS} table slots, got {S}")
     if pc % 4:
         raise ValueError(f"B1 stages whole 16-byte quads: page columns "
                          f"{pc} must be a multiple of 4")
+    sb_ptr = None
+    if sb_of is not None:
+        check_cuda(pool, sb_of, dtypes=[torch.float32, torch.int32])
+        # a row past the table would read outside it: checked here (one
+        # small readback), not on the device
+        if sb_of.numel() and not 0 <= int(sb_of.min()) <= \
+                int(sb_of.max()) < G:
+            raise ValueError(f"sb_of indexes rows outside 0..{G - 1}")
+        sb_ptr = sb_of.data_ptr()
     canv = torch.empty((N, n_ns, h, w), dtype=torch.float32,
                        device=pool.device)
     best = torch.empty_like(canv)
@@ -260,7 +284,7 @@ def paged_render_scored(pool, tables, params, sx, sy, method: str,
                         pool.data_ptr(), tables.data_ptr(), params.data_ptr(),
                         sx.data_ptr(), sy.data_ptr(), canv.data_ptr(),
                         best.data_ptr(), N, T, S, pr, pc, h, w, STAGE_BUDGET,
-                        _direct_counter(pool.device).data_ptr())
+                        _direct_counter(pool.device).data_ptr(), sb_ptr)
     return canv, best
 
 
@@ -270,25 +294,54 @@ def _dense_grids(ctrls, h: int, w: int, step: int):
 
 
 def warp_scored_paged(pool, tables, params, ctrls, method: str = "near",
-                      n_ns: int = 1, out_hw=(256, 256), step: int = 16):
+                      n_ns: int = 1, out_hw=(256, 256), step: int = 16,
+                      sb_of=None):
     """Counterpart of `gsky_tpu/ops/paged.py::warp_scored_paged` over N
-    tiles: pool (cap, pr, pc), tables (N, T, S) int32, params (N*T, 16),
-    ctrls (N, 2, gh, gw) -> (canvases, best) each (N, n_ns, h, w)."""
+    tiles: pool (cap, pr, pc), tables (N, T, S) int32 (or (G, T, S) with
+    ``sb_of`` (N,) int32), params (N*T, 16), ctrls (N, 2, gh, gw) ->
+    (canvases, best) each (N, n_ns, h, w)."""
     h, w = out_hw
     sx, sy = _dense_grids(ctrls, h, w, step)
-    return paged_render_scored(pool, tables.contiguous(),
-                               params.contiguous(), sx, sy, method, n_ns)
+    return paged_render_scored(
+        pool, tables.contiguous(), params.contiguous(), sx, sy, method,
+        n_ns, None if sb_of is None else sb_of.contiguous())
 
 
 def render_byte_paged(pool, tables, params, ctrls, sps,
                       method: str = "near", n_ns: int = 1,
                       out_hw=(256, 256), step: int = 16,
-                      auto: bool = True, colour_scale: int = 0):
+                      auto: bool = True, colour_scale: int = 0,
+                      sb_of=None):
     """Counterpart of `gsky_tpu/ops/paged.py::render_byte_paged`: kernel B1,
     then the composite/byte-scale epilogue per tile.  sps (N, 3)
     (offset, scale, clip).  Returns uint8 (N, h, w) tiles."""
     canv, best = warp_scored_paged(pool, tables, params, ctrls, method,
-                                   n_ns, out_hw, step)
+                                   n_ns, out_hw, step, sb_of)
     return torch.stack([
         composite_scale(c, b > float("-inf"), sp, auto, colour_scale)
         for c, b, sp in zip(canv, best, sps)])
+
+
+def wave_drill_stats(datas, valids, clip_lower=-3.0e38, clip_upper=3.0e38,
+                     pixel_count: bool = False):
+    """Counterpart of `gsky_tpu/ops/paged.py::wave_drill_stats` over K
+    drills' (B, N) data/valid blocks -> (vals (K, B) f32, counts (K, B)
+    int32).  The masked mean goes through B3's K-block form
+    (`ops.stats.masked_stats_many`), its mean taken in float64 and
+    rounded to float32 as the per-call drill takes it; pixel-count mode
+    through the plain reduction, as per call.  Every row is reduced
+    alone, so each drill's result equals its per-call one."""
+    from .drill import masked_mean
+    from .stats import masked_stats_many
+    datas, valids = list(datas), list(valids)
+    if pixel_count:
+        # integer counts only: block by block, no stack is copied
+        outs = [masked_mean(d, v, clip_lower, clip_upper, pixel_count=True)
+                for d, v in zip(datas, valids)]
+        return (torch.stack([v for v, _ in outs]),
+                torch.stack([c for _, c in outs]))
+    s, c = masked_stats_many(datas, valids, clip_lower, clip_upper)
+    vals = torch.where(c > 0, s.double() / c.clamp_min(1).double(),
+                       torch.zeros((), dtype=torch.float64,
+                                   device=s.device)).to(torch.float32)
+    return vals, c

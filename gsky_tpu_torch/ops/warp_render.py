@@ -38,7 +38,7 @@ MAX_NS = 8
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("warp_render.cu", {
-    "launch_paged_render": [_CI, _CI] + [_VP] * 7 + [_CI] * 8 + [_VP],
+    "launch_paged_render": [_CI, _CI] + [_VP] * 7 + [_CI] * 8 + [_VP] * 2,
     "launch_warp_render": [_CI, _CI] + [_VP] * 7 + [_CI] * 5,
     "launch_empty": [],
 })

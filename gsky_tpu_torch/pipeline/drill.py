@@ -17,11 +17,14 @@ Counterpart of `gsky_tpu/pipeline/drill.py`:
 4. merge: per-date count-weighted means across files, then band
    expressions per date; decile columns become ``ns_d1..9``.
 
-Semantics are the reference's per-call ones (``GSKY_WAVES=0``).  Not
-ported, and raising NotImplementedError where a request needs them: VRT
-granules, geolocation-array (curvilinear) files, the mesh path
-(``GSKY_SPMD=1``) and the wave path (``GSKY_WAVES`` set to anything but
-0).  There is no fallback: a failure on the device path raises.
+With waves on (``GSKY_WAVES``, default on) a resident-stack reduction
+is a lane of the device's wave (`pipeline.waves`): concurrent drills of
+one window shape and clip are reduced by one launch of B3's K-block
+form, each drill's rows exactly as per call.  Not ported, and raising
+NotImplementedError where a request needs them: VRT granules,
+geolocation-array (curvilinear) files and the mesh path
+(``GSKY_SPMD=1``).  There is no fallback: a failure on the device path
+raises.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from ..ops.raster import nodata_mask
 from ..ops.stats import masked_stats
 from . import drill_cache as DC
 from .executor import _bucket_pow2
+from .waves import default_waves, waves_enabled
 from .types import DrillResult, GeoDrillRequest
 
 # host-clock stages of a drill: "gather" and "stats" are the host side
@@ -445,12 +449,18 @@ def _stats_tail(dataf, validf, req: GeoDrillRequest,
         raise NotImplementedError(
             "the mesh drill path (GSKY_SPMD=1) is not ported to "
             "gsky_tpu_torch yet")
-    if os.environ.get("GSKY_WAVES", "0") != "0":
-        raise NotImplementedError(
-            "the wave drill path is not ported to gsky_tpu_torch yet; "
-            "it serves per call (GSKY_WAVES=0)")
     spans = spans or _Spans()
     t0 = time.perf_counter()
+    if waves_enabled():
+        # host (vals, counts), each as the per-call branch computes it
+        vals, c = default_waves(dataf.device).drill_stats(
+            dataf, validf, req.clip_lower, req.clip_upper,
+            req.pixel_count)
+        t0 = spans.add("stats", t0)
+        dec = D.deciles(dataf, validf, req.deciles).cpu().numpy() \
+            if req.deciles else np.zeros((dataf.shape[0], 0), np.float32)
+        spans.add("readback", t0)
+        return vals, c, dec
     if not req.pixel_count:
         s, c = masked_stats(dataf, validf, req.clip_lower, req.clip_upper)
     else:

@@ -23,6 +23,12 @@ window leg, taken when a scene is uncacheable: per source CRS, the
 windows (validity NaN-encoded) go through B2 with the group's own
 control grid, then the same combine.
 
+With waves on (``GSKY_WAVES``, default on) a tile the paged leg serves
+is not launched here: it becomes a lane of the device's wave
+(`pipeline.waves`), which renders every concurrent lane in one B1
+launch and returns host arrays.  Declined tiles, the decoded-window leg
+and multi-CRS mosaics stay per call.
+
 `warp_all` serves the masked route: every decoded window is
 projected per dst pixel on the host (float64, cached per dst grid and
 source CRS), padded into source-shape buckets and warped by one
@@ -51,6 +57,7 @@ from ..ops.warp_render import render_scenes, warp_scenes_scored
 from .decode import DecodedWindow
 from .pages import PagePool
 from .scene_cache import DeviceScene, SceneCache
+from .waves import BucketedLane, default_waves, waves_enabled
 
 _WIN_MARGIN = 2  # covers cubic's +2 tap and f32-vs-f64 coord rounding
 # host-clock stages of one fused tile: "index" is recorded by the tile
@@ -126,6 +133,19 @@ class SceneGroup:
     step: int
 
 
+def _serials(group: SceneGroup):
+    """A wave lane's scene identity: its scenes' serials and the padded
+    granule count (the reference's stack key)."""
+    return tuple(s.serial for s in group.scenes) + (len(group.params),)
+
+
+def _bucketed_lane(group: SceneGroup) -> BucketedLane:
+    n = len(group.scenes)
+    return BucketedLane([s.dev for s in group.scenes],
+                        group.params[:n].astype(np.float32), group.ctrl_dev,
+                        (len(group.params),) + tuple(group.scenes[0].bucket))
+
+
 class WarpExecutor:
     """Dispatches cached-scene tiles to the fused warp-render kernels."""
 
@@ -156,6 +176,15 @@ class WarpExecutor:
         with self._lock:
             self.spans[name] = self.spans.get(name, 0.0) + now - t0
         return now
+
+    def warm_scene(self, g, dst_gt: GeoTransform, dst_crs: CRS,
+                   height: int, width: int):
+        """Load one granule's scene into the device cache at the
+        overview level this destination grid needs (the level
+        `_scene_groups` picks); the `DeviceScene`, or None when it is
+        uncacheable."""
+        return self.cache.get(g, self._granule_stride(g, dst_gt, dst_crs,
+                                                      height, width))
 
     def _geo_cache_get(self, key):
         with self._lock:
@@ -501,6 +530,12 @@ class WarpExecutor:
         with self._lock:
             self.paged_engaged += 1
         dev = self.device
+        if waves_enabled():
+            c, v = default_waves(dev).warp_scored(
+                self.pool, tables, params16, group.ctrl,
+                (method, n_pad, (height, width), group.step),
+                _bucketed_lane(group), _serials(group))
+            return torch.from_numpy(c).to(dev), torch.from_numpy(v).to(dev)
         try:
             with self.pool.locked_pool() as pool:
                 canv, best = warp_scored_paged(
@@ -568,8 +603,10 @@ class WarpExecutor:
                            clip: float = 0.0, colour_scale: int = 0,
                            auto: bool = True):
         """Whole-tile fast path: cached scenes -> PNG-ready uint8 (H, W)
-        tensor on the executor's device (255 = nodata), or None when the
-        granule set is not one uniform group or a scene is uncacheable."""
+        (255 = nodata), or None when the granule set is not one uniform
+        group or a scene is uncacheable.  A tile the paged leg serves
+        comes back from its wave as a host array when waves are on; else
+        the result is a tensor on the executor's device."""
         t = time.perf_counter()
         groups = self._scene_groups(granules, ns_ids, prios, dst_gt,
                                     dst_crs, height, width)
@@ -588,6 +625,12 @@ class WarpExecutor:
             with self._lock:
                 self.paged_engaged += 1
             dev = self.device
+            if waves_enabled():
+                out = default_waves(dev).render_byte(
+                    self.pool, tables, params16, group.ctrl, sp, statics,
+                    _bucketed_lane(group), _serials(group))
+                self.add_span("dispatch", t)
+                return out
             try:
                 with self.pool.locked_pool() as pool:
                     out = render_byte_paged(

@@ -20,6 +20,11 @@ kernel has read it, because eviction never touches a PINNED slot —
 Page geometry comes from GSKY_PAGE_SIZE, the pool size from
 GSKY_PAGE_POOL_MB, exactly as the JAX package reads them, so both
 pools build identical tables from the same scenes.
+
+A pipelined wave (`pipeline.waves`) stages its tables one wave ahead of
+its launch: `handoff` takes the pool's staging generation at assembly
+and `handoff_ok` confirms it at dispatch.  `union_table` merges the
+pinned tables of a superblock's lanes (`pipeline.autoplan`).
 """
 
 from __future__ import annotations
@@ -69,6 +74,10 @@ class PagePool:
         self.hits = 0
         self.evictions = 0
         self.declined = 0
+        # staging generation of the slot namespace (`handoff`): the
+        # reference bumps it when a device incident tears the pool down;
+        # the port has no teardown yet (ROADMAP A.10), so it stays 0
+        self._handoff_gen = 0
 
     # -- internals (hold self.lock) -----------------------------------
 
@@ -165,6 +174,18 @@ class PagePool:
             self._ensure_pool()
             yield self._pool
 
+    def handoff(self) -> int:
+        """The staging generation, taken when a wave is assembled."""
+        with self.lock:
+            return self._handoff_gen
+
+    def handoff_ok(self, gen: int) -> bool:
+        """True while a `handoff` token is still dispatchable: the slot
+        namespace is the one the wave's tables were built in (eviction
+        cannot change it: the wave's slots stay pinned)."""
+        with self.lock:
+            return self._handoff_gen == int(gen)
+
     def stats(self):
         with self.lock:
             return {
@@ -179,3 +200,22 @@ class PagePool:
                 "pool_bytes": (self.capacity * self.page_rows
                                * self.page_cols * 4),
             }
+
+
+def union_table(members, i0: int, i1: int, j0: int, j1: int):
+    """One row-major table over the union page rect (i0..i1) x (j0..j1)
+    from ``members``, each (slots, mi0, mi1, mj0, mj1): a lane's pinned
+    table over its own rect.  Pages are content-keyed, so members that
+    cover one page agree on its slot; positions no member covers keep
+    slot 0, the null page.  No staging and no new pins."""
+    nj = int(j1) - int(j0) + 1
+    ni = int(i1) - int(i0) + 1
+    out = np.zeros(ni * nj, np.int32)
+    for slots, mi0, mi1, mj0, mj1 in members:
+        row = np.asarray(slots, np.int32).reshape(-1)
+        mnj = int(mj1) - int(mj0) + 1
+        for pi in range(int(mi0), int(mi1) + 1):
+            for pj in range(int(mj0), int(mj1) + 1):
+                out[(pi - int(i0)) * nj + (pj - int(j0))] = \
+                    row[(pi - int(mi0)) * mnj + (pj - int(mj0))]
+    return out

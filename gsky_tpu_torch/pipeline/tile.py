@@ -3,7 +3,10 @@
 Counterpart of the GetMap half of `gsky_tpu/pipeline/tile.py`, two
 routes:
 
-- `render_composite_byte`, the fused single-band route: one MAS query,
+- `render_composite_byte`, the fused single-band route (its halves
+  `composite_prep` / `composite_dispatch` are also run apart, by the
+  staged GetMap path and per frame of an animation, `animation_prep`
+  indexing a whole TIME list at once): one MAS query,
   granule expansion, namespace slots and newest-first mosaic priorities
   (`ns_prio`), then `WarpExecutor.render_byte_scenes` (kernels B1/B2);
 - `process` -> `render`, the modular route the OWS front end falls back
@@ -26,6 +29,7 @@ its ROADMAP item.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -165,21 +169,79 @@ class TilePipeline:
 
     # -- the fused single-band route -----------------------------------
 
-    def composite_prep(self, req: GeoTileRequest):
-        """ONE index pass for the fused composite path: (granules,
-        ns_ids, prio, n_ns), or None when the request has a mask band or
-        no granules."""
+    @staticmethod
+    def _fused_ok(req: GeoTileRequest) -> bool:
+        """Whether the fused composite route serves ``req``: no mask
+        band; a band expression that is not a bare variable raises
+        (fused band algebra, ROADMAP A.7)."""
         if req.mask is not None:
-            return None
+            return False
         if any(ce._ast[0] != "var" for ce in req.band_exprs.expressions):
             raise NotImplementedError(
                 "fused band algebra is not ported yet (ROADMAP A.7): "
                 f"{req.band_exprs.expr_text}")
-        granules = self.index(req)
+        return True
+
+    def composite_prep(self, req: GeoTileRequest,
+                       stats: Optional[Dict[str, int]] = None,
+                       spans: Optional[Dict[str, float]] = None):
+        """ONE index pass for the fused composite path: (granules,
+        ns_ids, prio, n_ns), or None when the request has a mask band or
+        no granules.  ``stats`` gets the granule and file counts,
+        ``spans["index_s"]`` the index query's seconds."""
+        if not self._fused_ok(req):
+            return None
+        granules = self._timed_index(req, spans)
         if not granules:
             return None
+        _note_counts(stats, granules)
         _, ns_ids, prio = ns_prio(granules)
         return granules, ns_ids, prio, len(set(ns_ids))
+
+    def _timed_index(self, req: GeoTileRequest,
+                     spans: Optional[Dict[str, float]]):
+        t0 = time.perf_counter()
+        granules = self.index(req)
+        if spans is not None:
+            spans["index_s"] = spans.get("index_s", 0.0) \
+                + time.perf_counter() - t0
+        return granules
+
+    def animation_prep(self, req: GeoTileRequest, times: Sequence[float],
+                       stats: Optional[Dict[str, int]] = None,
+                       spans: Optional[Dict[str, float]] = None):
+        """ONE index pass for a TIME animation: a single MAS query over
+        [min(times), max(times)], partitioned per frame as a lone GetMap
+        at that time selects (|timestamp - t| < 1 s, untimed granules in
+        every frame); a frame with no exact match takes the nearest
+        timestep (WMS-T nearest value), so frames between two source
+        dates share one granule set.  A list aligned with ``times`` of
+        `composite_prep`-form tuples (None for a frame with no granule),
+        or None when the fused route does not serve the request (a mask
+        band, no granules): each frame then renders on its own."""
+        if not self._fused_ok(req):
+            return None
+        span_req = dataclasses.replace(req, start_time=min(times),
+                                       end_time=max(times) + 1.0)
+        granules = self._timed_index(span_req, spans)
+        if not granules:
+            return None
+        _note_counts(stats, granules)
+        untimed = [g for g in granules if g.timestamp == 0.0]
+        timed = [g for g in granules if g.timestamp != 0.0]
+        frames = []
+        for t in times:
+            fg = [g for g in timed if abs(g.timestamp - t) < 1.0]
+            if not fg and timed:
+                best = min(abs(g.timestamp - t) for g in timed)
+                fg = [g for g in timed if abs(g.timestamp - t) == best]
+            fg = fg + untimed
+            if not fg:
+                frames.append(None)
+                continue
+            ns_names, ns_ids, prio = ns_prio(fg)
+            frames.append((fg, ns_ids, prio, len(ns_names)))
+        return frames
 
     def composite_dispatch(self, req: GeoTileRequest, made,
                            offset: float = 0.0, scale: float = 0.0,
@@ -195,9 +257,10 @@ class TilePipeline:
                               offset: float = 0.0, scale: float = 0.0,
                               clip: float = 0.0, colour_scale: int = 0,
                               auto: bool = True):
-        """One-dispatch GetMap: the PNG-ready uint8 (H, W) tensor on the
-        pipeline's device (255 = nodata), or None when the request does
-        not qualify (mask band, no granules, uncacheable scenes)."""
+        """One-dispatch GetMap: the PNG-ready uint8 (H, W) (255 =
+        nodata), a host array when a wave rendered it, else a tensor on
+        the pipeline's device; or None when the request does not qualify
+        (mask band, no granules, uncacheable scenes)."""
         t0 = time.perf_counter()
         made = self.composite_prep(req)
         self.executor.add_span("index", t0)
@@ -335,6 +398,12 @@ class TilePipeline:
                                                    for g in granules}))
         ex.add_span("expr", t)
         return out
+
+
+def _note_counts(stats: Optional[Dict[str, int]], granules) -> None:
+    if stats is not None:
+        stats["granules"] = len(granules)
+        stats["files"] = len({g.path for g in granules})
 
 
 def evaluate_expressions(exprs: BandExpressions,

@@ -7,15 +7,27 @@ answers with a `Response`; errors come back as an OGC ServiceException.
 `OWSServer.serve` binds it to a socket with the standard library's
 threaded HTTP server, one thread a connection.
 
-GetMap runs the reference's serial ladder (its ``GSKY_TILE_PIPELINE=0``
-path, which its staged path equals byte for byte): size checks, the
-zoom limit (an overview layer, or the placeholder tile), then for a
-single-band style the fused route (`TilePipeline.render_composite_byte`,
-kernels B1/B2) and its PNG; when that declines (a mask band, granules in
-several source CRSs, an uncacheable scene, a fusion layer, no
-granules), the modular route (`TilePipeline.process`), byte scaling per
-band and the PNG.  A one-band tile takes the style's or the layer's
-palette.
+GetMap runs the reference's ladder: size checks, the zoom limit (an
+overview layer, or the placeholder tile), then for a single-band style
+the fused route and its PNG: by default the staged path
+(`pipeline.tile_stages.render_staged`: plan, index, decode, dispatch,
+readback), with ``GSKY_TILE_PIPELINE=0`` the serial
+`TilePipeline.render_composite_byte`, both through kernels B1/B2 and,
+with waves on, as lanes of the device's wave.  When the fused route
+declines (a mask band, granules in several source CRSs, an uncacheable
+scene, a fusion layer, no granules), the modular route
+(`TilePipeline.process`), byte scaling per band and the PNG.  A one-band
+tile takes the style's or the layer's palette.
+
+A TIME list with an animation format (``image/apng``; ``video/mp4`` is
+answered with the same APNG, labelled ``X-Gsky-Anim-Container:
+apng-stub``) is an animation: one index pass
+(`TilePipeline.animation_prep`), every frame a lane of one wave, sent
+from ``GSKY_ANIM_WORKERS`` threads, the frames' PNGs spliced into one
+APNG (`io.png.ApngAssembler`) whose frame count is the header
+``X-Gsky-Anim-Frames``.  A layer the fused route does not serve (a mask
+band) renders each frame on its own through the modular route (B4).
+``GSKY_ANIM=0`` answers such a request with one image over the range.
 
 Requests the port cannot serve yet get HTTP 501 with exception code
 ``OperationNotSupported`` and a message naming the ROADMAP item, as
@@ -27,32 +39,35 @@ workers.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import os
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..geo.transform import pixel_resolution
 from ..index.store import parse_time
-from ..io.png import empty_tile_png, encode_png
+from ..io.png import ApngAssembler, empty_tile_png, encode_png
 from ..ops.palette import gradient_palette, with_nodata_entry
 from ..ops.scale import scale_params_auto, scale_to_byte
 from ..pipeline.executor import WarpExecutor
 from ..pipeline.tile import TilePipeline, evaluate_expressions
+from ..pipeline.tile_stages import render_staged, tile_pipeline_enabled
 from ..pipeline.types import AxisSelector, GeoTileRequest, MaskSpec
 from ..resilience import TooManyFailures
 from . import templates as T
 from .config import Config, ConfigWatcher, Layer, get_layer_dates
 from .params import OWSError, infer_service, normalise_query, parse_wms
 
-# output formats of the reference's TIME animation (ROADMAP A.3)
+# output formats of a TIME animation
 _ANIM_FORMATS = ("image/apng", "video/mp4")
 _JPEG_FORMATS = ("image/jpeg", "image/jpg")
 # host-clock stages of a request (`OWSServer.spans`): "parse" until the
@@ -61,11 +76,50 @@ _JPEG_FORMATS = ("image/jpeg", "image/jpg")
 STAGES = ("parse", "render", "encode")
 
 
+def anim_enabled() -> bool:
+    """GSKY_ANIM=0 serves a TIME list with an animation format as one
+    image over the range (default on)."""
+    return os.environ.get("GSKY_ANIM", "1") != "0"
+
+
+def _anim_delay_ms() -> int:
+    """A frame's display time in the APNG (GSKY_ANIM_DELAY_MS, default
+    500)."""
+    try:
+        return max(1, int(os.environ.get("GSKY_ANIM_DELAY_MS", "500")))
+    except ValueError:
+        return 500
+
+
+def _anim_max_frames() -> int:
+    """Most frames an animation renders (GSKY_ANIM_MAX_FRAMES, default
+    64; <= 0 no limit): a longer TIME list is cut to it."""
+    try:
+        return int(os.environ.get("GSKY_ANIM_MAX_FRAMES", "64"))
+    except ValueError:
+        return 64
+
+
+def _anim_workers() -> int:
+    """Threads that send an animation's frames (GSKY_ANIM_WORKERS,
+    default 8): frames in flight together share a wave."""
+    try:
+        return max(1, int(os.environ.get("GSKY_ANIM_WORKERS", "8")))
+    except ValueError:
+        return 8
+
+
+def _host(tile) -> np.ndarray:
+    """A byte tile on the host: a wave's result is; a tensor is copied."""
+    return tile if isinstance(tile, np.ndarray) else tile.cpu().numpy()
+
+
 @dataclass
 class Response:
     status: int
     content_type: str
     body: bytes
+    headers: Dict[str, str] = field(default_factory=dict)
 
 
 def _unported(what: str, item: str) -> OWSError:
@@ -312,9 +366,9 @@ class OWSServer:
                 source = use  # the style still scales and colours it
 
         fmt = p.format.lower()
-        if len(p.times) > 1 and fmt in _ANIM_FORMATS \
+        if len(p.times) > 1 and fmt in _ANIM_FORMATS and anim_enabled() \
                 and not lay.input_layers:
-            raise _unported("TIME animation", "A.3")
+            return self._getmap_animation(cfg, p, lay, source, style, clock)
         if fmt in _JPEG_FORMATS:
             raise _unported("JPEG output", "A.17")
         req = self._tile_request(source, style, p, p.width, p.height,
@@ -331,11 +385,19 @@ class OWSServer:
         if not lay.input_layers and n_exprs == 1:
             # the fused route: warp, mosaic and byte scale in one
             # dispatch, one readback
-            sb = pipe.render_composite_byte(
-                req, style.offset_value, style.scale_value,
-                style.clip_value, style.colour_scale, auto)
-            if sb is not None:
-                scaled = [sb.cpu().numpy()]
+            if tile_pipeline_enabled():
+                made = render_staged(
+                    pipe, req, n_exprs, style.offset_value,
+                    style.scale_value, style.clip_value,
+                    style.colour_scale, auto)
+                if made is not None:
+                    scaled = [made[1]]
+            else:
+                sb = pipe.render_composite_byte(
+                    req, style.offset_value, style.scale_value,
+                    style.clip_value, style.colour_scale, auto)
+                if sb is not None:
+                    scaled = [_host(sb)]
         if scaled is None:
             res = _render_with_fusion(pipe, req, lay)
             bands = [res.data[n] for n in res.namespaces if n in res.data]
@@ -362,6 +424,100 @@ class OWSServer:
         png = encode_png(scaled, palette, compress_level=level)
         clock.mark("encode")
         return _png(png)
+
+    def _getmap_animation(self, cfg: Config, p, lay: Layer, source: Layer,
+                          style: Layer, clock: _Clock) -> Response:
+        """A TIME animation: one index pass, the frames as lanes of one
+        wave (or, for a layer the fused route does not serve, each on
+        its own through the modular route), one APNG."""
+        times = list(p.times)
+        maxf = _anim_max_frames()
+        if maxf > 0 and len(times) > maxf:
+            times = times[:maxf]
+        req = self._tile_request(source, style, p, p.width, p.height,
+                                 lay.wms_polygon_segments)
+        n_exprs = len(req.band_exprs.expr_names)
+        if n_exprs > 1:
+            raise _unported(f"a {n_exprs}-band (RGB) GetMap", "A.13")
+        pipe = self._pipeline(cfg)
+        auto = scale_params_auto(style.offset_value, style.scale_value,
+                                 style.clip_value)
+        clock.mark("parse")
+        made = pipe.animation_prep(req, times)
+        if made is not None:
+            planes = self._anim_frames_wave(pipe, req, times, made, style,
+                                            auto)
+        else:
+            planes = self._anim_frames_serial(pipe, req, times, lay, style,
+                                              auto)
+        clock.mark("render")
+        palette = None
+        if all(len(pl) == 1 for pl in planes) \
+                and (style.palette or lay.palette):
+            spec = style.palette or lay.palette
+            palette = with_nodata_entry(
+                gradient_palette(spec.colours, spec.interpolate))
+        level = _png_level(lay, style)
+        asm = ApngAssembler(len(planes), delay_ms=_anim_delay_ms())
+        body = b"".join(asm.frame(encode_png(pl, palette,
+                                             compress_level=level))
+                        for pl in planes) + asm.trailer()
+        clock.mark("encode")
+        headers = {"X-Gsky-Anim-Frames": str(len(planes))}
+        if p.format.lower() == "video/mp4":
+            # no mp4 muxer: the same APNG, labelled as such
+            headers["X-Gsky-Anim-Container"] = "apng-stub"
+        return Response(200, "image/apng", body, headers)
+
+    @staticmethod
+    def _anim_frames_wave(pipe: TilePipeline, req: GeoTileRequest, times,
+                          made, style: Layer, auto: bool):
+        """Each frame's fused dispatch on its own granule set, sent from
+        ``GSKY_ANIM_WORKERS`` threads so that the frames meet in one
+        wave.  One [byte plane] list per frame; a frame with no granule,
+        or whose scenes the fused route does not serve, is all nodata."""
+        def one(i):
+            fr = dataclasses.replace(req, start_time=times[i],
+                                     end_time=None)
+            out = None
+            if made[i] is not None:
+                out = pipe.composite_dispatch(
+                    fr, made[i], style.offset_value, style.scale_value,
+                    style.clip_value, style.colour_scale, auto)
+                if out is None:
+                    out = pipe.render_composite_byte(
+                        fr, style.offset_value, style.scale_value,
+                        style.clip_value, style.colour_scale, auto)
+            if out is None:
+                return np.full((req.height, req.width), 255, np.uint8)
+            return _host(out)
+
+        n = len(times)
+        with cf.ThreadPoolExecutor(max_workers=min(n, _anim_workers()),
+                                   thread_name_prefix="gsky-anim") as ex:
+            return [[a] for a in ex.map(one, range(n))]
+
+    @staticmethod
+    def _anim_frames_serial(pipe: TilePipeline, req: GeoTileRequest, times,
+                            lay: Layer, style: Layer, auto: bool):
+        """Each frame through the modular route on its own index pass."""
+        frames = []
+        for t in times:
+            fr = dataclasses.replace(req, start_time=t, end_time=None)
+            res = _render_with_fusion(pipe, fr, lay)
+            bands = [res.data[n] for n in res.namespaces if n in res.data]
+            valids = [res.valid[n] for n in res.namespaces
+                      if n in res.valid]
+            if not bands:
+                frames.append([np.full((fr.height, fr.width), 255,
+                                       np.uint8)])
+                continue
+            frames.append([scale_to_byte(
+                b, v, offset=style.offset_value, scale=style.scale_value,
+                clip=style.clip_value, colour_scale=style.colour_scale,
+                auto=auto).cpu().numpy()
+                for b, v in zip(bands[:4], valids[:4])])
+        return frames
 
     # -- HTTP -----------------------------------------------------------------
 
@@ -399,6 +555,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.headers.get("Host", ""))
         self.send_response(resp.status)
         self.send_header("Content-Type", resp.content_type)
+        for k, v in resp.headers.items():
+            self.send_header(k, v)
         self.send_header("Content-Length", str(len(resp.body)))
         self.end_headers()
         self.wfile.write(resp.body)

@@ -57,16 +57,19 @@ def kernels(root):
     text = open(b1_src).read()
     staged = "stage_bytes" in text
     pointers = "ScenePtrs" in text
+    # B1 takes a superblock row map (null here) after its counter
+    sb = "sb_of" in text
     # the staged B1 takes (h, w, staging bytes, counter), the one-row
     # design before it took h * w; B2 takes a host array of scene
     # pointers and a device table where it took one dense stack
-    b1_sig = [CI, CI] + [VP] * 7 + ([CI] * 8 + [VP] if staged else [CI] * 6)
+    b1_sig = [CI, CI] + [VP] * 7 + ([CI] * 8 + [VP] if staged else [CI] * 6) \
+        + ([VP] if sb else [])
     b2_sig = [CI, CI] + [VP] * (7 if pointers else 6) + [CI] * 5
     b1 = cuda_lib.CudaLibrary(b1_src, {"launch_paged_render": b1_sig,
                                        "launch_warp_render": b2_sig})
     b4 = cuda_lib.CudaLibrary(os.path.join(csrc, "first_valid.cu"), {
         "launch_first_valid": [VP, VP, CI, CLL, VP, VP]})
-    return b1, b4, staged, pointers
+    return b1, b4, staged, pointers, sb
 
 
 def time_b2(pipe, root, native_box, libs, names, order, card):
@@ -88,7 +91,7 @@ def time_b2(pipe, root, native_box, libs, names, order, card):
         stack = torch.stack(scenes) if not all(l[3] for l in libs) else None
         for method in cs.METHODS:
             def launch(i, out):
-                lib, _, _, pointers = libs[i]
+                lib, _, _, pointers, _ = libs[i]
                 scene_args = [ptrs, None] if pointers else [stack.data_ptr()]
                 rc = lib.load().launch_warp_render(
                     method_code(method), 1, *scene_args, p16.data_ptr(),
@@ -156,12 +159,12 @@ def main() -> int:
             _, pr, pc = parr.shape
             for method in cs.METHODS:
                 def launch(i, out):
-                    b1, _, staged, _ = libs[i]
+                    b1, _, staged, _, sb = libs[i]
                     head = [method_code(method), 1] + [
                         x.data_ptr() for x in (parr, tab, prm, sx, sy, *out)]
                     tail = [N, T, S, pr, pc] + (
                         [h, w, paged.STAGE_BUDGET, direct.data_ptr()]
-                        if staged else [h * w])
+                        if staged else [h * w]) + ([None] if sb else [])
                     rc = b1.load().launch_paged_render(*head, *tail, stream())
                     if rc:
                         raise RuntimeError(f"B1 {names[i]}: CUDA error {rc}")

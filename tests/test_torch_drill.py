@@ -628,10 +628,6 @@ def test_times_match_identical(archive):
 def test_unported_branches_raise(archive, monkeypatch):
     _, tp = _pipelines(archive)
     _, treq = _requests(archive, bands=["a"])
-    monkeypatch.setenv("GSKY_WAVES", "1")
-    with pytest.raises(NotImplementedError, match="wave"):
-        tp.process(treq)
-    monkeypatch.setenv("GSKY_WAVES", "0")
     monkeypatch.setenv("GSKY_SPMD", "1")
     with pytest.raises(NotImplementedError, match="mesh"):
         tp.process(treq)

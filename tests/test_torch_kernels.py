@@ -186,6 +186,73 @@ class TestPagedB1:
         assert trender.paged_render_kernel.launches == launches
 
 
+def _superblock_inputs(seed, method_lanes=4):
+    """Two superblock rows over one staged pool: row 0 every granule's
+    whole scene, row 1 the same with granule 1's table nulled; four
+    lanes (rows 0, 1, 0, 1), each its own ctrl grid and affine."""
+    stack, ctrl, params, h, w, step, n_ns = _inputs(seed=seed, B=3)
+    pool, tables, p16 = _ref_pool(stack, params)
+    T, S = tables.shape
+    sb_tables = np.stack([tables, tables])
+    sb_tables[1, 1] = 0
+    sb_of = np.array([0, 1, 0, 1][:method_lanes], np.int32)
+    N = sb_of.size
+    lanes_p16 = np.repeat(p16[None], N, 0)
+    ctrls = np.repeat(ctrl[None], N, 0)
+    for n in range(N):
+        lanes_p16[n, :, 0] += 0.75 * n
+        lanes_p16[n, :, 3] -= 0.5 * n
+        ctrls[n] += np.float32(1.5 * n)
+    return (pool, sb_tables, lanes_p16.reshape(N * T, 16), ctrls, sb_of,
+            (h, w), step, n_ns)
+
+
+class TestPagedB1Superblocks:
+    """B1 with ``sb_of``: tables (G, T, S), lane n reading row sb_of[n]
+    (the wave planner's superblocks), against the Pallas program's
+    ``pool[tables][sb_of]`` gather in interpret mode."""
+
+    @pytest.mark.parametrize("method", METHODS)
+    def test_plain_vs_pallas_interpret(self, method):
+        pool, tables, p16, ctrls, sb_of, hw, step, n_ns = \
+            _superblock_inputs(seed=21)
+        with pool.locked_pool() as parr:
+            cj, bj = jpaged.warp_scored_paged(
+                parr, jnp.asarray(tables), jnp.asarray(p16),
+                jnp.asarray(ctrls), method, n_ns, hw, step, interpret=True,
+                sb_of=jnp.asarray(sb_of))
+        tpool = pool_from_reference(np.asarray(pool._pool), pool._slots,
+                                    device="cpu")
+        with tpool.locked_pool() as parr:
+            ct, bt = tpaged.warp_scored_paged(
+                parr, torch.from_numpy(tables), torch.from_numpy(p16),
+                torch.from_numpy(ctrls), method, n_ns, hw, step,
+                sb_of=torch.from_numpy(sb_of))
+        for n in range(sb_of.size):
+            _check(method, np.asarray(cj[n]), np.asarray(bj[n]),
+                   ct[n].numpy(), bt[n].numpy())
+        assert np.isfinite(bt.numpy()).any()
+
+    def test_lane_equals_its_row_rendered_alone(self):
+        pool, tables, p16, ctrls, sb_of, hw, step, n_ns = \
+            _superblock_inputs(seed=22)
+        tpool = pool_from_reference(np.asarray(pool._pool), pool._slots,
+                                    device="cpu")
+        T = tables.shape[1]
+        with tpool.locked_pool() as parr:
+            ct, bt = tpaged.warp_scored_paged(
+                parr, torch.from_numpy(tables), torch.from_numpy(p16),
+                torch.from_numpy(ctrls), "bilinear", n_ns, hw, step,
+                sb_of=torch.from_numpy(sb_of))
+            for n, g in enumerate(sb_of):
+                c1, b1 = tpaged.warp_scored_paged(
+                    parr, torch.from_numpy(tables[g][None]),
+                    torch.from_numpy(p16[n * T:(n + 1) * T]),
+                    torch.from_numpy(ctrls[n][None]), "bilinear", n_ns,
+                    hw, step)
+                assert torch.equal(c1[0], ct[n]) and torch.equal(b1[0], bt[n])
+
+
 def _b1_grid(h, w, scale, angle, x0, y0):
     """sx/sy (h, w) f32: a dst grid rotated by ``angle`` degrees and
     zoomed out by ``scale`` source pixels a dst pixel, from (x0, y0)."""
@@ -678,6 +745,50 @@ class TestMaskedStatsB3:
         with pytest.raises(ValueError):
             tstats.masked_stats(t, t.bool())
 
+
+
+class TestMaskedStatsB3Blocks:
+    """B3's K-block form (the drill wave's reduction): its plain version
+    against the JAX package's `wave_drill_stats` (counts equal, means
+    within rtol 1e-5), and each block's rows bit for bit its per-call
+    reduction's."""
+
+    @pytest.mark.parametrize("K,B,N,edge", [(1, 3, 500, False),
+                                            (4, 7, 2049, True),
+                                            (3, 5, 7000, False)])
+    @pytest.mark.parametrize("pixel_count", [False, True])
+    def test_plain_vs_reference_wave_drill_stats(self, K, B, N, edge,
+                                                 pixel_count):
+        blocks = [_b3_inputs(100 * K + k, B, N, edge) for k in range(K)]
+        vj, cj = jpaged.wave_drill_stats(
+            jnp.asarray(np.stack([d for d, _ in blocks])),
+            jnp.asarray(np.stack([v for _, v in blocks])), -80.0, 120.0,
+            pixel_count=pixel_count)
+        vt, ct = tpaged.wave_drill_stats(
+            [torch.from_numpy(d) for d, _ in blocks],
+            [torch.from_numpy(v) for _, v in blocks], -80.0, 120.0,
+            pixel_count)
+        assert vt.shape == (K, B) and vt.dtype == torch.float32
+        np.testing.assert_array_equal(np.asarray(cj), ct.numpy())
+        np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-5,
+                                   atol=1e-6)
+
+    def test_blocks_equal_per_call_rows(self):
+        blocks = [_b3_inputs(7 + k, 5, 4097, edge=True) for k in range(4)]
+        s, c = tstats.masked_stats_many(
+            [torch.from_numpy(d) for d, _ in blocks],
+            [torch.from_numpy(v) for _, v in blocks], -80.0, 120.0)
+        for k, (d, v) in enumerate(blocks):
+            s1, c1 = tstats.masked_stats(torch.from_numpy(d),
+                                         torch.from_numpy(v), -80.0, 120.0)
+            assert torch.equal(s[k], s1) and torch.equal(c[k], c1)
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        launches = tstats.masked_stats_many_kernel.launches
+        d, v = _b3_inputs(1, 2, 100)
+        tstats.masked_stats_many([torch.from_numpy(d)],
+                                 [torch.from_numpy(v)])
+        assert tstats.masked_stats_many_kernel.launches == launches
 
 
 def _b4_inputs(seed, T, H, W, edge=False, p_valid=0.4):

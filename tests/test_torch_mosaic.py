@@ -373,8 +373,9 @@ class TestNoOpMask:
         _, treq = _requests(archive["root"], ["LC08_B4"], "near", None,
                             hw=(128, 128))
         pipe = TilePipeline(MASClient(archive["tstore"]), device="cpu")
-        fused = pipe.render_composite_byte(treq, scale=0.1, clip=2540.0,
-                                           auto=False).numpy()
+        # a host array from its wave (waves on), a tensor per call
+        fused = np.asarray(pipe.render_composite_byte(
+            treq, scale=0.1, clip=2540.0, auto=False))
         res = pipe.process(dataclasses.replace(
             treq, mask=MaskSpec(id="pixel_qa", value="0")))
         mod = scale_to_byte(res.data["LC08_B4"], res.valid["LC08_B4"],

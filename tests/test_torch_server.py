@@ -570,11 +570,170 @@ def test_capabilities(env):
             in got[2]
 
 
+# ---------------------------------------------------------------------------
+# waves, the staged path and TIME animations
+# ---------------------------------------------------------------------------
+
+# frames at the data collection's two dates, then half a day after the
+# second (no exact match: the nearest date, 2020-01-11)
+T_FRAMES = ("2020-01-10T00:00:00.000Z,2020-01-11T00:00:00.000Z,"
+            "2020-01-11T12:00:00.000Z")
+FRAME_DATES = ("2020-01-10T00:00:00.000Z", "2020-01-11T00:00:00.000Z",
+               "2020-01-11T00:00:00.000Z")
+T_MASK_FRAMES = "2020-01-10T00:00:00.000Z,2020-02-11T00:00:00.000Z"
+
+
+@pytest.fixture
+def waves_on(monkeypatch):
+    """Both packages with their default wave path and staged GetMap
+    path; their schedulers shut down afterwards."""
+    from gsky_tpu.pipeline import waves as jwaves
+    from gsky_tpu_torch.pipeline import waves as twaves
+    monkeypatch.setenv("GSKY_WAVES", "1")
+    monkeypatch.setenv("GSKY_TILE_PIPELINE", "1")
+    jwaves.reset_waves()
+    twaves.reset_waves()
+    yield twaves
+    jwaves.reset_waves()
+    twaves.reset_waves()
+
+
+def _jax_get_headers(env, url):
+    async def go():
+        resp = await env["jax"].client.get(url)
+        return (resp.status, resp.content_type, await resp.read(),
+                dict(resp.headers))
+    return env["jax"].loop.run_until_complete(go())
+
+
+def _port_get(env, url):
+    u = urlsplit(url)
+    return env["port"].handle(u.path, parse_qs(u.query,
+                                               keep_blank_values=True), HOST)
+
+
+def _frames(body):
+    from gsky_tpu_torch.io.png import apng_frames
+    return [decode_png(f) for f in apng_frames(body)]
+
+
+def _same_frames(a, b, exact):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        diff = int(np.count_nonzero(x != y))
+        assert diff == 0 if exact else diff <= x.size // 1000, diff
+
+
+@pytest.mark.parametrize("method", ["near", "bilinear"])
+def test_animation_matches_reference(env, wrappers, waves_on, method):
+    url = _getmap("plain", NATIVE[0], style=method, time=T_FRAMES,
+                  fmt="image/apng")
+    status, ctype, body, headers = _jax_get_headers(env, url)
+    got = _port_get(env, url)
+    assert (got.status, got.content_type) == (status, ctype) == \
+        (200, "image/apng")
+    assert got.headers["X-Gsky-Anim-Frames"] == \
+        headers["X-Gsky-Anim-Frames"] == "3"
+    ref_frames, frames = _frames(body), _frames(got.body)
+    _same_frames(ref_frames, frames, method == "near")
+    assert wrappers["B1"] >= 1 and wrappers["B2"] == 0
+    st = waves_on.wave_stats()["cpu"]
+    assert st["requests"] == 3 and st["failed"] == 0
+    # each frame is the port's lone GetMap at the date it resolved to
+    for f, date in zip(frames, FRAME_DATES):
+        one = _port_get(env, _getmap("plain", NATIVE[0], style=method,
+                                     time=date))
+        assert np.array_equal(decode_png(one.body), f)
+    assert (frames[1] == frames[2]).all()
+
+
+def test_animation_container_equals_reference_for_same_frames(env):
+    from gsky_tpu.io.png import encode_apng as jencode_apng
+    from gsky_tpu_torch.io.png import encode_apng
+    got = _port_get(env, _getmap("plain", NATIVE[0], style="near",
+                                 time=T_DATA, fmt="image/apng"))
+    from gsky_tpu_torch.io.png import apng_frames
+    pngs = apng_frames(got.body)
+    for delay in (500, 120):
+        assert encode_apng(pngs, delay) == jencode_apng(pngs, delay)
+    assert encode_apng(pngs) == got.body
+
+
+def test_mp4_is_a_labelled_apng_stub(env, waves_on):
+    url = _getmap("plain", NATIVE[0], style="near", time=T_FRAMES,
+                  fmt="video/mp4")
+    status, ctype, body, headers = _jax_get_headers(env, url)
+    got = _port_get(env, url)
+    assert (got.status, got.content_type) == (status, ctype)
+    assert got.headers["X-Gsky-Anim-Container"] == \
+        headers["X-Gsky-Anim-Container"] == "apng-stub"
+    _same_frames(_frames(body), _frames(got.body), True)
+
+
+def test_anim_off_serves_one_image(env, monkeypatch):
+    monkeypatch.setenv("GSKY_ANIM", "0")
+    ref, got = _both(env, _getmap("plain", NATIVE[0], style="near",
+                                  time=T_DATA, fmt="image/apng"))
+    assert ref[0] == got[0] == 200
+    a, b = jdecode_png(ref[2]), decode_png(got[2])
+    assert np.array_equal(a, b)
+
+
+def test_masked_animation_takes_the_serial_leg(env, wrappers, waves_on):
+    url = _getmap("masked", MASKED[0], time=T_MASK_FRAMES, fmt="image/apng")
+    status, ctype, body, headers = _jax_get_headers(env, url)
+    got = _port_get(env, url)
+    assert (got.status, got.content_type) == (status, ctype) == \
+        (200, "image/apng")
+    assert got.headers["X-Gsky-Anim-Frames"] == \
+        headers["X-Gsky-Anim-Frames"] == "2"
+    _same_frames(_frames(body), _frames(got.body), False)
+    assert wrappers["B4"] >= 2 and wrappers["B1"] == 0
+    assert not waves_on.wave_stats()
+
+
+def test_animation_frame_cap(env, monkeypatch, waves_on):
+    monkeypatch.setenv("GSKY_ANIM_MAX_FRAMES", "2")
+    url = _getmap("plain", NATIVE[0], style="near", time=T_FRAMES,
+                  fmt="image/apng")
+    status, _, body, headers = _jax_get_headers(env, url)
+    got = _port_get(env, url)
+    assert got.headers["X-Gsky-Anim-Frames"] == \
+        headers["X-Gsky-Anim-Frames"] == "2"
+    _same_frames(_frames(body), _frames(got.body), True)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_staged_path_with_waves(env, wrappers, waves_on, method):
+    """The default GetMap path of both packages (staged, waves on)."""
+    for box in NATIVE:
+        ref, got = _both(env, _getmap("plain", box, style=method,
+                                      time=T_DATA))
+        _same_tile(ref, got, method == "near", method)
+    assert wrappers["B1"] == len(NATIVE)
+    assert waves_on.wave_stats()["cpu"]["requests"] == len(NATIVE)
+
+
+def test_animation_over_a_socket(env, waves_on):
+    httpd = env["port"].serve("127.0.0.1", 0)
+    try:
+        port = httpd.server_address[1]
+        url = _getmap("plain", NATIVE[0], style="near", time=T_FRAMES,
+                      fmt="image/apng")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{url}",
+                                    timeout=60) as r:
+            assert r.headers["Content-Type"] == "image/apng"
+            assert r.headers["X-Gsky-Anim-Frames"] == "3"
+            body = r.read()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert len(_frames(body)) == 3
+
+
 UNPORTED = {
     "rgb style": (_getmap("rgb", NATIVE[0]), "A.13"),
     "band algebra without a mask": (_getmap("algebra", NATIVE[0]), "A.7"),
-    "time animation": (_getmap("plain", NATIVE[0], time=T_DATA,
-                               fmt="image/apng"), "A.3"),
     "jpeg": (_getmap("plain", NATIVE[0], fmt="image/jpeg"), "A.17"),
     "getfeatureinfo": ("/ows?service=WMS&request=GetFeatureInfo"
                        "&layers=plain", "A.15"),
