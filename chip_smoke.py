@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    versions on the card: near/bilinear/cubic, 1 and 2 namespaces, page
    crossings, padding rows (ns -1) and null-page tables, B2 also over 40
    separate scenes (more than its launch carries by value: their
-   pointers go in a device table); then B1 on
+   pointers go in a device table); both at 4 and 8 namespaces with the
+   slots filled sparsely, as a fused expression lane fills them
+   (bit-exact, every method); then B1 on
    64-slot page windows of 1400 x 1400 scenes: a zoomed-out (3.5 source
    pixels a pixel) tile rotated 30 degrees, whose staged boxes exceed
    the budget in some blocks (the kernel's count of blocks that read the
@@ -89,6 +91,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    to the same RGBA (nearest) or within 0.1% of bytes; tiles/s, p50,
    p90 and the share of a request's wall time outside the pipeline
    (parse, encode, socket) are logged per route.
+13. wave serving (GSKY_WAVES and the staged path on; phases 3-12 pin
+   them off): 13a phase 3's tiles from 16 threads, 13b APNG animations
+   over HTTP, 13c concurrent drills (one K-block B3 launch a wave);
+14. fused band algebra and the RGB GetMap (BASELINE config 2).  14a, over
+   phase 10's archive without a mask band: NDVI and a thresholded
+   expression with literals, 32 tiles bilinear each over the two newest
+   dates per call, every tile one B1 launch at n_ns 2 or counted as
+   declined to the unfused leg; the same tiles with GSKY_EXPR_FUSE=0
+   (the modular route) give the same bytes; then from 16 threads in
+   waves (bodies equal per call).  14b: two adjacent Sentinel-2
+   L2A-shaped MGRS tiles of one UTM zone (B02, B03, B04 each 10980 x
+   10980 uint16, nodata 0, 10 m, overlapping by 490 px, with
+   overviews) written with the port's writer and crawled; through
+   `TilePipeline(device="cuda")`: 16 tiles at 2.5x the ground
+   resolution inside one tile (the RGBA rung, no kernel), 16 over the
+   overlap (the planes rung, one B2 launch a tile), 8 native tiles (a
+   full-size band is over the scene cache's 64 Mpx: the modular route,
+   one B2 a tile), bilinear plus 4 near and 4 cubic each, launches
+   equal to the prediction.  14c: both over HTTP, with two tiles per
+   route from a CPU server (decoded RGBA equal for nearest, <= 0.1%
+   otherwise).
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -101,7 +124,9 @@ other inputs and outputs (B2 also the 32-byte sectors its taps touch);
 for B3 its inputs read once and outputs
 written once; for B4 the bytes its early-exit scan needs on those
 inputs (the full-read bound is logged beside it), and again at
-(128, 2048, 2048) where every pixel scans all layers.  The last line of
+(128, 2048, 2048) where every pixel scans all layers; B1 again at phase
+14a's first NDVI tile (n_ns 2) and B2 at phase 14b's first planes-rung
+tile (n_ns 4, six scenes).  The last line of
 standard output is the JSON result the harness reads; the line before
 it gives the card's name and power limit, and a "kernels" JSON line
 precedes them.
@@ -362,6 +387,92 @@ def phase_kernels(dev="cuda"):
         check_pair(method, ck, bk, cp, bp, f"B2 {method} over {B} scenes")
         n += 1
     return n
+
+
+# phase 2 at the namespace counts fused band algebra and RGB styles
+# reach: (n_ns, the slot of each of 8 granules).  An expression lane
+# fills one slot per variable, several granules a slot, and leaves its
+# pow2 padding empty: 3 variables at n_ns 4, 6 at n_ns 8
+WIDE_NS = ((4, (0, 2, 1, 0, 2, 1, 0, 2)),
+           (8, (0, 5, 1, 4, 2, 0, 3, 5)))
+
+
+def check_exact(what, ck, bk, cp, bp):
+    """Kernel vs plain, canvases and best bit-exact (every method)."""
+    import torch
+    if not (torch.equal(bk, bp) and torch.equal(ck, cp)):
+        raise AssertionError(f"{what}: not bit-exact")
+    return float((ck - cp).abs().max())
+
+
+def phase_wide_ns(dev="cuda"):
+    """B1 and B2 at n_ns 4 and 8 (`WIDE_NS`) against their plain
+    versions, bit-exact for every method: 8 granules of 700 x 700 (NaN
+    and nodata patches), B1 over their whole-scene page windows; the
+    padding slots stay empty.  Returns (comparisons, max |difference|)."""
+    import torch
+    from gsky_tpu_torch.ops import paged, warp_render
+    from gsky_tpu_torch.ops.warp import _bilerp_grid, params16
+    from gsky_tpu_torch.pipeline.pages import PagePool
+    dev = torch.device(dev)
+    rng = np.random.default_rng(2)
+    S_px, h, w, step, B = 700, 256, 256, 16, 8
+    stack = rng.uniform(-500, 4000, (B, S_px, S_px)).astype(np.float32)
+    for k in range(B):
+        stack[k, 60 * k:60 * k + 50, 100:300] = np.nan
+        stack[k, 400:460, 50 * k:50 * k + 120] = -999.0
+    gh = gw = (h - 1 + step - 1) // step + 1
+    ctrl = np.stack([
+        np.linspace(20, 560, gw, dtype=np.float32)[None, :].repeat(gh, 0),
+        np.linspace(30, 600, gh, dtype=np.float32)[:, None].repeat(gw, 1)])
+    stack_d = torch.from_numpy(stack).to(dev)
+    ctrl_d = torch.from_numpy(ctrl).to(dev)
+    sx = _bilerp_grid(ctrl_d[0], h, w, step).contiguous()
+    sy = _bilerp_grid(ctrl_d[1], h, w, step).contiguous()
+    pr, pc = 128, 512
+    ni, nj = -(-S_px // pr), -(-S_px // pc)
+    pool = PagePool(capacity=B * ni * nj + 1, page_rows=pr, page_cols=pc,
+                    device=dev)
+    tables = np.zeros((B, 16), np.int32)
+    for k in range(B):
+        t = pool.table_for(stack_d[k], 4000 + k, 0, ni - 1, 0, nj - 1)
+        tables[k, :t.size] = t
+    tab_d = torch.from_numpy(tables[None]).to(dev)
+    n, err = 0, 0.0
+    for n_ns, slots in WIDE_NS:
+        params = np.zeros((B, 11), np.float32)
+        for k in range(B):
+            params[k] = [0.4 * k - 1.0, 1.01, 0.02, 0.3 * k - 1.0, -0.01,
+                         0.99, S_px, S_px, -999.0, 100.0 - k, slots[k]]
+        p16 = params16(torch.from_numpy(params).to(dev))
+        p16b = p16.clone()
+        p16b[:, 13], p16b[:, 14], p16b[:, 15] = ni * pr, nj * pc, nj
+        empty = sorted(set(range(n_ns)) - set(slots))
+        for method in METHODS:
+            with pool.locked_pool() as parr:
+                ck, bk = paged.paged_render_scored(
+                    parr, tab_d, p16b.contiguous(), sx[None].contiguous(),
+                    sy[None].contiguous(), method, n_ns)
+                cp, bp = paged.paged_render_scored_plain(
+                    parr, tab_d, p16b, sx[None], sy[None], method, n_ns)
+            err = max(err, check_exact(f"B1 {method} n_ns={n_ns}", ck, bk,
+                                       cp, bp))
+            if not bool(torch.isneginf(bk[0, empty]).all()) or not all(
+                    bool((bk[0, m] > float("-inf")).any())
+                    for m in set(slots)):
+                raise AssertionError(f"B1 n_ns={n_ns}: slots filled wrong")
+            b1_best = bk[0]
+            ck, bk = warp_render.warp_render_scored(stack_d, sx, sy, p16,
+                                                    method, n_ns)
+            cp, bp = warp_render.warp_render_scored_plain(
+                stack_d, sx, sy, p16, method, n_ns)
+            err = max(err, check_exact(f"B2 {method} n_ns={n_ns}", ck, bk,
+                                       cp, bp))
+            if not torch.equal(bk, b1_best):
+                raise AssertionError(f"B2 n_ns={n_ns}: its winners differ "
+                                     f"from B1's")
+            n += 2
+    return n, err
 
 
 def b1_grid(h, w, scale, degrees, x0, y0, dev):
@@ -1870,7 +1981,7 @@ class OwsPair:
         return r.body
 
 
-def run_route(pair, name, urls, want, card, expect_data=True):
+def run_route(pair, name, urls, want, card, expect_data=True, phase="12"):
     """GET ``urls`` serially with every kernel count set to 0 just
     before; the counts after must equal ``want`` ({"B1": n, ...}).
     Returns the bodies and logs tiles/s, p50, p90 and the share of a
@@ -1907,7 +2018,7 @@ def run_route(pair, name, urls, want, card, expect_data=True):
                                  f"{bool(img[..., 3].any())}")
     sp = {k: srv.spans[k] - before[k] for k in srv.spans}
     client = sum(lat)
-    log(f"phase 12 {name}: {len(urls)} tiles over HTTP, "
+    log(f"phase {phase} {name}: {len(urls)} tiles over HTTP, "
         f"{len(urls) / wall:.2f} tiles/s, p50 {np.median(lat) * 1e3:.3f} "
         f"ms, p90 {np.percentile(lat, 90) * 1e3:.3f} ms; launches {got}; "
         f"outside the pipeline {100 * (1 - sp['render'] / client):.2f}% "
@@ -2544,6 +2655,441 @@ def time_b3_blocks(args, card):
     return ms, pms, bd, lms
 
 
+# -- phase 14: fused band algebra and the multi-band RGB GetMap -----------
+
+# a thresholded expression with literals: the fingerprint lifts them
+EXPR_THR = "thr=LC08_B5 > 2600 ? LC08_B5 - LC08_B4 : 0"
+EXPR_BANDS = (NDVI, EXPR_THR)
+EXPR_HTTP_TILES = 8
+# BASELINE config 2: Sentinel-2 L2A true colour, two adjacent MGRS tiles
+# of one UTM zone, 10980 x 10980 uint16 a band (nodata 0, 10 m),
+# overlapping by 490 px; written with overviews at 2, 4, 8 and 16
+S2_SIZE, S2_RES, S2_OVERLAP = 10980, 10.0, 490
+S2_BANDS = ("B02", "B03", "B04")
+S2_STYLE = ["B04", "B03", "B02"]
+S2_ORIGINS = ((600000.0, 6100000.0),
+              (600000.0 + (S2_SIZE - S2_OVERLAP) * S2_RES, 6100000.0))
+S2_OVERVIEWS = (2, 4, 8, 16)
+S2_DATE = 1578614400.0                        # 2020-01-10
+# tiles zoomed out to 2.5x the 10 m ground resolution read the 2x
+# overview (a 2.0x tile's stride can land a hair under 2 after the
+# grid's rotation, and take the full-size level)
+S2_ZOOM = 2.5
+S2_HTTP_TILES = 4
+
+
+def expr_request(root, box, band, method, t_range):
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import BBox
+    from gsky_tpu_torch.pipeline.types import GeoTileRequest
+    return GeoTileRequest(collection=root, bands=[band], bbox=BBox(*box),
+                          crs=parse_crs("EPSG:3857"), width=256,
+                          height=256, start_time=t_range[0],
+                          end_time=t_range[1], resample=method)
+
+
+def render_expr_tiles(pipe, root, boxes, band, method, t_range, threads=1):
+    """Expression tiles as the GetMap ladder serves them: the fused
+    route (`render_composite_byte`), or where it declines `process` and
+    auto `scale_to_byte`; from ``threads`` threads.  (host tiles in box
+    order, per-tile seconds, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from gsky_tpu_torch.ops.scale import scale_to_byte
+
+    def one(box):
+        req = expr_request(root, box, band, method, t_range)
+        t0 = time.perf_counter()
+        out = pipe.render_composite_byte(req)
+        if out is None:
+            res = pipe.process(req)
+            name = res.namespaces[0]
+            out = scale_to_byte(res.data[name], res.valid[name], auto=True)
+        tile = out if isinstance(out, np.ndarray) else out.cpu().numpy()
+        secs = time.perf_counter() - t0
+        if tile.shape != (256, 256) or (tile == 255).all():
+            raise AssertionError(f"14a {band}: bad tile {tile.shape}")
+        return tile, secs
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        res = list(ex.map(one, boxes))
+    return [r[0] for r in res], [r[1] for r in res], time.perf_counter() - t0
+
+
+def _kernel_counts():
+    from gsky_tpu_torch.ops import first_valid, paged, stats, warp_render
+    return {"B1": paged.paged_render_kernel,
+            "B2": warp_render.warp_render_kernel,
+            "B3": stats.masked_stats_kernel,
+            "B4": first_valid.first_valid_kernel}
+
+
+def phase_expr(root, store, card, boxes=None):
+    """Phase 14a over phase 10's archive, expression layers without a
+    mask band (NDVI, and a threshold with literals) over its two newest
+    dates (four granules a tile): `mosaic_boxes()` bilinear per call
+    (GSKY_WAVES=0), each tile one B1 launch at n_ns 2 or counted as
+    declined to the unfused leg (`expr_fused_stats`); the same tiles
+    with GSKY_EXPR_FUSE=0 (the modular route) give the same bytes; then
+    from `WAVE_THREADS` threads in waves, the bodies equal per call.
+    Returns (the B1 launches of the per-call and wave runs, the first
+    per-call NDVI launch's arguments)."""
+    from gsky_tpu_torch.ops import paged
+    kernels = _kernel_counts()
+    dates = [t for _, t in mosaic_dates()]
+    t_range = (dates[-2] - DAY, dates[-1] + DAY)
+    boxes = boxes or mosaic_boxes()
+    pipe = make_pipeline(store, "cuda")
+    # set-up outside the timing: scene loads, every tile's page staging
+    # and control grid (both expressions read the same two bands)
+    t0 = time.perf_counter()
+    render_expr_tiles(pipe, root, boxes, EXPR_BANDS[0], "bilinear", t_range)
+    log(f"phase 14a: 4 scenes loaded, every tile's pages staged in "
+        f"{time.perf_counter() - t0:.1f} s")
+    b1_total = 0
+    per_call, paths = {}, {}
+    for band in EXPR_BANDS:
+        for k in kernels.values():
+            k.launches = 0
+        paged.reset_expr_fused_stats()
+        cap = CaptureB1(full=True)
+        plain = PlainCalls()
+        try:
+            tiles, lat, wall = render_expr_tiles(pipe, root, boxes, band,
+                                                 "bilinear", t_range)
+        finally:
+            cap.remove()
+            plain.remove()
+        got = {k: v.launches for k, v in kernels.items()}
+        st = paged.expr_fused_stats()
+        fused = st["paths"].get("percall", 0)
+        declined = st["paths"].get("unfused", 0)
+        # a fused tile makes one B1 launch at n_ns 2; a declined one's
+        # modular route one scored launch (B1, or B2 past the page
+        # budget) over the same two namespaces
+        if fused + declined != len(boxes) or got["B1"] < fused \
+                or got["B1"] + got["B2"] != len(boxes) or got["B3"] \
+                or got["B4"] or plain.calls \
+                or any(a[6] != 2 for a in cap.args) \
+                or st["programs"] != (1 if fused else 0):
+            raise AssertionError(f"14a {band}: launches {got}, stats {st}, "
+                                 f"plain {plain.calls}, n_ns "
+                                 f"{sorted({a[6] for a in cap.args})}")
+        b1_total += got["B1"]
+        per_call[band] = tiles
+        paths[band] = st["paths"]
+        if band == NDVI:
+            b1_args = cap.args[0]
+        log(f"phase 14a {band}: {len(boxes)} tiles bilinear per call, "
+            f"{len(boxes) / wall:.1f} tiles/s, p50 "
+            f"{np.median(lat) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(lat, 90) * 1e3:.2f} ms; B1 launches "
+            f"{got['B1']} at n_ns 2 ({fused} fused, {declined} declined to "
+            f"the unfused leg); expr_fused_stats {st} ({card})")
+    # the escape hatch: the modular route's bytes equal the fused ones
+    os.environ["GSKY_EXPR_FUSE"] = "0"
+    try:
+        paged.reset_expr_fused_stats()
+        for band in EXPR_BANDS:
+            unfused, lat, wall = render_expr_tiles(pipe, root, boxes, band,
+                                                   "bilinear", t_range)
+            diff = sum(int(np.count_nonzero(a != b))
+                       for a, b in zip(per_call[band], unfused))
+            if diff:
+                raise AssertionError(f"14a {band}: GSKY_EXPR_FUSE=0 bytes "
+                                     f"differ from the fused ones by {diff}")
+            log(f"phase 14a {band}: GSKY_EXPR_FUSE=0 (modular route) "
+                f"{len(boxes) / wall:.1f} tiles/s, p50 "
+                f"{np.median(lat) * 1e3:.2f} ms; bytes equal the fused "
+                f"tiles ({card})")
+        log(f"phase 14a: expr_fused_stats with GSKY_EXPR_FUSE=0: "
+            f"{paged.expr_fused_stats()}")
+    finally:
+        del os.environ["GSKY_EXPR_FUSE"]
+    # the same tiles from many threads in waves
+    for band in EXPR_BANDS:
+        with WavesOn() as waves:
+            for k in kernels.values():
+                k.launches = 0
+            paged.reset_expr_fused_stats()
+            tiles, lat, wall = render_expr_tiles(pipe, root, boxes, band,
+                                                 "bilinear", t_range,
+                                                 WAVE_THREADS)
+            got = {k: v.launches for k, v in kernels.items()}
+            st = wave_stats_of(waves)
+            est = paged.expr_fused_stats()
+        want_paths = {("wave" if k == "percall" else k): v
+                      for k, v in paths[band].items()}
+        if got["B1"] < 1 or got["B1"] > len(boxes) or st.get("failed") \
+                or est["paths"] != want_paths:
+            raise AssertionError(f"14a waves {band}: launches {got}, "
+                                 f"waves {st}, stats {est}")
+        diff = [int(np.count_nonzero(a != b))
+                for a, b in zip(per_call[band], tiles)]
+        if max(diff) > 65536 // 1000:
+            raise AssertionError(f"14a waves {band}: bodies differ from per "
+                                 f"call by {diff}")
+        b1_total += got["B1"]
+        log(f"phase 14a {band} in waves: {len(boxes)} tiles from "
+            f"{WAVE_THREADS} threads, {len(boxes) / wall:.1f} tiles/s, p50 "
+            f"{np.median(lat) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(lat, 90) * 1e3:.2f} ms; B1 launches "
+            f"{got['B1']} ({got['B1'] / len(boxes):.3f} a tile), occupancy "
+            f"{st['occupancy']}, superblock lanes {st['superblock_lanes']}; "
+            f"bytes differing from per call {sum(diff)}; expr_fused_stats "
+            f"{est} ({card})")
+    return b1_total, b1_args
+
+
+def time_expr_b1(args, card):
+    """B1's device time at phase 14a's first NDVI tile (n_ns 2, its four
+    granules' union windows; the pool it read, nothing staging into it
+    now), beside its plain version and its bound."""
+    from gsky_tpu_torch.ops import paged
+    pool, tables, params, sx, sy, method, n_ns, sb_of = args
+    saved = paged.paged_render_kernel.launches
+    ms = kernel_device_ms(lambda: paged.paged_render_scored(
+        pool, tables, params, sx, sy, method, n_ns, sb_of), "paged_render")
+    pms = cuda_time_ms(lambda: paged.paged_render_scored_plain(
+        pool, tables, params, sx, sy, method, n_ns, sb_of), reps=3)
+    paged.paged_render_kernel.launches = saved
+    nbytes = bound_bytes(sx, sy, params, method, n_ns,
+                         tables.numel() * 4)
+    bd = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"timing B1 at an NDVI tile ({method}, n_ns {n_ns}, T="
+        f"{tables.shape[1]} S={tables.shape[2]}): device {ms:.5f} ms, "
+        f"plain {pms:.3f}, bound {bd:.5f} ms ({nbytes} bytes) ({card})")
+    return ms, pms, bd
+
+
+def phase_ows_expr(root, store, card):
+    """Phase 14c over phase 10's archive: the two expression layers
+    without a mask over HTTP (serial ladder), `EXPR_HTTP_TILES` tiles
+    each, one B1 launch a tile; two tiles each from the CPU server."""
+    dates = [t for _, t in mosaic_dates()]
+    t_range = (dates[-2] - DAY, dates[-1] + DAY)
+    layers = [{"name": name, "data_source": root, "rgb_products": [band],
+               "resample": "bilinear"}
+              for name, band in (("ndvi", NDVI), ("threshold", EXPR_THR))]
+    boxes = mosaic_boxes()[:EXPR_HTTP_TILES]
+    pair = OwsPair(os.path.join(root, "conf_expr"), layers, store)
+    try:
+        worst = {}
+        for layer in ("ndvi", "threshold"):
+            urls = [getmap_url(pair.base, layer, b, "", t_range)
+                    for b in boxes]
+            http_get(urls[0])
+            bodies = run_route(pair, layer, urls, {"B1": len(urls)}, card,
+                               phase="14c")
+            worst[layer] = max(
+                same_decoded("bilinear", body, pair.cpu_body(url), layer)
+                for url, body in zip(urls[:HTTP_CPU_TILES],
+                                     bodies[:HTTP_CPU_TILES]))
+        log(f"phase 14c: expression layers, CPU server bodies match the "
+            f"card's (decoded bytes differing, worst tile: {worst})")
+    finally:
+        pair.close()
+
+
+def write_s2_archive(root, size=S2_SIZE):
+    """Two Sentinel-2 L2A-shaped MGRS tiles (`S2_ORIGINS`), three bands
+    each (B02, B03, B04: uint16 reflectance, nodata 0 over a corner
+    collar), tiled, uncompressed, with overviews; [(path, band)]."""
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import GeoTransform
+    from gsky_tpu_torch.io.geotiff import write_geotiff
+    utm = parse_crs("EPSG:32755")
+    yy = np.arange(size, dtype=np.float32)[:, None]
+    xx = np.arange(size, dtype=np.float32)[None, :]
+    collar = (xx + yy) < size // 8
+    out = []
+    for t, (x0, y0) in enumerate(S2_ORIGINS):
+        gt = GeoTransform(x0, S2_RES, 0.0, y0, 0.0, -S2_RES)
+        for b, band in enumerate(S2_BANDS):
+            rng = np.random.default_rng(70 + 3 * t + b)
+            field = (900.0 + 150.0 * b + 400.0
+                     * np.sin(xx / (310.0 + 40 * b + 17 * t))
+                     * np.cos(yy / (270.0 + 30 * b))).astype(np.uint16)
+            field += rng.integers(0, 60, (size, size), dtype=np.uint16)
+            field[collar] = 0
+            p = os.path.join(root, f"T55HFA{t}_20200110_{band}.tif")
+            write_geotiff(p, field, gt, utm, nodata=0, compress=False,
+                          overviews=S2_OVERVIEWS)
+            out.append((p, band))
+            del field
+    return out
+
+
+def s2_boxes(x, y, zoom, nx, ny):
+    """nx x ny 256-px EPSG:3857 tiles at ``zoom`` x the 10 m ground
+    resolution from the UTM point (x, y) east and south."""
+    return tile_boxes(x, y, zoom=zoom * S2_RES / 30.0, nx=nx, ny=ny)
+
+
+def s2_routes(methods=("bilinear", "near", "cubic"), n=16, n_native=8,
+              n_other=4):
+    """Phase 14b's routes: name -> (boxes, the rung they take, B2 launches
+    a tile), per method (bilinear all of them, near and cubic the first
+    ``n_other``)."""
+    x1 = S2_ORIGINS[1][0]
+    inside = s2_boxes(610000.0, 6090000.0, S2_ZOOM, 4, n // 4)
+    # one column straddling the overlap strip: every tile over both
+    overlap = s2_boxes(x1 + 100.0, 6095000.0, S2_ZOOM, 1, n)
+    native = s2_boxes(650000.0, 6050000.0, 1.0, 4, n_native // 4)
+    routes = {}
+    for m in methods:
+        k = None if m == "bilinear" else n_other
+        routes[("rgba", m)] = (inside[:k], "rgba", 0)
+        routes[("planes", m)] = (overlap[:k], "planes", 1)
+        routes[("modular", m)] = (native[:k], "modular", 1)
+    return routes
+
+
+def rgb_request(root, box, method):
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import BBox
+    from gsky_tpu_torch.pipeline.types import GeoTileRequest
+    return GeoTileRequest(collection=root, bands=list(S2_STYLE),
+                          bbox=BBox(*box), crs=parse_crs("EPSG:3857"),
+                          width=256, height=256, resample=method)
+
+
+def render_rgb(pipe, root, boxes, method):
+    """RGB tiles as the serial GetMap ladder serves them: `render_rgb_auto`
+    ("rgba" (H, W, 4) or "planes" (3, H, W)), else `process` and auto
+    `scale_to_byte` per band ("modular").  ([(rung, host array)],
+    per-tile seconds)."""
+    import torch
+    from gsky_tpu_torch.ops.scale import scale_to_byte
+    out, secs = [], []
+    for box in boxes:
+        req = rgb_request(root, box, method)
+        t0 = time.perf_counter()
+        made = pipe.render_rgb_auto(req)
+        if made is None:
+            res = pipe.process(req)
+            arr = torch.stack([scale_to_byte(res.data[n], res.valid[n],
+                                             auto=True)
+                               for n in res.namespaces[:3]])
+            made = ("modular", arr)
+        arr = made[1].cpu().numpy()
+        secs.append(time.perf_counter() - t0)
+        empty = not arr[..., 3].any() if made[0] == "rgba" \
+            else (arr == 255).all()
+        if arr.dtype != np.uint8 or empty:
+            raise AssertionError(f"14b {made[0]}: an empty tile {box}")
+        out.append((made[0], arr))
+    return out, secs
+
+
+def phase_rgb(root, store, card, routes=None):
+    """Phase 14b: `s2_routes()` through `TilePipeline(device="cuda")` (the
+    serial RGB ladder): 16 tiles at `S2_ZOOM` inside one MGRS tile, the
+    RGBA rung (no kernel); 16 over the two tiles' overlap, the planes
+    rung (one B2 launch a tile); 8 native tiles, whose full-size bands
+    the scene cache does not take, the modular route (decoded windows,
+    one B2 a tile); bilinear, plus 4 near and 4 cubic each.  Every
+    route's kernel counts, set to 0 before it, equal its predicted
+    launches.  Returns (the B2 launches, the first bilinear planes-rung
+    launch's arguments)."""
+    from gsky_tpu_torch.ops import warp_render
+    kernels = _kernel_counts()
+    routes = routes or s2_routes()
+    pipe = make_pipeline(store, "cuda")
+    # set-up outside the timing: scene loads, every tile's control grid
+    t0 = time.perf_counter()
+    for (rung, m), (boxes, _, _) in routes.items():
+        if m == "bilinear":
+            render_rgb(pipe, root, boxes, m)
+    log(f"phase 14b: set-up (scenes at the 2x overview, every tile's "
+        f"control grid) {time.perf_counter() - t0:.1f} s; cache "
+        f"{len(pipe.executor.cache._scenes)} scenes")
+    b2_total = 0
+    for (rung, m), (boxes, want_rung, b2_each) in routes.items():
+        for k in kernels.values():
+            k.launches = 0
+        plain = PlainCalls()
+        orig = warp_render.warp_render_scored
+        seen = []
+        warp_render.warp_render_scored = \
+            lambda *a: seen.append(a) or orig(*a)
+        t0 = time.perf_counter()
+        try:
+            tiles, lat = render_rgb(pipe, root, boxes, m)
+        finally:
+            warp_render.warp_render_scored = orig
+            plain.remove()
+        if (rung, m) == ("planes", "bilinear"):
+            b2_args = seen[0]
+        wall = time.perf_counter() - t0
+        got = {k: v.launches for k, v in kernels.items()}
+        want = {"B1": 0, "B2": b2_each * len(boxes), "B3": 0, "B4": 0}
+        rungs = {r for r, _ in tiles}
+        if rungs != {want_rung} or got != want or plain.calls:
+            raise AssertionError(f"14b {rung} {m}: rungs {rungs}, launches "
+                                 f"{got} (want {want}), plain {plain.calls}")
+        b2_total += got["B2"]
+        log(f"phase 14b {rung} {m}: {len(boxes)} tiles, "
+            f"{len(boxes) / wall:.1f} tiles/s, p50 "
+            f"{np.median(lat) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(lat, 90) * 1e3:.2f} ms; launches {got} "
+            f"({card})")
+    return b2_total, b2_args
+
+
+def time_planes_b2(args, card):
+    """B2's device time at phase 14b's first planes-rung tile (n_ns 4, six
+    scenes of the 2x overview), beside its plain version and its pixel
+    and sector bounds."""
+    from gsky_tpu_torch.ops import warp_render
+    scenes, sx, sy, p16, method, n_ns = args
+    saved = warp_render.warp_render_kernel.launches
+    ms = kernel_device_ms(lambda: warp_render.warp_render_scored(
+        scenes, sx, sy, p16, method, n_ns), "warp_render")
+    pms = cuda_time_ms(lambda: warp_render.warp_render_scored_plain(
+        scenes, sx, sy, p16, method, n_ns), reps=3)
+    warp_render.warp_render_kernel.launches = saved
+    other = other_bytes(sx, p16, n_ns)
+    px = tap_footprint_px(sx, sy, p16, method)
+    sec = tap_sectors(sx, sy, p16, method, scenes)
+    bd_px = (4 * px + other) / HBM_BYTES_PER_S * 1e3
+    bd_sec = (32 * sec + other) / HBM_BYTES_PER_S * 1e3
+    log(f"timing B2 at an RGB planes tile ({method}, n_ns {n_ns}, B = "
+        f"{len(scenes)} scenes of {tuple(scenes[0].shape)}): device "
+        f"{ms:.5f} ms, plain {pms:.3f}; bounds {bd_px:.5f} ms ({px} "
+        f"pixels) and {bd_sec:.5f} ms ({sec} sectors), + {other} bytes of "
+        f"other operands ({card})")
+    return ms, pms, bd_px, bd_sec
+
+
+def phase_ows_rgb(root, store, card, routes=None):
+    """Phase 14c over phase 14b's archive: the true-colour layer over
+    HTTP (serial ladder), `S2_HTTP_TILES` tiles per rung bilinear with
+    the rung's launches; two tiles per rung from the CPU server."""
+    routes = routes or s2_routes(("bilinear",))
+    layers = [{"name": "s2_truecolour", "data_source": root,
+               "rgb_products": S2_STYLE, "resample": "bilinear"}]
+    pair = OwsPair(os.path.join(root, "conf"), layers, store)
+    t_range = (S2_DATE - DAY, S2_DATE + DAY)
+    try:
+        worst = {}
+        for (rung, m), (boxes, _, b2_each) in routes.items():
+            urls = [getmap_url(pair.base, "s2_truecolour", b, "", t_range)
+                    for b in boxes[:S2_HTTP_TILES]]
+            http_get(urls[0])
+            bodies = run_route(pair, f"RGB {rung}", urls,
+                               {"B2": b2_each * len(urls)}, card,
+                               phase="14c")
+            worst[rung] = max(
+                same_decoded(m, body, pair.cpu_body(url), rung)
+                for url, body in zip(urls[:HTTP_CPU_TILES],
+                                     bodies[:HTTP_CPU_TILES]))
+        log(f"phase 14c: RGB layer, CPU server bodies match the card's "
+            f"(decoded bytes differing, worst tile per rung: {worst})")
+    finally:
+        pair.close()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2580,6 +3126,11 @@ def main() -> int:
     log(f"phase 2: {n_cmp} kernel-vs-plain comparisons passed; B1 on "
         f"64-slot windows: {n_b1} more, {direct} blocks read the pool "
         f"directly as block_boxes predicts ({predicted}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_wide, wide_err = phase_wide_ns()
+    log(f"phase 2: B1 and B2 at n_ns {', '.join(str(n) for n, _ in WIDE_NS)}"
+        f" with sparsely filled slots: {n_wide} comparisons bit-exact "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     n_wave, b3k_err = phase_wave_kernels()
@@ -2825,14 +3376,45 @@ def main() -> int:
         t0 = time.perf_counter()
         b1_anim = phase_anim(mosaic_root, mosaic, card)
         log(f"phase 13b: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 14a, 14c: fused band algebra ---------------------------
+        t0 = time.perf_counter()
+        b1_expr, b1_expr_args = phase_expr(mosaic_root, mosaic, card)
+        time_expr_b1(b1_expr_args, card)
+        del b1_expr_args
+        phase_ows_expr(mosaic_root, mosaic, card)
+        log(f"phase 14a, 14c expressions: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(mosaic_root, ignore_errors=True)
+
+    # -- phase 14b, 14c: the Sentinel-2 RGB GetMap ----------------------
+    s2_root = os.path.join(ROOT, "build", "smoke_s2")
+    shutil.rmtree(s2_root, ignore_errors=True)
+    os.makedirs(s2_root)
+    try:
+        t0 = time.perf_counter()
+        s2_paths = write_s2_archive(s2_root)
+        s2 = crawl(s2_paths)
+        size = sum(os.path.getsize(p) for p, _ in s2_paths)
+        log(f"phase 14b: {len(s2_paths)} GeoTIFFs ({size / 1e9:.3f} GB, "
+            f"overviews {S2_OVERVIEWS}) written + crawled in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        b2_rgb, b2_rgb_args = phase_rgb(s2_root, s2, card)
+        time_planes_b2(b2_rgb_args, card)
+        del b2_rgb_args
+        phase_ows_rgb(s2_root, s2, card)
+        log(f"phase 14b, 14c RGB: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(s2_root, ignore_errors=True)
 
     # the kernels line reports the bilinear rows (the GetMap default
     # interpolated method): B1 at phase 3's tile, B2 at input (c), the
     # 4x zoomed-out tile; every method's and input's numbers are logged
     # above.  Launches: every main path's run, phase 13's wave runs
-    # included (B1 over a wave's lanes, B3's K-block form)
+    # included (B1 over a wave's lanes, B3's K-block form), and phase
+    # 14's (B1: expression tiles per call and in waves; B2: the RGB
+    # planes rung and the modular route)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -2840,15 +3422,16 @@ def main() -> int:
         {"name": "paged_render (B1)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/paged.py:173",
-         "launches": b1_launches + b1_waves + b1_anim,
-         "max_abs_err": max(r[1] for r in b1_rows),
+         "launches": b1_launches + b1_waves + b1_anim + b1_expr,
+         "max_abs_err": max(max(r[1] for r in b1_rows), wide_err),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
          "bound_by": "bytes", "library_ms": None},
         {"name": "warp_render (B2)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
-         "launches": b2_launches,
-         "max_abs_err": max(r[5] for r in b2_rows.values()),
+         "launches": b2_launches + b2_rgb,
+         "max_abs_err": max(max(r[5] for r in b2_rows.values()),
+                            wide_err),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,
          "bound_by": "bytes", "library_ms": None},
         {"name": "masked_stats (B3)", "route": "cuda",

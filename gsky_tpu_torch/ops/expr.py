@@ -16,23 +16,45 @@ round through float32.  Two PyTorch habits would change bits and are
 avoided: a division by or of a Python scalar divides by a 0-d tensor
 (PyTorch on CUDA multiplies by the scalar's reciprocal instead), and
 ``log10`` is ``log(x) / log(10)`` as `jnp.log10` lowers.  ``%`` is
-`torch.fmod` (truncated, sign of the dividend).  The fused band-algebra
-epilogue (`fingerprint`, `render_expr_paged`) is not ported yet.
+`torch.fmod` (truncated, sign of the dividend).  ``**`` takes both
+operands as tensors, as ``pow`` does: PyTorch would compute ``x ** 2.0``
+as ``x * x`` and ``x ** 0.5`` as ``sqrt(x)``, where a tensor exponent
+takes the general power, so an expression evaluates alike whether its
+literals arrive as Python floats (the interpreter) or as tensors (the
+fused epilogue).
+
+Structural fingerprints (`fingerprint`) are the fused band-algebra
+path's key: variables become slot indices in first-use order and
+numeric literals const indices in occurrence order, so expressions that
+differ only in names or literal values share one key.
+`eval_fingerprint` evaluates a key through the same `_emit` as the
+interpreter (`ops.paged.expr_epilogue` feeds it the scored mosaic's
+planes and the literals as tensors).
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
 import re
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+
+
+def expr_fuse_enabled() -> bool:
+    """GSKY_EXPR_FUSE gates the fused band-algebra path (default on):
+    ``0`` sends expression layers through the per-band mosaic and
+    `evaluate_expressions` instead."""
+    return os.environ.get("GSKY_EXPR_FUSE", "1").lower() not in (
+        "0", "false", "off", "no")
 
 _TOKEN_RE = re.compile(r"""
     (?P<num>\d+\.\d*(?:[eE][-+]?\d+)?|\.\d+(?:[eE][-+]?\d+)?|\d+(?:[eE][-+]?\d+)?)
@@ -237,6 +259,11 @@ def _tfmod(a, b):
     return torch.fmod(*targs)
 
 
+def _tpow(a, b):
+    targs = _tensor_args((a, b))
+    return a ** b if targs is None else torch.pow(*targs)
+
+
 def _emit(node, env, xp):
     tag = node[0]
     if tag == "num":
@@ -269,7 +296,7 @@ def _emit(node, env, xp):
                 return _tfmod(a, b)
             return xp.fmod(a, b) if hasattr(xp, "fmod") else math.fmod(a, b)
         if op == "**":
-            return a ** b
+            return _tpow(a, b) if over_torch else a ** b
         if op == "==":
             return (a == b) * 1.0
         if op == "!=":
@@ -298,6 +325,102 @@ def _emit(node, env, xp):
     raise ValueError(tag)
 
 
+# -- structural fingerprints: the fused epilogue's key -----------------
+
+def _normalize(node, slots: Dict[str, int], consts: List[float]):
+    tag = node[0]
+    if tag == "num":
+        consts.append(float(node[1]))
+        return ("const", len(consts) - 1)
+    if tag == "var":
+        if node[1] not in slots:
+            slots[node[1]] = len(slots)
+        return ("slot", slots[node[1]])
+    if tag == "un":
+        return ("un", node[1], _normalize(node[2], slots, consts))
+    if tag == "bin":
+        a = _normalize(node[2], slots, consts)
+        b = _normalize(node[3], slots, consts)
+        return ("bin", node[1], a, b)
+    if tag == "tern":
+        return ("tern",) + tuple(
+            _normalize(n, slots, consts) for n in node[1:])
+    if tag == "call":
+        return ("call", node[1], tuple(
+            _normalize(n, slots, consts) for n in node[2]))
+    raise ValueError(tag)
+
+
+@dataclass(frozen=True)
+class ExprFingerprint:
+    """Normalized expression structure: ``key`` the hashable normalized
+    AST; ``slots`` slot index -> variable name (first-use order, equal
+    to `CompiledExpr.variables`); ``consts`` the lifted literals in
+    occurrence order; ``hash`` a 12-hex digest of the key."""
+
+    key: tuple
+    slots: Tuple[str, ...]
+    consts: Tuple[float, ...]
+    hash: str
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.slots)
+
+    def const_array(self) -> np.ndarray:
+        """The lifted literals as a (C,) float32 row."""
+        return np.asarray(self.consts, np.float32).reshape(len(self.consts))
+
+
+def _fp_eval_ast(key):
+    """An `_emit` AST from a normalized key: slot i reads env["s{i}"],
+    const k env["c{k}"]."""
+    tag = key[0]
+    if tag == "const":
+        return ("var", f"c{key[1]}")
+    if tag == "slot":
+        return ("var", f"s{key[1]}")
+    if tag == "un":
+        return ("un", key[1], _fp_eval_ast(key[2]))
+    if tag == "bin":
+        return ("bin", key[1], _fp_eval_ast(key[2]), _fp_eval_ast(key[3]))
+    if tag == "tern":
+        return ("tern",) + tuple(_fp_eval_ast(n) for n in key[1:])
+    if tag == "call":
+        return ("call", key[1], [_fp_eval_ast(n) for n in key[2]])
+    raise ValueError(tag)
+
+
+def eval_fingerprint(key: tuple, planes: Sequence, consts: Sequence,
+                     xp=torch):
+    """Evaluate a normalized key: ``planes[i]`` feeds slot i,
+    ``consts[k]`` const k (tensors broadcastable against the planes).
+    The raw result; validity is the caller's."""
+    env = {f"s{i}": p for i, p in enumerate(planes)}
+    for k, c in enumerate(consts):
+        env[f"c{k}"] = c
+    return _emit(_fp_eval_ast(key), env, xp)
+
+
+def fingerprint_hash(key: tuple) -> str:
+    """12-hex digest of a normalized key."""
+    return hashlib.sha1(repr(key).encode()).hexdigest()[:12]
+
+
+def fingerprint(ce: "CompiledExpr") -> ExprFingerprint:
+    """The fingerprint of a compiled expression (cached on it)."""
+    fp = ce._fp
+    if fp is not None:
+        return fp
+    slots: Dict[str, int] = {}
+    consts: List[float] = []
+    key = _normalize(ce._ast, slots, consts)
+    names = tuple(sorted(slots, key=slots.get))
+    fp = ExprFingerprint(key, names, tuple(consts), fingerprint_hash(key))
+    ce._fp = fp
+    return fp
+
+
 @dataclass
 class CompiledExpr:
     """A parsed band expression."""
@@ -305,6 +428,8 @@ class CompiledExpr:
     src: str
     variables: List[str]
     _ast: tuple = field(repr=False, default=None)
+    _fp: Optional[ExprFingerprint] = field(repr=False, compare=False,
+                                           default=None)
 
     def __call__(self, env: Dict[str, object], xp=np):
         """Evaluate over the values in ``env``: numpy arrays or scalars

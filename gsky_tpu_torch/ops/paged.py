@@ -28,6 +28,16 @@ S), G <= N union windows, and ``sb_of`` (N,) int32 gives each lane its
 row; the JAX program gathers ``pool[tables][sb_of]``, B1 reads the row
 in place.  `wave_drill_stats` reduces a drill wave's K blocks through
 B3's K-block form.
+
+Fused band algebra (`render_expr_paged`): an expression lane's mosaic
+slot i is the expression's variable i, so B1 renders every referenced
+band of a tile in one launch (n_ns = the slot count, pow2-padded) and
+`expr_epilogue` evaluates the expression over its planes; the lifted
+literals arrive as an (N, C) float32 operand.  Epilogue and byte scale
+are plain torch ops after the kernel, as the reference runs them in
+XLA after its Pallas body.  `expr_fused_stats` counts the paths
+expression requests took (percall, wave, unfused) and the distinct
+fingerprints launched.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import threading
 
 import torch
 
+from .scale import scale_to_byte
 from .warp import NEAR, _bilerp_grid, composite_scale, granule_coords, \
     granule_sample, mosaic_update
 from .warp_render import check_cuda, check_ns, method_code, \
@@ -320,6 +331,111 @@ def render_byte_paged(pool, tables, params, ctrls, sps,
     return torch.stack([
         composite_scale(c, b > float("-inf"), sp, auto, colour_scale)
         for c, b, sp in zip(canv, best, sps)])
+
+
+# -- fused expression epilogue ----------------------------------------
+
+_EXPR_LOCK = threading.Lock()
+_EXPR_FPS: set = set()
+_EXPR_FUSED: dict = {}
+
+
+def note_expr_program(fp_hash: str) -> None:
+    """Record a fingerprint launched through the fused epilogue."""
+    with _EXPR_LOCK:
+        _EXPR_FPS.add(str(fp_hash))
+
+
+def note_expr_fused(path: str) -> None:
+    """Count one expression request routed through ``path`` (percall,
+    wave or unfused)."""
+    with _EXPR_LOCK:
+        _EXPR_FUSED[path] = _EXPR_FUSED.get(path, 0) + 1
+
+
+def expr_fused_stats() -> dict:
+    """{"programs": distinct fingerprints launched, "paths": requests
+    per path}."""
+    with _EXPR_LOCK:
+        return {"programs": len(_EXPR_FPS), "paths": dict(_EXPR_FUSED)}
+
+
+def reset_expr_fused_stats() -> None:
+    with _EXPR_LOCK:
+        _EXPR_FPS.clear()
+        _EXPR_FUSED.clear()
+
+
+def _fp_slot_ids(key) -> set:
+    """Slot indices a normalized fingerprint key references (walked,
+    not assumed, so validity never widens)."""
+    tag = key[0]
+    if tag == "slot":
+        return {key[1]}
+    if tag == "const":
+        return set()
+    if tag == "un":
+        return _fp_slot_ids(key[2])
+    if tag == "bin":
+        return _fp_slot_ids(key[2]) | _fp_slot_ids(key[3])
+    out = set()
+    for n in (key[1:] if tag == "tern" else key[2]):
+        out |= _fp_slot_ids(n)
+    return out
+
+
+def expr_epilogue(canv, best, fp: tuple, consts):
+    """The expression over a scored mosaic: canv / best (N, n_ns, h, w)
+    f32 (slot i = variable i), consts (N, C) f32 -> (plane (N, h, w)
+    f32, ok (N, h, w) bool).  The op sequence is the interpreter's
+    (`ops.expr.eval_fingerprint`); a pixel is valid iff it is valid in
+    every referenced slot and the result is finite, and 0.0 where it is
+    not (`CompiledExpr.eval_masked`)."""
+    from .expr import eval_fingerprint
+    slot_ids = _fp_slot_ids(fp)
+    n_slots = (max(slot_ids) + 1) if slot_ids else 0
+    planes = [canv[:, i] for i in range(n_slots)]
+    cbs = [consts[:, k][:, None, None] for k in range(consts.shape[1])]
+    N, _, h, w = canv.shape
+    out = eval_fingerprint(fp, planes, cbs)
+    out = torch.as_tensor(out, dtype=torch.float32, device=canv.device)
+    out = torch.broadcast_to(out.to(torch.float32), (N, h, w))
+    ok = None
+    for i in sorted(slot_ids):
+        m = best[:, i] > float("-inf")
+        ok = m if ok is None else ok & m
+    if ok is None:
+        ok = torch.ones((N, h, w), dtype=torch.bool, device=canv.device)
+    ok = ok & torch.isfinite(out)
+    return torch.where(ok, out, torch.zeros_like(out)), ok
+
+
+def scale_lanes(planes, oks, sps, auto: bool, colour_scale: int):
+    """`scale_to_byte` per lane: planes / oks (N, h, w), sps (N, 3)
+    (offset, scale, clip) -> uint8 (N, h, w)."""
+    sps = sps.tolist() if torch.is_tensor(sps) else \
+        [[float(v) for v in sp] for sp in sps]
+    return torch.stack([
+        scale_to_byte(d, o, sp[0], sp[1], sp[2], colour_scale, auto)
+        for d, o, sp in zip(planes, oks, sps)])
+
+
+def render_expr_paged(pool, tables, params, ctrls, sps, consts,
+                      method: str = "near", n_ns: int = 1,
+                      out_hw=(256, 256), step: int = 16,
+                      auto: bool = True, colour_scale: int = 0,
+                      fp: tuple = ("const", 0), fp_hash=None, sb_of=None):
+    """Counterpart of `gsky_tpu/ops/paged.py::render_expr_paged`: kernel
+    B1 over N tiles (``render_byte_paged``'s operands), the expression
+    epilogue with ``consts`` (N, C) f32, then `scale_to_byte` per lane.
+    ``fp_hash``, when given, is recorded in `expr_fused_stats`.
+    Returns uint8 (N, h, w) tiles."""
+    if fp_hash is not None:
+        note_expr_program(fp_hash)
+    canv, best = warp_scored_paged(pool, tables, params, ctrls, method,
+                                   n_ns, out_hw, step, sb_of)
+    plane, ok = expr_epilogue(canv, best, fp, consts)
+    return scale_lanes(plane, ok, sps, auto, colour_scale)
 
 
 def wave_drill_stats(datas, valids, clip_lower=-3.0e38, clip_upper=3.0e38,

@@ -20,7 +20,13 @@ paths, as plain PyTorch ops:
   per source-CRS group);
 - `warp_gather_batch`: the modular path's dense-coordinate gather warp
   of decoded windows (`_nearest`, `_bilinear`, `_cubic`), batched over
-  a leading granule axis as the reference vmaps it.
+  a leading granule axis as the reference vmaps it;
+- `render_rgba_ctrl`: the single-scene RGB tile (three bands of one
+  grid) to RGBA bytes, the tap indices and weights computed once for
+  the three bands (`_resample_c`, `_gather2d_c`).  The reference packs
+  the three scenes into one (sh, sw, 3) copy; here each tap gathers
+  from the three cached scenes where they lie, which gives the same
+  values and holds no copy.
 
 Op order is the reference's, term for term, so that results agree to
 the bit wherever the reference itself does not contract a multiply-add.
@@ -346,3 +352,109 @@ def combine_scored(canvs, bests):
     canv = torch.gather(canvs, 0, idx[None])[0]
     ok = bests.amax(dim=0) > float("-inf")
     return torch.where(ok, canv, torch.zeros_like(canv)), ok
+
+
+def _gather2d_c(planes, ri, ci):
+    """Channel gather from C (H, W) planes at pre-clipped integer
+    indices ri/ci (h, w): one flat index for all channels -> (h, w, C)."""
+    W = planes[0].shape[1]
+    idx = ri.long() * W + ci.long()
+    return torch.stack([p.reshape(-1)[idx] for p in planes], -1)
+
+
+def _resample_c(planes, nodata, rows, cols, method: str):
+    """Counterpart of `gsky_tpu/ops/warp.py::_resample_c`: resample C
+    (H, W) planes of one grid at fractional index coordinates rows/cols
+    (h, w), the index math once for all channels -> (out (h, w, C) f32,
+    ok (h, w, C) bool).  A tap is valid when finite and != ``nodata``;
+    the tap sum fuses multiply-adds as `granule_sample` does."""
+    if method not in METHODS:
+        raise KeyError(f"unknown resample method {method!r}")
+    H, W = planes[0].shape
+    nd = float(nodata)
+
+    def tap(ri, ci, inb):
+        v = _gather2d_c(planes, ri.clamp(0, H - 1), ci.clamp(0, W - 1))
+        ok = inb[..., None] & torch.isfinite(v) & (v != nd)
+        return torch.where(ok, v, torch.zeros_like(v)), ok
+
+    finite = torch.isfinite(rows) & torch.isfinite(cols)
+    if method in NEAR:
+        zero = torch.zeros_like(rows)
+        ri = torch.floor(torch.where(finite, rows, zero) + 0.5) \
+            .to(torch.int32)
+        ci = torch.floor(torch.where(finite, cols, zero) + 0.5) \
+            .to(torch.int32)
+        inb = (ri >= 0) & (ri < H) & (ci >= 0) & (ci < W) & finite
+        return tap(ri, ci, inb)
+    rows = torch.where(finite, rows, torch.full_like(rows, -10.0))
+    cols = torch.where(finite, cols, torch.full_like(cols, -10.0))
+    r0 = torch.floor(rows)
+    c0 = torch.floor(cols)
+    fr = rows - r0
+    fc = cols - c0
+    r0 = r0.to(torch.int32)
+    c0 = c0.to(torch.int32)
+    if method == "bilinear":
+        taps = [(dr, dc, (fr if dr else 1 - fr) * (fc if dc else 1 - fc))
+                for dr in (0, 1) for dc in (0, 1)]
+        thresh = 1e-6
+    else:                       # cubic (Catmull-Rom)
+        wr = _cubic_weights(fr)
+        wc = _cubic_weights(fc)
+        taps = [(dr - 1, dc - 1, wr[dr] * wc[dc])
+                for dr in range(4) for dc in range(4)]
+        thresh = 0.05
+    terms = []
+    wacc = torch.zeros(rows.shape + (len(planes),), dtype=torch.float32,
+                       device=rows.device)
+    for dr, dc, wt in taps:
+        ri = r0 + dr
+        ci = c0 + dc
+        inb = (ri >= 0) & (ri < H) & (ci >= 0) & (ci < W)
+        v, okt = tap(ri, ci, inb)
+        wo = wt[..., None] * okt.to(torch.float32)
+        terms.append((wo, v))
+        wacc = wacc + wo
+    acc = fma(terms[0][0], terms[0][1], terms[1][0] * terms[1][1])
+    for wo, v in terms[2:]:
+        acc = fma(wo, v, acc)
+    ok = finite[..., None] & (wacc > thresh)
+    out = acc / torch.where(wacc > thresh, wacc, torch.ones_like(wacc))
+    return out, ok
+
+
+def render_rgba_ctrl(planes, ctrl, param, scale_params,
+                     method: str = "near", out_hw=(256, 256),
+                     step: int = 16, auto: bool = True,
+                     colour_scale: int = 0):
+    """Counterpart of `gsky_tpu/ops/warp.py::render_rgba_ctrl`: three
+    (sh, sw) f32 scenes of one grid (the cached scenes, NaN = invalid),
+    ctrl (2, gh, gw), ``param`` the (11,) granule params -> the RGBA
+    tile uint8 (h, w, 4).  Auto scaling takes each band's own min and
+    max; alpha is 0 exactly where all three bytes are 255."""
+    h, w = out_hw
+    sx, sy = _bilerp_grid(ctrl, h, w, step)
+    p = torch.zeros(16, dtype=torch.float32, device=sx.device)
+    p[:11] = param[:11].to(torch.float32)
+    rows, cols = granule_coords(sx, sy, p)      # slots 11/12 are 0
+    data, ok = _resample_c(planes, float(p[8]), rows, cols, method)
+    if auto:
+        if colour_scale == 1:
+            logged = _log10(data)
+            bad = ~torch.isfinite(logged)
+            data = torch.where(bad, torch.zeros_like(logged), logged)
+            ok = ok & ~bad
+        rgb = []
+        for c in range(data.shape[-1]):
+            d, o = data[..., c], ok[..., c]
+            mn, mx = _masked_extrema(d, o)
+            rgb.append(auto_byte_scale(d, o, mn, mx, o.any()))
+        rgb = torch.stack(rgb, -1)
+    else:
+        sp = [float(v) for v in scale_params]
+        rgb = scale_to_byte(data.movedim(-1, 0), ok.movedim(-1, 0), sp[0],
+                            sp[1], sp[2], colour_scale=colour_scale,
+                            auto=False).movedim(0, -1)
+    alpha = torch.where((rgb == 255).all(-1), 0, 255).to(torch.uint8)
+    return torch.cat([rgb, alpha[..., None]], -1)

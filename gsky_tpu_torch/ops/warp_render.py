@@ -14,6 +14,11 @@ in `ops.warp`):
   executor hands it the cached scenes and copies none of them.  A
   stacked tensor is taken too: its rows are the scenes.
 
+B2 has two routes on the GetMap path: `render_scenes` (a single-band
+tile: the per-namespace mosaic composited into one plane) and
+`render_scenes_bands` (an RGB style: one byte plane per selected
+namespace), both over the cached scenes.
+
 The library is built and bound by `ops.cuda_lib` (nvcc at first use
 into ``build/``, ctypes, ``cudaGetLastError`` after every launch).
 Each wrapper launches its kernel for CUDA tensors and counts the
@@ -30,6 +35,7 @@ from collections import OrderedDict
 import torch
 
 from .cuda_lib import CudaLibrary, Kernel, check_cuda
+from .scale import _log10, _masked_extrema, auto_byte_scale, scale_to_byte
 from .warp import METHODS, NEAR, _bilerp_grid, composite_scale, \
     granule_sample, mosaic_update, params16
 
@@ -169,3 +175,35 @@ def render_scenes(scenes, ctrl, params, scale_params, method: str = "near",
                                     out_hw, step)
     return composite_scale(canv, best > float("-inf"), scale_params, auto,
                            colour_scale)
+
+
+def render_scenes_bands(scenes, ctrl, params, scale_params, out_sel,
+                        method: str = "near", n_ns: int = 1,
+                        out_hw=(256, 256), step: int = 16,
+                        auto: bool = True, colour_scale: int = 0):
+    """Counterpart of `gsky_tpu/ops/warp.py::render_scenes_bands_ctrl`:
+    kernel B2's per-namespace mosaic, then one byte plane per selected
+    namespace, ``out_sel`` (n_out,) the namespace of each output band.
+    Auto scaling takes each band's own min and max (log10 first under
+    ``colour_scale == 1``); otherwise `scale_to_byte` with
+    ``scale_params`` (offset, scale, clip).  Returns uint8 (n_out, h,
+    w)."""
+    canv, best = warp_scenes_scored(scenes, ctrl, params, method, n_ns,
+                                    out_hw, step)
+    sel = torch.as_tensor(out_sel, dtype=torch.long, device=canv.device)
+    data = canv[sel]
+    ok = (best > float("-inf"))[sel]
+    if auto:
+        if colour_scale == 1:
+            logged = _log10(data)
+            bad = ~torch.isfinite(logged)
+            data = torch.where(bad, torch.zeros_like(logged), logged)
+            ok = ok & ~bad
+        planes = []
+        for d, o in zip(data, ok):
+            mn, mx = _masked_extrema(d, o)
+            planes.append(auto_byte_scale(d, o, mn, mx, o.any()))
+        return torch.stack(planes)
+    sp = [float(v) for v in scale_params]
+    return scale_to_byte(data, ok, sp[0], sp[1], sp[2],
+                         colour_scale=colour_scale, auto=False)

@@ -15,6 +15,11 @@ true-extent test runs before the window rebase, every in-extent tap of a
 lane lies in its own window, the rebase subtracts a whole number of
 pages, and uncovered union positions read the null page.
 
+`union_lane_spans` widens an expression lane's granule windows (one
+per band of the same bbox) to their union, so that every row of the
+lane's table has one shape and lanes of one fingerprint match row for
+row.
+
 The same byte estimate routes a group whose padded page tables would
 list more bytes than its lanes' bucketed stacks to the bucketed leg
 (B2 per lane).  The estimate is the reference's, with its pow2 lane
@@ -227,13 +232,35 @@ def _note_route(path: str):
         _STATS["groups_planned"] += 1
 
 
+def union_lane_spans(spans, cap: int, maxnpg: int):
+    """One expression lane's per-granule page rects (i0, i1, j0, j1),
+    None for padding or off-scene rows, merged to their union: (merged
+    spans, its page count), or the spans unchanged when the union would
+    exceed ``cap`` pages or the pow2 slot count of ``maxnpg``.  Every
+    granule of a scene group has one bucket shape, so the union of
+    clipped rects stays clipped."""
+    live = [s for s in spans if s is not None]
+    if len(live) < 2:
+        return spans, maxnpg
+    i0 = min(s[0] for s in live)
+    i1 = max(s[1] for s in live)
+    j0 = min(s[2] for s in live)
+    j1 = max(s[3] for s in live)
+    npg = (i1 - i0 + 1) * (j1 - j0 + 1)
+    if npg > cap or _pow2(npg) != _pow2(maxnpg):
+        return spans, maxnpg
+    u = (i0, i1, j0, j1)
+    return [u if s is not None else None for s in spans], npg
+
+
 def plan_wave_group(kind: str, es, stage: str = "dispatch"
                     ) -> Optional[Plan]:
-    """Plan one wave group of ``byte`` or ``scored`` lanes: a `Plan`,
-    or None (planner off, another kind, or nothing to gain: the lanes'
-    own tables go to B1).  ``stage="assembly"`` counts plans made on
-    the pipelined scheduler's assembly thread."""
-    if not plan_enabled() or kind not in ("byte", "scored") or not es:
+    """Plan one wave group of ``byte``, ``scored`` or ``expr`` lanes: a
+    `Plan`, or None (planner off, another kind, or nothing to gain: the
+    lanes' own tables go to B1).  ``stage="assembly"`` counts plans made
+    on the pipelined scheduler's assembly thread."""
+    if not plan_enabled() or kind not in ("byte", "scored", "expr") \
+            or not es:
         return None
     if stage == "assembly":
         with _LOCK:

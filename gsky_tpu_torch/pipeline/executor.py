@@ -16,7 +16,8 @@ CRS) on the host in float64, and dispatches:
 
 `warp_mosaic_scenes` is the same dispatch for the modular route without
 a mask band (`TilePipeline._render_fused`), stopping at the scored
-per-namespace canvases: one group goes through B1 or B2 as above;
+per-namespace canvases (over more than `MAX_NS` namespaces, `MAX_NS`
+at a time): one group goes through B1 or B2 as above;
 several source-CRS groups go each through B2 and are combined by
 priority (`ops.warp.combine_scored`).  `warp_mosaic` is its decoded-
 window leg, taken when a scene is uncacheable: per source CRS, the
@@ -28,6 +29,23 @@ is not launched here: it becomes a lane of the device's wave
 (`pipeline.waves`), which renders every concurrent lane in one B1
 launch and returns host arrays.  Declined tiles, the decoded-window leg
 and multi-CRS mosaics stay per call.
+
+`render_expr_byte` is the fused band-algebra tile (an expression over
+several bands, no mask band): every referenced band's granules in one
+B1 launch, mosaic slot i the expression's variable i, the page windows
+of a tile's granules widened to their union, then the expression
+epilogue and byte scale (`ops.paged.render_expr_paged`); with waves on,
+a lane of the device's wave.  It declines (None: the caller runs the
+modular route) where the reference does: granules in several source
+CRSs, an uncacheable scene, the page budget or the VMEM gate, and
+where its pow2 slot count exceeds `MAX_NS`, the kernels' most.
+
+The multi-band (RGB) rungs: `render_rgba_byte`, three granules of one
+grid (one per band) to an RGBA tile in plain torch ops, the tap indices
+computed once for the three cached scenes (`ops.warp.render_rgba_ctrl`);
+`render_bands_byte`, one B2 launch over a group's cached scenes, then a
+byte plane per selected namespace (`ops.warp_render.
+render_scenes_bands`).
 
 `warp_all` serves the masked route: every decoded window is
 projected per dst pixel on the host (float64, cached per dst grid and
@@ -50,10 +68,12 @@ import torch
 from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import GeoTransform
-from ..ops.paged import PARAMS_W, page_slots, paged_vmem_ok, \
-    render_byte_paged, warp_scored_paged
-from ..ops.warp import combine_scored, warp_gather_batch
-from ..ops.warp_render import render_scenes, warp_scenes_scored
+from ..ops.paged import PARAMS_W, note_expr_fused, page_slots, \
+    paged_vmem_ok, render_byte_paged, render_expr_paged, warp_scored_paged
+from ..ops.warp import combine_scored, render_rgba_ctrl, warp_gather_batch
+from ..ops.warp_render import MAX_NS, render_scenes, render_scenes_bands, \
+    warp_scenes_scored
+from .autoplan import union_lane_spans
 from .decode import DecodedWindow
 from .pages import PagePool
 from .scene_cache import DeviceScene, SceneCache
@@ -122,6 +142,26 @@ def _inv_gt_params(gt: GeoTransform, ox: float, oy: float):
     return (a0, inv[0], inv[1], a3, inv[2], inv[3])
 
 
+def _by_ns_chunks(render, items, ns_ids, prios, n_ns: int):
+    """A mosaic over more namespaces than the kernels take (`MAX_NS`),
+    rendered `MAX_NS` namespaces at a time: ``render(items, ns_ids,
+    prios, n)`` for each slice of namespaces, their canvases and valids
+    stacked.  A namespace's mosaic depends on its own granules only, so
+    the result is one launch's over all of them.  None when a slice's
+    render is None."""
+    canvs, valids = [], []
+    for lo in range(0, n_ns, MAX_NS):
+        hi = min(n_ns, lo + MAX_NS)
+        idx = [i for i, n in enumerate(ns_ids) if lo <= n < hi]
+        made = render([items[i] for i in idx], [ns_ids[i] - lo for i in idx],
+                      [prios[i] for i in idx], hi - lo)
+        if made is None:
+            return None
+        canvs.append(made[0][:hi - lo])
+        valids.append(made[1][:hi - lo])
+    return torch.cat(canvs), torch.cat(valids)
+
+
 @dataclass
 class SceneGroup:
     """Device inputs of one (source CRS, bucket, dtype) granule group."""
@@ -161,10 +201,13 @@ class WarpExecutor:
         self._stride_cache: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
         # dispatch counts by leg — "where do renders actually go";
-        # `paged_gated` counts the declines the VMEM gate alone made
+        # `paged_gated` counts the declines the VMEM gate alone made,
+        # `ns_declined` the fused renders declined because their pow2
+        # namespace count exceeds what the kernels are built for
         self.paged_engaged = 0
         self.paged_declined = 0
         self.paged_gated = 0
+        self.ns_declined = 0
         # seconds per stage, summed over calls (SPANS, MODULAR_SPANS)
         self.spans = dict.fromkeys(SPANS, 0.0)
         # window-batch dispatches of `warp_all` by (bh, bw, B)
@@ -434,7 +477,8 @@ class WarpExecutor:
             spans.append((i0, i1, j0, j1))
         return spans, maxnpg
 
-    def _paged_from_group(self, group: SceneGroup, n_pad: int):
+    def _paged_from_group(self, group: SceneGroup, n_pad: int,
+                          lane_union: bool = False):
         """Page tables + 16-wide kernel params for one scene group, or
         None when the paged leg cannot serve it: a window over
         `page_slots()` pages, a page list the reference's VMEM gate
@@ -445,13 +489,19 @@ class WarpExecutor:
         Page coverage per granule comes from the same `_granule_bounds`
         margins the bucketed window uses; table slots come back PINNED
         and the caller must `pool.unpin(tables)` once its dispatch is
-        enqueued."""
+        enqueued.  ``lane_union`` (expression lanes) widens every
+        granule's window to their union (`autoplan.union_lane_spans`):
+        taps outside a granule's true extent are rejected before the
+        window rebase, so a wider window changes no tap."""
         pool = self.pool
         pr, pc = pool.page_rows, pool.page_cols
-        made = self.page_spans(group, page_slots())
+        cap = page_slots()
+        made = self.page_spans(group, cap)
         if made is None:
             return None
         spans, maxnpg = made
+        if lane_union:
+            spans, maxnpg = union_lane_spans(spans, cap, maxnpg)
         S = _bucket_pow2(maxnpg)
         if not paged_vmem_ok(S, n_pad, pr, pc):
             with self._lock:
@@ -508,6 +558,11 @@ class WarpExecutor:
         serves it (same gate and declines as `render_byte_scenes`),
         else B2.  Several groups (granules across source CRSs): B2 per
         group, then a per-pixel priority combine."""
+        if _bucket_pow2(n_ns) > MAX_NS:
+            return _by_ns_chunks(
+                lambda gs, ids, pr, n: self.warp_mosaic_scenes(
+                    gs, ids, pr, dst_gt, dst_crs, height, width, n, method),
+                granules, ns_ids, prios, n_ns)
         groups = self._scene_groups(granules, ns_ids, prios, dst_gt,
                                     dst_crs, height, width)
         if groups is None:
@@ -558,6 +613,11 @@ class WarpExecutor:
         stack of the largest window's shape; validity is NaN-encoded
         (params[8] = NaN: a tap is valid when finite) and each window's
         true extent rejects the padding."""
+        if _bucket_pow2(n_ns) > MAX_NS:
+            return _by_ns_chunks(
+                lambda ws, ids, pr, n: self.warp_mosaic(
+                    ws, ids, pr, dst_gt, dst_crs, height, width, n, method),
+                windows, ns_ids, prios, n_ns)
         by_crs: Dict[CRS, List[int]] = {}
         for i, wdw in enumerate(windows):
             by_crs.setdefault(wdw.src_crs, []).append(i)
@@ -594,6 +654,159 @@ class WarpExecutor:
             return canv, best > float("-inf")
         return combine_scored(torch.stack([c for c, _ in parts]),
                               torch.stack([b for _, b in parts]))
+
+    def _note_ns_declined(self) -> None:
+        with self._lock:
+            self.ns_declined += 1
+
+    def render_expr_byte(self, granules, ns_ids: Sequence[int],
+                         prios: Sequence[float], dst_gt: GeoTransform,
+                         dst_crs: CRS, height: int, width: int,
+                         n_slots: int, fp, method: str = "near",
+                         offset: float = 0.0, scale: float = 0.0,
+                         clip: float = 0.0, colour_scale: int = 0,
+                         auto: bool = True):
+        """The fused band-algebra tile: ``ns_ids`` are fingerprint slot
+        indices, ``fp`` the `ops.expr.ExprFingerprint`.  PNG-ready uint8
+        (H, W): a host array from a wave, else a tensor on the device;
+        or None when the fused route declines (the caller then runs the
+        modular route and counts the request "unfused")."""
+        t = time.perf_counter()
+        groups = self._scene_groups(granules, ns_ids, prios, dst_gt,
+                                    dst_crs, height, width)
+        t = self.add_span("groups", t)
+        if groups is None or len(groups) != 1:
+            return None
+        group = groups[0]
+        n_pad = _bucket_pow2(n_slots)
+        if n_pad > MAX_NS:
+            self._note_ns_declined()
+            return None
+        made = self._paged_from_group(group, n_pad, lane_union=True)
+        t = self.add_span("tables", t)
+        if made is None:
+            with self._lock:
+                self.paged_declined += 1
+            return None
+        tables, params16, _ = made
+        with self._lock:
+            self.paged_engaged += 1
+        sp = np.array([offset, scale, clip], np.float32)
+        consts = fp.const_array()
+        statics = (method, n_pad, (height, width), group.step, auto,
+                   colour_scale, fp.key)
+        dev = self.device
+        if waves_enabled():
+            note_expr_fused("wave")
+            out = default_waves(dev).render_expr(
+                self.pool, tables, params16, group.ctrl, sp, consts,
+                statics, _bucketed_lane(group), _serials(group))
+            self.add_span("dispatch", t)
+            return out
+        note_expr_fused("percall")
+        try:
+            with self.pool.locked_pool() as pool:
+                out = render_expr_paged(
+                    pool, torch.from_numpy(tables[None]).to(dev),
+                    torch.from_numpy(params16).to(dev),
+                    group.ctrl_dev[None], sp[None],
+                    torch.from_numpy(consts[None]).to(dev), method, n_pad,
+                    (height, width), group.step, auto, colour_scale,
+                    fp.key, fp.hash)
+        finally:
+            self.pool.unpin(tables)
+        self.add_span("dispatch", t)
+        return out[0]
+
+    def render_bands_byte(self, granules, ns_ids: Sequence[int],
+                          prios: Sequence[float], dst_gt: GeoTransform,
+                          dst_crs: CRS, height: int, width: int,
+                          n_ns: int, out_sel: Sequence[int],
+                          method: str = "near", offset: float = 0.0,
+                          scale: float = 0.0, clip: float = 0.0,
+                          colour_scale: int = 0, auto: bool = True):
+        """The multi-band planes rung: one B2 launch over the group's
+        cached scenes, one byte plane per ``out_sel`` namespace: uint8
+        (n_out, H, W) on the device, or None (several source-CRS
+        groups, an uncacheable scene, more namespaces than `MAX_NS`)."""
+        groups = self._scene_groups(granules, ns_ids, prios, dst_gt,
+                                    dst_crs, height, width)
+        if groups is None or len(groups) != 1:
+            return None
+        group = groups[0]
+        n_pad = _bucket_pow2(n_ns)
+        if n_pad > MAX_NS:
+            self._note_ns_declined()
+            return None
+        n = len(group.scenes)
+        params = torch.from_numpy(group.params[:n].astype(np.float32)) \
+            .to(self.device)
+        sp = np.array([offset, scale, clip], np.float32)
+        return render_scenes_bands([s.dev for s in group.scenes],
+                                   group.ctrl_dev, params, sp, out_sel,
+                                   method, n_pad, (height, width),
+                                   group.step, auto, colour_scale)
+
+    def render_rgba_byte(self, granules, out_sel: Sequence[int],
+                         dst_gt: GeoTransform, dst_crs: CRS, height: int,
+                         width: int, method: str = "near",
+                         offset: float = 0.0, scale: float = 0.0,
+                         clip: float = 0.0, colour_scale: int = 0,
+                         auto: bool = True):
+        """The single-scene RGB rung: three granules, one per band, of
+        one grid (srs, geotransform; scenes of one bucket, dtype, nodata
+        and shape) -> the RGBA tile uint8 (H, W, 4) on the device, or
+        None.  Channel k comes from granule ``out_sel[k]``."""
+        if len(granules) != 3 or len(out_sel) != 3 \
+                or sorted(out_sel) != [0, 1, 2]:
+            return None
+        g0 = granules[0]
+        if g0.geo_loc:
+            return None
+        for g in granules[1:]:
+            if g.geo_loc or g.srs != g0.srs \
+                    or g.geo_transform != g0.geo_transform:
+                return None
+        try:
+            src_crs = parse_crs(g0.srs) if g0.srs else None
+        except ValueError:
+            return None
+        if src_crs is None:
+            return None
+        stride = self._granule_stride(g0, dst_gt, dst_crs, height, width)
+        chans = []
+        for ns in out_sel:
+            s = self.cache.get(granules[ns], stride)
+            if s is None:
+                return None
+            chans.append(s)
+        s0 = chans[0]
+        for s in chans[1:]:
+            if s.bucket != s0.bucket or s.dtype != s0.dtype \
+                    or s.crs != s0.crs \
+                    or not (np.isnan(s.nodata) and np.isnan(s0.nodata)
+                            or s.nodata == s0.nodata) \
+                    or (s.height, s.width) != (s0.height, s0.width):
+                return None
+        sx, sy, step = self._ctrl_geo_coords(dst_gt, dst_crs, height,
+                                             width, s0.crs, 16)
+        ox, oy = s0.gt.x0, s0.gt.y0
+        dkey = ("ctrldev", dst_gt.to_gdal(), dst_crs, height, width,
+                s0.crs, ox, oy)
+        ctrl_dev = self._geo_cache_get(dkey)
+        if ctrl_dev is None:
+            ctrl_dev = torch.from_numpy(
+                np.stack([sx - ox, sy - oy]).astype(np.float32)) \
+                .to(self.device)
+            self._geo_cache_put(dkey, ctrl_dev)
+        param = np.array(_inv_gt_params(s0.gt, ox, oy)
+                         + (s0.height, s0.width, s0.nodata, 0.0, 0.0),
+                         np.float32)
+        sp = np.array([offset, scale, clip], np.float32)
+        return render_rgba_ctrl([s.dev for s in chans], ctrl_dev,
+                                torch.from_numpy(param).to(self.device),
+                                sp, method, (height, width), step, auto,
+                                colour_scale)
 
     def render_byte_scenes(self, granules, ns_ids: Sequence[int],
                            prios: Sequence[float], dst_gt: GeoTransform,

@@ -1,6 +1,6 @@
 """The tile pipeline: index -> warp -> mosaic -> band expressions.
 
-Counterpart of the GetMap half of `gsky_tpu/pipeline/tile.py`, two
+Counterpart of the GetMap half of `gsky_tpu/pipeline/tile.py`, three
 routes:
 
 - `render_composite_byte`, the fused single-band route (its halves
@@ -8,7 +8,16 @@ routes:
   staged GetMap path and per frame of an animation, `animation_prep`
   indexing a whole TIME list at once): one MAS query,
   granule expansion, namespace slots and newest-first mosaic priorities
-  (`ns_prio`), then `WarpExecutor.render_byte_scenes` (kernels B1/B2);
+  (`ns_prio`), then `WarpExecutor.render_byte_scenes` (kernels B1/B2).
+  A band expression that is not a bare variable takes `_expr_prep`
+  instead (fused band algebra, ``GSKY_EXPR_FUSE``): its variables
+  resolved to namespaces, granules of other namespaces dropped, each
+  granule mapped to its variable's fingerprint slot, then
+  `WarpExecutor.render_expr_byte` (B1 and the expression epilogue);
+- the multi-band (RGB) rungs over one index pass (`_bands_prep`):
+  `render_rgba_byte` (three granules of one grid to an RGBA tile) and
+  `render_bands_byte` (B2, one byte plane per band), both in
+  `render_rgb_auto`;
 - `process` -> `render`, the modular route the OWS front end falls back
   to.  Without a mask band it is `_render_fused`: the cached scenes
   warped and mosaicked per namespace in one dispatch per source-CRS
@@ -42,7 +51,8 @@ from ..geo.transform import BBox, transform_bbox
 from ..index.client import MASClient
 from ..index.store import fmt_time
 from ..ops import mosaic as M
-from ..ops.expr import BandExpressions
+from ..ops.expr import BandExpressions, expr_fuse_enabled, fingerprint
+from ..ops.paged import note_expr_fused
 from ..ops.raster import DTYPE_NP
 from ..resilience import check_partial
 from .decode import decode_all
@@ -62,12 +72,16 @@ def ns_prio(gs: Sequence[Granule]):
         if g.namespace not in ns_index:
             ns_index[g.namespace] = len(ns_names)
             ns_names.append(g.namespace)
-    ns_ids = [ns_index[g.namespace] for g in gs]
+    return ns_names, [ns_index[g.namespace] for g in gs], newest_first(gs)
+
+
+def newest_first(gs: Sequence[Granule]) -> List[float]:
+    """Mosaic priorities of a granule set, the newest highest."""
     order = M.priority_order([g.timestamp for g in gs])
     prio = [0.0] * len(gs)
     for rank, i in enumerate(order):
         prio[i] = float(len(gs) - rank)
-    return ns_names, ns_ids, prio
+    return prio
 
 
 class TilePipeline:
@@ -169,34 +183,69 @@ class TilePipeline:
 
     # -- the fused single-band route -----------------------------------
 
-    @staticmethod
-    def _fused_ok(req: GeoTileRequest) -> bool:
-        """Whether the fused composite route serves ``req``: no mask
-        band; a band expression that is not a bare variable raises
-        (fused band algebra, ROADMAP A.7)."""
-        if req.mask is not None:
-            return False
-        if any(ce._ast[0] != "var" for ce in req.band_exprs.expressions):
-            raise NotImplementedError(
-                "fused band algebra is not ported yet (ROADMAP A.7): "
-                f"{req.band_exprs.expr_text}")
-        return True
-
     def composite_prep(self, req: GeoTileRequest,
                        stats: Optional[Dict[str, int]] = None,
                        spans: Optional[Dict[str, float]] = None):
         """ONE index pass for the fused composite path: (granules,
         ns_ids, prio, n_ns), or None when the request has a mask band or
         no granules.  ``stats`` gets the granule and file counts,
-        ``spans["index_s"]`` the index query's seconds."""
-        if not self._fused_ok(req):
+        ``spans["index_s"]`` the index query's seconds.  A request with
+        band algebra gets `_expr_prep`'s 5-tuple instead (granules
+        still first)."""
+        if req.mask is not None:
             return None
+        exprs = req.band_exprs
+        if any(ce._ast[0] != "var" for ce in exprs.expressions):
+            return self._expr_prep(req, exprs, stats, spans)
         granules = self._timed_index(req, spans)
         if not granules:
             return None
         _note_counts(stats, granules)
         _, ns_ids, prio = ns_prio(granules)
         return granules, ns_ids, prio, len(set(ns_ids))
+
+    def _expr_prep(self, req: GeoTileRequest, exprs: BandExpressions,
+                   stats: Optional[Dict[str, int]] = None,
+                   spans: Optional[Dict[str, float]] = None):
+        """Fused band-algebra qualification: ONE index pass, variables
+        resolved to namespaces as `evaluate_expressions` resolves them
+        (exact name, else the unique ``var#axis`` candidate), granules
+        mapped to fingerprint slot ids.  (granules, ns_ids, prio,
+        n_slots, fp), or None: several expressions, no variable, no
+        granule of a referenced namespace, or ``GSKY_EXPR_FUSE=0``
+        (counted "unfused"); the modular route then runs."""
+        if len(exprs.expressions) != 1:
+            return None
+        ce = exprs.expressions[0]
+        if ce._ast[0] == "var" or not ce.variables:
+            return None
+        if not expr_fuse_enabled():
+            note_expr_fused("unfused")
+            return None
+        granules = self._timed_index(req, spans)
+        if not granules:
+            return None
+        _note_counts(stats, granules)
+        fp = fingerprint(ce)
+        names = {g.namespace for g in granules}
+        slot_of: Dict[str, int] = {}
+        for i, var in enumerate(fp.slots):
+            if var in names:
+                slot_of[var] = i
+                continue
+            cands = [k for k in names if k.split("#")[0] == var]
+            if len(cands) == 1:
+                slot_of[cands[0]] = i
+            # an unresolved slot gets no granule: it stays all-invalid,
+            # as the modular route's missing band does
+        # granules of unreferenced namespaces are dropped: the output
+        # does not depend on them, and ranking the kept subset keeps
+        # each namespace's priority order
+        kept = [g for g in granules if g.namespace in slot_of]
+        if not kept:
+            return None
+        return (kept, [slot_of[g.namespace] for g in kept],
+                newest_first(kept), len(fp.slots), fp)
 
     def _timed_index(self, req: GeoTileRequest,
                      spans: Optional[Dict[str, float]]):
@@ -217,9 +266,11 @@ class TilePipeline:
         timestep (WMS-T nearest value), so frames between two source
         dates share one granule set.  A list aligned with ``times`` of
         `composite_prep`-form tuples (None for a frame with no granule),
-        or None when the fused route does not serve the request (a mask
-        band, no granules): each frame then renders on its own."""
-        if not self._fused_ok(req):
+        or None when the fused composite route does not serve the
+        request (a mask band, band algebra, no granules): each frame
+        then renders on its own."""
+        if req.mask is not None or any(
+                ce._ast[0] != "var" for ce in req.band_exprs.expressions):
             return None
         span_req = dataclasses.replace(req, start_time=min(times),
                                        end_time=max(times) + 1.0)
@@ -247,6 +298,15 @@ class TilePipeline:
                            offset: float = 0.0, scale: float = 0.0,
                            clip: float = 0.0, colour_scale: int = 0,
                            auto: bool = True):
+        if len(made) == 5:      # `_expr_prep`'s form: band algebra
+            granules, ns_ids, prio, n_slots, fp = made
+            out = self.executor.render_expr_byte(
+                granules, ns_ids, prio, req.dst_gt(), req.crs,
+                req.height, req.width, n_slots, fp, req.resample,
+                offset, scale, clip, colour_scale, auto)
+            if out is None:
+                note_expr_fused("unfused")
+            return out
         granules, ns_ids, prio, n_ns = made
         return self.executor.render_byte_scenes(
             granules, ns_ids, prio, req.dst_gt(), req.crs,
@@ -268,6 +328,103 @@ class TilePipeline:
             return None
         return self.composite_dispatch(req, made, offset, scale, clip,
                                        colour_scale, auto)
+
+    # -- the multi-band (RGB) rungs ------------------------------------
+
+    def _bands_prep(self, req: GeoTileRequest, n_bands: int = 0,
+                    stats: Optional[Dict[str, int]] = None,
+                    spans: Optional[Dict[str, float]] = None):
+        """ONE index pass for both RGB rungs: (granules, ns_index,
+        out_sel), or None (a mask band, band algebra, ``n_bands`` given
+        and not the style's band count, no granules, a band without a
+        unique namespace)."""
+        if req.mask is not None:
+            return None
+        exprs = req.band_exprs
+        if not exprs.expressions or \
+                (n_bands and len(exprs.expressions) != n_bands) or \
+                any(ce._ast[0] != "var" for ce in exprs.expressions):
+            return None
+        granules = self._timed_index(req, spans)
+        if not granules:
+            return None
+        _note_counts(stats, granules)
+        ns_index: Dict[str, int] = {}
+        for g in granules:
+            if g.namespace not in ns_index:
+                ns_index[g.namespace] = len(ns_index)
+        out_sel = []
+        for ce in exprs.expressions:
+            var = ce.variables[0]
+            if var in ns_index:
+                out_sel.append(ns_index[var])
+                continue
+            cands = [k for k in ns_index if k.split("#")[0] == var]
+            if len(cands) != 1:
+                return None
+            out_sel.append(ns_index[cands[0]])
+        return granules, ns_index, out_sel
+
+    def _bands_dispatch(self, req: GeoTileRequest, granules, ns_index,
+                        out_sel, offset, scale, clip, colour_scale, auto):
+        return self.executor.render_bands_byte(
+            granules, [ns_index[g.namespace] for g in granules],
+            newest_first(granules), req.dst_gt(), req.crs, req.height,
+            req.width, len(ns_index), out_sel, req.resample, offset, scale,
+            clip, colour_scale, auto)
+
+    def render_bands_byte(self, req: GeoTileRequest, offset: float = 0.0,
+                          scale: float = 0.0, clip: float = 0.0,
+                          colour_scale: int = 0, auto: bool = True,
+                          stats: Optional[Dict[str, int]] = None):
+        """The planes rung: uint8 (n_bands, H, W) in the style's band
+        order, or None when the request does not qualify."""
+        made = self._bands_prep(req, stats=stats)
+        if made is None:
+            return None
+        return self._bands_dispatch(req, *made, offset, scale, clip,
+                                    colour_scale, auto)
+
+    def _rgba_try(self, req: GeoTileRequest, granules, ns_index, out_sel,
+                  offset, scale, clip, colour_scale, auto):
+        """The RGBA rung over an already indexed granule set, or None
+        when the set is not one granule per band."""
+        if len(granules) != 3 or len(ns_index) != 3 \
+                or sorted(out_sel) != [0, 1, 2]:
+            return None
+        return self.executor.render_rgba_byte(
+            granules, out_sel, req.dst_gt(), req.crs, req.height,
+            req.width, req.resample, offset, scale, clip, colour_scale,
+            auto)
+
+    def render_rgba_byte(self, req: GeoTileRequest, offset: float = 0.0,
+                         scale: float = 0.0, clip: float = 0.0,
+                         colour_scale: int = 0, auto: bool = True,
+                         stats: Optional[Dict[str, int]] = None):
+        """The RGBA rung alone: uint8 (H, W, 4), or None."""
+        made = self._bands_prep(req, n_bands=3, stats=stats)
+        if made is None:
+            return None
+        return self._rgba_try(req, *made, offset, scale, clip,
+                              colour_scale, auto)
+
+    def render_rgb_auto(self, req: GeoTileRequest, offset: float = 0.0,
+                        scale: float = 0.0, clip: float = 0.0,
+                        colour_scale: int = 0, auto: bool = True,
+                        stats: Optional[Dict[str, int]] = None):
+        """The RGB ladder over ONE index pass: ("rgba", (H, W, 4)) when
+        the granule set fits the RGBA rung, else ("planes", (3, H, W)),
+        else None."""
+        made = self._bands_prep(req, n_bands=3, stats=stats)
+        if made is None:
+            return None
+        out = self._rgba_try(req, *made, offset, scale, clip, colour_scale,
+                             auto)
+        if out is not None:
+            return ("rgba", out)
+        out = self._bands_dispatch(req, *made, offset, scale, clip,
+                                   colour_scale, auto)
+        return None if out is None else ("planes", out)
 
     # -- the modular route ---------------------------------------------
 

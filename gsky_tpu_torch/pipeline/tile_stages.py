@@ -5,9 +5,12 @@ runs the fused single-band route of one request as
 
     plan -> index -> decode -> dispatch -> readback
 
-calling the same halves the serial path runs (`composite_prep`, then
-`composite_dispatch`), in the same order, with the same inputs, so its
-bytes are the serial path's.  Each stage but readback passes a
+calling the same halves the serial path runs, in the same order, with
+the same inputs, so its bytes are the serial path's: for a one-band
+style `composite_prep` then `composite_dispatch` (a single band or
+band algebra), for a 3-band style `_bands_prep` then the RGBA rung and,
+where it declines, the planes rung, for 2 or 4 bands `_bands_prep` then
+the planes rung.  Each stage but readback passes a
 process-wide `StageGate` (a semaphore with occupancy telemetry), so
 concurrent requests overlap: one decodes scenes into the device cache
 while another's launch runs.  With waves on, dispatch passes no gate:
@@ -17,9 +20,9 @@ serial ladder instead.  The gates' sizes: ``GSKY_TILE_DECODE_WORKERS``
 (default 4) and ``GSKY_TILE_DISPATCH_SLOTS`` (default 2).
 
 Per-request spans (``spans``): seconds of plan, index, decode, dispatch
-and readback, and the gates' queue high-water marks.  Not ported: the
-RGB stages (ROADMAP A.13), cancellation checks and the trace spans
-(A.16), the device guard's readback probe (A.10).
+and readback, and the gates' queue high-water marks.  Not ported:
+cancellation checks and the trace spans (A.16), the device guard's
+readback probe (A.10).
 """
 
 from __future__ import annotations
@@ -175,26 +178,40 @@ def render_staged(pipe, req, n_exprs: int, offset: float = 0.0,
                   colour_scale: int = 0, auto: bool = True,
                   stats: Optional[Dict[str, int]] = None,
                   spans: Optional[Dict] = None):
-    """The staged GetMap path, in the request's thread: ("composite",
-    uint8 (H, W) host array), or None when the fused route does not
-    serve the request (the caller then takes the modular route, as the
-    serial path does)."""
-    if n_exprs != 1:
-        raise NotImplementedError(
-            f"a {n_exprs}-band (RGB) GetMap is not ported yet "
-            "(ROADMAP A.13)")
+    """The staged GetMap path, in the request's thread: (kind, host
+    array) with kind "composite" (uint8 (H, W)), "rgba" ((H, W, 4)) or
+    "planes" ((n, H, W)), or None when the fused route does not serve
+    the request (the caller then takes the modular route, as the serial
+    path does)."""
     spans = spans if spans is not None else {}
     t0 = time.perf_counter()
-    made = pipe.composite_prep(req, stats, spans)
-    pipe.executor.add_span("index", t0)
+    if n_exprs == 1:
+        made = pipe.composite_prep(req, stats, spans)
+        pipe.executor.add_span("index", t0)
+    elif n_exprs == 3:
+        made = pipe._bands_prep(req, n_bands=3, stats=stats, spans=spans)
+    else:
+        made = pipe._bands_prep(req, stats=stats, spans=spans)
     spans["plan_s"] = spans.get("plan_s", 0.0) + max(
         0.0, time.perf_counter() - t0 - spans.get("index_s", 0.0))
     if made is None:
         return None
     _decode_stage(pipe, req, made[0], spans)
-    out = _dispatch_stage(
-        lambda: pipe.composite_dispatch(req, made, offset, scale, clip,
-                                        colour_scale, auto), spans)
+    args = (offset, scale, clip, colour_scale, auto)
+    if n_exprs == 1:
+        kind = "composite"
+        out = _dispatch_stage(
+            lambda: pipe.composite_dispatch(req, made, *args), spans)
+    else:
+        kind, out = "planes", None
+        if n_exprs == 3:
+            kind = "rgba"
+            out = _dispatch_stage(lambda: pipe._rgba_try(req, *made, *args),
+                                  spans)
+        if out is None:
+            kind = "planes"
+            out = _dispatch_stage(
+                lambda: pipe._bands_dispatch(req, *made, *args), spans)
     if out is None:
         return None
-    return "composite", _readback(out, spans)
+    return kind, _readback(out, spans)

@@ -2,9 +2,9 @@
 share one kernel launch per wave.
 
 Counterpart of `gsky_tpu/pipeline/waves.py` (`WaveScheduler`) for the
-``byte``, ``scored`` and ``drill`` kinds.  A request enqueues an entry
-(its payload and a future) and blocks on the future.  Three daemon
-threads serve the queue:
+``byte``, ``scored``, ``expr`` and ``drill`` kinds.  A request enqueues
+an entry (its payload and a future) and blocks on the future.  Three
+daemon threads serve the queue:
 
 - the ticker waits ``GSKY_WAVE_TICK_MS`` for companions after the first
   entry arrives, then assembles: it drains up to ``GSKY_WAVE_MAX``
@@ -14,9 +14,11 @@ threads serve the queue:
   every lane's result is independent of its companions), its ctrl grids
   and scale params, and uploads the stacks into a `_StagingRing` slot;
 - the dispatcher pops staged waves and launches each: kernel B1 over
-  all its lanes for ``byte``/``scored`` (``ops.paged``, with ``sb_of``
-  under a superblock plan), B2 per lane on the bucketed route, B3's
-  K-block form for ``drill`` (`ops.paged.wave_drill_stats`); it then
+  all its lanes for ``byte``/``scored``/``expr`` (``ops.paged``, with
+  ``sb_of`` under a superblock plan; an ``expr`` wave's lanes share one
+  fingerprint, their literals stacked (N, C) like the scale params), B2
+  per lane on the bucketed route, B3's K-block form for ``drill``
+  (`ops.paged.wave_drill_stats`); it then
   unpins the lanes' pages and records a completion event;
 - the drainer waits for that event, copies the wave's outputs to host
   memory (pinned on the card) once, and sets each entry's future in
@@ -38,8 +40,8 @@ for XLA buffer donation) and re-renders each entry per call after a
 device incident.  The port has neither: PyTorch's caching allocator
 reuses output blocks across waves, the drainer hands out host copies
 only, and a failed wave fails every entry's request (`stats()`
-"failed").  Not ported: the ``expr`` kind (ROADMAP A.7), mesh waves
-(A.11), brownout and pressure clamps and cancellation (A.16),
+"failed").  Not ported: mesh waves (A.11), brownout and pressure
+clamps and cancellation (A.16),
 `device_guard` supervision (A.10).
 """
 
@@ -59,7 +61,9 @@ import torch
 
 from ..device import resolve_device
 from ..ops import paged
-from ..ops.paged import PARAMS_W, wave_drill_stats
+from ..ops.expr import fingerprint_hash
+from ..ops.paged import PARAMS_W, expr_epilogue, scale_lanes, \
+    wave_drill_stats
 from ..ops.warp_render import render_scenes, warp_scenes_scored
 from . import autoplan
 
@@ -277,8 +281,10 @@ def _host_inputs(kind: str, es: List[_Entry], plan) -> Dict:
     program cache; a launch here takes any N)."""
     N = len(es)
     host = {"ctrls": _stack(es, "ctrl")}
-    if kind == "byte":
+    if kind in ("byte", "expr"):
         host["sps"] = _stack(es, "sp")
+    if kind == "expr":
+        host["consts"] = _stack(es, "consts")
     if plan is not None and plan.route == "superblock":
         T = plan.params.shape[0] // plan.sb_of.shape[0]
         host["tables"] = plan.tables
@@ -517,7 +523,7 @@ class WaveScheduler:
         if kind == "drill":
             # drill blocks already lie on the device: nothing to upload
             return _StagedWave(kind, key, es)
-        if kind not in ("byte", "scored"):
+        if kind not in ("byte", "scored", "expr"):
             raise ValueError(f"unknown wave kind {kind!r}")
         plan = autoplan.plan_wave_group(kind, es, stage="assembly")
         pool_gen = es[0].payload["pool"].handoff()
@@ -622,7 +628,7 @@ class WaveScheduler:
                 [e.payload["data"] for e in es],
                 [e.payload["valid"] for e in es], clip_lo, clip_hi, pix)
             return (vals, counts)
-        if kind not in ("byte", "scored"):
+        if kind not in ("byte", "scored", "expr"):
             raise ValueError(f"unknown wave kind {kind!r}")
         statics = es[0].key[0]
         method, n_ns, out_hw, step = statics[:4]
@@ -641,6 +647,14 @@ class WaveScheduler:
                     staged["ctrls"], staged["sps"], method, n_ns, out_hw,
                     step, statics[4], statics[5], sb_of=staged.get("sb_of"))
                 return (out,)
+            if kind == "expr":
+                fp = statics[6]
+                out = paged.render_expr_paged(
+                    parr, staged["tables"], staged["params"],
+                    staged["ctrls"], staged["sps"], staged["consts"],
+                    method, n_ns, out_hw, step, statics[4], statics[5], fp,
+                    fingerprint_hash(fp), sb_of=staged.get("sb_of"))
+                return (out,)
             canv, best = paged.warp_scored_paged(
                 parr, staged["tables"], staged["params"], staged["ctrls"],
                 method, n_ns, out_hw, step, sb_of=staged.get("sb_of"))
@@ -656,10 +670,19 @@ class WaveScheduler:
                 sp = torch.from_numpy(np.asarray(e.payload["sp"]))
                 outs.append(render_scenes(lane.scenes, lane.ctrl, params, sp,
                                           *statics))
+            elif kind == "expr":
+                # B2 over the lane's scenes, then the same epilogue
+                c, b = warp_scenes_scored(lane.scenes, lane.ctrl, params,
+                                          *statics[:4])
+                consts = torch.from_numpy(e.payload["consts"][None]).to(dev)
+                plane, ok = expr_epilogue(c[None], b[None], statics[6],
+                                          consts)
+                outs.append(scale_lanes(plane, ok, e.payload["sp"][None],
+                                        statics[4], statics[5])[0])
             else:
                 outs.append(warp_scenes_scored(lane.scenes, lane.ctrl,
                                                params, *statics[:4]))
-        if kind == "byte":
+        if kind in ("byte", "expr"):
             return (torch.stack(outs),)
         canv = torch.stack([c for c, _ in outs])
         best = torch.stack([b for _, b in outs])
@@ -684,6 +707,23 @@ class WaveScheduler:
                     "params16": np.asarray(params16),
                     "ctrl": np.asarray(ctrl, np.float32),
                     "sp": np.asarray(sp, np.float32), "xla": lane,
+                    "serials": tuple(serials) if serials else None},
+                   cleanup=lambda: pool.unpin(tables))
+        return self._wait(self._submit(e))
+
+    def render_expr(self, pool, tables, params16, ctrl, sp, consts,
+                    statics: tuple, lane: BucketedLane,
+                    serials=None) -> np.ndarray:
+        """One fused expression tile: `render_byte`'s contract plus
+        ``consts``, the lane's literals (C,) f32; ``statics`` ends with
+        the fingerprint key, so a wave's lanes share one structure.
+        Blocks; returns host uint8 (H, W)."""
+        e = _Entry("expr", (tuple(statics), id(pool)),
+                   {"pool": pool, "tables": np.asarray(tables),
+                    "params16": np.asarray(params16),
+                    "ctrl": np.asarray(ctrl, np.float32),
+                    "sp": np.asarray(sp, np.float32),
+                    "consts": np.asarray(consts, np.float32), "xla": lane,
                     "serials": tuple(serials) if serials else None},
                    cleanup=lambda: pool.unpin(tables))
         return self._wait(self._submit(e))

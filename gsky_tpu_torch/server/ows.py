@@ -8,16 +8,19 @@ answers with a `Response`; errors come back as an OGC ServiceException.
 threaded HTTP server, one thread a connection.
 
 GetMap runs the reference's ladder: size checks, the zoom limit (an
-overview layer, or the placeholder tile), then for a single-band style
-the fused route and its PNG: by default the staged path
+overview layer, or the placeholder tile), then for a style of one to
+four bands the fused route and its PNG: by default the staged path
 (`pipeline.tile_stages.render_staged`: plan, index, decode, dispatch,
-readback), with ``GSKY_TILE_PIPELINE=0`` the serial
-`TilePipeline.render_composite_byte`, both through kernels B1/B2 and,
-with waves on, as lanes of the device's wave.  When the fused route
-declines (a mask band, granules in several source CRSs, an uncacheable
-scene, a fusion layer, no granules), the modular route
-(`TilePipeline.process`), byte scaling per band and the PNG.  A one-band
-tile takes the style's or the layer's palette.
+readback), with ``GSKY_TILE_PIPELINE=0`` the serial ladder.  One band:
+`TilePipeline.render_composite_byte` (B1/B2; band algebra through B1
+and the expression epilogue), with waves on as lanes of the device's
+wave.  Three bands: the RGB ladder (`_render_rgb`: the RGBA rung, whose
+tile is encoded as RGBA, else the planes rung through B2).  Two or four
+bands: the planes rung.  When the fused route declines (a mask band,
+granules in several source CRSs, an uncacheable scene, a fusion layer,
+no granules, band algebra in a multi-band style), the modular route
+(`TilePipeline.process`), byte scaling of up to four bands and the PNG.
+A one-band tile takes the style's or the layer's palette.
 
 A TIME list with an animation format (``image/apng``; ``video/mp4`` is
 answered with the same APNG, labelled ``X-Gsky-Anim-Container:
@@ -25,8 +28,11 @@ apng-stub``) is an animation: one index pass
 (`TilePipeline.animation_prep`), every frame a lane of one wave, sent
 from ``GSKY_ANIM_WORKERS`` threads, the frames' PNGs spliced into one
 APNG (`io.png.ApngAssembler`) whose frame count is the header
-``X-Gsky-Anim-Frames``.  A layer the fused route does not serve (a mask
-band) renders each frame on its own through the modular route (B4).
+``X-Gsky-Anim-Frames``.  A layer the fused composite route does not
+serve (a mask band, band algebra) renders each frame on its own
+through the modular route.  As in the reference, a multi-band style's
+frames go through the composite route too, which composites the bands
+into one plane.
 ``GSKY_ANIM=0`` answers such a request with one image over the range.
 
 Requests the port cannot serve yet get HTTP 501 with exception code
@@ -55,7 +61,8 @@ import torch
 from ..device import resolve_device
 from ..geo.transform import pixel_resolution
 from ..index.store import parse_time
-from ..io.png import ApngAssembler, empty_tile_png, encode_png
+from ..io.png import ApngAssembler, empty_tile_png, encode_png, \
+    encode_rgba_png
 from ..ops.palette import gradient_palette, with_nodata_entry
 from ..ops.scale import scale_params_auto, scale_to_byte
 from ..pipeline.executor import WarpExecutor
@@ -374,30 +381,38 @@ class OWSServer:
         req = self._tile_request(source, style, p, p.width, p.height,
                                  lay.wms_polygon_segments)
         n_exprs = len(req.band_exprs.expr_names)
-        if n_exprs > 1:
-            raise _unported(f"a {n_exprs}-band (RGB) GetMap", "A.13")
         pipe = self._pipeline(cfg)
         auto = scale_params_auto(style.offset_value, style.scale_value,
                                  style.clip_value)
         clock.mark("parse")
 
-        scaled = None
-        if not lay.input_layers and n_exprs == 1:
+        scaled = rgba = None
+        if not lay.input_layers and 1 <= n_exprs <= 4:
             # the fused route: warp, mosaic and byte scale in one
             # dispatch, one readback
+            sp = (style.offset_value, style.scale_value, style.clip_value,
+                  style.colour_scale, auto)
             if tile_pipeline_enabled():
-                made = render_staged(
-                    pipe, req, n_exprs, style.offset_value,
-                    style.scale_value, style.clip_value,
-                    style.colour_scale, auto)
-                if made is not None:
-                    scaled = [made[1]]
+                made = render_staged(pipe, req, n_exprs, *sp)
+            elif n_exprs == 1:
+                sb = pipe.render_composite_byte(req, *sp)
+                made = None if sb is None else ("composite", sb)
+            elif n_exprs == 3:
+                made = self._render_rgb(pipe, req, style, auto)
             else:
-                sb = pipe.render_composite_byte(
-                    req, style.offset_value, style.scale_value,
-                    style.clip_value, style.colour_scale, auto)
-                if sb is not None:
-                    scaled = [_host(sb)]
+                sb = pipe.render_bands_byte(req, *sp)
+                made = None if sb is None else ("planes", sb)
+            if made is not None:
+                kind, arr = made[0], _host(made[1])
+                if kind == "rgba":
+                    rgba = arr                      # (H, W, 4)
+                else:
+                    scaled = [arr] if arr.ndim == 2 else list(arr)
+        if rgba is not None:
+            clock.mark("render")
+            png = encode_rgba_png(rgba, compress_level=level)
+            clock.mark("encode")
+            return _png(png)
         if scaled is None:
             res = _render_with_fusion(pipe, req, lay)
             bands = [res.data[n] for n in res.namespaces if n in res.data]
@@ -436,9 +451,6 @@ class OWSServer:
             times = times[:maxf]
         req = self._tile_request(source, style, p, p.width, p.height,
                                  lay.wms_polygon_segments)
-        n_exprs = len(req.band_exprs.expr_names)
-        if n_exprs > 1:
-            raise _unported(f"a {n_exprs}-band (RGB) GetMap", "A.13")
         pipe = self._pipeline(cfg)
         auto = scale_params_auto(style.offset_value, style.scale_value,
                                  style.clip_value)
@@ -468,6 +480,15 @@ class OWSServer:
             # no mp4 muxer: the same APNG, labelled as such
             headers["X-Gsky-Anim-Container"] = "apng-stub"
         return Response(200, "image/apng", body, headers)
+
+    @staticmethod
+    def _render_rgb(pipe: TilePipeline, req: GeoTileRequest, style: Layer,
+                    auto: bool):
+        """The serial RGB ladder over one index pass: ("rgba", (H, W,
+        4)), ("planes", (3, H, W)) or None."""
+        return pipe.render_rgb_auto(req, style.offset_value,
+                                    style.scale_value, style.clip_value,
+                                    style.colour_scale, auto)
 
     @staticmethod
     def _anim_frames_wave(pipe: TilePipeline, req: GeoTileRequest, times,

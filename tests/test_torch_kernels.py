@@ -143,7 +143,7 @@ METHODS = ["near", "bilinear", "cubic"]
 
 class TestPagedB1:
     @pytest.mark.parametrize("method", METHODS)
-    @pytest.mark.parametrize("n_ns", [1, 2])
+    @pytest.mark.parametrize("n_ns", [1, 2, 4])
     def test_plain_vs_pallas_interpret(self, method, n_ns):
         stack, ctrl, params, h, w, step, _ = _inputs(seed=1, n_ns=n_ns)
         pool, tables, p16 = _ref_pool(stack, params)
@@ -152,6 +152,26 @@ class TestPagedB1:
         ct, bt = _torch_paged(pool, tables, p16, ctrl, method, n_ns,
                               (h, w), step)
         _check(method, cj, bj, ct, bt)
+
+    @pytest.mark.parametrize("method", METHODS)
+    @pytest.mark.parametrize("n_ns,slots", [(2, (0, 1, 1, 0)),
+                                            (4, (2, 1, 0, 1))])
+    def test_expression_lane_slots(self, method, n_ns, slots):
+        """Slots as a fused band-algebra lane fills them: a slot per
+        variable, several granules in one, and at n_ns 4 a padded slot
+        (3 variables) that no granule fills."""
+        stack, ctrl, params, h, w, step, _ = _inputs(seed=8, n_ns=n_ns)
+        params[:, 10] = slots           # granule 1 is all nodata
+        pool, tables, p16 = _ref_pool(stack, params)
+        cj, bj = _jax_paged(pool, tables, p16, ctrl, method, n_ns,
+                            (h, w), step)
+        ct, bt = _torch_paged(pool, tables, p16, ctrl, method, n_ns,
+                              (h, w), step)
+        _check(method, cj, bj, ct, bt)
+        used = sorted(set(slots))
+        assert np.isfinite(bt[used]).any(axis=(1, 2)).all()
+        if n_ns == 4:
+            assert np.isneginf(bt[3]).all() and (ct[3] == 0).all()
 
     @pytest.mark.parametrize("method", METHODS)
     def test_ragged_padding_rows_and_page_crossings(self, method):
@@ -392,6 +412,34 @@ class TestBucketedB2:
             torch.from_numpy(params), method, n_ns, (h, w), step)
         _check(method, np.asarray(cj), np.asarray(bj), ct.numpy(),
                bt.numpy())
+
+    @pytest.mark.parametrize("method", METHODS)
+    def test_four_namespaces_vs_both_references(self, method):
+        """n_ns 4 (an RGB style's three namespaces, one slot unused):
+        against the Pallas kernel, and against the reference's XLA
+        `_warp_scenes_scored`.  For cubic the reference's two programs
+        differ from each other on these inputs (its own cubic parity
+        test fails, ROADMAP C); the port equals the Pallas kernel, so
+        its distance to the XLA program is the reference's own."""
+        stack, ctrl, params, h, w, step, _ = _inputs(seed=9, B=6, S=128,
+                                                     n_ns=3)
+        args = (jnp.asarray(stack), jnp.asarray(ctrl), jnp.asarray(params),
+                method, 4, (h, w), step)
+        ct, bt = trender.warp_scenes_scored(
+            torch.from_numpy(stack), torch.from_numpy(ctrl),
+            torch.from_numpy(params), method, 4, (h, w), step)
+        cp, bp = (np.asarray(a) for a in jpt.warp_scenes_scored_pallas(
+            *args, interpret=True))
+        cx, bx = (np.asarray(a) for a in jwarp.warp_scenes_ctrl_scored(
+            *args))
+        _check(method, cp, bp, ct.numpy(), bt.numpy())
+        if method == "cubic":
+            np.testing.assert_array_equal(bx, bt.numpy())
+            assert (np.abs(ct.numpy() - cx) <= np.abs(cp - cx)).all()
+        else:
+            _check(method, cx, bx, ct.numpy(), bt.numpy())
+        assert np.isneginf(bt[3].numpy()).all()
+        assert np.isfinite(bt[:3].numpy()).any(axis=(1, 2)).all()
 
     @pytest.mark.parametrize("method", METHODS)
     def test_render_bytes_vs_xla_reference(self, method):

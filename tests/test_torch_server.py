@@ -3,9 +3,11 @@ package's on the same config.json over the same seeded archive.
 
 The archive: `fixtures.make_archive` (two UTM-55S granules and a NetCDF
 stack), two UTM-55S and two UTM-56S granules in a second collection
-(every tile over it is a two-group, two-CRS mosaic) and the masked set
-of `test_torch_mosaic` (LC08_B4, LC08_B5 and pixel_qa over three
-dates).  Each package's crawler indexes it into its own MAS store.
+(every tile over it is a two-group, two-CRS mosaic), the masked set of
+`test_torch_mosaic` (LC08_B4, LC08_B5 and pixel_qa over three dates)
+and the Sentinel-2-shaped set of `test_torch_rgb` (B02, B03 and B04 of
+two overlapping tiles).  Each package's crawler indexes it into its own
+MAS store.
 
 The reference runs its serial GetMap ladder (GSKY_TILE_PIPELINE=0),
 waves and the render batcher off, Pallas in interpret mode (its B4
@@ -16,9 +18,9 @@ handler, and once over a real socket.
 
 Bounds: status and content type equal; decoded RGBA identical for
 nearest, the placeholder, the empty tile and the palette; at most 0.1%
-of decoded bytes differ for bilinear, cubic and NDVI; exception bodies
-carry the same ``exceptionCode``.  Requests the port cannot serve yet
-get 501 naming their ROADMAP item."""
+of decoded bytes differ for bilinear, cubic, NDVI and band algebra;
+exception bodies carry the same ``exceptionCode``.  Requests the port
+cannot serve yet get 501 naming their ROADMAP item."""
 
 import asyncio
 import json
@@ -60,6 +62,9 @@ from gsky_tpu_torch.server.ows import OWSServer
 from fixtures import make_archive
 from test_torch_mosaic import CLOUD_SHADOW
 from test_torch_mosaic import _write_archive as write_masked_archive
+from test_torch_rgb import INSIDE as S2_INSIDE
+from test_torch_rgb import OVERLAP_BOX as S2_OVERLAP
+from test_torch_rgb import _write_archive as write_s2_archive
 
 UTM55, UTM56, MERC = "EPSG:32755", "EPSG:32756", "EPSG:3857"
 HOST = "gsky.example"
@@ -129,6 +134,7 @@ FAR = _box(300000.0, 6900000.0, 3000.0)
 def _config(root, legend):
     data, multi = f"{root}/data", f"{root}/multi"
     bands, qa = f"{root}/mask/bands", f"{root}/mask/qa"
+    s2 = f"{root}/s2"
     mask = {"id": "pixel_qa", "data_source": qa, "bit_tests": CLOUD_SHADOW}
     return {
         "service_config": {"ows_hostname": HOST, "mas_address": "inproc"},
@@ -174,6 +180,22 @@ def _config(root, legend):
              "rgb_products": ["B4", "B4", "B4"], "time_generator": "mas"},
             {"name": "algebra", "data_source": data,
              "rgb_products": ["twice=B4*2"], "time_generator": "mas"},
+            {"name": "ndvi_fused", "data_source": bands,
+             "rgb_products": [NDVI], "resample": "bilinear",
+             "time_generator": "mas"},
+            {"name": "truecolour", "data_source": s2,
+             "rgb_products": ["B04", "B03", "B02"],
+             "time_generator": "mas",
+             "styles": [{"name": m, "title": m,
+                         "rgb_products": ["B04", "B03", "B02"],
+                         "resample": m} for m in METHODS] + [
+                 {"name": "two", "title": "two",
+                  "rgb_products": ["B04", "B03"]},
+                 {"name": "four", "title": "four",
+                  "rgb_products": ["B04", "B03", "B02", "B04"]},
+                 {"name": "scaled", "title": "scaled",
+                  "rgb_products": ["B04", "B03", "B02"],
+                  "offset_value": -200.0, "clip_value": 2400.0}]},
             {"name": "phot_veg", "data_source": data,
              "rgb_products": ["phot_veg"], "time_generator": "mas"},
         ],
@@ -225,10 +247,12 @@ def env(tmp_path_factory):
     os.makedirs(f"{root}/multi")
     os.makedirs(f"{root}/mask/bands")
     os.makedirs(f"{root}/mask/qa")
+    os.makedirs(f"{root}/s2")
     paths = [(p, "B4" if p.endswith(".tif") else None)
              for p in arch["paths"]]
     paths += _write_multi(f"{root}/multi")
     paths += write_masked_archive(f"{root}/mask")
+    paths += write_s2_archive(f"{root}/s2")
     jstore, tstore = JMASStore(), MASStore()
     for p, ns in paths:
         for ex, st in ((jextract, jstore), (extract, tstore)):
@@ -458,6 +482,89 @@ def test_fusion_layer(env, wrappers):
         img = _same_tile(ref, got, True)
         assert (img[..., 3] > 0).mean() > 0.5
     assert wrappers == {"B1": 2, "B2": 4, "B4": 0}
+
+
+# the Sentinel-2-shaped collection: a box inside one tile (one granule
+# per band: the RGBA rung) and one over the two tiles' overlap (six
+# granules: the planes rung, one B2 launch)
+S2_BOXES = {"rgba": S2_INSIDE, "planes": S2_OVERLAP}
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_rgb_layer(env, wrappers, method):
+    for rung, box in S2_BOXES.items():
+        ref, got = _both(env, _getmap("truecolour", box, style=method,
+                                      time=T_DATA))
+        img = _same_tile(ref, got, method == "near", rung)
+        assert (img[..., 3] > 0).mean() > 0.5
+        assert (img[..., 0] != img[..., 1]).any()   # colour, not grey
+    # the RGBA rung runs plain torch ops; the planes rung one B2 launch
+    assert wrappers == {"B1": 0, "B2": 1, "B4": 0}
+
+
+@pytest.mark.parametrize("style", ["two", "four", "scaled"])
+def test_rgb_layer_band_counts_and_fixed_scaling(env, wrappers, style):
+    for rung, box in S2_BOXES.items():
+        ref, got = _both(env, _getmap("truecolour", box, style=style,
+                                      time=T_DATA))
+        if style == "two":
+            # both PNG encoders refuse two bands: a 500 from both, after
+            # the planes rung rendered them
+            assert got[:2] == ref[:2] == (500,
+                                          "application/vnd.ogc.se_xml")
+            assert b"cannot encode 2 bands" in got[2]
+            continue
+        _same_tile(ref, got, True, (style, rung))
+    # two and four bands: the planes rung over both boxes
+    assert wrappers["B2"] == (1 if style == "scaled" else 2)
+
+
+def test_one_namespace_rgb_style(env, wrappers):
+    """``B4, B4, B4`` over two granules of one namespace: the planes
+    rung selects it three times (a grey tile)."""
+    ref, got = _both(env, _getmap("rgb", NATIVE[0], time=T_DATA))
+    img = _same_tile(ref, got, True)
+    assert (img[..., 0] == img[..., 1]).all() and img[..., 3].any()
+    assert wrappers == {"B1": 0, "B2": 1, "B4": 0}
+
+
+@pytest.fixture
+def expr_stats():
+    """Both packages' fused band-algebra counters, zeroed."""
+    from gsky_tpu.ops import paged as jpaged
+    from gsky_tpu_torch.ops import paged as tpaged
+    jpaged.reset_expr_fused_stats()
+    tpaged.reset_expr_fused_stats()
+    return lambda: (jpaged.expr_fused_stats(), tpaged.expr_fused_stats())
+
+
+ALGEBRA = {"algebra": (NATIVE[0], T_DATA), "ndvi_fused": (MASKED[0], T_MASK)}
+
+
+@pytest.mark.parametrize("layer", sorted(ALGEBRA))
+def test_band_algebra_layer(env, wrappers, expr_stats, layer):
+    """An expression layer without a mask band: fused band algebra, one
+    B1 launch at the expression's slot count in both packages."""
+    box, time = ALGEBRA[layer]
+    ref, got = _both(env, _getmap(layer, box, time=time))
+    img = _same_tile(ref, got, layer == "algebra", layer)
+    assert (img[..., 3] > 0).mean() > 0.3
+    assert wrappers == {"B1": 1, "B2": 0, "B4": 0}
+    jst, tst = expr_stats()
+    assert tst == jst == {"programs": 1, "paths": {"percall": 1}}
+
+
+def test_band_algebra_escape_hatch(env, wrappers, expr_stats, monkeypatch):
+    """GSKY_EXPR_FUSE=0: both packages take the modular route (B1 for the
+    per-namespace mosaic, then the interpreter): the same tile."""
+    url = _getmap("ndvi_fused", MASKED[0], time=T_MASK)
+    _, fused = _both(env, url)
+    monkeypatch.setenv("GSKY_EXPR_FUSE", "0")
+    ref, got = _both(env, url)
+    _same_tile(ref, got, False)
+    assert np.array_equal(decode_png(got[2]), decode_png(fused[2]))
+    jst, tst = expr_stats()
+    assert tst["paths"] == jst["paths"] == {"percall": 1, "unfused": 1}
 
 
 def test_index_res_limit_layer(env):
@@ -714,6 +821,71 @@ def test_staged_path_with_waves(env, wrappers, waves_on, method):
     assert waves_on.wave_stats()["cpu"]["requests"] == len(NATIVE)
 
 
+STAGED = {"rgba": ("truecolour", S2_INSIDE, T_DATA),
+          "planes": ("truecolour", S2_OVERLAP, T_DATA),
+          "four bands": ("truecolour", S2_OVERLAP, T_DATA),
+          "algebra": ("algebra", NATIVE[0], T_DATA),
+          "ndvi": ("ndvi_fused", MASKED[0], T_MASK)}
+
+
+@pytest.mark.parametrize("case", sorted(STAGED))
+def test_staged_path_with_waves_rgb_and_algebra(env, wrappers, waves_on,
+                                                expr_stats, case):
+    layer, box, time = STAGED[case]
+    style = "four" if case == "four bands" else ""
+    ref, got = _both(env, _getmap(layer, box, style=style, time=time))
+    _same_tile(ref, got, case != "ndvi", case)
+    jst, tst = expr_stats()
+    if layer == "truecolour":
+        assert wrappers["B2"] == (0 if case == "rgba" else 1)
+        assert not waves_on.wave_stats() and tst == jst == \
+            {"programs": 0, "paths": {}}
+    else:
+        # an expression tile is a lane of the wave: one B1 launch
+        assert wrappers == {"B1": 1, "B2": 0, "B4": 0}
+        assert waves_on.wave_stats()["cpu"]["requests"] == 1
+        assert tst == jst == {"programs": 1, "paths": {"wave": 1}}
+
+
+def test_rgb_animation_composites_its_bands(env, waves_on):
+    """As the reference does, a multi-band style's animation frames go
+    through the composite route, which composites the three namespaces
+    into one plane: grey frames, unlike the lone RGB GetMap."""
+    url = _getmap("truecolour", S2_INSIDE, style="near", time=T_FRAMES,
+                  fmt="image/apng")
+    status, ctype, body, headers = _jax_get_headers(env, url)
+    got = _port_get(env, url)
+    assert (got.status, got.content_type) == (status, ctype) == \
+        (200, "image/apng")
+    assert got.headers["X-Gsky-Anim-Frames"] == \
+        headers["X-Gsky-Anim-Frames"] == "3"
+    frames = _frames(got.body)
+    _same_frames(_frames(body), frames, True)
+    for f in frames:
+        assert (f[..., 0] == f[..., 1]).all() and f[..., 3].any()
+    lone = decode_png(_port_get(env, _getmap(
+        "truecolour", S2_INSIDE, style="near", time=FRAME_DATES[0])).body)
+    assert (lone[..., 0] != lone[..., 1]).any()
+
+
+def test_band_algebra_animation_takes_the_serial_leg(env, wrappers,
+                                                     waves_on, expr_stats):
+    url = _getmap("algebra", NATIVE[0], time=T_FRAMES, fmt="image/apng")
+    status, ctype, body, headers = _jax_get_headers(env, url)
+    got = _port_get(env, url)
+    assert (got.status, got.content_type) == (status, ctype) == \
+        (200, "image/apng")
+    assert got.headers["X-Gsky-Anim-Frames"] == \
+        headers["X-Gsky-Anim-Frames"] == "3"
+    frames = _frames(got.body)
+    _same_frames(_frames(body), frames, True)
+    # each frame through the modular route (the mosaic a wave lane), as
+    # a lone GetMap at its date with the fused route off would render it
+    assert wrappers["B1"] >= 1
+    jst, tst = expr_stats()
+    assert tst["paths"] == jst["paths"] == {}
+
+
 def test_animation_over_a_socket(env, waves_on):
     httpd = env["port"].serve("127.0.0.1", 0)
     try:
@@ -732,8 +904,6 @@ def test_animation_over_a_socket(env, waves_on):
 
 
 UNPORTED = {
-    "rgb style": (_getmap("rgb", NATIVE[0]), "A.13"),
-    "band algebra without a mask": (_getmap("algebra", NATIVE[0]), "A.7"),
     "jpeg": (_getmap("plain", NATIVE[0], fmt="image/jpeg"), "A.17"),
     "getfeatureinfo": ("/ows?service=WMS&request=GetFeatureInfo"
                        "&layers=plain", "A.15"),
