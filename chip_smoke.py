@@ -111,7 +111,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    one B2 a tile), bilinear plus 4 near and 4 cubic each, launches
    equal to the prediction.  14c: both over HTTP, with two tiles per
    route from a CPU server (decoded RGBA equal for nearest, <= 0.1%
-   otherwise).
+   otherwise);
+15. WCS GetCoverage and DAP4 over HTTP (BASELINE config 4), the port's
+   `OWSServer(device="cuda")` with the default serving path (waves on)
+   over phase 3's archive: 15a a 4096 x 4096 EPSG:3857 GeoTIFF export
+   in 16 tiles of 1024 through the staged export engine, cubic cold
+   (the four scenes warmed into a fresh scene cache) and warm, near and
+   bilinear, then cubic with GSKY_EXPORT_PIPELINE=0 (tile by tile: the
+   decoded body identical); per export the seconds, Mpix/s, the
+   engine's stage busy seconds, queue high-water marks, dedup and leg
+   counts (every tile paged or declined: a declined tile one B2
+   launch); 15b one 1024 x 1024 tile per method at native resolution
+   (declined: B2) and at 0.25x (paged: B1), each launch held against
+   its plain version on the same inputs; 15c a 1024 x 1024 export in
+   256 x 256 tiles per method against a CPU server's (nodata at the
+   same pixels, nearest bit-exact, <= 2 ulp otherwise); 15d a 5120 x
+   5120 GeoTIFF streamed through `GeoTIFFWriter.write_region` (equal to
+   the same request in RAM; no temp file left), a NetCDF body (equal
+   to the GeoTIFF's values), a multi-tile DAP4 body streamed chunked
+   from the export spool (equal to the in-RAM `encode_dap4` body), an
+   auto-sized request (width = height = 0), and, over phase 10's
+   archive, a masked layer's export through B4 (the CPU's within rel
+   1e-5);
+16. WPS Execute (an XML POST) over HTTP on phase 7's resident stack
+   (GSKY_WAVES=0, as phase 7): drills/s, p50, B3 launches; the CSV
+   equals `drill_csv` of a direct `DrillPipeline.process_split`.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -1222,8 +1246,9 @@ def same_drill(ref, got, what, rtol=1e-5):
 
 
 def phase_drill(root, card):
-    """Phases 7, 13c and 8.  Returns (B3 launches of the warm run, the
-    arguments B3 got on the main path, B3's K-block launches in 13c)."""
+    """Phases 7, 16, 13c and 8.  Returns (B3 launches of the warm run,
+    the arguments B3 got on the main path, B3's K-block launches in 13c,
+    B3 launches of the WPS Execute requests of phase 16)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from gsky_tpu_torch.index.client import MASClient
@@ -1332,6 +1357,10 @@ def phase_drill(root, card):
         f"which B3 {b3_us / 3 / 1e3:.4f} ms; top: " + "; ".join(
             f"{k[:60]} {us / 3 / 1e3:.4f}" for us, k in top))
 
+    # -- phase 16: WPS Execute over HTTP --------------------------------
+    wps_b3 = phase_wps(root, store, card)
+    stats.masked_stats_kernel.launches = b3_launches
+
     # -- phase 13c: concurrent warm drills in one wave -----------------
     kb_launches, kb_args = phase_wave_drills(pipe, req, card)
     stats.masked_stats_kernel.launches = b3_launches
@@ -1360,7 +1389,7 @@ def phase_drill(root, card):
     log(f"phase 8: CPU drills over 100 steps match the card (rel "
         f"{w8:.3g}, deciles equal) in {time.perf_counter() - t0:.1f} s")
     pipe.cache.clear()
-    return b3_launches, captured[0], kb_launches
+    return b3_launches, captured[0], kb_launches, wps_b3
 
 
 def time_b3(args, card):
@@ -3090,6 +3119,551 @@ def phase_ows_rgb(root, store, card, routes=None):
         pair.close()
 
 
+# -- phases 15-16: WCS GetCoverage, DAP4 and WPS Execute over HTTP ---------
+
+WCS_SIZE = 4096              # 15a: BASELINE config 4, 16 tiles of 1024
+WCS_TILE = 1024              # the layers' wcs_max_tile_width / height
+WCS_STREAM_SIZE = 5120       # 15d: past WCS_STREAM_PIXELS: streamed
+WCS_DAP = 2048               # 15d: the DAP4 and NetCDF coverages
+WCS_MASKED = 1024            # 15d: the masked coverage, tiles of half
+WCS_NODATA = -9999.0
+WCS_T = (1578614400.0, 1578960000.0)       # 2020-01-10 .. 01-14
+WPS_DRILLS = 10
+
+
+def wcs_box(px, zoom=1.0, x0=500000.0 + 9000.0 + 12000.0,
+            y0=6200000.0 - 9000.0 - 12000.0):
+    """An EPSG:3857 box of px x px pixels at ``zoom`` times the native
+    ground resolution from the UTM point (x0, y0) east and south (phase
+    3's tiles start there)."""
+    (x, y0m, _, y1m), = tile_boxes(x0, y0, zoom, 1, 1)
+    size = (y1m - y0m) / 256 * px
+    return (x, y1m - size, x + size, y1m)
+
+
+def wcs_url(base, layer, box, px, style="", fmt="GeoTIFF",
+            time_range=WCS_T):
+    return (f"{base}/ows?service=WCS&request=GetCoverage&version=1.0.0"
+            f"&coverage={layer}&styles={style}&crs=EPSG:3857"
+            f"&bbox={','.join(repr(float(v)) for v in box)}"
+            f"&width={px}&height={px}&format={fmt}"
+            f"&time={iso(time_range[0])},{iso(time_range[1])}")
+
+
+def http_fetch(url, data=None):
+    """(status, headers, body, seconds) of one request over a socket."""
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                timeout=600) as r:
+        body = r.read()
+        return r.status, r.headers, body, time.perf_counter() - t0
+
+
+def tiff_values(body):
+    """Every band of a GeoTIFF body, (bands, H, W) float32."""
+    import io
+    from gsky_tpu_torch.io.geotiff import GeoTIFF
+    t = GeoTIFF(io.BytesIO(body))
+    try:
+        return np.stack([np.asarray(t.read(b + 1), np.float32)
+                         for b in range(t.count)])
+    finally:
+        t.close()
+
+
+def same_coverage(method, a, b, what):
+    """Two coverages: nodata at the same pixels, the rest bit-exact for
+    nearest and within 2 ulp otherwise.  Returns max |difference|."""
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shapes {a.shape} {b.shape}")
+    nd = a == WCS_NODATA
+    if not np.array_equal(nd, b == WCS_NODATA):
+        raise AssertionError(f"{what}: nodata differs at "
+                             f"{int(np.count_nonzero(nd != (b == WCS_NODATA)))}"
+                             f" pixels")
+    d = np.abs(a.astype(np.float64) - b)
+    if method == "near" and d.any():
+        raise AssertionError(f"{what}: near not bit-exact")
+    tol = 2 * np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    if (d > tol).any():
+        raise AssertionError(f"{what}: {int((d > tol).sum())} values over "
+                             f"2 ulp, worst {float(d.max())}")
+    return float(d.max())
+
+
+def near_coverage(a, b, what, rel=1e-5, frac=1e-3):
+    """Card vs CPU over the masked route (eager PyTorch warps on both):
+    nodata at the same pixels but for ``frac`` of them, the values both
+    hold within ``rel``.  Returns (pixels whose validity differs, max
+    relative difference)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shapes {a.shape} {b.shape}")
+    va, vb = a != WCS_NODATA, b != WCS_NODATA
+    nd = int(np.count_nonzero(va != vb))
+    both = va & vb
+    d = np.abs(a[both].astype(np.float64) - b[both]) / np.maximum(
+        np.abs(a[both]), 1e-30)
+    worst = float(d.max()) if d.size else 0.0
+    if nd > frac * a.size or worst > rel:
+        raise AssertionError(f"{what}: validity differs at {nd} pixels, "
+                             f"values by rel {worst}")
+    return nd, worst
+
+
+def coverage_ok(a, px, what, max_nodata=0.5):
+    if a.shape != (1, px, px) or not np.isfinite(a).all():
+        raise AssertionError(f"{what}: shape {a.shape} or non-finite")
+    share = float((a == WCS_NODATA).mean())
+    if share > max_nodata:
+        raise AssertionError(f"{what}: {share:.3f} of the coverage nodata")
+    return share
+
+
+def reset_counts(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def read_counts(kernels):
+    return {n: k.launches for n, k in kernels.items()}
+
+
+class CheckWide:
+    """While installed, the first B1 and the first B2 launch of each
+    method whose output is ``hw`` is held against its plain version on
+    the same inputs (on the card): `check_pair`'s bounds.  ``errs``
+    maps (kernel, method) to the max |canvas difference|.  The plain
+    versions are the ones installed before it (`PlainCalls` counts
+    the main path's calls of them, not these)."""
+
+    def __init__(self, hw):
+        from gsky_tpu_torch.ops import paged, warp_render
+        self.hw = tuple(hw)
+        self.errs = {}
+        self.mods = (paged, warp_render)
+        self.b1, self.b2 = paged.paged_render_scored, \
+            warp_render.warp_render_scored
+        self.p1, self.p2 = paged.paged_render_scored_plain, \
+            warp_render.warp_render_scored_plain
+        paged.paged_render_scored = self._b1
+        warp_render.warp_render_scored = self._b2
+
+    def _b1(self, pool, tables, params, sx, sy, method, n_ns, sb_of=None):
+        ck, bk = self.b1(pool, tables, params, sx, sy, method, n_ns, sb_of)
+        if tuple(sx.shape[-2:]) == self.hw and ("B1", method) not in \
+                self.errs:
+            cp, bp = self.p1(pool, tables, params, sx, sy, method, n_ns,
+                             sb_of)
+            self.errs[("B1", method)] = check_pair(
+                method, ck, bk, cp, bp, f"15b B1 {method} {self.hw}")
+        return ck, bk
+
+    def _b2(self, scenes, sx, sy, params, method, n_ns):
+        ck, bk = self.b2(scenes, sx, sy, params, method, n_ns)
+        if tuple(sx.shape[-2:]) == self.hw and ("B2", method) not in \
+                self.errs:
+            cp, bp = self.p2(scenes, sx, sy, params, method, n_ns)
+            self.errs[("B2", method)] = check_pair(
+                method, ck, bk, cp, bp, f"15b B2 {method} {self.hw}")
+        return ck, bk
+
+    def remove(self):
+        paged, warp_render = self.mods
+        paged.paged_render_scored = self.b1
+        warp_render.warp_render_scored = self.b2
+
+
+def lonlat_of(box):
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import BBox, transform_bbox
+    c = transform_bbox(BBox(*box), parse_crs("EPSG:3857"),
+                       parse_crs("EPSG:4326"))
+    return [c.xmin, c.ymin, c.xmax, c.ymax]
+
+
+def phase_wcs(data_root, store, card):
+    """Phase 15a-d over phase 3's archive, the port's OWS server on the
+    card over HTTP with the default serving path (waves on).  Returns
+    {"B1": n, "B2": n} launched by the exports, and the 15b errors."""
+    from gsky_tpu_torch.server import ows
+    conf = os.path.join(ROOT, "build", "smoke_wcs_conf")
+    styles = [{"name": m, "title": m, "rgb_products": [NS], "resample": m}
+              for m in METHODS]
+    dap_box = wcs_box(WCS_DAP)
+    tiles = ((WCS_SIZE + WCS_TILE - 1) // WCS_TILE) ** 2
+    stream_tiles = ((WCS_STREAM_SIZE + WCS_TILE - 1) // WCS_TILE) ** 2
+    layers = [
+        {"name": "landsat", "data_source": data_root, "rgb_products": [NS],
+         "styles": styles, "default_geo_bbox": lonlat_of(dap_box),
+         "default_geo_size": [WCS_DAP, WCS_DAP],
+         "wcs_max_tile_width": WCS_TILE, "wcs_max_tile_height": WCS_TILE},
+        {"name": "landsat_256", "data_source": data_root,
+         "rgb_products": [NS], "styles": styles,
+         "wcs_max_tile_width": 256, "wcs_max_tile_height": 256},
+    ]
+    launches = _kernel_counts()
+    total = {"B1": 0, "B2": 0}
+
+    def legs_ok(what, got, n):
+        """Every one of an export's ``n`` tiles took a leg: a declined
+        tile is one B2 launch (one source CRS), a paged one a lane of a
+        B1 wave launch."""
+        st = srv.last_export
+        eng, dec = st["paged_engaged"], st["paged_declined"]
+        if eng + dec != n or got["B2"] != dec or bool(eng) != \
+                bool(got["B1"]):
+            raise AssertionError(f"{what}: {n} tiles, legs {eng} paged "
+                                 f"{dec} declined, launches {got}")
+
+    def counted(what, fn, want_b=1):
+        reset_counts(launches)
+        plain = PlainCalls()
+        try:
+            out = fn()
+        finally:
+            plain.remove()
+        got = read_counts(launches)
+        if plain.calls or got["B3"] or got["B4"]:
+            raise AssertionError(f"{what}: launches {got}, plain calls "
+                                 f"{plain.calls}")
+        if got["B1"] + got["B2"] < want_b:
+            raise AssertionError(f"{what}: launches {got}, want at least "
+                                 f"{want_b} B1 + B2")
+        total["B1"] += got["B1"]
+        total["B2"] += got["B2"]
+        return out, got
+
+    with WavesOn():
+        pair = OwsPair(conf, layers, store)
+        srv = pair.card
+        try:
+            # -- 15a: config 4 ------------------------------------------
+            box = wcs_box(WCS_SIZE)
+            mpix = WCS_SIZE * WCS_SIZE / 1e6
+            ref = None
+            for method, label in (("cubic", "cold"), ("cubic", "warm"),
+                                  ("near", "warm"), ("bilinear", "warm")):
+                url = wcs_url(pair.base, "landsat", box, WCS_SIZE, method)
+                sp0 = dict(srv.spans)
+                (status, hdr, body, secs), got = counted(
+                    f"15a {method}", lambda: http_fetch(url))
+                if (status, hdr["Content-Type"]) != (200, "image/geotiff"):
+                    raise AssertionError(f"15a: {status} {body[:300]}")
+                a = tiff_values(body)
+                nd = coverage_ok(a, WCS_SIZE, f"15a {method}")
+                legs_ok(f"15a {method}", got, tiles)
+                st = srv.last_export
+                sp = {k: srv.spans[k] - sp0[k] for k in srv.spans}
+                log(f"phase 15a {method} ({label}): {WCS_SIZE}x{WCS_SIZE} "
+                    f"GetCoverage over HTTP {secs:.3f} s, "
+                    f"{mpix / secs:.2f} Mpix/s, body {len(body)} B, nodata "
+                    f"{nd:.4f}; launches {got} for {st['tiles']} tiles "
+                    f"(paged engaged {st['paged_engaged']}, declined "
+                    f"{st['paged_declined']}, gated {st['paged_gated']}); "
+                    f"stage busy s: decode {st['decode_s']:.3f}, warp "
+                    f"{st['warp_s']:.3f}, encode {st['encode_s']:.3f}, "
+                    f"engine wall {st['wall_s']:.3f}; queue high-water "
+                    f"warp {st.get('warp_queue_max')}, encode "
+                    f"{st.get('encode_queue_max')}; scenes warmed "
+                    f"{st['scenes_warmed']}, dedup saved "
+                    f"{st['dedup_saved']}; server s: parse "
+                    f"{sp['parse']:.3f}, render {sp['render']:.3f}, encode "
+                    f"(GeoTIFF) {sp['encode']:.3f} ({card})")
+                if method == "cubic":
+                    if ref is not None and not np.array_equal(ref, a):
+                        raise AssertionError("15a: warm cubic differs")
+                    ref = a
+            os.environ["GSKY_EXPORT_PIPELINE"] = "0"
+            try:
+                url = wcs_url(pair.base, "landsat", box, WCS_SIZE, "cubic")
+                (status, _, body, secs), got = counted(
+                    "15a serial", lambda: http_fetch(url))
+            finally:
+                del os.environ["GSKY_EXPORT_PIPELINE"]
+            if status != 200 or not np.array_equal(tiff_values(body), ref):
+                raise AssertionError("15a: GSKY_EXPORT_PIPELINE=0 body "
+                                     "differs from the engine's")
+            log(f"phase 15a cubic GSKY_EXPORT_PIPELINE=0 (tile by tile): "
+                f"{secs:.3f} s, {mpix / secs:.2f} Mpix/s, launches {got}; "
+                f"decoded body identical to the engine's ({card})")
+            del ref
+
+            # -- 15b: kernels at 1024 x 1024 against their plain versions
+            chk = CheckWide((WCS_TILE, WCS_TILE))
+            try:
+                for method in METHODS:
+                    for zoom in (1.0, 0.25):
+                        # inside every granule, past the nodata collars
+                        url = wcs_url(pair.base, "landsat",
+                                      wcs_box(WCS_TILE, zoom, 551000.0,
+                                              6149000.0), WCS_TILE,
+                                      method)
+                        (status, _, body, _), _ = counted(
+                            f"15b {method} {zoom}",
+                            lambda: http_fetch(url), 1)
+                        coverage_ok(tiff_values(body), WCS_TILE,
+                                    f"15b {method}")
+            finally:
+                chk.remove()
+            want = {(k, m) for k in ("B1", "B2") for m in METHODS}
+            if set(chk.errs) != want:
+                raise AssertionError(f"15b: checked {sorted(chk.errs)}")
+            log(f"phase 15b: B1 (a {WCS_TILE}^2 tile at 0.25x the native "
+                f"ground resolution, paged) and B2 (a native one, "
+                f"declined) against their plain versions on the same "
+                f"inputs: max |difference| " + ", ".join(
+                    f"{k} {m} {v:.3g}" for (k, m), v in
+                    sorted(chk.errs.items())) + " (near bit-exact, "
+                "<= 2 ulp otherwise)")
+            errs = chk.errs
+
+            # -- 15c: card vs CPU, 1024 x 1024 in 256 x 256 tiles ---------
+            t0 = time.perf_counter()
+            for method in METHODS:
+                url = wcs_url(pair.base, "landsat_256", wcs_box(1024), 1024,
+                              method)
+                (status, _, body, _), got = counted(
+                    f"15c {method}", lambda: http_fetch(url), 1)
+                cpu = tiff_values(pair.cpu_body(url))
+                d = same_coverage(method, tiff_values(body), cpu,
+                                  f"15c {method}")
+                log(f"phase 15c {method}: 16 tiles of 256 x 256, launches "
+                    f"{got}; CPU coverage within bounds (max |difference| "
+                    f"{d:.3g})")
+            log(f"phase 15c: {time.perf_counter() - t0:.1f} s")
+
+            # -- 15d: the other legs --------------------------------------
+            from gsky_tpu_torch.io.geotiff import GeoTIFFWriter
+            sbox = wcs_box(WCS_STREAM_SIZE)
+            url = wcs_url(pair.base, "landsat", sbox, WCS_STREAM_SIZE,
+                          "bilinear")
+            regions = []
+            real = GeoTIFFWriter.write_region
+
+            def spy(self, x0, y0, data):
+                regions.append((x0, y0))
+                return real(self, x0, y0, data)
+
+            GeoTIFFWriter.write_region = spy
+            try:
+                (status, hdr, body, secs), got = counted(
+                    "15d stream", lambda: http_fetch(url))
+            finally:
+                GeoTIFFWriter.write_region = real
+            legs_ok("15d stream", got, stream_tiles)
+            streamed = tiff_values(body)
+            coverage_ok(streamed, WCS_STREAM_SIZE, "15d stream")
+            if len(regions) != stream_tiles or \
+                    int(hdr["Content-Length"]) != len(body):
+                raise AssertionError(f"15d: {len(regions)} regions streamed")
+            saved = ows.WCS_STREAM_PIXELS
+            ows.WCS_STREAM_PIXELS = WCS_STREAM_SIZE ** 2
+            try:
+                (_, _, body2, secs2), _ = counted(
+                    "15d in RAM", lambda: http_fetch(url))
+            finally:
+                ows.WCS_STREAM_PIXELS = saved
+            if not np.array_equal(tiff_values(body2), streamed):
+                raise AssertionError("15d: streamed GeoTIFF differs from "
+                                     "the in-RAM leg")
+            del streamed
+            left = [f for f in os.listdir(srv.temp_dir)
+                    if f.startswith(("wcs_", "dap_"))]
+            log(f"phase 15d streamed GeoTIFF {WCS_STREAM_SIZE}^2: {secs:.3f}"
+                f" s ({WCS_STREAM_SIZE ** 2 / 1e6 / secs:.2f} Mpix/s), "
+                f"{stream_tiles} regions through write_region, launches "
+                f"{got}; the same "
+                f"request in RAM {secs2:.3f} s, decoded identical; temp "
+                f"files left {len(left)} ({card})")
+            if left:
+                raise AssertionError(f"15d: temp files left {left}")
+
+            gurl = wcs_url(pair.base, "landsat", dap_box, WCS_DAP, "near")
+            (_, _, gbody, _), _ = counted("15d tif", lambda: http_fetch(gurl))
+            want = tiff_values(gbody)[0]
+            nurl = gurl.replace("format=GeoTIFF", "format=NetCDF")
+            (status, hdr, nbody, secs), got = counted(
+                "15d netcdf", lambda: http_fetch(nurl), 1)
+            path = os.path.join(ROOT, "build", "smoke_wcs.nc")
+            with open(path, "wb") as fp:
+                fp.write(nbody)
+            from gsky_tpu_torch.io.netcdf import NetCDF
+            nc = NetCDF(path)
+            try:
+                nv = np.asarray(nc.read_slice(NS, None), np.float32)
+            finally:
+                nc.close()
+                os.remove(path)
+            if hdr["Content-Type"] != "application/x-netcdf" or \
+                    not np.array_equal(nv, want):
+                raise AssertionError("15d: NetCDF values differ from the "
+                                     "GeoTIFF's")
+            log(f"phase 15d NetCDF {WCS_DAP}^2: {secs:.3f} s, launches {got}, "
+                f"values equal the GeoTIFF export's ({card})")
+
+            ll = lonlat_of(wcs_box(WCS_DAP * 3 // 4))
+            ce = (f"landsat{{{NS}}} | {ll[0]} < x < {ll[2]}, "
+                  f"{ll[1]} < y < {ll[3]}, time >= {iso(WCS_T[0])}")
+            from urllib.parse import quote
+            durl = f"{pair.base}/ows?dap4.ce={quote(ce)}"
+            (status, hdr, dbody, secs), got = counted(
+                "15d dap4", lambda: http_fetch(durl), 1)
+            if hdr.get("Transfer-Encoding") != "chunked" or \
+                    hdr["Content-Type"] != \
+                    "application/vnd.opendap.org.dap4.data":
+                raise AssertionError(f"15d dap4: headers {dict(hdr)}")
+            os.environ["GSKY_DAP_STREAM"] = "0"
+            try:
+                (_, _, inram, _), _ = counted(
+                    "15d dap4 in RAM",
+                    lambda: (0, None, pair.card.handle(
+                        "/ows", {"dap4.ce": [ce]}, "").read(), 0.0))
+            finally:
+                del os.environ["GSKY_DAP_STREAM"]
+            if dbody != inram:
+                raise AssertionError("15d: streamed DAP4 differs from the "
+                                     "in-RAM body")
+            log(f"phase 15d DAP4 streamed ({WCS_DAP}^2 default size, "
+                f"{srv.last_export['tiles']} tiles): {secs:.3f} s, {len(dbody)} B "
+                f"chunked, launches "
+                f"{got}; re-assembled equal to the in-RAM encode_dap4 body "
+                f"({card})")
+
+            abox = wcs_box(600)
+            aurl = wcs_url(pair.base, "landsat", abox, 0, "near")
+            (status, _, abody, secs), got = counted(
+                "15d auto", lambda: http_fetch(aurl), 1)
+            a = tiff_values(abody)
+            if status != 200 or not 500 < a.shape[1] < 700 or \
+                    not np.isfinite(a).all():
+                raise AssertionError(f"15d auto-size: {a.shape}")
+            log(f"phase 15d auto-size (width = height = 0): "
+                f"{a.shape[2]} x {a.shape[1]} for a 600-pixel native box, "
+                f"{secs:.3f} s, launches {got}")
+        finally:
+            pair.close()
+            shutil.rmtree(conf, ignore_errors=True)
+    return total, errs
+
+
+def phase_wcs_masked(root, store, card):
+    """Phase 15d's masked export over phase 10's archive: 1024 x 1024 in
+    tiles of 512 through the engine's masked route (B4).  Returns the
+    B4 launches."""
+    mask = {"id": "pixel_qa", "bit_tests": CLOUD_SHADOW}
+    layers = [{"name": "masked_b4", "data_source": root,
+               "rgb_products": ["LC08_B4"], "resample": "bilinear",
+               "mask": mask, "wcs_max_tile_width": WCS_MASKED // 2,
+               "wcs_max_tile_height": WCS_MASKED // 2}]
+    dates = mosaic_dates()
+    t_range = (dates[0][1] - 86400.0, dates[-1][1] + 86400.0)
+    box = wcs_box(WCS_MASKED, x0=600000.0, y0=6100000.0)
+    launches = _kernel_counts()
+    pair = OwsPair(os.path.join(root, "wcs_conf"), layers, store)
+    try:
+        url = wcs_url(pair.base, "masked_b4", box, WCS_MASKED, "",
+                      time_range=t_range)
+        reset_counts(launches)
+        status, hdr, body, secs = http_fetch(url)
+        got = read_counts(launches)
+        a = tiff_values(body)
+        share = coverage_ok(a, WCS_MASKED, "15d masked")
+        cpu = tiff_values(pair.cpu_body(url))
+        nd, rel = near_coverage(a, cpu, "15d masked card vs CPU")
+        if got["B4"] < 4 or got["B1"] or got["B2"]:
+            raise AssertionError(f"15d masked: launches {got}")
+        log(f"phase 15d masked GetCoverage {WCS_MASKED}^2 (4 tiles): "
+            f"{secs:.3f} s, launches {got}, nodata {share:.4f}; CPU: "
+            f"validity differs at {nd} pixels, values within rel "
+            f"{rel:.3g} ({card})")
+        return got["B4"]
+    finally:
+        pair.close()
+
+
+def phase_wps(root, store, card):
+    """Phase 16 over phase 7's stack: WPS Execute (an XML POST) over
+    HTTP, `WPS_DRILLS` times, the stack resident; the CSV equals
+    `drill_csv(DrillPipeline.process_split(...))` called directly.
+    Returns the B3 launches."""
+    from xml.etree import ElementTree
+    from gsky_tpu_torch.geo import geometry as geom
+    from gsky_tpu_torch.index.client import MASClient
+    from gsky_tpu_torch.pipeline.drill import DrillPipeline, drill_csv
+    from gsky_tpu_torch.pipeline.types import GeoDrillRequest
+    from gsky_tpu_torch.server.config import ConfigWatcher
+    from gsky_tpu_torch.server.ows import OWSServer
+    conf = os.path.join(root, "wps_conf")
+    os.makedirs(conf)
+    with open(os.path.join(conf, "config.json"), "w") as fp:
+        json.dump({"service_config": {"mas_address": "in-process"},
+                   "layers": [],
+                   "processes": [{"identifier": "ndvi_drill",
+                                  "approx": False,
+                                  "data_sources": [{
+                                      "data_source": root,
+                                      "rgb_products": ["ndvi"]}]}]}, fp)
+    client = MASClient(store)
+    srv = OWSServer(ConfigWatcher(conf, lambda a: client,
+                                  install_signal=False),
+                    lambda a: client, device="cuda")
+    httpd = srv.serve("127.0.0.1", 0)
+    g = geom.from_wkt(DRILL_POLY)
+    gj = json.dumps({"type": "Polygon", "coordinates": [
+        r.tolist() for r in g.polys[0]]})
+    body = (
+        '<?xml version="1.0" encoding="UTF-8"?>'
+        '<wps:Execute service="WPS" version="1.0.0" '
+        'xmlns:wps="http://www.opengis.net/wps/1.0.0" '
+        'xmlns:ows="http://www.opengis.net/ows/1.1">'
+        "<ows:Identifier>ndvi_drill</ows:Identifier><wps:DataInputs>"
+        "<wps:Input><ows:Identifier>geometry</ows:Identifier><wps:Data>"
+        f"<wps:ComplexData>{gj}</wps:ComplexData></wps:Data></wps:Input>"
+        "</wps:DataInputs></wps:Execute>").encode()
+    launches = _kernel_counts()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/ows?service=WPS"
+    try:
+        http_fetch(url, body)           # the first: the stack's upload
+        lat = []
+        reset_counts(launches)
+        plain = PlainCalls()
+        try:
+            for _ in range(WPS_DRILLS):
+                status, hdr, out, secs = http_fetch(url, body)
+                lat.append(secs)
+        finally:
+            plain.remove()
+        got = read_counts(launches)
+        if status != 200 or got["B3"] < WPS_DRILLS or plain.calls \
+                or got["B1"] or got["B2"]:
+            raise AssertionError(f"16: {status}, launches {got}, plain "
+                                 f"{plain.calls}")
+        ns = {"wps": "http://www.opengis.net/wps/1.0.0"}
+        blocks = [el.text for el in ElementTree.fromstring(out).iterfind(
+            ".//wps:ComplexData", ns)]
+        req = GeoDrillRequest(collection=root, bands=["ndvi"],
+                              geometry_wkt=geom.from_geojson(gj).to_wkt(),
+                              approx=False)
+        res = DrillPipeline(MASClient(store), device="cuda") \
+            .process_split(req, 0)
+        want = drill_csv(res, list(res.values))
+        if blocks != [want] or len(want.splitlines()) != DRILL_T:
+            raise AssertionError("16: the WPS CSV differs from drill_csv "
+                                 "of a direct process_split")
+        wall = sum(lat)
+        log(f"phase 16: WPS Execute (POST) over HTTP, {WPS_DRILLS} drills "
+            f"of {DRILL_T} steps: {WPS_DRILLS / wall:.2f} drills/s, p50 "
+            f"{np.median(lat) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(lat, 90) * 1e3:.2f} ms; launches {got}; CSV "
+            f"({len(want)} B) equal to drill_csv of a direct "
+            f"process_split ({card})")
+        return got["B3"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3338,6 +3912,12 @@ def main() -> int:
         time_b1_wave(pipe, wave_args, b1_rows[1][2], card)
         del wave_args
         log(f"phase 13a: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 15a-d: WCS GetCoverage and DAP4 over HTTP --------------
+        t0 = time.perf_counter()
+        wcs_launches, wcs_errs = phase_wcs(data_root, store, card)
+        log(f"phase 15: launches {wcs_launches} "
+            f"({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -3348,8 +3928,8 @@ def main() -> int:
     shutil.rmtree(drill_root, ignore_errors=True)
     os.makedirs(drill_root)
     try:
-        b3_launches, b3_args, b3_wave_launches = phase_drill(drill_root,
-                                                             card)
+        b3_launches, b3_args, b3_wave_launches, b3_wps = phase_drill(
+            drill_root, card)
         b3_row = time_b3(b3_args, card)
     finally:
         shutil.rmtree(drill_root, ignore_errors=True)
@@ -3365,6 +3945,11 @@ def main() -> int:
         b4_launches, b4_args = phase_mosaic(mosaic_root, mosaic, card)
         b4_row = time_b4(b4_args, card)
         del b4_args
+
+        # -- phase 15d: a masked layer's GetCoverage (B4) -----------------
+        t0 = time.perf_counter()
+        b4_wcs = phase_wcs_masked(mosaic_root, mosaic, card)
+        log(f"phase 15d masked: {time.perf_counter() - t0:.1f} s")
 
         # -- phase 12b: masked layers over HTTP --------------------------
         t0 = time.perf_counter()
@@ -3422,29 +4007,34 @@ def main() -> int:
         {"name": "paged_render (B1)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/paged.py:173",
-         "launches": b1_launches + b1_waves + b1_anim + b1_expr,
-         "max_abs_err": max(max(r[1] for r in b1_rows), wide_err),
+         "launches": b1_launches + b1_waves + b1_anim + b1_expr
+         + wcs_launches["B1"],
+         "max_abs_err": max(max(r[1] for r in b1_rows), wide_err,
+                            max(v for (k, _), v in wcs_errs.items()
+                                if k == "B1")),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
          "bound_by": "bytes", "library_ms": None},
         {"name": "warp_render (B2)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
-         "launches": b2_launches + b2_rgb,
+         "launches": b2_launches + b2_rgb + wcs_launches["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
-                            wide_err),
+                            wide_err,
+                            max(v for (k, _), v in wcs_errs.items()
+                                if k == "B2")),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,
          "bound_by": "bytes", "library_ms": None},
         {"name": "masked_stats (B3)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/masked_stats.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
-         "launches": b3_launches + b3_wave_launches,
+         "launches": b3_launches + b3_wave_launches + b3_wps,
          "max_abs_err": max(b3_err, b3_main_err, b3k_err),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
         {"name": "first_valid (B4)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/first_valid.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
-         "launches": b4_launches, "max_abs_err": b4_row[4],
+         "launches": b4_launches + b4_wcs, "max_abs_err": b4_row[4],
          "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
          "bound_by": "bytes", "library_ms": b4_row[3]},
     ]}

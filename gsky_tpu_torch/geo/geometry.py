@@ -3,13 +3,15 @@
 Counterpart of the parts of `gsky_tpu/geo/geometry.py` that
 `index/store.py` and the drill need: WKT parsing and writing, vertex
 transforms, bbox, segmentize, point-in-polygon, the antimeridian split,
-clipping to a box (polygon tiling), and `rasterize`, the drill's
-ALL_TOUCHED polygon burn (GDALRasterizeGeometries with
-ALL_TOUCHED=TRUE, `worker/gdalprocess/drill.go:275-327`).
+clipping to a box (polygon tiling), planar area, GeoJSON parsing (the
+WPS geometry input), and `rasterize`, the drill's ALL_TOUCHED polygon
+burn (GDALRasterizeGeometries with ALL_TOUCHED=TRUE,
+`worker/gdalprocess/drill.go:275-327`).
 """
 
 from __future__ import annotations
 
+import json
 import math
 import re
 from dataclasses import dataclass, field
@@ -52,6 +54,15 @@ class Geometry:
             polys=[[t(r) for r in poly] for poly in self.polys],
             points=t(self.points) if self.points is not None else None,
         )
+
+    def area(self) -> float:
+        """Planar area (units of the coordinate system squared)."""
+        total = 0.0
+        for poly in self.polys:
+            for i, ring in enumerate(poly):
+                a = abs(_shoelace(ring))
+                total += a if i == 0 else -a
+        return total
 
     def contains_point(self, x: float, y: float) -> bool:
         for poly in self.polys:
@@ -390,3 +401,33 @@ def from_wkt(wkt: str) -> Geometry:
             polys.append(rings)
         return Geometry("MultiPolygon", polys=polys)
     raise ValueError(f"unsupported WKT type {kind}")
+
+
+def from_geojson(obj) -> Geometry:
+    """A GeoJSON geometry, Feature or FeatureCollection (its first
+    feature), as the WPS geometry input arrives."""
+    if isinstance(obj, (str, bytes)):
+        obj = json.loads(obj)
+    t = obj.get("type")
+    if t == "FeatureCollection":
+        feats = obj.get("features") or []
+        if not feats:
+            raise ValueError("empty FeatureCollection")
+        return from_geojson(feats[0])
+    if t == "Feature":
+        return from_geojson(obj["geometry"])
+    coords = obj.get("coordinates")
+    if t == "Point":
+        return Geometry("Point", points=np.array(
+            [[float(coords[0]), float(coords[1])]], dtype=np.float64))
+    if t == "LineString":
+        return Geometry("LineString",
+                        points=np.asarray(coords, dtype=np.float64))
+    if t == "Polygon":
+        return Geometry("Polygon", polys=[[np.asarray(r, dtype=np.float64)
+                                           for r in coords]])
+    if t == "MultiPolygon":
+        return Geometry("MultiPolygon",
+                        polys=[[np.asarray(r, dtype=np.float64) for r in poly]
+                               for poly in coords])
+    raise ValueError(f"unsupported GeoJSON type {t}")

@@ -1,12 +1,14 @@
 """Affine geotransforms, bounding boxes and extent reprojection.
 
 Counterpart of `gsky_tpu/geo/transform.py` (host numpy path): `BBox`,
-`GeoTransform`, `transform_bbox` and `pixel_resolution`, with the reference's arithmetic
-order so both packages compute the same float64 coordinates.
+`GeoTransform`, `transform_bbox`, `pixel_resolution`, and the WCS
+export's `suggest_output_size` and `split_bbox`, with the reference's
+arithmetic order so both packages compute the same float64 coordinates.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -35,6 +37,9 @@ class BBox:
     def intersects(self, other: "BBox") -> bool:
         return not (self.xmax <= other.xmin or other.xmax <= self.xmin
                     or self.ymax <= other.ymin or other.ymax <= self.ymin)
+
+    def buffer(self, d: float) -> "BBox":
+        return BBox(self.xmin - d, self.ymin - d, self.xmax + d, self.ymax + d)
 
     def to_polygon_wkt(self) -> str:
         return (f"POLYGON(({self.xmin} {self.ymin},{self.xmax} {self.ymin},"
@@ -100,6 +105,9 @@ class GeoTransform:
     def is_north_up(self) -> bool:
         return self.rx == 0.0 and self.ry == 0.0
 
+    def resolution(self) -> Tuple[float, float]:
+        return (math.hypot(self.dx, self.ry), math.hypot(self.rx, self.dy))
+
     def window(self, col0: int, row0: int) -> "GeoTransform":
         """Transform for a sub-window starting at pixel (col0, row0)."""
         x0, y0 = self.pixel_to_geo(col0, row0)
@@ -146,3 +154,42 @@ def pixel_resolution(bbox: BBox, crs: CRS, width: int, height: int) -> float:
     """EPSG:3857 metres per pixel of a request (the zoom-limit test)."""
     c = transform_bbox(bbox, crs, EPSG3857)
     return max(c.width / width, c.height / height)
+
+
+def suggest_output_size(src_gt: GeoTransform, src_w: int, src_h: int,
+                        src_crs: CRS, dst_crs: CRS,
+                        max_size: int = 65536) -> Tuple[BBox, int, int]:
+    """A destination extent and pixel size that roughly keep the source
+    resolution (the role of GDALSuggestedWarpOutput): the source extent
+    reprojected, at the destination length of one source pixel step
+    taken at the centre."""
+    src_bbox = src_gt.bbox(src_w, src_h)
+    dst_bbox = transform_bbox(src_bbox, src_crs, dst_crs)
+    cx = (src_bbox.xmin + src_bbox.xmax) / 2
+    cy = (src_bbox.ymin + src_bbox.ymax) / 2
+    rx, ry = src_gt.resolution()
+    x2, y2 = src_crs.transform_to(dst_crs, np.array([cx, cx + rx]),
+                                  np.array([cy, cy + ry]))
+    dres = max(min(abs(float(x2[1] - x2[0])), abs(float(y2[1] - y2[0]))),
+               1e-9)
+    w = max(1, min(max_size, int(round(dst_bbox.width / dres))))
+    h = max(1, min(max_size, int(round(dst_bbox.height / dres))))
+    return dst_bbox, w, h
+
+
+def split_bbox(bbox: BBox, width: int, height: int,
+               tile_w: int, tile_h: int):
+    """Cut an output raster into tiles of at most tile_w x tile_h, row
+    by row: [(tile_bbox, off_x, off_y, tw, th), ...], the edge tiles
+    ragged."""
+    gt = GeoTransform.from_bbox(bbox, width, height)
+    out = []
+    for row0 in range(0, height, tile_h):
+        th = min(tile_h, height - row0)
+        for col0 in range(0, width, tile_w):
+            tw = min(tile_w, width - col0)
+            x0, y0 = gt.pixel_to_geo(col0, row0)
+            x1, y1 = gt.pixel_to_geo(col0 + tw, row0 + th)
+            out.append((BBox(min(x0, x1), min(y0, y1), max(x0, x1),
+                             max(y0, y1)), col0, row0, tw, th))
+    return out

@@ -482,8 +482,9 @@ _SAMPLE_FMT = {"u": 1, "i": 2, "f": 3}
 
 class GeoTIFFWriter:
     """Streaming tiled GeoTIFF writer: tiles append to disk as written,
-    the IFDs at close().  Unwritten tiles resolve to a shared
-    nodata-filled block."""
+    in any order and from any thread (a WCS export's encode workers
+    stream its tiles here), the IFDs at close().  Unwritten tiles
+    resolve to a shared nodata-filled block."""
 
     def __init__(self, path: str, bands: int, height: int, width: int,
                  dtype, gt: GeoTransform, crs: CRS,
@@ -503,6 +504,7 @@ class GeoTIFFWriter:
         self.tiles_y = (height + tile_size - 1) // tile_size
         self._tiles: dict = {}      # (ty, tx) -> (offset, nbytes)
         self._ovr: List[dict] = []
+        self._lock = threading.Lock()
         self._fp = open(path, "wb")
         self._fp.write(b"II*\0\0\0\0\0")   # IFD offset patched at close
         self._pos = 8
@@ -519,16 +521,30 @@ class GeoTIFFWriter:
         return zlib.compress(raw, 6) if self.compress else raw
 
     def _append(self, blob: bytes) -> Tuple[int, int]:
-        off = self._pos
-        self._fp.write(blob)
-        self._pos += len(blob)
-        return off, len(blob)
+        with self._lock:
+            off = self._pos
+            self._fp.write(blob)
+            self._pos += len(blob)
+            return off, len(blob)
 
     def write_tile(self, tx: int, ty: int, block: np.ndarray) -> None:
         """block: (bands, th, tw) in storage dtype; edge tiles may be
         smaller than tile_size (padded with nodata)."""
         blob = self._encode_block(np.asarray(block, self.dtype))
         self._tiles[(ty, tx)] = self._append(blob)
+
+    def write_region(self, x0: int, y0: int, data: np.ndarray) -> None:
+        """Write a region (bands, h, w) at pixel (x0, y0), which must lie
+        on a tile boundary; its tiles are encoded one by one."""
+        ts = self.tile_size
+        _, h, w = data.shape
+        for ty in range(y0 // ts, (y0 + h + ts - 1) // ts):
+            for tx in range(x0 // ts, (x0 + w + ts - 1) // ts):
+                r0 = ty * ts - y0
+                c0 = tx * ts - x0
+                sub = data[:, max(r0, 0):r0 + ts, max(c0, 0):c0 + ts]
+                if sub.shape[1] and sub.shape[2]:
+                    self.write_tile(tx, ty, sub)
 
     def append_overview(self, data) -> None:
         """Append one reduced-resolution level, (bands, oh, ow) or
@@ -571,9 +587,10 @@ class GeoTIFFWriter:
         ]
 
     def close(self) -> None:
-        if self._closed:
-            return
-        self._closed = True
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
         fp = self._fp
         missing = [(ty, tx) for ty in range(self.tiles_y)
                    for tx in range(self.tiles_x)

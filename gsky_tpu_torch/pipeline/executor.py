@@ -551,13 +551,17 @@ class WarpExecutor:
     def warp_mosaic_scenes(self, granules, ns_ids: Sequence[int],
                            prios: Sequence[float], dst_gt: GeoTransform,
                            dst_crs: CRS, height: int, width: int,
-                           n_ns: int, method: str = "near"):
+                           n_ns: int, method: str = "near",
+                           host: bool = False):
         """Fused warp + per-namespace mosaic from the cached scenes:
         (canvases (n_pad, H, W) f32, valids bool) on the device, or None
         when a scene is uncacheable.  One group: B1 when the page pool
         serves it (same gate and declines as `render_byte_scenes`),
         else B2.  Several groups (granules across source CRSs): B2 per
-        group, then a per-pixel priority combine."""
+        group, then a per-pixel priority combine.  ``host`` lets a
+        wave lane's result come back as the host arrays it arrives as
+        (a caller that reads it on the host: the WCS export), instead of
+        being uploaded again."""
         if _bucket_pow2(n_ns) > MAX_NS:
             return _by_ns_chunks(
                 lambda gs, ids, pr, n: self.warp_mosaic_scenes(
@@ -590,6 +594,8 @@ class WarpExecutor:
                 self.pool, tables, params16, group.ctrl,
                 (method, n_pad, (height, width), group.step),
                 _bucketed_lane(group), _serials(group))
+            if host:
+                return c, v
             return torch.from_numpy(c).to(dev), torch.from_numpy(v).to(dev)
         try:
             with self.pool.locked_pool() as pool:

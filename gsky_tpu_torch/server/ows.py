@@ -1,11 +1,14 @@
-"""The OWS front end: WMS GetCapabilities and GetMap, served over HTTP.
+"""The OWS front end: WMS, WCS, DAP4 and WPS, served over HTTP.
 
-Counterpart of the WMS half of `gsky_tpu/server/ows.py`.  `OWSServer`
-routes ``/ows`` and ``/ows/<namespace>`` to a namespace's config,
-dispatches on ``service=`` (or the service ``request=`` implies) and
-answers with a `Response`; errors come back as an OGC ServiceException.
-`OWSServer.serve` binds it to a socket with the standard library's
-threaded HTTP server, one thread a connection.
+Counterpart of `gsky_tpu/server/ows.py`.  `OWSServer` routes ``/ows``
+and ``/ows/<namespace>`` to a namespace's config, dispatches on
+``service=`` (or the service ``request=`` implies, or a ``dap4.ce``
+constraint) and answers with a `Response`; errors come back as an OGC
+ServiceException.  `OWSServer.serve` binds it to a socket with the
+standard library's threaded HTTP server, one thread a connection.  A
+`Response` body is bytes, a file sent from disk (a streamed GeoTIFF, an
+output over 256 MB) or a chunk iterator sent with ``Transfer-Encoding:
+chunked`` (the streamed DAP4 body).
 
 GetMap runs the reference's ladder: size checks, the zoom limit (an
 overview layer, or the placeholder tile), then for a style of one to
@@ -35,10 +38,29 @@ frames go through the composite route too, which composites the bands
 into one plane.
 ``GSKY_ANIM=0`` answers such a request with one image over the range.
 
+WCS GetCoverage (`_getcoverage`) runs the reference's ladder: size and
+format checks (width = height = 0 sizes the output from the sources,
+`pipeline.extent`), the output cut into tiles of at most
+``wcs_max_tile_width`` x ``wcs_max_tile_height`` (`split_bbox`), then a
+multi-tile export through the staged export engine
+(`pipeline.export.ExportPipeline`; ``GSKY_EXPORT_PIPELINE=0`` renders
+tile by tile), a single tile or a fusion layer through the modular
+route.  A GeoTIFF over ``WCS_STREAM_PIXELS`` with tiles on the 256 grid
+streams its tiles into a `GeoTIFFWriter` on disk; otherwise the
+coverage is built in RAM and its nodata (-9999) filled in place, then
+written as GeoTIFF, NetCDF or DAP4.  A DAP4 request (``dap4.ce``,
+`server.dap4`) is a GetCoverage whose multi-tile coverage, with
+``GSKY_DAP_STREAM`` on, is spooled to disk by the engine and streamed.
+WPS Execute (`_wps_execute`) drills the process's data sources through
+`DrillPipeline.process_split` and answers their CSVs; the XML Execute
+document may come as a POST body.
+
 Requests the port cannot serve yet get HTTP 501 with exception code
 ``OperationNotSupported`` and a message naming the ROADMAP item, as
-does any NotImplementedError the pipeline raises.  Not ported: the
-serving gateway (response cache, single-flight, admission), deadlines,
+does any NotImplementedError the pipeline raises: among them a
+GetCoverage in a config of several ``ows_cluster_nodes`` (peer shards,
+A.10) and a WPS process over a VRT (A.8).  Not ported: the serving
+gateway (response cache, single-flight, admission), deadlines,
 brownout, the metrics collector, drain, the cache fabric and remote
 workers.
 """
@@ -47,33 +69,54 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import datetime as dt
 import os
+import shutil
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..geo.transform import pixel_resolution
+from ..geo import geometry as geom
+from ..geo.transform import GeoTransform, pixel_resolution, split_bbox
 from ..index.store import parse_time
+from ..io.geotiff import GeoTIFFWriter, write_geotiff
+from ..io.netcdf import write_netcdf3
 from ..io.png import ApngAssembler, empty_tile_png, encode_png, \
     encode_rgba_png
 from ..ops.palette import gradient_palette, with_nodata_entry
 from ..ops.scale import scale_params_auto, scale_to_byte
+from ..pipeline.drill import DrillPipeline, drill_csv
 from ..pipeline.executor import WarpExecutor
+from ..pipeline.export import ExportPipeline
+from ..pipeline.export import pipeline_enabled as export_pipeline_enabled
+from ..pipeline.extent import compute_reprojection_extent
 from ..pipeline.tile import TilePipeline, evaluate_expressions
 from ..pipeline.tile_stages import render_staged, tile_pipeline_enabled
-from ..pipeline.types import AxisSelector, GeoTileRequest, MaskSpec
+from ..pipeline.types import AxisSelector, GeoDrillRequest, \
+    GeoTileRequest, MaskSpec
 from ..resilience import TooManyFailures
+from . import dap4
 from . import templates as T
 from .config import Config, ConfigWatcher, Layer, get_layer_dates
-from .params import OWSError, infer_service, normalise_query, parse_wms
+from .params import OWSError, infer_service, normalise_query, parse_wcs, \
+    parse_wms, parse_wps
 
+# a GeoTIFF coverage of more pixels than this streams its tiles to disk
+WCS_STREAM_PIXELS = 16 << 20
+# an in-RAM coverage body larger than this is sent from its file
+_MAX_BODY_BYTES = 256 * 1024 * 1024
+_WCS_FORMATS = ("geotiff", "gtiff", "tiff", "netcdf", "nc",
+                "application/x-netcdf", "image/tiff", "dap4")
+_TIFF_FORMATS = ("geotiff", "gtiff", "tiff", "image/tiff")
+_NETCDF_FORMATS = ("netcdf", "nc", "application/x-netcdf")
 # output formats of a TIME animation
 _ANIM_FORMATS = ("image/apng", "video/mp4")
 _JPEG_FORMATS = ("image/jpeg", "image/jpg")
@@ -123,10 +166,39 @@ def _host(tile) -> np.ndarray:
 
 @dataclass
 class Response:
+    """An answer.  Its body is ``body``, or the file at ``path`` (sent
+    from disk, then unlinked), or the bytes ``chunks`` yields (sent with
+    ``Transfer-Encoding: chunked``).  `read` gives any of them as bytes;
+    `close` releases a file or a stream that is not read."""
+
     status: int
     content_type: str
-    body: bytes
+    body: bytes = b""
     headers: Dict[str, str] = field(default_factory=dict)
+    path: str = ""
+    chunks: Optional[Iterator[bytes]] = None
+
+    def read(self) -> bytes:
+        try:
+            if self.path:
+                with open(self.path, "rb") as fp:
+                    self.body = fp.read()
+            elif self.chunks is not None:
+                self.body = b"".join(self.chunks)
+        finally:
+            self.close()
+        return self.body
+
+    def close(self) -> None:
+        if self.chunks is not None:
+            self.chunks.close()
+            self.chunks = None
+        if self.path:
+            try:
+                os.remove(self.path)
+            except OSError:
+                pass
+            self.path = ""
 
 
 def _unported(what: str, item: str) -> OWSError:
@@ -151,14 +223,19 @@ class _Clock:
 
 class OWSServer:
     def __init__(self, watcher: ConfigWatcher, mas_factory=None,
-                 device="cuda"):
+                 device="cuda", temp_dir: str = ""):
         """``mas_factory(address)`` gives a namespace's `MASClient` (the
         port's client is in-process: there is no HTTP MAS client yet).
         ``device`` ("cuda" by default) is where every pipeline renders;
-        without CUDA it must be "cpu"."""
+        without CUDA it must be "cpu".  ``temp_dir`` (default the
+        system's, which honours TMPDIR) holds coverage files while they
+        are written and sent."""
         self.device = resolve_device(device)
         self.watcher = watcher
         self.mas_factory = mas_factory
+        self.temp_dir = temp_dir or tempfile.gettempdir()
+        # the stats of the last multi-tile export (`ExportPipeline.run`)
+        self.last_export: Dict[str, object] = {}
         # one executor (scene cache, page pool) for every namespace
         self.executor = WarpExecutor(device=self.device)
         self._pipelines: Dict[str, Tuple[str, TilePipeline]] = {}
@@ -192,14 +269,16 @@ class OWSServer:
 
     # -- dispatch -----------------------------------------------------------
 
-    def handle(self, path: str, query, host: str = "") -> Response:
+    def handle(self, path: str, query, host: str = "",
+               body: Optional[bytes] = None) -> Response:
         """One request: ``path`` (``/ows`` or ``/ows/<namespace>``),
         ``query`` (a mapping of key to value or to a list of values),
-        ``host`` (the Host header, for the documents' URLs)."""
+        ``host`` (the Host header, for the documents' URLs), ``body``
+        (a POST's body: a WPS Execute document)."""
         clock = _Clock()
         t0 = clock.last
         try:
-            resp = self._handle(path, query, host, clock)
+            resp = self._handle(path, query, host, clock, body)
         except OWSError as e:
             resp = _exception_response(e)
         except TooManyFailures as e:
@@ -218,8 +297,8 @@ class OWSServer:
             self.spans["handle"] += time.perf_counter() - t0
         return resp
 
-    def _handle(self, path: str, query, host: str,
-                clock: _Clock) -> Response:
+    def _handle(self, path: str, query, host: str, clock: _Clock,
+                body: Optional[bytes] = None) -> Response:
         if path.rstrip("/") == "/ows":
             ns = ""
         elif path.startswith("/ows/"):
@@ -232,12 +311,12 @@ class OWSServer:
             raise OWSError(f"no configuration for namespace {ns!r}",
                            status=404)
         if "dap4.ce" in q:
-            raise _unported("DAP4", "A.9")
+            return self.serve_dap(cfg, q, clock)
         svc = infer_service(q)
         if svc == "WCS":
-            raise _unported("WCS", "A.9")
+            return self.serve_wcs(path, cfg, q, host, clock)
         if svc == "WPS":
-            raise _unported("WPS", "A.15")
+            return self.serve_wps(path, cfg, q, host, body)
         return self.serve_wms(path, cfg, q, host, clock)
 
     # -- WMS ----------------------------------------------------------------
@@ -317,8 +396,27 @@ class OWSServer:
             start = parse_time(lay.effective_start_date)
         axes = []
         for ax in lay.axes_info:
+            idx_sels = getattr(p, "axis_idx", {}).get(ax.name)
+            if idx_sels:
+                # DAP4 index selection [start:step:end]
+                for (s, e, st, is_range, is_all) in idx_sels:
+                    if is_all:
+                        axes.append(AxisSelector(name=ax.name, idx_start=0,
+                                                 aggregate=0))
+                    elif not is_range:
+                        axes.append(AxisSelector(name=ax.name, idx_start=s,
+                                                 idx_end=s, aggregate=0))
+                    else:
+                        axes.append(AxisSelector(
+                            name=ax.name, idx_start=s or 0, idx_end=e,
+                            idx_step=st or 1, aggregate=0))
+                continue
             val = p.axes.get(ax.name, ax.default)
-            if val:
+            if isinstance(val, tuple):      # WCS subset=axis(lo,hi)
+                lo, hi = val
+                axes.append(AxisSelector(name=ax.name, start=lo,
+                                         end=hi if hi is not None else lo))
+            elif val:
                 try:
                     v = float(val)
                 except (TypeError, ValueError):
@@ -540,6 +638,262 @@ class OWSServer:
                 for b, v in zip(bands[:4], valids[:4])])
         return frames
 
+    # -- DAP4 -------------------------------------------------------------
+
+    def serve_dap(self, cfg: Config, q: Dict[str, str],
+                  clock: _Clock) -> Response:
+        """A ``dap4.ce`` constraint expression: a GetCoverage with DAP4
+        output, streamed when the coverage is multi-tile."""
+        try:
+            ce = dap4.parse_constraint_expr(q["dap4.ce"])
+        except ValueError as e:
+            raise OWSError(f"Failed to parse dap4.ce: {e}",
+                           "InvalidParameterValue")
+        return self._getcoverage(cfg, dap4.dap_to_wcs(ce, cfg), clock,
+                                 dap_stream=True)
+
+    # -- WCS ----------------------------------------------------------------
+
+    def serve_wcs(self, path: str, cfg: Config, q: Dict[str, str],
+                  host: str, clock: _Clock) -> Response:
+        p = parse_wcs(q)
+        req_name = p.request.lower()
+        if req_name == "getcapabilities" or not req_name:
+            return _xml(T.wcs_capabilities(cfg, path, _host_of(host, cfg)))
+        if req_name == "describecoverage":
+            layers = [cfg.layer(n) for n in p.coverages] if p.coverages \
+                else [l for l in cfg.layers if not l.service_disabled("wcs")]
+            if any(l is None for l in layers):
+                raise OWSError("coverage not found", "CoverageNotDefined")
+            return _xml(T.wcs_describe_coverage(layers,
+                                                _host_of(host, cfg)))
+        if req_name == "getcoverage":
+            if len(cfg.service_config.ows_cluster_nodes) > 1:
+                raise _unported("GetCoverage over ows_cluster_nodes peer "
+                                "shards", "A.10")
+            return self._getcoverage(cfg, p, clock)
+        raise OWSError(f"WCS request {p.request!r} not supported",
+                       "OperationNotSupported")
+
+    def _getcoverage(self, cfg: Config, p, clock: _Clock,
+                     dap_stream: bool = False) -> Response:
+        if not p.coverages:
+            raise OWSError("no coverage requested", "CoverageNotDefined")
+        lay, style = self._resolve_layer(cfg, p.coverages[0], p.styles,
+                                         "wcs")
+        if p.bbox is None or p.crs is None:
+            raise OWSError("bbox/crs required", "MissingParameterValue")
+        width, height = p.width, p.height
+        pipe = self._pipeline(cfg)
+        base_req = self._tile_request(lay, style, p, 256, 256,
+                                      lay.wcs_polygon_segments)
+        if p.bands_override:
+            # the variables a DAP4 constraint names
+            base_req = dataclasses.replace(
+                base_req, bands=list(p.bands_override), _exprs=None)
+        if width <= 0 or height <= 0:
+            width, height = compute_reprojection_extent(pipe.mas, base_req)
+            if width <= 0 or height <= 0:
+                raise OWSError("no data for requested extent",
+                               "CoverageNotDefined")
+        if width > lay.wcs_max_width or height > lay.wcs_max_height:
+            raise OWSError(
+                f"requested size {width}x{height} exceeds "
+                f"{lay.wcs_max_width}x{lay.wcs_max_height}",
+                "InvalidParameterValue")
+        fmt = p.format.lower()
+        if fmt not in _WCS_FORMATS:
+            raise OWSError(f"format {p.format!r} not supported",
+                           "InvalidFormat")
+
+        tiles = split_bbox(p.bbox, width, height, lay.wcs_max_tile_width,
+                           lay.wcs_max_tile_height)
+        ns_names = list(base_req.band_exprs.expr_names)
+        # a very large GeoTIFF streams its tiles to disk instead of
+        # building the whole coverage in RAM
+        stream_tif = (fmt in _TIFF_FORMATS
+                      and width * height > WCS_STREAM_PIXELS
+                      and lay.wcs_max_tile_width % 256 == 0
+                      and lay.wcs_max_tile_height % 256 == 0)
+        # a multi-tile DAP4 coverage goes through the engine into a disk
+        # spool, and its body streams from there
+        stream_dap = (fmt == "dap4" and dap_stream
+                      and dap4.dap_stream_enabled() and len(tiles) > 1
+                      and not lay.input_layers
+                      and export_pipeline_enabled())
+        in_ram = not (stream_tif or stream_dap)
+        out = {n: np.zeros((height, width), np.float32)
+               for n in ns_names} if in_ram else {}
+        valid = {n: np.zeros((height, width), bool)
+                 for n in ns_names} if in_ram else {}
+        nodata = -9999.0
+        gt = GeoTransform.from_bbox(p.bbox, width, height)
+        stamp = dt.datetime.now(dt.timezone.utc).strftime("%Y%m%d%H%M%S")
+        writer = stream_path = None
+        if stream_tif:
+            stream_path = os.path.join(self.temp_dir,
+                                       f"wcs_{stamp}_{id(p)}.tif")
+            writer = GeoTIFFWriter(stream_path, len(ns_names), height,
+                                   width, np.float32, gt, p.crs,
+                                   nodata=nodata)
+        elif stream_dap:
+            stream_path = os.path.join(self.temp_dir,
+                                       f"dap_{stamp}_{id(p)}.raw")
+            writer = dap4.CoverageSpool(stream_path, len(ns_names),
+                                        height, width)
+        clock.mark("parse")
+
+        def render_tile(tb, ox, oy, tw, th):
+            req = dataclasses.replace(
+                base_req, bbox=tb, width=tw, height=th,
+                polygon_segments=lay.wcs_polygon_segments)
+            res = _render_with_fusion(pipe, req, lay)
+            if writer is not None:
+                block = np.full((len(ns_names), th, tw), nodata,
+                                np.float32)
+                for i, n in enumerate(ns_names):
+                    if n in res.data:
+                        block[i] = np.where(_host(res.valid[n]),
+                                            _host(res.data[n]), nodata)
+                writer.write_region(ox, oy, block)
+                return
+            for n in ns_names:
+                if n in res.data:
+                    out[n][oy:oy + th, ox:ox + tw] = _host(res.data[n])
+                    valid[n][oy:oy + th, ox:ox + tw] = _host(res.valid[n])
+
+        # a multi-tile export of a plain layer goes through the staged
+        # engine; a single tile, a fusion layer, or GSKY_EXPORT_PIPELINE=0
+        # renders tile by tile
+        engine = None
+        if len(tiles) > 1 and not lay.input_layers \
+                and export_pipeline_enabled():
+            engine = ExportPipeline(
+                pipe, dataclasses.replace(
+                    base_req, polygon_segments=lay.wcs_polygon_segments),
+                tiles, ns_names, p.bbox, width, height, nodata=nodata,
+                writer=writer, out=out, valid=valid)
+        try:
+            if engine is None:
+                for t in tiles:
+                    render_tile(*t)
+            else:
+                stats = engine.run()
+                with self._lock:
+                    self.last_export = stats
+        except BaseException:
+            # close and unlink a partial stream file or spool
+            if engine is not None:
+                engine.cancel()
+            if writer is not None:
+                try:
+                    writer.close()
+                except Exception:  # a writer the engine already closed
+                    pass
+                try:
+                    os.remove(stream_path)
+                except OSError:
+                    pass
+            raise
+        clock.mark("render")
+        if stream_dap:
+            return Response(200, dap4.CONTENT_TYPE,
+                            chunks=_spool_chunks(ns_names, writer))
+        if writer is not None:
+            writer.close()
+            clock.mark("encode")
+            return Response(200, "image/geotiff", path=writer.path,
+                            headers=_attachment(f"{lay.name}_{stamp}.tif"))
+        # nodata in place: the render is done with the canvases
+        arrays = {}
+        for n in ns_names:
+            a = out[n]
+            a[~valid[n]] = nodata
+            arrays[n] = a
+        if fmt == "dap4":
+            body = dap4.encode_dap4(ns_names, arrays)
+            clock.mark("encode")
+            return Response(200, dap4.CONTENT_TYPE, body)
+        ext, ctype = (".nc", "application/x-netcdf") \
+            if fmt in _NETCDF_FORMATS else (".tif", "image/geotiff")
+        resp = Response(200, ctype,
+                        headers=_attachment(f"{lay.name}_{stamp}{ext}"),
+                        path=os.path.join(self.temp_dir,
+                                          f"wcs_{stamp}_{id(p)}{ext}"))
+        try:
+            if fmt in _NETCDF_FORMATS:
+                xs = gt.x0 + (np.arange(width) + 0.5) * gt.dx
+                ys = gt.y0 + (np.arange(height) + 0.5) * gt.dy
+                write_netcdf3(resp.path, arrays, xs, ys, p.crs, None, nodata)
+            else:
+                write_geotiff(resp.path,
+                              np.stack([arrays[n] for n in ns_names]), gt,
+                              p.crs, nodata)
+        except BaseException:
+            resp.close()            # unlinks the partial file
+            raise
+        if os.path.getsize(resp.path) <= _MAX_BODY_BYTES:
+            resp.read()
+        clock.mark("encode")
+        return resp
+
+    # -- WPS ----------------------------------------------------------------
+
+    def serve_wps(self, path: str, cfg: Config, q: Dict[str, str],
+                  host: str, body: Optional[bytes] = None) -> Response:
+        p = parse_wps(q, body or None)
+        req_name = (p.request or "").lower()
+        if req_name == "getcapabilities" or not req_name:
+            return _xml(T.wps_capabilities(cfg, path, _host_of(host, cfg)))
+        if req_name == "describeprocess":
+            proc = cfg.process(p.identifier)
+            if proc is None:
+                raise OWSError(f"process {p.identifier!r} not found",
+                               "InvalidParameterValue")
+            return _xml(T.wps_describe_process(proc))
+        if req_name != "execute":
+            raise OWSError(f"WPS request {p.request!r} not supported",
+                           "OperationNotSupported")
+        return self._wps_execute(cfg, p)
+
+    def _wps_execute(self, cfg: Config, p) -> Response:
+        proc = cfg.process(p.identifier)
+        if proc is None:
+            raise OWSError(f"process {p.identifier!r} not found",
+                           "InvalidParameterValue")
+        if not p.geometry_json:
+            raise OWSError("geometry input required",
+                           "MissingParameterValue")
+        try:
+            g = geom.from_geojson(p.geometry_json)
+        except (ValueError, KeyError) as e:
+            raise OWSError(f"invalid GeoJSON geometry: {e}")
+        if g.kind not in ("Point", "Polygon", "MultiPolygon"):
+            raise OWSError(
+                f"geometry type {g.kind} not supported; use Point/Polygon/"
+                f"MultiPolygon")
+        if proc.max_area > 0 and g.area() > proc.max_area:
+            raise OWSError(
+                f"geometry area exceeds process limit {proc.max_area}")
+        if any(src.vrt_url for src in proc.data_sources):
+            raise _unported("WPS drills through a VRT", "A.8")
+        csv_blocks = []
+        for src in proc.data_sources:
+            dreq = GeoDrillRequest(
+                collection=src.data_source, bands=src.rgb_products,
+                geometry_wkt=g.to_wkt(),
+                start_time=p.start_time, end_time=p.end_time,
+                deciles=proc.deciles, approx=proc.approx,
+                band_strides=src.band_strides,
+                pixel_count="pixel_count" in proc.drill_algorithm,
+                mask_namespaces=[src.mask.id] if src.mask else (),
+                index_tile_x_size=src.index_tile_x_size,
+                index_tile_y_size=src.index_tile_y_size)
+            dp = DrillPipeline(self._mas(cfg), device=self.device)
+            res = dp.process_split(dreq, proc.year_step)
+            csv_blocks.append(drill_csv(res, list(res.values)))
+        return _xml(T.wps_execute_response(p.identifier, csv_blocks))
+
     # -- HTTP -----------------------------------------------------------------
 
     def serve(self, host: str = "127.0.0.1",
@@ -569,26 +923,48 @@ class _HTTPServer(ThreadingHTTPServer):
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
 
-    def do_GET(self):
+    def do_GET(self, body: Optional[bytes] = None):
         url = urlsplit(self.path)
         resp = self.server.ows.handle(
             url.path, parse_qs(url.query, keep_blank_values=True),
-            self.headers.get("Host", ""))
-        self.send_response(resp.status)
-        self.send_header("Content-Type", resp.content_type)
-        for k, v in resp.headers.items():
-            self.send_header(k, v)
-        self.send_header("Content-Length", str(len(resp.body)))
-        self.end_headers()
-        self.wfile.write(resp.body)
+            self.headers.get("Host", ""), body)
+        try:
+            self.send_response(resp.status)
+            self.send_header("Content-Type", resp.content_type)
+            for k, v in resp.headers.items():
+                self.send_header(k, v)
+            if resp.chunks is not None:
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                for chunk in resp.chunks:
+                    if chunk:
+                        self.wfile.write(b"%x\r\n" % len(chunk))
+                        self.wfile.write(chunk)
+                        self.wfile.write(b"\r\n")
+                self.wfile.write(b"0\r\n\r\n")
+            elif resp.path:
+                self.send_header("Content-Length",
+                                 str(os.path.getsize(resp.path)))
+                self.end_headers()
+                with open(resp.path, "rb") as fp:
+                    shutil.copyfileobj(fp, self.wfile, 1 << 20)
+            else:
+                self.send_header("Content-Length", str(len(resp.body)))
+                self.end_headers()
+                self.wfile.write(resp.body)
+        except BaseException:
+            # the status line may be out: the connection cannot carry
+            # another response
+            self.close_connection = True
+            raise
+        finally:
+            resp.close()
 
     def do_POST(self):
-        # the query string routes a POST too; its body (a WPS Execute
-        # document) is read and dropped: WPS is not ported
+        # the query string routes a POST; its body is a WPS Execute
+        # document
         n = int(self.headers.get("Content-Length") or 0)
-        if n:
-            self.rfile.read(n)
-        self.do_GET()
+        self.do_GET(self.rfile.read(n) if n else None)
 
     def log_message(self, fmt, *args):
         pass
@@ -666,6 +1042,19 @@ def _host_of(host: str, cfg: Config) -> str:
         h = cfg.service_config.ows_hostname
         return h if h.startswith("http") else f"http://{h}"
     return f"http://{host}"
+
+
+def _spool_chunks(ns_names: List[str], spool) -> Iterator[bytes]:
+    """The streamed DAP4 body of a spooled coverage; the spool is closed
+    (and its file unlinked) when the body ends or is dropped."""
+    try:
+        yield from dap4.stream_dap4(ns_names, spool)
+    finally:
+        spool.close()
+
+
+def _attachment(fname: str) -> Dict[str, str]:
+    return {"Content-Disposition": f'attachment; filename="{fname}"'}
 
 
 def _xml(doc: str) -> Response:

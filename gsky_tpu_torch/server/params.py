@@ -1,14 +1,18 @@
-"""OGC request parameter parsing for WMS.
+"""OGC request parameter parsing for WMS, WCS and WPS.
 
-Counterpart of the WMS half of `gsky_tpu/server/params.py`:
-case-insensitive keys, the service inferred from ``request`` when
-``service`` is missing, WMS 1.3.0 vs 1.1.1 axis order, time lists.
+Counterpart of `gsky_tpu/server/params.py`: case-insensitive keys, the
+service inferred from ``request`` when ``service`` is missing, WMS
+1.3.0 vs 1.1.1 axis order, time lists, WCS ``subset=`` clauses, and WPS
+Execute inputs from the ``datainputs`` KVP or an XML POST body.
 """
 
 from __future__ import annotations
 
+import json
+import re
+import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import BBox
@@ -165,3 +169,158 @@ def parse_wms(q: Dict[str, str]) -> WMSParams:
         if k.startswith("dim_"):
             p.axes[k[4:]] = v
     return p
+
+
+@dataclass
+class WCSParams:
+    request: str = ""
+    version: str = "1.0.0"
+    coverages: List[str] = field(default_factory=list)
+    crs: Optional[CRS] = None
+    bbox: Optional[BBox] = None
+    width: int = 0
+    height: int = 0
+    format: str = "GeoTIFF"
+    times: List[float] = field(default_factory=list)
+    styles: List[str] = field(default_factory=list)
+    # subset=axis(lo,hi) clauses and DAP4 value filters: name -> (lo, hi)
+    axes: Dict[str, Tuple[Optional[float], Optional[float]]] = \
+        field(default_factory=dict)
+    # DAP4 index selection: name -> [(start, end, step, is_range,
+    # is_all), ...]
+    axis_idx: Dict[str, List[Tuple]] = field(default_factory=dict)
+    # DAP4: the variables a constraint names replace the layer's bands
+    bands_override: List[str] = field(default_factory=list)
+
+
+def parse_wcs(q: Dict[str, str]) -> WCSParams:
+    p = WCSParams()
+    p.request = q.get("request", "")
+    p.version = q.get("version", "1.0.0") or "1.0.0"
+    cov = q.get("coverage") or q.get("coverageid") or q.get("identifier", "")
+    p.coverages = [c for c in cov.split(",") if c]
+    p.styles = [s for s in q.get("styles", "").split(",") if s]
+    crs_val = q.get("crs") or q.get("srs", "")
+    if crs_val:
+        try:
+            p.crs = parse_crs(crs_val)
+        except ValueError:
+            raise OWSError(f"CRS {crs_val!r} not supported", "InvalidCRS")
+    if q.get("bbox"):
+        if p.crs is None:
+            raise OWSError("bbox given without crs", "InvalidCRS")
+        p.bbox = _parse_bbox(q["bbox"], p.crs, "1.0.0")
+    for key in ("width", "height"):
+        if q.get(key):
+            try:
+                setattr(p, key, int(float(q[key])))
+            except (ValueError, OverflowError):
+                raise OWSError(f"invalid {key}: {q[key]!r}")
+    if q.get("format"):
+        p.format = q["format"]
+    if q.get("time"):
+        p.times = parse_times(q["time"])
+    # subset=axis(lo,hi), repeatable (normalise_query joins them by ';')
+    for clause in (q.get("subset", "") or "").split(";"):
+        clause = clause.strip()
+        if not clause:
+            continue
+        m = re.match(r"(\w+)\(([^,\)]*)(?:,([^\)]*))?\)", clause)
+        if not m:
+            raise OWSError(f"invalid subset clause {clause!r}")
+        try:
+            lo = float(m.group(2)) if m.group(2) else None
+            hi = float(m.group(3)) if m.group(3) else lo
+        except ValueError:
+            raise OWSError(f"invalid subset clause {clause!r}")
+        p.axes[m.group(1)] = (lo, hi)
+    return p
+
+
+@dataclass
+class WPSParams:
+    request: str = ""
+    version: str = "1.0.0"
+    identifier: str = ""
+    geometry_json: str = ""
+    start_time: Optional[float] = None
+    end_time: Optional[float] = None
+    inputs: Dict[str, str] = field(default_factory=dict)
+
+
+def parse_wps(q: Dict[str, str],
+              post_body: Optional[bytes] = None) -> WPSParams:
+    """WPS parameters from the query and, for a POST, the XML Execute
+    document; the KVP ``datainputs`` (``geometry=...;start_datetime=
+    ...``) overrides inputs the body gave."""
+    p = WPSParams()
+    p.request = q.get("request", "")
+    p.version = q.get("version", "1.0.0") or "1.0.0"
+    p.identifier = q.get("identifier", "")
+    if post_body:
+        _parse_wps_post(p, post_body)
+    if q.get("datainputs"):
+        for part in re.split(r"[;&]", q["datainputs"]):
+            if "=" in part:
+                k, _, v = part.partition("=")
+                p.inputs[k.strip().lower()] = v.strip()
+    _extract_known_inputs(p)
+    return p
+
+
+_WPS_NS = {"wps": "http://www.opengis.net/wps/1.0.0",
+           "ows": "http://www.opengis.net/ows/1.1"}
+
+
+def _parse_wps_post(p: WPSParams, body: bytes) -> None:
+    """An XML Execute document: the request from its root element, the
+    process identifier, and every input's literal or complex data."""
+    try:
+        root = ET.fromstring(body)
+    except ET.ParseError as e:
+        raise OWSError(f"invalid WPS XML payload: {e}")
+    if p.request == "":
+        p.request = root.tag.split("}")[-1]
+    ident = root.find(".//ows:Identifier", _WPS_NS)
+    if ident is not None and ident.text and not p.identifier:
+        p.identifier = ident.text.strip()
+    for inp in root.findall(".//wps:Input", _WPS_NS):
+        key_el = inp.find("ows:Identifier", _WPS_NS)
+        if key_el is None or not key_el.text:
+            continue
+        key = key_el.text.strip().lower()
+        lit = inp.find(".//wps:LiteralData", _WPS_NS)
+        if lit is not None and lit.text:
+            p.inputs[key] = lit.text.strip()
+            continue
+        comp = inp.find(".//wps:ComplexData", _WPS_NS)
+        if comp is not None:
+            text = comp.text or ""
+            if not text.strip() and len(comp):
+                text = "".join(ET.tostring(c, encoding="unicode")
+                               for c in comp)
+            p.inputs[key] = text.strip()
+
+
+def _extract_known_inputs(p: WPSParams) -> None:
+    g = p.inputs.get("geometry", "")
+    if g:
+        p.geometry_json = g
+    s = _strip_json_wrapper(p.inputs.get("start_datetime", ""))
+    if s:
+        p.start_time = parse_time(s)
+    e = _strip_json_wrapper(p.inputs.get("end_datetime", ""))
+    if e:
+        p.end_time = parse_time(e)
+
+
+def _strip_json_wrapper(v: str) -> str:
+    """An input is a bare ISO string or a {"type": "string", "value":
+    ...} JSON fragment."""
+    v = v.strip()
+    if v.startswith("{"):
+        try:
+            return str(json.loads(v).get("value", "")).strip()
+        except ValueError:
+            return ""
+    return v.strip('"')

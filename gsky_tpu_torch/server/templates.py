@@ -1,16 +1,21 @@
-"""OGC XML documents of the WMS front end.
+"""OGC XML documents of the OWS front end.
 
-Counterpart of `gsky_tpu/server/templates.py`, WMS half: the
-ServiceException report and the WMS 1.3.0 GetCapabilities document,
-built with the reference's structure and text, so both packages answer
-one config with the same document.
+Counterpart of `gsky_tpu/server/templates.py`: the ServiceException
+report, the WMS 1.3.0 GetCapabilities document, the WCS 1.0.0
+GetCapabilities and DescribeCoverage documents, and the WPS 1.0.0
+GetCapabilities, DescribeProcess and Execute response documents, built
+with the reference's structure and text, so both packages answer one
+config with the same document (the Execute response's creation time
+aside).
 """
 
 from __future__ import annotations
 
+import datetime as dt
+from typing import List
 from xml.sax.saxutils import escape
 
-from .config import Config, Layer
+from .config import Config, Layer, ProcessConfig
 
 
 def service_exception(message: str, code: str = "") -> str:
@@ -127,3 +132,168 @@ def wms_capabilities(cfg: Config, ns_path: str, host: str) -> str:
 def _dcp(url: str) -> str:
     return ('      <DCPType><HTTP><Get><OnlineResource xlink:type="simple" '
             f'xlink:href="{escape(url)}"/></Get></HTTP></DCPType>\n')
+
+
+def wcs_capabilities(cfg: Config, ns_path: str, host: str) -> str:
+    url = f"{host}{ns_path}"
+    coverages = "".join(
+        f"    <CoverageOfferingBrief>\n"
+        f"      <name>{escape(l.name)}</name>\n"
+        f"      <label>{escape(l.title or l.name)}</label>\n"
+        f"      <lonLatEnvelope srsName=\"urn:ogc:def:crs:OGC:1.3:CRS84\">\n"
+        f"        <gml:pos>{(l.default_geo_bbox or [-180, -90, 180, 90])[0]}"
+        f" {(l.default_geo_bbox or [-180, -90, 180, 90])[1]}</gml:pos>\n"
+        f"        <gml:pos>{(l.default_geo_bbox or [-180, -90, 180, 90])[2]}"
+        f" {(l.default_geo_bbox or [-180, -90, 180, 90])[3]}</gml:pos>\n"
+        f"      </lonLatEnvelope>\n"
+        f"    </CoverageOfferingBrief>\n"
+        for l in cfg.layers if not l.service_disabled("wcs"))
+    return (
+        '<?xml version="1.0" encoding="UTF-8"?>\n'
+        '<WCS_Capabilities version="1.0.0" '
+        'xmlns="http://www.opengis.net/wcs" '
+        'xmlns:gml="http://www.opengis.net/gml" '
+        'xmlns:xlink="http://www.w3.org/1999/xlink">\n'
+        "  <Service>\n"
+        "    <name>GSKY-TPU WCS</name>\n"
+        "    <label>TPU-native Web Coverage Service</label>\n"
+        "  </Service>\n"
+        "  <Capability>\n"
+        "    <Request>\n"
+        "      <GetCapabilities>\n"
+        f'        <DCPType><HTTP><Get><OnlineResource xlink:href='
+        f'"{escape(url)}"/></Get></HTTP></DCPType>\n'
+        "      </GetCapabilities>\n"
+        "      <DescribeCoverage>\n"
+        f'        <DCPType><HTTP><Get><OnlineResource xlink:href='
+        f'"{escape(url)}"/></Get></HTTP></DCPType>\n'
+        "      </DescribeCoverage>\n"
+        "      <GetCoverage>\n"
+        f'        <DCPType><HTTP><Get><OnlineResource xlink:href='
+        f'"{escape(url)}"/></Get></HTTP></DCPType>\n'
+        "      </GetCoverage>\n"
+        "    </Request>\n"
+        "  </Capability>\n"
+        "  <ContentMetadata>\n"
+        f"{coverages}"
+        "  </ContentMetadata>\n"
+        "</WCS_Capabilities>\n"
+    )
+
+
+def wcs_describe_coverage(layers: List[Layer], host: str) -> str:
+    body = ""
+    for l in layers:
+        bbox = l.default_geo_bbox or [-180, -90, 180, 90]
+        dates = "".join(f"        <gml:timePosition>{escape(d)}"
+                        f"</gml:timePosition>\n" for d in l.dates[:2000])
+        body += (
+            f"  <CoverageOffering>\n"
+            f"    <name>{escape(l.name)}</name>\n"
+            f"    <label>{escape(l.title or l.name)}</label>\n"
+            f"    <domainSet>\n"
+            f"      <spatialDomain>\n"
+            f'        <gml:Envelope srsName="EPSG:4326">\n'
+            f"          <gml:pos>{bbox[0]} {bbox[1]}</gml:pos>\n"
+            f"          <gml:pos>{bbox[2]} {bbox[3]}</gml:pos>\n"
+            f"        </gml:Envelope>\n"
+            f"      </spatialDomain>\n"
+            f"      <temporalDomain>\n{dates}      </temporalDomain>\n"
+            f"    </domainSet>\n"
+            f"    <supportedCRSs>\n"
+            f"      <requestResponseCRSs>EPSG:4326</requestResponseCRSs>\n"
+            f"      <requestResponseCRSs>EPSG:3857</requestResponseCRSs>\n"
+            f"    </supportedCRSs>\n"
+            f"    <supportedFormats>\n"
+            f"      <formats>GeoTIFF</formats>\n"
+            f"      <formats>NetCDF</formats>\n"
+            f"    </supportedFormats>\n"
+            f"  </CoverageOffering>\n")
+    return (
+        '<?xml version="1.0" encoding="UTF-8"?>\n'
+        '<CoverageDescription version="1.0.0" '
+        'xmlns="http://www.opengis.net/wcs" '
+        'xmlns:gml="http://www.opengis.net/gml">\n'
+        f"{body}"
+        "</CoverageDescription>\n"
+    )
+
+
+def wps_capabilities(cfg: Config, ns_path: str, host: str) -> str:
+    procs = "".join(
+        f"    <wps:Process wps:processVersion=\"1.0.0\">\n"
+        f"      <ows:Identifier>{escape(p.identifier)}</ows:Identifier>\n"
+        f"      <ows:Title>{escape(p.title or p.identifier)}</ows:Title>\n"
+        f"      <ows:Abstract>{escape(p.abstract)}</ows:Abstract>\n"
+        f"    </wps:Process>\n" for p in cfg.processes)
+    return (
+        '<?xml version="1.0" encoding="UTF-8"?>\n'
+        '<wps:Capabilities service="WPS" version="1.0.0" '
+        'xmlns:wps="http://www.opengis.net/wps/1.0.0" '
+        'xmlns:ows="http://www.opengis.net/ows/1.1">\n'
+        "  <wps:ProcessOfferings>\n"
+        f"{procs}"
+        "  </wps:ProcessOfferings>\n"
+        "</wps:Capabilities>\n"
+    )
+
+
+def wps_describe_process(p: ProcessConfig) -> str:
+    lits = "".join(
+        f"      <Input minOccurs=\"{d.get('min_occurs', 0)}\">\n"
+        f"        <ows:Identifier>{escape(d.get('identifier', ''))}"
+        f"</ows:Identifier>\n"
+        f"        <ows:Title>{escape(d.get('title', ''))}</ows:Title>\n"
+        f"        <LiteralData/>\n"
+        f"      </Input>\n" for d in p.literal_data)
+    comps = "".join(
+        f"      <Input minOccurs=\"{d.get('min_occurs', 0)}\">\n"
+        f"        <ows:Identifier>{escape(d.get('identifier', ''))}"
+        f"</ows:Identifier>\n"
+        f"        <ows:Title>{escape(d.get('title', ''))}</ows:Title>\n"
+        f"        <ComplexData/>\n"
+        f"      </Input>\n" for d in p.complex_data)
+    return (
+        '<?xml version="1.0" encoding="UTF-8"?>\n'
+        '<wps:ProcessDescriptions service="WPS" version="1.0.0" '
+        'xmlns:wps="http://www.opengis.net/wps/1.0.0" '
+        'xmlns:ows="http://www.opengis.net/ows/1.1">\n'
+        '  <ProcessDescription wps:processVersion="1.0.0">\n'
+        f"    <ows:Identifier>{escape(p.identifier)}</ows:Identifier>\n"
+        f"    <ows:Title>{escape(p.title or p.identifier)}</ows:Title>\n"
+        f"    <ows:Abstract>{escape(p.abstract)}</ows:Abstract>\n"
+        "    <DataInputs>\n"
+        f"{lits}{comps}"
+        "    </DataInputs>\n"
+        "  </ProcessDescription>\n"
+        "</wps:ProcessDescriptions>\n"
+    )
+
+
+def wps_execute_response(identifier: str, csv_blocks: List[str],
+                         status: str = "ProcessSucceeded") -> str:
+    now = dt.datetime.now(dt.timezone.utc).strftime("%Y-%m-%dT%H:%M:%SZ")
+    outputs = "".join(
+        "    <wps:Output>\n"
+        "      <ows:Identifier>output</ows:Identifier>\n"
+        "      <wps:Data>\n"
+        f'        <wps:ComplexData mimeType="text/csv">'
+        f"{escape(block)}</wps:ComplexData>\n"
+        "      </wps:Data>\n"
+        "    </wps:Output>\n" for block in csv_blocks)
+    return (
+        '<?xml version="1.0" encoding="UTF-8"?>\n'
+        '<wps:ExecuteResponse service="WPS" version="1.0.0" '
+        'xmlns:wps="http://www.opengis.net/wps/1.0.0" '
+        'xmlns:ows="http://www.opengis.net/ows/1.1">\n'
+        "  <wps:Process>\n"
+        f"    <ows:Identifier>{escape(identifier)}</ows:Identifier>\n"
+        "  </wps:Process>\n"
+        f'  <wps:Status creationTime="{now}">\n'
+        f"    <wps:{status}/>\n"
+        "  </wps:Status>\n"
+        "  <wps:ProcessOutputs>\n"
+        f"{outputs}"
+        "  </wps:ProcessOutputs>\n"
+        "</wps:ExecuteResponse>\n"
+    )

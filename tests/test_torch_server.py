@@ -909,9 +909,6 @@ UNPORTED = {
                        "&layers=plain", "A.15"),
     "getlegendgraphic": ("/ows?service=WMS&request=GetLegendGraphic"
                          "&layer=plain", "A.15"),
-    "wcs": ("/ows?service=WCS&request=GetCoverage&coverage=plain", "A.9"),
-    "wps": ("/ows?service=WPS&request=Execute", "A.15"),
-    "dap4": ("/ows?dap4.ce=/phot_veg", "A.9"),
 }
 
 
