@@ -135,7 +135,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    1e-5);
 16. WPS Execute (an XML POST) over HTTP on phase 7's resident stack
    (GSKY_WAVES=0, as phase 7): drills/s, p50, B3 launches; the CSV
-   equals `drill_csv` of a direct `DrillPipeline.process_split`.
+   equals `drill_csv` of a direct `DrillPipeline.process_split`;
+17. the serving gateway and the rest of the WMS surface over HTTP, the
+   card server with a private `ServingGateway` (phases 12-16 pass
+   ``gateway=None``), GSKY_WAVES=0.  17a over phase 3's archive: 32
+   requests for one uncached native tile from 16 threads make one B1
+   launch (1 leader, 31 joined or hit; bodies equal the same server's
+   without its gateway), a repeat is a hit with no launch, If-None-Match
+   a 304; 16 tiles timed as misses (one B1 each) and then as hits (no
+   launch); a reload that changes the layer invalidates and the tile
+   renders again; JPEG: 16 native tiles through B1 and 8 of a
+   three-band style through the planes rung (one B2 each), headers
+   parsed (SOF0 size and sampling, the quality-85 DQT), two bodies each
+   equal to a CPU server's, and `encode_jpeg` of a 256 x 256 RGB tile
+   timed on the host; GetFeatureInfo: 16 clicks through B1, values equal
+   the CPU server's (nearest exact, bilinear <= 2 ulp); the legend file,
+   a palette legend and DescribeLayer equal the CPU server's.  17b over
+   phase 10's archive: 8 clicks on the masked layer, one B4 launch each,
+   within 2 ulp of the CPU server's.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -150,7 +167,9 @@ written once; for B4 the bytes its early-exit scan needs on those
 inputs (the full-read bound is logged beside it), and again at
 (128, 2048, 2048) where every pixel scans all layers; B1 again at phase
 14a's first NDVI tile (n_ns 2) and B2 at phase 14b's first planes-rung
-tile (n_ns 4, six scenes).  The last line of
+tile (n_ns 4, six scenes); B1 and B2 at phase 15b's 1024 x 1024 WCS
+tile, bilinear and cubic (paged at 0.25x: B1; native, declined: B2),
+inside the request at the launch's own inputs.  The last line of
 standard output is the JSON result the harness reads; the line before
 it gives the card's name and power limit, and a "kernels" JSON line
 precedes them.
@@ -1981,19 +2000,25 @@ class OwsPair:
     directory and MAS store; the card's behind a standard-library HTTP
     server on an ephemeral 127.0.0.1 port."""
 
-    def __init__(self, conf_dir, layers, store):
+    def __init__(self, conf_dir, layers, store, gateway=None):
+        """``gateway``: the card server's `ServingGateway`; None (phases
+        12-16 measure renders) serves every request raw.  The CPU
+        server has none."""
         from gsky_tpu_torch.index.client import MASClient
         from gsky_tpu_torch.server.config import ConfigWatcher
         from gsky_tpu_torch.server.ows import OWSServer
         os.makedirs(conf_dir, exist_ok=True)
-        with open(os.path.join(conf_dir, "config.json"), "w") as fp:
+        self.conf_path = os.path.join(conf_dir, "config.json")
+        with open(self.conf_path, "w") as fp:
             json.dump({"service_config": {"mas_address": "in-process"},
                        "layers": layers}, fp)
         client = MASClient(store)
-        watcher = ConfigWatcher(conf_dir, lambda a: client,
-                                install_signal=False)
-        self.card = OWSServer(watcher, lambda a: client, device="cuda")
-        self.cpu = OWSServer(watcher, lambda a: client, device="cpu")
+        self.watcher = watcher = ConfigWatcher(conf_dir, lambda a: client,
+                                               install_signal=False)
+        self.card = OWSServer(watcher, lambda a: client, device="cuda",
+                              gateway=gateway)
+        self.cpu = OWSServer(watcher, lambda a: client, device="cpu",
+                             gateway=None)
         self.httpd = self.card.serve("127.0.0.1", 0)
         self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
 
@@ -2001,10 +2026,12 @@ class OwsPair:
         self.httpd.shutdown()
         self.httpd.server_close()
 
-    def cpu_body(self, url):
+    def cpu_body(self, url, host=""):
+        """The CPU server's body for ``url`` (``host``: the Host header,
+        which a document's URLs name)."""
         from urllib.parse import parse_qs, urlsplit
         u = urlsplit(url)
-        r = self.cpu.handle(u.path, parse_qs(u.query), "")
+        r = self.cpu.handle(u.path, parse_qs(u.query), host)
         if r.status != 200:
             raise AssertionError(f"CPU server: {r.status} {r.body[:300]}")
         return r.body
@@ -3233,14 +3260,19 @@ class CheckWide:
     """While installed, the first B1 and the first B2 launch of each
     method whose output is ``hw`` is held against its plain version on
     the same inputs (on the card): `check_pair`'s bounds.  ``errs``
-    maps (kernel, method) to the max |canvas difference|.  The plain
-    versions are the ones installed before it (`PlainCalls` counts
-    the main path's calls of them, not these)."""
+    maps (kernel, method) to the max |canvas difference|.  For the
+    methods in ``timed`` the launch is also timed there (`time_wide`):
+    ``times`` maps (kernel, method) to (device ms, plain ms, bound ms,
+    bound bytes).  The plain versions are the ones installed before it
+    (`PlainCalls` counts the main path's calls of them, not these), and
+    the timing launches leave the launch counts as they were."""
 
-    def __init__(self, hw):
+    def __init__(self, hw, timed=()):
         from gsky_tpu_torch.ops import paged, warp_render
         self.hw = tuple(hw)
+        self.timed = tuple(timed)
         self.errs = {}
+        self.times = {}
         self.mods = (paged, warp_render)
         self.b1, self.b2 = paged.paged_render_scored, \
             warp_render.warp_render_scored
@@ -3257,6 +3289,15 @@ class CheckWide:
                              sb_of)
             self.errs[("B1", method)] = check_pair(
                 method, ck, bk, cp, bp, f"15b B1 {method} {self.hw}")
+            if method in self.timed and sx.numel() == sx.shape[-1] * \
+                    sx.shape[-2]:
+                from gsky_tpu_torch.ops import paged
+                args = (pool, tables, params, sx, sy, method, n_ns, sb_of)
+                nbytes = bound_bytes(sx, sy, params, method, n_ns,
+                                     tables.nbytes)
+                self.times[("B1", method)] = time_wide(
+                    paged.paged_render_kernel, "paged_render",
+                    lambda: self.b1(*args), lambda: self.p1(*args), nbytes)
         return ck, bk
 
     def _b2(self, scenes, sx, sy, params, method, n_ns):
@@ -3266,12 +3307,30 @@ class CheckWide:
             cp, bp = self.p2(scenes, sx, sy, params, method, n_ns)
             self.errs[("B2", method)] = check_pair(
                 method, ck, bk, cp, bp, f"15b B2 {method} {self.hw}")
+            if method in self.timed:
+                from gsky_tpu_torch.ops import warp_render
+                args = (scenes, sx, sy, params, method, n_ns)
+                nbytes = bound_bytes(sx, sy, params, method, n_ns)
+                self.times[("B2", method)] = time_wide(
+                    warp_render.warp_render_kernel, "warp_render",
+                    lambda: self.b2(*args), lambda: self.p2(*args), nbytes)
         return ck, bk
 
     def remove(self):
         paged, warp_render = self.mods
         paged.paged_render_scored = self.b1
         warp_render.warp_render_scored = self.b2
+
+
+def time_wide(counter, name, kernel, plain, nbytes):
+    """(device ms, plain ms, bound ms, bound bytes) of one launch of
+    ``kernel`` at a main path's inputs, warm L2, beside its plain
+    version; ``counter``'s launches are left as they were."""
+    saved = counter.launches
+    ms = kernel_device_ms(kernel, name)
+    pms = cuda_time_ms(plain, reps=3)
+    counter.launches = saved
+    return ms, pms, nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
 def lonlat_of(box):
@@ -3390,7 +3449,8 @@ def phase_wcs(data_root, store, card):
             del ref
 
             # -- 15b: kernels at 1024 x 1024 against their plain versions
-            chk = CheckWide((WCS_TILE, WCS_TILE))
+            chk = CheckWide((WCS_TILE, WCS_TILE),
+                            timed=("bilinear", "cubic"))
             try:
                 for method in METHODS:
                     for zoom in (1.0, 0.25):
@@ -3416,6 +3476,13 @@ def phase_wcs(data_root, store, card):
                     f"{k} {m} {v:.3g}" for (k, m), v in
                     sorted(chk.errs.items())) + " (near bit-exact, "
                 "<= 2 ulp otherwise)")
+            for (k, m), (ms, pms, bd, nb) in sorted(chk.times.items()):
+                log(f"timing 15b {k} {m} at {WCS_TILE}^2: device {ms:.5f} "
+                    f"ms warm L2, plain {pms:.3f} ms, bound {bd:.5f} ms "
+                    f"({nb} bytes: the taps' source pixels and the other "
+                    f"operands) ({card})")
+            if len(chk.times) != 4:
+                raise AssertionError(f"15b: timed {sorted(chk.times)}")
             errs = chk.errs
 
             # -- 15c: card vs CPU, 1024 x 1024 in 256 x 256 tiles ---------
@@ -3607,7 +3674,7 @@ def phase_wps(root, store, card):
     client = MASClient(store)
     srv = OWSServer(ConfigWatcher(conf, lambda a: client,
                                   install_signal=False),
-                    lambda a: client, device="cuda")
+                    lambda a: client, device="cuda", gateway=None)
     httpd = srv.serve("127.0.0.1", 0)
     g = geom.from_wkt(DRILL_POLY)
     gj = json.dumps({"type": "Polygon", "coordinates": [
@@ -3662,6 +3729,378 @@ def phase_wps(root, store, card):
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+# -- phase 17: the serving gateway and the rest of the WMS surface ---------
+
+GW_THREADS = 16              # 17a: client threads asking for one tile
+GW_REQUESTS = 32             # 17a: their requests
+GW_TILES = 16                # 17a: tiles timed as misses, then as hits
+JPEG_NATIVE = 16             # 17a: JPEG tiles through B1
+JPEG_PLANES = 8              # 17a: JPEG tiles through the planes rung (B2)
+GFI_FUSED = 16               # 17a: GetFeatureInfo clicks through B1
+GFI_MASKED = 8               # 17b: clicks on the masked layer (B4)
+# the first natural-order row of the quality-85 tables (libjpeg's
+# scaling of Annex K's), luminance and chrominance
+JPEG_Q85_ROW0 = ((5, 3, 3, 5, 7, 12, 15, 18), (5, 5, 7, 14, 30, 30, 30, 30))
+
+
+def http_status(url, headers=None):
+    """(status, headers, body, seconds) of one GET over a socket, a 304
+    or an error status included."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(
+                urllib.request.Request(url, headers=headers or {}),
+                timeout=120) as r:
+            body = r.read()
+            return r.status, dict(r.headers), body, \
+                time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read(), time.perf_counter() - t0
+
+
+def jpeg_header(body):
+    """(height, width, ((id, h, v, tq), ...), [first natural-order row
+    of each DQT table]) of a baseline JPEG."""
+    import struct
+    if body[:2] != b"\xff\xd8" or body[-2:] != b"\xff\xd9":
+        raise AssertionError("not a JPEG")
+    i, sof, rows = 2, None, []
+    while True:
+        marker = body[i + 1]
+        n = struct.unpack(">H", body[i + 2:i + 4])[0]
+        p = body[i + 4:i + 2 + n]
+        if marker == 0xC0:
+            _, h, w, nc = struct.unpack(">BHHB", p[:6])
+            sof = (h, w, tuple((p[6 + 3 * c], p[7 + 3 * c] >> 4,
+                                p[7 + 3 * c] & 15, p[8 + 3 * c])
+                               for c in range(nc)))
+        elif marker == 0xDB:
+            # zig-zag positions of the natural order's first row
+            rows.append(tuple(p[1 + z] for z in (0, 1, 5, 6, 14, 15, 27,
+                                                 28)))
+        elif marker == 0xDA:
+            return sof + (rows,)
+        i += 2 + n
+
+
+def check_jpeg(body, components, what):
+    h, w, comps, rows = jpeg_header(body)
+    want_comps = ((1, 1, 1, 0),) if components == 1 else \
+        ((1, 2, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1))
+    if (h, w, comps) != (256, 256, want_comps) or \
+            tuple(rows) != JPEG_Q85_ROW0[:min(components, 2)]:
+        raise AssertionError(f"{what}: JPEG header {h}x{w} {comps} {rows}")
+
+
+def info_url(base, layer, box, i, j, style="", time_range=None):
+    q = (f"service=WMS&request=GetFeatureInfo&version=1.3.0&layers={layer}"
+         f"&query_layers={layer}&styles={style}&crs=EPSG:3857"
+         f"&bbox={','.join(repr(float(v)) for v in box)}"
+         f"&width=256&height=256&i={i}&j={j}&info_format=application/json")
+    if time_range:
+        q += f"&time={iso(time_range[0])},{iso(time_range[1])}"
+    return f"{base}/ows?{q}"
+
+
+def same_info(method, card_body, cpu_body, what):
+    """GetFeatureInfo card vs CPU: the same keys, "n/a" at the same
+    pixels, dates equal, values equal for nearest and within 2 ulp of
+    float32 otherwise.  Returns the count of valued namespaces."""
+    a = json.loads(card_body)["features"][0]["properties"]
+    b = json.loads(cpu_body)["features"][0]["properties"]
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: {a} against {b}")
+    n = 0
+    for k, v in a.items():
+        w = b[k]
+        if k == "available_dates" or v == "n/a" or w == "n/a" \
+                or method == "near":
+            ok = v == w
+        else:
+            iv, iw = (int(np.array([x], np.float32).view(np.int32)[0])
+                      for x in (v, w))
+            ok = abs(iv - iw) <= 2
+        if not ok:
+            raise AssertionError(f"{what}: {k} {v} against {w}")
+        n += k != "available_dates" and v != "n/a"
+    return n
+
+
+def counted_urls(urls, want, what, kernels, headers=None):
+    """GET ``urls`` serially (with ``headers``) with every kernel count
+    set to 0 just before and no plain version called; the counts after
+    must equal ``want``.  Returns the answers."""
+    reset_counts(kernels)
+    plain = PlainCalls()
+    try:
+        res = [http_status(u, headers) for u in urls]
+    finally:
+        plain.remove()
+    got = read_counts(kernels)
+    full = {k: want.get(k, 0) for k in kernels}
+    if got != full or plain.calls:
+        raise AssertionError(f"{what}: launches {got}, want {full}, plain "
+                             f"calls {plain.calls}")
+    bad = [r[:2] for r in res if r[0] not in (200, 304)]
+    if bad:
+        raise AssertionError(f"{what}: {bad[0]}")
+    return res
+
+
+def ms_stats(secs):
+    return (f"p50 {np.median(secs) * 1e3:.3f} ms, p90 "
+            f"{np.percentile(secs, 90) * 1e3:.3f} ms")
+
+
+def phase_ows_gateway(data_root, store, card):
+    """Phase 17a over phase 3's archive, the port's OWS server on the card
+    over HTTP with a private `ServingGateway`, under the per-call
+    settings of phases 3-12 (GSKY_WAVES=0): single-flight, hits, 304,
+    misses against hits, a reload; JPEG through B1 and the planes rung
+    (B2); GetFeatureInfo through B1; legends and DescribeLayer; each
+    against a CPU server.  Returns the launches {"B1", "B2"}."""
+    import threading
+    from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
+    from gsky_tpu_torch.io.png import encode_jpeg, encode_png
+    from gsky_tpu_torch.serving import ServingGateway
+    if os.environ.get("GSKY_WAVES") != "0":
+        raise AssertionError("phase 17 runs with GSKY_WAVES=0")
+    conf = os.path.join(ROOT, "build", "smoke_gw_conf")
+    legend = os.path.join(ROOT, "build", "smoke_legend.png")
+    with open(legend, "wb") as fp:
+        fp.write(encode_png([np.repeat(np.arange(0, 256, 4, dtype=np.uint8)
+                                       [None], 12, axis=0)]))
+    styles = [{"name": m, "title": m, "rgb_products": [NS], "resample": m}
+              for m in METHODS]
+    layers = [
+        {"name": "landsat", "data_source": data_root, "rgb_products": [NS],
+         "styles": styles, "feature_info_max_dates": 4},
+        {"name": "grey3", "data_source": data_root,
+         "rgb_products": [NS, NS, NS], "resample": "near"},
+        {"name": "palette", "data_source": data_root, "rgb_products": [NS],
+         "palette": {"interpolate": True, "colours": [
+             {"R": 0, "G": 0, "B": 128, "A": 255},
+             {"R": 40, "G": 200, "B": 40, "A": 200},
+             {"R": 255, "G": 255, "B": 0, "A": 255}]}},
+        {"name": "legend_file", "data_source": data_root,
+         "rgb_products": [NS], "legend_path": legend},
+    ]
+    kernels = _kernel_counts()
+    total = {"B1": 0, "B2": 0}
+    boxes = tile_boxes()
+    gw = ServingGateway()
+    pair = OwsPair(conf, layers, store, gateway=gw)
+    srv = pair.card
+    try:
+        # -- 17a gateway: one uncached tile from 16 threads ----------------
+        url = getmap_url(pair.base, "landsat", boxes[5], "bilinear")
+        fl, jn, hits = gw.flight.leaders, gw.flight.joined, gw.cache.hits
+        barrier = threading.Barrier(GW_THREADS)
+
+        def client(_):
+            barrier.wait()
+            return [http_status(url)
+                    for _ in range(GW_REQUESTS // GW_THREADS)]
+        reset_counts(kernels)
+        plain = PlainCalls()
+        try:
+            with ThreadPoolExecutor(GW_THREADS) as ex:
+                res = [r for rs in ex.map(client, range(GW_THREADS))
+                       for r in rs]
+        finally:
+            plain.remove()
+        got = read_counts(kernels)
+        leaders, joined = gw.flight.leaders - fl, gw.flight.joined - jn
+        hit = gw.cache.hits - hits
+        tags = Counter(h.get("X-Gsky-Cache") for _, h, _, _ in res)
+        bodies = {b for _, _, b, _ in res}
+        if any(r[0] != 200 for r in res) or len(bodies) != 1 or \
+                got != {"B1": 1, "B2": 0, "B3": 0, "B4": 0} or \
+                plain.calls or leaders != 1 or \
+                joined + hit != GW_REQUESTS - 1 or tags["miss"] != 1 or \
+                tags["join"] + tags["hit"] != GW_REQUESTS - 1:
+            raise AssertionError(
+                f"17a single-flight: launches {got}, leaders {leaders}, "
+                f"joined {joined}, hits {hit}, tags {dict(tags)}, "
+                f"{len(bodies)} bodies")
+        total["B1"] += 1
+        body = bodies.pop()
+        # the same server with no gateway renders the same bytes
+        srv.gateway = None
+        try:
+            (raw,) = counted_urls([url], {"B1": 1}, "17a raw", kernels)
+        finally:
+            srv.gateway = gw
+        total["B1"] += 1
+        if raw[2] != body or "X-Gsky-Cache" in raw[1]:
+            raise AssertionError("17a: the raw server's body differs")
+        (again,) = counted_urls([url], {}, "17a repeat", kernels)
+        etag = again[1]["ETag"]
+        (nm,) = counted_urls([url], {}, "17a 304", kernels,
+                             {"If-None-Match": etag})
+        if again[1]["X-Gsky-Cache"] != "hit" or again[2] != body or \
+                nm[0] != 304 or nm[2] or nm[1].get("Content-Length") != "0" \
+                or nm[1].get("ETag") != etag:
+            raise AssertionError(f"17a: repeat {again[:2]}, "
+                                 f"If-None-Match {nm[:2]}")
+        log(f"phase 17a: {GW_REQUESTS} requests for one uncached tile from "
+            f"{GW_THREADS} threads: 1 B1 launch, leaders {leaders}, joined "
+            f"{joined}, hits {hit} ({dict(tags)}); bodies equal the raw "
+            f"server's; a repeat is a hit with 0 launches, If-None-Match a "
+            f"304 with no body")
+        urls = [getmap_url(pair.base, "landsat", b, "bilinear")
+                for b in boxes[8:8 + GW_TILES]]
+        miss = counted_urls(urls, {"B1": GW_TILES}, "17a misses", kernels)
+        total["B1"] += GW_TILES
+        hitr = counted_urls(urls, {}, "17a hits", kernels)
+        if any(h[1]["X-Gsky-Cache"] != "hit" or h[2] != m[2]
+               for h, m in zip(hitr, miss)) or \
+                any(m[1]["X-Gsky-Cache"] != "miss" for m in miss):
+            raise AssertionError("17a: misses then hits")
+        log(f"phase 17a over HTTP, {GW_TILES} native bilinear tiles: miss "
+            f"{ms_stats([m[3] for m in miss])}, hit "
+            f"{ms_stats([h[3] for h in hitr])} ({card})")
+        with open(pair.conf_path) as fp:
+            cfg = json.load(fp)
+        for st in cfg["layers"][0]["styles"]:
+            st["clip_value"] = 4000.0           # the tile's scaling
+        with open(pair.conf_path, "w") as fp:
+            json.dump(cfg, fp)
+        inv = gw.cache.invalidations
+        pair.watcher.reload()
+        (fresh,) = counted_urls([url], {"B1": 1}, "17a reload", kernels)
+        total["B1"] += 1
+        if gw.cache.invalidations <= inv or \
+                fresh[1]["X-Gsky-Cache"] != "miss" or fresh[2] == body:
+            raise AssertionError(
+                f"17a: the reload did not re-render: invalidations "
+                f"{inv} -> {gw.cache.invalidations}, "
+                f"{fresh[1].get('X-Gsky-Cache')}, body "
+                f"{'equal' if fresh[2] == body else 'differs'}")
+        log(f"phase 17a: a reload that changed the layer invalidated "
+            f"{gw.cache.invalidations - inv} entries; the tile rendered "
+            f"again (1 B1 launch); gateway {gw.stats()}")
+
+        # -- 17a JPEG -----------------------------------------------------
+        jurls = [getmap_url(pair.base, "landsat", b, "near").replace(
+            "image/png", "image/jpeg") for b in boxes[:JPEG_NATIVE]]
+        purls = [getmap_url(pair.base, "grey3", b).replace(
+            "image/png", "image/jpg") for b in boxes[16:16 + JPEG_PLANES]]
+        for name, us, want, comps in (
+                ("native (B1)", jurls, {"B1": JPEG_NATIVE}, 1),
+                ("planes rung (B2)", purls, {"B2": JPEG_PLANES}, 3)):
+            enc0 = srv.spans["encode"]
+            t0 = time.perf_counter()
+            res = counted_urls(us, want, f"17a JPEG {name}", kernels)
+            wall = time.perf_counter() - t0
+            for k, v in want.items():
+                total[k] += v
+            for r in res:
+                if r[1].get("Content-Type") != "image/jpeg":
+                    raise AssertionError(f"17a JPEG: {r[1]}")
+                check_jpeg(r[2], comps, f"17a JPEG {name}")
+            for u, r in zip(us[:HTTP_CPU_TILES], res):
+                if pair.cpu_body(u) != r[2]:
+                    raise AssertionError(f"17a JPEG {name}: the card's "
+                                         f"bytes differ from the CPU's")
+            log(f"phase 17a JPEG {name}: {len(us)} tiles, "
+                f"{len(us) / wall:.2f} tiles/s, "
+                f"{ms_stats([r[3] for r in res])}, encode "
+                f"{(srv.spans['encode'] - enc0) / len(us) * 1e3:.4f} ms a "
+                f"tile; headers parsed (256 x 256, sampling, DQT); "
+                f"{HTTP_CPU_TILES} bodies equal the CPU server's ({card})")
+        rng = np.random.default_rng(17)
+        yy, xx = np.mgrid[0:256, 0:256]
+        rgb = [np.clip(128 + 90 * np.sin(xx / (7.0 + c)) * np.cos(yy / 11.0)
+                       + rng.normal(0, 12, (256, 256)), 0, 255)
+               .astype(np.uint8) for c in range(3)]
+        enc = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            encode_jpeg(rgb)
+            enc.append(time.perf_counter() - t0)
+        log(f"phase 17a: encode_jpeg of a 256 x 256 RGB tile on the host: "
+            f"median {np.median(enc) * 1e3:.3f} ms of 20")
+
+        # -- 17a GetFeatureInfo --------------------------------------------
+        clicks = [("near" if k < GFI_FUSED // 2 else "bilinear", boxes[k],
+                   (37 * k + 5) % 256, (91 * k + 13) % 256)
+                  for k in range(GFI_FUSED)]
+        iurls = [info_url(pair.base, "landsat", b, i, j, m)
+                 for m, b, i, j in clicks]
+        res = counted_urls(iurls, {"B1": GFI_FUSED}, "17a GetFeatureInfo",
+                           kernels)
+        total["B1"] += GFI_FUSED
+        valued = sum(same_info(m, r[2], pair.cpu_body(u), "17a info")
+                     for (m, _, _, _), u, r in zip(clicks, iurls, res))
+        if valued < GFI_FUSED // 2:
+            raise AssertionError(f"17a GetFeatureInfo: {valued} values")
+        log(f"phase 17a GetFeatureInfo: {GFI_FUSED} clicks, "
+            f"{ms_stats([r[3] for r in res])}, {GFI_FUSED} B1 launches; "
+            f"{valued} values equal the CPU server's (near exact, "
+            f"bilinear <= 2 ulp) ({card})")
+
+        # -- 17a legends and DescribeLayer ----------------------------------
+        docs = [f"{pair.base}/ows?service=WMS&request=GetLegendGraphic"
+                f"&layer={n}&format=image/png" for n in ("legend_file",
+                                                         "palette")]
+        docs.append(f"{pair.base}/ows?service=WMS&request=DescribeLayer"
+                    f"&version=1.1.1&layers=landsat,grey3")
+        res = counted_urls(docs, {}, "17a documents", kernels)
+        host = pair.base.split("://", 1)[1]
+        for u, r in zip(docs, res):
+            if r[2] != pair.cpu_body(u, host):
+                raise AssertionError(f"17a: {u} differs from the CPU's")
+        with open(legend, "rb") as fp:
+            if res[0][2] != fp.read():
+                raise AssertionError("17a: the legend file was not sent")
+        log("phase 17a: the legend file, the palette legend and "
+            "DescribeLayer equal the CPU server's")
+    finally:
+        pair.close()
+        shutil.rmtree(conf, ignore_errors=True)
+        os.remove(legend)
+    return total
+
+
+def phase_ows_gateway_masked(root, store, card):
+    """Phase 17b over phase 10's archive: GetFeatureInfo on the masked
+    layer (pixel_qa bit tests), one B4 launch a click, against a CPU
+    server.  Returns the B4 launches."""
+    from gsky_tpu_torch.serving import ServingGateway
+    mask = {"id": "pixel_qa", "bit_tests": CLOUD_SHADOW}
+    layers = [{"name": "masked_b4", "data_source": root,
+               "rgb_products": ["LC08_B4"], "resample": "bilinear",
+               "mask": mask, "feature_info_max_dates": MOSAIC_DATES}]
+    dates = mosaic_dates()
+    t_range = (dates[0][1] - 86400.0, dates[-1][1] + 86400.0)
+    boxes = mosaic_boxes()[:GFI_MASKED]
+    pair = OwsPair(os.path.join(root, "conf_gw"), layers, store,
+                   gateway=ServingGateway())
+    try:
+        urls = [info_url(pair.base, "masked_b4", b, (29 * k + 3) % 256,
+                         (53 * k + 7) % 256, time_range=t_range)
+                for k, b in enumerate(boxes)]
+        res = counted_urls(urls, {"B4": GFI_MASKED},
+                           "17b masked GetFeatureInfo", _kernel_counts())
+        valued = sum(same_info("bilinear", r[2], pair.cpu_body(u),
+                               "17b info") for u, r in zip(urls, res))
+        dated = [json.loads(r[2])["features"][0]["properties"]
+                 ["available_dates"] for r in res]
+        if valued < GFI_MASKED // 2 or any(not d for d in dated):
+            raise AssertionError(f"17b: {valued} values, dates {dated}")
+        log(f"phase 17b GetFeatureInfo on the masked layer: {GFI_MASKED} "
+            f"clicks, {ms_stats([r[3] for r in res])}, {GFI_MASKED} B4 "
+            f"launches; {valued} values within 2 ulp of the CPU server's, "
+            f"dates equal ({card})")
+    finally:
+        pair.close()
+    return GFI_MASKED
 
 
 def main() -> int:
@@ -3918,6 +4357,12 @@ def main() -> int:
         wcs_launches, wcs_errs = phase_wcs(data_root, store, card)
         log(f"phase 15: launches {wcs_launches} "
             f"({time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 17a: the gateway, JPEG, GetFeatureInfo over HTTP -------
+        t0 = time.perf_counter()
+        gw_launches = phase_ows_gateway(data_root, store, card)
+        log(f"phase 17a: launches {gw_launches} "
+            f"({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -3969,6 +4414,11 @@ def main() -> int:
         del b1_expr_args
         phase_ows_expr(mosaic_root, mosaic, card)
         log(f"phase 14a, 14c expressions: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 17b: GetFeatureInfo on the masked layer (B4) -----------
+        t0 = time.perf_counter()
+        b4_gfi = phase_ows_gateway_masked(mosaic_root, mosaic, card)
+        log(f"phase 17b: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(mosaic_root, ignore_errors=True)
 
@@ -3999,7 +4449,9 @@ def main() -> int:
     # above.  Launches: every main path's run, phase 13's wave runs
     # included (B1 over a wave's lanes, B3's K-block form), and phase
     # 14's (B1: expression tiles per call and in waves; B2: the RGB
-    # planes rung and the modular route)
+    # planes rung and the modular route), and phase 17's (B1: gateway
+    # misses, JPEG tiles and clicks; B2: JPEG tiles of the planes rung;
+    # B4: clicks on the masked layer)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -4008,7 +4460,7 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/paged.py:173",
          "launches": b1_launches + b1_waves + b1_anim + b1_expr
-         + wcs_launches["B1"],
+         + wcs_launches["B1"] + gw_launches["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err,
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B1")),
@@ -4017,7 +4469,8 @@ def main() -> int:
         {"name": "warp_render (B2)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
-         "launches": b2_launches + b2_rgb + wcs_launches["B2"],
+         "launches": b2_launches + b2_rgb + wcs_launches["B2"]
+         + gw_launches["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err,
                             max(v for (k, _), v in wcs_errs.items()
@@ -4034,7 +4487,8 @@ def main() -> int:
         {"name": "first_valid (B4)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/first_valid.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
-         "launches": b4_launches + b4_wcs, "max_abs_err": b4_row[4],
+         "launches": b4_launches + b4_wcs + b4_gfi,
+         "max_abs_err": b4_row[4],
          "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
          "bound_by": "bytes", "library_ms": b4_row[3]},
     ]}

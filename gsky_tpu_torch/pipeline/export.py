@@ -41,6 +41,7 @@ export (``paged_engaged``, ``paged_declined``, ``paged_gated``).
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextvars
 import dataclasses
 import os
 import queue
@@ -389,7 +390,10 @@ class ExportPipeline:
                                     height=th)
                 for (tb, _ox, _oy, tw, th), _gs in batch]
         if pool is not None and len(batch) > 1:
-            futs = [pool.submit(self._render_tile, rq, gs)
+            # in the request's context: a tile's partial decode marks
+            # the request degraded
+            futs = [pool.submit(contextvars.copy_context().run,
+                                self._render_tile, rq, gs)
                     for rq, (_t, gs) in zip(reqs, batch)]
             results = [f.result() for f in futs]
             self.stats["plan_batches"] = \
@@ -494,12 +498,16 @@ class ExportPipeline:
         plan = self._plan()
         q_warp: queue.Queue = queue.Queue(self.queue_depth)
         q_encode: queue.Queue = queue.Queue(self.queue_depth)
+        # stage threads run in a copy of the request's context each (a
+        # Context cannot be entered by two threads at once)
         decode_t = threading.Thread(
-            target=self._decode_stage, args=(plan, q_warp),
+            target=contextvars.copy_context().run,
+            args=(self._decode_stage, plan, q_warp),
             name="gsky-export-plan", daemon=True)
         enc_busy = [[0.0] for _ in range(self.encode_workers)]
         encoders = [threading.Thread(
-            target=self._encode_stage, args=(q_encode, enc_busy[i]),
+            target=contextvars.copy_context().run,
+            args=(self._encode_stage, q_encode, enc_busy[i]),
             name=f"gsky-export-encode-{i}", daemon=True)
             for i in range(self.encode_workers)]
         decode_t.start()

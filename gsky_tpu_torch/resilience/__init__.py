@@ -1,3 +1,5 @@
-from .degrade import TooManyFailures, check_partial, max_failure_fraction
+from .degrade import TooManyFailures, check_partial, degraded_reasons, \
+    mark_degraded, max_failure_fraction, request_scope
 
-__all__ = ["TooManyFailures", "check_partial", "max_failure_fraction"]
+__all__ = ["TooManyFailures", "check_partial", "degraded_reasons",
+           "mark_degraded", "max_failure_fraction", "request_scope"]

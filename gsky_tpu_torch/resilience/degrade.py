@@ -1,17 +1,26 @@
 """Partial-failure policy: partial mosaics instead of hard failures.
 
-Counterpart of `gsky_tpu/resilience/degrade.py::check_partial`, trimmed:
-a stage that failed on ``failed`` of ``total`` inputs either records the
-degradation (at or below the max-failure fraction) or raises
-`TooManyFailures`.  The port has no request scope or response header
-yet, so `mark_degraded` only counts reasons.
+Counterpart of `gsky_tpu/resilience/degrade.py`.  The OWS handler opens
+a `request_scope`; a stage that absorbs a partial failure calls
+`mark_degraded` with a short reason, and the handler labels a 200 with
+the sorted reasons in an ``X-GSKY-Degraded`` header.  The scope is a
+`contextvars.ContextVar`: a worker thread sees its request only when
+the work was submitted with `contextvars.copy_context().run`.  Each
+reason is also counted process-wide in `degraded`.
+
+`check_partial` is the policy: a stage that failed on ``failed`` of
+``total`` inputs either records the degradation (at or below the
+max-failure fraction) or raises `TooManyFailures`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 import threading
 from collections import Counter
+from typing import List, Optional, Tuple
 
 DEFAULT_MAX_FAILURE_FRACTION = 0.5
 
@@ -37,15 +46,49 @@ def max_failure_fraction() -> float:
     return min(max(v, 0.0), 1.0)
 
 
+class RequestState:
+    """The degradation reasons of one request, in the order marked."""
+
+    __slots__ = ("reasons",)
+
+    def __init__(self) -> None:
+        self.reasons: List[str] = []
+
+
+_current: contextvars.ContextVar[Optional[RequestState]] = \
+    contextvars.ContextVar("gsky_request_state", default=None)
+
+
+@contextlib.contextmanager
+def request_scope():
+    """One request's `RequestState`, current until the block ends."""
+    state = RequestState()
+    token = _current.set(state)
+    try:
+        yield state
+    finally:
+        _current.reset(token)
+
+
 def mark_degraded(reason: str) -> None:
-    """Count one degradation of ``reason``."""
+    """Count one degradation of ``reason`` and record it on the current
+    request (outside a request scope, only the count)."""
     with _lock:
         degraded[reason] += 1
+    state = _current.get()
+    if state is not None and reason not in state.reasons:
+        state.reasons.append(reason)
+
+
+def degraded_reasons() -> Tuple[str, ...]:
+    """The current request's reasons (none outside a scope)."""
+    state = _current.get()
+    return tuple(state.reasons) if state is not None else ()
 
 
 def check_partial(failed: int, total: int, site: str) -> None:
     """No failures: no-op.  Failures at or below the max fraction: mark
-    the stage degraded and continue with what decoded.  Above it (or
+    the request degraded and continue with what decoded.  Above it (or
     total loss): raise `TooManyFailures`."""
     if failed <= 0 or total <= 0:
         return

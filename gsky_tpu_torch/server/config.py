@@ -603,17 +603,30 @@ class ConfigWatcher:
         self._lock = threading.Lock()
         self._reload_lock = threading.Lock()
         self._configs = load_config_tree(root, mas_factory)
+        # reload subscribers (the serving gateway's cache invalidation):
+        # called with the fresh namespace -> Config map after each swap
+        self._listeners: List = []
         if install_signal:
             try:
                 signal.signal(signal.SIGHUP, self._on_hup)
             except ValueError:
                 pass  # not the main thread
 
+    def add_listener(self, fn) -> None:
+        self._listeners.append(fn)
+
+    def remove_listener(self, fn) -> None:
+        try:
+            self._listeners.remove(fn)
+        except ValueError:
+            pass
+
     def _on_hup(self, *_):
         # never reload inline: the signal handler interrupts the main
         # thread at an arbitrary point, possibly while it holds a lock
-        # the reload needs.  A detached thread runs the reload against
-        # uninterrupted state instead.
+        # the reload or a listener (the response cache's) needs.  A
+        # detached thread runs the reload against uninterrupted state
+        # instead.
         threading.Thread(target=self._reload_logged,
                          name="gsky-config-reload", daemon=True).start()
 
@@ -631,6 +644,12 @@ class ConfigWatcher:
             configs = load_config_tree(self.root, self.mas_factory)
             with self._lock:
                 self._configs = configs
+            for fn in list(self._listeners):
+                try:
+                    fn(configs)
+                except Exception:  # a listener's failure is logged
+                    logging.getLogger("gsky.config").exception(
+                        "config reload listener failed")
 
     @property
     def configs(self) -> Dict[str, Config]:

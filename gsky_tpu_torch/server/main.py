@@ -7,8 +7,9 @@
 in-process MAS over a crawler output file (JSON lines or TSV), the
 port's only MAS (there is no HTTP MAS client yet).  The server renders
 on the CUDA card unless ``-device cpu`` is given, and raises without
-one.  Counterpart of `gsky_tpu/server/main.py`, without its metrics
-log, prewarm and drain.
+one, behind the process-wide serving gateway (response cache and
+single-flight), as the reference's.  Counterpart of
+`gsky_tpu/server/main.py`, without its metrics log, prewarm and drain.
 """
 
 from __future__ import annotations

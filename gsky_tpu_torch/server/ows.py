@@ -10,6 +10,11 @@ standard library's threaded HTTP server, one thread a connection.  A
 output over 256 MB) or a chunk iterator sent with ``Transfer-Encoding:
 chunked`` (the streamed DAP4 body).
 
+WMS GetCapabilities, DescribeLayer, GetLegendGraphic (the layer's legend
+file, else its palette drawn as a ramp), GetFeatureInfo (`_feature_info`:
+the request through the modular route, `pipeline.feature_info`, and the
+clicked pixel's values as JSON) and GetMap.
+
 GetMap runs the reference's ladder: size checks, the zoom limit (an
 overview layer, or the placeholder tile), then for a style of one to
 four bands the fused route and its PNG: by default the staged path
@@ -23,7 +28,10 @@ bands: the planes rung.  When the fused route declines (a mask band,
 granules in several source CRSs, an uncacheable scene, a fusion layer,
 no granules, band algebra in a multi-band style), the modular route
 (`TilePipeline.process`), byte scaling of up to four bands and the PNG.
-A one-band tile takes the style's or the layer's palette.
+A one-band tile takes the style's or the layer's palette.  An
+``image/jpeg`` (or ``image/jpg``) tile is the same byte planes, at most
+three, through `io.png.encode_jpeg`; an RGBA-rung tile gives it its
+red, green and blue.
 
 A TIME list with an animation format (``image/apng``; ``video/mp4`` is
 answered with the same APNG, labelled ``X-Gsky-Anim-Container:
@@ -55,29 +63,45 @@ WPS Execute (`_wps_execute`) drills the process's data sources through
 `DrillPipeline.process_split` and answers their CSVs; the XML Execute
 document may come as a POST body.
 
+GetMap and GetCoverage go through the serving gateway (`serving`; the
+process-wide `default_gateway` unless the server is given its own, or
+None): a response cache keyed on the parsed request, then
+single-flight, then the render (`_serve_gated`).  A replay carries
+``X-Gsky-Cache`` (miss, hit, join, stale), a strong ``ETag``,
+``Cache-Control: max-age=<cache_max_age>`` and ``Age``, and a matching
+``If-None-Match`` gets a 304.  An animation, an incomplete request, a
+shard, an auto-sized GetCoverage, a layer whose ``cache_max_age`` is 0,
+a body sent from a file or as chunks, a degraded render and a joiner's
+copy are not cached.  Every request runs in a `request_scope`: a 200
+whose render absorbed a partial failure is labelled ``X-GSKY-Degraded``
+with its sorted reasons.
+
 Requests the port cannot serve yet get HTTP 501 with exception code
 ``OperationNotSupported`` and a message naming the ROADMAP item, as
 does any NotImplementedError the pipeline raises: among them a
 GetCoverage in a config of several ``ows_cluster_nodes`` (peer shards,
-A.10) and a WPS process over a VRT (A.8).  Not ported: the serving
-gateway (response cache, single-flight, admission), deadlines,
-brownout, the metrics collector, drain, the cache fabric and remote
-workers.
+A.10) and a WPS process over a VRT (A.8).  Not ported: admission,
+deadlines (GetMap, GetFeatureInfo and WPS run unbounded), brownout,
+the metrics collector, drain, the cache fabric and remote workers.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextvars
 import dataclasses
 import datetime as dt
+import json
 import os
 import shutil
 import tempfile
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, \
+    Tuple
 from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
@@ -89,8 +113,8 @@ from ..geo.transform import GeoTransform, pixel_resolution, split_bbox
 from ..index.store import parse_time
 from ..io.geotiff import GeoTIFFWriter, write_geotiff
 from ..io.netcdf import write_netcdf3
-from ..io.png import ApngAssembler, empty_tile_png, encode_png, \
-    encode_rgba_png
+from ..io.png import ApngAssembler, empty_tile_png, encode_jpeg, \
+    encode_png, encode_rgba_png
 from ..ops.palette import gradient_palette, with_nodata_entry
 from ..ops.scale import scale_params_auto, scale_to_byte
 from ..pipeline.drill import DrillPipeline, drill_csv
@@ -98,11 +122,15 @@ from ..pipeline.executor import WarpExecutor
 from ..pipeline.export import ExportPipeline
 from ..pipeline.export import pipeline_enabled as export_pipeline_enabled
 from ..pipeline.extent import compute_reprojection_extent
+from ..pipeline.feature_info import get_feature_info
 from ..pipeline.tile import TilePipeline, evaluate_expressions
 from ..pipeline.tile_stages import render_staged, tile_pipeline_enabled
 from ..pipeline.types import AxisSelector, GeoDrillRequest, \
     GeoTileRequest, MaskSpec
-from ..resilience import TooManyFailures
+from ..resilience import TooManyFailures, degraded_reasons, \
+    mark_degraded, request_scope
+from ..serving import ServingGateway, canonical_key, default_gateway, \
+    layer_fingerprint, make_entry, quantise_bbox
 from . import dap4
 from . import templates as T
 from .config import Config, ConfigWatcher, Layer, get_layer_dates
@@ -122,8 +150,16 @@ _ANIM_FORMATS = ("image/apng", "video/mp4")
 _JPEG_FORMATS = ("image/jpeg", "image/jpg")
 # host-clock stages of a request (`OWSServer.spans`): "parse" until the
 # render starts (query, config, layer, tile request), "render" the
-# pipeline through the byte tile's readback, "encode" the PNG
+# pipeline through the byte tile's readback, "encode" the PNG or JPEG
 STAGES = ("parse", "render", "encode")
+# query parameters the cache key holds parsed; any other is part of the
+# key as it came
+_KEY_CONSUMED = frozenset({
+    "service", "request", "version", "layers", "layer", "styles",
+    "style", "crs", "srs", "bbox", "width", "height", "format", "time",
+    "coverage", "coverageid", "identifier", "subset", "exceptions",
+})
+_GATEWAY_DEFAULT = object()     # None means no gateway
 
 
 def anim_enabled() -> bool:
@@ -223,15 +259,22 @@ class _Clock:
 
 class OWSServer:
     def __init__(self, watcher: ConfigWatcher, mas_factory=None,
-                 device="cuda", temp_dir: str = ""):
+                 device="cuda", temp_dir: str = "",
+                 gateway=_GATEWAY_DEFAULT):
         """``mas_factory(address)`` gives a namespace's `MASClient` (the
         port's client is in-process: there is no HTTP MAS client yet).
         ``device`` ("cuda" by default) is where every pipeline renders;
         without CUDA it must be "cpu".  ``temp_dir`` (default the
         system's, which honours TMPDIR) holds coverage files while they
-        are written and sent."""
+        are written and sent.  ``gateway``: the `ServingGateway` in
+        front of GetMap and GetCoverage, by default the process-wide
+        `serving.default_gateway`; None serves every request raw."""
         self.device = resolve_device(device)
         self.watcher = watcher
+        self.gateway: Optional[ServingGateway] = \
+            default_gateway if gateway is _GATEWAY_DEFAULT else gateway
+        if self.gateway is not None:
+            _register_gateway_invalidation(watcher, self.gateway)
         self.mas_factory = mas_factory
         self.temp_dir = temp_dir or tempfile.gettempdir()
         # the stats of the last multi-tile export (`ExportPipeline.run`)
@@ -267,30 +310,104 @@ class OWSServer:
             self._pipelines[nskey] = (sc.mas_address, pipe)
             return pipe
 
+    # -- the serving gateway (response cache, single-flight) ---------------
+
+    def _response_key(self, cfg: Config, op: str, name: str, service: str,
+                      p, q: Dict[str, str]):
+        """(key, meta) of a render of layer ``name`` the gateway may
+        keep, or (None, None) where the layer's ``cache_max_age`` is 0.
+        The key (cache and flight) is built from the parsed request, so
+        that equivalent KVP spellings (axis order, case, float
+        formatting, parameter order) collide; it holds the layer's
+        fingerprint.  meta: (namespace, layer, fingerprint, max age)."""
+        lay, style = self._resolve_layer(cfg, name, p.styles, service)
+        if lay.cache_max_age <= 0:
+            return None, None
+        fp = layer_fingerprint(lay)
+        extras = tuple(sorted(
+            (k, v) for k, v in q.items()
+            if k not in _KEY_CONSUMED and not k.startswith("dim_")))
+        ns = cfg.service_config.namespace
+        key = canonical_key(
+            ns=ns, op=op, layer=lay.name, style=style.name,
+            crs=repr(p.crs),
+            bbox=quantise_bbox(p.bbox.xmin, p.bbox.ymin, p.bbox.xmax,
+                               p.bbox.ymax, p.width, p.height),
+            size=(p.width, p.height), fmt=p.format.lower(),
+            times=tuple(p.times),
+            axes=tuple(sorted(getattr(p, "axes", {}).items())),
+            extras=extras, layer_fp=fp)
+        return key, (ns, lay.name, fp, lay.cache_max_age)
+
+    def _serve_gated(self, key: Optional[str], meta,
+                     req_headers: Optional[Mapping[str, str]],
+                     render: Callable[[], Response]) -> Response:
+        """Response cache, then single-flight, then ``render()``.  A hit
+        renders nothing; on a miss one request per key renders and the
+        others share its bytes, or its error.  A response sent from a
+        file or as chunks goes to the leader alone; joiners render their
+        own.  On `TooManyFailures` an entry past its TTL but within the
+        stale grace is replayed, labelled ``no-store``."""
+        gw = self.gateway
+        if gw is None or key is None:
+            return render()
+        ent = gw.cache.get(key)
+        if ent is not None:
+            return _replay(req_headers, ent, "hit")
+        try:
+            frozen, joined = gw.flight.do(
+                key, lambda: _freeze_response(render()))
+        except TooManyFailures:
+            stale = gw.cache.get_stale(key)
+            if stale is None:
+                raise
+            mark_degraded("stale-cache")
+            return _replay(req_headers, stale, "stale")
+        if not isinstance(frozen, tuple):     # a file or a stream
+            return render() if joined else frozen
+        status, ctype, body, keep = frozen
+        ns, layer_name, fp, max_age = meta
+        ent = make_entry(body, ctype, status, ns, layer_name, fp, max_age,
+                         keep)
+        # a degraded (partial) render is not cached: it would replay the
+        # holes after the fault cleared
+        if status == 200 and not joined and not degraded_reasons():
+            gw.cache.put(key, ent)
+        return _replay(req_headers, ent, "join" if joined else "miss")
+
     # -- dispatch -----------------------------------------------------------
 
     def handle(self, path: str, query, host: str = "",
-               body: Optional[bytes] = None) -> Response:
+               body: Optional[bytes] = None,
+               headers: Optional[Mapping[str, str]] = None) -> Response:
         """One request: ``path`` (``/ows`` or ``/ows/<namespace>``),
         ``query`` (a mapping of key to value or to a list of values),
         ``host`` (the Host header, for the documents' URLs), ``body``
-        (a POST's body: a WPS Execute document)."""
+        (a POST's body: a WPS Execute document), ``headers`` (the
+        request's, read for ``If-None-Match``)."""
         clock = _Clock()
         t0 = clock.last
-        try:
-            resp = self._handle(path, query, host, clock, body)
-        except OWSError as e:
-            resp = _exception_response(e)
-        except TooManyFailures as e:
-            # more granules lost than the degradation budget allows
-            resp = _exception_response(OWSError(str(e), "ServerBusy",
-                                                status=503))
-        except NotImplementedError as e:
-            resp = _exception_response(OWSError(
-                str(e), "OperationNotSupported", status=501))
-        except Exception as e:  # the last resort: an OGC 500, not a crash
-            resp = _exception_response(OWSError(f"internal error: {e}",
-                                                status=500))
+        req_headers = {k.lower(): v for k, v in (headers or {}).items()}
+        with request_scope() as rstate:
+            try:
+                resp = self._handle(path, query, host, clock, body,
+                                    req_headers)
+            except OWSError as e:
+                resp = _exception_response(e)
+            except TooManyFailures as e:
+                # more granules lost than the degradation budget allows
+                resp = _exception_response(OWSError(str(e), "ServerBusy",
+                                                    status=503))
+            except NotImplementedError as e:
+                resp = _exception_response(OWSError(
+                    str(e), "OperationNotSupported", status=501))
+            except Exception as e:  # the last resort: an OGC 500
+                resp = _exception_response(OWSError(
+                    f"internal error: {e}", status=500))
+            reasons = sorted(set(rstate.reasons))
+        if reasons and resp.status == 200:
+            # a partial result: still a 200, labelled
+            resp.headers["X-GSKY-Degraded"] = ",".join(reasons)
         with self._lock:
             for k, v in clock.spans.items():
                 self.spans[k] += v
@@ -298,7 +415,8 @@ class OWSServer:
         return resp
 
     def _handle(self, path: str, query, host: str, clock: _Clock,
-                body: Optional[bytes] = None) -> Response:
+                body: Optional[bytes] = None,
+                req_headers: Optional[Mapping[str, str]] = None) -> Response:
         if path.rstrip("/") == "/ows":
             ns = ""
         elif path.startswith("/ows/"):
@@ -314,25 +432,33 @@ class OWSServer:
             return self.serve_dap(cfg, q, clock)
         svc = infer_service(q)
         if svc == "WCS":
-            return self.serve_wcs(path, cfg, q, host, clock)
+            return self.serve_wcs(path, cfg, q, host, clock, req_headers)
         if svc == "WPS":
             return self.serve_wps(path, cfg, q, host, body)
-        return self.serve_wms(path, cfg, q, host, clock)
+        return self.serve_wms(path, cfg, q, host, clock, req_headers)
 
     # -- WMS ----------------------------------------------------------------
 
     def serve_wms(self, path: str, cfg: Config, q: Dict[str, str],
-                  host: str, clock: _Clock) -> Response:
+                  host: str, clock: _Clock,
+                  req_headers: Optional[Mapping[str, str]] = None) -> Response:
         p = parse_wms(q)
         req_name = p.request.lower()
         if req_name == "getcapabilities" or not req_name:
             self._ensure_layer_dates(cfg)
             return _xml(T.wms_capabilities(cfg, path, _host_of(host, cfg)))
+        if req_name == "describelayer":
+            layers = [cfg.layer(n) for n in p.layers]
+            if any(l is None for l in layers):
+                raise OWSError("layer not found", "LayerNotDefined")
+            return _xml(T.wms_describe_layer(layers, path,
+                                             _host_of(host, cfg)))
+        if req_name == "getlegendgraphic":
+            return self._legend(cfg, q)
         if req_name == "getmap":
-            return self._getmap(cfg, p, clock)
-        if req_name in ("describelayer", "getlegendgraphic",
-                        "getfeatureinfo"):
-            raise _unported(f"WMS {p.request}", "A.15")
+            return self._getmap_gated(cfg, p, q, clock, req_headers)
+        if req_name == "getfeatureinfo":
+            return self._feature_info(cfg, p)
         raise OWSError(f"WMS request {p.request!r} not supported",
                        "OperationNotSupported")
 
@@ -442,6 +568,27 @@ class OWSServer:
             index_tile_y_size=lay.index_tile_y_size,
             index_res_limit=lay.index_res_limit)
 
+    def _getmap_gated(self, cfg: Config, p, q: Dict[str, str],
+                      clock: _Clock,
+                      req_headers: Optional[Mapping[str, str]]
+                      ) -> Response:
+        """GetMap through the serving gateway.  A request complete
+        enough to resolve (layer, bbox, crs, size) is keyed; an
+        incomplete one goes to `_getmap` for its errors; an animation
+        is never cached.  (The reference also notes the key for its
+        prefetch planner here; that comes with the ingest of ROADMAP
+        A.8.)"""
+        key = meta = None
+        is_anim = anim_enabled() and len(p.times) > 1 \
+            and p.format.lower() in _ANIM_FORMATS
+        if self.gateway is not None and p.layers and p.bbox is not None \
+                and p.crs is not None and p.width > 0 and p.height > 0 \
+                and not is_anim:
+            key, meta = self._response_key(cfg, "map", p.layers[0], "wms",
+                                           p, q)
+        return self._serve_gated(key, meta, req_headers,
+                                 lambda: self._getmap(cfg, p, clock))
+
     def _getmap(self, cfg: Config, p, clock: _Clock) -> Response:
         if not p.layers:
             raise OWSError("no layers requested", "LayerNotDefined")
@@ -474,8 +621,6 @@ class OWSServer:
         if len(p.times) > 1 and fmt in _ANIM_FORMATS and anim_enabled() \
                 and not lay.input_layers:
             return self._getmap_animation(cfg, p, lay, source, style, clock)
-        if fmt in _JPEG_FORMATS:
-            raise _unported("JPEG output", "A.17")
         req = self._tile_request(source, style, p, p.width, p.height,
                                  lay.wms_polygon_segments)
         n_exprs = len(req.band_exprs.expr_names)
@@ -504,9 +649,10 @@ class OWSServer:
                 kind, arr = made[0], _host(made[1])
                 if kind == "rgba":
                     rgba = arr                      # (H, W, 4)
+                    scaled = [arr[..., 0], arr[..., 1], arr[..., 2]]
                 else:
                     scaled = [arr] if arr.ndim == 2 else list(arr)
-        if rgba is not None:
+        if rgba is not None and fmt not in _JPEG_FORMATS:
             clock.mark("render")
             png = encode_rgba_png(rgba, compress_level=level)
             clock.mark("encode")
@@ -529,6 +675,10 @@ class OWSServer:
                                     auto=auto).cpu().numpy()
                       for b, v in zip(bands[:4], valids[:4])]
         clock.mark("render")
+        if fmt in _JPEG_FORMATS:
+            body = encode_jpeg(scaled[:3])
+            clock.mark("encode")
+            return Response(200, "image/jpeg", body)
         palette = None
         if len(scaled) == 1 and (style.palette or lay.palette):
             spec = style.palette or lay.palette
@@ -614,7 +764,10 @@ class OWSServer:
         n = len(times)
         with cf.ThreadPoolExecutor(max_workers=min(n, _anim_workers()),
                                    thread_name_prefix="gsky-anim") as ex:
-            return [[a] for a in ex.map(one, range(n))]
+            # each frame in a copy of the request's context
+            futs = [ex.submit(contextvars.copy_context().run, one, i)
+                    for i in range(n)]
+            return [[f.result()] for f in futs]
 
     @staticmethod
     def _anim_frames_serial(pipe: TilePipeline, req: GeoTileRequest, times,
@@ -638,6 +791,58 @@ class OWSServer:
                 for b, v in zip(bands[:4], valids[:4])])
         return frames
 
+    def _feature_info(self, cfg: Config, p) -> Response:
+        """GetFeatureInfo: the values at pixel (i, j) of the request's
+        render (``feature_info_bands`` when the layer names them), "n/a"
+        where invalid, and the newest ``feature_info_max_dates`` of the
+        contributing dates, as a GeoJSON FeatureCollection."""
+        if not p.layers:
+            raise OWSError("no layers requested", "LayerNotDefined")
+        lay, style = self._resolve_layer(cfg, p.layers[0], p.styles, "wms")
+        if p.bbox is None or p.x is None or p.y is None:
+            raise OWSError("bbox/i/j required", "MissingParameterValue")
+        req = self._tile_request(lay, style, p, p.width or 256,
+                                 p.height or 256, lay.wms_polygon_segments)
+        req = dataclasses.replace(
+            req, bands=list(lay.feature_info_bands or req.bands),
+            _exprs=None)
+        if not (0 <= p.x < req.width and 0 <= p.y < req.height):
+            raise OWSError(f"i/j ({p.x},{p.y}) outside "
+                           f"{req.width}x{req.height}", "InvalidPoint")
+        fi = get_feature_info(self._pipeline(cfg), req, p.x, p.y)
+        props = {k: (v if v is not None else "n/a")
+                 for k, v in fi.values.items()}
+        if lay.feature_info_max_dates != 0:
+            props["available_dates"] = fi.dates[-abs(
+                lay.feature_info_max_dates):]
+        doc = {"type": "FeatureCollection", "features": [{
+            "type": "Feature", "properties": props, "geometry": None}]}
+        return Response(200, "application/json", json.dumps(doc).encode())
+
+    def _legend(self, cfg: Config, q: Dict[str, str]) -> Response:
+        """GetLegendGraphic: the style's or the layer's legend file, else
+        its palette as a ``legend_height`` x ``legend_width`` ramp, top
+        255 to bottom 0; 404 without either."""
+        name = q.get("layer") or q.get("layers", "")
+        lay = cfg.layer(name)
+        if lay is None:
+            raise OWSError(f"layer {name!r} not found", "LayerNotDefined")
+        style = lay.style(q.get("style", "") or q.get("styles", "")) or lay
+        path = style.legend_path or lay.legend_path
+        if path and os.path.exists(path):
+            with open(path, "rb") as fp:
+                return _png(fp.read())
+        spec = style.palette or lay.palette
+        if spec is None:
+            raise OWSError("no legend available", status=404)
+        lut = gradient_palette(spec.colours, spec.interpolate)
+        h, w = style.legend_height, style.legend_width
+        img = np.zeros((h, w, 4), np.uint8)
+        ramp = np.linspace(254, 0, h).astype(np.uint8)
+        img[:] = lut[ramp][:, None, :]
+        return _png(encode_rgba_png(img,
+                                    compress_level=_png_level(lay, style)))
+
     # -- DAP4 -------------------------------------------------------------
 
     def serve_dap(self, cfg: Config, q: Dict[str, str],
@@ -655,7 +860,8 @@ class OWSServer:
     # -- WCS ----------------------------------------------------------------
 
     def serve_wcs(self, path: str, cfg: Config, q: Dict[str, str],
-                  host: str, clock: _Clock) -> Response:
+                  host: str, clock: _Clock,
+                  req_headers: Optional[Mapping[str, str]] = None) -> Response:
         p = parse_wcs(q)
         req_name = p.request.lower()
         if req_name == "getcapabilities" or not req_name:
@@ -671,9 +877,26 @@ class OWSServer:
             if len(cfg.service_config.ows_cluster_nodes) > 1:
                 raise _unported("GetCoverage over ows_cluster_nodes peer "
                                 "shards", "A.10")
-            return self._getcoverage(cfg, p, clock)
+            return self._getcoverage_gated(cfg, p, q, clock, req_headers,
+                                           is_shard=bool(q.get("wshard")))
         raise OWSError(f"WCS request {p.request!r} not supported",
                        "OperationNotSupported")
+
+    def _getcoverage_gated(self, cfg: Config, p, q: Dict[str, str],
+                           clock: _Clock,
+                           req_headers: Optional[Mapping[str, str]],
+                           is_shard: bool) -> Response:
+        """GetCoverage through the serving gateway.  A shard's request
+        (``wshard=1``) and an auto-sized one (width or height 0) are not
+        keyed; a body over the per-entry cap is not kept."""
+        key = meta = None
+        if self.gateway is not None and not is_shard and p.coverages \
+                and p.bbox is not None and p.crs is not None \
+                and p.width > 0 and p.height > 0:
+            key, meta = self._response_key(cfg, "cov", p.coverages[0],
+                                           "wcs", p, q)
+        return self._serve_gated(key, meta, req_headers,
+                                 lambda: self._getcoverage(cfg, p, clock))
 
     def _getcoverage(self, cfg: Config, p, clock: _Clock,
                      dap_stream: bool = False) -> Response:
@@ -927,10 +1150,11 @@ class _Handler(BaseHTTPRequestHandler):
         url = urlsplit(self.path)
         resp = self.server.ows.handle(
             url.path, parse_qs(url.query, keep_blank_values=True),
-            self.headers.get("Host", ""), body)
+            self.headers.get("Host", ""), body, self.headers)
         try:
             self.send_response(resp.status)
-            self.send_header("Content-Type", resp.content_type)
+            if resp.content_type:           # a 304 has none
+                self.send_header("Content-Type", resp.content_type)
             for k, v in resp.headers.items():
                 self.send_header(k, v)
             if resp.chunks is not None:
@@ -968,6 +1192,76 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, fmt, *args):
         pass
+
+
+def _register_gateway_invalidation(watcher: ConfigWatcher,
+                                   gateway: ServingGateway) -> None:
+    """Subscribe ``gateway``'s invalidation to ``watcher``'s reloads,
+    once per (watcher, gateway): servers built over one watcher and
+    gateway add no listener.  The listener holds the gateway weakly and
+    removes itself once the gateway is gone."""
+    registered = getattr(watcher, "_serving_gateways", None)
+    if registered is None:
+        registered = watcher._serving_gateways = weakref.WeakSet()
+    if gateway in registered:
+        return
+    registered.add(gateway)
+    gw_ref = weakref.ref(gateway)
+
+    def _listener(configs):
+        gw = gw_ref()
+        if gw is None:
+            watcher.remove_listener(_listener)
+            return
+        gw.invalidate_for_configs(configs)
+
+    watcher.add_listener(_listener)
+
+
+def _replay(req_headers: Optional[Mapping[str, str]], ent,
+            cache_status: str) -> Response:
+    """A response from cached bytes, with the HTTP cache contract: a
+    strong ETag, If-None-Match answered 304, the layer's Cache-Control
+    and the entry's Age (so that a client's cache does not stretch the
+    layer's TTL).  A stale replay is ``no-store`` and carries none."""
+    headers = {"X-Gsky-Cache": cache_status}
+    if cache_status == "stale":
+        headers["Cache-Control"] = "no-store"
+        headers.update(ent.headers)
+        return Response(ent.status, ent.content_type, ent.body, headers)
+    if ent.status == 200:
+        age = int(max(0.0, min(
+            ent.max_age - (ent.expires - time.monotonic()), ent.max_age)))
+        headers["ETag"] = ent.etag
+        headers["Cache-Control"] = f"max-age={ent.max_age}"
+        headers["Age"] = str(age)
+        inm = (req_headers or {}).get("if-none-match", "")
+        if inm and _etag_match(inm, ent.etag):
+            return Response(304, "", b"", headers)
+    headers.update(ent.headers)
+    return Response(ent.status, ent.content_type, ent.body, headers)
+
+
+def _freeze_response(resp: Response):
+    """(status, content type, body, kept headers) of a response whose
+    body is in memory; a file or a stream passes through as it is."""
+    if resp.path or resp.chunks is not None:
+        return resp
+    keep = tuple((k, resp.headers[k]) for k in ("Content-Disposition",)
+                 if k in resp.headers)
+    return (resp.status, resp.content_type, bytes(resp.body), keep)
+
+
+def _etag_match(header: str, etag: str) -> bool:
+    if header.strip() == "*":
+        return True
+    for tok in header.split(","):
+        tok = tok.strip()
+        if tok.startswith("W/"):
+            tok = tok[2:]
+        if tok == etag:
+            return True
+    return False
 
 
 def _render_with_fusion(pipe: TilePipeline, req: GeoTileRequest,

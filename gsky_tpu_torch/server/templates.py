@@ -1,9 +1,10 @@
 """OGC XML documents of the OWS front end.
 
 Counterpart of `gsky_tpu/server/templates.py`: the ServiceException
-report, the WMS 1.3.0 GetCapabilities document, the WCS 1.0.0
-GetCapabilities and DescribeCoverage documents, and the WPS 1.0.0
-GetCapabilities, DescribeProcess and Execute response documents, built
+report, the WMS 1.3.0 GetCapabilities and DescribeLayer documents, the
+WCS 1.0.0 GetCapabilities and DescribeCoverage documents, and the WPS
+1.0.0 GetCapabilities, DescribeProcess and Execute response documents,
+built
 with the reference's structure and text, so both packages answer one
 config with the same document (the Execute response's creation time
 aside).
@@ -216,6 +217,20 @@ def wcs_describe_coverage(layers: List[Layer], host: str) -> str:
         'xmlns:gml="http://www.opengis.net/gml">\n'
         f"{body}"
         "</CoverageDescription>\n"
+    )
+
+
+def wms_describe_layer(layers: List[Layer], ns_path: str, host: str) -> str:
+    body = "".join(
+        f'  <LayerDescription name="{escape(l.name)}" '
+        f'wfs="" owsType="WCS" owsURL="{escape(host)}{ns_path}">\n'
+        f'    <Query typeName="{escape(l.name)}"/>\n'
+        f"  </LayerDescription>\n" for l in layers)
+    return (
+        '<?xml version="1.0" encoding="UTF-8"?>\n'
+        '<WMS_DescribeLayerResponse version="1.1.1">\n'
+        f"{body}"
+        "</WMS_DescribeLayerResponse>\n"
     )
 
 

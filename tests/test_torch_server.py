@@ -13,8 +13,9 @@ The reference runs its serial GetMap ladder (GSKY_TILE_PIPELINE=0),
 waves and the render batcher off, Pallas in interpret mode (its B4
 wrapped to run with ``interpret=True``, as `test_torch_mosaic` does), a
 hermetic kernel ledger and no serving gateway, through
-`aiohttp.test_utils`.  The port runs with ``device="cpu"`` through its
-handler, and once over a real socket.
+`aiohttp.test_utils`.  The port runs with ``device="cpu"`` and no
+serving gateway (each test counts its renders) through its handler,
+and once over a real socket.
 
 Bounds: status and content type equal; decoded RGBA identical for
 nearest, the placeholder, the empty tile and the palette; at most 0.1%
@@ -28,7 +29,7 @@ import os
 import re
 import urllib.error
 import urllib.request
-from urllib.parse import parse_qs, urlsplit
+from urllib.parse import parse_qs, quote, urlsplit
 from xml.etree import ElementTree
 
 import numpy as np
@@ -141,7 +142,8 @@ def _config(root, legend):
         "layers": [
             {"name": "plain", "data_source": data, "rgb_products": ["B4"],
              "time_generator": "mas", "styles": _styles("B4"),
-             "default_geo_bbox": [147.9, -35.5, 148.4, -35.0]},
+             "default_geo_bbox": [147.9, -35.5, 148.4, -35.0],
+             "feature_info_max_dates": 5},
             {"name": "palette", "data_source": data, "rgb_products": ["B4"],
              "time_generator": "mas", "clip_value": 3000,
              "palette": {"interpolate": True, "colours": [
@@ -198,7 +200,35 @@ def _config(root, legend):
                   "offset_value": -200.0, "clip_value": 2400.0}]},
             {"name": "phot_veg", "data_source": data,
              "rgb_products": ["phot_veg"], "time_generator": "mas"},
+            # GetFeatureInfo reads other bands than the layer renders
+            {"name": "info", "data_source": bands, "rgb_products": [NDVI],
+             "resample": "bilinear", "time_generator": "mas",
+             "feature_info_bands": ["LC08_B4", "LC08_B5"],
+             "feature_info_max_dates": 2},
+            {"name": "legend_file", "data_source": data,
+             "rgb_products": ["B4"], "legend_path": legend},
         ],
+    }
+
+
+# a namespace of what the port cannot serve yet: remote workers and peer
+# shards (ROADMAP A.10), a WPS process over a VRT (A.8)
+UNPORTED_NS = "unported"
+
+
+def _unported_config(root):
+    data = f"{root}/data"
+    return {
+        "service_config": {
+            "ows_hostname": HOST, "mas_address": "inproc",
+            "worker_nodes": ["127.0.0.1:6000"],
+            "ows_cluster_nodes": ["http://127.0.0.1:1", "http://127.0.0.1:2"]},
+        "layers": [{"name": "plain", "data_source": data,
+                    "rgb_products": ["B4"]}],
+        "processes": [{"identifier": "vrt_drill",
+                       "data_sources": [{"data_source": data,
+                                         "rgb_products": ["phot_veg"],
+                                         "vrt_url": "drill.vrt"}]}],
     }
 
 
@@ -271,6 +301,9 @@ def env(tmp_path_factory):
     for d in (conf, f"{conf}/sub"):
         with open(f"{d}/config.json", "w") as fp:
             json.dump(_config(root, legend), fp)
+    os.makedirs(f"{conf}/{UNPORTED_NS}")
+    with open(f"{conf}/{UNPORTED_NS}/config.json", "w") as fp:
+        json.dump(_unported_config(root), fp)
 
     jmas, tmas = JMASClient(jstore), MASClient(tstore)
     jserver = JOWSServer(
@@ -280,10 +313,12 @@ def env(tmp_path_factory):
         gateway=None, fabric=None)
     tserver = OWSServer(ConfigWatcher(conf, mas_factory=lambda a: tmas,
                                       install_signal=False),
-                        mas_factory=lambda a: tmas, device="cpu")
+                        mas_factory=lambda a: tmas, device="cpu",
+                        gateway=None)
     client = _JaxClient(jserver)
     yield {"root": root, "jax": client, "port": tserver,
-           "b4_calls": b4_calls, "conf": conf, "tmas": tmas}
+           "b4_calls": b4_calls, "conf": conf, "tmas": tmas,
+           "jax_mas": jmas}
     client.close()
     jpages.reset_default_pool()
     mp.undo()
@@ -903,12 +938,18 @@ def test_animation_over_a_socket(env, waves_on):
     assert len(_frames(body)) == 3
 
 
+_POLY = ('{"type": "Polygon", "coordinates": [[[148.0, -35.4], '
+         '[148.4, -35.4], [148.4, -35.1], [148.0, -35.4]]]}')
 UNPORTED = {
-    "jpeg": (_getmap("plain", NATIVE[0], fmt="image/jpeg"), "A.17"),
-    "getfeatureinfo": ("/ows?service=WMS&request=GetFeatureInfo"
-                       "&layers=plain", "A.15"),
-    "getlegendgraphic": ("/ows?service=WMS&request=GetLegendGraphic"
-                         "&layer=plain", "A.15"),
+    "worker_nodes": (_getmap("plain", NATIVE[0], ns=UNPORTED_NS), "A.10"),
+    "cluster shards": (
+        f"/ows/{UNPORTED_NS}?service=WCS&request=GetCoverage"
+        f"&coverage=plain&crs=EPSG:3857&bbox={_bbox(NATIVE[0])}"
+        f"&width=64&height=64&format=GeoTIFF", "A.10"),
+    "wps over a vrt": (
+        f"/ows/{UNPORTED_NS}?service=WPS&request=Execute"
+        f"&identifier=vrt_drill&datainputs="
+        f"{quote('geometry=' + _POLY)}", "A.8"),
 }
 
 

@@ -260,7 +260,10 @@ def test_one_launch_per_wave(monkeypatch):
 
 def test_bucketed_route_runs_b2_per_lane(monkeypatch):
     """Lanes whose stacks are smaller than their padded tables take the
-    planner's bucketed route: B2 once a lane, no B1, bytes as per call."""
+    planner's bucketed route: B2 once a lane, no B1, bytes as per call.
+    The reference's scheduler waits its longest tick for companions, so
+    that its three lanes meet in one wave on a loaded host too."""
+    monkeypatch.setenv("GSKY_WAVE_TICK_MS", "100")
     jpool, tiles, hw, step, n_ns = _wave_inputs(3)
     for t in tiles:
         t["stack"] = t["stack"][:, :96, :96].copy()

@@ -9,8 +9,9 @@ masked set of `test_torch_mosaic`; each package's crawler indexes it
 into its own MAS store.  The reference runs with waves and the render
 batcher off, Pallas in interpret mode (its B4 run with
 ``interpret=True``), no serving gateway, through `aiohttp.test_utils`;
-the port with ``device="cpu"`` through its handler.  Exports are about
-200 x 150 pixels in 64 x 64 tiles, so the edge tiles are ragged.
+the port with ``device="cpu"`` and no serving gateway through its
+handler.  Exports are about 200 x 150 pixels in 64 x 64 tiles, so the
+edge tiles are ragged.
 
 Bounds: status and content type equal; decoded values bit-exact for
 nearest, within 2 ulp for bilinear and cubic, nodata (-9999) at the
@@ -253,7 +254,7 @@ def wenv(tmp_path_factory):
     tserver = OWSServer(ConfigWatcher(conf, mas_factory=lambda a: tmas,
                                       install_signal=False),
                         mas_factory=lambda a: tmas, device="cpu",
-                        temp_dir=f"{root}/tmp_port")
+                        temp_dir=f"{root}/tmp_port", gateway=None)
     client = _JaxClient(jserver)
     yield {"root": root, "jax": client, "jserver": jserver,
            "port": tserver, "jmas": jmas, "tmas": tmas, "conf": conf}
