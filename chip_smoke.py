@@ -153,6 +153,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    a palette legend and DescribeLayer equal the CPU server's.  17b over
    phase 10's archive: 8 clicks on the masked layer, one B4 launch each,
    within 2 ulp of the CPU server's.
+18. the grids and formats of satellite archives, written from fixed
+   seeds with the port's writers under ``build/smoke_sat/``
+   (GSKY_WAVES=0): 18a a Himawari-8 AHI 2 km full-disk band (5500 x
+   5500 f32 NetCDF-3, CF geostationary mapping, space filled): 16
+   native and 8 4x EPSG:3857 tiles over eastern Australia and 8 tiles
+   on the western limb (part space); 18b eight MOD09A1-shaped
+   HDF4-EOS sinusoidal h29v12 tiles (2400 x 2400 int16, DEFLATE): 16
+   tiles bilinear and cubic over the 8 dates, then 8 warm polygon
+   drills (B3, one a file); 18c a DEA-shaped Albers tile (4000 x 4000
+   int16 GeoTIFF, EPSG:3577, 25 m): 16 tiles in EPSG:3857 and 4 in
+   EPSG:3577; 18d two MODIS L1B-shaped swaths (2030 x 1354 f32 with
+   2-D lon/lat, one at full resolution, one subsampled by 5): 16 fused
+   tiles, 4 on the swath's edge and 8 masked by a QA band (B2 per
+   geolocation group, then B4); 18e a 120 x 1000 x 1000 f32
+   curvilinear stack: 10 warm drills (B3), and a WPS Execute of a VRT
+   process over HTTP (host stats, no launch).  Per sub-phase: tiles/s
+   or drills/s, p50, p90, launches (set to 0 just before), B1 blocks
+   over the staging budget against `block_boxes`' prediction, host ms
+   per stage and `_geoloc_ctrl`'s ms and steps; every request again
+   on the CPU (tiles: nearest bytes equal, <= 0.1% otherwise; masked
+   data <= 2 ulp; drills rel 1e-5); no plain-version call on the card.
+   B1 and B2 against their plain versions at an AHI limb tile's and a
+   swath edge tile's operands salted with NaN, +-inf and finite values
+   past +-2**31.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -180,6 +204,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1687,16 +1712,20 @@ def b4_needed_bytes(valid):
 
 
 def crawl(paths):
-    """A MAS store of the port's crawler records of (path, namespace)."""
+    """A MAS store of the port's crawler records of (path, namespace)
+    or (path, namespace, fix): a namespace None keeps the crawler's
+    own; ``fix`` rewrites the record before it is ingested."""
     from gsky_tpu_torch.index.crawler import extract
     from gsky_tpu_torch.index.store import MASStore
     store = MASStore()
-    for p, ns in paths:
+    for p, ns, *fix in paths:
         rec = extract(p)
         if rec.get("error"):
             raise AssertionError(rec["error"])
+        for f in fix:
+            rec = f(rec)
         for ds in rec["geo_metadata"]:
-            ds["namespace"] = ns
+            ds["namespace"] = ns or ds["namespace"]
         store.ingest(rec)
     return store
 
@@ -2000,10 +2029,11 @@ class OwsPair:
     directory and MAS store; the card's behind a standard-library HTTP
     server on an ephemeral 127.0.0.1 port."""
 
-    def __init__(self, conf_dir, layers, store, gateway=None):
+    def __init__(self, conf_dir, layers, store, gateway=None,
+                 processes=()):
         """``gateway``: the card server's `ServingGateway`; None (phases
         12-16 measure renders) serves every request raw.  The CPU
-        server has none."""
+        server has none.  ``processes``: the config's WPS processes."""
         from gsky_tpu_torch.index.client import MASClient
         from gsky_tpu_torch.server.config import ConfigWatcher
         from gsky_tpu_torch.server.ows import OWSServer
@@ -2011,7 +2041,7 @@ class OwsPair:
         self.conf_path = os.path.join(conf_dir, "config.json")
         with open(self.conf_path, "w") as fp:
             json.dump({"service_config": {"mas_address": "in-process"},
-                       "layers": layers}, fp)
+                       "layers": layers, "processes": list(processes)}, fp)
         client = MASClient(store)
         self.watcher = watcher = ConfigWatcher(conf_dir, lambda a: client,
                                                install_signal=False)
@@ -4103,6 +4133,705 @@ def phase_ows_gateway_masked(root, store, card):
     return GFI_MASKED
 
 
+# -- phase 18: the grids and formats of satellite archives ---------------
+
+SAT_AHI_N = 5500             # 18a: Himawari-8 AHI 2 km full disk
+SAT_AHI_DISK = 1.1e7         # the disk's width in metres (5500 x 2 km)
+SAT_AHI_RES = 2000.0         # metres a pixel at the sub-satellite point
+SAT_MODIS_N = 2400           # 18b: MOD09A1 500 m tile h29v12
+SAT_MODIS_TILE = 1111950.5197   # a MODIS grid tile's width in metres
+SAT_MODIS_RES = 463.31271653
+SAT_MODIS_DATES = 8
+SAT_AEA_N = 4000             # 18c: a DEA 100 km Albers tile at 25 m
+SAT_AEA_X0, SAT_AEA_Y0 = 1500000.0, -3900000.0
+SAT_SWATH = (2030, 1354)     # 18d: a MODIS L1B 1 km granule
+SAT_SWATH_SUB = 5            # its second granule's geolocation step
+SAT_STACK = (120, 1000, 1000)   # 18e: the curvilinear drill stack
+SAT_TILES = 16               # fused tiles a sub-phase
+SAT_MASKED = 8               # 18d masked tiles
+SAT_DRILLS_B = 8             # 18b warm drills
+SAT_DRILLS_E = 10            # 18e warm drills
+MODIS_T0 = 1577836800.0      # 2020-01-01 (the A2020001 composite)
+SAT_VRT = """<VRTDataset>
+  <VRTRasterBand band="1" subClass="VRTDerivedRasterBand">
+    <PixelFunctionType>bare</PixelFunctionType>
+    <PixelFunctionLanguage>python</PixelFunctionLanguage>
+    <PixelFunctionCode><![CDATA[
+def bare(in_ar, out_ar, *args, **kwargs):
+    v = in_ar[0].astype("float32")
+    out_ar[:] = v
+    out_ar[v < 1000] = -999
+]]></PixelFunctionCode>
+    <SimpleSource metadata-template="1">
+      <SourceFilename>{{ .Data.Path }}</SourceFilename>
+    </SimpleSource>
+  </VRTRasterBand>
+</VRTDataset>"""
+
+
+def merc_tile(lon, lat, px_m, n=256):
+    """An ``n``-pixel EPSG:3857 box centred on (lon, lat) whose pixels
+    are ``px_m`` metres on the ground there."""
+    from gsky_tpu_torch.geo.crs import EPSG3857
+    x, y = EPSG3857.from_lonlat(lon, lat)
+    half = n * px_m / np.cos(np.radians(lat)) / 2
+    return (float(x - half), float(y - half), float(x + half),
+            float(y + half))
+
+
+def tile_grid(lon0, lat0, px_m, nx, ny, n=256):
+    """``nx`` x ``ny`` adjacent ``merc_tile``s from (lon0, lat0) east
+    and south."""
+    step = n * px_m / 111320.0
+    return [merc_tile(lon0 + i * step / np.cos(np.radians(lat0)),
+                      lat0 - j * step, px_m, n)
+            for j in range(ny) for i in range(nx)]
+
+
+def write_himawari(path, n=None):
+    """One AHI band of the full disk, Himawari-shaped: NetCDF-3 with a
+    CF ``geostationary`` grid mapping (the real products are NetCDF-4,
+    which needs h5py), x / y in metres, f32 brightness temperature,
+    space filled with -999."""
+    from gsky_tpu_torch.io.netcdf import write_netcdf3_raw
+    n = n or SAT_AHI_N
+    res = SAT_AHI_DISK / n
+    x = -n * res / 2 + res * (np.arange(n) + 0.5)
+    y = n * res / 2 - res * (np.arange(n) + 0.5)
+    xx = (x / 5.43e6).astype(np.float32)[None]
+    yy = (y / 5.41e6).astype(np.float32)[:, None]
+    band = 280.0 + 20.0 * np.sin(xx * 13.0) * np.cos(yy * 16.0) \
+        + 5.0 * np.sin(xx * 97.0 + yy * 61.0)
+    band = band.astype(np.float32)
+    band[xx ** 2 + yy ** 2 >= 1.0] = -999.0
+    write_netcdf3_raw(path, [("y", n), ("x", n)], [
+        ("x", ("x",), {"standard_name": "projection_x_coordinate",
+                       "units": "m"}, x),
+        ("y", ("y",), {"standard_name": "projection_y_coordinate",
+                       "units": "m"}, y),
+        ("geostationary", (), {
+            "grid_mapping_name": "geostationary",
+            "perspective_point_height": 35785863.0,
+            "longitude_of_projection_origin": 140.7,
+            "sweep_angle_axis": "y", "semi_major_axis": 6378137.0,
+            "inverse_flattening": 298.257223563},
+         np.zeros((), np.int32)),
+        ("tbb_13", ("y", "x"), {"grid_mapping": "geostationary",
+                                "_FillValue": np.float32(-999.0)}, band),
+    ], {"Conventions": "CF-1.6"})
+
+
+def write_modis_tile(path, k, n=None):
+    """MOD09A1-shaped: tile h29v12 of the MODIS sinusoidal grid, one
+    500 m int16 band (fill -28672), DEFLATE, HDF-EOS GCTP_SNSOID."""
+    from gsky_tpu_torch.geo.crs import CRS_SINU_MODIS
+    from gsky_tpu_torch.geo.transform import GeoTransform
+    from gsky_tpu_torch.io.hdf4 import write_hdf4
+    n = n or SAT_MODIS_N
+    res = SAT_MODIS_TILE / n
+    # h29v12's upper-left corner on the sinusoidal grid
+    gt = GeoTransform(-20015109.354 + 29 * SAT_MODIS_TILE, res, 0.0,
+                      10007554.677 - 12 * SAT_MODIS_TILE, 0.0, -res)
+    rng = np.random.default_rng(100 + k)
+    yy = np.arange(n, dtype=np.float32)[:, None]
+    xx = np.arange(n, dtype=np.float32)[None]
+    refl = 1500 + 900 * np.sin(xx / (97.0 + 5 * k)) * np.cos(yy / 131.0)
+    refl = refl.astype(np.int16)
+    for _ in range(12):                     # clouds: fill
+        cy, cx = rng.uniform(0, n, 2)
+        r = rng.uniform(0.01, 0.04) * n
+        sl = (slice(max(int(cy - r), 0), int(cy + r)),
+              slice(max(int(cx - r), 0), int(cx + r)))
+        refl[sl] = -28672
+    write_hdf4(path, {"sur_refl_b01": refl}, gt=gt, crs=CRS_SINU_MODIS,
+               fills={"sur_refl_b01": -28672.0}, compress="deflate")
+
+
+def write_albers(path, n=None):
+    """A DEA-shaped tile: int16, EPSG:3577 at 25 m, 100 km square."""
+    from gsky_tpu_torch.geo.crs import EPSG3577
+    from gsky_tpu_torch.geo.transform import GeoTransform
+    from gsky_tpu_torch.io.geotiff import write_geotiff
+    n = n or SAT_AEA_N
+    res = 100000.0 / n
+    yy = np.arange(n, dtype=np.float32)[:, None]
+    xx = np.arange(n, dtype=np.float32)[None]
+    v = (1200 + 700 * np.sin(xx / 290.0) * np.cos(yy / 370.0)
+         + 90 * np.sin(xx / 7.0 + yy / 11.0)).astype(np.int16)
+    v[:n // 10, :n // 6] = -999
+    write_geotiff(path, v, GeoTransform(SAT_AEA_X0, res, 0.0, SAT_AEA_Y0,
+                                        0.0, -res), EPSG3577, nodata=-999,
+                  compress=False)
+
+
+def swath_lonlat(r, c, shape, k=0):
+    """A MODIS-like descending swath over eastern Australia: rows
+    along-track at 1 km, columns across-track to +-1165 km with the
+    scan's growth toward the edges, heading 12 degrees west of south."""
+    H, W = shape
+    u = (c - W / 2.0) / (W / 2.0)
+    d = 1165.0 * (u + 0.35 * u ** 3) / 1.35            # km across
+    a = (r - H / 2.0) * 2030.0 / H                      # km along
+    h = np.radians(-12.0)
+    lat0, lon0 = -31.0 - 0.2 * k, 146.0 + 0.3 * k
+    north = -a * np.cos(h) + d * np.sin(h)
+    east = a * np.sin(h) + d * np.cos(h)
+    lat = lat0 + north / 111.32
+    lon = lon0 + east / (111.32 * np.cos(np.radians(lat)))
+    return lon, lat
+
+
+def write_swath(path, k, sub=1, shape=None, times=None):
+    """A CF curvilinear granule: f32 ``bt`` (fill -9999) and an int16
+    ``qa`` of bit flags (8 cloud, 2 edge) over (rows, cols), 2-D f32
+    lon / lat at full resolution or every ``sub``-th pixel from 2, no
+    1-D axis variables.  With ``times``: a (T, rows, cols) ``bt``."""
+    from gsky_tpu_torch.io.netcdf import write_netcdf3_raw
+    H, W = shape or SAT_SWATH
+    rng = np.random.default_rng(200 + k)
+    rr = np.arange(H, dtype=np.float64)[:, None]
+    cc = np.arange(W, dtype=np.float64)[None]
+    if sub > 1:
+        gi = 2.0 + sub * np.arange((H - 3) // sub + 1)
+        gj = 2.0 + sub * np.arange((W - 3) // sub + 1)
+        lon, lat = swath_lonlat(gi[:, None] + 0.5, gj[None] + 0.5,
+                                (H, W), k)
+        dims = [("y", H), ("x", W), ("gy", len(gi)), ("gx", len(gj))]
+        gdims = ("gy", "gx")
+    else:
+        lon, lat = swath_lonlat(rr + 0.5, cc + 0.5, (H, W), k)
+        dims = [("y", H), ("x", W)]
+        gdims = ("y", "x")
+    bt = (250.0 + 30.0 * np.sin(cc / (37.0 + 3 * k)) * np.cos(rr / 53.0)
+          + 4.0 * np.sin(cc / 3.0 + rr / 5.0)).astype(np.float32)
+    bt[:H // 20, :W // 10] = -9999.0
+    qa = np.zeros((H, W), np.int16)
+    for _ in range(30):
+        cy, cx = rng.uniform(0, H), rng.uniform(0, W)
+        r = rng.uniform(0.01, 0.03) * W
+        qa[max(int(cy - r), 0):int(cy + r),
+           max(int(cx - r), 0):int(cx + r)] |= 8
+    qa[:, :W // 40] |= 2
+    variables = [
+        ("lon", gdims, {"standard_name": "longitude"},
+         lon.astype(np.float32)),
+        ("lat", gdims, {"standard_name": "latitude"},
+         lat.astype(np.float32))]
+    if times is not None:
+        dims = [("time", len(times))] + dims
+        stack = np.empty((len(times), H, W), np.float32)
+        for t in range(len(times)):
+            stack[t] = bt + np.float32(3.0 * np.sin(t / 9.0))
+        stack[:, H // 3:H // 3 + 40, W // 2:W // 2 + 60] = -9999.0
+        variables += [
+            ("time", ("time",), {"standard_name": "time", "units":
+                                 "seconds since 1970-01-01 00:00:00"},
+             np.asarray(times, np.float64)),
+            ("bt", ("time", "y", "x"),
+             {"_FillValue": np.float32(-9999.0)}, stack)]
+    else:
+        variables += [
+            ("bt", ("y", "x"), {"_FillValue": np.float32(-9999.0)}, bt),
+            ("qa", ("y", "x"), {}, qa)]
+    write_netcdf3_raw(path, dims, variables, {"Conventions": "CF-1.6"})
+
+
+def sub_geo_loc(rec, step):
+    """The crawler flags full-resolution geolocation arrays only; a
+    granule with subsampled ones gets its ``geo_loc`` (offsets, steps)
+    and footprint the way a crawler ruleset would give them."""
+    from gsky_tpu_torch.io.netcdf import NetCDF
+    with NetCDF(rec["filename"]) as nc:
+        lon = np.asarray(nc.variables["lon"][:], np.float64)
+        lat = np.asarray(nc.variables["lat"][:], np.float64)
+    for ds in rec["geo_metadata"]:
+        ds["geo_loc"] = {"x_var": "lon", "y_var": "lat",
+                         "line_offset": 2.0, "pixel_offset": 2.0,
+                         "line_step": float(step),
+                         "pixel_step": float(step), "srs": "EPSG:4326"}
+        ds["proj_wkt"] = "EPSG:4326"
+        ds["proj4"] = "+proj=longlat +datum=WGS84 +no_defs"
+        x0, x1, y0, y1 = lon.min(), lon.max(), lat.min(), lat.max()
+        ds["polygon"] = (f"POLYGON (({x0} {y0},{x1} {y0},{x1} {y1},"
+                         f"{x0} {y1},{x0} {y0}))")
+    return rec
+
+
+def tile_request(coll, band, box, method, crs="EPSG:3857", t=None,
+                 mask=None, n=256):
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import BBox
+    from gsky_tpu_torch.pipeline.types import GeoTileRequest
+    t0, t1 = t if t is not None else (None, None)
+    return GeoTileRequest(collection=coll, bands=[band], bbox=BBox(*box),
+                          crs=parse_crs(crs), width=n, height=n,
+                          start_time=t0, end_time=t1, resample=method,
+                          mask=mask)
+
+
+def fused_tiles(pipe, reqs, partial=False):
+    """`render_composite_byte` of each request: (host uint8 tiles,
+    per-tile seconds).  Each tile holds data; with ``partial`` each one
+    also holds nodata (it crosses the data's edge)."""
+    import torch
+    tiles, secs = [], []
+    for req in reqs:
+        t0 = time.perf_counter()
+        out = pipe.render_composite_byte(req)
+        if out is None:
+            raise AssertionError(f"tile {req.bbox} not rendered")
+        if isinstance(out, torch.Tensor):
+            if out.is_cuda:
+                torch.cuda.synchronize()
+            out = out.cpu().numpy()
+        secs.append(time.perf_counter() - t0)
+        if out.dtype != np.uint8 or out.shape != (req.height, req.width):
+            raise AssertionError(f"bad tile {out.dtype} {out.shape}")
+        if (out == 255).all() or (partial and not (out == 255).any()):
+            raise AssertionError(f"tile {req.bbox}: nodata share "
+                                 f"{float((out == 255).mean())}")
+        tiles.append(out)
+    return tiles, secs
+
+
+class SatRun:
+    """One sub-phase's counters: kernel launches (set to 0 on entry),
+    plain calls (none allowed), B1 calls captured for the staging
+    prediction, the executor's stage spans and geolocation grids."""
+
+    def __init__(self, ex=None):
+        from gsky_tpu_torch.ops import paged
+        self.ex = ex
+        self.kernels = _kernel_counts()
+        reset_counts(self.kernels)
+        paged.reset_direct_blocks()
+        self.spans = dict(ex.spans) if ex is not None else {}
+        self.gl = (ex.geoloc_seconds, dict(ex.geoloc_steps)) \
+            if ex is not None else (0.0, {})
+        self.plain = PlainCalls()
+        self.cap = CaptureB1()
+        self.t0 = time.perf_counter()
+
+    def close(self):
+        from gsky_tpu_torch.ops import paged
+        self.wall = time.perf_counter() - self.t0
+        self.plain.remove()
+        self.cap.remove()
+        self.launches = read_counts(self.kernels)
+        self.direct = paged.direct_blocks()
+        self.predicted = sum(predicted_direct_blocks(sx, sy, prm, m)
+                             for sx, sy, prm, m in self.cap.args)
+        self.cap = None
+        if self.plain.calls:
+            raise AssertionError(f"{self.plain.calls} plain-version calls "
+                                 f"on the card's main path")
+        if self.direct != self.predicted:
+            raise AssertionError(f"{self.direct} B1 blocks over the staging "
+                                 f"budget, block_boxes predicts "
+                                 f"{self.predicted}")
+        return self
+
+    def need(self, *names):
+        for k in names:
+            if not self.launches[k]:
+                raise AssertionError(f"{k} launched no time: "
+                                     f"{self.launches}")
+
+    def report(self, what, secs, card, unit="tiles"):
+        ex = self.ex
+        parts = [f"phase {what}: {len(secs)} {unit}, "
+                 f"{len(secs) / sum(secs):.2f} {unit}/s, p50 "
+                 f"{np.median(secs) * 1e3:.3f} ms, p90 "
+                 f"{np.percentile(secs, 90) * 1e3:.3f} ms; launches "
+                 f"{self.launches}; B1 blocks over the staging budget "
+                 f"{self.direct} (block_boxes predicts {self.predicted})"]
+        if ex is not None:
+            sp = {k: (ex.spans.get(k, 0.0) - self.spans.get(k, 0.0))
+                  / len(secs) * 1e3 for k in ex.spans}
+            parts.append("host ms a tile: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sp.items() if v))
+            gs = ex.geoloc_seconds - self.gl[0]
+            steps = {s: n - self.gl[1].get(s, 0)
+                     for s, n in ex.geoloc_steps.items()
+                     if n - self.gl[1].get(s, 0)}
+            if steps:
+                n = sum(steps.values())
+                parts.append(f"_geoloc_ctrl {gs / n * 1e3:.3f} host ms a "
+                             f"grid over {n} grids, steps ended at "
+                             f"{dict(sorted(steps.items()))}")
+        log("; ".join(parts) + f" ({card})")
+
+
+def same_tiles(method, card_tiles, cpu_tiles, what):
+    for a, b in zip(card_tiles, cpu_tiles):
+        compare_tiles(method, [a], [b], what)
+    return len(card_tiles)
+
+
+def sat_fused(pipe, cpu, reqs, what, card, partial=False, want=()):
+    """A sub-phase of fused tiles: counted on the card, then the same
+    requests on the CPU (bytes equal for nearest, <= 0.1% otherwise)."""
+    run = SatRun(pipe.executor)
+    try:
+        tiles, secs = fused_tiles(pipe, reqs, partial)
+    finally:
+        run.close()
+    if run.launches["B1"] + run.launches["B2"] != len(reqs) or \
+            run.launches["B3"] or run.launches["B4"]:
+        raise AssertionError(f"{what}: launches {run.launches} for "
+                             f"{len(reqs)} tiles")
+    run.need(*want)
+    run.report(what, secs, card)
+    got, _ = fused_tiles(cpu, reqs, partial)
+    same_tiles(reqs[0].resample, tiles, got, f"{what} card vs cpu")
+    return run.launches
+
+
+def sat_drills(pipe, cpu, req, n, what, card, want_b3):
+    """One cold drill (the stacks upload: GSKY_DRILL_CACHE=sync), then
+    ``n`` warm ones counted: ``want_b3`` B3 launches each; the CPU's
+    answer equal within rtol 1e-5."""
+    import torch
+    t0 = time.perf_counter()
+    cold = pipe.process(req)
+    cold_s = time.perf_counter() - t0
+    run = SatRun()
+    secs = []
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            res = pipe.process(req)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        run.close()
+    if run.launches != {"B1": 0, "B2": 0, "B3": n * want_b3, "B4": 0}:
+        raise AssertionError(f"{what}: launches {run.launches}, want B3 "
+                             f"{n * want_b3}")
+    same_drill(cold, res, f"{what} warm vs the first")
+    run.report(what, secs, card, unit="drills")
+    sp = pipe.spans
+    log(f"phase {what}: the first drill (stacks uploaded) {cold_s:.3f} s; "
+        f"drill stage totals s: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sp.items() if v))
+    err = same_drill(cpu.process(req), res, f"{what} card vs cpu")
+    if not max(max(c) for c in res.counts.values()):
+        raise AssertionError(f"{what}: no valid pixel")
+    return run.launches, err
+
+
+def out_of_domain(pipe, req, what):
+    """B1 and B2 against their plain versions at a tile's own operands,
+    its dense coordinates salted with NaN, +-inf and finite values past
+    +-2**31 (as geolocation extrapolation and the geostationary inverse
+    over space give): every method, kernel counts untouched.  Returns
+    the largest |kernel - plain| canvas difference."""
+    import torch
+    from gsky_tpu_torch.ops import paged, warp_render
+    from gsky_tpu_torch.ops.warp import _bilerp_grid, params16
+    from gsky_tpu_torch.pipeline.tile import ns_prio
+    ex = pipe.executor
+    saved = {k: v.launches for k, v in _kernel_counts().items()}
+    granules = pipe.index(req)
+    _, ns_ids, prio = ns_prio(granules)
+    group = ex._scene_groups(granules, ns_ids, prio, req.dst_gt(), req.crs,
+                             req.height, req.width)[0]
+    os.environ["GSKY_PAGE_SLOTS"] = "64"
+    try:
+        tables, p16, _ = ex._paged_from_group(group, 1)
+    finally:
+        del os.environ["GSKY_PAGE_SLOTS"]
+    ex.pool.unpin(tables)
+    dev = ex.device
+    sx, sy = _bilerp_grid(group.ctrl_dev[:, None], req.height, req.width,
+                          group.step)
+    sx, sy = sx.clone(), sy.clone()
+    natural = int((~torch.isfinite(sx)).sum())
+    salt = (float("nan"), float("inf"), -float("inf"), 3.0e9, -3.0e9,
+            2.0 ** 31, 1.0e30, -1.0e30)
+    for i, v in enumerate(salt):
+        sx[0, 8 * i, ::3] = v
+        sy[0, 8 * i + 3, 1::3] = v
+        sx[0, 4 * i:4 * i + 4, 200 + i] = v
+        sy[0, 100 + i, 4 * i:4 * i + 4] = -v
+    n_bad = int((~torch.isfinite(sx) | ~torch.isfinite(sy)
+                 | (sx.abs() >= 2.0 ** 31) | (sy.abs() >= 2.0 ** 31)).sum())
+    tab_d = torch.from_numpy(tables[None]).to(dev)
+    p16_d = torch.from_numpy(p16).to(dev)
+    n = len(group.scenes)
+    scenes = [s.dev for s in group.scenes]
+    b2p = params16(torch.from_numpy(group.params[:n].astype(np.float32))
+                   .to(dev))
+    worst = 0.0
+    for method in METHODS:
+        with ex.pool.locked_pool() as parr:
+            ck, bk = paged.paged_render_scored(parr, tab_d, p16_d, sx, sy,
+                                               method, 1)
+            cp, bp = paged.paged_render_scored_plain(parr, tab_d, p16_d,
+                                                     sx, sy, method, 1)
+        worst = max(worst, check_pair(method, ck, bk, cp, bp,
+                                      f"{what} B1 {method}"))
+        ck, bk = warp_render.warp_render_scored(scenes, sx[0], sy[0], b2p,
+                                                method, 1)
+        cp, bp = warp_render.warp_render_scored_plain(scenes, sx[0], sy[0],
+                                                      b2p, method, 1)
+        worst = max(worst, check_pair(method, ck, bk, cp, bp,
+                                      f"{what} B2 {method}"))
+    torch.cuda.synchronize()
+    for k, v in _kernel_counts().items():
+        v.launches = saved[k]
+    log(f"phase 18 out of domain, {what}: B1 and B2 equal their plain "
+        f"versions (best exact, canvas exact for near, <= 2 ulp "
+        f"otherwise; max |diff| {worst}) over {n_bad} of {sx.numel()} "
+        f"dense coordinates NaN, +-inf or past +-2**31 ({natural} "
+        f"non-finite from the grid itself), T={tables.shape[0]} "
+        f"S={tables.shape[1]}")
+    return worst
+
+
+def sat_ows(root, store, coll, card):
+    """18e's WPS Execute over HTTP of a VRT process (a Python pixel
+    function over the Albers tile): no kernel launch; the body equals
+    the CPU server's."""
+    from urllib.parse import quote
+    conf = os.path.join(root, "conf")
+    os.makedirs(conf, exist_ok=True)
+    with open(os.path.join(conf, "drill.vrt"), "w") as fp:
+        fp.write(SAT_VRT)
+    pair = OwsPair(conf, [], store, processes=[
+        {"identifier": "bare_vrt", "approx": False,
+         "data_sources": [{"data_source": coll, "rgb_products": ["dea"],
+                           "vrt_url": "drill.vrt"}]}])
+    try:
+        geom = json.dumps({"type": "Polygon", "coordinates": [[
+            [148.96, -35.2], [149.2, -35.2], [149.2, -35.4],
+            [148.96, -35.4], [148.96, -35.2]]]})
+        url = (f"{pair.base}/ows?service=WPS&request=Execute&identifier="
+               f"bare_vrt&datainputs={quote('geometry=' + geom)}")
+        kernels = _kernel_counts()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        status, ctype, body, _ = http_get(url)
+        secs = time.perf_counter() - t0
+        if (status, ctype) != (200, "text/xml") or b"2020-01-20," not in body:
+            raise AssertionError(f"18e VRT WPS: {status} {body[:400]}")
+        got = read_counts(kernels)
+        if any(got.values()):
+            raise AssertionError(f"18e VRT WPS launched {got}")
+        stamp = re.compile(rb'creationTime="[^"]*"')
+        if stamp.sub(b"", body) != stamp.sub(b"", pair.cpu_body(url)):
+            raise AssertionError("18e VRT WPS: the CPU server's body differs")
+        row = body.split(b"2020-01-20,")[1].split(b"\n")[0].split(b"<")[0]
+        log(f"phase 18e: WPS Execute of a VRT process over HTTP in "
+            f"{secs * 1e3:.3f} ms (host stats, no launch), mean "
+            f"{row.decode()}; body equals the CPU server's ({card})")
+    finally:
+        pair.close()
+
+
+def phase_sat(root, card):
+    """Phase 18.  Returns ({kernel: launches}, the out-of-domain checks'
+    max |kernel - plain|, B3's largest relative card-vs-CPU drill
+    difference)."""
+    import torch
+    from gsky_tpu_torch.index.client import MASClient
+    from gsky_tpu_torch.pipeline import drill as tdrill
+    from gsky_tpu_torch.pipeline.types import GeoDrillRequest, MaskSpec
+    total = dict.fromkeys(_kernel_counts(), 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    dirs = {k: os.path.join(root, k)
+            for k in ("ahi", "modis", "dea", "swath", "stack")}
+    for d in dirs.values():
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    ahi = os.path.join(dirs["ahi"], "ahi_fd_b13_20200115.nc")
+    write_himawari(ahi)
+    modis = []
+    for k in range(SAT_MODIS_DATES):
+        p = os.path.join(dirs["modis"],
+                         f"MOD09A1.A2020{1 + 8 * k:03d}.h29v12.hdf")
+        write_modis_tile(p, k)
+        modis.append(p)
+    dea = os.path.join(dirs["dea"], "dea_x15y-39_2020-01-20.tif")
+    write_albers(dea)
+    sw_full = os.path.join(dirs["swath"], "MOD021KM.A2020015.nc")
+    sw_sub = os.path.join(dirs["swath"], "MOD021KM.A2020016.nc")
+    write_swath(sw_full, 0)
+    write_swath(sw_sub, 1, sub=SAT_SWATH_SUB)
+    stack = os.path.join(dirs["stack"], "swath_stack.nc")
+    T, sh, sw = SAT_STACK
+    write_swath(stack, 2, shape=(sh, sw),
+                times=MODIS_T0 + 86400.0 * np.arange(T))
+    paths = [ahi, dea, sw_full, sw_sub, stack] + modis
+    size = sum(os.path.getsize(p) for p in paths)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = crawl(
+        [(ahi, None), (dea, "dea"), (sw_full, None),
+         (sw_sub, None, lambda r: sub_geo_loc(r, SAT_SWATH_SUB)),
+         (stack, None)] + [(p, None) for p in modis])
+    log(f"phase 18: {len(paths)} files ({size / 1e9:.3f} GB: AHI "
+        f"{SAT_AHI_N}^2 f32 NetCDF-3, {SAT_MODIS_DATES} HDF4 {SAT_MODIS_N}^2 "
+        f"int16 deflate, Albers {SAT_AEA_N}^2 int16 GeoTIFF, swaths "
+        f"{SAT_SWATH} f32, stack {SAT_STACK} f32) written in {t_write:.1f} "
+        f"s, crawled in {time.perf_counter() - t0:.1f} s")
+    pipe = make_pipeline(store, "cuda")
+    cpu = make_pipeline(store, "cpu")
+    worst_odd = 0.0
+
+    # -- 18a: the Himawari full disk (geostationary) -------------------
+    t0 = time.perf_counter()
+    native = tile_grid(145.5, -22.0, SAT_AHI_RES * 1.25, 4,
+                       SAT_TILES // 4)
+    zoomed = tile_grid(138.0, -18.0, SAT_AHI_RES * 5.0, 4, 2)
+    # the western limb (59.5 E at the equator): 12-degree tiles from
+    # 58 E, part disk, part space, inside the footprint the index keeps
+    # for the full disk (its corners are in space: 68-213 E, +-44)
+    limb = [merc_tile(64.0, lat, 12.0 * 111320.0 * np.cos(np.radians(lat))
+                      / 256) for lat in (-30.0, -10.0, 10.0, 30.0)]
+    reqs = [tile_request(dirs["ahi"], "tbb_13", b, "bilinear")
+            for b in native + zoomed]
+    fused_tiles(pipe, reqs[:1])                       # the scene uploads
+    log(f"phase 18a: scene cache warm in {time.perf_counter() - t0:.1f} s")
+    add(sat_fused(pipe, cpu, reqs, "18a AHI native and 4x, bilinear", card))
+    lreqs = [tile_request(dirs["ahi"], "tbb_13", b, m)
+             for b in limb for m in ("near", "bilinear")]
+    add(sat_fused(pipe, cpu, lreqs, "18a AHI limb, near and bilinear",
+                  card, partial=True))
+    worst_odd = max(worst_odd, out_of_domain(pipe, lreqs[1], "AHI limb"))
+
+    # -- 18b: MODIS sinusoidal HDF4 over 8 dates ------------------------
+    t0 = time.perf_counter()
+    boxes = tile_grid(139.0, -34.5, SAT_MODIS_RES * 1.1, 4,
+                      SAT_TILES // 8)
+    reqs = [tile_request(dirs["modis"], "sur_refl_b01", b, m)
+            for m in ("bilinear", "cubic") for b in boxes]
+    fused_tiles(pipe, reqs[:1])
+    log(f"phase 18b: {SAT_MODIS_DATES} scenes warm in "
+        f"{time.perf_counter() - t0:.1f} s")
+    add(sat_fused(pipe, cpu, reqs, "18b MODIS h29v12, 8 dates", card))
+    os.environ["GSKY_DRILL_CACHE"] = "sync"
+    try:
+        dreq = GeoDrillRequest(
+            collection=dirs["modis"], bands=["sur_refl_b01"], approx=False,
+            geometry_wkt="POLYGON((140.0 -35.0,140.8 -35.05,140.7 -35.6,"
+                         "140.1 -35.55,140.0 -35.0))")
+        launches, err_b = sat_drills(
+            tdrill.DrillPipeline(MASClient(store), device="cuda"),
+            tdrill.DrillPipeline(MASClient(store), device="cpu"), dreq,
+            SAT_DRILLS_B, "18b MODIS drills", card, SAT_MODIS_DATES)
+        add(launches)
+
+        # -- 18c: the Albers tile -------------------------------------
+        t0 = time.perf_counter()
+        boxes = tile_grid(149.0, -35.15, 25.0 * 1.2, 4, SAT_TILES // 4)
+        reqs = [tile_request(dirs["dea"], "dea", b, "bilinear")
+                for b in boxes]
+        fused_tiles(pipe, reqs[:1])
+        log(f"phase 18c: scene warm in {time.perf_counter() - t0:.1f} s")
+        add(sat_fused(pipe, cpu, reqs, "18c Albers in EPSG:3857", card))
+        x, y = SAT_AEA_X0 + 20000.0, SAT_AEA_Y0 - 30000.0
+        nat = [(x + i * 6400.0, y - 6400.0 * (j + 1),
+                x + (i + 1) * 6400.0, y - 6400.0 * j)
+               for j in range(2) for i in range(2)]
+        reqs = [tile_request(dirs["dea"], "dea", b, "near", "EPSG:3577")
+                for b in nat]
+        add(sat_fused(pipe, cpu, reqs, "18c Albers in EPSG:3577, near",
+                      card))
+
+        # -- 18d: MODIS L1B swaths (curvilinear) -----------------------
+        d1, d2 = 1579046400.0, 1579132800.0     # 2020-01-15, -16
+        t0 = time.perf_counter()
+        boxes = tile_grid(143.0, -27.5, 1250.0, 4, 2)
+        reqs = [tile_request(dirs["swath"], "bt", b, "bilinear",
+                             t=(d, d)) for d in (d1, d2) for b in boxes]
+        fused_tiles(pipe, reqs[:1])
+        fused_tiles(pipe, reqs[len(boxes):len(boxes) + 1])
+        log(f"phase 18d: scenes and geolocation grids warm in "
+            f"{time.perf_counter() - t0:.1f} s")
+        add(sat_fused(pipe, cpu, reqs, "18d swath fused (full and 5x "
+                      "subsampled geolocation)", card, want=("B1",)))
+        edge = [tile_request(dirs["swath"], "bt", merc_tile(
+            lon, lat, 2000.0), "bilinear", t=(d1, d1))
+            for lon, lat in swath_edge_points()]
+        add(sat_fused(pipe, cpu, edge, "18d swath edge", card,
+                      partial=True))
+        worst_odd = max(worst_odd, out_of_domain(pipe, edge[0],
+                                                 "swath edge"))
+        mask = MaskSpec(id="qa", bit_tests=["1000", "1000", "10", "10"])
+        mboxes = tile_grid(145.0, -29.0, 1100.0, 4, SAT_MASKED // 4)
+        # both granules (the range's end is exclusive): two geolocation
+        # groups, each its own B2 launch per band, then B4 at T = 2
+        mreqs = [tile_request(dirs["swath"], "bt", b, "bilinear",
+                              t=(d1, d2 + 1.0), mask=mask) for b in mboxes]
+        run = SatRun(pipe.executor)
+        secs, outs = [], []
+        try:
+            for r in mreqs:
+                t1 = time.perf_counter()
+                res = pipe.process(r)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t1)
+                outs.append(res)
+        finally:
+            run.close()
+        run.need("B2", "B4")
+        if run.launches["B4"] != len(mreqs) or run.launches["B3"]:
+            raise AssertionError(f"18d masked: launches {run.launches}")
+        run.report("18d swath masked (QA bit tests)", secs, card)
+        # the mask moved pixels to the other date's value or to nodata:
+        # the same tiles without it differ (on the CPU, no launch)
+        moved = 0
+        for r, res in zip(mreqs, outs):
+            bare = cpu.process(dataclasses.replace(r, mask=None))
+            moved += int(((bare.data["bt"] != res.data["bt"].cpu())
+                          | (bare.valid["bt"] != res.valid["bt"].cpu()))
+                         .sum())
+        if not moved:
+            raise AssertionError("18d masked: the QA mask changed nothing")
+        for r, res in zip(mreqs, outs):
+            ref = cpu.process(r)
+            d, v = res.data["bt"], res.valid["bt"]
+            rd, rv = ref.data["bt"], ref.valid["bt"]
+            if not torch.equal(v.cpu(), rv) or not v.any():
+                raise AssertionError(f"18d masked: validity differs "
+                                     f"({int((v.cpu() != rv).sum())} px) "
+                                     f"or is empty")
+            u = ulp_diff(d.cpu()[rv], rd[rv])
+            if u > 2:
+                raise AssertionError(f"18d masked: {u} ulp > 2")
+        add(run.launches)
+
+        # -- 18e: the curvilinear drill stack and WPS over a VRT --------
+        dreq = GeoDrillRequest(
+            collection=dirs["stack"], bands=["bt"], approx=False,
+            geometry_wkt="POLYGON((144.0 -30.0,147.0 -30.2,146.8 -32.6,"
+                         "144.2 -32.4,144.0 -30.0))")
+        launches, err_e = sat_drills(
+            tdrill.DrillPipeline(MASClient(store), device="cuda"),
+            tdrill.DrillPipeline(MASClient(store), device="cpu"), dreq,
+            SAT_DRILLS_E, "18e curvilinear stack drills", card, 1)
+        add(launches)
+    finally:
+        os.environ.pop("GSKY_DRILL_CACHE", None)
+    sat_ows(root, store, dirs["dea"], card)
+    return total, worst_odd, max(err_b, err_e)
+
+
+def swath_edge_points():
+    """Centres of four tiles on the full-resolution swath's edges (half
+    of each tile off the swath), from its own geolocation."""
+    H, W = SAT_SWATH
+    pts = [(H * 0.3, 0.0), (H * 0.7, float(W)), (0.0, W * 0.4),
+           (float(H), W * 0.6)]
+    return [tuple(float(v) for v in swath_lonlat(r, c, SAT_SWATH))
+            for r, c in pts]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4443,6 +5172,18 @@ def main() -> int:
     finally:
         shutil.rmtree(s2_root, ignore_errors=True)
 
+    # -- phase 18: the grids and formats of satellite archives ---------
+    sat_root = os.path.join(ROOT, "build", "smoke_sat")
+    shutil.rmtree(sat_root, ignore_errors=True)
+    os.makedirs(sat_root)
+    try:
+        t0 = time.perf_counter()
+        sat, sat_odd, sat_drill_rel = phase_sat(sat_root, card)
+        log(f"phase 18: launches {sat}; drills card vs CPU within rel "
+            f"{sat_drill_rel}; {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(sat_root, ignore_errors=True)
+
     # the kernels line reports the bilinear rows (the GetMap default
     # interpolated method): B1 at phase 3's tile, B2 at input (c), the
     # 4x zoomed-out tile; every method's and input's numbers are logged
@@ -4451,7 +5192,8 @@ def main() -> int:
     # 14's (B1: expression tiles per call and in waves; B2: the RGB
     # planes rung and the modular route), and phase 17's (B1: gateway
     # misses, JPEG tiles and clicks; B2: JPEG tiles of the planes rung;
-    # B4: clicks on the masked layer)
+    # B4: clicks on the masked layer), and phase 18's (every kernel;
+    # B1 and B2's max_abs_err includes its out-of-domain checks)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -4460,8 +5202,8 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/paged.py:173",
          "launches": b1_launches + b1_waves + b1_anim + b1_expr
-         + wcs_launches["B1"] + gw_launches["B1"],
-         "max_abs_err": max(max(r[1] for r in b1_rows), wide_err,
+         + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"],
+         "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B1")),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
@@ -4470,9 +5212,9 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
          "launches": b2_launches + b2_rgb + wcs_launches["B2"]
-         + gw_launches["B2"],
+         + gw_launches["B2"] + sat["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
-                            wide_err,
+                            wide_err, sat_odd,
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B2")),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,
@@ -4480,14 +5222,14 @@ def main() -> int:
         {"name": "masked_stats (B3)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/masked_stats.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
-         "launches": b3_launches + b3_wave_launches + b3_wps,
+         "launches": b3_launches + b3_wave_launches + b3_wps + sat["B3"],
          "max_abs_err": max(b3_err, b3_main_err, b3k_err),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
         {"name": "first_valid (B4)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/first_valid.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
-         "launches": b4_launches + b4_wcs + b4_gfi,
+         "launches": b4_launches + b4_wcs + b4_gfi + sat["B4"],
          "max_abs_err": b4_row[4],
          "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
          "bound_by": "bytes", "library_ms": b4_row[3]},

@@ -1,11 +1,12 @@
 """Coordinate reference systems: host (numpy, float64) projection math.
 
-Counterpart of `gsky_tpu/geo/crs.py`, trimmed to the projections the
-single-band GetMap slice serves — geographic (EPSG:4326), web mercator
-(EPSG:3857), ellipsoidal mercator and transverse mercator / UTM
-(EPSG:326xx, 327xx, GDA94 MGA 283xx) — and to the numpy path only: the
-port projects control points on the host and never traces projection
-math on the device.  Formulas, constants and op order are the reference
+Counterpart of `gsky_tpu/geo/crs.py` on the numpy path only: the port
+projects control points on the host and never traces projection math on
+the device.  It covers the datasets GSKY serves: geographic (EPSG:4326),
+web and ellipsoidal mercator, transverse mercator / UTM (EPSG:326xx,
+327xx, GDA94 MGA 283xx), Albers equal area (Australian Albers
+EPSG:3577), Lambert conformal conic, sinusoidal (MODIS) and
+geostationary (Himawari-8 full disk, sweep axis y).  Formulas, constants and op order are the reference
 module's, so both packages project the same points to the same bits.
 
 Formulas follow Snyder, *Map Projections — A Working Manual* (USGS PP 1395).
@@ -23,6 +24,7 @@ import numpy as np
 WGS84_A = 6378137.0
 WGS84_F = 1.0 / 298.257223563
 GRS80_F = 1.0 / 298.257222101
+MODIS_SPHERE_R = 6371007.181  # radius of the authalic sphere used by MODIS
 
 
 @dataclass(frozen=True)
@@ -50,6 +52,7 @@ class Ellipsoid:
 
 WGS84 = Ellipsoid(WGS84_A, WGS84_F)
 GRS80 = Ellipsoid(WGS84_A, GRS80_F)
+SPHERE = Ellipsoid(MODIS_SPHERE_R, 0.0)
 
 _ELLIPSOIDS = {
     "WGS84": WGS84,
@@ -183,11 +186,215 @@ def _tmerc_inv(x, y, p):
     return lon0 + _deg(lam), _deg(phi)
 
 
+# -- albers equal area (ellipsoidal, Snyder 14-1..14-21) --------------------
+
+def _aea_qm(sphi, e, e2):
+    """q for scalar sinphi with python floats (setup constants)."""
+    if e == 0.0:
+        return 2.0 * sphi
+    return (1 - e2) * (sphi / (1 - e2 * sphi * sphi)
+                       - (1 / (2 * e)) * math.log((1 - e * sphi) / (1 + e * sphi)))
+
+
+def _aea_q(sphi, e, e2):
+    if e == 0.0:
+        return 2.0 * sphi
+    return (1 - e2) * (sphi / (1 - e2 * sphi * sphi)
+                       - (1 / (2 * e)) * np.log((1 - e * sphi) / (1 + e * sphi)))
+
+
+def _aea_consts(p):
+    e, e2, a = p.ellps.e, p.ellps.e2, p.ellps.a
+    phi1, phi2 = math.radians(p.lat1), math.radians(p.lat2)
+    phi0 = math.radians(p.lat0)
+    m1 = math.cos(phi1) / math.sqrt(1 - e2 * math.sin(phi1) ** 2)
+    m2 = math.cos(phi2) / math.sqrt(1 - e2 * math.sin(phi2) ** 2)
+    q0 = _aea_qm(math.sin(phi0), e, e2)
+    q1 = _aea_qm(math.sin(phi1), e, e2)
+    q2 = _aea_qm(math.sin(phi2), e, e2)
+    if abs(phi1 - phi2) < 1e-10:
+        n = math.sin(phi1)
+    else:
+        n = (m1 * m1 - m2 * m2) / (q2 - q1)
+    C = m1 * m1 + n * q1
+    rho0 = a * math.sqrt(max(C - n * q0, 0.0)) / n
+    return n, C, rho0
+
+
+def _aea_fwd(lon, lat, p):
+    e, e2, a = p.ellps.e, p.ellps.e2, p.ellps.a
+    n, C, rho0 = _aea_consts(p)
+    phi = _rad(lat)
+    q = _aea_q(np.sin(phi), e, e2)
+    rho = a * np.sqrt(np.maximum(C - n * q, 0.0)) / n
+    theta = n * _rad(lon - p.lon0)
+    x = rho * np.sin(theta) + p.x0
+    y = rho0 - rho * np.cos(theta) + p.y0
+    return x, y
+
+
+def _aea_inv(x, y, p):
+    e, e2, a = p.ellps.e, p.ellps.e2, p.ellps.a
+    n, C, rho0 = _aea_consts(p)
+    x = x - p.x0
+    y = rho0 - (y - p.y0)
+    rho = np.sqrt(x * x + y * y)
+    theta = np.arctan2(np.sign(n) * x, np.sign(n) * y)
+    q = (C - (rho * n / a) ** 2) / n
+    lon = p.lon0 + _deg(theta / n)
+    if e == 0.0:
+        phi = np.arcsin(np.clip(q / 2.0, -1.0, 1.0))
+        return lon, _deg(phi)
+    # iterate Snyder 3-16 a fixed number of times (the reference's count)
+    phi = np.arcsin(np.clip(q / 2.0, -1.0, 1.0))
+    for _ in range(6):
+        sphi = np.sin(phi)
+        t = 1 - e2 * sphi * sphi
+        phi = phi + (t * t / (2 * np.cos(phi))) * (
+            q / (1 - e2)
+            - sphi / t
+            + (1 / (2 * e)) * np.log((1 - e * sphi) / (1 + e * sphi)))
+    return lon, _deg(phi)
+
+
+# -- lambert conformal conic (ellipsoidal, Snyder 15-1..15-11) --------------
+
+def _lcc_tm(phi, e):
+    return math.tan(math.pi / 4 - phi / 2) / (
+        (1 - e * math.sin(phi)) / (1 + e * math.sin(phi))) ** (e / 2)
+
+
+def _lcc_t(phi, e):
+    return np.tan(math.pi / 4 - phi / 2) / (
+        (1 - e * np.sin(phi)) / (1 + e * np.sin(phi))) ** (e / 2)
+
+
+def _lcc_consts(p):
+    e, e2 = p.ellps.e, p.ellps.e2
+    phi1, phi2 = math.radians(p.lat1), math.radians(p.lat2)
+    phi0 = math.radians(p.lat0)
+    m1 = math.cos(phi1) / math.sqrt(1 - e2 * math.sin(phi1) ** 2)
+    t1 = _lcc_tm(phi1, e)
+    if abs(phi1 - phi2) < 1e-10:
+        n = math.sin(phi1)
+    else:
+        m2 = math.cos(phi2) / math.sqrt(1 - e2 * math.sin(phi2) ** 2)
+        t2 = _lcc_tm(phi2, e)
+        n = (math.log(m1) - math.log(m2)) / (math.log(t1) - math.log(t2))
+    F = m1 / (n * t1 ** n)
+    rho0 = p.ellps.a * F * _lcc_tm(phi0, e) ** n
+    return n, F, rho0
+
+
+def _lcc_fwd(lon, lat, p):
+    e, a = p.ellps.e, p.ellps.a
+    n, F, rho0 = _lcc_consts(p)
+    phi = _rad(lat)
+    t = _lcc_t(phi, e)
+    rho = a * F * t ** n
+    theta = n * _rad(lon - p.lon0)
+    x = rho * np.sin(theta) + p.x0
+    y = rho0 - rho * np.cos(theta) + p.y0
+    return x, y
+
+
+def _lcc_inv(x, y, p):
+    e, a = p.ellps.e, p.ellps.a
+    n, F, rho0 = _lcc_consts(p)
+    x = x - p.x0
+    y = rho0 - (y - p.y0)
+    rho = np.sign(n) * np.sqrt(x * x + y * y)
+    theta = np.arctan2(np.sign(n) * x, np.sign(n) * y)
+    t = (rho / (a * F)) ** (1.0 / n)
+    # Snyder 7-9 iteration, fixed count
+    phi = math.pi / 2 - 2 * np.arctan(t)
+    for _ in range(6):
+        sphi = np.sin(phi)
+        phi = math.pi / 2 - 2 * np.arctan(
+            t * ((1 - e * sphi) / (1 + e * sphi)) ** (e / 2))
+    lon = p.lon0 + _deg(theta / n)
+    return lon, _deg(phi)
+
+
+# -- sinusoidal (spherical; MODIS grid) -------------------------------------
+
+def _sinu_fwd(lon, lat, p):
+    R = p.ellps.a
+    phi = _rad(lat)
+    x = R * _rad(lon - p.lon0) * np.cos(phi) + p.x0
+    y = R * phi + p.y0
+    return x, y
+
+
+def _sinu_inv(x, y, p):
+    R = p.ellps.a
+    phi = (y - p.y0) / R
+    cphi = np.cos(phi)
+    cphi = np.where(np.abs(cphi) < 1e-12, 1e-12, cphi)
+    lon = p.lon0 + _deg((x - p.x0) / (R * cphi))
+    return lon, _deg(phi)
+
+
+# -- geostationary (Himawari-8/AHI, GOES; sweep axis y; CGMS LRIT/HRIT) -----
+
+def _geos_fwd(lon, lat, p):
+    """PROJ's geos algorithm, sweep=y (Himawari/MSG convention), working in
+    units of the semi-major axis."""
+    a, e2 = p.ellps.a, p.ellps.e2
+    radius_p = math.sqrt(1 - e2)        # b/a
+    radius_g = 1.0 + p.h / a            # satellite distance from centre
+    radius_g_1 = p.h / a
+    lam = _rad(lon - p.lon0)
+    phi = np.arctan(radius_p * radius_p * np.tan(_rad(lat)))
+    r = radius_p / np.hypot(radius_p * np.cos(phi), np.sin(phi))
+    vx = r * np.cos(lam) * np.cos(phi)
+    vy = r * np.sin(lam) * np.cos(phi)
+    vz = r * np.sin(phi)
+    tmp = radius_g - vx
+    # visibility: points on the far side of the earth are not imageable;
+    # NaN there so warps resolve them to nodata instead of wrong gathers
+    visible = ((radius_g - vx) * vx - vy * vy
+               - vz * vz / (radius_p * radius_p)) >= 0.0
+    nan = np.asarray(float("nan"))
+    x = np.where(visible, radius_g_1 * np.arctan(vy / tmp), nan)
+    y = np.where(visible, radius_g_1 * np.arctan(vz / np.hypot(vy, tmp)), nan)
+    return a * x + p.x0, a * y + p.y0
+
+
+def _geos_inv(x, y, p):
+    a, e2 = p.ellps.a, p.ellps.e2
+    radius_p = math.sqrt(1 - e2)
+    radius_p_inv2 = 1.0 / (1 - e2)
+    radius_g = 1.0 + p.h / a
+    radius_g_1 = p.h / a
+    xs = (x - p.x0) / a
+    ys = (y - p.y0) / a
+    vx = -np.ones_like(xs * 1.0)
+    vy = np.tan(xs / radius_g_1)
+    vz = np.tan(ys / radius_g_1) * np.hypot(np.ones_like(vy), vy)
+    av = vz / radius_p
+    aq = vy * vy + av * av + vx * vx
+    bq = 2 * radius_g * vx
+    det = np.maximum(bq * bq - 4 * aq * (radius_g * radius_g - 1.0), 0.0)
+    k = (-bq - np.sqrt(det)) / (2 * aq)
+    vx2 = radius_g + k * vx
+    vy2 = k * vy
+    vz2 = k * vz
+    lam = np.arctan2(vy2, vx2)
+    phi = np.arctan(vz2 * np.cos(lam) / vx2)
+    phi = np.arctan(radius_p_inv2 * np.tan(phi))
+    return p.lon0 + _deg(lam), _deg(phi)
+
+
 _KERNELS = {
     "longlat": (None, None),
     "merc": (_merc_fwd, _merc_inv),
     "webmerc": (_webmerc_fwd, _webmerc_inv),
     "tmerc": (_tmerc_fwd, _tmerc_inv),
+    "aea": (_aea_fwd, _aea_inv),
+    "lcc": (_lcc_fwd, _lcc_inv),
+    "sinu": (_sinu_fwd, _sinu_inv),
+    "geos": (_geos_fwd, _geos_inv),
 }
 
 
@@ -197,16 +404,16 @@ class CRS:
     coordinate caches.  ``proj`` selects the projection kernel;
     parameters mirror proj4 names."""
 
-    proj: str  # longlat | merc | webmerc | tmerc
+    proj: str  # longlat | merc | webmerc | tmerc | aea | lcc | sinu | geos
     ellps: Ellipsoid = WGS84
     lon0: float = 0.0
     lat0: float = 0.0
-    lat1: float = 0.0
-    lat2: float = 0.0
+    lat1: float = 0.0  # 1st standard parallel (aea/lcc)
+    lat2: float = 0.0  # 2nd standard parallel (aea/lcc)
     k0: float = 1.0
     x0: float = 0.0
     y0: float = 0.0
-    h: float = 0.0
+    h: float = 0.0  # satellite height (geos)
     epsg: Optional[int] = None
 
     @property
@@ -251,6 +458,10 @@ class CRS:
             "merc": "Mercator_1SP",
             "webmerc": "Mercator_1SP",
             "tmerc": "Transverse_Mercator",
+            "aea": "Albers_Conic_Equal_Area",
+            "lcc": "Lambert_Conformal_Conic_2SP",
+            "sinu": "Sinusoidal",
+            "geos": "Geostationary_Satellite",
         }
         params = [
             ("central_meridian", self.lon0),
@@ -261,6 +472,8 @@ class CRS:
             ("false_easting", self.x0),
             ("false_northing", self.y0),
         ]
+        if self.proj == "geos":
+            params.append(("satellite_height", self.h))
         pstr = ",".join(f'PARAMETER["{k}",{v}]' for k, v in params)
         auth = f',AUTHORITY["EPSG","{self.epsg}"]' if self.epsg else ""
         return (
@@ -286,6 +499,16 @@ class CRS:
                         f"+x_0={self.x0} +y_0={self.y0}"),
             "tmerc": (f"+proj=tmerc +lat_0={self.lat0} +lon_0={self.lon0} "
                       f"+k={self.k0} +x_0={self.x0} +y_0={self.y0} {ell}"),
+            "aea": (f"+proj=aea +lat_1={self.lat1} +lat_2={self.lat2} "
+                    f"+lat_0={self.lat0} +lon_0={self.lon0} "
+                    f"+x_0={self.x0} +y_0={self.y0} {ell}"),
+            "lcc": (f"+proj=lcc +lat_1={self.lat1} +lat_2={self.lat2} "
+                    f"+lat_0={self.lat0} +lon_0={self.lon0} "
+                    f"+x_0={self.x0} +y_0={self.y0} {ell}"),
+            "sinu": (f"+proj=sinu +lon_0={self.lon0} +x_0={self.x0} "
+                     f"+y_0={self.y0} {ell}"),
+            "geos": (f"+proj=geos +h={self.h} +lon_0={self.lon0} "
+                     f"+x_0={self.x0} +y_0={self.y0} {ell}"),
         }[self.proj]
         return base + " +units=m +no_defs" if self.proj != "longlat" \
             else base + " +no_defs"
@@ -294,11 +517,23 @@ class CRS:
 EPSG4326 = CRS("longlat", WGS84, epsg=4326)
 EPSG3857 = CRS("webmerc", WGS84, epsg=3857)
 
+# Australian Albers (GDA94) — GSKY's home projection for Landsat/geoglam.
+EPSG3577 = CRS("aea", GRS80, lon0=132.0, lat0=0.0, lat1=-18.0, lat2=-36.0,
+               x0=0.0, y0=0.0, epsg=3577)
+# MODIS sinusoidal
+CRS_SINU_MODIS = CRS("sinu", SPHERE, lon0=0.0, epsg=None)
+# Himawari-8 full disk
+CRS_HIMAWARI = CRS("geos", WGS84, lon0=140.7, h=35785863.0, epsg=None)
+
 _STATIC_EPSG = {
     4326: EPSG4326,
     4283: CRS("longlat", GRS80, epsg=4283),  # GDA94 geographic
     3857: EPSG3857,
     900913: CRS("webmerc", WGS84, epsg=900913),
+    3577: EPSG3577,
+    102008: CRS("aea", GRS80, lon0=-96.0, lat0=40.0, lat1=20.0, lat2=60.0,
+                epsg=102008),  # North America Albers
+    6974: CRS_SINU_MODIS,  # SR-ORG:6974 style MODIS sinusoidal
 }
 
 
@@ -367,6 +602,19 @@ def _parse_proj4(s: str) -> CRS:
                        x0=500000.0, y0=10000000.0 if south else 0.0)
         return CRS("tmerc", ellps, lon0=f("lon_0"), lat0=f("lat_0"),
                    k0=f("k", f("k_0", 1.0)), x0=f("x_0"), y0=f("y_0"))
+    if proj == "aea":
+        return CRS("aea", ellps, lon0=f("lon_0"), lat0=f("lat_0"),
+                   lat1=f("lat_1"), lat2=f("lat_2"), x0=f("x_0"), y0=f("y_0"))
+    if proj == "lcc":
+        return CRS("lcc", ellps, lon0=f("lon_0"), lat0=f("lat_0"),
+                   lat1=f("lat_1"), lat2=f("lat_2", f("lat_1")),
+                   x0=f("x_0"), y0=f("y_0"))
+    if proj == "sinu":
+        return CRS("sinu", ellps if ellps.f == 0 else SPHERE, lon0=f("lon_0"),
+                   x0=f("x_0"), y0=f("y_0"))
+    if proj == "geos":
+        return CRS("geos", ellps, lon0=f("lon_0"), h=f("h"),
+                   x0=f("x_0"), y0=f("y_0"))
     raise ValueError(f"unsupported proj4 projection {proj!r}")
 
 
@@ -397,17 +645,30 @@ def _parse_wkt(wkt: str) -> CRS:
                       _wkt_param(wkt, "longitude_of_center"))
     lat0 = _wkt_param(wkt, "latitude_of_origin",
                       _wkt_param(wkt, "latitude_of_center"))
+    lat1 = _wkt_param(wkt, "standard_parallel_1")
+    lat2 = _wkt_param(wkt, "standard_parallel_2", lat1)
     k0 = _wkt_param(wkt, "scale_factor", 1.0)
     x0 = _wkt_param(wkt, "false_easting")
     y0 = _wkt_param(wkt, "false_northing")
     if "transverse_mercator" in pname:
         return CRS("tmerc", ellps, lon0=lon0, lat0=lat0, k0=k0, x0=x0, y0=y0)
+    if "albers" in pname:
+        return CRS("aea", ellps, lon0=lon0, lat0=lat0, lat1=lat1, lat2=lat2,
+                   x0=x0, y0=y0)
+    if "lambert_conformal" in pname:
+        return CRS("lcc", ellps, lon0=lon0, lat0=lat0, lat1=lat1, lat2=lat2,
+                   x0=x0, y0=y0)
+    if "sinusoidal" in pname:
+        return CRS("sinu", Ellipsoid(ellps.a, 0.0), lon0=lon0, x0=x0, y0=y0)
     if "mercator" in pname:
         if ellps.f == 0.0 or "pseudo-mercator" in wkt.lower() \
                 or "popular visualisation" in wkt.lower():
             return CRS("webmerc", Ellipsoid(ellps.a, 0.0), lon0=lon0,
                        x0=x0, y0=y0)
         return CRS("merc", ellps, lon0=lon0, k0=k0, x0=x0, y0=y0)
+    if "geostationary" in pname:
+        return CRS("geos", ellps, lon0=lon0,
+                   h=_wkt_param(wkt, "satellite_height"), x0=x0, y0=y0)
     raise ValueError(f"unsupported WKT projection {pname!r}")
 
 

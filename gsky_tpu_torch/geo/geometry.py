@@ -227,6 +227,42 @@ def _shoelace(ring: Ring) -> float:
     return 0.5 * float(np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y))
 
 
+def contains_mask(g: "Geometry", xs: np.ndarray,
+                  ys: np.ndarray) -> np.ndarray:
+    """Vectorised `contains_point` over coordinate arrays: the
+    polygon-membership test for curvilinear sample grids, where every
+    sample carries its own (lon, lat) and an affine rasterize cannot
+    apply (the swath drill's counterpart of the ALL_TOUCHED burn).
+    Same even-odd ray-cast convention as `_point_in_ring`."""
+    xs = np.asarray(xs, np.float64)
+    ys = np.asarray(ys, np.float64)
+    inside = np.zeros(xs.shape, bool)
+
+    def ray(ring, px, py):
+        x, y = ring[:, 0], ring[:, 1]
+        x2, y2 = np.roll(x, -1), np.roll(y, -1)
+        cnt = np.zeros(px.shape, np.int64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for i in range(len(x)):
+                if y[i] == y2[i]:
+                    continue
+                cond = (y[i] > py) != (y2[i] > py)
+                xint = x[i] + (py - y[i]) * (x2[i] - x[i]) \
+                    / (y2[i] - y[i])
+                cnt += (cond & (px < xint)).astype(np.int64)
+        return cnt % 2 == 1
+
+    for poly in g.polys:
+        if not poly or not len(poly[0]):
+            continue
+        acc = ray(poly[0], xs, ys)
+        for hole in poly[1:]:
+            if len(hole):
+                acc &= ~ray(hole, xs, ys)
+        inside |= acc
+    return inside
+
+
 def _point_in_ring(ring: Ring, px: float, py: float) -> bool:
     x, y = ring[:, 0], ring[:, 1]
     x2, y2 = np.roll(x, -1), np.roll(y, -1)

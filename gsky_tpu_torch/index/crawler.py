@@ -1,13 +1,15 @@
 """File crawler: one MAS record per raster file.
 
-Counterpart of the GeoTIFF and NetCDF parts of
-`gsky_tpu/index/crawler.py`: `extract` opens a GeoTIFF or a NetCDF-3
-file and emits the {"filename", "file_type", "geo_metadata": [...]}
-record `MASStore.ingest` takes: timestamps from the NetCDF time axis
-or the file name, and optionally approximate per-timestep means and
-sample counts, which the drill's fast path answers from.  Other formats
-(NetCDF-4/HDF5, GMT, HDF4, the adapter tier) give an error record
-saying they are not ported.
+Counterpart of `gsky_tpu/index/crawler.py` for the formats the port
+reads natively: `extract` opens a GeoTIFF, a NetCDF (3, or 4 where
+h5py imports), a GMT grid or an HDF4 / HDF-EOS file, and emits the
+{"filename", "file_type", "geo_metadata": [...]} record
+`MASStore.ingest` takes: timestamps from the NetCDF time axis or the
+file name, curvilinear NetCDF products' ``geo_loc`` record, and
+optionally approximate per-timestep means and sample counts, which the
+drill's fast path answers from.  Not ported: crawler rulesets and the
+eo-datasets YAML extractors (ROADMAP A.8); a file no reader claims
+gives an error record.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .store import ISO, fmt_time, sanitize_namespace
 
 _TIFF_MAGIC = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 _HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
+_HDF4_MAGIC = b"\x0e\x03\x13\x01"
 
 # filename timestamp patterns
 _TIME_PATTERNS = [
@@ -114,12 +117,137 @@ def extract_geotiff(path: str, namespace: Optional[str] = None,
     return {"filename": path, "file_type": "GeoTIFF", "geo_metadata": geo_md}
 
 
+def extract_gmt(path: str, approx_stats: bool = False) -> Dict:
+    """MAS record for a GMT grid (`gmtdataset.cpp:226-404` role): one
+    band, geographic by GMT convention."""
+    from ..geo.crs import EPSG4326
+    from ..io.gmt import GMTGrid
+
+    with GMTGrid(path) as g:
+        stem = sanitize_namespace(
+            os.path.splitext(os.path.basename(path))[0])
+        ts = timestamp_from_filename(path)
+        ds = {
+            # the GMT: prefix keeps .nc/.grd-named GMT grids off the
+            # NetCDF decode path (granule routing keys on ds_name)
+            "ds_name": f'GMT:"{path}"',
+            "namespace": stem,
+            "array_type": NP_TO_GDAL.get(np.dtype(g.dtype), "Float32"),
+            "proj_wkt": EPSG4326.to_wkt(),
+            "proj4": EPSG4326.to_proj4(),
+            "geotransform": list(g.gt.to_gdal()),
+            "x_size": g.width,
+            "y_size": g.height,
+            "polygon": _polygon_wkt(g.gt, g.width, g.height),
+            "timestamps": [ts] if ts else [],
+            "timestamps_source": "filename" if ts else "",
+            # GMT holes are NaN, which nodata_mask's finite check
+            # already rejects; recording NaN here would round-trip the
+            # store as NULL->0.0 and mask real zero-valued pixels
+            "nodata": None,
+            "band": 1,
+            "overviews": None,
+        }
+        if approx_stats:
+            ds.update(_approx_stats(g.read(1), g.nodata))
+    return {"filename": path, "file_type": "GMT", "geo_metadata": [ds]}
+
+
+def extract_hdf4(path: str, approx_stats: bool = False) -> Dict:
+    """MAS record for an HDF4 / HDF-EOS grid file (the MODIS family the
+    reference serves through GDAL's HDF4 reader): one namespace per
+    scientific data set, georeferenced from StructMetadata.0 when
+    present (sinusoidal or geographic), else pixel space.  Timestamps come from the filename (the MODIS
+    ``AYYYYDDD`` pattern is in `_TIME_PATTERNS`)."""
+    from ..geo.crs import EPSG4326
+    from ..io.hdf4 import HDF4
+
+    with HDF4(path) as h:
+        stem = sanitize_namespace(
+            os.path.splitext(os.path.basename(path))[0])
+        ts = timestamp_from_filename(path)
+        gt = h.gt or GeoTransform(0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+        crs = h.crs or EPSG4326
+        geo_md = []
+        for b, s in enumerate(h.sds, start=1):
+            if len(s.dims) < 2:
+                continue
+            hh, ww = int(s.dims[-2]), int(s.dims[-1])
+            ns = sanitize_namespace(s.name) or (
+                stem if len(h.sds) == 1 else f"sds_{b}")
+            ds = {
+                # the trailing :band index is what granule expansion
+                # (and the drill indexer) recover the band from — the
+                # store has no band column (`granule.py:60-63`)
+                "ds_name": f'HDF4:"{path}":{s.name}:{b}',
+                "namespace": ns,
+                "array_type": NP_TO_GDAL.get(
+                    np.dtype(s.dtype.newbyteorder("=")), "Float32"),
+                "proj_wkt": crs.to_wkt(),
+                "proj4": crs.to_proj4(),
+                "geotransform": list(gt.to_gdal()),
+                "x_size": ww,
+                "y_size": hh,
+                "polygon": _polygon_wkt(gt, ww, hh),
+                "timestamps": [ts] if ts else [],
+                "timestamps_source": "filename" if ts else "",
+                "nodata": s.fill,
+                "band": b,
+                "overviews": None,
+            }
+            if approx_stats:
+                ds.update(_approx_stats(h.read(b), s.fill))
+            geo_md.append(ds)
+    return {"filename": path, "file_type": "HDF4",
+            "geo_metadata": geo_md}
+
+
+def extract_raster(path: str, approx_stats: bool = False) -> Dict:
+    """MAS record for whatever else `io.registry` opens (the
+    `GDALOpen`-for-everything-else role of `warp.go:89-101`).
+    Georeferencing comes from the handle; srs defaults to EPSG:4326.
+    A file no registered reader claims raises ValueError."""
+    from ..geo.crs import EPSG4326
+    from ..io.registry import open_raster
+
+    h = open_raster(path)
+    try:
+        stem = sanitize_namespace(
+            os.path.splitext(os.path.basename(path))[0])
+        ts = timestamp_from_filename(path)
+        gt = getattr(h, "gt", None) or GeoTransform(0, 1, 0, 0, 0, 1)
+        crs = getattr(h, "crs", None) or EPSG4326
+        count = getattr(h, "bands", 1)
+        geo_md = []
+        for b in range(1, count + 1):
+            ns = stem if count == 1 else f"{stem}_b{b}"
+            ds = {
+                "ds_name": f"{path}:{b}" if count > 1 else path,
+                "namespace": ns,
+                "array_type": "Float32",
+                "proj_wkt": crs.to_wkt(),
+                "proj4": crs.to_proj4(),
+                "geotransform": list(gt.to_gdal()),
+                "x_size": h.width,
+                "y_size": h.height,
+                "polygon": _polygon_wkt(gt, h.width, h.height),
+                "timestamps": [ts] if ts else [],
+                "timestamps_source": "filename" if ts else "",
+                "nodata": h.nodata,
+                "band": b,
+                "overviews": None,
+            }
+            if approx_stats:
+                ds.update(_approx_stats(h.read(b), h.nodata))
+            geo_md.append(ds)
+    finally:
+        h.close()
+    return {"filename": path, "file_type": "Raster",
+            "geo_metadata": geo_md}
+
+
 def extract_netcdf(path: str, approx_stats: bool = False) -> Dict:
     with NetCDF(path) as nc:
-        v = nc.variables
-        if "dimension" in v and "z" in v and len(v["z"].shape) == 1:
-            raise NotImplementedError(
-                f"{path}: GMT grids are not ported to gsky_tpu_torch yet")
         # curvilinear products carry 2-D lon/lat geolocation arrays
         # instead of an affine grid; detect them BEFORE geotransform(),
         # which raises for a swath without 1-D axis variables
@@ -196,19 +324,39 @@ def extract_netcdf(path: str, approx_stats: bool = False) -> Dict:
 
 
 def extract(path: str, approx_stats: bool = False) -> Dict:
-    """Extract one file's MAS record, routed by its magic bytes.  Never
-    raises: a file that cannot be read, or whose format is not ported,
-    yields an error record with no datasets."""
+    """Extract one file's MAS record, routed by its extension and magic
+    bytes.  Never raises: a file that cannot be read, or that no reader
+    claims, yields an error record with no datasets."""
     path = os.path.abspath(path)  # MAS scopes queries by path prefix
+    low = path.lower()
+
+    def _nc_or_gmt():
+        # GMT grids share the CDF magic; the variable layout decides.
+        # Non-NetCDF files wearing these extensions go to the registry
+        with open(path, "rb") as fp:
+            m = fp.read(8)
+        if m[:3] != b"CDF" and m[:8] != _HDF5_MAGIC:
+            return extract_raster(path, approx_stats=approx_stats)
+        from ..io.gmt import is_gmt
+        if is_gmt(path):
+            return extract_gmt(path, approx_stats)
+        return extract_netcdf(path, approx_stats)
+
     try:
+        if low.endswith((".nc", ".nc4", ".cdf", ".grd")):
+            return _nc_or_gmt()
+        if low.endswith((".tif", ".tiff", ".gtiff")):
+            return extract_geotiff(path, approx_stats=approx_stats)
+        # sniff (.hdf may be HDF4 *or* HDF5-based, so magic decides)
         with open(path, "rb") as fp:
             magic = fp.read(8)
         if magic[:3] == b"CDF" or magic[:8] == _HDF5_MAGIC:
-            return extract_netcdf(path, approx_stats)
+            return _nc_or_gmt()
+        if magic[:4] == _HDF4_MAGIC:
+            return extract_hdf4(path, approx_stats=approx_stats)
         if magic[:4] in _TIFF_MAGIC:
             return extract_geotiff(path, approx_stats=approx_stats)
-        raise NotImplementedError(
-            f"{path}: format not ported to gsky_tpu_torch yet")
-    except (OSError, ValueError, KeyError, NotImplementedError) as e:
+        return extract_raster(path, approx_stats=approx_stats)
+    except Exception as e:
         return {"filename": path, "file_type": "", "error": str(e),
                 "geo_metadata": []}

@@ -1,11 +1,13 @@
-"""NetCDF-3 reading and writing, with CF georeferencing.
+"""NetCDF reading and writing, with CF georeferencing.
 
-Counterpart of `gsky_tpu/io/netcdf.py` for the classic and 64-bit-offset
-formats: a built-in streaming parser (only the header is held in
+Counterpart of `gsky_tpu/io/netcdf.py`: NetCDF-3 classic and 64-bit
+offset through a built-in streaming parser (only the header is held in
 memory; `read_slice` reads the byte range of one (time, y, x)
-hyperslab), the CF helpers (time units, grid mapping -> CRS, fill
-values -> nodata) and the CF writer.  NetCDF-4 (HDF5) is not ported:
-opening one raises NotImplementedError.
+hyperslab), NetCDF-4 (HDF5) through ``h5py`` where it imports, the CF
+helpers (time units, grid mapping -> CRS, fill values -> nodata) and
+the NetCDF-3 CF writer.  ``h5py`` is imported when an HDF5 file is
+opened, never at module import; without it such a file raises
+ValueError naming the missing package.
 """
 
 from __future__ import annotations
@@ -69,12 +71,6 @@ def cf_times_to_unix(values: np.ndarray, units: str) -> np.ndarray:
 # CF grid mapping -> CRS
 # ---------------------------------------------------------------------------
 
-# grid mappings of the reference whose projections the port's CRS has
-# no kernels for yet
-_UNPORTED_MAPPINGS = ("albers_conical_equal_area", "lambert_conformal_conic",
-                      "sinusoidal", "geostationary")
-
-
 def crs_from_cf(attrs: Dict[str, object]) -> CRS:
     """A CRS from a CF grid-mapping variable's attributes (or its
     embedded ``spatial_ref`` / ``crs_wkt``)."""
@@ -115,14 +111,35 @@ def crs_from_cf(attrs: Dict[str, object]) -> CRS:
                    lat0=f("latitude_of_projection_origin"),
                    k0=f("scale_factor_at_central_meridian", 1.0),
                    x0=f("false_easting"), y0=f("false_northing"))
+    if name == "albers_conical_equal_area":
+        sp = attrs.get("standard_parallel", (0.0, 0.0))
+        sp = np.asarray(sp).reshape(-1)
+        return CRS("aea", ellps,
+                   lon0=f("longitude_of_central_meridian"),
+                   lat0=f("latitude_of_projection_origin"),
+                   lat1=float(sp[0]), lat2=float(sp[-1]),
+                   x0=f("false_easting"), y0=f("false_northing"))
+    if name == "lambert_conformal_conic":
+        sp = np.asarray(attrs.get("standard_parallel", (0.0,))).reshape(-1)
+        return CRS("lcc", ellps,
+                   lon0=f("longitude_of_central_meridian"),
+                   lat0=f("latitude_of_projection_origin"),
+                   lat1=float(sp[0]), lat2=float(sp[-1]),
+                   x0=f("false_easting"), y0=f("false_northing"))
+    if name == "sinusoidal":
+        return CRS("sinu", Ellipsoid(a, 0.0),
+                   lon0=f("longitude_of_projection_origin"),
+                   x0=f("false_easting"), y0=f("false_northing"))
+    if name == "geostationary":
+        return CRS("geos", ellps,
+                   lon0=f("longitude_of_projection_origin"),
+                   h=f("perspective_point_height"),
+                   x0=f("false_easting"), y0=f("false_northing"))
     if name == "mercator":
         return CRS("merc", ellps,
                    lon0=f("longitude_of_projection_origin"),
                    k0=f("scale_factor_at_projection_origin", 1.0),
                    x0=f("false_easting"), y0=f("false_northing"))
-    if name in _UNPORTED_MAPPINGS:
-        raise NotImplementedError(
-            f"grid mapping {name!r} is not ported to gsky_tpu_torch yet")
     raise ValueError(f"unsupported grid_mapping_name {name!r}")
 
 
@@ -161,25 +178,62 @@ class NCVar:
         return None
 
 
+def _h5py():
+    """The ``h5py`` module, imported on first use: NetCDF-4 is optional,
+    and a file that needs it raises ValueError (the error the crawler
+    records) when it is missing."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ValueError(
+            "NetCDF-4/HDF5 files need the optional h5py package, which "
+            f"is not installed ({e})") from None
+    return h5py
+
+
 class NetCDF:
-    """A NetCDF-3 file (classic or 64-bit offset)."""
+    """Uniform facade over NetCDF-3 (built-in) and NetCDF-4 (h5py)."""
 
     def __init__(self, path: str):
         self.path = path
+        self._nc3 = None
+        self._h5 = None
         with open(path, "rb") as fp:
             magic = fp.read(8)
-        if magic[:8] == _HDF5_MAGIC:
-            raise NotImplementedError(
-                f"{path}: NetCDF-4/HDF5 files are not ported to "
-                "gsky_tpu_torch yet (NetCDF-3 only)")
-        if magic[:3] != b"CDF":
+        if magic[:3] == b"CDF":
+            self._nc3 = _NC3File(path)
+            self.variables = self._nc3.variables
+            self.attrs = self._nc3.attrs
+        elif magic[:8] == _HDF5_MAGIC:
+            h5py = _h5py()
+            self._h5 = h5py.File(path, "r")
+            self.variables = {}
+            self._h5_datasets: Dict[str, object] = {}
+            self.attrs = {k: self._h5.attrs[k] for k in self._h5.attrs}
+
+            def visit(name, obj):
+                if isinstance(obj, h5py.Dataset):
+                    attrs = {k: obj.attrs[k] for k in obj.attrs}
+                    dims = tuple(
+                        (d.label or (d[0].name.split("/")[-1]
+                                     if len(d) else ""))
+                        for d in obj.dims) if obj.dims else ()
+                    if not any(dims):
+                        dims = tuple(f"dim{i}" for i in range(obj.ndim))
+                    key = name.split("/")[-1]
+                    self.variables[key] = NCVar(
+                        key, dims, obj.shape, obj.dtype, attrs,
+                        _reader=obj.__getitem__)
+                    self._h5_datasets[key] = obj
+            self._h5.visititems(visit)
+        else:
             raise ValueError(f"{path}: not a NetCDF file")
-        self._nc3 = _NC3File(path)
-        self.variables = self._nc3.variables
-        self.attrs = self._nc3.attrs
 
     def close(self):
-        self._nc3._fp.close()
+        if self._h5 is not None:
+            self._h5.close()
+        if self._nc3 is not None:
+            self._nc3._fp.close()
 
     def __enter__(self):
         return self
@@ -305,6 +359,33 @@ class NetCDF:
             t = 0 if time_index is None else time_index
             return np.asarray(v[(t, 0, ys, xs)])
         raise ValueError(f"unsupported rank {len(v.shape)} for {var_name}")
+
+    def chunk_map(self, var_name: str) -> Dict[str, object]:
+        """The chunk index of one variable, for ranged readers: NetCDF-3
+        layouts are exact byte arithmetic (begin, record stride, row
+        bytes); NetCDF-4 reports the HDF5 chunk shape and count (h5py
+        owns the B-tree)."""
+        v = self.variables[var_name]
+        if self._nc3 is not None:
+            rd = v._reader
+            if not isinstance(rd, _NC3Reader):
+                raise ValueError(f"{var_name}: no NC3 layout")
+            itemsize = rd.dt.itemsize
+            return {"kind": "nc3", "begin": rd.begin,
+                    "record": rd.is_record, "rec_stride": rd.rec_stride,
+                    "itemsize": itemsize, "shape": tuple(v.shape),
+                    "row_bytes": int(v.shape[-1]) * itemsize}
+        ds = self._h5_datasets.get(var_name)
+        if ds is None:
+            raise KeyError(var_name)
+        out: Dict[str, object] = {
+            "kind": "hdf5", "shape": tuple(v.shape),
+            "chunks": tuple(ds.chunks) if ds.chunks else None}
+        try:
+            out["nchunks"] = int(ds.id.get_num_chunks())
+        except Exception:
+            out["nchunks"] = None
+        return out
 
 
 # ---------------------------------------------------------------------------

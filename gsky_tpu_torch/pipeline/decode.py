@@ -7,15 +7,21 @@ overview, or a NetCDF hyperslab, strided when zoomed out), and hand back
 float32 data + validity, uploaded to the pipeline's device.  Reads run
 in a thread pool.
 
+Non-NetCDF files open through the format registry (`io.registry`:
+GeoTIFF, GMT, HDF4).  A curvilinear (``geo_loc``) granule has no affine
+pixel grid: it renders through the scene path's geolocation control
+grid (`executor._geoloc_ctrl`), and one that reaches this window decode
+is skipped and counted (`geoloc_skips`), as the reference does.
+
 Not ported: the ranged-ingest byte sources, fault injection and the
 ingest counters (the port reads through the handle, as the JAX package
-does with ingest off).  A curvilinear (``geo_loc``) granule raises
-NotImplementedError: the port has no geolocation route to send it to.
+does with ingest off).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import logging
 import math
 import re
 import threading
@@ -28,8 +34,8 @@ import torch
 from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import BBox, GeoTransform, transform_bbox
-from ..io.geotiff import GeoTIFF
 from ..io.netcdf import NetCDF
+from ..io.registry import open_raster
 from ..ops.raster import nodata_mask
 from .types import Granule
 
@@ -44,8 +50,8 @@ class DecodedWindow:
 
 
 class _HandleCache:
-    """LRU of open GeoTIFF / NetCDF handles with a per-path open latch:
-    concurrent callers for one path wait for the first opener."""
+    """LRU of open NetCDF and registry handles with a per-path open
+    latch: concurrent callers for one path wait for the first opener."""
 
     def __init__(self, max_handles: int = 64):
         self._lock = threading.Lock()
@@ -68,7 +74,7 @@ class _HandleCache:
             # cached handle means the open failed — retry it ourselves)
             ev.wait()
         try:
-            h = NetCDF(path) if is_netcdf else GeoTIFF(path)
+            h = NetCDF(path) if is_netcdf else open_raster(path)
         except BaseException:
             with self._lock:
                 self._opening.pop(path, None)
@@ -85,6 +91,8 @@ class _HandleCache:
 
 
 _handles = _HandleCache()
+_skip_lock = threading.Lock()
+geoloc_skips = 0
 
 
 def margin_for(resample: str) -> int:
@@ -115,9 +123,19 @@ def decode_window(granule: Granule, dst_bbox: BBox, dst_crs: CRS,
     With ``dst_hw`` = (height, width), zoomed-out requests read a
     GeoTIFF overview or a strided NetCDF hyperslab."""
     if granule.geo_loc:
-        raise NotImplementedError(
-            f"curvilinear granule {granule.path}: the geolocation route "
-            "is not ported yet (ROADMAP A.8)")
+        # curvilinear granules render only through the scene path's
+        # geolocation control grid; reaching this decode means a caller
+        # missed that routing: log it, the granule degrades to empty
+        global geoloc_skips
+        with _skip_lock:
+            geoloc_skips += 1
+            n = geoloc_skips
+        if n <= 10 or n % 1000 == 0:
+            logging.getLogger("gsky.decode").warning(
+                "curvilinear granule %s skipped on the windowed decode "
+                "path (renders only via the scene path; skip #%d)",
+                granule.path, n)
+        return None
     dev = resolve_device(device)
     src_crs = parse_crs(granule.srs) if granule.srs else dst_crs
     gt = GeoTransform.from_gdal(granule.geo_transform)

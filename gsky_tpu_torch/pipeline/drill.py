@@ -20,9 +20,16 @@ Counterpart of `gsky_tpu/pipeline/drill.py`:
 With waves on (``GSKY_WAVES``, default on) a resident-stack reduction
 is a lane of the device's wave (`pipeline.waves`): concurrent drills of
 one window shape and clip are reduced by one launch of B3's K-block
-form, each drill's rows exactly as per call.  Not ported, and raising
-NotImplementedError where a request needs them: VRT granules,
-geolocation-array (curvilinear) files and the mesh path
+form, each drill's rows exactly as per call.
+
+Files of every format the port reads are drilled: NetCDF variables,
+GeoTIFF, GMT and HDF4 bands (through `io.registry`), curvilinear
+(``geo_loc``) swaths, whose polygon membership is a containment test
+on their geolocation arrays (`_geoloc_drill_mask`), and VRT granules
+(``vrt_xml``: the template rendered per file with its co-registered
+mask granules, read through `io.vrt.VRTRaster` and reduced on the
+host, as the reference's VRT drill is).  Not ported, and raising
+NotImplementedError where a request needs it: the mesh path
 (``GSKY_SPMD=1``).  There is no fallback: a failure on the device path
 raises.
 """
@@ -35,6 +42,7 @@ import math
 import os
 import threading
 import time
+import xml.etree.ElementTree as ET
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -44,11 +52,13 @@ import torch
 from ..device import resolve_device
 from ..geo import geometry as geom
 from ..geo.crs import EPSG4326, parse_crs
+from ..geo.geoloc import load_geoloc_grid
 from ..geo.transform import BBox, GeoTransform
 from ..index.client import Dataset
 from ..index.store import fmt_time
-from ..io.geotiff import GeoTIFF
 from ..io.netcdf import NetCDF
+from ..io.registry import open_raster
+from ..io.vrt import VRTRaster, render_vrt
 from ..ops import drill as D
 from ..ops.raster import nodata_mask
 from ..ops.stats import masked_stats
@@ -64,7 +74,6 @@ SPANS = ("index", "rasterize", "gather", "stats", "readback", "host",
          "merge")
 # window buckets of the resident path (the reference executor's)
 _BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
-_TIFF_MAGIC = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 
 
 def _bucket(n: int) -> int:
@@ -212,16 +221,18 @@ class DrillPipeline:
         t0 = time.perf_counter()
         datasets = self.index(req)
         self._spans.add("index", t0)
-        if req.vrt_xml:
-            raise NotImplementedError(
-                "VRT drills are not ported to gsky_tpu_torch yet")
         g4326 = geom.from_wkt(req.geometry_wkt)
         mask_ns = set(req.mask_namespaces)
+        mask_ds = [d for d in datasets if d.namespace in mask_ns]
         for ds in [d for d in datasets if d.namespace not in mask_ns]:
             sel = _selected_times(ds, req)
             if not sel:
                 continue
-            if req.approx and ds.means and ds.sample_counts \
+            vrt_xml = None
+            if req.vrt_xml:
+                vrt_xml = render_vrt(req.vrt_xml, ds.file_path,
+                                     _vrt_masks(ds, mask_ds, req))
+            elif req.approx and ds.means and ds.sample_counts \
                     and len(ds.means) >= len(ds.timestamps):
                 # crawler-stats fast path: whole-file aggregates, so
                 # under polygon tiling a file counts exactly once
@@ -237,7 +248,7 @@ class DrillPipeline:
                          int(ds.sample_counts[
                              min(ti, len(ds.sample_counts) - 1)])))
                 continue
-            stats = self._drill_file(ds, sel, g4326, req)
+            stats = self._drill_file(ds, sel, g4326, req, vrt_xml)
             if stats is None:
                 continue
             values, counts, deciles = stats
@@ -250,60 +261,65 @@ class DrillPipeline:
                         (float(deciles[k, d]), 1))
 
     def _drill_file(self, ds: Dataset, sel: List[int],
-                    g4326: geom.Geometry, req: GeoDrillRequest):
-        """Masked reductions for the selected timesteps of one file;
-        None when the file or the polygon window has no data."""
-        if ds.ds_name.upper().startswith("GMT:"):
-            raise NotImplementedError(
-                "GMT grids are not ported to gsky_tpu_torch yet")
-        if ds.geo_loc:
-            raise NotImplementedError(
-                "geolocation-array (curvilinear) drills are not ported "
-                "to gsky_tpu_torch yet")
-        is_nc = ds.file_path.lower().endswith((".nc", ".nc4")) \
-            or ds.ds_name.upper().startswith("NETCDF:")
+                    g4326: geom.Geometry, req: GeoDrillRequest,
+                    vrt_xml: Optional[str] = None):
+        """Masked reductions for the selected timesteps of one file (or
+        of a rendered VRT wrapping it, `drill.go:363-423`); None when
+        the file or the polygon window has no data."""
+        is_vrt = bool(vrt_xml)
+        is_nc = not is_vrt and not ds.ds_name.upper().startswith("GMT:") \
+            and (ds.file_path.lower().endswith((".nc", ".nc4"))
+                 or ds.ds_name.upper().startswith("NETCDF:"))
         try:
-            if is_nc:
+            if is_vrt:
+                h = VRTRaster(vrt_xml)
+                H, W = h.height, h.width
+            elif is_nc:
                 h = NetCDF(ds.file_path)
                 var = ds.ds_name.split(":")[-1].strip('"')
                 v = h.variables[var]
                 H, W = v.shape[-2], v.shape[-1]
             else:
-                with open(ds.file_path, "rb") as fp:
-                    if fp.read(4) not in _TIFF_MAGIC:
-                        raise NotImplementedError(
-                            f"{ds.file_path}: format not ported to "
-                            "gsky_tpu_torch yet")
-                h = GeoTIFF(ds.file_path)
+                h = open_raster(ds.file_path)
                 H, W = h.height, h.width
-        except (OSError, ValueError, KeyError):
+        except (OSError, ValueError, KeyError, ET.ParseError):
             return None
 
         try:
             t0 = time.perf_counter()
             try:
-                src_crs = parse_crs(ds.srs) if ds.srs else EPSG4326
-                gt = GeoTransform.from_gdal(ds.geo_transform)
+                if is_vrt and h.crs is not None:
+                    src_crs = h.crs
+                else:
+                    src_crs = parse_crs(ds.srs) if ds.srs else EPSG4326
+                gt = h.gt if is_vrt else \
+                    GeoTransform.from_gdal(ds.geo_transform)
                 g = g4326 if src_crs == EPSG4326 else g4326.transform(
                     lambda x, y: EPSG4326.transform_to(src_crs, x, y))
             except ValueError:  # unparseable SRS
                 return None
-            # envelope intersect + ALL_TOUCHED mask burn
-            b = g.bbox()
-            c0, r0 = gt.geo_to_pixel(b.xmin, b.ymax)
-            c1, r1 = gt.geo_to_pixel(b.xmax, b.ymin)
-            c0, c1 = sorted((c0, c1))
-            r0, r1 = sorted((r0, r1))
-            c0 = max(int(math.floor(c0)), 0)
-            r0 = max(int(math.floor(r0)), 0)
-            c1 = min(int(math.ceil(c1)), W)
-            r1 = min(int(math.ceil(r1)), H)
-            if c0 >= c1 or r0 >= r1:
-                return None
-            wgt = gt.window(c0, r0)
-            mask = geom.rasterize(g, c1 - c0, r1 - r0,
-                                  lambda x, y: wgt.geo_to_pixel(x, y),
-                                  all_touched=True)
+            if ds.geo_loc and not is_vrt:
+                made = _geoloc_drill_mask(ds, g4326, H, W)
+                if made is None:
+                    return None
+                mask, (c0, r0, c1, r1) = made
+            else:
+                # envelope intersect + ALL_TOUCHED mask burn
+                b = g.bbox()
+                c0, r0 = gt.geo_to_pixel(b.xmin, b.ymax)
+                c1, r1 = gt.geo_to_pixel(b.xmax, b.ymin)
+                c0, c1 = sorted((c0, c1))
+                r0, r1 = sorted((r0, r1))
+                c0 = max(int(math.floor(c0)), 0)
+                r0 = max(int(math.floor(r0)), 0)
+                c1 = min(int(math.ceil(c1)), W)
+                r1 = min(int(math.ceil(r1)), H)
+                if c0 >= c1 or r0 >= r1:
+                    return None
+                wgt = gt.window(c0, r0)
+                mask = geom.rasterize(g, c1 - c0, r1 - r0,
+                                      lambda x, y: wgt.geo_to_pixel(x, y),
+                                      all_touched=True)
             self._spans.add("rasterize", t0)
             if not mask.any():
                 return None
@@ -325,7 +341,7 @@ class DrillPipeline:
 
             # resident-stack path: the stack lives on the device, this
             # request ships the polygon mask and the timestep indices
-            if DC.enabled():
+            if not is_vrt and DC.enabled():
                 getter = self.cache.get if DC.sync_mode() \
                     else self.cache.get_async
                 st = getter(ds.file_path, is_nc, var if is_nc else "",
@@ -342,13 +358,19 @@ class DrillPipeline:
             bands_data = []
             for k in read_idx:
                 ti = sel[k]
-                if is_nc:
+                if is_vrt:
+                    data = h.read(1, (c0, r0, c1 - c0, r1 - r0),
+                                  time_index=ti)
+                    nodata = h.nodata
+                elif is_nc:
                     data = h.read_slice(var, ti if len(v.shape) > 2
                                         else None,
                                         (c0, r0, c1 - c0, r1 - r0))
                     nodata = ds.nodata if ds.nodata is not None \
                         else v.nodata
                 else:
+                    # one timestamp per file; the band index comes from
+                    # the crawler's ds_name suffix
                     data = h.read(band0, (c0, r0, c1 - c0, r1 - r0))
                     nodata = ds.nodata if ds.nodata is not None \
                         else h.nodata
@@ -364,6 +386,129 @@ class DrillPipeline:
                                  req)
         finally:
             h.close()
+
+
+def _vrt_masks(ds: Dataset, mask_ds: List[Dataset],
+               req: GeoDrillRequest) -> List[str]:
+    """The mask files of one data granule's VRT
+    (`drill_indexer.go:318-380`): exactly one temporally co-registered
+    mask granule per requested mask namespace, in the order of
+    ``req.mask_namespaces`` (so the pixel function's band order is
+    stable); a namespace with several candidates keeps the one on the
+    data granule's own tile.  No candidate, or several, raises
+    ValueError (an indexer error in the reference)."""
+    masks = []
+    for ns in req.mask_namespaces:
+        cands = [m for m in mask_ds
+                 if m.namespace == ns and _times_match(ds, m)]
+        if len(cands) > 1:
+            same_tile = [m for m in cands if m.polygon == ds.polygon]
+            if len(same_tile) == 1:
+                cands = same_tile
+        if len(cands) > 1:
+            raise ValueError(
+                f"multiple mask granules for namespace {ns!r} "
+                f"co-registered with {ds.file_path}")
+        if not cands:
+            raise ValueError(
+                f"no mask granule for namespace {ns!r} "
+                f"co-registered with {ds.file_path}")
+        masks.append(cands[0].file_path)
+    return masks
+
+
+def _geoloc_drill_mask(ds: Dataset, g4326: geom.Geometry, H: int,
+                       W: int):
+    """Polygon membership over a CURVILINEAR swath: every sample carries
+    its own coordinates, so membership is a vectorised containment test
+    on the geolocation arrays — the swath analogue of the affine
+    ALL_TOUCHED burn.  Returns (mask (uint8, window-shaped), window
+    (c0, r0, c1, r1) in RASTER pixels) or None when nothing matches.
+
+    Handles the details the naive test misses: the geometry is taken in
+    the geo_loc record's OWN srs (not ds.srs, which rulesets may
+    override); antimeridian-crossing swaths compare on the grid's
+    unwrapped longitude branch; a bbox prefilter crops the grid before
+    the O(edges x samples) ray cast; geoloc line/pixel offsets+steps map
+    grid indices to raster pixels (subsampled geolocation grids); and
+    point/line/sub-sample-size geometries fall back to marking the
+    samples nearest their vertices, so a tiny drill doesn't silently
+    report "no data"."""
+    grid = load_geoloc_grid(ds.file_path, ds.geo_loc)
+    if grid is None:
+        return None
+    gl_srs = ds.geo_loc.get("srs") or "EPSG:4326"
+    try:
+        gl_crs = parse_crs(gl_srs)
+        g = g4326 if gl_crs == EPSG4326 else g4326.transform(
+            lambda x, y: EPSG4326.transform_to(gl_crs, x, y))
+    except ValueError:
+        return None
+    if grid._wraps:
+        # the grid longitudes live on the unwrapped [180, 360) branch
+        g = g.transform(lambda x, y: (np.where(np.asarray(x) < 0.0,
+                                               np.asarray(x) + 360.0,
+                                               np.asarray(x)), y))
+
+    gh, gw = grid.gx.shape
+    inpoly = np.zeros((gh, gw), bool)
+    if g.polys:
+        b = g.bbox()
+        with np.errstate(invalid="ignore"):
+            box = ((grid.gx >= b.xmin) & (grid.gx <= b.xmax)
+                   & (grid.gy >= b.ymin) & (grid.gy <= b.ymax))
+        if box.any():
+            rr = np.nonzero(box.any(axis=1))[0]
+            cc = np.nonzero(box.any(axis=0))[0]
+            sr, er = int(rr[0]), int(rr[-1]) + 1
+            sc, ec = int(cc[0]), int(cc[-1]) + 1
+            inpoly[sr:er, sc:ec] = geom.contains_mask(
+                g, grid.gx[sr:er, sc:ec], grid.gy[sr:er, sc:ec])
+    if not inpoly.any():
+        # point/line drills and polygons smaller than sample spacing:
+        # nearest-sample marking (the ALL_TOUCHED-style floor)
+        pts = []
+        if g.points is not None:
+            pts.append(np.asarray(g.points, np.float64))
+        for poly in g.polys:
+            for ring in poly:
+                if len(ring):
+                    pts.append(np.asarray(ring, np.float64))
+        if not pts:
+            return None
+        pts_a = np.concatenate(pts, axis=0)
+        col, row = grid.invert(pts_a[:, 0], pts_a[:, 1])
+        # invert() returns RASTER pixel coords; back to grid indices
+        gj = np.rint((col - 0.5 - grid.pixel_offset)
+                     / grid.pixel_step).astype(np.int64)
+        gi = np.rint((row - 0.5 - grid.line_offset)
+                     / grid.line_step).astype(np.int64)
+        ok = (gi >= 0) & (gi < gh) & (gj >= 0) & (gj < gw)
+        if not ok.any():
+            return None
+        inpoly[gi[ok], gj[ok]] = True
+
+    rr = np.nonzero(inpoly.any(axis=1))[0]
+    cc = np.nonzero(inpoly.any(axis=0))[0]
+    gr0, gr1 = int(rr[0]), int(rr[-1]) + 1
+    gc0, gc1 = int(cc[0]), int(cc[-1]) + 1
+    # grid indices -> raster pixels via the geoloc offsets/steps; a
+    # subsampled geolocation grid (pixel_step > 1) expands each sample
+    # to its step-sized block of raster pixels
+    ls = max(int(grid.line_step), 1)
+    ps = max(int(grid.pixel_step), 1)
+    r0 = int(grid.line_offset + ls * gr0)
+    c0 = int(grid.pixel_offset + ps * gc0)
+    sub = inpoly[gr0:gr1, gc0:gc1]
+    mask = np.repeat(np.repeat(sub, ls, axis=0), ps, axis=1)
+    r1 = min(r0 + mask.shape[0], H)
+    c1 = min(c0 + mask.shape[1], W)
+    if r0 >= r1 or c0 >= c1:
+        return None
+    mask = mask[:r1 - r0, :c1 - c0].astype(np.uint8)
+    if not mask.any():
+        return None
+    return mask, (c0, r0, c1, r1)
 
 
 def tiled_geometries(wkt: str, step_x: float,

@@ -4,7 +4,9 @@ and decoded windows -> batched gather warps.
 Counterpart of `gsky_tpu/pipeline/executor.py` on the GetMap paths.
 `render_byte_scenes` groups a tile's granules by (source CRS, bucket
 shape, dtype), builds the sparse control grid once per (dst grid, src
-CRS) on the host in float64, and dispatches:
+CRS) on the host in float64 (for curvilinear granules, grouped by
+their geolocation arrays, `_geoloc_ctrl`'s grid of source pixel
+coordinates with an identity affine), and dispatches:
 
 - the paged leg (kernel B1) when the page pool can stage every
   granule's footprint pages (`_paged_from_group`);
@@ -67,6 +69,7 @@ import torch
 
 from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
+from ..geo.geoloc import load_geoloc_grid
 from ..geo.transform import GeoTransform
 from ..ops.paged import PARAMS_W, note_expr_fused, page_slots, \
     paged_vmem_ok, render_byte_paged, render_expr_paged, warp_scored_paged
@@ -164,10 +167,13 @@ def _by_ns_chunks(render, items, ns_ids, prios, n_ns: int):
 
 @dataclass
 class SceneGroup:
-    """Device inputs of one (source CRS, bucket, dtype) granule group."""
+    """Device inputs of one (source CRS, bucket, dtype) granule group, or
+    of one curvilinear group (granules sharing geolocation arrays)."""
 
     scenes: List[DeviceScene]
-    ctrl: np.ndarray            # (2, gh, gw) f32 origin-relative coords
+    # (2, gh, gw) f32: origin-relative source-CRS coords, or for a
+    # curvilinear group fractional source pixel coords (identity affine)
+    ctrl: np.ndarray
     ctrl_dev: torch.Tensor      # the same on the device
     params: np.ndarray          # (B, 11) f64, B = pow2(len(scenes))
     step: int
@@ -208,6 +214,10 @@ class WarpExecutor:
         self.paged_declined = 0
         self.paged_gated = 0
         self.ns_declined = 0
+        # curvilinear control grids built (cache misses of
+        # `_geoloc_ctrl`): their host seconds and the step each ended at
+        self.geoloc_seconds = 0.0
+        self.geoloc_steps: Dict[int, int] = {}
         # seconds per stage, summed over calls (SPANS, MODULAR_SPANS)
         self.spans = dict.fromkeys(SPANS, 0.0)
         # window-batch dispatches of `warp_all` by (bh, bw, B)
@@ -226,8 +236,8 @@ class WarpExecutor:
         overview level this destination grid needs (the level
         `_scene_groups` picks); the `DeviceScene`, or None when it is
         uncacheable."""
-        return self.cache.get(g, self._granule_stride(g, dst_gt, dst_crs,
-                                                      height, width))
+        return self.cache.get(g, self._scene_stride(g, dst_gt, dst_crs,
+                                                    height, width))
 
     def _geo_cache_get(self, key):
         with self._lock:
@@ -398,32 +408,117 @@ class WarpExecutor:
                 self._stride_cache.popitem(last=False)
         return stride
 
+    def _scene_stride(self, g, dst_gt: GeoTransform, dst_crs: CRS,
+                      height: int, width: int) -> float:
+        """The stride a granule's scene is cached at: curvilinear scenes
+        at full resolution (their control grid carries pixel coords of
+        the full-resolution raster), the rest at `_granule_stride`."""
+        if g.geo_loc:
+            return 1.0
+        return self._granule_stride(g, dst_gt, dst_crs, height, width)
+
+    def _geoloc_ctrl(self, g, dst_gt: GeoTransform, dst_crs: CRS,
+                     height: int, width: int):
+        """Control grid of a curvilinear granule: (ctrl (2, gh, gw) f32,
+        step), or None when its geolocation arrays cannot be loaded.
+        The dst control points are projected to the geolocation CRS and
+        inverted through the arrays (`geo.geoloc.GeolocGrid`) to
+        fractional source PIXEL coords, which the kernels consume with
+        an identity affine.  The inversion is validated at cell
+        midpoints to 0.125 px (the projection leg's check cannot see
+        it), halving the step down to 2 for strongly curved swaths."""
+        grid = load_geoloc_grid(g.path, g.geo_loc)
+        if grid is None:
+            return None
+        try:
+            gl_crs = parse_crs(g.geo_loc.get("srs") or "EPSG:4326")
+        except ValueError:
+            return None
+        key = ("glctrl", g.path, g.geo_loc.get("x_var"),
+               dst_gt.to_gdal(), dst_crs, height, width)
+        hit = self._geo_cache_get(key)
+        if hit is not None:
+            return hit
+        t0 = time.perf_counter()
+        step = 16
+        while True:
+            sx, sy, step = self._ctrl_geo_coords(dst_gt, dst_crs, height,
+                                                 width, gl_crs, step)
+            col, row = grid.invert(sx, sy)
+            if step <= 2:
+                break
+            gh, gw = sx.shape
+            if gh < 2 or gw < 2:
+                break
+            c = (np.arange(gw - 1, dtype=np.float64) + 0.5) * step + 0.5
+            r = (np.arange(gh - 1, dtype=np.float64) + 0.5) * step + 0.5
+            C, R = np.meshgrid(c, r)
+            mx, my = dst_gt.pixel_to_geo(C, R)
+            ex, ey = dst_crs.transform_to(gl_crs, mx, my)
+            ecol, erow = grid.invert(np.asarray(ex), np.asarray(ey))
+            icol = 0.25 * (col[:-1, :-1] + col[:-1, 1:] + col[1:, :-1]
+                           + col[1:, 1:])
+            irow = 0.25 * (row[:-1, :-1] + row[:-1, 1:] + row[1:, :-1]
+                           + row[1:, 1:])
+            with np.errstate(invalid="ignore"):
+                err = np.hypot(ecol - icol, erow - irow)
+            if not err.size or np.all(np.isnan(err)) \
+                    or float(np.nanmax(err)) <= 0.125:
+                break
+            step //= 2
+        out = (np.stack([col, row]).astype(np.float32), step)
+        self._geo_cache_put(key, out)
+        with self._lock:
+            self.geoloc_seconds += time.perf_counter() - t0
+            self.geoloc_steps[step] = self.geoloc_steps.get(step, 0) + 1
+        return out
+
     def _scene_groups(self, granules, ns_ids, prios, dst_gt, dst_crs,
                       height, width) -> Optional[List[SceneGroup]]:
         """Device inputs grouped by (source CRS, bucket shape, dtype);
-        None when any scene is uncacheable."""
+        curvilinear granules group by their geolocation arrays instead
+        (key ("gl", path, x_var, y_var, bucket, dtype)), with the
+        `_geoloc_ctrl` grid and an identity affine.  None when any
+        scene is uncacheable or a group's geolocation arrays cannot be
+        loaded."""
         scenes = []
         for g in granules:
-            stride = self._granule_stride(g, dst_gt, dst_crs, height,
-                                          width)
-            s = self.cache.get(g, stride)
+            s = self.cache.get(g, self._scene_stride(g, dst_gt, dst_crs,
+                                                     height, width))
             if s is None:
                 return None
             scenes.append(s)
         by_key: Dict[tuple, List[int]] = {}
         for i, s in enumerate(scenes):
-            by_key.setdefault((s.crs.name(), s.bucket, str(s.dtype)),
-                              []).append(i)
+            g = granules[i]
+            if g.geo_loc:
+                key = ("gl", g.path, g.geo_loc.get("x_var"),
+                       g.geo_loc.get("y_var"), s.bucket, str(s.dtype))
+            else:
+                key = (s.crs.name(), s.bucket, str(s.dtype))
+            by_key.setdefault(key, []).append(i)
         groups = []
-        for idxs in by_key.values():
+        for gkey, idxs in by_key.items():
             gs = [scenes[i] for i in idxs]
             s0 = gs[0]
-            sx, sy, step = self._ctrl_geo_coords(
-                dst_gt, dst_crs, height, width, s0.crs, 16)
-            ox, oy = s0.gt.x0, s0.gt.y0
-            ctrl = np.stack([sx - ox, sy - oy]).astype(np.float32)
-            dkey = ("ctrldev", dst_gt.to_gdal(), dst_crs, height, width,
-                    s0.crs, ox, oy)
+            is_gl = gkey[0] == "gl"
+            if is_gl:
+                made = self._geoloc_ctrl(granules[idxs[0]], dst_gt,
+                                         dst_crs, height, width)
+                if made is None:
+                    return None
+                ctrl, step = made
+                gl0 = granules[idxs[0]]
+                dkey = ("ctrldev", "gl", gl0.path,
+                        gl0.geo_loc.get("x_var"), gl0.geo_loc.get("y_var"),
+                        dst_gt.to_gdal(), dst_crs, height, width)
+            else:
+                sx, sy, step = self._ctrl_geo_coords(
+                    dst_gt, dst_crs, height, width, s0.crs, 16)
+                ox, oy = s0.gt.x0, s0.gt.y0
+                ctrl = np.stack([sx - ox, sy - oy]).astype(np.float32)
+                dkey = ("ctrldev", dst_gt.to_gdal(), dst_crs, height,
+                        width, s0.crs, ox, oy)
             ctrl_dev = self._geo_cache_get(dkey)
             if ctrl_dev is None:
                 ctrl_dev = torch.from_numpy(ctrl).to(self.device)
@@ -432,7 +527,11 @@ class WarpExecutor:
             params = np.zeros((B, 11), np.float64)
             params[:, 10] = -1.0
             for k, (i, s) in enumerate(zip(idxs, gs)):
-                params[k, :6] = _inv_gt_params(s.gt, ox, oy)
+                if is_gl:
+                    # ctrl already carries pixel coords: identity affine
+                    params[k, :6] = (0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+                else:
+                    params[k, :6] = _inv_gt_params(s.gt, ox, oy)
                 params[k, 6] = s.height
                 params[k, 7] = s.width
                 params[k, 8] = s.nodata

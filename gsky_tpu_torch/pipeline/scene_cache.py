@@ -2,8 +2,9 @@
 
 Counterpart of `gsky_tpu/pipeline/scene_cache.py` (classic read path):
 each (path, band or variable and timestep, level) source raster — a
-GeoTIFF band at an overview level, or a NetCDF variable's timestep read
-at a power-of-two stride — is decoded once, NaN-encoded as
+GeoTIFF band at an overview level, a GMT or HDF4 band (through
+`io.registry`), or a NetCDF variable's timestep read at a power-of-two
+stride — is decoded once, NaN-encoded as
 f32 (invalid pixels — nodata or non-finite — become NaN, so a tap's
 validity is one isfinite test), padded with NaN to 256-multiples and
 kept on the device; every later tile warps from the cached tensor.
@@ -188,7 +189,10 @@ class SceneCache:
                 if H * W > self._max_scene_px:
                     return None
                 nodata = g.nodata if g.nodata is not None else h.nodata
-                data = h.read(g.band, (0, 0, W, H), ifd=ovr)
+                # the registry's read contract is read(band, window):
+                # only a GeoTIFF overview read passes its IFD
+                data = h.read(g.band, (0, 0, W, H), ifd=ovr) \
+                    if ovr is not None else h.read(g.band, (0, 0, W, H))
         except (OSError, ValueError) as e:
             # uncacheable stays a visible degradation, never a crash
             log.warning("scene uncacheable: %s (%s: %s)", g.path,

@@ -24,21 +24,22 @@ routes:
   group (`WarpExecutor.warp_mosaic_scenes`, B1 or B2), else the decoded
   windows (`WarpExecutor.warp_mosaic`, B2).  With a mask band (the
   reference's `tile_merger.go` path) every granule's window is decoded
-  and warped per resampling method (the mask band always nearest), the
-  mask band becomes per-timestamp exclusions and each namespace is
-  mosaicked newest-first (kernel B4).  Band expressions are evaluated
+  and warped per resampling method (the mask band always nearest;
+  curvilinear granules instead through one `warp_mosaic_scenes` over
+  their cached scenes, a namespace slot each), the mask band becomes
+  per-timestamp exclusions and each namespace is mosaicked newest-first
+  (kernel B4).  Band expressions are evaluated
   last; everything after decode stays on the device.
 
 The index queries the MAS once, or, for a coarse request over a layer
 with a known extent and ``index_res_limit``, in index tiles
-(`_index_subdivision`).  Not ported here: the geolocation branch of the
-masked route and remote workers; each raises NotImplementedError naming
-its ROADMAP item.
+(`_index_subdivision`).  Not ported here: remote workers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -59,6 +60,8 @@ from .decode import decode_all
 from .executor import WarpExecutor
 from .granule import expand_granules
 from .types import GeoTileRequest, Granule, TileResult
+
+log = logging.getLogger("gsky.tile")
 
 _DECODE_WORKERS = 8       # threads reading one tile's granule windows
 
@@ -455,20 +458,45 @@ class TilePipeline:
                 ("near", [i for i, m in enumerate(is_mask) if m])):
             if not idxs:
                 continue
-            if any(granules[i].geo_loc for i in idxs):
-                raise NotImplementedError(
-                    "curvilinear granules on the modular route are not "
-                    "ported yet (ROADMAP A.8)")
+            # curvilinear granules have no affine window: they warp from
+            # the scene cache through the geolocation control grid
+            reg = [i for i in idxs if not granules[i].geo_loc]
+            gl = [i for i in idxs if granules[i].geo_loc]
             t = time.perf_counter()
-            errs: List[Exception] = []
-            ws = decode_all([granules[i] for i in idxs], req.bbox, req.crs,
-                            method, _DECODE_WORKERS, dst_hw=(H, W),
-                            errors=errs, device=dev)
-            check_partial(len(errs), len(idxs), "decode")
-            t = ex.add_span("decode", t)
-            wr = ex.warp_all(ws, req.dst_gt(), req.crs, H, W, method)
-            for k, i in enumerate(idxs):
-                warped[i] = wr[k]
+            if reg:
+                errs: List[Exception] = []
+                ws = decode_all([granules[i] for i in reg], req.bbox,
+                                req.crs, method, _DECODE_WORKERS,
+                                dst_hw=(H, W), errors=errs, device=dev)
+                check_partial(len(errs), len(reg), "decode")
+                t = ex.add_span("decode", t)
+                wr = ex.warp_all(ws, req.dst_gt(), req.crs, H, W, method)
+                for k, i in enumerate(reg):
+                    warped[i] = wr[k]
+            if gl:
+                # one batched dispatch, each granule its own namespace
+                # slot so per-granule rasters come back for the mask
+                # machinery; when it cannot be served, one granule at a
+                # time, so a single uncacheable file degrades alone
+                sc = ex.warp_mosaic_scenes(
+                    [granules[i] for i in gl], list(range(len(gl))),
+                    [1.0] * len(gl), req.dst_gt(), req.crs, H, W,
+                    len(gl), method)
+                if sc is not None:
+                    canv, vals = sc
+                    for k, i in enumerate(gl):
+                        warped[i] = (canv[k], vals[k])
+                else:
+                    for i in gl:
+                        one = ex.warp_mosaic_scenes(
+                            [granules[i]], [0], [1.0], req.dst_gt(),
+                            req.crs, H, W, 1, method)
+                        if one is None:
+                            log.warning(
+                                "curvilinear granule %s uncacheable; "
+                                "rendered empty", granules[i].path)
+                            continue
+                        warped[i] = (one[0][0], one[1][0])
             ex.add_span("warp", t)
 
         # group warped granules by namespace; the mask band becomes

@@ -131,7 +131,8 @@ class GeoDrillRequest:
     pixel_count: bool = False
     band_strides: int = 1
     approx: bool = True                   # use the crawler stats fast path
-    # VRT granules (`drill_indexer.go:318-346`): not ported yet
+    # VRT granules (`drill_indexer.go:318-346`): the template, rendered
+    # per data granule with its mask granules (`io.vrt.render_vrt`)
     vrt_url: str = ""
     vrt_xml: str = ""
     mask_namespaces: Sequence[str] = ()

@@ -80,7 +80,8 @@ Requests the port cannot serve yet get HTTP 501 with exception code
 ``OperationNotSupported`` and a message naming the ROADMAP item, as
 does any NotImplementedError the pipeline raises: among them a
 GetCoverage in a config of several ``ows_cluster_nodes`` (peer shards,
-A.10) and a WPS process over a VRT (A.8).  Not ported: admission,
+A.10) and a date query that needs the HTTP MAS client (A.8).  A WPS
+process over a VRT drills through the template it names.  Not ported: admission,
 deadlines (GetMap, GetFeatureInfo and WPS run unbounded), brownout,
 the metrics collector, drain, the cache fabric and remote workers.
 """
@@ -1098,10 +1099,20 @@ class OWSServer:
         if proc.max_area > 0 and g.area() > proc.max_area:
             raise OWSError(
                 f"geometry area exceeds process limit {proc.max_area}")
-        if any(src.vrt_url for src in proc.data_sources):
-            raise _unported("WPS drills through a VRT", "A.8")
         csv_blocks = []
         for src in proc.data_sources:
+            vrt_xml = ""
+            if src.vrt_url:
+                # drill through a VRT: load the registered template
+                # (`ows.go:1389-1406`)
+                vp = src.vrt_url if os.path.isabs(src.vrt_url) \
+                    else os.path.join(cfg.base_dir, src.vrt_url)
+                try:
+                    with open(vp) as fp:
+                        vrt_xml = fp.read()
+                except OSError as e:
+                    raise OWSError(f"VRT template {src.vrt_url!r} "
+                                   f"unreadable: {e}")
             dreq = GeoDrillRequest(
                 collection=src.data_source, bands=src.rgb_products,
                 geometry_wkt=g.to_wkt(),
@@ -1109,6 +1120,7 @@ class OWSServer:
                 deciles=proc.deciles, approx=proc.approx,
                 band_strides=src.band_strides,
                 pixel_count="pixel_count" in proc.drill_algorithm,
+                vrt_url=src.vrt_url, vrt_xml=vrt_xml,
                 mask_namespaces=[src.mask.id] if src.mask else (),
                 index_tile_x_size=src.index_tile_x_size,
                 index_tile_y_size=src.index_tile_y_size)

@@ -18,6 +18,10 @@ modules against the JAX package, on the same seeded inputs.
   and counts equal, values within rtol 1e-5; on integer data whose sums
   stay below 2**24 the values are equal and `drill_csv` is
   byte-identical.
+- NetCDF-4 (HDF5, written with h5py): reader, crawler record and drill
+  as the reference's; without h5py a ValueError naming it.  A VRT
+  drill (an expression over the data and a mask granule, reduced on
+  the host in both packages) equal to the reference's.
 """
 
 import ast
@@ -311,13 +315,71 @@ def test_netcdf_writers_emit_identical_bytes(tmp_path, dtype):
         assert a.read() == b.read()
 
 
-def test_netcdf4_raises_not_ported(tmp_path):
-    p = tmp_path / "nc4.nc"
-    p.write_bytes(b"\x89HDF\r\n\x1a\n" + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        NetCDF(str(p))
-    rec = extract(str(p))
-    assert "not ported" in rec["error"] and rec["geo_metadata"] == []
+def _write_netcdf4(path, arrays, x, y, times, nodata):
+    """A CF NetCDF-4 (HDF5) file written with h5py: dimension scales
+    x, y, time, a ``crs`` grid-mapping variable, (time, y, x) data."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        for name, vals, std in (("x", x, "longitude"), ("y", y, "latitude"),
+                                ("time", times, "time")):
+            d = f.create_dataset(name, data=np.asarray(vals, np.float64))
+            d.attrs["standard_name"] = std
+            d.make_scale(name)
+        f["time"].attrs["units"] = "seconds since 1970-01-01 00:00:00"
+        f.create_dataset("crs", data=np.int32(0)).attrs["spatial_ref"] = \
+            EPSG4326.to_wkt()
+        for name, arr in arrays.items():
+            d = f.create_dataset(name, data=arr, chunks=(1, 16, 16),
+                                 compression="gzip")
+            d.attrs["grid_mapping"] = "crs"
+            d.attrs["_FillValue"] = np.asarray(nodata, arr.dtype)
+            for i, dim in enumerate(("time", "y", "x")):
+                d.dims[i].attach_scale(f[dim])
+
+
+def test_netcdf4_raises_not_ported(tmp_path, monkeypatch):
+    """NetCDF-4 (HDF5) through h5py: the reader, the crawler record and
+    a drill equal the reference's.  With h5py unimportable the port
+    raises ValueError naming it (the crawler's error record), where the
+    reference's own fallback is a plain 'not a NetCDF file'."""
+    arrays = {k: v[:6] for k, v in _nc_arrays(np.float32).items()}
+    arrays = {k: np.repeat(np.repeat(v, 4, 1), 3, 2)
+              for k, v in arrays.items()}            # (3, 20, 21)
+    x, y = _grid(140.0, -30.0, w=21, h=20)
+    p = str(tmp_path / "nc4_stack.nc")
+    _write_netcdf4(p, arrays, x, y, TIMES[:3], -9999.0)
+    with NetCDF(p) as nc, JNetCDF(p) as ref:
+        assert sorted(nc.variables) == sorted(ref.variables)
+        for name in arrays:
+            tv, jv = nc.variables[name], ref.variables[name]
+            assert (tv.dims, tv.shape, tv.dtype, tv.nodata) == \
+                (jv.dims, jv.shape, jv.dtype, jv.nodata)
+            np.testing.assert_array_equal(
+                nc.read_slice(name, 1, (2, 3, 9, 7)),
+                ref.read_slice(name, 1, (2, 3, 9, 7)))
+            np.testing.assert_array_equal(nc.read_slice(name, 2, step=2),
+                                          ref.read_slice(name, 2, step=2))
+            assert nc.chunk_map(name) == ref.chunk_map(name)
+        assert [v.name for v in nc.raster_vars()] == \
+            [v.name for v in ref.raster_vars()]
+        assert nc.geotransform().to_gdal() == ref.geotransform().to_gdal()
+        assert nc.crs().to_proj4() == ref.crs().to_proj4()
+        np.testing.assert_array_equal(nc.timestamps(), ref.timestamps())
+    rec = extract(p, approx_stats=True)
+    assert not rec.get("error") and rec == jextract(p, approx_stats=True)
+    jstore, tstore = JMASStore(), MASStore()
+    jstore.ingest(jextract(p))
+    tstore.ingest(rec)
+    arch = {"root": str(tmp_path), "jstore": jstore, "tstore": tstore}
+    jp, tp = _pipelines(arch)
+    jreq, treq = _requests(arch, bands=["v", "w"])
+    _assert_same(jp.process(jreq), tp.process(treq))
+
+    monkeypatch.setitem(__import__("sys").modules, "h5py", None)
+    with pytest.raises(ValueError, match="h5py"):
+        NetCDF(p)
+    bad = extract(p)
+    assert "h5py" in bad["error"] and bad["geo_metadata"] == []
 
 
 @pytest.mark.parametrize("approx_stats", [False, True])
@@ -632,9 +694,24 @@ def test_unported_branches_raise(archive, monkeypatch):
     with pytest.raises(NotImplementedError, match="mesh"):
         tp.process(treq)
     monkeypatch.delenv("GSKY_SPMD")
-    _, vreq = _requests(archive, bands=["a"], vrt_xml="<VRTDataset/>")
-    with pytest.raises(NotImplementedError, match="VRT"):
-        tp.process(vreq)
+    # a VRT drill is served: an expression over the data granule and
+    # its co-registered mask granule (``a``, of the float32 file on the
+    # same tile), reduced on the host in both packages
+    vrt = ('<VRTDataset><VRTRasterBand band="1" dataType="Float32">'
+           '<PixelFunctionType>e</PixelFunctionType>'
+           '<PixelFunctionLanguage>expression</PixelFunctionLanguage>'
+           '<PixelFunctionCode>b1 * 2 + b2</PixelFunctionCode>'
+           '<SimpleSource metadata-template="1">'
+           '<SourceFilename>{{ .Data.Path }}</SourceFilename>'
+           '</SimpleSource>{{ range g := .Masks }}<SimpleSource>'
+           '<SourceFilename>{{ g.Path }}</SourceFilename></SimpleSource>'
+           '{{ end }}</VRTRasterBand></VRTDataset>')
+    jp, tp = _pipelines(archive)
+    jreq, treq = _requests(archive, bands=["c"], vrt_xml=vrt,
+                           mask_namespaces=["a"])
+    jres, tres = jp.process(jreq), tp.process(treq)
+    _assert_same(jres, tres, exact=True)
+    assert len(tres.dates) == T and max(tres.counts["c"]) > 0
 
 
 def test_drill_pipeline_defaults_to_cuda():

@@ -647,16 +647,41 @@ class TestDecode:
                                    device="cpu")
             assert errs == []
 
-    def test_geoloc_granule_is_refused(self, archive):
+    def test_geoloc_granule_is_refused(self, archive, jax_b4, tmp_path):
+        """The windowed decode refuses a curvilinear granule (skipped
+        and counted, as the reference's); the masked route renders it
+        through the geolocation control grid instead: two swath dates
+        with a QA band, equal to the reference's, through B4 (T = 2)."""
+        from test_torch_geoloc import _write_swath
         _, treq = _requests(archive["root"], ["LC08_B4"], "near",
                             MASKS["value"])
         tp = TilePipeline(MASClient(archive["tstore"]), device="cpu")
-        gs = tp.index(treq)
-        gs[0] = dataclasses.replace(gs[0], geo_loc={"x_var": "lon"})
-        with pytest.raises(NotImplementedError, match="A.8"):
-            tp.render(treq, gs)
-        with pytest.raises(NotImplementedError):
-            tdecode.decode_window(gs[0], treq.bbox, treq.crs)
+        g = dataclasses.replace(tp.index(treq)[0], geo_loc={"x_var": "lon"})
+        n = tdecode.geoloc_skips
+        assert tdecode.decode_window(g, treq.bbox, treq.crs,
+                                     device="cpu") is None
+        assert tdecode.geoloc_skips == n + 1
+
+        rng = np.random.default_rng(8)
+        paths = []
+        for k, date in enumerate(("20200110", "20200126")):
+            p = str(tmp_path / f"swath_{date}.nc")
+            _write_swath(p, k, rng)
+            paths.append((p, None))
+        jstore, tstore = JMASStore(), MASStore()
+        for p, _ in paths:
+            jstore.ingest(jextract(p))
+            tstore.ingest(extract(p))
+        c = jtransform_bbox(JBBox(147.3, -34.7, 147.8, -34.25),
+                            jparse_crs("EPSG:4326"), jparse_crs(MERC))
+        box = (c.xmin, c.ymin, c.xmax, c.ymax)
+        for method in ("near", "cubic"):
+            jreq, treq = _requests(str(tmp_path), ["bt"], method,
+                                   MaskSpec(id="qa", value="1000"), box=box)
+            jres, tres, _ = _process_both(jstore, tstore, jreq, treq)
+            _same_result(jres, tres, nulp=0 if method == "near" else 2)
+            assert tres.valid["bt"].numpy().any()
+        assert jax_b4 == [(2, 96, 80)] * 2
 
 
 class TestWarpAll:

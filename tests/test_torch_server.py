@@ -211,9 +211,27 @@ def _config(root, legend):
     }
 
 
-# a namespace of what the port cannot serve yet: remote workers and peer
-# shards (ROADMAP A.10), a WPS process over a VRT (A.8)
+# a namespace of what the port cannot serve yet, remote workers and peer
+# shards (ROADMAP A.10), beside a WPS process over a VRT, which it serves
 UNPORTED_NS = "unported"
+
+# the VRT template of the ``vrt_drill`` processes: a Python pixel
+# function over the data granule, values under 20 set to nodata
+DRILL_VRT = """<VRTDataset>
+  <VRTRasterBand band="1" subClass="VRTDerivedRasterBand">
+    <PixelFunctionType>threshold</PixelFunctionType>
+    <PixelFunctionLanguage>python</PixelFunctionLanguage>
+    <PixelFunctionCode><![CDATA[
+def threshold(in_ar, out_ar, *args, **kwargs):
+    v = in_ar[0]
+    out_ar[:] = v
+    out_ar[v < 20] = -1
+]]></PixelFunctionCode>
+    <SimpleSource metadata-template="1">
+      <SourceFilename>{{ .Data.Path }}</SourceFilename>
+    </SimpleSource>
+  </VRTRasterBand>
+</VRTDataset>"""
 
 
 def _unported_config(root):
@@ -304,6 +322,8 @@ def env(tmp_path_factory):
     os.makedirs(f"{conf}/{UNPORTED_NS}")
     with open(f"{conf}/{UNPORTED_NS}/config.json", "w") as fp:
         json.dump(_unported_config(root), fp)
+    with open(f"{conf}/{UNPORTED_NS}/drill.vrt", "w") as fp:
+        fp.write(DRILL_VRT)
 
     jmas, tmas = JMASClient(jstore), MASClient(tstore)
     jserver = JOWSServer(
@@ -946,19 +966,33 @@ UNPORTED = {
         f"/ows/{UNPORTED_NS}?service=WCS&request=GetCoverage"
         f"&coverage=plain&crs=EPSG:3857&bbox={_bbox(NATIVE[0])}"
         f"&width=64&height=64&format=GeoTIFF", "A.10"),
+    # served since ROADMAP A.8's first half: item None
     "wps over a vrt": (
         f"/ows/{UNPORTED_NS}?service=WPS&request=Execute"
         f"&identifier=vrt_drill&datainputs="
-        f"{quote('geometry=' + _POLY)}", "A.8"),
+        f"{quote('geometry=' + _POLY)}", None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_requests_name_their_item(env, case):
+    """The requests of the ``unported`` namespace: each one the port
+    cannot serve answers 501 naming its ROADMAP item; the WPS process
+    over a VRT in the same namespace is served, its document equal to
+    the reference's."""
     url, item = UNPORTED[case]
     u = urlsplit(url)
     r = env["port"].handle(u.path, parse_qs(u.query,
                                             keep_blank_values=True), HOST)
+    if item is None:
+        ref = env["jax"].get(url)
+        assert ref[:2] == (200, "text/xml"), ref[2][:300]
+        assert (r.status, r.content_type) == ref[:2]
+        # equal but for the status's creationTime, which is the clock's
+        stamp = re.compile(rb'creationTime="[^"]*"')
+        assert stamp.sub(b"", r.body) == stamp.sub(b"", ref[2])
+        assert re.search(rb"\d{4}-\d{2}-\d{2},\d", r.body)
+        return
     assert (r.status, r.content_type) == (501,
                                           "application/vnd.ogc.se_xml")
     assert _code(r.body) == "OperationNotSupported"

@@ -71,7 +71,7 @@ from gsky_tpu_torch.server.params import OWSError, parse_wcs
 from fixtures import make_archive
 from test_torch_mosaic import CLOUD_SHADOW
 from test_torch_mosaic import _write_archive as write_masked_archive
-from test_torch_server import _write_multi
+from test_torch_server import DRILL_VRT, _write_multi
 
 MERC, UTM55 = "EPSG:3857", "EPSG:32755"
 HOST = "gsky.example"
@@ -239,6 +239,8 @@ def wenv(tmp_path_factory):
     conf = f"{root}/conf"
     with open(f"{conf}/config.json", "w") as fp:
         json.dump(_config(root), fp)
+    with open(f"{conf}/drill.vrt", "w") as fp:
+        fp.write(DRILL_VRT)
     cluster = _config(root)
     cluster["service_config"]["ows_cluster_nodes"] = ["127.0.0.1:1",
                                                      "127.0.0.1:2"]

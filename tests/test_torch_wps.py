@@ -7,12 +7,12 @@ The servers are `test_torch_wcs`'s (fixture ``wenv``); the drills run
 over its NetCDF fractional-cover stack (three dates), the reference's
 with ``GSKY_DRILL_CACHE=sync``.  Bounds: equal dates and counts in the
 CSVs, values within rtol 1e-5; documents equal; errors with the same
-status and exception code; a process over a VRT answers 501 naming
-ROADMAP A.8.
+status and exception code; a process over a VRT (the template
+`test_torch_server.DRILL_VRT`, a Python pixel function, reduced on the
+host as the reference's VRT drill is) gives the reference's CSV.
 """
 
 import json
-import re
 import urllib.request
 from urllib.parse import quote
 from xml.etree import ElementTree
@@ -26,7 +26,7 @@ from gsky_tpu.server.params import parse_wps as jparse_wps
 from gsky_tpu_torch.geo import geometry as geom
 from gsky_tpu_torch.server.params import OWSError, parse_wps
 
-from test_torch_wcs import TIMEOUT, _code, both, port_get, \
+from test_torch_wcs import TIMEOUT, _code, both, \
     wenv  # noqa: F401  (the module fixture)
 
 POLY = {"type": "Polygon", "coordinates": [[
@@ -250,9 +250,12 @@ def test_wps_errors(wenv, case):
     assert _code(got[2]) == _code(ref[2])
 
 
-def test_vrt_process_answers_501(wenv):
-    status, ctype, body = port_get(wenv, _kvp("vrt_drill", POLY))
-    assert (status, ctype) == (501, "application/vnd.ogc.se_xml")
-    assert _code(body) == "OperationNotSupported"
-    assert b"ROADMAP A.8" in body
-    assert re.search(rb"VRT", body)
+def test_vrt_process_matches_reference(wenv):
+    ref, got = both(wenv, _kvp("vrt_drill", POLY))
+    blocks = _same_csv(ref, got)
+    rows = _rows(blocks[0])
+    assert [d for d, _ in rows] == ["2020-01-10", "2020-01-11",
+                                    "2020-01-12"]
+    # the pixel function sets values under 20 to nodata
+    assert all(v[0] > 20.0 for _, v in rows)
+    assert blocks == _csv_blocks(ref[2])
