@@ -177,6 +177,34 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    B1 and B2 against their plain versions at an AHI limb tile's and a
    swath edge tile's operands salted with NaN, +-inf and finite values
    past +-2**31.
+19. the native codec, ranged ingest and a MAS over HTTP (GSKY_WAVES=0).
+   19a: `gsky_tpu_torch/native/codec.cpp` built with the host C++
+   compiler (its version logged); LZW streams of every code width
+   (9-12, CLEARs mid-stream and on a full table, KwKwK codes), PackBits,
+   predictor 2 (int16, uint8) and 3 (float32) decode as their plain
+   Python versions do; LZW decode MB/s of both on one 512 x 512 int16
+   tile.  19b: two acquisitions of LC08_B4, LC08_B5 (int16) and
+   pixel_qa (uint16) at 7681 x 7821, EPSG:32755, 512^2 tiles, overviews
+   2 and 4, LZW + predictor 2 (a test-side encoder: 9-bit literal
+   codes), named ``LC8<path><row><year><doy>LGN00_<band>.TIF`` so that
+   the crawler's built-in ``landsat`` rule dates them, crawled into a
+   `MASShardedStore` and served by the port's masapi on 127.0.0.1; the
+   card's `OWSServer` reaches it over HTTP (a config ``mas_address``, no
+   ``mas_factory``): 16 fused tiles near and bilinear (staged LZW scene
+   loads, one B1 each), 4 over the first date equal to the same raster
+   uncompressed, 16 masked (ranged windows, one B4 each), 8 at 4x (the
+   level-4 overview), 8 over LC08_B5 with GSKY_INGEST_WINDOW_FRAC=0.05
+   (declined scenes: ranged windows through B2 until the fourth ask
+   promotes a scene, as the reference's rule does); 4 fused tiles after
+   a cache clear twice at GSKY_STAGING_MB=1024 (pinned, then reused
+   buffers) and one scene load staged pageable, staged pinned and
+   classic (bits equal); two tiles a route on a CPU server; the first
+   B1, B2 and B4 launch of each route against its plain version; 0
+   ranged-read fallbacks.  19c: WPS Execute over HTTP on a 120-step
+   NetCDF-3 stack indexed through the masapi: the cold request reads
+   its 120 windows ranged (no launch), warm ones go through B3 (its
+   first launch bit-exact against the plain version), equal to the
+   cold CSV and the CPU server's.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -1243,13 +1271,14 @@ def phase_b3_kernel():
     return n, err
 
 
-def write_drill_stack(path):
-    """A 1000-step NDVI-like float32 stack (8-day steps from 2000-01-01:
-    a smooth field, a seasonal cycle and noise; a -9999 nodata block
-    inside the polygon), written with the port's NetCDF-3 writer."""
+def write_drill_stack(path, T=DRILL_T):
+    """A ``T``-step (1000 by default) NDVI-like float32 stack (8-day
+    steps from 2000-01-01: a smooth field, a seasonal cycle and noise; a
+    -9999 nodata block inside the polygon), written with the port's
+    NetCDF-3 writer."""
     from gsky_tpu_torch.geo.crs import EPSG4326
     from gsky_tpu_torch.io.netcdf import write_netcdf3
-    T, hw = DRILL_T, DRILL_HW
+    hw = DRILL_HW
     rng = np.random.default_rng(5)
     x = DRILL_X0 + DRILL_RES * (np.arange(hw) + 0.5)
     y = DRILL_Y0 - DRILL_RES * (np.arange(hw) + 0.5)
@@ -4338,23 +4367,25 @@ def write_swath(path, k, sub=1, shape=None, times=None):
 
 def sub_geo_loc(rec, step):
     """The crawler flags full-resolution geolocation arrays only; a
-    granule with subsampled ones gets its ``geo_loc`` (offsets, steps)
-    and footprint the way a crawler ruleset would give them."""
+    granule with subsampled ones gets its ``geo_loc`` (offsets, steps),
+    SRS and footprint from a crawler rule, as a deployment's rule
+    config gives them (the footprint: the arrays' extent)."""
+    from gsky_tpu_torch.index.rulesets import RuleSet, apply_ruleset
     from gsky_tpu_torch.io.netcdf import NetCDF
-    with NetCDF(rec["filename"]) as nc:
+    path = rec["filename"]
+    with NetCDF(path) as nc:
         lon = np.asarray(nc.variables["lon"][:], np.float64)
         lat = np.asarray(nc.variables["lat"][:], np.float64)
-    for ds in rec["geo_metadata"]:
-        ds["geo_loc"] = {"x_var": "lon", "y_var": "lat",
-                         "line_offset": 2.0, "pixel_offset": 2.0,
-                         "line_step": float(step),
-                         "pixel_step": float(step), "srs": "EPSG:4326"}
-        ds["proj_wkt"] = "EPSG:4326"
-        ds["proj4"] = "+proj=longlat +datum=WGS84 +no_defs"
-        x0, x1, y0, y1 = lon.min(), lon.max(), lat.min(), lat.max()
-        ds["polygon"] = (f"POLYGON (({x0} {y0},{x1} {y0},{x1} {y1},"
-                         f"{x0} {y1},{x0} {y0}))")
-    return rec
+    rule = RuleSet.from_json({
+        "collection": "swath_sub", "srs_text": "EPSG:4326",
+        "proj4_text": "+proj=longlat +datum=WGS84 +no_defs",
+        "pattern": re.escape(os.path.basename(path)) + "$",
+        "bbox": [float(lon.min()), float(lat.min()), float(lon.max()),
+                 float(lat.max())],
+        "geo_loc": {"x_dataset_template": "lon", "y_dataset_template": "lat",
+                    "line_offset": 2, "pixel_offset": 2, "line_step": step,
+                    "pixel_step": step}})
+    return apply_ruleset(rule, rule.match(path), rec, path)
 
 
 def tile_request(coll, band, box, method, crs="EPSG:3857", t=None,
@@ -4822,6 +4853,784 @@ def phase_sat(root, card):
     return total, worst_odd, max(err_b, err_e)
 
 
+# -- phase 19: the native codec, ranged ingest, a MAS over HTTP -------------
+
+LZW_DOYS = ("010", "026")     # 19b: two acquisitions of 2020 (phase 10 has 8)
+LZW_TILE = 512                # the archive's tile size
+LZW_OVERVIEWS = (2, 4)
+LZW_FUSED = 16                # 19b: fused tiles (staged loads, B1)
+LZW_MASKED = 16               # 19b: masked tiles (ranged windows, B4)
+LZW_ZOOM = 8                  # 19b: tiles at 4x (overview level 4)
+LZW_ROUTED = 8                # 19b: window-routed tiles over LC08_B5
+LZW_PLAIN = 4                 # 19b: tiles held against uncompressed rasters
+LZW_CPU = 2                   # 19b: tiles per route held against the CPU
+LZW_ROUTE_FRAC = "0.05"       # GSKY_INGEST_WINDOW_FRAC for the routed tiles
+LZW_PROMOTE = 4               # the reference's GSKY_INGEST_WINDOW_PROMOTE
+INGEST_T = 120                # 19c: the drill stack's timesteps
+INGEST_DRILLS = 5             # 19c: warm drills
+LZW_CLEAR, LZW_EOI = 256, 257
+# UTM-55S origins of 19b's tile grids (`tile_boxes`), inside both dates
+LZW_AT = {"fused": (600000.0, 6100000.0), "masked": (620000.0, 6080000.0),
+          "zoom": (560000.0, 6140000.0), "routed": (640000.0, 6060000.0)}
+
+
+def lzw_encode(data, clear_every=0, seen=None):
+    """A TIFF LZW encoder (MSB-first codes, the decoder's early width
+    change, a CLEAR when the table would pass 4093 entries and, with
+    ``clear_every``, after that many codes).  ``seen`` (a dict) gets the
+    code widths used, the CLEARs and the KwKwK codes emitted."""
+    codes = []
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258, 9
+
+    table, nxt, width = reset()
+    codes.append((LZW_CLEAR, width))
+    since = kwkwk = 0
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        code = table[w]
+        kwkwk += since > 0 and code == nxt - 1
+        codes.append((code, width))
+        since += 1
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= (1 << width) and width < 12:
+            width += 1
+        w = bytes([c])
+        if nxt >= 4094 or (clear_every and since >= clear_every):
+            codes.append((LZW_CLEAR, width))
+            table, nxt, width = reset()
+            since = 0
+    if w:
+        code = table[w]
+        kwkwk += since > 0 and code == nxt - 1
+        codes.append((code, width))
+        if since and nxt + 1 >= (1 << width) and width < 12:
+            width += 1
+    codes.append((LZW_EOI, width))
+    if seen is not None:
+        seen["widths"] = sorted({wd for _, wd in codes})
+        seen["clears"] = sum(c == LZW_CLEAR for c, _ in codes)
+        seen["kwkwk"] = kwkwk
+    acc, nbits = 0, 0
+    for code, wd in codes:
+        acc = (acc << wd) | code
+        nbits += wd
+    pad = -nbits % 8
+    return (acc << pad).to_bytes((nbits + pad) // 8, "big")
+
+
+def lzw_literal(raw):
+    """A valid TIFF LZW stream of 9-bit literal codes: a CLEAR every 254
+    codes keeps the table from widening them, eight codes pack into nine
+    bytes (vectorised: the archive's writer)."""
+    b = np.frombuffer(raw, np.uint8)
+    n = b.size
+    per = 253
+    groups = max(1, -(-n // per))
+    codes = np.empty((groups, per + 1), np.uint16)
+    codes[:, 0] = LZW_CLEAR
+    lit = np.zeros(groups * per, np.uint16)
+    lit[:n] = b
+    codes[:, 1:] = lit.reshape(groups, per)
+    total = n + groups + 1
+    c = np.zeros(total + (-total % 8), np.uint16)
+    c[:n + groups] = codes.reshape(-1)[:n + groups]
+    c[n + groups] = LZW_EOI
+    c = c.reshape(-1, 8)
+    out = np.empty((len(c), 9), np.uint8)
+    out[:, 0] = c[:, 0] >> 1
+    for k in range(1, 8):
+        out[:, k] = ((c[:, k - 1] & ((1 << k) - 1)) << (8 - k)) \
+            | (c[:, k] >> (k + 1))
+    out[:, 8] = c[:, 7] & 0xFF
+    return out.tobytes()
+
+
+def predict_h(block):
+    """Predictor 2 on a (rows, cols) integer block (wrapping deltas)."""
+    d = block.copy()
+    d[:, 1:] = block[:, 1:] - block[:, :-1]
+    return d
+
+
+def predict_fp(data):
+    """Predictor 3 on a (rows, cols) float block: per row, the bytes in
+    big-endian significance planes, delta-coded as uint8."""
+    h, w = data.shape
+    be = data.astype(data.dtype.newbyteorder(">")).view(np.uint8)
+    planes = np.transpose(be.reshape(h, w, data.dtype.itemsize),
+                          (0, 2, 1)).reshape(h, -1)
+    enc = planes.copy()
+    enc[:, 1:] = planes[:, 1:] - planes[:, :-1]
+    return enc.tobytes()
+
+
+def packbits_encode(data):
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes([(257 - (j - i)) & 0xFF, data[i]])
+            i = j
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and (
+                j + 1 >= len(data) or data[j + 1] != data[j]):
+            j += 1
+        j = max(j, i + 1)
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def phase_codec(card):
+    """19a: build the native codec and hold its decoders against their
+    plain Python versions; LZW decode MB/s of both on one 512 x 512 int16
+    tile.  Returns the number of comparisons."""
+    from gsky_tpu_torch import native
+    from gsky_tpu_torch.io import geotiff as tg
+    t0 = time.perf_counter()
+    lib = native.codec()
+    built = time.perf_counter() - t0
+    ver = subprocess.run([native.compiler(), "--version"],
+                         capture_output=True, text=True).stdout
+    log(f"phase 19a: {os.path.relpath(lib.path, ROOT)} built and loaded in "
+        f"{built:.2f} s by {ver.splitlines()[0] if ver else '?'} ({card})")
+    rng = np.random.default_rng(19)
+    noise = rng.integers(0, 256, 40000, dtype=np.uint8).tobytes()
+    smooth = np.cumsum(rng.integers(-2, 3, 60000)).astype(np.uint8).tobytes()
+    payloads = {"noise": noise, "smooth": smooth, "kwkwk": b"a" * 8000,
+                "text": b"TOBEORNOTTOBEORTOBEORNOT#" * 600,
+                "mixed": noise[:5000] + bytes(9000) + smooth[:20000]}
+    n_cmp, widths, clears, kwkwk = 0, set(), 0, 0
+    for name, data in payloads.items():
+        for every in (0, 300):
+            seen = {}
+            enc = lzw_encode(data, every, seen)
+            widths |= set(seen["widths"])
+            clears += seen["clears"]
+            kwkwk += seen["kwkwk"]
+            got = lib.lzw_decode(enc, len(data))
+            if got != data or tg.lzw_decode_plain(enc, len(data)) != data:
+                raise AssertionError(f"19a: LZW {name} (CLEAR every "
+                                     f"{every}) decodes differently")
+            n_cmp += 1
+        pb = packbits_encode(data)
+        if lib.packbits_decode(pb, len(data)) != data or \
+                tg.packbits_decode_plain(pb, len(data)) != data:
+            raise AssertionError(f"19a: PackBits {name} differs")
+        n_cmp += 1
+    if widths != {9, 10, 11, 12} or clears < 20 or not kwkwk:
+        raise AssertionError(f"19a: streams covered widths {widths}, "
+                             f"{clears} CLEARs, {kwkwk} KwKwK codes")
+    for dt in (np.int16, np.uint8):
+        info = np.iinfo(dt)
+        arr = rng.integers(info.min, info.max, (512, 512, 1),
+                           dtype=np.int64).astype(dt)
+        got = arr.copy()
+        if not lib.unpredict_h(got) or \
+                not np.array_equal(got, tg.unpredict_h_plain(arr)):
+            raise AssertionError(f"19a: predictor 2 on {dt.__name__}")
+        n_cmp += 1
+    f = rng.normal(size=(512, 512)).astype(np.float32)
+    raw = predict_fp(f)
+    got = lib.unpredict_fp(raw, 512, 512, 1, 4)
+    if got != tg.unpredict_fp_plain(raw, 512, 512, 1, 4) or \
+            not np.array_equal(np.frombuffer(got, "<f4").reshape(512, 512),
+                               f):
+        raise AssertionError("19a: predictor 3 on float32")
+    n_cmp += 1
+    # one 512 x 512 int16 tile of a smooth band, predictor 2, its real
+    # LZW stream (codes widen to 12 bits)
+    yy, xx = np.mgrid[0:512, 0:512].astype(np.float32)
+    tile = (900.0 + 500.0 * np.sin(xx / 97.0) * np.cos(yy / 131.0)
+            + rng.integers(-60, 61, (512, 512))).astype(np.int16)
+    raw = predict_h(tile).astype("<i2").tobytes()
+    enc = lzw_encode(raw)
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = lib.lzw_decode(enc, len(raw))
+    nat = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    py = tg.lzw_decode_plain(enc, len(raw))
+    pys = time.perf_counter() - t0
+    if out != raw or py != raw:
+        raise AssertionError("19a: the timed tile decodes differently")
+    a = np.frombuffer(raw, "<i2").reshape(512, 512, 1)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        b = a.copy()
+        lib.unpredict_h(b)
+    un = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    tg.unpredict_h_plain(a.copy())
+    unp = time.perf_counter() - t0
+    mb = len(raw) / 1e6
+    log(f"phase 19a: {n_cmp} codec-vs-plain comparisons equal (LZW code "
+        f"widths {sorted(widths)}, {clears} CLEARs, {kwkwk} KwKwK codes; "
+        f"PackBits; predictor 2 int16/uint8, 3 float32); one 512 x 512 "
+        f"int16 tile ({len(enc)} B LZW stream): decode native "
+        f"{mb / nat:.1f} MB/s, Python {mb / pys:.2f} MB/s "
+        f"({pys / nat:.0f}x); predictor 2 native {mb / un:.0f} MB/s, "
+        f"numpy {mb / unp:.0f} MB/s (host, {card})")
+    return n_cmp
+
+
+def write_lzw(path, data, gt, crs, nodata):
+    """One integer band as a tiled LZW + predictor-2 GeoTIFF with
+    overview IFDs at block centres (`write_geotiff`'s sampling)."""
+    from gsky_tpu_torch.io import geotiff as tg
+
+    class Writer(tg.GeoTIFFWriter):
+        def _encode_block(self, block):
+            ts = self.tile_size
+            full = np.full((ts, ts), nodata, dtype=self.dtype)
+            full[:block.shape[1], :block.shape[2]] = block[0]
+            return lzw_literal(predict_h(full).astype(
+                self.dtype.newbyteorder("<")).tobytes())
+
+        def _base_tags(self, width, height, tile_map, txs, tys):
+            tags = super()._base_tags(width, height, tile_map, txs, tys)
+            return [(t, typ, [tg.COMP_LZW] if t == tg.T_COMPRESSION
+                     else v) for t, typ, v in tags] + \
+                [(tg.T_PREDICTOR, 3, [2])]
+
+    h, w = data.shape
+    wr = Writer(path, 1, h, w, data.dtype, gt, crs, nodata=nodata,
+                tile_size=LZW_TILE, compress=False)
+    ts = LZW_TILE
+    for ty in range(wr.tiles_y):
+        for tx in range(wr.tiles_x):
+            wr.write_tile(tx, ty, data[None, ty * ts:(ty + 1) * ts,
+                                       tx * ts:(tx + 1) * ts])
+    for f in LZW_OVERVIEWS:
+        wr.append_overview(data[f // 2::f, f // 2::f][:h // f, :w // f])
+    wr.close()
+
+
+def lzw_stamp(doy):
+    return MOSAIC_T0 + (int(doy) - 1) * 86400.0
+
+
+def write_lzw_archive(root, shape=(SCENE_H, SCENE_W)):
+    """19b: per acquisition LC08_B4 and LC08_B5 (int16, nodata -999) under
+    ``bands/`` and pixel_qa (uint16, fill 1, cloud and shadow blobs) under
+    ``qa/``, LZW + predictor 2, named as the USGS names them so that the
+    built-in ``landsat`` rule dates them; the first date's LC08_B4 again
+    uncompressed under ``plain/``.  Returns [(path, namespace)]."""
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import GeoTransform
+    from gsky_tpu_torch.io.geotiff import write_geotiff
+    h, w = shape
+    utm = parse_crs("EPSG:32755")
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    collar = (xx + yy) < 1500
+    for d in ("bands", "qa", "plain"):
+        os.makedirs(os.path.join(root, d))
+    out = []
+    for i, doy in enumerate(LZW_DOYS):
+        rng = np.random.default_rng(90 + i)
+        dx, dy = (int(v) for v in rng.integers(0, 61, 2))
+        gt = GeoTransform(500000.0 + 30.0 * dx, 30.0, 0.0,
+                          6200000.0 - 30.0 * dy, 0.0, -30.0)
+        red = (900.0 + 500.0 * np.sin(xx / (97.0 + 7 * i))
+               * np.cos(yy / 131.0)).astype(np.int16)
+        red += rng.integers(-60, 61, (h, w), dtype=np.int16)
+        nir = (2500.0 + 800.0 * np.cos(xx / 173.0)
+               * np.sin(yy / (89.0 + 5 * i))).astype(np.int16)
+        nir += rng.integers(-90, 91, (h, w), dtype=np.int16)
+        cloud = _blob_mask(rng, shape, rng.uniform(0.15, 0.25))
+        shadow = _blob_mask(rng, shape, rng.uniform(0.05, 0.15), 16) & ~cloud
+        qa = np.full(shape, 322, np.uint16)
+        qa[cloud] = 352
+        qa[shadow] = 328
+        for arr, fill in ((red, -999), (nir, -999), (qa, 1)):
+            arr[collar] = fill
+        name = f"LC80900852020{doy}LGN00"
+        for band, sub, ns, arr, nd in (
+                ("B4", "bands", "LC08_B4", red, -999),
+                ("B5", "bands", "LC08_B5", nir, -999),
+                ("pixel_qa", "qa", "pixel_qa", qa, 1)):
+            p = os.path.join(root, sub, f"{name}_{band}.TIF")
+            write_lzw(p, arr, gt, utm, nd)
+            out.append((p, ns))
+        if i == 0:
+            p = os.path.join(root, "plain", f"{name}_B4.TIF")
+            write_geotiff(p, red, gt, utm, nodata=-999, compress=False,
+                          overviews=LZW_OVERVIEWS)
+            out.append((p, "LC08_B4"))
+        del red, nir, qa, cloud, shadow
+    return out
+
+
+class CaptureFirst:
+    """The first call's arguments of ``mod.name`` while installed; the
+    wrapper it calls counts launches as always."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name = mod, name
+        self.orig = getattr(mod, name)
+        self.args = None
+        setattr(mod, name, self._call)
+
+    def _call(self, *a, **k):
+        if self.args is None:
+            self.args = (a, k)
+        return self.orig(*a, **k)
+
+    def remove(self):
+        setattr(self.mod, self.name, self.orig)
+
+
+def csv_rows(body):
+    """(dates, values) of every CSV block of a WPS Execute response."""
+    from xml.etree import ElementTree
+    ns = {"wps": "http://www.opengis.net/wps/1.0.0"}
+    out = []
+    for el in ElementTree.fromstring(body).iterfind(".//wps:ComplexData",
+                                                    ns):
+        rows = [line.split(",") for line in (el.text or "").splitlines()]
+        out.append(([r[0] for r in rows], np.array(
+            [[float(v) if v else np.nan for v in r[1:]] for r in rows])))
+    return out
+
+
+def same_csv(a, b, what, rtol=1e-5):
+    ra, rb = csv_rows(a), csv_rows(b)
+    if len(ra) != len(rb) or not ra:
+        raise AssertionError(f"{what}: {len(ra)} vs {len(rb)} CSV blocks")
+    for (da, va), (db, vb) in zip(ra, rb):
+        if da != db or va.shape != vb.shape or \
+                not np.array_equal(np.isnan(va), np.isnan(vb)):
+            raise AssertionError(f"{what}: dates or NaNs differ")
+        ok = ~np.isnan(va)
+        rel = np.abs(va[ok] - vb[ok]) / np.maximum(np.abs(va[ok]), 1e-30)
+        if rel.size and rel.max() > rtol:
+            raise AssertionError(f"{what}: rel {rel.max()} > {rtol}")
+    return ra[0][0]
+
+
+def phase_ingest(root, card, dev="cuda"):
+    """Phases 19b and 19c over an archive written under ``root``.
+    Returns ({kernel: launches} of the main path, max |kernel - plain|
+    of its captured launches)."""
+    import torch
+    from urllib.parse import parse_qs, urlsplit
+    from gsky_tpu_torch import ingest
+    from gsky_tpu_torch.geo import geometry as geom
+    from gsky_tpu_torch.index import api as mas_api
+    from gsky_tpu_torch.index.crawler import extract
+    from gsky_tpu_torch.index.rulesets import match_rule
+    from gsky_tpu_torch.index.sharded import MASShardedStore
+    from gsky_tpu_torch.index.store import fmt_time
+    from gsky_tpu_torch.ingest import staging
+    from gsky_tpu_torch.io.geotiff import GeoTIFF
+    from gsky_tpu_torch.ops import first_valid, paged, warp_render
+    from gsky_tpu_torch.ops import stats as kstats
+    from gsky_tpu_torch.pipeline import drill as tdrill
+    from gsky_tpu_torch.pipeline import drill_cache as DC
+    from gsky_tpu_torch.pipeline.scene_cache import SceneCache
+    from gsky_tpu_torch.pipeline.types import Granule
+    from gsky_tpu_torch.server.config import ConfigWatcher
+    from gsky_tpu_torch.server.ows import OWSServer
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    total = dict.fromkeys(_kernel_counts(), 0)
+    t0 = time.perf_counter()
+    paths = write_lzw_archive(root)
+    drill_dir = os.path.join(root, "drill")
+    os.makedirs(drill_dir)
+    drill_path = os.path.join(drill_dir, "ndvi_stack.nc")
+    write_drill_stack(drill_path, INGEST_T)
+    size = sum(os.path.getsize(p) for p, _ in paths) \
+        + os.path.getsize(drill_path)
+    with GeoTIFF(paths[0][0]) as g:
+        dims = f"{g.width} x {g.height}"
+    log(f"phase 19b: {len(paths)} GeoTIFFs ({len(paths) - 1} LZW + "
+        f"predictor 2, {dims}, {LZW_TILE}^2 tiles, overviews "
+        f"{LZW_OVERVIEWS}; one uncompressed) and 19c's {INGEST_T}-step "
+        f"stack ({size / 1e9:.3f} GB) written in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+
+    # -- crawl with the built-in rules into a sharded store --------------
+    t0 = time.perf_counter()
+    store = MASShardedStore(root)
+    recs = {}
+    for p, ns in paths + [(drill_path, None)]:
+        rec = extract(p)
+        if rec.get("error"):
+            raise AssertionError(f"19b crawl {p}: {rec['error']}")
+        if p.endswith(".TIF"):
+            rule, m = match_rule(p)
+            doy = os.path.basename(p)[13:16]
+            want = [fmt_time(lzw_stamp(doy))]
+            if rule.collection != "landsat" or any(
+                    ds["timestamps"] != want for ds in rec["geo_metadata"]):
+                raise AssertionError(f"19b: {p} matched {rule.collection}, "
+                                     f"timestamps {rec['geo_metadata']}")
+        for ds in rec["geo_metadata"]:
+            ds["namespace"] = ns or ds["namespace"]
+        store.ingest(rec)
+        recs[p] = rec
+    qa_path = next(p for p, ns in paths if ns == "pixel_qa")
+    qa_band = match_rule(qa_path)[1].group("band")
+    log(f"phase 19b: crawled into a MASShardedStore of shards "
+        f"{sorted(store._shards)} in {time.perf_counter() - t0:.2f} s; "
+        f"the built-in 'landsat' rule dated every GeoTIFF from its name "
+        f"(its band group reads {qa_band!r} of '..._pixel_qa.TIF': it "
+        f"takes no '_'); namespaces set from the band ({card})")
+
+    api = mas_api.MasAPI(store)
+    mas_httpd = api.serve("127.0.0.1", 0)
+    bands, qa = os.path.join(root, "bands"), os.path.join(root, "qa")
+    plain_dir = os.path.join(root, "plain")
+    conf = os.path.join(root, "conf")
+    os.makedirs(conf)
+    mask = {"id": "pixel_qa", "data_source": qa,
+            "bit_tests": CLOUD_SHADOW}
+    styles = [{"name": m, "title": m, "rgb_products": ["LC08_B4"],
+               "resample": m} for m in ("near", "bilinear")]
+    with open(os.path.join(conf, "config.json"), "w") as fp:
+        json.dump({
+            "service_config": {
+                "mas_address": f"127.0.0.1:{mas_httpd.server_address[1]}"},
+            "layers": [
+                {"name": "lzw", "data_source": bands,
+                 "rgb_products": ["LC08_B4"], "time_generator": "mas",
+                 "styles": styles},
+                {"name": "lzw_b5", "data_source": bands,
+                 "rgb_products": ["LC08_B5"], "time_generator": "mas"},
+                {"name": "lzw_masked", "data_source": bands,
+                 "rgb_products": ["LC08_B4"], "resample": "bilinear",
+                 "time_generator": "mas", "mask": mask,
+                 "clip_value": 2000},
+                {"name": "plain_b4", "data_source": plain_dir,
+                 "rgb_products": ["LC08_B4"], "time_generator": "mas",
+                 "styles": styles}],
+            "processes": [
+                {"identifier": "ingest_drill", "approx": False,
+                 "data_sources": [{"data_source": drill_dir,
+                                   "rgb_products": ["ndvi"]}]}]}, fp)
+    # no mas_factory: every namespace reaches the masapi over HTTP
+    watcher = ConfigWatcher(conf, install_signal=False)
+    srv = OWSServer(watcher, device=dev, gateway=None)
+    cpu = OWSServer(watcher, device="cpu", gateway=None)
+    httpd = srv.serve("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    ex = srv.executor
+    kernels = _kernel_counts()
+    t_both = (lzw_stamp(LZW_DOYS[0]) - 86400.0,
+              lzw_stamp(LZW_DOYS[-1]) + 86400.0)
+    t_first = (t_both[0], lzw_stamp(LZW_DOYS[0]) + 86400.0)
+    errs = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "B4": 0.0}
+    for k in ("GSKY_STAGING_MB", "GSKY_INGEST_WINDOW_FRAC",
+              "GSKY_INGEST", "GSKY_DRILL_CACHE"):
+        os.environ.pop(k, None)
+    staging.reset_staging_pool()
+    ingest.stats.reset()
+
+    def route(name, urls, need, method="near", check=None):
+        """GET ``urls`` over HTTP with the counts set to 0 just before;
+        ``need``: kernels that must have launched.  Two tiles again
+        from the CPU server."""
+        run = SatRun(ex)
+        caps = [CaptureFirst(paged, "paged_render_scored"),
+                CaptureFirst(warp_render, "warp_render_scored"),
+                CaptureFirst(first_valid, "mosaic_first_valid_kernel")]
+        bodies, secs = [], []
+        try:
+            for u in urls:
+                status, ctype, body, s = http_get(u)
+                if (status, ctype) != (200, "image/png"):
+                    raise AssertionError(f"19b {name}: {status} "
+                                         f"{body[:300]}")
+                bodies.append(body)
+                secs.append(s)
+        finally:
+            for c in reversed(caps):
+                c.remove()
+        run.close()
+        run.need(*need)
+        if check is not None:
+            check(run.launches)
+        for k in total:
+            total[k] += run.launches[k]
+        run.report(f"19b {name}", secs, card)
+        hold(caps, run.launches)
+        for u, b in list(zip(urls, bodies))[:LZW_CPU]:
+            uu = urlsplit(u)
+            r = cpu.handle(uu.path, parse_qs(uu.query), "")
+            if r.status != 200:
+                raise AssertionError(f"19b {name} CPU: {r.status}")
+            same_decoded(method, b, r.body, f"19b {name} card vs CPU")
+        return bodies
+
+    def hold(caps, launches):
+        """Each captured launch against its plain version on the same
+        inputs (B1 on the pool as it is now); those launches do not
+        count."""
+        import inspect
+        saved = {k: v.launches for k, v in kernels.items()}
+        b1, b2, b4 = (None if c.args is None else inspect.signature(
+            c.orig).bind(*c.args[0], **c.args[1]).arguments for c in caps)
+        if b1 is not None:
+            with ex.pool.locked_pool() as parr:
+                kw = dict(b1, pool=parr)
+                ck, bk = paged.paged_render_scored(**kw)
+                cp, bp = paged.paged_render_scored_plain(**kw)
+            errs["B1"] = max(errs["B1"], check_pair(
+                kw["method"], ck, bk, cp, bp, "19b B1 vs plain"))
+        if b2 is not None:
+            ck, bk = warp_render.warp_render_scored(**b2)
+            cp, bp = warp_render.warp_render_scored_plain(**b2)
+            errs["B2"] = max(errs["B2"], check_pair(
+                b2["method"], ck, bk, cp, bp, "19b B2 vs plain"))
+        if b4 is not None:
+            b4_same(first_valid.mosaic_first_valid_kernel(**b4),
+                    first_valid.mosaic_first_valid_plain(**b4),
+                    "19b B4 vs plain")
+        for k, v in kernels.items():
+            v.launches = saved[k]
+
+    try:
+        # -- fused tiles: staged loads of two LZW scenes, then B1 --------
+        boxes = tile_boxes(*LZW_AT["fused"], nx=4, ny=4)[:LZW_FUSED]
+        for m in ("near", "bilinear"):
+            t0 = time.perf_counter()
+            route(f"fused {m}", [getmap_url(base, "lzw", b, m, t_both)
+                                 for b in boxes], ("B1",), m,
+                  lambda n: n["B1"] == len(boxes) and not n["B4"])
+            if m == "near":
+                log(f"phase 19b: the first fused pass (two staged "
+                    f"scene loads included) took "
+                    f"{time.perf_counter() - t0:.2f} s; staging "
+                    f"{staging.default_staging_pool().stats()}, staged "
+                    f"loads {ex.cache.staged_loads} (GSKY_STAGING_MB "
+                    f"default) ({card})")
+        # -- the same rasters uncompressed: the same bytes --------------
+        pl = boxes[:LZW_PLAIN]
+        a = route("first date, LZW", [getmap_url(base, "lzw", b, "near",
+                                                 t_first) for b in pl],
+                  ("B1",))
+        b = route("first date, uncompressed",
+                  [getmap_url(base, "plain_b4", b, "near", t_first)
+                   for b in pl], ("B1",))
+        if a != b:
+            raise AssertionError("19b: LZW tiles differ from the "
+                                 "uncompressed rasters'")
+        log(f"phase 19b: {len(pl)} tiles over the first date's LZW band "
+            f"equal those over the same raster uncompressed, byte for byte")
+        # -- masked tiles: ranged windows of LZW blocks, then B4 --------
+        mboxes = tile_boxes(*LZW_AT["masked"], nx=4, ny=4)[:LZW_MASKED]
+        before = ingest.stats.snapshot()
+        route("masked", [getmap_url(base, "lzw_masked", b, "",
+                                    t_both) for b in mboxes],
+              ("B4",), "bilinear",
+              lambda n: n["B4"] == len(mboxes) and not n["B1"])
+        after = ingest.stats.snapshot()
+        log(f"phase 19b masked: ranged windows "
+            f"{after['ranged_windows'] - before['ranged_windows']}, "
+            f"coalesced requests "
+            f"{after['ranged_reads'] - before['ranged_reads']} for "
+            f"{after['ranged_read_bytes'] - before['ranged_read_bytes']} "
+            f"B, {after['read_s'] - before['read_s']:.3f} s in ranged "
+            f"fetches ({card})")
+        # -- 4x: the overview IFD at level 4 ----------------------------
+        zboxes = tile_boxes(*LZW_AT["zoom"], zoom=4.0, nx=4,
+                            ny=2)[:LZW_ZOOM]
+        route("4x", [getmap_url(base, "lzw", b, "bilinear", t_both)
+                     for b in zboxes], (), "bilinear",
+              lambda n: n["B1"] + n["B2"] == len(zboxes))
+        # -- window routing over LC08_B5 scenes not resident ------------
+        os.environ["GSKY_INGEST_WINDOW_FRAC"] = LZW_ROUTE_FRAC
+        decisions = []
+        orig_route = ex.cache._route_window
+
+        def spy(key, g, bbox, crs):
+            r = orig_route(key, g, bbox, crs)
+            decisions.append((key, r))
+            return r
+
+        ex.cache._route_window = spy
+        w0 = ex.cache.window_routed
+        try:
+            rboxes = tile_boxes(*LZW_AT["routed"], nx=4,
+                                ny=2)[:LZW_ROUTED]
+            # a declined scene sends the tile down the modular route: its
+            # ranged windows warped and mosaicked by B2
+            route("window-routed", [getmap_url(base, "lzw_b5", b, "",
+                                               t_both) for b in rboxes],
+                  ("B2",))
+        finally:
+            del ex.cache._route_window
+            os.environ.pop("GSKY_INGEST_WINDOW_FRAC", None)
+        routed = ex.cache.window_routed - w0
+        by_key = {}
+        for key, r in decisions:
+            by_key.setdefault(key, []).append(r)
+        for key, seq in by_key.items():
+            n = seq.index(False) if False in seq else len(seq)
+            if any(seq[n:]) or n > LZW_PROMOTE - 1 or \
+                    (n < len(seq) and n != LZW_PROMOTE - 1):
+                raise AssertionError(f"19b: routing of {key[0]}: {seq}")
+        if routed != sum(r for _, r in decisions) or not routed:
+            raise AssertionError(f"19b: window_routed {routed}")
+        log(f"phase 19b window-routed: {routed} declines over "
+            f"{len(by_key)} scenes, each promoted on its "
+            f"{LZW_PROMOTE}th ask as the reference's rule does "
+            f"(decisions {[seq for seq in by_key.values()]})")
+
+        # -- staging at GSKY_STAGING_MB 1024, and the load itself -------
+        os.environ["GSKY_STAGING_MB"] = "1024"
+        staging.reset_staging_pool()
+        try:
+            for rnd in range(2):
+                ex.cache.clear()
+                t0 = time.perf_counter()
+                route(f"fused near, GSKY_STAGING_MB 1024, round {rnd}",
+                      [getmap_url(base, "lzw", b, "near", t_both)
+                       for b in boxes[:4]], ("B1",))
+                log(f"phase 19b: 4 fused tiles after a cache clear "
+                    f"(two staged loads) in "
+                    f"{time.perf_counter() - t0:.2f} s; staging "
+                    f"{staging.default_staging_pool().stats()} ({card})")
+            rec = recs[paths[0][0]]["geo_metadata"][0]
+            g = Granule(path=paths[0][0], ds_name=paths[0][0],
+                        namespace="LC08_B4", base_namespace="LC08_B4",
+                        band=1, time_index=None,
+                        timestamp=lzw_stamp(LZW_DOYS[0]),
+                        srs="EPSG:32755",
+                        geo_transform=rec["geotransform"], nodata=-999.0)
+            # one load each: pinned from the rounds' pool (a reused
+            # buffer, no cudaHostAlloc), pageable (over the default
+            # budget), classic
+            loads = {}
+            for what, ingest_on, mb in (("staged, pinned (1024 MB)", "1",
+                                         "1024"),
+                                        ("staged, pageable (128 MB)", "1",
+                                         "128"),
+                                        ("classic", "0", "128")):
+                os.environ["GSKY_INGEST"] = ingest_on
+                if mb != os.environ["GSKY_STAGING_MB"]:
+                    os.environ["GSKY_STAGING_MB"] = mb
+                    staging.reset_staging_pool()
+                sc = SceneCache(device=dev)
+                sync()
+                t0 = time.perf_counter()
+                s = sc.get(g)
+                sync()
+                loads[what] = (time.perf_counter() - t0, s.dev)
+                del sc
+            a_, b_ = loads["staged, pinned (1024 MB)"][1], \
+                loads["classic"][1]
+            if not torch.equal(a_.view(torch.int32), b_.view(torch.int32)):
+                raise AssertionError("19b: a staged scene's bits differ "
+                                     "from the classic load's")
+            log(f"phase 19b: one {dims} LZW scene load (decode, "
+                "NaN-encode, upload, host clock): " + ", ".join(
+                    f"{k} {v[0] * 1e3:.1f} ms" for k, v in loads.items())
+                + f"; staged bits equal the classic ({card})")
+            del loads, a_, b_
+        finally:
+            for k in ("GSKY_STAGING_MB", "GSKY_INGEST"):
+                os.environ.pop(k, None)
+            staging.reset_staging_pool()
+        n_tiles = 2 * len(boxes) + 2 * len(pl) + len(mboxes) \
+            + len(zboxes) + len(rboxes) + 8
+        reqs = sum(p.mas.requests for _, p in srv._pipelines.values())
+        fb = ingest.stats.snapshot()["fallbacks"]
+        if fb:
+            raise AssertionError(f"19b: {fb} ranged reads fell back")
+        log(f"phase 19b: {n_tiles} tiles over HTTP; the card server's MAS "
+            f"clients sent {reqs} requests; the masapi answered "
+            f"{api.cache.hits} from its cache and computed "
+            f"{api.cache.misses}; ranged-read fallbacks 0; ingest "
+            f"{ingest.stats.snapshot()} ({card})")
+
+        # -- 19c: a drill whose index comes over HTTP -------------------
+        g = geom.from_wkt(DRILL_POLY)
+        gj = json.dumps({"type": "Polygon", "coordinates": [
+            r.tolist() for r in g.polys[0]]})
+        body = (
+            '<?xml version="1.0" encoding="UTF-8"?>'
+            '<wps:Execute service="WPS" version="1.0.0" '
+            'xmlns:wps="http://www.opengis.net/wps/1.0.0" '
+            'xmlns:ows="http://www.opengis.net/ows/1.1">'
+            "<ows:Identifier>ingest_drill</ows:Identifier><wps:DataInputs>"
+            "<wps:Input><ows:Identifier>geometry</ows:Identifier>"
+            f"<wps:Data><wps:ComplexData>{gj}</wps:ComplexData></wps:Data>"
+            "</wps:Input></wps:DataInputs></wps:Execute>").encode()
+        url = f"{base}/ows?service=WPS"
+        dc = DC.for_device(torch.device(dev))
+        dc.clear()
+        reset_counts(kernels)
+        before = ingest.stats.snapshot()
+        t0 = time.perf_counter()
+        status, _, cold, _ = http_fetch(url, body)
+        cold_s = time.perf_counter() - t0
+        after = ingest.stats.snapshot()
+        nwin = after["ranged_windows"] - before["ranged_windows"]
+        if status != 200 or kernels["B3"].launches or nwin != INGEST_T:
+            raise AssertionError(f"19c cold: {status}, B3 "
+                                 f"{kernels['B3'].launches}, ranged "
+                                 f"windows {nwin}")
+        if not dc.wait_idle(600):
+            raise AssertionError("19c: the stack upload did not finish")
+        run = SatRun()
+        cap = CaptureFirst(tdrill, "masked_stats")
+        lat = []
+        try:
+            for _ in range(INGEST_DRILLS):
+                status, _, warm, s = http_fetch(url, body)
+                lat.append(s)
+        finally:
+            cap.remove()
+        run.close()
+        run.need("B3")
+        for k in total:
+            total[k] += run.launches[k]
+        same_csv(cold, warm, "19c warm vs cold")
+        r = cpu.handle("/ows", {"service": ["WPS"]}, "", body, {})
+        dates = same_csv(r.body, warm, "19c card vs CPU")
+        saved = kernels["B3"].launches
+        s_k, c_k = kstats.masked_stats(*cap.args[0])
+        s_p, c_p = kstats.masked_stats_plain(*cap.args[0])
+        kernels["B3"].launches = saved
+        if not (torch.equal(c_k, c_p) and torch.equal(
+                s_k.view(torch.int32), s_p.view(torch.int32))):
+            raise AssertionError("19c: B3 differs from its plain version")
+        errs["B3"] = float((s_k - s_p).abs().max())
+        log(f"phase 19c: WPS Execute over HTTP, the index over HTTP: cold "
+            f"{cold_s * 1e3:.1f} ms ({nwin} ranged NetCDF-3 windows, "
+            f"{after['ranged_reads'] - before['ranged_reads']} requests, "
+            f"no launch); {INGEST_DRILLS} warm drills of {len(dates)} "
+            f"steps {ms_stats(lat)}; launches {run.launches}; B3 "
+            f"bit-exact against its plain version at "
+            f"{tuple(cap.args[0][0].shape)}; warm = cold, card = CPU "
+            f"(rel 1e-5) ({card})")
+        dc.clear()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        mas_httpd.shutdown()
+        mas_httpd.server_close()
+    return total, errs
+
+
 def swath_edge_points():
     """Centres of four tiles on the full-resolution swath's edges (half
     of each tile off the swath), from its own geolocation."""
@@ -5184,6 +5993,20 @@ def main() -> int:
     finally:
         shutil.rmtree(sat_root, ignore_errors=True)
 
+    # -- phase 19: the native codec, ranged ingest, a MAS over HTTP ----
+    t0 = time.perf_counter()
+    n_codec = phase_codec(card)
+    ing_root = os.path.join(ROOT, "build", "smoke_ingest")
+    shutil.rmtree(ing_root, ignore_errors=True)
+    os.makedirs(ing_root)
+    try:
+        ing, ing_err = phase_ingest(ing_root, card)
+        log(f"phase 19: {n_codec} codec comparisons; launches {ing}; "
+            f"captured launches against their plain versions, max |diff| "
+            f"{ing_err}; {time.perf_counter() - t0:.1f} s ({card})")
+    finally:
+        shutil.rmtree(ing_root, ignore_errors=True)
+
     # the kernels line reports the bilinear rows (the GetMap default
     # interpolated method): B1 at phase 3's tile, B2 at input (c), the
     # 4x zoomed-out tile; every method's and input's numbers are logged
@@ -5193,7 +6016,9 @@ def main() -> int:
     # planes rung and the modular route), and phase 17's (B1: gateway
     # misses, JPEG tiles and clicks; B2: JPEG tiles of the planes rung;
     # B4: clicks on the masked layer), and phase 18's (every kernel;
-    # B1 and B2's max_abs_err includes its out-of-domain checks)
+    # B1 and B2's max_abs_err includes its out-of-domain checks), and
+    # phase 19's (every kernel; its captured launches held against their
+    # plain versions)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -5202,8 +6027,10 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/paged.py:173",
          "launches": b1_launches + b1_waves + b1_anim + b1_expr
-         + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"],
+         + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
+         + ing["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
+                            ing_err["B1"],
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B1")),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
@@ -5212,9 +6039,9 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
          "launches": b2_launches + b2_rgb + wcs_launches["B2"]
-         + gw_launches["B2"] + sat["B2"],
+         + gw_launches["B2"] + sat["B2"] + ing["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
-                            wide_err, sat_odd,
+                            wide_err, sat_odd, ing_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B2")),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,
@@ -5222,15 +6049,16 @@ def main() -> int:
         {"name": "masked_stats (B3)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/masked_stats.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
-         "launches": b3_launches + b3_wave_launches + b3_wps + sat["B3"],
-         "max_abs_err": max(b3_err, b3_main_err, b3k_err),
+         "launches": b3_launches + b3_wave_launches + b3_wps + sat["B3"]
+         + ing["B3"],
+         "max_abs_err": max(b3_err, b3_main_err, b3k_err, ing_err["B3"]),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
         {"name": "first_valid (B4)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/first_valid.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
-         "launches": b4_launches + b4_wcs + b4_gfi + sat["B4"],
-         "max_abs_err": b4_row[4],
+         "launches": b4_launches + b4_wcs + b4_gfi + sat["B4"] + ing["B4"],
+         "max_abs_err": max(b4_row[4], ing_err["B4"]),
          "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
          "bound_by": "bytes", "library_ms": b4_row[3]},
     ]}

@@ -1,14 +1,17 @@
 """Carrying state across from the JAX package.
 
-This system's state is data, not weights: staged page pools, device
-scenes, decoded granule windows and resident drill stacks.  These
-helpers load a JAX-side snapshot, taken as numpy arrays, into the
-port's containers, so both packages can be fed identical state.
+This system's state is data, not weights: the metadata index, staged
+page pools, device scenes, decoded granule windows and resident drill
+stacks.  These helpers load a JAX-side snapshot, taken as numpy arrays
+or plain dicts, into the port's containers, so both packages can be fed
+identical state.
 """
 
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -16,6 +19,7 @@ import torch
 from .device import resolve_device
 from .geo.crs import CRS
 from .geo.transform import GeoTransform
+from .index.store import MASStore
 from .pipeline.decode import DecodedWindow
 from .pipeline.drill_cache import DeviceStack, stack_from_numpy
 from .pipeline.pages import PagePool
@@ -74,3 +78,15 @@ def drill_stack_from_numpy(stack_np: np.ndarray, nodata,
     array a JAX `DeviceStack.dev` holds (``np.asarray(st.dev)``) and its
     nodata (NaN or None when absent)."""
     return stack_from_numpy(np.array(stack_np), nodata, device)
+
+
+def store_from_reference(records: Iterable[Dict],
+                         store: Optional[object] = None):
+    """A port MAS store holding the records a JAX `MASStore` ingested
+    (the crawler's ``{"filename", "file_type", "geo_metadata"}`` dicts),
+    so both packages index the same datasets even where one crawler
+    would read a file differently.  ``store``: a `MASStore` or
+    `MASShardedStore` to fill (default a new in-memory `MASStore`)."""
+    store = store if store is not None else MASStore()
+    store.ingest_many([copy.deepcopy(r) for r in records])
+    return store

@@ -1,17 +1,32 @@
-"""MAS client used by the tile pipeline.
+"""MAS client used by the pipelines.
 
-Counterpart of `gsky_tpu/index/client.py`, in-process transport only:
-`MASClient(store)` answers ``?intersects&metadata=gdal`` from a
-`MASStore` and parses the records into `Dataset`s, and ``?timestamps``
-(a layer's dates).
+Counterpart of `gsky_tpu/index/client.py`.  The tile indexer asks
+``?intersects&metadata=gdal`` and parses `Dataset` records
+(`processor/tile_indexer.go:42-86`); a layer's dates come from
+``?timestamps``.  Two transports: HTTP to a masapi at ``host:port``
+(`index.api`, or the reference's), with bounded retries of transport
+errors and 5xx answers under a per-address circuit breaker, and
+in-process over any store object with an ``intersects`` method (a
+`MASStore` or a `MASShardedStore`).  A masapi error body surfaces as
+``MAS error: ...``.  Not ported: fault injection at the client
+(ROADMAP A.16).
 """
 
 from __future__ import annotations
 
+import json
+import threading
+import urllib.error
+import urllib.parse
+import urllib.request
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from ..resilience import (RetryPolicy, call_with_retry, clamp_timeout,
+                          get_breaker)
 from .store import parse_time
+
+DEFAULT_MAS_TIMEOUT = 60.0
 
 
 @dataclass
@@ -76,23 +91,101 @@ class Dataset:
 
 
 class MASClient:
-    """In-process client over a `MASStore`."""
+    """``address``: ``'host:port'`` of a masapi, or a store object for
+    the in-process transport.  ``requests`` counts the HTTP requests
+    sent (every attempt)."""
 
-    def __init__(self, store):
-        self._store = store
+    def __init__(self, address, timeout: float = DEFAULT_MAS_TIMEOUT):
+        if hasattr(address, "intersects"):
+            self._store = address
+            self.address = "<in-process>"
+        else:
+            self._store = None
+            self.address = address
+        self.timeout = float(timeout or DEFAULT_MAS_TIMEOUT)
+        self._breaker = get_breaker(f"mas:{self.address}")
+        self._retry = RetryPolicy(max_attempts=3, base_delay=0.1,
+                                  max_delay=2.0)
+        self._lock = threading.Lock()
+        self.requests = 0
+
+    def _get(self, gpath: str, params: Dict[str, str], op: str) -> Dict:
+        if self._store is not None:
+            return self._call_store(gpath, params, op)
+        return call_with_retry(
+            lambda: self._get_http(gpath, params, op),
+            self._retry, site="mas", breaker=self._breaker)
+
+    def _call_store(self, gpath: str, params: Dict[str, str],
+                    op: str) -> Dict:
+        ns = params.get("namespace", "")
+        namespaces = ns.split(",") if ns else None
+        if op == "intersects":
+            return self._store.intersects(
+                gpath, srs=params.get("srs", ""),
+                wkt=params.get("wkt", ""),
+                nseg=int(params.get("nseg") or 2),
+                time=params.get("time", ""),
+                until=params.get("until", ""),
+                metadata=params.get("metadata", ""),
+                limit=int(params.get("limit") or 0),
+                namespaces=namespaces)
+        if op == "timestamps":
+            return self._store.timestamps(
+                gpath, time=params.get("time", ""),
+                until=params.get("until", ""),
+                token=params.get("token", ""), namespaces=namespaces)
+        if op == "extents":
+            return self._store.extents(gpath, namespaces=namespaces)
+        raise ValueError(op)
+
+    def _get_http(self, gpath: str, params: Dict[str, str],
+                  op: str) -> Dict:
+        qs = urllib.parse.urlencode({op: "", **params})
+        url = f"http://{self.address}{urllib.parse.quote(gpath)}?{qs}"
+        with self._lock:
+            self.requests += 1
+        try:
+            with urllib.request.urlopen(
+                    url, timeout=clamp_timeout(self.timeout)) as resp:
+                return json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            # surface masapi's JSON error body: a 5xx is the server
+            # failing (retryable), a 4xx an answer no retry changes
+            try:
+                body = json.loads(e.read())
+            except ValueError:
+                err = RuntimeError(f"MAS HTTP {e.code}")
+            else:
+                err = RuntimeError(
+                    f"MAS error: {body.get('error', e.code)}")
+            err.retryable = e.code >= 500
+            raise err from e
 
     def intersects(self, gpath: str, *, srs: str = "", wkt: str = "",
                    time: str = "", until: str = "", namespaces: str = "",
-                   nseg: int = 2, limit: int = 0) -> List[Dataset]:
-        resp = self._store.intersects(
-            gpath, srs=srs, wkt=wkt, nseg=nseg, time=time, until=until,
-            namespaces=namespaces.split(",") if namespaces else None,
-            metadata="gdal", limit=limit)
+                   nseg: int = 2, limit: int = 0,
+                   metadata: str = "gdal") -> List[Dataset]:
+        params = {"metadata": metadata, "srs": srs, "wkt": wkt,
+                  "time": time, "until": until, "namespace": namespaces,
+                  "nseg": str(nseg)}
+        if limit:
+            params["limit"] = str(limit)
+        resp = self._get(gpath, params, "intersects")
+        if resp.get("error") and resp["error"] not in ("", "OK"):
+            raise RuntimeError(f"MAS error: {resp['error']}")
         return [Dataset.from_json(j) for j in resp.get("gdal") or []]
+
+    def file_list(self, gpath: str, **kw) -> List[str]:
+        params = {k: str(v) for k, v in kw.items() if v}
+        resp = self._get(gpath, params, "intersects")
+        return resp.get("files") or []
 
     def timestamps(self, gpath: str, *, time: str = "", until: str = "",
                    namespaces: str = "", token: str = "") -> Dict:
-        return self._store.timestamps(
-            gpath, time=time, until=until,
-            namespaces=namespaces.split(",") if namespaces else None,
-            token=token)
+        return self._get(gpath, {"time": time, "until": until,
+                                 "namespace": namespaces, "token": token},
+                         "timestamps")
+
+    def extents(self, gpath: str, namespaces: str = "") -> Dict:
+        return self._get(gpath, {"namespace": namespaces}, "extents")

@@ -7,18 +7,31 @@ h5py imports), a GMT grid or an HDF4 / HDF-EOS file, and emits the
 `MASStore.ingest` takes: timestamps from the NetCDF time axis or the
 file name, curvilinear NetCDF products' ``geo_loc`` record, and
 optionally approximate per-timestep means and sample counts, which the
-drill's fast path answers from.  Not ported: crawler rulesets and the
-eo-datasets YAML extractors (ROADMAP A.8); a file no reader claims
-gives an error record.
+drill's fast path answers from.  A file no reader claims gives an
+error record.  The record then takes the first matching crawler rule
+(`rulesets`: the built-in product table, or a JSON rule config before
+it): timestamps, namespaces, SRS, bbox and ``geo_loc`` from the file
+name.  `extract_sentinel2_yaml` and `extract_landsat_yaml` read
+eo-datasets YAML documents (PyYAML, imported when one is read).
+
+    python -m gsky_tpu_torch.index.crawler [-conc N] [-approx]
+        [-fmt tsv|json] [-rules RULES.json] [-sentinel2_yaml GLOB]
+        [-landsat_yaml GLOB] PATH... > crawl.tsv
 """
 
 from __future__ import annotations
 
+import argparse
+import concurrent.futures as cf
 import datetime as dt
+import fnmatch
+import json
+import logging
 import math
 import os
 import re
-from typing import Dict, Optional
+import sys
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -26,7 +39,10 @@ from ..geo.transform import GeoTransform
 from ..io.geotiff import GeoTIFF
 from ..io.netcdf import NetCDF
 from ..ops.raster import NP_TO_GDAL
+from .rulesets import apply_ruleset, load_rulesets, match_rule
 from .store import ISO, fmt_time, sanitize_namespace
+
+log = logging.getLogger("gsky.crawl")
 
 _TIFF_MAGIC = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 _HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
@@ -323,11 +339,140 @@ def extract_netcdf(path: str, approx_stats: bool = False) -> Dict:
     return {"filename": path, "file_type": "NetCDF", "geo_metadata": geo_md}
 
 
-def extract(path: str, approx_stats: bool = False) -> Dict:
-    """Extract one file's MAS record, routed by its extension and magic
-    bytes.  Never raises: a file that cannot be read, or that no reader
-    claims, yields an error record with no datasets."""
-    path = os.path.abspath(path)  # MAS scopes queries by path prefix
+# ---------------------------------------------------------------------------
+# eo-datasets YAML extractors
+# ---------------------------------------------------------------------------
+
+# ARD band storage types (`info_yaml.go:getBandDataType`)
+_ARD_FLOAT_BANDS = {
+    "solar_zenith", "solar_azimuth", "satellite_azimuth", "satellite_view",
+    "relative_slope", "relative_azimuth", "timedelta", "exiting",
+    "incident", "azimuthal_exiting", "azimuthal_incident",
+}
+
+
+def _ard_band_dtype(ns: str) -> str:
+    if ns.endswith("_contiguity") or ns in ("fmask", "terrain_shadow"):
+        return "Byte"
+    if ns.startswith(("nbar_", "nbart_")):
+        return "Int16"
+    if ns in _ARD_FLOAT_BANDS:
+        return "Float32"
+    return "Byte"
+
+
+def _yaml_srs(srs: str) -> Dict[str, str]:
+    """proj_wkt/proj4 for a YAML spatial reference (EPSG code or WKT);
+    a reference the CRS parser refuses is kept raw."""
+    from ..geo.crs import parse_crs
+    try:
+        crs = parse_crs(srs)
+        return {"proj_wkt": crs.to_wkt(), "proj4": crs.to_proj4()}
+    except ValueError:
+        return {"proj_wkt": srs, "proj4": ""}
+
+
+def _coords_to_wkt(rings) -> str:
+    pts = ", ".join(f"{float(c[0])} {float(c[1])}" for c in rings[0])
+    return f"POLYGON (({pts}))"
+
+
+def _parse_yaml_time(s: str) -> Optional[str]:
+    s = s.strip().replace(" ", "T").rstrip("Z")
+    if "." in s:
+        s = s.split(".")[0]
+    try:
+        d = dt.datetime.fromisoformat(s).replace(tzinfo=dt.timezone.utc)
+        return d.strftime(ISO)
+    except ValueError:
+        return None
+
+
+def _load_yaml(path: str):
+    try:
+        import yaml
+    except ImportError as e:
+        raise ValueError(
+            f"{path}: eo-datasets YAML needs PyYAML, which is not "
+            f"installed") from e
+    with open(path) as fp:
+        return yaml.safe_load(fp)
+
+
+def extract_sentinel2_yaml(path: str) -> Dict:
+    """eo-datasets ARD YAML (`info_yaml.go:63-158`): per-band paths and
+    geotransforms under ``image.bands``, the footprint under
+    ``grid_spatial.projection.valid_data``."""
+    md = _load_yaml(path)
+    base = os.path.dirname(os.path.abspath(path))
+    ts = _parse_yaml_time(str(md["extent"]["center_dt"]))
+    proj = md["grid_spatial"]["projection"]
+    srs = _yaml_srs(str(proj["spatial_reference"]))
+    polygon = _coords_to_wkt(proj["valid_data"]["coordinates"])
+    geo_md = []
+    for ns, band in (md.get("image", {}).get("bands") or {}).items():
+        info = band.get("info") or {}
+        geo_md.append({
+            "ds_name": os.path.join(base, band["path"]),
+            "namespace": sanitize_namespace(ns),
+            "array_type": _ard_band_dtype(ns),
+            "geotransform": [float(v) for v in
+                             (info.get("geotransform") or [0] * 6)],
+            "x_size": int(info.get("width") or 0),
+            "y_size": int(info.get("height") or 0),
+            "polygon": polygon,
+            "timestamps": [ts] if ts else [],
+            "band": 1,
+            **srs,
+        })
+    return {"filename": os.path.abspath(path),
+            "file_type": str((md.get("format") or {}).get("name") or ""),
+            "geo_metadata": geo_md}
+
+
+def extract_landsat_yaml(path: str) -> Dict:
+    """eo-datasets Landsat YAML (`info_yaml.go:160-250`): band paths
+    under ``measurements``, the footprint under ``geometry``, the
+    timestamp under ``properties.datetime``."""
+    md = _load_yaml(path)
+    base = os.path.dirname(os.path.abspath(path))
+    srs = _yaml_srs(str(md.get("crs") or ""))
+    polygon = ""
+    if md.get("geometry"):
+        polygon = _coords_to_wkt(md["geometry"]["coordinates"])
+    ts = None
+    props = md.get("properties") or {}
+    if props.get("datetime"):
+        ts = _parse_yaml_time(str(props["datetime"]))
+    geo_md = []
+    for ns, m in (md.get("measurements") or {}).items():
+        geo_md.append({
+            "ds_name": os.path.join(base, m["path"]),
+            "namespace": sanitize_namespace(ns),
+            "array_type": "Int16",
+            "geotransform": [0.0] * 6,
+            "x_size": 0,
+            "y_size": 0,
+            "polygon": polygon,
+            "timestamps": [ts] if ts else [],
+            "band": 1,
+            **srs,
+        })
+    return {"filename": os.path.abspath(path), "file_type": "GTiff",
+            "geo_metadata": geo_md}
+
+
+def extract_yaml(path: str, family: str) -> Dict:
+    if family == "sentinel2":
+        return extract_sentinel2_yaml(path)
+    if family == "landsat":
+        return extract_landsat_yaml(path)
+    raise ValueError(f"unsupported yaml family: {family}")
+
+
+def _extract_file(path: str, approx_stats: bool) -> Dict:
+    """The record of one file, routed by its extension and magic
+    bytes; raises when the file cannot be read."""
     low = path.lower()
 
     def _nc_or_gmt():
@@ -342,21 +487,110 @@ def extract(path: str, approx_stats: bool = False) -> Dict:
             return extract_gmt(path, approx_stats)
         return extract_netcdf(path, approx_stats)
 
+    if low.endswith((".nc", ".nc4", ".cdf", ".grd")):
+        return _nc_or_gmt()
+    if low.endswith((".tif", ".tiff", ".gtiff")):
+        return extract_geotiff(path, approx_stats=approx_stats)
+    # sniff (.hdf may be HDF4 *or* HDF5-based, so magic decides)
+    with open(path, "rb") as fp:
+        magic = fp.read(8)
+    if magic[:3] == b"CDF" or magic[:8] == _HDF5_MAGIC:
+        return _nc_or_gmt()
+    if magic[:4] == _HDF4_MAGIC:
+        return extract_hdf4(path, approx_stats=approx_stats)
+    if magic[:4] in _TIFF_MAGIC:
+        return extract_geotiff(path, approx_stats=approx_stats)
+    return extract_raster(path, approx_stats=approx_stats)
+
+
+def extract(path: str, approx_stats: bool = False, rules=None) -> Dict:
+    """Extract one file's MAS record.  Never raises: a file that cannot
+    be read, or that no reader claims, yields an error record with no
+    datasets.  ``rules`` (a `rulesets.RuleSet` list, or None for the
+    built-in product table) fold the first matching rule's timestamps,
+    namespaces, SRS, bbox and geolocation into the record."""
+    path = os.path.abspath(path)  # MAS scopes queries by path prefix
     try:
-        if low.endswith((".nc", ".nc4", ".cdf", ".grd")):
-            return _nc_or_gmt()
-        if low.endswith((".tif", ".tiff", ".gtiff")):
-            return extract_geotiff(path, approx_stats=approx_stats)
-        # sniff (.hdf may be HDF4 *or* HDF5-based, so magic decides)
-        with open(path, "rb") as fp:
-            magic = fp.read(8)
-        if magic[:3] == b"CDF" or magic[:8] == _HDF5_MAGIC:
-            return _nc_or_gmt()
-        if magic[:4] == _HDF4_MAGIC:
-            return extract_hdf4(path, approx_stats=approx_stats)
-        if magic[:4] in _TIFF_MAGIC:
-            return extract_geotiff(path, approx_stats=approx_stats)
-        return extract_raster(path, approx_stats=approx_stats)
+        rec = _extract_file(path, approx_stats)
     except Exception as e:
         return {"filename": path, "file_type": "", "error": str(e),
                 "geo_metadata": []}
+    try:
+        rule, m = match_rule(path, rules)
+        if rule is not None and rule.collection != "default":
+            apply_ruleset(rule, m, rec, path)
+            log.info("ruleset %r applied to %s", rule.collection, path)
+    except Exception:
+        # a bad user rule (an invalid regex compiles lazily) must not
+        # kill the crawl: the unmodified record still stands
+        log.warning("ruleset application failed for %s", path,
+                    exc_info=True)
+    return rec
+
+
+_CRAWL_EXTS = (".tif", ".tiff", ".nc", ".nc4", ".grd", ".hdf")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="gsky-crawl-torch",
+        description="Crawl raster files, emit MAS ingest records")
+    ap.add_argument("paths", nargs="*",
+                    help="files/directories ('-' reads paths from stdin)")
+    ap.add_argument("-conc", type=int, default=4,
+                    help="concurrent extractors")
+    ap.add_argument("-approx", action="store_true",
+                    help="compute approximate band statistics")
+    ap.add_argument("-fmt", choices=("json", "tsv"), default="tsv",
+                    help="output format (tsv: path, 'gdal', JSON record)")
+    ap.add_argument("-sentinel2_yaml", default="",
+                    help="glob matching Sentinel-2 eo-datasets YAML files")
+    ap.add_argument("-landsat_yaml", default="",
+                    help="glob matching Landsat eo-datasets YAML files")
+    ap.add_argument("-rules", default="",
+                    help="JSON ruleset config ({\"rule_sets\": [...]}); "
+                         "the built-in product rules append as fallback")
+    args = ap.parse_args(argv)
+
+    rules = load_rulesets(args.rules) if args.rules else None
+    exts = _CRAWL_EXTS
+    if args.sentinel2_yaml or args.landsat_yaml:
+        exts += (".yaml", ".yml")
+    paths: List[str] = []
+    for p in args.paths:
+        if p == "-":
+            paths += [line.strip() for line in sys.stdin if line.strip()]
+        elif os.path.isdir(p):
+            for root, _, files in os.walk(p):
+                paths += [os.path.join(root, f) for f in files
+                          if f.lower().endswith(exts)]
+        else:
+            paths.append(p)
+    if not paths:
+        ap.error("no input files")
+
+    def run_one(p: str) -> Dict:
+        base = os.path.basename(p)
+        for family, pattern in (("sentinel2", args.sentinel2_yaml),
+                                ("landsat", args.landsat_yaml)):
+            if pattern and fnmatch.fnmatch(base, pattern):
+                try:
+                    return extract_yaml(p, family)
+                except Exception as e:
+                    return {"filename": os.path.abspath(p),
+                            "file_type": "", "error": str(e),
+                            "geo_metadata": []}
+        return extract(p, args.approx, rules=rules)
+
+    with cf.ThreadPoolExecutor(args.conc) as ex:
+        for rec in ex.map(run_one, paths):
+            if args.fmt == "tsv":
+                sys.stdout.write(
+                    f"{rec['filename']}\tgdal\t{json.dumps(rec)}\n")
+            else:
+                sys.stdout.write(json.dumps(rec) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""Ingest accounting: one thread-safe ledger for both read paths.
+
+Counterpart of `gsky_tpu/ingest/stats.py`.  The ranged path
+(`source.fetch_ranges`) records each coalesced request and the bytes it
+fetched (compressed, on-disk bytes: what an object store bills) and
+each window served ranged; the whole path (the handle's read, and the
+scene cache's full-scene loads) records the logical bytes it
+materialised; a ranged read that failed and fell back to the handle's
+read counts in ``fallbacks``.  `snapshot` reads the ledger, `reset`
+zeroes it.  Not ported: the dispatch-overlap share and the prefetch
+outcomes, which come with the prefetch planner (ROADMAP A.16).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+_lock = threading.Lock()
+
+
+class _Ledger:
+    def __init__(self) -> None:
+        self.ranged_reads = 0          # coalesced range requests issued
+        self.ranged_read_bytes = 0     # bytes fetched by those requests
+        self.ranged_windows = 0        # logical windows served ranged
+        self.whole_reads = 0           # whole-path reads (scene/window)
+        self.whole_read_bytes = 0      # logical bytes those materialised
+        self.read_s = 0.0              # wall seconds in ranged fetches
+        self.fallbacks = 0             # ranged attempts read plainly
+
+
+_L = _Ledger()
+
+
+def record_ranged(requests: int, nbytes: int, seconds: float = 0.0) -> None:
+    with _lock:
+        _L.ranged_reads += int(requests)
+        _L.ranged_read_bytes += int(nbytes)
+        _L.read_s += float(seconds)
+
+
+def record_ranged_window() -> None:
+    with _lock:
+        _L.ranged_windows += 1
+
+
+def record_whole(nbytes: int) -> None:
+    with _lock:
+        _L.whole_reads += 1
+        _L.whole_read_bytes += int(nbytes)
+
+
+def record_fallback() -> None:
+    with _lock:
+        _L.fallbacks += 1
+
+
+def snapshot() -> Dict:
+    with _lock:
+        return {
+            "ranged_reads": _L.ranged_reads,
+            "ranged_read_bytes": _L.ranged_read_bytes,
+            "ranged_windows": _L.ranged_windows,
+            "whole_reads": _L.whole_reads,
+            "whole_read_bytes": _L.whole_read_bytes,
+            "read_s": round(_L.read_s, 6),
+            "fallbacks": _L.fallbacks,
+        }
+
+
+def reset() -> None:
+    """Zero the ledger (tests and the smoke run's phases)."""
+    global _L
+    with _lock:
+        _L = _Ledger()

@@ -2,9 +2,16 @@
 
 Counterpart of `gsky_tpu/io/geotiff.py`.  Reader: classic TIFF +
 BigTIFF, little/big endian, striped + tiled, chunky and separate
-layouts, compression none/LZW/deflate/packbits (pure-Python LZW and
-PackBits decoders), predictor 1/2/3, sample formats uint/int/float
-8/16/32/64 bits, GDAL_NODATA, GeoKey directory -> CRS, overview IFDs.
+layouts, compression none/LZW/deflate/packbits, predictor 1/2/3, sample
+formats uint/int/float 8/16/32/64 bits, GDAL_NODATA, GeoKey directory
+-> CRS, overview IFDs.  LZW, PackBits and the predictors decode in the
+native codec (`gsky_tpu_torch.native`, built on first use; a failed
+build raises); the Python decoders here (`lzw_decode_plain`,
+`packbits_decode_plain`, `unpredict_h_plain`, `unpredict_fp_plain`)
+are their plain versions, which the tests hold the codec against.  A
+window read touches only the strips or tiles it intersects; with a
+``source`` (an `ingest.source.ByteSource`) their bytes come through
+coalesced ranged reads, and ``out=`` decodes into a caller's buffer.
 Writer: tiled GeoTIFF with optional deflate, geokeys from EPSG CRSs,
 GDAL_NODATA and reduced-resolution overview IFDs.
 """
@@ -19,6 +26,7 @@ from typing import BinaryIO, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from .. import native
 from ..geo.crs import CRS, EPSG4326, parse_crs
 from ..geo.transform import BBox, GeoTransform
 
@@ -52,7 +60,16 @@ def _np_dtype(bits: int, fmt: int):
 
 
 def _lzw_decode(data: bytes, expected: int) -> bytes:
-    """TIFF-variant LZW (MSB-first codes, early code-size change)."""
+    return native.codec().lzw_decode(data, expected)
+
+
+def _packbits_decode(data: bytes, expected: int) -> bytes:
+    return native.codec().packbits_decode(data, expected)
+
+
+def lzw_decode_plain(data: bytes, expected: int) -> bytes:
+    """TIFF-variant LZW (MSB-first codes, early code-size change): the
+    plain version of the codec's ``lzw_decode``."""
     out = bytearray()
     table: List[bytes] = [bytes([i]) for i in range(256)] + [b"", b""]
     CLEAR, EOI = 256, 257
@@ -94,7 +111,8 @@ def _lzw_decode(data: bytes, expected: int) -> bytes:
     return bytes(out[:expected])
 
 
-def _packbits_decode(data: bytes, expected: int) -> bytes:
+def packbits_decode_plain(data: bytes, expected: int) -> bytes:
+    """The plain version of the codec's ``packbits_decode``."""
     out = bytearray()
     i = 0
     while i < len(data) and len(out) < expected:
@@ -110,6 +128,25 @@ def _packbits_decode(data: bytes, expected: int) -> bytes:
     return bytes(out[:expected])
 
 
+def unpredict_h_plain(arr: np.ndarray) -> np.ndarray:
+    """Undo predictor 2 on a (rows, cols, samples) array: the plain
+    version of the codec's ``unpredict_h``."""
+    return np.cumsum(arr, axis=1, dtype=arr.dtype)
+
+
+def unpredict_fp_plain(data: bytes, rows: int, cols: int, samples: int,
+                       itemsize: int) -> bytes:
+    """Undo predictor 3 (per row, bytes in big-endian significance
+    planes, delta-coded as uint8): the little-endian samples, the plain
+    version of the codec's ``unpredict_fp``."""
+    b = np.frombuffer(data, np.uint8, rows * cols * samples * itemsize)
+    b = np.cumsum(b.reshape(rows, cols * samples * itemsize), axis=1,
+                  dtype=np.uint8)
+    b = b.reshape(rows, itemsize, cols * samples)
+    return np.ascontiguousarray(
+        np.transpose(b, (0, 2, 1))[:, :, ::-1]).tobytes()
+
+
 def _decompress(data: bytes, comp: int, expected: int) -> bytes:
     if comp == COMP_NONE:
         return data[:expected]
@@ -120,6 +157,43 @@ def _decompress(data: bytes, comp: int, expected: int) -> bytes:
     if comp == COMP_PACKBITS:
         return _packbits_decode(data, expected)
     raise ValueError(f"unsupported TIFF compression {comp}")
+
+
+@dataclass
+class ChunkMap:
+    """Per-chunk byte-range layout of one IFD: its tile grid, or its
+    strips as a one-wide column of chunks as wide as the raster.
+    ``offsets`` / ``counts`` are the raw TIFF arrays, plane-major for
+    PlanarConfiguration=2."""
+    tiled: bool
+    chunk_w: int
+    chunk_h: int
+    chunks_x: int
+    chunks_y: int
+    offsets: tuple
+    counts: tuple
+    samples: int
+    planar: int
+
+    @property
+    def nchunks(self) -> int:
+        return self.chunks_x * self.chunks_y
+
+    def ranges_for(self, window: Tuple[int, int, int, int],
+                   band: int = 1) -> List[Tuple[int, int]]:
+        """(offset, nbytes) of every chunk a (col0, row0, w, h) window
+        touches, row-major: the byte set a ranged read of the window
+        fetches."""
+        c0, r0, w, h = window
+        plane_off = (band - 1) * self.nchunks if self.planar == 2 else 0
+        out: List[Tuple[int, int]] = []
+        for cy in range(r0 // self.chunk_h,
+                        (r0 + h - 1) // self.chunk_h + 1):
+            for cx in range(c0 // self.chunk_w,
+                            (c0 + w - 1) // self.chunk_w + 1):
+                idx = plane_off + cy * self.chunks_x + cx
+                out.append((int(self.offsets[idx]), int(self.counts[idx])))
+        return out
 
 
 @dataclass
@@ -347,11 +421,35 @@ class GeoTIFF:
     def bbox(self) -> BBox:
         return self.gt.bbox(self.width, self.height)
 
+    def chunk_map(self, ifd: Optional[IFD] = None) -> ChunkMap:
+        """The byte-range layout of one IFD (the main one by default)."""
+        ifd = ifd or self.ifd
+        W, H = ifd.width, ifd.height
+        samples = int(ifd.val(T_SAMPLES, 1))
+        planar = int(ifd.val(T_PLANAR, 1))
+        if ifd.tags.get(T_TILE_OFFSETS):
+            tw, th = int(ifd.val(T_TILE_W)), int(ifd.val(T_TILE_H))
+            return ChunkMap(True, tw, th, (W + tw - 1) // tw,
+                            (H + th - 1) // th,
+                            ifd.arr(T_TILE_OFFSETS), ifd.arr(T_TILE_COUNTS),
+                            samples, planar)
+        rps = int(ifd.val(T_ROWS_PER_STRIP, H))
+        return ChunkMap(False, W, rps, 1, (H + rps - 1) // rps,
+                        ifd.arr(T_STRIP_OFFSETS), ifd.arr(T_STRIP_COUNTS),
+                        samples, planar)
+
     def read(self, band: int = 1,
              window: Optional[Tuple[int, int, int, int]] = None,
-             ifd: Optional[IFD] = None) -> np.ndarray:
+             ifd: Optional[IFD] = None, *, source=None,
+             out: Optional[np.ndarray] = None) -> np.ndarray:
         """Read one band (1-based).  window = (col0, row0, w, h).
-        Returns (h, w) in storage dtype."""
+        Returns (h, w) in storage dtype, or ``out``.
+
+        ``source`` (an `ingest.source.ByteSource`) fetches the blocks'
+        bytes through coalesced ranged reads instead of the handle's
+        seek and read: the same blocks, decode and assembly, so the
+        same output.  ``out`` is a caller's (h, w) array (any dtype the
+        values assign to) that the blocks decode into."""
         ifd = ifd or self.ifd
         W, H = ifd.width, ifd.height
         if window is None:
@@ -368,7 +466,10 @@ class GeoTIFF:
         dt = _np_dtype(int(bits[0]), int(fmts[0])).newbyteorder(self._e)
         comp = int(ifd.val(T_COMPRESSION, 1))
         pred = int(ifd.val(T_PREDICTOR, 1))
-        out = np.zeros((h, w), dtype=dt.newbyteorder("="))
+        if out is None:
+            out = np.zeros((h, w), dtype=dt.newbyteorder("="))
+        elif out.shape != (h, w):
+            raise ValueError(f"out shape {out.shape} != window ({h}, {w})")
         bi = band - 1
         if not (0 <= bi < samples):
             raise ValueError(f"band {band} out of range (1..{samples})")
@@ -388,7 +489,7 @@ class GeoTIFF:
             raws = self._fetch_blocks(
                 [(offsets[plane_off + ty * tiles_x + tx],
                   counts[plane_off + ty * tiles_x + tx])
-                 for ty, tx in blocks])
+                 for ty, tx in blocks], source)
             for (ty, tx), raw in zip(blocks, raws):
                 block = self._decode_raw(raw, comp, pred, th, tw, spp, dt)
                 data = block[..., 0 if planar == 2 else bi]
@@ -409,7 +510,7 @@ class GeoTIFF:
             rows = list(range(r0 // rps, (r0 + h - 1) // rps + 1))
             raws = self._fetch_blocks(
                 [(offsets[plane_off + s], counts[plane_off + s])
-                 for s in rows])
+                 for s in rows], source)
             for s, raw in zip(rows, raws):
                 srows = min(rps, H - s * rps)
                 block = self._decode_raw(raw, comp, pred, srows, W, spp, dt)
@@ -421,15 +522,20 @@ class GeoTIFF:
                     data[rr0 - br0:rr1 - br0, c0:c0 + w]
         return out
 
-    def _fetch_blocks(self, ranges) -> List[bytes]:
-        """Raw (compressed) bytes for each (offset, nbytes) block, with
-        bounds enforced: a corrupt header must not drive a huge read."""
+    def _fetch_blocks(self, ranges, source=None) -> List[bytes]:
+        """Raw (compressed) bytes for each (offset, nbytes) block:
+        through ``source``'s coalesced ranged reads when given, else the
+        handle's own file.  The bounds are checked before either reads:
+        a corrupt header must not drive a huge read."""
         for offset, nbytes in ranges:
             if offset < 0 or nbytes < 0 \
                     or offset + nbytes > self._file_size:
                 raise ValueError(
                     f"corrupt TIFF: block [{offset}, {offset + nbytes}) "
                     f"beyond file size {self._file_size}")
+        if source is not None:
+            from ..ingest.source import fetch_ranges
+            return fetch_ranges(source, ranges)
         out = []
         with self._fp_lock:  # shared handles are read from worker threads
             for offset, nbytes in ranges:
@@ -447,20 +553,17 @@ class GeoTIFF:
         if len(data) < expected:
             data = data + b"\0" * (expected - len(data))
         if pred == 3:
-            # float predictor: per row, bytes stored plane-separated and
-            # horizontally differenced as uint8
-            b = np.frombuffer(data, np.uint8).reshape(
-                rows, cols * samples * dt.itemsize)
-            b = np.cumsum(b, axis=1, dtype=np.uint8)
-            b = b.reshape(rows, dt.itemsize, cols * samples)
-            b = np.transpose(b, (0, 2, 1))[:, :, ::-1]
-            arr = np.ascontiguousarray(b).view(
-                dt.newbyteorder("<")).reshape(rows, cols, samples)
-            return arr.astype(dt.newbyteorder("="))
+            out = native.codec().unpredict_fp(data, rows, cols, samples,
+                                              dt.itemsize)
+            return np.frombuffer(out, dt.newbyteorder("<"),
+                                 rows * cols * samples).reshape(
+                rows, cols, samples).astype(dt.newbyteorder("="))
         arr = np.frombuffer(data, dt).reshape(rows, cols, samples)
         if pred == 2:
             arr = arr.astype(dt.newbyteorder("="), copy=True)
-            return np.cumsum(arr, axis=1, dtype=arr.dtype)
+            if not native.codec().unpredict_h(arr):
+                arr = unpredict_h_plain(arr)
+            return arr
         return arr.astype(dt.newbyteorder("="), copy=False).reshape(
             rows, cols, samples)
 

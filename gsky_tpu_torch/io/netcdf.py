@@ -387,6 +387,55 @@ class NetCDF:
             out["nchunks"] = None
         return out
 
+    def read_slice_source(self, var_name: str, source,
+                          time_index: Optional[int] = None,
+                          window: Optional[Tuple[int, int, int, int]] = None,
+                          step: int = 1) -> np.ndarray:
+        """`read_slice` served by coalesced byte-range reads through an
+        `ingest.source.ByteSource`: NetCDF-3 only, whose flat layout
+        makes a hyperslab a set of row ranges (NetCDF-4 chunks stay
+        with h5py).  The same rows, dtype and ``_Unsigned`` handling as
+        `read_slice`, so the same values."""
+        if self._nc3 is None:
+            raise ValueError("ranged hyperslabs require NetCDF-3")
+        v = self.variables[var_name]
+        rd = v._reader
+        rank = len(v.shape)
+        if rank not in (2, 3, 4):
+            raise ValueError(f"unsupported rank {rank} for {var_name}")
+        H, W = v.shape[-2], v.shape[-1]
+        c0, r0, w, h = window if window is not None else (0, 0, W, H)
+        if c0 < 0 or r0 < 0 or c0 + w > W or r0 + h > H:
+            raise ValueError(
+                f"window {(c0, r0, w, h)} outside raster {W}x{H}")
+        itemsize = rd.dt.itemsize
+        if rank == 2:
+            base = rd.begin
+        else:
+            t = 0 if time_index is None else int(time_index)
+            if not 0 <= t < v.shape[0]:
+                raise IndexError(
+                    f"record index {t} out of range for {var_name}")
+            if rd.is_record:
+                base = rd.begin + t * rd.rec_stride
+            else:
+                per0 = int(np.prod(v.shape[1:], dtype=np.int64))
+                base = rd.begin + t * per0 * itemsize
+            # rank 4 reads plane z=0, as read_slice does: the record's
+            # first H*W block
+        st = step if step > 1 else 1
+        ranges = [(base + (r * W + c0) * itemsize, w * itemsize)
+                  for r in range(r0, r0 + h, st)]
+        from ..ingest.source import fetch_ranges
+        raws = fetch_ranges(source, ranges)
+        arr = np.stack([np.frombuffer(raw, rd.dt)[::st] for raw in raws]) \
+            if raws else np.zeros((0, 0), rd.dt)
+        out = np.ascontiguousarray(arr).astype(rd.dt.newbyteorder("="))
+        if str(v.attrs.get("_Unsigned", "")).lower() in ("true", "1") \
+                and out.dtype.kind == "i":
+            out = out.view(np.dtype(f"u{out.dtype.itemsize}"))
+        return out
+
 
 # ---------------------------------------------------------------------------
 # NetCDF-3 classic parser

@@ -13,9 +13,13 @@ pixel grid: it renders through the scene path's geolocation control
 grid (`executor._geoloc_ctrl`), and one that reaches this window decode
 is skipped and counted (`geoloc_skips`), as the reference does.
 
-Not ported: the ranged-ingest byte sources, fault injection and the
-ingest counters (the port reads through the handle, as the JAX package
-does with ingest off).
+With ingest on (``GSKY_INGEST``, the default), a GeoTIFF window's
+blocks and a NetCDF-3 hyperslab's rows come through coalesced ranged
+reads of the granule's `ingest.source.ByteSource` (`_read_tiff`,
+`_read_nc`): the same blocks and decode as the handle's read, so the
+same values.  A ranged read that fails falls back to the handle's read
+and is counted (`ingest.stats` ``fallbacks``).  Not ported: fault
+injection (ROADMAP A.16).
 """
 
 from __future__ import annotations
@@ -34,6 +38,10 @@ import torch
 from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import BBox, GeoTransform, transform_bbox
+from ..ingest import ingest_enabled
+from ..ingest import stats as ingest_stats
+from ..ingest.source import source_for
+from ..io.geotiff import GeoTIFF
 from ..io.netcdf import NetCDF
 from ..io.registry import open_raster
 from ..ops.raster import nodata_mask
@@ -93,6 +101,88 @@ class _HandleCache:
 _handles = _HandleCache()
 _skip_lock = threading.Lock()
 geoloc_skips = 0
+
+
+def _ingest_source(path: str):
+    """The granule's ByteSource when ingest is on, else None (the
+    handle's read).  A source that cannot be opened is None too."""
+    if not ingest_enabled():
+        return None
+    try:
+        return source_for(path)
+    except (OSError, ValueError):
+        return None
+
+
+def _ranged_or_whole(src, ranged, whole, path: str) -> np.ndarray:
+    """``ranged(src)`` when there is a source, counted as a ranged
+    window; any failure of it falls back to ``whole()``, counted as a
+    fallback; ``whole()`` alone without a source."""
+    if src is not None:
+        try:
+            out = ranged(src)
+            ingest_stats.record_ranged_window()
+            return out
+        except Exception:
+            ingest_stats.record_fallback()
+            logging.getLogger("gsky.decode").warning(
+                "ranged read of %s failed; reading through the handle",
+                path, exc_info=True)
+    out = whole()
+    ingest_stats.record_whole(out.nbytes)
+    return out
+
+
+def _read_tiff(h, band: int, win, ifd, path: str) -> np.ndarray:
+    """A GeoTIFF window read, ranged when a ByteSource is available.
+    Other registry handles read through ``read(band, window)``."""
+    return _ranged_or_whole(
+        _ingest_source(path) if isinstance(h, GeoTIFF) else None,
+        lambda src: h.read(band, win, ifd=ifd, source=src),
+        lambda: h.read(band, win, ifd=ifd) if ifd is not None
+        else h.read(band, win), path)
+
+
+def _read_nc(h, var_name: str, time_index, win, step: int,
+             path: str) -> np.ndarray:
+    """A NetCDF hyperslab read, ranged (NetCDF-3 row ranges) when a
+    ByteSource is available; an HDF5-based file reads through h5py."""
+    return _ranged_or_whole(
+        _ingest_source(path) if h._nc3 is not None else None,
+        lambda src: h.read_slice_source(var_name, src, time_index, win,
+                                        step=step),
+        lambda: h.read_slice(var_name, time_index, win, step=step), path)
+
+
+def granule_footprint_frac(granule: Granule, dst_bbox: BBox,
+                           dst_crs: CRS, handles: "_HandleCache"
+                           ) -> Optional[float]:
+    """The share (0..1) of the granule's raster the destination
+    footprint touches, or None when it cannot be computed (callers
+    assume all of it): what routes a scene-cache miss to the ranged
+    window path."""
+    if granule.geo_loc:
+        return None
+    try:
+        src_crs = parse_crs(granule.srs) if granule.srs else dst_crs
+        gt = GeoTransform.from_gdal(granule.geo_transform)
+        src_bbox = transform_bbox(dst_bbox, dst_crs, src_crs)
+        h = handles.get(granule.path, granule.is_netcdf)
+    except (OSError, ValueError):
+        return None
+    if granule.is_netcdf:
+        v = h.variables.get(granule.var_name)
+        if v is None:
+            return None
+        H, W = v.shape[-2], v.shape[-1]
+    else:
+        W, H = h.width, h.height
+    if not W or not H:
+        return None
+    win = _pixel_window(gt, src_bbox, W, H, margin=3)
+    if win is None:
+        return 0.0
+    return (win[2] * win[3]) / float(W * H)
 
 
 def margin_for(resample: str) -> int:
@@ -161,13 +251,15 @@ def decode_window(granule: Granule, dst_bbox: BBox, dst_crs: CRS,
             if win is None:
                 return None
             c0, r0, w, ww = win
-            data = h.read_slice(granule.var_name, granule.time_index,
-                                (c0 * st, r0 * st, w * st, ww * st), st)
+            data = _read_nc(h, granule.var_name, granule.time_index,
+                            (c0 * st, r0 * st, w * st, ww * st), st,
+                            granule.path)
         else:
             win = _pixel_window(gt, src_bbox, W, H, margin)
             if win is None:
                 return None
-            data = h.read_slice(granule.var_name, granule.time_index, win)
+            data = _read_nc(h, granule.var_name, granule.time_index, win,
+                            1, granule.path)
         nodata = granule.nodata if granule.nodata is not None else v.nodata
     else:
         ovr = None
@@ -178,12 +270,12 @@ def decode_window(granule: Granule, dst_bbox: BBox, dst_crs: CRS,
             win = _pixel_window(gt, src_bbox, ovr.width, ovr.height, margin)
             if win is None:
                 return None
-            data = h.read(granule.band, win, ifd=ovr)
+            data = _read_tiff(h, granule.band, win, ovr, granule.path)
         else:
             win = _pixel_window(gt, src_bbox, h.width, h.height, margin)
             if win is None:
                 return None
-            data = h.read(granule.band, win)
+            data = _read_tiff(h, granule.band, win, None, granule.path)
         nodata = granule.nodata if granule.nodata is not None else h.nodata
     valid = nodata_mask(data, nodata)
     return DecodedWindow(

@@ -13,7 +13,9 @@ Counterpart of `gsky_tpu/pipeline/drill.py`:
    reduction in pixel-count mode, ``torch.sort`` for deciles.  A cold
    request (stack not resident yet) and a window larger than its
    bucket read from the host and reduce in numpy, as the reference's
-   do.  Strided timesteps are interpolated between the read endpoints;
+   do (a NetCDF-3 window's rows through ranged reads, with ingest on:
+   `decode._read_nc`).  Strided timesteps are interpolated between the
+   read endpoints;
 4. merge: per-date count-weighted means across files, then band
    expressions per date; decile columns become ``ns_d1..9``.
 
@@ -63,6 +65,7 @@ from ..ops import drill as D
 from ..ops.raster import nodata_mask
 from ..ops.stats import masked_stats
 from . import drill_cache as DC
+from .decode import _read_nc
 from .executor import _bucket_pow2
 from .waves import default_waves, waves_enabled
 from .types import DrillResult, GeoDrillRequest
@@ -363,9 +366,11 @@ class DrillPipeline:
                                   time_index=ti)
                     nodata = h.nodata
                 elif is_nc:
-                    data = h.read_slice(var, ti if len(v.shape) > 2
-                                        else None,
-                                        (c0, r0, c1 - c0, r1 - r0))
+                    # ranged NetCDF-3 rows with ingest on (the same
+                    # values as the handle's read_slice)
+                    data = _read_nc(h, var, ti if len(v.shape) > 2
+                                    else None, (c0, r0, c1 - c0, r1 - r0),
+                                    1, ds.file_path)
                     nodata = ds.nodata if ds.nodata is not None \
                         else v.nodata
                 else:

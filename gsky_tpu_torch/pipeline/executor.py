@@ -237,7 +237,9 @@ class WarpExecutor:
         `_scene_groups` picks); the `DeviceScene`, or None when it is
         uncacheable."""
         return self.cache.get(g, self._scene_stride(g, dst_gt, dst_crs,
-                                                    height, width))
+                                                    height, width),
+                              dst_bbox=dst_gt.bbox(width, height),
+                              dst_crs=dst_crs)
 
     def _geo_cache_get(self, key):
         with self._lock:
@@ -482,9 +484,11 @@ class WarpExecutor:
         scene is uncacheable or a group's geolocation arrays cannot be
         loaded."""
         scenes = []
+        grp_bbox = dst_gt.bbox(width, height)
         for g in granules:
             s = self.cache.get(g, self._scene_stride(g, dst_gt, dst_crs,
-                                                     height, width))
+                                                     height, width),
+                               dst_bbox=grp_bbox, dst_crs=dst_crs)
             if s is None:
                 return None
             scenes.append(s)
@@ -880,8 +884,10 @@ class WarpExecutor:
             return None
         stride = self._granule_stride(g0, dst_gt, dst_crs, height, width)
         chans = []
+        rgba_bbox = dst_gt.bbox(width, height)
         for ns in out_sel:
-            s = self.cache.get(granules[ns], stride)
+            s = self.cache.get(granules[ns], stride,
+                               dst_bbox=rgba_bbox, dst_crs=dst_crs)
             if s is None:
                 return None
             chans.append(s)

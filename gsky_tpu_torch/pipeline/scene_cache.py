@@ -10,12 +10,26 @@ validity is one isfinite test), padded with NaN to 256-multiples and
 kept on the device; every later tile warps from the cached tensor.
 Eviction is LRU by device bytes; scenes above ``max_scene_px`` at the
 chosen level are not cached.
+
+With ingest on (``GSKY_INGEST``, the default):
+
+* a GeoTIFF band whose f32 cast is exact (f32, or integers of at most
+  16 bits with an f32-exact nodata) loads staged: it decodes straight
+  into a bucket-sized buffer of the `ingest.staging` pool, is
+  NaN-encoded there (the same bits as `encode_scene`) and uploaded from
+  it (`staged_loads` counts these);
+* with ``GSKY_INGEST_WINDOW_FRAC`` > 0, a request whose footprint
+  covers less than that share of a scene that is not resident is
+  declined (`window_routed` counts these), so the caller serves it
+  through the ranged window decode; the ``GSKY_INGEST_WINDOW_PROMOTE``
+  (default 4)-th decline of one scene loads it instead.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -26,8 +40,12 @@ import torch
 from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.transform import GeoTransform
+from ..ingest import ingest_enabled, window_route_frac
+from ..ingest import stats as ingest_stats
+from ..ingest.staging import default_staging_pool
+from ..io.geotiff import GeoTIFF
 from ..ops.raster import nodata_mask
-from .decode import _HandleCache
+from .decode import _HandleCache, granule_footprint_frac
 from .types import Granule
 
 _scene_serial = itertools.count(1)
@@ -90,6 +108,11 @@ class SceneCache:
         self._inflight: Dict[tuple, threading.Event] = {}
         self.hits = 0
         self.misses = 0
+        # declines per scene key (promotion to residency) and the
+        # requests served through the window path
+        self._route_counts: Dict[tuple, int] = {}
+        self.window_routed = 0
+        self.staged_loads = 0
 
     def _key(self, g: Granule) -> tuple:
         return (g.path, g.band, g.var_name, g.time_index)
@@ -119,12 +142,55 @@ class SceneCache:
                 best = f
         return best
 
-    def get(self, g: Granule, stride: float = 1.0) -> Optional[DeviceScene]:
+    @staticmethod
+    def _route_promote() -> int:
+        try:
+            return int(os.environ.get("GSKY_INGEST_WINDOW_PROMOTE", 4))
+        except (TypeError, ValueError):
+            return 4
+
+    def _route_window(self, key: tuple, g: Granule, dst_bbox,
+                      dst_crs) -> bool:
+        """True when this request should stream through the ranged
+        window path instead of loading the whole scene: ingest is on,
+        the scene is neither resident nor loading, and the footprint
+        covers less than ``GSKY_INGEST_WINDOW_FRAC`` of the raster.  The
+        ``GSKY_INGEST_WINDOW_PROMOTE``-th decline of one key loads it."""
+        if not ingest_enabled():
+            return False
+        lim = window_route_frac()
+        if lim <= 0.0:
+            return False
+        with self._lock:
+            if key in self._scenes or key in self._inflight:
+                return False
+        frac = granule_footprint_frac(g, dst_bbox, dst_crs, self._handles)
+        if frac is None or frac >= lim:
+            return False
+        promote = self._route_promote()
+        with self._lock:
+            n = self._route_counts.get(key, 0) + 1
+            self._route_counts[key] = n
+            if len(self._route_counts) > 4096:
+                self._route_counts.pop(next(iter(self._route_counts)))
+            if 0 < promote <= n:
+                del self._route_counts[key]
+                return False      # hot after all: load it
+            self.window_routed += 1
+        return True
+
+    def get(self, g: Granule, stride: float = 1.0, dst_bbox=None,
+            dst_crs=None) -> Optional[DeviceScene]:
         """Cached scene for a granule, decoding + uploading on first use;
         None when the scene is uncacheable (too big / unreadable).
-        Concurrent requests for one scene decode once."""
+        Concurrent requests for one scene decode once.  ``dst_bbox`` /
+        ``dst_crs``, the request's footprint, let `_route_window`
+        decline (None) a scene the request barely touches."""
         level = self._pick_level(g, stride)
         key = self._key(g) + (level,)
+        if dst_bbox is not None and dst_crs is not None and \
+                self._route_window(key, g, dst_bbox, dst_crs):
+            return None
         while True:
             with self._lock:
                 hit = self._scenes.get(key)
@@ -159,8 +225,42 @@ class SceneCache:
                 self._inflight.pop(key).set()
         return scene
 
+    def clear(self) -> None:
+        """Drop every resident scene; loads in flight insert theirs when
+        they finish."""
+        with self._lock:
+            self._scenes.clear()
+            self._order.clear()
+            self._bytes = 0
+
+    def _staging_read(self, h, band: int, W: int, H: int, ovr, nodata):
+        """Decode a whole GeoTIFF band into a staging buffer of the
+        scene's bucket: (buffer, pool), or (None, None) for the classic
+        load.  Only a band whose f32 cast is exact stages, so the
+        nodata compare and the encoded bits are those of
+        `encode_scene`."""
+        if not ingest_enabled() or not isinstance(h, GeoTIFF):
+            return None, None
+        dt = h.dtype
+        if not ((dt.kind == "f" and dt.itemsize == 4)
+                or (dt.kind in "iu" and dt.itemsize <= 2)):
+            return None, None
+        if nodata is not None:
+            ndf = float(nodata)
+            if not (np.isnan(ndf) or float(np.float32(ndf)) == ndf):
+                return None, None
+        pool = default_staging_pool()
+        buf = pool.acquire(_bucket(H), _bucket(W), self.device)
+        try:
+            h.read(band, (0, 0, W, H), ifd=ovr, out=buf.numpy()[:H, :W])
+        except BaseException:
+            pool.release(buf)
+            raise
+        return buf, pool
+
     def _load(self, g: Granule, level: int = 1) -> Optional[DeviceScene]:
         gt = GeoTransform.from_gdal(g.geo_transform)
+        sbuf = spool = None
         try:
             h = self._handles.get(g.path, g.is_netcdf)
             if g.is_netcdf:
@@ -189,10 +289,15 @@ class SceneCache:
                 if H * W > self._max_scene_px:
                     return None
                 nodata = g.nodata if g.nodata is not None else h.nodata
-                # the registry's read contract is read(band, window):
-                # only a GeoTIFF overview read passes its IFD
-                data = h.read(g.band, (0, 0, W, H), ifd=ovr) \
-                    if ovr is not None else h.read(g.band, (0, 0, W, H))
+                sbuf, spool = self._staging_read(h, g.band, W, H, ovr,
+                                                 nodata)
+                if sbuf is not None:
+                    data = None
+                elif ovr is not None:
+                    data = h.read(g.band, (0, 0, W, H), ifd=ovr)
+                else:
+                    # the registry's read contract is read(band, window)
+                    data = h.read(g.band, (0, 0, W, H))
         except (OSError, ValueError) as e:
             # uncacheable stays a visible degradation, never a crash
             log.warning("scene uncacheable: %s (%s: %s)", g.path,
@@ -200,9 +305,41 @@ class SceneCache:
             return None
         crs = parse_crs(g.srs) if g.srs else None
         if crs is None:
+            if sbuf is not None:
+                spool.release(sbuf)
             return None
+        if sbuf is not None:
+            return self._staged_scene(sbuf, spool, H, W, nodata, gt, crs,
+                                      H * W * h.dtype.itemsize)
+        ingest_stats.record_whole(data.nbytes)
         true_h, true_w = data.shape
         dev = torch.from_numpy(encode_scene(data, nodata)).to(self.device)
         return DeviceScene(dev=dev, height=true_h, width=true_w,
+                           nodata=float("nan"), gt=gt, crs=crs,
+                           serial=next(_scene_serial))
+
+    def _staged_scene(self, buf: torch.Tensor, pool, H: int, W: int,
+                      nodata, gt: GeoTransform, crs: CRS,
+                      nbytes: int) -> DeviceScene:
+        """The scene of a staged load: NaN-encode the buffer in place
+        (as `encode_scene` does), upload it, and hand it back to the
+        pool, cooling until the copy is done (on the CPU the scene is
+        the buffer itself, which the pool then forgets)."""
+        view = buf.numpy()[:H, :W]
+        nd = float(nodata) if nodata is not None else float("nan")
+        if not np.isnan(nd):
+            valid = nodata_mask(view, nd)
+            valid &= np.isfinite(view)
+            view[~valid] = np.nan
+        dev = buf.to(self.device, non_blocking=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        pool.release(buf, dev, done)
+        ingest_stats.record_whole(nbytes)
+        with self._lock:
+            self.staged_loads += 1
+        return DeviceScene(dev=dev, height=H, width=W,
                            nodata=float("nan"), gt=gt, crs=crs,
                            serial=next(_scene_serial))

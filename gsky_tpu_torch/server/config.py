@@ -14,8 +14,8 @@ reference parses, so one config.json loads in both packages:
 - ``{* ... *}`` comments, ``{{ include "path" }}`` and
   ``$gdoc$...$gdoc$`` heredoc strings are expanded before parsing.
 
-The port's MAS client is in-process only (the HTTP client is ROADMAP
-A.8): dates come from MAS only through ``mas_factory``.
+A namespace's MAS client is ``mas_factory(mas_address)`` when a factory
+is given, else an HTTP `MASClient` to its ``mas_address``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from ..index.client import MASClient
 from ..index.store import ISO, parse_time
 from ..ops.expr import BandExpressions, parse_band_expressions
 
@@ -579,7 +580,12 @@ def load_config_tree(root: str, mas_factory=None,
     if load_dates:
         for cfg in out.values():
             sc = cfg.service_config
-            mas = mas_factory(sc.mas_address) if mas_factory else None
+            if mas_factory:
+                mas = mas_factory(sc.mas_address)
+            elif sc.mas_address:
+                mas = MASClient(sc.mas_address, timeout=sc.mas_timeout)
+            else:
+                mas = None
             for lay in cfg.layers:
                 if lay.timestamps_load_strategy != "on_demand":
                     try:

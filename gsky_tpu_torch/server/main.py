@@ -3,9 +3,11 @@
     python -m gsky_tpu_torch.server.main -port 8080 -conf DIR \\
         [-local_mas FILE] [-device cpu] [-check_conf]
 
-``-conf`` is the root of a config.json tree; ``-local_mas`` runs an
-in-process MAS over a crawler output file (JSON lines or TSV), the
-port's only MAS (there is no HTTP MAS client yet).  The server renders
+``-conf`` is the root of a config.json tree.  Without ``-local_mas``
+each namespace reaches the masapi at its ``mas_address`` over HTTP
+(``python -m gsky_tpu_torch.index.api``, or the reference's); with
+``-local_mas FILE`` every namespace queries one in-process MAS over a
+crawler output file (JSON lines or TSV) instead.  The server renders
 on the CUDA card unless ``-device cpu`` is given, and raises without
 one, behind the process-wide serving gateway (response cache and
 single-flight), as the reference's.  Counterpart of
@@ -34,7 +36,8 @@ def main(argv=None) -> int:
                     help="config.json tree root")
     ap.add_argument("-local_mas", default="",
                     help="run an in-process MAS over this crawl TSV/JSON "
-                         "file")
+                         "file (without it, each namespace's mas_address "
+                         "is reached over HTTP)")
     ap.add_argument("-device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("-check_conf", action="store_true",

@@ -80,10 +80,12 @@ Requests the port cannot serve yet get HTTP 501 with exception code
 ``OperationNotSupported`` and a message naming the ROADMAP item, as
 does any NotImplementedError the pipeline raises: among them a
 GetCoverage in a config of several ``ows_cluster_nodes`` (peer shards,
-A.10) and a date query that needs the HTTP MAS client (A.8).  A WPS
-process over a VRT drills through the template it names.  Not ported: admission,
-deadlines (GetMap, GetFeatureInfo and WPS run unbounded), brownout,
-the metrics collector, drain, the cache fabric and remote workers.
+A.10).  A namespace's MAS is its ``mas_address`` over HTTP
+(`MASClient`), unless the server is given a ``mas_factory`` (an
+in-process store).  A WPS process over a VRT drills through the
+template it names.  Not ported: admission, deadlines (GetMap,
+GetFeatureInfo and WPS run unbounded), brownout, the metrics
+collector, drain, the cache fabric and remote workers.
 """
 
 from __future__ import annotations
@@ -111,6 +113,7 @@ import torch
 from ..device import resolve_device
 from ..geo import geometry as geom
 from ..geo.transform import GeoTransform, pixel_resolution, split_bbox
+from ..index.client import MASClient
 from ..index.store import parse_time
 from ..io.geotiff import GeoTIFFWriter, write_geotiff
 from ..io.netcdf import write_netcdf3
@@ -262,8 +265,9 @@ class OWSServer:
     def __init__(self, watcher: ConfigWatcher, mas_factory=None,
                  device="cuda", temp_dir: str = "",
                  gateway=_GATEWAY_DEFAULT):
-        """``mas_factory(address)`` gives a namespace's `MASClient` (the
-        port's client is in-process: there is no HTTP MAS client yet).
+        """``mas_factory(address)`` gives a namespace's `MASClient`;
+        without one, a namespace's client reaches its ``mas_address``
+        over HTTP (timeout ``mas_timeout``).
         ``device`` ("cuda" by default) is where every pipeline renders;
         without CUDA it must be "cpu".  ``temp_dir`` (default the
         system's, which honours TMPDIR) holds coverage files while they
@@ -290,10 +294,11 @@ class OWSServer:
 
     # -- plumbing ---------------------------------------------------------
 
-    def _mas(self, cfg: Config):
-        if self.mas_factory is None:
-            raise _unported("an HTTP MAS client", "A.8")
-        return self.mas_factory(cfg.service_config.mas_address)
+    def _mas(self, cfg: Config) -> MASClient:
+        sc = cfg.service_config
+        if self.mas_factory is not None:
+            return self.mas_factory(sc.mas_address)
+        return MASClient(sc.mas_address, timeout=sc.mas_timeout)
 
     def _pipeline(self, cfg: Config) -> TilePipeline:
         """One pipeline per namespace, rebuilt when a reload changes its
@@ -577,8 +582,8 @@ class OWSServer:
         enough to resolve (layer, bbox, crs, size) is keyed; an
         incomplete one goes to `_getmap` for its errors; an animation
         is never cached.  (The reference also notes the key for its
-        prefetch planner here; that comes with the ingest of ROADMAP
-        A.8.)"""
+        prefetch planner here; the planner comes with cancellation and
+        pressure, ROADMAP A.16.)"""
         key = meta = None
         is_anim = anim_enabled() and len(p.times) > 1 \
             and p.format.lower() in _ANIM_FORMATS

@@ -45,8 +45,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _no_builtin_rule(path):
-    """The port has no crawler rulesets (ROADMAP A.8): fixture names
-    must not match the reference's built-in product table."""
+    """Fixture names match no built-in product rule: a matching rule
+    would rewrite the record's timestamps, namespaces or SRS, and these
+    tests hold each format's own extractor against the reference's."""
     rule, _ = jrulesets.match_rule(path, None)
     assert rule is None or rule.collection == "default", (path, rule)
 

@@ -1061,3 +1061,187 @@ def test_main_serves_getmap_on_the_cpu(env):
         watchdog.cancel()
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# a compressed archive behind each package's masapi over HTTP
+# ---------------------------------------------------------------------------
+
+LZW_SIZE = (480, 520)
+LZW_DOYS = ("010", "026", "042")          # 2020-01-10, -01-26, -02-11
+T_LZW_OLD = "2020-01-01T00:00:00.000Z,2020-01-30T00:00:00.000Z"
+T_LZW_NEW = "2020-02-01T00:00:00.000Z,2020-02-20T00:00:00.000Z"
+T_LZW_ALL = "2020-01-01T00:00:00.000Z,2020-03-01T00:00:00.000Z"
+LZW_TILES = [_box(593000.0 + 2500.0 * k, 6103000.0 - 1500.0 * k, 3000.0)
+             for k in range(3)]
+LZW_SMALL = [_box(596000.0 + 300.0 * k, 6100000.0 - 200.0 * k, 1500.0)
+             for k in range(5)]
+LZW_BANDS = {"B4": "LC08_B4", "B5": "LC08_B5", "pixel_qa": "pixel_qa"}
+
+
+def _write_lzw_archive(root):
+    """Three dates of LC08_B4, LC08_B5 (int16, nodata -999) and pixel_qa
+    (uint16, fill 1, cloud and shadow blobs), LZW + predictor 2, named
+    ``LC8<path><row><year><doy>LGN00_<band>.TIF`` so that the built-in
+    ``landsat`` rule dates them."""
+    from test_torch_codec import write_lzw_geotiff
+    from test_torch_mosaic import CLEAR, CLOUD, SHADOW, QA_FILL, _blobs
+    from gsky_tpu_torch.geo.crs import parse_crs
+    from gsky_tpu_torch.geo.transform import GeoTransform
+    rng = np.random.default_rng(61)
+    H, W = LZW_SIZE
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    paths = []
+    for i, doy in enumerate(LZW_DOYS):
+        gt = GeoTransform(590000.0 + 450.0 * i, 30.0, 0.0,
+                          6105000.0 - 300.0 * i, 0.0, -30.0)
+        collar = (xx + yy) < 40 + 15 * i
+        b4 = 800 + 600 * np.sin(xx / (29 + 3 * i)) * np.cos(yy / 37) \
+            + rng.normal(0, 40, (H, W))
+        b5 = 2600 + 900 * np.cos(xx / 41) * np.sin(yy / (23 + 2 * i)) \
+            + rng.normal(0, 60, (H, W))
+        qa = np.full((H, W), CLEAR, np.uint16)
+        qa[_blobs(rng, 6, (H, W))] = CLOUD
+        qa[_blobs(rng, 4, (H, W), 8, 20)] = SHADOW
+        qa[collar] = QA_FILL
+        for band, arr, nd in (("B4", b4.astype(np.int16), -999),
+                              ("B5", b5.astype(np.int16), -999),
+                              ("pixel_qa", qa, QA_FILL)):
+            arr[collar] = nd
+            sub = "qa" if band == "pixel_qa" else "bands"
+            p = f"{root}/{sub}/LC80900852020{doy}LGN00_{band}.TIF"
+            write_lzw_geotiff(p, arr, gt, parse_crs(UTM55), nodata=nd,
+                              tile_size=128, overviews=(2, 4))
+            paths.append(p)
+    return paths
+
+
+def _lzw_config(root, mas_address):
+    bands, qa = f"{root}/lzw/bands", f"{root}/lzw/qa"
+    mask = {"id": "pixel_qa", "data_source": qa, "bit_tests": CLOUD_SHADOW}
+    return {
+        "service_config": {"ows_hostname": HOST, "mas_address": mas_address,
+                           "mas_timeout": 30},
+        "layers": [
+            {"name": "lzw", "data_source": bands,
+             "rgb_products": ["LC08_B4"], "time_generator": "mas",
+             "styles": _styles("LC08_B4")},
+            {"name": "lzw_masked", "data_source": bands,
+             "rgb_products": ["LC08_B4"], "resample": "bilinear",
+             "time_generator": "mas", "mask": mask, "clip_value": 2000}],
+        "processes": [
+            {"identifier": "lzw_drill", "approx": False,
+             "data_sources": [{"data_source": bands,
+                               "rgb_products": ["LC08_B4"]}]}],
+    }
+
+
+@pytest.fixture(scope="module")
+def lzw_env(env):
+    """The port's masapi over a `MASShardedStore` (shards ``bands`` and
+    ``qa``) and the reference's aiohttp masapi over its `MASStore`, the
+    same crawler records in both; each package's `OWSServer` reaches its
+    own over HTTP (a config ``mas_address``, no ``mas_factory``)."""
+    from gsky_tpu.index import api as japi
+    from gsky_tpu_torch.index import api as tapi
+    from gsky_tpu_torch.index.sharded import MASShardedStore
+    from test_torch_index import RefServer
+    root = env["root"]
+    os.makedirs(f"{root}/lzw/bands")
+    os.makedirs(f"{root}/lzw/qa")
+    paths = _write_lzw_archive(f"{root}/lzw")
+    jstore, tstore = JMASStore(), MASShardedStore(f"{root}/lzw")
+    for p in paths:
+        jrec, trec = jextract(p), extract(p)
+        assert trec == jrec and not trec.get("error")
+        band = os.path.basename(p).split("LGN00_")[1][:-4]
+        for rec in (jrec, trec):
+            for ds in rec["geo_metadata"]:
+                assert ds["timestamps"] == [
+                    f"2020-01-{int(p.split('LGN00')[0][-2:]):02d}"
+                    "T00:00:00.000Z"] or ds["timestamps"][0].startswith(
+                        "2020-02-11")
+                ds["namespace"] = LZW_BANDS[band]
+        jstore.ingest(jrec)
+        tstore.ingest(trec)
+    tapi_ = tapi.MasAPI(tstore)
+    port_mas = tapi_.serve("127.0.0.1", 0)
+    ref_mas = RefServer(japi.build_app(jstore))
+    confs = {}
+    for side, port in (("jax", ref_mas.port),
+                       ("port", port_mas.server_address[1])):
+        confs[side] = f"{root}/lzw_conf_{side}"
+        os.makedirs(confs[side])
+        with open(f"{confs[side]}/config.json", "w") as fp:
+            json.dump(_lzw_config(root, f"127.0.0.1:{port}"), fp)
+    jserver = JOWSServer(JConfigWatcher(confs["jax"], install_signal=False),
+                         metrics=JMetricsLogger(), gateway=None,
+                         fabric=None)
+    tserver = OWSServer(ConfigWatcher(confs["port"], install_signal=False),
+                        device="cpu", gateway=None)
+    client = _JaxClient(jserver)
+    try:
+        yield {"jax": client, "port": tserver, "masapi": tapi_,
+               "paths": paths}
+    finally:
+        client.close()
+        port_mas.shutdown()
+        port_mas.server_close()
+        ref_mas.close()
+
+
+def _lzw_both(lzw_env, url):
+    return _both({"jax": lzw_env["jax"], "port": lzw_env["port"]}, url)
+
+
+def test_lzw_window_routed_tiles_over_http_mas(lzw_env, wrappers,
+                                               monkeypatch):
+    """Small tiles over the newest date, whose scene is not resident,
+    stream through the ranged window path until the fourth decline of
+    the scene promotes it: the same decisions as the reference's."""
+    monkeypatch.setenv("GSKY_INGEST_WINDOW_FRAC", "0.05")
+    jcache = jscene_cache.default_scene_cache
+    tcache = lzw_env["port"].executor.cache
+    j0, t0 = jcache.window_routed, tcache.window_routed
+    for box in LZW_SMALL:
+        ref, got = _lzw_both(lzw_env, _getmap("lzw", box, style="near",
+                                              time=T_LZW_NEW))
+        _same_tile(ref, got, True, "window-routed")
+    # each tile asks the cache twice while the scene is not resident
+    # (the one-dispatch composite, then `render`'s fused route): tile 1
+    # is declined twice and renders on the modular route (the decoded
+    # window warped by B2), tile 2 is declined once and the fourth ask
+    # promotes the scene; from then on every tile is one B1 launch
+    assert tcache.window_routed - t0 == jcache.window_routed - j0 == 3
+    assert wrappers == {"B1": 4, "B2": 1, "B4": 0}
+
+
+@pytest.mark.parametrize("method", ["near", "bilinear"])
+def test_lzw_fused_tiles_over_http_mas(lzw_env, wrappers, method):
+    for box in LZW_TILES:
+        ref, got = _lzw_both(lzw_env, _getmap("lzw", box, style=method,
+                                              time=T_LZW_OLD))
+        img = _same_tile(ref, got, method == "near", method)
+        assert (img[..., 3] > 0).mean() > 0.5
+    assert wrappers == {"B1": len(LZW_TILES), "B2": 0, "B4": 0}
+    assert lzw_env["masapi"].cache.hits >= 1
+
+
+def test_lzw_masked_tiles_over_http_mas(lzw_env, wrappers):
+    for box in LZW_TILES[:2]:
+        ref, got = _lzw_both(lzw_env, _getmap("lzw_masked", box,
+                                              time=T_LZW_ALL))
+        _same_tile(ref, got, False, "masked")
+    assert wrappers["B4"] == 2
+
+
+def test_lzw_drill_over_http_mas(lzw_env, monkeypatch):
+    from test_torch_wps import _rows, _same_csv
+    monkeypatch.setenv("GSKY_DRILL_CACHE", "sync")
+    geom = {"type": "Polygon", "coordinates": [[
+        [148.05, -35.30], [148.12, -35.30], [148.12, -35.25],
+        [148.05, -35.25], [148.05, -35.30]]]}
+    url = ("/ows?service=WPS&request=Execute&identifier=lzw_drill"
+           f"&datainputs={quote('geometry=' + json.dumps(geom))}")
+    blocks = _same_csv(*_lzw_both(lzw_env, url))
+    assert len(_rows(blocks[0])) == 3
