@@ -205,6 +205,40 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    its 120 windows ranged (no launch), warm ones go through B3 (its
    first launch bit-exact against the plain version), equal to the
    cold CSV and the CPU server's.
+20. the serving path under load (phases 3-19 pin GSKY_PREFETCH=0, as
+   the planner warms through the first server it saw).  Each sub-phase
+   runs again on a CPU server (its own gateway) in the same
+   environment: statuses, OGC exception codes and the Retry-After,
+   X-GSKY-Degraded and X-Gsky-Cache headers equal, tiles decoded equal
+   (nearest) or within 0.1% of bytes, drills within rel 1e-5.  The card
+   server answers over HTTP with the process's `default_gateway`.
+   Inside phase 3's block: 20a the render batcher (GSKY_WAVES=0,
+   GSKY_RENDER_BATCH=1): 16 distinct native bilinear tiles from 16
+   threads; each flush one B1 launch, the flush sizes summing to 16,
+   the bodies equal to the same tiles per call, the first flush's
+   launch equal to its plain version; 20b admission, fixed
+   (GSKY_ADMIT_WMS=2, GSKY_ADMIT_QUEUE_S=0.05) then adaptive, 32
+   distinct tiles from 16 threads: shed + 200s = 32, shed > 0, at most
+   2 in use (polled), B1 launches = the 200s, every 503 ServerBusy with
+   Retry-After 1; 20d pressure: force(1) answers ``brownout`` with the
+   layer's overview (a hard link of one granule) and caches nothing;
+   with waves on, 32 tiles from 16 threads in waves of at most half
+   GSKY_WAVE_MAX; force(2) runs the relief once (scene and response
+   caches empty), page staging declines and the next tile takes B2,
+   its bytes its B1 tile's; force(None) and the label is gone; 20f a
+   client pans 8 native tiles east with prefetch on (the default
+   budget): hits, misses and wasted equal the CPU server's on the same
+   keys, one B1 a tile, bodies equal the cold per-call ones.  Inside
+   phase 10's block: 20c GSKY_FAULTS=decode:latency:2s on a masked
+   layer with wms_timeout 1: 504 within 1.5 s, the render unwinds at
+   its ``decode`` check, no B4; the next request 200 and one B4; a
+   client that closes its socket 0.3 s into a 1 s decode: its token
+   fires with ``client-disconnect``, no launch.  Inside phase 19: 20c
+   a WPS drill under wcs_timeout 1 with mas:latency:2s: 504, the next
+   drill 200 through B3; 20e over the masapi: mas:error:0.2 at seed 0,
+   8 tiles all 200 with the CPU run's retries and faults; mas:error:1.0,
+   a new tile 503 ServerBusy with Retry-After, an expired cached tile
+   replayed ``stale`` (``stale-cache``), no launch.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -2059,10 +2093,11 @@ class OwsPair:
     server on an ephemeral 127.0.0.1 port."""
 
     def __init__(self, conf_dir, layers, store, gateway=None,
-                 processes=()):
+                 processes=(), cpu_gateway=None):
         """``gateway``: the card server's `ServingGateway`; None (phases
-        12-16 measure renders) serves every request raw.  The CPU
-        server has none.  ``processes``: the config's WPS processes."""
+        12-16 measure renders) serves every request raw.
+        ``cpu_gateway``: the CPU server's (phase 20), by default none.
+        ``processes``: the config's WPS processes."""
         from gsky_tpu_torch.index.client import MASClient
         from gsky_tpu_torch.server.config import ConfigWatcher
         from gsky_tpu_torch.server.ows import OWSServer
@@ -2077,13 +2112,38 @@ class OwsPair:
         self.card = OWSServer(watcher, lambda a: client, device="cuda",
                               gateway=gateway)
         self.cpu = OWSServer(watcher, lambda a: client, device="cpu",
-                             gateway=None)
+                             gateway=cpu_gateway)
         self.httpd = self.card.serve("127.0.0.1", 0)
         self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.cpu_httpd = None
 
     def close(self):
-        self.httpd.shutdown()
-        self.httpd.server_close()
+        for h in (self.httpd, self.cpu_httpd):
+            if h is not None:
+                h.shutdown()
+                h.server_close()
+
+    def cpu_base(self):
+        """The CPU server over a socket of its own (started once)."""
+        if self.cpu_httpd is None:
+            self.cpu_httpd = self.cpu.serve("127.0.0.1", 0)
+        return f"http://127.0.0.1:{self.cpu_httpd.server_address[1]}"
+
+    def cpu_get(self, url, headers=None):
+        """(status, headers, body, seconds) of ``url`` from the CPU
+        server's handler."""
+        from urllib.parse import parse_qs, urlsplit
+        u = urlsplit(url)
+        t0 = time.perf_counter()
+        r = self.cpu.handle(u.path, parse_qs(u.query), "", None,
+                            headers or {})
+        return r.status, dict(r.headers), r.read(), \
+            time.perf_counter() - t0
+
+    def clear_caches(self):
+        for srv in (self.card, self.cpu):
+            if srv.gateway is not None:
+                srv.gateway.cache.clear()
 
     def cpu_body(self, url, host=""):
         """The CPU server's body for ``url`` (``host``: the Host header,
@@ -5221,10 +5281,12 @@ def same_csv(a, b, what, rtol=1e-5):
     return ra[0][0]
 
 
-def phase_ingest(root, card, dev="cuda"):
-    """Phases 19b and 19c over an archive written under ``root``.
+def phase_ingest(root, card, dev="cuda", serving=None):
+    """Phases 19b and 19c over an archive written under ``root``, then
+    ``serving(root, watcher, card server, CPU server, card)`` (phase
+    20c's drill and 20e) while the masapi and the stack are up.
     Returns ({kernel: launches} of the main path, max |kernel - plain|
-    of its captured launches)."""
+    of its captured launches, ``serving``'s result)."""
     import torch
     from urllib.parse import parse_qs, urlsplit
     from gsky_tpu_torch import ingest
@@ -5324,7 +5386,12 @@ def phase_ingest(root, card, dev="cuda"):
             "processes": [
                 {"identifier": "ingest_drill", "approx": False,
                  "data_sources": [{"data_source": drill_dir,
-                                   "rgb_products": ["ndvi"]}]}]}, fp)
+                                   "rgb_products": ["ndvi"]}]},
+                # phase 20c: the same drill under a 1 s budget
+                {"identifier": "ingest_drill_dl", "approx": False,
+                 "data_sources": [{"data_source": drill_dir,
+                                   "rgb_products": ["ndvi"],
+                                   "wcs_timeout": 1}]}]}, fp)
     # no mas_factory: every namespace reaches the masapi over HTTP
     watcher = ConfigWatcher(conf, install_signal=False)
     srv = OWSServer(watcher, device=dev, gateway=None)
@@ -5622,13 +5689,690 @@ def phase_ingest(root, card, dev="cuda"):
             f"bit-exact against its plain version at "
             f"{tuple(cap.args[0][0].shape)}; warm = cold, card = CPU "
             f"(rel 1e-5) ({card})")
+        served = None if serving is None else \
+            serving(root, watcher, srv, cpu, card)
         dc.clear()
     finally:
         httpd.shutdown()
         httpd.server_close()
         mas_httpd.shutdown()
         mas_httpd.server_close()
-    return total, errs
+    return total, errs, served
+
+
+# -- phase 20: the serving path under load -------------------------------
+
+SRV_THREADS = 16             # 20a, 20b, 20d: client threads
+SRV_BATCH_TILES = 16         # 20a: distinct native bilinear tiles
+SRV_ADMIT_TILES = 32         # 20b: distinct tiles under admission
+SRV_PAN = 8                  # 20f: tiles a client pans east
+SRV_FAULT_TILES = 8          # 20e: tiles under mas:error:0.2
+SRV_WAVE_MAX = 16            # GSKY_WAVE_MAX's default; brownout halves it
+
+
+def ogc_code(body):
+    m = re.search(rb'exceptionCode="([^"]*)"', body)
+    return m.group(1).decode() if m else None
+
+
+def fetch_threads(get, urls, threads):
+    """``get(url)`` of every url from ``threads`` threads started
+    together: the answers in url order and the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+    go = threading.Event()
+
+    def one(u):
+        go.wait(60)
+        return get(u)
+    with ThreadPoolExecutor(threads) as ex:
+        futs = [ex.submit(one, u) for u in urls]
+        t0 = time.perf_counter()
+        go.set()
+        out = [f.result() for f in futs]
+    return out, time.perf_counter() - t0
+
+
+def same_answer(card_ans, cpu_ans, method, what):
+    """Card vs CPU answers: equal status, OGC exception code and the
+    Retry-After, X-GSKY-Degraded and X-Gsky-Cache headers; 200 bodies
+    decode equal (nearest) or within 0.1% of bytes."""
+    (cs, ch, cb, _), (ps, ph, pb, _) = card_ans, cpu_ans
+    if cs != ps:
+        raise AssertionError(f"{what}: card {cs}, CPU {ps}: {pb[:200]}")
+    for k in ("Retry-After", "X-GSKY-Degraded", "X-Gsky-Cache"):
+        if ch.get(k) != ph.get(k):
+            raise AssertionError(f"{what}: {k} card {ch.get(k)!r}, CPU "
+                                 f"{ph.get(k)!r}")
+    if cs == 200:
+        return same_decoded(method, cb, pb, what)
+    if ogc_code(cb) != ogc_code(pb):
+        raise AssertionError(f"{what}: codes {ogc_code(cb)}, "
+                             f"{ogc_code(pb)}")
+    return 0
+
+
+class PlannerIdle:
+    """Wraps the prefetch planner's warm callback to count warms in
+    flight, so a caller can wait until the planner is idle."""
+
+    def __init__(self, planner, warm_fn):
+        import threading
+        self.planner, self.inner = planner, warm_fn
+        self.busy, self.lock = 0, threading.Lock()
+        planner.warm_fn = self
+
+    def __call__(self, *key):
+        with self.lock:
+            self.busy += 1
+        try:
+            return self.inner(*key)
+        finally:
+            with self.lock:
+                self.busy -= 1
+
+    def wait(self, timeout=60.0):
+        end = time.monotonic() + timeout
+        quiet = 0
+        while time.monotonic() < end:
+            with self.planner._lock:
+                pending = len(self.planner._pending)
+            quiet = quiet + 1 if not pending and not self.busy else 0
+            if quiet >= 3:
+                return
+            time.sleep(0.01)
+        raise AssertionError("the prefetch planner did not go idle")
+
+
+def phase_serving(data_root, data_paths, store, card):
+    """Phases 20a, 20b, 20d and 20f over phase 3's archive.  Returns the
+    launches {kernel: n} of their main-path runs."""
+    import torch
+    from gsky_tpu_torch.ingest import prefetch
+    from gsky_tpu_torch.ingest import stats as ingest_stats
+    from gsky_tpu_torch.ops import paged
+    from gsky_tpu_torch.pipeline import drill_cache as DC
+    from gsky_tpu_torch.resilience import default_monitor
+    from gsky_tpu_torch.serving import AdmissionController, \
+        ServingGateway, default_gateway
+    kernels = _kernel_counts()
+    total = dict.fromkeys(kernels, 0)
+    # the overview: one of phase 3's granules (a hard link) in a
+    # collection of its own, so that its tile differs from the layer's
+    ov_dir = os.path.join(ROOT, "build", "smoke_archive_ov")
+    shutil.rmtree(ov_dir, ignore_errors=True)
+    os.makedirs(ov_dir)
+    ov_path = os.path.join(ov_dir, os.path.basename(data_paths[0]))
+    os.link(data_paths[0], ov_path)
+    from gsky_tpu_torch.index.crawler import extract
+    rec = extract(ov_path)
+    for ds in rec["geo_metadata"]:
+        ds["namespace"] = NS
+    store.ingest(rec)
+    styles = [{"name": m, "title": m, "rgb_products": [NS], "resample": m}
+              for m in METHODS]
+    layers = [
+        {"name": "plain", "data_source": data_root, "rgb_products": [NS],
+         "styles": styles},
+        {"name": "browned", "data_source": data_root,
+         "rgb_products": [NS],
+         "overviews": [{"name": "browned_ov", "data_source": ov_dir,
+                        "rgb_products": [NS], "zoom_limit": 1.0e6}]},
+        {"name": "ov_direct", "data_source": ov_dir, "rgb_products": [NS]},
+    ]
+    pair = OwsPair(os.path.join(data_root, "conf20"), layers, store,
+                   gateway=default_gateway, cpu_gateway=ServingGateway())
+    gw = pair.card.gateway
+    saved_admission = gw.admission
+    boxes = tile_boxes()
+    try:
+        def card_get(u):
+            return http_status(u)
+
+        # -- 20a: the render batcher -------------------------------------
+        urls = [getmap_url(pair.base, "plain", b, "bilinear")
+                for b in boxes[:SRV_BATCH_TILES]]
+        http_status(urls[0])                # warm: scenes resident
+        pair.clear_caches()
+        ex = pair.card.executor
+        reset_counts(kernels)
+        percall, wall_pc = fetch_threads(card_get, urls, SRV_THREADS)
+        pc_launch = read_counts(kernels)
+        if any(a[0] != 200 for a in percall) or \
+                pc_launch["B1"] != SRV_BATCH_TILES:
+            raise AssertionError(f"20a per call: {[a[0] for a in percall]}"
+                                 f", launches {pc_launch}")
+        pair.clear_caches()
+        os.environ["GSKY_RENDER_BATCH"] = "1"
+        cap = CaptureFirst(paged, "paged_render_scored")
+        run = SatRun(ex)
+        try:
+            batched, wall_b = fetch_threads(card_get, urls, SRV_THREADS)
+        finally:
+            run.close()
+            cap.remove()
+        b = ex.batcher
+        if run.launches["B1"] != b.paged_batches or \
+                sum(b.flush_sizes) != SRV_BATCH_TILES or \
+                run.launches["B2"]:
+            raise AssertionError(f"20a: launches {run.launches}, flushes "
+                                 f"{b.flush_sizes}")
+        if [a[2] for a in batched] != [a[2] for a in percall]:
+            raise AssertionError("20a: batched tiles differ from the "
+                                 "per-call tiles")
+        for k in total:
+            total[k] += run.launches[k]
+        import inspect
+        args = inspect.signature(cap.orig).bind(*cap.args[0],
+                                                **cap.args[1]).arguments
+        saved = kernels["B1"].launches
+        with ex.pool.locked_pool() as parr:
+            kw = dict(args, pool=parr)
+            ck, bk = paged.paged_render_scored(**kw)
+            cp, bp = paged.paged_render_scored_plain(**kw)
+        kernels["B1"].launches = saved
+        err = check_pair("bilinear", ck, bk, cp, bp, "20a flush vs plain")
+        cpu_b, _ = fetch_threads(pair.cpu_get, urls[:2], 2)
+        for u, c, p in zip(urls, batched, cpu_b):
+            same_answer(c, p, "bilinear", "20a card vs CPU")
+        os.environ.pop("GSKY_RENDER_BATCH")
+        log(f"phase 20a: {SRV_BATCH_TILES} tiles from {SRV_THREADS} threads "
+            f"batched: {SRV_BATCH_TILES / wall_b:.1f} tiles/s, "
+            f"{ms_stats([a[3] for a in batched])}; {b.paged_batches} "
+            f"flushes of {b.flush_sizes} tiles, one B1 launch each "
+            f"(launches {run.launches}), padding {b.pad_waste_bytes} B, "
+            f"knee {b.knee}; per call: {SRV_BATCH_TILES / wall_pc:.1f} "
+            f"tiles/s, {ms_stats([a[3] for a in percall])}; bytes equal; "
+            f"the first flush's B1 (N={int(args['tables'].shape[0])}) vs "
+            f"plain max |diff| {err} ({card})")
+
+        # -- 20b: admission, fixed then adaptive ------------------------
+        os.environ.update({"GSKY_ADMIT_ADAPTIVE": "0", "GSKY_ADMIT_WMS": "2",
+                           "GSKY_ADMIT_QUEUE_S": "0.05"})
+        urls = [getmap_url(pair.base, "plain", b, "bilinear")
+                for b in boxes[:SRV_ADMIT_TILES]]
+        import threading
+        for mode in ("fixed", "adaptive"):
+            adaptive = mode == "adaptive"
+            pair.clear_caches()
+            gw.admission = AdmissionController(adaptive=adaptive)
+            pair.cpu.gateway.admission = AdmissionController(
+                adaptive=adaptive)
+            peak, stop = [0], threading.Event()
+
+            def watch():
+                while not stop.is_set():
+                    peak[0] = max(peak[0], gw.admission.stats()[
+                        "classes"]["WMS"]["in_use"])
+                    time.sleep(0.0005)
+            w = threading.Thread(target=watch, daemon=True)
+            w.start()
+            reset_counts(kernels)
+            try:
+                got, wall = fetch_threads(card_get, urls, SRV_THREADS)
+            finally:
+                stop.set()
+                w.join(10)
+            n = read_counts(kernels)
+            st = gw.admission.stats()["classes"]["WMS"]
+            ok = [a for a in got if a[0] == 200]
+            shed = [a for a in got if a[0] == 503]
+            if len(ok) + len(shed) != len(urls) or not shed or \
+                    n["B1"] != len(ok) or st["shed"] != len(shed) or \
+                    peak[0] > 2 or st["in_use"]:
+                raise AssertionError(
+                    f"20b {mode}: 200s {len(ok)}, 503s {len(shed)}, B1 "
+                    f"{n['B1']}, peak in use {peak[0]}, stats {st}")
+            for a in shed:
+                if ogc_code(a[2]) != "ServerBusy" or \
+                        a[1].get("Retry-After") != "1":
+                    raise AssertionError(f"20b {mode}: {a[0]} {a[1]}")
+            for k in total:
+                total[k] += n[k]
+            cpu_got, _ = fetch_threads(pair.cpu_get, urls, SRV_THREADS)
+            cst = pair.cpu.gateway.admission.stats()["classes"]["WMS"]
+            for a in cpu_got:
+                if a[0] not in (200, 503) or (a[0] == 503 and (
+                        ogc_code(a[2]) != "ServerBusy"
+                        or a[1].get("Retry-After") != "1")):
+                    raise AssertionError(f"20b {mode} CPU: {a[0]} {a[1]}")
+            log(f"phase 20b {mode} (GSKY_ADMIT_WMS 2, queue 0.05 s): "
+                f"{len(urls)} distinct tiles from {SRV_THREADS} threads: "
+                f"{len(ok)} 200 ({ms_stats([a[3] for a in ok])}), "
+                f"{len(shed)} shed 503 ServerBusy Retry-After 1 "
+                f"({ms_stats([a[3] for a in shed])}); in use at most "
+                f"{peak[0]}; B1 launches {n['B1']} = the 200s; "
+                f"effective_limit {st['effective_limit']}, limit "
+                f"{st['limit']}, adjustments {st['adjustments']}, "
+                f"recent {st['recent_ms']} ms, baseline "
+                f"{st['baseline_ms']} ms; wall {wall:.3f} s; CPU server "
+                f"{sum(a[0] == 200 for a in cpu_got)} 200, {cst['shed']} "
+                f"shed, codes and Retry-After equal ({card})")
+        for k in ("GSKY_ADMIT_ADAPTIVE", "GSKY_ADMIT_WMS",
+                  "GSKY_ADMIT_QUEUE_S"):
+            os.environ.pop(k)
+        gw.admission = saved_admission
+        pair.cpu.gateway.admission = AdmissionController()
+
+        # -- 20d: pressure and brownout ---------------------------------
+        mon = default_monitor()
+        box = boxes[SRV_ADMIT_TILES - 1]
+        pair.clear_caches()
+        direct = getmap_url(pair.base, "ov_direct", box)
+        ov_tile = http_status(direct)
+        browned = getmap_url(pair.base, "browned", box)
+        entries = len(gw.cache)
+        try:
+            mon.force(1)
+            reset_counts(kernels)
+            card_a = http_status(browned)
+            n = read_counts(kernels)
+            cpu_a = pair.cpu_get(browned)
+            same_answer(card_a, cpu_a, "near", "20d brownout")
+            if card_a[0] != 200 or \
+                    card_a[1].get("X-GSKY-Degraded") != "brownout":
+                raise AssertionError(f"20d brownout: {card_a[:2]}")
+            same_decoded("near", card_a[2], ov_tile[2],
+                         "20d brownout tile vs the overview's")
+            if len(gw.cache) != entries:
+                raise AssertionError("20d: a degraded response was cached")
+            for k in total:
+                total[k] += n[k]
+            log(f"phase 20d force(1): X-GSKY-Degraded brownout, the tile "
+                f"is the overview's ({n}), the CPU server's label and "
+                f"bytes equal, nothing cached ({card})")
+            # waves on: a wave takes at most half GSKY_WAVE_MAX lanes
+            with WavesOn() as waves:
+                pair.clear_caches()
+                urls = [getmap_url(pair.base, "plain", b, "bilinear")
+                        for b in boxes[:SRV_ADMIT_TILES]]
+                reset_counts(kernels)
+                got, wall = fetch_threads(card_get, urls, SRV_THREADS)
+                n = read_counts(kernels)
+                ws = wave_stats_of(waves)
+                occ = ws.get("occupancy", {})
+                if any(a[0] != 200 or a[1].get("X-GSKY-Degraded")
+                       != "brownout" for a in got) or not occ or \
+                        max(occ) > SRV_WAVE_MAX // 2 or \
+                        ws["effective_max"] != SRV_WAVE_MAX // 2 or \
+                        ws["queue_depth"] != 1:
+                    raise AssertionError(f"20d waves: {ws}")
+                cpu_a = pair.cpu_get(urls[0])
+                same_answer(got[0], cpu_a, "bilinear", "20d waves")
+                for k in total:
+                    total[k] += n[k]
+                log(f"phase 20d force(1), waves on: {len(urls)} tiles from "
+                    f"{SRV_THREADS} threads, {len(urls) / wall:.1f} "
+                    f"tiles/s; lanes per wave {occ} <= {SRV_WAVE_MAX // 2}"
+                    f" (GSKY_WAVE_MAX {SRV_WAVE_MAX} halved), run-ahead "
+                    f"{ws['queue_depth']}; launches {n} ({card})")
+            # critical: caches emptied, staging declined -> B2
+            sc = pair.card.executor.cache
+            ref = http_status(getmap_url(pair.base, "plain", box,
+                                         "bilinear"))
+            trims = mon.trims
+            pair.card.executor.pool.declined = 0
+            mon.force(2)
+            stacks = sum(len(c._stacks) for c in DC._caches.values())
+            if mon.trims != trims + 1 or sc._scenes or len(gw.cache) \
+                    or stacks:
+                raise AssertionError(f"20d force(2): trims {mon.trims}, "
+                                     f"scenes {len(sc._scenes)}, "
+                                     f"responses {len(gw.cache)}, drill "
+                                     f"stacks {stacks}")
+            pair.clear_caches()
+            reset_counts(kernels)
+            url = getmap_url(pair.base, "plain", box, "bilinear")
+            card_a = http_status(url)
+            n = read_counts(kernels)
+            if card_a[0] != 200 or n["B1"] or n["B2"] != 1 or \
+                    not pair.card.executor.pool.declined:
+                raise AssertionError(f"20d force(2): {card_a[:2]}, {n}")
+            d = same_decoded("bilinear", card_a[2], ref[2],
+                             "20d B2 tile vs its B1 tile")
+            same_answer(card_a, pair.cpu_get(url), "bilinear",
+                        "20d force(2)")
+            for k in total:
+                total[k] += n[k]
+            log(f"phase 20d force(2): relief ran once (trims "
+                f"{mon.trims}), scene, drill and response caches empty; "
+                f"the pool declined staging, the tile took B2 ({n}), "
+                f"{d} decoded bytes from its B1 tile; CPU server equal "
+                f"({card})")
+        finally:
+            mon.force(None)
+            mon.reset()
+        card_a = http_status(browned)
+        if "X-GSKY-Degraded" in card_a[1]:
+            raise AssertionError("20d force(None): still labelled")
+        same_answer(card_a, pair.cpu_get(browned), "near", "20d cleared")
+
+        # -- 20f: prefetch along a pan ----------------------------------
+        os.environ["GSKY_PREFETCH"] = "1"
+        row = boxes[SRV_PAN:2 * SRV_PAN]
+        urls = [getmap_url(pair.base, "plain", b, "bilinear") for b in row]
+        cold = {u: a[2] for u, a in zip(urls, percall[SRV_PAN:])}
+        outcomes = {}
+        for who in ("card", "cpu"):
+            prefetch.reset_default_planner()
+            ingest_stats.reset()
+            pair.clear_caches()
+            srv = pair.card if who == "card" else pair.cpu
+            planner = prefetch.default_planner()
+            idle = PlannerIdle(planner, srv._prefetch_warm)
+            reset_counts(kernels)
+            lat = []
+            for u in urls:
+                a = http_status(u) if who == "card" else pair.cpu_get(u)
+                if a[0] != 200:
+                    raise AssertionError(f"20f {who}: {a[0]}")
+                if who == "card" and a[2] != cold[u]:
+                    raise AssertionError("20f: a tile differs from the "
+                                         "cold server's")
+                if who == "cpu":
+                    same_decoded("bilinear", cold[u], a[2], "20f CPU")
+                lat.append(a[3])
+                idle.wait()
+            n = read_counts(kernels)
+            st = planner.stats()
+            outcomes[who] = (st["hit"], st["miss"], st["wasted"],
+                             st["predicted"], st["warmed"])
+            if who == "card":
+                if n["B1"] != len(urls) or st["warm_errors"]:
+                    raise AssertionError(f"20f: launches {n}, {st}")
+                for k in total:
+                    total[k] += n[k]
+                log(f"phase 20f: a client pans {len(urls)} native tiles "
+                    f"east: prefetch hit {st['hit']}, miss {st['miss']}, "
+                    f"wasted {st['wasted']}, predicted {st['predicted']},"
+                    f" warmed {st['warmed']}; launches {n}; "
+                    f"{ms_stats(lat)}; bytes equal the cold server's "
+                    f"({card})")
+        prefetch.reset_default_planner()
+        os.environ["GSKY_PREFETCH"] = "0"
+        if outcomes["card"] != outcomes["cpu"]:
+            raise AssertionError(f"20f: outcomes {outcomes}")
+        log(f"phase 20f: the CPU server's planner scores the same "
+            f"(hit, miss, wasted, predicted, warmed) {outcomes['cpu']}")
+    finally:
+        gw.admission = saved_admission
+        for k in ("GSKY_RENDER_BATCH", "GSKY_ADMIT_ADAPTIVE",
+                  "GSKY_ADMIT_WMS", "GSKY_ADMIT_QUEUE_S"):
+            os.environ.pop(k, None)
+        os.environ["GSKY_PREFETCH"] = "0"
+        pair.close()
+        gw.cache.clear()
+        shutil.rmtree(ov_dir, ignore_errors=True)
+    return total
+
+
+def cancel_reasons():
+    """Records the reason of every cancel token that fires while
+    installed (``remove()`` restores `CancelToken.cancel`)."""
+    from gsky_tpu_torch.resilience import cancel
+
+    class Spy:
+        def __init__(self):
+            self.reasons = []
+            self.orig = cancel.CancelToken.cancel
+            spy = self
+
+            def cancel_(tok, reason="cancelled"):
+                fired = spy.orig(tok, reason)
+                if fired:
+                    spy.reasons.append(reason)
+                return fired
+            cancel.CancelToken.cancel = cancel_
+
+        def remove(self):
+            cancel.CancelToken.cancel = self.orig
+    return Spy()
+
+
+def wait_for(cond, what, timeout=60.0):
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if cond():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"{what}: not within {timeout} s")
+
+
+def raw_disconnect(base, url, after_s):
+    """Send ``url``'s GET over a raw socket and close it ``after_s``
+    later, before any answer."""
+    import socket
+    from urllib.parse import urlsplit
+    host, port = urlsplit(base).netloc.split(":")
+    sock = socket.create_connection((host, int(port)), 30)
+    u = urlsplit(url)
+    sock.sendall(f"GET {u.path}?{u.query} HTTP/1.1\r\nHost: x\r\n\r\n"
+                 .encode())
+    time.sleep(after_s)
+    sock.close()
+
+
+def phase_deadline(root, store, card):
+    """Phase 20c over phase 10's archive: a decode latency fault past a
+    masked layer's 1 s wms_timeout (504, the render unwinds at its
+    cancellation check, no B4), a clean request after it (200, one B4),
+    and a client that closes its socket mid-decode (the token fires with
+    ``client-disconnect``, no launch).  Returns the launches."""
+    from gsky_tpu_torch.resilience import cancel_stats, faults, \
+        reset_cancel_stats
+    from gsky_tpu_torch.serving import ServingGateway, default_gateway
+    kernels = _kernel_counts()
+    total = dict.fromkeys(kernels, 0)
+    mask = {"id": "pixel_qa", "bit_tests": CLOUD_SHADOW}
+    layers = [
+        {"name": "masked_dl", "data_source": root,
+         "rgb_products": ["LC08_B4"], "resample": "bilinear",
+         "mask": mask, "clip_value": 2000, "wms_timeout": 1},
+        {"name": "masked", "data_source": root,
+         "rgb_products": ["LC08_B4"], "resample": "bilinear",
+         "mask": mask, "clip_value": 2000}]
+    dates = mosaic_dates()
+    t_two = (dates[-2][1] - 86400.0, dates[-1][1] + 86400.0)
+    boxes = mosaic_boxes()
+    pair = OwsPair(os.path.join(root, "conf20"), layers, store,
+                   gateway=default_gateway, cpu_gateway=ServingGateway())
+    spy = cancel_reasons()
+    try:
+        for who in ("card", "cpu"):
+            base = pair.base if who == "card" else pair.cpu_base()
+            url = getmap_url(base, "masked_dl", boxes[0], "", t_two)
+            clean = getmap_url(base, "masked_dl", boxes[1], "", t_two)
+            faults.configure("decode:latency:2s", 0)
+            reset_cancel_stats()
+            reset_counts(kernels)
+            a = http_status(url)
+            if a[0] != 504 or a[3] > 1.5:
+                raise AssertionError(f"20c {who}: {a[0]} in {a[3]:.3f} s")
+            wait_for(lambda: cancel_stats()["stages"], "20c unwind")
+            stages = cancel_stats()["stages"]
+            time.sleep(0.1)
+            n = read_counts(kernels)
+            if n["B4"] or set(stages) != {"decode"}:
+                raise AssertionError(f"20c {who}: launches {n}, stages "
+                                     f"{stages}")
+            faults.reset()
+            reset_counts(kernels)
+            b = http_status(clean)
+            n2 = read_counts(kernels)
+            if b[0] != 200 or (who == "card" and n2["B4"] != 1):
+                raise AssertionError(f"20c {who} clean: {b[0]}, {n2}")
+            if who == "card":
+                card_504, card_clean = a, b
+                total["B4"] += n2["B4"]
+            else:
+                same_answer(card_504, a, "bilinear", "20c 504")
+                same_answer(card_clean, b, "bilinear", "20c clean")
+            log(f"phase 20c {who}: decode:latency:2s past wms_timeout 1: "
+                f"{a[0]} ({ogc_code(a[2])}) in {a[3] * 1e3:.1f} ms; the "
+                f"render unwound at stage {stages}, launches {n}; the "
+                f"clean request {b[0]} in {b[3] * 1e3:.1f} ms, launches "
+                f"{n2} ({card})")
+            # a client that goes away mid-decode
+            faults.configure("decode:latency:1s", 0)
+            reset_cancel_stats()
+            spy.reasons.clear()
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            raw_disconnect(base, getmap_url(base, "masked", boxes[2], "",
+                                            t_two), 0.3)
+            wait_for(lambda: "client-disconnect" in spy.reasons
+                     and cancel_stats()["stages"], "20c disconnect")
+            secs = time.perf_counter() - t0
+            time.sleep(0.1)
+            n = read_counts(kernels)
+            faults.reset()
+            if any(n.values()):
+                raise AssertionError(f"20c {who} disconnect: launches {n}")
+            log(f"phase 20c {who}: a client closed its socket 0.3 s into "
+                f"a 1 s decode: the token fired with {spy.reasons}, the "
+                f"render unwound at {cancel_stats()['stages']} "
+                f"{secs:.2f} s after the request, launches {n} ({card})")
+    finally:
+        faults.reset()
+        spy.remove()
+        pair.close()
+    return total
+
+
+def phase_backend(root, watcher, srv, cpu, card):
+    """Phases 20c (the WPS part) and 20e over phase 19's archive and
+    masapi, inside phase 19: a WPS drill past a short wcs_timeout (504),
+    the next one through B3 (200); then mas:error faults at the MAS
+    client.  Returns the launches."""
+    t_phase = time.perf_counter()
+    from urllib.parse import parse_qs, urlsplit
+    from gsky_tpu_torch.resilience import faults, get_breaker, registry
+    from gsky_tpu_torch.serving import ServingGateway
+    kernels = _kernel_counts()
+    total = dict.fromkeys(kernels, 0)
+    cfg = watcher.get("")
+    addr = cfg.service_config.mas_address
+    breaker = get_breaker(f"mas:{addr}")
+
+    def get(server, url, body=None):
+        u = urlsplit(url)
+        t0 = time.perf_counter()
+        r = server.handle(u.path, parse_qs(u.query), "", body, {})
+        return r.status, dict(r.headers), r.read(), \
+            time.perf_counter() - t0
+
+    # -- 20c: a drill past its deadline, then one through B3 --------------
+    from gsky_tpu_torch.geo import geometry as geom
+    g = geom.from_wkt(DRILL_POLY)
+    gj = json.dumps({"type": "Polygon", "coordinates": [
+        r.tolist() for r in g.polys[0]]})
+
+    def execute(ident):
+        return (
+            '<?xml version="1.0" encoding="UTF-8"?>'
+            '<wps:Execute service="WPS" version="1.0.0" '
+            'xmlns:wps="http://www.opengis.net/wps/1.0.0" '
+            'xmlns:ows="http://www.opengis.net/ows/1.1">'
+            f"<ows:Identifier>{ident}</ows:Identifier><wps:DataInputs>"
+            "<wps:Input><ows:Identifier>geometry</ows:Identifier>"
+            f"<wps:Data><wps:ComplexData>{gj}</wps:ComplexData></wps:Data>"
+            "</wps:Input></wps:DataInputs></wps:Execute>").encode()
+    url = "/ows?service=WPS"
+    ans = {}
+    for who, server in (("card", srv), ("cpu", cpu)):
+        faults.configure("mas:latency:2s", 0)
+        reset_counts(kernels)
+        a = get(server, url, execute("ingest_drill_dl"))
+        faults.reset()
+        if a[0] != 504 or a[3] > 1.5:
+            raise AssertionError(f"20c WPS {who}: {a[0]} in {a[3]:.3f} s")
+        time.sleep(2.2)             # the abandoned drill unwinds
+        n = read_counts(kernels)
+        breaker.record_success()
+        reset_counts(kernels)
+        b = get(server, url, execute("ingest_drill_dl"))
+        n2 = read_counts(kernels)
+        if b[0] != 200 or n["B3"] or (who == "card" and n2["B3"] != 1):
+            raise AssertionError(f"20c WPS {who}: {b[0]}, launches {n}, "
+                                 f"{n2}")
+        if who == "card":
+            total["B3"] += n2["B3"]
+        ans[who] = (a, b)
+        log(f"phase 20c WPS {who}: mas:latency:2s past wcs_timeout 1: "
+            f"{a[0]} in {a[3] * 1e3:.1f} ms, launches {n}; the next drill "
+            f"{b[0]} in {b[3] * 1e3:.1f} ms, launches {n2} ({card})")
+    if ans["card"][0][0] != ans["cpu"][0][0] or \
+            ogc_code(ans["card"][0][2]) != ogc_code(ans["cpu"][0][2]):
+        raise AssertionError("20c WPS: card and CPU answers differ")
+    same_csv(ans["card"][1][2], ans["cpu"][1][2], "20c WPS card vs CPU")
+
+    # -- 20e: faults at the MAS client, then the MAS lost ---------------
+    t_both = (lzw_stamp(LZW_DOYS[0]) - 86400.0,
+              lzw_stamp(LZW_DOYS[-1]) + 86400.0)
+    boxes = tile_boxes(*LZW_AT["fused"], nx=4, ny=4)
+    urls = [getmap_url("", "lzw", b, "near", t_both)
+            for b in boxes[:SRV_FAULT_TILES]]
+    fresh = getmap_url("", "lzw", boxes[-1], "near", t_both)
+    saved = srv.gateway, cpu.gateway
+    srv.gateway, cpu.gateway = ServingGateway(), ServingGateway()
+    try:
+        res = {}
+        for who, server in (("card", srv), ("cpu", cpu)):
+            faults.configure("mas:error:0.2", 0)
+            breaker.record_success()
+            r0 = registry.stats()["retries"].get("mas", 0)
+            f0 = registry.stats()["faults_injected"].get("mas", 0)
+            reset_counts(kernels)
+            got = [get(server, u) for u in urls]
+            n = read_counts(kernels)
+            retries = registry.stats()["retries"].get("mas", 0) - r0
+            injected = registry.stats()["faults_injected"].get("mas", 0) \
+                - f0
+            if any(a[0] != 200 for a in got) or not injected:
+                raise AssertionError(f"20e {who}: {[a[0] for a in got]}, "
+                                     f"faults {injected}")
+            if who == "card":
+                total["B1"] += n["B1"]
+            # the MAS lost: a new tile 503, an expired one replayed stale
+            faults.configure("mas:error:1.0", 0)
+            breaker.record_success()
+            reset_counts(kernels)
+            new = get(server, fresh)
+            for ent in server.gateway.cache._entries.values():
+                ent.expires = time.monotonic() - 1.0
+            breaker.record_success()
+            stale = get(server, urls[0])
+            n_lost = read_counts(kernels)
+            faults.reset()
+            breaker.record_success()
+            if new[0] != 503 or ogc_code(new[2]) != "ServerBusy" or \
+                    not new[1].get("Retry-After") or stale[0] != 200 or \
+                    stale[1].get("X-Gsky-Cache") != "stale" or \
+                    stale[1].get("X-GSKY-Degraded") != "stale-cache" or \
+                    stale[2] != got[0][2] or any(n_lost.values()):
+                raise AssertionError(f"20e {who} lost: {new[:2]}, "
+                                     f"{stale[:2]}, {n_lost}")
+            res[who] = (got, retries, injected, new, stale)
+            log(f"phase 20e {who}: mas:error:0.2 (seed 0): "
+                f"{len(got)} tiles 200, {injected} faults injected, "
+                f"{retries} retries, launches {n}; mas:error:1.0: a new "
+                f"tile {new[0]} {ogc_code(new[2])} Retry-After "
+                f"{new[1].get('Retry-After')}, an expired cached tile "
+                f"replayed {stale[1].get('X-Gsky-Cache')} "
+                f"({stale[1].get('X-GSKY-Degraded')}), no launch ({card})")
+        (cg, cr, ci, cn, cs), (pg, pr, pi, pn, ps) = res["card"], res["cpu"]
+        if (cr, ci) != (pr, pi):
+            raise AssertionError(f"20e: retries card {cr}/{ci}, CPU "
+                                 f"{pr}/{pi}")
+        for a, b in zip(cg, pg):
+            same_answer(a, b, "near", "20e tiles")
+        same_answer(cn, pn, "near", "20e MAS lost")
+        same_answer(cs, ps, "near", "20e stale replay")
+    finally:
+        faults.reset()
+        srv.gateway, cpu.gateway = saved
+    log(f"phase 20c (WPS), 20e: {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def swath_edge_points():
@@ -5693,6 +6437,9 @@ def main() -> int:
     # waves and the staged GetMap path off (phase 13 turns them on)
     os.environ["GSKY_WAVES"] = "0"
     os.environ["GSKY_TILE_PIPELINE"] = "0"
+    # the prefetch planner warms through the first server it saw: off
+    # until phase 20f, which measures it
+    os.environ["GSKY_PREFETCH"] = "0"
 
     # -- phase 3: end to end at real size -----------------------------
     data_root = os.path.join(ROOT, "build", "smoke_archive")
@@ -5901,6 +6648,12 @@ def main() -> int:
         gw_launches = phase_ows_gateway(data_root, store, card)
         log(f"phase 17a: launches {gw_launches} "
             f"({time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 20a, b, d, f: the serving path under load --------------
+        t0 = time.perf_counter()
+        srv20 = phase_serving(data_root, data_paths, store, card)
+        t20 = time.perf_counter() - t0
+        log(f"phase 20a, b, d, f: launches {srv20} ({t20:.1f} s)")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -5957,6 +6710,12 @@ def main() -> int:
         t0 = time.perf_counter()
         b4_gfi = phase_ows_gateway_masked(mosaic_root, mosaic, card)
         log(f"phase 17b: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 20c: deadlines and a client gone, the masked layer -----
+        t0 = time.perf_counter()
+        dl20 = phase_deadline(mosaic_root, mosaic, card)
+        t20 += time.perf_counter() - t0
+        log(f"phase 20c: launches {dl20} ({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(mosaic_root, ignore_errors=True)
 
@@ -6000,7 +6759,9 @@ def main() -> int:
     shutil.rmtree(ing_root, ignore_errors=True)
     os.makedirs(ing_root)
     try:
-        ing, ing_err = phase_ingest(ing_root, card)
+        ing, ing_err, be20 = phase_ingest(ing_root, card,
+                                          serving=phase_backend)
+        log(f"phase 20c (WPS), 20e: launches {be20}")
         log(f"phase 19: {n_codec} codec comparisons; launches {ing}; "
             f"captured launches against their plain versions, max |diff| "
             f"{ing_err}; {time.perf_counter() - t0:.1f} s ({card})")
@@ -6018,7 +6779,10 @@ def main() -> int:
     # B4: clicks on the masked layer), and phase 18's (every kernel;
     # B1 and B2's max_abs_err includes its out-of-domain checks), and
     # phase 19's (every kernel; its captured launches held against their
-    # plain versions)
+    # plain versions), and phase 20's (B1: batched flushes, admitted,
+    # browned-out, prefetched and fault-retried tiles; B2: the tile
+    # whose staging critical pressure declined; B3: the drill after the
+    # 504; B4: the masked tile after the 504)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -6028,7 +6792,7 @@ def main() -> int:
          "replaces": "gsky_tpu/ops/paged.py:173",
          "launches": b1_launches + b1_waves + b1_anim + b1_expr
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
-         + ing["B1"],
+         + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             ing_err["B1"],
                             max(v for (k, _), v in wcs_errs.items()
@@ -6039,7 +6803,8 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/warp_render.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
          "launches": b2_launches + b2_rgb + wcs_launches["B2"]
-         + gw_launches["B2"] + sat["B2"] + ing["B2"],
+         + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
+         + dl20["B2"] + be20["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()
@@ -6050,14 +6815,15 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/masked_stats.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
          "launches": b3_launches + b3_wave_launches + b3_wps + sat["B3"]
-         + ing["B3"],
+         + ing["B3"] + srv20["B3"] + dl20["B3"] + be20["B3"],
          "max_abs_err": max(b3_err, b3_main_err, b3k_err, ing_err["B3"]),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
         {"name": "first_valid (B4)", "route": "cuda",
          "source": "gsky_tpu_torch/csrc/first_valid.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
-         "launches": b4_launches + b4_wcs + b4_gfi + sat["B4"] + ing["B4"],
+         "launches": b4_launches + b4_wcs + b4_gfi + sat["B4"] + ing["B4"]
+         + srv20["B4"] + dl20["B4"] + be20["B4"],
          "max_abs_err": max(b4_row[4], ing_err["B4"]),
          "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
          "bound_by": "bytes", "library_ms": b4_row[3]},

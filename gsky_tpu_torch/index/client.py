@@ -8,8 +8,9 @@ Counterpart of `gsky_tpu/index/client.py`.  The tile indexer asks
 errors and 5xx answers under a per-address circuit breaker, and
 in-process over any store object with an ``intersects`` method (a
 `MASStore` or a `MASShardedStore`).  A masapi error body surfaces as
-``MAS error: ...``.  Not ported: fault injection at the client
-(ROADMAP A.16).
+``MAS error: ...``.  Both transports run under the retry policy and
+the breaker, behind the ``mas`` fault site (`resilience.faults`), so
+an in-process store takes the recovery path a remote masapi does.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from ..resilience import (RetryPolicy, call_with_retry, clamp_timeout,
-                          get_breaker)
+                          faults, get_breaker)
 from .store import parse_time
 
 DEFAULT_MAS_TIMEOUT = 60.0
@@ -110,11 +111,16 @@ class MASClient:
         self.requests = 0
 
     def _get(self, gpath: str, params: Dict[str, str], op: str) -> Dict:
+        return call_with_retry(
+            lambda: self._get_once(gpath, params, op),
+            self._retry, site="mas", breaker=self._breaker)
+
+    def _get_once(self, gpath: str, params: Dict[str, str],
+                  op: str) -> Dict:
+        faults.inject("mas")
         if self._store is not None:
             return self._call_store(gpath, params, op)
-        return call_with_retry(
-            lambda: self._get_http(gpath, params, op),
-            self._retry, site="mas", breaker=self._breaker)
+        return self._get_http(gpath, params, op)
 
     def _call_store(self, gpath: str, params: Dict[str, str],
                     op: str) -> Dict:

@@ -6,9 +6,9 @@ fetched (compressed, on-disk bytes: what an object store bills) and
 each window served ranged; the whole path (the handle's read, and the
 scene cache's full-scene loads) records the logical bytes it
 materialised; a ranged read that failed and fell back to the handle's
-read counts in ``fallbacks``.  `snapshot` reads the ledger, `reset`
-zeroes it.  Not ported: the dispatch-overlap share and the prefetch
-outcomes, which come with the prefetch planner (ROADMAP A.16).
+read counts in ``fallbacks``; the prefetch planner (`ingest.prefetch`)
+records its outcomes (hit, miss, wasted).  `snapshot` reads the ledger,
+`reset` zeroes it.  Not ported: the dispatch-overlap share.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ class _Ledger:
         self.whole_read_bytes = 0      # logical bytes those materialised
         self.read_s = 0.0              # wall seconds in ranged fetches
         self.fallbacks = 0             # ranged attempts read plainly
+        self.prefetch = {"hit": 0, "miss": 0, "wasted": 0}
 
 
 _L = _Ledger()
@@ -56,6 +57,12 @@ def record_fallback() -> None:
         _L.fallbacks += 1
 
 
+def record_prefetch(outcome: str, n: int = 1) -> None:
+    with _lock:
+        if outcome in _L.prefetch:
+            _L.prefetch[outcome] += int(n)
+
+
 def snapshot() -> Dict:
     with _lock:
         return {
@@ -66,6 +73,7 @@ def snapshot() -> Dict:
             "whole_read_bytes": _L.whole_read_bytes,
             "read_s": round(_L.read_s, 6),
             "fallbacks": _L.fallbacks,
+            "prefetch": dict(_L.prefetch),
         }
 
 

@@ -19,6 +19,11 @@ planes.
 TIME animation's container) by chunk surgery alone: no pixel is decoded
 and nothing is compressed again, so frame 0's IDAT stream is the lone
 GetMap's.
+
+An encode first checks the request's cancel token (`resilience.cancel`,
+stage ``encode``): a request whose client went away spends no CPU on
+bytes nobody will read.  (The reference checks it when a queued job of
+its encode pool starts; the port encodes in the request's thread.)
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import zlib
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..resilience.cancel import check_cancel
 
 NODATA_BYTE = 255
 
@@ -69,6 +76,7 @@ def _chunk(typ: bytes, payload: bytes) -> bytes:
 def _encode(pixels: np.ndarray, colour_type: int, level: int,
             extra: Sequence[bytes] = ()) -> bytes:
     """pixels (H, W) or (H, W, C) uint8 -> PNG bytes, rows unfiltered."""
+    check_cancel("encode")
     h, w = pixels.shape[:2]
     rows = np.ascontiguousarray(pixels, np.uint8).reshape(h, -1)
     raw = np.empty((h, rows.shape[1] + 1), np.uint8)

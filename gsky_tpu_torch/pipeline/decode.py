@@ -45,6 +45,7 @@ from ..io.geotiff import GeoTIFF
 from ..io.netcdf import NetCDF
 from ..io.registry import open_raster
 from ..ops.raster import nodata_mask
+from ..resilience import faults
 from .types import Granule
 
 
@@ -226,6 +227,7 @@ def decode_window(granule: Granule, dst_bbox: BBox, dst_crs: CRS,
                 "path (renders only via the scene path; skip #%d)",
                 granule.path, n)
         return None
+    faults.inject("decode")
     dev = resolve_device(device)
     src_crs = parse_crs(granule.srs) if granule.srs else dst_crs
     gt = GeoTransform.from_gdal(granule.geo_transform)

@@ -298,6 +298,15 @@ def for_device(device) -> DrillStackCache:
         return cache
 
 
+def clear_all() -> None:
+    """Empty every device's drill-stack cache (the pressure monitor's
+    critical relief)."""
+    with _caches_lock:
+        caches = list(_caches.values())
+    for cache in caches:
+        cache.clear()
+
+
 def enabled() -> bool:
     """GSKY_DRILL_CACHE=0 turns the resident-stack path off."""
     return os.environ.get("GSKY_DRILL_CACHE", "1") != "0"

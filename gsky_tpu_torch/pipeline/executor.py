@@ -30,7 +30,10 @@ With waves on (``GSKY_WAVES``, default on) a tile the paged leg serves
 is not launched here: it becomes a lane of the device's wave
 (`pipeline.waves`), which renders every concurrent lane in one B1
 launch and returns host arrays.  Declined tiles, the decoded-window leg
-and multi-CRS mosaics stay per call.
+and multi-CRS mosaics stay per call.  With waves off and the render
+batcher on (``GSKY_RENDER_BATCH=1``, `pipeline.batcher`),
+`render_byte_scenes` hands a paged tile to the batcher's paged leg (one
+B1 launch per flush) and a declined one to its dense leg (B2).
 
 `render_expr_byte` is the fused band-algebra tile (an expression over
 several bands, no mask band): every referenced band's granules in one
@@ -77,6 +80,7 @@ from ..ops.warp import combine_scored, render_rgba_ctrl, warp_gather_batch
 from ..ops.warp_render import MAX_NS, render_scenes, render_scenes_bands, \
     warp_scenes_scored
 from .autoplan import union_lane_spans
+from .batcher import RenderBatcher, batching_enabled
 from .decode import DecodedWindow
 from .pages import PagePool
 from .scene_cache import DeviceScene, SceneCache
@@ -222,6 +226,7 @@ class WarpExecutor:
         self.spans = dict.fromkeys(SPANS, 0.0)
         # window-batch dispatches of `warp_all` by (bh, bw, B)
         self.bucket_stats: Dict[tuple, int] = {}
+        self.batcher = RenderBatcher()
 
     def add_span(self, name: str, t0: float) -> float:
         """Add the time since ``t0`` to stage ``name``; returns now."""
@@ -945,7 +950,7 @@ class WarpExecutor:
         made = self._paged_from_group(group, n_pad)
         t = self.add_span("tables", t)
         if made is not None:
-            tables, params16, _ = made
+            tables, params16, real_pages = made
             with self._lock:
                 self.paged_engaged += 1
             dev = self.device
@@ -953,6 +958,14 @@ class WarpExecutor:
                 out = default_waves(dev).render_byte(
                     self.pool, tables, params16, group.ctrl, sp, statics,
                     _bucketed_lane(group), _serials(group))
+                self.add_span("dispatch", t)
+                return out
+            if batching_enabled():
+                # the key holds no scene identity: tiles over any scenes
+                # and window sizes share a flush (the flush unpins)
+                out = self.batcher.render_paged(
+                    ("paged",) + statics, self.pool, tables, params16,
+                    group.ctrl, sp, statics, real_pages)
                 self.add_span("dispatch", t)
                 return out
             try:
@@ -974,7 +987,12 @@ class WarpExecutor:
         n = len(group.scenes)
         params = torch.from_numpy(group.params[:n].astype(np.float32)) \
             .to(self.device)
-        out = render_scenes([s.dev for s in group.scenes], group.ctrl_dev,
-                            params, torch.from_numpy(sp), *statics)
+        scenes = [s.dev for s in group.scenes]
+        if batching_enabled():
+            out = self.batcher.render(_serials(group) + statics, scenes,
+                                      group.ctrl_dev, params, sp, statics)
+        else:
+            out = render_scenes(scenes, group.ctrl_dev, params,
+                                torch.from_numpy(sp), *statics)
         self.add_span("dispatch", t)
         return out

@@ -56,7 +56,7 @@ import torch
 
 from ..geo.crs import parse_crs
 from ..geo.transform import BBox, GeoTransform, transform_bbox
-from ..resilience import check_partial
+from ..resilience import check_partial, current_token
 from . import autoplan
 from .decode import _device_failure, decode_window
 from .tile import _empty_result, evaluate_expressions, ns_prio
@@ -495,6 +495,17 @@ class ExportPipeline:
                       "decode_workers": self.decode_workers,
                       "encode_workers": self.encode_workers,
                       "queue_depth": self.queue_depth}
+        # a fired cancel token (client gone, deadline passed) trips the
+        # stop flag every stage loop checks
+        tok = current_token()
+        unhook = tok.on_cancel(self.cancel) if tok is not None else None
+        try:
+            return self._run(t0, ex, legs0, tok)
+        finally:
+            if unhook is not None:
+                unhook()
+
+    def _run(self, t0: float, ex, legs0: Dict, tok) -> Dict:
         plan = self._plan()
         q_warp: queue.Queue = queue.Queue(self.queue_depth)
         q_encode: queue.Queue = queue.Queue(self.queue_depth)
@@ -526,6 +537,8 @@ class ExportPipeline:
             if self._errors:
                 raise self._errors[0]
         if self._stop.is_set():
+            if tok is not None:
+                tok.check("export")     # RequestCancelled when it fired
             raise RuntimeError("export cancelled")
         self.stats["encode_s"] = sum(b[0] for b in enc_busy)
         self.stats["wall_s"] = time.perf_counter() - t0

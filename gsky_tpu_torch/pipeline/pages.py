@@ -25,6 +25,11 @@ A pipelined wave (`pipeline.waves`) stages its tables one wave ahead of
 its launch: `handoff` takes the pool's staging generation at assembly
 and `handoff_ok` confirms it at dispatch.  `union_table` merges the
 pinned tables of a superblock's lanes (`pipeline.autoplan`).
+
+Under critical memory pressure (`resilience.pressure`) `table_for`
+declines to stage: the tile takes the bucketed leg (kernel B2), as a
+tile the pool cannot hold does.  The monitor's relief `trim`s the
+colder half of every live pool's unpinned pages.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Dict
 
@@ -40,6 +46,15 @@ import torch
 
 from ..device import resolve_device
 from ..ops.paged import page_shape
+from ..resilience.pressure import staging_allowed
+
+# every live pool, for the pressure monitor (occupancy and relief)
+_live: "weakref.WeakSet[PagePool]" = weakref.WeakSet()
+
+
+def live_pools():
+    """The page pools alive now (each `WarpExecutor` has its own)."""
+    return list(_live)
 
 
 def _pool_capacity(pr: int, pc: int) -> int:
@@ -74,10 +89,12 @@ class PagePool:
         self.hits = 0
         self.evictions = 0
         self.declined = 0
+        self.trimmed = 0
         # staging generation of the slot namespace (`handoff`): the
         # reference bumps it when a device incident tears the pool down;
         # the port has no teardown yet (ROADMAP A.10), so it stays 0
         self._handoff_gen = 0
+        _live.add(self)
 
     # -- internals (hold self.lock) -----------------------------------
 
@@ -139,7 +156,12 @@ class PagePool:
         their slots row-major as (npages,) int32, PINNED — or None when
         the pool cannot hold the request's working set (partial pins
         are rolled back).  The caller must `unpin` the returned slots
-        once its dispatch is enqueued (or abandoned)."""
+        once its dispatch is enqueued (or abandoned).  Under critical
+        memory pressure it declines at once."""
+        if not staging_allowed():
+            with self.lock:
+                self.declined += 1
+            return None
         slots = []
         with self.lock:
             for pi in range(int(i0), int(i1) + 1):
@@ -156,6 +178,17 @@ class PagePool:
                     slots.append(s)
         return np.asarray(slots, np.int32)
 
+    def prewarm(self, dev, serial: int, i0: int, i1: int,
+                j0: int, j1: int) -> bool:
+        """Stage a page window and keep no pins (the prefetch planner's
+        hook): the request's own `table_for` then hits.  A decline is
+        fine; the request stages as usual."""
+        slots = self.table_for(dev, serial, i0, i1, j0, j1)
+        if slots is None:
+            return False
+        self.unpin(slots)
+        return True
+
     def unpin(self, slots) -> None:
         """Release pins taken by `table_for` (once per returned table)."""
         with self.lock:
@@ -165,6 +198,24 @@ class PagePool:
                     self._pins[int(s)] = n
                 else:
                     self._pins.pop(int(s), None)
+
+    def trim(self, frac: float = 0.5) -> int:
+        """Release the coldest ``frac`` of the unpinned resident pages
+        (their slots go back on the free list); the count released."""
+        with self.lock:
+            victims = [k for k in self._slots
+                       if not self._pins.get(self._slots[k])]
+            victims = victims[:int(len(victims)
+                                   * max(0.0, min(1.0, frac)))]
+            for k in victims:
+                self._free.append(self._slots.pop(k))
+            self.trimmed += len(victims)
+            return len(victims)
+
+    @property
+    def allocated(self) -> bool:
+        """Whether the pool's device tensor exists yet."""
+        return self._pool is not None
 
     @contextlib.contextmanager
     def locked_pool(self):

@@ -31,6 +31,7 @@ import itertools
 import logging
 import os
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -45,12 +46,15 @@ from ..ingest import stats as ingest_stats
 from ..ingest.staging import default_staging_pool
 from ..io.geotiff import GeoTIFF
 from ..ops.raster import nodata_mask
+from ..resilience import faults
 from .decode import _HandleCache, granule_footprint_frac
 from .types import Granule
 
 _scene_serial = itertools.count(1)
 
 log = logging.getLogger("gsky.scene_cache")
+# every live cache, for the pressure monitor's relief
+_live: "weakref.WeakSet[SceneCache]" = weakref.WeakSet()
 
 
 @dataclass
@@ -113,6 +117,7 @@ class SceneCache:
         self._route_counts: Dict[tuple, int] = {}
         self.window_routed = 0
         self.staged_loads = 0
+        _live.add(self)
 
     def _key(self, g: Granule) -> tuple:
         return (g.path, g.band, g.var_name, g.time_index)
@@ -227,7 +232,7 @@ class SceneCache:
 
     def clear(self) -> None:
         """Drop every resident scene; loads in flight insert theirs when
-        they finish."""
+        they finish.  The pressure monitor's critical relief calls it."""
         with self._lock:
             self._scenes.clear()
             self._order.clear()
@@ -262,6 +267,7 @@ class SceneCache:
         gt = GeoTransform.from_gdal(g.geo_transform)
         sbuf = spool = None
         try:
+            faults.inject("decode")
             h = self._handles.get(g.path, g.is_netcdf)
             if g.is_netcdf:
                 v = h.variables.get(g.var_name)
@@ -343,3 +349,8 @@ class SceneCache:
         return DeviceScene(dev=dev, height=H, width=W,
                            nodata=float("nan"), gt=gt, crs=crs,
                            serial=next(_scene_serial))
+
+
+def live_caches():
+    """The scene caches alive now (each `WarpExecutor` has its own)."""
+    return list(_live)

@@ -55,7 +55,7 @@ from ..ops import mosaic as M
 from ..ops.expr import BandExpressions, expr_fuse_enabled, fingerprint
 from ..ops.paged import note_expr_fused
 from ..ops.raster import DTYPE_NP
-from ..resilience import check_partial
+from ..resilience import check_cancel, check_partial
 from .decode import decode_all
 from .executor import WarpExecutor
 from .granule import expand_granules
@@ -469,6 +469,8 @@ class TilePipeline:
                                 req.crs, method, _DECODE_WORKERS,
                                 dst_hw=(H, W), errors=errs, device=dev)
                 check_partial(len(errs), len(reg), "decode")
+                # an abandoned request stops before its warp and mosaic
+                check_cancel("decode")
                 t = ex.add_span("decode", t)
                 wr = ex.warp_all(ws, req.dst_gt(), req.crs, H, W, method)
                 for k, i in enumerate(reg):
@@ -565,6 +567,7 @@ class TilePipeline:
                             _DECODE_WORKERS, dst_hw=(H, W), errors=errs,
                             device=dev)
             check_partial(len(errs), len(granules), "decode")
+            check_cancel("decode")
             t = ex.add_span("decode", t)
             live = [(g, w) for g, w in zip(granules, ws) if w is not None]
             if not live:

@@ -14,15 +14,19 @@ the planes rung.  Each stage but readback passes a
 process-wide `StageGate` (a semaphore with occupancy telemetry), so
 concurrent requests overlap: one decodes scenes into the device cache
 while another's launch runs.  With waves on, dispatch passes no gate:
-the wave scheduler needs concurrent arrivals to coalesce.
+the wave scheduler needs concurrent arrivals to coalesce, and so does
+the render batcher (``GSKY_RENDER_BATCH``).
 ``GSKY_TILE_PIPELINE=0`` (read per request) sends GetMap down the
 serial ladder instead.  The gates' sizes: ``GSKY_TILE_DECODE_WORKERS``
 (default 4) and ``GSKY_TILE_DISPATCH_SLOTS`` (default 2).
 
 Per-request spans (``spans``): seconds of plan, index, decode, dispatch
-and readback, and the gates' queue high-water marks.  Not ported:
-cancellation checks and the trace spans (A.16), the device guard's
-readback probe (A.10).
+and readback, and the gates' queue high-water marks.  Each stage
+checks the request's cancel token (`resilience.cancel`) where the
+reference's does: decode before its gate and per granule, dispatch
+before and after its gate, readback before the copy; an abandoned
+request unwinds there with `RequestCancelled`.  Not ported: the trace
+spans (A.16), the device guard's readback probe (A.10).
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..resilience import check_cancel
+from .batcher import batching_enabled
 from .decode import _device_failure
 from .waves import waves_enabled
 
@@ -130,11 +136,14 @@ def _decode_stage(pipe, req, granules, spans: Dict) -> None:
     gate.  A prefetch: a scene that fails here is loaded again by the
     dispatch stage, which raises as the serial path does; a device
     failure (out of memory, a failed CUDA call) raises here."""
+    check_cancel("decode")
     t0 = time.perf_counter()
     with _gate("decode").enter(spans, "decode_queue_max"):
         seen = set()
         dst_gt = req.dst_gt()
         for g in granules:
+            # an abandoned request stops warming within one granule
+            check_cancel("decode")
             k = (g.path, g.band, g.var_name, g.time_index)
             if k in seen:
                 continue
@@ -151,12 +160,15 @@ def _decode_stage(pipe, req, granules, spans: Dict) -> None:
 
 def _dispatch_stage(dispatch, spans: Dict):
     """Run the request's fused dispatch; under the dispatch gate unless
-    waves are on."""
+    waves or the batcher are on."""
+    check_cancel("dispatch")
     t0 = time.perf_counter()
     try:
-        if waves_enabled():
+        if waves_enabled() or batching_enabled():
             return dispatch()
         with _gate("dispatch").enter(spans, "dispatch_queue_max"):
+            # the client may have gone while this request queued
+            check_cancel("dispatch")
             return dispatch()
     finally:
         spans["dispatch_s"] = spans.get("dispatch_s", 0.0) \
@@ -166,6 +178,7 @@ def _dispatch_stage(dispatch, spans: Dict):
 def _readback(out, spans: Dict) -> np.ndarray:
     """The tile on the host: a wave's result already is; a tensor is
     copied (waiting for its launch)."""
+    check_cancel("readback")
     t0 = time.perf_counter()
     arr = out if isinstance(out, np.ndarray) else out.cpu().numpy()
     spans["readback_s"] = spans.get("readback_s", 0.0) \

@@ -40,8 +40,17 @@ for XLA buffer donation) and re-renders each entry per call after a
 device incident.  The port has neither: PyTorch's caching allocator
 reuses output blocks across waves, the drainer hands out host copies
 only, and a failed wave fails every entry's request (`stats()`
-"failed").  Not ported: mesh waves (A.11), brownout and pressure
-clamps and cancellation (A.16),
+"failed").
+
+Pressure and cancellation (as the reference's): under brownout
+(`resilience.pressure.brownout_level`) a wave takes at most half of
+``GSKY_WAVE_MAX`` entries (a quarter when critical) and assembly runs
+at most one wave ahead of dispatch.  Each entry carries its request's
+cancel token: a request whose token fires stops waiting within one poll
+tick, its entry is dropped at assembly with its pins released, a staged
+wave whose every lane was cancelled is not launched (a partly cancelled
+one is, and its dead lanes are discarded at readback), and ``stats()``
+counts them in ``cancelled``.  Not ported: mesh waves (A.11),
 `device_guard` supervision (A.10).
 """
 
@@ -51,7 +60,8 @@ import os
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import CancelledError, Future
+from concurrent.futures import TimeoutError as _FutTimeout
 from dataclasses import dataclass
 from queue import Empty, Queue
 from typing import Dict, List, Optional, Tuple
@@ -65,6 +75,8 @@ from ..ops.expr import fingerprint_hash
 from ..ops.paged import PARAMS_W, expr_epilogue, scale_lanes, \
     wave_drill_stats
 from ..ops.warp_render import render_scenes, warp_scenes_scored
+from ..resilience.cancel import current_token
+from ..resilience.pressure import brownout_level
 from . import autoplan
 
 
@@ -131,7 +143,7 @@ class BucketedLane:
 
 class _Entry:
     __slots__ = ("kind", "key", "payload", "future", "cleanup",
-                 "_cleaned", "t_enq")
+                 "_cleaned", "t_enq", "token")
 
     def __init__(self, kind, key, payload, cleanup=None):
         self.kind = kind
@@ -141,6 +153,11 @@ class _Entry:
         self.cleanup = cleanup
         self._cleaned = cleanup is None
         self.t_enq = time.perf_counter()
+        # the submitting request's cancel token (None outside a request)
+        self.token = current_token()
+
+    def dead(self) -> bool:
+        return self.token is not None and self.token.cancelled()
 
     def cleanup_once(self):
         if not self._cleaned:
@@ -319,6 +336,7 @@ class WaveScheduler:
         self.waves = 0
         self.requests = 0
         self.failed = 0              # entries whose wave failed
+        self.cancelled = 0           # entries dropped: token fired
         self.superblock_lanes = 0    # lanes launched under a superblock plan
         self.bucketed_lanes = 0      # lanes the planner routed to B2
         self.occupancy: Dict[int, int] = {}
@@ -336,6 +354,23 @@ class WaveScheduler:
     def _tick_s(self) -> float:
         ms = self._tick_ms if self._tick_ms is not None else wave_tick_ms()
         return ms / 1e3
+
+    @staticmethod
+    def _effective_max() -> int:
+        """The brownout clamp: half the wave size when elevated, a
+        quarter when critical."""
+        m = wave_max()
+        lv = brownout_level()
+        if lv >= 2:
+            return max(1, m // 4)
+        if lv == 1:
+            return max(1, m // 2)
+        return m
+
+    @staticmethod
+    def _effective_queue_depth() -> int:
+        """The brownout clamp on assembly run-ahead: one staged wave."""
+        return 1 if brownout_level() >= 1 else wave_queue_depth()
 
     # -- submission ----------------------------------------------------
 
@@ -414,6 +449,11 @@ class WaveScheduler:
                 continue
             for (_kind, es, _d), lanes in zip(groups, host):
                 for i, e in enumerate(es):
+                    if e.dead():
+                        with self._lock:
+                            self.cancelled += 1
+                        e.future.cancel()
+                        continue
                     if not e.future.done():
                         e.future.set_result(lanes[0][i] if len(lanes) == 1
                                             else tuple(h[i] for h in lanes))
@@ -448,15 +488,17 @@ class WaveScheduler:
 
     def _q_wait_space(self):
         with self._q_cv:
-            while (len(self._staged_q) >= wave_queue_depth()
+            while (len(self._staged_q) >= self._effective_queue_depth()
                    and not self._stop.is_set()):
                 self._q_cv.wait(timeout=0.1)
 
     # -- assembly ------------------------------------------------------
 
     def _drain_groups(self) -> Dict[tuple, List[_Entry]]:
+        """Drain up to the (clamped) wave size, drop cancelled entries
+        (releasing their pins now), group by (kind, statics)."""
         with self._lock:
-            cap = wave_max()
+            cap = self._effective_max()
             take = self._pending[:cap]
             del self._pending[:cap]
             leftover = bool(self._pending)
@@ -464,6 +506,12 @@ class WaveScheduler:
             self._kick.set()
         groups: Dict[tuple, List[_Entry]] = {}
         for e in take:
+            if e.dead():
+                e.cleanup_once()
+                e.future.cancel()
+                with self._lock:
+                    self.cancelled += 1
+                continue
             groups.setdefault((e.kind, e.key), []).append(e)
         return groups
 
@@ -548,6 +596,16 @@ class WaveScheduler:
 
     def _dispatch_staged(self, sg: _StagedWave) -> int:
         es = sg.entries
+        if all(e.dead() for e in es):
+            # every lane died while queued: no launch; release the pins
+            # and the staging slot
+            self.staging.release(sg.slot)
+            for e in es:
+                e.cleanup_once()
+                e.future.cancel()
+            with self._lock:
+                self.cancelled += len(es)
+            return 0
         try:
             if sg.pool_gen is not None and \
                     not es[0].payload["pool"].handoff_ok(sg.pool_gen):
@@ -692,7 +750,19 @@ class WaveScheduler:
 
     @staticmethod
     def _wait(entry: _Entry):
-        return entry.future.result()
+        """Block on the entry's future, cancellation-aware: a request
+        whose token fired stops waiting within one poll tick while its
+        wave still runs for the other lanes."""
+        if entry.token is None:
+            return entry.future.result()
+        while True:
+            try:
+                return entry.future.result(timeout=0.05)
+            except _FutTimeout:
+                entry.token.check("wave")
+            except CancelledError:
+                entry.token.check("wave")
+                raise
 
     def render_byte(self, pool, tables, params16, ctrl, sp, statics: tuple,
                     lane: BucketedLane, serials=None) -> np.ndarray:
@@ -792,12 +862,14 @@ class WaveScheduler:
                    "device": str(self.device),
                    "pipeline": wave_pipeline_enabled(),
                    "wave_max": wave_max(),
+                   "effective_max": self._effective_max(),
                    "tick_ms": self._tick_s() * 1e3,
-                   "queue_depth": wave_queue_depth(),
+                   "queue_depth": self._effective_queue_depth(),
                    "dispatches": self.dispatches,
                    "waves": self.waves,
                    "requests": self.requests,
                    "failed": self.failed,
+                   "cancelled": self.cancelled,
                    "superblock_lanes": self.superblock_lanes,
                    "bucketed_lanes": self.bucketed_lanes,
                    "occupancy": dict(sorted(self.occupancy.items())),

@@ -7,7 +7,10 @@ allowed; after ``failure_threshold`` consecutive failures it *opens*
 and rejects calls at once; after ``reset_timeout`` seconds it is
 *half-open* and admits one probe at a time: a successful probe closes
 it, a failed one opens it for another cooldown.  `get_breaker` shares
-one breaker per name, so every client of one backend sees one health.
+one breaker per name, so every client of one backend sees one health,
+and registers it with `registry`, whose `stats` reads each one's
+`snapshot`.  The reference's state listeners serve its fleet router,
+which is not ported (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Callable, Dict
+
+from .registry import registry
 
 
 class BackendUnavailable(RuntimeError):
@@ -38,7 +43,8 @@ class CircuitBreaker:
 
     def __init__(self, name: str, failure_threshold: int = 5,
                  reset_timeout: float = 10.0,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 register: bool = True):
         self.name = name
         self.failure_threshold = int(failure_threshold)
         self.reset_timeout = float(reset_timeout)
@@ -48,6 +54,13 @@ class CircuitBreaker:
         self._consecutive = 0
         self._opened_at = 0.0
         self._probing = False
+        self.opens = 0
+        self.successes = 0
+        self.failures = 0
+        self.probes = 0
+        self.rejections = 0
+        if register:
+            registry.register_breaker(self)
 
     @property
     def state(self) -> str:
@@ -65,22 +78,27 @@ class CircuitBreaker:
                 return True
             if self._state == self.OPEN:
                 if self._clock() - self._opened_at < self.reset_timeout:
+                    self.rejections += 1
                     return False
                 self._state = self.HALF_OPEN
                 self._probing = False
             if self._probing:
+                self.rejections += 1
                 return False
             self._probing = True
+            self.probes += 1
             return True
 
     def record_success(self) -> None:
         with self._lock:
+            self.successes += 1
             self._consecutive = 0
             self._probing = False
             self._state = self.CLOSED
 
     def record_failure(self) -> None:
         with self._lock:
+            self.failures += 1
             self._consecutive += 1
             if self._state == self.HALF_OPEN or (
                     self._state == self.CLOSED
@@ -88,6 +106,7 @@ class CircuitBreaker:
                 self._state = self.OPEN
                 self._opened_at = self._clock()
                 self._probing = False
+                self.opens += 1
 
     def retry_after(self) -> float:
         with self._lock:
@@ -100,6 +119,22 @@ class CircuitBreaker:
         return BreakerOpen(
             f"circuit breaker {self.name!r} is open",
             site=self.name, retry_after=max(1.0, self.retry_after()))
+
+    def snapshot(self) -> Dict:
+        with self._lock:
+            state = self._state
+            if state == self.OPEN and \
+                    self._clock() - self._opened_at >= self.reset_timeout:
+                state = self.HALF_OPEN
+            return {
+                "state": state,
+                "consecutive_failures": self._consecutive,
+                "opens": self.opens,
+                "successes": self.successes,
+                "failures": self.failures,
+                "probes": self.probes,
+                "rejections": self.rejections,
+            }
 
 
 _BREAKERS: Dict[str, CircuitBreaker] = {}

@@ -1,11 +1,15 @@
 """Per-request deadline budgets.
 
-Counterpart of `gsky_tpu/resilience/deadline.py`, the part the MAS
-client calls: `clamp_timeout` bounds a downstream timeout by what is
-left of the current `Deadline`, which travels in a
-`contextvars.ContextVar`.  Opening deadlines in the OWS handlers is
-ROADMAP A.16; until then no request sets one and `clamp_timeout`
-returns its argument.
+Counterpart of `gsky_tpu/resilience/deadline.py`.  A request gets one
+budget (a layer's ``wms_timeout``, ``wcs_timeout`` x tiles) when the
+OWS handler opens its `deadline_scope`; every downstream stage draws
+its timeout from what is left of it: `clamp_timeout` bounds the MAS
+client's HTTP timeout, the handler waits on the render no longer than
+`Deadline.remaining`.  The deadline travels in a
+`contextvars.ContextVar`: a worker thread sees it when its work was
+submitted with `contextvars.copy_context().run`, and the clock keeps
+running, since the `Deadline` object is shared.  An exhausted clamp is
+counted in `registry`.
 """
 
 from __future__ import annotations
@@ -15,9 +19,12 @@ import contextvars
 import time
 from typing import Callable, Optional
 
+from .registry import registry
+
 
 class DeadlineExceeded(TimeoutError):
-    """The request's deadline budget is exhausted."""
+    """The request's deadline budget is exhausted (a ``TimeoutError``,
+    so that a timeout handler takes it)."""
 
 
 class Deadline:
@@ -32,11 +39,15 @@ class Deadline:
     def remaining(self) -> float:
         return self.budget - (self._clock() - self._t0)
 
+    def expired(self) -> bool:
+        return self.remaining() <= 0.0
+
     def clamp(self, timeout: Optional[float] = None) -> float:
         """The smaller of ``timeout`` and the remaining budget; raises
         `DeadlineExceeded` when nothing is left."""
         rem = self.remaining()
         if rem <= 0.0:
+            registry.count_deadline()
             raise DeadlineExceeded(
                 f"deadline budget of {self.budget:.1f}s exhausted")
         return rem if timeout is None else min(float(timeout), rem)

@@ -6,7 +6,8 @@ failures are retried: transport errors (``ConnectionError``,
 attribute is true (an HTTP 5xx).  A backend that answered with a
 semantic error (a 4xx) is not retried and counts as alive for its
 breaker.  The delays are a pure function of the policy and an
-injectable RNG.
+injectable RNG.  Each retry and each exhaustion is counted in
+`registry`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Callable, Iterator, Optional
 
 from .breaker import BackendUnavailable, CircuitBreaker
 from .deadline import Deadline, current_deadline
+from .registry import registry
 
 RETRYABLE_TYPES = (ConnectionError, TimeoutError, OSError)
 
@@ -88,11 +90,13 @@ def call_with_retry(fn: Callable, policy: Optional[RetryPolicy] = None, *,
             delay = delays[attempt]
             if dl is not None and dl.remaining() <= delay:
                 break
+            registry.count_retry(site)
             sleep(delay)
         else:
             if breaker is not None:
                 breaker.record_success()
             return result
+    registry.count_exhausted(site)
     raise BackendUnavailable(
         f"{site} unavailable after {attempts} attempt(s): {last}",
         site=site) from last

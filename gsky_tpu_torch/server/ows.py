@@ -66,7 +66,7 @@ document may come as a POST body.
 GetMap and GetCoverage go through the serving gateway (`serving`; the
 process-wide `default_gateway` unless the server is given its own, or
 None): a response cache keyed on the parsed request, then
-single-flight, then the render (`_serve_gated`).  A replay carries
+single-flight, then admission, then the render (`_serve_gated`).  A replay carries
 ``X-Gsky-Cache`` (miss, hit, join, stale), a strong ``ETag``,
 ``Cache-Control: max-age=<cache_max_age>`` and ``Age``, and a matching
 ``If-None-Match`` gets a 304.  An animation, an incomplete request, a
@@ -76,6 +76,40 @@ copy are not cached.  Every request runs in a `request_scope`: a 200
 whose render absorbed a partial failure is labelled ``X-GSKY-Degraded``
 with its sorted reasons.
 
+Under load, as the reference (`resilience`, `serving.admission`):
+
+- admission per service class (WMS, WCS, WPS, DAP4), keyed by tenant
+  (``X-API-Key`` or ``key=``, else the first ``X-Forwarded-For`` hop,
+  else the client's address); a cache hit costs no slot.  A request
+  that queued past ``GSKY_ADMIT_QUEUE_S`` is shed: 503 ``ServerBusy``
+  with ``Retry-After``;
+- deadlines: GetMap, an animation (x frames) and GetFeatureInfo get
+  ``wms_timeout``, GetCoverage ``wcs_timeout`` x tiles, a WPS drill its
+  source's ``wcs_timeout`` (30 s when unset).  The render runs in a
+  worker thread under a copy of the request's context and the handler
+  waits for what is left of the budget (`_bounded`, the reference's
+  ``wait_for`` over ``to_thread``); past it the request's cancel token
+  fires and the answer is 504, while the render unwinds at its next
+  cancellation check;
+- cancellation: every request opens a cancel scope
+  (`resilience.cancel`).  The standard library's server does not see a
+  client go away, so the handler gives the token a probe of its
+  socket (a non-blocking ``MSG_PEEK`` that reads ``b""`` once the peer
+  has closed), which ``check_cancel`` runs at most every 50 ms.  A
+  cancelled request is answered with nothing and the connection closed;
+- a dependency that stayed down through retries (`BackendUnavailable`,
+  an open breaker) answers 503 ``ServerBusy`` with ``Retry-After``, and
+  the gateway replays a stale entry on it (``X-Gsky-Cache: stale``,
+  labelled ``stale-cache``);
+- brownout under memory pressure (`resilience.pressure`): a GetMap is
+  labelled ``X-GSKY-Degraded: brownout``, renders the overview one (or,
+  when critical, two) levels coarser where the layer has overviews,
+  encodes at the cheapest PNG effort, and an animation keeps every
+  second (fourth) frame; a degraded response is never cached;
+- prefetch: each resolvable GetMap key feeds the planner
+  (`ingest.prefetch`), whose warm callback (`_prefetch_warm`) loads the
+  predicted tiles' scenes and stages their pages.
+
 Requests the port cannot serve yet get HTTP 501 with exception code
 ``OperationNotSupported`` and a message naming the ROADMAP item, as
 does any NotImplementedError the pipeline raises: among them a
@@ -83,20 +117,22 @@ GetCoverage in a config of several ``ows_cluster_nodes`` (peer shards,
 A.10).  A namespace's MAS is its ``mas_address`` over HTTP
 (`MASClient`), unless the server is given a ``mas_factory`` (an
 in-process store).  A WPS process over a VRT drills through the
-template it names.  Not ported: admission, deadlines (GetMap,
-GetFeatureInfo and WPS run unbounded), brownout, the metrics
-collector, drain, the cache fabric and remote workers.
+template it names.  Not ported: the metrics collector and ``/debug``
+(the counters are `stats()` dicts), drain, the cache fabric and remote
+workers.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import contextvars
 import dataclasses
 import datetime as dt
 import json
 import os
 import shutil
+import socket
 import tempfile
 import threading
 import time
@@ -112,9 +148,13 @@ import torch
 
 from ..device import resolve_device
 from ..geo import geometry as geom
-from ..geo.transform import GeoTransform, pixel_resolution, split_bbox
+from ..geo.crs import parse_crs
+from ..geo.transform import BBox, GeoTransform, pixel_resolution, \
+    split_bbox, transform_bbox
 from ..index.client import MASClient
 from ..index.store import parse_time
+from ..ingest import ingest_enabled
+from ..ingest.prefetch import default_planner
 from ..io.geotiff import GeoTIFFWriter, write_geotiff
 from ..io.netcdf import write_netcdf3
 from ..io.png import ApngAssembler, empty_tile_png, encode_jpeg, \
@@ -131,10 +171,14 @@ from ..pipeline.tile import TilePipeline, evaluate_expressions
 from ..pipeline.tile_stages import render_staged, tile_pipeline_enabled
 from ..pipeline.types import AxisSelector, GeoDrillRequest, \
     GeoTileRequest, MaskSpec
-from ..resilience import TooManyFailures, degraded_reasons, \
-    mark_degraded, request_scope
-from ..serving import ServingGateway, canonical_key, default_gateway, \
-    layer_fingerprint, make_entry, quantise_bbox
+from ..ops.paged import page_shape
+from ..pipeline.decode import _pixel_window
+from ..resilience import BackendUnavailable, CancelToken, Deadline, \
+    DeadlineExceeded, RequestCancelled, TooManyFailures, brownout_level, \
+    cancel_scope, check_cancel, deadline_scope, \
+    degraded_reasons, mark_degraded, registry, request_scope
+from ..serving import AdmissionShed, ServingGateway, canonical_key, \
+    default_gateway, layer_fingerprint, make_entry, quantise_bbox
 from . import dap4
 from . import templates as T
 from .config import Config, ConfigWatcher, Layer, get_layer_dates
@@ -164,6 +208,11 @@ _KEY_CONSUMED = frozenset({
     "coverage", "coverageid", "identifier", "subset", "exceptions",
 })
 _GATEWAY_DEFAULT = object()     # None means no gateway
+# the status of a request whose client went away: nothing is sent
+CLIENT_GONE = 499
+# the request's tenant, for admission's weighted-fair queue
+_TENANT: contextvars.ContextVar[str] = \
+    contextvars.ContextVar("gsky_torch_tenant", default="anon")
 
 
 def anim_enabled() -> bool:
@@ -345,32 +394,51 @@ class OWSServer:
             extras=extras, layer_fp=fp)
         return key, (ns, lay.name, fp, lay.cache_max_age)
 
+    def _admit(self, service_class: str):
+        """The gateway's admission for one render of ``service_class``
+        (none without a gateway)."""
+        if self.gateway is None:
+            return contextlib.nullcontext()
+        return self.gateway.admission.admit(service_class, _TENANT.get())
+
     def _serve_gated(self, key: Optional[str], meta,
                      req_headers: Optional[Mapping[str, str]],
-                     render: Callable[[], Response]) -> Response:
-        """Response cache, then single-flight, then ``render()``.  A hit
-        renders nothing; on a miss one request per key renders and the
-        others share its bytes, or its error.  A response sent from a
-        file or as chunks goes to the leader alone; joiners render their
-        own.  On `TooManyFailures` an entry past its TTL but within the
-        stale grace is replayed, labelled ``no-store``."""
+                     render: Callable[[], Response],
+                     service_class: str = "WMS") -> Response:
+        """Response cache, then single-flight, then admission, then
+        ``render()``.  A hit renders nothing and takes no admission
+        slot; on a miss one request per key renders (under the class's
+        admission) and the others share its bytes, or its error.  A
+        response sent from a file or as chunks goes to the leader alone;
+        joiners render their own.  When the backend is down
+        (`BackendUnavailable`) or too many granules failed
+        (`TooManyFailures`), an entry past its TTL but within the stale
+        grace is replayed, labelled ``no-store``."""
         gw = self.gateway
         if gw is None or key is None:
-            return render()
+            with self._admit(service_class):
+                return render()
         ent = gw.cache.get(key)
         if ent is not None:
             return _replay(req_headers, ent, "hit")
+
+        def flight():
+            with self._admit(service_class):
+                return _freeze_response(render())
+
         try:
-            frozen, joined = gw.flight.do(
-                key, lambda: _freeze_response(render()))
-        except TooManyFailures:
+            frozen, joined = gw.flight.do(key, flight)
+        except (BackendUnavailable, TooManyFailures):
             stale = gw.cache.get_stale(key)
             if stale is None:
                 raise
             mark_degraded("stale-cache")
             return _replay(req_headers, stale, "stale")
         if not isinstance(frozen, tuple):     # a file or a stream
-            return render() if joined else frozen
+            if joined:
+                with self._admit(service_class):
+                    return render()
+            return frozen
         status, ctype, body, keep = frozen
         ns, layer_name, fp, max_age = meta
         ent = make_entry(body, ctype, status, ns, layer_name, fp, max_age,
@@ -385,40 +453,82 @@ class OWSServer:
 
     def handle(self, path: str, query, host: str = "",
                body: Optional[bytes] = None,
-               headers: Optional[Mapping[str, str]] = None) -> Response:
+               headers: Optional[Mapping[str, str]] = None,
+               remote: str = "",
+               probe: Optional[Callable[[], Optional[str]]] = None
+               ) -> Response:
         """One request: ``path`` (``/ows`` or ``/ows/<namespace>``),
         ``query`` (a mapping of key to value or to a list of values),
         ``host`` (the Host header, for the documents' URLs), ``body``
         (a POST's body: a WPS Execute document), ``headers`` (the
-        request's, read for ``If-None-Match``)."""
+        request's, read for ``If-None-Match`` and the tenant),
+        ``remote`` (the client's address, the tenant's last resort) and
+        ``probe`` (the request's cancel probe: a reason once its client
+        has gone).  A cancelled request's status is `CLIENT_GONE`."""
         clock = _Clock()
         t0 = clock.last
         req_headers = {k.lower(): v for k, v in (headers or {}).items()}
-        with request_scope() as rstate:
-            try:
-                resp = self._handle(path, query, host, clock, body,
-                                    req_headers)
-            except OWSError as e:
-                resp = _exception_response(e)
-            except TooManyFailures as e:
-                # more granules lost than the degradation budget allows
-                resp = _exception_response(OWSError(str(e), "ServerBusy",
-                                                    status=503))
-            except NotImplementedError as e:
-                resp = _exception_response(OWSError(
-                    str(e), "OperationNotSupported", status=501))
-            except Exception as e:  # the last resort: an OGC 500
-                resp = _exception_response(OWSError(
-                    f"internal error: {e}", status=500))
-            reasons = sorted(set(rstate.reasons))
+        tenant_tok = _TENANT.set(_tenant_of(req_headers, query, remote))
+        try:
+            with request_scope() as rstate, \
+                    cancel_scope(CancelToken(probe=probe)) as tok:
+                resp = self._answer(path, query, host, clock, body,
+                                    req_headers, tok)
+                reasons = sorted(set(rstate.reasons))
+        finally:
+            _TENANT.reset(tenant_tok)
         if reasons and resp.status == 200:
             # a partial result: still a 200, labelled
             resp.headers["X-GSKY-Degraded"] = ",".join(reasons)
+            registry.count_degraded()
         with self._lock:
             for k, v in clock.spans.items():
                 self.spans[k] += v
             self.spans["handle"] += time.perf_counter() - t0
         return resp
+
+    def _answer(self, path: str, query, host: str, clock: _Clock,
+                body: Optional[bytes], req_headers: Mapping[str, str],
+                tok: CancelToken) -> Response:
+        """`_handle`'s response, or the one its error maps to."""
+        try:
+            return self._handle(path, query, host, clock, body, req_headers)
+        except AdmissionShed as e:
+            # shed, do not queue into latency collapse: a fast 503 with
+            # Retry-After so that clients back off
+            return _exception_response(
+                OWSError(str(e), "ServerBusy", status=503),
+                {"Retry-After": str(e.retry_after)})
+        except OWSError as e:
+            return _exception_response(e)
+        except BackendUnavailable as e:
+            # a dependency (the MAS) stayed down through its retries
+            return _exception_response(
+                OWSError(f"backend unavailable: {e}", "ServerBusy",
+                         status=503),
+                {"Retry-After": str(max(1, int(e.retry_after)))})
+        except TooManyFailures as e:
+            # more granules lost than the degradation budget allows
+            return _exception_response(OWSError(str(e), "ServerBusy",
+                                                status=503))
+        except (DeadlineExceeded, TimeoutError):
+            # the render may still run: fire the token so that it
+            # unwinds at its next check
+            tok.cancel("deadline")
+            return _exception_response(OWSError("request timed out",
+                                                status=504))
+        except RequestCancelled as e:
+            if e.reason == "deadline":
+                return _exception_response(OWSError("request timed out",
+                                                    status=504))
+            # the client went away: nobody to answer
+            return Response(CLIENT_GONE, "")
+        except NotImplementedError as e:
+            return _exception_response(OWSError(
+                str(e), "OperationNotSupported", status=501))
+        except Exception as e:  # the last resort: an OGC 500
+            return _exception_response(OWSError(
+                f"internal error: {e}", status=500))
 
     def _handle(self, path: str, query, host: str, clock: _Clock,
                 body: Optional[bytes] = None,
@@ -435,7 +545,8 @@ class OWSServer:
             raise OWSError(f"no configuration for namespace {ns!r}",
                            status=404)
         if "dap4.ce" in q:
-            return self.serve_dap(cfg, q, clock)
+            with self._admit("DAP4"):
+                return self.serve_dap(cfg, q, clock)
         svc = infer_service(q)
         if svc == "WCS":
             return self.serve_wcs(path, cfg, q, host, clock, req_headers)
@@ -464,7 +575,8 @@ class OWSServer:
         if req_name == "getmap":
             return self._getmap_gated(cfg, p, q, clock, req_headers)
         if req_name == "getfeatureinfo":
-            return self._feature_info(cfg, p)
+            with self._admit("WMS"):
+                return self._feature_info(cfg, p)
         raise OWSError(f"WMS request {p.request!r} not supported",
                        "OperationNotSupported")
 
@@ -579,12 +691,13 @@ class OWSServer:
                       req_headers: Optional[Mapping[str, str]]
                       ) -> Response:
         """GetMap through the serving gateway.  A request complete
-        enough to resolve (layer, bbox, crs, size) is keyed; an
-        incomplete one goes to `_getmap` for its errors; an animation
-        is never cached.  (The reference also notes the key for its
-        prefetch planner here; the planner comes with cancellation and
-        pressure, ROADMAP A.16.)"""
+        enough to resolve (layer, bbox, crs, size) is keyed and noted
+        for the prefetch planner; an incomplete one goes to `_getmap`
+        for its errors; an animation is never cached."""
         key = meta = None
+        if p.layers and p.bbox is not None and p.crs is not None \
+                and p.width > 0 and p.height > 0:
+            self._note_prefetch(cfg, p)
         is_anim = anim_enabled() and len(p.times) > 1 \
             and p.format.lower() in _ANIM_FORMATS
         if self.gateway is not None and p.layers and p.bbox is not None \
@@ -593,7 +706,81 @@ class OWSServer:
             key, meta = self._response_key(cfg, "map", p.layers[0], "wms",
                                            p, q)
         return self._serve_gated(key, meta, req_headers,
-                                 lambda: self._getmap(cfg, p, clock))
+                                 lambda: self._getmap(cfg, p, clock), "WMS")
+
+    def _note_prefetch(self, cfg: Config, p) -> None:
+        """Feed one resolvable GetMap key to the prefetch planner,
+        registering the warm callback on first use.  Never raises and
+        never blocks: the warming runs on the planner's thread."""
+        try:
+            if not ingest_enabled():
+                return
+            planner = default_planner()
+            if planner.warm_fn is None:
+                planner.warm_fn = self._prefetch_warm
+            b = p.bbox
+            # the whole TIME selection is in the key: a range must warm
+            # the granules the request will mosaic
+            t = tuple(p.times) if p.times else None
+            planner.observe(
+                f"{cfg.service_config.namespace}\x1f{p.layers[0]}",
+                (b.xmin, b.ymin, b.xmax, b.ymax), p.width, p.height,
+                p.crs.name(), t)
+        except Exception:  # prefetch observation is advisory
+            pass
+
+    def _prefetch_warm(self, layer_key: str, qb, width: int, height: int,
+                       crs_s: str, time_s) -> int:
+        """The planner's warm callback: resolve a predicted key as a
+        GetMap would (layer, tile request, index query), load its
+        distinct scenes into the scene cache and stage the pages the
+        tile will read.  Returns the bytes warmed (the planner's budget
+        currency)."""
+        ns, _, lname = layer_key.partition("\x1f")
+        cfg = self.watcher.get(ns)
+        if cfg is None:
+            return 0
+        lay, style = self._resolve_layer(cfg, lname, [], "wms")
+        times = [] if time_s is None else \
+            list(time_s) if isinstance(time_s, tuple) else [time_s]
+        p = _PrefetchParams(BBox(*qb), parse_crs(crs_s), times)
+        req = self._tile_request(lay, style, p, int(width), int(height),
+                                 lay.wms_polygon_segments)
+        pipe = self._pipeline(cfg)
+        dst_gt = req.dst_gt()
+        warmed = 0
+        seen = set()
+        for g in pipe.index(req):
+            check_cancel("prefetch")
+            k = (g.path, g.band, g.var_name, g.time_index)
+            if k in seen:
+                continue
+            seen.add(k)
+            sc = pipe.executor.warm_scene(g, dst_gt, req.crs, req.height,
+                                          req.width)
+            if sc is not None:
+                warmed += sc.dev.numel() * sc.dev.element_size()
+                self._prewarm_pages(pipe.executor.pool, sc, req)
+        return warmed
+
+    @staticmethod
+    def _prewarm_pages(pool, sc, req) -> None:
+        """Stage the pages the request's footprint reads (best-effort:
+        a pool that declines is fine, the request stages as usual)."""
+        try:
+            src_bbox = transform_bbox(req.bbox, req.crs, sc.crs)
+            win = _pixel_window(sc.gt, src_bbox, sc.width, sc.height, 3)
+            if win is None:
+                return
+            c0, r0, w, h = win
+            pr, pc = page_shape()
+            i0, i1 = r0 // pr, (r0 + h - 1) // pr
+            j0, j1 = c0 // pc, (c0 + w - 1) // pc
+            if (i1 - i0 + 1) * (j1 - j0 + 1) > 64:
+                return      # a footprint that large is no tile pan
+            pool.prewarm(sc.dev, sc.serial, i0, i1, j0, j1)
+        except Exception:  # a miss stages on demand
+            pass
 
     def _getmap(self, cfg: Config, p, clock: _Clock) -> Response:
         if not p.layers:
@@ -623,6 +810,19 @@ class OWSServer:
                     return _png(png)
                 source = use  # the style still scales and colours it
 
+        # brownout: under memory pressure degrade quality before
+        # availability: a coarser overview (fewer scenes decoded, fewer
+        # pages staged), the cheapest PNG effort (`_png_level`),
+        # labelled; a degraded response is never cached
+        bl = brownout_level()
+        if bl:
+            mark_degraded("brownout")
+            if source is lay and lay.overviews:
+                res = pixel_resolution(p.bbox, p.crs, p.width, p.height)
+                use = _best_overview(lay, res * (2.0 ** bl))
+                if use is not None:
+                    source = use
+
         fmt = p.format.lower()
         if len(p.times) > 1 and fmt in _ANIM_FORMATS and anim_enabled() \
                 and not lay.input_layers:
@@ -634,7 +834,41 @@ class OWSServer:
         auto = scale_params_auto(style.offset_value, style.scale_value,
                                  style.clip_value)
         clock.mark("parse")
+        # one budget for the render: every stage and every downstream
+        # timeout draws from what is left of wms_timeout
+        with deadline_scope(Deadline(lay.wms_timeout)) as dl:
+            scaled, rgba = _bounded(dl, self._render_tile, pipe, req, lay,
+                                    style, n_exprs, auto)
+        if rgba is not None and fmt not in _JPEG_FORMATS:
+            clock.mark("render")
+            png = encode_rgba_png(rgba, compress_level=level)
+            clock.mark("encode")
+            return _png(png)
+        if scaled is None:
+            clock.mark("render")
+            png = empty_tile_png(p.width, p.height, compress_level=level)
+            clock.mark("encode")
+            return _png(png)
+        clock.mark("render")
+        if fmt in _JPEG_FORMATS:
+            body = encode_jpeg(scaled[:3])
+            clock.mark("encode")
+            return Response(200, "image/jpeg", body)
+        palette = None
+        if len(scaled) == 1 and (style.palette or lay.palette):
+            spec = style.palette or lay.palette
+            palette = with_nodata_entry(
+                gradient_palette(spec.colours, spec.interpolate))
+        png = encode_png(scaled, palette, compress_level=level)
+        clock.mark("encode")
+        return _png(png)
 
+    def _render_tile(self, pipe: TilePipeline, req: GeoTileRequest,
+                     lay: Layer, style: Layer, n_exprs: int, auto: bool):
+        """A GetMap's render, through the fused route when it serves the
+        request, else the modular route: (byte planes, rgba), rgba the
+        (H, W, 4) tile of the RGBA rung or None; (None, None) for a tile
+        with no data."""
         scaled = rgba = None
         if not lay.input_layers and 1 <= n_exprs <= 4:
             # the fused route: warp, mosaic and byte scale in one
@@ -658,41 +892,19 @@ class OWSServer:
                     scaled = [arr[..., 0], arr[..., 1], arr[..., 2]]
                 else:
                     scaled = [arr] if arr.ndim == 2 else list(arr)
-        if rgba is not None and fmt not in _JPEG_FORMATS:
-            clock.mark("render")
-            png = encode_rgba_png(rgba, compress_level=level)
-            clock.mark("encode")
-            return _png(png)
-        if scaled is None:
-            res = _render_with_fusion(pipe, req, lay)
-            bands = [res.data[n] for n in res.namespaces if n in res.data]
-            valids = [res.valid[n] for n in res.namespaces
-                      if n in res.valid]
-            if not bands:
-                clock.mark("render")
-                png = empty_tile_png(p.width, p.height,
-                                     compress_level=level)
-                clock.mark("encode")
-                return _png(png)
-            scaled = [scale_to_byte(b, v, offset=style.offset_value,
-                                    scale=style.scale_value,
-                                    clip=style.clip_value,
-                                    colour_scale=style.colour_scale,
-                                    auto=auto).cpu().numpy()
-                      for b, v in zip(bands[:4], valids[:4])]
-        clock.mark("render")
-        if fmt in _JPEG_FORMATS:
-            body = encode_jpeg(scaled[:3])
-            clock.mark("encode")
-            return Response(200, "image/jpeg", body)
-        palette = None
-        if len(scaled) == 1 and (style.palette or lay.palette):
-            spec = style.palette or lay.palette
-            palette = with_nodata_entry(
-                gradient_palette(spec.colours, spec.interpolate))
-        png = encode_png(scaled, palette, compress_level=level)
-        clock.mark("encode")
-        return _png(png)
+        if scaled is not None:
+            return scaled, rgba
+        res = _render_with_fusion(pipe, req, lay)
+        bands = [res.data[n] for n in res.namespaces if n in res.data]
+        valids = [res.valid[n] for n in res.namespaces if n in res.valid]
+        if not bands:
+            return None, None
+        return [scale_to_byte(b, v, offset=style.offset_value,
+                              scale=style.scale_value,
+                              clip=style.clip_value,
+                              colour_scale=style.colour_scale,
+                              auto=auto).cpu().numpy()
+                for b, v in zip(bands[:4], valids[:4])], None
 
     def _getmap_animation(self, cfg: Config, p, lay: Layer, source: Layer,
                           style: Layer, clock: _Clock) -> Response:
@@ -703,19 +915,27 @@ class OWSServer:
         maxf = _anim_max_frames()
         if maxf > 0 and len(times) > maxf:
             times = times[:maxf]
+        bl = brownout_level()
+        if bl:
+            # quality before availability: every second frame (fourth
+            # when critical), frame 0 kept; `_getmap` set the label
+            times = times[::2] if bl == 1 else times[::4]
         req = self._tile_request(source, style, p, p.width, p.height,
                                  lay.wms_polygon_segments)
         pipe = self._pipeline(cfg)
         auto = scale_params_auto(style.offset_value, style.scale_value,
                                  style.clip_value)
         clock.mark("parse")
-        made = pipe.animation_prep(req, times)
-        if made is not None:
-            planes = self._anim_frames_wave(pipe, req, times, made, style,
-                                            auto)
-        else:
-            planes = self._anim_frames_serial(pipe, req, times, lay, style,
-                                              auto)
+        # one budget for the sequence, wms_timeout per frame
+        with deadline_scope(Deadline(lay.wms_timeout
+                                     * max(1, len(times)))) as dl:
+            made = _bounded(dl, pipe.animation_prep, req, times)
+            if made is not None:
+                planes = _bounded(dl, self._anim_frames_wave, pipe, req,
+                                  times, made, style, auto)
+            else:
+                planes = _bounded(dl, self._anim_frames_serial, pipe, req,
+                                  times, lay, style, auto)
         clock.mark("render")
         palette = None
         if all(len(pl) == 1 for pl in planes) \
@@ -815,7 +1035,9 @@ class OWSServer:
         if not (0 <= p.x < req.width and 0 <= p.y < req.height):
             raise OWSError(f"i/j ({p.x},{p.y}) outside "
                            f"{req.width}x{req.height}", "InvalidPoint")
-        fi = get_feature_info(self._pipeline(cfg), req, p.x, p.y)
+        with deadline_scope(Deadline(lay.wms_timeout)) as dl:
+            fi = _bounded(dl, get_feature_info, self._pipeline(cfg), req,
+                          p.x, p.y)
         props = {k: (v if v is not None else "n/a")
                  for k, v in fi.values.items()}
         if lay.feature_info_max_dates != 0:
@@ -902,7 +1124,8 @@ class OWSServer:
             key, meta = self._response_key(cfg, "cov", p.coverages[0],
                                            "wcs", p, q)
         return self._serve_gated(key, meta, req_headers,
-                                 lambda: self._getcoverage(cfg, p, clock))
+                                 lambda: self._getcoverage(cfg, p, clock),
+                                 "WCS")
 
     def _getcoverage(self, cfg: Config, p, clock: _Clock,
                      dap_stream: bool = False) -> Response:
@@ -937,6 +1160,8 @@ class OWSServer:
 
         tiles = split_bbox(p.bbox, width, height, lay.wcs_max_tile_width,
                            lay.wcs_max_tile_height)
+        # one budget for the whole export
+        dl = Deadline(lay.wcs_timeout * max(1, len(tiles)))
         ns_names = list(base_req.band_exprs.expr_names)
         # a very large GeoTIFF streams its tiles to disk instead of
         # building the whole coverage in RAM
@@ -1002,12 +1227,18 @@ class OWSServer:
                     base_req, polygon_segments=lay.wcs_polygon_segments),
                 tiles, ns_names, p.bbox, width, height, nodata=nodata,
                 writer=writer, out=out, valid=valid)
-        try:
+        def render_all():
             if engine is None:
                 for t in tiles:
+                    check_cancel("export")
                     render_tile(*t)
-            else:
-                stats = engine.run()
+                return None
+            return engine.run()
+
+        try:
+            with deadline_scope(dl):
+                stats = _bounded(dl, render_all)
+            if stats is not None:
                 with self._lock:
                     self.last_export = stats
         except BaseException:
@@ -1083,7 +1314,8 @@ class OWSServer:
         if req_name != "execute":
             raise OWSError(f"WPS request {p.request!r} not supported",
                            "OperationNotSupported")
-        return self._wps_execute(cfg, p)
+        with self._admit("WPS"):
+            return self._wps_execute(cfg, p)
 
     def _wps_execute(self, cfg: Config, p) -> Response:
         proc = cfg.process(p.identifier)
@@ -1130,7 +1362,8 @@ class OWSServer:
                 index_tile_x_size=src.index_tile_x_size,
                 index_tile_y_size=src.index_tile_y_size)
             dp = DrillPipeline(self._mas(cfg), device=self.device)
-            res = dp.process_split(dreq, proc.year_step)
+            with deadline_scope(Deadline(src.wcs_timeout or 30)) as ddl:
+                res = _bounded(ddl, dp.process_split, dreq, proc.year_step)
             csv_blocks.append(drill_csv(res, list(res.values)))
         return _xml(T.wps_execute_response(p.identifier, csv_blocks))
 
@@ -1152,6 +1385,10 @@ class _HTTPServer(ThreadingHTTPServer):
     with the thread that runs its loop."""
 
     daemon_threads = True
+    # the listen backlog (the standard library's default is 5): 16
+    # clients connecting at once overflowed it, and each dropped SYN
+    # cost its client a 1 s retransmit
+    request_queue_size = 128
 
     def __init__(self, address, ows: OWSServer):
         super().__init__(address, _Handler)
@@ -1167,7 +1404,14 @@ class _Handler(BaseHTTPRequestHandler):
         url = urlsplit(self.path)
         resp = self.server.ows.handle(
             url.path, parse_qs(url.query, keep_blank_values=True),
-            self.headers.get("Host", ""), body, self.headers)
+            self.headers.get("Host", ""), body, self.headers,
+            remote=self.client_address[0],
+            probe=_socket_probe(self.connection))
+        if resp.status == CLIENT_GONE:
+            # the client went away: nothing to send
+            self.close_connection = True
+            resp.close()
+            return
         try:
             self.send_response(resp.status)
             if resp.content_type:           # a 304 has none
@@ -1341,7 +1585,11 @@ def _placeholder_tile(image_path: str, width: int, height: int,
 
 def _png_level(lay: Layer, style: Optional[Layer] = None):
     """The PNG zlib level: the style's when it sets one, else the
-    layer's, else None (GSKY_PNG_LEVEL, then the encoder's default)."""
+    layer's, else None (GSKY_PNG_LEVEL, then the encoder's default).
+    Under brownout every PNG takes the cheapest effort, 0: more bytes
+    on the wire beat CPU spent compressing while memory is short."""
+    if brownout_level():
+        return 0
     for src in (style, lay):
         if src is not None and src.png_compress_level >= 0:
             return src.png_compress_level
@@ -1376,6 +1624,77 @@ def _png(data: bytes) -> Response:
     return Response(200, "image/png", data)
 
 
-def _exception_response(e: OWSError) -> Response:
+def _exception_response(e: OWSError,
+                        headers: Optional[Dict[str, str]] = None
+                        ) -> Response:
     return Response(e.status, "application/vnd.ogc.se_xml",
-                    T.service_exception(str(e), e.code).encode())
+                    T.service_exception(str(e), e.code).encode(),
+                    dict(headers or {}))
+
+
+def _bounded(dl: Deadline, fn, *args):
+    """``fn(*args)`` in a worker thread, under a copy of the request's
+    context (its deadline, cancel token and degradation state), waited
+    for no longer than what is left of ``dl``: the reference's
+    ``wait_for(to_thread(...), dl.remaining())``.  Raises
+    `DeadlineExceeded` when the budget runs out first; the worker then
+    unwinds at its next cancellation check, once the handler fires the
+    token."""
+    fut: cf.Future = cf.Future()
+    ctx = contextvars.copy_context()
+
+    def run():
+        if not fut.set_running_or_notify_cancel():
+            return
+        try:
+            fut.set_result(ctx.run(fn, *args))
+        except BaseException as e:  # the handler maps it
+            fut.set_exception(e)
+
+    threading.Thread(target=run, name="gsky-render", daemon=True).start()
+    try:
+        return fut.result(timeout=max(0.0, dl.remaining()))
+    except cf.TimeoutError:
+        raise DeadlineExceeded(
+            f"deadline budget of {dl.budget:.1f}s exhausted") from None
+
+
+@dataclass
+class _PrefetchParams:
+    """The parts of a parsed GetMap a predicted key carries."""
+
+    bbox: BBox
+    crs: object
+    times: List[float]
+    axes: Dict = field(default_factory=dict)
+    axis_idx: Dict = field(default_factory=dict)
+
+
+def _tenant_of(req_headers: Mapping[str, str], query, remote: str) -> str:
+    """The tenant of admission's weighted-fair queue: the API key when
+    one is given (``X-API-Key`` or ``key=``), else the first
+    ``X-Forwarded-For`` hop, else the client's address."""
+    key = req_headers.get("x-api-key")
+    if not key and query:
+        v = query.get("key") if hasattr(query, "get") else None
+        key = v[0] if isinstance(v, list) and v else v
+    if key:
+        return f"key:{str(key)[:32]}"
+    fwd = req_headers.get("x-forwarded-for")
+    if fwd:
+        return fwd.split(",")[0].strip() or "anon"
+    return remote or "anon"
+
+
+def _socket_probe(sock) -> Callable[[], Optional[str]]:
+    """A cancel probe of a client's socket: "client-disconnect" once the
+    peer has closed (a non-blocking peek reads ``b""`` or fails)."""
+    def probe() -> Optional[str]:
+        try:
+            data = sock.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT)
+        except (BlockingIOError, InterruptedError):
+            return None             # open, nothing more sent
+        except OSError:
+            return "client-disconnect"
+        return "client-disconnect" if data == b"" else None
+    return probe

@@ -11,8 +11,9 @@ N times.  Flights are keyed like the response cache, so the window
 deduplicated is the cache's miss window; a finished flight is
 forgotten at once.
 
-There is no cancellation: the standard library's server cannot see a
-client go away, so a leader always renders to the end.
+A leader whose request is cancelled (its client went away, its
+deadline passed) ends its flight with that `RequestCancelled`, and its
+joiners get it too, as the reference's do.
 """
 
 from __future__ import annotations

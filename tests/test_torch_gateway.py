@@ -118,25 +118,29 @@ class Env:
     """Both servers over one config directory, each with a private
     gateway."""
 
-    def __init__(self, tmp_path, garch, layers, jcache=None, tcache=None):
+    def __init__(self, tmp_path, garch, layers, jcache=None, tcache=None,
+                 mas_address=None):
+        """``mas_address``: each server reaches that masapi over HTTP
+        with its own MAS client instead of the in-process stores."""
         from aiohttp.test_utils import TestClient, TestServer
         self.conf = tmp_path / "conf"
         self.conf.mkdir()
         self.write({"service_config": {"ows_hostname": HOST,
-                                       "mas_address": "inproc"},
+                                       "mas_address": mas_address
+                                       or "inproc"},
                     "layers": layers})
         jmas, tmas = garch["jmas"], garch["tmas"]
-        self.jwatcher = JConfigWatcher(str(self.conf),
-                                       mas_factory=lambda a: jmas,
+        jfac = None if mas_address else (lambda a: jmas)
+        tfac = None if mas_address else (lambda a: tmas)
+        self.jwatcher = JConfigWatcher(str(self.conf), mas_factory=jfac,
                                        install_signal=False)
         self.jserver = JOWSServer(
-            self.jwatcher, mas_factory=lambda a: jmas,
+            self.jwatcher, mas_factory=jfac,
             metrics=JMetricsLogger(), fabric=None,
             gateway=JServingGateway(cache=jcache or JResponseCache()))
-        self.twatcher = ConfigWatcher(str(self.conf),
-                                      mas_factory=lambda a: tmas,
+        self.twatcher = ConfigWatcher(str(self.conf), mas_factory=tfac,
                                       install_signal=False)
-        self.port = OWSServer(self.twatcher, mas_factory=lambda a: tmas,
+        self.port = OWSServer(self.twatcher, mas_factory=tfac,
                               device="cpu",
                               gateway=ServingGateway(
                                   cache=tcache or ResponseCache()))
@@ -641,6 +645,80 @@ def test_stale_replay_on_too_many_failures(make_env, monkeypatch):
     # no entry to fall back on: the failure is the answer
     ref, got = env.both(getmap(box=BOX_B))
     assert ref[0] == got[0] == 503
+
+
+def _refused_address():
+    """host:port on 127.0.0.1 where nothing listens (connections are
+    refused)."""
+    import socket
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return f"127.0.0.1:{port}"
+
+
+@pytest.fixture
+def fresh_breakers(monkeypatch):
+    """Both packages' breakers and resilience counters, cleared; no
+    prefetch warms asking the MAS on threads of their own."""
+    from gsky_tpu import resilience as jres
+    from gsky_tpu_torch import resilience as tres
+    monkeypatch.setenv("GSKY_PREFETCH", "0")
+    jres.reset()
+    tres.reset()
+    yield
+    jres.reset()
+    tres.reset()
+
+
+def _exc_code(body):
+    import re
+    m = re.search(rb'exceptionCode="([^"]*)"', body)
+    return m.group(1).decode() if m else None
+
+
+def test_backend_down_answers_503_with_retry_after(make_env, garch,
+                                                   fresh_breakers):
+    """A masapi that refuses connections through every retry: both
+    servers answer OGC ServerBusy, 503, with the same Retry-After
+    (the port answered a 500 "internal error" before)."""
+    env = make_env(mas_address=_refused_address())
+    (js, _, jb, jh), (ts, _, tb, th) = env.both(getmap())
+    assert (js, ts) == (503, 503), (js, ts, tb[:200])
+    assert _exc_code(jb) == _exc_code(tb) == "ServerBusy"
+    assert jh["Retry-After"] == th["Retry-After"]
+    assert int(th["Retry-After"]) >= 1
+
+
+def test_backend_down_replays_expired_tile_stale(make_env, garch,
+                                                 fresh_breakers):
+    """Each server reaches one live masapi over HTTP; a tile is cached,
+    expires past its TTL, and the masapi dies: both replay the entry as
+    ``stale-cache``."""
+    from gsky_tpu_torch.index import api as tapi
+    api = tapi.build_app(garch["tmas"]._store)
+    httpd = api.serve("127.0.0.1", 0)
+    address = f"127.0.0.1:{httpd.server_address[1]}"
+    try:
+        env = make_env(mas_address=address)
+        url = getmap()
+        for get in (env.jax1, env.torch1):
+            s, _, _, h = get(url)
+            assert s == 200 and _cache(h) == "miss"
+        for gw in env.gateways:
+            for ent in gw.cache._entries.values():
+                ent.expires = time.monotonic() - 1.0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.thread.join(30)
+    (js, _, jb, jh), (ts, _, tb, th) = env.both(url)
+    assert js == ts == 200 and jb and tb
+    for h in (jh, th):
+        assert _cache(h) == "stale"
+        assert h["X-GSKY-Degraded"] == "stale-cache"
+        assert h["Cache-Control"] == "no-store"
 
 
 # ---------------------------------------------------------------------------
