@@ -6152,6 +6152,244 @@ def raw_disconnect(base, url, after_s):
     sock.close()
 
 
+OBS_TILES = 16               # 21a: fused tiles a run, traced and not
+OBS_THREADS = 4              # 21a: client threads
+OBS_PROFILE_TILES = 8        # 21c: fused tiles inside a capture
+PROFILE_S = 3.0              # 21c: a capture's window
+PROFILE_LEAD_S = 1.0         # 21c: the profiler's start-up before work
+
+
+def kernel_events(trace_dir, names):
+    """The CUDA kernel events of a `/debug/profile` capture's Chrome
+    trace whose names contain each of ``names``; the capture's
+    directory is removed.  Returns {name: count} and the event count."""
+    with open(os.path.join(trace_dir, "trace.json")) as fp:
+        evs = json.load(fp)["traceEvents"]
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return {n: sum(1 for e in evs if e.get("cat") == "kernel"
+                   and n in e.get("name", "")) for n in names}, len(evs)
+
+
+def profile_window(srv, fire, names, what, card, tries=3):
+    """Phase 21c: ``srv``'s ``/debug/profile`` (a `torch.profiler`
+    capture) while ``fire()`` runs inside its window, an overlapping
+    capture refused with 409.  ``names`` maps a substring of a CUDA
+    kernel's name to the wrappers (`cuda_lib.Kernel`) that launch it;
+    the Chrome trace's kernel events of each must equal the wrappers'
+    launch delta over ``fire``.  The tracer can drop records (see
+    `kernel_device_ms`): a window that saw fewer is taken again, up to
+    ``tries``; one that saw more fails.  Returns the launches."""
+    import threading
+    done = {}
+    for attempt in range(tries):
+        t = threading.Thread(target=lambda: done.__setitem__(
+            "r", srv.handle("/debug/profile",
+                            {"seconds": [str(PROFILE_S)]})))
+        t.start()
+        wait_for(srv._profile_mutex.locked, f"21c {what} capture", 30.0)
+        time.sleep(PROFILE_LEAD_S)
+        busy = srv.handle("/debug/profile", {"seconds": ["0.1"]})
+        if busy.status != 409:
+            raise AssertionError(f"21c {what}: an overlapping capture got "
+                                 f"{busy.status}")
+        before = {n: sum(k.launches for k in ks) for n, ks in names.items()}
+        t0 = time.perf_counter()
+        fire()
+        fired = time.perf_counter() - t0
+        want = {n: sum(k.launches for k in ks) - before[n]
+                for n, ks in names.items()}
+        t.join(timeout=PROFILE_S + 120)
+        if t.is_alive():
+            raise AssertionError(f"21c {what}: the capture did not end")
+        r = done.pop("r")
+        doc = json.loads(r.body)
+        if r.status != 200 or fired > PROFILE_S - PROFILE_LEAD_S - 0.5:
+            raise AssertionError(f"21c {what}: capture {r.status} {doc}, "
+                                 f"work {fired:.2f} s of the window")
+        got, n_evs = kernel_events(doc["trace_dir"], names)
+        if any(got[n] > want[n] for n in names) or not all(want.values()):
+            raise AssertionError(f"21c {what}: trace kernels {got}, "
+                                 f"launches {want}")
+        if got == want:
+            log(f"phase 21c {what}: /debug/profile?seconds={PROFILE_S} "
+                f"while the work ran ({fired * 1e3:.1f} ms): kernel events "
+                f"{got}, equal to the wrappers' launches; an overlapping "
+                f"capture 409 ({n_evs} trace events; window "
+                f"{attempt + 1}) ({card})")
+            return want
+        log(f"phase 21c {what}: the trace saw {got} of {want} launches; "
+            f"again")
+    raise AssertionError(f"21c {what}: {tries} windows dropped records")
+
+
+def phase_obs(data_root, data_paths, card):
+    """Phase 21 over phase 3's archive: the observability seam on the
+    card, a card `OWSServer(gateway=None)` behind HTTP, over a store of
+    phase 3's granules alone (phase 20's store also holds a granule
+    under a directory it has removed, which the layer's path prefix
+    matches).
+    21a: `OBS_TILES` fused nearest tiles from `OBS_THREADS` threads
+    (waves and the staged path on), traced and untraced in turns
+    (GSKY_TRACE 1, 0, 0, 1): bodies equal; latency printed beside the
+    reference's claim; one traced tile's span tree holds tile.dispatch
+    and tile.readback, its record's device.duration their sum.
+    21b: /metrics after 21a: gsky_requests_total{WMS,200} moved by the
+    200s served, gsky_wave_dispatches_total by B1's launches.
+    21c: /debug/profile while fused and zoomed-out tiles run (per call):
+    paged_render and warp_render kernel events equal the launches.
+    21d: the first traced B1 launch against its plain version.
+    Returns the launches {kernel: n}."""
+    import inspect
+    from gsky_tpu_torch.obs import parse_exposition
+    from gsky_tpu_torch.ops import paged
+    kernels = _kernel_counts()
+    total = dict.fromkeys(kernels, 0)
+    store = crawl((p, NS) for p in data_paths)
+    styles = [{"name": m, "title": m, "rgb_products": [NS], "resample": m}
+              for m in METHODS]
+    pair = OwsPair(os.path.join(data_root, "conf21"),
+                   [{"name": "plain", "data_source": data_root,
+                     "rgb_products": [NS], "styles": styles}], store)
+    srv = pair.card
+    recs = []
+    srv.metrics.write = recs.append
+    boxes = tile_boxes()[:OBS_TILES]
+    urls = [getmap_url(pair.base, "plain", b, "near") for b in boxes]
+
+    def scrape():
+        st, _, body, _ = http_status(pair.base + "/metrics")
+        if st != 200:
+            raise AssertionError(f"21b: /metrics {st}")
+        return parse_exposition(body.decode())
+
+    def count(fams, name, labels=None):
+        return sum(v for (n, lab), v in fams[name]["samples"].items()
+                   if n == name and (labels is None
+                                     or set(labels) <= set(lab)))
+    try:
+        with WavesOn():
+            warm, _ = fetch_threads(http_status, urls, OBS_THREADS)
+            if any(a[0] != 200 for a in warm):
+                raise AssertionError(f"21a warm: {[a[0] for a in warm]}")
+            runs = {"1": [], "0": []}
+            fams0 = scrape()
+            reset_counts(kernels)
+            cap = CaptureFirst(paged, "paged_render_scored")
+            n_rec = len(recs)
+            try:
+                for mode in ("1", "0", "0", "1"):
+                    os.environ["GSKY_TRACE"] = mode
+                    try:
+                        got, wall = fetch_threads(http_status, urls,
+                                                  OBS_THREADS)
+                    finally:
+                        os.environ.pop("GSKY_TRACE")
+                    runs[mode].append((got, wall))
+            finally:
+                cap.remove()
+            launches = read_counts(kernels)
+            fams1 = scrape()
+        ok = sum(1 for rs in runs.values() for got, _ in rs
+                 for a in got if a[0] == 200)
+        bodies = [[a[2] for a in got] for rs in runs.values()
+                  for got, _ in rs]
+        if ok != 4 * OBS_TILES or any(b != bodies[0] for b in bodies) \
+                or bodies[0] != [a[2] for a in warm]:
+            raise AssertionError("21a: traced and untraced bodies differ "
+                                 "or a tile failed")
+        for k in total:
+            total[k] += launches[k]
+        lat = {m: [a[3] for got, _ in rs for a in got]
+               for m, rs in runs.items()}
+        rate = {m: len(lat[m]) / sum(w for _, w in rs)
+                for m, rs in runs.items()}
+        p50 = {m: float(np.median(v)) * 1e3 for m, v in lat.items()}
+        log(f"phase 21a: {OBS_TILES} fused near tiles from {OBS_THREADS} "
+            f"threads, two runs each, bodies equal: traced p50 "
+            f"{p50['1']:.3f} ms, p90 {np.percentile(lat['1'], 90) * 1e3:.3f}"
+            f" ms, {rate['1']:.1f} tiles/s; untraced p50 {p50['0']:.3f} ms, "
+            f"p90 {np.percentile(lat['0'], 90) * 1e3:.3f} ms, "
+            f"{rate['0']:.1f} tiles/s; traced/untraced p50 "
+            f"{p50['1'] / p50['0']:.4f} (the reference claims under 2% of "
+            f"hot p50 on CPU/TPU; host clocks, printed only) ({card})")
+        # one traced tile: its span tree and its record
+        traced = [r for r in recs[n_rec:] if r["trace_id"]]
+        if len(traced) != 2 * OBS_TILES or \
+                len(recs) - n_rec != 4 * OBS_TILES:
+            raise AssertionError(f"21a: {len(traced)} traced records of "
+                                 f"{len(recs) - n_rec}")
+        rec = traced[0]
+        st, _, body, _ = http_status(
+            f"{pair.base}/debug/trace/{rec['trace_id']}")
+        tr = json.loads(body)
+        names = [s["name"] for s in tr["spans"]]
+        if st != 200 or "tile.dispatch" not in names or \
+                "tile.readback" not in names:
+            raise AssertionError(f"21a: trace {st} spans {names}")
+        span_ns = sum(s["dur_s"] for s in tr["spans"]
+                      if s["name"] in ("tile.dispatch", "tile.readback"))
+        span_ns *= 1e9
+        dev_ns = rec["device"]["duration"]
+        if rec["device"]["platform"] != srv.device.type or \
+                abs(dev_ns - span_ns) > 1e6:
+            raise AssertionError(f"21a: device {rec['device']}, spans "
+                                 f"{span_ns:.0f} ns")
+        log(f"phase 21a: trace {rec['trace_id']}: spans {sorted(names)}; "
+            f"record device.duration {dev_ns} ns (platform "
+            f"{rec['device']['platform']}), "
+            f"tile.dispatch + tile.readback {span_ns:.0f} ns")
+        # -- 21b: /metrics against the launch counters --------------------
+        req = count(fams1, "gsky_requests_total",
+                    {("service", "WMS"), ("status", "200")}) \
+            - count(fams0, "gsky_requests_total",
+                    {("service", "WMS"), ("status", "200")})
+        wd = count(fams1, "gsky_wave_dispatches_total") \
+            - count(fams0, "gsky_wave_dispatches_total")
+        bf = count(fams1, "gsky_batch_flushes_total") \
+            - count(fams0, "gsky_batch_flushes_total")
+        if req != ok or wd + bf != launches["B1"] or not launches["B1"] \
+                or launches["B2"]:
+            raise AssertionError(f"21b: requests {req} (served {ok}), "
+                                 f"wave dispatches {wd}, batch flushes "
+                                 f"{bf}, launches {launches}")
+        log(f"phase 21b: /metrics: gsky_requests_total{{WMS,200}} +{req:g}"
+            f" = the 200s served; gsky_wave_dispatches_total +{wd:g}, "
+            f"gsky_batch_flushes_total +{bf:g} = B1 launches "
+            f"{launches['B1']} for {4 * OBS_TILES} tiles")
+        # -- 21d: the first traced B1 launch vs its plain version ---------
+        args = inspect.signature(cap.orig).bind(*cap.args[0],
+                                                **cap.args[1]).arguments
+        saved = kernels["B1"].launches
+        with srv.executor.pool.locked_pool() as parr:
+            kw = dict(args, pool=parr)
+            ck, bk = paged.paged_render_scored(**kw)
+            cp, bp = paged.paged_render_scored_plain(**kw)
+        kernels["B1"].launches = saved
+        err = check_pair("near", ck, bk, cp, bp, "21d traced B1 vs plain")
+        log(f"phase 21d: the first traced B1 launch (N="
+            f"{int(args['tables'].shape[0])}) vs plain: max |diff| {err}")
+        # -- 21c: a profile capture while tiles render (per call) ---------
+        fused = [getmap_url(pair.base, "plain", b, "near")
+                 for b in tile_boxes()[OBS_TILES:OBS_TILES
+                                       + OBS_PROFILE_TILES]]
+        zoomed = getmap_url(pair.base, "plain", zoom_boxes(4.0)[0], "near")
+        http_status(zoomed)             # its scenes' overviews resident
+
+        def fire():
+            got, _ = fetch_threads(http_status, fused + [zoomed],
+                                   OBS_THREADS)
+            if any(a[0] != 200 for a in got):
+                raise AssertionError(f"21c: {[a[0] for a in got]}")
+        n = profile_window(srv, fire, {"paged_render": [kernels["B1"]],
+                                       "warp_render": [kernels["B2"]]},
+                           "fused and zoomed-out tiles", card)
+        total["B1"] += n["paged_render"]
+        total["B2"] += n["warp_render"]
+    finally:
+        pair.close()
+    return total, err
+
+
 def phase_deadline(root, store, card):
     """Phase 20c over phase 10's archive: a decode latency fault past a
     masked layer's 1 s wms_timeout (504, the render unwinds at its
@@ -6232,6 +6470,17 @@ def phase_deadline(root, store, card):
                 f"a 1 s decode: the token fired with {spy.reasons}, the "
                 f"render unwound at {cancel_stats()['stages']} "
                 f"{secs:.2f} s after the request, launches {n} ({card})")
+        # -- 21c: a profile capture while a masked tile renders (B4) ------
+        # (a tile not asked for before: the gateway would replay it)
+        masked = getmap_url(pair.base, "masked", boxes[3], "", t_two)
+
+        def fire():
+            a = http_status(masked)
+            if a[0] != 200:
+                raise AssertionError(f"21c masked: {a[0]}")
+        total["B4"] += profile_window(
+            pair.card, fire, {"first_valid_kernel": [kernels["B4"]]},
+            "a masked tile", card)["first_valid_kernel"]
     finally:
         faults.reset()
         spy.remove()
@@ -6305,6 +6554,19 @@ def phase_backend(root, watcher, srv, cpu, card):
             ogc_code(ans["card"][0][2]) != ogc_code(ans["cpu"][0][2]):
         raise AssertionError("20c WPS: card and CPU answers differ")
     same_csv(ans["card"][1][2], ans["cpu"][1][2], "20c WPS card vs CPU")
+
+    # -- 21c: a profile capture while a drill runs (B3) -------------------
+    from gsky_tpu_torch.ops import stats
+
+    def fire():
+        breaker.record_success()
+        a = get(srv, url, execute("ingest_drill_dl"))
+        if a[0] != 200:
+            raise AssertionError(f"21c drill: {a[0]}")
+    total["B3"] += profile_window(
+        srv, fire, {"masked_stats": [stats.masked_stats_kernel,
+                                     stats.masked_stats_many_kernel]},
+        "a WPS drill", card)["masked_stats"]
 
     # -- 20e: faults at the MAS client, then the MAS lost ---------------
     t_both = (lzw_stamp(LZW_DOYS[0]) - 86400.0,
@@ -6654,6 +6916,12 @@ def main() -> int:
         srv20 = phase_serving(data_root, data_paths, store, card)
         t20 = time.perf_counter() - t0
         log(f"phase 20a, b, d, f: launches {srv20} ({t20:.1f} s)")
+
+        # -- phase 21a-d: observability on the card ----------------------
+        t0 = time.perf_counter()
+        obs21, obs21_err = phase_obs(data_root, data_paths, card)
+        log(f"phase 21a-d: launches {obs21} "
+            f"({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -6782,7 +7050,9 @@ def main() -> int:
     # plain versions), and phase 20's (B1: batched flushes, admitted,
     # browned-out, prefetched and fault-retried tiles; B2: the tile
     # whose staging critical pressure declined; B3: the drill after the
-    # 504; B4: the masked tile after the 504)
+    # 504; B4: the masked tile after the 504), and phase 21's (B1 and
+    # B2: traced, untraced and profiled tiles; B3 and B4: the profiled
+    # drill and masked tile, in be20 and dl20)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -6792,9 +7062,10 @@ def main() -> int:
          "replaces": "gsky_tpu/ops/paged.py:173",
          "launches": b1_launches + b1_waves + b1_anim + b1_expr
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
-         + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"],
+         + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
+         + obs21["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
-                            ing_err["B1"],
+                            ing_err["B1"], obs21_err,
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B1")),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
@@ -6804,7 +7075,7 @@ def main() -> int:
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
          "launches": b2_launches + b2_rgb + wcs_launches["B2"]
          + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
-         + dl20["B2"] + be20["B2"],
+         + dl20["B2"] + be20["B2"] + obs21["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()

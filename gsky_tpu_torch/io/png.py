@@ -24,20 +24,42 @@ An encode first checks the request's cancel token (`resilience.cancel`,
 stage ``encode``): a request whose client went away spends no CPU on
 bytes nobody will read.  (The reference checks it when a queued job of
 its encode pool starts; the port encodes in the request's thread.)
+`encode_timed` runs one encode as the trace's ``encode`` span and
+observes its seconds in ``gsky_encode_seconds{phase="cpu"}``; the
+reference's sized encode pool and its ``wait`` phase are ROADMAP A.19.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import time
 import zlib
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs import span as obs_span
+from ..obs.metrics import ENCODE_SECONDS
 from ..resilience.cancel import check_cancel
 
 NODATA_BYTE = 255
+
+
+def encode_timed(fn, *args, spans: Optional[dict] = None, **kw):
+    """``fn(*args, **kw)`` (an encode) in the caller's thread, as the
+    trace's ``encode`` span, its seconds observed in
+    ``gsky_encode_seconds{phase="cpu"}`` and, when the staged tile
+    path's ``spans`` are given, added to their ``encode_s``."""
+    t0 = time.perf_counter()
+    with obs_span("encode") as esp:
+        out = fn(*args, **kw)
+        cpu = time.perf_counter() - t0
+        esp.set(cpu_s=round(cpu, 6))
+    ENCODE_SECONDS.labels(phase="cpu").observe(cpu)
+    if spans is not None:
+        spans["encode_s"] = spans.get("encode_s", 0.0) + cpu
+    return out
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _GREY, _RGB, _PALETTE, _GREY_ALPHA, _RGBA = 0, 2, 3, 4, 6

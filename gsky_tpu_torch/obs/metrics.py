@@ -1,0 +1,440 @@
+"""Default metric families and scrape-time collectors.
+
+Counterpart of `gsky_tpu/obs/metrics.py`.  Two sourcing rules keep
+``/metrics`` honest:
+
+* Distributions (request latency, stage durations, encode times, wave
+  occupancy) are observed at the measurement points that already feed
+  ``/debug``: the `server.metrics` fold-in, the batcher, the wave
+  scheduler and the request's encode.
+* Counters and level gauges that already live in stats objects
+  (caches, resilience registry, batcher, page pool, admission, ingest
+  ledger, wave scheduler, flight recorder) are collected at scrape time
+  from those objects, so there is one counter, not two copies.
+
+The port's executors, page pools, scene caches and wave schedulers are
+one per server or device, not one per process: a collector sums their
+counters over the live ones (the batch knee, a cap that only moves
+down, is the smallest).  A collector reports nothing while its
+subsystem has not booted (no live object); it does not catch the
+errors of one that has, so a renamed field shows as a missing family
+(the parity tests compare the family set with the reference's).
+
+Not here until their subsystems are ported (ROADMAP): the worker RPC,
+device-guard and compile families (A.10), the mesh families (A.11),
+fleet, fabric and elastic (A.20), ``gsky_plan_block_shape`` (A.21)
+and the encode pool's gauges and ``wait`` phase (A.19).
+
+Everything registers against ``prom.default_registry()``; the server's
+``/metrics`` route calls `render_metrics`.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Iterable, List, Tuple
+
+from .prom import default_registry, log_buckets
+
+_REG = default_registry()
+
+REQUESTS = _REG.counter(
+    "gsky_requests_total", "OWS requests by service class and status.",
+    ["service", "status"])
+REQUEST_SECONDS = _REG.histogram(
+    "gsky_request_seconds", "End-to-end OWS request latency.",
+    ["service"], buckets=log_buckets(0.002, 120.0))
+STAGE_SECONDS = _REG.histogram(
+    "gsky_stage_seconds",
+    "Per-stage durations (tile pipeline, export pipeline, worker side).",
+    ["stage"], buckets=log_buckets(0.0005, 60.0))
+ENCODE_SECONDS = _REG.histogram(
+    "gsky_encode_seconds", "Encode-pool time by phase (wait vs cpu).",
+    ["phase"], buckets=log_buckets(0.0005, 10.0))
+BATCH_FLUSHES = _REG.counter(
+    "gsky_batch_flushes_total", "Render-batcher flushes by trigger.",
+    ["kind"])
+WAVE_DISPATCHES = _REG.counter(
+    "gsky_wave_dispatches_total",
+    "Wave-scheduler device program invocations by result kind.",
+    ["kind"])
+WAVE_OCCUPANCY = _REG.histogram(
+    "gsky_wave_occupancy",
+    "Requests coalesced per wave dispatch.",
+    buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0])
+WAVE_ASSEMBLY_MS = _REG.histogram(
+    "gsky_wave_assembly_ms",
+    "Wave assembly + dispatch-enqueue time (milliseconds).",
+    buckets=log_buckets(0.01, 100.0))
+WAVE_GAP_MS = _REG.histogram(
+    "gsky_wave_gap_ms",
+    "Host-side idle gap between consecutive wave dispatch enqueues "
+    "(milliseconds) - the inter-wave stutter the pipelined scheduler "
+    "closes (docs/PERF.md 'Continuous device occupancy').",
+    buckets=log_buckets(0.01, 1000.0))
+WAVE_STAGED = _REG.counter(
+    "gsky_wave_staged_total",
+    "Wave groups staged ahead of dispatch by the assembly stage "
+    "(double-buffered input ring uploads).")
+TRACE_EVENTS = _REG.counter(
+    "gsky_trace_events_total",
+    "Cross-cutting events (retry, breaker_open, hedge, reroute, shed).",
+    ["kind"])
+PLAN_SUPERBLOCKS = _REG.counter(
+    "gsky_plan_superblocks_total",
+    "Shared-halo superblocks dispatched by the dataflow autoplanner.")
+PLAN_BYTES_SAVED = _REG.counter(
+    "gsky_plan_gather_bytes_saved_total",
+    "HBM gather bytes the superblock plan avoided vs per-tile windows.")
+PLAN_ROUTE = _REG.counter(
+    "gsky_plan_route_total",
+    "Autoplanner group routing between ragged slot pad and bucketed "
+    "pulls (the PR 8 crossover).",
+    ["path"])
+
+Rows = Iterable[Tuple[Dict[str, str], float]]
+
+
+def _g(name: str, help_: str, rows: Rows):
+    return (name, "gauge", help_, list(rows))
+
+
+def _c(name: str, help_: str, rows: Rows):
+    return (name, "counter", help_, list(rows))
+
+
+def _collect_caches():
+    """Hit/miss counters of every cache tier, lifted from the same
+    ``cache_stats()`` block each metrics-log record carries, and the
+    process-wide gateway's single-flight and admission."""
+    from ..server.metrics import cache_stats
+    from ..serving import default_gateway
+    out: List = []
+    hits, misses = [], []
+    for cache, st in cache_stats().items():
+        hits.append(({"cache": cache}, float(st["hits"])))
+        misses.append(({"cache": cache}, float(st["misses"])))
+    if hits:
+        out.append(_c("gsky_cache_hits_total",
+                      "Cache hits by cache tier.", hits))
+        out.append(_c("gsky_cache_misses_total",
+                      "Cache misses by cache tier.", misses))
+    st = default_gateway.stats()
+    fl = st["singleflight"]
+    out.append(_c("gsky_singleflight_total",
+                  "Single-flight render outcomes.",
+                  [({"outcome": "leader"}, float(fl["leaders"])),
+                   ({"outcome": "joined"}, float(fl["joined"]))]))
+    adm = st["admission"]["classes"]
+    if adm:
+        out.append(_g("gsky_admission_in_use",
+                      "In-flight admitted requests.",
+                      [({"service": s}, float(c["in_use"]))
+                       for s, c in adm.items()]))
+        out.append(_g("gsky_admission_queued",
+                      "Requests queued at admission.",
+                      [({"service": s}, float(c["queued"]))
+                       for s, c in adm.items()]))
+        out.append(_c("gsky_admission_shed_total",
+                      "Requests shed at admission.",
+                      [({"service": s}, float(c["shed"]))
+                       for s, c in adm.items()]))
+    return out
+
+
+def _collect_resilience():
+    from ..resilience import registry as _rr
+    st = _rr.stats()
+    out: List = [
+        _c("gsky_retries_total", "Retries by site.",
+           [({"site": s}, float(n)) for s, n in st["retries"].items()]),
+        _c("gsky_retry_exhausted_total",
+           "Retry budgets exhausted by site.",
+           [({"site": s}, float(n))
+            for s, n in st["retry_exhausted"].items()]),
+        _c("gsky_degraded_responses_total", "Responses served degraded.",
+           [({}, float(st["degraded_responses"]))]),
+        _c("gsky_deadline_exhausted_total",
+           "Requests that ran out of deadline budget.",
+           [({}, float(st["deadline_exhausted"]))])]
+    breakers = st["breakers"]
+    if breakers:
+        out.append(_g("gsky_breaker_open",
+                      "Circuit breaker state (1 = open/half-open).",
+                      [({"site": s},
+                        0.0 if b["state"] == "closed" else 1.0)
+                       for s, b in breakers.items()]))
+        out.append(_c("gsky_breaker_opens_total",
+                      "Circuit breaker trips by site.",
+                      [({"site": s}, float(b["opens"]))
+                       for s, b in breakers.items()]))
+    return out
+
+
+def _collect_runtime():
+    from .recorder import default_recorder
+    st = default_recorder().stats()
+    return [_c("gsky_traces_recorded_total",
+               "Traces captured by the flight recorder.",
+               [({}, float(st["recorded"]))]),
+            _c("gsky_traces_slo_violations_total",
+               "Traces past the SLO threshold.",
+               [({}, float(st["slo_violations"]))])]
+
+
+def _collect_batcher():
+    """The render batchers' flush counts and padding bill, the
+    executors' paged-route split, and the page pools' residency."""
+    from ..pipeline import pages
+    from ..pipeline.executor import live_executors
+    out: List = []
+    exs = live_executors()
+    if exs:
+        sts = [ex.batcher.stats() for ex in exs]
+        out.append(_g("gsky_batch_knee",
+                      "Adaptive coalesce cap (tiles per flush).",
+                      [({}, float(min(s["batch_knee"] for s in sts)))]))
+        out.append(_c("gsky_batches_total",
+                      "Batch flushes by dispatch kind.",
+                      [({"kind": k}, float(sum(s[f] for s in sts)))
+                       for k, f in (("windowed", "win_batches"),
+                                    ("full", "full_batches"),
+                                    ("paged", "paged_batches"))]))
+        out.append(_c("gsky_pad_waste_bytes_total",
+                      "Bytes moved for pow2/bucket padding instead of "
+                      "payload across batch flushes.",
+                      [({}, float(sum(s["pad_waste_bytes"]
+                                      for s in sts)))]))
+        out.append(_c("gsky_paged_dispatches_total",
+                      "Executor dispatches served by the paged path vs "
+                      "declined to buckets.",
+                      [({"outcome": "engaged"},
+                        float(sum(ex.paged_engaged for ex in exs))),
+                       ({"outcome": "declined"},
+                        float(sum(ex.paged_declined for ex in exs)))]))
+    pools = [p.stats() for p in pages.live_pools()]
+    if pools:
+        for name, kind, key, help_ in (
+                ("gsky_page_pool_resident", _g, "resident",
+                 "Pages resident in the pool."),
+                ("gsky_page_pool_capacity", _g, "capacity",
+                 "Page pool capacity (pages)."),
+                ("gsky_page_pool_staged_total", _c, "staged",
+                 "Pages staged into the pool."),
+                ("gsky_page_pool_hits_total", _c, "hits",
+                 "Page-table hits on already-staged pages."),
+                ("gsky_page_pool_evictions_total", _c, "evictions",
+                 "LRU page evictions.")):
+            out.append(kind(name, help_,
+                            [({}, float(sum(s[key] for s in pools)))]))
+    return out
+
+
+def _collect_overload():
+    """Adaptive admission limits and per-tenant queue depths, request
+    cancellations by pipeline stage, and the memory-pressure state."""
+    from ..resilience import cancel_stats
+    from ..resilience.pressure import default_monitor
+    from ..serving import default_gateway
+    out: List = []
+    st = default_gateway.admission.stats()
+    if st["classes"]:
+        out.append(_g("gsky_admit_limit",
+                      "Current adaptive admission limit per "
+                      "service class.",
+                      [({"class": s}, float(c["limit"]))
+                       for s, c in st["classes"].items()]))
+    if st["tenants"]:
+        out.append(_g("gsky_admit_queue_depth",
+                      "Requests queued at admission per "
+                      "tenant/service-class pair.",
+                      [({"tenant_class": k}, float(v))
+                       for k, v in st["tenants"].items()]))
+    stages = cancel_stats()["stages"]
+    if stages:
+        out.append(_c("gsky_cancelled_total",
+                      "Request cancellations observed per "
+                      "pipeline stage.",
+                      [({"stage": s}, float(v)) for s, v in stages.items()]))
+    out.append(_g("gsky_pressure_state",
+                  "Memory-pressure state (0 nominal, 1 brownout, "
+                  "2 critical).",
+                  [({}, float(default_monitor().stats()["state"]))]))
+    return out
+
+
+def _collect_ingest():
+    """Ranged-read volume, prefetch outcomes, and how much of the
+    ranged-read time hid under an in-flight device dispatch."""
+    from ..ingest import stats as ingest_stats
+    st = ingest_stats.snapshot()
+    pf = st["prefetch"]
+    return [
+        _c("gsky_ranged_reads_total",
+           "Coalesced byte-range requests issued by the ingest read path.",
+           [({}, float(st["ranged_reads"]))]),
+        _c("gsky_ranged_read_bytes_total",
+           "Bytes fetched through ranged reads.",
+           [({}, float(st["ranged_read_bytes"]))]),
+        _c("gsky_prefetch_total",
+           "Prefetch outcomes: predicted-and-used (hit), "
+           "requested-but-not-ready (miss), warmed-but-expired (wasted).",
+           [({"outcome": k}, float(pf[k]))
+            for k in ("hit", "miss", "wasted")]),
+        _g("gsky_ingest_overlap_ratio",
+           "Fraction of ranged-read seconds spent while a device "
+           "dispatch was in flight.",
+           [({}, float(st["overlap_ratio"]))])]
+
+
+def _collect_waves():
+    """The wave schedulers' readback-queue level and request counts,
+    collected from the live schedulers (one per device).  The port
+    fails a wave's requests instead of re-rendering them per call
+    (the reference's fallback comes with the device guard, A.10), so
+    its fallback count is 0."""
+    from ..pipeline.waves import wave_stats
+    sts = list(wave_stats().values())
+    if not sts:
+        return []
+    return [
+        _g("gsky_wave_readback_queue_depth",
+           "Wave result blocks awaiting async readback.",
+           [({}, float(sum(s["readback_queue_depth"] for s in sts)))]),
+        _c("gsky_wave_requests_total",
+           "Requests submitted to the wave scheduler.",
+           [({}, float(sum(s["requests"] for s in sts)))]),
+        _c("gsky_wave_fallbacks_total",
+           "Wave entries served via their per-call leg after a device "
+           "incident.", [({}, 0.0)]),
+        _c("gsky_wave_cancelled_total",
+           "Wave entries dropped at assembly or readback for request "
+           "cancellation.",
+           [({}, float(sum(s["cancelled"] for s in sts)))])]
+
+
+def _collect_expr():
+    """Fused band algebra: compile-cache traffic, distinct fused
+    programs, and how expression renders routed.  Rendered only once
+    the expression tier has seen traffic."""
+    from ..ops.expr import expr_cache_stats
+    from ..ops.paged import expr_fused_stats
+    cs = expr_cache_stats()
+    fs = expr_fused_stats()
+    if not (cs["hits"] or cs["misses"] or fs["programs"] or fs["paths"]):
+        return []
+    out = [_c("gsky_expr_cache_hits_total",
+              "Expression compile-cache hits.",
+              [({}, float(cs["hits"]))]),
+           _c("gsky_expr_cache_misses_total",
+              "Expression compile-cache misses (fresh parses).",
+              [({}, float(cs["misses"]))]),
+           _g("gsky_expr_programs",
+              "Distinct expression fingerprints with a fused paged "
+              "program this process.",
+              [({}, float(fs["programs"]))])]
+    if fs["paths"]:
+        out.append(_c("gsky_expr_fused_total",
+                      "Expression renders by dispatch path.",
+                      [({"path": k}, float(v))
+                       for k, v in sorted(fs["paths"].items())]))
+    return out
+
+
+def _collect_tsan():
+    """The lockset race sanitizer's race count, once it is on."""
+    from .tsan import tsan_stats
+    st = tsan_stats()
+    if not (st["installed"] or st["enabled"]):
+        return []
+    return [_c("gsky_tsan_races_total",
+               "Data races reported by the lockset sanitizer "
+               "(GSKY_TSAN=1).", [({}, float(st["races"]))]),
+            _g("gsky_tsan_tracked_vars",
+               "Shared variables under lockset tracking.",
+               [({}, float(st["tracked_vars"]))])]
+
+
+# -- temporal serving (animations and streamed DAP4) --------------------
+#
+# Recorded by the server's animation handler and its streamed DAP4 leg;
+# collected at scrape time from this one copy.  A process that never
+# served either keeps its exposition without these families.
+
+_TEMPORAL_LOCK = threading.Lock()
+_TEMPORAL: Dict[str, float] = {
+    "sequences": 0, "frames": 0, "waves": 0, "cancelled": 0,
+    "degraded": 0, "dap_streams": 0, "dap_streamed_bytes": 0,
+    "dap_peak_buffer_bytes": 0}
+
+
+def record_anim_sequence(frames: int, waves: int,
+                         degraded: bool = False,
+                         cancelled: bool = False) -> None:
+    """One animation sequence completed: ``frames`` rendered across
+    ``waves`` wave dispatches."""
+    with _TEMPORAL_LOCK:
+        _TEMPORAL["sequences"] += 1
+        _TEMPORAL["frames"] += int(frames)
+        _TEMPORAL["waves"] += int(waves)
+        if degraded:
+            _TEMPORAL["degraded"] += 1
+        if cancelled:
+            _TEMPORAL["cancelled"] += 1
+
+
+def record_dap_stream(nbytes: int, peak_buffer: int) -> None:
+    """One streamed DAP4 response: bytes on the wire and the largest
+    resident buffer the rechunker held."""
+    with _TEMPORAL_LOCK:
+        _TEMPORAL["dap_streams"] += 1
+        _TEMPORAL["dap_streamed_bytes"] += int(nbytes)
+        _TEMPORAL["dap_peak_buffer_bytes"] = max(
+            _TEMPORAL["dap_peak_buffer_bytes"], int(peak_buffer))
+
+
+def temporal_stats() -> Dict[str, float]:
+    """The /debug ``temporal`` block."""
+    with _TEMPORAL_LOCK:
+        st = dict(_TEMPORAL)
+    st["frames_per_wave"] = round(
+        st["frames"] / st["waves"], 4) if st["waves"] else 0.0
+    return st
+
+
+def reset_temporal() -> None:
+    """Zero the temporal counters."""
+    with _TEMPORAL_LOCK:
+        for k in _TEMPORAL:
+            _TEMPORAL[k] = 0
+
+
+def _collect_temporal():
+    st = temporal_stats()
+    if not (st["sequences"] or st["dap_streams"]):
+        return []
+    return [_c("gsky_anim_sequences_total",
+               "Animation sequences served by the temporal wave path, "
+               "by outcome.",
+               [({"outcome": "ok"},
+                 float(st["sequences"] - st["cancelled"])),
+                ({"outcome": "cancelled"}, float(st["cancelled"]))]),
+            _g("gsky_anim_frames_per_wave",
+               "Mean animation frames amortised per wave dispatch "
+               "(frames / waves, process lifetime).",
+               [({}, float(st["frames_per_wave"]))]),
+            _c("gsky_dap_streamed_bytes_total",
+               "Bytes streamed by the bounded-RSS DAP4 export leg "
+               "(GSKY_DAP_STREAM).",
+               [({}, float(st["dap_streamed_bytes"]))])]
+
+
+for _fn in (_collect_caches, _collect_resilience, _collect_runtime,
+            _collect_batcher, _collect_overload, _collect_ingest,
+            _collect_waves, _collect_expr, _collect_tsan,
+            _collect_temporal):
+    _REG.register_collector(_fn)
+
+
+def render_metrics() -> str:
+    return default_registry().render()

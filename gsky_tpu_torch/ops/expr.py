@@ -471,14 +471,19 @@ class CompiledExpr:
 _CACHE_CAP = 512
 _cache: "OrderedDict[str, CompiledExpr]" = OrderedDict()
 _cache_lock = threading.Lock()
+_cache_hits = 0
+_cache_misses = 0
 
 
 def compile_expr(src: str) -> CompiledExpr:
+    global _cache_hits, _cache_misses
     with _cache_lock:
         ce = _cache.get(src)
         if ce is not None:
             _cache.move_to_end(src)
+            _cache_hits += 1
             return ce
+        _cache_misses += 1
     ast = _Parser(tokenize(src)).parse()
     vars_ = []
     _collect_vars(ast, vars_)
@@ -491,6 +496,14 @@ def compile_expr(src: str) -> CompiledExpr:
         while len(_cache) > _CACHE_CAP:
             _cache.popitem(last=False)
         return _cache[src]
+
+
+def expr_cache_stats() -> Dict[str, int]:
+    """The compile cache's size and traffic, for ``/debug`` and
+    ``/metrics``."""
+    with _cache_lock:
+        return {"size": len(_cache), "cap": _CACHE_CAP,
+                "hits": _cache_hits, "misses": _cache_misses}
 
 
 @dataclass

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..obs.metrics import PLAN_BYTES_SAVED, PLAN_ROUTE, PLAN_SUPERBLOCKS
 from ..ops.paged import PARAMS_W, page_slots, paged_vmem_ok
 from .pages import union_table
 
@@ -230,6 +231,7 @@ def _note_route(path: str):
     with _LOCK:
         _STATS["routes"][path] = _STATS["routes"].get(path, 0) + 1
         _STATS["groups_planned"] += 1
+    PLAN_ROUTE.labels(path=path).inc()
 
 
 def union_lane_spans(spans, cap: int, maxnpg: int):
@@ -295,6 +297,8 @@ def plan_wave_group(kind: str, es, stage: str = "dispatch"
         _STATS["superblocks"] += G
         _STATS["merged_lanes"] += N - G
         _STATS["bytes_saved"] += naive - planned
+    PLAN_SUPERBLOCKS.inc(float(G))
+    PLAN_BYTES_SAVED.inc(float(naive - planned))
     return Plan("superblock", tables=tables,
                 params=params.reshape(Np * T, PARAMS_W), sb_of=sb_of,
                 superblocks=G, naive_bytes=naive, planned_bytes=planned,

@@ -34,7 +34,10 @@ first sample of each size discarded); a size slower per tile than
 ``_KNEE_RATIO`` x the best smaller size caps the flush threshold at
 half of it, and the cap only moves down.  ``GSKY_RENDER_BATCH_MAX``
 pins it.  `note_oom` (halving the knee) has no caller until the device
-guard is ported (ROADMAP A.10).
+guard is ported (ROADMAP A.10).  Each flush ticks
+``gsky_batch_flushes_total{kind}`` ("paged" or "full") and is a
+``batch.flush`` span (trigger "size" or "timer") of the trace of the
+request whose thread ran it.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..obs import span as obs_span
+from ..obs import tsan
+from ..obs.metrics import BATCH_FLUSHES
 from ..resilience.cancel import current_token
 
 _MAX_BATCH = 16
@@ -98,6 +104,9 @@ class RenderBatcher:
         self.knee = min(max_batch, _knee_cap())
         self._tile_ms: Dict[int, float] = {}   # padded size -> EMA ms
         self._tile_n: Dict[int, int] = {}      # samples per size
+        if tsan.enabled():
+            # lockset tracking across flush timers and request threads
+            tsan.track(self, "RenderBatcher")
 
     def _observe(self, np_size: int, n_tiles: int, ms: float) -> None:
         """Fold one flush's per-tile time into its padded size's EMA and
@@ -169,14 +178,14 @@ class RenderBatcher:
         if flush_now is not None:
             # the timer would fire into an empty group: cancel it now
             flush_now[2].cancel()
-            flush_fn(flush_now, statics)
+            flush_fn(flush_now, statics, "size")
         return self._wait(item[-1])
 
     def _flush_key(self, key: tuple, statics: tuple, flush_fn):
         with self._lock:
             entry = self._groups.pop(key, None)
         if entry is not None:
-            flush_fn(entry, statics)
+            flush_fn(entry, statics, "timer")
 
     # -- the dense leg (kernel B2) ---------------------------------------
 
@@ -196,7 +205,7 @@ class RenderBatcher:
         so every dense flush reads whole scenes."""
         return None, None
 
-    def _execute(self, entry, statics: tuple):
+    def _execute(self, entry, statics: tuple, trigger: str):
         from ..ops.warp_render import render_scenes
         scenes, items = entry[0], entry[1]
         try:
@@ -205,11 +214,16 @@ class RenderBatcher:
             self._union_window(items, scenes)
             with self._lock:
                 self.full_batches += 1
+            BATCH_FLUSHES.labels(kind="full").inc()
             t0 = time.perf_counter()
-            outs = [render_scenes(scenes, it[0], it[1],
-                                  torch.as_tensor(it[2]), *statics)
-                    for it in items]
-            out = torch.stack(outs).cpu().numpy()
+            # traced only when flushed from a request's thread (a timer
+            # thread carries no request context)
+            with obs_span("batch.flush", trigger=trigger) as bsp:
+                outs = [render_scenes(scenes, it[0], it[1],
+                                      torch.as_tensor(it[2]), *statics)
+                        for it in items]
+                out = torch.stack(outs).cpu().numpy()
+                bsp.set(tiles=N, padded=Np, windowed=False)
             self._observe(Np, N, (time.perf_counter() - t0) * 1e3)
             for i, it in enumerate(items):
                 it[-1].set_result(out[i])
@@ -242,7 +256,7 @@ class RenderBatcher:
                 int(real_pages), fut)
         return self._join(key, None, item, self._execute_paged, statics)
 
-    def _execute_paged(self, entry, statics: tuple):
+    def _execute_paged(self, entry, statics: tuple, trigger: str):
         from ..ops.paged import PARAMS_W, render_byte_paged
         items = entry[1]
         method, n_ns, out_hw, step, auto, colour_scale = statics
@@ -273,18 +287,21 @@ class RenderBatcher:
                 self.paged_batches += 1
                 self.pad_waste_bytes += int(waste)
                 self.flush_sizes.append(N)
+            BATCH_FLUSHES.labels(kind="paged").inc()
             dev = pool.device
             t0 = time.perf_counter()
-            with pool.locked_pool() as parr:
-                out = render_byte_paged(
-                    parr, torch.from_numpy(tables).to(dev),
-                    torch.from_numpy(
-                        params.reshape(Np * T, PARAMS_W)).to(dev),
-                    torch.from_numpy(ctrls).to(dev),
-                    torch.from_numpy(sps), method, n_ns, out_hw, step,
-                    auto, colour_scale)
-            # the padding lanes never leave the device
-            host = out[:N].cpu().numpy()
+            with obs_span("batch.flush", trigger=trigger) as bsp:
+                with pool.locked_pool() as parr:
+                    out = render_byte_paged(
+                        parr, torch.from_numpy(tables).to(dev),
+                        torch.from_numpy(
+                            params.reshape(Np * T, PARAMS_W)).to(dev),
+                        torch.from_numpy(ctrls).to(dev),
+                        torch.from_numpy(sps), method, n_ns, out_hw, step,
+                        auto, colour_scale)
+                # the padding lanes never leave the device
+                host = out[:N].cpu().numpy()
+                bsp.set(tiles=N, padded=Np, paged=True)
             self._observe(Np, N, (time.perf_counter() - t0) * 1e3)
             for i, it in enumerate(items):
                 it[-1].set_result(host[i])

@@ -298,6 +298,12 @@ def for_device(device) -> DrillStackCache:
         return cache
 
 
+def live_caches():
+    """Every device's drill-stack cache."""
+    with _caches_lock:
+        return list(_caches.values())
+
+
 def clear_all() -> None:
     """Empty every device's drill-stack cache (the pressure monitor's
     critical relief)."""

@@ -63,6 +63,7 @@ from __future__ import annotations
 import math
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -196,6 +197,15 @@ def _bucketed_lane(group: SceneGroup) -> BucketedLane:
                         (len(group.params),) + tuple(group.scenes[0].bucket))
 
 
+# every live executor, for the /metrics collectors
+_live: "weakref.WeakSet[WarpExecutor]" = weakref.WeakSet()
+
+
+def live_executors():
+    """The executors alive now (each `OWSServer` has its own)."""
+    return list(_live)
+
+
 class WarpExecutor:
     """Dispatches cached-scene tiles to the fused warp-render kernels."""
 
@@ -227,6 +237,7 @@ class WarpExecutor:
         # window-batch dispatches of `warp_all` by (bh, bw, B)
         self.bucket_stats: Dict[tuple, int] = {}
         self.batcher = RenderBatcher()
+        _live.add(self)
 
     def add_span(self, name: str, t0: float) -> float:
         """Add the time since ``t0`` to stage ``name``; returns now."""

@@ -34,8 +34,11 @@ so a slow writer holds decode back.  The first error of any stage stops
 the others and `run` raises it; the caller closes and unlinks a partial
 sink.  `run` returns the stats: busy seconds per stage, queue
 high-water marks, dedup counts and the executor's leg counts over the
-export (``paged_engaged``, ``paged_declined``, ``paged_gated``).
-``GSKY_EXPORT_PIPELINE=0`` gives the per-tile serial path.
+export (``paged_engaged``, ``paged_declined``, ``paged_gated``).  The
+plan and each stage thread's lifetime are spans of the request's trace
+(``export.plan``, ``export.decode_stage``, ``export.warp_stage``,
+``export.encode_stage``).  ``GSKY_EXPORT_PIPELINE=0`` gives the
+per-tile serial path.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ import torch
 
 from ..geo.crs import parse_crs
 from ..geo.transform import BBox, GeoTransform, transform_bbox
+from ..obs import span as obs_span
 from ..resilience import check_partial, current_token
 from . import autoplan
 from .decode import _device_failure, decode_window
@@ -506,26 +510,40 @@ class ExportPipeline:
                 unhook()
 
     def _run(self, t0: float, ex, legs0: Dict, tok) -> Dict:
-        plan = self._plan()
+        with obs_span("export.plan") as psp:
+            plan = self._plan()
+            psp.set(tiles=len(self.tiles),
+                    granules=self.stats.get("granules", 0))
         q_warp: queue.Queue = queue.Queue(self.queue_depth)
         q_encode: queue.Queue = queue.Queue(self.queue_depth)
-        # stage threads run in a copy of the request's context each (a
-        # Context cannot be entered by two threads at once)
+
+        def traced(span_name, fn, *args):
+            # a stage thread runs in a copy of the request's context (a
+            # Context cannot be entered by two threads at once), its
+            # lifetime one span of the request's trace
+            ctx = contextvars.copy_context()
+
+            def body():
+                with obs_span(span_name):
+                    fn(*args)
+            return lambda: ctx.run(body)
+
         decode_t = threading.Thread(
-            target=contextvars.copy_context().run,
-            args=(self._decode_stage, plan, q_warp),
+            target=traced("export.decode_stage", self._decode_stage, plan,
+                          q_warp),
             name="gsky-export-plan", daemon=True)
         enc_busy = [[0.0] for _ in range(self.encode_workers)]
         encoders = [threading.Thread(
-            target=contextvars.copy_context().run,
-            args=(self._encode_stage, q_encode, enc_busy[i]),
+            target=traced("export.encode_stage", self._encode_stage,
+                          q_encode, enc_busy[i]),
             name=f"gsky-export-encode-{i}", daemon=True)
             for i in range(self.encode_workers)]
         decode_t.start()
         for t in encoders:
             t.start()
         try:
-            self._warp_stage(q_warp, q_encode)
+            with obs_span("export.warp_stage"):
+                self._warp_stage(q_warp, q_encode)
         finally:
             # every stage must see a sentinel or the stop flag
             for _ in encoders:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import tsan
 from ..ops.paged import page_shape
 from ..resilience.pressure import staging_allowed
 
@@ -95,6 +96,9 @@ class PagePool:
         # the port has no teardown yet (ROADMAP A.10), so it stays 0
         self._handoff_gen = 0
         _live.add(self)
+        if tsan.enabled():
+            # lockset tracking across staging, dispatch and relief
+            tsan.track(self, "PagePool")
 
     # -- internals (hold self.lock) -----------------------------------
 

@@ -319,13 +319,15 @@ class TilePipeline:
     def render_composite_byte(self, req: GeoTileRequest,
                               offset: float = 0.0, scale: float = 0.0,
                               clip: float = 0.0, colour_scale: int = 0,
-                              auto: bool = True):
+                              auto: bool = True,
+                              stats: Optional[Dict[str, int]] = None):
         """One-dispatch GetMap: the PNG-ready uint8 (H, W) (255 =
         nodata), a host array when a wave rendered it, else a tensor on
         the pipeline's device; or None when the request does not qualify
-        (mask band, no granules, uncacheable scenes)."""
+        (mask band, no granules, uncacheable scenes).  ``stats`` gets
+        the granule and file counts."""
         t0 = time.perf_counter()
-        made = self.composite_prep(req)
+        made = self.composite_prep(req, stats)
         self.executor.add_span("index", t0)
         if made is None:
             return None

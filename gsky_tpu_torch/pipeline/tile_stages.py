@@ -21,12 +21,17 @@ serial ladder instead.  The gates' sizes: ``GSKY_TILE_DECODE_WORKERS``
 (default 4) and ``GSKY_TILE_DISPATCH_SLOTS`` (default 2).
 
 Per-request spans (``spans``): seconds of plan, index, decode, dispatch
-and readback, and the gates' queue high-water marks.  Each stage
-checks the request's cancel token (`resilience.cancel`) where the
-reference's does: decode before its gate and per granule, dispatch
-before and after its gate, readback before the copy; an abandoned
-request unwinds there with `RequestCancelled`.  Not ported: the trace
-spans (A.16), the device guard's readback probe (A.10).
+and readback, and the gates' queue high-water marks.  The same stages
+are the trace's ``tile.plan``, ``tile.index`` (the MAS query inside the
+plan, recorded after it), ``tile.decode``, ``tile.dispatch`` and
+``tile.readback`` spans (`obs.trace`), with the reference's attributes.
+A dispatch marks the ingest ledger's device-busy window
+(`ingest.stats.dispatch_inflight`).  Each stage checks the request's
+cancel token (`resilience.cancel`) where the reference's does: decode
+before its gate and per granule, dispatch before and after its gate,
+readback before the copy; an abandoned request unwinds there with
+`RequestCancelled`.  Not ported: the device guard's readback probe
+(A.10).
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..ingest import stats as ingest_stats
+from ..obs import record_span, span as obs_span
 from ..resilience import check_cancel
 from .batcher import batching_enabled
 from .decode import _device_failure
@@ -164,12 +171,19 @@ def _dispatch_stage(dispatch, spans: Dict):
     check_cancel("dispatch")
     t0 = time.perf_counter()
     try:
-        if waves_enabled() or batching_enabled():
-            return dispatch()
-        with _gate("dispatch").enter(spans, "dispatch_queue_max"):
-            # the client may have gone while this request queued
-            check_cancel("dispatch")
-            return dispatch()
+        with ingest_stats.dispatch_inflight(), \
+                obs_span("tile.dispatch") as sp:
+            try:
+                if waves_enabled() or batching_enabled():
+                    sp.set(batched=batching_enabled(),
+                           waved=waves_enabled())
+                    return dispatch()
+                with _gate("dispatch").enter(spans, "dispatch_queue_max"):
+                    # the client may have gone while this request queued
+                    check_cancel("dispatch")
+                    return dispatch()
+            finally:
+                sp.set(queue_max=spans.get("dispatch_queue_max", 0))
     finally:
         spans["dispatch_s"] = spans.get("dispatch_s", 0.0) \
             + time.perf_counter() - t0
@@ -180,7 +194,9 @@ def _readback(out, spans: Dict) -> np.ndarray:
     copied (waiting for its launch)."""
     check_cancel("readback")
     t0 = time.perf_counter()
-    arr = out if isinstance(out, np.ndarray) else out.cpu().numpy()
+    with obs_span("tile.readback") as sp:
+        arr = out if isinstance(out, np.ndarray) else out.cpu().numpy()
+        sp.set(bytes=int(arr.nbytes))
     spans["readback_s"] = spans.get("readback_s", 0.0) \
         + time.perf_counter() - t0
     return arr
@@ -198,18 +214,28 @@ def render_staged(pipe, req, n_exprs: int, offset: float = 0.0,
     path does)."""
     spans = spans if spans is not None else {}
     t0 = time.perf_counter()
-    if n_exprs == 1:
-        made = pipe.composite_prep(req, stats, spans)
-        pipe.executor.add_span("index", t0)
-    elif n_exprs == 3:
-        made = pipe._bands_prep(req, n_bands=3, stats=stats, spans=spans)
-    else:
-        made = pipe._bands_prep(req, stats=stats, spans=spans)
+    with obs_span("tile.plan") as psp:
+        if n_exprs == 1:
+            made = pipe.composite_prep(req, stats, spans)
+            pipe.executor.add_span("index", t0)
+        elif n_exprs == 3:
+            made = pipe._bands_prep(req, n_bands=3, stats=stats,
+                                    spans=spans)
+        else:
+            made = pipe._bands_prep(req, stats=stats, spans=spans)
+        psp.set(qualified=made is not None)
     spans["plan_s"] = spans.get("plan_s", 0.0) + max(
         0.0, time.perf_counter() - t0 - spans.get("index_s", 0.0))
+    if spans.get("index_s"):
+        # the MAS query ran inside the plan: its own span, ending where
+        # the plan ended
+        record_span("tile.index", spans["index_s"])
     if made is None:
         return None
-    _decode_stage(pipe, req, made[0], spans)
+    with obs_span("tile.decode") as dsp:
+        _decode_stage(pipe, req, made[0], spans)
+        dsp.set(granules=len(made[0]),
+                queue_max=spans.get("decode_queue_max", 0))
     args = (offset, scale, clip, colour_scale, auto)
     if n_exprs == 1:
         kind = "composite"

@@ -50,8 +50,12 @@ cancel token: a request whose token fires stops waiting within one poll
 tick, its entry is dropped at assembly with its pins released, a staged
 wave whose every lane was cancelled is not launched (a partly cancelled
 one is, and its dead lanes are discarded at readback), and ``stats()``
-counts them in ``cancelled``.  Not ported: mesh waves (A.11),
-`device_guard` supervision (A.10).
+counts them in ``cancelled``.  Each launch is a
+``gsky_wave_dispatches_total{kind}`` tick and a ``gsky_wave_occupancy``
+sample; assembly times, inter-wave gaps and staged groups are
+``gsky_wave_assembly_ms``, ``gsky_wave_gap_ms`` and
+``gsky_wave_staged_total`` (`obs.metrics`).  Not ported: mesh waves
+(A.11), `device_guard` supervision (A.10).
 """
 
 from __future__ import annotations
@@ -70,6 +74,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import tsan
+from ..obs.metrics import WAVE_ASSEMBLY_MS, WAVE_DISPATCHES, WAVE_GAP_MS, \
+    WAVE_OCCUPANCY, WAVE_STAGED
 from ..ops import paged
 from ..ops.expr import fingerprint_hash
 from ..ops.paged import PARAMS_W, expr_epilogue, scale_lanes, \
@@ -348,6 +355,10 @@ class WaveScheduler:
         self._gap_ms: List[float] = []
         self.gap_total_ms = 0.0
         self.busy_total_ms = 0.0
+        if tsan.enabled():
+            # lockset tracking across the ticker, dispatcher, drainer
+            # and request threads
+            tsan.track(self, "WaveScheduler")
 
     # -- knobs ---------------------------------------------------------
 
@@ -535,9 +546,11 @@ class WaveScheduler:
         if readback:
             self._put_readback(readback)
         if dispatched:
+            ms = (time.perf_counter() - t0) * 1e3
             with self._lock:
                 self.waves += 1
-                self.assembly_ms_last = (time.perf_counter() - t0) * 1e3
+                self.assembly_ms_last = ms
+            WAVE_ASSEMBLY_MS.observe(ms)
         return dispatched
 
     def assemble_once(self) -> int:
@@ -560,10 +573,13 @@ class WaveScheduler:
             with self._lock:
                 self.staged_waves += 1
                 self.stage_ms_last = (time.perf_counter() - t0) * 1e3
+            WAVE_STAGED.inc()
             self._q_put(sg)
         if staged_n:
+            ms = (time.perf_counter() - t0) * 1e3
             with self._lock:
-                self.assembly_ms_last = (time.perf_counter() - t0) * 1e3
+                self.assembly_ms_last = ms
+            WAVE_ASSEMBLY_MS.observe(ms)
         return staged_n
 
     def _stage_group(self, kind: str, key: tuple,
@@ -660,6 +676,8 @@ class WaveScheduler:
                     self.gap_total_ms += gap
                 self.busy_total_ms += (t1 - t0) * 1e3
                 self._t_dispatch_end = t1
+            if gap is not None:
+                WAVE_GAP_MS.observe(gap)
         with self._lock:
             self.dispatches += 1
             n = len(es)
@@ -668,6 +686,8 @@ class WaveScheduler:
                 self.superblock_lanes += n
             if plan is not None and plan.route == "bucketed":
                 self.bucketed_lanes += n
+        WAVE_DISPATCHES.labels(kind=kind).inc()
+        WAVE_OCCUPANCY.observe(float(n))
         return devs
 
     def _fail(self, entries: List[_Entry], exc: Exception):

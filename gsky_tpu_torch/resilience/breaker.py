@@ -19,7 +19,7 @@ import threading
 import time
 from typing import Callable, Dict
 
-from .registry import registry
+from .registry import note_event, registry
 
 
 class BackendUnavailable(RuntimeError):
@@ -100,6 +100,7 @@ class CircuitBreaker:
         with self._lock:
             self.failures += 1
             self._consecutive += 1
+            old = self._state
             if self._state == self.HALF_OPEN or (
                     self._state == self.CLOSED
                     and self._consecutive >= self.failure_threshold):
@@ -107,6 +108,9 @@ class CircuitBreaker:
                 self._opened_at = self._clock()
                 self._probing = False
                 self.opens += 1
+            tripped = self._state == self.OPEN and old != self.OPEN
+        if tripped:
+            note_event("breaker_open", site=self.name)
 
     def retry_after(self) -> float:
         with self._lock:

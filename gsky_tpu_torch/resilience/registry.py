@@ -3,16 +3,27 @@
 Counterpart of `gsky_tpu/resilience/registry.py`.  One shared registry
 collects retry counts, exhaustions, injected-fault counts, deadline
 exhaustions and degraded-response totals, plus a handle on every
-circuit breaker made through ``get_breaker``.  `stats` is the block a
-metrics endpoint reads.  The reference's ``note_event`` also ticks a
-trace event and a Prometheus counter; those come with the ``obs``
-slice (ROADMAP A.16), so here it only counts.
+circuit breaker made through ``get_breaker``.  `stats` is the block
+``/debug`` and the ``/metrics`` collectors read.  Retries, exhausted
+budgets, degraded responses, exhausted deadlines and breaker trips are
+also `note_event`s: a point event on the request's trace and a tick of
+``gsky_trace_events_total``.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Dict
+
+from ..obs import event
+from ..obs.metrics import TRACE_EVENTS
+
+
+def note_event(kind: str, **attrs) -> None:
+    """A point event on the current trace's root and a tick of
+    ``gsky_trace_events_total{kind}``."""
+    TRACE_EVENTS.labels(kind=kind).inc()
+    event(kind, **attrs)
 
 
 class ResilienceRegistry:
@@ -29,10 +40,12 @@ class ResilienceRegistry:
     def count_retry(self, site: str) -> None:
         with self._lock:
             self._retries[site] = self._retries.get(site, 0) + 1
+        note_event("retry", site=site)
 
     def count_exhausted(self, site: str) -> None:
         with self._lock:
             self._exhausted[site] = self._exhausted.get(site, 0) + 1
+        note_event("retry_exhausted", site=site)
 
     def count_fault(self, site: str) -> None:
         with self._lock:
@@ -41,10 +54,12 @@ class ResilienceRegistry:
     def count_degraded(self) -> None:
         with self._lock:
             self.degraded_responses += 1
+        note_event("degraded")
 
     def count_deadline(self) -> None:
         with self._lock:
             self.deadline_exhausted += 1
+        note_event("deadline_exceeded")
 
     # ---- breakers ----------------------------------------------------
     def register_breaker(self, breaker) -> None:

@@ -1,7 +1,8 @@
 """The port's OWS server on the command line.
 
     python -m gsky_tpu_torch.server.main -port 8080 -conf DIR \\
-        [-local_mas FILE] [-device cpu] [-check_conf]
+        [-local_mas FILE] [-device cpu] [-log_dir DIR] [-verbose] \\
+        [-check_conf]
 
 ``-conf`` is the root of a config.json tree.  Without ``-local_mas``
 each namespace reaches the masapi at its ``mas_address`` over HTTP
@@ -10,8 +11,12 @@ each namespace reaches the masapi at its ``mas_address`` over HTTP
 crawler output file (JSON lines or TSV) instead.  The server renders
 on the CUDA card unless ``-device cpu`` is given, and raises without
 one, behind the process-wide serving gateway (response cache and
-single-flight), as the reference's.  Counterpart of
-`gsky_tpu/server/main.py`, without its metrics log, prewarm and drain.
+single-flight), as the reference's.  Each request is one JSON record of
+the metrics log: on stdout with ``-verbose``, in size-rotated gzip
+files under ``-log_dir`` (`server.metrics.MetricsLogger`), else only
+folded into ``/debug`` and ``/metrics``.  ``GSKY_TSAN=1`` installs the
+lockset race sanitizer before any server lock exists.  Counterpart of
+`gsky_tpu/server/main.py`, without its prewarm, drain and static files.
 """
 
 from __future__ import annotations
@@ -22,11 +27,16 @@ import sys
 from ..index.api import ingest_file
 from ..index.client import MASClient
 from ..index.store import MASStore
+from ..obs import tsan
 from .config import ConfigWatcher
+from .metrics import MetricsLogger
 from .ows import OWSServer
 
 
 def main(argv=None) -> int:
+    # GSKY_TSAN=1: patch threading.Lock/RLock before any server lock
+    # exists, so that every lock takes part in the lockset tracking
+    tsan.maybe_install()
     ap = argparse.ArgumentParser(prog="gsky-ows-torch",
                                  description="GSKY OGC web server, "
                                              "PyTorch/CUDA port")
@@ -40,6 +50,11 @@ def main(argv=None) -> int:
                          "is reached over HTTP)")
     ap.add_argument("-device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("-log_dir", default="",
+                    help="metrics log directory (default stdout with "
+                         "-verbose, else none)")
+    ap.add_argument("-verbose", "-v", action="store_true",
+                    help="write the metrics log to stdout")
     ap.add_argument("-check_conf", action="store_true",
                     help="validate configuration and exit")
     args = ap.parse_args(argv)
@@ -65,7 +80,9 @@ def main(argv=None) -> int:
         print(f"OK: {len(watcher.configs)} namespace(s), {n} layer(s)")
         return 0
 
-    server = OWSServer(watcher, mas_factory, device=args.device)
+    server = OWSServer(watcher, mas_factory, device=args.device,
+                       metrics=MetricsLogger(args.log_dir,
+                                             verbose=args.verbose))
     httpd = server.serve(args.host, args.port)
     print(f"gsky-ows-torch listening on {args.host}:"
           f"{httpd.server_address[1]} ({server.device})", flush=True)
@@ -76,6 +93,7 @@ def main(argv=None) -> int:
     finally:
         httpd.shutdown()
         httpd.server_close()
+        server.metrics.flush()
     return 0
 
 

@@ -117,9 +117,21 @@ GetCoverage in a config of several ``ows_cluster_nodes`` (peer shards,
 A.10).  A namespace's MAS is its ``mas_address`` over HTTP
 (`MASClient`), unless the server is given a ``mas_factory`` (an
 in-process store).  A WPS process over a VRT drills through the
-template it names.  Not ported: the metrics collector and ``/debug``
-(the counters are `stats()` dicts), drain, the cache fabric and remote
-workers.
+template it names.
+
+Observability, as the reference's (`obs`): every ``/ows`` request is a
+trace (``ows.request``, ``GSKY_TRACE=0`` turns it off) whose spans are
+the gateway's (``gateway.lookup``, ``gateway.admission``, ``render``,
+``gateway.singleflight``), the staged tile path's (``tile.*``), the
+encode's, the batcher's and the export engine's; it ends in the flight
+recorder.  Every request is one record of the metrics log
+(`server.metrics.MetricsCollector`, logged with its status).  Routes:
+``GET /metrics`` (Prometheus text), ``/debug`` (the summary and the
+subsystems' stats), ``/debug/trace`` (the recorder's list, ``?format=
+jsonl`` its dump, ``?slowest=1`` the slowest trace), ``/debug/trace/<id>``
+(one span tree) and ``/debug/profile?seconds=N`` (a `torch.profiler`
+capture, CUDA kernels included on a card server, written as a Chrome
+trace).  Not ported: drain, the cache fabric and remote workers.
 """
 
 from __future__ import annotations
@@ -141,11 +153,12 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Iterator, List, Mapping, Optional, \
     Tuple
-from urllib.parse import parse_qs, urlsplit
+from urllib.parse import parse_qs, urlencode, urlsplit
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..geo import geometry as geom
 from ..geo.crs import parse_crs
@@ -158,7 +171,8 @@ from ..ingest.prefetch import default_planner
 from ..io.geotiff import GeoTIFFWriter, write_geotiff
 from ..io.netcdf import write_netcdf3
 from ..io.png import ApngAssembler, empty_tile_png, encode_jpeg, \
-    encode_png, encode_rgba_png
+    encode_png, encode_rgba_png, encode_timed
+from ..obs import metrics as obs_metrics
 from ..ops.palette import gradient_palette, with_nodata_entry
 from ..ops.scale import scale_params_auto, scale_to_byte
 from ..pipeline.drill import DrillPipeline, drill_csv
@@ -171,6 +185,7 @@ from ..pipeline.tile import TilePipeline, evaluate_expressions
 from ..pipeline.tile_stages import render_staged, tile_pipeline_enabled
 from ..pipeline.types import AxisSelector, GeoDrillRequest, \
     GeoTileRequest, MaskSpec
+from ..pipeline.waves import wave_stats
 from ..ops.paged import page_shape
 from ..pipeline.decode import _pixel_window
 from ..resilience import BackendUnavailable, CancelToken, Deadline, \
@@ -182,6 +197,7 @@ from ..serving import AdmissionShed, ServingGateway, canonical_key, \
 from . import dap4
 from . import templates as T
 from .config import Config, ConfigWatcher, Layer, get_layer_dates
+from .metrics import MetricsCollector, MetricsLogger
 from .params import OWSError, infer_service, normalise_query, parse_wcs, \
     parse_wms, parse_wps
 
@@ -313,7 +329,8 @@ class _Clock:
 class OWSServer:
     def __init__(self, watcher: ConfigWatcher, mas_factory=None,
                  device="cuda", temp_dir: str = "",
-                 gateway=_GATEWAY_DEFAULT):
+                 gateway=_GATEWAY_DEFAULT,
+                 metrics: Optional[MetricsLogger] = None):
         """``mas_factory(address)`` gives a namespace's `MASClient`;
         without one, a namespace's client reaches its ``mas_address``
         over HTTP (timeout ``mas_timeout``).
@@ -322,7 +339,10 @@ class OWSServer:
         system's, which honours TMPDIR) holds coverage files while they
         are written and sent.  ``gateway``: the `ServingGateway` in
         front of GetMap and GetCoverage, by default the process-wide
-        `serving.default_gateway`; None serves every request raw."""
+        `serving.default_gateway`; None serves every request raw.
+        ``metrics``: the request records' `MetricsLogger` (by default
+        one with no sink, which still feeds ``/debug`` and
+        ``/metrics``)."""
         self.device = resolve_device(device)
         self.watcher = watcher
         self.gateway: Optional[ServingGateway] = \
@@ -331,6 +351,10 @@ class OWSServer:
             _register_gateway_invalidation(watcher, self.gateway)
         self.mas_factory = mas_factory
         self.temp_dir = temp_dir or tempfile.gettempdir()
+        self.metrics = metrics or MetricsLogger()
+        # one profiler capture at a time: two overlapping captures
+        # collide in the profiler
+        self._profile_mutex = threading.Lock()
         # the stats of the last multi-tile export (`ExportPipeline.run`)
         self.last_export: Dict[str, object] = {}
         # one executor (scene cache, page pool) for every namespace
@@ -404,7 +428,8 @@ class OWSServer:
     def _serve_gated(self, key: Optional[str], meta,
                      req_headers: Optional[Mapping[str, str]],
                      render: Callable[[], Response],
-                     service_class: str = "WMS") -> Response:
+                     service_class: str,
+                     collector: MetricsCollector) -> Response:
         """Response cache, then single-flight, then admission, then
         ``render()``.  A hit renders nothing and takes no admission
         slot; on a miss one request per key renders (under the class's
@@ -413,26 +438,39 @@ class OWSServer:
         joiners render their own.  When the backend is down
         (`BackendUnavailable`) or too many granules failed
         (`TooManyFailures`), an entry past its TTL but within the stale
-        grace is replayed, labelled ``no-store``."""
+        grace is replayed, labelled ``no-store``.  The record's
+        ``response_cache`` says which of hit, miss, join or stale it
+        was."""
         gw = self.gateway
         if gw is None or key is None:
             with self._admit(service_class):
                 return render()
-        ent = gw.cache.get(key)
+        with obs.span("gateway.lookup") as lsp:
+            ent = gw.cache.get(key)
+            lsp.set(hit=ent is not None)
         if ent is not None:
+            collector.info["response_cache"] = "hit"
             return _replay(req_headers, ent, "hit")
 
         def flight():
+            t0, pc0 = time.time(), time.perf_counter()
             with self._admit(service_class):
-                return _freeze_response(render())
+                obs.record_span("gateway.admission",
+                                time.perf_counter() - pc0, t0=t0,
+                                service=service_class)
+                with obs.span("render", service=service_class):
+                    return _freeze_response(render())
 
         try:
-            frozen, joined = gw.flight.do(key, flight)
+            with obs.span("gateway.singleflight") as fsp:
+                frozen, joined = gw.flight.do(key, flight)
+                fsp.set(joined=joined)
         except (BackendUnavailable, TooManyFailures):
             stale = gw.cache.get_stale(key)
             if stale is None:
                 raise
             mark_degraded("stale-cache")
+            collector.info["response_cache"] = "stale"
             return _replay(req_headers, stale, "stale")
         if not isinstance(frozen, tuple):     # a file or a stream
             if joined:
@@ -447,7 +485,9 @@ class OWSServer:
         # holes after the fault cleared
         if status == 200 and not joined and not degraded_reasons():
             gw.cache.put(key, ent)
-        return _replay(req_headers, ent, "join" if joined else "miss")
+        tag = "join" if joined else "miss"
+        collector.info["response_cache"] = tag
+        return _replay(req_headers, ent, tag)
 
     # -- dispatch -----------------------------------------------------------
 
@@ -455,25 +495,76 @@ class OWSServer:
                body: Optional[bytes] = None,
                headers: Optional[Mapping[str, str]] = None,
                remote: str = "",
-               probe: Optional[Callable[[], Optional[str]]] = None
-               ) -> Response:
-        """One request: ``path`` (``/ows`` or ``/ows/<namespace>``),
+               probe: Optional[Callable[[], Optional[str]]] = None,
+               raw_url: str = "") -> Response:
+        """One request: ``path`` (``/ows`` or ``/ows/<namespace>``, or
+        one of the observability routes: ``/metrics``, ``/debug``,
+        ``/debug/trace``, ``/debug/trace/<id>``, ``/debug/profile``),
         ``query`` (a mapping of key to value or to a list of values),
         ``host`` (the Host header, for the documents' URLs), ``body``
         (a POST's body: a WPS Execute document), ``headers`` (the
-        request's, read for ``If-None-Match`` and the tenant),
-        ``remote`` (the client's address, the tenant's last resort) and
-        ``probe`` (the request's cancel probe: a reason once its client
-        has gone).  A cancelled request's status is `CLIENT_GONE`."""
+        request's, read for ``If-None-Match``, the tenant and
+        ``X-Forwarded-For``), ``remote`` (the client's address, the
+        tenant's last resort), ``probe`` (the request's cancel probe: a
+        reason once its client has gone) and ``raw_url`` (the request
+        line's target, for the metrics record).  A cancelled request's
+        status is `CLIENT_GONE`; it is neither logged nor counted."""
+        if path == "/metrics":
+            return self._metrics()
+        if path == "/debug":
+            return self._debug()
+        if path == "/debug/trace":
+            return self._debug_trace(normalise_query(query))
+        if path.startswith("/debug/trace/"):
+            return self._debug_trace_one(path[len("/debug/trace/"):])
+        if path == "/debug/profile":
+            return self._debug_profile(normalise_query(query))
+        if path.rstrip("/") == "/ows":
+            ns = ""
+        elif path.startswith("/ows/"):
+            ns = path[len("/ows/"):]
+        else:
+            return Response(404, "text/plain", b"404: Not Found")
+        # the trace is born here and ends in the flight recorder
+        # (GSKY_TRACE=0: none)
+        with obs.start_trace("ows.request", path=path) as otrace:
+            resp = self._handle_ows(ns, path, query, host, body, headers,
+                                    remote, probe, raw_url)
+            if otrace is not None:
+                if resp.status == CLIENT_GONE:
+                    otrace.root.attrs.setdefault("error",
+                                                 "RequestCancelled")
+                else:
+                    otrace.status = resp.status
+                deg = resp.headers.get("X-GSKY-Degraded")
+                if deg:
+                    otrace.degraded = deg.split(",")
+        return resp
+
+    def _handle_ows(self, ns: str, path: str, query, host: str,
+                    body: Optional[bytes],
+                    headers: Optional[Mapping[str, str]], remote: str,
+                    probe, raw_url: str) -> Response:
+        """One ``/ows`` request inside its trace: its metrics record,
+        tenant, request and cancel scopes around `_answer`; the record
+        is logged with the answer's status."""
         clock = _Clock()
         t0 = clock.last
         req_headers = {k.lower(): v for k, v in (headers or {}).items()}
+        q = normalise_query(query)
+        collector = self.metrics.collector()
+        collector.set_url(raw_url or _raw_url(path, q), path, q)
+        collector.set_remote(req_headers.get("x-forwarded-for", remote)
+                             .split(",")[0].strip())
+        obs.set_attr(verb="DAP4.ce" if "dap4.ce" in q else
+                     f"{q.get('service', '?')}.{q.get('request', '?')}",
+                     ns=ns)
         tenant_tok = _TENANT.set(_tenant_of(req_headers, query, remote))
         try:
             with request_scope() as rstate, \
                     cancel_scope(CancelToken(probe=probe)) as tok:
-                resp = self._answer(path, query, host, clock, body,
-                                    req_headers, tok)
+                resp = self._answer(ns, q, path, host, clock, body,
+                                    req_headers, tok, collector)
                 reasons = sorted(set(rstate.reasons))
         finally:
             _TENANT.reset(tenant_tok)
@@ -481,18 +572,23 @@ class OWSServer:
             # a partial result: still a 200, labelled
             resp.headers["X-GSKY-Degraded"] = ",".join(reasons)
             registry.count_degraded()
+            collector.info["degraded"] = reasons
+        if resp.status != CLIENT_GONE:
+            collector.log(resp.status)
         with self._lock:
             for k, v in clock.spans.items():
                 self.spans[k] += v
             self.spans["handle"] += time.perf_counter() - t0
         return resp
 
-    def _answer(self, path: str, query, host: str, clock: _Clock,
-                body: Optional[bytes], req_headers: Mapping[str, str],
-                tok: CancelToken) -> Response:
+    def _answer(self, ns: str, q: Dict[str, str], path: str, host: str,
+                clock: _Clock, body: Optional[bytes],
+                req_headers: Mapping[str, str], tok: CancelToken,
+                collector: MetricsCollector) -> Response:
         """`_handle`'s response, or the one its error maps to."""
         try:
-            return self._handle(path, query, host, clock, body, req_headers)
+            return self._handle(ns, q, path, host, clock, body,
+                                req_headers, collector)
         except AdmissionShed as e:
             # shed, do not queue into latency collapse: a fast 503 with
             # Retry-After so that clients back off
@@ -530,16 +626,10 @@ class OWSServer:
             return _exception_response(OWSError(
                 f"internal error: {e}", status=500))
 
-    def _handle(self, path: str, query, host: str, clock: _Clock,
-                body: Optional[bytes] = None,
-                req_headers: Optional[Mapping[str, str]] = None) -> Response:
-        if path.rstrip("/") == "/ows":
-            ns = ""
-        elif path.startswith("/ows/"):
-            ns = path[len("/ows/"):]
-        else:
-            return Response(404, "text/plain", b"404: Not Found")
-        q = normalise_query(query)
+    def _handle(self, ns: str, q: Dict[str, str], path: str, host: str,
+                clock: _Clock, body: Optional[bytes],
+                req_headers: Mapping[str, str],
+                collector: MetricsCollector) -> Response:
         cfg = self.watcher.get(ns)
         if cfg is None:
             raise OWSError(f"no configuration for namespace {ns!r}",
@@ -549,16 +639,19 @@ class OWSServer:
                 return self.serve_dap(cfg, q, clock)
         svc = infer_service(q)
         if svc == "WCS":
-            return self.serve_wcs(path, cfg, q, host, clock, req_headers)
+            return self.serve_wcs(path, cfg, q, host, clock, req_headers,
+                                  collector)
         if svc == "WPS":
             return self.serve_wps(path, cfg, q, host, body)
-        return self.serve_wms(path, cfg, q, host, clock, req_headers)
+        return self.serve_wms(path, cfg, q, host, clock, req_headers,
+                              collector)
 
     # -- WMS ----------------------------------------------------------------
 
     def serve_wms(self, path: str, cfg: Config, q: Dict[str, str],
                   host: str, clock: _Clock,
-                  req_headers: Optional[Mapping[str, str]] = None) -> Response:
+                  req_headers: Optional[Mapping[str, str]],
+                  collector: MetricsCollector) -> Response:
         p = parse_wms(q)
         req_name = p.request.lower()
         if req_name == "getcapabilities" or not req_name:
@@ -573,7 +666,8 @@ class OWSServer:
         if req_name == "getlegendgraphic":
             return self._legend(cfg, q)
         if req_name == "getmap":
-            return self._getmap_gated(cfg, p, q, clock, req_headers)
+            return self._getmap_gated(cfg, p, q, clock, req_headers,
+                                      collector)
         if req_name == "getfeatureinfo":
             with self._admit("WMS"):
                 return self._feature_info(cfg, p)
@@ -688,8 +782,8 @@ class OWSServer:
 
     def _getmap_gated(self, cfg: Config, p, q: Dict[str, str],
                       clock: _Clock,
-                      req_headers: Optional[Mapping[str, str]]
-                      ) -> Response:
+                      req_headers: Optional[Mapping[str, str]],
+                      collector: MetricsCollector) -> Response:
         """GetMap through the serving gateway.  A request complete
         enough to resolve (layer, bbox, crs, size) is keyed and noted
         for the prefetch planner; an incomplete one goes to `_getmap`
@@ -705,8 +799,10 @@ class OWSServer:
                 and not is_anim:
             key, meta = self._response_key(cfg, "map", p.layers[0], "wms",
                                            p, q)
-        return self._serve_gated(key, meta, req_headers,
-                                 lambda: self._getmap(cfg, p, clock), "WMS")
+        return self._serve_gated(
+            key, meta, req_headers,
+            lambda: self._getmap(cfg, p, clock, collector), "WMS",
+            collector)
 
     def _note_prefetch(self, cfg: Config, p) -> None:
         """Feed one resolvable GetMap key to the prefetch planner,
@@ -782,7 +878,8 @@ class OWSServer:
         except Exception:  # a miss stages on demand
             pass
 
-    def _getmap(self, cfg: Config, p, clock: _Clock) -> Response:
+    def _getmap(self, cfg: Config, p, clock: _Clock,
+                collector: MetricsCollector) -> Response:
         if not p.layers:
             raise OWSError("no layers requested", "LayerNotDefined")
         if p.bbox is None or p.crs is None:
@@ -826,7 +923,8 @@ class OWSServer:
         fmt = p.format.lower()
         if len(p.times) > 1 and fmt in _ANIM_FORMATS and anim_enabled() \
                 and not lay.input_layers:
-            return self._getmap_animation(cfg, p, lay, source, style, clock)
+            return self._getmap_animation(cfg, p, lay, source, style, clock,
+                                          collector)
         req = self._tile_request(source, style, p, p.width, p.height,
                                  lay.wms_polygon_segments)
         n_exprs = len(req.band_exprs.expr_names)
@@ -834,14 +932,24 @@ class OWSServer:
         auto = scale_params_auto(style.offset_value, style.scale_value,
                                  style.clip_value)
         clock.mark("parse")
+        t0 = time.time()
         # one budget for the render: every stage and every downstream
         # timeout draws from what is left of wms_timeout
         with deadline_scope(Deadline(lay.wms_timeout)) as dl:
-            scaled, rgba = _bounded(dl, self._render_tile, pipe, req, lay,
-                                    style, n_exprs, auto)
+            scaled, rgba, rec = _bounded(dl, self._render_tile, pipe, req,
+                                         lay, style, n_exprs, auto)
+        info = collector.info
+        info["indexer"]["num_granules"] = rec["granules"]
+        info["indexer"]["num_files"] = rec["files"]
+        if rec["device_s"] is not None:
+            info["device"]["duration"] = int(rec["device_s"] * 1e9)
+            info["device"]["platform"] = self.device.type
+        spans = rec["spans"]
         if rgba is not None and fmt not in _JPEG_FORMATS:
             clock.mark("render")
-            png = encode_rgba_png(rgba, compress_level=level)
+            info["rpc"]["duration"] = int((time.time() - t0) * 1e9)
+            png = self._encode_tile(encode_rgba_png, rgba,
+                                    compress_level=level, spans=spans)
             clock.mark("encode")
             return _png(png)
         if scaled is None:
@@ -850,8 +958,9 @@ class OWSServer:
             clock.mark("encode")
             return _png(png)
         clock.mark("render")
+        info["rpc"]["duration"] = int((time.time() - t0) * 1e9)
         if fmt in _JPEG_FORMATS:
-            body = encode_jpeg(scaled[:3])
+            body = self._encode_tile(encode_jpeg, scaled[:3], spans=spans)
             clock.mark("encode")
             return Response(200, "image/jpeg", body)
         palette = None
@@ -859,55 +968,92 @@ class OWSServer:
             spec = style.palette or lay.palette
             palette = with_nodata_entry(
                 gradient_palette(spec.colours, spec.interpolate))
-        png = encode_png(scaled, palette, compress_level=level)
+        png = self._encode_tile(encode_png, scaled, palette,
+                                compress_level=level, spans=spans)
         clock.mark("encode")
         return _png(png)
+
+    def _encode_tile(self, fn, *args, spans: Optional[Dict] = None, **kw):
+        """``fn(*args, **kw)``, an encode, in the request's thread: with
+        the staged tile path on, timed (`io.png.encode_timed`) and the
+        staged render's stage spans folded into the ``/debug``
+        aggregates once it is done; under ``GSKY_TILE_PIPELINE=0``
+        inline, as the reference's escape hatch encodes.  The same
+        bytes either way."""
+        if not tile_pipeline_enabled():
+            with obs.span("encode", inline=True):
+                return fn(*args, **kw)
+        try:
+            return encode_timed(fn, *args, spans=spans, **kw)
+        finally:
+            if spans is not None:
+                self.metrics.record_tile(spans)
 
     def _render_tile(self, pipe: TilePipeline, req: GeoTileRequest,
                      lay: Layer, style: Layer, n_exprs: int, auto: bool):
         """A GetMap's render, through the fused route when it serves the
-        request, else the modular route: (byte planes, rgba), rgba the
-        (H, W, 4) tile of the RGBA rung or None; (None, None) for a tile
-        with no data."""
+        request, else the modular route: (byte planes, rgba, rec), rgba
+        the (H, W, 4) tile of the RGBA rung or None, byte planes None
+        for a tile with no data.  ``rec``: the record's granule and file
+        counts, ``device_s`` the fused route's dispatch plus readback
+        (None on the modular route), ``spans`` the staged path's stage
+        spans (else None)."""
         scaled = rgba = None
+        stats: Dict[str, int] = {}
+        rec = {"device_s": None, "spans": None}
         if not lay.input_layers and 1 <= n_exprs <= 4:
             # the fused route: warp, mosaic and byte scale in one
             # dispatch, one readback
             sp = (style.offset_value, style.scale_value, style.clip_value,
                   style.colour_scale, auto)
-            if tile_pipeline_enabled():
-                made = render_staged(pipe, req, n_exprs, *sp)
+            staged = tile_pipeline_enabled()
+            if staged:
+                spans: Dict = {}
+                made = render_staged(pipe, req, n_exprs, *sp, stats, spans)
+                if made is not None:
+                    rec["spans"] = spans
+                    rec["device_s"] = spans.get("dispatch_s", 0.0) \
+                        + spans.get("readback_s", 0.0)
+                    spans["granules"] = stats.get("granules", 0)
             elif n_exprs == 1:
-                sb = pipe.render_composite_byte(req, *sp)
+                sb = pipe.render_composite_byte(req, *sp, stats=stats)
                 made = None if sb is None else ("composite", sb)
             elif n_exprs == 3:
-                made = self._render_rgb(pipe, req, style, auto)
+                made = self._render_rgb(pipe, req, style, auto, stats)
             else:
-                sb = pipe.render_bands_byte(req, *sp)
+                sb = pipe.render_bands_byte(req, *sp, stats=stats)
                 made = None if sb is None else ("planes", sb)
             if made is not None:
+                td = time.perf_counter()
                 kind, arr = made[0], _host(made[1])
+                if not staged:
+                    # the serial ladder's one readback
+                    rec["device_s"] = time.perf_counter() - td
                 if kind == "rgba":
                     rgba = arr                      # (H, W, 4)
                     scaled = [arr[..., 0], arr[..., 1], arr[..., 2]]
                 else:
                     scaled = [arr] if arr.ndim == 2 else list(arr)
         if scaled is not None:
-            return scaled, rgba
+            rec.update(granules=stats.get("granules", 0),
+                       files=stats.get("files", 0))
+            return scaled, rgba, rec
         res = _render_with_fusion(pipe, req, lay)
+        rec.update(granules=res.granule_count, files=res.file_count)
         bands = [res.data[n] for n in res.namespaces if n in res.data]
         valids = [res.valid[n] for n in res.namespaces if n in res.valid]
         if not bands:
-            return None, None
+            return None, None, rec
         return [scale_to_byte(b, v, offset=style.offset_value,
                               scale=style.scale_value,
                               clip=style.clip_value,
                               colour_scale=style.colour_scale,
                               auto=auto).cpu().numpy()
-                for b, v in zip(bands[:4], valids[:4])], None
+                for b, v in zip(bands[:4], valids[:4])], None, rec
 
     def _getmap_animation(self, cfg: Config, p, lay: Layer, source: Layer,
-                          style: Layer, clock: _Clock) -> Response:
+                          style: Layer, clock: _Clock,
+                          collector: MetricsCollector) -> Response:
         """A TIME animation: one index pass, the frames as lanes of one
         wave (or, for a layer the fused route does not serve, each on
         its own through the modular route), one APNG."""
@@ -926,10 +1072,13 @@ class OWSServer:
         auto = scale_params_auto(style.offset_value, style.scale_value,
                                  style.clip_value)
         clock.mark("parse")
+        t0 = time.time()
+        w0 = _wave_dispatches()
+        stats: Dict[str, int] = {}
         # one budget for the sequence, wms_timeout per frame
         with deadline_scope(Deadline(lay.wms_timeout
                                      * max(1, len(times)))) as dl:
-            made = _bounded(dl, pipe.animation_prep, req, times)
+            made = _bounded(dl, pipe.animation_prep, req, times, stats)
             if made is not None:
                 planes = _bounded(dl, self._anim_frames_wave, pipe, req,
                                   times, made, style, auto)
@@ -937,6 +1086,10 @@ class OWSServer:
                 planes = _bounded(dl, self._anim_frames_serial, pipe, req,
                                   times, lay, style, auto)
         clock.mark("render")
+        info = collector.info
+        info["indexer"]["num_granules"] = stats.get("granules", 0)
+        info["indexer"]["num_files"] = stats.get("files", 0)
+        info["device"]["platform"] = self.device.type
         palette = None
         if all(len(pl) == 1 for pl in planes) \
                 and (style.palette or lay.palette):
@@ -944,10 +1097,16 @@ class OWSServer:
             palette = with_nodata_entry(
                 gradient_palette(spec.colours, spec.interpolate))
         level = _png_level(lay, style)
-        asm = ApngAssembler(len(planes), delay_ms=_anim_delay_ms())
-        body = b"".join(asm.frame(encode_png(pl, palette,
-                                             compress_level=level))
-                        for pl in planes) + asm.trailer()
+        pngs = [self._encode_tile(encode_png, pl, palette,
+                                  compress_level=level) for pl in planes]
+        # dispatch amortisation, telemetry only: concurrent requests
+        # inflate the delta
+        wave_n = max(1, _wave_dispatches() - w0)
+        info["rpc"]["duration"] = int((time.time() - t0) * 1e9)
+        asm = ApngAssembler(len(pngs), delay_ms=_anim_delay_ms())
+        body = b"".join(asm.frame(b_) for b_ in pngs) + asm.trailer()
+        obs_metrics.record_anim_sequence(
+            len(pngs), wave_n, degraded=bool(degraded_reasons()))
         clock.mark("encode")
         headers = {"X-Gsky-Anim-Frames": str(len(planes))}
         if p.format.lower() == "video/mp4":
@@ -957,12 +1116,12 @@ class OWSServer:
 
     @staticmethod
     def _render_rgb(pipe: TilePipeline, req: GeoTileRequest, style: Layer,
-                    auto: bool):
+                    auto: bool, stats: Dict[str, int]):
         """The serial RGB ladder over one index pass: ("rgba", (H, W,
         4)), ("planes", (3, H, W)) or None."""
         return pipe.render_rgb_auto(req, style.offset_value,
                                     style.scale_value, style.clip_value,
-                                    style.colour_scale, auto)
+                                    style.colour_scale, auto, stats)
 
     @staticmethod
     def _anim_frames_wave(pipe: TilePipeline, req: GeoTileRequest, times,
@@ -1089,7 +1248,8 @@ class OWSServer:
 
     def serve_wcs(self, path: str, cfg: Config, q: Dict[str, str],
                   host: str, clock: _Clock,
-                  req_headers: Optional[Mapping[str, str]] = None) -> Response:
+                  req_headers: Optional[Mapping[str, str]],
+                  collector: MetricsCollector) -> Response:
         p = parse_wcs(q)
         req_name = p.request.lower()
         if req_name == "getcapabilities" or not req_name:
@@ -1106,6 +1266,7 @@ class OWSServer:
                 raise _unported("GetCoverage over ows_cluster_nodes peer "
                                 "shards", "A.10")
             return self._getcoverage_gated(cfg, p, q, clock, req_headers,
+                                           collector,
                                            is_shard=bool(q.get("wshard")))
         raise OWSError(f"WCS request {p.request!r} not supported",
                        "OperationNotSupported")
@@ -1113,6 +1274,7 @@ class OWSServer:
     def _getcoverage_gated(self, cfg: Config, p, q: Dict[str, str],
                            clock: _Clock,
                            req_headers: Optional[Mapping[str, str]],
+                           collector: MetricsCollector,
                            is_shard: bool) -> Response:
         """GetCoverage through the serving gateway.  A shard's request
         (``wshard=1``) and an auto-sized one (width or height 0) are not
@@ -1123,9 +1285,10 @@ class OWSServer:
                 and p.width > 0 and p.height > 0:
             key, meta = self._response_key(cfg, "cov", p.coverages[0],
                                            "wcs", p, q)
-        return self._serve_gated(key, meta, req_headers,
-                                 lambda: self._getcoverage(cfg, p, clock),
-                                 "WCS")
+        return self._serve_gated(
+            key, meta, req_headers,
+            lambda: self._getcoverage(cfg, p, clock), "WCS",
+            collector)
 
     def _getcoverage(self, cfg: Config, p, clock: _Clock,
                      dap_stream: bool = False) -> Response:
@@ -1241,6 +1404,7 @@ class OWSServer:
             if stats is not None:
                 with self._lock:
                     self.last_export = stats
+                self.metrics.record_export(stats)
         except BaseException:
             # close and unlink a partial stream file or spool
             if engine is not None:
@@ -1367,6 +1531,129 @@ class OWSServer:
             csv_blocks.append(drill_csv(res, list(res.values)))
         return _xml(T.wps_execute_response(p.identifier, csv_blocks))
 
+    # -- observability ------------------------------------------------------
+
+    def _metrics(self) -> Response:
+        return Response(200, "text/plain; charset=utf-8",
+                        obs.render_metrics().encode(),
+                        {"X-Prometheus-Exposition": "0.0.4"})
+
+    def _debug(self) -> Response:
+        """The metrics summary and the subsystems' stats, the
+        reference's ``/debug`` blocks for what the port has; its ``jax``
+        block is ``torch`` here."""
+        from ..ingest import stats as ingest_stats
+        from ..ingest import prefetch, staging
+        from ..obs.tsan import tsan_stats
+        from ..ops.expr import expr_cache_stats, expr_fuse_enabled
+        from ..ops.paged import expr_fused_stats
+        from ..pipeline import drill_cache
+        from ..pipeline.autoplan import plan_stats
+        from ..resilience import cancel_stats
+        from ..resilience.pressure import default_monitor
+        doc = self.metrics.summary()
+        cuda = self.device.type == "cuda"
+        doc["torch"] = {
+            "backend": self.device.type,
+            "devices": torch.cuda.device_count() if cuda else 1,
+            "name": torch.cuda.get_device_name(self.device) if cuda else ""}
+        doc["plan"] = plan_stats()
+        doc["expr"] = {"fuse": expr_fuse_enabled(),
+                       "cache": expr_cache_stats(), **expr_fused_stats()}
+        ex = self.executor
+        doc["executor"] = {
+            "geo_cache": len(ex._geo_cache),
+            "stride_cache": len(ex._stride_cache),
+            "dispatches": {"x".join(map(str, k)): n
+                           for k, n in ex.bucket_stats.items()},
+            "batcher": ex.batcher.stats(),
+            "paged": {"engaged": ex.paged_engaged,
+                      "declined": ex.paged_declined,
+                      "gated": ex.paged_gated,
+                      "pool": ex.pool.stats()}}
+        doc["scene_cache_bytes"] = ex.cache._bytes
+        doc["drill_cache_bytes"] = sum(c._bytes
+                                       for c in drill_cache.live_caches())
+        doc["ingest"] = {"enabled": ingest_enabled(),
+                         **ingest_stats.snapshot(),
+                         "window_routed": ex.cache.window_routed,
+                         "staged_loads": ex.cache.staged_loads}
+        if prefetch._default is not None:
+            doc["ingest"]["prefetch_planner"] = prefetch._default.stats()
+        if staging._default is not None:
+            doc["ingest"]["staging"] = staging._default.stats()
+        if self.gateway is not None:
+            doc["serving"] = self.gateway.stats()
+        doc["temporal"] = obs_metrics.temporal_stats()
+        doc["cancel"] = cancel_stats()
+        doc["pressure"] = default_monitor().stats()
+        doc["tsan"] = tsan_stats()
+        return _json(doc)
+
+    def _debug_trace(self, q: Dict[str, str]) -> Response:
+        """The flight recorder: its list (``{"stats", "traces"}``), its
+        JSONL dump (``format=jsonl``) or the slowest trace
+        (``slowest=1``)."""
+        rec = obs.default_recorder()
+        if q.get("format") == "jsonl":
+            return Response(200, "application/x-ndjson",
+                            rec.dump_jsonl().encode())
+        if q.get("slowest"):
+            slow = rec.slowest()
+            if slow is None:
+                return Response(404, "text/plain",
+                                b"no traces recorded")
+            return _json(slow)
+        return _json({"stats": rec.stats(), "traces": rec.summary()})
+
+    def _debug_trace_one(self, trace_id: str) -> Response:
+        trace = obs.default_recorder().lookup(trace_id)
+        if trace is None:
+            return Response(404, "text/plain",
+                            f"trace {trace_id!r} not retained".encode())
+        return _json(trace)
+
+    def _debug_profile(self, q: Dict[str, str]) -> Response:
+        """Capture a `torch.profiler` trace for ``seconds`` (default 3,
+        clamped to 0.1-30): CPU and, on a card server, CUDA activity,
+        the hand-written kernels' launches included.  The Chrome trace
+        is written to ``trace.json`` in a new directory under the temp
+        dir: ``{"trace_dir", "seconds"}``.  409 while another capture
+        runs; 503 with ``{"error"}`` when the capture fails."""
+        try:
+            seconds = min(max(float(q.get("seconds", "3")), 0.1), 30.0)
+        except ValueError:
+            seconds = 3.0
+        # one capture at a time: overlapping ones collide in the
+        # profiler
+        if not self._profile_mutex.acquire(blocking=False):
+            return _json({"error": "a profile capture is already in "
+                                   "progress"}, 409)
+        try:
+            out_dir = os.path.join(
+                self.temp_dir,
+                f"gsky_torch_trace_{int(time.time())}_{os.getpid()}")
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            try:
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+                try:
+                    time.sleep(seconds)
+                finally:
+                    # an unstopped profiler would refuse every later
+                    # capture for the life of the process
+                    prof.stop()
+                os.makedirs(out_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(out_dir,
+                                                      "trace.json"))
+            except Exception as e:  # reported, not a 500
+                return _json({"error": f"trace failed: {e}"}, 503)
+        finally:
+            self._profile_mutex.release()
+        return _json({"trace_dir": out_dir, "seconds": seconds})
+
     # -- HTTP -----------------------------------------------------------------
 
     def serve(self, host: str = "127.0.0.1",
@@ -1406,7 +1693,7 @@ class _Handler(BaseHTTPRequestHandler):
             url.path, parse_qs(url.query, keep_blank_values=True),
             self.headers.get("Host", ""), body, self.headers,
             remote=self.client_address[0],
-            probe=_socket_probe(self.connection))
+            probe=_socket_probe(self.connection), raw_url=self.path)
         if resp.status == CLIENT_GONE:
             # the client went away: nothing to send
             self.close_connection = True
@@ -1605,15 +1892,35 @@ def _host_of(host: str, cfg: Config) -> str:
 
 def _spool_chunks(ns_names: List[str], spool) -> Iterator[bytes]:
     """The streamed DAP4 body of a spooled coverage; the spool is closed
-    (and its file unlinked) when the body ends or is dropped."""
+    (and its file unlinked) when the body ends or is dropped.  A body
+    streamed to its end is counted (`obs.metrics.record_dap_stream`)."""
+    stats: Dict = {}
     try:
-        yield from dap4.stream_dap4(ns_names, spool)
+        yield from dap4.stream_dap4(ns_names, spool, stats=stats)
     finally:
         spool.close()
+    obs_metrics.record_dap_stream(stats.get("bytes", 0),
+                                  stats.get("peak_buffer", 0))
+
+
+def _wave_dispatches() -> int:
+    """Wave launches so far, over every device's scheduler."""
+    return sum(w["dispatches"] for w in wave_stats().values())
+
+
+def _raw_url(path: str, q: Mapping[str, str]) -> str:
+    """A request target rebuilt from its path and query, for a caller
+    that did not pass the one it received."""
+    return f"{path}?{urlencode(q)}" if q else path
 
 
 def _attachment(fname: str) -> Dict[str, str]:
     return {"Content-Disposition": f'attachment; filename="{fname}"'}
+
+
+def _json(doc, status: int = 200) -> Response:
+    return Response(status, "application/json",
+                    json.dumps(doc, default=str).encode())
 
 
 def _xml(doc: str) -> Response:

@@ -53,6 +53,12 @@ class ServingGateway:
                for ns, cfg in configs.items()}
         return self.cache.invalidate(fps)
 
+    def cache_counters(self) -> Dict:
+        """The compact counter block every metrics record carries."""
+        return {"hits": self.cache.hits, "misses": self.cache.misses,
+                "inflight_joined": self.flight.joined,
+                "shed": self.admission.total_shed}
+
     def stats(self) -> Dict:
         return {"response_cache": self.cache.stats(),
                 "singleflight": {"leaders": self.flight.leaders,

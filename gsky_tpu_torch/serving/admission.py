@@ -37,7 +37,7 @@ A queued request whose cancel token fires (`resilience.cancel`: its
 client went away) gives its place back and raises `RequestCancelled`;
 it is counted in ``cancelled``.  The reference's shed advisor (the
 fleet's least-loaded node, sent as ``X-GSKY-Alt-Node``) comes with the
-fleet (ROADMAP A.16's second half): ``AdmissionShed.alt_node`` is None.
+fleet (ROADMAP A.20): ``AdmissionShed.alt_node`` is None.
 """
 
 from __future__ import annotations
@@ -429,6 +429,11 @@ class AdmissionController:
             return self._admit_adaptive(st, service_class,
                                         tenant or "anon")
         return self._admit_fixed(st, service_class)
+
+    @property
+    def total_shed(self) -> int:
+        with self._lock:
+            return sum(st.shed for st in self._classes.values())
 
     @property
     def total_adjustments(self) -> int:
