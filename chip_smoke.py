@@ -239,6 +239,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    8 tiles all 200 with the CPU run's retries and faults; mas:error:1.0,
    a new tile 503 ServerBusy with Retry-After, an expired cached tile
    replayed ``stale`` (``stale-cache``), no launch.
+21. observability on the card (`phase_obs`): traced and untraced tiles,
+   ``/metrics`` against the launch counters, ``/debug/profile``.
+22. the device guard, the prewarm and the encode pool (`phase_guard`,
+   inside phase 3's block, GSKY_DEVICE_HANG_S=1 and
+   GSKY_DEVICE_REINIT_BACKOFF=0.1,0.5): 22a the command line's server
+   (``python -m gsky_tpu_torch.server.main``) in a process of its own,
+   with prewarm and with GSKY_PREWARM=0: its prewarm line,
+   ``gsky_compiles_total`` at listen and after one tile of each warmed
+   shape (unmoved with prewarm), the first tile's latency; 22b 16 fused
+   tiles from 4 threads in waves, then one at a time per call, each in
+   rounds with GSKY_DEVICE_GUARD 1, 0, 0, 1 (p50, p90, tiles/s; bodies
+   equal), and one guarded call's host cost (inline, a reused sync
+   worker, a new thread a call); 22c injected incidents over HTTP,
+   per call: ``device:crash`` (503 with Retry-After, suspect, then a
+   rebuild: teardown, the probe on the card, every resident page
+   rehydrated from the journal, the tile's bytes as before),
+   ``device:oom`` (relief: pool trimmed, pressure escalated, the
+   batcher's knee halved; the retry serves the tile), ``device:corrupt``
+   on a GetCoverage (503; with GSKY_POOL_AUDIT=1 the audit's inf scan on
+   the card quarantines a page the phase poisoned in the pool; the
+   device stays healthy) and ``device:hang`` (503 after the 1 s
+   watchdog); 22d the card's memory filled, then a tile: torch's own
+   out-of-memory classified ``oom``, relief, the retry after the
+   phase's OOM hook frees the filler; 22e the first wave's launch
+   forced to fail: its entries served by their per-call leg (B2), the
+   bodies those of healthy waves; 22f 32 tiles from 16 threads through
+   the sized encode pool (wait and cpu phases, ``gsky_encode_pool_*``).
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -6637,6 +6664,586 @@ def phase_backend(root, watcher, srv, cpu, card):
     return total
 
 
+GUARD_TILES = 16             # 22b: fused tiles a round
+GUARD_THREADS = 4            # 22b: client threads
+POOL_TILES = 32              # 22f: tiles through the encode pool
+POOL_THREADS = 16            # 22f: client threads
+GUARD_ENV = {"GSKY_DEVICE_HANG_S": "1",
+             "GSKY_DEVICE_REINIT_BACKOFF": "0.1,0.5"}
+
+
+def scrape_families(base, names):
+    """{family: {(sample, labels): value}} of /metrics for the families
+    whose name starts with one of ``names``."""
+    from gsky_tpu_torch.obs import parse_exposition
+    st, _, body, _ = http_status(base + "/metrics")
+    if st != 200:
+        raise AssertionError(f"/metrics {st}")
+    return {n: f["samples"] for n, f in parse_exposition(
+        body.decode()).items() if n.startswith(tuple(names))}
+
+
+def family_line(fams):
+    return "; ".join(
+        f"{s}{{{','.join(f'{k}={v}' for k, v in lab)}}} {val:g}"
+        for fam in sorted(fams) for (s, lab), val in
+        sorted(fams[fam].items()))
+
+
+def device_families(base):
+    return family_line(scrape_families(
+        base, ("gsky_device_", "gsky_pool_rehydrated_pages_total")))
+
+
+def sample(fams, name, labels=(), family=None):
+    """The sum of the samples ``name`` (of ``family``, by default the
+    family of that name) whose labels include ``labels``."""
+    return sum(v for (n, lab), v in fams.get(family or name, {}).items()
+               if n == name and set(labels) <= set(lab))
+
+
+def serve_process(conf_dir, crawl_file, log_dir, prewarm):
+    """The port's server as its command line starts it, in a process of
+    its own (waves and the staged path at their defaults, GSKY_PREWARM
+    as given): (process, base url, its start-up lines)."""
+    import queue
+    import threading
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GSKY_WAVES", "GSKY_TILE_PIPELINE",
+                        "GSKY_POOL_JOURNAL")}
+    env.update(PYTHONUNBUFFERED="1", GSKY_PREWARM=prewarm,
+               PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gsky_tpu_torch.server.main", "-host",
+         "127.0.0.1", "-port", "0", "-conf", conf_dir, "-local_mas",
+         crawl_file, "-log_dir", log_dir], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    seen, deadline = [], time.monotonic() + 300
+    while time.monotonic() < deadline:
+        try:
+            ln = lines.get(timeout=1.0).rstrip()
+        except queue.Empty:
+            if proc.poll() is not None:
+                break
+            continue
+        seen.append(ln)
+        m = re.search(r"listening on 127\.0\.0\.1:(\d+)", ln)
+        if m:
+            return proc, f"http://127.0.0.1:{m.group(1)}", seen
+    proc.kill()
+    proc.wait()
+    raise AssertionError(f"22a: the server did not start: {seen[-20:]}")
+
+
+def stop_process(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=15)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def phase_prewarm(data_root, data_paths, card):
+    """22a: the command line's server over phase 3's archive, started
+    with prewarm on and again with it off (GSKY_PREWARM=0): the prewarm
+    line (seconds, launches), ``gsky_compiles_total`` once it listens,
+    then one tile of each warmed shape (a method at 256 x 256), the first
+    one's latency; with prewarm on the count must not move, and the
+    residency journal lives under -log_dir."""
+    from gsky_tpu_torch.index.crawler import extract
+    conf = os.path.join(data_root, "conf22a")
+    os.makedirs(conf, exist_ok=True)
+    styles = [{"name": m, "title": m, "rgb_products": [NS], "resample": m}
+              for m in METHODS]
+    with open(os.path.join(conf, "config.json"), "w") as fp:
+        json.dump({"service_config": {"mas_address": "in-process"},
+                   "layers": [{"name": "plain", "data_source": data_root,
+                               "rgb_products": [NS], "styles": styles}]},
+                  fp)
+    crawl_file = os.path.join(data_root, "crawl22.jsonl")
+    with open(crawl_file, "w") as fp:
+        for p in data_paths:
+            rec = extract(p)
+            for ds in rec["geo_metadata"]:
+                ds["namespace"] = NS
+            fp.write(json.dumps(rec) + "\n")
+    urls = [getmap_url("", "plain", tile_boxes()[0], m) for m in METHODS]
+    out = {}
+    for prewarm in ("1", "0"):
+        log_dir = os.path.join(data_root, f"logs22_{prewarm}")
+        t0 = time.perf_counter()
+        proc, base, seen = serve_process(conf, crawl_file, log_dir,
+                                         prewarm)
+        try:
+            started = time.perf_counter() - t0
+            warm = [ln for ln in seen if ln.startswith("prewarm:")]
+            if (prewarm == "1") != bool(warm):
+                raise AssertionError(f"22a: prewarm {prewarm}: {seen}")
+            c0 = sample(scrape_families(base, ("gsky_compiles",)),
+                        "gsky_compiles_total")
+            lat = []
+            for u in urls:
+                st, _, body, secs = http_status(base + u)
+                if st != 200:
+                    raise AssertionError(f"22a: {st} {body[:300]}")
+                lat.append(secs)
+            c1 = sample(scrape_families(base, ("gsky_compiles",)),
+                        "gsky_compiles_total")
+        finally:
+            stop_process(proc)
+        journal = os.path.join(log_dir, "gsky_pool_journal.jsonl")
+        if prewarm == "1" and (c1 != c0 or c0 == 0
+                               or not os.path.exists(journal)):
+            raise AssertionError(f"22a: gsky_compiles_total {c0} -> {c1} "
+                                 f"over the warmed shapes; journal "
+                                 f"{os.path.exists(journal)}")
+        out[prewarm] = (started, warm, c0, c1, lat)
+        log(f"phase 22a: GSKY_PREWARM={prewarm}: listening after "
+            f"{started:.3f} s ({'; '.join(warm) or 'no prewarm'}); "
+            f"gsky_compiles_total {c0:g} at listen, {c1:g} after one tile "
+            f"each of {', '.join(METHODS)} at 256 x 256; first tile "
+            f"{lat[0] * 1e3:.3f} ms, next {lat[1] * 1e3:.3f} and "
+            f"{lat[2] * 1e3:.3f} ms ({card})")
+    return out
+
+
+def guard_rounds(pair, urls, threads, what, card):
+    """22b: ``urls`` from ``threads`` threads in rounds with the guard
+    on and off (1, 0, 0, 1): p50, p90 and tiles/s of each; bodies
+    equal.  Returns the launches."""
+    kernels = _kernel_counts()
+    reset_counts(kernels)
+    runs = {"1": [], "0": []}
+    for mode in ("1", "0", "0", "1"):
+        os.environ["GSKY_DEVICE_GUARD"] = mode
+        try:
+            got, wall = fetch_threads(http_status, urls, threads)
+        finally:
+            os.environ.pop("GSKY_DEVICE_GUARD")
+        runs[mode].append((got, wall))
+    launches = read_counts(kernels)
+    bodies = [[a[2] for a in got] for rs in runs.values() for got, _ in rs]
+    if any(a[0] != 200 for rs in runs.values() for got, _ in rs
+           for a in got) or any(b != bodies[0] for b in bodies):
+        raise AssertionError("22b: a tile failed or the bodies differ "
+                             "with the guard on and off")
+    stats = {}
+    for m, rs in runs.items():
+        lat = [a[3] for got, _ in rs for a in got]
+        stats[m] = (float(np.median(lat)) * 1e3,
+                    float(np.percentile(lat, 90)) * 1e3,
+                    len(lat) / sum(w for _, w in rs))
+    log(f"phase 22b {what}: {len(urls)} fused near tiles from {threads} "
+        f"threads, two rounds each way, bodies equal: guard on p50 "
+        f"{stats['1'][0]:.3f} ms, p90 {stats['1'][1]:.3f} ms, "
+        f"{stats['1'][2]:.1f} tiles/s; guard off p50 {stats['0'][0]:.3f} "
+        f"ms, p90 {stats['0'][1]:.3f} ms, {stats['0'][2]:.1f} tiles/s; "
+        f"on/off p50 {stats['1'][0] / stats['0'][0]:.4f} (host clocks) "
+        f"({card}); launches {launches}")
+    return launches
+
+
+def guard_overhead(card, n=2000):
+    """22b: the host cost of one guarded call on the card, a one-launch
+    thunk with its readback: inline, through `supervised_sync` (a reused
+    sync worker) and on a new thread a call entering the caller's
+    stream (the reference's watchdog design).  Mean microseconds."""
+    import threading
+    import torch
+    from gsky_tpu_torch import device_guard
+    x = torch.zeros(8, device="cuda")
+    stream = torch.cuda.current_stream()
+
+    def thunk():
+        return (x + 1).cpu()
+
+    def new_thread():
+        def run():
+            with torch.cuda.stream(stream):
+                thunk()
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join()
+
+    ways = {"inline": thunk,
+            "reused worker": lambda: device_guard.supervised_sync(
+                "smoke.overhead", thunk),
+            "new thread": new_thread}
+    us = {}
+    for name, fn in ways.items():
+        for _ in range(50):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us[name] = (time.perf_counter() - t0) / n * 1e6
+    log(f"phase 22b: one guarded call (a launch and its readback), mean "
+        f"of {n}: " + ", ".join(f"{k} {v:.2f} us" for k, v in us.items())
+        + f" (host clocks; {card})")
+    return us
+
+
+def oom_first_seed(spec):
+    """A fault seed whose ``device`` draws under ``spec`` fire on the
+    first and on none of the next seven: one OOM, then a clean retry
+    and readback."""
+    from gsky_tpu_torch.resilience import faults
+    for seed in range(1000):
+        faults.configure(spec, seed)
+        fired = []
+        for _ in range(8):
+            try:
+                faults.inject("device")
+                fired.append(False)
+            except faults.InjectedDeviceFault:
+                fired.append(True)
+        if fired == [True] + [False] * 7:
+            faults.configure(None)
+            return seed
+    raise AssertionError(f"no seed fires {spec} once")
+
+
+def phase_incidents(pair, card):
+    """22c, the per-call path (waves off): injected crash, OOM,
+    corruption and hang over HTTP.  Returns the launches."""
+    from gsky_tpu_torch import device_guard
+    from gsky_tpu_torch.resilience import default_monitor, faults
+    kernels = _kernel_counts()
+    reset_counts(kernels)
+    sup = device_guard.default_supervisor()
+    pool = pair.card.executor.pool
+    url = getmap_url(pair.base, "plain", tile_boxes()[1], "bilinear")
+
+    def get(what, want=200):
+        st, hdr, body, secs = http_status(url)
+        if st != want:
+            raise AssertionError(f"{what}: {st} {body[:300]}")
+        return hdr, body, secs
+
+    def after_backoff():
+        time.sleep(sup.stats()["retry_in_s"] + 0.05)
+
+    _, body0, _ = get("22c healthy")
+    # -- crash: 503, suspect; past the backoff a rebuild, pages back -----
+    resident = pool.stats()["resident"]
+    faults.configure("device:crash:1")
+    hdr, _, _ = get("22c crash", 503)
+    faults.configure(None)
+    st = sup.stats()
+    if not hdr.get("Retry-After") or st["state"] != "suspect" \
+            or st["crashes"] != 1:
+        raise AssertionError(f"22c crash: Retry-After "
+                             f"{hdr.get('Retry-After')}, {st}")
+    reh0, td0 = pool.stats()["rehydrated"], pool.stats()["teardowns"]
+    after_backoff()
+    _, body, _ = get("22c after the rebuild")
+    st, ps = sup.stats(), pool.stats()
+    if body != body0 or st["state"] != "healthy" or st["reinits"] != 1 \
+            or ps["teardowns"] != td0 + 1 \
+            or ps["rehydrated"] - reh0 != resident or not resident:
+        raise AssertionError(f"22c rebuild: bytes equal {body == body0}, "
+                             f"{st}, pool {ps}, resident before "
+                             f"{resident}")
+    log(f"phase 22c crash: 503 Retry-After {hdr['Retry-After']}, suspect; "
+        f"after the backoff one rebuild (teardown, probe on the card, "
+        f"{ps['rehydrated'] - reh0} of {resident} pages rehydrated from "
+        f"the journal), the tile's bytes as before; "
+        f"{device_families(pair.base)}")
+    # -- oom: relief, then a retry that succeeds --------------------------
+    spec = "device:oom:0.5"
+    faults.configure(spec, oom_first_seed(spec))
+    knee = pair.card.executor.batcher.knee
+    trimmed = pool.stats()["trimmed"]
+    esc = default_monitor().stats()["escalations"]
+    _, body, _ = get("22c oom")
+    faults.configure(None)
+    st = sup.stats()
+    ok = (body == body0, st["ooms"], st["oom_retries"], st["state"],
+          pool.stats()["trimmed"] > trimmed,
+          default_monitor().stats()["escalations"] - esc,
+          pair.card.executor.batcher.knee)
+    if ok != (True, 1, 1, "healthy", True, 1, max(1, knee // 2)):
+        raise AssertionError(f"22c oom: {ok}")
+    # the escalation floors the pressure state at brownout for a while
+    default_monitor().reset()
+    log(f"phase 22c oom: relief (pool trimmed "
+        f"{pool.stats()['trimmed'] - trimmed} pages, pressure escalated, "
+        f"batcher knee {knee} -> {ok[-1]}) then the retry served the "
+        f"tile, bytes as before; {device_families(pair.base)}")
+    # -- corrupt: the integrity probe answers 503, the audit quarantines -
+    os.environ["GSKY_POOL_AUDIT"] = "1"
+    try:
+        _, body, _ = get("22c warm")                 # pages resident
+        key, slot = next(iter(pool._slots.items()))
+        pool._pool[slot, 1, 1] = float("inf")        # a flipped page
+        cov = wcs_url(pair.base, "plain", wcs_box(256), 256, style="near")
+        faults.configure("device:corrupt:1")
+        st0 = sup.stats()
+        c_st, _, c_body, _ = http_status(cov)
+        faults.configure(None)
+        st = sup.stats()
+        if c_st != 503 or st["corruptions"] != st0["corruptions"] + 1 \
+                or st["quarantined_pages"] != 1 \
+                or st["state"] != "healthy" or key in pool._slots:
+            raise AssertionError(f"22c corrupt: {c_st} {c_body[:200]}, "
+                                 f"{st}, page still resident "
+                                 f"{key in pool._slots}")
+        _, body, _ = get("22c after the quarantine")
+        if body != body0:
+            raise AssertionError("22c corrupt: the re-staged tile differs")
+    finally:
+        os.environ.pop("GSKY_POOL_AUDIT")
+    log(f"phase 22c corrupt: a poisoned GetCoverage readback answered 503 "
+        f"(DeviceCorruption); the audit (inf scan on the card) "
+        f"quarantined the page poisoned in the pool, the device stayed "
+        f"healthy, the next tile re-staged it, bytes as before; "
+        f"{device_families(pair.base)}")
+    # -- hang: DeviceHang after the 1 s watchdog --------------------------
+    faults.configure("device:hang:1.5s")
+    _, _, secs = get("22c hang", 503)
+    faults.configure(None)
+    st = sup.stats()
+    if st["hangs"] != 1 or st["state"] != "suspect" \
+            or not 1.0 <= secs < 1.5:
+        raise AssertionError(f"22c hang: {secs:.3f} s, {st}")
+    time.sleep(0.6)             # the abandoned sync ends its 1.5 s sleep
+    after_backoff()
+    _, body, _ = get("22c after the hang")
+    if body != body0 or sup.stats()["state"] != "healthy":
+        raise AssertionError(f"22c hang: {sup.stats()}")
+    log(f"phase 22c hang: 503 (DeviceHang) after {secs:.3f} s against the "
+        f"1 s watchdog; after the backoff a rebuild and the tile as "
+        f"before ({card}); {device_families(pair.base)}")
+    return read_counts(kernels)
+
+
+# 22d's fill after its one large tensor, largest first: 2 MB and 1 MB
+# + 512 B blocks in the caching allocator's large pool (over 1 MB), then
+# 1 MB, 64 KB, 4 KB and 512 B blocks in its small pool
+FILL_SIZES = (2 << 20, (1 << 20) + 512, 1 << 20, 64 << 10, 4 << 10, 512)
+
+
+def phase_real_oom(pair, card):
+    """22d: the card's free memory filled, then a tile: torch's own
+    out-of-memory error, classified ``oom``; the relief runs and an OOM
+    hook this phase registers frees the filler before the retry (or
+    the request fails after relief, as the reference's does).  Returns
+    the launches."""
+    import torch
+    from gsky_tpu_torch import device_guard
+    from gsky_tpu_torch.resilience import default_monitor
+    kernels = _kernel_counts()
+    reset_counts(kernels)
+    sup = device_guard.default_supervisor()
+    url = getmap_url(pair.base, "plain", tile_boxes()[1], "bilinear")
+    st0, _, body0, _ = http_status(url)     # its scenes and pages resident
+    if st0 != 200:
+        raise AssertionError(f"22d warm: {st0}")
+    hogs = []
+
+    def free_hogs():
+        hogs.clear()
+        torch.cuda.empty_cache()
+
+    device_guard.register_oom_hook(free_hogs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    hogs.append(torch.empty(free - (64 << 20), dtype=torch.uint8,
+                            device="cuda"))
+    # The rest, so that no allocation of any size can succeed: large-pool
+    # blocks until no 20 MB segment is left, the large pool's holes, the
+    # small pool's 1 MB blocks until no 2 MB segment is left, then every
+    # hole of every segment down to the allocator's 512 B grain.  A fill
+    # that leaves a 2 MB segment or a hole lets the tile's small tensors
+    # through and no out-of-memory happens.
+    for size in FILL_SIZES:
+        try:
+            while True:
+                hogs.append(torch.empty(size, dtype=torch.uint8,
+                                        device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            pass
+    left = torch.cuda.mem_get_info()[0]
+    n_hogs = len(hogs)
+    st0 = sup.stats()
+    d_st, _, d_body, d_secs = http_status(url)
+    st = sup.stats()
+    free_hogs()
+    default_monitor().reset()
+    oom = [i for i in st["incidents"] if i["kind"] == "oom"]
+    if d_st == 200:
+        outcome = "the retry succeeded after the phase's OOM hook freed " \
+            "the filler"
+        good = d_body == body0 and st["oom_retries"] == \
+            st0["oom_retries"] + 1
+    else:
+        outcome = "the request failed after relief, as the reference's " \
+            "fails (DeviceGuardError: 503)"
+        good = d_st == 503
+    if not good or st["ooms"] <= st0["ooms"] or not oom \
+            or "out of memory" not in oom[-1]["error"].lower():
+        raise AssertionError(f"22d: {d_st} {d_body[:300]}, {st}")
+    log(f"phase 22d: the card filled ({n_hogs} tensors, the first "
+        f"{free - (64 << 20)} B of {free} B free, {left} B left of {total}"
+        f" B); the tile's out-of-memory, torch's own error, classified "
+        f"oom ({oom[-1]['error'][:80]!r}); relief ran and {outcome} in "
+        f"{d_secs * 1e3:.3f} ms ({card}); {device_families(pair.base)}")
+    return read_counts(kernels)
+
+
+def phase_wave_failover(pair, card):
+    """22e: 16 near tiles from 16 threads in waves, healthy, then with
+    the first wave's launch forced to fail: every entry of that wave is
+    served by its per-call leg (B2), bytes equal to the healthy wave's.
+    Returns the launches."""
+    import threading
+    from gsky_tpu_torch.pipeline import waves as W
+    kernels = _kernel_counts()
+    urls = [getmap_url(pair.base, "plain", b, "near")
+            for b in tile_boxes()[:WAVE_THREADS]]
+    healthy, _ = fetch_threads(http_status, urls, WAVE_THREADS)
+    f0 = scrape_families(pair.base, ("gsky_wave_",))
+    reset_counts(kernels)
+    real = W.WaveScheduler._dispatch_group
+    once = threading.Lock()
+
+    def failing(self, *a, **k):
+        if once.acquire(blocking=False):
+            raise RuntimeError("forced wave launch failure")
+        return real(self, *a, **k)
+
+    W.WaveScheduler._dispatch_group = failing
+    try:
+        got, wall = fetch_threads(http_status, urls, WAVE_THREADS)
+    finally:
+        W.WaveScheduler._dispatch_group = real
+    launches = read_counts(kernels)
+    f1 = scrape_families(pair.base, ("gsky_wave_",))
+    fb = sample(f1, "gsky_wave_fallbacks_total") \
+        - sample(f0, "gsky_wave_fallbacks_total")
+    disp = sample(f1, "gsky_wave_dispatches_total") \
+        - sample(f0, "gsky_wave_dispatches_total")
+    if any(a[0] != 200 for a in healthy + got) \
+            or [a[2] for a in got] != [a[2] for a in healthy] \
+            or not fb or launches["B2"] != fb or launches["B1"] != disp:
+        raise AssertionError(f"22e: fallbacks {fb}, dispatches {disp}, "
+                             f"launches {launches}, statuses "
+                             f"{[a[0] for a in got]}")
+    log(f"phase 22e: the first wave's launch forced to fail: its {fb:g} "
+        f"entries served through their per-call leg (B2 {launches['B2']})"
+        f", the other {WAVE_THREADS - fb:g} in {disp:g} wave launches (B1 "
+        f"{launches['B1']}); all {WAVE_THREADS} bodies equal the healthy "
+        f"waves'; gsky_wave_fallbacks_total +{fb:g}; {wall:.3f} s "
+        f"({card})")
+    return launches
+
+
+def phase_encode_pool(pair, card):
+    """22f: `POOL_TILES` distinct bilinear tiles from `POOL_THREADS`
+    threads on the staged path, encoded on the sized pool: the encode
+    wait and cpu phases, the gsky_encode_pool_* families, tiles/s."""
+    kernels = _kernel_counts()
+    urls = [getmap_url(pair.base, "plain", b, "bilinear")
+            for b in tile_boxes()[:POOL_TILES]]
+    names = ("gsky_encode_",)
+    f0 = scrape_families(pair.base, names)
+    reset_counts(kernels)
+    got, wall = fetch_threads(http_status, urls, POOL_THREADS)
+    launches = read_counts(kernels)
+    f1 = scrape_families(pair.base, names)
+    if any(a[0] != 200 for a in got):
+        bad = [a[2][:200] for a in got if a[0] != 200]
+        raise AssertionError(f"22f: {[a[0] for a in got]} {bad[:1]}")
+    def moved(suffix, p):
+        fam = "gsky_encode_seconds"
+        return sample(f1, fam + suffix, {("phase", p)}, fam) \
+            - sample(f0, fam + suffix, {("phase", p)}, fam)
+
+    # (observations, seconds) of each phase over the run
+    ph = {p: (moved("_count", p), moved("_sum", p))
+          for p in ("wait", "cpu")}
+    enc = sample(f1, "gsky_encode_pool_encoded_total") \
+        - sample(f0, "gsky_encode_pool_encoded_total")
+    err = sample(f1, "gsky_encode_pool_errors_total") \
+        - sample(f0, "gsky_encode_pool_errors_total")
+    if enc != POOL_TILES or err or ph["wait"][0] != POOL_TILES \
+            or ph["cpu"][0] != POOL_TILES:
+        raise AssertionError(f"22f: encoded {enc}, errors {err}, {ph}")
+    pools = {k: v for k, v in f1.items()
+             if k.startswith("gsky_encode_pool_")}
+    log(f"phase 22f: {POOL_TILES} bilinear tiles from {POOL_THREADS} "
+        f"threads on the staged path, {POOL_TILES / wall:.1f} tiles/s; "
+        f"encode wait {ph['wait'][1] / POOL_TILES * 1e3:.4f} ms a tile, "
+        f"cpu {ph['cpu'][1] / POOL_TILES * 1e3:.4f} ms a tile; "
+        f"{family_line(pools)} ({card}); launches {launches}")
+    return launches
+
+
+def phase_guard(data_root, data_paths, card):
+    """Phase 22 over phase 3's archive: the device guard, the prewarm
+    and the encode pool on the card.  22a the command line's server
+    with and without prewarm (`phase_prewarm`); on one card
+    `OWSServer(gateway=None)`: 22b the guard's cost in waves and per
+    call (`guard_rounds`),
+    22c injected incidents and 22d a real out-of-memory
+    (`phase_incidents`), 22e a wave's failover (`phase_wave_failover`),
+    22f the encode pool (`phase_encode_pool`).  GSKY_DEVICE_HANG_S=1 and
+    GSKY_DEVICE_REINIT_BACKOFF=0.1,0.5 inside, the residency journal in
+    the archive's directory; the supervisor, the fault plan and the
+    pressure monitor reset at the end.  Returns the launches."""
+    from gsky_tpu_torch import resilience
+    kernels = _kernel_counts()
+    total = dict.fromkeys(kernels, 0)
+    saved = {k: os.environ.get(k) for k in
+             list(GUARD_ENV) + ["GSKY_POOL_JOURNAL"]}
+    os.environ.update(GUARD_ENV)
+    os.environ["GSKY_POOL_JOURNAL"] = os.path.join(data_root,
+                                                   "journal22.jsonl")
+    t0 = time.perf_counter()
+    try:
+        phase_prewarm(data_root, data_paths, card)
+        store = crawl((p, NS) for p in data_paths)
+        styles = [{"name": m, "title": m, "rgb_products": [NS],
+                   "resample": m} for m in METHODS]
+        pair = OwsPair(os.path.join(data_root, "conf22"),
+                       [{"name": "plain", "data_source": data_root,
+                         "rgb_products": [NS], "styles": styles}], store)
+        try:
+            with WavesOn():
+                urls = [getmap_url(pair.base, "plain", b, "near")
+                        for b in tile_boxes()[:GUARD_TILES]]
+                fetch_threads(http_status, urls, GUARD_THREADS)  # warm
+                parts = [guard_rounds(pair, urls, GUARD_THREADS,
+                                      "in waves", card)]
+            fetch_threads(http_status, urls, 1)                  # warm
+            parts.append(guard_rounds(pair, urls, 1, "per call", card))
+            guard_overhead(card)
+            parts.append(phase_incidents(pair, card))
+            parts.append(phase_real_oom(pair, card))
+            with WavesOn():
+                parts.append(phase_wave_failover(pair, card))
+                parts.append(phase_encode_pool(pair, card))
+        finally:
+            pair.close()
+        for part in parts:
+            for k in total:
+                total[k] += part[k]
+    finally:
+        resilience.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"phase 22: launches {total} ({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
 def swath_edge_points():
     """Centres of four tiles on the full-resolution swath's edges (half
     of each tile off the swath), from its own geolocation."""
@@ -6922,6 +7529,9 @@ def main() -> int:
         obs21, obs21_err = phase_obs(data_root, data_paths, card)
         log(f"phase 21a-d: launches {obs21} "
             f"({time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 22: the device guard, prewarm, the encode pool ---------
+        guard22 = phase_guard(data_root, data_paths, card)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -7052,7 +7662,9 @@ def main() -> int:
     # whose staging critical pressure declined; B3: the drill after the
     # 504; B4: the masked tile after the 504), and phase 21's (B1 and
     # B2: traced, untraced and profiled tiles; B3 and B4: the profiled
-    # drill and masked tile, in be20 and dl20)
+    # drill and masked tile, in be20 and dl20), and phase 22's (B1: the
+    # guard's rounds, the incidents' tiles, healthy waves, the encode
+    # pool's tiles; B2: the failed wave's per-call legs)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -7063,7 +7675,7 @@ def main() -> int:
          "launches": b1_launches + b1_waves + b1_anim + b1_expr
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
          + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
-         + obs21["B1"],
+         + obs21["B1"] + guard22["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             ing_err["B1"], obs21_err,
                             max(v for (k, _), v in wcs_errs.items()
@@ -7075,7 +7687,7 @@ def main() -> int:
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
          "launches": b2_launches + b2_rgb + wcs_launches["B2"]
          + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
-         + dl20["B2"] + be20["B2"] + obs21["B2"],
+         + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()

@@ -22,20 +22,34 @@ GetMap's.
 
 An encode first checks the request's cancel token (`resilience.cancel`,
 stage ``encode``): a request whose client went away spends no CPU on
-bytes nobody will read.  (The reference checks it when a queued job of
-its encode pool starts; the port encodes in the request's thread.)
-`encode_timed` runs one encode as the trace's ``encode`` span and
-observes its seconds in ``gsky_encode_seconds{phase="cpu"}``; the
-reference's sized encode pool and its ``wait`` phase are ROADMAP A.19.
+bytes nobody will read.
+
+The sized encode pool (the reference's): the staged tile path encodes
+on a bounded thread pool (``GSKY_PNG_ENCODE_WORKERS``, default 4,
+clamped to 1-32), so that concurrent requests' encodes overlap each
+other and the next request's readback without unbounded thread growth.
+The reference's `encode_async` is awaited from its event loop; the
+port's server runs a thread a connection, so `encode_pooled` submits
+the encode and blocks on its future, in the caller's context (the
+trace and the cancel token), as the trace's ``encode`` span
+(``cpu_s``, ``wait_s``).  It observes ``gsky_encode_seconds`` by phase
+(``cpu``, ``wait``), keeps `encode_pool_stats` (workers, pending, the
+queue's high-water mark, encoded, errors, busy seconds) and hands an
+encode's exception to its caller as an inline call would.
+`reset_encode_pool` shuts the pool down, so that the next encode
+rereads the knob.
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import struct
+import threading
 import time
 import zlib
-from typing import Iterator, List, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -46,20 +60,106 @@ from ..resilience.cancel import check_cancel
 NODATA_BYTE = 255
 
 
-def encode_timed(fn, *args, spans: Optional[dict] = None, **kw):
-    """``fn(*args, **kw)`` (an encode) in the caller's thread, as the
-    trace's ``encode`` span, its seconds observed in
-    ``gsky_encode_seconds{phase="cpu"}`` and, when the staged tile
-    path's ``spans`` are given, added to their ``encode_s``."""
-    t0 = time.perf_counter()
-    with obs_span("encode") as esp:
-        out = fn(*args, **kw)
-        cpu = time.perf_counter() - t0
-        esp.set(cpu_s=round(cpu, 6))
-    ENCODE_SECONDS.labels(phase="cpu").observe(cpu)
-    if spans is not None:
-        spans["encode_s"] = spans.get("encode_s", 0.0) + cpu
+# -- the sized encode pool ---------------------------------------------
+
+_POOL_ENV = "GSKY_PNG_ENCODE_WORKERS"
+_pool: Optional[ThreadPoolExecutor] = None
+_pool_lock = threading.Lock()
+_pool_stats: Dict = {"workers": 0, "pending": 0, "queue_max": 0,
+                     "encoded": 0, "errors": 0, "busy_s": 0.0}
+
+
+def _pool_workers() -> int:
+    try:
+        v = int(os.environ.get(_POOL_ENV, 4))
+    except ValueError:
+        return 4
+    return max(1, min(32, v))
+
+
+def encode_pool() -> ThreadPoolExecutor:
+    """The process's encode pool, made on first use."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            n = _pool_workers()
+            _pool_stats["workers"] = n
+            _pool = ThreadPoolExecutor(max_workers=n,
+                                       thread_name_prefix="gsky-png")
+        return _pool
+
+
+def encode_pool_stats() -> Dict:
+    with _pool_lock:
+        out = dict(_pool_stats)
+    out["busy_s"] = round(out["busy_s"], 6)
     return out
+
+
+def reset_encode_pool() -> None:
+    """Shut the pool down and zero its stats, so that the next encode
+    rereads the sizing knob (tests; a server keeps one pool)."""
+    global _pool
+    with _pool_lock:
+        pool, _pool = _pool, None
+        for k, v in (("workers", 0), ("pending", 0), ("queue_max", 0),
+                     ("encoded", 0), ("errors", 0), ("busy_s", 0.0)):
+            _pool_stats[k] = v
+    if pool is not None:
+        pool.shutdown(wait=False)
+
+
+def encode_pooled(fn, *args, spans: Optional[Dict] = None, **kw):
+    """``fn(*args, **kw)`` (an encode) on the sized pool; blocks until
+    it is done and returns its bytes or raises its exception.  The
+    staged tile path's ``spans`` get ``encode_s`` and the pool
+    occupancy the request saw, ``encode_queue_max``."""
+    pool = encode_pool()
+    with _pool_lock:
+        _pool_stats["pending"] += 1
+        occupancy = _pool_stats["pending"]
+        _pool_stats["queue_max"] = max(_pool_stats["queue_max"], occupancy)
+    if spans is not None:
+        spans["encode_queue_max"] = max(spans.get("encode_queue_max", 0),
+                                        occupancy)
+    t0 = time.perf_counter()
+    # pool threads start from an empty context: carry the caller's (its
+    # trace and cancel token) across
+    ctx = contextvars.copy_context()
+    cpu = [0.0]
+
+    def job():
+        # a request cancelled while its encode queued frees its slot
+        # without spending CPU on the bytes
+        check_cancel("encode")
+        return fn(*args, **kw)
+
+    def run():
+        t1 = time.perf_counter()
+        try:
+            return ctx.run(job)
+        finally:
+            cpu[0] = time.perf_counter() - t1
+            with _pool_lock:
+                _pool_stats["busy_s"] += cpu[0]
+
+    ok = False
+    try:
+        with obs_span("encode") as esp:
+            out = pool.submit(run).result()
+            wait_s = max(0.0, time.perf_counter() - t0 - cpu[0])
+            esp.set(cpu_s=round(cpu[0], 6), wait_s=round(wait_s, 6))
+        ENCODE_SECONDS.labels(phase="cpu").observe(cpu[0])
+        ENCODE_SECONDS.labels(phase="wait").observe(wait_s)
+        ok = True
+        return out
+    finally:
+        with _pool_lock:
+            _pool_stats["pending"] -= 1
+            _pool_stats["encoded" if ok else "errors"] += 1
+        if ok and spans is not None:
+            spans["encode_s"] = spans.get("encode_s", 0.0) \
+                + time.perf_counter() - t0
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _GREY, _RGB, _PALETTE, _GREY_ALPHA, _RGBA = 0, 2, 3, 4, 6

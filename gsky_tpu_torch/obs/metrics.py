@@ -20,10 +20,12 @@ subsystem has not booted (no live object); it does not catch the
 errors of one that has, so a renamed field shows as a missing family
 (the parity tests compare the family set with the reference's).
 
-Not here until their subsystems are ported (ROADMAP): the worker RPC,
-device-guard and compile families (A.10), the mesh families (A.11),
-fleet, fabric and elastic (A.20), ``gsky_plan_block_shape`` (A.21)
-and the encode pool's gauges and ``wait`` phase (A.19).
+``gsky_compiles_total`` counts what the port builds or loads
+(`server.prewarm.compile_count`: nvcc builds, library loads and each
+kernel symbol's first launch), where the reference counts XLA compiles.
+Not here until their subsystems are ported (ROADMAP): the worker RPC
+(A.10's worker half), the mesh families (A.11), fleet, fabric and
+elastic (A.20) and ``gsky_plan_block_shape`` (A.21).
 
 Everything registers against ``prom.default_registry()``; the server's
 ``/metrics`` route calls `render_metrics`.
@@ -172,9 +174,26 @@ def _collect_resilience():
 
 
 def _collect_runtime():
+    """Builds and loads, the encode pool, the flight recorder."""
+    from ..io.png import encode_pool_stats
+    from ..server.prewarm import compile_count
     from .recorder import default_recorder
+    ep = encode_pool_stats()
     st = default_recorder().stats()
-    return [_c("gsky_traces_recorded_total",
+    return [_c("gsky_compiles_total",
+               "Kernel builds, library loads and first launches of a "
+               "kernel symbol in this process.",
+               [({}, float(compile_count()))]),
+            _g("gsky_encode_pool_pending",
+               "Encode jobs queued or running on the pool.",
+               [({}, float(ep["pending"]))]),
+            _g("gsky_encode_pool_workers", "Encode-pool worker threads.",
+               [({}, float(ep["workers"]))]),
+            _c("gsky_encode_pool_encoded_total", "Encode jobs completed.",
+               [({}, float(ep["encoded"]))]),
+            _c("gsky_encode_pool_errors_total", "Encode jobs that raised.",
+               [({}, float(ep["errors"]))]),
+            _c("gsky_traces_recorded_total",
                "Traces captured by the flight recorder.",
                [({}, float(st["recorded"]))]),
             _c("gsky_traces_slo_violations_total",
@@ -288,11 +307,9 @@ def _collect_ingest():
 
 
 def _collect_waves():
-    """The wave schedulers' readback-queue level and request counts,
-    collected from the live schedulers (one per device).  The port
-    fails a wave's requests instead of re-rendering them per call
-    (the reference's fallback comes with the device guard, A.10), so
-    its fallback count is 0."""
+    """The wave schedulers' readback-queue level, request, failover and
+    cancellation counts, collected from the live schedulers (one per
+    device)."""
     from ..pipeline.waves import wave_stats
     sts = list(wave_stats().values())
     if not sts:
@@ -306,7 +323,8 @@ def _collect_waves():
            [({}, float(sum(s["requests"] for s in sts)))]),
         _c("gsky_wave_fallbacks_total",
            "Wave entries served via their per-call leg after a device "
-           "incident.", [({}, 0.0)]),
+           "incident.",
+           [({}, float(sum(s["fallbacks"] for s in sts)))]),
         _c("gsky_wave_cancelled_total",
            "Wave entries dropped at assembly or readback for request "
            "cancellation.",
@@ -339,6 +357,31 @@ def _collect_expr():
                       [({"path": k}, float(v))
                        for k, v in sorted(fs["paths"].items())]))
     return out
+
+
+def _collect_device():
+    """The device guard: the supervisor's state, its incident counters
+    and the pages rehydrated into rebuilt pools."""
+    from ..device_guard import default_supervisor
+    st = default_supervisor().stats()
+    return [_g("gsky_device_state",
+               "Device supervisor state (0 healthy, 1 suspect, "
+               "2 reinitializing, 3 dead).",
+               [({}, float(st["state_code"]))]),
+            _c("gsky_device_reinits_total",
+               "Device teardown+rebuild cycles.",
+               [({}, float(st["reinits"]))]),
+            _c("gsky_device_hangs_total",
+               "Dispatches abandoned by the hang watchdog.",
+               [({}, float(st["hangs"]))]),
+            _c("gsky_device_incidents_total", "Device incidents by kind.",
+               [({"kind": "crash"}, float(st["crashes"])),
+                ({"kind": "oom"}, float(st["ooms"])),
+                ({"kind": "corrupt"}, float(st["corruptions"]))]),
+            _c("gsky_pool_rehydrated_pages_total",
+               "Hot pages re-staged into a rebuilt page pool from the "
+               "residency journal.",
+               [({}, float(st["rehydrated_pages"]))])]
 
 
 def _collect_tsan():
@@ -431,7 +474,7 @@ def _collect_temporal():
 
 for _fn in (_collect_caches, _collect_resilience, _collect_runtime,
             _collect_batcher, _collect_overload, _collect_ingest,
-            _collect_waves, _collect_expr, _collect_tsan,
+            _collect_device, _collect_waves, _collect_expr, _collect_tsan,
             _collect_temporal):
     _REG.register_collector(_fn)
 

@@ -7,6 +7,11 @@ ctypes with a plain C interface: every launch entry point takes device
 pointers, sizes and the CUDA stream, and returns ``cudaGetLastError()``
 after its launch.  `build_all` starts one nvcc per source at once, so
 the libraries build in parallel.
+
+`compile_count` is the process's count of what it compiles or loads:
+each nvcc build, each library load, and the first launch of each kernel
+symbol (which loads its module's code under CUDA's lazy loading).  It
+is the port's ``gsky_compiles_total`` (`server.prewarm`).
 """
 
 from __future__ import annotations
@@ -25,6 +30,22 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC.parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_compiles = 0
+_compiles_lock = threading.Lock()
+
+
+def _note_compile() -> None:
+    global _compiles
+    with _compiles_lock:
+        _compiles += 1
+
+
+def compile_count() -> int:
+    """nvcc builds, library loads and first launches of a kernel symbol
+    in this process."""
+    with _compiles_lock:
+        return _compiles
 
 
 def _nvcc() -> str:
@@ -72,6 +93,7 @@ class CudaLibrary:
                     fn.argtypes = list(argtypes) + [ctypes.c_void_p]
                     fn.restype = ctypes.c_int
                 self._lib = lib
+                _note_compile()
             return self._lib
 
 
@@ -91,6 +113,7 @@ def build_all(libs: Sequence[CudaLibrary]) -> List[Path]:
             failed.append(str(lib.src))
             continue
         os.replace(tmp, out)
+        _note_compile()
     if failed:
         raise RuntimeError(f"nvcc failed for {', '.join(failed)}")
     return [lib.target() for lib in libs]
@@ -106,6 +129,7 @@ class Kernel:
         self.library = library
         self.symbol = symbol
         self.launches = 0
+        self._launched = False      # a first launch loads the symbol
         self._lock = threading.Lock()
 
     def __call__(self, device, *args) -> None:
@@ -117,6 +141,9 @@ class Kernel:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc}")
         with self._lock:
             self.launches += 1
+            first, self._launched = not self._launched, True
+        if first:
+            _note_compile()
 
 
 def check_cuda(*tensors, dtypes):

@@ -27,7 +27,8 @@ wave planner's superblocks (`pipeline.autoplan`) its tables are (G, T,
 S), G <= N union windows, and ``sb_of`` (N,) int32 gives each lane its
 row; the JAX program gathers ``pool[tables][sb_of]``, B1 reads the row
 in place.  `wave_drill_stats` reduces a drill wave's K blocks through
-B3's K-block form.
+B3's K-block form.  `pool_inf_counts` is the pool audit's scan for
+inf.
 
 Fused band algebra (`render_expr_paged`): an expression lane's mosaic
 slot i is the expression's variable i, so B1 renders every referenced
@@ -461,3 +462,13 @@ def wave_drill_stats(datas, valids, clip_lower=-3.0e38, clip_upper=3.0e38,
                        torch.zeros((), dtype=torch.float64,
                                    device=s.device)).to(torch.float32)
     return vals, c
+
+
+def pool_inf_counts(pool) -> torch.Tensor:
+    """Per-slot +-inf population of the page pool: (capacity,) int32,
+    the cheap first pass of the pool's integrity audit
+    (`pipeline.pages.PagePool.audit`).  NaN is the legal validity
+    encoding; nothing that stages a page writes inf, so a non-zero count
+    convicts the slot without reading the page back.  The reference's
+    is a plain XLA reduction, not a Pallas kernel: this is plain torch."""
+    return torch.isinf(pool).sum((1, 2)).to(torch.int32)

@@ -33,8 +33,10 @@ The knee: per padded size, an EMA of the measured per-tile time (the
 first sample of each size discarded); a size slower per tile than
 ``_KNEE_RATIO`` x the best smaller size caps the flush threshold at
 half of it, and the cap only moves down.  ``GSKY_RENDER_BATCH_MAX``
-pins it.  `note_oom` (halving the knee) has no caller until the device
-guard is ported (ROADMAP A.10).  Each flush ticks
+pins it.  `note_oom` halves the knee: each executor registers it as
+the device guard's OOM hook.  A flush's launch and readback run under
+``device_guard.run`` ("dispatch.paged" or "dispatch.bucketed").  Each
+flush ticks
 ``gsky_batch_flushes_total{kind}`` ("paged" or "full") and is a
 ``batch.flush`` span (trigger "size" or "timer") of the trace of the
 request whose thread ran it.
@@ -52,6 +54,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import device_guard
 from ..obs import span as obs_span
 from ..obs import tsan
 from ..obs.metrics import BATCH_FLUSHES
@@ -219,10 +222,12 @@ class RenderBatcher:
             # traced only when flushed from a request's thread (a timer
             # thread carries no request context)
             with obs_span("batch.flush", trigger=trigger) as bsp:
-                outs = [render_scenes(scenes, it[0], it[1],
+                out = device_guard.run(
+                    "dispatch.bucketed",
+                    lambda: torch.stack([
+                        render_scenes(scenes, it[0], it[1],
                                       torch.as_tensor(it[2]), *statics)
-                        for it in items]
-                out = torch.stack(outs).cpu().numpy()
+                        for it in items]).cpu().numpy())
                 bsp.set(tiles=N, padded=Np, windowed=False)
             self._observe(Np, N, (time.perf_counter() - t0) * 1e3)
             for i, it in enumerate(items):
@@ -290,7 +295,7 @@ class RenderBatcher:
             BATCH_FLUSHES.labels(kind="paged").inc()
             dev = pool.device
             t0 = time.perf_counter()
-            with obs_span("batch.flush", trigger=trigger) as bsp:
+            def flush():
                 with pool.locked_pool() as parr:
                     out = render_byte_paged(
                         parr, torch.from_numpy(tables).to(dev),
@@ -300,7 +305,10 @@ class RenderBatcher:
                         torch.from_numpy(sps), method, n_ns, out_hw, step,
                         auto, colour_scale)
                 # the padding lanes never leave the device
-                host = out[:N].cpu().numpy()
+                return out[:N].cpu().numpy()
+
+            with obs_span("batch.flush", trigger=trigger) as bsp:
+                host = device_guard.run("dispatch.paged", flush)
                 bsp.set(tiles=N, padded=Np, paged=True)
             self._observe(Np, N, (time.perf_counter() - t0) * 1e3)
             for i, it in enumerate(items):

@@ -600,17 +600,27 @@ def _stats_tail(dataf, validf, req: GeoDrillRequest,
             "the mesh drill path (GSKY_SPMD=1) is not ported to "
             "gsky_tpu_torch yet")
     spans = spans or _Spans()
-    t0 = time.perf_counter()
     if waves_enabled():
-        # host (vals, counts), each as the per-call branch computes it
+        t0 = time.perf_counter()
+        # host (vals, counts), each as the per-call branch computes it;
+        # that branch is a failed wave's failover
         vals, c = default_waves(dataf.device).drill_stats(
             dataf, validf, req.clip_lower, req.clip_upper,
-            req.pixel_count)
+            req.pixel_count,
+            lambda: _stats_percall(dataf, validf,
+                                   dataclasses.replace(req, deciles=0),
+                                   _Spans())[:2])
         t0 = spans.add("stats", t0)
         dec = D.deciles(dataf, validf, req.deciles).cpu().numpy() \
             if req.deciles else np.zeros((dataf.shape[0], 0), np.float32)
         spans.add("readback", t0)
         return vals, c, dec
+    return _stats_percall(dataf, validf, req, spans)
+
+
+def _stats_percall(dataf, validf, req: GeoDrillRequest, spans: _Spans):
+    """`_stats_tail`'s per-call branch over device tensors."""
+    t0 = time.perf_counter()
     if not req.pixel_count:
         s, c = masked_stats(dataf, validf, req.clip_lower, req.clip_upper)
     else:

@@ -56,6 +56,15 @@ render_scenes_bands`).
 projected per dst pixel on the host (float64, cached per dst grid and
 source CRS), padded into source-shape buckets and warped by one
 `warp_gather_batch` per bucket; results stay on the device.
+
+The device guard (`device_guard`) supervises the launches where the
+reference's guards its kernels: the per-call B1 launch of
+`render_byte_scenes`, `warp_mosaic_scenes` and `render_expr_byte` under
+``device_guard.run("dispatch.paged")``, their one-group B2 launch under
+``"dispatch.bucketed"``; the multi-CRS combine, the decoded-window leg
+and the RGB rungs run unguarded, as there.  The executor registers its
+batcher's `note_oom` as an OOM hook and its scene cache as its pool's
+(`PagePool.rehydrate`).
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import device_guard
 from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.geoloc import load_geoloc_grid
@@ -217,6 +227,9 @@ class WarpExecutor:
         self.device = resolve_device(device)
         self.cache = cache or SceneCache(device=self.device)
         self.pool = pool or PagePool(device=self.device)
+        if self.pool.cache is None:
+            # a rebuilt pool re-stages from this executor's scenes
+            self.pool.cache = self.cache
         self._geo_cache: OrderedDict = OrderedDict()
         self._stride_cache: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
@@ -237,6 +250,9 @@ class WarpExecutor:
         # window-batch dispatches of `warp_all` by (bh, bw, B)
         self.bucket_stats: Dict[tuple, int] = {}
         self.batcher = RenderBatcher()
+        # an out-of-memory halves the coalesce knee before the guard's
+        # one retry
+        device_guard.register_oom_hook(self.batcher.note_oom)
         _live.add(self)
 
     def add_span(self, name: str, t0: float) -> float:
@@ -701,8 +717,10 @@ class WarpExecutor:
         if made is None:
             with self._lock:
                 self.paged_declined += 1
-            canv, best = self._group_scored(group, method, n_pad, height,
-                                            width)
+            canv, best = device_guard.run(
+                "dispatch.bucketed",
+                lambda: self._group_scored(group, method, n_pad, height,
+                                           width))
             return canv, best > float("-inf")
         tables, params16, _ = made
         with self._lock:
@@ -716,13 +734,16 @@ class WarpExecutor:
             if host:
                 return c, v
             return torch.from_numpy(c).to(dev), torch.from_numpy(v).to(dev)
-        try:
+        def dispatch():
             with self.pool.locked_pool() as pool:
-                canv, best = warp_scored_paged(
+                return warp_scored_paged(
                     pool, torch.from_numpy(tables[None]).to(dev),
                     torch.from_numpy(params16).to(dev),
                     group.ctrl_dev[None], method, n_pad, (height, width),
                     group.step)
+
+        try:
+            canv, best = device_guard.run("dispatch.paged", dispatch)
         finally:
             self.pool.unpin(tables)
         return canv[0], best[0] > float("-inf")
@@ -829,15 +850,19 @@ class WarpExecutor:
             self.add_span("dispatch", t)
             return out
         note_expr_fused("percall")
-        try:
+
+        def dispatch():
             with self.pool.locked_pool() as pool:
-                out = render_expr_paged(
+                return render_expr_paged(
                     pool, torch.from_numpy(tables[None]).to(dev),
                     torch.from_numpy(params16).to(dev),
                     group.ctrl_dev[None], sp[None],
                     torch.from_numpy(consts[None]).to(dev), method, n_pad,
                     (height, width), group.step, auto, colour_scale,
                     fp.key, fp.hash)
+
+        try:
+            out = device_guard.run("dispatch.paged", dispatch)
         finally:
             self.pool.unpin(tables)
         self.add_span("dispatch", t)
@@ -979,13 +1004,16 @@ class WarpExecutor:
                     group.ctrl, sp, statics, real_pages)
                 self.add_span("dispatch", t)
                 return out
-            try:
+            def dispatch():
                 with self.pool.locked_pool() as pool:
-                    out = render_byte_paged(
+                    return render_byte_paged(
                         pool, torch.from_numpy(tables[None]).to(dev),
                         torch.from_numpy(params16).to(dev),
                         group.ctrl_dev[None], torch.from_numpy(sp[None]),
                         *statics)
+
+            try:
+                out = device_guard.run("dispatch.paged", dispatch)
             finally:
                 self.pool.unpin(tables)
             self.add_span("dispatch", t)
@@ -1003,7 +1031,9 @@ class WarpExecutor:
             out = self.batcher.render(_serials(group) + statics, scenes,
                                       group.ctrl_dev, params, sp, statics)
         else:
-            out = render_scenes(scenes, group.ctrl_dev, params,
-                                torch.from_numpy(sp), *statics)
+            out = device_guard.run(
+                "dispatch.bucketed",
+                lambda: render_scenes(scenes, group.ctrl_dev, params,
+                                      torch.from_numpy(sp), *statics))
         self.add_span("dispatch", t)
         return out

@@ -26,10 +26,23 @@ its launch: `handoff` takes the pool's staging generation at assembly
 and `handoff_ok` confirms it at dispatch.  `union_table` merges the
 pinned tables of a superblock's lanes (`pipeline.autoplan`).
 
-Under critical memory pressure (`resilience.pressure`) `table_for`
-declines to stage: the tile takes the bucketed leg (kernel B2), as a
-tile the pool cannot hold does.  The monitor's relief `trim`s the
-colder half of every live pool's unpinned pages.
+Under critical memory pressure (`resilience.pressure`), and while the
+device guard holds the device anything but healthy (`device_guard`),
+`table_for` declines to stage: the tile takes the bucketed leg (kernel
+B2), as a tile the pool cannot hold does.  The monitor's relief, and
+the guard's out-of-memory relief, `trim` the colder half of every live
+pool's unpinned pages.
+
+The device guard's lifecycle, as the reference's: a cold stage appends
+a ``stage`` line to the residency journal (`device_guard.journal`) and,
+under ``GSKY_POOL_AUDIT=1``, keeps the page's CRC32; `teardown` journals
+the hot set with its hit counts and drops the pool tensor; `rehydrate`
+re-stages the journal's hottest pages from the scenes still resident in
+the pool's scene cache (``cache``, set by its executor), skipping stale
+entries; `audit` convicts
+pages holding inf (`ops.paged.pool_inf_counts`) or failing their CRC
+and quarantines them (a pinned one recycles when its pin drops).  The
+reference's fill of pages from fabric peers is ROADMAP A.20.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import contextlib
 import os
 import threading
 import weakref
+import zlib
 from collections import OrderedDict
 from typing import Dict
 
@@ -45,8 +59,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..device_guard import guard_enabled, journal, pool_audit_enabled, \
+    staging_ok
 from ..obs import tsan
-from ..ops.paged import page_shape
+from ..ops.paged import page_shape, pool_inf_counts
 from ..resilience.pressure import staging_allowed
 
 # every live pool, for the pressure monitor (occupancy and relief)
@@ -86,14 +102,25 @@ class PagePool:
         self._slots = OrderedDict()  # (serial, pi, pj) -> slot, LRU
         self._free = list(range(self.capacity - 1, 0, -1))
         self._pins: Dict[int, int] = {}   # slot -> pin count
+        self._heat: Dict[tuple, int] = {}  # key -> hits since staged
+        # stage-time page CRCs, kept only under GSKY_POOL_AUDIT=1
+        self._checksums: Dict[tuple, int] = {}
+        # audited-poisoned slots still pinned by a dispatch: `unpin`
+        # frees them once the pin drops
+        self._quarantine_pins: set = set()
+        # the scene cache whose scenes this pool pages (`rehydrate`)
+        self.cache = None
         self.staged = 0
         self.hits = 0
         self.evictions = 0
         self.declined = 0
         self.trimmed = 0
-        # staging generation of the slot namespace (`handoff`): the
-        # reference bumps it when a device incident tears the pool down;
-        # the port has no teardown yet (ROADMAP A.10), so it stays 0
+        self.teardowns = 0
+        self.rehydrated = 0
+        self.quarantined = 0
+        # staging generation of the slot namespace (`handoff`), bumped
+        # by `teardown`: a wave staged before a device incident refuses
+        # to launch against the rebuilt pool
         self._handoff_gen = 0
         _live.add(self)
         if tsan.enabled():
@@ -117,6 +144,8 @@ class PagePool:
             if self._pins.get(slot):
                 continue
             del self._slots[key]
+            self._heat.pop(key, None)
+            self._checksums.pop(key, None)
             self.evictions += 1
             return slot
         return None                 # everything pinned: caller declines
@@ -142,6 +171,7 @@ class PagePool:
         if slot is not None:
             self._slots.move_to_end(key)
             self.hits += 1
+            self._heat[key] = self._heat.get(key, 0) + 1
             return slot
         slot = self._take_slot()
         if slot is None:
@@ -150,6 +180,14 @@ class PagePool:
         self._stage(dev, slot, int(pi), int(pj))
         self._slots[key] = slot
         self.staged += 1
+        if guard_enabled():
+            # warm-recovery breadcrumb: cold stages only
+            journal.record_stage(*key)
+            if pool_audit_enabled():
+                # one page readback per cold stage: the cost of
+                # GSKY_POOL_AUDIT=1
+                self._checksums[key] = zlib.crc32(
+                    self._pool[slot].cpu().numpy().tobytes())
         return slot
 
     # -- public --------------------------------------------------------
@@ -161,8 +199,9 @@ class PagePool:
         the pool cannot hold the request's working set (partial pins
         are rolled back).  The caller must `unpin` the returned slots
         once its dispatch is enqueued (or abandoned).  Under critical
-        memory pressure it declines at once."""
-        if not staging_allowed():
+        memory pressure, or while the device guard holds the device
+        anything but healthy, it declines at once."""
+        if not staging_allowed() or not staging_ok():
             with self.lock:
                 self.declined += 1
             return None
@@ -202,6 +241,10 @@ class PagePool:
                     self._pins[int(s)] = n
                 else:
                     self._pins.pop(int(s), None)
+                    if int(s) in self._quarantine_pins:
+                        # audited-poisoned while a dispatch held it
+                        self._quarantine_pins.discard(int(s))
+                        self._free.append(int(s))
 
     def trim(self, frac: float = 0.5) -> int:
         """Release the coldest ``frac`` of the unpinned resident pages
@@ -213,8 +256,108 @@ class PagePool:
                                    * max(0.0, min(1.0, frac)))]
             for k in victims:
                 self._free.append(self._slots.pop(k))
+                self._heat.pop(k, None)
+                self._checksums.pop(k, None)
             self.trimmed += len(victims)
             return len(victims)
+
+    def drop_scene(self, serial: int) -> None:
+        """Free every unpinned page of a scene and void its journal
+        entries (its pages can no longer be re-staged); pinned pages
+        stay until their dispatch is done and LRU retires them."""
+        with self.lock:
+            dead = [k for k, s in self._slots.items()
+                    if k[0] == int(serial) and not self._pins.get(s)]
+            for k in dead:
+                self._free.append(self._slots.pop(k))
+                self._heat.pop(k, None)
+                self._checksums.pop(k, None)
+        if guard_enabled():
+            journal.record_drop(serial)
+
+    # -- the device guard's lifecycle ----------------------------------
+
+    def teardown(self) -> None:
+        """Device-incident teardown: journal the hot set with its hit
+        counts, then drop the pool tensor and every piece of residency
+        bookkeeping.  Pins are cleared: every dispatch that held one has
+        failed through the guard by the time a teardown runs."""
+        with self.lock:
+            if guard_enabled():
+                for key in self._slots:
+                    journal.record_heat(*key, hits=self._heat.get(key, 0))
+            self._pool = None
+            self._slots.clear()
+            self._pins.clear()
+            self._heat.clear()
+            self._checksums.clear()
+            self._quarantine_pins.clear()
+            self._free = list(range(self.capacity - 1, 0, -1))
+            self.teardowns += 1
+            self._handoff_gen += 1
+
+    def rehydrate(self) -> int:
+        """Warm recovery: re-stage the journal's hottest pages from the
+        scenes still resident in the pool's scene cache, hottest first,
+        until the journal or the free slots run out.  An entry whose
+        scene is gone, or whose page lies outside its scene's page grid,
+        is skipped.  Returns the pages restored."""
+        entries = journal.replay()
+        if not entries or self.cache is None:
+            return 0
+        with self.cache._lock:
+            scenes = {sc.serial: sc.dev
+                      for sc in self.cache._scenes.values()}
+        restored = 0
+        for serial, pi, pj in entries:
+            dev = scenes.get(serial)
+            if dev is None:
+                continue            # stale: scene evicted since
+            gh = -(-int(dev.shape[0]) // self.page_rows)
+            gw = -(-int(dev.shape[1]) // self.page_cols)
+            if pi >= gh or pj >= gw:
+                continue            # stale: outside the scene's grid
+            with self.lock:
+                if not self._free and (serial, pi, pj) not in self._slots:
+                    break   # full: never evict warmth just restored
+                if self._stage_locked(dev, serial, pi, pj) is not None:
+                    restored += 1
+        with self.lock:
+            self.rehydrated += restored
+        return restored
+
+    def audit(self) -> int:
+        """Integrity audit: quarantine poisoned resident pages.  A slot
+        is convicted by the on-device inf scan (`pool_inf_counts`) or,
+        under ``GSKY_POOL_AUDIT=1``, by a CRC that differs from its
+        stage-time one.  A quarantined page leaves the table at once (a
+        later lookup misses and re-stages it); its slot is freed, or
+        when pinned, freed by `unpin`.  Returns the pages
+        quarantined."""
+        with self.lock:
+            if self._pool is None or not self._slots:
+                return 0
+            infs = pool_inf_counts(self._pool).cpu().numpy()
+            host = self._pool.cpu().numpy() if self._checksums else None
+            bad = []
+            for key, slot in list(self._slots.items()):
+                poisoned = bool(infs[slot] > 0)
+                if not poisoned and host is not None:
+                    want = self._checksums.get(key)
+                    poisoned = want is not None and \
+                        zlib.crc32(host[slot].tobytes()) != want
+                if not poisoned:
+                    continue
+                bad.append(key)
+                self._slots.pop(key)
+                self._heat.pop(key, None)
+                self._checksums.pop(key, None)
+                if self._pins.get(slot):
+                    self._quarantine_pins.add(slot)
+                else:
+                    self._free.append(slot)
+            self.quarantined += len(bad)
+            return len(bad)
 
     @property
     def allocated(self) -> bool:
@@ -252,6 +395,10 @@ class PagePool:
                 "hits": self.hits,
                 "evictions": self.evictions,
                 "declined": self.declined,
+                "teardowns": self.teardowns,
+                "trimmed": self.trimmed,
+                "rehydrated": self.rehydrated,
+                "quarantined": self.quarantined,
                 "pool_bytes": (self.capacity * self.page_rows
                                * self.page_cols * 4),
             }

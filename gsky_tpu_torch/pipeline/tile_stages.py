@@ -30,8 +30,8 @@ A dispatch marks the ingest ledger's device-busy window
 cancel token (`resilience.cancel`) where the reference's does: decode
 before its gate and per granule, dispatch before and after its gate,
 readback before the copy; an abandoned request unwinds there with
-`RequestCancelled`.  Not ported: the device guard's readback probe
-(A.10).
+`RequestCancelled`.  The readback runs under the device guard
+(`device_guard.guarded_readback`, site ``tile.readback``).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .. import device_guard
 from ..ingest import stats as ingest_stats
 from ..obs import record_span, span as obs_span
 from ..resilience import check_cancel
@@ -191,11 +192,16 @@ def _dispatch_stage(dispatch, spans: Dict):
 
 def _readback(out, spans: Dict) -> np.ndarray:
     """The tile on the host: a wave's result already is; a tensor is
-    copied (waiting for its launch)."""
+    copied (waiting for its launch).  The copy runs under the device
+    guard: the hang watchdog, incident classification and the output
+    integrity probe."""
     check_cancel("readback")
     t0 = time.perf_counter()
     with obs_span("tile.readback") as sp:
-        arr = out if isinstance(out, np.ndarray) else out.cpu().numpy()
+        arr = device_guard.guarded_readback(
+            "tile.readback",
+            lambda: out if isinstance(out, np.ndarray)
+            else out.cpu().numpy())
         sp.set(bytes=int(arr.nbytes))
     spans["readback_s"] = spans.get("readback_s", 0.0) \
         + time.perf_counter() - t0

@@ -26,7 +26,9 @@ daemon threads serve the queue:
 
 ``GSKY_WAVE_PIPELINE=0`` assembles and dispatches on the ticker thread
 (`run_wave`): the same stacks, the same launches.  ``GSKY_WAVES=0``
-turns waves off: every request is served per call.
+turns waves off: every request is served per call.  A planner that
+raises leaves its group unplanned: planning is an optimisation, and a
+defect in it must not fail requests.
 
 Streams.  Page staging, the staging ring's uploads and every wave's
 launches run on the device's current stream (the default stream of
@@ -35,12 +37,23 @@ staged before a wave that reads it, and the next upload into a ring
 slot, issued after the slot is released (after the launch that reads
 it is enqueued), runs after that launch.  No tensor crosses streams.
 
+The device guard (`device_guard`), as the reference's: every staged
+upload runs under ``device_guard.run("wave.stage")`` (a staging-class
+site: a hang there is blamed on the wave executing), every group
+launch under ``device_guard.run("dispatch.wave")``, and the drainer's
+copy of a wave's outputs under one ``guarded_readback("wave.readback")``
+(the integrity probe runs once over the wave).  A staging, launch or
+readback error fails the wave over entry by entry: each entry is
+rendered again through its per-call leg (B2 over the lane's cached
+scenes, under ``device_guard.run("dispatch.bucketed")``; a drill
+through its caller's per-call reduction), counted in ``stats()``
+"fallbacks" and ``gsky_wave_fallbacks_total``; an entry without one
+(or whose leg fails too) gets the error ("failed").  Shutting a
+scheduler down fails its pending and staged entries over the same way.
 The reference lands results in an on-device output ring (a workaround
-for XLA buffer donation) and re-renders each entry per call after a
-device incident.  The port has neither: PyTorch's caching allocator
-reuses output blocks across waves, the drainer hands out host copies
-only, and a failed wave fails every entry's request (`stats()`
-"failed").
+for XLA buffer donation); the port does not: PyTorch's caching
+allocator reuses output blocks across waves, and the drainer hands out
+host copies only.
 
 Pressure and cancellation (as the reference's): under brownout
 (`resilience.pressure.brownout_level`) a wave takes at most half of
@@ -55,7 +68,7 @@ counts them in ``cancelled``.  Each launch is a
 sample; assembly times, inter-wave gaps and staged groups are
 ``gsky_wave_assembly_ms``, ``gsky_wave_gap_ms`` and
 ``gsky_wave_staged_total`` (`obs.metrics`).  Not ported: mesh waves
-(A.11), `device_guard` supervision (A.10).
+(A.11).
 """
 
 from __future__ import annotations
@@ -73,6 +86,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import device_guard
 from ..device import resolve_device
 from ..obs import tsan
 from ..obs.metrics import WAVE_ASSEMBLY_MS, WAVE_DISPATCHES, WAVE_GAP_MS, \
@@ -149,13 +163,16 @@ class BucketedLane:
 
 
 class _Entry:
-    __slots__ = ("kind", "key", "payload", "future", "cleanup",
+    __slots__ = ("kind", "key", "payload", "fallback", "future", "cleanup",
                  "_cleaned", "t_enq", "token")
 
-    def __init__(self, kind, key, payload, cleanup=None):
+    def __init__(self, kind, key, payload, cleanup=None, fallback=None):
         self.kind = kind
         self.key = key
         self.payload = payload
+        # the entry's per-call leg, run when its wave fails (None: the
+        # error reaches the request)
+        self.fallback = fallback
         self.future: Future = Future()
         self.cleanup = cleanup
         self._cleaned = cleanup is None
@@ -342,7 +359,8 @@ class WaveScheduler:
         self.dispatches = 0          # launches of a group
         self.waves = 0
         self.requests = 0
-        self.failed = 0              # entries whose wave failed
+        self.fallbacks = 0           # entries served by their per-call leg
+        self.failed = 0              # entries whose wave and leg failed
         self.cancelled = 0           # entries dropped: token fired
         self.superblock_lanes = 0    # lanes launched under a superblock plan
         self.bucketed_lanes = 0      # lanes the planner routed to B2
@@ -449,16 +467,25 @@ class WaveScheduler:
             if item is None:
                 return
             groups, done = item
-            try:
+            flat = [d for _k, _es, devs in groups for d in devs]
+
+            def read(flat=flat, done=done):
                 if done is not None:
                     done.synchronize()
-                host = [[self._to_host(d) for d in devs]
-                        for _k, _es, devs in groups]
+                return tuple(self._to_host(d) for d in flat)
+
+            try:
+                # one supervised readback a wave: one integrity probe
+                # over its outputs
+                host = device_guard.guarded_readback("wave.readback", read)
             except Exception as exc:
                 for _k, es, _d in groups:
-                    self._fail(es, exc)
+                    self._failover(es, exc)
                 continue
-            for (_kind, es, _d), lanes in zip(groups, host):
+            i0 = 0
+            for _kind, es, devs in groups:
+                lanes = host[i0:i0 + len(devs)]
+                i0 += len(devs)
                 for i, e in enumerate(es):
                     if e.dead():
                         with self._lock:
@@ -537,9 +564,13 @@ class WaveScheduler:
         for (kind, _key), es in groups.items():
             try:
                 plan = autoplan.plan_wave_group(kind, es)
+            except Exception:   # noqa: BLE001 - planning is an optimisation
+                plan = None
+            try:
                 devs = self._timed_dispatch(kind, es, plan, None)
             except Exception as exc:
-                self._fail(es, exc)
+                # an incident fails the wave over entry by entry
+                self._failover(es, exc)
                 continue
             dispatched += len(es)
             readback.append((kind, es, devs))
@@ -562,12 +593,12 @@ class WaveScheduler:
         for (kind, key), es in groups.items():
             self._q_wait_space()
             if self._stop.is_set():
-                self._fail(es, RuntimeError("wave scheduler shut down"))
+                self._failover(es, RuntimeError("wave scheduler shut down"))
                 continue
             try:
                 sg = self._stage_group(kind, key, es)
             except Exception as exc:
-                self._fail(es, exc)
+                self._failover(es, exc)
                 continue
             staged_n += len(es)
             with self._lock:
@@ -589,13 +620,19 @@ class WaveScheduler:
             return _StagedWave(kind, key, es)
         if kind not in ("byte", "scored", "expr"):
             raise ValueError(f"unknown wave kind {kind!r}")
-        plan = autoplan.plan_wave_group(kind, es, stage="assembly")
+        try:
+            plan = autoplan.plan_wave_group(kind, es, stage="assembly")
+        except Exception:   # noqa: BLE001 - planning is an optimisation
+            plan = None
         pool_gen = es[0].payload["pool"].handoff()
         if plan is not None and plan.route == "bucketed":
             return _StagedWave(kind, key, es, plan=plan, pool_gen=pool_gen)
+        host = _host_inputs(kind, es, plan)
         slot = self.staging.acquire((kind, key), should_stop=self._stop.is_set)
         try:
-            dev = self.staging.upload(slot, _host_inputs(kind, es, plan))
+            # a staging-class site: a hang is blamed on the wave executing
+            dev = device_guard.run(
+                "wave.stage", lambda: self.staging.upload(slot, host))
         except Exception:
             self.staging.release(slot)
             raise
@@ -629,7 +666,7 @@ class WaveScheduler:
                                    "assembly and dispatch")
             devs = self._timed_dispatch(sg.kind, es, sg.plan, sg.dev)
         except Exception as exc:
-            self._fail(es, exc)
+            self._failover(es, exc)
             return 0
         finally:
             # the launch that reads the slot is enqueued (or failed):
@@ -648,7 +685,7 @@ class WaveScheduler:
                 done.record(torch.cuda.current_stream(self.device))
             except Exception as exc:
                 for _k, es, _d in groups:
-                    self._fail(es, exc)
+                    self._failover(es, exc)
                 return
         self._readback_q.put((groups, done))
         with self._lock:
@@ -663,7 +700,9 @@ class WaveScheduler:
             gap = None if self._t_dispatch_end is None \
                 else (t0 - self._t_dispatch_end) * 1e3
         try:
-            devs = self._dispatch_group(kind, es, plan, staged)
+            devs = device_guard.run(
+                "dispatch.wave",
+                lambda: self._dispatch_group(kind, es, plan, staged))
         finally:
             for e in es:
                 e.cleanup_once()
@@ -690,14 +729,38 @@ class WaveScheduler:
         WAVE_OCCUPANCY.observe(float(n))
         return devs
 
-    def _fail(self, entries: List[_Entry], exc: Exception):
-        """A failed wave fails its requests: no per-call re-render."""
+    def _failover(self, entries: List[_Entry], exc: Exception):
+        """A failed wave's entries, each rendered again through its
+        per-call leg; an entry without one, or whose leg fails too, gets
+        the error."""
         for e in entries:
             e.cleanup_once()
-            if not e.future.done():
-                e.future.set_exception(exc)
-        with self._lock:
-            self.failed += len(entries)
+            if e.future.done():
+                continue
+            err = exc
+            if e.fallback is not None:
+                with self._lock:
+                    self.fallbacks += 1
+                try:
+                    e.future.set_result(e.fallback())
+                    continue
+                except Exception as fe:   # noqa: BLE001 - to the request
+                    err = fe
+            with self._lock:
+                self.failed += 1
+            e.future.set_exception(err)
+
+    def _lane_percall(self, e: _Entry):
+        """A byte, scored or expression entry alone through its per-call
+        leg: kernel B2 over the lane's cached scenes (`_bucketed`), under
+        the device guard with its readback, as a wave entry's result."""
+        def leg():
+            host = [self._to_host(d)
+                    for d in self._bucketed(e.kind, [e], e.key[0])]
+            return host[0][0] if len(host) == 1 \
+                else tuple(h[0] for h in host)
+
+        return device_guard.run("dispatch.bucketed", leg)
 
     def _dispatch_group(self, kind, es, plan, staged):
         if kind == "drill":
@@ -799,7 +862,7 @@ class WaveScheduler:
                     "sp": np.asarray(sp, np.float32), "xla": lane,
                     "serials": tuple(serials) if serials else None},
                    cleanup=lambda: pool.unpin(tables))
-        return self._wait(self._submit(e))
+        return self._wait(self._submit(self._with_percall(e)))
 
     def render_expr(self, pool, tables, params16, ctrl, sp, consts,
                     statics: tuple, lane: BucketedLane,
@@ -816,7 +879,7 @@ class WaveScheduler:
                     "consts": np.asarray(consts, np.float32), "xla": lane,
                     "serials": tuple(serials) if serials else None},
                    cleanup=lambda: pool.unpin(tables))
-        return self._wait(self._submit(e))
+        return self._wait(self._submit(self._with_percall(e)))
 
     def warp_scored(self, pool, tables, params16, ctrl, statics: tuple,
                     lane: BucketedLane, serials=None):
@@ -829,28 +892,38 @@ class WaveScheduler:
                     "ctrl": np.asarray(ctrl, np.float32), "xla": lane,
                     "serials": tuple(serials) if serials else None},
                    cleanup=lambda: pool.unpin(tables))
-        return self._wait(self._submit(e))
+        return self._wait(self._submit(self._with_percall(e)))
+
+    def _with_percall(self, e: _Entry) -> _Entry:
+        """Give a tile entry whose lane carries its scenes its per-call
+        leg (`_lane_percall`)."""
+        if e.payload["xla"] is not None:
+            e.fallback = lambda: self._lane_percall(e)
+        return e
 
     def drill_stats(self, data, valid, clip_lower: float,
-                    clip_upper: float, pixel_count: bool):
+                    clip_upper: float, pixel_count: bool, percall=None):
         """One drill reduction over (B, N) data/valid on the device:
-        drills of one (shape, clips, mode) share a launch.  Blocks;
-        returns host (vals (B,) f32, counts (B,) int32)."""
+        drills of one (shape, clips, mode) share a launch.  ``percall``
+        computes the same host result alone (a failed wave's failover).
+        Blocks; returns host (vals (B,) f32, counts (B,) int32)."""
         e = _Entry("drill", (tuple(int(d) for d in data.shape),
                              float(clip_lower), float(clip_upper),
                              bool(pixel_count)),
-                   {"data": data, "valid": valid})
+                   {"data": data, "valid": valid}, fallback=percall)
         return self._wait(self._submit(e))
 
     # -- lifecycle -----------------------------------------------------
 
     def shutdown(self):
-        """Stop the threads; pending and staged entries fail."""
+        """Stop the threads; pending and staged entries fail over to
+        their per-call legs, so that no request is stranded."""
         with self._lock:
             leftover = self._pending[:]
             self._pending.clear()
         if leftover:
-            self._fail(leftover, RuntimeError("wave scheduler shut down"))
+            self._failover(leftover,
+                           RuntimeError("wave scheduler shut down"))
         self._stop.set()
         with self._q_cv:
             staged = list(self._staged_q)
@@ -858,7 +931,8 @@ class WaveScheduler:
             self._q_cv.notify_all()
         for sg in staged:
             self.staging.release(sg.slot)
-            self._fail(sg.entries, RuntimeError("wave scheduler shut down"))
+            self._failover(sg.entries,
+                           RuntimeError("wave scheduler shut down"))
         self._kick.set()
         self._readback_q.put(None)
         for t in (self._ticker, self._dispatcher, self._drainer):
@@ -872,7 +946,7 @@ class WaveScheduler:
             except Empty:
                 break
             for _k, es, _d in (item[0] if item is not None else ()):
-                self._fail(es, RuntimeError("wave scheduler shut down"))
+                self._failover(es, RuntimeError("wave scheduler shut down"))
 
     def stats(self) -> Dict:
         with self._lock:
@@ -888,6 +962,7 @@ class WaveScheduler:
                    "dispatches": self.dispatches,
                    "waves": self.waves,
                    "requests": self.requests,
+                   "fallbacks": self.fallbacks,
                    "failed": self.failed,
                    "cancelled": self.cancelled,
                    "superblock_lanes": self.superblock_lanes,

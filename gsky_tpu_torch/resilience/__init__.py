@@ -33,9 +33,12 @@ __all__ = [
 
 def reset() -> None:
     """Test hook: clear the counters, the shared breakers, the fault
-    plan, the cancellation ledger and the pressure monitor."""
+    plan, the cancellation ledger, the pressure monitor and the device
+    supervisor."""
+    from .. import device_guard     # it imports this package
     registry.reset()
     reset_breakers()
     faults.reset()
     reset_cancel_stats()
     default_monitor().reset()
+    device_guard.reset()

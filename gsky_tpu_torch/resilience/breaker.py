@@ -10,7 +10,7 @@ it, a failed one opens it for another cooldown.  `get_breaker` shares
 one breaker per name, so every client of one backend sees one health,
 and registers it with `registry`, whose `stats` reads each one's
 `snapshot`.  The reference's state listeners serve its fleet router,
-which is not ported (ROADMAP A.10).
+which is not ported (ROADMAP A.20).
 """
 
 from __future__ import annotations

@@ -5,11 +5,13 @@ same kinds and the same per-site draws: a (spec, seed) pair replays the
 fault sequence the reference replays.  The sites wired in the port are
 ``mas`` (in front of both MAS client transports, `index/client.py`) and
 ``decode`` (the window decode, `pipeline/decode.py`, and the scene
-load, `pipeline/scene_cache.py`).  ``worker``, ``pool`` and ``node``
-parse and draw but have no caller until remote workers are ported
-(ROADMAP A.10); so have the device kinds (``crash``, ``oom``,
-``corrupt``) and the preemption handler, which the device guard
-installs there.
+load, `pipeline/scene_cache.py`) and ``device`` (inside the device
+guard's watchdog, `device_guard.supervised_sync`, where the device
+kinds ``crash``, ``oom`` and ``hang`` fire, and its guarded readbacks,
+which ``corrupt`` poisons).  ``worker``, ``pool`` and ``node`` parse and
+draw but have no caller until remote workers are ported (ROADMAP
+A.10's worker half); nor has the preemption handler, which a worker
+installs.
 
 Faults are described by a compact spec, normally supplied via the
 ``GSKY_FAULTS`` environment variable::

@@ -189,8 +189,8 @@ class PressureMonitor:
 
     def escalate(self, level: int = 1,
                  hold_s: Optional[float] = None) -> None:
-        """One-shot escalation (the device guard's OOM relief, ROADMAP
-        A.10, calls it): floor the reported state at ``level`` for ``hold_s``
+        """One-shot escalation (the device guard's OOM relief calls
+        it): floor the reported state at ``level`` for ``hold_s``
         (default the CLEAR window) and run the cache relief *now*.
         Unlike :meth:`force` this does not pin measurement — a genuine
         critical reading still wins, and the floor expires on its own."""

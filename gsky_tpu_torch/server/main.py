@@ -14,9 +14,14 @@ one, behind the process-wide serving gateway (response cache and
 single-flight), as the reference's.  Each request is one JSON record of
 the metrics log: on stdout with ``-verbose``, in size-rotated gzip
 files under ``-log_dir`` (`server.metrics.MetricsLogger`), else only
-folded into ``/debug`` and ``/metrics``.  ``GSKY_TSAN=1`` installs the
-lockset race sanitizer before any server lock exists.  Counterpart of
-`gsky_tpu/server/main.py`, without its prewarm, drain and static files.
+folded into ``/debug`` and ``/metrics``; the page-residency journal of
+the device guard (`device_guard.journal`) lives under ``-log_dir`` too
+(``GSKY_POOL_JOURNAL`` overrides).  Before the server listens, the
+kernels its layers run are built, loaded and launched once
+(`server.prewarm`; ``GSKY_PREWARM=0`` skips it).  ``GSKY_TSAN=1``
+installs the lockset race sanitizer before any server lock exists.
+Counterpart of `gsky_tpu/server/main.py`, without its drain and static
+files.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ..device_guard import journal
 from ..index.api import ingest_file
 from ..index.client import MASClient
 from ..index.store import MASStore
@@ -31,6 +37,7 @@ from ..obs import tsan
 from .config import ConfigWatcher
 from .metrics import MetricsLogger
 from .ows import OWSServer
+from .prewarm import prewarm_from_watcher
 
 
 def main(argv=None) -> int:
@@ -80,9 +87,20 @@ def main(argv=None) -> int:
         print(f"OK: {len(watcher.configs)} namespace(s), {n} layer(s)")
         return 0
 
+    if args.log_dir:
+        # the page-residency journal (warm pool recovery) lives beside
+        # the metrics log; GSKY_POOL_JOURNAL still overrides
+        journal.set_default_dir(args.log_dir)
     server = OWSServer(watcher, mas_factory, device=args.device,
                        metrics=MetricsLogger(args.log_dir,
                                              verbose=args.verbose))
+    # every kernel the configured layers run, built, loaded and launched
+    # before the listen socket opens (GSKY_PREWARM=0 skips)
+    warm = prewarm_from_watcher(watcher, server.executor)
+    if warm is not None:
+        print(f"prewarm: {warm['programs']} program(s) for "
+              f"{warm['specs']} layer spec(s) in {warm['seconds']}s "
+              f"({warm['compiles']} fresh compile(s))", flush=True)
     httpd = server.serve(args.host, args.port)
     print(f"gsky-ows-torch listening on {args.host}:"
           f"{httpd.server_address[1]} ({server.device})", flush=True)

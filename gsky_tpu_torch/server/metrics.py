@@ -238,9 +238,12 @@ class MetricsLogger:
     def summary(self) -> Dict:
         """The ``/debug`` document's body: uptime, per-verb counts and
         latency percentiles over the rolling window, cumulative device
-        and pipeline time, the staged export and tile aggregates, the
-        cache counters, the resilience registry, the wave schedulers
-        and the flight recorder."""
+        and pipeline time, the staged export and tile aggregates (the
+        encode pool's stats among the latter), the cache counters, the
+        resilience registry, the device supervisor with its residency
+        journal, the wave schedulers and the flight recorder."""
+        from .. import device_guard
+        from ..io.png import encode_pool_stats
         from ..pipeline.tile_stages import gate_stats
         from ..pipeline.waves import wave_stats
         from ..resilience import registry as _resilience
@@ -265,8 +268,13 @@ class MetricsLogger:
             if self._tiles.get("tiles"):
                 out["tile_stages"] = dict(self._tiles)
                 out["tile_stages"]["gates"] = gate_stats()
+                out["tile_stages"]["encode_pool"] = encode_pool_stats()
         out["cache"] = cache_stats()
         out["resilience"] = _resilience.stats()
+        # is the card healthy, and how warm would a rebuilt pool be
+        dev = device_guard.default_supervisor().stats()
+        dev["journal"] = device_guard.journal.stats()
+        out["device"] = dev
         ws = wave_stats()
         if ws:
             out["waves"] = ws

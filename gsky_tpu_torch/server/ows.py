@@ -100,7 +100,13 @@ Under load, as the reference (`resilience`, `serving.admission`):
 - a dependency that stayed down through retries (`BackendUnavailable`,
   an open breaker) answers 503 ``ServerBusy`` with ``Retry-After``, and
   the gateway replays a stale entry on it (``X-Gsky-Cache: stale``,
-  labelled ``stale-cache``);
+  labelled ``stale-cache``); so does a device incident
+  (`device_guard.DeviceGuardError`: a CUDA error, a hang past
+  ``GSKY_DEVICE_HANG_S``, a readback that fails the integrity probe, a
+  device rebuilding or dead), the server's readbacks (the serial
+  ladder's and the modular route's tile, an animation's frames, a
+  GetCoverage's float planes) running under
+  `device_guard.guarded_readback`;
 - brownout under memory pressure (`resilience.pressure`): a GetMap is
   labelled ``X-GSKY-Degraded: brownout``, renders the overview one (or,
   when critical, two) levels coarser where the layer has overviews,
@@ -131,7 +137,11 @@ subsystems' stats), ``/debug/trace`` (the recorder's list, ``?format=
 jsonl`` its dump, ``?slowest=1`` the slowest trace), ``/debug/trace/<id>``
 (one span tree) and ``/debug/profile?seconds=N`` (a `torch.profiler`
 capture, CUDA kernels included on a card server, written as a Chrome
-trace).  Not ported: drain, the cache fabric and remote workers.
+trace); ``/debug`` carries the device supervisor's ``device`` block with
+its residency journal.  With the staged tile path on, a tile's PNG or
+JPEG encode runs on the sized encode pool (`io.png.encode_pooled`,
+``GSKY_PNG_ENCODE_WORKERS``).  Not ported: drain and the cache fabric
+(ROADMAP A.20), remote workers (A.10's worker half).
 """
 
 from __future__ import annotations
@@ -158,7 +168,7 @@ from urllib.parse import parse_qs, urlencode, urlsplit
 import numpy as np
 import torch
 
-from .. import obs
+from .. import device_guard, obs
 from ..device import resolve_device
 from ..geo import geometry as geom
 from ..geo.crs import parse_crs
@@ -171,7 +181,7 @@ from ..ingest.prefetch import default_planner
 from ..io.geotiff import GeoTIFFWriter, write_geotiff
 from ..io.netcdf import write_netcdf3
 from ..io.png import ApngAssembler, empty_tile_png, encode_jpeg, \
-    encode_png, encode_rgba_png, encode_timed
+    encode_png, encode_pooled, encode_rgba_png
 from ..obs import metrics as obs_metrics
 from ..ops.palette import gradient_palette, with_nodata_entry
 from ..ops.scale import scale_params_auto, scale_to_byte
@@ -974,17 +984,17 @@ class OWSServer:
         return _png(png)
 
     def _encode_tile(self, fn, *args, spans: Optional[Dict] = None, **kw):
-        """``fn(*args, **kw)``, an encode, in the request's thread: with
-        the staged tile path on, timed (`io.png.encode_timed`) and the
-        staged render's stage spans folded into the ``/debug``
-        aggregates once it is done; under ``GSKY_TILE_PIPELINE=0``
-        inline, as the reference's escape hatch encodes.  The same
-        bytes either way."""
+        """``fn(*args, **kw)``, an encode: with the staged tile path on,
+        on the sized encode pool (`io.png.encode_pooled`), the staged
+        render's stage spans folded into the ``/debug`` aggregates once
+        it is done; under ``GSKY_TILE_PIPELINE=0`` inline in the
+        request's thread, as the reference's escape hatch encodes.  The
+        same bytes either way."""
         if not tile_pipeline_enabled():
             with obs.span("encode", inline=True):
                 return fn(*args, **kw)
         try:
-            return encode_timed(fn, *args, spans=spans, **kw)
+            return encode_pooled(fn, *args, spans=spans, **kw)
         finally:
             if spans is not None:
                 self.metrics.record_tile(spans)
@@ -1025,7 +1035,11 @@ class OWSServer:
                 made = None if sb is None else ("planes", sb)
             if made is not None:
                 td = time.perf_counter()
-                kind, arr = made[0], _host(made[1])
+                # the staged path read its tile back under the device
+                # guard; the serial ladder's one readback is guarded here
+                kind, arr = made[0], made[1] if staged else \
+                    device_guard.guarded_readback(
+                        "tile.readback", lambda dev=made[1]: _host(dev))
                 if not staged:
                     # the serial ladder's one readback
                     rec["device_s"] = time.perf_counter() - td
@@ -1044,11 +1058,13 @@ class OWSServer:
         valids = [res.valid[n] for n in res.namespaces if n in res.valid]
         if not bands:
             return None, None, rec
-        return [scale_to_byte(b, v, offset=style.offset_value,
-                              scale=style.scale_value,
-                              clip=style.clip_value,
-                              colour_scale=style.colour_scale,
-                              auto=auto).cpu().numpy()
+        return [device_guard.guarded_readback(
+                    "tile.readback",
+                    lambda b=b, v=v: scale_to_byte(
+                        b, v, offset=style.offset_value,
+                        scale=style.scale_value, clip=style.clip_value,
+                        colour_scale=style.colour_scale,
+                        auto=auto).cpu().numpy())
                 for b, v in zip(bands[:4], valids[:4])], None, rec
 
     def _getmap_animation(self, cfg: Config, p, lay: Layer, source: Layer,
@@ -1144,7 +1160,8 @@ class OWSServer:
                         style.clip_value, style.colour_scale, auto)
             if out is None:
                 return np.full((req.height, req.width), 255, np.uint8)
-            return _host(out)
+            return device_guard.guarded_readback(
+                "anim.readback", lambda: _host(out))
 
         n = len(times)
         with cf.ThreadPoolExecutor(max_workers=min(n, _anim_workers()),
@@ -1169,10 +1186,12 @@ class OWSServer:
                 frames.append([np.full((fr.height, fr.width), 255,
                                        np.uint8)])
                 continue
-            frames.append([scale_to_byte(
-                b, v, offset=style.offset_value, scale=style.scale_value,
-                clip=style.clip_value, colour_scale=style.colour_scale,
-                auto=auto).cpu().numpy()
+            frames.append([device_guard.guarded_readback(
+                "anim.readback", lambda b=b, v=v: scale_to_byte(
+                    b, v, offset=style.offset_value,
+                    scale=style.scale_value, clip=style.clip_value,
+                    colour_scale=style.colour_scale,
+                    auto=auto).cpu().numpy())
                 for b, v in zip(bands[:4], valids[:4])])
         return frames
 
@@ -1370,13 +1389,19 @@ class OWSServer:
                                 np.float32)
                 for i, n in enumerate(ns_names):
                     if n in res.data:
-                        block[i] = np.where(_host(res.valid[n]),
-                                            _host(res.data[n]), nodata)
+                        # the float pull, under the device guard
+                        d = device_guard.guarded_readback(
+                            "export.readback",
+                            lambda n=n: _host(res.data[n]))
+                        block[i] = np.where(_host(res.valid[n]), d, nodata)
                 writer.write_region(ox, oy, block)
                 return
             for n in ns_names:
                 if n in res.data:
-                    out[n][oy:oy + th, ox:ox + tw] = _host(res.data[n])
+                    out[n][oy:oy + th, ox:ox + tw] = \
+                        device_guard.guarded_readback(
+                            "export.readback",
+                            lambda n=n: _host(res.data[n]))
                     valid[n][oy:oy + th, ox:ox + tw] = _host(res.valid[n])
 
         # a multi-tile export of a plain layer goes through the staged

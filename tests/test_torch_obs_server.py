@@ -49,6 +49,7 @@ import pytest
 from gsky_tpu.obs import metrics as jom
 from gsky_tpu.obs import recorder as jrecorder
 from gsky_tpu.obs.prom import parse_exposition
+from gsky_tpu.ops import paged as jpaged
 from gsky_tpu.pipeline import waves as jwaves
 from gsky_tpu.server.config import ConfigWatcher as JConfigWatcher
 from gsky_tpu.server.metrics import MetricsLogger as JMetricsLogger
@@ -57,6 +58,7 @@ from gsky_tpu.server.ows import OWSServer as JOWSServer
 from gsky_tpu_torch.io.png import decode_png
 from gsky_tpu_torch.obs import metrics as tom
 from gsky_tpu_torch.obs import recorder as trecorder
+from gsky_tpu_torch.ops import paged as tpaged
 from gsky_tpu_torch.pipeline import waves as twaves
 from gsky_tpu_torch.server.config import ConfigWatcher
 from gsky_tpu_torch.server.metrics import MetricsLogger
@@ -77,12 +79,6 @@ tres = importlib.import_module("gsky_tpu_torch.resilience")
 # ROADMAP item that brings it
 NOT_PORTED = {
     "gsky_worker_rpc_seconds": "A.10",          # remote workers
-    "gsky_compiles_total": "A.10",              # server/prewarm.py
-    "gsky_device_state": "A.10",                # the device guard
-    "gsky_device_reinits_total": "A.10",
-    "gsky_device_hangs_total": "A.10",
-    "gsky_device_incidents_total": "A.10",
-    "gsky_pool_rehydrated_pages_total": "A.10",
     "gsky_mesh_waves_total": "A.11",            # mesh serving
     "gsky_mesh_chip_occupancy": "A.11",
     "gsky_mesh_shard_skew_ms": "A.11",
@@ -100,17 +96,13 @@ NOT_PORTED = {
     "gsky_preemptions_total": "A.20",
     "gsky_handoff_pages_total": "A.20",
     "gsky_plan_block_shape": "A.21",            # autoplan.plan_block
-    "gsky_encode_pool_pending": "A.19",         # the sized encode pool
-    "gsky_encode_pool_workers": "A.19",
-    "gsky_encode_pool_encoded_total": "A.19",
-    "gsky_encode_pool_errors_total": "A.19",
 }
 # the reference's /debug blocks the port does not carry: jax is torch
 # here; spmd and mesh (A.11); fabric, elastic, fleet and drain (A.20);
-# device (A.10, the device guard); kernels (the reference's
-# Pallas-vs-XLA race verdicts: the port runs no races)
+# kernels (the reference's Pallas-vs-XLA race verdicts: the port runs
+# no races)
 DEBUG_NOT_PORTED = {"jax", "spmd", "mesh", "fabric", "elastic", "drain",
-                    "fleet", "device", "kernels"}
+                    "fleet", "kernels"}
 
 _POLY = ('{"type": "Polygon", "coordinates": [[[148.0, -35.4], '
          '[148.4, -35.4], [148.4, -35.1], [148.0, -35.4]]]}')
@@ -160,9 +152,13 @@ def oenv(env):  # noqa: F811
     mp.setenv("GSKY_TILE_PIPELINE", "1")
     # process-wide state that decides whether a family renders, made the
     # same in both packages: no wave scheduler, no animation served, no
-    # admission class, no breaker; and empty flight recorders
+    # admission class, no breaker, no fused expression render counted
+    # (an earlier test's leaves gsky_expr_fused_total in one package
+    # only); and empty flight recorders
     jwaves.reset_waves()
     twaves.reset_waves()
+    jpaged.reset_expr_fused_stats()
+    tpaged.reset_expr_fused_stats()
     jom.reset_temporal()
     tom.reset_temporal()
     jres.reset()
@@ -249,11 +245,6 @@ def test_histogram_counts_alike(oenv, family):
         return {lab: v for (name, lab), v in d.items()
                 if name == family + "_count"}
     ref, port = counts("ref"), counts("port")
-    if family == "gsky_encode_seconds":
-        # the reference's encode pool also observes its queue wait
-        # (the pool is ROADMAP A.19)
-        ref = {lab: v for lab, v in ref.items()
-               if dict(lab)["phase"] == "cpu"}
     assert port == ref and port
 
 
@@ -312,6 +303,11 @@ def test_debug_keys_equal_but_the_unported(oenv):
                                      "name": ""}
     for k in ("requests", "tile_stages", "cache", "trace"):
         assert set(docs["port"][k]) <= set(docs["ref"][k]) | {"gates"}, k
+    assert set(docs["port"]["device"]) == set(docs["ref"]["device"])
+    assert set(docs["port"]["device"]["journal"]) \
+        == set(docs["ref"]["device"]["journal"])
+    assert set(docs["port"]["tile_stages"]["encode_pool"]) \
+        == set(docs["ref"]["tile_stages"]["encode_pool"])
     assert docs["port"]["requests"]["WMS.GetMap"]["count"] >= 3
 
 
@@ -455,7 +451,9 @@ MODES = {
               _getmap("plain", MULTI[0], style="near", time=T_DATA)),
     "batcher": ({"GSKY_RENDER_BATCH": "1"},
                 _getmap("plain", MULTI[1], style="near", time=T_DATA)),
-    "animation": ({"GSKY_WAVES": "1"},
+    # the three frames wait the longest tick for one another, so that
+    # they meet in one wave in both packages on a loaded host too
+    "animation": ({"GSKY_WAVES": "1", "GSKY_WAVE_TICK_MS": "100"},
                   _getmap("plain", NATIVE[1], style="near", time=T_FRAMES,
                           fmt="image/apng")),
     "export": ({}, f"/ows?service=WCS&request=GetCoverage&coverage=plain"

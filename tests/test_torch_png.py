@@ -432,3 +432,130 @@ def test_ingest_file(tmp_path):
         got = store.intersects("/d", metadata="gdal")["gdal"]
         assert sorted(g["file_path"] for g in got) == ["/d/a.tif",
                                                        "/d/b.tif"]
+
+
+# ---------------------------------------------------------------------------
+# the sized encode pool
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def pools(monkeypatch):
+    """Both packages' encode pools fresh, and shut down afterwards."""
+    monkeypatch.delenv("GSKY_PNG_ENCODE_WORKERS", raising=False)
+    jpng.reset_encode_pool()
+    tpng.reset_encode_pool()
+    yield
+    jpng.reset_encode_pool()
+    tpng.reset_encode_pool()
+
+
+def _ref_encode(fn, *args, spans=None, **kw):
+    import asyncio
+    return asyncio.run(jpng.encode_async(fn, *args, spans=spans, **kw))
+
+
+def _boom(*_a, **_k):
+    raise ValueError("encoder refused")
+
+
+def _stats_view(st):
+    return {k: v for k, v in st.items() if k != "busy_s"}
+
+
+def test_encode_pool_stats_as_the_reference(pools):
+    """The same encodes through both pools (three tiles, one that
+    raises): the stats' keys and values (bar busy seconds) equal."""
+    tile = np.arange(64 * 48, dtype=np.uint8).reshape(48, 64)
+    for enc, jfn, tfn in ((_ref_encode, jpng.encode_png, None),
+                          (tpng.encode_pooled, None, tpng.encode_png)):
+        fn = jfn or tfn
+        for _ in range(3):
+            body = enc(fn, [tile], compress_level=1)
+            assert body[:8] == b"\x89PNG\r\n\x1a\n"
+        with pytest.raises(ValueError):
+            enc(_boom, [tile])
+    j, t = jpng.encode_pool_stats(), tpng.encode_pool_stats()
+    assert set(j) == set(t)
+    assert _stats_view(t) == _stats_view(j) == {
+        "workers": 4, "pending": 0, "queue_max": 1, "encoded": 3,
+        "errors": 1}
+    assert t["busy_s"] > 0
+
+
+def test_encode_pool_exception_propagates(pools):
+    """An encode's exception reaches the caller as it would inline, and
+    the pool keeps serving."""
+    with pytest.raises(ValueError, match="encoder refused"):
+        tpng.encode_pooled(_boom, 1, x=2)
+    tile = np.full((8, 8), 7, np.uint8)
+    assert tpng.encode_pooled(tpng.encode_png, [tile]) \
+        == tpng.encode_png([tile])
+    st = tpng.encode_pool_stats()
+    assert (st["errors"], st["encoded"], st["pending"]) == (1, 1, 0)
+
+
+@pytest.mark.parametrize("knob,workers", [("2", 2), ("40", 32), ("0", 1),
+                                          ("x", 4)])
+def test_reset_encode_pool_rereads_the_knob(pools, monkeypatch, knob,
+                                            workers):
+    tile = np.zeros((4, 4), np.uint8)
+    tpng.encode_pooled(tpng.encode_png, [tile])
+    assert tpng.encode_pool_stats()["workers"] == 4
+    monkeypatch.setenv("GSKY_PNG_ENCODE_WORKERS", knob)
+    tpng.encode_pooled(tpng.encode_png, [tile])
+    assert tpng.encode_pool_stats()["workers"] == 4     # kept until reset
+    tpng.reset_encode_pool()
+    jpng.reset_encode_pool()
+    assert tpng.encode_pool_stats()["workers"] == 0
+    tpng.encode_pooled(tpng.encode_png, [tile])
+    _ref_encode(jpng.encode_png, [tile])
+    assert tpng.encode_pool_stats()["workers"] == workers \
+        == jpng.encode_pool_stats()["workers"]
+    assert tpng.encode_pool()._max_workers == workers
+
+
+def test_encode_pool_spans_and_concurrency(pools, monkeypatch):
+    """The staged path's spans get encode_s and the occupancy seen;
+    eight requests over two workers queue (two slow encodes hold both
+    workers until all eight are pending) and every body is the inline
+    encode's."""
+    import threading
+    import time
+    monkeypatch.setenv("GSKY_PNG_ENCODE_WORKERS", "2")
+    tpng.reset_encode_pool()
+    rng = np.random.default_rng(3)
+    tiles = [rng.integers(0, 255, (96, 80), np.uint8) for _ in range(8)]
+    gate = threading.Event()
+    running = threading.Semaphore(0)
+    out, spans = [None] * 8, [dict() for _ in range(8)]
+
+    def slow_encode(bands):
+        running.release()
+        gate.wait(timeout=30)
+        return tpng.encode_png(bands)
+
+    def go(i):
+        out[i] = tpng.encode_pooled(
+            slow_encode if i < 2 else tpng.encode_png, [tiles[i]],
+            spans=spans[i])
+
+    ts = [threading.Thread(target=go, args=(i,)) for i in range(8)]
+    for t in ts[:2]:
+        t.start()
+    for _ in range(2):          # both workers held by the slow encodes
+        assert running.acquire(timeout=30)
+    for t in ts[2:]:
+        t.start()
+    deadline = time.monotonic() + 30
+    while tpng.encode_pool_stats()["pending"] < 8 \
+            and time.monotonic() < deadline:
+        time.sleep(0.005)
+    gate.set()
+    for t in ts:
+        t.join(timeout=60)
+    assert all(o == tpng.encode_png([tl]) for o, tl in zip(out, tiles))
+    st = tpng.encode_pool_stats()
+    assert (st["encoded"], st["pending"], st["queue_max"]) == (8, 0, 8)
+    assert all(s["encode_s"] > 0 for s in spans)
+    assert sorted(s["encode_queue_max"] for s in spans[:2]) == [1, 2]
+    assert all(s["encode_queue_max"] >= 3 for s in spans[2:])

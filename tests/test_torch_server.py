@@ -1027,8 +1027,11 @@ def test_server_defaults_to_cuda(env):
 
 
 def test_main_serves_getmap_on_the_cpu(env):
-    """``python -m gsky_tpu_torch.server.main -device cpu``: a GetMap
-    over HTTP equals the handler's answer."""
+    """``python -m gsky_tpu_torch.server.main -device cpu``: it prints
+    the prewarm line before it listens (the lattice cut to wave size 1
+    and 32 x 32 tiles over 64 x 64 scenes, so that the plain versions'
+    launches stay short on a loaded CPU), and a GetMap over HTTP equals
+    the handler's answer."""
     import socket
     import subprocess
     import sys
@@ -1042,7 +1045,9 @@ def test_main_serves_getmap_on_the_cpu(env):
          "cpu", "-host", "127.0.0.1", "-port", str(port), "-conf",
          env["conf"], "-local_mas", _crawl_file(env)],
         cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+        text=True, env=dict(os.environ, GSKY_PREWARM_WAVE_SIZES="1",
+                            GSKY_PREWARM_SIZES="32",
+                            GSKY_PREWARM_BUCKET="64"))
     watchdog = threading.Timer(120, proc.kill)   # a hang fails the test
     watchdog.start()
     try:
@@ -1051,6 +1056,8 @@ def test_main_serves_getmap_on_the_cpu(env):
             line = proc.stdout.readline()
             assert line, "".join(lines)
             lines.append(line)
+        warm = [ln for ln in lines if ln.startswith("prewarm: ")]
+        assert len(warm) == 1 and "(0 fresh compile(s))" in warm[0], lines
         url = _getmap("plain", NATIVE[0], style="near", time=T_DATA)
         with urllib.request.urlopen(f"http://127.0.0.1:{port}{url}",
                                     timeout=60) as r:

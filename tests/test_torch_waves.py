@@ -291,31 +291,79 @@ def test_bucketed_route_runs_b2_per_lane(monkeypatch):
 
 
 def test_failed_launch_fails_every_entry(monkeypatch):
+    """A wave whose launch fails fails over entry by entry, as the
+    reference's does: each tile is rendered again through its per-call
+    leg (the port's: B2 over the lane's scenes, once a lane), the bytes
+    and the fallback count equal the reference's, no request fails and
+    every pin is released."""
+    from gsky_tpu.ops.warp import render_scenes_ctrl
     jpool, tiles, hw, step, n_ns = _wave_inputs(3)
+    statics = ("near", n_ns, hw, step, True, 0)
     tpool = _port_pool(jpool)
-    rerender = []
+    jsched = jwaves.default_waves()
+    monkeypatch.setattr(
+        jsched, "_dispatch_group",
+        lambda *a, **k: (_ for _ in ()).throw(RuntimeError("launch failed")))
+
+    def jone(t):
+        def percall():
+            return np.asarray(render_scenes_ctrl(
+                jnp.asarray(t["stack"]), jnp.asarray(t["ctrl"]),
+                jnp.asarray(t["params"]), jnp.asarray(SP), *statics))
+        xla = (jnp.asarray(t["stack"]), t["params"], None, None)
+        return jsched.render_byte(jpool, t["tables"], t["p16"], t["ctrl"],
+                                  SP, statics, xla, percall,
+                                  serials=t["serials"])
+
+    ref = _ok(*_run_threads([lambda t=t: jone(t) for t in tiles]))
+    jst = jsched.stats()
     monkeypatch.setattr(
         tpaged, "render_byte_paged",
         lambda *a, **k: (_ for _ in ()).throw(RuntimeError("launch failed")))
+    b2 = []
+    real = trender.warp_render_scored
     monkeypatch.setattr(trender, "warp_render_scored",
-                        lambda *a: rerender.append(1))
+                        lambda *a: b2.append(1) or real(*a))
     sched = twaves.WaveScheduler("cpu", tick_ms=500.0)
-    statics = ("near", n_ns, hw, step, True, 0)
     try:
-        lanes = [twaves.BucketedLane([], t["params"], None,
-                                     tuple(t["stack"].shape))
-                 for t in tiles]
-        out, errs = _run_threads([
-            lambda t=t, ln=ln: sched.render_byte(
-                tpool, t["tables"], t["p16"], t["ctrl"], SP, statics, ln,
-                serials=t["serials"]) for t, ln in zip(tiles, lanes)])
+        got = _port_wave(tpool, tiles, "byte", statics, sched)
         st = sched.stats()
     finally:
         sched.shutdown()
-    assert all(isinstance(e, RuntimeError) and "launch failed" in str(e)
-               for e in errs), errs
-    assert out == [None] * 3 and not rerender
-    assert st["failed"] == 3
+    assert jst["fallbacks"] == st["fallbacks"] == 3
+    assert st["failed"] == 0 and len(b2) == 3
+    assert tpool.stats()["pinned"] == 0
+    for r, g in zip(ref, got):
+        _same_bytes("near", np.asarray(r), g)
+
+
+@pytest.mark.parametrize("pipeline", ["0", "1"])
+def test_planner_error_leaves_the_wave_unplanned(monkeypatch, pipeline):
+    """A planner that raises (on the synchronous leg and at staged
+    assembly) leaves its group unplanned in both packages: the wave is
+    served in one launch, nothing fails over, and the bytes are equal."""
+    monkeypatch.setenv("GSKY_WAVE_PIPELINE", pipeline)
+
+    def broken(*a, **k):
+        raise RuntimeError("planner defect")
+
+    monkeypatch.setattr(japlan, "plan_wave_group", broken)
+    monkeypatch.setattr(tplan, "plan_wave_group", broken)
+    jpool, tiles, hw, step, n_ns = _wave_inputs(4, superblock=True)
+    statics = ("bilinear", n_ns, hw, step, True, 0)
+    tpool = _port_pool(jpool)
+    ref, jsched = _jax_wave(jpool, tiles, "byte", statics)
+    sched = twaves.WaveScheduler("cpu", tick_ms=1000.0)
+    try:
+        got = _port_wave(tpool, tiles, "byte", statics, sched)
+        st = sched.stats()
+    finally:
+        sched.shutdown()
+    assert jsched.stats()["fallbacks"] == 0
+    assert st["occupancy"] == {4: 1} and st["superblock_lanes"] == 0
+    assert (st["fallbacks"], st["failed"]) == (0, 0)
+    for r, g in zip(ref, got):
+        _same_bytes("bilinear", r, g)
 
 
 def test_wave_max_splits_waves(monkeypatch):
@@ -451,6 +499,44 @@ def test_drill_wave_matches_reference_and_per_call(pixel_count):
             pixel_count)
         np.testing.assert_array_equal(vt, one_v[0].numpy())
         np.testing.assert_array_equal(ct, one_c[0].numpy())
+
+
+def test_failed_drill_wave_takes_the_per_call_reduction(monkeypatch):
+    """A drill wave whose launch fails serves each drill through the
+    per-call reduction its caller hands over, in both packages: the
+    same fallback count, the port's results its per-call B3's."""
+    blocks = [tk._b3_inputs(70 + k, 4, 2500, edge=True) for k in range(3)]
+    jsched = jwaves.default_waves()
+    monkeypatch.setattr(
+        jsched, "_dispatch_group",
+        lambda *a, **k: (_ for _ in ()).throw(RuntimeError("launch failed")))
+    ref = _ok(*_run_threads([
+        lambda d=d, v=v: jsched.drill_stats(
+            d, v, -80.0, 120.0, False,
+            lambda d=d, v=v: ("per call", d.shape)) for d, v in blocks]))
+    tsched = twaves.WaveScheduler("cpu", tick_ms=500.0)
+    monkeypatch.setattr(
+        tsched, "_dispatch_group",
+        lambda *a, **k: (_ for _ in ()).throw(RuntimeError("launch failed")))
+    from gsky_tpu_torch.ops.stats import masked_stats
+    try:
+        got = _ok(*_run_threads([
+            lambda d=d, v=v: tsched.drill_stats(
+                torch.from_numpy(d), torch.from_numpy(v), -80.0, 120.0,
+                False, lambda d=d, v=v: tuple(
+                    t.numpy() for t in masked_stats(
+                        torch.from_numpy(d), torch.from_numpy(v), -80.0,
+                        120.0))) for d, v in blocks]))
+        st = tsched.stats()
+    finally:
+        tsched.shutdown()
+    assert jsched.stats()["fallbacks"] == st["fallbacks"] == 3
+    assert ref == [("per call", d.shape) for d, _ in blocks]
+    for (d, v), (s, c) in zip(blocks, got):
+        ws, wc = masked_stats(torch.from_numpy(d), torch.from_numpy(v),
+                              -80.0, 120.0)
+        np.testing.assert_array_equal(s, ws.numpy())
+        np.testing.assert_array_equal(c, wc.numpy())
 
 
 @pytest.fixture(scope="module")
