@@ -266,6 +266,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    forced to fail: its entries served by their per-call leg (B2), the
    bodies those of healthy waves; 22f 32 tiles from 16 threads through
    the sized encode pool (wait and cpu phases, ``gsky_encode_pool_*``).
+23. the fleet on one card (`Fleet`: worker nodes, ``python -m
+   gsky_tpu_torch.worker.server``, each its own process and CUDA
+   context, started together before phase 3 and used where their data
+   is): 23a whether ``grpc`` and ``google.protobuf`` import here
+   (information only); 23b (phase 10's block) 16 masked tiles from 4
+   threads through an OWS server whose namespace names two workers,
+   their bytes those of the same server's local modular route (B4
+   here, the warps on the workers), tiles/s, p50, p90, RPCs a tile,
+   ``gsky_worker_rpc_seconds``, ``gsky_fleet_*`` and the locality rate,
+   and no decode child holding a CUDA context (nvidia-smi); and (phase
+   18's block) 16 masked tiles of the curvilinear swath (B1/B2 on the
+   workers, B4 here); 23c (phase 7's block) the worker's drill op over
+   the stack, B3 on the worker, equal to this process's drill within
+   rtol 1e-5; 23d a worker SIGKILLed mid-burst (every tile 200 with
+   equal bytes, the node dead, reroutes > 0), then a worker with
+   ``GSKY_FAULTS=node:latency:1.5s`` (hedges fired, equal bytes); 23e
+   that worker SIGTERMed with RPCs in flight (no tile lost, exit 0),
+   and the command line's OWS server SIGTERMed with 8 GetCoverage
+   requests in flight (all 200, a request after the signal 503 with
+   Retry-After, exit 0 within GSKY_DRAIN_TIMEOUT_S; phase 3's block);
+   23f a master and two peer servers, each its own process, over phase
+   3's archive: a 2048^2 GetCoverage over ``ows_cluster_nodes`` against
+   the master's single-node export, then with a peer killed (its band
+   rendered on the master, ``shard-fallback``), seconds and Mpix/s.
+   The kernels line adds the workers' launches (their ``worker_info``).
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -290,11 +315,14 @@ precedes them.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import gc
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -6702,10 +6730,11 @@ def sample(fams, name, labels=(), family=None):
                if n == name and set(labels) <= set(lab))
 
 
-def serve_process(conf_dir, crawl_file, log_dir, prewarm):
+def serve_process(conf_dir, crawl_file, log_dir, prewarm, port=0):
     """The port's server as its command line starts it, in a process of
     its own (waves and the staged path at their defaults, GSKY_PREWARM
-    as given): (process, base url, its start-up lines)."""
+    as given, on ``port``, 0 a free one): (process, base url, its
+    start-up lines)."""
     import queue
     import threading
     env = {k: v for k, v in os.environ.items()
@@ -6715,7 +6744,7 @@ def serve_process(conf_dir, crawl_file, log_dir, prewarm):
                PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
     proc = subprocess.Popen(
         [sys.executable, "-m", "gsky_tpu_torch.server.main", "-host",
-         "127.0.0.1", "-port", "0", "-conf", conf_dir, "-local_mas",
+         "127.0.0.1", "-port", str(port), "-conf", conf_dir, "-local_mas",
          crawl_file, "-log_dir", log_dir], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines: "queue.Queue" = queue.Queue()
@@ -6732,6 +6761,7 @@ def serve_process(conf_dir, crawl_file, log_dir, prewarm):
         seen.append(ln)
         m = re.search(r"listening on 127\.0\.0\.1:(\d+)", ln)
         if m:
+            proc.output = lines       # its later lines, as they come
             return proc, f"http://127.0.0.1:{m.group(1)}", seen
     proc.kill()
     proc.wait()
@@ -7254,6 +7284,775 @@ def swath_edge_points():
             for r, c in pts]
 
 
+# -- phase 23: the fleet on one card -----------------------------------------
+
+FLEET_POOL = 4               # 23: decode children a worker node
+FLEET_TILES = 16             # 23b: masked tiles a burst (archive, swath)
+FLEET_THREADS = 4            # 23b, 23d: request threads
+FLEET_LATENCY = "1.5s"       # 23d: the slow node's GSKY_FAULTS latency
+FLEET_SLOW_TILES = 4         # 23d hedging, 23e worker drain: tiles each
+DRAIN_REQUESTS = 8           # 23e: requests in flight at the SIGTERM
+DRAIN_SIZE = 2048            # 23e: their GetCoverage edge
+CLUSTER_SIZE = 2048          # 23f: the coverage's edge
+CLUSTER_TILE = 256           # 23f: its layer's WCS tile edge
+# a worker's launch counts (`worker_info`'s "kernels") by kernel
+WORKER_SYMBOLS = {"B1": ("launch_paged_render",),
+                  "B2": ("launch_warp_render",),
+                  "B3": ("launch_masked_stats", "launch_masked_stats_many"),
+                  "B4": ("launch_first_valid",)}
+
+
+def phase_grpc_probe():
+    """23a: whether ``grpc`` and ``google.protobuf`` import here, each in
+    a child interpreter (information only: the port imports neither)."""
+    out = {}
+    for mod in ("grpc", "google.protobuf"):
+        r = subprocess.run([sys.executable, "-c", f"import {mod}"],
+                           capture_output=True, text=True, timeout=60)
+        out[mod] = "imports" if r.returncode == 0 else \
+            (r.stderr.strip().splitlines() or ["fails"])[-1]
+    log(f"phase 23a: on this machine {out}; the port's worker RPC uses "
+        f"neither (HTTP/1.1, its own proto3 codec)")
+    return out
+
+
+class Fleet:
+    """Worker nodes (``python -m gsky_tpu_torch.worker.server``), each in
+    a process of its own, started together; their output lines kept."""
+
+    def __init__(self):
+        self.procs = {}          # address -> Popen
+        self.lines = {}
+        self.queues = {}
+
+    def start(self, n, env=None):
+        import queue
+        import threading
+        started = []
+        for _ in range(n):
+            e = dict(os.environ)
+            e.update(PYTHONUNBUFFERED="1", GSKY_DRILL_CACHE="sync",
+                     PYTHONPATH=ROOT + os.pathsep
+                     + e.get("PYTHONPATH", ""))
+            e.update(env or {})
+            p = subprocess.Popen(
+                [sys.executable, "-m", "gsky_tpu_torch.worker.server",
+                 "-p", "0", "-host", "127.0.0.1", "-n", str(FLEET_POOL),
+                 "-oom_threshold", "0"], cwd=ROOT, env=e,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            q = queue.Queue()
+            threading.Thread(target=lambda p=p, q=q: [q.put(ln) for ln in
+                                                      p.stdout],
+                             daemon=True).start()
+            started.append((p, q, []))
+        return lambda: self._wait(started)
+
+    def output(self, addr):
+        """The lines a worker printed so far."""
+        q = self.queues[addr]
+        while not q.empty():
+            self.lines[addr].append(q.get().rstrip())
+        return self.lines[addr]
+
+    def _wait(self, started, timeout=300):
+        import queue
+        addrs = []
+        deadline = time.monotonic() + timeout
+        for p, q, seen in started:
+            while True:
+                if time.monotonic() > deadline or p.poll() is not None:
+                    raise AssertionError(f"23: a worker did not start: "
+                                         f"{seen[-20:]}")
+                try:
+                    ln = q.get(timeout=1.0).rstrip()
+                except queue.Empty:
+                    continue
+                seen.append(ln)
+                m = re.search(r"gsky-rpc-torch listening on "
+                              r"127\.0\.0\.1:(\d+)", ln)
+                if m:
+                    break
+            addr = f"127.0.0.1:{m.group(1)}"
+            self.procs[addr] = p
+            self.lines[addr] = seen
+            self.queues[addr] = q
+            addrs.append(addr)
+        return addrs
+
+    def info(self, addr):
+        from gsky_tpu_torch.worker import gskyrpc as pb
+        from gsky_tpu_torch.worker.transport import Channel, Stub
+        ch = Channel(addr)
+        try:
+            res = Stub(ch)(pb.Task(operation="worker_info"), timeout=30.0)
+        finally:
+            ch.close()
+        return json.loads(res.info_json)
+
+    def counts(self, addrs):
+        """The workers' launches by kernel (their own counters)."""
+        out = dict.fromkeys(WORKER_SYMBOLS, 0)
+        for a in addrs:
+            k = self.info(a)["kernels"]
+            for name, syms in WORKER_SYMBOLS.items():
+                out[name] += sum(k[s] for s in syms)
+        return out
+
+    def signal(self, addr, sig):
+        self.procs[addr].send_signal(sig)
+
+    def wait(self, addr, timeout):
+        return self.procs.pop(addr).wait(timeout)
+
+    def close(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                pass
+        self.procs = {}
+
+
+def count_delta(before, after):
+    return {k: after[k] - before[k] for k in before}
+
+
+def cuda_holders():
+    """Pids that hold a CUDA context, as nvidia-smi lists them."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=30)
+    return [int(x) for x in r.stdout.split() if x.strip().isdigit()]
+
+
+def children_of(pid):
+    """The pids whose parent is ``pid`` (from /proc/<n>/stat)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fp:
+                stat = fp.read()
+        except OSError:
+            continue
+        # the fields after the command name, which may hold spaces
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(d))
+    return out
+
+
+def check_no_child_context(fleet, card):
+    """23b: no decode child of a worker holds a CUDA context.  Where
+    nvidia-smi shows this container's pids, the children are absent
+    from its list; where it shows another pid namespace's, the list has
+    exactly one entry for each CUDA process of this run (this one and
+    the workers), so no child added one."""
+    holders = cuda_holders()
+    workers = [p.pid for p in fleet.procs.values() if p.poll() is None]
+    kids = [c for w in workers for c in children_of(w)]
+    if not kids:
+        raise AssertionError("23b: the workers have no decode children")
+    ours = {os.getpid(), *workers}
+    if set(holders) & ours:
+        bad = set(holders) & set(kids)
+        if bad or not set(workers) <= set(holders):
+            raise AssertionError(f"23b: CUDA contexts {holders}: workers "
+                                 f"{workers}, decode children {kids}")
+        how = f"nvidia-smi lists this process and the workers {workers}"
+    else:
+        if len(holders) != len(ours):
+            raise AssertionError(f"23b: nvidia-smi lists {len(holders)} "
+                                 f"CUDA processes, this run has "
+                                 f"{len(ours)} ({holders})")
+        how = (f"nvidia-smi lists {len(holders)} CUDA processes (another "
+               f"pid namespace): this one and the {len(workers)} workers")
+    log(f"phase 23b: no decode child holds a CUDA context: {how}, none "
+        f"of their {len(kids)} decode children ({card})")
+
+
+def fleet_server(conf_root, namespaces, store):
+    """The port's OWSServer on the card over a config tree of one
+    directory per namespace (``namespaces``: {name: (layers,
+    worker_nodes)}; "" is the root), behind HTTP; no serving gateway."""
+    from gsky_tpu_torch.index.client import MASClient
+    from gsky_tpu_torch.server.config import ConfigWatcher
+    from gsky_tpu_torch.server.ows import OWSServer
+    for ns, (layers, nodes) in namespaces.items():
+        d = os.path.join(conf_root, ns) if ns else conf_root
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as fp:
+            json.dump({"service_config": {"mas_address": "in-process",
+                                          "worker_nodes": list(nodes)},
+                       "layers": layers}, fp)
+    client = MASClient(store)
+    server = OWSServer(ConfigWatcher(conf_root, lambda a: client,
+                                     install_signal=False),
+                       lambda a: client, device="cuda", gateway=None)
+    httpd = server.serve("127.0.0.1", 0)
+    return server, httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def router_of(server, ns):
+    cfg = server.watcher.get(ns)
+    return server._pipeline(cfg).remote.fleet
+
+
+def rpc_calls(base):
+    """(count, seconds) of the worker RPCs so far."""
+    fams = scrape_families(base, ("gsky_worker_rpc_seconds",))
+    return tuple(sample(fams, f"gsky_worker_rpc_seconds{s}",
+                        family="gsky_worker_rpc_seconds")
+                 for s in ("_count", "_sum"))
+
+
+def fleet_burst(base, urls, threads, want, what, during=None):
+    """GET ``urls`` from ``threads`` threads; every answer 200 with the
+    body ``want[i]``.  ``during(n_done)`` runs after each answer.
+    Returns the seconds of each request and the wall."""
+    import threading
+    done = [0]
+    lock = threading.Lock()
+
+    def one(u):
+        ans = http_status(u)
+        with lock:
+            done[0] += 1
+            n = done[0]
+        if during is not None:
+            during(n)
+        return ans
+
+    got, wall = fetch_threads(one, urls, threads)
+    for i, (st, hd, body, _) in enumerate(got):
+        if st != 200:
+            raise AssertionError(f"{what}: tile {i}: {st} {body[:300]}")
+        if body != want[i]:
+            raise AssertionError(f"{what}: tile {i}: the bytes differ "
+                                 f"from the local modular route's")
+    return [a[3] for a in got], wall
+
+
+def fleet_report(what, secs, wall, rpc0, launches, router, base, card):
+    """A burst's line: tiles/s, p50, p90, RPCs a tile and their mean
+    (``gsky_worker_rpc_seconds`` since ``rpc0``), launches, the
+    router's locality rate, and the families it publishes."""
+    n, s = (a - b for a, b in zip(rpc_calls(base), rpc0))
+    fams = scrape_families(base, ("gsky_worker_rpc_seconds",
+                                  "gsky_fleet_"))
+    # the RPC histogram's count and sum, not its buckets
+    fams = {f: {(k, lab): v for (k, lab), v in fs.items()
+                if not k.endswith("_bucket")} for f, fs in fams.items()}
+    log(f"phase {what}: {len(secs)} tiles, {len(secs) / wall:.2f} tiles/s, "
+        f"p50 {np.median(secs) * 1e3:.2f} ms, p90 "
+        f"{np.percentile(secs, 90) * 1e3:.2f} ms, {n / len(secs):.2f} "
+        f"RPCs a tile, {s / max(n, 1) * 1e3:.2f} ms an RPC (mean); "
+        f"launches here and on the workers {launches}; locality rate "
+        f"{router.locality_rate()}, routed {router.routed}, rerouted "
+        f"{router.rerouted}; process totals: {family_line(fams)} ({card})")
+
+
+# the spans of a remote tile's trace that `rpc_split` averages
+RPC_SPANS = ("rpc.worker", "worker.warp", "worker.decode",
+             "worker.dispatch", "worker.readback")
+
+
+def rpc_split(base, n, what, card):
+    """Where a remote tile's time goes, from the traces of the last
+    ``n`` tiles with worker RPCs in the flight recorder (``/debug/trace
+    ?format=jsonl``): the mean of the tile's root span and of the wall
+    its RPCs cover; per RPC the mean ``rpc.worker`` span (the client's
+    call, inside its limiter), the worker's adopted spans (``worker.warp``,
+    the node's whole op, and in it ``worker.decode`` with the decode
+    pool's queue wait ``pool_wait_s``, ``worker.dispatch`` and
+    ``worker.readback``) and the carrier: the mean RPC span less the
+    mean ``worker.warp`` (framing, the codec, HTTP and the socket).
+    Host clocks of one machine."""
+    st, _, body, _ = http_status(base + "/debug/trace?format=jsonl")
+    traces = sorted((json.loads(ln) for ln in body.decode().splitlines()
+                     if ln.strip()), key=lambda t: t["t0"])
+    traces = [t for t in traces
+              if any(s["name"] == "rpc.worker" for s in t["spans"])][-n:]
+    if st != 200 or len(traces) < n:
+        raise AssertionError(f"{what}: {len(traces)} traced remote tiles "
+                             f"of {n} ({st})")
+    durs = {k: [] for k in RPC_SPANS}
+    waits, tiles, walls = [], [], []
+    for t in traces:
+        rpcs = [s for s in t["spans"] if s["name"] == "rpc.worker"]
+        tiles.append(t["dur_s"])
+        walls.append(max(s["t0"] + s["dur_s"] for s in rpcs)
+                     - min(s["t0"] for s in rpcs))
+        for s in t["spans"]:
+            if s["name"] in durs:
+                durs[s["name"]].append(s["dur_s"])
+            if s["name"] == "worker.decode":
+                waits.append((s.get("attrs") or {}).get("pool_wait_s",
+                                                        float("nan")))
+    ms = {k: float(np.mean(v)) * 1e3 if v else 0.0
+          for k, v in durs.items()}
+    log(f"phase {what}: traces of {n} remote tiles: tile "
+        f"{np.mean(tiles) * 1e3:.2f} ms, its RPCs' wall "
+        f"{np.mean(walls) * 1e3:.2f} ms (mean); "
+        f"{len(durs['rpc.worker'])} rpc.worker spans of "
+        f"{ms['rpc.worker']:.2f} ms, {len(durs['worker.warp'])} "
+        f"worker.warp of {ms['worker.warp']:.2f} ms: worker.decode "
+        f"{ms['worker.decode']:.2f} ms ({len(durs['worker.decode'])}; "
+        f"pool wait {np.nanmean(waits) * 1e3 if waits else 0.0:.2f} ms), "
+        f"worker.dispatch {ms['worker.dispatch']:.2f} ms, worker.readback "
+        f"{ms['worker.readback']:.2f} ms; carrier "
+        f"{ms['rpc.worker'] - ms['worker.warp']:.2f} ms an RPC ({card})")
+
+
+def phase_fleet_masked(root, store, fleet, workers, card):
+    """23b (phase 10's archive), 23d and 23e's worker drain: the masked
+    LC08_B4 layer from a server whose ``fleet`` namespace names two
+    worker nodes, against the same server's local modular route; then a
+    worker SIGKILLed mid-burst (failover), a slow node (hedging) and a
+    worker SIGTERMed with RPCs in flight (its drain).  Returns the
+    launches here and on the workers, and the slow node's address."""
+    mask = {"id": "pixel_qa", "bit_tests": CLOUD_SHADOW}
+    layer = {"name": "masked_b4", "data_source": root,
+             "rgb_products": ["LC08_B4"], "resample": "bilinear",
+             "mask": mask, "clip_value": 2000}
+    slow_ready = fleet.start(1, {"GSKY_FAULTS": f"node:latency:"
+                                                f"{FLEET_LATENCY}"})
+    kernels = _kernel_counts()
+    total = dict.fromkeys(kernels, 0)
+    dates = mosaic_dates()
+    t_range = (dates[0][1] - 86400.0, dates[-1][1] + 86400.0)
+    boxes = mosaic_boxes()[:FLEET_TILES]
+    conf = os.path.join(root, "conf23")
+    # the slow node is named before it listens: its namespace's client
+    # is built at its first request, after the node is up
+    slow = slow_ready()[0]
+    server, httpd, base = fleet_server(conf, {
+        "": ([layer], []), "fleet": ([layer], workers),
+        "hedge": ([layer], [workers[0], slow])}, store)
+    try:
+        local = [getmap_url(base, "masked_b4", b, "", t_range)
+                 for b in boxes]
+        remote = [u.replace("/ows?", "/ows/fleet?") for u in local]
+        want = [http_status(u)[2] for u in local]
+        http_status(remote[0])                          # the client, warm
+        check_no_child_context(fleet, card)
+
+        # -- 23b: the remote tiles ------------------------------------
+        reset_counts(kernels)
+        w0, r0 = fleet.counts(workers), rpc_calls(base)
+        secs, wall = fleet_burst(base, remote, FLEET_THREADS, want,
+                                 "23b masked")
+        here, there = read_counts(kernels), count_delta(
+            w0, fleet.counts(workers))
+        launches = {k: here[k] + there[k] for k in here}
+        if here["B4"] != len(boxes) or here["B1"] or here["B2"]:
+            raise AssertionError(f"23b masked: launches here {here}")
+        for k in total:
+            total[k] += launches[k]
+        fleet_report("23b masked remote", secs, wall, r0,
+                     {"here": here, "workers": there},
+                     router_of(server, "fleet"), base, card)
+        rpc_split(base, len(boxes), "23b masked", card)
+
+        # -- 23d: a worker SIGKILLed in the middle of a burst ---------
+        victim = workers[1]
+        killed = []
+
+        def kill(n):
+            if n == FLEET_TILES // 4 and not killed:
+                killed.append(time.perf_counter())
+                fleet.signal(victim, signal.SIGKILL)
+                fleet.procs[victim].wait(30)
+                killed.append(hold_port(int(victim.rsplit(":", 1)[1])))
+
+        router = router_of(server, "fleet")
+        re0 = router.rerouted
+        reset_counts(kernels)
+        secs, wall = fleet_burst(base, remote, FLEET_THREADS, want,
+                                 "23d failover", during=kill)
+        for k, v in read_counts(kernels).items():
+            total[k] += v
+        fleet.wait(victim, 30)
+        killed[1].close()
+        state = router.monitor.state(victim)
+        if state != "dead" or router.rerouted <= re0:
+            raise AssertionError(f"23d: the killed node is {state}, "
+                                 f"rerouted {re0} -> {router.rerouted}")
+        log(f"phase 23d: {victim} SIGKILLed after {FLEET_TILES // 4} of "
+            f"{FLEET_TILES} tiles: every tile 200 with the local route's "
+            f"bytes, the node {state}, rerouted {router.rerouted - re0}; "
+            f"p50 {np.median(secs) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(secs, 90) * 1e3:.2f} ms ({card})")
+
+        # -- 23d: hedging past a slow node ----------------------------
+        hedged = [u.replace("/ows?", "/ows/hedge?") for u in local]
+        reset_counts(kernels)
+        w0 = fleet.counts([workers[0], slow])
+        secs, wall = fleet_burst(base, hedged[:FLEET_SLOW_TILES],
+                                 FLEET_THREADS, want, "23d hedging")
+        hr = router_of(server, "hedge")
+        fired = hr.hedge.hedges
+        if fired <= 0:
+            raise AssertionError(f"23d: no hedge fired: {hr.hedge.stats()}")
+        for k, v in read_counts(kernels).items():
+            total[k] += v
+        for k, v in count_delta(w0, fleet.counts([workers[0],
+                                                   slow])).items():
+            total[k] += v
+        log(f"phase 23d: node {slow} with GSKY_FAULTS=node:latency:"
+            f"{FLEET_LATENCY}: {len(secs)} tiles, hedges {hr.hedge.stats()}"
+            f", bytes equal; p50 {np.median(secs) * 1e3:.2f} ms, p90 "
+            f"{np.percentile(secs, 90) * 1e3:.2f} ms ({card})")
+
+        # -- 23e: a worker SIGTERMed with RPCs in flight --------------
+        drained = []
+
+        def term(n):
+            if n == 1 and not drained:
+                drained.append(time.perf_counter())
+                fleet.signal(slow, signal.SIGTERM)
+
+        reset_counts(kernels)
+        w_live = fleet.counts([workers[0]])
+        n = FLEET_SLOW_TILES
+        secs, wall = fleet_burst(base, hedged[n:2 * n], FLEET_THREADS,
+                                 want[n:2 * n], "23e worker drain",
+                                 during=term)
+        rc = fleet.wait(slow, 60)
+        gone = time.perf_counter() - drained[0]
+        if rc != 0:
+            raise AssertionError(f"23e: the drained worker exited {rc}")
+        for k, v in read_counts(kernels).items():
+            total[k] += v
+        for k, v in count_delta(w_live, fleet.counts([workers[0]])).items():
+            total[k] += v
+        time.sleep(0.2)                  # its last lines read
+        lines = [ln for ln in fleet.output(slow) if "drain" in ln]
+        log(f"phase 23e: {slow} SIGTERMed with RPCs in flight during a "
+            f"{len(secs)}-tile burst: every tile 200 with equal bytes; the "
+            f"node exited 0 {gone:.3f} s after the signal "
+            f"({lines[-1] if lines else 'no drain line'}) ({card})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    return total
+
+
+def phase_fleet_swath(sat_root, store, fleet, workers, card):
+    """23b over phase 18's curvilinear swath: the masked swath layer
+    (QA bit tests, nearest) from the workers, B1/B2 on the workers and
+    B4 here, against the same server's local modular route."""
+    d1, d2 = 1579046400.0, 1579132800.0
+    layer = {"name": "swath", "data_source": os.path.join(sat_root, "swath"),
+             "rgb_products": ["bt"], "resample": "near",
+             "mask": {"id": "qa", "bit_tests": ["1000", "1000", "10", "10"]}}
+    boxes = tile_grid(145.0, -29.0, 1100.0, 4, FLEET_TILES // 4)
+    kernels = _kernel_counts()
+    gc.collect()        # the closed clients of 23d: out of fleet_stats
+    server, httpd, base = fleet_server(
+        os.path.join(sat_root, "conf23"),
+        {"": ([layer], []), "fleet": ([layer], workers)}, store)
+    try:
+        local = [getmap_url(base, "swath", b, "", (d1, d2 + 1.0))
+                 for b in boxes]
+        remote = [u.replace("/ows?", "/ows/fleet?") for u in local]
+        want = [http_status(u)[2] for u in local]
+        # each worker loads both scenes and their geolocation grids
+        fetch_threads(http_status, remote[:4], FLEET_THREADS)
+        reset_counts(kernels)
+        w0, r0 = fleet.counts(workers), rpc_calls(base)
+        secs, wall = fleet_burst(base, remote, FLEET_THREADS, want,
+                                 "23b swath")
+        here, there = read_counts(kernels), count_delta(
+            w0, fleet.counts(workers))
+        if here["B4"] != len(boxes) or there["B1"] + there["B2"] == 0:
+            raise AssertionError(f"23b swath: launches here {here}, on "
+                                 f"the workers {there}")
+        fleet_report("23b swath remote", secs, wall, r0,
+                     {"here": here, "workers": there},
+                     router_of(server, "fleet"), base, card)
+        rpc_split(base, len(boxes), "23b swath", card)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    return {k: here[k] + there[k] for k in here}
+
+
+def phase_fleet_drill(drill_root, fleet, workers, card):
+    """23c: the worker's ``drill`` op over phase 7's stack (B3 on the
+    worker, its drill cache synchronous) against this process's drill
+    of the same file, rtol 1e-5.  Returns the launches."""
+    from gsky_tpu_torch.geo import geometry as geom
+    from gsky_tpu_torch.index.client import Dataset
+    from gsky_tpu_torch.index.crawler import extract
+    from gsky_tpu_torch.pipeline.drill import drill_file
+    from gsky_tpu_torch.pipeline.types import GeoDrillRequest
+    from gsky_tpu_torch.worker import WorkerClient
+    from gsky_tpu_torch.worker import gskyrpc as pb
+    path = os.path.join(drill_root, "modis_ndvi_stack.nc")
+    ds = extract(path)["geo_metadata"][0]
+    sel = list(range(DRILL_T))
+    task = pb.Task(operation="drill")
+    g = task.granule
+    g.path, g.ds_name, g.namespace = path, ds["ds_name"], "ndvi"
+    g.srs, g.array_type = "EPSG:4326", ds["array_type"]
+    g.geo_transform.extend(ds["geotransform"])
+    g.nodata, g.has_nodata = float(ds["nodata"]), True
+    task.drill.geometry_wkt = DRILL_POLY
+    task.drill.time_indices.extend(sel)
+    client = WorkerClient(workers[:1])
+    try:
+        w0 = fleet.counts(workers[:1])
+        t0 = time.perf_counter()
+        res = client.process(task)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = client.process(task)
+        warm = time.perf_counter() - t0
+    finally:
+        client.close()
+    if res.error:
+        raise AssertionError(f"23c: {res.error}")
+    there = count_delta(w0, fleet.counts(workers[:1]))
+    if there["B3"] < 1:
+        raise AssertionError(f"23c: the worker launched {there}")
+    dset = Dataset(file_path=path, ds_name=ds["ds_name"], namespace="ndvi",
+                   array_type=ds["array_type"], srs="EPSG:4326",
+                   geo_transform=list(ds["geotransform"]), timestamps=[],
+                   timestamps_iso=[], polygon="", nodata=float(ds["nodata"]))
+    req = GeoDrillRequest(collection="", bands=["ndvi"],
+                          geometry_wkt=DRILL_POLY, clip_lower=-3.0e38,
+                          clip_upper=3.0e38)
+    vals, counts, _ = drill_file(dset, sel, geom.from_wkt(DRILL_POLY), req,
+                                 device="cuda")
+    if list(res.series.counts) != [int(c) for c in np.asarray(counts)]:
+        raise AssertionError("23c: the worker's counts differ")
+    a = np.asarray(vals, np.float64)
+    b = np.asarray(res.series.means, np.float64)
+    ok = np.isfinite(a)
+    rel = float(np.max(np.abs(a[ok] - b[ok])
+                       / np.maximum(np.abs(a[ok]), 1e-30)))
+    if rel > 1e-5:
+        raise AssertionError(f"23c: the worker's means differ by {rel}")
+    log(f"phase 23c: the worker's drill op over the {DRILL_T}-step stack "
+        f"(B3 on the worker: {there}) equals this process's drill within "
+        f"rel {rel:.3g}; first {first * 1e3:.1f} ms (the stack's upload "
+        f"included), warm {warm * 1e3:.1f} ms over the RPC ({card})")
+    return there
+
+
+def hold_port(port):
+    """Bind (without listening) the port of a process just killed, so
+    that a connection to it is refused at once: left free, the port is
+    in the ephemeral range, and an outgoing connection can take it as
+    its own local port and connect to itself."""
+    import socket
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", port))
+    return s
+
+
+def free_ports(n):
+    """``n`` ports free on 127.0.0.1 now."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def phase_ows_fleet(data_root, data_paths, card):
+    """23e's OWS drain and 23f over phase 3's archive: four servers as
+    the command line starts them (GSKY_PREWARM=0), each its own process,
+    started together on ports chosen first (a master names its peers):
+    one for the drain, a master and two peers for the cluster."""
+    import threading
+    from gsky_tpu_torch.index.crawler import extract
+    crawl_file = os.path.join(data_root, "crawl23.jsonl")
+    with open(crawl_file, "w") as fp:
+        for p in data_paths:
+            rec = extract(p)
+            for ds in rec["geo_metadata"]:
+                ds["namespace"] = NS
+            fp.write(json.dumps(rec) + "\n")
+    ports = free_ports(4)
+
+    def conf(name, layer, nodes=()):
+        d = os.path.join(data_root, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as fp:
+            json.dump({"service_config": {"mas_address": "in-process",
+                                          "ows_cluster_nodes": list(nodes)},
+                       "layers": [layer]}, fp)
+        return d
+
+    drain_layer = {"name": "plain", "data_source": data_root,
+                   "rgb_products": [NS], "wcs_max_tile_width": 1024,
+                   "wcs_max_tile_height": 1024}
+    # cache_max_age 0: every request renders (the gateway keeps none)
+    cov = {"name": "cov", "data_source": data_root, "rgb_products": [NS],
+           "wcs_max_tile_width": CLUSTER_TILE,
+           "wcs_max_tile_height": CLUSTER_TILE, "cache_max_age": 0}
+    peer_conf = conf("conf23f_peer", cov)
+    specs = {"drain": conf("conf23e", drain_layer),
+             "master": conf("conf23f_master", cov,
+                            ["local"] + [f"http://127.0.0.1:{p}"
+                                         for p in ports[2:]]),
+             "peer1": peer_conf, "peer2": peer_conf}
+    servers = {}
+    t0 = time.perf_counter()
+
+    def start(name, port):
+        servers[name] = serve_process(
+            specs[name], crawl_file, os.path.join(data_root, f"logs_{name}"),
+            "0", port)
+
+    ts = [threading.Thread(target=start, args=(n, p))
+          for n, p in zip(specs, ports)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    try:
+        if len(servers) != 4:
+            raise AssertionError(f"23e/f: started {sorted(servers)}")
+        log(f"phase 23e/f: 4 servers listening after "
+            f"{time.perf_counter() - t0:.1f} s")
+        phase_ows_drain(*servers["drain"][:2], card)
+        phase_cluster(servers["master"][1],
+                      [servers["peer1"], servers["peer2"]], card)
+    finally:
+        for proc, _, _ in servers.values():
+            stop_process(proc)
+
+
+def phase_ows_drain(proc, base, card):
+    """23e: the command line's server, SIGTERMed with DRAIN_REQUESTS
+    GetCoverage requests in flight: every one answers 200, a request
+    after the signal gets 503 with Retry-After, and the process exits 0
+    within GSKY_DRAIN_TIMEOUT_S."""
+    from concurrent.futures import ThreadPoolExecutor
+    timeout_s = float(os.environ.get("GSKY_DRAIN_TIMEOUT_S", "30"))
+    # distinct coverages: the gateway would join equal ones
+    urls = [wcs_url(base, "plain", wcs_box(
+        DRAIN_SIZE, x0=500000.0 + 21000.0 + 3000.0 * i), DRAIN_SIZE)
+        for i in range(DRAIN_REQUESTS + 1)]
+    # the scenes loaded by a coverage the burst does not repeat
+    st, _, body, _ = http_status(urls.pop())
+    if st != 200:
+        raise AssertionError(f"23e: {st} {body[:300]}")
+    with ThreadPoolExecutor(DRAIN_REQUESTS) as ex:
+        futs = [ex.submit(http_status, u) for u in urls]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            st, _, body, _ = http_status(base + "/debug")
+            if json.loads(body)["drain"]["inflight"] >= DRAIN_REQUESTS:
+                break
+            time.sleep(0.01)
+        else:
+            raise AssertionError(
+                f"23e: the requests never were all in flight: "
+                f"{[f.result()[:2] for f in futs if f.done()]}")
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        # the handler runs on the server's main thread between its
+        # bytecodes: the late request goes once the drain has begun
+        # (/debug keeps answering through it)
+        while time.monotonic() < deadline and not json.loads(
+                http_status(base + "/debug")[2])["drain"]["draining"]:
+            time.sleep(0.01)
+        late = http_status(urls[0])
+        done = [f.result() for f in futs]
+    rc = proc.wait(timeout_s + 15)
+    exit_s = time.perf_counter() - t_sig
+    if [d[0] for d in done] != [200] * DRAIN_REQUESTS:
+        raise AssertionError(f"23e: in flight {[d[0] for d in done]}")
+    if late[0] != 503 or not late[1].get("Retry-After"):
+        raise AssertionError(f"23e: after the signal {late[0]} "
+                             f"{late[1]}")
+    if rc != 0 or exit_s > timeout_s:
+        raise AssertionError(f"23e: exit {rc} after {exit_s:.1f} s")
+    time.sleep(0.2)                  # its last lines read
+    lines = []
+    while not proc.output.empty():
+        lines.append(proc.output.get())
+    drain = [ln.strip() for ln in lines if "drain" in ln]
+    log(f"phase 23e: the command line's server SIGTERMed with "
+        f"{DRAIN_REQUESTS} {DRAIN_SIZE}^2 GetCoverage requests in flight: "
+        f"all 200; a request after the signal {late[0]} with Retry-After "
+        f"{late[1].get('Retry-After')}; exit 0 {exit_s:.3f} s after the "
+        f"signal ({drain[-1] if drain else 'no drain line'}) ({card})")
+
+
+def phase_cluster(base, peers, card):
+    """23f: a CLUSTER_SIZE^2 GetCoverage from the master (``base``),
+    whose ``ows_cluster_nodes`` are itself and ``peers`` ((process, base
+    url, lines) each), against its own single-node export
+    (``wshard=1``); then with a peer killed, its band rendered on the
+    master, labelled ``shard-fallback``, with the single node's values."""
+    url = wcs_url(base, "cov", wcs_box(CLUSTER_SIZE), CLUSTER_SIZE)
+    small = wcs_url(base, "cov", wcs_box(CLUSTER_SIZE), 256) + "&wshard=1"
+    for b in [base] + [b for _, b, _ in peers]:
+        http_status(b + small[len(base):])      # each node's scenes loaded
+
+    def peer_wcs():
+        return [sample(scrape_families(b, ("gsky_requests",)),
+                       "gsky_requests_total", (("service", "WCS"),))
+                for _, b, _ in peers]
+
+    runs = {}
+    before = peer_wcs()
+    for what, u in (("single node", url + "&wshard=1"),
+                    ("cluster of 3", url)):
+        st, hd, body, secs = http_status(u)
+        if st != 200:
+            raise AssertionError(f"23f {what}: {st} {body[:300]}")
+        runs[what] = (tiff_values(body), hd, secs)
+    if [n - m for n, m in zip(peer_wcs(), before)] != [1, 1]:
+        raise AssertionError("23f: a peer was not sent its band")
+    single = runs["single node"][0]
+    got, hd, _ = runs["cluster of 3"]
+    if "X-GSKY-Degraded" in hd:
+        raise AssertionError(f"23f: degraded {hd['X-GSKY-Degraded']}")
+    # the bands are cut along tile rows, and CLUSTER_SIZE is a multiple
+    # of CLUSTER_TILE: each band's tiles are the single node's tiles, so
+    # no value may differ, at a seam or elsewhere
+    differ = int(np.count_nonzero(got != single))
+    if differ:
+        raise AssertionError(f"23f: {differ} values differ from the "
+                             f"single node's")
+    peers[1][0].kill()
+    peers[1][0].wait()
+    held = hold_port(int(peers[1][1].rsplit(":", 1)[1]))
+    try:
+        st, hd, body, secs = http_status(url)
+    finally:
+        held.close()
+    if st != 200 or hd.get("X-GSKY-Degraded") != "shard-fallback":
+        raise AssertionError(f"23f fallback: {st} {hd}")
+    fb = tiff_values(body)
+    fb_differ = int(np.count_nonzero(fb != single))
+    if fb_differ:
+        raise AssertionError(f"23f fallback: {fb_differ} values differ")
+    runs["a peer killed"] = (fb, hd, secs)
+    mpx = CLUSTER_SIZE * CLUSTER_SIZE / 1e6
+    log("phase 23f: GetCoverage " + "; ".join(
+        f"{k} {v[2]:.3f} s, {mpx / v[2]:.2f} Mpix/s"
+        for k, v in runs.items()) +
+        f"; values differing from the single node's: cluster {differ}, "
+        f"fallback {fb_differ} of {single.size}; fallback labelled "
+        f"shard-fallback ({card})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7309,6 +8108,17 @@ def main() -> int:
     # the prefetch planner warms through the first server it saw: off
     # until phase 20f, which measures it
     os.environ["GSKY_PREFETCH"] = "0"
+
+    # -- phase 23a, and the worker nodes of phase 23, started now ------
+    phase_grpc_probe()
+    fleet = Fleet()
+    atexit.register(fleet.close)
+    workers_ready = fleet.start(2)
+    fleet23 = dict.fromkeys(_kernel_counts(), 0)
+
+    def add23(launches):
+        for k in fleet23:
+            fleet23[k] += launches[k]
 
     # -- phase 3: end to end at real size -----------------------------
     data_root = os.path.join(ROOT, "build", "smoke_archive")
@@ -7532,6 +8342,11 @@ def main() -> int:
 
         # -- phase 22: the device guard, prewarm, the encode pool ---------
         guard22 = phase_guard(data_root, data_paths, card)
+
+        # -- phase 23e, 23f: the OWS drain, WCS over ows_cluster_nodes ---
+        t0 = time.perf_counter()
+        phase_ows_fleet(data_root, data_paths, card)
+        log(f"phase 23e (OWS), 23f: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -7545,6 +8360,12 @@ def main() -> int:
         b3_launches, b3_args, b3_wave_launches, b3_wps = phase_drill(
             drill_root, card)
         b3_row = time_b3(b3_args, card)
+
+        # -- phase 23c: the worker's drill op ---------------------------
+        t0 = time.perf_counter()
+        workers = workers_ready()
+        add23(phase_fleet_drill(drill_root, fleet, workers, card))
+        log(f"phase 23c: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(drill_root, ignore_errors=True)
 
@@ -7594,6 +8415,13 @@ def main() -> int:
         dl20 = phase_deadline(mosaic_root, mosaic, card)
         t20 += time.perf_counter() - t0
         log(f"phase 20c: launches {dl20} ({time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 23b, 23d, 23e: remote tiles, failover, hedging, drain -
+        t0 = time.perf_counter()
+        add23(phase_fleet_masked(mosaic_root, mosaic, fleet, workers, card))
+        sat_ready = fleet.start(1)       # for 23b's swath, phase 18's block
+        log(f"phase 23b masked, 23d, 23e (worker): "
+            f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(mosaic_root, ignore_errors=True)
 
@@ -7627,8 +8455,20 @@ def main() -> int:
         sat, sat_odd, sat_drill_rel = phase_sat(sat_root, card)
         log(f"phase 18: launches {sat}; drills card vs CPU within rel "
             f"{sat_drill_rel}; {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 23b: the curvilinear swath from the workers ----------
+        t0 = time.perf_counter()
+        swath = os.path.join(sat_root, "swath")
+        store23 = crawl([(os.path.join(swath, "MOD021KM.A2020015.nc"), None),
+                         (os.path.join(swath, "MOD021KM.A2020016.nc"), None,
+                          lambda r: sub_geo_loc(r, SAT_SWATH_SUB))])
+        add23(phase_fleet_swath(sat_root, store23, fleet,
+                                [workers[0]] + sat_ready(), card))
+        log(f"phase 23b swath: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(sat_root, ignore_errors=True)
+    fleet.close()
+    log(f"phase 23: launches here and on the workers {fleet23}")
 
     # -- phase 19: the native codec, ranged ingest, a MAS over HTTP ----
     t0 = time.perf_counter()
@@ -7664,7 +8504,9 @@ def main() -> int:
     # B2: traced, untraced and profiled tiles; B3 and B4: the profiled
     # drill and masked tile, in be20 and dl20), and phase 22's (B1: the
     # guard's rounds, the incidents' tiles, healthy waves, the encode
-    # pool's tiles; B2: the failed wave's per-call legs)
+    # pool's tiles; B2: the failed wave's per-call legs), and phase 23's
+    # (B4 here: the remote tiles' mosaics; B1 and B2 on the workers: the
+    # swath's warps; B3 on a worker: its drill op)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -7675,7 +8517,7 @@ def main() -> int:
          "launches": b1_launches + b1_waves + b1_anim + b1_expr
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
          + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
-         + obs21["B1"] + guard22["B1"],
+         + obs21["B1"] + guard22["B1"] + fleet23["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             ing_err["B1"], obs21_err,
                             max(v for (k, _), v in wcs_errs.items()
@@ -7687,7 +8529,8 @@ def main() -> int:
          "replaces": "gsky_tpu/ops/pallas_tpu.py:456",
          "launches": b2_launches + b2_rgb + wcs_launches["B2"]
          + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
-         + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"],
+         + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"]
+         + fleet23["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()
@@ -7698,7 +8541,8 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/masked_stats.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
          "launches": b3_launches + b3_wave_launches + b3_wps + sat["B3"]
-         + ing["B3"] + srv20["B3"] + dl20["B3"] + be20["B3"],
+         + ing["B3"] + srv20["B3"] + dl20["B3"] + be20["B3"]
+         + fleet23["B3"],
          "max_abs_err": max(b3_err, b3_main_err, b3k_err, ing_err["B3"]),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
@@ -7706,7 +8550,7 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/first_valid.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
          "launches": b4_launches + b4_wcs + b4_gfi + sat["B4"] + ing["B4"]
-         + srv20["B4"] + dl20["B4"] + be20["B4"],
+         + srv20["B4"] + dl20["B4"] + be20["B4"] + fleet23["B4"],
          "max_abs_err": max(b4_row[4], ing_err["B4"]),
          "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
          "bound_by": "bytes", "library_ms": b4_row[3]},

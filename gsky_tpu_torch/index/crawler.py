@@ -12,11 +12,13 @@ error record.  The record then takes the first matching crawler rule
 (`rulesets`: the built-in product table, or a JSON rule config before
 it): timestamps, namespaces, SRS, bbox and ``geo_loc`` from the file
 name.  `extract_sentinel2_yaml` and `extract_landsat_yaml` read
-eo-datasets YAML documents (PyYAML, imported when one is read).
+eo-datasets YAML documents (PyYAML, imported when one is read).  With
+``-rpc HOST:PORT[,...]`` the records come from the worker nodes' ``info``
+op (`worker.WorkerClient.info`) instead of this process.
 
     python -m gsky_tpu_torch.index.crawler [-conc N] [-approx]
         [-fmt tsv|json] [-rules RULES.json] [-sentinel2_yaml GLOB]
-        [-landsat_yaml GLOB] PATH... > crawl.tsv
+        [-landsat_yaml GLOB] [-rpc NODES] PATH... > crawl.tsv
 """
 
 from __future__ import annotations
@@ -550,6 +552,11 @@ def main(argv=None) -> int:
     ap.add_argument("-rules", default="",
                     help="JSON ruleset config ({\"rule_sets\": [...]}); "
                          "the built-in product rules append as fallback")
+    ap.add_argument("-rpc", default="",
+                    help="comma-separated worker addresses: extract via "
+                         "the workers' 'info' op instead of in-process "
+                         "(the online info pipeline, "
+                         "processor/info_pipeline.go)")
     args = ap.parse_args(argv)
 
     rules = load_rulesets(args.rules) if args.rules else None
@@ -569,6 +576,15 @@ def main(argv=None) -> int:
     if not paths:
         ap.error("no input files")
 
+    rpc_client = None
+    if args.rpc:
+        from ..worker.client import WorkerClient
+        rpc_client = WorkerClient(args.rpc.split(","))
+
+    def failed(p: str, e: Exception) -> Dict:
+        return {"filename": os.path.abspath(p), "file_type": "",
+                "error": str(e), "geo_metadata": []}
+
     def run_one(p: str) -> Dict:
         base = os.path.basename(p)
         for family, pattern in (("sentinel2", args.sentinel2_yaml),
@@ -577,18 +593,25 @@ def main(argv=None) -> int:
                 try:
                     return extract_yaml(p, family)
                 except Exception as e:
-                    return {"filename": os.path.abspath(p),
-                            "file_type": "", "error": str(e),
-                            "geo_metadata": []}
+                    return failed(p, e)
+        if rpc_client is not None:
+            try:
+                return json.loads(rpc_client.info(os.path.abspath(p)))
+            except Exception as e:
+                return failed(p, e)
         return extract(p, args.approx, rules=rules)
 
-    with cf.ThreadPoolExecutor(args.conc) as ex:
-        for rec in ex.map(run_one, paths):
-            if args.fmt == "tsv":
-                sys.stdout.write(
-                    f"{rec['filename']}\tgdal\t{json.dumps(rec)}\n")
-            else:
-                sys.stdout.write(json.dumps(rec) + "\n")
+    try:
+        with cf.ThreadPoolExecutor(args.conc) as ex:
+            for rec in ex.map(run_one, paths):
+                if args.fmt == "tsv":
+                    sys.stdout.write(
+                        f"{rec['filename']}\tgdal\t{json.dumps(rec)}\n")
+                else:
+                    sys.stdout.write(json.dumps(rec) + "\n")
+    finally:
+        if rpc_client is not None:
+            rpc_client.close()
     return 0
 
 

@@ -18,9 +18,10 @@ Counterpart of `gsky_tpu/obs/`.  Three concerns, one seam:
 ``GSKY_TRACE=0`` disables tracing (spans become no-ops after one
 ContextVar read); ``GSKY_TRACE_FILE`` + ``GSKY_TRACE_SAMPLE`` enable
 sampled JSONL file export.  ``tsan`` is the opt-in lockset race
-sanitizer (``GSKY_TSAN=1``).  The worker RPC's trace hop and
-``gsky_worker_rpc_seconds`` come with the remote workers (ROADMAP
-A.10).
+sanitizer (``GSKY_TSAN=1``).  The worker RPC carries the trace to the
+worker node (`traceparent` in a request header, `remote_trace` there)
+and its spans back (`adopt_spans`), and observes
+``gsky_worker_rpc_seconds``.
 """
 
 from .trace import (  # noqa: F401
@@ -62,6 +63,7 @@ from .metrics import (  # noqa: F401
     ENCODE_SECONDS,
     REQUESTS,
     REQUEST_SECONDS,
+    RPC_SECONDS,
     STAGE_SECONDS,
     TRACE_EVENTS,
     render_metrics,

@@ -23,8 +23,10 @@ errors of one that has, so a renamed field shows as a missing family
 ``gsky_compiles_total`` counts what the port builds or loads
 (`server.prewarm.compile_count`: nvcc builds, library loads and each
 kernel symbol's first launch), where the reference counts XLA compiles.
-Not here until their subsystems are ported (ROADMAP): the worker RPC
-(A.10's worker half), the mesh families (A.11), fleet, fabric and
+The worker RPC's round trips (``gsky_worker_rpc_seconds``) are observed
+by `worker.client`; the ``gsky_fleet_*`` families are collected from the
+live fleet routers (`fleet.fleet_stats`).  Not here until their
+subsystems are ported (ROADMAP): the mesh families (A.11), fabric and
 elastic (A.20) and ``gsky_plan_block_shape`` (A.21).
 
 Everything registers against ``prom.default_registry()``; the server's
@@ -50,6 +52,9 @@ STAGE_SECONDS = _REG.histogram(
     "gsky_stage_seconds",
     "Per-stage durations (tile pipeline, export pipeline, worker side).",
     ["stage"], buckets=log_buckets(0.0005, 60.0))
+RPC_SECONDS = _REG.histogram(
+    "gsky_worker_rpc_seconds", "Worker RPC round-trip by op and outcome.",
+    ["op", "outcome"], buckets=log_buckets(0.001, 60.0))
 ENCODE_SECONDS = _REG.histogram(
     "gsky_encode_seconds", "Encode-pool time by phase (wait vs cpu).",
     ["phase"], buckets=log_buckets(0.0005, 10.0))
@@ -142,6 +147,37 @@ def _collect_caches():
                       [({"service": s}, float(c["shed"]))
                        for s, c in adm.items()]))
     return out
+
+
+def _collect_fleet():
+    # the live routers; none until a ``worker_nodes`` fleet is built
+    from ..fleet import fleet_stats
+    stats = fleet_stats() or {}
+    if not stats:
+        return []
+    nodes_rows, routed, rerouted, hedge_rows = [], [], [], []
+    for name, st in stats.items():
+        states: Dict[str, int] = {}
+        for h in (st.get("health") or {}).values():
+            s = (h or {}).get("state", "unknown")
+            states[s] = states.get(s, 0) + 1
+        for s, n in states.items():
+            nodes_rows.append(({"router": name, "state": s}, float(n)))
+        routed.append(({"router": name}, float(st.get("routed", 0))))
+        rerouted.append(({"router": name}, float(st.get("rerouted", 0))))
+        hg = st.get("hedge") or {}
+        for outcome, key in (("fired", "hedges"), ("won", "hedge_wins"),
+                             ("denied", "hedges_denied")):
+            hedge_rows.append(({"router": name, "outcome": outcome},
+                               float(hg.get(key, 0))))
+    return [_g("gsky_fleet_nodes",
+               "Fleet nodes by router and health state.", nodes_rows),
+            _c("gsky_fleet_routed_total",
+               "Tasks routed by the fleet router.", routed),
+            _c("gsky_fleet_rerouted_total",
+               "Tasks rerouted off their preferred node.", rerouted),
+            _c("gsky_fleet_hedges_total", "Hedged RPCs by outcome.",
+               hedge_rows)]
 
 
 def _collect_resilience():
@@ -472,10 +508,10 @@ def _collect_temporal():
                [({}, float(st["dap_streamed_bytes"]))])]
 
 
-for _fn in (_collect_caches, _collect_resilience, _collect_runtime,
-            _collect_batcher, _collect_overload, _collect_ingest,
-            _collect_device, _collect_waves, _collect_expr, _collect_tsan,
-            _collect_temporal):
+for _fn in (_collect_caches, _collect_fleet, _collect_resilience,
+            _collect_runtime, _collect_batcher, _collect_overload,
+            _collect_ingest, _collect_device, _collect_waves,
+            _collect_expr, _collect_tsan, _collect_temporal):
     _REG.register_collector(_fn)
 
 

@@ -393,6 +393,20 @@ class DrillPipeline:
             h.close()
 
 
+def drill_file(ds: Dataset, sel: List[int], g4326: geom.Geometry,
+               req: GeoDrillRequest, vrt_xml: Optional[str] = None,
+               device="cuda"):
+    """`DrillPipeline._drill_file` without a MAS: the masked reductions
+    of one file's selected timesteps, (values, counts, deciles) or
+    None.  The reference's worker imports its module-level
+    ``_drill_file``; the port's is a method (it keeps the pipeline's
+    spans), and this is the worker's way to it.  ``device`` ("cuda" by
+    default) holds the resident stack (the device's shared
+    `DrillStackCache`) and runs the reductions (kernel B3)."""
+    return DrillPipeline(None, device=device)._drill_file(
+        ds, sel, g4326, req, vrt_xml)
+
+
 def _vrt_masks(ds: Dataset, mask_ds: List[Dataset],
                req: GeoDrillRequest) -> List[str]:
     """The mask files of one data granule's VRT

@@ -314,12 +314,15 @@ class ExportPipeline:
                         if k not in seen:
                             seen.add(k)
                             fresh.append(g)
-                    if fresh:
+                    # with a remote the workers read the sources: nothing
+                    # is warmed or decoded here
+                    local = self.pipe.remote is None
+                    if fresh and local:
                         list(pool.map(self._warm_one, fresh))
                     # a tile with an uncacheable source takes the window
                     # leg, which needs windows for all its granules
-                    if any(self._warm.get(_scene_key(g)) is None
-                           and not g.geo_loc for g in gs):
+                    if local and any(self._warm.get(_scene_key(g)) is None
+                                     and not g.geo_loc for g in gs):
                         list(pool.map(self._memo_window,
                                       [g for g in gs if not g.geo_loc]))
                     busy += time.perf_counter() - t0
@@ -348,9 +351,10 @@ class ExportPipeline:
         dev = self.pipe.device
         if not gs:
             return _empty_result(exprs, H, W, dev)
-        if req.mask is not None:
-            # the masked route (kernel B4): plan-once indexing and stage
-            # overlap still hold; its windows are decoded per tile
+        if not self.pipe.fused_ok(req):
+            # the modular route (a mask band, or the workers warping):
+            # plan-once indexing and stage overlap still hold; the
+            # mosaic is kernel B4
             return self.pipe.render(req, gs)
         ex = self.pipe.executor
         names, ns_ids, prio = ns_prio(gs)

@@ -31,9 +31,17 @@ routes:
   (kernel B4).  Band expressions are evaluated
   last; everything after decode stays on the device.
 
+With a ``remote`` (a `worker.WorkerClient` over ``worker_nodes``) every
+request takes the modular route, whatever its mask: the fused and RGB
+preps answer None, and `render` sends each granule's warp to the
+workers (`WorkerClient.warp_many`, per resampling method: the mask band
+nearest) in place of the decode and warp here; the bit masks, the
+mosaic (B4) and the band expressions run on this process's device, as
+in the reference (`gsky_tpu/pipeline/tile.py:528-546`).
+
 The index queries the MAS once, or, for a coarse request over a layer
 with a known extent and ``index_res_limit``, in index tiles
-(`_index_subdivision`).  Not ported here: remote workers.
+(`_index_subdivision`).
 """
 
 from __future__ import annotations
@@ -89,13 +97,24 @@ def newest_first(gs: Sequence[Granule]) -> List[float]:
 
 class TilePipeline:
     def __init__(self, mas: MASClient,
-                 executor: Optional[WarpExecutor] = None, device="cuda"):
+                 executor: Optional[WarpExecutor] = None, device="cuda",
+                 remote=None):
         """``device`` ("cuda" by default) places the scene cache, the
         page pool, decoded windows and the kernels; without CUDA it must
-        be "cpu", which runs the kernels' plain PyTorch versions."""
+        be "cpu", which runs the kernels' plain PyTorch versions.
+        ``remote``: an optional `worker.WorkerClient`; when set, every
+        granule's warp runs on the worker nodes (module docstring)."""
         self.device = resolve_device(device)
         self.mas = mas
         self.executor = executor or WarpExecutor(device=self.device)
+        self.remote = remote
+
+    def fused_ok(self, req: GeoTileRequest) -> bool:
+        """Whether a fused route (the composite, the RGB rungs, the
+        export's fused tile) may serve ``req``: not with a mask band,
+        nor with a remote, whose workers warp each granule; those take
+        the modular route of `render`."""
+        return req.mask is None and self.remote is None
 
     def index(self, req: GeoTileRequest) -> List[Granule]:
         """MAS query + axis intersection, plus the mask band: in the
@@ -194,8 +213,8 @@ class TilePipeline:
         no granules.  ``stats`` gets the granule and file counts,
         ``spans["index_s"]`` the index query's seconds.  A request with
         band algebra gets `_expr_prep`'s 5-tuple instead (granules
-        still first)."""
-        if req.mask is not None:
+        still first).  None with a remote: the workers warp."""
+        if not self.fused_ok(req):
             return None
         exprs = req.band_exprs
         if any(ce._ast[0] != "var" for ce in exprs.expressions):
@@ -272,7 +291,7 @@ class TilePipeline:
         or None when the fused composite route does not serve the
         request (a mask band, band algebra, no granules): each frame
         then renders on its own."""
-        if req.mask is not None or any(
+        if not self.fused_ok(req) or any(
                 ce._ast[0] != "var" for ce in req.band_exprs.expressions):
             return None
         span_req = dataclasses.replace(req, start_time=min(times),
@@ -342,8 +361,8 @@ class TilePipeline:
         """ONE index pass for both RGB rungs: (granules, ns_index,
         out_sel), or None (a mask band, band algebra, ``n_bands`` given
         and not the style's band count, no granules, a band without a
-        unique namespace)."""
-        if req.mask is not None:
+        unique namespace, a remote)."""
+        if not self.fused_ok(req):
             return None
         exprs = req.band_exprs
         if not exprs.expressions or \
@@ -446,13 +465,14 @@ class TilePipeline:
         dev = self.device
         if not granules:
             return _empty_result(exprs, H, W, dev)
-        mask_id = req.mask.id if req.mask is not None else None
-        if mask_id is None:
+        if self.fused_ok(req):
             return self._render_fused(req, granules)
+        mask_id = req.mask.id if req.mask is not None else None
         ex = self.executor
         # mask bands always resample nearest: interpolating bitfields is
         # meaningless
-        is_mask = [g.base_namespace == mask_id for g in granules]
+        is_mask = [mask_id is not None and g.base_namespace == mask_id
+                   for g in granules]
         warped: List[Optional[Tuple[torch.Tensor, torch.Tensor]]] = \
             [None] * len(granules)
         for method, idxs in (
@@ -460,11 +480,23 @@ class TilePipeline:
                 ("near", [i for i, m in enumerate(is_mask) if m])):
             if not idxs:
                 continue
+            t = time.perf_counter()
+            if self.remote is not None:
+                # the workers warp (host arrays back); the mosaic runs
+                # here
+                wr = self.remote.warp_many([granules[i] for i in idxs],
+                                           req, method)
+                for k, i in enumerate(idxs):
+                    if wr[k] is not None:
+                        d, v = wr[k]
+                        warped[i] = (torch.from_numpy(d).to(dev),
+                                     torch.from_numpy(v).to(dev))
+                ex.add_span("warp", t)
+                continue
             # curvilinear granules have no affine window: they warp from
             # the scene cache through the geolocation control grid
             reg = [i for i in idxs if not granules[i].geo_loc]
             gl = [i for i in idxs if granules[i].geo_loc]
-            t = time.perf_counter()
             if reg:
                 errs: List[Exception] = []
                 ws = decode_all([granules[i] for i in reg], req.bbox,

@@ -69,6 +69,11 @@ class GeoTileRequest:
     index_tile_x_size: float = 0.0
     index_tile_y_size: float = 0.0
     index_res_limit: float = 0.0
+    # the layer's sub-tile bounds for the worker fan-out
+    # (`worker.client.WorkerClient._sub_tile_grid`): <= 1 a fraction of
+    # the tile, > 1 pixels, 0 off
+    grpc_tile_x_size: float = 0.0
+    grpc_tile_y_size: float = 0.0
 
     _exprs: Optional[BandExpressions] = None
 

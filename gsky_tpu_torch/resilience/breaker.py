@@ -1,23 +1,23 @@
 """Per-backend circuit breakers (closed / open / half-open).
 
-Counterpart of `gsky_tpu/resilience/breaker.py`, the part the MAS
-client and the HTTP range source call.  A breaker guards one backend
-(one MAS address, one range host).  While *closed* every call is
-allowed; after ``failure_threshold`` consecutive failures it *opens*
-and rejects calls at once; after ``reset_timeout`` seconds it is
+Counterpart of `gsky_tpu/resilience/breaker.py`.  A breaker guards one
+backend (one MAS address, one range host, one worker node).  While
+*closed* every call is allowed; after ``failure_threshold``
+consecutive failures it *opens* and rejects calls at once; after ``reset_timeout`` seconds it is
 *half-open* and admits one probe at a time: a successful probe closes
 it, a failed one opens it for another cooldown.  `get_breaker` shares
 one breaker per name, so every client of one backend sees one health,
 and registers it with `registry`, whose `stats` reads each one's
-`snapshot`.  The reference's state listeners serve its fleet router,
-which is not ported (ROADMAP A.20).
+`snapshot`.  State listeners (`add_listener`) let the fleet router
+fold a trip into node health.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 from .registry import note_event, registry
 
@@ -59,8 +59,25 @@ class CircuitBreaker:
         self.failures = 0
         self.probes = 0
         self.rejections = 0
+        self._listeners: List[Callable] = []
         if register:
             registry.register_breaker(self)
+
+    def add_listener(self, fn: Callable) -> None:
+        """Subscribe ``fn(breaker, old_state, new_state)`` to state
+        transitions, fired outside the breaker's lock: the fleet router
+        takes an OPEN as an immediate dead-node report."""
+        with self._lock:
+            if fn not in self._listeners:
+                self._listeners.append(fn)
+
+    def _notify(self, old: str, new: str, listeners) -> None:
+        for fn in listeners:
+            try:
+                fn(self, old, new)
+            except Exception:
+                logging.getLogger("gsky.resilience.breaker").exception(
+                    "breaker %s listener failed", self.name)
 
     @property
     def state(self) -> str:
@@ -94,7 +111,11 @@ class CircuitBreaker:
             self.successes += 1
             self._consecutive = 0
             self._probing = False
+            old = self._state
             self._state = self.CLOSED
+            listeners = list(self._listeners) if old != self.CLOSED else ()
+        if listeners:
+            self._notify(old, self.CLOSED, listeners)
 
     def record_failure(self) -> None:
         with self._lock:
@@ -108,9 +129,13 @@ class CircuitBreaker:
                 self._opened_at = self._clock()
                 self._probing = False
                 self.opens += 1
-            tripped = self._state == self.OPEN and old != self.OPEN
+            new = self._state
+            tripped = new == self.OPEN and old != self.OPEN
+            listeners = list(self._listeners) if new != old else ()
         if tripped:
             note_event("breaker_open", site=self.name)
+        if listeners:
+            self._notify(old, new, listeners)
 
     def retry_after(self) -> float:
         with self._lock:

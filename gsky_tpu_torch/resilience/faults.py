@@ -3,15 +3,18 @@
 Counterpart of `gsky_tpu/resilience/faults.py`, with the same spec, the
 same kinds and the same per-site draws: a (spec, seed) pair replays the
 fault sequence the reference replays.  The sites wired in the port are
-``mas`` (in front of both MAS client transports, `index/client.py`) and
+``mas`` (in front of both MAS client transports, `index/client.py`),
 ``decode`` (the window decode, `pipeline/decode.py`, and the scene
-load, `pipeline/scene_cache.py`) and ``device`` (inside the device
+load, `pipeline/scene_cache.py`), ``device`` (inside the device
 guard's watchdog, `device_guard.supervised_sync`, where the device
 kinds ``crash``, ``oom`` and ``hang`` fire, and its guarded readbacks,
-which ``corrupt`` poisons).  ``worker``, ``pool`` and ``node`` parse and
-draw but have no caller until remote workers are ported (ROADMAP
-A.10's worker half); nor has the preemption handler, which a worker
-installs.
+which ``corrupt`` poisons), ``worker`` (each RPC attempt of the worker
+client, `worker/client.py`), ``pool`` (the decode pool's dispatch to a
+subprocess, `worker/pool.py`) and ``node`` (the worker node's RPC
+entry, `worker/server.py`).  No preemption handler is installed: the
+worker's preemption comes with the elastic fleet (ROADMAP A.20), so a
+``preempt`` rule is counted and does nothing, and ``preempt_nograce``
+exits as ``kill`` does.
 
 Faults are described by a compact spec, normally supplied via the
 ``GSKY_FAULTS`` environment variable::
@@ -22,7 +25,7 @@ Each comma-separated clause is ``site:kind:arg``:
 
 ``site``
     the name a call site passes to :func:`inject` — the wired sites are
-    ``mas`` (index client transport), ``worker`` (gRPC stub call),
+    ``mas`` (index client transport), ``worker`` (worker RPC call),
     ``decode`` (granule window decode + scene-cache load), ``pool``
     (decode subprocess dispatch) and ``node`` (worker-node RPC entry:
     whole-process faults for fleet chaos).
@@ -59,7 +62,7 @@ Each comma-separated clause is ``site:kind:arg``:
     with probability ``RATE`` (default 1.0) — fires at most once per
     process, through the handler installed with
     :func:`set_preempt_handler` (a worker node's drain and handoff,
-    ROADMAP A.10).  The current call
+    ROADMAP A.20).  The current call
     proceeds normally: a graceful preemption finishes admitted work.
 ``preempt_nograce:RATE``
     a preemption with zero grace — the handler gets ``grace_s=0`` and

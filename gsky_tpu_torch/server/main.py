@@ -20,14 +20,24 @@ the device guard (`device_guard.journal`) lives under ``-log_dir`` too
 kernels its layers run are built, loaded and launched once
 (`server.prewarm`; ``GSKY_PREWARM=0`` skips it).  ``GSKY_TSAN=1``
 installs the lockset race sanitizer before any server lock exists.
-Counterpart of `gsky_tpu/server/main.py`, without its drain and static
-files.
+
+SIGTERM or SIGINT drains the server before its listener closes
+(`OWSServer.shutdown`): a new ``/ows`` request gets 503 ``ServerBusy``
+with ``Retry-After``, the requests in flight finish (at most
+``GSKY_DRAIN_TIMEOUT_S``, 30), the metrics log is flushed and the worker
+clients closed; then the process exits 0.  A namespace with
+``worker_nodes`` reaches its worker nodes (``python -m
+gsky_tpu_torch.worker.server``) over HTTP.  Counterpart of
+`gsky_tpu/server/main.py`, without its static files.
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
 import sys
+import threading
+import time
 
 from ..device_guard import journal
 from ..index.api import ingest_file
@@ -104,10 +114,31 @@ def main(argv=None) -> int:
     httpd = server.serve(args.host, args.port)
     print(f"gsky-ows-torch listening on {args.host}:"
           f"{httpd.server_address[1]} ({server.device})", flush=True)
+
+    # the drain on SIGTERM/SIGINT, with the listener still open: new
+    # /ows requests get the draining 503 while those in flight finish
+    drained = threading.Event()
+    started = threading.Event()
+
+    def _drain():
+        t0 = time.monotonic()
+        ok = server.shutdown()
+        print(f"gsky-ows-torch drain {'complete' if ok else 'TIMED OUT'} "
+              f"in {time.monotonic() - t0:.3f}s: {server.drain.stats()}",
+              file=sys.stderr if not ok else sys.stdout, flush=True)
+        drained.set()
+
+    def _on_term(signum, frame):
+        if not started.is_set():
+            started.set()
+            threading.Thread(target=_drain, daemon=True,
+                             name="gsky-drain").start()
+
+    signal.signal(signal.SIGTERM, _on_term)
+    signal.signal(signal.SIGINT, _on_term)
     try:
-        httpd.thread.join()
-    except KeyboardInterrupt:
-        pass
+        while not drained.wait(0.5):
+            pass
     finally:
         httpd.shutdown()
         httpd.server_close()

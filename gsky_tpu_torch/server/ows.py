@@ -118,12 +118,34 @@ Under load, as the reference (`resilience`, `serving.admission`):
 
 Requests the port cannot serve yet get HTTP 501 with exception code
 ``OperationNotSupported`` and a message naming the ROADMAP item, as
-does any NotImplementedError the pipeline raises: among them a
-GetCoverage in a config of several ``ows_cluster_nodes`` (peer shards,
-A.10).  A namespace's MAS is its ``mas_address`` over HTTP
-(`MASClient`), unless the server is given a ``mas_factory`` (an
-in-process store).  A WPS process over a VRT drills through the
-template it names.
+does any NotImplementedError the pipeline raises.  A namespace's MAS is
+its ``mas_address`` over HTTP (`MASClient`), unless the server is given
+a ``mas_factory`` (an in-process store).  A WPS process over a VRT
+drills through the template it names.
+
+A fleet, as the reference's:
+
+- ``worker_nodes``: the namespace's pipeline gets a `worker.WorkerClient`
+  over them (rebuilt, and the old one closed, when a reload changes
+  the MAS address or the node list), and every GetMap, GetCoverage and
+  GetFeatureInfo tile takes the modular route with its warps on the
+  workers and its mosaic here (`TilePipeline`'s remote leg).  A fleet
+  whose every node failed answers 503 ``ServerBusy``: nothing renders
+  locally in its place;
+- ``ows_cluster_nodes``: a GetCoverage of at least twice as many tiles
+  as nodes is cut into bands of tile rows; band 0 renders here and each
+  peer gets a ``wshard=1`` GetCoverage for its band (`_fetch_shard`,
+  over ``http.client`` under the request's deadline), whose GeoTIFF
+  merges into the coverage.  A peer that fails has its band rendered
+  here, and the answer is labelled ``X-GSKY-Degraded: shard-fallback``;
+- admission's shed answers name the fleet's least loaded healthy node
+  in ``X-GSKY-Alt-Node``;
+- the drain (`shutdown`, on SIGTERM from `server.main`): the accept
+  gate of ``/ows`` (`fleet.DrainController`) closes, so a new request
+  gets 503 ``ServerBusy`` with ``Retry-After: 5`` and ``Connection:
+  close``, the requests in flight finish and their answers are written
+  out, the metrics log is flushed and the worker clients closed.  ``/metrics`` and ``/debug`` keep
+  answering.
 
 Observability, as the reference's (`obs`): every ``/ows`` request is a
 trace (``ows.request``, ``GSKY_TRACE=0`` turns it off) whose spans are
@@ -138,10 +160,11 @@ jsonl`` its dump, ``?slowest=1`` the slowest trace), ``/debug/trace/<id>``
 (one span tree) and ``/debug/profile?seconds=N`` (a `torch.profiler`
 capture, CUDA kernels included on a card server, written as a Chrome
 trace); ``/debug`` carries the device supervisor's ``device`` block with
-its residency journal.  With the staged tile path on, a tile's PNG or
-JPEG encode runs on the sized encode pool (`io.png.encode_pooled`,
-``GSKY_PNG_ENCODE_WORKERS``).  Not ported: drain and the cache fabric
-(ROADMAP A.20), remote workers (A.10's worker half).
+its residency journal, the fleet routers' ``fleet`` block (with a
+``worker_nodes`` fleet) and the ``drain`` block.  With the staged tile
+path on, a tile's PNG or JPEG encode runs on the sized encode pool
+(`io.png.encode_pooled`, ``GSKY_PNG_ENCODE_WORKERS``).  Not ported: the
+cache fabric and the elastic fleet (ROADMAP A.20).
 """
 
 from __future__ import annotations
@@ -151,7 +174,9 @@ import contextlib
 import contextvars
 import dataclasses
 import datetime as dt
+import http.client
 import json
+import logging
 import os
 import shutil
 import socket
@@ -170,6 +195,7 @@ import torch
 
 from .. import device_guard, obs
 from ..device import resolve_device
+from ..fleet import DrainController, Draining
 from ..geo import geometry as geom
 from ..geo.crs import parse_crs
 from ..geo.transform import BBox, GeoTransform, pixel_resolution, \
@@ -178,7 +204,7 @@ from ..index.client import MASClient
 from ..index.store import parse_time
 from ..ingest import ingest_enabled
 from ..ingest.prefetch import default_planner
-from ..io.geotiff import GeoTIFFWriter, write_geotiff
+from ..io.geotiff import GeoTIFF, GeoTIFFWriter, write_geotiff
 from ..io.netcdf import write_netcdf3
 from ..io.png import ApngAssembler, empty_tile_png, encode_jpeg, \
     encode_png, encode_pooled, encode_rgba_png
@@ -210,6 +236,8 @@ from .config import Config, ConfigWatcher, Layer, get_layer_dates
 from .metrics import MetricsCollector, MetricsLogger
 from .params import OWSError, infer_service, normalise_query, parse_wcs, \
     parse_wms, parse_wps
+
+log = logging.getLogger("gsky.ows")
 
 # a GeoTIFF coverage of more pixels than this streams its tiles to disk
 WCS_STREAM_PIXELS = 16 << 20
@@ -316,13 +344,6 @@ class Response:
             self.path = ""
 
 
-def _unported(what: str, item: str) -> OWSError:
-    """The answer to a request the port cannot serve yet: HTTP 501
-    naming the ROADMAP item that will serve it."""
-    return OWSError(f"{what} is not ported yet (ROADMAP {item})",
-                    "OperationNotSupported", status=501)
-
-
 class _Clock:
     """Host-clock stage marks of one request."""
 
@@ -369,11 +390,20 @@ class OWSServer:
         self.last_export: Dict[str, object] = {}
         # one executor (scene cache, page pool) for every namespace
         self.executor = WarpExecutor(device=self.device)
-        self._pipelines: Dict[str, Tuple[str, TilePipeline]] = {}
+        self._pipelines: Dict[str, Tuple[tuple, TilePipeline]] = {}
         self._lock = threading.Lock()
+        self._build_lock = threading.Lock()
         # seconds per stage (STAGES) and the handler's total, summed
         # over requests
         self.spans = dict.fromkeys(STAGES + ("handle",), 0.0)
+        # the drain's accept gate of /ows (/metrics and /debug keep
+        # answering, so that operators can watch the drain land)
+        self.drain = DrainController("ows")
+        # HTTP requests not yet written out (`writing`): `shutdown`
+        # waits for them after the drain, since a streamed or file body
+        # is sent after `handle` has returned
+        self._writing = 0
+        self._written = threading.Condition()
 
     # -- plumbing ---------------------------------------------------------
 
@@ -384,20 +414,38 @@ class OWSServer:
         return MASClient(sc.mas_address, timeout=sc.mas_timeout)
 
     def _pipeline(self, cfg: Config) -> TilePipeline:
-        """One pipeline per namespace, rebuilt when a reload changes its
-        MAS address."""
+        """One pipeline per namespace, rebuilt (and its old worker
+        client closed) when a reload changes its MAS address or its
+        ``worker_nodes`` (`WatchConfig`, `config.go:1373`)."""
         sc = cfg.service_config
-        if sc.worker_nodes:
-            raise _unported("remote worker nodes", "A.10")
         nskey = sc.namespace or sc.mas_address
+        settings = (sc.mas_address, tuple(sc.worker_nodes))
         with self._lock:
             cur = self._pipelines.get(nskey)
-            if cur is not None and cur[0] == sc.mas_address:
+            if cur is not None and cur[0] == settings:
                 return cur[1]
+        # one build at a time, outside the request lock: the workers'
+        # probe may take a while, and concurrent first requests must
+        # not each build (and register) a fleet client
+        with self._build_lock:
+            with self._lock:
+                cur = self._pipelines.get(nskey)
+                if cur is not None and cur[0] == settings:
+                    return cur[1]
+            remote = None
+            if sc.worker_nodes:
+                from ..worker import WorkerClient
+                remote = WorkerClient(sc.worker_nodes)
+                # the concurrency cap from the workers' real pool sizes
+                # (`getGrpcPoolSize`, `utils/config.go:1124-1187`)
+                remote.autosize()
             pipe = TilePipeline(self._mas(cfg), executor=self.executor,
-                                device=self.device)
-            self._pipelines[nskey] = (sc.mas_address, pipe)
-            return pipe
+                                device=self.device, remote=remote)
+            with self._lock:
+                self._pipelines[nskey] = (settings, pipe)
+        if cur is not None and cur[1].remote is not None:
+            cur[1].remote.close()
+        return pipe
 
     # -- the serving gateway (response cache, single-flight) ---------------
 
@@ -535,21 +583,90 @@ class OWSServer:
             ns = path[len("/ows/"):]
         else:
             return Response(404, "text/plain", b"404: Not Found")
-        # the trace is born here and ends in the flight recorder
-        # (GSKY_TRACE=0: none)
-        with obs.start_trace("ows.request", path=path) as otrace:
-            resp = self._handle_ows(ns, path, query, host, body, headers,
-                                    remote, probe, raw_url)
-            if otrace is not None:
-                if resp.status == CLIENT_GONE:
-                    otrace.root.attrs.setdefault("error",
-                                                 "RequestCancelled")
-                else:
-                    otrace.status = resp.status
-                deg = resp.headers.get("X-GSKY-Degraded")
-                if deg:
-                    otrace.degraded = deg.split(",")
-        return resp
+        try:
+            with self.drain.track():
+                # the trace is born here and ends in the flight recorder
+                # (GSKY_TRACE=0: none)
+                with obs.start_trace("ows.request", path=path) as otrace:
+                    resp = self._handle_ows(ns, path, query, host, body,
+                                            headers, remote, probe,
+                                            raw_url)
+                    if otrace is not None:
+                        if resp.status == CLIENT_GONE:
+                            otrace.root.attrs.setdefault(
+                                "error", "RequestCancelled")
+                        else:
+                            otrace.status = resp.status
+                        deg = resp.headers.get("X-GSKY-Degraded")
+                        if deg:
+                            otrace.degraded = deg.split(",")
+                return resp
+        except Draining:
+            # refused at the gate: the balancer should close this
+            # connection and retry against a peer gateway
+            resp = _exception_response(
+                OWSError("server is draining", "ServerBusy", status=503),
+                {"Retry-After": "5"})
+            resp.headers["Connection"] = "close"
+            return resp
+
+    # -- the drain (SIGTERM) ------------------------------------------------
+
+    def shutdown(self, timeout_s: Optional[float] = None) -> bool:
+        """The drain: close the ``/ows`` accept gate (new requests get a
+        fast 503 with ``Retry-After``), let every request in flight run
+        to completion and every HTTP answer be written out (at most
+        ``timeout_s``, by default ``GSKY_DRAIN_TIMEOUT_S``, 30), flush
+        the metrics log, then close the worker clients.  False when work
+        outlived the timeout."""
+        if timeout_s is None:
+            try:
+                timeout_s = float(
+                    os.environ.get("GSKY_DRAIN_TIMEOUT_S", "30") or 30)
+            except ValueError:
+                timeout_s = 30.0
+        deadline = time.monotonic() + timeout_s
+        self.drain.start_drain()
+        ok = self.drain.wait_drained(timeout_s)
+        with self._written:
+            while self._writing:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    ok = False
+                    break
+                self._written.wait(left)
+        st = self.drain.stats()
+        log.info("ows drain %s: completed=%d refused=%d inflight=%d",
+                 "complete" if ok else "TIMED OUT",
+                 st["completed"], st["refused"], st["inflight"])
+        self.metrics.flush()
+        self.close()
+        return ok
+
+    @contextlib.contextmanager
+    def writing(self):
+        """One HTTP request, from its read to the last byte of its
+        answer (`_Handler`): the drain of `shutdown` waits for it."""
+        with self._written:
+            self._writing += 1
+        try:
+            yield
+        finally:
+            with self._written:
+                self._writing -= 1
+                if not self._writing:
+                    self._written.notify_all()
+
+    def close(self) -> None:
+        """Close the namespaces' worker clients (idempotent)."""
+        with self._lock:
+            pipes = [pipe for _, pipe in self._pipelines.values()]
+        for pipe in pipes:
+            if pipe.remote is not None:
+                try:
+                    pipe.remote.close()
+                except Exception:  # closed during an earlier drain
+                    pass
 
     def _handle_ows(self, ns: str, path: str, query, host: str,
                     body: Optional[bytes],
@@ -601,14 +718,19 @@ class OWSServer:
                                 req_headers, collector)
         except AdmissionShed as e:
             # shed, do not queue into latency collapse: a fast 503 with
-            # Retry-After so that clients back off
+            # Retry-After so that clients back off; with a fleet, the
+            # least loaded node's name, so that a balancer can steer the
+            # retry
+            headers = {"Retry-After": str(e.retry_after)}
+            if e.alt_node:
+                headers["X-GSKY-Alt-Node"] = e.alt_node
             return _exception_response(
-                OWSError(str(e), "ServerBusy", status=503),
-                {"Retry-After": str(e.retry_after)})
+                OWSError(str(e), "ServerBusy", status=503), headers)
         except OWSError as e:
             return _exception_response(e)
         except BackendUnavailable as e:
-            # a dependency (the MAS) stayed down through its retries
+            # a dependency (the MAS, the worker fleet, a device) stayed
+            # down through its retries and failover
             return _exception_response(
                 OWSError(f"backend unavailable: {e}", "ServerBusy",
                          status=503),
@@ -788,7 +910,9 @@ class OWSServer:
             if len(lay.default_geo_bbox) >= 4 else None,
             index_tile_x_size=lay.index_tile_x_size,
             index_tile_y_size=lay.index_tile_y_size,
-            index_res_limit=lay.index_res_limit)
+            index_res_limit=lay.index_res_limit,
+            grpc_tile_x_size=lay.grpc_tile_x_size,
+            grpc_tile_y_size=lay.grpc_tile_y_size)
 
     def _getmap_gated(self, cfg: Config, p, q: Dict[str, str],
                       clock: _Clock,
@@ -853,6 +977,8 @@ class OWSServer:
         req = self._tile_request(lay, style, p, int(width), int(height),
                                  lay.wms_polygon_segments)
         pipe = self._pipeline(cfg)
+        if pipe.remote is not None:
+            return 0            # the workers hold the scenes
         dst_gt = req.dst_gt()
         warmed = 0
         seen = set()
@@ -1281,17 +1407,14 @@ class OWSServer:
             return _xml(T.wcs_describe_coverage(layers,
                                                 _host_of(host, cfg)))
         if req_name == "getcoverage":
-            if len(cfg.service_config.ows_cluster_nodes) > 1:
-                raise _unported("GetCoverage over ows_cluster_nodes peer "
-                                "shards", "A.10")
-            return self._getcoverage_gated(cfg, p, q, clock, req_headers,
-                                           collector,
+            return self._getcoverage_gated(path, cfg, p, q, clock,
+                                           req_headers, collector,
                                            is_shard=bool(q.get("wshard")))
         raise OWSError(f"WCS request {p.request!r} not supported",
                        "OperationNotSupported")
 
-    def _getcoverage_gated(self, cfg: Config, p, q: Dict[str, str],
-                           clock: _Clock,
+    def _getcoverage_gated(self, path: str, cfg: Config, p,
+                           q: Dict[str, str], clock: _Clock,
                            req_headers: Optional[Mapping[str, str]],
                            collector: MetricsCollector,
                            is_shard: bool) -> Response:
@@ -1306,11 +1429,19 @@ class OWSServer:
                                            "wcs", p, q)
         return self._serve_gated(
             key, meta, req_headers,
-            lambda: self._getcoverage(cfg, p, clock), "WCS",
+            lambda: self._getcoverage(cfg, p, clock, q=q, path=path,
+                                      is_shard=is_shard), "WCS",
             collector)
 
     def _getcoverage(self, cfg: Config, p, clock: _Clock,
-                     dap_stream: bool = False) -> Response:
+                     dap_stream: bool = False,
+                     q: Optional[Dict[str, str]] = None,
+                     path: str = "/ows",
+                     is_shard: bool = False) -> Response:
+        """A GetCoverage's coverage.  ``q`` (the request's query) and
+        ``path`` let a GetCoverage over several ``ows_cluster_nodes``
+        send its peers their bands; ``is_shard`` (``wshard=1``) is a
+        peer's own band, which is not cut again."""
         if not p.coverages:
             raise OWSError("no coverage requested", "CoverageNotDefined")
         lay, style = self._resolve_layer(cfg, p.coverages[0], p.styles,
@@ -1404,24 +1535,79 @@ class OWSServer:
                             lambda n=n: _host(res.data[n]))
                     valid[n][oy:oy + th, ox:ox + tw] = _host(res.valid[n])
 
+        # the cluster's scale-out (`ows.go:835-872,930-995,1094-1150`):
+        # bands of tile rows, band 0 here, each peer a wshard=1
+        # GetCoverage of its band (which is not cut again)
+        local_tiles, remote_jobs = list(tiles), []
+        nodes = cfg.service_config.ows_cluster_nodes
+        if q is not None and not is_shard and not stream_tif \
+                and len(nodes) > 1 and len(tiles) >= 2 * len(nodes):
+            local_tiles, remote_jobs = _cluster_bands(tiles, nodes, p.bbox,
+                                                      height)
+
+        def fetch_shard(node, tiles_in, bb, y0px, y1px):
+            """A peer's band into the coverage; on any failure the band
+            renders here, and the request is labelled."""
+            try:
+                self._fetch_shard(node, path, q, bb, width, y0px, y1px,
+                                  ns_names, nodata, out, valid,
+                                  dl.clamp(lay.wcs_timeout
+                                           * max(1, len(tiles_in))))
+            except Exception as e:
+                log.warning("WCS shard via %s failed (%s); rendering its "
+                            "band locally", node, e)
+                mark_degraded("shard-fallback")
+                errs = []
+                for t in tiles_in:
+                    check_cancel("export")
+                    try:
+                        render_tile(*t)
+                    except Exception as te:
+                        errs.append(te)
+                if errs:
+                    # a failed fallback tile leaves its hole; the rest
+                    # of the coverage still merges
+                    log.warning("%d/%d local-fallback tiles failed after "
+                                "shard %s failure (first: %s)", len(errs),
+                                len(tiles_in), node, errs[0])
+
         # a multi-tile export of a plain layer goes through the staged
         # engine; a single tile, a fusion layer, or GSKY_EXPORT_PIPELINE=0
         # renders tile by tile
         engine = None
-        if len(tiles) > 1 and not lay.input_layers \
+        if len(local_tiles) > 1 and not lay.input_layers \
                 and export_pipeline_enabled():
             engine = ExportPipeline(
                 pipe, dataclasses.replace(
                     base_req, polygon_segments=lay.wcs_polygon_segments),
-                tiles, ns_names, p.bbox, width, height, nodata=nodata,
-                writer=writer, out=out, valid=valid)
-        def render_all():
+                local_tiles, ns_names, p.bbox, width, height,
+                nodata=nodata, writer=writer, out=out, valid=valid)
+
+        def render_local():
             if engine is None:
-                for t in tiles:
+                for t in local_tiles:
                     check_cancel("export")
                     render_tile(*t)
                 return None
             return engine.run()
+
+        def render_all():
+            if not remote_jobs:
+                return render_local()
+            # the peers' bands on threads of their own, in the request's
+            # context (its deadline, cancel token and degraded marks)
+            with cf.ThreadPoolExecutor(
+                    len(remote_jobs),
+                    thread_name_prefix="gsky-wcs-shard") as shard_pool:
+                futs = [shard_pool.submit(
+                    contextvars.copy_context().run, fetch_shard, *job)
+                    for job in remote_jobs]
+                try:
+                    stats = render_local()
+                finally:
+                    for f in futs:
+                        f.result()
+            return stats
 
         try:
             with deadline_scope(dl):
@@ -1485,6 +1671,48 @@ class OWSServer:
             resp.read()
         clock.mark("encode")
         return resp
+
+    def _fetch_shard(self, node: str, path: str, q: Dict[str, str],
+                     bb: BBox, width: int, y0px: int, y1px: int,
+                     ns_names: List[str], nodata: float,
+                     out: Dict[str, np.ndarray],
+                     valid: Dict[str, np.ndarray],
+                     timeout: float) -> None:
+        """One peer's band: a ``wshard=1`` GetCoverage of rows
+        [y0px, y1px) as GeoTIFF over ``http.client`` (``timeout``: what
+        the request's deadline leaves), merged into ``out`` and
+        ``valid``.  Raises on any failure."""
+        params = {k: str(v) for k, v in q.items()}
+        params.update({
+            "service": "WCS", "request": "GetCoverage",
+            "bbox": f"{bb.xmin},{bb.ymin},{bb.xmax},{bb.ymax}",
+            "width": str(width), "height": str(y1px - y0px),
+            "format": "geotiff", "wshard": "1"})
+        u = urlsplit(node if "://" in node else f"http://{node}")
+        conn = http.client.HTTPConnection(u.hostname, u.port or 80,
+                                          timeout=max(timeout, 0.01))
+        try:
+            conn.request("GET", u.path.rstrip("/") + path + "?"
+                         + urlencode(params))
+            resp = conn.getresponse()
+            body = resp.read()
+        finally:
+            conn.close()
+        if resp.status != 200:
+            raise RuntimeError(f"shard node {node}: HTTP {resp.status}")
+        fd, spath = tempfile.mkstemp(prefix="shard_", suffix=".tif",
+                                     dir=self.temp_dir)
+        try:
+            with os.fdopen(fd, "wb") as fp:
+                fp.write(body)
+            with GeoTIFF(spath) as tif:
+                bands = [np.asarray(tif.read(bi + 1), np.float32)
+                         for bi in range(len(ns_names))]
+        finally:
+            os.remove(spath)
+        for n, a in zip(ns_names, bands):
+            out[n][y0px:y1px, :] = a
+            valid[n][y0px:y1px, :] = a != nodata
 
     # -- WPS ----------------------------------------------------------------
 
@@ -1567,6 +1795,7 @@ class OWSServer:
         """The metrics summary and the subsystems' stats, the
         reference's ``/debug`` blocks for what the port has; its ``jax``
         block is ``torch`` here."""
+        from ..fleet import fleet_stats
         from ..ingest import stats as ingest_stats
         from ..ingest import prefetch, staging
         from ..obs.tsan import tsan_stats
@@ -1609,7 +1838,13 @@ class OWSServer:
             doc["ingest"]["staging"] = staging._default.stats()
         if self.gateway is not None:
             doc["serving"] = self.gateway.stats()
+        fs = fleet_stats()
+        if fs:
+            # per node health, routed, hedged and rerouted counts, ring
+            # generation: one entry per live fleet router
+            doc["fleet"] = fs
         doc["temporal"] = obs_metrics.temporal_stats()
+        doc["drain"] = self.drain.stats()
         doc["cancel"] = cancel_stats()
         doc["pressure"] = default_monitor().stats()
         doc["tsan"] = tsan_stats()
@@ -1713,6 +1948,10 @@ class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
 
     def do_GET(self, body: Optional[bytes] = None):
+        with self.server.ows.writing():
+            self._answer(body)
+
+    def _answer(self, body: Optional[bytes]):
         url = urlsplit(self.path)
         resp = self.server.ows.handle(
             url.path, parse_qs(url.query, keep_blank_values=True),
@@ -1835,6 +2074,31 @@ def _etag_match(header: str, etag: str) -> bool:
         if tok == etag:
             return True
     return False
+
+
+def _cluster_bands(tiles, nodes, bbox: BBox, height: int):
+    """(local tiles, peer jobs) of a GetCoverage over ``nodes``: its tile
+    rows cut into one contiguous band per node, the first band local,
+    each other one a (node, tiles, band bbox, y0, y1) job of the node in
+    its place (`ows.go:835-872`)."""
+    row_starts = sorted({t[2] for t in tiles})
+    per = max(1, -(-len(row_starts) // len(nodes)))
+    groups = [row_starts[i * per:(i + 1) * per] for i in range(len(nodes))]
+    local_rows = set(groups[0])
+    local = [t for t in tiles if t[2] in local_rows]
+    resy = (bbox.ymax - bbox.ymin) / height
+    jobs = []
+    for node, grp in zip(nodes[1:], groups[1:]):
+        if not grp:
+            continue
+        rows = set(grp)
+        tiles_in = [t for t in tiles if t[2] in rows]
+        y0px = grp[0]
+        y1px = max(t[2] + t[4] for t in tiles_in)
+        bb = BBox(bbox.xmin, bbox.ymax - y1px * resy, bbox.xmax,
+                  bbox.ymax - y0px * resy)
+        jobs.append((node, tiles_in, bb, y0px, y1px))
+    return local, jobs
 
 
 def _render_with_fusion(pipe: TilePipeline, req: GeoTileRequest,

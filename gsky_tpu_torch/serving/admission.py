@@ -35,9 +35,11 @@ thread; the port's is threaded, so `admit` is a plain context manager
 over a ``threading.Condition``-style wait in the request's own thread.
 A queued request whose cancel token fires (`resilience.cancel`: its
 client went away) gives its place back and raises `RequestCancelled`;
-it is counted in ``cancelled``.  The reference's shed advisor (the
-fleet's least-loaded node, sent as ``X-GSKY-Alt-Node``) comes with the
-fleet (ROADMAP A.20): ``AdmissionShed.alt_node`` is None.
+it is counted in ``cancelled``.  A shed request carries the least
+loaded healthy node of the live fleet routers as
+``AdmissionShed.alt_node`` (`fleet.least_loaded_node`, None without a
+``worker_nodes`` fleet), which the OWS layer sends as
+``X-GSKY-Alt-Node``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+from ..fleet import least_loaded_node
 from ..resilience.cancel import RequestCancelled, current_token
 from ..resilience.pressure import pressure_state
 
@@ -105,15 +108,19 @@ def _tenant_weights() -> Dict[str, float]:
 
 class AdmissionShed(Exception):
     """A request waited past the queue deadline: HTTP 503 with
-    ``Retry-After`` at the OWS layer."""
+    ``Retry-After`` at the OWS layer.  ``alt_node``, when set, names the
+    least loaded healthy worker node at shed time (``X-GSKY-Alt-Node``),
+    so that a balancer in front of several gateways can steer the retry
+    to spare capacity."""
 
-    def __init__(self, service_class: str, retry_after: int):
+    def __init__(self, service_class: str, retry_after: int,
+                 alt_node: Optional[str] = None):
         super().__init__(
             f"{service_class} service at capacity; retry after "
             f"{retry_after}s")
         self.service_class = service_class
         self.retry_after = retry_after
-        self.alt_node = None
+        self.alt_node = alt_node
 
 
 class _ClassState:
@@ -302,9 +309,14 @@ class AdmissionController:
     def _shed(self, st: _ClassState, service_class: str) -> AdmissionShed:
         with self._lock:
             st.shed += 1
+        try:
+            alt = least_loaded_node()
+        except Exception:  # a router torn down mid-scan: no hint
+            alt = None
         return AdmissionShed(
             service_class,
-            retry_after=max(1, int(round(self.queue_deadline_s))))
+            retry_after=max(1, int(round(self.queue_deadline_s))),
+            alt_node=alt)
 
     @staticmethod
     def _wait(wait_fn, deadline_s: float, tok) -> bool:

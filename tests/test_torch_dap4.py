@@ -255,3 +255,70 @@ def test_dap4_over_a_socket(wenv):
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+# a server command line whose DAP4 stream holds each chunk after the
+# first 0.4 s, so that a signal lands while the body is being written
+_SLOW_STREAM_MAIN = """
+import sys, time
+from gsky_tpu_torch.server import dap4, main
+real = dap4.stream_dap4
+def slow(*a, **k):
+    for i, chunk in enumerate(real(*a, **k)):
+        if i:
+            time.sleep(0.4)
+        yield chunk
+dap4.stream_dap4 = slow
+sys.exit(main.main(sys.argv[1:]))
+"""
+
+
+def test_sigterm_while_a_dap4_body_streams(wenv, tmp_path):
+    """``python -m gsky_tpu_torch.server.main`` SIGTERMed while it
+    streams a DAP4 coverage: the drain waits for the body's last byte,
+    which arrives whole and equal to the handler's, and the process
+    exits 0."""
+    import http.client
+    import json
+    import signal
+    import sys
+    import time
+
+    from gsky_tpu_torch.index.crawler import extract
+    from test_torch_worker import start_process, time_limit
+    data = f"{wenv['root']}/data"
+    crawl = tmp_path / "crawl.jsonl"
+    with open(crawl, "w") as fp:
+        for name in sorted(os.listdir(data)):
+            rec = extract(os.path.join(data, name))
+            assert not rec.get("error"), rec
+            if name.endswith(".tif"):
+                for ds in rec["geo_metadata"]:
+                    ds["namespace"] = "B4"
+            fp.write(json.dumps(rec) + "\n")
+    url = _dap("dap_nc{phot_veg} | time >= 2020-01-11T00:00:00.000Z")
+    with time_limit(30):
+        proc, port = start_process(
+            [sys.executable, "-c", _SLOW_STREAM_MAIN, "-port", "0",
+             "-host", "127.0.0.1", "-conf", wenv["conf"], "-local_mas",
+             str(crawl), "-device", "cpu"],
+            "listening on", env={"GSKY_PREWARM": "0"})
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=20)
+        try:
+            conn.request("GET", url)
+            r = conn.getresponse()
+            assert r.status == 200
+            assert r.headers["Transfer-Encoding"] == "chunked"
+            head = r.read1()
+            proc.send_signal(signal.SIGTERM)
+            time.sleep(0.2)
+            body = head + r.read()
+            assert body == port_get(wenv, url)[2]
+            assert proc.wait(20) == 0
+            proc.reader.join(5)
+            assert "drain complete" in "".join(proc.lines)
+        finally:
+            conn.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(5)

@@ -485,7 +485,7 @@ def test_prep_keeps_the_single_band_form_and_disqualifies(monkeypatch):
 
 
 def test_animation_prep_declines_band_algebra():
-    p = TilePipeline.__new__(TilePipeline)
+    p = TilePipeline(None, device="cpu")
     p._timed_index = lambda req, spans=None: [_g("nir", 1.0)]
     req = SimpleNamespace(mask=None, band_exprs=_bx(texpr, ["nir * 2"]))
     assert p.animation_prep(req, [1.0, 2.0]) is None

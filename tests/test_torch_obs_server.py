@@ -35,6 +35,7 @@ it on, ``/debug/trace`` in its three forms, and ``/debug/profile`` on a
 CPU server (a Chrome trace written; an overlapping capture gets 409)."""
 
 import copy
+import gc
 import importlib
 import json
 import os
@@ -46,6 +47,8 @@ from urllib.parse import parse_qs, quote, unquote, urlsplit
 import numpy as np
 import pytest
 
+from gsky_tpu import fleet as jfleet
+from gsky_tpu.fleet import router as jfleet_router
 from gsky_tpu.obs import metrics as jom
 from gsky_tpu.obs import recorder as jrecorder
 from gsky_tpu.obs.prom import parse_exposition
@@ -55,6 +58,8 @@ from gsky_tpu.server.config import ConfigWatcher as JConfigWatcher
 from gsky_tpu.server.metrics import MetricsLogger as JMetricsLogger
 from gsky_tpu.server.ows import OWSServer as JOWSServer
 
+from gsky_tpu_torch import fleet as tfleet
+from gsky_tpu_torch.fleet import router as tfleet_router
 from gsky_tpu_torch.io.png import decode_png
 from gsky_tpu_torch.obs import metrics as tom
 from gsky_tpu_torch.obs import recorder as trecorder
@@ -78,17 +83,12 @@ tres = importlib.import_module("gsky_tpu_torch.resilience")
 # the reference's families whose subsystem the port has not yet, by the
 # ROADMAP item that brings it
 NOT_PORTED = {
-    "gsky_worker_rpc_seconds": "A.10",          # remote workers
     "gsky_mesh_waves_total": "A.11",            # mesh serving
     "gsky_mesh_chip_occupancy": "A.11",
     "gsky_mesh_shard_skew_ms": "A.11",
     "gsky_mesh_chips": "A.11",
     "gsky_mesh_entries_total": "A.11",
-    "gsky_fleet_nodes": "A.20",                 # fleet and fabric
-    "gsky_fleet_routed_total": "A.20",
-    "gsky_fleet_rerouted_total": "A.20",
-    "gsky_fleet_hedges_total": "A.20",
-    "gsky_fabric_replay_total": "A.20",
+    "gsky_fabric_replay_total": "A.20",         # fabric and elastic
     "gsky_fabric_page_fills_total": "A.20",
     "gsky_fabric_replica_pages": "A.20",
     "gsky_elastic_nodes": "A.20",
@@ -98,11 +98,9 @@ NOT_PORTED = {
     "gsky_plan_block_shape": "A.21",            # autoplan.plan_block
 }
 # the reference's /debug blocks the port does not carry: jax is torch
-# here; spmd and mesh (A.11); fabric, elastic, fleet and drain (A.20);
-# kernels (the reference's Pallas-vs-XLA race verdicts: the port runs
-# no races)
-DEBUG_NOT_PORTED = {"jax", "spmd", "mesh", "fabric", "elastic", "drain",
-                    "fleet", "kernels"}
+# here; spmd and mesh (A.11); fabric and elastic (A.20); kernels (the
+# reference's Pallas-vs-XLA race verdicts: the port runs no races)
+DEBUG_NOT_PORTED = {"jax", "spmd", "mesh", "fabric", "elastic", "kernels"}
 
 _POLY = ('{"type": "Polygon", "coordinates": [[[148.0, -35.4], '
          '[148.4, -35.4], [148.4, -35.1], [148.0, -35.4]]]}')
@@ -165,6 +163,13 @@ def oenv(env):  # noqa: F811
     tres.reset()
     jrecorder.reset_recorder()
     trecorder.reset_recorder()
+    # fleet routers that earlier tests left unreachable (a client's
+    # router and its probe form a cycle) would render gsky_fleet_* and
+    # the /debug fleet block in one package only
+    gc.collect()
+    for reg in (jfleet_router, tfleet_router):
+        with reg._routers_lock:
+            reg._ROUTERS.clear()
     from gsky_tpu.serving import default_gateway as jgw
     from gsky_tpu.serving.admission import AdmissionController as JAdm
     from gsky_tpu_torch.serving import default_gateway as tgw
@@ -198,6 +203,7 @@ def oenv(env):  # noqa: F811
            "answers": answers, "before": before, "after": after,
            "recs": recs, "env": env}
     client.close()
+    tserver.close()
     jres.reset()
     tres.reset()
     mp.undo()
@@ -234,6 +240,48 @@ def test_counters_moved_alike(oenv, family):
                "no namespace": "WMS", "coverage": "WCS", "drill": "WPS"}
         want = Counter((svc[n], STATUS[n]) for n in SEQUENCE)
         assert got == {k: float(v) for k, v in want.items()}
+
+
+FLEET_FAMILIES = ("gsky_fleet_nodes", "gsky_fleet_routed_total",
+                  "gsky_fleet_rerouted_total", "gsky_fleet_hedges_total")
+
+
+def test_fleet_families_alike(oenv):
+    """One fleet router in each package, fed the same events: the
+    ``gsky_fleet_*`` families and the ``/debug`` fleet block render
+    alike (the phi values, the wall clock's, aside)."""
+    nodes = ["10.0.0.1:11429", "10.0.0.2:11429", "10.0.0.3:11429"]
+    routers = []
+    try:
+        for mod in (jfleet, tfleet):
+            r = mod.FleetRouter(nodes, name="parity")
+            for k in ("a", "a", "b"):
+                r.record_locality(k, nodes[0])
+            r.record_reroute()
+            r.record_rr()
+            r.node_result(nodes[1], ok=False, fatal=True)
+            r.node_result(nodes[2], ok=True, draining=True)
+            r.hedge.on_primary()
+            assert r.hedge.try_hedge()
+            assert not r.hedge.try_hedge()
+            r.hedge.record_win()
+            routers.append(r)
+        fams = {k: _scrape(oenv[k + "_get"]) for k in ("ref", "port")}
+        for fam in FLEET_FAMILIES:
+            assert _samples(fams["port"], fam) == \
+                _samples(fams["ref"], fam), fam
+            assert _samples(fams["port"], fam), fam
+        docs = {k: json.loads(oenv[k + "_get"]("/debug")[2])["fleet"]
+                for k in ("ref", "port")}
+        for d in docs.values():
+            for h in d["parity"]["health"].values():
+                h.pop("phi")
+        assert docs["port"] == docs["ref"]
+    finally:
+        for r in routers:
+            r.close()
+        routers.clear()
+        gc.collect()
 
 
 @pytest.mark.parametrize("family", ["gsky_request_seconds",

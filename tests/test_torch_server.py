@@ -340,6 +340,9 @@ def env(tmp_path_factory):
            "b4_calls": b4_calls, "conf": conf, "tmas": tmas,
            "jax_mas": jmas}
     client.close()
+    # the worker client of the unported namespace: its fleet router
+    # leaves the process-wide registry
+    tserver.close()
     jpages.reset_default_pool()
     mp.undo()
 
@@ -961,11 +964,14 @@ def test_animation_over_a_socket(env, waves_on):
 _POLY = ('{"type": "Polygon", "coordinates": [[[148.0, -35.4], '
          '[148.4, -35.4], [148.4, -35.1], [148.0, -35.4]]]}')
 UNPORTED = {
-    "worker_nodes": (_getmap("plain", NATIVE[0], ns=UNPORTED_NS), "A.10"),
+    # served since the fleet slice (ROADMAP A.10's worker half, A.20's
+    # core): the namespace's worker node refuses connections, so both
+    # packages answer the backend's 503: item "503"
+    "worker_nodes": (_getmap("plain", NATIVE[0], ns=UNPORTED_NS), "503"),
     "cluster shards": (
         f"/ows/{UNPORTED_NS}?service=WCS&request=GetCoverage"
         f"&coverage=plain&crs=EPSG:3857&bbox={_bbox(NATIVE[0])}"
-        f"&width=64&height=64&format=GeoTIFF", "A.10"),
+        f"&width=64&height=64&format=GeoTIFF", "503"),
     # served since ROADMAP A.8's first half: item None
     "wps over a vrt": (
         f"/ows/{UNPORTED_NS}?service=WPS&request=Execute"
@@ -979,11 +985,21 @@ def test_unported_requests_name_their_item(env, case):
     """The requests of the ``unported`` namespace: each one the port
     cannot serve answers 501 naming its ROADMAP item; the WPS process
     over a VRT in the same namespace is served, its document equal to
-    the reference's."""
+    the reference's; a GetMap and a GetCoverage through the namespace's
+    ``worker_nodes``, whose node is down, answer the reference's 503
+    ``ServerBusy`` with ``Retry-After``."""
     url, item = UNPORTED[case]
     u = urlsplit(url)
     r = env["port"].handle(u.path, parse_qs(u.query,
                                             keep_blank_values=True), HOST)
+    if item == "503":
+        ref = env["jax"].get(url)
+        assert ref[:2] == (503, "application/vnd.ogc.se_xml"), ref[2][:300]
+        assert (r.status, r.content_type) == ref[:2]
+        assert _code(r.body) == _code(ref[2]) == "ServerBusy"
+        assert b"backend unavailable" in r.body
+        assert int(r.headers["Retry-After"]) >= 1
+        return
     if item is None:
         ref = env["jax"].get(url)
         assert ref[:2] == (200, "text/xml"), ref[2][:300]

@@ -750,15 +750,92 @@ def test_wcs_errors(wenv, case):
 
 
 def test_cluster_shards_answer_501(wenv):
-    status, ctype, body = port_get(wenv, getcoverage("cov", EXPORT,
-                                                     ns="cluster"))
-    assert (status, ctype) == (501, "application/vnd.ogc.se_xml")
-    assert _code(body) == "OperationNotSupported"
-    assert b"ROADMAP A.10" in body
+    """A GetCoverage in the ``cluster`` namespace, whose peer node
+    refuses connections: served since the fleet slice (no 501), the
+    peer's band rendered here and labelled ``shard-fallback``; the
+    coverage equals the single node's export bit for bit, and the
+    reference's answer in the same namespace."""
+    url = getcoverage("cov", EXPORT, ns="cluster")
+    u = urlsplit(url)
+    r = wenv["port"].handle(u.path, parse_qs(u.query,
+                                             keep_blank_values=True), HOST)
+    body = r.read()
+    assert (r.status, r.content_type) == (200, "image/geotiff")
+    assert r.headers.get("X-GSKY-Degraded") == "shard-fallback"
+    got = read_tiff(wenv, body)[0]
+    single = read_tiff(wenv, port_get(wenv, getcoverage("cov",
+                                                        EXPORT))[2])[0]
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  single.view(np.int32))
+    ref = wenv["jax"].request(url)
+    assert ref[:2] == (200, "image/geotiff")
+    np.testing.assert_array_equal(read_tiff(wenv, ref[2])[0].view(np.int32),
+                                  got.view(np.int32))
     # the namespace's other requests are served
     status, _, _ = port_get(wenv, "/ows/cluster?service=WCS"
                                   "&request=GetCapabilities")
     assert status == 200
+
+
+def test_getcoverage_over_cluster_nodes(wenv, tmp_path):
+    """Two port servers in one process: a master whose config names
+    itself and a peer over HTTP.  The peer renders its band of tile rows
+    (a ``wshard=1`` GetCoverage); the merged coverage equals a single
+    node's export but for pixels on a tile seam (the band's tiles start
+    at its own top row: the reference's bound, under 2%).  With the
+    peer down its band renders here, labelled ``shard-fallback``, and
+    equals the single node's export bit for bit."""
+    from test_torch_worker import time_limit
+    with time_limit(30):
+        tmas = wenv["tmas"]
+        peer = OWSServer(ConfigWatcher(wenv["conf"],
+                                       mas_factory=lambda a: tmas,
+                                       install_signal=False),
+                         mas_factory=lambda a: tmas, device="cpu",
+                         temp_dir=str(tmp_path), gateway=None)
+        seen = []
+        orig = peer.handle
+        peer.handle = lambda path, query, *a, **k: (
+            seen.append(dict(query)), orig(path, query, *a, **k))[1]
+        httpd = peer.serve("127.0.0.1", 0)
+        conf = tmp_path / "conf"
+        conf.mkdir()
+        cfg = _config(wenv["root"])
+        cfg["service_config"]["ows_cluster_nodes"] = [
+            "local", f"http://127.0.0.1:{httpd.server_address[1]}"]
+        (conf / "config.json").write_text(json.dumps(cfg))
+        (conf / "drill.vrt").write_text(DRILL_VRT)
+        master = OWSServer(ConfigWatcher(str(conf),
+                                         mas_factory=lambda a: tmas,
+                                         install_signal=False),
+                           mas_factory=lambda a: tmas, device="cpu",
+                           temp_dir=str(tmp_path), gateway=None)
+        url = getcoverage("cov", EXPORT)
+        u = urlsplit(url)
+        q = parse_qs(u.query, keep_blank_values=True)
+        single = read_tiff(wenv, port_get(wenv, url)[2])[0]
+        try:
+            r = master.handle(u.path, q, HOST)
+            body = r.read()
+            assert (r.status, r.content_type) == (200, "image/geotiff")
+            assert "X-GSKY-Degraded" not in r.headers
+            assert len(seen) == 1 and seen[0]["wshard"] == ["1"]
+            assert seen[0]["height"] == ["22"]   # rows 128-149 of 150
+            got = read_tiff(wenv, body)[0]
+            assert got.shape == single.shape
+            assert (got != -9999.0).mean() > 0.5
+            assert np.mean(got != single) < 0.02
+            np.testing.assert_array_equal(got[:, :128], single[:, :128])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        r = master.handle(u.path, q, HOST)
+        body = r.read()
+        assert r.status == 200
+        assert r.headers.get("X-GSKY-Degraded") == "shard-fallback"
+        got = read_tiff(wenv, body)[0]
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      single.view(np.int32))
 
 
 @pytest.fixture
