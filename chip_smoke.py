@@ -291,6 +291,40 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    the master's single-node export, then with a peer killed (its band
    rendered on the master, ``shard-fallback``), seconds and Mpix/s.
    The kernels line adds the workers' launches (their ``worker_info``).
+24. the cache fabric and the elastic fleet on one card (phase 18's
+   block; its three workers start after 23b's masked tiles and boot
+   while phase 14b's archive is written), over phase 18d's MODIS L1B
+   swath at 2030 x 1354, 16 tiles of
+   256 x 256 at 1250 m, bilinear, each one B1 launch; workers with
+   ``GSKY_FABRIC=1``, each with its own ``GSKY_POOL_JOURNAL``): 24a
+   worker B loads the second granule first, A serves the 16 tiles
+   (B1 on A), then a ``preempt`` RPC (grace 10 s, successor B): A
+   drains, ships its journal and exits 0 inside the grace; B pulls the
+   pages from A over ``page_fetch`` (``handoff_pages`` peer = the pages
+   A held, cold 0, B's ``peer_filled`` > 0) and serves the same tiles
+   (bytes equal to A's and to this process's local warp, 16 B1
+   launches on B, no cold page stage); the hand-off's seconds and
+   pages/s, B's first tile against A's, cold; 24b A restarted on its
+   port and journal with ``GSKY_FABRIC_PAGE_PEERS`` naming B: its warm
+   boot restores pages from B, its tiles' bytes the same; 24c a worker
+   with ``GSKY_FAULTS=node:preempt:5s`` beside B under a 4-thread burst
+   through a `WorkerClient`: every tile answered with equal bytes, the
+   node out inside its grace (from its notice's log line to its exit),
+   its ``gsky_preemptions_total`` counter (graceful) 1; 24d an
+   `Autoscaler` over a `LocalSubprocessProvider` (min 1, max 3; its
+   nodes start with empty journals and B as their page peer) driven by
+   a `DemandSignal` of an admission controller under a burst: one
+   scale-up whose node joins only when its readiness probe reports
+   warm, its pool then holding B's hot set pulled from B (its warm
+   boot's ``journal_export``, no cold stage), one scale-down that
+   preempts a node with a hand-off, no failed tile,
+   ``gsky_elastic_decisions_total`` equal to the autoscaler's record;
+   24e (phase 3's block) two OWS servers on the replay ring: a tile
+   rendered on its owner (one B1 launch, the wrapper's counter on its
+   ``/debug``), replayed by the other
+   (``X-Gsky-Cache: peer``, equal bytes, no launch), the fabric-off
+   server's bytes the same with no ``gateway.fabric`` span, the owner
+   killed and the other rendering itself (200, equal bytes).
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -326,6 +360,7 @@ import signal
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -6730,11 +6765,12 @@ def sample(fams, name, labels=(), family=None):
                if n == name and set(labels) <= set(lab))
 
 
-def serve_process(conf_dir, crawl_file, log_dir, prewarm, port=0):
+def serve_process(conf_dir, crawl_file, log_dir, prewarm, port=0,
+                  extra_env=None):
     """The port's server as its command line starts it, in a process of
     its own (waves and the staged path at their defaults, GSKY_PREWARM
-    as given, on ``port``, 0 a free one): (process, base url, its
-    start-up lines)."""
+    as given, on ``port``, 0 a free one; ``extra_env`` over that):
+    (process, base url, its start-up lines)."""
     import queue
     import threading
     env = {k: v for k, v in os.environ.items()
@@ -6742,6 +6778,7 @@ def serve_process(conf_dir, crawl_file, log_dir, prewarm, port=0):
                         "GSKY_POOL_JOURNAL")}
     env.update(PYTHONUNBUFFERED="1", GSKY_PREWARM=prewarm,
                PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
+    env.update(extra_env or {})
     proc = subprocess.Popen(
         [sys.executable, "-m", "gsky_tpu_torch.server.main", "-host",
          "127.0.0.1", "-port", str(port), "-conf", conf_dir, "-local_mas",
@@ -7324,8 +7361,13 @@ class Fleet:
         self.procs = {}          # address -> Popen
         self.lines = {}
         self.queues = {}
+        self.notice_at = {}      # pid -> its preemption notice's arrival
+        self.exit_at = {}        # pid -> its exit (its output closed)
 
-    def start(self, n, env=None):
+    def start(self, n, env=None, port=0):
+        """``n`` workers with ``env`` over the environment, on ``port``
+        (0: each a free one); a callable that waits for them to listen
+        and returns their addresses."""
         import queue
         import threading
         started = []
@@ -7337,15 +7379,24 @@ class Fleet:
             e.update(env or {})
             p = subprocess.Popen(
                 [sys.executable, "-m", "gsky_tpu_torch.worker.server",
-                 "-p", "0", "-host", "127.0.0.1", "-n", str(FLEET_POOL),
-                 "-oom_threshold", "0"], cwd=ROOT, env=e,
+                 "-p", str(port), "-host", "127.0.0.1", "-n",
+                 str(FLEET_POOL), "-oom_threshold", "0"], cwd=ROOT, env=e,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             q = queue.Queue()
-            threading.Thread(target=lambda p=p, q=q: [q.put(ln) for ln in
-                                                      p.stdout],
+            threading.Thread(target=self._read, args=(p, q),
                              daemon=True).start()
             started.append((p, q, []))
         return lambda: self._wait(started)
+
+    def _read(self, p, q):
+        """A worker's output lines into ``q``; the arrival of its
+        preemption notice's log line and its exit on this clock."""
+        for ln in p.stdout:
+            if "preemption notice" in ln:
+                self.notice_at.setdefault(p.pid, time.perf_counter())
+            q.put(ln)
+        p.wait()
+        self.exit_at[p.pid] = time.perf_counter()
 
     def output(self, addr):
         """The lines a worker printed so far."""
@@ -7871,10 +7922,13 @@ def free_ports(n):
 
 
 def phase_ows_fleet(data_root, data_paths, card):
-    """23e's OWS drain and 23f over phase 3's archive: four servers as
-    the command line starts them (GSKY_PREWARM=0), each its own process,
-    started together on ports chosen first (a master names its peers):
-    one for the drain, a master and two peers for the cluster."""
+    """23e's OWS drain, 23f and 24e over phase 3's archive: six servers
+    as the command line starts them (GSKY_PREWARM=0), each its own
+    process, started together on ports chosen first (a master names its
+    peers, a fabric gateway its peer): one for the drain, a master and
+    two peers for the cluster, two gateways on the fabric's replay ring
+    over the drain server's config.  Returns 24e's renders on the
+    fabric gateways."""
     import threading
     from gsky_tpu_torch.index.crawler import extract
     crawl_file = os.path.join(data_root, "crawl23.jsonl")
@@ -7884,7 +7938,7 @@ def phase_ows_fleet(data_root, data_paths, card):
             for ds in rec["geo_metadata"]:
                 ds["namespace"] = NS
             fp.write(json.dumps(rec) + "\n")
-    ports = free_ports(4)
+    ports = free_ports(6)
 
     def conf(name, layer, nodes=()):
         d = os.path.join(data_root, name)
@@ -7906,15 +7960,21 @@ def phase_ows_fleet(data_root, data_paths, card):
     specs = {"drain": conf("conf23e", drain_layer),
              "master": conf("conf23f_master", cov,
                             ["local"] + [f"http://127.0.0.1:{p}"
-                                         for p in ports[2:]]),
-             "peer1": peer_conf, "peer2": peer_conf}
+                                         for p in ports[2:4]]),
+             "peer1": peer_conf, "peer2": peer_conf,
+             "fab1": os.path.join(data_root, "conf23e"),
+             "fab2": os.path.join(data_root, "conf23e")}
+    gw = {n: f"http://127.0.0.1:{p}" for n, p in zip(specs, ports)}
+    envs = {n: {"GSKY_FABRIC": "1", "GSKY_FABRIC_SELF": gw[n],
+                "GSKY_FABRIC_PEERS": gw[m]}
+            for n, m in (("fab1", "fab2"), ("fab2", "fab1"))}
     servers = {}
     t0 = time.perf_counter()
 
     def start(name, port):
         servers[name] = serve_process(
             specs[name], crawl_file, os.path.join(data_root, f"logs_{name}"),
-            "0", port)
+            "0", port, envs.get(name))
 
     ts = [threading.Thread(target=start, args=(n, p))
           for n, p in zip(specs, ports)]
@@ -7923,16 +7983,140 @@ def phase_ows_fleet(data_root, data_paths, card):
     for t in ts:
         t.join()
     try:
-        if len(servers) != 4:
-            raise AssertionError(f"23e/f: started {sorted(servers)}")
-        log(f"phase 23e/f: 4 servers listening after "
+        if len(servers) != len(specs):
+            raise AssertionError(f"23e/f, 24e: started {sorted(servers)}")
+        log(f"phase 23e/f, 24e: {len(specs)} servers listening after "
             f"{time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        fab24 = phase_fabric_replay(servers["fab1"], servers["fab2"],
+                                    servers["drain"][1], card)
+        log(f"phase 24e: {time.perf_counter() - t1:.1f} s")
         phase_ows_drain(*servers["drain"][:2], card)
         phase_cluster(servers["master"][1],
                       [servers["peer1"], servers["peer2"]], card)
     finally:
         for proc, _, _ in servers.values():
-            stop_process(proc)
+            if proc.poll() is None:
+                stop_process(proc)
+    return fab24
+
+
+def fabric_state(base):
+    """A gateway's fabric replay outcomes, its B1 and B2 launches (the
+    wrappers' own counters, ``/debug``'s ``torch.kernels``) and its
+    executor's paged engagements, from ``/debug``."""
+    st, _, body, _ = http_status(base + "/debug")
+    if st != 200:
+        raise AssertionError(f"/debug {st}")
+    d = json.loads(body)
+    fab = d.get("fabric", {}).get("replay", {}).get("outcomes", {})
+    k = d["torch"]["kernels"]
+    b1, b2 = (sum(k[s] for s in WORKER_SYMBOLS[n]) for n in ("B1", "B2"))
+    return Counter(fab), b1, b2, d["executor"]["paged"]["engaged"]
+
+
+def state_delta(before, after):
+    """(outcomes, B1 launches, B2 launches) between two states; raises
+    unless the paged engagements moved with the B1 launches."""
+    (o0, l0, m0, e0), (o1, l1, m1, e1) = before, after
+    if e1 - e0 != l1 - l0:
+        raise AssertionError(f"24e: B1 launches {l1 - l0}, paged "
+                             f"engagements {e1 - e0}")
+    return dict(o1 - o0), l1 - l0, m1 - m0
+
+
+def fabric_spans(base):
+    """The ``gateway.fabric`` spans' ``hit`` of every trace the server's
+    flight recorder holds."""
+    st, _, body, _ = http_status(base + "/debug/trace?format=jsonl")
+    if st != 200:
+        raise AssertionError(f"/debug/trace {st}")
+    traces = [json.loads(ln) for ln in body.decode().splitlines()
+              if ln.strip()]
+    return [sp.get("attrs", {}).get("hit") for t in traces
+            for sp in t["spans"] if sp["name"] == "gateway.fabric"]
+
+
+def phase_fabric_replay(s1, s2, base_off, card):
+    """24e: two gateways on the fabric's replay ring (``s1``, ``s2``:
+    (process, base url, lines)) and the drain server (``base_off``,
+    the fabric off) over one config.  Tiles are asked of s1 until two
+    that s1 owns were rendered there (one B1 launch each, read from the
+    wrapper's counter on ``/debug``); s2 then answers the first with
+    ``X-Gsky-Cache: peer``, s1's bytes and no launch, its trace holding
+    a ``gateway.fabric`` span that hit; the fabric-off server answers
+    the same bytes with no such span; s1 killed, s2 renders the second
+    itself (its fetch fails over): 200, s1's bytes.  Returns the B1
+    launches on the two gateways."""
+    (p1, base1, _), (_, base2, _) = s1, s2
+    owned, others, renders = [], 0, 0
+    for box in tile_boxes():
+        u = getmap_url("", "plain", box)
+        before = fabric_state(base1)
+        st, hd, body, secs = http_status(base1 + u)
+        out, b1, b2 = state_delta(before, fabric_state(base1))
+        if st != 200 or hd.get("X-Gsky-Cache") != "miss" or \
+                (b1, b2) != (1, 0):
+            raise AssertionError(f"24e: s1 {st} {hd.get('X-Gsky-Cache')}, "
+                                 f"B1 {b1} B2 {b2}, outcomes {out}: "
+                                 f"{body[:200]}")
+        renders += b1
+        if out == {"owner_local": 1}:
+            owned.append((u, body, secs))
+            if len(owned) == 2:
+                break
+        elif out == {"miss": 1}:
+            others += 1           # s2 owns it: s1 asked, then rendered
+        else:
+            raise AssertionError(f"24e: s1's outcomes {out}")
+    if len(owned) != 2:
+        raise AssertionError(f"24e: s1 owns {len(owned)} of the tiles")
+    u, want, own_s = owned[0]
+    before = fabric_state(base2)
+    st, hd, body, peer_s = http_status(base2 + u)
+    out, b1, b2 = state_delta(before, fabric_state(base2))
+    if st != 200 or hd.get("X-Gsky-Cache") != "peer" or body != want \
+            or (b1, b2) != (0, 0) or out != {"hit": 1}:
+        raise AssertionError(f"24e peer: {st} {hd.get('X-Gsky-Cache')}, "
+                             f"same bytes {body == want}, B1 {b1} B2 {b2}, "
+                             f"outcomes {out}")
+    if True not in fabric_spans(base2):
+        raise AssertionError("24e: no gateway.fabric span that hit on s2")
+    st, hd, off_body, off_s = http_status(base_off + u)
+    if st != 200 or off_body != want or "X-Gsky-Cache" not in hd:
+        raise AssertionError(f"24e fabric off: {st}, same bytes "
+                             f"{off_body == want}")
+    if fabric_spans(base_off):
+        raise AssertionError("24e: a gateway.fabric span with the fabric "
+                             "off")
+    p1.kill()
+    p1.wait()
+    held = hold_port(int(base1.rsplit(":", 1)[1]))
+    try:
+        u2, want2, _ = owned[1]
+        before = fabric_state(base2)
+        st, hd, body, dead_s = http_status(base2 + u2)
+        out, b1, b2 = state_delta(before, fabric_state(base2))
+    finally:
+        held.close()
+    if st != 200 or body != want2 or hd.get("X-Gsky-Cache") != "miss" \
+            or (b1, b2) != (1, 0) or not (out.get("error")
+                                          or out.get("breaker_open")):
+        raise AssertionError(f"24e owner dead: {st} "
+                             f"{hd.get('X-Gsky-Cache')}, same bytes "
+                             f"{body == want2}, B1 {b1} B2 {b2}, outcomes "
+                             f"{out}")
+    renders += b1
+    log(f"phase 24e: s1 rendered {renders - 1} tiles (one B1 launch each, "
+        f"{len(owned)} it owns, {others} s2 owns); s2 replayed an s1-owned "
+        f"tile from s1 (X-Gsky-Cache peer, s1's bytes, no render, a "
+        f"gateway.fabric span that hit) in {peer_s * 1e3:.2f} ms against "
+        f"s1's render {own_s * 1e3:.2f} ms; the fabric-off server's "
+        f"answer is s1's bytes, with no gateway.fabric span "
+        f"({off_s * 1e3:.2f} ms, its own render); s1 killed, s2 rendered "
+        f"the other s1-owned tile itself in {dead_s * 1e3:.2f} ms (outcomes "
+        f"{out}), s1's bytes ({card})")
+    return {"B1": renders, "B2": 0, "B3": 0, "B4": 0}
 
 
 def phase_ows_drain(proc, base, card):
@@ -8051,6 +8235,418 @@ def phase_cluster(base, peers, card):
         f"; values differing from the single node's: cluster {differ}, "
         f"fallback {fb_differ} of {single.size}; fallback labelled "
         f"shard-fallback ({card})")
+
+
+# -- phase 24: the cache fabric and the elastic fleet on one card -------------
+
+FAB_TILES = 16               # 24: swath tiles a node serves
+FAB_PX = 1250.0              # 24: their ground metres a pixel (18d's)
+FAB_GRACE = 10.0             # 24a: the preempt notice's grace
+FAB_FAULT_GRACE = 5.0        # 24c: the fault node's grace
+FAB_THREADS = 4              # 24c: request threads
+FAB_BURST = 8                # 24d: request threads under admission
+FAB_ADMIT = 2                # 24d: the admission limit they queue on
+FAB_SCALE_S = 120.0          # 24d: the longest one scale step may take
+FAB_D1, FAB_D2 = 1579046400.0, 1579132800.0    # the swath's two dates
+
+
+def fabric_env(sat_root, name, **extra):
+    """A phase-24 worker's environment: the fabric on, a page journal
+    of its own."""
+    env = {"GSKY_FABRIC": "1", "GSKY_POOL_JOURNAL":
+           os.path.join(sat_root, f"journal24-{name}.jsonl")}
+    env.update(extra)
+    return env
+
+
+def start_fabric_workers(fleet, sat_root):
+    """24's workers A and B (the hand-off) and C (the preempt fault,
+    without prewarm: its launch counts are then its tiles'), started
+    together: a callable that waits for them, {name: addr}."""
+    waits = {"A": fleet.start(1, fabric_env(sat_root, "A")),
+             "B": fleet.start(1, fabric_env(sat_root, "B")),
+             "C": fleet.start(1, fabric_env(
+                 sat_root, "C", GSKY_PREWARM="0",
+                 GSKY_FAULTS=f"node:preempt:{FAB_FAULT_GRACE:g}s"))}
+    return lambda: {n: w()[0] for n, w in waits.items()}
+
+
+def fabric_jobs(sat_root, store):
+    """24's warps: (granule, dst geotransform, CRS) of the
+    full-resolution swath for each of the FAB_TILES tiles, and one of
+    the second (5x subsampled) granule."""
+    from gsky_tpu_torch.index.client import MASClient
+    from gsky_tpu_torch.pipeline.tile import TilePipeline
+    pipe = TilePipeline(MASClient(store), device="cuda")
+    swath = os.path.join(sat_root, "swath")
+    boxes = tile_grid(143.0, -27.5, FAB_PX, 4, FAB_TILES // 4)
+    jobs = []
+    for d, bs in ((FAB_D1, boxes), (FAB_D2, boxes[:1])):
+        for b in bs:
+            req = tile_request(swath, "bt", b, "bilinear", t=(d, d))
+            gs = pipe.index(req)
+            if len(gs) != 1 or not gs[0].geo_loc:
+                raise AssertionError(f"24: tile {b}: granules {gs}")
+            jobs.append((gs[0], req.dst_gt(), req.crs))
+    return jobs[:-1], jobs[-1]
+
+
+def remote_warp(client, job):
+    g, gt, crs = job
+    got = client.warp(g, gt, crs, 256, 256, "bilinear")
+    if got is None:
+        raise AssertionError(f"24: an empty warp of {g.path}")
+    return got
+
+
+def local_warp(ex, job):
+    """This process's warp of ``job`` (B1 through its own pool): the
+    local route the workers' answers are held against."""
+    g, gt, crs = job
+    canv, val = ex.warp_mosaic_scenes([g], [0], [1.0], gt, crs, 256, 256,
+                                      1, "bilinear")
+    return canv[0].cpu().numpy(), val[0].cpu().numpy()
+
+
+def same_warp(got, want, what):
+    """Bytes equal: the f32 canvas bit for bit, the validity equal."""
+    a, v = got
+    wa, wv = want
+    if a.tobytes() != wa.tobytes() or not np.array_equal(v, wv):
+        raise AssertionError(f"{what}: {int(np.count_nonzero(a != wa))} "
+                             f"values and {int(np.count_nonzero(v != wv))} "
+                             f"validity pixels differ")
+    if not v.any():
+        raise AssertionError(f"{what}: no valid pixel")
+
+
+def serve_tiles(client, jobs, want, what):
+    """``jobs`` one after another: the answers (equal to ``want``) and
+    each one's seconds."""
+    secs = []
+    for i, j in enumerate(jobs):
+        t0 = time.perf_counter()
+        got = remote_warp(client, j)
+        secs.append(time.perf_counter() - t0)
+        same_warp(got, want[i], f"{what} tile {i}")
+    return secs
+
+
+def pool_cold(pages):
+    """A pool's cold stages (its stages less its peer fills)."""
+    return pages["staged"] - pages["peer_filled"]
+
+
+def wait_until(fn, what, timeout, step=0.05):
+    """Poll ``fn`` until it returns something true; that value."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(step)
+    raise AssertionError(f"24: {what} after {timeout} s")
+
+
+def phase_fabric(sat_root, store, fleet, fab_ready, card):
+    """Phase 24a-d over phase 18d's swath (module docstring).  Returns
+    the launches on the workers, by kernel."""
+    import threading
+    from gsky_tpu_torch.fleet import elastic
+    from gsky_tpu_torch.pipeline.executor import WarpExecutor
+    from gsky_tpu_torch.worker import WorkerClient
+    jobs, second = fabric_jobs(sat_root, store)
+    ex = WarpExecutor(device="cuda")
+    want = [local_warp(ex, j) for j in jobs]
+    launches = Counter()
+    addrs = fab_ready()
+    a, b, c = addrs["A"], addrs["B"], addrs["C"]
+
+    # -- 24a: the hand-off ---------------------------------------------
+    cb, ca = WorkerClient([b]), WorkerClient([a])
+    try:
+        k0 = fleet.counts([b])
+        t0 = time.perf_counter()
+        remote_warp(cb, second)
+        b_other_s = time.perf_counter() - t0
+        launches.update(count_delta(k0, fleet.counts([b])))
+        k0 = fleet.counts([a])
+        secs_a = serve_tiles(ca, jobs, want, "24a on A")
+        ka = count_delta(k0, fleet.counts([a]))
+        launches.update(ka)
+        if ka["B1"] != FAB_TILES or ka["B2"]:
+            raise AssertionError(f"24a: launches on A {ka}")
+        held = fleet.info(a)["pages"]
+        info_b = fleet.info(b)
+        if info_b["pages"]["peer_filled"] or info_b["elastic"]["handoff"][
+                "entries"]:
+            raise AssertionError(f"24a: B before the hand-off {info_b}")
+        t_notice = time.perf_counter()
+        ack = elastic.control_rpc(a, "preempt", {
+            "v": 1, "grace_s": FAB_GRACE, "successor": b, "peers": [b]})
+        done = wait_until(
+            lambda: (lambda e: e if e["handoff"]["entries"]
+                     and not e["handoff"]["active"] else None)(
+                fleet.info(b)["elastic"]), "B's hand-off fill", FAB_GRACE)
+        t_fill = time.perf_counter() - t_notice
+        ho, hp = done["handoff"], done["counters"]["handoff_pages"]
+        n = held["resident"]
+        if ho != {"entries": n, "filled": n, "cold": 0, "active": 0} or \
+                hp != {"peer": n, "cold": 0} or not n:
+            raise AssertionError(f"24a: A held {n} pages; B's hand-off "
+                                 f"{ho}, handoff_pages {hp}")
+        p0 = fleet.info(b)["pages"]
+        if p0["peer_filled"] != n:
+            raise AssertionError(f"24a: B's pool {p0}")
+        k0 = fleet.counts([b])
+        secs_b = serve_tiles(cb, jobs, want, "24a on B")
+        kb = count_delta(k0, fleet.counts([b]))
+        launches.update(kb)
+        p1 = fleet.info(b)["pages"]
+        if kb["B1"] != FAB_TILES or kb["B2"] or \
+                pool_cold(p1) != pool_cold(p0) or p1["hits"] <= p0["hits"]:
+            raise AssertionError(f"24a: on B launches {kb}, pool before "
+                                 f"{p0}, after {p1}")
+        rc = fleet.wait(a, FAB_GRACE + 15)
+        t_exit = time.perf_counter() - t_notice
+        if rc != 0 or t_exit > FAB_GRACE:
+            raise AssertionError(f"24a: A exited {rc} after {t_exit:.2f} s")
+    finally:
+        ca.close()
+        cb.close()
+    log(f"phase 24a: A served {FAB_TILES} swath tiles (B1 {ka['B1']}, "
+        f"first {secs_a[0] * 1e3:.2f} ms cold, p50 "
+        f"{np.median(secs_a[1:]) * 1e3:.2f} ms), held {n} pages "
+        f"({n * held['page_shape'][0] * held['page_shape'][1] * 4} B); "
+        f"preempt (grace {FAB_GRACE:g} s, {ack}): B's hand-off fill done "
+        f"{t_fill:.3f} s after the notice, {n / t_fill:.1f} pages/s "
+        f"({n * 4 * held['page_shape'][0] * held['page_shape'][1] / t_fill / 1e6:.1f} MB/s) "
+        f"over the carrier; handoff_pages {hp}; B (which had loaded the "
+        f"second granule first, {b_other_s * 1e3:.2f} ms) served the "
+        f"same tiles: bytes equal to A's and the local warp's, B1 "
+        f"{kb['B1']}, cold stages 0, pool hits +{p1['hits'] - p0['hits']}; "
+        f"B's first tile {secs_b[0] * 1e3:.2f} ms (its scene decoded, its "
+        f"pages inherited) against A's cold {secs_a[0] * 1e3:.2f} ms, p50 "
+        f"{np.median(secs_b[1:]) * 1e3:.2f} ms; A exited 0 "
+        f"{t_exit:.3f} s after the notice ({card})")
+
+    # -- 24b: A restarted, warm from B; 24c runs while it boots --------
+    t_boot = time.perf_counter()
+    a2_ready = fleet.start(1, fabric_env(sat_root, "A",
+                                         GSKY_FABRIC_PAGE_PEERS=b),
+                           port=int(a.rsplit(":", 1)[1]))
+
+    # -- 24c: the preempt fault ----------------------------------------
+    cc = WorkerClient([c, b])
+    try:
+        k0 = fleet.counts([b])
+        t0 = time.perf_counter()
+        got, wall = fetch_threads(lambda j: remote_warp(cc, j), jobs,
+                                  FAB_THREADS)
+        for i, g in enumerate(got):
+            same_warp(g, want[i], f"24c tile {i}")
+        info_c = fleet.info(c)
+        kc = fleet.counts([c])
+        kb = count_delta(k0, fleet.counts([b]))
+        pid = fleet.procs[c].pid
+        rc = fleet.wait(c, FAB_FAULT_GRACE + 15)
+        # the notice came with the node's first RPC: its log line's
+        # arrival, to the node's exit
+        t_notice = fleet.notice_at[pid] - t0
+        t_exit = wait_until(lambda: fleet.exit_at.get(pid),
+                            "the fault node's exit time", 5.0) \
+            - fleet.notice_at[pid]
+    finally:
+        cc.close()
+    el_c = info_c["elastic"]
+    if not el_c["preempted"] or \
+            el_c["counters"]["preemptions"] != {"graceful": 1, "nograce": 0}:
+        raise AssertionError(f"24c: the fault node's elastic block {el_c}")
+    if rc != 0 or t_exit > FAB_FAULT_GRACE:
+        raise AssertionError(f"24c: the fault node exited {rc} "
+                             f"{t_exit:.3f} s after its notice")
+    if kc["B1"] + kb["B1"] < FAB_TILES or kc["B2"] or kb["B2"]:
+        raise AssertionError(f"24c: launches on the fault node {kc}, on B "
+                             f"{kb}")
+    launches.update(kc)
+    launches.update(kb)
+    log(f"phase 24c: GSKY_FAULTS=node:preempt:{FAB_FAULT_GRACE:g}s on one "
+        f"of two nodes under a {FAB_THREADS}-thread burst: {FAB_TILES} "
+        f"tiles, all equal to the local warp, {FAB_TILES / wall:.2f} "
+        f"tiles/s; B1 on the fault node {kc['B1']}, on B {kb['B1']}; the "
+        f"node preempted, its "
+        f"gsky_preemptions_total{{graceful}} counter "
+        f"{el_c['counters']['preemptions']['graceful']}, its notice "
+        f"{t_notice:.3f} s into the burst, exit 0 {t_exit:.3f} s after the "
+        f"notice ({card})")
+
+    # -- 24b's checks --------------------------------------------------
+    a2 = a2_ready()[0]
+    boot_s = time.perf_counter() - t_boot
+    pages = wait_until(lambda: (lambda p: p if p["rehydrated"] else None)(
+        fleet.info(a2)["pages"]), "A's warm boot", 60.0)
+    c2 = WorkerClient([a2])
+    try:
+        k0 = fleet.counts([a2])
+        secs = serve_tiles(c2, jobs, want, "24b on A restarted")
+        ka2 = count_delta(k0, fleet.counts([a2]))
+        launches.update(ka2)
+        p1 = fleet.info(a2)["pages"]
+    finally:
+        c2.close()
+    log(f"phase 24b: A restarted on {a2} with its journal and "
+        f"GSKY_FABRIC_PAGE_PEERS={b}: listening {boot_s:.2f} s after the "
+        f"start; its warm boot restored {pages['rehydrated']} pages "
+        f"(peer_filled {pages['peer_filled']}, cold stages "
+        f"{pool_cold(pages)}); its {FAB_TILES} tiles equal A's (B1 "
+        f"{ka2['B1']}, cold stages after them {pool_cold(p1)}), first "
+        f"{secs[0] * 1e3:.2f} ms ({card})")
+    fleet.signal(a2, signal.SIGTERM)
+    if fleet.wait(a2, 60) != 0:
+        raise AssertionError("24b: A restarted did not drain to exit 0")
+
+    # -- 24d: the autoscaler -------------------------------------------
+    launches.update(phase_autoscale(sat_root, fleet, b, jobs, want, card))
+    return dict(launches)
+
+
+def phase_autoscale(sat_root, fleet, b, jobs, want, card):
+    """24d: an `Autoscaler` over B and a `LocalSubprocessProvider` whose
+    nodes start with an empty journal of their own and
+    ``GSKY_FABRIC_PAGE_PEERS`` = B, driven by the demand of an admission
+    controller (limit FAB_ADMIT) that FAB_BURST threads queue on: one
+    scale-up, its node joining only once its warm boot has taken B's hot
+    set and pulled those pages from B; then at lower load one scale-down
+    that preempts a node with a hand-off.  Returns the launches of the
+    tiles served."""
+    import threading
+    from gsky_tpu_torch.fleet import elastic
+    from gsky_tpu_torch.obs import parse_exposition, render_metrics
+    from gsky_tpu_torch.serving.admission import AdmissionController
+    from gsky_tpu_torch.worker import WorkerClient
+
+    log_dir = os.path.join(sat_root, "logs24d")
+    os.makedirs(log_dir, exist_ok=True)
+    provider = elastic.LocalSubprocessProvider(
+        extra_env={"GSKY_FABRIC": "1", "GSKY_FABRIC_PAGE_PEERS": b,
+                   "PYTHONUNBUFFERED": "1",
+                   "PYTHONPATH": ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", "")},
+        log_dir=log_dir, journal_dir=sat_root)
+    adm = AdmissionController(limits={"WMS": FAB_ADMIT},
+                              queue_deadline_s=60.0, adaptive=False)
+    client = WorkerClient([b])
+    c0 = elastic.counters()["decisions"]
+    scaler = elastic.Autoscaler(
+        provider, client, name="smoke24", min_nodes=1, max_nodes=3,
+        interval_s=0.25, up=0.8, down=0.25, up_ticks=2, down_ticks=4,
+        cooldown_s=5.0, ready_timeout_s=FAB_SCALE_S, drain_grace_s=3.0,
+        demand=elastic.DemandSignal(admission=adm, alpha=0.5))
+    level, stop = [FAB_BURST], threading.Event()
+    served, failed, lock = [0], [], threading.Lock()
+
+    def load(i):
+        k = i
+        while not stop.is_set():
+            if i >= level[0]:
+                time.sleep(0.02)
+                continue
+            try:
+                with adm.admit("WMS", "smoke24"):
+                    got = remote_warp(client, jobs[k % len(jobs)])
+                same_warp(got, want[k % len(jobs)], "24d")
+                with lock:
+                    served[0] += 1
+            except Exception as e:  # counted, and the phase fails
+                with lock:
+                    failed.append(repr(e))
+            k += FAB_BURST
+
+    def decided(d):
+        return [e for e in scaler.decisions if e["dir"] == d]
+
+    threads = [threading.Thread(target=load, args=(i,), daemon=True)
+               for i in range(FAB_BURST)]
+    kb0 = fleet.counts([b])
+    t0 = time.perf_counter()
+    scaler.start()
+    for t in threads:
+        t.start()
+    try:
+        up = wait_until(lambda: decided("up"), "no scale-up", 60.0)[0]
+        t_up = time.perf_counter() - t0
+        level[0] = 1            # half the limit: between down and up
+        join = wait_until(lambda: decided("join"), "no join", FAB_SCALE_S)
+        t_join = time.perf_counter() - t0
+        new = up["node"]
+        # what the node held when it joined: B's hot set from B
+        joined_pages = elastic.probe_info(new)["pages"]
+
+        def node_b1(addr):
+            return sum(elastic.probe_info(addr)["kernels"][s]
+                       for s in WORKER_SYMBOLS["B1"])
+        n0, new0 = served[0], node_b1(new)
+        wait_until(lambda: served[0] - n0 >= FAB_TILES, "tiles after the "
+                   "join", 60.0)
+        level[0] = 0
+        wait_until(lambda: not any(adm.stats()["classes"]["WMS"][f]
+                                   for f in ("in_use", "queued")),
+                   "the load's end", 60.0)
+        new_b1 = node_b1(new) - new0
+        b_b1 = count_delta(kb0, fleet.counts([b]))["B1"]
+        down = wait_until(lambda: decided("down"), "no scale-down", 60.0)[0]
+        t_down = time.perf_counter() - t0
+        victim, succ = down["node"], down["successor"]
+        if victim == b:
+            rc = fleet.wait(b, 30)
+        else:
+            # its own exit, before the retire's terminate (grace + 2 s)
+            proc = provider._procs[victim]
+            rc = wait_until(lambda: proc.poll() is not None and
+                            (proc.returncode,), "the victim's exit",
+                            30.0)[0]
+        t_gone = time.perf_counter() - t0
+        ho = elastic.probe_info(succ)["elastic"]["handoff"]
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(30)
+        scaler.stop()
+        client.close()
+        provider.close()
+    dirs = Counter(e["dir"] for e in scaler.decisions)
+    c1 = elastic.counters()["decisions"]
+    fams = parse_exposition(render_metrics())
+    metric = {dict(lab)["dir"]: v for (nm, lab), v in
+              fams["gsky_elastic_decisions_total"]["samples"].items()}
+    mine = {d: c1[d] - c0.get(d, 0) for d in ("up", "down")}
+    if failed or dirs["up"] != 1 or dirs["down"] != 1 or dirs["join"] != 1 \
+            or join[0]["reason"] != "ready" or rc != 0 or not new_b1 \
+            or join[0]["warm_fraction"] < elastic.WARM_FRAC \
+            or not joined_pages["peer_filled"] \
+            or joined_pages["peer_filled"] != joined_pages["staged"] \
+            or mine != {"up": dirs["up"], "down": dirs["down"]} \
+            or {d: metric[d] - c0.get(d, 0) for d in mine} != mine \
+            or not ho["entries"] or ho["cold"] or ho["active"]:
+        raise AssertionError(f"24d: decisions {scaler.decisions}, failed "
+                             f"{failed[:3]}, exit {rc}, B1 on the new node "
+                             f"{new_b1}, metric {metric}, counters {mine}, "
+                             f"successor's hand-off {ho}, the new node's "
+                             f"pool at its join {joined_pages}")
+    log(f"phase 24d: {served[0]} tiles, none failed, bytes equal; "
+        f"scale-up {t_up:.2f} s into the burst ({FAB_BURST} threads on an "
+        f"admission limit of {FAB_ADMIT}, demand {up}); {new} joined "
+        f"{t_join - t_up:.2f} s later ({join[0]}; its pool then "
+        f"{joined_pages['peer_filled']} pages from B, no cold stage); B1 "
+        f"launches on B "
+        f"{b_b1}, on the new node {new_b1}; at no load the scale-down {t_down:.2f} s in "
+        f"({down}), the victim out {t_gone - t_down:.2f} s later, its "
+        f"successor's hand-off {ho}; gsky_elastic_decisions_total {metric} "
+        f"({card})")
+    if b_b1 + new_b1 != served[0]:
+        raise AssertionError(f"24d: {served[0]} tiles, B1 on B {b_b1}, on "
+                             f"the new node {new_b1}")
+    return {"B1": served[0], "B2": 0, "B3": 0, "B4": 0}
 
 
 def main() -> int:
@@ -8343,10 +8939,11 @@ def main() -> int:
         # -- phase 22: the device guard, prewarm, the encode pool ---------
         guard22 = phase_guard(data_root, data_paths, card)
 
-        # -- phase 23e, 23f: the OWS drain, WCS over ows_cluster_nodes ---
+        # -- phase 23e, 23f, 24e: the OWS drain, WCS over
+        # ows_cluster_nodes, the fabric's peer replay --------------------
         t0 = time.perf_counter()
-        phase_ows_fleet(data_root, data_paths, card)
-        log(f"phase 23e (OWS), 23f: {time.perf_counter() - t0:.1f} s")
+        fab24e = phase_ows_fleet(data_root, data_paths, card)
+        log(f"phase 23e (OWS), 23f, 24e: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -8420,6 +9017,10 @@ def main() -> int:
         t0 = time.perf_counter()
         add23(phase_fleet_masked(mosaic_root, mosaic, fleet, workers, card))
         sat_ready = fleet.start(1)       # for 23b's swath, phase 18's block
+        # phase 24's workers boot while phase 14b's archive is written
+        # (set-up); their journals go under phase 18's root
+        sat_root = os.path.join(ROOT, "build", "smoke_sat")
+        fab_ready = start_fabric_workers(fleet, sat_root)
         log(f"phase 23b masked, 23d, 23e (worker): "
             f"{time.perf_counter() - t0:.1f} s")
     finally:
@@ -8447,7 +9048,6 @@ def main() -> int:
         shutil.rmtree(s2_root, ignore_errors=True)
 
     # -- phase 18: the grids and formats of satellite archives ---------
-    sat_root = os.path.join(ROOT, "build", "smoke_sat")
     shutil.rmtree(sat_root, ignore_errors=True)
     os.makedirs(sat_root)
     try:
@@ -8465,6 +9065,12 @@ def main() -> int:
         add23(phase_fleet_swath(sat_root, store23, fleet,
                                 [workers[0]] + sat_ready(), card))
         log(f"phase 23b swath: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 24a-d: the cache fabric and the elastic fleet ----------
+        t0 = time.perf_counter()
+        fab24 = phase_fabric(sat_root, store23, fleet, fab_ready, card)
+        log(f"phase 24a-d: launches on the workers {fab24}, on 24e's "
+            f"gateways {fab24e} ({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(sat_root, ignore_errors=True)
     fleet.close()
@@ -8506,7 +9112,9 @@ def main() -> int:
     # guard's rounds, the incidents' tiles, healthy waves, the encode
     # pool's tiles; B2: the failed wave's per-call legs), and phase 23's
     # (B4 here: the remote tiles' mosaics; B1 and B2 on the workers: the
-    # swath's warps; B3 on a worker: its drill op)
+    # swath's warps; B3 on a worker: its drill op), and phase 24's (B1:
+    # the swath's warps on the fabric's workers, 24e's renders on the
+    # replay gateways)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -8517,7 +9125,8 @@ def main() -> int:
          "launches": b1_launches + b1_waves + b1_anim + b1_expr
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
          + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
-         + obs21["B1"] + guard22["B1"] + fleet23["B1"],
+         + obs21["B1"] + guard22["B1"] + fleet23["B1"] + fab24["B1"]
+         + fab24e["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             ing_err["B1"], obs21_err,
                             max(v for (k, _), v in wcs_errs.items()
@@ -8530,7 +9139,7 @@ def main() -> int:
          "launches": b2_launches + b2_rgb + wcs_launches["B2"]
          + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
          + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"]
-         + fleet23["B2"],
+         + fleet23["B2"] + fab24.get("B2", 0) + fab24e["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()

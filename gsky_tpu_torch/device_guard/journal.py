@@ -31,9 +31,11 @@ of a scene serial (its pages can no longer be re-staged).
 
 ``replay()`` merges the log into a hottest-first page list; staleness
 (a serial no longer resident in a scene cache) is the caller's check.
-``replay_chips``, ``replay_scored``, ``export_hot`` and ``merge_scored``
-serve the mesh and the fleet (ROADMAP A.11, A.20) as the reference has
-them.
+``replay_scored``, ``export_hot`` and ``merge_scored`` serve the elastic
+fleet's hand-off (`fleet.elastic`) and the fabric's replication plan;
+``replay_chips`` the mesh (ROADMAP A.11), as the reference has them.
+Serials name a scene's content (`pipeline.scene_cache.content_serial`),
+so a journal replays into any process that loads the same files.
 """
 
 from __future__ import annotations

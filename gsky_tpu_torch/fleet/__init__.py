@@ -1,10 +1,9 @@
 """Fleet fault tolerance: membership + health, consistent-hash
-routing with bounded load, hedged dispatch, graceful drain.
+routing with bounded load, hedged dispatch, graceful drain, and the
+elastic fleet.
 
-Counterpart of `gsky_tpu/fleet/` without its elastic half
-(``elastic.py``: the autoscaler, preemption and the journal hand-off,
-ROADMAP A.20).  Pure Python, copied rather than imported, so that the
-port imports nothing of the JAX package.
+Counterpart of `gsky_tpu/fleet/`.  Pure Python, copied rather than
+imported, so that the port imports nothing of the JAX package.
 
 - :class:`HealthMonitor` accrues phi-suspicion per node from
   heartbeats (real RPC traffic and/or active ``worker_info`` probes)
@@ -19,9 +18,16 @@ port imports nothing of the JAX package.
   node and the OWS server.
 - :class:`FleetRouter` composes the above per node set;
   :func:`fleet_stats` aggregates every live router for /debug.
+- `elastic`: :class:`Autoscaler` over a :class:`NodeProvider`
+  (:class:`LocalSubprocessProvider` starts worker processes) driven by
+  a :class:`DemandSignal`, preemption with a warm journal hand-off to
+  the ring successor (:func:`successor_for`), and
+  :func:`elastic_stats` for /debug; dormant unless ``GSKY_ELASTIC=1``.
 """
 
 from .drain import DrainController, Draining
+from .elastic import (Autoscaler, DemandSignal, LocalSubprocessProvider,
+                      NodeProvider, elastic_stats, successor_for)
 from .health import (DEAD, DRAINING, HEALTHY, SUSPECT, HealthMonitor,
                      NodeHealth)
 from .hedge import HedgePolicy, hedged_call
@@ -42,9 +48,9 @@ def tile_route_key(layer: str, srs: str, bbox, width: int,
 
 __all__ = [
     "DEAD", "DRAINING", "HEALTHY", "SUSPECT",
-    "DrainController", "Draining",
+    "Autoscaler", "DemandSignal", "DrainController", "Draining",
     "FleetRouter", "HashRing", "HealthMonitor", "HedgePolicy",
-    "NodeHealth",
-    "fleet_stats", "hedged_call", "least_loaded_node",
-    "register_router", "routers", "tile_route_key",
+    "LocalSubprocessProvider", "NodeHealth", "NodeProvider",
+    "elastic_stats", "fleet_stats", "hedged_call", "least_loaded_node",
+    "register_router", "routers", "successor_for", "tile_route_key",
 ]

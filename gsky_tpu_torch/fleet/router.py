@@ -187,7 +187,7 @@ class FleetRouter:
     def peers_for(self, key: str, n: Optional[int] = None,
                   exclude: Optional[str] = None) -> List[str]:
         """Ring-adjacent peer selection for the cache fabric
-        (not ported yet): the key's preference walk filtered to
+        (`fabric/`): the key's preference walk filtered to
         currently-routable nodes, optionally excluding the asking node
         itself.  Unlike :meth:`candidates` this never pads with dead
         nodes — a fabric fill is an optimisation, so an unroutable

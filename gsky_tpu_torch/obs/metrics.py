@@ -25,9 +25,14 @@ errors of one that has, so a renamed field shows as a missing family
 kernel symbol's first launch), where the reference counts XLA compiles.
 The worker RPC's round trips (``gsky_worker_rpc_seconds``) are observed
 by `worker.client`; the ``gsky_fleet_*`` families are collected from the
-live fleet routers (`fleet.fleet_stats`).  Not here until their
-subsystems are ported (ROADMAP): the mesh families (A.11), fabric and
-elastic (A.20) and ``gsky_plan_block_shape`` (A.21).
+live fleet routers (`fleet.fleet_stats`).  The cache fabric's
+(``gsky_fabric_*``) and the elastic fleet's (``gsky_elastic_*``,
+``gsky_preemptions_total``, ``gsky_handoff_pages_total``) render when
+the reference's do: the elastic families once elastic has left a trace
+in the process (`fleet.elastic.dormant`).  Not here until their
+subsystems are ported (ROADMAP): the mesh families (A.11) and
+``gsky_plan_block_shape`` (A.21); nor ``gsky_fabric_replica_pages``,
+the gauge of a replication round that has no caller (C.18).
 
 Everything registers against ``prom.default_registry()``; the server's
 ``/metrics`` route calls `render_metrics`.
@@ -98,6 +103,16 @@ PLAN_ROUTE = _REG.counter(
     "Autoplanner group routing between ragged slot pad and bucketed "
     "pulls (the PR 8 crossover).",
     ["path"])
+FABRIC_REPLAY = _REG.counter(
+    "gsky_fabric_replay_total",
+    "Gateway peer-replay fetch outcomes (docs/FABRIC.md): hit/miss/"
+    "error/deadline/breaker_open/owner_local/disabled.",
+    ["outcome"])
+FABRIC_PAGE_FILLS = _REG.counter(
+    "gsky_fabric_page_fills_total",
+    "Page-pool fills by source: peer (fabric page RPC) vs cold "
+    "(decode + stage from storage).",
+    ["source"])
 
 Rows = Iterable[Tuple[Dict[str, str], float]]
 
@@ -508,10 +523,50 @@ def _collect_temporal():
                [({}, float(st["dap_streamed_bytes"]))])]
 
 
+def _collect_elastic():
+    """The elastic fleet's node counts by lifecycle state, scale
+    decisions, preemption notices and hand-off page outcomes, once
+    elastic has left a trace in this process (``GSKY_ELASTIC=1``, a
+    live autoscaler or a counter off zero): a fixed fleet keeps its
+    exposition as it was."""
+    from ..fleet import elastic
+    if elastic.dormant():
+        return []
+    out: List = []
+    counts: Dict[str, float] = {}
+    for a in elastic.autoscalers():
+        for state, n in a.node_counts().items():
+            counts[state] = counts.get(state, 0) + n
+    if counts:
+        out.append(_g("gsky_elastic_nodes",
+                      "Worker nodes by elastic lifecycle state.",
+                      [({"state": s}, float(n))
+                       for s, n in sorted(counts.items())]))
+    c = elastic.counters()
+    out.append(_c("gsky_elastic_decisions_total",
+                  "Autoscaler scale decisions by direction.",
+                  [({"dir": d}, float(n))
+                   for d, n in sorted(c["decisions"].items())]))
+    out.append(_c("gsky_preemptions_total",
+                  "Preemption notices handled, by whether a grace "
+                  "window allowed the drain + journal handoff.",
+                  [({"graceful": "true"},
+                    float(c["preemptions"]["graceful"])),
+                   ({"graceful": "false"},
+                    float(c["preemptions"]["nograce"]))]))
+    out.append(_c("gsky_handoff_pages_total",
+                  "Hot pages inherited on preemption handoff: "
+                  "refilled from peer HBM vs left to cold staging.",
+                  [({"source": s}, float(n))
+                   for s, n in sorted(c["handoff_pages"].items())]))
+    return out
+
+
 for _fn in (_collect_caches, _collect_fleet, _collect_resilience,
             _collect_runtime, _collect_batcher, _collect_overload,
             _collect_ingest, _collect_device, _collect_waves,
-            _collect_expr, _collect_tsan, _collect_temporal):
+            _collect_expr, _collect_tsan, _collect_elastic,
+            _collect_temporal):
     _REG.register_collector(_fn)
 
 

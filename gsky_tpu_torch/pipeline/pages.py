@@ -41,8 +41,17 @@ re-stages the journal's hottest pages from the scenes still resident in
 the pool's scene cache (``cache``, set by its executor), skipping stale
 entries; `audit` convicts
 pages holding inf (`ops.paged.pool_inf_counts`) or failing their CRC
-and quarantines them (a pinned one recycles when its pin drops).  The
-reference's fill of pages from fabric peers is ROADMAP A.20.
+and quarantines them (a pinned one recycles when its pin drops).
+
+The cache fabric (`fabric.pagerpc`): serials name a scene's content on
+every node (`scene_cache.content_serial`), so a page staged anywhere is
+the same page here.  `stage_page` writes a page a peer sent into a slot
+(a plain copy, no kernel), `has_page` and `read_pages` look pages up
+for a peer without touching the LRU order or the heat, and `rehydrate`
+asks the fabric's page peers for the journal's hot set first
+(``GSKY_FABRIC``).  Fills are counted by
+source in ``gsky_fabric_page_fills_total`` (``peer`` or ``cold``) and
+``peer_filled``.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from ..device import resolve_device
 from ..device_guard import guard_enabled, journal, pool_audit_enabled, \
     staging_ok
 from ..obs import tsan
+from ..obs.metrics import FABRIC_PAGE_FILLS
 from ..ops.paged import page_shape, pool_inf_counts
 from ..resilience.pressure import staging_allowed
 
@@ -72,6 +82,11 @@ _live: "weakref.WeakSet[PagePool]" = weakref.WeakSet()
 def live_pools():
     """The page pools alive now (each `WarpExecutor` has its own)."""
     return list(_live)
+
+
+def _note_fill(source: str) -> None:
+    """``gsky_fabric_page_fills_total{source=peer|cold}``."""
+    FABRIC_PAGE_FILLS.labels(source=source).inc()
 
 
 def _pool_capacity(pr: int, pc: int) -> int:
@@ -118,6 +133,9 @@ class PagePool:
         self.teardowns = 0
         self.rehydrated = 0
         self.quarantined = 0
+        self.peer_filled = 0         # pages staged from fabric peers
+        # the keys resident at the last teardown, until `rehydrate`
+        self._torn = None
         # staging generation of the slot namespace (`handoff`), bumped
         # by `teardown`: a wave staged before a device incident refuses
         # to launch against the rebuilt pool
@@ -178,17 +196,23 @@ class PagePool:
             return None
         self._ensure_pool()
         self._stage(dev, slot, int(pi), int(pj))
+        self._placed(key, slot)
+        _note_fill("cold")
+        return slot
+
+    def _placed(self, key: tuple, slot: int) -> None:
+        """Book a page just written into ``slot``: the table, the stage
+        count, and under the device guard the journal's breadcrumb (a
+        stage line: stages only, not hits) and, under
+        ``GSKY_POOL_AUDIT=1``, the page's CRC (one page readback a
+        stage)."""
         self._slots[key] = slot
         self.staged += 1
         if guard_enabled():
-            # warm-recovery breadcrumb: cold stages only
             journal.record_stage(*key)
             if pool_audit_enabled():
-                # one page readback per cold stage: the cost of
-                # GSKY_POOL_AUDIT=1
                 self._checksums[key] = zlib.crc32(
                     self._pool[slot].cpu().numpy().tobytes())
-        return slot
 
     # -- public --------------------------------------------------------
 
@@ -220,6 +244,69 @@ class PagePool:
                     self._pins[s] = self._pins.get(s, 0) + 1
                     slots.append(s)
         return np.asarray(slots, np.int32)
+
+    def stage_page(self, serial: int, pi: int, pj: int, page) -> bool:
+        """Stage one page a fabric peer sent (`fabric.pagerpc`): the
+        bytes are the page, no scene is involved; the reference's
+        ``_stage_ready``, here a copy into ``pool[slot]``.  False when
+        its shape is not the pool's page shape (content keys mean
+        nothing between pools cut otherwise) or every slot is pinned; a
+        resident key is left as it is (True)."""
+        arr = np.array(page, np.float32)     # a writable copy
+        if arr.shape != (self.page_rows, self.page_cols):
+            return False
+        key = (int(serial), int(pi), int(pj))
+        with self.lock:
+            if key in self._slots:
+                return True
+            slot = self._take_slot()
+            if slot is None:
+                self.declined += 1
+                return False
+            self._ensure_pool()
+            self._pool[slot].copy_(torch.from_numpy(arr))
+            self._placed(key, slot)
+            self.peer_filled += 1
+        _note_fill("peer")
+        return True
+
+    def has_page(self, serial: int, pi: int, pj: int) -> bool:
+        """Whether a page is resident (no LRU touch, no heat)."""
+        with self.lock:
+            return (int(serial), int(pi), int(pj)) in self._slots
+
+    def read_page(self, serial: int, pi: int, pj: int):
+        """A resident page on the host, (PR, PC) f32, or None: one key
+        of `read_pages`."""
+        got = self.read_pages([(serial, pi, pj)], 1)
+        return got[0][1] if got else None
+
+    def read_pages(self, keys, limit: int):
+        """The first ``limit`` of ``keys`` that are resident, in their
+        order, each with its page on the host, (PR, PC) f32: a peer's
+        ``page_fetch``.  The pages are gathered in one copy under the
+        lock, so a slot evicted and restaged after it returns cannot
+        change them.  Passive: no LRU touch and no heat, so a peer's
+        warm-up leaves this pool's eviction order alone."""
+        found, slots = [], []
+        with self.lock:
+            if self._pool is None:
+                return []
+            for k in keys:
+                key = (int(k[0]), int(k[1]), int(k[2]))
+                slot = self._slots.get(key)
+                if slot is None:
+                    continue
+                found.append(key)
+                slots.append(slot)
+                if len(found) >= limit:
+                    break
+            if not found:
+                return []
+            idx = torch.tensor(slots, dtype=torch.long,
+                               device=self._pool.device)
+            pages = self._pool.index_select(0, idx).cpu().numpy()
+        return list(zip(found, pages))
 
     def prewarm(self, dev, serial: int, i0: int, i1: int,
                 j0: int, j1: int) -> bool:
@@ -283,9 +370,8 @@ class PagePool:
         bookkeeping.  Pins are cleared: every dispatch that held one has
         failed through the guard by the time a teardown runs."""
         with self.lock:
-            if guard_enabled():
-                for key in self._slots:
-                    journal.record_heat(*key, hits=self._heat.get(key, 0))
+            self.flush_heat()
+            self._torn = set(self._slots)
             self._pool = None
             self._slots.clear()
             self._pins.clear()
@@ -296,20 +382,52 @@ class PagePool:
             self.teardowns += 1
             self._handoff_gen += 1
 
+    def flush_heat(self) -> None:
+        """Journal every resident page with its hit count (``heat``
+        lines, under the device guard) and keep the pool as it is: a
+        preempted worker's exit, whose successor may still be reading
+        its pages."""
+        if not guard_enabled():
+            return
+        with self.lock:
+            for key in self._slots:
+                journal.record_heat(*key, hits=self._heat.get(key, 0))
+
     def rehydrate(self) -> int:
-        """Warm recovery: re-stage the journal's hottest pages from the
-        scenes still resident in the pool's scene cache, hottest first,
-        until the journal or the free slots run out.  An entry whose
+        """Warm recovery: the journal's hottest pages, hottest first,
+        until the journal or the free slots run out.  After this pool's
+        own teardown, only the pages it held: the journal is the
+        process's, and other pools in the process journal theirs, of
+        the same scenes (serials name content); a fresh pool (a warm
+        boot) takes the whole journal.  With the fabric's page tier on,
+        the page peers are asked first (`fabric.pagerpc.
+        fill_from_peers`); what they do not hold is re-staged from the
+        scenes still resident in the pool's scene cache.  An entry whose
         scene is gone, or whose page lies outside its scene's page grid,
         is skipped.  Returns the pages restored."""
         entries = journal.replay()
-        if not entries or self.cache is None:
+        with self.lock:
+            torn, self._torn = self._torn, None
+        if torn is not None:
+            entries = [e for e in entries if e in torn]
+        if not entries:
             return 0
+        restored = 0
+        from .. import fabric
+        if fabric.fabric_enabled():
+            from ..fabric import pagerpc
+            restored += pagerpc.fill_from_peers(self, entries)
+        if self.cache is None:
+            with self.lock:
+                self.rehydrated += restored
+            return restored
         with self.cache._lock:
             scenes = {sc.serial: sc.dev
                       for sc in self.cache._scenes.values()}
-        restored = 0
         for serial, pi, pj in entries:
+            with self.lock:
+                if (serial, pi, pj) in self._slots:
+                    continue        # a peer filled it
             dev = scenes.get(serial)
             if dev is None:
                 continue            # stale: scene evicted since
@@ -399,6 +517,7 @@ class PagePool:
                 "trimmed": self.trimmed,
                 "rehydrated": self.rehydrated,
                 "quarantined": self.quarantined,
+                "peer_filled": self.peer_filled,
                 "pool_bytes": (self.capacity * self.page_rows
                                * self.page_cols * 4),
             }

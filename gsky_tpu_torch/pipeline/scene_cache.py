@@ -23,11 +23,24 @@ With ingest on (``GSKY_INGEST``, the default):
   declined (`window_routed` counts these), so the caller serves it
   through the ranged window decode; the ``GSKY_INGEST_WINDOW_PROMOTE``
   (default 4)-th decline of one scene loads it instead.
+
+A scene's ``serial`` names its content, on every node: a scene loaded
+from a file takes it from the file's identity (`content_serial`: path,
+band, variable, time index, decimation level, shape, and the file's
+size and modification time), a stable hash in [2**52, 2**53), so that
+page pools, their journals and the cache fabric's peers key one
+scene's pages alike however many scenes each process loaded before it.
+The reference numbers scenes with a per-process counter, under which a
+peer's or a restarted process's serial 3 is another scene (ROADMAP
+C.18).  A scene with no file behind it keeps a counter, below 2**52.
+Serials stay on the host: no device tensor holds one.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
+import json
 import logging
 import os
 import threading
@@ -50,7 +63,28 @@ from ..resilience import faults
 from .decode import _HandleCache, granule_footprint_frac
 from .types import Granule
 
+# serials of scenes with no file behind them; a content serial has bit
+# 52 set, which the counter never reaches
 _scene_serial = itertools.count(1)
+_CONTENT_BIT = 1 << 52
+
+
+def content_serial(g: Granule, level: int, shape) -> int:
+    """The serial of granule ``g``'s scene at decimation ``level`` and
+    true ``shape``: a hash of its identity and its file's size and
+    modification time, the same in every process that loads the same
+    bytes.  A path that is not a local file takes the next counter
+    value (a serial that no other scene has)."""
+    try:
+        st = os.stat(g.path)
+    except (OSError, TypeError, ValueError):
+        return next(_scene_serial)
+    ident = json.dumps([g.path, g.band, g.var_name, g.time_index,
+                        int(level), [int(v) for v in shape],
+                        st.st_size, st.st_mtime_ns])
+    digest = hashlib.blake2b(ident.encode(), digest_size=8).digest()
+    return _CONTENT_BIT | (int.from_bytes(digest, "big")
+                           & (_CONTENT_BIT - 1))
 
 log = logging.getLogger("gsky.scene_cache")
 # every live cache, for the pressure monitor's relief
@@ -65,7 +99,8 @@ class DeviceScene:
     nodata: float             # NaN when absent
     gt: GeoTransform
     crs: CRS
-    # monotonic identity: downstream caches key on this, never on id()
+    # content identity (`content_serial`): downstream caches and the
+    # page pool key on this, never on id()
     serial: int = field(default_factory=lambda: next(_scene_serial))
 
     @property
@@ -316,17 +351,19 @@ class SceneCache:
             return None
         if sbuf is not None:
             return self._staged_scene(sbuf, spool, H, W, nodata, gt, crs,
-                                      H * W * h.dtype.itemsize)
+                                      H * W * h.dtype.itemsize,
+                                      content_serial(g, level, (H, W)))
         ingest_stats.record_whole(data.nbytes)
         true_h, true_w = data.shape
         dev = torch.from_numpy(encode_scene(data, nodata)).to(self.device)
         return DeviceScene(dev=dev, height=true_h, width=true_w,
                            nodata=float("nan"), gt=gt, crs=crs,
-                           serial=next(_scene_serial))
+                           serial=content_serial(g, level,
+                                                 (true_h, true_w)))
 
     def _staged_scene(self, buf: torch.Tensor, pool, H: int, W: int,
                       nodata, gt: GeoTransform, crs: CRS,
-                      nbytes: int) -> DeviceScene:
+                      nbytes: int, serial: int) -> DeviceScene:
         """The scene of a staged load: NaN-encode the buffer in place
         (as `encode_scene` does), upload it, and hand it back to the
         pool, cooling until the copy is done (on the CPU the scene is
@@ -348,7 +385,7 @@ class SceneCache:
             self.staged_loads += 1
         return DeviceScene(dev=dev, height=H, width=W,
                            nodata=float("nan"), gt=gt, crs=crs,
-                           serial=next(_scene_serial))
+                           serial=serial)
 
 
 def live_caches():

@@ -11,10 +11,10 @@ kinds ``crash``, ``oom`` and ``hang`` fire, and its guarded readbacks,
 which ``corrupt`` poisons), ``worker`` (each RPC attempt of the worker
 client, `worker/client.py`), ``pool`` (the decode pool's dispatch to a
 subprocess, `worker/pool.py`) and ``node`` (the worker node's RPC
-entry, `worker/server.py`).  No preemption handler is installed: the
-worker's preemption comes with the elastic fleet (ROADMAP A.20), so a
-``preempt`` rule is counted and does nothing, and ``preempt_nograce``
-exits as ``kill`` does.
+entry, `worker/server.py`).  A worker node installs the preemption
+handler (`set_preempt_handler`): a ``node:preempt:<grace>`` rule starts
+its drain and warm journal hand-off (`fleet.elastic`), at most once a
+process.
 
 Faults are described by a compact spec, normally supplied via the
 ``GSKY_FAULTS`` environment variable::
@@ -61,9 +61,10 @@ Each comma-separated clause is ``site:kind:arg``:
     deliver a preemption *notice* with a ``GRACE`` window (``10s``)
     with probability ``RATE`` (default 1.0) — fires at most once per
     process, through the handler installed with
-    :func:`set_preempt_handler` (a worker node's drain and handoff,
-    ROADMAP A.20).  The current call
-    proceeds normally: a graceful preemption finishes admitted work.
+    :func:`set_preempt_handler` (the worker server registers one that
+    runs the drain and the warm journal hand-off under the grace
+    deadline, `fleet.elastic`).  The current call proceeds normally: a
+    graceful preemption finishes admitted work.
 ``preempt_nograce:RATE``
     a preemption with zero grace — the handler gets ``grace_s=0`` and
     is expected to flush the page journal and exit immediately.  With

@@ -163,8 +163,21 @@ trace); ``/debug`` carries the device supervisor's ``device`` block with
 its residency journal, the fleet routers' ``fleet`` block (with a
 ``worker_nodes`` fleet) and the ``drain`` block.  With the staged tile
 path on, a tile's PNG or JPEG encode runs on the sized encode pool
-(`io.png.encode_pooled`, ``GSKY_PNG_ENCODE_WORKERS``).  Not ported: the
-cache fabric and the elastic fleet (ROADMAP A.20).
+(`io.png.encode_pooled`, ``GSKY_PNG_ENCODE_WORKERS``).
+
+The cache fabric's gateway tier (`fabric.replay`), as the reference's:
+with ``GSKY_FABRIC=1`` and ``GSKY_FABRIC_SELF`` and
+``GSKY_FABRIC_PEERS`` set (or a `ReplayFabric` given), a gateway that
+misses its response cache and does not own the key on the ring asks
+the owner for the encoded bytes (span ``gateway.fabric``, between the
+lookup and the single-flight) and replays them as ``X-Gsky-Cache:
+peer`` (``no-store`` while this server is under brownout).  ``GET
+/fabric/replay?key=`` serves a peer this gateway's fresh 200 entries
+(404 when it has none, and under brownout with
+``X-Gsky-Fabric-NoStore``).  ``/debug`` carries the ``fabric`` block
+while a fabric is set or the gate is on, and the ``elastic`` block once
+the elastic fleet has left a trace in the process.  With both off
+every route runs as it did without them.
 """
 
 from __future__ import annotations
@@ -209,6 +222,7 @@ from ..io.netcdf import write_netcdf3
 from ..io.png import ApngAssembler, empty_tile_png, encode_jpeg, \
     encode_png, encode_pooled, encode_rgba_png
 from ..obs import metrics as obs_metrics
+from ..ops import kernel_launches
 from ..ops.palette import gradient_palette, with_nodata_entry
 from ..ops.scale import scale_params_auto, scale_to_byte
 from ..pipeline.drill import DrillPipeline, drill_csv
@@ -262,6 +276,7 @@ _KEY_CONSUMED = frozenset({
     "coverage", "coverageid", "identifier", "subset", "exceptions",
 })
 _GATEWAY_DEFAULT = object()     # None means no gateway
+_FABRIC_DEFAULT = object()      # None means no fabric
 # the status of a request whose client went away: nothing is sent
 CLIENT_GONE = 499
 # the request's tenant, for admission's weighted-fair queue
@@ -361,7 +376,8 @@ class OWSServer:
     def __init__(self, watcher: ConfigWatcher, mas_factory=None,
                  device="cuda", temp_dir: str = "",
                  gateway=_GATEWAY_DEFAULT,
-                 metrics: Optional[MetricsLogger] = None):
+                 metrics: Optional[MetricsLogger] = None,
+                 fabric=_FABRIC_DEFAULT):
         """``mas_factory(address)`` gives a namespace's `MASClient`;
         without one, a namespace's client reaches its ``mas_address``
         over HTTP (timeout ``mas_timeout``).
@@ -373,13 +389,22 @@ class OWSServer:
         `serving.default_gateway`; None serves every request raw.
         ``metrics``: the request records' `MetricsLogger` (by default
         one with no sink, which still feeds ``/debug`` and
-        ``/metrics``)."""
+        ``/metrics``).  ``fabric``: the cache fabric's `ReplayFabric`,
+        by default one built from the environment when ``GSKY_FABRIC``
+        is on and its ring is set (`fabric.replay.default_fabric`);
+        None has none."""
         self.device = resolve_device(device)
         self.watcher = watcher
         self.gateway: Optional[ServingGateway] = \
             default_gateway if gateway is _GATEWAY_DEFAULT else gateway
         if self.gateway is not None:
             _register_gateway_invalidation(watcher, self.gateway)
+        if fabric is _FABRIC_DEFAULT:
+            from .. import fabric as fabric_mod
+            from ..fabric.replay import default_fabric
+            fabric = default_fabric() if fabric_mod.fabric_enabled() \
+                else None
+        self.fabric = fabric
         self.mas_factory = mas_factory
         self.temp_dir = temp_dir or tempfile.gettempdir()
         self.metrics = metrics or MetricsLogger()
@@ -509,6 +534,14 @@ class OWSServer:
         if ent is not None:
             collector.info["response_cache"] = "hit"
             return _replay(req_headers, ent, "hit")
+        if self.fabric is not None:
+            with obs.span("gateway.fabric") as psp:
+                pent = self.fabric.fetch(key)
+                psp.set(hit=pent is not None)
+            if pent is not None:
+                gw.cache.put(key, pent)
+                collector.info["response_cache"] = "peer"
+                return _replay(req_headers, pent, "peer")
 
         def flight():
             t0, pc0 = time.time(), time.perf_counter()
@@ -577,6 +610,8 @@ class OWSServer:
             return self._debug_trace_one(path[len("/debug/trace/"):])
         if path == "/debug/profile":
             return self._debug_profile(normalise_query(query))
+        if path == "/fabric/replay":
+            return self._fabric_replay(normalise_query(query))
         if path.rstrip("/") == "/ows":
             ns = ""
         elif path.startswith("/ows/"):
@@ -658,7 +693,10 @@ class OWSServer:
                     self._written.notify_all()
 
     def close(self) -> None:
-        """Close the namespaces' worker clients (idempotent)."""
+        """Close the namespaces' worker clients and the fabric's fetch
+        threads (idempotent)."""
+        if self.fabric is not None:
+            self.fabric.close()
         with self._lock:
             pipes = [pipe for _, pipe in self._pipelines.values()]
         for pipe in pipes:
@@ -1807,10 +1845,13 @@ class OWSServer:
         from ..resilience.pressure import default_monitor
         doc = self.metrics.summary()
         cuda = self.device.type == "cuda"
+        # the kernel wrappers' launch counts ride with the device (the
+        # reference's ``kernels`` block is its Pallas race verdicts)
         doc["torch"] = {
             "backend": self.device.type,
             "devices": torch.cuda.device_count() if cuda else 1,
-            "name": torch.cuda.get_device_name(self.device) if cuda else ""}
+            "name": torch.cuda.get_device_name(self.device) if cuda else "",
+            "kernels": kernel_launches()}
         doc["plan"] = plan_stats()
         doc["expr"] = {"fuse": expr_fuse_enabled(),
                        "cache": expr_cache_stats(), **expr_fused_stats()}
@@ -1843,12 +1884,39 @@ class OWSServer:
             # per node health, routed, hedged and rerouted counts, ring
             # generation: one entry per live fleet router
             doc["fleet"] = fs
+        from .. import fabric as fabric_mod
+        if self.fabric is not None or fabric_mod.fabric_enabled():
+            doc["fabric"] = fabric_mod.fabric_stats(self.fabric)
+        from ..fleet import elastic
+        if not elastic.dormant():
+            doc["elastic"] = elastic.elastic_stats()
         doc["temporal"] = obs_metrics.temporal_stats()
         doc["drain"] = self.drain.stats()
         doc["cancel"] = cancel_stats()
         doc["pressure"] = default_monitor().stats()
         doc["tsan"] = tsan_stats()
         return _json(doc)
+
+    def _fabric_replay(self, q: Dict[str, str]) -> Response:
+        """The peer endpoint of the fabric's gateway tier: the encoded
+        cache entry of a canonical key, or 404.  Only fresh 200 entries
+        (`ResponseCache.peek`): stale and degraded bytes never cross;
+        under brownout it sheds, so that peers render themselves."""
+        from .. import fabric as fabric_mod
+        from ..fabric.replay import encode_entry
+        key = q.get("key", "")
+        gw = self.gateway
+        if gw is None or not key or not fabric_mod.fabric_enabled():
+            return Response(404, "text/plain",
+                            b"fabric replay unavailable")
+        if brownout_level():
+            return Response(404, "text/plain", b"brownout",
+                            {"X-Gsky-Fabric-NoStore": "1"})
+        ent = gw.cache.peek(key)
+        if ent is None or ent.status != 200:
+            return Response(404, "text/plain", b"miss")
+        headers, body = encode_entry(ent)
+        return Response(200, ent.content_type, body, headers)
 
     def _debug_trace(self, q: Dict[str, str]) -> Response:
         """The flight recorder: its list (``{"stats", "traces"}``), its
@@ -2035,7 +2103,8 @@ def _replay(req_headers: Optional[Mapping[str, str]], ent,
     """A response from cached bytes, with the HTTP cache contract: a
     strong ETag, If-None-Match answered 304, the layer's Cache-Control
     and the entry's Age (so that a client's cache does not stretch the
-    layer's TTL).  A stale replay is ``no-store`` and carries none."""
+    layer's TTL).  A stale replay is ``no-store`` and carries none; a
+    peer's replay (``peer``) is ``no-store`` under brownout."""
     headers = {"X-Gsky-Cache": cache_status}
     if cache_status == "stale":
         headers["Cache-Control"] = "no-store"
@@ -2050,6 +2119,10 @@ def _replay(req_headers: Optional[Mapping[str, str]], ent,
         inm = (req_headers or {}).get("if-none-match", "")
         if inm and _etag_match(inm, ent.etag):
             return Response(304, "", b"", headers)
+    if cache_status == "peer" and brownout_level():
+        # a peer's bytes replayed under local brownout: served, but no
+        # cache downstream keeps a degraded-mode answer
+        headers["Cache-Control"] = "no-store"
     headers.update(ent.headers)
     return Response(ent.status, ent.content_type, ent.body, headers)
 

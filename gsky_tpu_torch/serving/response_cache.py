@@ -177,6 +177,17 @@ class ResponseCache:
             self.hits += 1
             return ent
 
+    def peek(self, key: str) -> Optional[CachedResponse]:
+        """A fresh entry, without touching the hit and miss counts or
+        the LRU order: a fabric peer's probe (``/fabric/replay``) must
+        neither skew this cache's stats nor keep an entry warm."""
+        now = time.monotonic()
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None or ent.stale or now >= ent.expires:
+                return None
+            return ent
+
     def get_stale(self, key: str) -> Optional[CachedResponse]:
         """An entry for stale-on-error replay: fresh, or expired within
         the grace.  Counts a stale hit, not a hit or a miss."""

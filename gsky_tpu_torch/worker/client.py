@@ -22,8 +22,8 @@ from static round-robin to fleet routing:
   policy's jittered backoff applies instead of an instant hard failure.
 
 A fleet whose every node failed is `BackendUnavailable` (a 503 at the
-OWS layer): the client never renders locally.  ``page_fetch`` (the
-cache fabric) is not ported (ROADMAP A.20).
+OWS layer): the client never renders locally.  ``page_fetch`` asks a
+node for content-keyed pages (the cache fabric, `fabric.pagerpc`).
 """
 
 from __future__ import annotations
@@ -769,6 +769,20 @@ class WorkerClient:
         if res.error:
             raise RuntimeError(res.error)
         return res.info_json
+
+    def page_fetch(self, keys, max_bytes: Optional[int] = None,
+                   route_key: Optional[str] = None) -> dict:
+        """The cache fabric's batched page fetch: ``{key: (PR, PC) f32
+        page}`` for the ``(serial, pi, pj)`` keys a node holds, pages
+        whose CRC fails already dropped.  Routed like any op: a
+        ``route_key`` lands the ask on the ring's node for it."""
+        from ..fabric import pagerpc
+        task = pb.Task(operation="page_fetch",
+                       path=pagerpc.encode_request(keys, max_bytes))
+        res = self.process(task, route_key=route_key)
+        if res.error:
+            raise RuntimeError(res.error)
+        return pagerpc.decode_result(res.info_json, res.raster)
 
     def close(self):
         """Idempotent shutdown.  The closed flag flips *first*, so any

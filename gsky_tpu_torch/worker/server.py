@@ -19,11 +19,28 @@ Counterpart of `gsky_tpu/worker/server.py`, in the role of GSKY's
   warp_mosaic_scenes`: kernel B1, or B2 where the pool declines);
 - ``drill`` — the masked reductions of one file (`pipeline.drill.
   drill_file`: kernel B3 on the card);
-- ``extent`` / ``info`` — pure IO, delegated to the pool.
+- ``extent`` / ``info`` — pure IO, delegated to the pool;
+- ``preempt`` — a preemption notice (the autoscaler's scale-down, the
+  cloud's reclaim): the drain under the grace deadline, the scored page
+  journal shipped to the ring successor (``journal_handoff``), then the
+  exit (`fleet.elastic`); ``{"grace_s", "successor", "peers",
+  "graceful"}`` in ``Task.path``;
+- ``journal_handoff`` — the successor's half: the preempted node's hot
+  set merged into this node's journal, its pages pulled from the
+  preempted node's pool in the background;
+- ``journal_export`` — this node's hot set, for a node that starts with
+  an empty journal (`WorkerService.warm_boot`; the port's own op,
+  ROADMAP C.18);
+- ``page_fetch`` — the cache fabric's page RPC (`fabric.pagerpc`),
+  served from the executor's page pool, the pool the kernels read.
 
-``preempt``, ``journal_handoff`` and ``page_fetch`` (the elastic fleet
-and the cache fabric) answer ``Result(error=...)`` naming ROADMAP A.20,
-which brings them.
+``worker_info``, ``preempt``, ``journal_handoff``, ``journal_export``
+and ``page_fetch`` answer outside the drain gate: a draining (preempted) node serving its
+pages to its successor is the warm hand-off.  ``worker_info``'s
+``elastic`` block is the autoscaler's readiness probe: the share of the
+journal's hot set resident in the pool (``warm_fraction``), whether it
+is ``ready``, the hand-off's counts and this process's elastic
+counters.
 
 The pool gives crash isolation for codec IO; the OOM monitor SIGKILLs
 the fattest child under memory pressure.  A `DeviceGuardError` answers
@@ -38,7 +55,14 @@ renders on the CUDA card unless ``-device cpu`` is given, and raises
 without one.  Before it listens it builds and loads the kernels
 (`server.prewarm`, ``GSKY_PREWARM=0`` skips).  SIGTERM or SIGINT starts
 the drain: new RPCs answer ``draining:``, those in flight finish (at
-most ``GSKY_DRAIN_TIMEOUT_S``, 30), then the process exits 0.
+most ``GSKY_DRAIN_TIMEOUT_S``, 30), then the process exits 0; a
+graceful preemption exits 0 at its grace deadline, one with no grace
+at once with 1.  Without ``GSKY_POOL_JOURNAL`` the page journal lives
+in a directory of its own a node (``gsky-worker-<port>`` under the
+temporary directory): nodes on one host must not share one.  With the
+fabric on and ``GSKY_FABRIC_PAGE_PEERS`` set, a node warms its pool
+from those peers in the background (`WorkerService.warm_boot`), and
+reports not ready until it has.
 """
 
 from __future__ import annotations
@@ -49,16 +73,21 @@ import logging
 import math
 import os
 import signal
+import tempfile
 import threading
+import time
+import weakref
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import device_guard
 from ..device import resolve_device
-from ..device_guard import DeviceGuardError
+from ..device_guard import DeviceGuardError, journal
 from ..fleet import DrainController, Draining
 from ..obs import current_trace_id, remote_trace, span as obs_span
+from ..ops import kernel_launches
 from ..resilience import faults
 from . import gskyrpc as pb
 from .oom import OOMMonitor
@@ -67,9 +96,6 @@ from .serialize import granule_from_pb, pack_raster, unpack_raster
 from .transport import make_server
 
 log = logging.getLogger("gsky.worker.server")
-
-# the elastic fleet's and the cache fabric's ops, not ported yet
-_NOT_PORTED = ("preempt", "journal_handoff", "page_fetch")
 
 
 def _compile_probe():
@@ -91,16 +117,21 @@ def _device_attrs(sp, c0) -> None:
             pass
 
 
-def kernel_launches() -> dict:
-    """This process's launch count of each kernel wrapper."""
-    from ..ops import first_valid, stats, warp_render
-    out = {}
-    for k in (warp_render.paged_render_kernel,
-              warp_render.warp_render_kernel,
-              stats.masked_stats_kernel, stats.masked_stats_many_kernel,
-              first_valid.first_valid_kernel):
-        out[k.symbol] = k.launches
-    return out
+def _scored_entries(doc: dict) -> list:
+    """A hot-set document's well-formed ``[serial, pi, pj, score]``
+    entries, at most `HANDOFF_MAX` of them."""
+    from ..fleet import elastic
+    entries = []
+    for e in doc.get("entries") or []:
+        try:
+            s, pi, pj = int(e[0]), int(e[1]), int(e[2])
+            score = float(e[3]) if len(e) > 3 else 1.0
+        except (TypeError, ValueError, IndexError):
+            continue
+        if pi < 0 or pj < 0:      # merge_scored's guard
+            continue
+        entries.append((s, pi, pj, score))
+    return entries[:elastic.HANDOFF_MAX]
 
 
 class WorkerService:
@@ -114,6 +145,28 @@ class WorkerService:
         self.drain = DrainController("worker-node")
         from ..pipeline.executor import WarpExecutor
         self.executor = WarpExecutor(device=self.device)
+        # the elastic lifecycle (`fleet.elastic`): how this node names
+        # itself to its peers (set by `main`, or GSKY_ELASTIC_SELF), the
+        # preemption's state and the hand-off's counts
+        self.advertise_addr = os.environ.get("GSKY_ELASTIC_SELF") or None
+        self._preempt_lock = threading.Lock()
+        self.preempted = False
+        self.preempt_exit = None        # graceful: unpark `main`
+        self.preempt_exit_hard = None   # no grace: end the process
+        self._handoff = {"entries": 0, "filled": 0, "cold": 0,
+                         "active": 0}
+        self._warm_cache = (0.0, None)  # (monotonic time, journal want)
+        self.warming = False            # the fabric's warm boot runs
+        # a node:preempt fault takes the real protocol; held weakly, so
+        # that a dropped service does not live on in the faults module
+        ref = weakref.ref(self)
+
+        def _on_preempt(grace_s: float, graceful: bool) -> None:
+            svc = ref()
+            if svc is not None:
+                svc.begin_preemption(grace_s, graceful=graceful)
+
+        faults.set_preempt_handler(_on_preempt)
 
     # -- ops -----------------------------------------------------------------
 
@@ -141,11 +194,21 @@ class WorkerService:
             # node-level chaos (GSKY_FAULTS="node:kill:..." etc.) hits
             # every RPC including health probes — a killed node just dies
             faults.inject("node")
+            # answered outside the drain gate: worker_info is the drain
+            # handshake the fleet reads; a notice must land on a busy
+            # node; inheriting or sharing a hot set is not work; and a preempted
+            # node serving its pages to its successor in the grace
+            # window is the warm hand-off
             if op == "worker_info":
                 return self._worker_info()
-            if op in _NOT_PORTED:
-                return pb.Result(error=f"{op} is not ported yet "
-                                       f"(ROADMAP A.20)")
+            if op == "preempt":
+                return self._preempt(task)
+            if op == "journal_handoff":
+                return self._journal_handoff(task)
+            if op == "journal_export":
+                return self._journal_export()
+            if op == "page_fetch":
+                return self._page_fetch(task)
             with self.drain.track():
                 if op == "warp":
                     return self._warp(task, ctx)
@@ -193,8 +256,280 @@ class WorkerService:
             info["kernels"] = kernel_launches()
         except Exception:  # the launch counts are advisory
             pass
+        try:
+            info["elastic"] = self._elastic_info()
+        except Exception:  # readiness is advisory; the probe answers
+            pass
         r.info_json = json.dumps(info)
         return r
+
+    # -- the elastic lifecycle (`fleet.elastic`) ----------------------------
+
+    def _elastic_info(self) -> dict:
+        """``worker_info``'s ``elastic`` block: the autoscaler's join
+        gate reads ``ready``; ``warm_fraction`` is the share of the
+        journal's hot set resident in the executor's pool (1.0 with
+        nothing to warm); ``counters`` are this process's elastic
+        counters (`fleet.elastic.counters`)."""
+        from .. import fabric
+        from ..fleet import elastic
+        want = self._journal_want()
+        st = self.executor.pool.stats()
+        resident, capacity = int(st["resident"]), int(st["capacity"])
+        if want <= 0:
+            warm = 1.0
+        else:
+            goal = min(want, capacity) if capacity else want
+            warm = min(1.0, resident / max(goal, 1))
+        ready = not fabric.fabric_enabled() or \
+            (not self.warming and warm >= elastic.WARM_FRAC)
+        with self._preempt_lock:
+            handoff = dict(self._handoff)
+            preempted = self.preempted
+        return {"ready": bool(ready),
+                "warm_fraction": round(warm, 4),
+                "prewarm_done": True,
+                "preempted": preempted,
+                "handoff": handoff,
+                "counters": elastic.counters()}
+
+    def _journal_want(self) -> int:
+        """The journal's hot-set size, kept 5 s: the probe comes every
+        heartbeat and `journal.replay` reads the whole file."""
+        now = time.monotonic()
+        ts, cached = self._warm_cache
+        if cached is not None and now - ts < 5.0:
+            return cached
+        want = len(journal.replay()) if journal.journal_enabled() else 0
+        self._warm_cache = (now, want)
+        return want
+
+    def _preempt(self, task: pb.Task) -> pb.Result:
+        """The preemption notice: start the drain and the warm journal
+        hand-off under the grace deadline.  Idempotent."""
+        from ..fleet import elastic
+        try:
+            doc = json.loads(task.path or "{}")
+        except ValueError:
+            doc = {}
+        grace = doc.get("grace_s")
+        grace_s = float(grace) if grace is not None \
+            else elastic.PREEMPT_GRACE_S
+        self.begin_preemption(
+            grace_s, graceful=bool(doc.get("graceful", True)),
+            successor=doc.get("successor") or None,
+            peers=[p for p in (doc.get("peers") or [])
+                   if isinstance(p, str)])
+        r = pb.Result()
+        r.info_json = json.dumps({"ok": True, "grace_s": grace_s})
+        return r
+
+    def begin_preemption(self, grace_s: float, graceful: bool = True,
+                         successor: Optional[str] = None,
+                         peers=()) -> bool:
+        """The first notice wins; later ones (a retried RPC, a second
+        fault roll) do nothing.  True when this call started it."""
+        with self._preempt_lock:
+            if self.preempted:
+                return False
+            self.preempted = True
+        threading.Thread(
+            target=self._run_preemption,
+            args=(max(float(grace_s), 0.0), graceful, successor,
+                  list(peers)),
+            daemon=True, name="gsky-preempt").start()
+        return True
+
+    def _run_preemption(self, grace_s, graceful, successor, peers):
+        from ..fleet import elastic
+        deadline = time.monotonic() + grace_s
+        elastic.note_preemption(graceful and grace_s > 0)
+        if not graceful or grace_s <= 0:
+            # no grace: keep what a restart can use, then go
+            log.warning("preemption (no grace): flushing journal")
+            self._flush_pool_journal()
+            hard = self.preempt_exit_hard or self.preempt_exit
+            if hard is not None:
+                hard()
+            return
+        log.info("preemption notice: grace=%.1fs successor=%s",
+                 grace_s, successor or "-")
+        self.drain.start_drain()
+        self._ship_journal(successor, peers,
+                           timeout=max(min(grace_s * 0.5, 5.0), 0.5))
+        left = deadline - time.monotonic() - 0.25
+        if not self.drain.wait_drained(max(left, 0.0)):
+            # the grace deadline: the stragglers fail over, counted
+            n = self.drain.abandon_inflight()
+            log.warning("preemption grace expired with %d in flight; "
+                        "failing them over", n)
+        self._flush_pool_journal()
+        st = self.drain.stats()
+        log.info("preemption drain done: completed=%d refused=%d "
+                 "abandoned=%d", st["completed"], st["refused"],
+                 st["abandoned"])
+        # held to the grace deadline even when the drain ended early:
+        # the successor is pulling this node's pages over page_fetch,
+        # and the fleet's probes need a beat of the draining state to
+        # tell a preemption from a crash.  Four tenths of the grace (at
+        # most 3 s) are left for the process's own teardown (its
+        # listener, decode pool and CUDA context: ~1.2 s on the card),
+        # which must end inside the window, before the reclaim
+        left = deadline - time.monotonic() - min(3.0, 0.4 * grace_s)
+        if left > 0:
+            time.sleep(left)
+        if self.preempt_exit is not None:
+            self.preempt_exit()
+
+    def _ship_journal(self, successor, peers, timeout: float) -> None:
+        """Ship this node's hot set (heat scores with it) to its ring
+        successor, which pulls the pages from this node's pool while the
+        grace window keeps it alive."""
+        from ..fleet import elastic
+        doc = self._hot_set()
+        if successor is None and self.advertise_addr:
+            successor = elastic.successor_for(self.advertise_addr, peers)
+        entries = doc["entries"]
+        if not entries or not successor:
+            return
+        doc["peers"] = [p for p in peers if p != successor]
+        try:
+            elastic.control_rpc(successor, "journal_handoff", doc,
+                                timeout=timeout)
+            elastic.note_handoff_shipped(len(entries), True)
+            log.info("journal handoff: %d entries -> %s",
+                     len(entries), successor)
+        except Exception:
+            elastic.note_handoff_shipped(len(entries), False)
+            log.warning("journal handoff to %s failed", successor)
+
+    def _hot_set(self) -> dict:
+        """This node's hot set, hottest first, with the heat scores:
+        the document a hand-off ships and ``journal_export`` answers."""
+        from ..fleet import elastic
+        hot = journal.export_hot(elastic.HANDOFF_MAX)
+        return {"v": 1, "source": self.advertise_addr,
+                "entries": [[s, pi, pj, round(score, 3)]
+                            for s, pi, pj, score in hot]}
+
+    def _journal_export(self) -> pb.Result:
+        """A peer's hot set for a node that starts with an empty journal
+        (`warm_boot`).  Read only: nothing of this node changes."""
+        r = pb.Result()
+        r.info_json = json.dumps(self._hot_set())
+        return r
+
+    def warm_boot(self, peers) -> int:
+        """The fabric's warm boot (`main`, with page peers set).  A node
+        whose journal is empty, as one the autoscaler just launched,
+        first takes the hot set of the first peer that answers
+        (``journal_export``); then its pool pulls the journal's pages
+        from the peers (`PagePool.rehydrate`).  ``ready`` stays false
+        until this returns.  Returns the pages restored."""
+        from .. import fabric
+        from ..fleet import elastic
+        self.warming = True
+        try:
+            if journal.journal_enabled() and not journal.replay():
+                for peer in peers:
+                    try:
+                        doc = elastic.control_rpc(
+                            peer, "journal_export", timeout=fabric.TIMEOUT_S)
+                    except Exception:   # the next peer, or a cold start
+                        log.warning("journal_export from %s failed", peer)
+                        continue
+                    entries = _scored_entries(doc)
+                    if entries:
+                        journal.merge_scored(entries)
+                        log.info("warm boot: %d journal entries from %s",
+                                 len(entries), peer)
+                        break
+            self._warm_cache = (0.0, None)
+            return self.executor.pool.rehydrate()
+        finally:
+            self.warming = False
+
+    def _flush_pool_journal(self) -> None:
+        """Write the pool's hit counts to the journal (`PagePool.
+        flush_heat`), so that even an abandoned exit leaves a hot set a
+        restart replays.  The pool stays resident: the successor may
+        still be pulling its pages (the reference tears it down here)."""
+        try:
+            self.executor.pool.flush_heat()
+        except Exception:
+            log.exception("journal flush on preemption failed")
+
+    def _journal_handoff(self, task: pb.Task) -> pb.Result:
+        """The successor's half of the hand-off: merge the preempted
+        node's scored hot set into this node's journal, then pull its
+        pages, hottest first, from that node's pool (and the other
+        peers) over page_fetch, in the background: the notice returns
+        inside the sender's grace window."""
+        try:
+            doc = json.loads(task.path or "{}")
+        except ValueError:
+            return pb.Result(error="elastic: malformed handoff")
+        entries = _scored_entries(doc)
+        journal.merge_scored(entries)
+        self._warm_cache = (0.0, None)   # the hot set just grew
+        source = doc.get("source") or None
+        peers = [p for p in (doc.get("peers") or [])
+                 if isinstance(p, str) and p != self.advertise_addr]
+        with self._preempt_lock:
+            self._handoff["entries"] += len(entries)
+            self._handoff["active"] += 1
+        threading.Thread(
+            target=self._handoff_fill, args=(entries, source, peers),
+            daemon=True, name="gsky-handoff-fill").start()
+        r = pb.Result()
+        r.info_json = json.dumps({"accepted": len(entries)})
+        return r
+
+    def _handoff_fill(self, entries, source, peers):
+        from .. import fabric
+        from ..fleet import elastic
+        filled = 0
+        keys = [(s, pi, pj) for s, pi, pj, _ in entries]
+        try:
+            if fabric.fabric_enabled() and keys:
+                from ..fabric import pagerpc
+                pool = self.executor.pool
+                missing = [k for k in keys if not pool.has_page(*k)]
+                fill_peers = [p for p in ([source] + peers) if p]
+                filled = len(keys) - len(missing) + \
+                    pagerpc.fill_from_peers(pool, missing,
+                                            peers=fill_peers,
+                                            prefer=source)
+        except Exception:
+            log.exception("handoff fill failed")
+        cold = len(keys) - filled
+        elastic.note_handoff_pages("peer", filled)
+        elastic.note_handoff_pages("cold", cold)
+        with self._preempt_lock:
+            self._handoff["filled"] += filled
+            self._handoff["cold"] += cold
+            self._handoff["active"] -= 1
+        log.info("handoff fill: %d/%d pages from peers", filled,
+                 len(keys))
+
+    def _page_fetch(self, task: pb.Task) -> pb.Result:
+        """The cache fabric's page RPC: the requested resident pages of
+        the executor's pool on the host, content-keyed with a CRC each
+        (`fabric.pagerpc.serve_page_fetch`).  Refused while the page
+        tier is off."""
+        from .. import fabric
+        if not fabric.fabric_enabled():
+            return pb.Result(error="fabric: page peering disabled")
+        from ..fabric import pagerpc
+        try:
+            doc = json.loads(task.path or "{}")
+        except ValueError:
+            return pb.Result(error="fabric: malformed page_fetch request")
+        manifest, blob = pagerpc.serve_page_fetch(self.executor.pool, doc)
+        res = pb.Result()
+        res.raster = blob
+        res.info_json = json.dumps(manifest)
+        return res
 
     def _warp(self, task: pb.Task, ctx=None) -> pb.Result:
         from ..geo.crs import parse_crs
@@ -374,7 +709,33 @@ def main(argv=None):
                              threshold_bytes=a.oom_threshold << 20,
                              on_kill=_oom_killed)
         monitor.start()
-    server = make_server(svc, f"{a.host}:{a.port}").start()
+    server = make_server(svc, f"{a.host}:{a.port}")
+    if not os.environ.get("GSKY_POOL_JOURNAL"):
+        # a journal of this node's own: nodes on one host sharing the
+        # default file would ship each other's pages on a hand-off
+        journal.set_default_dir(os.path.join(
+            tempfile.gettempdir(), f"gsky-worker-{server.port}"))
+    if not svc.advertise_addr:
+        # how peers reach this node for page_fetch and the hand-off; a
+        # wildcard listen address advertises loopback (one host)
+        host = "127.0.0.1" if a.host in ("[::]", "0.0.0.0") else a.host
+        svc.advertise_addr = f"{host}:{server.port}"
+    from .. import fabric
+    if fabric.fabric_enabled() and fabric.page_peer_addrs():
+        # the fabric's warm boot, in the background (the node serves and
+        # stages cold meanwhile); not ready before it has ended
+        svc.warming = True
+
+        def _warm_boot():
+            try:
+                n = svc.warm_boot(fabric.page_peer_addrs())
+                log.info("fabric: warm boot restored %d pages", n)
+            except Exception:
+                log.exception("fabric: warm boot failed")
+
+        threading.Thread(target=_warm_boot, daemon=True,
+                         name="gsky-fabric-warm").start()
+    server.start()
     log.info("gsky-rpc-torch listening on %s:%d (pool=%d, %s)",
              a.host, server.port, svc.pool.size, device)
     print(f"gsky-rpc-torch listening on {a.host}:{server.port}",
@@ -386,6 +747,11 @@ def main(argv=None):
     # completion, then the server exits.  GSKY_DRAIN_TIMEOUT_S bounds
     # the wait; the stragglers are then counted as abandoned.
     stop = threading.Event()
+    # a preemption (the preempt RPC, a node:preempt fault) exits through
+    # the same park loop as a signal's drain; one with no grace takes
+    # the process as the reclaim would
+    svc.preempt_exit = stop.set
+    svc.preempt_exit_hard = lambda: os._exit(1)
 
     def _drain():
         svc.drain.start_drain()
@@ -395,6 +761,7 @@ def main(argv=None):
             n = svc.drain.abandon_inflight()
             log.warning("drain timed out with %d in flight; "
                         "failing them over", n)
+            svc._flush_pool_journal()
         st = svc.drain.stats()
         log.info("drain %s: completed=%d refused=%d inflight=%d "
                  "abandoned=%d",

@@ -47,23 +47,35 @@ from urllib.parse import parse_qs, quote, unquote, urlsplit
 import numpy as np
 import pytest
 
+from gsky_tpu import fabric as jfabric
 from gsky_tpu import fleet as jfleet
+from gsky_tpu.fabric import replay as jreplay
+from gsky_tpu.fabric import replicate as jreplicate
+from gsky_tpu.fleet import elastic as jelastic
 from gsky_tpu.fleet import router as jfleet_router
 from gsky_tpu.obs import metrics as jom
 from gsky_tpu.obs import recorder as jrecorder
 from gsky_tpu.obs.prom import parse_exposition
+from gsky_tpu.ops import expr as jexpr
 from gsky_tpu.ops import paged as jpaged
+from gsky_tpu.pipeline import pages as jpages
 from gsky_tpu.pipeline import waves as jwaves
 from gsky_tpu.server.config import ConfigWatcher as JConfigWatcher
 from gsky_tpu.server.metrics import MetricsLogger as JMetricsLogger
 from gsky_tpu.server.ows import OWSServer as JOWSServer
 
+from gsky_tpu_torch import fabric as tfabric
 from gsky_tpu_torch import fleet as tfleet
+from gsky_tpu_torch.fabric import replay as treplay
+from gsky_tpu_torch.fleet import elastic as telastic
 from gsky_tpu_torch.fleet import router as tfleet_router
 from gsky_tpu_torch.io.png import decode_png
 from gsky_tpu_torch.obs import metrics as tom
 from gsky_tpu_torch.obs import recorder as trecorder
+from gsky_tpu_torch.ops import expr as texpr
+from gsky_tpu_torch.ops import kernel_launches
 from gsky_tpu_torch.ops import paged as tpaged
+from gsky_tpu_torch.pipeline import pages as tpages
 from gsky_tpu_torch.pipeline import waves as twaves
 from gsky_tpu_torch.server.config import ConfigWatcher
 from gsky_tpu_torch.server.metrics import MetricsLogger
@@ -88,19 +100,24 @@ NOT_PORTED = {
     "gsky_mesh_shard_skew_ms": "A.11",
     "gsky_mesh_chips": "A.11",
     "gsky_mesh_entries_total": "A.11",
-    "gsky_fabric_replay_total": "A.20",         # fabric and elastic
-    "gsky_fabric_page_fills_total": "A.20",
-    "gsky_fabric_replica_pages": "A.20",
-    "gsky_elastic_nodes": "A.20",
-    "gsky_elastic_decisions_total": "A.20",
-    "gsky_preemptions_total": "A.20",
-    "gsky_handoff_pages_total": "A.20",
     "gsky_plan_block_shape": "A.21",            # autoplan.plan_block
 }
+# the cache fabric's and the elastic fleet's families, compared with the
+# reference's in `test_fabric_elastic_families_alike`
+FABRIC_ELASTIC_FAMILIES = (
+    "gsky_fabric_replay_total", "gsky_fabric_page_fills_total",
+    "gsky_elastic_nodes", "gsky_elastic_decisions_total",
+    "gsky_preemptions_total", "gsky_handoff_pages_total")
+# the reference's fabric gauge and /debug fabric keys that the port
+# leaves out (ROADMAP C.18): the replication round they report, and
+# the per-tier gates that are the master gate here, have no caller
+FABRIC_LEFT_OUT = "gsky_fabric_replica_pages"
+DEBUG_FABRIC_LEFT_OUT = {"replay_enabled", "pages_enabled",
+                         "replicate_enabled", "replicate"}
 # the reference's /debug blocks the port does not carry: jax is torch
-# here; spmd and mesh (A.11); fabric and elastic (A.20); kernels (the
-# reference's Pallas-vs-XLA race verdicts: the port runs no races)
-DEBUG_NOT_PORTED = {"jax", "spmd", "mesh", "fabric", "elastic", "kernels"}
+# here; spmd and mesh (A.11); kernels (the reference's Pallas-vs-XLA
+# race verdicts: the port runs no races)
+DEBUG_NOT_PORTED = {"jax", "spmd", "mesh", "kernels"}
 
 _POLY = ('{"type": "Polygon", "coordinates": [[[148.0, -35.4], '
          '[148.4, -35.4], [148.4, -35.1], [148.0, -35.4]]]}')
@@ -157,15 +174,27 @@ def oenv(env):  # noqa: F811
     twaves.reset_waves()
     jpaged.reset_expr_fused_stats()
     tpaged.reset_expr_fused_stats()
+    # the expression compile caches' traffic (gsky_expr_cache_*): an
+    # earlier file's server in the same worker may have parsed in one
+    # package only
+    jexpr.reset_expr_cache()
+    with texpr._cache_lock:
+        texpr._cache.clear()
+        texpr._cache_hits = texpr._cache_misses = 0
     jom.reset_temporal()
     tom.reset_temporal()
     jres.reset()
     tres.reset()
     jrecorder.reset_recorder()
     trecorder.reset_recorder()
-    # fleet routers that earlier tests left unreachable (a client's
-    # router and its probe form a cycle) would render gsky_fleet_* and
-    # the /debug fleet block in one package only
+    # no replication round planned, no elastic counter off zero: the
+    # reference's fabric gauge and the elastic families render in neither
+    jreplicate.reset_stats()
+    jelastic.reset_stats()
+    telastic.reset_stats()
+    # fleet routers (and autoscalers) that earlier tests left unreachable
+    # (a client's router and its probe form a cycle) would render
+    # gsky_fleet_* and the /debug fleet block in one package only
     gc.collect()
     for reg in (jfleet_router, tfleet_router):
         with reg._routers_lock:
@@ -284,6 +313,102 @@ def test_fleet_families_alike(oenv):
         gc.collect()
 
 
+class _Provider:
+    def launch(self):
+        return "10.0.0.9:11429"
+
+    def alive(self, addr):
+        return True
+
+
+class _Scaled:
+    """The surface an autoscaler scales, over one package's router."""
+
+    def __init__(self, mod, nodes):
+        self.fleet = mod.FleetRouter(nodes, name="elastic-parity")
+        self.nodes = list(nodes)
+
+    def set_nodes(self, addrs):
+        self.nodes = list(addrs)
+        self.fleet.set_nodes(addrs)
+
+
+def test_fabric_elastic_families_alike(oenv, monkeypatch):
+    """The same fabric and elastic events in each package: an owner's
+    replay fetch, a page staged from a peer, the gate on, an
+    autoscaler's scale-up with one node pending, a preemption and a
+    hand-off.  The six families both packages carry render alike (the
+    counters' deltas, the gauges' values), and so do the /debug fabric
+    block's gate and page counters and the elastic block; the
+    reference's replica gauge (0: nothing plans) and its per-tier gate
+    keys are the port's only differences."""
+    import asyncio
+    monkeypatch.setenv("GSKY_FABRIC", "1")
+    nodes = ["10.0.0.1:11429", "10.0.0.2:11429"]
+    before = {k: _scrape(oenv[k + "_get"]) for k in ("ref", "port")}
+    scalers, scaled = [], []
+    try:
+        for pkg, fab, rep, el, fl in (
+                ("ref", jfabric, jreplay, jelastic, jfleet),
+                ("port", tfabric, treplay, telastic, tfleet)):
+            f = rep.ReplayFabric("http://me:1", ["http://peer:1"])
+            f.is_owner = lambda key: True
+            got = f.fetch("k")
+            if asyncio.iscoroutine(got):
+                got = asyncio.new_event_loop().run_until_complete(got)
+            assert got is None and f.outcomes == {"owner_local": 1}
+            pool = (jpages if pkg == "ref" else tpages).PagePool(
+                capacity=4, page_rows=4, page_cols=4,
+                **({} if pkg == "ref" else {"device": "cpu"}))
+            assert pool.stage_page(7, 0, 0, np.ones((4, 4), np.float32))
+            client = _Scaled(fl, nodes)
+            scaled.append(client)
+            a = el.Autoscaler(_Provider(), client, name="parity",
+                              min_nodes=1, max_nodes=3, up_ticks=1,
+                              cooldown_s=0.0, clock=lambda: 0.0,
+                              probe=lambda addr: None)
+            a.demand.sample = lambda: 2.0
+            a.tick()
+            scalers.append(a)
+            el.note_preemption(True)
+            el.note_handoff_pages("peer", 3)
+            el.note_handoff_pages("cold", 1)
+        after = {k: _scrape(oenv[k + "_get"]) for k in ("ref", "port")}
+        for fam in FABRIC_ELASTIC_FAMILIES:
+            d = {k: _delta(before[k], after[k], fam)
+                 for k in ("ref", "port")}
+            if fam == "gsky_elastic_nodes":
+                d = {k: _samples(after[k], fam) for k in d}
+            assert fam in after["port"] and fam in after["ref"], fam
+            assert d["port"] == d["ref"], fam
+        assert _samples(after["port"], "gsky_elastic_nodes")
+        assert FABRIC_LEFT_OUT not in after["port"]
+        assert _samples(after["ref"], FABRIC_LEFT_OUT) == \
+            {(FABRIC_LEFT_OUT, ()): 0.0}
+        docs = {k: json.loads(oenv[k + "_get"]("/debug")[2])
+                for k in ("ref", "port")}
+        fab = {k: docs[k]["fabric"] for k in docs}
+        assert set(fab["port"]) == set(fab["ref"]) - DEBUG_FABRIC_LEFT_OUT
+        assert fab["port"]["enabled"] is fab["ref"]["enabled"] is True
+        for gate in DEBUG_FABRIC_LEFT_OUT - {"replicate"}:
+            assert fab["ref"][gate] is True, gate
+        assert set(fab["port"]["pages"]) == set(fab["ref"]["pages"])
+        el_docs = {k: docs[k]["elastic"] for k in docs}
+        for d in el_docs.values():
+            for ev in d["autoscalers"]["parity"]["decisions"]:
+                ev.pop("t")
+        assert el_docs["port"] == el_docs["ref"]
+    finally:
+        for a in scalers:
+            a.stop()
+        for c in scaled:
+            c.fleet.close()
+        scalers.clear()
+        jelastic.reset_stats()
+        telastic.reset_stats()
+        gc.collect()
+
+
 @pytest.mark.parametrize("family", ["gsky_request_seconds",
                                     "gsky_stage_seconds",
                                     "gsky_encode_seconds"])
@@ -347,8 +472,12 @@ def test_debug_keys_equal_but_the_unported(oenv):
         docs[k] = json.loads(body)
     assert set(docs["port"]) == set(docs["ref"]) - DEBUG_NOT_PORTED \
         | {"torch"}
-    assert docs["port"]["torch"] == {"backend": "cpu", "devices": 1,
-                                     "name": ""}
+    torch_block = dict(docs["port"]["torch"])
+    launches = torch_block.pop("kernels")
+    assert torch_block == {"backend": "cpu", "devices": 1, "name": ""}
+    # the kernel wrappers' launch counts (none on the CPU's plain paths)
+    assert set(launches) == set(kernel_launches())
+    assert all(isinstance(n, int) and n >= 0 for n in launches.values())
     for k in ("requests", "tile_stages", "cache", "trace"):
         assert set(docs["port"][k]) <= set(docs["ref"][k]) | {"gates"}, k
     assert set(docs["port"]["device"]) == set(docs["ref"]["device"])

@@ -509,9 +509,31 @@ def test_service_maps_errors_to_their_prefixes():
         pb.Task(operation="extent")).error.startswith("backpressure:")
     assert _service_with(hung).process(
         pb.Task(operation="extent")).error.startswith("device:")
-    for op in ("preempt", "journal_handoff", "page_fetch"):
-        err = _service_with(full).process(pb.Task(operation=op)).error
-        assert "ROADMAP A.20" in err
+    # the elastic fleet's and the cache fabric's ops answer for real,
+    # outside the drain gate: page_fetch refused while the fabric's page
+    # tier is off, a malformed hand-off refused, a notice accepted
+    from gsky_tpu_torch.fleet import elastic
+    svc = WorkerService(pool=types.SimpleNamespace(
+        size=1, queue=types.SimpleNamespace(maxsize=8), submit=full,
+        close=lambda: None, stats=lambda: {"size": 1}), device="cpu")
+    svc.drain.start_drain()
+    assert svc.process(pb.Task(operation="extent")).error.startswith(
+        "draining:")
+    assert svc.process(pb.Task(operation="page_fetch")).error == \
+        "fabric: page peering disabled"
+    assert svc.process(pb.Task(operation="journal_handoff",
+                               path="{")).error == \
+        "elastic: malformed handoff"
+    try:
+        res = svc.process(pb.Task(operation="preempt",
+                                  path='{"grace_s": 0}'))
+        assert not res.error
+        assert json.loads(res.info_json) == {"ok": True, "grace_s": 0.0}
+        assert svc.preempted
+        assert not svc.begin_preemption(5.0)        # the first one wins
+    finally:
+        faults.set_preempt_handler(None)
+        elastic.reset_stats()
 
 
 def test_oom_monitor_kills_biggest(tmp_path):
