@@ -325,6 +325,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    (``X-Gsky-Cache: peer``, equal bytes, no launch), the fabric-off
    server's bytes the same with no ``gateway.fabric`` span, the owner
    killed and the other rendering itself (200, equal bytes).
+25. multi-GPU serving on a *virtual* mesh: four members on the one card
+   (``GSKY_MESH_DEVICES=cuda:0,cuda:0,cuda:0,cuda:0``), each on its own
+   stream; every number is a one-card number.  25a (phase 3's block):
+   its 32 native bilinear tiles from 16 threads over HTTP with waves on
+   and ``GSKY_MESH=1`` (the granule layout): decoded tiles equal the
+   unsharded waves', B1 launches equal the members' calls (each member
+   at least one), ``gsky_mesh_waves_total{granule}``,
+   ``gsky_mesh_chip_occupancy`` and ``gsky_mesh_chips`` read back from
+   ``/metrics``; again with ``GSKY_MESH_PLACE=1``: per-member pools (the
+   executor's own stages nothing), the journal's stage lines tagged per
+   member, one member's pool torn down and restored by
+   ``rehydrate_all``; 25b a 4096 x 4096 cubic GetCoverage at 4x the
+   native ground resolution (its 16 blocks of 1024 paged, so they reach
+   the wave) with ``GSKY_MESH_RULES`` sending them to x: values within
+   2 ulp of the unsharded export, B2 launches = 16 blocks x 4 members,
+   no B1; 25c (phase 7's block) four concurrent warm drills in one wave
+   over the time layout: a B3 K-block launch a member, results equal
+   per call; 25d ``GSKY_SPMD=1``: fused GetMap tiles over HTTP
+   (``render_byte_spmd``, B2 a member, bytes equal to the single-device
+   B2 leg), mosaics over phase 10's eight dates without a mask
+   (``scene_mosaic_spmd``, canvases equal), a drill (B3 a member, psum;
+   rtol 1e-5, counts equal) and a WPS drill over HTTP (200, where the
+   port answered 501; CSV equal); 25e ``/debug``'s ``spmd`` and
+   ``mesh`` blocks (``virtual``, 4 chips) and the prewarm's
+   ``mesh_programs``.  Each part logs launches and bodies per member,
+   the last wave's member skew and its wall time against the unsharded
+   path.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -1564,6 +1591,13 @@ def phase_drill(root, card):
     time_b3_blocks(kb_args, card)
     del kb_args
 
+    # -- phase 25c, 25d's drills: the time layout, GSKY_SPMD ------------
+    t0 = time.perf_counter()
+    mesh25 = phase_mesh_drills(pipe, req, root, store, card)
+    stats.masked_stats_kernel.launches = b3_launches
+    log(f"phase 25c, 25d drills: launches {mesh25} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     # -- phase 8: card vs CPU over the first 100 timesteps ------------
     os.environ["GSKY_DRILL_CACHE"] = "sync"
     try:
@@ -1586,7 +1620,7 @@ def phase_drill(root, card):
     log(f"phase 8: CPU drills over 100 steps match the card (rel "
         f"{w8:.3g}, deciles equal) in {time.perf_counter() - t0:.1f} s")
     pipe.cache.clear()
-    return b3_launches, captured[0], kb_launches, wps_b3
+    return b3_launches, captured[0], kb_launches, wps_b3, mesh25
 
 
 def time_b3(args, card):
@@ -3858,19 +3892,16 @@ def phase_wcs_masked(root, store, card):
         pair.close()
 
 
-def phase_wps(root, store, card):
-    """Phase 16 over phase 7's stack: WPS Execute (an XML POST) over
-    HTTP, `WPS_DRILLS` times, the stack resident; the CSV equals
-    `drill_csv(DrillPipeline.process_split(...))` called directly.
-    Returns the B3 launches."""
-    from xml.etree import ElementTree
+def wps_server(root, store, conf_name):
+    """The port's OWS server on the card with a WPS drill process over
+    phase 7's stack, behind HTTP on an ephemeral port: (httpd, its WPS
+    URL, an XML Execute body over `DRILL_POLY`, the polygon's
+    GeoJSON)."""
     from gsky_tpu_torch.geo import geometry as geom
     from gsky_tpu_torch.index.client import MASClient
-    from gsky_tpu_torch.pipeline.drill import DrillPipeline, drill_csv
-    from gsky_tpu_torch.pipeline.types import GeoDrillRequest
     from gsky_tpu_torch.server.config import ConfigWatcher
     from gsky_tpu_torch.server.ows import OWSServer
-    conf = os.path.join(root, "wps_conf")
+    conf = os.path.join(root, conf_name)
     os.makedirs(conf)
     with open(os.path.join(conf, "config.json"), "w") as fp:
         json.dump({"service_config": {"mas_address": "in-process"},
@@ -3897,8 +3928,22 @@ def phase_wps(root, store, card):
         "<wps:Input><ows:Identifier>geometry</ows:Identifier><wps:Data>"
         f"<wps:ComplexData>{gj}</wps:ComplexData></wps:Data></wps:Input>"
         "</wps:DataInputs></wps:Execute>").encode()
-    launches = _kernel_counts()
     url = f"http://127.0.0.1:{httpd.server_address[1]}/ows?service=WPS"
+    return httpd, url, body, gj
+
+
+def phase_wps(root, store, card):
+    """Phase 16 over phase 7's stack: WPS Execute (an XML POST) over
+    HTTP, `WPS_DRILLS` times, the stack resident; the CSV equals
+    `drill_csv(DrillPipeline.process_split(...))` called directly.
+    Returns the B3 launches."""
+    from xml.etree import ElementTree
+    from gsky_tpu_torch.geo import geometry as geom
+    from gsky_tpu_torch.index.client import MASClient
+    from gsky_tpu_torch.pipeline.drill import DrillPipeline, drill_csv
+    from gsky_tpu_torch.pipeline.types import GeoDrillRequest
+    httpd, url, body, gj = wps_server(root, store, "wps_conf")
+    launches = _kernel_counts()
     try:
         http_fetch(url, body)           # the first: the stack's upload
         lat = []
@@ -8649,6 +8694,460 @@ def phase_autoscale(sat_root, fleet, b, jobs, want, card):
     return {"B1": served[0], "B2": 0, "B3": 0, "B4": 0}
 
 
+# -- phase 25: multi-GPU serving on a virtual mesh --------------------------
+
+MESH_MEMBERS = 4             # 25: members of the virtual mesh
+MESH_DEVICES = ",".join(["cuda:0"] * MESH_MEMBERS)
+MESH_TILES = 32              # 25a: native tiles a run (config 1)
+MESH_THREADS = 16            # 25a: client threads
+MESH_SPMD_TILES = 8          # 25d: GSKY_SPMD fused tiles
+MESH_MOSAIC_TILES = 4        # 25d: GSKY_SPMD mosaics over phase 10's dates
+MESH_WCS_ZOOM = 0.25         # 25b: the coverage's pixel, x the native one
+MESH_X_RULE = r"kind=scored\b.*\bw=1024\b=>x"   # 25b: its blocks to x
+
+
+class MeshOn:
+    """A virtual mesh of `MESH_MEMBERS` members on the one card
+    (``GSKY_MESH_DEVICES``), with ``env`` set (GSKY_MESH, GSKY_SPMD,
+    GSKY_MESH_RULES, GSKY_MESH_PLACE, GSKY_POOL_JOURNAL); the mesh
+    dispatcher, the per-member pools and the wave schedulers fresh on
+    entry and dropped on exit, the knobs restored."""
+
+    KEYS = ("GSKY_MESH", "GSKY_MESH_DEVICES", "GSKY_MESH_RULES",
+            "GSKY_MESH_PLACE", "GSKY_SPMD", "GSKY_POOL_JOURNAL")
+
+    def __init__(self, **env):
+        self.env = dict(env, GSKY_MESH_DEVICES=MESH_DEVICES)
+
+    @staticmethod
+    def _reset():
+        from gsky_tpu_torch.mesh import dispatch, pools
+        from gsky_tpu_torch.pipeline import waves
+        waves.reset_waves()
+        dispatch.reset_mesh()
+        pools.reset_mesh_pools()
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        for k in self.KEYS:
+            os.environ.pop(k, None)
+        os.environ.update(self.env)
+        self._reset()
+        return self
+
+    def __exit__(self, *exc):
+        self._reset()
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_words():
+    """What phase 25's mesh is: members sharing a card, or cards."""
+    devs = MESH_DEVICES.split(",")
+    if len(set(devs)) < len(devs):
+        return "virtual mesh on one card"
+    return f"mesh over {len(devs)} cards"
+
+
+def mesh_line(what, st, wall, plain_wall, card):
+    """Phase 25's per-member line from a dispatcher's stats."""
+    log(f"phase {what}: {mesh_words()}, members "
+        f"{', '.join(st['devices'])}: kernel calls per member by layout "
+        f"{st['launches_by_layout']}, bodies per member "
+        f"{st['member_dispatches']}; shard skew of the last wave "
+        f"{st['skew_ms_last']} ms (member waits "
+        f"{st['member_wait_ms_last']} ms); wall {wall:.3f} s against "
+        f"{plain_wall:.3f} s unsharded ({card})")
+
+
+def spmd_line(what, md, wall, plain_wall, card):
+    """Phase 25's per-member line for the GSKY_SPMD routes (no wave, so
+    no readback skew)."""
+    log(f"phase {what}: {mesh_words()}, members "
+        f"{', '.join(map(str, md.mesh.members))}: bodies per member "
+        f"{md.mesh.member_stats()} (one kernel call each); shard skew not "
+        f"observed (no wave readback); wall {wall:.3f} s against "
+        f"{plain_wall:.3f} s unsharded ({card})")
+
+
+def all_ok(answers, ctype, what):
+    for status, ct, body, _ in answers:
+        if (status, ct) != (200, ctype):
+            raise AssertionError(f"{what}: {status} {ct} {body[:300]}")
+
+
+def same_pngs(a, b, what):
+    from gsky_tpu_torch.io.png import decode_png
+    for (_, _, x, _), (_, _, y, _) in zip(a, b):
+        if not np.array_equal(decode_png(x), decode_png(y)):
+            raise AssertionError(f"{what}: decoded tiles differ")
+
+
+def phase_mesh(data_root, data_paths, card):
+    """Phase 25a, 25b, 25d's GetMap and 25e, over phase 3's archive
+    (crawled afresh: earlier phases add records of archives since
+    removed) with the port's OWS server on the card over HTTP: the mesh
+    layouts and the GSKY_SPMD route on a virtual 4-member mesh, each
+    against the same requests unsharded.  Returns the kernels launched
+    on the mesh's paths {"B1": n, "B2": n}."""
+    from collections import Counter
+    from gsky_tpu_torch.device_guard import journal
+    from gsky_tpu_torch.mesh import dispatch as mdisp
+    from gsky_tpu_torch.mesh import pools as mpools
+    from gsky_tpu_torch.server.prewarm import prewarm
+    conf = os.path.join(ROOT, "build", "smoke_mesh_conf")
+    shutil.rmtree(conf, ignore_errors=True)
+    styles = [{"name": m, "title": m, "rgb_products": [NS], "resample": m}
+              for m in METHODS]
+    layers = [{"name": "landsat", "data_source": data_root,
+               "rgb_products": [NS], "styles": styles,
+               "wcs_max_tile_width": WCS_TILE,
+               "wcs_max_tile_height": WCS_TILE}]
+    launches = _kernel_counts()
+    out = {"B1": 0, "B2": 0}
+    pair = OwsPair(conf, layers, crawl((p, NS) for p in data_paths))
+    try:
+        srv = pair.card
+        urls = [getmap_url(pair.base, "landsat", b, "bilinear")
+                for b in tile_boxes()[:MESH_TILES]]
+        http_get(urls[0])               # the scene cache warm: set-up
+
+        # -- 25a: the granule layout ------------------------------------
+        with WavesOn():
+            plain, plain_wall = fetch_threads(http_get, urls, MESH_THREADS)
+        all_ok(plain, "image/png", "25a unsharded")
+        with WavesOn(), MeshOn(GSKY_MESH="1"):
+            f0 = scrape_families(pair.base, ("gsky_mesh_",))
+            reset_counts(launches)
+            got, wall = fetch_threads(http_get, urls, MESH_THREADS)
+            n = read_counts(launches)
+            st = mdisp.active_mesh().stats()
+            f1 = scrape_families(pair.base, ("gsky_mesh_",))
+            dbg = json.loads(http_get(pair.base + "/debug")[2])
+        all_ok(got, "image/png", "25a")
+        same_pngs(plain, got, "25a mesh vs unsharded")
+        gran = st["launches_by_layout"].get("granule", [])
+        waves = st["waves_by_layout"].get("granule", 0)
+        occ = sample(f1, "gsky_mesh_chip_occupancy_count",
+                     family="gsky_mesh_chip_occupancy") \
+            - sample(f0, "gsky_mesh_chip_occupancy_count",
+                     family="gsky_mesh_chip_occupancy")
+        mw = sample(f1, "gsky_mesh_waves_total", (("layout", "granule"),)) \
+            - sample(f0, "gsky_mesh_waves_total", (("layout", "granule"),))
+        if len(gran) != MESH_MEMBERS or min(gran) < 1 \
+                or n["B1"] != sum(gran) or n["B2"] or n["B3"] or n["B4"] \
+                or set(st["waves_by_layout"]) != {"granule"} \
+                or st["entries_by_layout"]["granule"] != MESH_TILES \
+                or mw != waves or occ != MESH_MEMBERS * waves \
+                or sample(f1, "gsky_mesh_chips") != MESH_MEMBERS:
+            raise AssertionError(f"25a: launches {n}, mesh {st}, /metrics "
+                                 f"{family_line(f1)}")
+        out["B1"] += n["B1"]
+        log(f"phase 25a: {MESH_TILES} native bilinear tiles from "
+            f"{MESH_THREADS} threads over HTTP with GSKY_MESH=1: decoded "
+            f"tiles equal the unsharded waves'; {waves} granule waves, B1 "
+            f"launches {n['B1']} ({gran} a member); /metrics "
+            f"gsky_mesh_waves_total{{granule}} +{mw:g}, "
+            f"gsky_mesh_chip_occupancy count +{occ:g}, gsky_mesh_chips "
+            f"{sample(f1, 'gsky_mesh_chips'):g}; {MESH_TILES / wall:.1f} "
+            f"tiles/s against {MESH_TILES / plain_wall:.1f} unsharded")
+        mesh_line("25a", st, wall, plain_wall, card)
+
+        # -- 25e: /debug's blocks and the prewarm's mesh lattice ---------
+        virtual = mesh_words().startswith("virtual")
+        if not (dbg["spmd"]["virtual"] is virtual
+                and dbg["spmd"]["chips"] == MESH_MEMBERS
+                and dbg["mesh"]["virtual"] is virtual
+                and dbg["mesh"]["chips"] == MESH_MEMBERS):
+            raise AssertionError(f"25e: /debug spmd {dbg['spmd']}, mesh "
+                                 f"{dbg['mesh']}")
+        saved = read_counts(launches)
+        with MeshOn(GSKY_MESH="1"):
+            pw = prewarm(pair.watcher.configs, srv.executor)
+            pst = mdisp.active_mesh().stats()
+        for k, v in saved.items():
+            launches[k].launches = v
+        if pw["mesh_programs"] < 2 or pw["failures"]:
+            raise AssertionError(f"25e: prewarm {pw}")
+        log(f"phase 25e: /debug spmd {dbg['spmd']}; mesh chips "
+            f"{dbg['mesh']['chips']}, virtual {dbg['mesh']['virtual']}, "
+            f"devices {dbg['mesh']['devices']}; prewarm with GSKY_MESH=1: "
+            f"{pw} (member bodies {pst['member_dispatches']}) ({card})")
+
+        # -- 25a: per-member page pools ---------------------------------
+        jpath = os.path.join(ROOT, "build", "smoke_mesh_journal.jsonl")
+        if os.path.exists(jpath):
+            os.remove(jpath)
+        own0 = srv.executor.pool.stats()["staged"]
+        with WavesOn(), MeshOn(GSKY_MESH="1", GSKY_MESH_PLACE="1",
+                               GSKY_POOL_JOURNAL=jpath):
+            reset_counts(launches)
+            placed, pwall = fetch_threads(http_get, urls, MESH_THREADS)
+            n = read_counts(launches)
+            mp = mpools.active_mesh_pools()
+            staged = [p.stats()["staged"] for p in mp.pools]
+            resident = [p.stats()["resident"] for p in mp.pools]
+            _, tags = journal.replay_chips()
+            by_chip = Counter(tags.values())
+            c = int(np.argmax(resident))
+            mp.teardown_chip(c)
+            torn = mp.pools[c].stats()["resident"]
+            restored = mp.rehydrate_all()
+            back = [p.stats()["resident"] for p in mp.pools]
+            pst = mdisp.active_mesh().stats()
+        all_ok(placed, "image/png", "25a placed")
+        same_pngs(plain, placed, "25a placed vs unsharded")
+        if srv.executor.pool.stats()["staged"] != own0 or not sum(staged) \
+                or [by_chip[i] for i in range(MESH_MEMBERS)] != staged \
+                or torn or restored != {c: resident[c]} or back != resident:
+            raise AssertionError(
+                f"25a placement: own pool staged {own0} -> "
+                f"{srv.executor.pool.stats()['staged']}, member pools "
+                f"staged {staged}, resident {resident}, journal tags "
+                f"{dict(by_chip)}, torn {torn}, restored {restored}, "
+                f"back {back}")
+        out["B1"] += n["B1"]
+        log(f"phase 25a GSKY_MESH_PLACE=1: decoded tiles equal; pages "
+            f"staged per member pool {staged} (the executor's own pool "
+            f"none), journal stage lines tagged per member "
+            f"{[by_chip[i] for i in range(MESH_MEMBERS)]}; member {c}'s "
+            f"pool torn down ({resident[c]} pages) and rehydrate_all "
+            f"restored {restored}, every pool as before; B1 {n['B1']}")
+        mesh_line("25a placed", pst, pwall, plain_wall, card)
+
+        # -- 25b: the x layout ------------------------------------------
+        box = wcs_box(WCS_SIZE, MESH_WCS_ZOOM, 551000.0, 6149000.0)
+        url = wcs_url(pair.base, "landsat", box, WCS_SIZE, "cubic")
+        blocks = ((WCS_SIZE + WCS_TILE - 1) // WCS_TILE) ** 2
+        with WavesOn():
+            reset_counts(launches)
+            status, _, body, plain_s = http_fetch(url)
+            n0 = read_counts(launches)
+            legs = dict(srv.last_export)
+        if status != 200 or legs["paged_engaged"] != blocks or n0["B2"]:
+            raise AssertionError(f"25b unsharded: {status}, launches {n0}, "
+                                 f"legs {legs}")
+        ref = tiff_values(body)
+        with WavesOn(), MeshOn(GSKY_MESH="1", GSKY_MESH_RULES=MESH_X_RULE):
+            reset_counts(launches)
+            status, _, body, secs = http_fetch(url)
+            n = read_counts(launches)
+            st = mdisp.active_mesh().stats()
+        if status != 200:
+            raise AssertionError(f"25b: {status} {body[:300]}")
+        err = same_coverage("cubic", ref, tiff_values(body), "25b")
+        if n["B1"] or n["B2"] != blocks * MESH_MEMBERS \
+                or set(st["waves_by_layout"]) != {"x"} \
+                or st["entries_by_layout"]["x"] != blocks:
+            raise AssertionError(f"25b: launches {n}, mesh {st}")
+        out["B2"] += n["B2"]
+        log(f"phase 25b: a {WCS_SIZE}^2 cubic GetCoverage at "
+            f"{1 / MESH_WCS_ZOOM:g}x the native ground resolution, its "
+            f"{blocks} blocks of {WCS_TILE}^2 sent to x by GSKY_MESH_RULES="
+            f"{MESH_X_RULE!r}: B2 {n['B2']} = {blocks} blocks x "
+            f"{MESH_MEMBERS} members, B1 0 (unsharded: B1 {n0['B1']} in "
+            f"waves); values within 2 ulp of the unsharded export (max "
+            f"|diff| {err:.3g}); {secs:.3f} s against {plain_s:.3f} s")
+        mesh_line("25b", st, secs, plain_s, card)
+
+        # -- 25d: a fused GetMap through render_byte_spmd ----------------
+        few = urls[:MESH_SPMD_TILES]
+        os.environ["GSKY_PAGE_SLOTS"] = "1"     # per call through B2
+        try:
+            t0 = time.perf_counter()
+            one = [http_get(u) for u in few]
+            one_s = time.perf_counter() - t0
+        finally:
+            del os.environ["GSKY_PAGE_SLOTS"]
+        routes0 = dict(srv.executor.route_counts)
+        with MeshOn(GSKY_SPMD="1"):
+            reset_counts(launches)
+            t0 = time.perf_counter()
+            spmd = [http_get(u) for u in few]
+            spmd_s = time.perf_counter() - t0
+            n = read_counts(launches)
+            md = mdisp.active_mesh()
+            spmd_line("25d GetMap", md, spmd_s, one_s, card)
+        all_ok(one + spmd, "image/png", "25d GetMap")
+        same_pngs(one, spmd, "25d GetMap vs the single-device B2 leg")
+        routes = sum(v - routes0.get(k, 0)
+                     for k, v in srv.executor.route_counts.items()
+                     if k.startswith("render_byte_spmd:"))
+        if n["B2"] != MESH_SPMD_TILES * MESH_MEMBERS or n["B1"] \
+                or routes != MESH_SPMD_TILES:
+            raise AssertionError(f"25d GetMap: launches {n}, routes "
+                                 f"{routes}")
+        out["B2"] += n["B2"]
+        log(f"phase 25d: {MESH_SPMD_TILES} fused GetMap tiles with "
+            f"GSKY_SPMD=1 through render_byte_spmd ({routes} routed): B2 "
+            f"{n['B2']} ({MESH_MEMBERS} a tile), decoded tiles equal the "
+            f"single-device B2 leg's")
+    finally:
+        pair.close()
+        shutil.rmtree(conf, ignore_errors=True)
+    return out
+
+
+def phase_mesh_drills(pipe, req, root, store, card):
+    """Phase 25c and 25d's drills over phase 7's resident stack: four
+    concurrent warm drills in one wave over the time layout (one B3
+    K-block launch a member, results equal the per-call ones), a drill
+    through GSKY_SPMD's sharded reduction (B3 a member, psum), and a WPS
+    drill over HTTP with GSKY_SPMD=1 (200, the per-call CSV).  Returns
+    the B3 launches {"B3": per-member blocks, "B3K": K-block}."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from xml.etree import ElementTree
+    from gsky_tpu_torch.mesh import dispatch as mdisp
+    from gsky_tpu_torch.ops import stats
+    from gsky_tpu_torch.pipeline.waves import WaveScheduler
+    t0 = time.perf_counter()
+    ref = pipe.process(req)                 # per call: GSKY_WAVES=0
+    one_s = time.perf_counter() - t0
+
+    def round_of(n):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n) as ex:
+            res = list(ex.map(lambda _: pipe.process(req), range(n)))
+        return res, time.perf_counter() - t0
+
+    barrier = threading.Barrier(WAVE_DRILLS)
+    submit = WaveScheduler.drill_stats
+
+    def together(self, *a):
+        barrier.wait(timeout=300)
+        return submit(self, *a)
+
+    WaveScheduler.drill_stats = together
+    try:
+        with WavesOn():
+            plain, plain_s = round_of(WAVE_DRILLS)
+        barrier.reset()
+        with WavesOn(), MeshOn(GSKY_MESH="1"):
+            stats.masked_stats_kernel.launches = 0
+            stats.masked_stats_many_kernel.launches = 0
+            got, wall = round_of(WAVE_DRILLS)
+            k = (stats.masked_stats_many_kernel.launches,
+                 stats.masked_stats_kernel.launches)
+            st = mdisp.active_mesh().stats()
+    finally:
+        WaveScheduler.drill_stats = submit
+    for r in plain + got:
+        same_drill(ref, r, "25c vs per call", rtol=0.0)
+    if k != (MESH_MEMBERS, 0) or st["waves_by_layout"] != {"time": 1} \
+            or st["launches_by_layout"] != {"time": [1] * MESH_MEMBERS}:
+        raise AssertionError(f"25c: K-block / per-call B3 {k}, mesh {st}")
+    log(f"phase 25c: {WAVE_DRILLS} concurrent warm drills ({DRILL_T} x "
+        f"{DRILL_HW}^2) in one wave over the time layout: B3 K-block "
+        f"launches {k[0]} (one a member, a block each), per-call B3 0, "
+        f"results equal per call and the unsharded wave's")
+    mesh_line("25c", st, wall, plain_s, card)
+    b3 = {"B3": 0, "B3K": k[0]}
+
+    # -- 25d: the drill with GSKY_SPMD=1 --------------------------------
+    with MeshOn(GSKY_SPMD="1"):
+        stats.masked_stats_kernel.launches = 0
+        t0 = time.perf_counter()
+        r = pipe.process(req)
+        spmd_s = time.perf_counter() - t0
+        n = stats.masked_stats_kernel.launches
+        md = mdisp.active_mesh()
+        spmd_line("25d drill", md, spmd_s, one_s, card)
+    worst = same_drill(ref, r, "25d drill with GSKY_SPMD=1", rtol=1e-5)
+    if n != MESH_MEMBERS:
+        raise AssertionError(f"25d drill: B3 {n}, want {MESH_MEMBERS}")
+    b3["B3"] += n
+    log(f"phase 25d: a warm drill with GSKY_SPMD=1: B3 {n} (a (bands / 2, "
+        f"pixels / 2) block a member, psum over x), counts equal per "
+        f"call, means within rel {worst:.3g}")
+
+    # -- 25d: WPS over HTTP, 200 where the port answered 501 -------------
+    os.environ["GSKY_DRILL_CACHE"] = "sync"
+    httpd, url, body, _ = wps_server(root, store, "wps_mesh_conf")
+    try:
+        http_fetch(url, body)               # the stack's upload: set-up
+        st0, _, plain_out, plain_s = http_fetch(url, body)
+        with MeshOn(GSKY_SPMD="1"):
+            stats.masked_stats_kernel.launches = 0
+            st1, _, out, wps_s = http_fetch(url, body)
+            n = stats.masked_stats_kernel.launches
+    finally:
+        del os.environ["GSKY_DRILL_CACHE"]
+        httpd.shutdown()
+        httpd.server_close()
+    ns = {"wps": "http://www.opengis.net/wps/1.0.0"}
+
+    def rows(doc):
+        text = [el.text for el in ElementTree.fromstring(doc).iterfind(
+            ".//wps:ComplexData", ns)]
+        return [ln.split(",") for t in text for ln in t.splitlines()]
+
+    a, b = rows(plain_out), rows(out)
+    same = len(a) == len(b) == DRILL_T and all(
+        x[0] == y[0] and all((p == q) or abs(float(p) - float(q))
+                             <= 1e-4 + 1e-5 * abs(float(p))
+                             for p, q in zip(x[1:], y[1:]))
+        for x, y in zip(a, b))
+    if (st0, st1) != (200, 200) or n != MESH_MEMBERS or not same:
+        raise AssertionError(f"25d WPS: statuses {st0} {st1}, B3 {n}, CSV "
+                             f"rows equal {same}")
+    b3["B3"] += n
+    log(f"phase 25d: WPS Execute over HTTP with GSKY_SPMD=1: 200 (the "
+        f"port answered 501 before), B3 {n}, its {DRILL_T}-row CSV equal "
+        f"to the per-call one within the CSV's 4 decimals; {wps_s:.3f} s "
+        f"against {plain_s:.3f} s per call ({card})")
+    return b3
+
+
+def phase_mesh_mosaic(root, store, card):
+    """Phase 25d's mosaic over phase 10's archive (config 3's eight
+    dates, no mask band): `process` through scene_mosaic_spmd (B2 on
+    every member), canvases equal to the single-device B2 leg's.
+    Returns the B2 launches."""
+    from gsky_tpu_torch.mesh import dispatch as mdisp
+    from gsky_tpu_torch.ops import warp_render
+    pipe = make_pipeline(store, "cuda")
+    reqs = [mosaic_request(root, box, [NS], "bilinear", None)
+            for box in mosaic_boxes()[:MESH_MOSAIC_TILES]]
+    pipe.process(reqs[0])                       # scenes cached: set-up
+    os.environ["GSKY_PAGE_SLOTS"] = "1"         # per call through B2
+    try:
+        t0 = time.perf_counter()
+        one = [pipe.process(r) for r in reqs]
+        one_s = time.perf_counter() - t0
+    finally:
+        del os.environ["GSKY_PAGE_SLOTS"]
+    with MeshOn(GSKY_SPMD="1"):
+        warp_render.warp_render_kernel.launches = 0
+        t0 = time.perf_counter()
+        got = [pipe.process(r) for r in reqs]
+        wall = time.perf_counter() - t0
+        n = warp_render.warp_render_kernel.launches
+        spmd_line("25d mosaic", mdisp.active_mesh(), wall, one_s, card)
+    for a, b in zip(one, got):
+        for ns in a.namespaces:
+            if not (torch_equal(a.valid[ns], b.valid[ns])
+                    and torch_equal(a.data[ns], b.data[ns])):
+                raise AssertionError(f"25d mosaic: {ns} differs from the "
+                                     f"single-device B2 leg")
+    routes = sum(v for k, v in pipe.executor.route_counts.items()
+                 if k.startswith("scene_mosaic_spmd:"))
+    if n != MESH_MOSAIC_TILES * MESH_MEMBERS or routes != MESH_MOSAIC_TILES:
+        raise AssertionError(f"25d mosaic: B2 {n}, routed {routes}")
+    log(f"phase 25d: {MESH_MOSAIC_TILES} mosaics of {MOSAIC_DATES} dates "
+        f"through scene_mosaic_spmd: B2 {n} ({MESH_MEMBERS} a mosaic), "
+        f"canvases and validity equal the single-device B2 leg's")
+    return n
+
+
+def torch_equal(a, b):
+    import torch
+    return bool(torch.equal(a, b))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8944,6 +9443,12 @@ def main() -> int:
         t0 = time.perf_counter()
         fab24e = phase_ows_fleet(data_root, data_paths, card)
         log(f"phase 23e (OWS), 23f, 24e: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 25a, b, d (GetMap), e: the mesh, virtual on one card ---
+        t0 = time.perf_counter()
+        mesh25 = phase_mesh(data_root, data_paths, card)
+        log(f"phase 25a, b, d, e: launches {mesh25} "
+            f"({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -8954,8 +9459,8 @@ def main() -> int:
     shutil.rmtree(drill_root, ignore_errors=True)
     os.makedirs(drill_root)
     try:
-        b3_launches, b3_args, b3_wave_launches, b3_wps = phase_drill(
-            drill_root, card)
+        b3_launches, b3_args, b3_wave_launches, b3_wps, mesh25c = \
+            phase_drill(drill_root, card)
         b3_row = time_b3(b3_args, card)
 
         # -- phase 23c: the worker's drill op ---------------------------
@@ -9001,6 +9506,11 @@ def main() -> int:
         del b1_expr_args
         phase_ows_expr(mosaic_root, mosaic, card)
         log(f"phase 14a, 14c expressions: {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 25d: mosaics over config 3's dates with GSKY_SPMD ------
+        t0 = time.perf_counter()
+        mesh25m = phase_mesh_mosaic(mosaic_root, mosaic, card)
+        log(f"phase 25d mosaics: {time.perf_counter() - t0:.1f} s")
 
         # -- phase 17b: GetFeatureInfo on the masked layer (B4) -----------
         t0 = time.perf_counter()
@@ -9114,7 +9624,9 @@ def main() -> int:
     # (B4 here: the remote tiles' mosaics; B1 and B2 on the workers: the
     # swath's warps; B3 on a worker: its drill op), and phase 24's (B1:
     # the swath's warps on the fabric's workers, 24e's renders on the
-    # replay gateways)
+    # replay gateways), and phase 25's (the virtual mesh: B1 a member a
+    # granule wave, B2 a member a block of the x layout and a GSKY_SPMD
+    # tile or mosaic, B3 a member a time wave or GSKY_SPMD reduction)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -9126,7 +9638,7 @@ def main() -> int:
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
          + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
          + obs21["B1"] + guard22["B1"] + fleet23["B1"] + fab24["B1"]
-         + fab24e["B1"],
+         + fab24e["B1"] + mesh25["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             ing_err["B1"], obs21_err,
                             max(v for (k, _), v in wcs_errs.items()
@@ -9139,7 +9651,8 @@ def main() -> int:
          "launches": b2_launches + b2_rgb + wcs_launches["B2"]
          + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
          + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"]
-         + fleet23["B2"] + fab24.get("B2", 0) + fab24e["B2"],
+         + fleet23["B2"] + fab24.get("B2", 0) + fab24e["B2"]
+         + mesh25["B2"] + mesh25m,
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()
@@ -9151,7 +9664,7 @@ def main() -> int:
          "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
          "launches": b3_launches + b3_wave_launches + b3_wps + sat["B3"]
          + ing["B3"] + srv20["B3"] + dl20["B3"] + be20["B3"]
-         + fleet23["B3"],
+         + fleet23["B3"] + mesh25c["B3"] + mesh25c["B3K"],
          "max_abs_err": max(b3_err, b3_main_err, b3k_err, ing_err["B3"]),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},

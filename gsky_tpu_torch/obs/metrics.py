@@ -29,8 +29,9 @@ live fleet routers (`fleet.fleet_stats`).  The cache fabric's
 (``gsky_fabric_*``) and the elastic fleet's (``gsky_elastic_*``,
 ``gsky_preemptions_total``, ``gsky_handoff_pages_total``) render when
 the reference's do: the elastic families once elastic has left a trace
-in the process (`fleet.elastic.dormant`).  Not here until their
-subsystems are ported (ROADMAP): the mesh families (A.11) and
+in the process (`fleet.elastic.dormant`).  The mesh's
+(``gsky_mesh_*``) are observed by `mesh.dispatch` and collected from
+its live dispatcher.  Not here until its subsystem is ported (ROADMAP):
 ``gsky_plan_block_shape`` (A.21); nor ``gsky_fabric_replica_pages``,
 the gauge of a replication round that has no caller (C.18).
 
@@ -88,6 +89,18 @@ WAVE_STAGED = _REG.counter(
     "gsky_wave_staged_total",
     "Wave groups staged ahead of dispatch by the assembly stage "
     "(double-buffered input ring uploads).")
+MESH_WAVES = _REG.counter(
+    "gsky_mesh_waves_total",
+    "Mesh wave dispatches by partition layout.",
+    ["layout"])
+MESH_CHIP_OCCUPANCY = _REG.histogram(
+    "gsky_mesh_chip_occupancy",
+    "Wave entries landing on each chip per mesh dispatch.",
+    buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0])
+MESH_SHARD_SKEW_MS = _REG.histogram(
+    "gsky_mesh_shard_skew_ms",
+    "Per-chip readback readiness spread per mesh wave (milliseconds).",
+    buckets=log_buckets(0.01, 1000.0))
 TRACE_EVENTS = _REG.counter(
     "gsky_trace_events_total",
     "Cross-cutting events (retry, breaker_open, hedge, reroute, shed).",
@@ -382,6 +395,27 @@ def _collect_waves():
            [({}, float(sum(s["cancelled"] for s in sts)))])]
 
 
+def _collect_mesh():
+    """Mesh serving: the live dispatcher's member count and its entries
+    by layout, read at scrape time (one counter, not two copies).  The
+    per-wave layout, occupancy and skew distributions are the families
+    above, observed where the mesh dispatches."""
+    from ..mesh.dispatch import active_mesh
+    md = active_mesh()
+    if md is None:          # no mesh is built just to report
+        return []
+    st = md.stats()
+    out = [_g("gsky_mesh_chips", "Chips in the serving mesh.",
+              [({}, float(st.get("chips", 0)))])]
+    ent = st.get("entries_by_layout") or {}
+    if ent:
+        out.append(_c("gsky_mesh_entries_total",
+                      "Wave entries dispatched by layout.",
+                      [({"layout": k}, float(v))
+                       for k, v in sorted(ent.items())]))
+    return out
+
+
 def _collect_expr():
     """Fused band algebra: compile-cache traffic, distinct fused
     programs, and how expression renders routed.  Rendered only once
@@ -565,7 +599,7 @@ def _collect_elastic():
 for _fn in (_collect_caches, _collect_fleet, _collect_resilience,
             _collect_runtime, _collect_batcher, _collect_overload,
             _collect_ingest, _collect_device, _collect_waves,
-            _collect_expr, _collect_tsan, _collect_elastic,
+            _collect_mesh, _collect_expr, _collect_tsan, _collect_elastic,
             _collect_temporal):
     _REG.register_collector(_fn)
 

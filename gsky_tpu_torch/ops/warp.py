@@ -4,7 +4,8 @@ Counterpart of the device half of `gsky_tpu/ops/warp.py` on the GetMap
 paths, as plain PyTorch ops:
 
 - `_bilerp_grid`: the dense dst->src coordinate grid rebuilt from the
-  sparse control points (the approx-transformer analogue);
+  sparse control points (the approx-transformer analogue), whole or as
+  one width strip (``x0``);
 - `_cubic_weights`: Catmull-Rom weights, a = -0.5;
 - `granule_coords`: one granule's window-relative source coordinates,
   shared by the taps and by B1's staged boxes (`ops.paged.block_boxes`);
@@ -42,9 +43,13 @@ NEAR = ("near", "nearest")
 METHODS = NEAR + ("bilinear", "cubic")
 
 
-def _bilerp_grid(ctrl, h: int, w: int, step: int):
+def _bilerp_grid(ctrl, h: int, w: int, step: int, x0: int = 0):
     """Upsample control-point grids (..., gh, gw) f32 to (..., h, w) by
     bilinear interpolation between every ``step``-th dst pixel centre.
+    ``x0``: the global x of the grid's first column, so that a width
+    strip of a sharded render (`parallel.spmd`) rebuilds only its own
+    columns; ``x0 + j`` is exact in float32, so a strip equals the
+    same columns of the full grid bit for bit.
     Each lerp's multiply-add is fused where XLA's lowering of the
     reference's jitted upsample fuses it, as in the tap sum: the first
     product into the rounded second, ``fma(c00, 1 - ty, c10 * ty)``.
@@ -53,7 +58,8 @@ def _bilerp_grid(ctrl, h: int, w: int, step: int):
     gh, gw = ctrl.shape[-2:]
     dev = ctrl.device
     yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] / step
-    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :] / step
+    xx = (x0 + torch.arange(w, dtype=torch.float32, device=dev)[None, :]) \
+        / step
     y0 = torch.clamp(torch.floor(yy).to(torch.int32), 0, gh - 2)
     x0 = torch.clamp(torch.floor(xx).to(torch.int32), 0, gw - 2)
     ty = yy - y0

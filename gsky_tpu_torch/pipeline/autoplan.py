@@ -27,11 +27,16 @@ count ``Np`` and, for the bucketed leg, each lane's dense stack as its
 unwindowed program reads it (the port has no gather window, ROADMAP
 A.4), so both packages route a group alike.
 
+`plan_sharded` is the mesh's variant (`mesh.dispatch`, the ``granule``
+layout): each member's slice of lanes is planned alone, so that no
+superblock crosses a member, and ``sb_of`` indexes the member's own
+rows.
+
 ``GSKY_PLAN=0`` turns the planner off: no superblocks, no route
 change.  Not ported: `plan_block` (a Pallas output block chosen under
 TPU VMEM; B1 has its own 8 x 32 block and staging budget, and the block
-changes no output byte) and `plan_sharded` (mesh waves, ROADMAP A.11).
-A planner error raises: there is no unplanned fallback to hide it.
+changes no output byte).  A planner error raises: there is no
+unplanned fallback to hide it.
 """
 
 from __future__ import annotations
@@ -303,6 +308,83 @@ def plan_wave_group(kind: str, es, stage: str = "dispatch"
                 params=params.reshape(Np * T, PARAMS_W), sb_of=sb_of,
                 superblocks=G, naive_bytes=naive, planned_bytes=planned,
                 bucketed_bytes=bucketed, merged_lanes=N - G)
+
+
+def plan_sharded(kind: str, es, n_chips: int, Np: int) -> Optional[Plan]:
+    """The mesh variant of `plan_wave_group`: member c owns lanes
+    [c * rpc, (c + 1) * rpc), rpc = Np / n_chips, and its slice is
+    planned alone, so that no superblock (and no halo) crosses a member.
+    The members' superblock counts pad to one Gc, their tables
+    concatenate to (n_chips * Gc, T, S_u), and ``sb_of`` (Np,) holds
+    member-local rows; params are (Np, T, 16), lanes in order.  None
+    when the planner is off or no member merges anything (the
+    unplanned split runs)."""
+    if not plan_enabled() or kind not in ("byte", "scored", "expr") \
+            or not es:
+        return None
+    n_ns = int(es[0].key[0][1])
+    pool = es[0].payload["pool"]
+    pr, pc = int(pool.page_rows), int(pool.page_cols)
+    N = len(es)
+    rpc = max(1, Np // max(1, n_chips))
+    T = max(e.payload["tables"].shape[0] for e in es)
+    S_in = max(e.payload["tables"].shape[1] for e in es)
+    naive = Np * T * S_in * pr * pc * 4
+    rows = [_entry_rows(e, pr, pc) for e in es]
+    chip_sbs = []
+    merged_any = False
+    for c in range(n_chips):
+        sub = list(range(c * rpc, min(N, (c + 1) * rpc)))
+        if not sub:
+            chip_sbs.append([])
+            continue
+        sbs = _cluster_and_merge([es[i] for i in sub],
+                                 [rows[i] for i in sub], n_ns, pr, pc)
+        # member indices back to the group's lane numbers
+        sbs = [[[sub[m] for m in members], rects] for members, rects in sbs]
+        merged_any |= len(sbs) < len(sub)
+        chip_sbs.append(sbs)
+    if not merged_any:
+        return None
+    Gc = _pow2(max(1, max(len(s) for s in chip_sbs)))
+    S_u = _pow2(max((u[1] - u[0] + 1) * (u[3] - u[2] + 1)
+                    for sbs in chip_sbs for _m, rects in sbs
+                    for u in rects))
+    tables = np.zeros((n_chips * Gc, T, S_u), np.int32)
+    params = np.zeros((Np, T, PARAMS_W), np.float32)
+    params[:, :, 10] = -1.0
+    sb_of = np.zeros(Np, np.int32)
+    total = 0
+    for c, sbs in enumerate(chip_sbs):
+        total += len(sbs)
+        for g, (members, rects) in enumerate(sbs):
+            for t, u in enumerate(rects):
+                mem = [(rows[i][t][1],) + rows[i][t][0] for i in members]
+                u_slots = union_table(mem, *u)
+                tables[c * Gc + g, t, :u_slots.shape[0]] = u_slots
+            for i in members:
+                sb_of[i] = g                    # member-local row
+                p16 = np.asarray(es[i].payload["params16"], np.float32)
+                params[i, :p16.shape[0]] = p16
+                for t, u in enumerate(rects):
+                    params[i, t, 11] = u[0] * pr
+                    params[i, t, 12] = u[2] * pc
+                    params[i, t, 13] = (u[1] - u[0] + 1) * pr
+                    params[i, t, 14] = (u[3] - u[2] + 1) * pc
+                    params[i, t, 15] = u[3] - u[2] + 1
+    planned = n_chips * Gc * T * S_u * pr * pc * 4
+    if planned >= naive:
+        return None
+    with _LOCK:
+        _STATS["superblocks"] += total
+        _STATS["merged_lanes"] += N - total
+        _STATS["bytes_saved"] += naive - planned
+    PLAN_SUPERBLOCKS.inc(float(total))
+    PLAN_BYTES_SAVED.inc(float(naive - planned))
+    _note_route("ragged")
+    return Plan("superblock", tables=tables, params=params, sb_of=sb_of,
+                superblocks=total, naive_bytes=naive,
+                planned_bytes=planned, merged_lanes=N - total)
 
 
 def plan_stats() -> Dict:

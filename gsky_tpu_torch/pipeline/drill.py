@@ -30,10 +30,14 @@ GeoTIFF, GMT and HDF4 bands (through `io.registry`), curvilinear
 on their geolocation arrays (`_geoloc_drill_mask`), and VRT granules
 (``vrt_xml``: the template rendered per file with its co-registered
 mask granules, read through `io.vrt.VRTRaster` and reduced on the
-host, as the reference's VRT drill is).  Not ported, and raising
-NotImplementedError where a request needs it: the mesh path
-(``GSKY_SPMD=1``).  There is no fallback: a failure on the device path
-raises.
+host, as the reference's VRT drill is).
+
+With ``GSKY_SPMD=1`` and more than one mesh member, a reduction without
+deciles runs over the mesh (`parallel.spmd.SpmdRenderer.masked_stats`:
+bands over the granule axis, pixels over x, B3 on every member, a psum
+in member order); with one member it runs single-device, as the
+reference's does on a one-chip host.  There is no fallback: a failure
+on the device path raises.
 """
 
 from __future__ import annotations
@@ -41,7 +45,6 @@ from __future__ import annotations
 import dataclasses
 import datetime as dt
 import math
-import os
 import threading
 import time
 import xml.etree.ElementTree as ET
@@ -66,6 +69,7 @@ from ..ops.raster import nodata_mask
 from ..ops.stats import masked_stats
 from . import drill_cache as DC
 from .decode import _read_nc
+from ..mesh.dispatch import compat_spmd
 from .executor import _bucket_pow2
 from .waves import default_waves, waves_enabled
 from .types import DrillResult, GeoDrillRequest
@@ -609,11 +613,20 @@ def _stats_tail(dataf, validf, req: GeoDrillRequest,
     CPU tensors), pixel-count mode through the plain reduction."""
     if isinstance(dataf, np.ndarray):
         return _stats_host(dataf, validf, req)
-    if os.environ.get("GSKY_SPMD", "0") == "1":
-        raise NotImplementedError(
-            "the mesh drill path (GSKY_SPMD=1) is not ported to "
-            "gsky_tpu_torch yet")
     spans = spans or _Spans()
+    spmd = compat_spmd(dataf.device)
+    if spmd is not None and not req.deciles:
+        # GSKY_SPMD=1 over more than one mesh member: bands over the
+        # granule axis, pixels over x, B3 per member and a psum (deciles
+        # need a global sort: such requests stay single-device)
+        t0 = time.perf_counter()
+        v, c = spmd.masked_stats(dataf, validf, req.clip_lower,
+                                 req.clip_upper, req.pixel_count)
+        t0 = spans.add("stats", t0)
+        out = (v.cpu().numpy(), c.cpu().numpy(),
+               np.zeros((dataf.shape[0], 0), np.float32))
+        spans.add("readback", t0)
+        return out
     if waves_enabled():
         t0 = time.perf_counter()
         # host (vals, counts), each as the per-call branch computes it;

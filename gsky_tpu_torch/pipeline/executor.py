@@ -52,6 +52,16 @@ computed once for the three cached scenes (`ops.warp.render_rgba_ctrl`);
 byte plane per selected namespace (`ops.warp_render.
 render_scenes_bands`).
 
+Multi-device serving (`mesh`): with ``GSKY_SPMD=1`` and more than one
+mesh member, `warp_mosaic_scenes` and `render_byte_scenes` send a
+one-group tile to the mesh's `SpmdRenderer` (B2 on every member over
+its granule shard and width strip; routes counted in ``route_counts``
+under the reference's keys, ``scene_mosaic_spmd`` and
+``render_byte_spmd``) and `render_expr_byte` declines, as the
+reference's do.  Under per-member placement (``GSKY_MESH_PLACE=1``) a
+group's pages stage into the pool of the member that owns its lead
+scene (`_group_pool`).
+
 `warp_all` serves the masked route: every decoded window is
 projected per dst pixel on the host (float64, cached per dst grid and
 source CRS), padded into source-shape buckets and warped by one
@@ -85,6 +95,7 @@ from ..device import resolve_device
 from ..geo.crs import CRS, parse_crs
 from ..geo.geoloc import load_geoloc_grid
 from ..geo.transform import GeoTransform
+from ..mesh.dispatch import compat_spmd
 from ..ops.paged import PARAMS_W, note_expr_fused, page_slots, \
     paged_vmem_ok, render_byte_paged, render_expr_paged, warp_scored_paged
 from ..ops.warp import combine_scored, render_rgba_ctrl, warp_gather_batch
@@ -200,11 +211,25 @@ def _serials(group: SceneGroup):
     return tuple(s.serial for s in group.scenes) + (len(group.params),)
 
 
-def _bucketed_lane(group: SceneGroup) -> BucketedLane:
+def _local_scenes(scenes, device) -> List[torch.Tensor]:
+    """The scenes' tensors on ``device``: a scene that per-member
+    placement (`mesh.pools`) uploaded to another card is copied here
+    for a kernel of this device, which reads scenes by pointer."""
+    return [s.dev if s.dev.device == device else s.dev.to(device)
+            for s in scenes]
+
+
+def _lane_shape(group: SceneGroup) -> Tuple[int, int, int]:
+    """(pow2 granules, bucket rows, bucket cols): the dense stack the
+    reference's bucketed leg reads for the group."""
+    return (len(group.params),) + tuple(group.scenes[0].bucket)
+
+
+def _bucketed_lane(group: SceneGroup, device) -> BucketedLane:
     n = len(group.scenes)
-    return BucketedLane([s.dev for s in group.scenes],
+    return BucketedLane(_local_scenes(group.scenes, device),
                         group.params[:n].astype(np.float32), group.ctrl_dev,
-                        (len(group.params),) + tuple(group.scenes[0].bucket))
+                        _lane_shape(group))
 
 
 # every live executor, for the /metrics collectors
@@ -249,11 +274,32 @@ class WarpExecutor:
         self.spans = dict.fromkeys(SPANS, 0.0)
         # window-batch dispatches of `warp_all` by (bh, bw, B)
         self.bucket_stats: Dict[tuple, int] = {}
+        # dispatches by route, keyed as the reference's `_count` keys
+        # them ("path:bucket")
+        self.route_counts: Dict[str, int] = {}
         self.batcher = RenderBatcher()
         # an out-of-memory halves the coalesce knee before the guard's
         # one retry
         device_guard.register_oom_hook(self.batcher.note_oom)
         _live.add(self)
+
+    def _count(self, path: str, bucket=None) -> None:
+        key = f"{path}:{bucket}" if bucket is not None else path
+        with self._lock:
+            self.route_counts[key] = self.route_counts.get(key, 0) + 1
+
+    def _group_pool(self, group: SceneGroup) -> PagePool:
+        """The pool a group's pages stage into: under mesh per-member
+        placement (``GSKY_MESH_PLACE=1``) the pool of the member that
+        owns the group's lead scene, else this executor's.  Wave groups
+        key on the pool, so per-member groups dispatch apart."""
+        if group.scenes:
+            from ..mesh.pools import staging_pool
+            chip_pool = staging_pool(int(group.scenes[0].serial),
+                                     self.device)
+            if chip_pool is not None:
+                return chip_pool
+        return self.pool
 
     def add_span(self, name: str, t0: float) -> float:
         """Add the time since ``t0`` to stage ``name``; returns now."""
@@ -613,7 +659,8 @@ class WarpExecutor:
         return spans, maxnpg
 
     def _paged_from_group(self, group: SceneGroup, n_pad: int,
-                          lane_union: bool = False):
+                          lane_union: bool = False,
+                          pool: Optional[PagePool] = None):
         """Page tables + 16-wide kernel params for one scene group, or
         None when the paged leg cannot serve it: a window over
         `page_slots()` pages, a page list the reference's VMEM gate
@@ -627,8 +674,9 @@ class WarpExecutor:
         enqueued.  ``lane_union`` (expression lanes) widens every
         granule's window to their union (`autoplan.union_lane_spans`):
         taps outside a granule's true extent are rejected before the
-        window rebase, so a wider window changes no tap."""
-        pool = self.pool
+        window rebase, so a wider window changes no tap.  ``pool``: the
+        pool to stage into (`_group_pool`; default this executor's)."""
+        pool = pool or self.pool
         pr, pc = pool.page_rows, pool.page_cols
         cap = page_slots()
         made = self.page_spans(group, cap)
@@ -679,7 +727,7 @@ class WarpExecutor:
         n = len(group.scenes)
         params = torch.from_numpy(group.params[:n].astype(np.float32)) \
             .to(self.device)
-        return warp_scenes_scored([s.dev for s in group.scenes],
+        return warp_scenes_scored(_local_scenes(group.scenes, self.device),
                                   group.ctrl_dev, params, method, n_pad,
                                   (height, width), group.step)
 
@@ -713,7 +761,20 @@ class WarpExecutor:
             return combine_scored(torch.stack([c for c, _ in parts]),
                                   torch.stack([b for _, b in parts]))
         group = groups[0]
-        made = self._paged_from_group(group, n_pad)
+        spmd = compat_spmd(self.device)
+        if spmd is not None:
+            # GSKY_SPMD=1: granules over the mesh's granule axis, the
+            # width over its x axis (B2 on every member)
+            self._count("scene_mosaic_spmd",
+                        (_lane_shape(group), None))
+            n = len(group.scenes)
+            canv, best = spmd.mosaic_scored(
+                [s.dev for s in group.scenes], group.ctrl_dev,
+                group.params[:n], method, n_pad, (height, width),
+                group.step)
+            return canv, best > float("-inf")
+        gpool = self._group_pool(group)
+        made = self._paged_from_group(group, n_pad, pool=gpool)
         if made is None:
             with self._lock:
                 self.paged_declined += 1
@@ -728,25 +789,25 @@ class WarpExecutor:
         dev = self.device
         if waves_enabled():
             c, v = default_waves(dev).warp_scored(
-                self.pool, tables, params16, group.ctrl,
+                gpool, tables, params16, group.ctrl,
                 (method, n_pad, (height, width), group.step),
-                _bucketed_lane(group), _serials(group))
+                _bucketed_lane(group, self.device), _serials(group))
             if host:
                 return c, v
             return torch.from_numpy(c).to(dev), torch.from_numpy(v).to(dev)
         def dispatch():
-            with self.pool.locked_pool() as pool:
+            with gpool.locked_pool() as pool:
                 return warp_scored_paged(
-                    pool, torch.from_numpy(tables[None]).to(dev),
-                    torch.from_numpy(params16).to(dev),
-                    group.ctrl_dev[None], method, n_pad, (height, width),
-                    group.step)
+                    pool, torch.from_numpy(tables[None]).to(pool.device),
+                    torch.from_numpy(params16).to(pool.device),
+                    group.ctrl_dev[None].to(pool.device), method, n_pad,
+                    (height, width), group.step)
 
         try:
             canv, best = device_guard.run("dispatch.paged", dispatch)
         finally:
-            self.pool.unpin(tables)
-        return canv[0], best[0] > float("-inf")
+            gpool.unpin(tables)
+        return canv[0].to(dev), best[0].to(dev) > float("-inf")
 
     def warp_mosaic(self, windows: Sequence[DecodedWindow],
                     ns_ids: Sequence[int], prios: Sequence[float],
@@ -824,11 +885,15 @@ class WarpExecutor:
         if groups is None or len(groups) != 1:
             return None
         group = groups[0]
+        if compat_spmd(self.device) is not None:
+            return None     # the GSKY_SPMD routes have no expr epilogue
         n_pad = _bucket_pow2(n_slots)
         if n_pad > MAX_NS:
             self._note_ns_declined()
             return None
-        made = self._paged_from_group(group, n_pad, lane_union=True)
+        gpool = self._group_pool(group)
+        made = self._paged_from_group(group, n_pad, lane_union=True,
+                                      pool=gpool)
         t = self.add_span("tables", t)
         if made is None:
             with self._lock:
@@ -845,28 +910,29 @@ class WarpExecutor:
         if waves_enabled():
             note_expr_fused("wave")
             out = default_waves(dev).render_expr(
-                self.pool, tables, params16, group.ctrl, sp, consts,
-                statics, _bucketed_lane(group), _serials(group))
+                gpool, tables, params16, group.ctrl, sp, consts,
+                statics, _bucketed_lane(group, self.device), _serials(group))
             self.add_span("dispatch", t)
             return out
         note_expr_fused("percall")
 
         def dispatch():
-            with self.pool.locked_pool() as pool:
+            with gpool.locked_pool() as pool:
+                pdev = pool.device
                 return render_expr_paged(
-                    pool, torch.from_numpy(tables[None]).to(dev),
-                    torch.from_numpy(params16).to(dev),
-                    group.ctrl_dev[None], sp[None],
-                    torch.from_numpy(consts[None]).to(dev), method, n_pad,
+                    pool, torch.from_numpy(tables[None]).to(pdev),
+                    torch.from_numpy(params16).to(pdev),
+                    group.ctrl_dev[None].to(pdev), sp[None],
+                    torch.from_numpy(consts[None]).to(pdev), method, n_pad,
                     (height, width), group.step, auto, colour_scale,
                     fp.key, fp.hash)
 
         try:
             out = device_guard.run("dispatch.paged", dispatch)
         finally:
-            self.pool.unpin(tables)
+            gpool.unpin(tables)
         self.add_span("dispatch", t)
-        return out[0]
+        return out[0].to(dev)
 
     def render_bands_byte(self, granules, ns_ids: Sequence[int],
                           prios: Sequence[float], dst_gt: GeoTransform,
@@ -892,7 +958,7 @@ class WarpExecutor:
         params = torch.from_numpy(group.params[:n].astype(np.float32)) \
             .to(self.device)
         sp = np.array([offset, scale, clip], np.float32)
-        return render_scenes_bands([s.dev for s in group.scenes],
+        return render_scenes_bands(_local_scenes(group.scenes, self.device),
                                    group.ctrl_dev, params, sp, out_sel,
                                    method, n_pad, (height, width),
                                    group.step, auto, colour_scale)
@@ -955,7 +1021,7 @@ class WarpExecutor:
                          + (s0.height, s0.width, s0.nodata, 0.0, 0.0),
                          np.float32)
         sp = np.array([offset, scale, clip], np.float32)
-        return render_rgba_ctrl([s.dev for s in chans], ctrl_dev,
+        return render_rgba_ctrl(_local_scenes(chans, self.device), ctrl_dev,
                                 torch.from_numpy(param).to(self.device),
                                 sp, method, (height, width), step, auto,
                                 colour_scale)
@@ -983,7 +1049,20 @@ class WarpExecutor:
         n_pad = _bucket_pow2(n_ns)
         statics = (method, n_pad, (height, width), group.step, auto,
                    colour_scale)
-        made = self._paged_from_group(group, n_pad)
+        spmd = compat_spmd(self.device)
+        if spmd is not None:
+            # GSKY_SPMD=1: the whole tile over the mesh (B2 on every
+            # member, the auto extrema by pmin / pmax over the strips)
+            self._count("render_byte_spmd",
+                        (_lane_shape(group), None))
+            n = len(group.scenes)
+            out = spmd.render_composite(
+                [s.dev for s in group.scenes], group.ctrl_dev,
+                group.params[:n], sp, *statics)
+            self.add_span("dispatch", t)
+            return out
+        gpool = self._group_pool(group)
+        made = self._paged_from_group(group, n_pad, pool=gpool)
         t = self.add_span("tables", t)
         if made is not None:
             tables, params16, real_pages = made
@@ -992,32 +1071,33 @@ class WarpExecutor:
             dev = self.device
             if waves_enabled():
                 out = default_waves(dev).render_byte(
-                    self.pool, tables, params16, group.ctrl, sp, statics,
-                    _bucketed_lane(group), _serials(group))
+                    gpool, tables, params16, group.ctrl, sp, statics,
+                    _bucketed_lane(group, self.device), _serials(group))
                 self.add_span("dispatch", t)
                 return out
             if batching_enabled():
                 # the key holds no scene identity: tiles over any scenes
                 # and window sizes share a flush (the flush unpins)
                 out = self.batcher.render_paged(
-                    ("paged",) + statics, self.pool, tables, params16,
+                    ("paged",) + statics, gpool, tables, params16,
                     group.ctrl, sp, statics, real_pages)
                 self.add_span("dispatch", t)
                 return out
             def dispatch():
-                with self.pool.locked_pool() as pool:
+                with gpool.locked_pool() as pool:
+                    pdev = pool.device
                     return render_byte_paged(
-                        pool, torch.from_numpy(tables[None]).to(dev),
-                        torch.from_numpy(params16).to(dev),
-                        group.ctrl_dev[None], torch.from_numpy(sp[None]),
-                        *statics)
+                        pool, torch.from_numpy(tables[None]).to(pdev),
+                        torch.from_numpy(params16).to(pdev),
+                        group.ctrl_dev[None].to(pdev),
+                        torch.from_numpy(sp[None]), *statics)
 
             try:
                 out = device_guard.run("dispatch.paged", dispatch)
             finally:
-                self.pool.unpin(tables)
+                gpool.unpin(tables)
             self.add_span("dispatch", t)
-            return out[0]
+            return out[0].to(dev)
         with self._lock:
             self.paged_declined += 1
         # B2 reads the cached scenes where they are; the group's padding
@@ -1026,7 +1106,7 @@ class WarpExecutor:
         n = len(group.scenes)
         params = torch.from_numpy(group.params[:n].astype(np.float32)) \
             .to(self.device)
-        scenes = [s.dev for s in group.scenes]
+        scenes = _local_scenes(group.scenes, self.device)
         if batching_enabled():
             out = self.batcher.render(_serials(group) + statics, scenes,
                                       group.ctrl_dev, params, sp, statics)

@@ -43,6 +43,11 @@ entries; `audit` convicts
 pages holding inf (`ops.paged.pool_inf_counts`) or failing their CRC
 and quarantines them (a pinned one recycles when its pin drops).
 
+Under mesh serving with per-member placement (`mesh.pools`), a pool
+lives on one member's device and its ``chip`` (None otherwise) tags the
+journal's lines, so that `MeshPools.rehydrate_all` restores each
+member's own pages.
+
 The cache fabric (`fabric.pagerpc`): serials name a scene's content on
 every node (`scene_cache.content_serial`), so a page staged anywhere is
 the same page here.  `stage_page` writes a page a peer sent into a slot
@@ -145,6 +150,10 @@ class PagePool:
             # lockset tracking across staging, dispatch and relief
             tsan.track(self, "PagePool")
 
+    # the owning mesh member's index (`mesh.pools.ChipPagePool`), None
+    # on an executor's own pool; the journal's lines carry it
+    chip = None
+
     # -- internals (hold self.lock) -----------------------------------
 
     def _ensure_pool(self):
@@ -209,7 +218,7 @@ class PagePool:
         self._slots[key] = slot
         self.staged += 1
         if guard_enabled():
-            journal.record_stage(*key)
+            journal.record_stage(*key, chip=self.chip)
             if pool_audit_enabled():
                 self._checksums[key] = zlib.crc32(
                     self._pool[slot].cpu().numpy().tobytes())
@@ -360,7 +369,7 @@ class PagePool:
                 self._heat.pop(k, None)
                 self._checksums.pop(k, None)
         if guard_enabled():
-            journal.record_drop(serial)
+            journal.record_drop(serial, chip=self.chip)
 
     # -- the device guard's lifecycle ----------------------------------
 
@@ -391,7 +400,8 @@ class PagePool:
             return
         with self.lock:
             for key in self._slots:
-                journal.record_heat(*key, hits=self._heat.get(key, 0))
+                journal.record_heat(*key, hits=self._heat.get(key, 0),
+                                    chip=self.chip)
 
     def rehydrate(self) -> int:
         """Warm recovery: the journal's hottest pages, hottest first,

@@ -34,6 +34,10 @@ The reference numbers scenes with a per-process counter, under which a
 peer's or a restarted process's serial 3 is another scene (ROADMAP
 C.18).  A scene with no file behind it keeps a counter, below 2**52.
 Serials stay on the host: no device tensor holds one.
+
+Under mesh per-member placement (``GSKY_MESH_PLACE=1``, `mesh.pools`)
+a scene is uploaded to the member that owns its serial, the one whose
+page pool stages its pages.
 """
 
 from __future__ import annotations
@@ -355,11 +359,20 @@ class SceneCache:
                                       content_serial(g, level, (H, W)))
         ingest_stats.record_whole(data.nbytes)
         true_h, true_w = data.shape
-        dev = torch.from_numpy(encode_scene(data, nodata)).to(self.device)
+        serial = content_serial(g, level, (true_h, true_w))
+        dev = torch.from_numpy(encode_scene(data, nodata)).to(
+            self._upload_device(serial))
         return DeviceScene(dev=dev, height=true_h, width=true_w,
                            nodata=float("nan"), gt=gt, crs=crs,
-                           serial=content_serial(g, level,
-                                                 (true_h, true_w)))
+                           serial=serial)
+
+    def _upload_device(self, serial: int) -> torch.device:
+        """Where a scene is uploaded: under mesh per-member placement
+        (``GSKY_MESH_PLACE=1``) the member that owns it, whose page pool
+        will stage its pages (`mesh.pools.staging_device`); else this
+        cache's device."""
+        from ..mesh.pools import staging_device
+        return staging_device(serial, self.device) or self.device
 
     def _staged_scene(self, buf: torch.Tensor, pool, H: int, W: int,
                       nodata, gt: GeoTransform, crs: CRS,
@@ -374,11 +387,12 @@ class SceneCache:
             valid = nodata_mask(view, nd)
             valid &= np.isfinite(view)
             view[~valid] = np.nan
-        dev = buf.to(self.device, non_blocking=True)
+        target = self._upload_device(serial)
+        dev = buf.to(target, non_blocking=True)
         done = None
-        if self.device.type == "cuda":
+        if target.type == "cuda":
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+            done.record(torch.cuda.current_stream(target))
         pool.release(buf, dev, done)
         ingest_stats.record_whole(nbytes)
         with self._lock:

@@ -67,8 +67,19 @@ counts them in ``cancelled``.  Each launch is a
 ``gsky_wave_dispatches_total{kind}`` tick and a ``gsky_wave_occupancy``
 sample; assembly times, inter-wave gaps and staged groups are
 ``gsky_wave_assembly_ms``, ``gsky_wave_gap_ms`` and
-``gsky_wave_staged_total`` (`obs.metrics`).  Not ported: mesh waves
-(A.11).
+``gsky_wave_staged_total`` (`obs.metrics`).
+
+Mesh waves (``GSKY_MESH=1`` with more than one mesh member, as the
+reference's): every group is handed to the mesh dispatcher
+(`mesh.dispatch`), whose partition rules pick its layout.  Assembly
+stages a ``granule`` group's per-member slices under
+``device_guard.run("mesh.stage")``, the dispatch runs under
+``"dispatch.wave"`` as every group's does, and the drainer times each
+member's completion (`MeshDispatcher.observe_shards`) inside the wave's
+guarded readback, before its copy; a failed mesh wave fails its entries
+over one by one to their per-call legs.  A mesh that cannot be built
+fails the drained entries with its error, per-call legs untried (the
+reference's scheduler falls back to single-device).
 """
 
 from __future__ import annotations
@@ -282,10 +293,10 @@ class _StagingRing:
 
 class _StagedWave:
     __slots__ = ("kind", "key", "entries", "plan", "dev", "slot",
-                 "pool_gen")
+                 "pool_gen", "mesh")
 
     def __init__(self, kind, key, entries, plan=None, dev=None, slot=None,
-                 pool_gen=None):
+                 pool_gen=None, mesh=None):
         self.kind = kind
         self.key = key
         self.entries = entries
@@ -293,6 +304,7 @@ class _StagedWave:
         self.dev = dev
         self.slot = slot
         self.pool_gen = pool_gen
+        self.mesh = mesh
 
 
 def _stack(es, name):
@@ -466,10 +478,15 @@ class WaveScheduler:
                 continue
             if item is None:
                 return
-            groups, done = item
+            groups, done, observe = item
             flat = [d for _k, _es, devs in groups for d in devs]
 
-            def read(flat=flat, done=done):
+            def read(groups=groups, flat=flat, done=done, observe=observe):
+                if observe is not None:
+                    # a mesh wave: each member's completion timed before
+                    # the copy
+                    for _k, _es, devs in groups:
+                        observe(devs)
                 if done is not None:
                     done.synchronize()
                 return tuple(self._to_host(d) for d in flat)
@@ -553,6 +570,13 @@ class WaveScheduler:
             groups.setdefault((e.kind, e.key), []).append(e)
         return groups
 
+    def _mesh(self):
+        """The mesh dispatcher when mesh serving is on for this
+        scheduler's device, else None.  A mesh that cannot be built
+        raises."""
+        from ..mesh.dispatch import default_mesh
+        return default_mesh(self.device)
+
     def run_wave(self) -> int:
         """Assemble and dispatch one wave on this thread (the
         GSKY_WAVE_PIPELINE=0 leg; tests step it directly).  Returns the
@@ -561,13 +585,20 @@ class WaveScheduler:
         groups = self._drain_groups()
         readback = []
         dispatched = 0
+        try:
+            md = self._mesh() if groups else None
+        except Exception as exc:
+            self._fail_groups(groups, exc)
+            return 0
         for (kind, _key), es in groups.items():
+            plan = None
+            if md is None:
+                try:
+                    plan = autoplan.plan_wave_group(kind, es)
+                except Exception:   # noqa: BLE001 - an optimisation
+                    plan = None
             try:
-                plan = autoplan.plan_wave_group(kind, es)
-            except Exception:   # noqa: BLE001 - planning is an optimisation
-                plan = None
-            try:
-                devs = self._timed_dispatch(kind, es, plan, None)
+                devs = self._timed_dispatch(kind, es, plan, None, md)
             except Exception as exc:
                 # an incident fails the wave over entry by entry
                 self._failover(es, exc)
@@ -575,7 +606,8 @@ class WaveScheduler:
             dispatched += len(es)
             readback.append((kind, es, devs))
         if readback:
-            self._put_readback(readback)
+            self._put_readback(readback,
+                               None if md is None else md.observe_shards)
         if dispatched:
             ms = (time.perf_counter() - t0) * 1e3
             with self._lock:
@@ -590,13 +622,20 @@ class WaveScheduler:
         t0 = time.perf_counter()
         groups = self._drain_groups()
         staged_n = 0
+        md = None
+        if groups:
+            try:
+                md = self._mesh()
+            except Exception as exc:
+                self._fail_groups(groups, exc)
+                return 0
         for (kind, key), es in groups.items():
             self._q_wait_space()
             if self._stop.is_set():
                 self._failover(es, RuntimeError("wave scheduler shut down"))
                 continue
             try:
-                sg = self._stage_group(kind, key, es)
+                sg = self._stage_group(kind, key, es, md)
             except Exception as exc:
                 self._failover(es, exc)
                 continue
@@ -613,8 +652,13 @@ class WaveScheduler:
             WAVE_ASSEMBLY_MS.observe(ms)
         return staged_n
 
-    def _stage_group(self, kind: str, key: tuple,
-                     es: List[_Entry]) -> _StagedWave:
+    def _stage_group(self, kind: str, key: tuple, es: List[_Entry],
+                     md=None) -> _StagedWave:
+        if md is not None:
+            # the mesh stages its granule layout's member slices now
+            dev = device_guard.run(
+                "mesh.stage", lambda: md.stage_wave(self, kind, es))
+            return _StagedWave(kind, key, es, dev=dev, mesh=md)
         if kind == "drill":
             # drill blocks already lie on the device: nothing to upload
             return _StagedWave(kind, key, es)
@@ -664,7 +708,8 @@ class WaveScheduler:
                     not es[0].payload["pool"].handoff_ok(sg.pool_gen):
                 raise RuntimeError("page pool torn down between wave "
                                    "assembly and dispatch")
-            devs = self._timed_dispatch(sg.kind, es, sg.plan, sg.dev)
+            devs = self._timed_dispatch(sg.kind, es, sg.plan, sg.dev,
+                                        sg.mesh)
         except Exception as exc:
             self._failover(es, exc)
             return 0
@@ -674,10 +719,14 @@ class WaveScheduler:
             self.staging.release(sg.slot)
         with self._lock:
             self.waves += 1
-        self._put_readback([(sg.kind, es, devs)])
+        self._put_readback([(sg.kind, es, devs)], None if sg.mesh is None
+                           else sg.mesh.observe_shards)
         return len(es)
 
-    def _put_readback(self, groups):
+    def _put_readback(self, groups, observe=None):
+        """Queue a wave's (kind, entries, outputs) groups for the
+        drainer; ``observe``, a mesh wave's shard probe, runs on each
+        group's outputs before their copy."""
         done = None
         if self.device.type == "cuda":
             try:
@@ -687,22 +736,26 @@ class WaveScheduler:
                 for _k, es, _d in groups:
                     self._failover(es, exc)
                 return
-        self._readback_q.put((groups, done))
+        self._readback_q.put((groups, done, observe))
         with self._lock:
             self.readback_depth_max = max(self.readback_depth_max,
                                           self._readback_q.qsize())
 
     # -- dispatch ------------------------------------------------------
 
-    def _timed_dispatch(self, kind, es, plan, staged):
+    def _timed_dispatch(self, kind, es, plan, staged, mesh=None):
         t0 = time.perf_counter()
         with self._lock:
             gap = None if self._t_dispatch_end is None \
                 else (t0 - self._t_dispatch_end) * 1e3
+        if mesh is not None:
+            def thunk():
+                return mesh.dispatch_wave(self, kind, es, staged)
+        else:
+            def thunk():
+                return self._dispatch_group(kind, es, plan, staged)
         try:
-            devs = device_guard.run(
-                "dispatch.wave",
-                lambda: self._dispatch_group(kind, es, plan, staged))
+            devs = device_guard.run("dispatch.wave", thunk)
         finally:
             for e in es:
                 e.cleanup_once()
@@ -728,6 +781,17 @@ class WaveScheduler:
         WAVE_DISPATCHES.labels(kind=kind).inc()
         WAVE_OCCUPANCY.observe(float(n))
         return devs
+
+    def _fail_groups(self, groups, exc: Exception):
+        """A mesh that cannot be built: every drained entry gets the
+        error, none its per-call leg, which would hide it."""
+        for es in groups.values():
+            for e in es:
+                e.cleanup_once()
+                if not e.future.done():
+                    with self._lock:
+                        self.failed += 1
+                    e.future.set_exception(exc)
 
     def _failover(self, entries: List[_Entry], exc: Exception):
         """A failed wave's entries, each rendered again through its

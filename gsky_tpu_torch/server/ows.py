@@ -1832,13 +1832,17 @@ class OWSServer:
     def _debug(self) -> Response:
         """The metrics summary and the subsystems' stats, the
         reference's ``/debug`` blocks for what the port has; its ``jax``
-        block is ``torch`` here."""
+        block is ``torch`` here, and its ``spmd`` flag a block that also
+        names the mesh's members (``chips``, ``devices``, ``virtual``)."""
         from ..fleet import fleet_stats
         from ..ingest import stats as ingest_stats
         from ..ingest import prefetch, staging
         from ..obs.tsan import tsan_stats
         from ..ops.expr import expr_cache_stats, expr_fuse_enabled
         from ..ops.paged import expr_fused_stats
+        from ..mesh.dispatch import mesh_stats
+        from ..mesh.pools import active_mesh_pools
+        from ..parallel.spmd import spmd_enabled
         from ..pipeline import drill_cache
         from ..pipeline.autoplan import plan_stats
         from ..resilience import cancel_stats
@@ -1852,6 +1856,12 @@ class OWSServer:
             "devices": torch.cuda.device_count() if cuda else 1,
             "name": torch.cuda.get_device_name(self.device) if cuda else "",
             "kernels": kernel_launches()}
+        doc["spmd"] = {"enabled": spmd_enabled(self.device),
+                       **self._mesh_members()}
+        doc["mesh"] = mesh_stats()
+        mp = active_mesh_pools()
+        if mp is not None:
+            doc["mesh"]["pools"] = mp.stats()
         doc["plan"] = plan_stats()
         doc["expr"] = {"fuse": expr_fuse_enabled(),
                        "cache": expr_cache_stats(), **expr_fused_stats()}
@@ -1861,6 +1871,7 @@ class OWSServer:
             "stride_cache": len(ex._stride_cache),
             "dispatches": {"x".join(map(str, k)): n
                            for k, n in ex.bucket_stats.items()},
+            "routes": dict(ex.route_counts),
             "batcher": ex.batcher.stats(),
             "paged": {"engaged": ex.paged_engaged,
                       "declined": ex.paged_declined,
@@ -1896,6 +1907,14 @@ class OWSServer:
         doc["pressure"] = default_monitor().stats()
         doc["tsan"] = tsan_stats()
         return _json(doc)
+
+    def _mesh_members(self) -> Dict:
+        """The members a mesh of this server's device would have: their
+        count and whether they share a device (a virtual mesh)."""
+        from ..parallel.mesh import mesh_devices
+        devs = mesh_devices(self.device)
+        return {"chips": len(devs), "devices": [str(d) for d in devs],
+                "virtual": len(set(devs)) < len(devs)}
 
     def _fabric_replay(self, q: Dict[str, str]) -> Response:
         """The peer endpoint of the fabric's gateway tier: the encoded

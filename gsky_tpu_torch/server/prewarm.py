@@ -19,7 +19,10 @@ does that work, in order:
    `wave_size_lattice`), and of kernel B2 (`ops.warp_render.
    render_scenes`) per (method, tile edge), each synchronised.  The
    reference's granule, page-slot and block-shape axes are compile keys
-   of XLA programs: one CUDA kernel serves every point of them.
+   of XLA programs: one CUDA kernel serves every point of them;
+4. with mesh serving on (``GSKY_MESH=1``), the mesh layouts' first
+   launches on every member (`MeshDispatcher.prewarm_programs`),
+   counted in ``mesh_programs``.
 
 On a CPU executor there is nothing to build: the launches run the
 kernels' plain versions and `compile_count` does not move.
@@ -202,8 +205,9 @@ def prewarm(configs: Dict, executor, sizes: Optional[List[int]] = None,
             bucket: Optional[int] = None) -> Dict:
     """Build, load and launch what the configured layers' requests will
     run, on ``executor``'s device and page pool.  Returns {"specs",
-    "programs" (launches), "expr_programs", "failures", "compiles",
-    "seconds"}; a failed launch is logged and counted, not raised."""
+    "programs" (launches), "mesh_programs", "expr_programs",
+    "failures", "compiles", "seconds"}; a failed launch is logged and
+    counted, not raised."""
     from ..ops import first_valid, stats, warp_render
     from ..ops.paged import render_byte_paged, render_expr_paged
     from ..ops.warp_render import render_scenes
@@ -266,7 +270,23 @@ def prewarm(configs: Dict, executor, sizes: Optional[List[int]] = None,
                         *_paged_inputs(pool, hw, bucket, step, W), consts,
                         method, n_ns, (hw, hw), step, auto, cs, fp.key)
                 expr_programs += programs - before
+    mesh_programs = 0
+    # the mesh layouts' axis: with mesh serving on (GSKY_MESH), the same
+    # (method, tile edge, wave size) lattice launches the granule waves
+    # and the time layout's drills on every member, so that the first
+    # mesh wave after a start meets no first launch
+    from ..mesh.dispatch import default_mesh
+    md = default_mesh(dev)
+    if md is not None:
+        try:
+            mesh_programs = md.prewarm_programs(pool, specs, sizes, waves,
+                                                step, bucket)
+            programs += mesh_programs
+        except Exception as e:   # noqa: BLE001 - counted and logged
+            failures += 1
+            log.warning("prewarm mesh lattice: %s", e)
     out = {"specs": len(specs), "programs": programs,
+           "mesh_programs": mesh_programs,
            "expr_programs": expr_programs, "failures": failures,
            "compiles": compile_count() - c0,
            "seconds": round(time.perf_counter() - t0, 3)}

@@ -688,12 +688,17 @@ def test_times_match_identical(archive):
 
 
 def test_unported_branches_raise(archive, monkeypatch):
-    _, tp = _pipelines(archive)
-    _, treq = _requests(archive, bands=["a"])
+    # GSKY_SPMD=1 with one mesh member (GSKY_CPU_DEVICES unset) serves
+    # the drill single-device, as the reference's does on a one-device
+    # host: its one-device path is its GSKY_SPMD=0 path
+    jp, tp = _pipelines(archive)
+    jreq, treq = _requests(archive, bands=["a", "b"])
+    monkeypatch.delenv("GSKY_CPU_DEVICES", raising=False)
+    monkeypatch.delenv("GSKY_MESH_DEVICES", raising=False)
     monkeypatch.setenv("GSKY_SPMD", "1")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tp.process(treq)
+    tres = tp.process(treq)
     monkeypatch.delenv("GSKY_SPMD")
+    _assert_same(jp.process(jreq), tres)
     # a VRT drill is served: an expression over the data granule and
     # its co-registered mask granule (``a``, of the float32 file on the
     # same tile), reduced on the host in both packages
