@@ -19,6 +19,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    pool directly equals `ops.paged.block_boxes`' prediction, > 0), a
    250 x 250 tile whose blocks' boxes cross page rows and columns, and
    a tile at the scene's corner, with boxes clipped at window edges;
+   each again at every other tile of the ladder (phase 26), bit-exact
+   to the default tile and its direct blocks as predicted at that tile;
 3. end to end at real size: four overlapping Landsat-8-size granules
    (7681 x 7821 int16, 30 m, EPSG:32755, nodata -999) written with the
    port's GeoTIFF writer, crawled into the port's MAS store, and 32
@@ -352,6 +354,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    ``mesh_programs``.  Each part logs launches and bodies per member,
    the last wave's member skew and its wall time against the unsharded
    path.
+26. the output tiles of B1 and B2 (phase 3's block, after 13a; the wave
+   planner's `plan_block`) and the format registry's adapter tier.  26a, every
+   tile of the ladder (`plan_blocks`) at phase 3's 256^2 tile (its four
+   granules, and its first alone) per method, a bilinear wave of 10 of
+   phase 3's tiles without and with ``sb_of``, 15b's 1024^2 tile at
+   0.25x (B1) bilinear and cubic, B2's input (c) per method and 15b's
+   native 1024^2 tile (B2) bilinear and cubic: canv and best
+   bit-identical to the 8 x 32 launch and to the plain version, B1's
+   blocks read from the pool directly equal to `block_boxes`' prediction
+   at that tile, each tile's median device ms over 21 launches (CUDA
+   events, each launch queued behind a spin of the card), and the tile
+   `plan_block` picks marked, at most 1.05x the 8 x 32 time; 26b phase
+   13's tiles in waves from 16 threads with GSKY_PLAN=1 and =0, over the
+   default ladder and over one without 8 x 32 (every wave a planned
+   tile): PNG bytes equal, ``gsky_plan_block_shape``'s gains by tile
+   equal to B1's launches at that tile; 26c the prewarm over a config of
+   phase 12a's layer, the same two ladders: each planned tile launched
+   once at its lattice point, as its ``blocks`` report; 26d where PIL
+   imports, a lossless JP2 with a .j2w (a PNG with a .pgw where PIL has
+   no JPEG 2000 codec) crawled and served through B1, its tile
+   byte-equal to a GeoTIFF's of the same pixels, or else the crawler's
+   record of a JP2 naming the ImportError.  ``python3 chip_smoke.py
+   --phase 26`` runs phase 1, phase 3's archive and phase 26 alone.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -734,15 +759,16 @@ def b1_grid(h, w, scale, degrees, x0, y0, dev):
                  for v in (sx, sy))
 
 
-def predicted_direct_blocks(sx, sy, params, method):
-    """`block_boxes`' count of B1 blocks that read the pool directly,
-    over N tiles: sx/sy (N, h, w), params (N*T, 16)."""
-    from gsky_tpu_torch.ops.paged import block_boxes
+def predicted_direct_blocks(sx, sy, params, method, block=None):
+    """`block_boxes`' count of B1 blocks of ``block`` = (rows, cols)
+    (None: the default tile) that read the pool directly, over N tiles:
+    sx/sy (N, h, w), params (N*T, 16)."""
+    from gsky_tpu_torch.ops.paged import BLOCK, block_boxes
     T = params.shape[0] // sx.shape[0]
     total = 0
     for n in range(sx.shape[0]):
         _, fits = block_boxes(sx[n], sy[n], params[n * T:(n + 1) * T],
-                              method)
+                              method, block or BLOCK)
         total += int((~fits).any(-1).sum())
     return total
 
@@ -753,11 +779,14 @@ def phase_b1_cases(dev="cuda"):
     whole-scene window, granule 1 a window of page rows 2-7 and columns
     1-2 with an offset affine (boxes clip at its edges), granule 2 a
     narrower true extent.  Per call the kernel's direct-block count must
-    equal `block_boxes`' prediction.  Returns (comparisons, direct
-    blocks counted, direct blocks predicted); the zoomed-out case must
-    give a count > 0."""
+    equal `block_boxes`' prediction; each call again at every other tile
+    of the ladder (`autoplan.plan_blocks`, phase 26), bit-identical to
+    the default tile's, its direct blocks as `block_boxes` predicts at
+    that tile.  Returns (comparisons, direct blocks counted, direct
+    blocks predicted); the zoomed-out case must give a count > 0."""
     import torch
     from gsky_tpu_torch.ops import paged
+    from gsky_tpu_torch.pipeline.autoplan import plan_blocks
     from gsky_tpu_torch.pipeline.pages import PagePool
     dev = torch.device(dev)
     rng = np.random.default_rng(11)
@@ -790,27 +819,37 @@ def phase_b1_cases(dev="cuda"):
             if n_ns == 1:
                 prm[:3, 10] = 0.0
             for method in METHODS:
-                want = predicted_direct_blocks(sx, sy, prm, method)
-                paged.reset_direct_blocks(dev)
                 with pool.locked_pool() as parr:
-                    ck, bk = paged.paged_render_scored(
-                        parr, tab_d, prm, sx, sy, method, n_ns)
                     cp, bp = paged.paged_render_scored_plain(
                         parr, tab_d, prm, sx, sy, method, n_ns)
-                got = paged.direct_blocks(dev)
-                check_pair(method, ck, bk, cp, bp,
-                           f"B1 {name} {method} n_ns={n_ns}")
-                if got != want:
-                    raise AssertionError(
-                        f"B1 {name} {method}: {got} blocks read the pool "
-                        f"directly, block_boxes predicts {want}")
-                if name.startswith("zoomed") and not want:
-                    raise AssertionError(f"B1 {name}: no box over budget")
-                if not bool((bk > float("-inf")).any()):
-                    raise AssertionError(f"B1 {name}: nothing rendered")
-                counted += got
-                predicted += want
-                n += 1
+                for tile in [paged.BLOCK] + [t for t in plan_blocks()
+                                             if t != paged.BLOCK]:
+                    blk = None if tile == paged.BLOCK else tile
+                    want = predicted_direct_blocks(sx, sy, prm, method,
+                                                   tile)
+                    paged.reset_direct_blocks(dev)
+                    with pool.locked_pool() as parr:
+                        ck, bk = paged.paged_render_scored(
+                            parr, tab_d, prm, sx, sy, method, n_ns, None,
+                            blk)
+                    got = paged.direct_blocks(dev)
+                    what = f"B1 {name} {method} n_ns={n_ns} {tile}"
+                    if blk is None:
+                        check_pair(method, ck, bk, cp, bp, what)
+                        base = (ck, bk)
+                    else:
+                        check_exact(what, ck, bk, *base)
+                    if got != want:
+                        raise AssertionError(
+                            f"{what}: {got} blocks read the pool "
+                            f"directly, block_boxes predicts {want}")
+                    if name.startswith("zoomed") and not want:
+                        raise AssertionError(f"{what}: no box over budget")
+                    if not bool((bk > float("-inf")).any()):
+                        raise AssertionError(f"{what}: nothing rendered")
+                    counted += got
+                    predicted += want
+                    n += 1
     return n, counted, predicted
 
 
@@ -1020,21 +1059,21 @@ def render(pipe, root, boxes, method):
     return tiles, secs
 
 
-def tile_group(pipe, root, box):
-    """The scene group the fused route builds for the 256-px tile
+def tile_group(pipe, root, box, px=256):
+    """The scene group the fused route builds for the ``px``-px tile
     ``box``."""
     from gsky_tpu_torch.geo.crs import parse_crs
     from gsky_tpu_torch.geo.transform import BBox, GeoTransform
     from gsky_tpu_torch.pipeline.tile import ns_prio
     from gsky_tpu_torch.pipeline.types import GeoTileRequest
-    dst_gt = GeoTransform.from_bbox(BBox(*box), 256, 256)
+    dst_gt = GeoTransform.from_bbox(BBox(*box), px, px)
     merc = parse_crs("EPSG:3857")
     req = GeoTileRequest(collection=root, bands=[NS], bbox=BBox(*box),
                          crs=merc)
     granules = pipe.index(req)
     _, ns_ids, prio = ns_prio(granules)
     return pipe.executor._scene_groups(granules, ns_ids, prio, dst_gt, merc,
-                                       256, 256)[0]
+                                       px, px)[0]
 
 
 def main_operands(pipe, root, box):
@@ -1116,7 +1155,8 @@ def stage_breakdown(pipe, root, boxes, method):
 
 class CaptureB1:
     """Keeps every B1 call's (sx, sy, params, method) while installed
-    (with ``full``, its whole argument list); the wrapper it calls counts
+    (with ``full``, its whole argument list but the tile) and its output
+    tile (``blks``: None for the default); the wrapper it calls counts
     launches as always."""
 
     def __init__(self, full=False):
@@ -1125,12 +1165,16 @@ class CaptureB1:
         self.orig = paged.paged_render_scored
         self.full = full
         self.args = []
+        self.blks = []
         paged.paged_render_scored = self._call
 
-    def _call(self, pool, tables, params, sx, sy, method, n_ns, sb_of=None):
+    def _call(self, pool, tables, params, sx, sy, method, n_ns, sb_of=None,
+              blk=None):
         self.args.append((pool, tables, params, sx, sy, method, n_ns, sb_of)
                          if self.full else (sx, sy, params, method))
-        return self.orig(pool, tables, params, sx, sy, method, n_ns, sb_of)
+        self.blks.append(blk)
+        return self.orig(pool, tables, params, sx, sy, method, n_ns, sb_of,
+                         blk)
 
     def remove(self):
         self.mod.paged_render_scored = self.orig
@@ -3341,7 +3385,7 @@ def time_planes_b2(args, card):
     scenes of the 2x overview), beside its plain version and its pixel
     and sector bounds."""
     from gsky_tpu_torch.ops import warp_render
-    scenes, sx, sy, p16, method, n_ns = args
+    scenes, sx, sy, p16, method, n_ns = args[:6]
     saved = warp_render.warp_render_kernel.launches
     ms = kernel_device_ms(lambda: warp_render.warp_render_scored(
         scenes, sx, sy, p16, method, n_ns), "warp_render")
@@ -3524,8 +3568,10 @@ class CheckWide:
         paged.paged_render_scored = self._b1
         warp_render.warp_render_scored = self._b2
 
-    def _b1(self, pool, tables, params, sx, sy, method, n_ns, sb_of=None):
-        ck, bk = self.b1(pool, tables, params, sx, sy, method, n_ns, sb_of)
+    def _b1(self, pool, tables, params, sx, sy, method, n_ns, sb_of=None,
+            blk=None):
+        ck, bk = self.b1(pool, tables, params, sx, sy, method, n_ns, sb_of,
+                         blk)
         if tuple(sx.shape[-2:]) == self.hw and ("B1", method) not in \
                 self.errs:
             cp, bp = self.p1(pool, tables, params, sx, sy, method, n_ns,
@@ -3543,8 +3589,8 @@ class CheckWide:
                     lambda: self.b1(*args), lambda: self.p1(*args), nbytes)
         return ck, bk
 
-    def _b2(self, scenes, sx, sy, params, method, n_ns):
-        ck, bk = self.b2(scenes, sx, sy, params, method, n_ns)
+    def _b2(self, scenes, sx, sy, params, method, n_ns, blk=None):
+        ck, bk = self.b2(scenes, sx, sy, params, method, n_ns, blk)
         if tuple(sx.shape[-2:]) == self.hw and ("B2", method) not in \
                 self.errs:
             cp, bp = self.p2(scenes, sx, sy, params, method, n_ns)
@@ -9143,6 +9189,534 @@ def phase_mesh_mosaic(root, store, card):
     return n
 
 
+# -- phase 26: the output tiles of B1 and B2 ---------------------------
+
+SWEEP_REPS = 21             # timed launches a tile and point; the median
+SWEEP_SPIN = 1_000_000      # card clock cycles spun before a timed launch
+TILE_SLACK = 1.05           # the planned tile's time over the default's
+SWEEP_WAVE = 10             # lanes of 26a's wave
+WCS_ORIGIN = (551000.0, 6149000.0)   # 15b's 1024^2 tiles start here
+
+
+def event_ms(fn, reps=SWEEP_REPS):
+    """Median device ms of one call of ``fn`` over ``reps`` calls: CUDA
+    events around each call, each call queued behind a spin of the card
+    (`torch.cuda._sleep`), so that the events take the launch's device
+    time and none of the host's enqueue (warm L2: the same inputs)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(reps):
+        torch.cuda._sleep(SWEEP_SPIN)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in evs]))
+
+
+def b1_lane(pipe, root, box, px=256):
+    """One B1 lane as the fused route builds it for the ``px``-px tile
+    ``box``: host tables (T, S), host params (T, 16), sx and sy (h, w) on
+    the card.  The tile must take the paged leg."""
+    from gsky_tpu_torch.ops.paged import page_slots
+    from gsky_tpu_torch.ops.warp import _bilerp_grid
+    ex = pipe.executor
+    group = tile_group(pipe, root, box, px)
+    if ex.page_spans(group, page_slots()) is None:
+        raise AssertionError(f"26a: the {px}^2 tile {box} declines")
+    tables, p16, _ = ex._paged_from_group(group, 1)
+    ex.pool.unpin(tables)
+    sx, sy = _bilerp_grid(group.ctrl_dev[:, None], px, px, group.step)
+    return tables, p16, sx[0].contiguous(), sy[0].contiguous()
+
+
+def stack_lanes(lanes, dev):
+    """B1's wave operands over ``lanes`` (`b1_lane`): tables (N, T, S) and
+    params (N*T, 16), the lanes padded to the most granules (namespace -1
+    rows over the null page) and slots (the null page), sx and sy (N, h,
+    w)."""
+    import torch
+    from gsky_tpu_torch.ops.paged import PARAMS_W
+    T = max(t.shape[0] for t, _, _, _ in lanes)
+    S = max(t.shape[1] for t, _, _, _ in lanes)
+    tables = np.zeros((len(lanes), T, S), np.int32)
+    params = np.zeros((len(lanes), T, PARAMS_W), np.float32)
+    params[:, :, 10] = -1.0
+    for n, (t, p, _, _) in enumerate(lanes):
+        tables[n, :t.shape[0], :t.shape[1]] = t
+        params[n, :p.shape[0]] = p
+    return (torch.from_numpy(tables).to(dev),
+            torch.from_numpy(params.reshape(-1, PARAMS_W)).to(dev),
+            torch.stack([sx for _, _, sx, _ in lanes]).contiguous(),
+            torch.stack([sy for _, _, _, sy in lanes]).contiguous())
+
+
+def sweep_points(pipe, root):
+    """26a's points: phase 3's 256^2 tile (its granules, and its first
+    alone) per method; a bilinear wave of `SWEEP_WAVE` of phase 3's tiles
+    without and with ``sb_of`` (the table's rows reversed); 15b's 1024^2
+    tile at 0.25x (paged), bilinear and cubic (B1); B2's input (c) (a 4x
+    tile) per method and 15b's native 1024^2 tile, bilinear and cubic.
+    Returns [(kernel, name, method, operands)]."""
+    import torch
+    dev = pipe.executor.device
+    boxes = tile_boxes()
+    points = []
+    lane = b1_lane(pipe, root, boxes[0])
+    for T in sorted({lane[0].shape[0], 1}, reverse=True):
+        one = stack_lanes([(lane[0][:T], lane[1][:T], lane[2], lane[3])],
+                          dev)
+        for m in METHODS:
+            points.append(("B1", f"256^2 T{T}", m, one + (None,)))
+    wave = stack_lanes([b1_lane(pipe, root, b)
+                        for b in boxes[:SWEEP_WAVE]], dev)
+    points.append(("B1", f"wave {SWEEP_WAVE}", "bilinear", wave + (None,)))
+    rev = torch.arange(SWEEP_WAVE - 1, -1, -1, device=dev)
+    points.append(("B1", f"wave {SWEEP_WAVE} sb_of", "bilinear",
+                   (wave[0][rev].contiguous(),) + wave[1:]
+                   + (rev.to(torch.int32).contiguous(),)))
+    wide = stack_lanes([b1_lane(pipe, root,
+                                wcs_box(WCS_TILE, 0.25, *WCS_ORIGIN),
+                                WCS_TILE)], dev)
+    for m in ("bilinear", "cubic"):
+        points.append(("B1", f"{WCS_TILE}^2 0.25x", m, wide + (None,)))
+    c = b2_operands(pipe, root, zoom_boxes(4.0)[0])
+    for m in METHODS:
+        points.append(("B2", "(c) 4x", m, c))
+    from gsky_tpu_torch.ops.warp import _bilerp_grid, params16
+    g = tile_group(pipe, root, wcs_box(WCS_TILE, 1.0, *WCS_ORIGIN),
+                   WCS_TILE)
+    n = len(g.scenes)
+    p16 = params16(torch.from_numpy(g.params[:n].astype(np.float32))
+                   .to(dev))
+    sx, sy = _bilerp_grid(g.ctrl_dev, WCS_TILE, WCS_TILE, g.step)
+    native = ([s.dev for s in g.scenes], p16, sx.contiguous(),
+              sy.contiguous())
+    for m in ("bilinear", "cubic"):
+        points.append(("B2", f"{WCS_TILE}^2 native", m, native))
+    return points
+
+
+def b1_launch(pool, tables, params, sx, sy, method, sb_of, blk):
+    """A launch of kernel B1 at one namespace as `paged_render_scored`
+    makes it, on outputs allocated once and without the wrapper's checks
+    (its ``sb_of`` range check reads back from the card): what 26a
+    times."""
+    import torch
+    from gsky_tpu_torch.ops import paged, warp_render
+    N, h, w = sx.shape
+    _, T, S = tables.shape
+    rows, cols = warp_render.check_tile(blk)
+    canv = torch.empty((N, 1, h, w), dtype=torch.float32, device=pool.device)
+    best = torch.empty_like(canv)
+    args = (warp_render.method_code(method), 1, pool.data_ptr(),
+            tables.data_ptr(), params.data_ptr(), sx.data_ptr(),
+            sy.data_ptr(), canv.data_ptr(), best.data_ptr(), N, T, S,
+            pool.shape[1], pool.shape[2], h, w, paged.STAGE_BUDGET,
+            paged._direct_counter(pool.device).data_ptr(),
+            None if sb_of is None else sb_of.data_ptr(), rows, cols)
+    return lambda: paged.paged_render_kernel(pool.device, *args)
+
+
+def sweep_b1(pool, ops, method, tiles):
+    """B1 at every tile of ``tiles`` (the default first) over one point's
+    operands: canv and best bit-identical to the default tile's launch and
+    to the plain version, the blocks read from the pool directly equal
+    `block_boxes`' prediction.  Returns {tile: (ms, direct blocks)}."""
+    from gsky_tpu_torch.ops import paged
+    tables, params, sx, sy, sb_of = ops
+    cp, bp = paged.paged_render_scored_plain(pool, tables, params, sx, sy,
+                                             method, 1, sb_of)
+    out = {}
+    for tile in tiles:
+        blk = None if tile == paged.BLOCK else tile
+        paged.reset_direct_blocks(pool.device)
+        ck, bk = paged.paged_render_scored(pool, tables, params, sx, sy,
+                                           method, 1, sb_of, blk)
+        direct = paged.direct_blocks(pool.device)
+        want = predicted_direct_blocks(sx, sy, params, method, tile)
+        if direct != want:
+            raise AssertionError(f"26a B1 {tile}: {direct} direct blocks, "
+                                 f"block_boxes predicts {want}")
+        check_exact(f"26a B1 {method} {tile} vs plain", ck, bk, cp, bp)
+        ms = event_ms(b1_launch(pool, tables, params, sx, sy, method, sb_of,
+                                blk))
+        out[tile] = (ms, direct)
+    return out
+
+
+def sweep_b2(ops, method, tiles):
+    """B2 at every tile of ``tiles`` over one point's operands, bit-
+    identical to its plain version (and so to the default tile's).
+    Returns {tile: (ms, 0)}."""
+    from gsky_tpu_torch.ops import warp_render
+    scenes, p16, sx, sy = ops
+    cp, bp = warp_render.warp_render_scored_plain(scenes, sx, sy, p16,
+                                                  method, 1)
+    out = {}
+    for tile in tiles:
+        blk = None if tile == warp_render.DEFAULT_TILE else tile
+        ck, bk = warp_render.warp_render_scored(scenes, sx, sy, p16, method,
+                                                1, blk)
+        check_exact(f"26a B2 {method} {tile} vs plain", ck, bk, cp, bp)
+        out[tile] = (event_ms(lambda: warp_render.warp_render_scored(
+            scenes, sx, sy, p16, method, 1, blk)), 0)
+    return out
+
+
+def phase_tile_sweep(pipe, root, card, points=None):
+    """Phase 26a: B1 and B2 at every tile of the ladder (`plan_blocks`)
+    at `sweep_points`: outputs bit-identical across tiles and to the
+    plain versions, B1's direct blocks as `block_boxes` predicts, each
+    tile's median device ms (`event_ms`), and the tile `plan_block`
+    picks, whose time must be at most `TILE_SLACK` x the default's.
+    The launch counts are left as they were (comparisons, not the main
+    path).  Returns a row per point and tile (for a fit of the model)."""
+    from gsky_tpu_torch.ops import paged, warp_render
+    from gsky_tpu_torch.pipeline import autoplan
+    saved = (paged.paged_render_kernel.launches,
+             warp_render.warp_render_kernel.launches)
+    default = warp_render.DEFAULT_TILE
+    tiles = [default] + [t for t in autoplan.plan_blocks() if t != default]
+    pool = pipe.executor.pool
+    pr, pc = pool.page_rows, pool.page_cols
+    rows = []
+    for kernel, name, method, ops in points or sweep_points(pipe, root):
+        if kernel == "B1":
+            tables, params, sx, sy, _ = ops
+            N, T, S = sx.shape[0], tables.shape[1], tables.shape[2]
+            with pool.locked_pool() as parr:
+                got = sweep_b1(parr, ops, method, tiles)
+            pick = autoplan.plan_block(sx.shape[1], sx.shape[2], 1, method,
+                                       T=T, S=S, pr=pr, pc=pc, N=N)
+        else:
+            scenes, _, sx, _ = ops
+            N, T, S = 1, len(scenes), 0
+            got = sweep_b2(ops, method, tiles)
+            pick = autoplan.plan_block(
+                sx.shape[0], sx.shape[1], 1, method, T=T, S=0,
+                win=tuple(scenes[0].shape), N=1)
+        pick = pick or default
+        h, w = sx.shape[-2:]
+        for t, (ms, direct) in got.items():
+            rows.append({"kernel": kernel, "point": name, "method": method,
+                         "h": h, "w": w, "N": N, "T": T, "S": S,
+                         "tile": list(t), "ms": ms, "direct": direct,
+                         "picked": t == pick})
+        log(f"26a {kernel} {name} {method} (N {N}, T {T}): " + ", ".join(
+            f"{r}x{c} {ms:.5f}{'*' if (r, c) == pick else ''}"
+            for (r, c), (ms, _) in got.items())
+            + f" ms; direct blocks {[d for _, d in got.values()]}; "
+            f"plan_block {pick[0]}x{pick[1]} ({card})")
+        if got[pick][0] > TILE_SLACK * got[default][0]:
+            raise AssertionError(
+                f"26a {kernel} {name} {method}: the planned tile "
+                f"{pick} takes {got[pick][0]:.5f} ms, the default "
+                f"{got[default][0]:.5f}")
+    paged.paged_render_kernel.launches, \
+        warp_render.warp_render_kernel.launches = saved
+    return rows
+
+
+# 26b-c: with a ladder without the default, every point plans a tile
+NO_DEFAULT_LADDER = "4x32,2x64"
+
+
+class CaptureB2:
+    """Keeps every B2 call's output tile (``blks``: None for the
+    default) while installed."""
+
+    def __init__(self):
+        from gsky_tpu_torch.ops import warp_render
+        self.mod = warp_render
+        self.orig = warp_render.warp_render_scored
+        self.blks = []
+        warp_render.warp_render_scored = self._call
+
+    def _call(self, scenes, sx, sy, params, method, n_ns, blk=None):
+        self.blks.append(blk)
+        return self.orig(scenes, sx, sy, params, method, n_ns, blk)
+
+    def remove(self):
+        self.mod.warp_render_scored = self.orig
+
+
+def tile_names(blks):
+    """Launches by tile name ("8x32" for the default): a Counter."""
+    from gsky_tpu_torch.ops.warp_render import DEFAULT_TILE
+    return Counter("%dx%d" % tuple(b or DEFAULT_TILE) for b in blks)
+
+
+def block_shape_gains(before):
+    """`gsky_plan_block_shape`'s samples by tile since ``before`` (a
+    Counter of them, or None for the samples themselves)."""
+    from gsky_tpu_torch.obs.metrics import PLAN_BLOCK_SHAPE
+    now = Counter({dict(lab)["shape"]: v
+                   for _, lab, v in PLAN_BLOCK_SHAPE.samples()})
+    if before is None:
+        return now
+    return Counter({k: int(now[k] - before[k]) for k in now
+                    if now[k] != before[k]})
+
+
+class PlanEnv:
+    """GSKY_PLAN and GSKY_PLAN_BLOCKS set (None: unset) inside the block,
+    and restored after it; the planner's memo and counters reset."""
+
+    def __init__(self, plan, ladder):
+        self.want = {"GSKY_PLAN": plan, "GSKY_PLAN_BLOCKS": ladder}
+
+    def __enter__(self):
+        from gsky_tpu_torch.pipeline import autoplan
+        self.saved = {k: os.environ.get(k) for k in self.want}
+        for k, v in self.want.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autoplan.reset_plan_state()
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_tile_waves(pipe, root, boxes, card):
+    """Phase 26b: phase 13's tiles per method from `WAVE_THREADS` threads
+    in waves, with GSKY_PLAN=1 and =0, over the default ladder and over
+    `NO_DEFAULT_LADDER` (every wave then takes a planned tile): the PNG
+    bytes of each tile equal across the two; with planning on, the
+    gains of ``gsky_plan_block_shape`` by tile equal B1's launches at
+    that tile (8x32 where none is planned), with it off none.  Returns
+    the B1 launches."""
+    from gsky_tpu_torch.io.png import encode_png
+    from gsky_tpu_torch.ops import paged
+    total = 0
+    for ladder in (None, NO_DEFAULT_LADDER):
+        for method in METHODS:
+            pngs = {}
+            for plan in ("1", "0"):
+                with PlanEnv(plan, ladder), WavesOn():
+                    before = block_shape_gains(None)
+                    cap = CaptureB1()
+                    n0 = paged.paged_render_kernel.launches
+                    try:
+                        tiles, _, wall = render_threads(
+                            pipe, root, boxes, method, WAVE_THREADS)
+                    finally:
+                        cap.remove()
+                    total += paged.paged_render_kernel.launches - n0
+                    gains = block_shape_gains(before)
+                launched = tile_names(cap.blks)
+                want = launched if plan == "1" else Counter()
+                if gains != want or not cap.blks:
+                    raise AssertionError(
+                        f"26b {method} GSKY_PLAN={plan} ladder {ladder}: "
+                        f"gsky_plan_block_shape gained {dict(gains)}, B1 "
+                        f"launched {dict(launched)}")
+                pngs[plan] = [encode_png([t]) for t in tiles]
+                log(f"26b {method} GSKY_PLAN={plan} ladder "
+                    f"{ladder or 'default'}: {len(boxes)} tiles in "
+                    f"{len(cap.blks)} B1 launches by tile "
+                    f"{dict(launched)}, {len(boxes) / wall:.1f} tiles/s "
+                    f"({card})")
+            if pngs["1"] != pngs["0"]:
+                raise AssertionError(f"26b {method} ladder {ladder}: PNG "
+                                     f"bytes differ with planning on")
+    return total
+
+
+def phase_tile_prewarm(pipe, root, store, card):
+    """Phase 26c: `server.prewarm.prewarm` over a config of phase 12a's
+    landsat layer (near, bilinear and cubic styles) on the card's
+    executor, waves on, over the default ladder and over
+    `NO_DEFAULT_LADDER`: every lattice point whose tile `plan_block`
+    plans (B1 per method, tile edge and wave size; B2 per method and
+    tile edge) launched once more at that tile, and the launches at a
+    planned tile equal prewarm's ``blocks``.  Returns the B1 and B2
+    launches."""
+    from gsky_tpu_torch.index.client import MASClient
+    from gsky_tpu_torch.ops import paged, warp_render
+    from gsky_tpu_torch.pipeline.autoplan import plan_block
+    from gsky_tpu_torch.server import prewarm as pw
+    from gsky_tpu_torch.server.config import ConfigWatcher
+    conf = os.path.join(root, "conf26")
+    os.makedirs(conf, exist_ok=True)
+    styles = [{"name": m, "title": m, "rgb_products": [NS], "resample": m}
+              for m in METHODS]
+    with open(os.path.join(conf, "config.json"), "w") as fp:
+        json.dump({"service_config": {"mas_address": "in-process"},
+                   "layers": [{"name": "landsat", "data_source": root,
+                               "rgb_products": [NS], "styles": styles}]},
+                  fp)
+    client = MASClient(store)
+    watcher = ConfigWatcher(conf, lambda a: client, install_signal=False)
+    ex = pipe.executor
+    pool = ex.pool
+    launches = Counter()
+    for ladder in (None, NO_DEFAULT_LADDER):
+        with PlanEnv("1", ladder), WavesOn():
+            specs = pw.layer_specs(watcher.configs)
+            sizes = pw._env_list("GSKY_PREWARM_SIZES", "256")
+            bucket = int(os.environ.get("GSKY_PREWARM_BUCKET", 512))
+            want = Counter()
+            for method, _n, _a, _c in specs:
+                for hw in sizes:
+                    plans = [plan_block(hw, hw, 1, method, T=1, S=0,
+                                        win=(bucket, bucket))]
+                    plans += [plan_block(hw, hw, 1, method, T=1, S=1,
+                                         pr=pool.page_rows,
+                                         pc=pool.page_cols, N=W)
+                              for W in pw.wave_size_lattice()]
+                    want.update(tile_names(b for b in plans if b))
+            c1, c2 = CaptureB1(), CaptureB2()
+            n1 = paged.paged_render_kernel.launches
+            n2 = warp_render.warp_render_kernel.launches
+            try:
+                out = pw.prewarm(watcher.configs, ex)
+            finally:
+                c1.remove()
+                c2.remove()
+            launches["B1"] += paged.paged_render_kernel.launches - n1
+            launches["B2"] += warp_render.warp_render_kernel.launches - n2
+        got = tile_names(b for b in c1.blks + c2.blks if b is not None)
+        if out["failures"] or got != want or dict(got) != out["blocks"]:
+            raise AssertionError(
+                f"26c ladder {ladder}: planned launches {dict(got)}, "
+                f"lattice plans {dict(want)}, prewarm {out}")
+        log(f"26c ladder {ladder or 'default'}: prewarm {out['programs']} "
+            f"launches, planned tiles {out['blocks']} each launched once "
+            f"at its lattice point ({out['seconds']} s; {card})")
+    return launches
+
+
+def phase_adapter(root, card, device="cuda"):
+    """Phase 26d: the registry's PIL adapter.  Where PIL imports with
+    JPEG 2000: a lossless 8-bit JP2 (1024^2, seeded) beside an ESRI world
+    file (.j2w, 0.0001 degree pixels; a PNG and a .pgw where PIL has no
+    JPEG 2000 codec) and a GeoTIFF of the same pixels and geotransform
+    (EPSG:4326), each crawled into a MAS store and rendered as a
+    bilinear 256^2 EPSG:3857 tile through `TilePipeline(device="cuda")`,
+    one B1 launch each: the image's tile byte-equal to the GeoTIFF's.
+    Where PIL does not import: the crawler's record of a JP2 names the
+    ImportError.  Returns the B1 launches."""
+    from gsky_tpu_torch.geo.crs import EPSG4326, parse_crs
+    from gsky_tpu_torch.geo.transform import BBox, GeoTransform, \
+        transform_bbox
+    from gsky_tpu_torch.index.crawler import extract
+    from gsky_tpu_torch.io.geotiff import write_geotiff
+    from gsky_tpu_torch.ops import paged
+    from gsky_tpu_torch.pipeline.types import GeoTileRequest
+    adir = os.path.join(root, "adapter26")
+    os.makedirs(adir, exist_ok=True)
+    rng = np.random.default_rng(26)
+    yy, xx = np.mgrid[0:1024, 0:1024].astype(np.float32)
+    data = (120 + 60 * np.sin(xx / 37.0) * np.cos(yy / 53.0)
+            + rng.normal(0, 8, (1024, 1024))).clip(1, 255).astype(np.uint8)
+    try:
+        from PIL import Image, features
+    except ImportError:
+        Image = None
+    jp2 = Image is not None and features.check("jpg_2000")
+    img = os.path.join(adir, "S2_B04_20200110" + (".jp2" if jp2 or
+                                                  Image is None else ".png"))
+    if Image is None:
+        with open(img, "wb") as fp:
+            fp.write(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(64))
+        rec = extract(img)
+        if "No module named 'PIL'" not in rec.get("error", ""):
+            raise AssertionError(f"26d: the record without PIL: {rec}")
+        log(f"26d: PIL does not import here; the crawler's record of a "
+            f"JP2 names the ImportError: {rec['error']!r}")
+        return 0
+    if jp2:
+        Image.fromarray(data, "L").save(img, "JPEG2000", irreversible=False)
+    else:
+        Image.fromarray(data, "L").save(img, "PNG")
+    with open(img[:-4] + (".j2w" if jp2 else ".pgw"), "w") as fp:
+        fp.write("0.0001\n0.0\n0.0\n-0.0001\n148.00005\n-35.00005\n")
+    tif = os.path.join(adir, "S2_B04_20200110.tif")
+    write_geotiff(tif, data, GeoTransform(148.0, 0.0001, 0.0, -35.0, 0.0,
+                                          -0.0001), EPSG4326,
+                  compress=False)
+    merc = parse_crs("EPSG:3857")
+    # ~1 source pixel a pixel: the windows fit the page slots (B1)
+    box = transform_bbox(BBox(148.02, -35.045, 148.045, -35.02), EPSG4326,
+                         merc)
+    tiles = {}
+    n0 = paged.paged_render_kernel.launches
+    for path in (img, tif):
+        rec = extract(path)
+        if rec.get("error"):
+            raise AssertionError(f"26d: {path}: {rec['error']}")
+        store = crawl([(path, "S2_B04")])
+        pipe = make_pipeline(store, device)
+        req = GeoTileRequest(collection=adir, bands=["S2_B04"],
+                             bbox=box, crs=merc, width=256, height=256,
+                             resample="bilinear")
+        out = pipe.render_composite_byte(req)
+        tiles[path] = out if isinstance(out, np.ndarray) \
+            else out.cpu().numpy()
+    b1 = paged.paged_render_kernel.launches - n0
+    same = np.array_equal(tiles[img], tiles[tif])
+    if b1 != 2 or not same or not tiles[img].any():
+        raise AssertionError(f"26d: B1 {b1} (want 2), tiles equal {same}")
+    import PIL
+    what = "a lossless JP2 with a .j2w" if jp2 \
+        else "no JPEG 2000 codec: a PNG with a .pgw"
+    log(f"26d: PIL {PIL.__version__}, {what} crawled through the adapter, "
+        f"its 256^2 bilinear tile through B1 byte-equal to the GeoTIFF's "
+        f"of the same pixels ({card})")
+    return b1
+
+
+def phase_tiles(pipe, root, store, card):
+    """Phase 26: 26a `phase_tile_sweep`, 26b `phase_tile_waves`, 26c
+    `phase_tile_prewarm`, 26d `phase_adapter`.  Returns the launches of
+    26b-d ({"B1": n, "B2": n})."""
+    t0 = time.perf_counter()
+    phase_tile_sweep(pipe, root, card)
+    log(f"phase 26a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    b1 = phase_tile_waves(pipe, root, tile_boxes(), card)
+    log(f"phase 26b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pre = phase_tile_prewarm(pipe, root, store, card)
+    log(f"phase 26c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    b1 += phase_adapter(root, card, pipe.executor.device)
+    log(f"phase 26d: {time.perf_counter() - t0:.1f} s")
+    return {"B1": b1 + pre["B1"], "B2": pre["B2"]}
+
+
+def phase_26_alone(card):
+    """``--phase 26``: phase 3's archive written and crawled, then phase
+    26 alone (after phase 1); no result line."""
+    os.environ.update(GSKY_WAVES="0", GSKY_TILE_PIPELINE="0",
+                      GSKY_PREFETCH="0")
+    root = os.path.join(ROOT, "build", "smoke_archive")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        store = crawl((p, NS) for p in write_archive(root))
+        pipe = make_pipeline(store, "cuda")
+        render(pipe, root, tile_boxes()[:1], "near")
+        t0 = time.perf_counter()
+        log(f"phase 26: launches {phase_tiles(pipe, root, store, card)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return 0
+
+
 def torch_equal(a, b):
     import torch
     return bool(torch.equal(a, b))
@@ -9169,6 +9743,8 @@ def main() -> int:
         lib.load()
     log(f"phase 1: built {', '.join(os.path.relpath(b, ROOT) for b in built)}"
         f" in {time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:] == ["--phase", "26"]:
+        return phase_26_alone(card)
 
     # -- phase 2: kernels vs plain on the card ------------------------
     n_cmp = phase_kernels()
@@ -9411,6 +9987,14 @@ def main() -> int:
         del wave_args
         log(f"phase 13a: {time.perf_counter() - t0:.1f} s")
 
+        # -- phase 26: the output tiles of B1 and B2, the adapter tier ----
+        # (here, while the store holds phase 3's archive alone: later
+        # phases ingest copies of it that they delete)
+        t0 = time.perf_counter()
+        tiles26 = phase_tiles(pipe, data_root, store, card)
+        log(f"phase 26: launches {tiles26} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
         # -- phase 15a-d: WCS GetCoverage and DAP4 over HTTP --------------
         t0 = time.perf_counter()
         wcs_launches, wcs_errs = phase_wcs(data_root, store, card)
@@ -9449,6 +10033,7 @@ def main() -> int:
         mesh25 = phase_mesh(data_root, data_paths, card)
         log(f"phase 25a, b, d, e: launches {mesh25} "
             f"({time.perf_counter() - t0:.1f} s)")
+
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -9638,7 +10223,7 @@ def main() -> int:
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
          + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
          + obs21["B1"] + guard22["B1"] + fleet23["B1"] + fab24["B1"]
-         + fab24e["B1"] + mesh25["B1"],
+         + fab24e["B1"] + mesh25["B1"] + tiles26["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             ing_err["B1"], obs21_err,
                             max(v for (k, _), v in wcs_errs.items()
@@ -9652,7 +10237,7 @@ def main() -> int:
          + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
          + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"]
          + fleet23["B2"] + fab24.get("B2", 0) + fab24e["B2"]
-         + mesh25["B2"] + mesh25m,
+         + mesh25["B2"] + mesh25m + tiles26["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()

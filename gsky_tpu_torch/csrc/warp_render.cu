@@ -28,9 +28,9 @@
 // B1 design.  The Pallas kernel DMAs each granule's whole page block
 // into VMEM; a block of 8 x 128 x 512 f32 pages (2 MB) cannot fit in a
 // Hopper block's 227 KB, so each block stages its own tap FOOTPRINT:
-// - 2-D blocks of 8 x 32 output pixels, a warp on 32 consecutive
-//   columns, so a block's taps fall in one compact source box whatever
-//   the projection's rotation;
+// - 2-D blocks of output pixels (8 x 32 unless the launch names another
+//   tile), a warp on 32 consecutive columns of one row, so a block's taps
+//   fall in one compact source box whatever the projection's rotation;
 // - per granule, every thread computes its coordinates with the same
 //   helper the taps use (`granule_coords`) and the clipped box of its
 //   in-bounds taps (`tap_box`); warp reductions, then shared memory,
@@ -44,7 +44,7 @@
 //   shared-memory budget together (STAGE_BUDGET in ops/paged.py, passed
 //   by the wrapper), laid out back to back;
 // - the chunk's boxes are copied in with 16-byte cp.async, one quad a
-//   work item over all 256 threads, ALL granules' loads in flight
+//   work item over all the block's threads, ALL granules' loads in flight
 //   together, then one barrier; consecutive threads take consecutive
 //   quads of a row, so the loads coalesce.  The page-table walk is
 //   32-bit and never per tap: the page coordinates of a box's corner
@@ -64,11 +64,11 @@
 // and table->pool dependent load chains are gone (the table is read
 // once per staged quad, from shared memory); the loads of all a block's
 // granules overlap in one round trip instead of one dependent chain per
-// tap.  The block count
-// (256 blocks of 256 threads for a 256 x 256 tile) and so the warps per
-// SM are as before.  Timestamps taken inside the blocks (clock64, one
-// block's thread 0) showed its 16 warps an SM are bound by instruction
-// issue and by dependent chains, not by memory, once the loads overlap:
+// tap.  The block count (256 blocks of 256 threads for a 256 x 256 tile
+// at 8 x 32) and so the warps per SM are as before.  Timestamps taken
+// inside the blocks (clock64, one block's thread 0) showed its 16 warps
+// an SM are bound by instruction issue and by dependent chains, not by
+// memory, once the loads overlap:
 // so the work per pixel is kept small and independent — 32-bit
 // indices, no integer division after the plan (`div_small`), one plan
 // per block, four columns per cp.async, granules interleaved.
@@ -85,8 +85,9 @@
 //   wrapper builds once per pointer list;
 // - the executor drops the group's padding rows (namespace -1: they
 //   never win the mosaic) before the launch;
-// - 2-D blocks of kB2Rows x kB2Cols output pixels, a warp on consecutive
-//   columns, so a block's taps fall on few source rows;
+// - 2-D blocks of output pixels (8 x 32 unless the launch names another
+//   tile), a warp on 32 consecutive columns, so a block's taps fall on
+//   few source rows;
 // - per round of up to kB2Round granules, the params rows and scene
 //   pointers go to shared memory once per block;
 // - the granules are sampled one after another, each mosaicked as it
@@ -111,6 +112,20 @@
 // masked tap contributes 0 whatever it would have read, so neither
 // choice changes a result.
 //
+// The output tile.  Both kernels take it at launch as their block shape
+// (blockDim.x columns, blockDim.y rows): the columns a multiple of 32, so
+// a warp is 32 consecutive columns of one row, and at most kMaxThreads
+// threads.  The wave planner's cost model (pipeline/autoplan.py
+// `plan_block`) picks it; 8 x 32 is the default.  No value depends on the
+// tile: each pixel's taps and mosaic are its own, and B1's staged boxes
+// only decide where a tap is read from (stage or pool), not what it
+// reads.  B2 has one instance a (method, namespaces) pair for every tile.
+// B1 has two: the default tile's, whose shape is a compile-time constant
+// (ROWS = 8: its loops and strides are constants, as before tiles were
+// planned), and one that reads its tile from blockDim (ROWS = 0), whose
+// near and bilinear launches at 8 x 32 ran 2-4% slower than before on an
+// H100 (tools/tile_sweep.py; PERF.md).
+//
 // Launch floor: `empty_kernel` does nothing; its device time is what a
 // launch of any kernel here costs at least.
 
@@ -122,10 +137,17 @@ namespace {
 
 constexpr int NEAR = 0, BILINEAR = 1, CUBIC = 2;
 
-// B1's output block: kRows x kCols pixels, one warp per row.  The plain
-// mirror of its staged boxes (ops/paged.py::block_boxes) uses the same
-// shape (paged.BLOCK).
-constexpr int kRows = 8, kCols = 32, kB1Threads = kRows * kCols;
+#ifndef GSKY_TILE_THREADS_MAX
+#define GSKY_TILE_THREADS_MAX 256
+#endif
+// The largest tile in threads (ops/warp_render.py MAX_TILE_THREADS), and
+// so the kernels' launch bound.  256, the default tile's size: a bound of
+// 1024 caps a thread at 64 registers, and B1 then spills (cubic at 8
+// namespaces) and its default tile ran 4-12% slower on an H100, while no
+// tile over 256 threads ran faster than 8 x 32 at any point measured
+// (tools/tile_sweep.py; PERF.md).
+constexpr int kMaxThreads = GSKY_TILE_THREADS_MAX;
+constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kPlan = 8;  // granules whose boxes are planned per round
 constexpr int kMaxSlots = 64;  // page-table slots a granule may list
 
@@ -407,20 +429,19 @@ constexpr int kStageUnroll = 2;  // quads a thread stages together
 template <int METHOD>
 constexpr int kTapGroup = METHOD == CUBIC ? 2 : 4;
 
-// B1: grid (ceil(w / kCols), ceil(h / kRows), N), kB1Threads threads,
-// `budget` floats of dynamic shared memory.  pool (cap, pr, pc), pc a
-// multiple of 4; tables (N, T, S), S <= kMaxSlots, or, with `sb_of`, (G,
-// T, S): a wave's superblock tables, lane n reading row sb_of[n] (the
-// wave planner's union windows: lane n's params slots 11-15 already
-// carry its row's window, so the boxes, the staging and the taps are as
-// without it); params (N*T, 16); sx/sy (N, h, w); canv/best (N, NS, h,
-// w); `direct` counts the blocks that read a granule from the pool
-// directly.  Per round of up to kPlan
-// granules: 0. params and tables to shared memory; 1. the boxes; 2. the
-// plan (warp 0); 3. the staging; 4. the taps; a barrier after each of
-// 0-3.
-template <int METHOD, int NS>
-__global__ void __launch_bounds__(kB1Threads)
+// B1: grid (ceil(w / cols), ceil(h / rows), N), blocks of (cols, rows)
+// threads, `budget` floats of dynamic shared memory.  pool (cap, pr,
+// pc), pc a multiple of 4; tables (N, T, S), S <= kMaxSlots, or, with
+// `sb_of`, (G, T, S): a wave's superblock tables, lane n reading row
+// sb_of[n] (the wave planner's union windows: lane n's params slots
+// 11-15 already carry its row's window, so the boxes, the staging and
+// the taps are as without it); params (N*T, 16); sx/sy (N, h, w);
+// canv/best (N, NS, h, w); `direct` counts the blocks that read a
+// granule from the pool directly.  Per round of up to kPlan granules:
+// 0. params and tables to shared memory; 1. the boxes; 2. the plan (warp
+// 0); 3. the staging; 4. the taps; a barrier after each of 0-3.
+template <int METHOD, int NS, int ROWS>
+__global__ void __launch_bounds__(kMaxThreads)
 paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
              const float* __restrict__ params,
              const float* __restrict__ sxs, const float* __restrict__ sys,
@@ -431,16 +452,21 @@ paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
   extern __shared__ __align__(16) float stage[];
   __shared__ float prm[kPlan * 16];       // the round's params rows
   __shared__ int tab[kPlan * kMaxSlots];  // and page tables, S apart
-  __shared__ int red[kRows][kPlan][4];    // per warp: r_lo, r_hi, c_lo, c_hi
+  __shared__ int red[kMaxWarps][kPlan][4];  // a warp's r_lo, r_hi, c_lo, c_hi
   __shared__ int plan[kPlan][kPlanFields];
   __shared__ int chunk, chunk_quads, took_direct;
   static_assert(kPlan % kBoxGroup == 0 && kPlan % kTapGroup<METHOD> == 0,
                 "groups tile the round");
-  const int tid = threadIdx.x;
+  // ROWS > 0: a 1-D block of ROWS warps, one a row of 32 columns
+  const int nthreads = ROWS ? ROWS * 32 : blockDim.x * blockDim.y;
+  const int tid =
+      ROWS ? threadIdx.x : threadIdx.y * blockDim.x + threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int x = blockIdx.x * kCols + lane;
-  const int y = blockIdx.y * kRows + warp;
+  const int x = ROWS ? blockIdx.x * 32 + lane
+                     : blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = ROWS ? blockIdx.y * ROWS + warp
+                     : blockIdx.y * blockDim.y + threadIdx.y;
   const bool live = x < w && y < h;
   const long long n = blockIdx.z;
   const long long hw = (long long)h * w;
@@ -465,10 +491,10 @@ paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
     const int ng = min(kPlan, T - t0);
     // 0. the round's params (rows past ng zero: empty windows) and tables
     // to shared memory, all loads in flight at once
-    for (int i = tid; i < kPlan * 16; i += kB1Threads) {
+    for (int i = tid; i < kPlan * 16; i += nthreads) {
       prm[i] = i < ng * 16 ? pn[t0 * 16 + i] : 0.0f;
     }
-    for (int i = tid; i < ng * S; i += kB1Threads) tab[i] = tn[t0 * S + i];
+    for (int i = tid; i < ng * S; i += nthreads) tab[i] = tn[t0 * S + i];
     __syncthreads();
     // 1. each thread's tap box per granule, min/max over each warp
     for (int g0 = 0; g0 < ng; g0 += kBoxGroup) {
@@ -510,7 +536,7 @@ paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
       int b[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};
       if (lane < ng) {
 #pragma unroll
-        for (int k = 0; k < kRows; ++k) {
+        for (int k = 0; k < (nthreads >> 5); ++k) {
           b[0] = min(b[0], red[k][lane][0]);
           b[1] = max(b[1], red[k][lane][1]);
           b[2] = min(b[2], red[k][lane][2]);
@@ -564,10 +590,10 @@ paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
     // 3. the chunk's staged boxes, one 16-byte quad a work item, all in
     // flight at once: quad e lands at stage + 4 e
     const int nq = chunk_quads;
-    for (int e0 = tid; e0 < nq; e0 += kStageUnroll * kB1Threads) {
+    for (int e0 = tid; e0 < nq; e0 += kStageUnroll * nthreads) {
 #pragma unroll
       for (int u = 0; u < kStageUnroll; ++u) {
-        const int e = e0 + u * kB1Threads;
+        const int e = e0 + u * nthreads;
         if (e >= nq) break;
         int g = 0;  // the last staged granule whose quads start at or before e
 #pragma unroll
@@ -661,9 +687,6 @@ paged_render(const float* __restrict__ pool, const int* __restrict__ tables,
   if (tid == 0 && took_direct) atomicAdd(direct, 1u);
 }
 
-// B2's output block: kB2Rows x kB2Cols pixels, a warp on consecutive
-// columns.
-constexpr int kB2Rows = 8, kB2Cols = 32, kB2Threads = kB2Rows * kB2Cols;
 constexpr int kB2Round = 32;  // granules whose params go to shared memory
 constexpr int kInline = 32;   // scene pointers passed by value (wrapper:
                               // ops/warp_render.py INLINE_SCENES)
@@ -671,12 +694,13 @@ struct ScenePtrs {
   const float* p[kInline];
 };
 
-// B2: grid (ceil(w / kB2Cols), ceil(h / kB2Rows)), kB2Threads threads.
+// B2: grid (ceil(w / cols), ceil(h / rows)), blocks of (cols, rows)
+// threads.
 // Granule t's scene is ptrs.p[t] (B <= kInline) or table[t], each
 // (WR, WC) f32 row-major; params (B, 16); sx/sy (h, w); canv/best
 // (NS, h, w).
 template <int METHOD, int NS>
-__global__ void __launch_bounds__(kB2Threads)
+__global__ void __launch_bounds__(kMaxThreads)
 warp_render(const __grid_constant__ ScenePtrs ptrs,
             const float* const* __restrict__ table,
             const float* __restrict__ params, const float* __restrict__ sxs,
@@ -685,9 +709,10 @@ warp_render(const __grid_constant__ ScenePtrs ptrs,
             int w) {
   __shared__ float prm[kB2Round * 16];
   __shared__ const float* scn[kB2Round];
-  const int tid = threadIdx.x;
-  const int x = blockIdx.x * kB2Cols + tid % kB2Cols;
-  const int y = blockIdx.y * kB2Rows + tid / kB2Cols;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const bool live = x < w && y < h;
   const int hw = h * w;
   const int pix = y * w + x;
@@ -704,10 +729,10 @@ warp_render(const __grid_constant__ ScenePtrs ptrs,
   }
   for (int t0 = 0; t0 < B; t0 += kB2Round) {
     const int nr = min(kB2Round, B - t0);
-    for (int i = tid; i < nr * 16; i += kB2Threads) {
+    for (int i = tid; i < nr * 16; i += nthreads) {
       prm[i] = params[t0 * 16 + i];
     }
-    for (int g = tid; g < nr; g += kB2Threads) {
+    for (int g = tid; g < nr; g += nthreads) {
       scn[g] = table != nullptr ? table[t0 + g] : ptrs.p[t0 + g];
     }
     __syncthreads();
@@ -727,30 +752,49 @@ warp_render(const __grid_constant__ ScenePtrs ptrs,
 
 __global__ void empty_kernel() {}
 
+template <int METHOD, int NS, int ROWS>
+void paged_launch_at(dim3 grid, dim3 block, const float* pool,
+                     const int* tables, const float* params, const float* sx,
+                     const float* sy, float* canv, float* best, int T, int S,
+                     int pr, int pc, int h, int w, int stage_bytes,
+                     unsigned int* direct, const int* sb_of, cudaStream_t st) {
+  if (stage_bytes > 48 * 1024) {
+    cudaFuncSetAttribute(paged_render<METHOD, NS, ROWS>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         stage_bytes);
+  }
+  paged_render<METHOD, NS, ROWS><<<grid, block, stage_bytes, st>>>(
+      pool, tables, params, sx, sy, canv, best, T, S, pr, pc, h, w,
+      stage_bytes / (int)sizeof(float), direct, sb_of);
+}
+
+// The default tile, 8 x 32, through its own instance; any other through
+// the instance that reads its tile from blockDim.
 template <int METHOD, int NS>
 void paged_launch(const float* pool, const int* tables, const float* params,
                   const float* sx, const float* sy, float* canv, float* best,
                   int N, int T, int S, int pr, int pc, int h, int w,
                   int stage_bytes, unsigned int* direct, const int* sb_of,
-                  cudaStream_t st) {
-  if (stage_bytes > 48 * 1024) {
-    cudaFuncSetAttribute(paged_render<METHOD, NS>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         stage_bytes);
+                  int rows, int cols, cudaStream_t st) {
+  dim3 grid((w + cols - 1) / cols, (h + rows - 1) / rows, N);
+  if (rows == 8 && cols == 32) {
+    paged_launch_at<METHOD, NS, 8>(grid, dim3(256), pool, tables, params, sx,
+                                   sy, canv, best, T, S, pr, pc, h, w,
+                                   stage_bytes, direct, sb_of, st);
+  } else {
+    paged_launch_at<METHOD, NS, 0>(grid, dim3(cols, rows), pool, tables,
+                                   params, sx, sy, canv, best, T, S, pr, pc,
+                                   h, w, stage_bytes, direct, sb_of, st);
   }
-  dim3 grid((w + kCols - 1) / kCols, (h + kRows - 1) / kRows, N);
-  paged_render<METHOD, NS><<<grid, kB1Threads, stage_bytes, st>>>(
-      pool, tables, params, sx, sy, canv, best, T, S, pr, pc, h, w,
-      stage_bytes / (int)sizeof(float), direct, sb_of);
 }
 
 template <int METHOD, int NS>
 void warp_launch(ScenePtrs ptrs, const float* const* table,
                  const float* params, const float* sx, const float* sy,
                  float* canv, float* best, int B, int WR, int WC, int h,
-                 int w, cudaStream_t st) {
-  dim3 grid((w + kB2Cols - 1) / kB2Cols, (h + kB2Rows - 1) / kB2Rows, 1);
-  warp_render<METHOD, NS><<<grid, kB2Threads, 0, st>>>(
+                 int w, int rows, int cols, cudaStream_t st) {
+  dim3 grid((w + cols - 1) / cols, (h + rows - 1) / rows, 1);
+  warp_render<METHOD, NS><<<grid, dim3(cols, rows), 0, st>>>(
       ptrs, table, params, sx, sy, canv, best, B, WR, WC, h, w);
 }
 
@@ -779,44 +823,57 @@ struct WarpRun {
   static void run(A... args) { warp_launch<M, N>(args...); }
 };
 
+// An output tile both kernels take: (rows, cols) threads, the columns
+// whole warps, at most kMaxThreads, and a grid within the card's limits.
+bool tile_ok(int rows, int cols, int h, int depth) {
+  return rows >= 1 && cols >= 32 && cols % 32 == 0 &&
+         rows * cols <= kMaxThreads && (h + rows - 1) / rows <= 65535 &&
+         depth <= 65535;
+}
+
 }  // namespace
 
 // Plain C interface (ctypes): returns cudaGetLastError() after the launch,
-// or -1 for a (method, ns) pair that is not instantiated.  B1 takes the
-// tile as (h, w), its staging budget in bytes (the dynamic shared memory
-// of a block), the device counter of blocks that read the pool directly
-// and `sb_of`: null, or N int32 rows of `tables` (then (G, T, S)), one a
-// lane.
+// or -1 for a (method, ns) pair that is not instantiated, or
+// cudaErrorInvalidValue for operands or a tile the kernel does not take.
+// B1 takes the output as (h, w), its staging budget in bytes (the dynamic
+// shared memory of a block), the device counter of blocks that read the
+// pool directly, `sb_of`: null, or N int32 rows of `tables` (then (G, T,
+// S)), one a lane, and the output tile (rows, cols).
 extern "C" int launch_paged_render(int method, int ns, const void* pool,
                                    const void* tables, const void* params,
                                    const void* sx, const void* sy,
                                    void* canv, void* best, int N, int T,
                                    int S, int pr, int pc, int h, int w,
                                    int stage_bytes, void* direct,
-                                   const void* sb_of, void* stream) {
+                                   const void* sb_of, int rows, int cols,
+                                   void* stream) {
   if (N == 0 || h == 0 || w == 0) return 0;
-  if (S < 1 || S > kMaxSlots || pc % 4 || stage_bytes % 16) {
+  if (S < 1 || S > kMaxSlots || pc % 4 || stage_bytes % 16 ||
+      !tile_ok(rows, cols, h, N)) {
     return (int)cudaErrorInvalidValue;
   }
   int rc = dispatch<PagedRun>(
       method, ns, (const float*)pool, (const int*)tables,
       (const float*)params, (const float*)sx, (const float*)sy,
       (float*)canv, (float*)best, N, T, S, pr, pc, h, w, stage_bytes,
-      (unsigned int*)direct, (const int*)sb_of, (cudaStream_t)stream);
+      (unsigned int*)direct, (const int*)sb_of, rows, cols,
+      (cudaStream_t)stream);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 // B2 takes its B granules' scene pointers as a host array `scenes` when
 // B <= kInline (copied into the launch's parameters), else as a device
 // array `table` of B pointers; each scene is (WR, WC) f32, WR * WC <
-// 2^31.
+// 2^31; and the output tile (rows, cols).
 extern "C" int launch_warp_render(int method, int ns,
                                   const void* const* scenes,
                                   const void* table, const void* params,
                                   const void* sx, const void* sy, void* canv,
                                   void* best, int B, int WR, int WC, int h,
-                                  int w, void* stream) {
+                                  int w, int rows, int cols, void* stream) {
   if (h == 0 || w == 0) return 0;
+  if (!tile_ok(rows, cols, h, 1)) return (int)cudaErrorInvalidValue;
   ScenePtrs ptrs{};
   if (B <= kInline) {
     for (int t = 0; t < B; ++t) ptrs.p[t] = (const float*)scenes[t];
@@ -827,7 +884,7 @@ extern "C" int launch_warp_render(int method, int ns,
   int rc = dispatch<WarpRun>(
       method, ns, ptrs, (const float* const*)table, (const float*)params,
       (const float*)sx, (const float*)sy, (float*)canv, (float*)best, B, WR,
-      WC, h, w, (cudaStream_t)stream);
+      WC, h, w, rows, cols, (cudaStream_t)stream);
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
-"""Pluggable raster-format registry (the native tier).
+"""Pluggable raster-format registry.
 
-Counterpart of `gsky_tpu/io/registry.py` without its adapter tier
-(rasterio, GDAL, PIL): the port reads GeoTIFF, GMT and HDF4 with its own
-readers.  Each entry sniffs magic bytes and returns a handle with the
-uniform "tiff-like" interface the decode, scene-cache and drill paths
-consume —
+Counterpart of `gsky_tpu/io/registry.py`: the native tier (GeoTIFF, GMT
+and HDF4, read by the port's own readers), then the adapter tier
+(`io.adapter`), in the reference's order: rasterio and GDAL, each only
+when it imports, then ``pil-image`` always (PIL itself is imported when
+an image is opened).  Each entry sniffs magic bytes and returns a handle
+with the uniform "tiff-like" interface the decode, scene-cache and drill
+paths consume —
 
     .width .height .nodata .overviews
     .read(band, (col0, row0, w, h)) -> np.ndarray
@@ -102,4 +104,26 @@ def _open_hdf4(path: str):
 register("geotiff", _sniff_tiff, _open_tiff)
 register("gmt", _sniff_gmt, _open_gmt)
 register("hdf4", _sniff_hdf4, _open_hdf4)
+
+
+def _register_adapters() -> None:
+    """The adapter tier, best first: rasterio and GDAL where they
+    import, the PIL image adapter always."""
+    try:
+        import rasterio  # noqa: F401
+        from .adapter import RasterioRaster, sniff_rasterio
+        register("rasterio", sniff_rasterio, lambda p: RasterioRaster(p))
+    except ImportError:
+        pass
+    try:
+        from osgeo import gdal  # noqa: F401
+        from .adapter import GdalRaster, sniff_gdal
+        register("gdal", sniff_gdal, lambda p: GdalRaster(p))
+    except ImportError:
+        pass
+    from .adapter import ImageRaster, sniff_image
+    register("pil-image", sniff_image, lambda p: ImageRaster(p))
+
+
+_register_adapters()
 

@@ -12,11 +12,12 @@ spreads over the members (`parallel.mesh`):
   to a power of two and then to a multiple of the member count, and
   member i takes rows [i * rpc, (i + 1) * rpc).  The wave planner plans
   each member's slice alone (`autoplan.plan_sharded`), so no superblock
-  crosses a member and ``sb_of`` is member-local.  Each member launches
-  kernel B1 (`ops.paged.render_byte_paged`, `render_expr_paged`,
-  `warp_scored_paged`) on its rows, against its own view of the page
-  pool: the pool tensor itself on the pool's device, a copy on any
-  other (the reference replicates the pool every wave).  Lanes are
+  crosses a member and ``sb_of`` is member-local; a superblock plan
+  also carries B1's output tile for a member's launch (``blk``).  Each
+  member launches kernel B1 (`ops.paged.render_byte_paged`,
+  `render_expr_paged`, `warp_scored_paged`) on its rows, against its own
+  view of the page pool: the pool tensor itself on the pool's device, a
+  copy on any other (the reference replicates the pool every wave).  Lanes are
   independent, so the bytes equal the single-device wave's exactly.
 - ``x`` — each entry renders through the dispatcher's `SpmdRenderer`:
   kernel B2 on every member over its granule shard and width strip.
@@ -217,7 +218,8 @@ class MeshDispatcher:
                 host["consts"] = consts[rows]
             members.append(_upload(host, dev))
         return {"layout": "granule", "N": N, "Np": Np, "members": members,
-                "superblock": plan is not None}
+                "superblock": plan is not None,
+                "blk": plan.blk if plan is not None else None}
 
     def _dispatch_wave_granule(self, kind: str, es: List, staged=None):
         from ..ops import paged
@@ -239,21 +241,21 @@ class MeshDispatcher:
                     # the pool itself on its device, a copy elsewhere
                     p = parr if parr.device == dev \
                         else parr.to(dev, non_blocking=True)
-                    sb = m.get("sb_of")
+                    sb, blk = m.get("sb_of"), staged["blk"]
                     if kind == "byte":
                         return (paged.render_byte_paged(
                             p, m["tables"], m["params"], m["ctrls"],
                             m["sps"], method, n_ns, out_hw, step,
-                            statics[4], statics[5], sb_of=sb),)
+                            statics[4], statics[5], sb_of=sb, blk=blk),)
                     if kind == "expr":
                         return (paged.render_expr_paged(
                             p, m["tables"], m["params"], m["ctrls"],
                             m["sps"], m["consts"], method, n_ns, out_hw,
                             step, statics[4], statics[5], statics[6],
-                            sb_of=sb),)
+                            sb_of=sb, blk=blk),)
                     canv, best = paged.warp_scored_paged(
                         p, m["tables"], m["params"], m["ctrls"], method,
-                        n_ns, out_hw, step, sb_of=sb)
+                        n_ns, out_hw, step, sb_of=sb, blk=blk)
                     return canv, best > float("-inf")
 
                 outs, events = run_members(self.mesh, body)

@@ -31,9 +31,11 @@ live fleet routers (`fleet.fleet_stats`).  The cache fabric's
 the reference's do: the elastic families once elastic has left a trace
 in the process (`fleet.elastic.dormant`).  The mesh's
 (``gsky_mesh_*``) are observed by `mesh.dispatch` and collected from
-its live dispatcher.  Not here until its subsystem is ported (ROADMAP):
-``gsky_plan_block_shape`` (A.21); nor ``gsky_fabric_replica_pages``,
-the gauge of a replication round that has no caller (C.18).
+its live dispatcher.  ``gsky_plan_block_shape`` counts the output-tile
+decisions of `pipeline.autoplan.plan_block`, labelled with the CUDA
+tile (``"16x32"``) where the reference's label is its Pallas block.
+Left out: ``gsky_fabric_replica_pages``, the gauge of a replication
+round that has no caller (C.18).
 
 Everything registers against ``prom.default_registry()``; the server's
 ``/metrics`` route calls `render_metrics`.
@@ -111,6 +113,11 @@ PLAN_SUPERBLOCKS = _REG.counter(
 PLAN_BYTES_SAVED = _REG.counter(
     "gsky_plan_gather_bytes_saved_total",
     "HBM gather bytes the superblock plan avoided vs per-tile windows.")
+PLAN_BLOCK_SHAPE = _REG.counter(
+    "gsky_plan_block_shape",
+    "Cost-model output-tile decisions of kernels B1 and B2 by chosen "
+    "tile (rows x cols).",
+    ["shape"])
 PLAN_ROUTE = _REG.counter(
     "gsky_plan_route_total",
     "Autoplanner group routing between ragged slot pad and bucketed "

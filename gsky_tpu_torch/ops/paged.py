@@ -14,13 +14,15 @@ block's own tap footprint instead: per (block, granule) the box of the
 in-bounds taps of its pixels, walked out of the table into shared
 memory; a box over `STAGE_BUDGET` is read from the pool directly, and
 the blocks that do so are counted on the device (`direct_blocks`).
-`block_boxes` is the plain mirror of those boxes.  The function
-computed is the same.
+`block_boxes` is the plain mirror of those boxes, at any output tile.
+The function computed is the same, at any tile (``blk``, planned by
+`pipeline.autoplan.plan_block`).
 
 `paged_vmem_ok` is the reference's VMEM eligibility gate with its
-constants.  B1 has no VMEM and no such limit: the gate is kept as a
-routing rule, so that the port sends a tile to the same leg (B1 or B2)
-as the reference does.
+constants, at the reference's Pallas block (``blk``, default 128 x
+128).  B1 has no VMEM and no such limit: the gate is kept as a routing
+and merging rule, so that the port sends a tile to the same leg (B1 or
+B2), and merges the same lanes, as the reference does.
 
 A wave (`pipeline.waves`) renders N tiles in one B1 launch.  With the
 wave planner's superblocks (`pipeline.autoplan`) its tables are (G, T,
@@ -51,8 +53,8 @@ import torch
 from .scale import scale_to_byte
 from .warp import NEAR, _bilerp_grid, composite_scale, granule_coords, \
     granule_sample, mosaic_update
-from .warp_render import check_cuda, check_ns, method_code, \
-    paged_render_kernel
+from .warp_render import DEFAULT_TILE, check_cuda, check_ns, check_tile, \
+    method_code, paged_render_kernel
 
 # params row width: slots 0..10 are the bucketed kernel's contract
 # (affine, true extent, nodata, priority, ns id), 11/12 the page-grid
@@ -60,9 +62,11 @@ from .warp_render import check_cuda, check_ns, method_code, \
 # columns per page row (the table's row stride)
 PARAMS_W = 16
 
-# B1's output block, (rows, cols): kRows x kCols in csrc/warp_render.cu
-BLOCK = (8, 32)
-# B1's staging budget: the dynamic shared memory of a block, in bytes.
+# B1's default output block (rows, cols): the launch's tile when none is
+# planned
+BLOCK = DEFAULT_TILE
+# B1's staging budget: the dynamic shared memory of a block, in bytes,
+# whatever its tile.
 # At native resolution a 32 x 8 block's cubic footprint in one granule
 # is about (32 + 3) x (8 + 3) f32 = 1.5 KB; eight granules staged at
 # once take 12 KB, which leaves the SM room for many blocks.  A box of
@@ -138,14 +142,17 @@ GATE_BLOCK = 128
 GATE_BUDGET = 10 * 1024 * 1024
 
 
-def paged_vmem_ok(slots: int, n_ns: int, pr: int, pc: int) -> bool:
+def paged_vmem_ok(slots: int, n_ns: int, pr: int, pc: int,
+                  blk=None) -> bool:
     """The reference's `paged_vmem_ok`: whether a page list of ``slots``
     (pr, pc) f32 pages, double-buffered, plus the ``n_ns`` canv/best
-    accumulators and the sx/sy blocks (each x2) fits its VMEM budget.
-    False sends the tile to the bucketed leg, as in the reference."""
+    accumulators and the sx/sy blocks of one (bh, bw) Pallas block
+    ``blk`` (None: 128 x 128; each x2) fits its VMEM budget.  False
+    sends the tile to the bucketed leg, as in the reference."""
+    bh, bw = blk if blk is not None else (GATE_BLOCK, GATE_BLOCK)
     pages = slots * pr * pc * 4 * 2
-    acc = n_ns * GATE_BLOCK * GATE_BLOCK * 4 * 2 * 2
-    grids = GATE_BLOCK * GATE_BLOCK * 4 * 2 * 2
+    acc = n_ns * bh * bw * 4 * 2 * 2
+    grids = bh * bw * 4 * 2 * 2
     return pages + acc + grids <= GATE_BUDGET
 
 
@@ -158,12 +165,12 @@ def table_gather_bytes(tables, pr: int, pc: int) -> int:
 
 
 def paged_render_scored_plain(pool, tables, params, sx, sy, method: str,
-                              n_ns: int, sb_of=None):
+                              n_ns: int, sb_of=None, blk=None):
     """Plain PyTorch version of kernel B1: pool (cap, pr, pc) f32,
     tables (N, T, S) int32, params (N*T, 16) f32, sx/sy (N, h, w) f32 ->
     (canv, best) each (N, n_ns, h, w) f32, best -inf = invalid.  With
     ``sb_of`` (N,) int32, tables is (G, T, S) and lane n reads row
-    sb_of[n]."""
+    sb_of[n].  The output tile ``blk`` changes nothing here."""
     _, T, S = tables.shape
     N = int(sx.shape[0])
     rows = range(N) if sb_of is None else [int(g) for g in sb_of.tolist()]
@@ -254,12 +261,14 @@ def block_boxes(sx, sy, params, method: str, block=BLOCK):
 
 
 def paged_render_scored(pool, tables, params, sx, sy, method: str,
-                        n_ns: int, sb_of=None):
+                        n_ns: int, sb_of=None, blk=None):
     """Kernel B1 on CUDA tensors, its plain version on CPU tensors.
-    ``sb_of``: None, or (N,) int32 rows of a (G, T, S) ``tables``."""
+    ``sb_of``: None, or (N,) int32 rows of a (G, T, S) ``tables``;
+    ``blk``: the output tile (rows, cols), None for `BLOCK`."""
+    rows, cols = check_tile(blk)
     if pool.device.type == "cpu":
         return paged_render_scored_plain(pool, tables, params, sx, sy,
-                                         method, n_ns, sb_of)
+                                         method, n_ns, sb_of, blk)
     if pool.device.type != "cuda":
         raise ValueError(f"unsupported device {pool.device}")
     check_ns(n_ns)
@@ -296,7 +305,8 @@ def paged_render_scored(pool, tables, params, sx, sy, method: str,
                         pool.data_ptr(), tables.data_ptr(), params.data_ptr(),
                         sx.data_ptr(), sy.data_ptr(), canv.data_ptr(),
                         best.data_ptr(), N, T, S, pr, pc, h, w, STAGE_BUDGET,
-                        _direct_counter(pool.device).data_ptr(), sb_ptr)
+                        _direct_counter(pool.device).data_ptr(), sb_ptr,
+                        rows, cols)
     return canv, best
 
 
@@ -307,28 +317,28 @@ def _dense_grids(ctrls, h: int, w: int, step: int):
 
 def warp_scored_paged(pool, tables, params, ctrls, method: str = "near",
                       n_ns: int = 1, out_hw=(256, 256), step: int = 16,
-                      sb_of=None):
+                      sb_of=None, blk=None):
     """Counterpart of `gsky_tpu/ops/paged.py::warp_scored_paged` over N
     tiles: pool (cap, pr, pc), tables (N, T, S) int32 (or (G, T, S) with
     ``sb_of`` (N,) int32), params (N*T, 16), ctrls (N, 2, gh, gw) ->
-    (canvases, best) each (N, n_ns, h, w)."""
+    (canvases, best) each (N, n_ns, h, w).  ``blk``: B1's output tile."""
     h, w = out_hw
     sx, sy = _dense_grids(ctrls, h, w, step)
     return paged_render_scored(
         pool, tables.contiguous(), params.contiguous(), sx, sy, method,
-        n_ns, None if sb_of is None else sb_of.contiguous())
+        n_ns, None if sb_of is None else sb_of.contiguous(), blk)
 
 
 def render_byte_paged(pool, tables, params, ctrls, sps,
                       method: str = "near", n_ns: int = 1,
                       out_hw=(256, 256), step: int = 16,
                       auto: bool = True, colour_scale: int = 0,
-                      sb_of=None):
+                      sb_of=None, blk=None):
     """Counterpart of `gsky_tpu/ops/paged.py::render_byte_paged`: kernel B1,
     then the composite/byte-scale epilogue per tile.  sps (N, 3)
     (offset, scale, clip).  Returns uint8 (N, h, w) tiles."""
     canv, best = warp_scored_paged(pool, tables, params, ctrls, method,
-                                   n_ns, out_hw, step, sb_of)
+                                   n_ns, out_hw, step, sb_of, blk)
     return torch.stack([
         composite_scale(c, b > float("-inf"), sp, auto, colour_scale)
         for c, b, sp in zip(canv, best, sps)])
@@ -425,7 +435,8 @@ def render_expr_paged(pool, tables, params, ctrls, sps, consts,
                       method: str = "near", n_ns: int = 1,
                       out_hw=(256, 256), step: int = 16,
                       auto: bool = True, colour_scale: int = 0,
-                      fp: tuple = ("const", 0), fp_hash=None, sb_of=None):
+                      fp: tuple = ("const", 0), fp_hash=None, sb_of=None,
+                      blk=None):
     """Counterpart of `gsky_tpu/ops/paged.py::render_expr_paged`: kernel
     B1 over N tiles (``render_byte_paged``'s operands), the expression
     epilogue with ``consts`` (N, C) f32, then `scale_to_byte` per lane.
@@ -434,7 +445,7 @@ def render_expr_paged(pool, tables, params, ctrls, sps, consts,
     if fp_hash is not None:
         note_expr_program(fp_hash)
     canv, best = warp_scored_paged(pool, tables, params, ctrls, method,
-                                   n_ns, out_hw, step, sb_of)
+                                   n_ns, out_hw, step, sb_of, blk)
     plane, ok = expr_epilogue(canv, best, fp, consts)
     return scale_lanes(plane, ok, sps, auto, colour_scale)
 

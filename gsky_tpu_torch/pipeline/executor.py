@@ -101,7 +101,7 @@ from ..ops.paged import PARAMS_W, note_expr_fused, page_slots, \
 from ..ops.warp import combine_scored, render_rgba_ctrl, warp_gather_batch
 from ..ops.warp_render import MAX_NS, render_scenes, render_scenes_bands, \
     warp_scenes_scored
-from .autoplan import union_lane_spans
+from .autoplan import scenes_block, union_lane_spans
 from .batcher import RenderBatcher, batching_enabled
 from .decode import DecodedWindow
 from .pages import PagePool
@@ -727,9 +727,11 @@ class WarpExecutor:
         n = len(group.scenes)
         params = torch.from_numpy(group.params[:n].astype(np.float32)) \
             .to(self.device)
-        return warp_scenes_scored(_local_scenes(group.scenes, self.device),
-                                  group.ctrl_dev, params, method, n_pad,
-                                  (height, width), group.step)
+        scenes = _local_scenes(group.scenes, self.device)
+        return warp_scenes_scored(scenes, group.ctrl_dev, params, method,
+                                  n_pad, (height, width), group.step,
+                                  scenes_block(scenes, method, n_pad,
+                                               (height, width)))
 
     def warp_mosaic_scenes(self, granules, ns_ids: Sequence[int],
                            prios: Sequence[float], dst_gt: GeoTransform,
@@ -855,7 +857,8 @@ class WarpExecutor:
             parts.append(warp_scenes_scored(
                 src, torch.from_numpy(ctrl).to(dev),
                 torch.from_numpy(params.astype(np.float32)).to(dev),
-                method, n_pad, (height, width), step))
+                method, n_pad, (height, width), step,
+                scenes_block(src, method, n_pad, (height, width))))
         if len(parts) == 1:
             canv, best = parts[0]
             return canv, best > float("-inf")
@@ -1111,9 +1114,10 @@ class WarpExecutor:
             out = self.batcher.render(_serials(group) + statics, scenes,
                                       group.ctrl_dev, params, sp, statics)
         else:
+            blk = scenes_block(scenes, statics[0], statics[1], statics[2])
             out = device_guard.run(
                 "dispatch.bucketed",
                 lambda: render_scenes(scenes, group.ctrl_dev, params,
-                                      torch.from_numpy(sp), *statics))
+                                      torch.from_numpy(sp), *statics, blk))
         self.add_span("dispatch", t)
         return out

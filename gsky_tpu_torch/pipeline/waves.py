@@ -840,6 +840,7 @@ class WaveScheduler:
         if plan is not None and plan.route == "bucketed":
             # B2 per lane over its cached scenes
             return self._bucketed(kind, es, statics)
+        blk = plan.blk if plan is not None else None
         dev = self.device
         if staged is None:
             staged = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
@@ -850,7 +851,8 @@ class WaveScheduler:
                 out = paged.render_byte_paged(
                     parr, staged["tables"], staged["params"],
                     staged["ctrls"], staged["sps"], method, n_ns, out_hw,
-                    step, statics[4], statics[5], sb_of=staged.get("sb_of"))
+                    step, statics[4], statics[5], sb_of=staged.get("sb_of"),
+                    blk=blk)
                 return (out,)
             if kind == "expr":
                 fp = statics[6]
@@ -858,11 +860,12 @@ class WaveScheduler:
                     parr, staged["tables"], staged["params"],
                     staged["ctrls"], staged["sps"], staged["consts"],
                     method, n_ns, out_hw, step, statics[4], statics[5], fp,
-                    fingerprint_hash(fp), sb_of=staged.get("sb_of"))
+                    fingerprint_hash(fp), sb_of=staged.get("sb_of"), blk=blk)
                 return (out,)
             canv, best = paged.warp_scored_paged(
                 parr, staged["tables"], staged["params"], staged["ctrls"],
-                method, n_ns, out_hw, step, sb_of=staged.get("sb_of"))
+                method, n_ns, out_hw, step, sb_of=staged.get("sb_of"),
+                blk=blk)
         return (canv, best > float("-inf"))
 
     def _bucketed(self, kind, es, statics):
@@ -871,14 +874,15 @@ class WaveScheduler:
         for e in es:
             lane: BucketedLane = e.payload["xla"]
             params = torch.from_numpy(lane.params).to(dev)
+            blk = autoplan.scenes_block(lane.scenes, *statics[:3])
             if kind == "byte":
                 sp = torch.from_numpy(np.asarray(e.payload["sp"]))
                 outs.append(render_scenes(lane.scenes, lane.ctrl, params, sp,
-                                          *statics))
+                                          *statics[:6], blk))
             elif kind == "expr":
                 # B2 over the lane's scenes, then the same epilogue
                 c, b = warp_scenes_scored(lane.scenes, lane.ctrl, params,
-                                          *statics[:4])
+                                          *statics[:4], blk)
                 consts = torch.from_numpy(e.payload["consts"][None]).to(dev)
                 plane, ok = expr_epilogue(c[None], b[None], statics[6],
                                           consts)
@@ -886,7 +890,7 @@ class WaveScheduler:
                                         statics[4], statics[5])[0])
             else:
                 outs.append(warp_scenes_scored(lane.scenes, lane.ctrl,
-                                               params, *statics[:4]))
+                                               params, *statics[:4], blk))
         if kind in ("byte", "expr"):
             return (torch.stack(outs),)
         canv = torch.stack([c for c, _ in outs])

@@ -18,8 +18,13 @@ does that work, in order:
    configured layers and styles (`layer_specs`, `layer_expr_specs`,
    `wave_size_lattice`), and of kernel B2 (`ops.warp_render.
    render_scenes`) per (method, tile edge), each synchronised.  The
-   reference's granule, page-slot and block-shape axes are compile keys
-   of XLA programs: one CUDA kernel serves every point of them;
+   reference's granule and page-slot axes are compile keys of XLA
+   programs: one CUDA kernel serves every point of them.  Its block
+   axis is kept: where `pipeline.autoplan.plan_block` plans a tile other
+   than the default for a point (B1 with its wave size as the lane
+   count, B2 over the bucket-sized scene), that tile is launched once
+   too, so that the first planned launch after a start is not the
+   first of its tile (``blocks``: the planned launches by tile);
 4. with mesh serving on (``GSKY_MESH=1``), the mesh layouts' first
    launches on every member (`MeshDispatcher.prewarm_programs`),
    counted in ``mesh_programs``.
@@ -205,12 +210,13 @@ def prewarm(configs: Dict, executor, sizes: Optional[List[int]] = None,
             bucket: Optional[int] = None) -> Dict:
     """Build, load and launch what the configured layers' requests will
     run, on ``executor``'s device and page pool.  Returns {"specs",
-    "programs" (launches), "mesh_programs", "expr_programs",
-    "failures", "compiles", "seconds"}; a failed launch is logged and
-    counted, not raised."""
+    "programs" (launches), "mesh_programs", "expr_programs", "blocks"
+    (the planned tiles' launches, by tile), "failures", "compiles",
+    "seconds"}; a failed launch is logged and counted, not raised."""
     from ..ops import first_valid, stats, warp_render
     from ..ops.paged import render_byte_paged, render_expr_paged
     from ..ops.warp_render import render_scenes
+    from ..pipeline.autoplan import plan_block
     t0 = time.perf_counter()
     c0 = compile_count()
     sizes = sizes or _env_list("GSKY_PREWARM_SIZES", "256")
@@ -229,17 +235,27 @@ def prewarm(configs: Dict, executor, sizes: Optional[List[int]] = None,
     expr_specs = layer_expr_specs(configs)
     waves = wave_size_lattice()
     programs = failures = expr_programs = 0
+    blocks: Dict[str, int] = {}
+    pr, pc = pool.page_rows, pool.page_cols
 
-    def run(fn, *args):
+    def run(fn, *args, blk=None):
         nonlocal programs, failures
         try:
-            fn(*args)
+            fn(*args, blk=blk)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             programs += 1
+            if blk is not None:
+                tile = f"{blk[0]}x{blk[1]}"
+                blocks[tile] = blocks.get(tile, 0) + 1
         except Exception as e:   # noqa: BLE001 - counted and logged
             failures += 1
             log.warning("prewarm %s: %s", getattr(fn, "__name__", fn), e)
+
+    def planned(fn, blk, *args):
+        # the block axis: the point's planned tile, when it has one
+        if blk is not None:
+            run(fn, *args, blk=blk)
 
     scene = [torch.full((bucket, bucket), float("nan"),
                         dtype=torch.float32, device=dev)]
@@ -248,14 +264,19 @@ def prewarm(configs: Dict, executor, sizes: Optional[List[int]] = None,
         for hw in sizes:
             ctrl = torch.from_numpy(
                 _ctrl_grid(hw, hw, bucket, bucket, step)).to(dev)
-            run(render_scenes, scene, ctrl, params,
-                torch.zeros(3, dtype=torch.float32), method, 1, (hw, hw),
-                step, auto, cs)
+            b2 = (scene, ctrl, params, torch.zeros(3, dtype=torch.float32),
+                  method, 1, (hw, hw), step, auto, cs)
+            run(render_scenes, *b2)
+            planned(render_scenes, plan_block(hw, hw, 1, method, T=1, S=0,
+                                              win=(bucket, bucket)), *b2)
             for W in waves:
+                blk = plan_block(hw, hw, 1, method, T=1, S=1, pr=pr, pc=pc,
+                                 N=W)
                 with pool.locked_pool() as parr:
-                    run(render_byte_paged, parr,
-                        *_paged_inputs(pool, hw, bucket, step, W), method,
-                        1, (hw, hw), step, auto, cs)
+                    b1 = (parr, *_paged_inputs(pool, hw, bucket, step, W),
+                          method, 1, (hw, hw), step, auto, cs)
+                    run(render_byte_paged, *b1)
+                    planned(render_byte_paged, blk, *b1)
     for method, auto, cs, fp in expr_specs:
         n_ns = 1
         while n_ns < fp.n_slots:
@@ -264,11 +285,15 @@ def prewarm(configs: Dict, executor, sizes: Optional[List[int]] = None,
             for W in waves:
                 consts = torch.from_numpy(
                     np.tile(fp.const_array(), (W, 1))).to(dev)
+                blk = plan_block(hw, hw, n_ns, method, T=1, S=1, pr=pr,
+                                 pc=pc, N=W)
                 before = programs
                 with pool.locked_pool() as parr:
-                    run(render_expr_paged, parr,
-                        *_paged_inputs(pool, hw, bucket, step, W), consts,
-                        method, n_ns, (hw, hw), step, auto, cs, fp.key)
+                    b1 = (parr, *_paged_inputs(pool, hw, bucket, step, W),
+                          consts, method, n_ns, (hw, hw), step, auto, cs,
+                          fp.key)
+                    run(render_expr_paged, *b1)
+                    planned(render_expr_paged, blk, *b1)
                 expr_programs += programs - before
     mesh_programs = 0
     # the mesh layouts' axis: with mesh serving on (GSKY_MESH), the same
@@ -287,7 +312,8 @@ def prewarm(configs: Dict, executor, sizes: Optional[List[int]] = None,
             log.warning("prewarm mesh lattice: %s", e)
     out = {"specs": len(specs), "programs": programs,
            "mesh_programs": mesh_programs,
-           "expr_programs": expr_programs, "failures": failures,
+           "expr_programs": expr_programs, "blocks": blocks,
+           "failures": failures,
            "compiles": compile_count() - c0,
            "seconds": round(time.perf_counter() - t0, 3)}
     log.info("prewarm: %s", out)

@@ -730,8 +730,10 @@ def test_drill_pipeline_defaults_to_cuda():
 
 def test_drill_modules_and_smoke_import_no_jax():
     """Every module of the port and chip_smoke.py import nothing of JAX
-    or of the JAX package, nor aiohttp or PIL, which the card machine
-    does not have (static check of their import statements)."""
+    or of the JAX package, nor aiohttp, which the card machine does not
+    have, and PIL only inside a function (the adapter tier opens an
+    image with it, so a host without it imports every module; static
+    check of their import statements)."""
     files = ["chip_smoke.py"] + sorted(
         os.path.relpath(os.path.join(d, f), REPO)
         for d, _, fs in os.walk(os.path.join(REPO, "gsky_tpu_torch"))
@@ -739,6 +741,10 @@ def test_drill_modules_and_smoke_import_no_jax():
     assert len(files) > 40
     for f in files:
         tree = ast.parse(open(os.path.join(REPO, f)).read())
+        in_function = {id(n) for fn in ast.walk(tree)
+                       if isinstance(fn, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))
+                       for n in ast.walk(fn)}
         for node in ast.walk(tree):
             names = []
             if isinstance(node, ast.Import):
@@ -747,5 +753,6 @@ def test_drill_modules_and_smoke_import_no_jax():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "jaxlib", "gsky_tpu", "aiohttp",
-                                    "PIL"), (f, n)
+                assert root not in ("jax", "jaxlib", "gsky_tpu",
+                                    "aiohttp"), (f, n)
+                assert root != "PIL" or id(node) in in_function, (f, n)

@@ -1,8 +1,10 @@
 """Port parity, formats tier: the GMT and HDF4 readers and writers, the
-native format registry, the VRT reader and the crawler records of the
+format registry (its native tier and its adapter tier: images with ESRI
+world files through PIL), the VRT reader and the crawler records of the
 archive families the port serves (GMT, HDF4 / HDF-EOS, Albers GeoTIFF,
-CF geostationary and Lambert NetCDF, curvilinear swaths), against the
-JAX package on the same seeded inputs.
+CF geostationary and Lambert NetCDF, curvilinear swaths, JP2 and PNG),
+against the JAX package on the same seeded inputs; a GetMap over a JP2
+through both packages.
 
 Both packages' writers emit the same bytes; both readers return the
 same arrays, georeferencing and nodata (exact); the crawler records are
@@ -335,8 +337,8 @@ def test_registry_dispatch_equal(tmp_path):
     h = tregistry.open_raster(pt)
     assert type(h).__name__ == "GeoTIFF"
     h.close()
-    assert tregistry.formats() == ["geotiff", "gmt", "hdf4"]
-    assert tregistry.formats() == jregistry.formats()[:3]
+    assert tregistry.formats() == ["geotiff", "gmt", "hdf4", "pil-image"]
+    assert tregistry.formats() == jregistry.formats()
 
 
 def test_registry_unknown_magic_and_custom_format(tmp_path):
@@ -370,7 +372,7 @@ def test_registry_unknown_magic_and_custom_format(tmp_path):
     finally:
         tregistry._formats[:] = [e for e in tregistry._formats
                                  if e[0] not in ("fake-fmt", "first")]
-    assert tregistry.formats() == ["geotiff", "gmt", "hdf4"]
+    assert tregistry.formats() == jregistry.formats()
 
 
 # ---------------------------------------------------------------------------
@@ -485,11 +487,9 @@ def test_crawler_record_equals_reference(files, family, approx_stats):
     t = extract(p, approx_stats=approx_stats)
     j = jextract(p, approx_stats=approx_stats)
     if family == "unknown":
-        # the error lists the registered formats: the reference's also
-        # names its PIL adapter, which the port does not have
-        te, je = t.pop("error"), j.pop("error")
-        assert te.split("formats:")[0] == je.split("formats:")[0]
+        # the error lists the registered formats, the adapter tier's too
         assert t == j and t["geo_metadata"] == []
+        assert "'pil-image']" in t["error"]
         return
     assert t == j
     assert not t.get("error"), t
@@ -686,3 +686,160 @@ print("OK")
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("OK")
+
+
+# ---------------------------------------------------------------------------
+# the adapter tier: images with ESRI world files
+# ---------------------------------------------------------------------------
+
+# 0.01-degree pixels, the top-left pixel's centre at (148.005, -35.005)
+_WORLD = "0.01\n0.0\n0.0\n-0.01\n148.005\n-35.005\n"
+
+
+@pytest.fixture(scope="module")
+def images(tmp_path_factory):
+    """One seeded 64 x 64 uint8 raster as a lossless JP2 beside a .j2w
+    and as a PNG beside a .PGW (upper case), and a JP2 whose world file
+    is malformed."""
+    from PIL import Image
+    root = tmp_path_factory.mktemp("adapter")
+    rng = np.random.default_rng(9)
+    data = rng.integers(1, 255, (64, 64), dtype=np.uint8)
+    out = {"root": str(root), "data": data}
+    for name, fmt, world in (("S2_B04_20200110.jp2", "JPEG2000", ".j2w"),
+                             ("S2_B03_20200110.png", "PNG", ".PGW"),
+                             ("bad_world_20200110.jp2", "JPEG2000",
+                              ".j2w")):
+        p = os.path.join(str(root), name)
+        Image.fromarray(data, "L").save(p, fmt)
+        with open(os.path.splitext(p)[0] + world, "w") as fp:
+            fp.write("0.01\nnot a number\n" if name.startswith("bad")
+                     else _WORLD)
+        out[name.split("_")[1] if name.startswith("S2") else "bad"] = p
+    return out
+
+
+def test_adapter_formats_registered_in_the_reference_order():
+    from gsky_tpu.io import adapter as jadapter
+    from gsky_tpu_torch.io import adapter as tadapter
+    assert tregistry.formats() == jregistry.formats()
+    assert tregistry.formats()[-1] == "pil-image"
+    for magic in (b"\x00\x00\x00\x0cjP  \r\n", b"\xff\x4f\xff\x51",
+                  b"\x89PNG\r\n\x1a\n", b"\xff\xd8\xff\xe0", b"BM\x00",
+                  b"II*\x00", b"CDF\x01"):
+        assert tadapter.sniff_image("x", magic) == \
+            jadapter.sniff_image("x", magic)
+
+
+@pytest.mark.parametrize("band", ["B04", "B03", "bad", "missing"])
+def test_read_world_file_equals_reference(images, band, tmp_path):
+    from gsky_tpu.io.adapter import read_world_file as jread
+    from gsky_tpu_torch.io.adapter import read_world_file as tread
+    p = images.get(band, str(tmp_path / "no_world.jp2"))
+    t, j = tread(p), jread(p)
+    if band in ("bad", "missing"):
+        assert t is None and j is None
+        return
+    assert t.to_gdal() == j.to_gdal()
+    assert t.to_gdal() == pytest.approx((148.0, 0.01, 0.0, -35.0, 0.0,
+                                         -0.01))
+
+
+@pytest.mark.parametrize("band", ["B04", "B03"])
+@pytest.mark.parametrize("window", [None, (8, 4, 16, 12), (60, 50, 10, 20)])
+def test_image_window_equals_reference(images, band, window):
+    t = tregistry.open_raster(images[band])
+    j = jregistry.open_raster(images[band])
+    try:
+        assert type(t).__name__ == type(j).__name__ == "ImageRaster"
+        assert (t.width, t.height, t.bands, t.nodata, t.overviews,
+                t.crs) == (j.width, j.height, j.bands, j.nodata,
+                           j.overviews, j.crs) == (64, 64, 1, None, (),
+                                                   None)
+        assert t.gt.to_gdal() == j.gt.to_gdal()
+        got = t.read(1, window)
+        np.testing.assert_array_equal(got, j.read(1, window))
+        c0, r0, w, h = window or (0, 0, 64, 64)
+        np.testing.assert_array_equal(
+            got, images["data"][r0:r0 + h, c0:c0 + w])
+    finally:
+        t.close()
+        j.close()
+    t.close()                               # a second close frees nothing
+
+
+@pytest.mark.parametrize("band", ["B04", "B03", "bad"])
+def test_image_crawler_record_equals_reference(images, band):
+    p = images[band]
+    t, j = extract(p), jextract(p)
+    assert t == j
+    assert not t.get("error") and t["file_type"] == "Raster"
+    assert t["geo_metadata"][0]["x_size"] == 64
+
+
+def test_image_without_pil_records_the_import_error(images, tmp_path):
+    """On a host without PIL the adapter's open raises the ImportError,
+    which the crawler records; nothing decodes the image another way."""
+    code = ("import sys; sys.modules['PIL'] = None\n"
+            "from gsky_tpu_torch.index.crawler import extract\n"
+            f"print(extract({images['B04']!r})['error'])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "import of PIL halted; None in sys.modules"
+
+
+@pytest.mark.parametrize("method", ["near", "bilinear"])
+def test_getmap_over_an_image_equals_reference(images, method,
+                                               monkeypatch):
+    """crawl -> MAS -> GetMap over the Sentinel-2-style JP2 through both
+    packages (the reference's Pallas kernels in interpret mode): the
+    same granule, equal data and validity, equal tile bytes."""
+    from gsky_tpu.geo.crs import EPSG3857 as J3857
+    from gsky_tpu.geo.transform import BBox as JBBox
+    from gsky_tpu.geo.transform import transform_bbox as jtransform
+    from gsky_tpu.index.client import MASClient as JMASClient
+    from gsky_tpu.index.store import MASStore as JMASStore
+    from gsky_tpu.pipeline import pages as jpages
+    from gsky_tpu.pipeline.executor import WarpExecutor as JWarpExecutor
+    from gsky_tpu.pipeline.tile import TilePipeline as JTilePipeline
+    from gsky_tpu.pipeline.types import GeoTileRequest as JRequest
+    from gsky_tpu_torch.geo.crs import EPSG3857
+    from gsky_tpu_torch.geo.transform import BBox, transform_bbox
+    from gsky_tpu_torch.index.client import MASClient
+    from gsky_tpu_torch.index.store import MASStore
+    from gsky_tpu_torch.pipeline.tile import TilePipeline
+    from gsky_tpu_torch.pipeline.types import GeoTileRequest
+    monkeypatch.setenv("GSKY_PALLAS", "interpret")
+    monkeypatch.setenv("GSKY_WAVES", "0")
+    monkeypatch.setenv("GSKY_RENDER_BATCH", "0")
+    p, ns = images["B04"], "S2_B04_20200110"
+    jstore, tstore = JMASStore(), MASStore()
+    jstore.ingest(jextract(p))
+    tstore.ingest(extract(p))
+    box = (148.1, -35.5, 148.5, -35.1)
+    jbox = jtransform(JBBox(*box), J4326, J3857)
+    tbox = transform_bbox(BBox(*box), EPSG4326, EPSG3857)
+    assert tbox == BBox(jbox.xmin, jbox.ymin, jbox.xmax, jbox.ymax)
+    jpages.reset_default_pool()
+    try:
+        jpipe = JTilePipeline(JMASClient(jstore), executor=JWarpExecutor())
+        jreq = JRequest(collection=images["root"], bands=[ns], bbox=jbox,
+                        crs=J3857, width=64, height=64, resample=method)
+        jres = jpipe.process(jreq)
+        jtile = np.asarray(jpipe.render_composite_byte(jreq))
+    finally:
+        jpages.reset_default_pool()
+    tpipe = TilePipeline(MASClient(tstore), device="cpu")
+    treq = GeoTileRequest(collection=images["root"], bands=[ns], bbox=tbox,
+                          crs=EPSG3857, width=64, height=64,
+                          resample=method)
+    tres = tpipe.process(treq)
+    ttile = tpipe.render_composite_byte(treq).numpy()
+    ok = np.asarray(tres.valid[ns])
+    np.testing.assert_array_equal(ok, np.asarray(jres.valid[ns]))
+    assert ok.mean() > 0.9
+    np.testing.assert_array_equal(np.asarray(tres.data[ns])[ok],
+                                  np.asarray(jres.data[ns])[ok])
+    np.testing.assert_array_equal(ttile, jtile)

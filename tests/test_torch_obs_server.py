@@ -93,10 +93,9 @@ jres = importlib.import_module("gsky_tpu.resilience")
 tres = importlib.import_module("gsky_tpu_torch.resilience")
 
 # the reference's families whose subsystem the port has not yet, by the
-# ROADMAP item that brings it
-NOT_PORTED = {
-    "gsky_plan_block_shape": "A.21",            # autoplan.plan_block
-}
+# ROADMAP item that brings it: none since A.21 (`autoplan.plan_block`,
+# ``gsky_plan_block_shape``, compared in `test_serving_modes_alike`)
+NOT_PORTED = {}
 # the cache fabric's and the elastic fleet's families, compared with the
 # reference's in `test_fabric_elastic_families_alike`
 FABRIC_ELASTIC_FAMILIES = (
@@ -663,6 +662,10 @@ def test_serving_modes_alike(oenv, monkeypatch, mode):
             ans = get(url)
             after = _scrape(get)
             deltas = {f: _delta(before, after, f) for f in MODE_FAMILIES}
+            # the tile decisions: as many in both, each labelled with its
+            # package's own block (a Pallas block, a CUDA tile)
+            deltas["gsky_plan_block_shape"] = sum(_delta(
+                before, after, "gsky_plan_block_shape").values())
             counts = {f: {lab: v for (n, lab), v in
                           _delta(before, after, f).items()
                           if n == f + "_count"}
@@ -678,6 +681,7 @@ def test_serving_modes_alike(oenv, monkeypatch, mode):
     assert pt == rt
     if mode in ("waves", "animation"):
         assert pd["gsky_wave_dispatches_total"]
+        assert pd["gsky_plan_block_shape"] > 0
     if mode == "batcher":
         assert pd["gsky_batch_flushes_total"]
     if mode == "animation":
