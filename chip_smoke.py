@@ -271,13 +271,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 23. the fleet on one card (`Fleet`: worker nodes, ``python -m
    gsky_tpu_torch.worker.server``, each its own process and CUDA
    context, started together before phase 3 and used where their data
-   is): 23a whether ``grpc`` and ``google.protobuf`` import here
-   (information only); 23b (phase 10's block) 16 masked tiles from 4
-   threads through an OWS server whose namespace names two workers,
-   their bytes those of the same server's local modular route (B4
-   here, the warps on the workers), tiles/s, p50, p90, RPCs a tile,
-   ``gsky_worker_rpc_seconds``, ``gsky_fleet_*`` and the locality rate,
-   and no decode child holding a CUDA context (nvidia-smi); and (phase
+   is, each serving gRPC's ``gskyrpc.GDAL/Process``): 23a ``grpc``
+   imports here (its version; the run fails without it); 23b (phase
+   10's block) 16 masked tiles from 4 threads through an OWS server
+   whose namespace names two workers, their bytes those of the same
+   server's local modular route (B4 here, the warps on the workers),
+   tiles/s, p50, p90, RPCs a tile, ``gsky_worker_rpc_seconds``,
+   ``gsky_fleet_*`` and the locality rate, the RPC's split, the
+   workers' device supervisors healthy (their kernels ran on gRPC's
+   handler threads), and no decode child holding a CUDA context
+   (nvidia-smi); and (phase
    18's block) 16 masked tiles of the curvilinear swath (B1/B2 on the
    workers, B4 here); 23c (phase 7's block) the worker's drill op over
    the stack, B3 on the worker, equal to this process's drill within
@@ -7431,17 +7434,13 @@ WORKER_SYMBOLS = {"B1": ("launch_paged_render",),
 
 
 def phase_grpc_probe():
-    """23a: whether ``grpc`` and ``google.protobuf`` import here, each in
-    a child interpreter (information only: the port imports neither)."""
-    out = {}
-    for mod in ("grpc", "google.protobuf"):
-        r = subprocess.run([sys.executable, "-c", f"import {mod}"],
-                           capture_output=True, text=True, timeout=60)
-        out[mod] = "imports" if r.returncode == 0 else \
-            (r.stderr.strip().splitlines() or ["fails"])[-1]
-    log(f"phase 23a: on this machine {out}; the port's worker RPC uses "
-        f"neither (HTTP/1.1, its own proto3 codec)")
-    return out
+    """23a: the worker RPC's carrier, ``grpc``, imports here (raises if
+    not: there is no other carrier); the port's own proto3 codec stands
+    in for ``google.protobuf``."""
+    import grpc
+    log(f"phase 23a: grpc {grpc.__version__} imports; the worker RPC is "
+        f"gRPC's gskyrpc.GDAL/Process over the port's own proto3 codec")
+    return grpc.__version__
 
 
 class Fleet:
@@ -7523,10 +7522,10 @@ class Fleet:
 
     def info(self, addr):
         from gsky_tpu_torch.worker import gskyrpc as pb
-        from gsky_tpu_torch.worker.transport import Channel, Stub
-        ch = Channel(addr)
+        from gsky_tpu_torch.worker.client import dial
+        ch, call = dial(addr)
         try:
-            res = Stub(ch)(pb.Task(operation="worker_info"), timeout=30.0)
+            res = call(pb.Task(operation="worker_info"), timeout=30.0)
         finally:
             ch.close()
         return json.loads(res.info_json)
@@ -7711,8 +7710,8 @@ def rpc_split(base, n, what, card):
     the node's whole op, and in it ``worker.decode`` with the decode
     pool's queue wait ``pool_wait_s``, ``worker.dispatch`` and
     ``worker.readback``) and the carrier: the mean RPC span less the
-    mean ``worker.warp`` (framing, the codec, HTTP and the socket).
-    Host clocks of one machine."""
+    mean ``worker.warp`` (the codec, gRPC's HTTP/2 framing, its threads
+    and the socket).  Host clocks of one machine."""
     st, _, body, _ = http_status(base + "/debug/trace?format=jsonl")
     traces = sorted((json.loads(ln) for ln in body.decode().splitlines()
                      if ln.strip()), key=lambda t: t["t0"])
@@ -7798,6 +7797,14 @@ def phase_fleet_masked(root, store, fleet, workers, card):
                      {"here": here, "workers": there},
                      router_of(server, "fleet"), base, card)
         rpc_split(base, len(boxes), "23b masked", card)
+        # the workers' kernels ran on gRPC's handler threads (through
+        # the device guard's sync workers): no incident on either card
+        # context, no CUDA error
+        for w in workers:
+            dev = fleet.info(w)["device"]
+            if dev["state"] != "healthy" or dev["incidents"] \
+                    or dev["last_error"]:
+                raise AssertionError(f"23b: worker {w}'s device {dev}")
 
         # -- 23d: a worker SIGKILLed in the middle of a burst ---------
         victim = workers[1]

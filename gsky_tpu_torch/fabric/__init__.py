@@ -1,9 +1,9 @@
 """Cache fabric: lateral peer sharing between gateways and workers.
 
 Counterpart of `gsky_tpu/fabric/`, copied (the port imports nothing of
-the JAX package), its RPCs on the port's HTTP/1.1 carrier
-(`worker.transport`) and its gateway tier on threads.  Two tiers, both
-off unless ``GSKY_FABRIC=1``:
+the JAX package), its worker RPCs over gRPC (`worker.client.dial`)
+and its gateway tier on threads.  Two tiers, both off unless
+``GSKY_FABRIC=1``:
 
 * **Gateway tier** (`fabric/replay.py`): on a response-cache miss the
   consistent-hash ring (`fleet/ring.py`) names an owner gateway; a

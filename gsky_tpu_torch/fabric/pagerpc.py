@@ -8,8 +8,8 @@ is a fill source.  A worker rebuilding its pool (a warm boot, the
 successor of a preempted node, ``rehydrate()``) asks its peers for the
 journal's hot set, hottest first, instead of decoding scenes again.
 
-Wire format: one worker RPC (``operation="page_fetch"`` on
-``POST /gskyrpc.GDAL/Process``, `worker.transport`):
+Wire format: one worker RPC (``operation="page_fetch"`` on gRPC's
+``/gskyrpc.GDAL/Process``, `worker.client.dial`):
 
 * the request, in ``Task.path``::
 
@@ -154,16 +154,16 @@ def decode_result(info_json: str, blob: bytes
 
 def _rpc_fetch(peer: str, keys: Sequence[Key], max_bytes: int,
                timeout: float) -> Dict[Key, np.ndarray]:
-    """One ``page_fetch`` RPC to one peer worker over the carrier;
-    raises on a transport or peer error (the caller's breaker counts
-    it)."""
+    """One ``page_fetch`` RPC to one peer worker over gRPC, its answer
+    capped at ``max_bytes`` and 1 MiB more; raises on a transport or
+    peer error (the caller's breaker counts it)."""
     from ..worker import gskyrpc as pb
-    from ..worker.transport import Channel, Stub
-    ch = Channel(peer, max_msg=max_bytes + (1 << 20))
+    from ..worker.client import dial
+    ch, call = dial(peer, max_msg=max_bytes + (1 << 20))
     try:
-        res = Stub(ch)(pb.Task(operation="page_fetch",
-                               path=encode_request(keys, max_bytes)),
-                       timeout=timeout)
+        res = call(pb.Task(operation="page_fetch",
+                           path=encode_request(keys, max_bytes)),
+                   timeout=timeout)
     finally:
         ch.close()
     if res.error:

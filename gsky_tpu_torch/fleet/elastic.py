@@ -1,8 +1,8 @@
 """Elastic fleet: autoscaling preemptible workers with a warm hand-off.
 
 Counterpart of `gsky_tpu/fleet/elastic.py`, copied (the port imports
-nothing of the JAX package), its control RPCs on the port's HTTP/1.1
-carrier (`worker.transport`).  Spot capacity is cheap and preemptible:
+nothing of the JAX package), its control RPCs over gRPC
+(`worker.client.dial`).  Spot capacity is cheap and preemptible:
 a fixed worker set either over-provisions for the Zipf peak or browns
 out under it.  This module closes the loop:
 
@@ -182,17 +182,17 @@ def dormant() -> bool:
 def control_rpc(addr: str, operation: str, doc: Optional[Dict] = None,
                 timeout: float = 5.0) -> Dict:
     """One control RPC (``preempt``, ``journal_handoff``,
-    ``worker_info``) to one node over the carrier: its ``info_json``
-    parsed.  Raises on a transport or node error; a control caller
-    decides how to degrade."""
+    ``journal_export``, ``worker_info``) to one node over gRPC: its
+    ``info_json`` parsed.  Raises on a transport or node error; a
+    control caller decides how to degrade."""
     from ..worker import gskyrpc as pb
-    from ..worker.transport import Channel, Stub
+    from ..worker.client import dial
     task = pb.Task(operation=operation)
     if doc is not None:
         task.path = json.dumps(doc)
-    ch = Channel(addr)
+    ch, call = dial(addr)
     try:
-        res = Stub(ch)(task, timeout=timeout)
+        res = call(task, timeout=timeout)
     finally:
         ch.close()
     if res.error:

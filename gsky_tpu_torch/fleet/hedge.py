@@ -13,9 +13,8 @@ bounds it hard: hedges spend from a token pool refilled at
 add more than ~10% fleet load, no matter how sick the tail gets).
 
 The mechanics are future-agnostic: anything with ``done()``,
-``cancel()``, ``result()`` and ``add_done_callback(fn)`` works — the
-worker transport's call futures and ``concurrent.futures.Future`` both
-qualify.
+``cancel()``, ``result()`` and ``add_done_callback(fn)`` works — gRPC
+call futures and ``concurrent.futures.Future`` both qualify.
 """
 
 from __future__ import annotations

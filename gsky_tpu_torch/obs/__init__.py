@@ -19,8 +19,8 @@ Counterpart of `gsky_tpu/obs/`.  Three concerns, one seam:
 ContextVar read); ``GSKY_TRACE_FILE`` + ``GSKY_TRACE_SAMPLE`` enable
 sampled JSONL file export.  ``tsan`` is the opt-in lockset race
 sanitizer (``GSKY_TSAN=1``).  The worker RPC carries the trace to the
-worker node (`traceparent` in a request header, `remote_trace` there)
-and its spans back (`adopt_spans`), and observes
+worker node (`trace_metadata`, gRPC metadata ``x-gsky-trace``;
+`remote_trace` there) and its spans back (`adopt_spans`), and observes
 ``gsky_worker_rpc_seconds``.
 """
 
@@ -39,7 +39,9 @@ from .trace import (  # noqa: F401
     set_attr,
     span,
     start_trace,
+    TRACE_METADATA_KEY,
     trace_enabled,
+    trace_metadata,
     traceparent,
 )
 from .recorder import (  # noqa: F401

@@ -6,9 +6,9 @@ request's context goes: the server's render thread runs under a copy of
 it (`server.ows._bounded`), as do an animation's frame workers.  Raw
 threads and long-lived pools start from an empty context, so the
 request re-binds it there (``bind``, ``contextvars.Context.run``).
-``traceparent`` / ``remote_trace`` / ``adopt_spans`` are the wire form
-and the stitching of a trace that crosses into another process (the
-remote workers' hop, ROADMAP A.10).
+``traceparent`` / ``trace_metadata`` / ``remote_trace`` /
+``adopt_spans`` are the wire form and the stitching of a trace that
+crosses into another process (the remote workers' hop, ROADMAP A.10).
 
 Overhead discipline: ``span()`` costs one ContextVar read when no trace
 is active, and ``GSKY_TRACE=0`` (read once per request) means no trace
@@ -192,6 +192,16 @@ def traceparent() -> Optional[str]:
     if cur is None:
         return None
     return f"{cur[0].trace_id}-{cur[1]}"
+
+
+# the gRPC metadata key that carries `traceparent` to a worker node
+TRACE_METADATA_KEY = "x-gsky-trace"
+
+
+def trace_metadata() -> Optional[Tuple[Tuple[str, str], ...]]:
+    """The worker RPC's metadata for the current trace, None untraced."""
+    tp = traceparent()
+    return ((TRACE_METADATA_KEY, tp),) if tp else None
 
 
 def set_attr(**attrs) -> None:

@@ -27,7 +27,7 @@ with ``Retry-After``, the requests in flight finish (at most
 ``GSKY_DRAIN_TIMEOUT_S``, 30), the metrics log is flushed and the worker
 clients closed; then the process exits 0.  A namespace with
 ``worker_nodes`` reaches its worker nodes (``python -m
-gsky_tpu_torch.worker.server``) over HTTP.  The cache fabric's peer
+gsky_tpu_torch.worker.server``) over gRPC.  The cache fabric's peer
 replay comes from the environment as in the reference (no flag):
 ``GSKY_FABRIC=1`` with ``GSKY_FABRIC_SELF`` (this server's base URL)
 and ``GSKY_FABRIC_PEERS`` (the other gateways') puts the server on the

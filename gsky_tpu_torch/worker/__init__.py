@@ -6,8 +6,11 @@ supervised decode-subprocess pool, an OOM monitor and the client-side
 fleet fan-out (`client.WorkerClient`).  The compute inside the boundary
 is the node's executor on its card; the pool isolates codec IO crashes
 as GSKY isolates GDAL (`worker/gdalprocess/`).  The RPC keeps the
-reference's schema (`gskyrpc.proto`, encoded by `gskyrpc`) and method
-and carries it over HTTP/1.1 (`transport`), not gRPC.
+reference's schema (`gskyrpc.proto`, encoded by the port's own codec,
+`gskyrpc`, whose bytes are protobuf's) and carries it over gRPC as the
+reference does: the service ``gskyrpc.GDAL``, method ``Process``
+(`server.make_server`, `client.dial`), so that a port's OWS node can
+call a reference worker and the other way round.
 """
 
 from .client import ConcLimiter, NodeBusy, WorkerClient  # noqa: F401

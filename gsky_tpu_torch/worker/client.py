@@ -1,12 +1,11 @@
 """Client-side fleet dispatch to worker nodes.
 
-Counterpart of `gsky_tpu/worker/client.py` over the port's HTTP/1.1
-carrier (`transport`: one `Channel` and `Stub` per node, where the
-reference dials a gRPC channel), in the role of GSKY's
-`processor/tile_grpc.go` — a connection pool over ``worker_nodes`` with
-per-granule warp RPCs, a concurrency limiter of ``GrpcConcLimit x
-nodes`` (`tile_grpc.go:222`) and worker-metrics accumulation — upgraded
-from static round-robin to fleet routing:
+Counterpart of `gsky_tpu/worker/client.py` (one gRPC channel per node,
+`dial`), in the role of GSKY's `processor/tile_grpc.go` — a connection
+pool over ``worker_nodes`` with per-granule warp RPCs, a concurrency
+limiter of ``GrpcConcLimit x nodes`` (`tile_grpc.go:222`) and
+worker-metrics accumulation — upgraded from static round-robin to fleet
+routing:
 
 - tasks carrying a route key ride the consistent-hash ring, so repeat
   requests for one tile land on the shard whose scene cache, page pool
@@ -38,13 +37,14 @@ import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
+import grpc
 import numpy as np
 
 from ..fleet import DRAINING, FleetRouter, hedged_call, tile_route_key
 from ..geo.crs import CRS
 from ..geo.transform import GeoTransform
 from ..obs import (adopt_spans, current_trace_id, event as obs_event,
-                   span as obs_span, traceparent)
+                   span as obs_span, trace_metadata)
 from ..obs.metrics import RPC_SECONDS, TRACE_EVENTS
 from ..pipeline.types import GeoTileRequest, Granule
 from ..resilience import (BackendUnavailable, BreakerOpen, RetryPolicy,
@@ -52,8 +52,7 @@ from ..resilience import (BackendUnavailable, BreakerOpen, RetryPolicy,
                           get_breaker, registry)
 from . import gskyrpc as pb
 from .serialize import granule_to_pb, unpack_raster
-from .transport import (TRACE_HEADER, UNAVAILABLE, Channel,
-                        FutureCancelledError, RpcError, Stub)
+from .server import METHOD
 
 log = logging.getLogger("gsky.worker.client")
 
@@ -62,6 +61,11 @@ CONC_PER_NODE = 16
 # an RPC's timeout in seconds, cut to what is left of the request's
 # deadline (`clamp_timeout`)
 RPC_TIMEOUT_S = 130.0
+
+# a node that dies and revives is re-dialled within a couple of the
+# health monitor's beats, not after gRPC's default reconnect backoff
+# (which grows to 2 minutes)
+RECONNECT_BACKOFF_MS = 3000
 
 # ops whose Result.info_json is free for the span-backhaul envelope
 # ("info" / "worker_info" already carry their payloads there)
@@ -82,6 +86,20 @@ def _rpc_observe(op: str, outcome: str, dur_s: float) -> None:
         RPC_SECONDS.labels(op=op, outcome=outcome).observe(dur_s)
     except Exception:  # telemetry must never fail the RPC path
         pass
+
+
+def dial(address: str, max_msg: int = 64 << 20):
+    """A gRPC channel to one worker node with the reference's options
+    (receive and send capped at ``max_msg``) and its ``Process`` method:
+    ``(channel, call)``; ``call(task, timeout=, metadata=)`` and
+    ``call.future(...)`` answer a `gskyrpc.Result`."""
+    ch = grpc.insecure_channel(address, options=[
+        ("grpc.max_receive_message_length", max_msg),
+        ("grpc.max_send_message_length", max_msg),
+        ("grpc.max_reconnect_backoff_ms", RECONNECT_BACKOFF_MS)])
+    return ch, ch.unary_unary(
+        METHOD, request_serializer=pb.Task.SerializeToString,
+        response_deserializer=pb.Result.FromString)
 
 
 class NodeBusy(BackendUnavailable):
@@ -127,10 +145,9 @@ class WorkerClient:
             raise ValueError("no worker nodes")
         nodes = list(nodes)
         random.shuffle(nodes)          # `tile_grpc.go:99-104`
-        # a node that dies and revives is dialled afresh on the next
-        # call: the connections of a channel are made on demand
-        self._channels = [Channel(n, max_msg=max_msg) for n in nodes]
-        self._stubs = [Stub(ch) for ch in self._channels]
+        dialled = [dial(n, max_msg) for n in nodes]
+        self._channels = [ch for ch, _ in dialled]
+        self._stubs = [call for _, call in dialled]
         self._rr = itertools.count()
         # one breaker per node, shared process-wide by address so a
         # rebuilt client (SIGHUP reload) keeps the node's health history
@@ -198,9 +215,9 @@ class WorkerClient:
                     stubs.append(self._stubs[i])
                     breakers.append(self._breakers[i])
                 else:
-                    ch = Channel(n, max_msg=self._max_msg)
+                    ch, stub = dial(n, self._max_msg)
                     channels.append(ch)
-                    stubs.append(Stub(ch))
+                    stubs.append(stub)
                     breakers.append(get_breaker(f"worker:{n}"))
                     added.append(n)
                 nodes.append(n)
@@ -292,8 +309,8 @@ class WorkerClient:
         refused / unreachable), not just this call?"""
         if isinstance(e, faults.InjectedFault):
             return False
-        if isinstance(e, RpcError):
-            return e.code() == UNAVAILABLE
+        if isinstance(e, grpc.RpcError):
+            return e.code() == grpc.StatusCode.UNAVAILABLE
         return isinstance(e, (ConnectionError, OSError))
 
     def autosize(self) -> int:
@@ -350,10 +367,9 @@ class WorkerClient:
             start = next(self._rr)
             order = [(start + k) % n for k in range(n)]
         timeout = clamp_timeout(RPC_TIMEOUT_S)
-        # one header per dispatch: the trace context crosses the process
-        # boundary as a traceparent header ("tid-sid")
-        tp = traceparent()
-        md = ((TRACE_HEADER, tp),) if tp else None
+        # one metadata tuple per dispatch: the trace context crosses the
+        # process boundary as gRPC metadata (x-gsky-trace: "tid-sid")
+        md = trace_metadata()
         op = task.operation
         busy = 0
         last: Optional[Exception] = None
@@ -480,10 +496,10 @@ class WorkerClient:
     def _call_cancellable(self, stub, task: pb.Task, timeout: float,
                           md, tok) -> pb.Result:
         """One RPC that honours the request's cancel token end-to-end:
-        the token fires ``fut.cancel()``, which closes the call's
-        connection (the server's handler polls ``ctx.is_active()`` and
-        stops decoding/warping for the dead client), and the caller
-        unwinds as :class:`RequestCancelled` — a BaseException, so the
+        the token fires ``fut.cancel()``, gRPC propagates the abort to
+        the server (whose handler polls ``ctx.is_active()`` and stops
+        decoding/warping for the dead client), and the caller unwinds
+        as :class:`RequestCancelled` — a BaseException, so the
         breaker records neither success nor failure for work WE
         abandoned."""
         if tok is None:
@@ -492,7 +508,7 @@ class WorkerClient:
         unhook = tok.on_cancel(lambda: fut.cancel())
         try:
             return fut.result()
-        except FutureCancelledError:
+        except grpc.FutureCancelledError:
             tok.check("rpc")    # raises RequestCancelled when fired
             raise               # cancelled by someone else: propagate
         finally:
@@ -788,7 +804,7 @@ class WorkerClient:
         """Idempotent shutdown.  The closed flag flips *first*, so any
         dispatch racing the teardown is rejected up front with
         :class:`BackendUnavailable` instead of hitting a half-closed
-        channel mid-RPC; the channels' connections close."""
+        channel mid-RPC."""
         with self._close_lock:
             if self._closed:
                 return

@@ -2,9 +2,10 @@
 decode pool.
 
 Counterpart of `gsky_tpu/worker/server.py`, in the role of GSKY's
-`grpc-server/main.go` (binary ``gsky-rpc``): one unary method,
-``Process(Task) returns (Result)``, over the port's HTTP/1.1 carrier
-(`transport`), with the operations
+`grpc-server/main.go` (binary ``gsky-rpc``): one unary gRPC method,
+``/gskyrpc.GDAL/Process(Task) returns (Result)`` (`make_server`, the
+reference's ``make_grpc_server``: a generic handler over the port's own
+codec, `gskyrpc`, whose bytes are protobuf's), with the operations
 
 - ``worker_info`` — answered inline (`grpc-server/main.go:31-33`), even
   while draining: it is the drain handshake the fleet's health monitor
@@ -68,6 +69,7 @@ reports not ready until it has.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import json
 import logging
 import math
@@ -79,6 +81,7 @@ import time
 import weakref
 from typing import Optional
 
+import grpc
 import numpy as np
 import torch
 
@@ -86,16 +89,21 @@ from .. import device_guard
 from ..device import resolve_device
 from ..device_guard import DeviceGuardError, journal
 from ..fleet import DrainController, Draining
-from ..obs import current_trace_id, remote_trace, span as obs_span
+from ..obs import (TRACE_METADATA_KEY, current_trace_id, remote_trace,
+                   span as obs_span)
 from ..ops import kernel_launches
 from ..resilience import faults
 from . import gskyrpc as pb
 from .oom import OOMMonitor
 from .pool import PoolFullError, ProcessPool
 from .serialize import granule_from_pb, pack_raster, unpack_raster
-from .transport import make_server
 
 log = logging.getLogger("gsky.worker.server")
+
+SERVICE = "gskyrpc.GDAL"
+METHOD = f"/{SERVICE}/Process"
+# RPCs the server runs at once (the reference's gRPC executor size)
+HANDLER_SLOTS = 32
 
 
 def _compile_probe():
@@ -171,13 +179,20 @@ class WorkerService:
     # -- ops -----------------------------------------------------------------
 
     def process(self, task: pb.Task, ctx=None) -> pb.Result:
-        """``ctx`` is the transport's `CallContext` (None from
-        in-process callers): its ``traceparent`` continues the
-        gateway's trace here, and the child spans ride back on
-        ``info_json`` for ops that leave that channel free."""
+        """``ctx`` is the gRPC ServicerContext (None from in-process
+        callers): its ``x-gsky-trace`` metadata continues the gateway's
+        trace here, and the child spans ride back on ``info_json`` for
+        ops that leave that channel free."""
         op = task.operation
-        header = getattr(ctx, "traceparent", None) if ctx is not None \
-            else None
+        header = None
+        if ctx is not None:
+            try:
+                for k, v in ctx.invocation_metadata():
+                    if k == TRACE_METADATA_KEY:
+                        header = v
+                        break
+            except Exception:
+                header = None
         with remote_trace(header, f"worker.{op}") as wtrace:
             res = self._process(task, op, ctx)
             if wtrace is not None and not res.info_json \
@@ -536,9 +551,10 @@ class WorkerService:
         from ..geo.transform import GeoTransform
         from ..pipeline.decode import DecodedWindow
 
-        # the gateway's cancel token reaches here as a closed
-        # connection; poll it at the expensive boundaries and stop
-        # decoding and warping for an answer nobody will read
+        # the gateway's cancel token reaches here as the call's
+        # cancellation (gRPC's ``is_active``); poll it at the expensive
+        # boundaries and stop decoding and warping for an answer nobody
+        # will read
         def _gone() -> bool:
             try:
                 return ctx is not None and not ctx.is_active()
@@ -666,6 +682,51 @@ class WorkerService:
 
     def close(self):
         self.pool.close()
+
+
+class RpcServer:
+    """A bound gRPC server over a service's ``process``: `start`, the
+    bound `port`, and `stop`."""
+
+    def __init__(self, server: grpc.Server, port: int):
+        self._server = server
+        self.port = port
+
+    def start(self) -> "RpcServer":
+        self._server.start()
+        return self
+
+    def stop(self, grace: Optional[float] = 5.0) -> bool:
+        """Refuse new RPCs, give those in flight ``grace`` seconds (None:
+        cancel them now), then close, waiting for the close.  False when
+        it took over the grace and 5 s more."""
+        return self._server.stop(grace).wait((grace or 0.0) + 5.0)
+
+
+def make_server(service, address: str = "0.0.0.0:11429",
+                max_msg: int = 64 << 20) -> RpcServer:
+    """The reference's ``make_grpc_server``: ``service.process`` behind
+    a generic handler of ``gskyrpc.GDAL/Process``, `HANDLER_SLOTS` RPCs
+    at once, messages capped at ``max_msg`` both ways, ``so_reuseport``
+    on.  Bound, not started; port 0 binds a free port (`RpcServer.
+    port`).  Raises when the address cannot be bound."""
+    handler = grpc.method_handlers_generic_handler(SERVICE, {
+        "Process": grpc.unary_unary_rpc_method_handler(
+            lambda req, ctx: service.process(req, ctx),
+            request_deserializer=pb.Task.FromString,
+            response_serializer=pb.Result.SerializeToString),
+    })
+    server = grpc.server(
+        cf.ThreadPoolExecutor(max_workers=HANDLER_SLOTS,
+                              thread_name_prefix="gsky-worker-rpc"),
+        options=[("grpc.max_receive_message_length", max_msg),
+                 ("grpc.max_send_message_length", max_msg),
+                 ("grpc.so_reuseport", 1)])
+    server.add_generic_rpc_handlers((handler,))
+    port = server.add_insecure_port(address)
+    if not port:
+        raise RuntimeError(f"gRPC server: cannot bind {address}")
+    return RpcServer(server, port)
 
 
 def main(argv=None):

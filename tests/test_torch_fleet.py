@@ -755,7 +755,7 @@ def test_worker_command_line_drains_on_sigterm(tmp_path):
     in flight (its decode held 1.5 s by a pool latency fault): the RPC
     is answered, a new one gets ``draining:``, the process exits 0."""
     from gsky_tpu_torch.worker import WorkerClient
-    from gsky_tpu_torch.worker.transport import Channel, Stub
+    from gsky_tpu_torch.worker.client import dial
     with time_limit(30):
         proc, port = start_process(
             [sys.executable, "-m", "gsky_tpu_torch.worker.server",
@@ -764,7 +764,7 @@ def test_worker_command_line_drains_on_sigterm(tmp_path):
             "listening on", env={"GSKY_PREWARM": "0",
                                  "GSKY_FAULTS": "pool:latency:1.5s"})
         addr = f"127.0.0.1:{port}"
-        stub = Stub(Channel(addr))
+        ch, stub = dial(addr)
         c = WorkerClient([addr])
         try:
             path = os.path.join(REPO, "README.md")   # any file: info errs
@@ -785,7 +785,7 @@ def test_worker_command_line_drains_on_sigterm(tmp_path):
             assert proc.wait(20) == 0
         finally:
             c.close()
-            stub.channel.close()
+            ch.close()
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(5)

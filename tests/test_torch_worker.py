@@ -9,17 +9,25 @@
 - Serialization, the decode-subprocess pool (a child crash, backpressure,
   an unknown op; its children are spawned with ``python -m``), the OOM
   monitor: the port of `tests/test_worker.py`'s tests of them.
-- The worker node over its HTTP/1.1 carrier (one port worker per
-  module, pool of 2 children, bound to port 0) beside the reference's
-  gRPC worker (pool of 1): a remote tile equals the port's local tile
+- The worker node over gRPC (one port worker per module, pool of 2
+  children, bound to port 0) beside the reference's worker (pool of
+  1): a remote tile equals the port's local tile
   and the reference's remote tile (nearest bit for bit, the other
   methods within the port's stated 2 ulp), plain, sub-tiled, capped by
   ``max_msg``, HDF4 and geolocated; the ``info``, ``extent`` and
   ``drill`` ops (drill within rtol 1e-5 of the reference's); the
   crawler's ``-rpc``; ``close`` then a call raises; cancellation (a
   fired token stops the dispatch; a departed client's warp is skipped);
-  ``NodeBusy`` is retryable; the carrier's mapping of gRPC's status
-  codes; the trace hop and ``gsky_worker_rpc_seconds``.
+  ``NodeBusy`` is retryable; gRPC's statuses as the client sees them
+  (``UNAVAILABLE`` fatal for the node, the rest not); one channel
+  carrying ``CONC_PER_NODE`` RPCs at once; a revived node re-dialled
+  within seconds; a server that cannot bind and a missing ``grpc``
+  raise; the trace hop and ``gsky_worker_rpc_seconds``.
+- Across the packages, both ways: the reference's `WorkerClient` gets
+  from a port worker what it gets from its own (``info``, ``extent``, a
+  masked remote tile, the drill, a page fetch), the port's client, page
+  fetch and ``control_rpc`` work against the reference's worker, and a
+  trace continues across the wire in both directions.
 
 Every test that starts a server or a process runs under a time limit of
 its own (`time_limit`, <= 30 s); the module fixtures that start them
@@ -37,6 +45,7 @@ import threading
 import time
 import types
 
+import grpc
 import numpy as np
 import pytest
 
@@ -52,16 +61,15 @@ from gsky_tpu_torch.resilience import (BackendUnavailable, RequestCancelled,
                                        cancel_scope, faults,
                                        reset_cancel_stats)
 from gsky_tpu_torch.worker import gskyrpc as pb
-from gsky_tpu_torch.worker import transport
 from gsky_tpu_torch.worker.client import NodeBusy, WorkerClient
 from gsky_tpu_torch.worker.oom import OOMMonitor
 from gsky_tpu_torch.worker.pool import PoolFullError, ProcessPool
 from gsky_tpu_torch.worker.serialize import (granule_from_pb, granule_to_pb,
                                              pack_raster, unpack_raster)
-from gsky_tpu_torch.worker.server import WorkerService, make_server
+from gsky_tpu_torch.worker.server import METHOD, WorkerService, make_server
 
-from test_torch_mosaic import (MASKS, _requests, _same_result, _stores,
-                               _write_archive, jax_b4)  # noqa: F401
+from test_torch_mosaic import (MASKS, _close, _requests, _same_result,
+                               _stores, _write_archive, jax_b4)  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -592,7 +600,7 @@ def test_oom_kill_skips_dead_children_and_fires_once(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the worker node over HTTP, the reference's over gRPC
+# the port's worker node and the reference's, both over gRPC
 # ---------------------------------------------------------------------------
 
 
@@ -1028,7 +1036,7 @@ def test_inflight_rpc_future_cancelled_by_token():
         def result(self):
             self._ev.wait(5.0)
             if self.cancelled_:
-                raise transport.FutureCancelledError()
+                raise grpc.FutureCancelledError()
             return pb.Result()
 
     class FakeStub:
@@ -1053,7 +1061,8 @@ def test_inflight_rpc_future_cancelled_by_token():
 
 def test_worker_server_skips_warp_for_departed_client(pool):
     class DeadCtx:
-        traceparent = None
+        def invocation_metadata(self):
+            return ()
 
         def is_active(self):
             return False
@@ -1066,9 +1075,10 @@ def test_worker_server_skips_warp_for_departed_client(pool):
 def test_cancelled_rpc_closes_its_connection_and_the_warp_is_skipped(
         archive, port_worker):
     """A real cancellation: the token fires while the worker decodes
-    (held 1 s by a pool latency fault); the caller unwinds at once, the
-    connection closes, and the worker sees its client gone before the
-    warp (`WarpExecutor.warp_all` is not called)."""
+    (held 1 s by a pool latency fault); the caller unwinds at once, gRPC
+    cancels the call, and the worker sees its client gone
+    (``is_active()`` False) before the warp (`WarpExecutor.warp_all` is
+    not called)."""
     svc = port_worker["svc"]
     warps = []
     orig = svc.executor.warp_all
@@ -1142,56 +1152,175 @@ class _Echo:
         return pb.Result(raster=b"\x01" * task.dst.width)
 
 
-def test_carrier_maps_grpc_status_codes():
-    """UNAVAILABLE (refused: fatal for the node), DEADLINE_EXCEEDED
-    (not fatal), RESOURCE_EXHAUSTED both ways past ``max_msg``,
-    UNIMPLEMENTED for another path; a pooled connection is reused."""
-    with time_limit(30):
-        srv = make_server(_Echo(), "127.0.0.1:0", max_msg=4096).start()
-        slow = make_server(_Echo(delay=2.0), "127.0.0.1:0").start()
-        try:
-            ch = transport.Channel(f"127.0.0.1:{srv.port}", max_msg=1 << 20)
-            stub = transport.Stub(ch)
-            t = pb.Task(operation="x")
-            t.dst.width = 100
-            assert len(stub(t, timeout=5.0).raster) == 100
-            assert len(stub(t, timeout=5.0).raster) == 100
-            assert len(ch._idle) == 1          # kept alive, reused
+@contextlib.contextmanager
+def _dead_port():
+    """A port bound by a socket that does not listen: a connection to it
+    is refused, and no server can take it meanwhile (the socket has no
+    ``SO_REUSEPORT``, so a gRPC server's ``so_reuseport`` cannot share
+    it)."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    try:
+        yield s.getsockname()[1]
+    finally:
+        s.close()
+
+
+STATUS_CASES = ["UNAVAILABLE", "DEADLINE_EXCEEDED", "RESOURCE_EXHAUSTED-send",
+                "RESOURCE_EXHAUSTED-receive", "RESOURCE_EXHAUSTED-client-send",
+                "RESOURCE_EXHAUSTED-client-receive", "UNIMPLEMENTED",
+                "CANCELLED"]
+
+
+@pytest.mark.parametrize("case", STATUS_CASES)
+def test_carrier_maps_grpc_status_codes(case):
+    """gRPC's own statuses as the port's client meets them: a dead node
+    ``UNAVAILABLE`` (fatal for the node), a slow one past the timeout
+    ``DEADLINE_EXCEEDED``, a request or an answer over ``max_msg``
+    ``RESOURCE_EXHAUSTED`` (the server's cap, or the client's own that
+    `dial` sets on its channel), another method ``UNIMPLEMENTED``, a
+    cancelled call ``CANCELLED``; only ``UNAVAILABLE`` is fatal."""
+    from gsky_tpu_torch.worker.client import dial
+    client_cap = "-client-" in case
+    with time_limit(30), contextlib.ExitStack() as stack:
+        srv = make_server(_Echo(delay=2.0 if case in (
+            "DEADLINE_EXCEEDED", "CANCELLED") else 0.0),
+            "127.0.0.1:0",
+            **({} if client_cap else {"max_msg": 4096})).start()
+        stack.callback(srv.stop, None)
+        addr = f"127.0.0.1:{srv.port}"
+        if case == "UNAVAILABLE":
+            addr = f"127.0.0.1:{stack.enter_context(_dead_port())}"
+        ch, call = dial(addr, max_msg=4096 if client_cap else 1 << 20)
+        stack.callback(ch.close)
+        t = pb.Task(operation="x")
+        t.dst.width = 100
+        timeout = 5.0
+        if case == "DEADLINE_EXCEEDED":
+            timeout = 0.3
+        elif case.endswith("-send"):
+            t.path = "p" * 5000                 # the request: over 4096
+        elif case.endswith("-receive"):
             t.dst.width = 5000                  # the answer: over 4096
-            with pytest.raises(transport.RpcError) as e:
-                stub(t, timeout=5.0)
-            assert e.value.code() == transport.RESOURCE_EXHAUSTED
-            big = pb.Task(path="p" * 5000)      # the request: over 4096
-            with pytest.raises(transport.RpcError) as e:
-                stub(big, timeout=5.0)
-            assert e.value.code() == transport.RESOURCE_EXHAUSTED
-            with pytest.raises(transport.RpcError) as e:
-                transport.Stub(transport.Channel(
-                    f"127.0.0.1:{srv.port}", max_msg=64))(big, timeout=5.0)
-            assert e.value.code() == transport.RESOURCE_EXHAUSTED
-            import http.client
-            conn = http.client.HTTPConnection("127.0.0.1", srv.port,
-                                              timeout=5)
-            conn.request("POST", "/other", body=b"")
-            assert conn.getresponse().status == 404
-            conn.close()
-            with pytest.raises(transport.RpcError) as e:
-                transport.Stub(transport.Channel(
-                    f"127.0.0.1:{slow.port}"))(t, timeout=0.3)
-            assert e.value.code() == transport.DEADLINE_EXCEEDED
-            assert not WorkerClient._is_fatal(e.value)
-            dead = make_server(_Echo(), "127.0.0.1:0")
-            port = dead.port
-            dead.server_close()
-            with pytest.raises(transport.RpcError) as e:
-                transport.Stub(transport.Channel(
-                    f"127.0.0.1:{port}"))(t, timeout=2.0)
-            assert e.value.code() == transport.UNAVAILABLE
-            assert WorkerClient._is_fatal(e.value)
-            ch.close()
+        if case == "UNIMPLEMENTED":
+            call = ch.unary_unary(
+                METHOD.replace("Process", "Other"),
+                request_serializer=pb.Task.SerializeToString,
+                response_deserializer=pb.Result.FromString)
+        if case == "CANCELLED":
+            fut = call.future(t, timeout=timeout)
+            time.sleep(0.2)
+            assert fut.cancel()
+            with pytest.raises(grpc.FutureCancelledError):
+                fut.result()
+            assert fut.code() == grpc.StatusCode.CANCELLED
+            assert not WorkerClient._is_fatal(fut)
+            return
+        if case.startswith("RESOURCE_EXHAUSTED"):
+            ok = pb.Task(operation="x")         # under the caps: answered
+            ok.dst.width = 100
+            assert len(call(ok, timeout=5.0).raster) == 100
+        with pytest.raises(grpc.RpcError) as e:
+            call(t, timeout=timeout)
+    code = case.split("-")[0]
+    assert e.value.code() == getattr(grpc.StatusCode, code)
+    assert WorkerClient._is_fatal(e.value) == (code == "UNAVAILABLE")
+
+
+class _Gate:
+    """A service whose every call waits for ``n`` calls to be inside it
+    at once (a barrier): it answers only if they run concurrently."""
+
+    def __init__(self, n):
+        self.barrier = threading.Barrier(n, timeout=10.0)
+
+    def process(self, task, ctx=None):
+        self.barrier.wait()
+        return pb.Result(raster=b"\x01")
+
+
+def test_one_channel_runs_conc_per_node_rpcs_at_once():
+    """One HTTP/2 channel a node carries `CONC_PER_NODE` RPCs at once:
+    each waits inside the server until all have arrived."""
+    from gsky_tpu_torch.worker.client import CONC_PER_NODE
+    with time_limit(30):
+        srv = make_server(_Gate(CONC_PER_NODE), "127.0.0.1:0").start()
+        c = WorkerClient([f"127.0.0.1:{srv.port}"])
+        try:
+            futs = [c._stubs[0].future(pb.Task(operation="x"), timeout=15.0)
+                    for _ in range(CONC_PER_NODE)]
+            assert all(f.result().raster == b"\x01" for f in futs)
+            assert len(c._channels) == 1
         finally:
-            srv.stop(grace=1.0)
-            slow.stop(grace=3.0)
+            c.close()
+            srv.stop(None)
+
+
+def test_a_revived_node_is_redialled():
+    """A node that dies and comes back on its address is reached again
+    on the same channel within seconds (the reconnect backoff is capped
+    at 3 s), not after gRPC's default backoff of up to 2 minutes.  The
+    address stays held meanwhile by a socket that shares it
+    (``SO_REUSEPORT``) but does not listen: a connection is refused,
+    and no other server can take the port."""
+    import socket
+    hold = socket.socket()
+    hold.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    hold.bind(("127.0.0.1", 0))
+    addr = f"127.0.0.1:{hold.getsockname()[1]}"
+    t = pb.Task(operation="x")
+    t.dst.width = 3
+    with time_limit(30), contextlib.ExitStack() as stack:
+        stack.callback(hold.close)
+        c = WorkerClient([addr])
+        stack.callback(c.close)
+        srv = make_server(_Echo(), addr).start()
+        assert len(c._stubs[0](t, timeout=5.0).raster) == 3
+        srv.stop(None)
+        with pytest.raises(grpc.RpcError) as e:
+            c._stubs[0](t, timeout=5.0)
+        assert e.value.code() == grpc.StatusCode.UNAVAILABLE
+        time.sleep(2.0)               # the channel backs off meanwhile
+        srv = make_server(_Echo(), addr).start()
+        stack.callback(srv.stop, None)
+        t0 = time.monotonic()
+        while True:
+            try:
+                assert len(c._stubs[0](t, timeout=1.0).raster) == 3
+                break
+            except grpc.RpcError:
+                assert time.monotonic() - t0 < 6.0
+                time.sleep(0.1)
+
+
+def test_make_server_raises_when_it_cannot_bind():
+    """A port another socket holds without ``SO_REUSEPORT`` cannot be
+    bound (``so_reuseport`` shares a port only with its like): the
+    server raises, it does not fall back to another port or carrier."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    s.listen(1)
+    try:
+        with pytest.raises(RuntimeError):
+            make_server(_Echo(), f"127.0.0.1:{s.getsockname()[1]}")
+    finally:
+        s.close()
+
+
+def test_no_grpc_no_carrier():
+    """Without ``grpc`` the worker package does not import: there is no
+    other carrier to fall back to."""
+    import sys
+    with time_limit(60):
+        r = subprocess.run(
+            [sys.executable, "-c",
+             "import sys; sys.modules['grpc'] = None; "
+             "import gsky_tpu_torch.worker"],
+            cwd=REPO, capture_output=True, text=True, timeout=55)
+    assert r.returncode != 0
+    assert "ModuleNotFoundError" in r.stderr and "grpc" in r.stderr
 
 
 def test_worker_fault_site_fails_over_and_counts(port_worker):
@@ -1216,8 +1345,8 @@ def test_worker_fault_site_fails_over_and_counts(port_worker):
 
 
 def test_trace_hop_and_rpc_seconds(archive, port_worker):
-    """The trace crosses the hop in a traceparent header: the worker's
-    spans come back and join the caller's trace under its rpc.worker
+    """The trace crosses the hop as gRPC metadata (``x-gsky-trace``):
+    the worker's spans come back and join the caller's trace under its rpc.worker
     span; gsky_worker_rpc_seconds counts the call by op and outcome."""
     from gsky_tpu_torch import obs
     c = WorkerClient([port_worker["addr"]])
@@ -1247,3 +1376,227 @@ def _rpc_count(obs):
                 "op": "warp", "outcome": "ok"}:
             return v
     return 0.0
+
+
+# ---------------------------------------------------------------------------
+# across the packages: each package's client against the other's worker
+# ---------------------------------------------------------------------------
+
+
+def _same_jax_result(a, b, nulp=0):
+    """Two reference TileResults equal: namespaces and counts, valid
+    exact, data within ``nulp``."""
+    assert a.namespaces == b.namespaces
+    assert (a.granule_count, a.file_count) == (b.granule_count, b.file_count)
+    for ns in a.namespaces:
+        np.testing.assert_array_equal(np.asarray(a.valid[ns]),
+                                      np.asarray(b.valid[ns]))
+        _close(np.asarray(a.data[ns], np.float32),
+               np.asarray(b.data[ns], np.float32), nulp)
+
+
+def _drill_task(mod, path, ds, deciles=True):
+    task = mod.Task(operation="drill")
+    task.granule.path = path
+    task.granule.ds_name = ds["ds_name"]
+    task.granule.namespace = "phot_veg"
+    task.granule.srs = "EPSG:4326"
+    task.granule.geo_transform.extend(ds["geotransform"])
+    task.granule.array_type = ds["array_type"]
+    task.granule.nodata = -1.0
+    task.granule.has_nodata = True
+    task.drill.geometry_wkt = (
+        "POLYGON((147.9 -35.9,149.1 -35.9,149.1 -34.9,"
+        "147.9 -34.9,147.9 -35.9))")
+    task.drill.time_indices.extend([0, 1, 2, 3, 4, 5])
+    task.drill.deciles = deciles
+    return task
+
+
+def _ref_op(op, archive, client, tmp_path):
+    """What the reference's ``client`` answers for ``op``."""
+    from gsky_tpu.geo.crs import EPSG3857 as JEPSG3857
+    from gsky_tpu.index.client import MASClient as JMASClient
+    from gsky_tpu.pipeline.tile import TilePipeline as JTilePipeline
+    from gsky_tpu.pipeline.types import Granule as JGranule
+    if op == "info":
+        return json.loads(client.info(archive["paths"][0][0]))
+    if op == "extent":
+        _, g = _tif_granule(archive)
+        return client.extent(JGranule(**dataclasses.asdict(g)), JEPSG3857)
+    if op == "drill":
+        path, ds = _drill_stack(str(tmp_path))
+        res = client.process(_drill_task(jpb, path, ds))
+        assert not res.error, res.error
+        return res.series
+    method = op.split("-")[1]
+    jreq, _ = _requests(archive["root"], ["LC08_B4"], method,
+                        MASKS["bit_tests"], hw=(96, 80))
+    return JTilePipeline(JMASClient(archive["jstore"]),
+                         remote=client).process(jreq)
+
+
+@pytest.mark.parametrize("op", ["info", "extent", "masked-near",
+                                "masked-cubic", "drill"])
+def test_reference_client_gets_the_same_from_a_port_worker(
+        archive, port_worker, ref_worker, jax_b4, tmp_path, op):
+    """The reference's gRPC `WorkerClient` against a port worker answers
+    what it answers against its own: ``info`` and ``extent`` equal, a
+    masked remote tile (B4 on the reference's side) nearest bit for bit
+    and cubic within 2 ulp, the drill's counts equal and its means and
+    deciles within rtol 1e-5."""
+    from gsky_tpu.worker import WorkerClient as JClient
+    with time_limit(30):
+        got, want = [], []
+        for addr, out in ((port_worker["addr"], got), (ref_worker, want)):
+            c = JClient([addr])
+            try:
+                out.append(_ref_op(op, archive, c, tmp_path))
+            finally:
+                c.close()
+    got, want = got[0], want[0]
+    if op == "drill":
+        assert list(got.counts) == list(want.counts) and min(got.counts) > 0
+        np.testing.assert_allclose(got.means, want.means, rtol=1e-5)
+        np.testing.assert_allclose(got.deciles, want.deciles, rtol=1e-5)
+        assert len(got.deciles) == 6 * 9
+    elif op.startswith("masked"):
+        _same_jax_result(want, got, nulp=0 if op == "masked-near" else 2)
+        assert np.asarray(got.valid["LC08_B4"]).mean() > 0.2
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("op", ["worker_info", "info", "extent",
+                                "masked-near", "masked-cubic", "drill"])
+def test_port_client_against_a_reference_worker(
+        archive, port_worker, ref_worker, jax_b4, tmp_path, op):
+    """The port's `WorkerClient` against the reference's gRPC worker:
+    the pool's size from ``worker_info``; ``info`` and ``extent`` what
+    the reference's client gets from it; a masked remote tile (the
+    warps the reference worker's, B4 the port's plain version) equal to
+    the reference's remote tile bit for bit; the drill equal to the
+    reference's own answer."""
+    from gsky_tpu.worker import WorkerClient as JClient
+    with time_limit(30):
+        c = WorkerClient([ref_worker])
+        jc = JClient([ref_worker])
+        try:
+            if op == "worker_info":
+                infos = c.worker_info()
+                assert [i.pool_size for i in infos] == [1]
+                assert c.autosize() == 1
+                return
+            if op == "info":
+                assert json.loads(c.info(archive["paths"][0][0])) == \
+                    _ref_op(op, archive, jc, tmp_path)
+                return
+            if op == "extent":
+                _, g = _tif_granule(archive)
+                w, h = c.extent(g, parse_crs("EPSG:3857"))
+                assert (w, h) == _ref_op(op, archive, jc, tmp_path)
+                return
+            if op == "drill":
+                path, ds = _drill_stack(str(tmp_path))
+                res = c.process(_drill_task(pb, path, ds))
+                assert not res.error, res.error
+                want = jc.process(_drill_task(jpb, path, ds)).series
+                assert list(res.series.counts) == list(want.counts)
+                np.testing.assert_allclose(res.series.means, want.means,
+                                           rtol=1e-5)
+                np.testing.assert_allclose(res.series.deciles,
+                                           want.deciles, rtol=1e-5)
+                return
+            method = op.split("-")[1]
+            _, treq = _requests(archive["root"], ["LC08_B4"], method,
+                                MASKS["bit_tests"], hw=(96, 80))
+            remote = TilePipeline(MASClient(archive["tstore"]), device="cpu",
+                                  remote=c).process(treq)
+            _same_result(_ref_op(op, archive, jc, tmp_path), remote)
+            assert remote.valid["LC08_B4"].numpy().mean() > 0.2
+        finally:
+            c.close()
+            jc.close()
+
+
+@pytest.mark.parametrize("direction", ["port-to-reference",
+                                       "reference-to-port"])
+def test_page_fetch_across_packages(port_worker, ref_worker, monkeypatch,
+                                    direction):
+    """The page RPC between the packages: one package's fetch against
+    the other's worker, both serving the same staged pages (the
+    reference's pool and the port's copy of it), keeps every page the
+    peer holds, each equal byte for byte to the pool's."""
+    from gsky_tpu.fabric import pagerpc as jpagerpc
+    from gsky_tpu.pipeline import pages as jpages
+    from gsky_tpu_torch.fabric import pagerpc as tpagerpc
+    from test_torch_fabric import WANT, _staged_pair
+    jp, tp = _staged_pair()
+    monkeypatch.setenv("GSKY_FABRIC", "1")
+    monkeypatch.setattr(jpages, "_default", jp)
+    monkeypatch.setattr(port_worker["svc"].executor, "pool", tp)
+    keys = [tuple(k) for k in WANT if len(k) == 3]
+    with time_limit(30):
+        if direction == "port-to-reference":
+            got = tpagerpc._rpc_fetch(ref_worker, keys, 8 << 20, 10.0)
+        else:
+            got = jpagerpc._grpc_fetch(port_worker["addr"], keys, 8 << 20,
+                                       10.0)
+    assert len(got) == 4
+    for key, page in got.items():
+        assert np.asarray(page).tobytes() == tp.read_page(*key).tobytes()
+
+
+def test_control_rpc_against_a_reference_worker(ref_worker):
+    """`fleet.elastic.control_rpc` (``worker_info``) against the
+    reference's worker: its info document, as the reference's own
+    control RPC reads it."""
+    from gsky_tpu.fleet import elastic as jelastic
+    from gsky_tpu_torch.fleet import elastic as telastic
+    with time_limit(30):
+        got = telastic.control_rpc(ref_worker, "worker_info")
+        want = jelastic.control_rpc(ref_worker, "worker_info")
+    assert got["draining"] is False and got.keys() == want.keys()
+    assert got["pool"]["size"] == want["pool"]["size"] == 1
+
+
+@pytest.mark.parametrize("direction", ["reference-client-port-worker",
+                                       "port-client-reference-worker"])
+def test_trace_crosses_packages(archive, port_worker, ref_worker,
+                                direction):
+    """A trace crosses the wire between the packages as ``x-gsky-trace``
+    metadata: the worker continues it, and its spans (``worker.warp``
+    and the decode and dispatch in it) join the caller's trace under the
+    span that made the call."""
+    with time_limit(30):
+        _, g = _tif_granule(archive)
+        if direction.startswith("reference"):
+            from gsky_tpu import obs
+            from gsky_tpu.geo.crs import parse_crs as jparse_crs
+            from gsky_tpu.geo.transform import GeoTransform as JGT
+            from gsky_tpu.pipeline.types import Granule as JGranule
+            from gsky_tpu.worker import WorkerClient as JClient
+            c = JClient([port_worker["addr"]])
+            args = (JGranule(**dataclasses.asdict(g)),
+                    JGT.from_gdal(g.geo_transform), jparse_crs(g.srs))
+        else:
+            from gsky_tpu_torch import obs
+            c = WorkerClient([ref_worker])
+            args = (g, GeoTransform.from_gdal(g.geo_transform),
+                    parse_crs(g.srs))
+        try:
+            with obs.start_trace("ows.request", path="/ows") as tr:
+                out = c.warp(*args, 64, 64)
+        finally:
+            c.close()
+    assert out is not None and np.asarray(out[1]).any()
+    spans = tr.span_dicts()
+    names = {s["name"] for s in spans}
+    assert {"rpc.worker", "worker.warp", "worker.decode",
+            "worker.dispatch"} <= names
+    # the metadata is taken as the dispatch starts: the worker's root
+    # hangs under the span that called, here the trace's root
+    root = next(s for s in spans if s["name"] == "ows.request")
+    warp = next(s for s in spans if s["name"] == "worker.warp")
+    assert warp["parent_id"] == root["span_id"]
+    assert warp["process"] == "worker" and root["process"] != "worker"
