@@ -380,6 +380,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    byte-equal to a GeoTIFF's of the same pixels, or else the crawler's
    record of a JP2 naming the ImportError.  ``python3 chip_smoke.py
    --phase 26`` runs phase 1, phase 3's archive and phase 26 alone.
+27. the soak on the card, through `tools/soak_torch.py`'s own scenario
+   functions: 12 dates of one 7681 x 7821 int16 scene each, written
+   uncompressed and crawled by the tool under ``build/smoke_soak/``
+   (padded f32 on the card, more bytes than the scene cache's 2 GiB, so
+   that it evicts), its churn for 60 s from 8 threads with the default
+   serving path (waves, the staged GetMap path), native tiles (B1) and
+   tiles of the reference's ground size, twice the native (B2 where
+   their windows decline), then one lap
+   of its wcs scenario (1024 x 1024 exports).  Both pass the tool's
+   criteria: every request a 200, RSS and ``memory_allocated`` growth
+   after the first quarter at most 256 MB each, the executor's caches
+   and the scene cache's bytes within their bounds; the churn's server
+   ends with no page pinned, no plain version runs on the main path,
+   and the churn's first B1 and B2 launch of each method are held
+   against their plain versions where they run.
+   Logs the tool's JSON lines, tiles/s, the memory samples, the
+   reserved and allocated peaks and the evictions.  ``python3
+   chip_smoke.py --phase 27`` runs phase 1 and phase 27 alone.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -3557,10 +3575,11 @@ class CheckWide:
     (`PlainCalls` counts the main path's calls of them, not these), and
     the timing launches leave the launch counts as they were."""
 
-    def __init__(self, hw, timed=()):
+    def __init__(self, hw, timed=(), what="15b"):
         from gsky_tpu_torch.ops import paged, warp_render
         self.hw = tuple(hw)
         self.timed = tuple(timed)
+        self.what = what
         self.errs = {}
         self.times = {}
         self.mods = (paged, warp_render)
@@ -3580,7 +3599,7 @@ class CheckWide:
             cp, bp = self.p1(pool, tables, params, sx, sy, method, n_ns,
                              sb_of)
             self.errs[("B1", method)] = check_pair(
-                method, ck, bk, cp, bp, f"15b B1 {method} {self.hw}")
+                method, ck, bk, cp, bp, f"{self.what} B1 {method} {self.hw}")
             if method in self.timed and sx.numel() == sx.shape[-1] * \
                     sx.shape[-2]:
                 from gsky_tpu_torch.ops import paged
@@ -3598,7 +3617,7 @@ class CheckWide:
                 self.errs:
             cp, bp = self.p2(scenes, sx, sy, params, method, n_ns)
             self.errs[("B2", method)] = check_pair(
-                method, ck, bk, cp, bp, f"15b B2 {method} {self.hw}")
+                method, ck, bk, cp, bp, f"{self.what} B2 {method} {self.hw}")
             if method in self.timed:
                 from gsky_tpu_torch.ops import warp_render
                 args = (scenes, sx, sy, params, method, n_ns)
@@ -9724,6 +9743,152 @@ def phase_26_alone(card):
     return 0
 
 
+# -- phase 27: the soak's churn on the card -----------------------------
+
+SOAK_SCENES = 12             # 27: dates, one Landsat 8 scene each
+SOAK_SHAPE = (SCENE_H, SCENE_W)
+SOAK_CHURN_S = 60.0          # 27: its first quarter fills the cache
+SOAK_CONC = 8                # 27
+
+
+def soak_tool():
+    """``tools/soak_torch.py`` of this checkout."""
+    tools = os.path.join(ROOT, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import soak_torch
+    return soak_torch
+
+
+def wait_unpinned(pool, timeout=15.0):
+    """The pool's pinned count once it is 0, or when ``timeout`` ends."""
+    t_end = time.time() + timeout
+    while True:
+        pinned = pool.stats()["pinned"]
+        if pinned == 0 or time.time() > t_end:
+            return pinned
+        time.sleep(0.25)
+
+
+def phase_soak(card):
+    """27: `tools/soak_torch.py`'s churn on the card over SOAK_SCENES
+    dates of one Landsat 8 scene each (more scene bytes than the scene
+    cache holds, so that it evicts), with the default serving path
+    (waves and the staged GetMap path), then one lap of its wcs
+    scenario.  Both must pass the tool's criteria, card memory
+    included; the churn's server ends with no page pinned; the churn's
+    first B1 and B2 launch of each method are held against their plain
+    versions where they run (`CheckWide`: no launch added, no input
+    kept past its request).  Returns (launches by kernel, max |diff|
+    by kernel)."""
+    import torch
+    from gsky_tpu_torch.pipeline.scene_cache import _bucket
+    st = soak_tool()
+    kernels = _kernel_counts()
+    root = os.path.join(ROOT, "build", "smoke_soak")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = None
+    try:
+        t0 = time.perf_counter()
+        env = st.SoakEnv(root, SOAK_SCENES, SOAK_SHAPE, "cuda")
+        disk = sum(os.path.getsize(p) for p in env.paths)
+        scene_b = _bucket(SOAK_SHAPE[0]) * _bucket(SOAK_SHAPE[1]) * 4
+        log(f"phase 27: {SOAK_SCENES} scenes of {SOAK_SHAPE[0]} x "
+            f"{SOAK_SHAPE[1]} int16, one a date ({disk / 1e9:.3f} GB "
+            f"uncompressed) written + crawled in "
+            f"{time.perf_counter() - t0:.1f} s; resident as padded f32 "
+            f"{scene_b} B a scene, {SOAK_SCENES * scene_b} B for all")
+        args = st.parse_args(["--seconds", str(SOAK_CHURN_S),
+                              "--conc", str(SOAK_CONC)])
+        wcs_args = st.parse_args(["--seconds", "1",
+                                  "--conc", str(SOAK_CONC)])
+        launches = {}
+        # phase 1 built the kernels: no prewarm in the soak's servers,
+        # so that the first launches held below are the churn's own
+        with st.EnvOverride(GSKY_PREWARM="0"), WavesOn():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            chk = CheckWide((256, 256), what="27")
+            plain = PlainCalls()
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            try:
+                churn, churn_ok = st.run_churn(env, args)
+                launches["churn"] = read_counts(kernels)
+                t_churn = time.perf_counter() - t0
+                srv = env.servers[-1]
+                pinned = wait_unpinned(srv.executor.pool)
+                reset_counts(kernels)
+                t0 = time.perf_counter()
+                wcs, wcs_ok = st.run_wcs(env, wcs_args)
+                launches["wcs"] = read_counts(kernels)
+                t_wcs = time.perf_counter() - t0
+            finally:
+                plain.remove()
+                chk.remove()
+        log(f"phase 27 churn: {json.dumps(churn)}")
+        log(f"phase 27 wcs lap: {json.dumps(wcs)}")
+        n = churn["requests_ok"] + churn["requests_failed"]
+        dev = churn["memory"]["device"]
+        log(f"phase 27: churn {n} GetMaps in {t_churn:.1f} s "
+            f"({n / t_churn:.2f} tiles/s) from {SOAK_CONC} threads, "
+            f"RSS growth {churn['memory']['rss']['growth_mb']} MB and "
+            f"memory_allocated growth {dev['allocated_growth_mb']} MB "
+            f"after the first quarter (bounds "
+            f"{args.max_rss_growth_mb} / {args.max_device_growth_mb}), "
+            f"reserved {dev['reserved_mb']} MB, peak allocated "
+            f"{dev['max_allocated_mb']} MB; scene cache "
+            f"{churn['scene_cache_bytes']} of "
+            f"{churn['scene_cache_max_bytes']} B, evictions "
+            f"{churn['scene_cache']['evictions']}; pinned pages {pinned}; "
+            f"launches {launches['churn']}; wcs lap "
+            f"{wcs['exports_ok']} exports in {t_wcs:.1f} s, launches "
+            f"{launches['wcs']} ({card})")
+        if not churn_ok or not wcs_ok:
+            raise AssertionError(f"27: the soak failed: churn "
+                                 f"{churn_ok}, wcs {wcs_ok}")
+        if SOAK_SCENES * scene_b <= churn["scene_cache_max_bytes"] or \
+                not churn["scene_cache"]["evictions"]:
+            raise AssertionError("27: the churn's scenes fit the scene "
+                                 "cache: it did not evict")
+        if pinned:
+            raise AssertionError(f"27: {pinned} pages pinned after the "
+                                 f"churn")
+        if plain.calls:
+            raise AssertionError(f"27: {plain.calls} plain-version calls "
+                                 f"on the card")
+        errs = {}
+        for k in ("B1", "B2"):
+            if not launches["churn"][k]:
+                raise AssertionError(f"27: the churn launched no {k}: "
+                                     f"{launches['churn']}")
+            held = [v for (kk, _), v in chk.errs.items() if kk == k]
+            if not held:
+                raise AssertionError(f"27: no {k} launch held against its "
+                                     f"plain version")
+            errs[k] = max(held)
+        log(f"phase 27: the first B1 and B2 launch of each method against "
+            f"their plain versions on the same inputs, max |diff| "
+            f"{sorted(chk.errs.items())}")
+    finally:
+        if env is not None:
+            env.close()
+        shutil.rmtree(root, ignore_errors=True)
+    total = {k: launches["churn"][k] + launches["wcs"][k] for k in kernels}
+    return total, errs
+
+
+def phase_27_alone(card):
+    """``--phase 27``: phase 27 alone (after phase 1); no result line."""
+    os.environ["GSKY_PREFETCH"] = "0"
+    t0 = time.perf_counter()
+    launches, errs = phase_soak(card)
+    log(f"phase 27: launches {launches}, max |diff| {errs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return 0
+
+
 def torch_equal(a, b):
     import torch
     return bool(torch.equal(a, b))
@@ -9752,6 +9917,8 @@ def main() -> int:
         f" in {time.perf_counter() - t0:.2f} s")
     if sys.argv[1:] == ["--phase", "26"]:
         return phase_26_alone(card)
+    if sys.argv[1:] == ["--phase", "27"]:
+        return phase_27_alone(card)
 
     # -- phase 2: kernels vs plain on the card ------------------------
     n_cmp = phase_kernels()
@@ -10194,6 +10361,11 @@ def main() -> int:
     finally:
         shutil.rmtree(ing_root, ignore_errors=True)
 
+    # -- phase 27: the soak's churn and a wcs lap -----------------------
+    t0 = time.perf_counter()
+    soak27, soak27_err = phase_soak(card)
+    log(f"phase 27: launches {soak27} ({time.perf_counter() - t0:.1f} s)")
+
     # the kernels line reports the bilinear rows (the GetMap default
     # interpolated method): B1 at phase 3's tile, B2 at input (c), the
     # 4x zoomed-out tile; every method's and input's numbers are logged
@@ -10230,9 +10402,9 @@ def main() -> int:
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
          + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
          + obs21["B1"] + guard22["B1"] + fleet23["B1"] + fab24["B1"]
-         + fab24e["B1"] + mesh25["B1"] + tiles26["B1"],
+         + fab24e["B1"] + mesh25["B1"] + tiles26["B1"] + soak27["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
-                            ing_err["B1"], obs21_err,
+                            ing_err["B1"], obs21_err, soak27_err["B1"],
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B1")),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
@@ -10244,9 +10416,10 @@ def main() -> int:
          + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
          + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"]
          + fleet23["B2"] + fab24.get("B2", 0) + fab24e["B2"]
-         + mesh25["B2"] + mesh25m + tiles26["B2"],
+         + mesh25["B2"] + mesh25m + tiles26["B2"] + soak27["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
+                            soak27_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B2")),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,

@@ -221,16 +221,14 @@ class DeviceSupervisor:
         the device is anything but healthy (`PagePool.table_for`)."""
         return not guard_enabled() or self.state() == HEALTHY
 
-    def _note(self, kind: str, site: str, exc=None) -> None:
-        # holds self._lock
+    def _note(self, kind: str, site: str, exc=None) -> None:  # gskylint: holds-lock
         self.incidents.append({
             "kind": kind, "site": site, "t": round(self._clock(), 3),
             "error": str(exc)[:200] if exc is not None else ""})
         if exc is not None:
             self.last_error = f"{type(exc).__name__}: {exc}"[:200]
 
-    def _mark_suspect(self, kind: str) -> None:
-        # holds self._lock
+    def _mark_suspect(self, kind: str) -> None:  # gskylint: holds-lock
         if self._state in (DEAD, REINITIALIZING):
             return
         self._incident = kind

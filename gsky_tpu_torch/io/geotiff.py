@@ -783,19 +783,22 @@ class GeoTIFFWriter:
             else:
                 entries.append([tag, typ, cnt, data_b])
                 blobs.append(len(entries) - 1)
-        ool_pos = self._pos
-        for i in blobs:
-            data_b = entries[i][3]
-            fp.write(data_b)
-            entries[i][3] = struct.pack(e + "I", ool_pos)
-            ool_pos += len(data_b)
-        ifd_off = ool_pos
-        fp.write(struct.pack(e + "H", len(entries)))
-        for tag, typ, cnt, inline in entries:
-            fp.write(struct.pack(e + "HHI", tag, typ, cnt) + inline)
-        next_ptr = ifd_off + 2 + 12 * len(entries)
-        fp.write(struct.pack(e + "I", 0))
-        self._pos = next_ptr + 4
+        # the position bump shares self._pos with `_append`, so it takes
+        # the same lock
+        with self._lock:
+            ool_pos = self._pos
+            for i in blobs:
+                data_b = entries[i][3]
+                fp.write(data_b)
+                entries[i][3] = struct.pack(e + "I", ool_pos)
+                ool_pos += len(data_b)
+            ifd_off = ool_pos
+            fp.write(struct.pack(e + "H", len(entries)))
+            for tag, typ, cnt, inline in entries:
+                fp.write(struct.pack(e + "HHI", tag, typ, cnt) + inline)
+            next_ptr = ifd_off + 2 + 12 * len(entries)
+            fp.write(struct.pack(e + "I", 0))
+            self._pos = next_ptr + 4
         return ifd_off, next_ptr
 
 

@@ -97,6 +97,11 @@ class DrillStackCache:
         self.hits = 0
         self.misses = 0
 
+    @property
+    def max_bytes(self) -> int:
+        """The resident stacks' byte budget (LRU beyond it)."""
+        return self._max_bytes
+
     @staticmethod
     def _key(path: str, var_name: str, band0: int,
              nodata: Optional[float]):
@@ -112,7 +117,7 @@ class DrillStackCache:
             else float(nodata)
         return (path, mtime, var_name, band0, nd_key), mtime
 
-    def _hit(self, key) -> Optional[DeviceStack]:
+    def _hit(self, key) -> Optional[DeviceStack]:  # gskylint: holds-lock
         """Resident stack under _lock, counted and moved to MRU."""
         hit = self._stacks.get(key)
         if hit is not None:

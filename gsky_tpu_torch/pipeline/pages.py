@@ -156,14 +156,14 @@ class PagePool:
 
     # -- internals (hold self.lock) -----------------------------------
 
-    def _ensure_pool(self):
+    def _ensure_pool(self):  # gskylint: holds-lock
         if self._pool is None:
             # slot 0 (and every unstaged slot) is all-NaN
             self._pool = torch.full(
                 (self.capacity, self.page_rows, self.page_cols),
                 float("nan"), dtype=torch.float32, device=self.device)
 
-    def _take_slot(self):
+    def _take_slot(self):  # gskylint: holds-lock
         if self._free:
             return self._free.pop()
         for key in self._slots:    # LRU order: oldest first
@@ -209,7 +209,7 @@ class PagePool:
         _note_fill("cold")
         return slot
 
-    def _placed(self, key: tuple, slot: int) -> None:
+    def _placed(self, key: tuple, slot: int) -> None:  # gskylint: holds-lock
         """Book a page just written into ``slot``: the table, the stage
         count, and under the device guard the journal's breadcrumb (a
         stage line: stages only, not hits) and, under

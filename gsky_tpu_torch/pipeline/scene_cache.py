@@ -151,12 +151,18 @@ class SceneCache:
         self._inflight: Dict[tuple, threading.Event] = {}
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
         # declines per scene key (promotion to residency) and the
         # requests served through the window path
         self._route_counts: Dict[tuple, int] = {}
         self.window_routed = 0
         self.staged_loads = 0
         _live.add(self)
+
+    @property
+    def max_bytes(self) -> int:
+        """The resident scenes' byte budget (LRU beyond it)."""
+        return self._max_bytes
 
     def _key(self, g: Granule) -> tuple:
         return (g.path, g.band, g.var_name, g.time_index)
@@ -264,6 +270,7 @@ class SceneCache:
                         old = self._scenes.pop(self._order.pop(0))
                         self._bytes -= old.dev.numel() \
                             * old.dev.element_size()
+                        self.evictions += 1
         finally:
             with self._lock:
                 self._inflight.pop(key).set()

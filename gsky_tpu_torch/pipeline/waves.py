@@ -181,8 +181,10 @@ class _Entry:
         self.kind = kind
         self.key = key
         self.payload = payload
-        # the entry's per-call leg, run when its wave fails (None: the
-        # error reaches the request)
+        # the entry's per-call leg, called with the entry when its wave
+        # fails (None: the error reaches the request); it must not hold
+        # the entry, or the pair is a reference cycle that keeps the
+        # lane's scenes on the card until the cyclic collector runs
         self.fallback = fallback
         self.future: Future = Future()
         self.cleanup = cleanup
@@ -806,7 +808,7 @@ class WaveScheduler:
                 with self._lock:
                     self.fallbacks += 1
                 try:
-                    e.future.set_result(e.fallback())
+                    e.future.set_result(e.fallback(e))
                     continue
                 except Exception as fe:   # noqa: BLE001 - to the request
                     err = fe
@@ -966,7 +968,7 @@ class WaveScheduler:
         """Give a tile entry whose lane carries its scenes its per-call
         leg (`_lane_percall`)."""
         if e.payload["xla"] is not None:
-            e.fallback = lambda: self._lane_percall(e)
+            e.fallback = self._lane_percall
         return e
 
     def drill_stats(self, data, valid, clip_lower: float,
@@ -978,7 +980,9 @@ class WaveScheduler:
         e = _Entry("drill", (tuple(int(d) for d in data.shape),
                              float(clip_lower), float(clip_upper),
                              bool(pixel_count)),
-                   {"data": data, "valid": valid}, fallback=percall)
+                   {"data": data, "valid": valid},
+                   fallback=None if percall is None
+                   else lambda _e: percall())
         return self._wait(self._submit(e))
 
     # -- lifecycle -----------------------------------------------------

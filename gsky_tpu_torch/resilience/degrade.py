@@ -56,7 +56,7 @@ class RequestState:
 
 
 _current: contextvars.ContextVar[Optional[RequestState]] = \
-    contextvars.ContextVar("gsky_request_state", default=None)
+    contextvars.ContextVar("request_degrade_state", default=None)
 
 
 @contextlib.contextmanager

@@ -119,7 +119,7 @@ class PressureMonitor:
     def _enabled() -> bool:
         return os.environ.get("GSKY_PRESSURE", "1") != "0"
 
-    def _raw_state(self) -> int:  # caller holds self._lock
+    def _raw_state(self) -> int:  # gskylint: holds-lock
         avail = self.avail_reader()
         pool = self.pool_reader()
         self._last_avail = avail

@@ -20,6 +20,8 @@ the device guard (`device_guard.journal`) lives under ``-log_dir`` too
 kernels its layers run are built, loaded and launched once
 (`server.prewarm`; ``GSKY_PREWARM=0`` skips it).  ``GSKY_TSAN=1``
 installs the lockset race sanitizer before any server lock exists.
+Blocks of 1 MiB or more are mmapped, so that freed buffers leave the
+process (`fix_mmap_threshold`).
 
 SIGTERM or SIGINT drains the server before its listener closes
 (`OWSServer.shutdown`): a new ``/ows`` request gets 503 ``ServerBusy``
@@ -38,6 +40,7 @@ replay ring (`fabric.replay`).  Counterpart of
 from __future__ import annotations
 
 import argparse
+import ctypes
 import signal
 import sys
 import threading
@@ -54,10 +57,36 @@ from .ows import OWSServer
 from .prewarm import prewarm_from_watcher
 
 
+# glibc's mallopt parameter: blocks of at least this many bytes are
+# mmapped (malloc.h)
+_M_MMAP_THRESHOLD = -3
+
+
+def fix_mmap_threshold(nbytes: int = 1 << 20) -> bool:
+    """Have glibc's malloc serve every block of ``nbytes`` or more with
+    mmap, so that it goes back to the OS when freed.  Left to itself,
+    glibc raises that threshold to the largest block freed (up to 32
+    MiB), and the tiles' and exports' buffers of a few MiB then come
+    from per-thread arenas that keep what is freed: under the soak
+    (`tools/soak_torch.py --scenario wcs`) the server's RSS grew by up
+    to 355 MB a minute of exports on an H100 host, memory freed but
+    held.  A process-wide setting, for the process that runs the
+    server.  False where the C library has no ``mallopt`` (not
+    glibc)."""
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):
+        return False
+    mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    mallopt.restype = ctypes.c_int
+    return bool(mallopt(_M_MMAP_THRESHOLD, int(nbytes)))
+
+
 def main(argv=None) -> int:
     # GSKY_TSAN=1: patch threading.Lock/RLock before any server lock
     # exists, so that every lock takes part in the lockset tracking
     tsan.maybe_install()
+    fix_mmap_threshold()
     ap = argparse.ArgumentParser(prog="gsky-ows-torch",
                                  description="GSKY OGC web server, "
                                              "PyTorch/CUDA port")

@@ -315,7 +315,7 @@ class MetricsLogger:
             self._fp.flush()
             self._size += len(line) + 1
 
-    def _rotate(self):  # caller holds self._lock
+    def _rotate(self):  # gskylint: holds-lock
         if self._fp is not None:
             self._fp.close()
             self._gzip_old()

@@ -774,9 +774,12 @@ class OWSServer:
                          status=503),
                 {"Retry-After": str(max(1, int(e.retry_after)))})
         except TooManyFailures as e:
-            # more granules lost than the degradation budget allows
-            return _exception_response(OWSError(str(e), "ServerBusy",
-                                                status=503))
+            # more granules lost than the degradation budget allows: a
+            # refusal that says when to retry, 5 s as a backend's outage
+            # does by default (the reference sends none, ROADMAP C.21)
+            return _exception_response(
+                OWSError(str(e), "ServerBusy", status=503),
+                {"Retry-After": "5"})
         except (DeadlineExceeded, TimeoutError):
             # the render may still run: fire the token so that it
             # unwinds at its next check

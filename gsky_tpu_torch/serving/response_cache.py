@@ -221,7 +221,7 @@ class ResponseCache:
                 self.evictions += 1
             return True
 
-    def _drop(self, key: str) -> None:
+    def _drop(self, key: str) -> None:  # gskylint: holds-lock
         """Remove ``key``; the caller holds the lock."""
         ent = self._entries.pop(key, None)
         if ent is not None:
