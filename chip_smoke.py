@@ -3456,7 +3456,10 @@ def phase_ows_rgb(root, store, card, routes=None):
 
 # -- phases 15-16: WCS GetCoverage, DAP4 and WPS Execute over HTTP ---------
 
-WCS_SIZE = 4096              # 15a: BASELINE config 4, 16 tiles of 1024
+WCS_SIZE = 4096              # 25b: BASELINE config 4, 16 tiles of 1024
+# 15a's exports: config 4's tiles of 1024, four of them (at 4096^2 its
+# five exports took 41 s of the script, deflate mostly)
+WCS_EXPORT = 2048
 WCS_TILE = 1024              # the layers' wcs_max_tile_width / height
 WCS_STREAM_SIZE = 5120       # 15d: past WCS_STREAM_PIXELS: streamed
 WCS_DAP = 2048               # 15d: the DAP4 and NetCDF coverages
@@ -3661,7 +3664,7 @@ def phase_wcs(data_root, store, card):
     styles = [{"name": m, "title": m, "rgb_products": [NS], "resample": m}
               for m in METHODS]
     dap_box = wcs_box(WCS_DAP)
-    tiles = ((WCS_SIZE + WCS_TILE - 1) // WCS_TILE) ** 2
+    tiles = ((WCS_EXPORT + WCS_TILE - 1) // WCS_TILE) ** 2
     stream_tiles = ((WCS_STREAM_SIZE + WCS_TILE - 1) // WCS_TILE) ** 2
     layers = [
         {"name": "landsat", "data_source": data_root, "rgb_products": [NS],
@@ -3709,23 +3712,25 @@ def phase_wcs(data_root, store, card):
         srv = pair.card
         try:
             # -- 15a: config 4 ------------------------------------------
-            box = wcs_box(WCS_SIZE)
-            mpix = WCS_SIZE * WCS_SIZE / 1e6
+            box = wcs_box(WCS_EXPORT)
+            mpix = WCS_EXPORT * WCS_EXPORT / 1e6
             ref = None
             for method, label in (("cubic", "cold"), ("cubic", "warm"),
                                   ("near", "warm"), ("bilinear", "warm")):
-                url = wcs_url(pair.base, "landsat", box, WCS_SIZE, method)
+                url = wcs_url(pair.base, "landsat", box, WCS_EXPORT,
+                              method)
                 sp0 = dict(srv.spans)
                 (status, hdr, body, secs), got = counted(
                     f"15a {method}", lambda: http_fetch(url))
                 if (status, hdr["Content-Type"]) != (200, "image/geotiff"):
                     raise AssertionError(f"15a: {status} {body[:300]}")
                 a = tiff_values(body)
-                nd = coverage_ok(a, WCS_SIZE, f"15a {method}")
+                nd = coverage_ok(a, WCS_EXPORT, f"15a {method}")
                 legs_ok(f"15a {method}", got, tiles)
                 st = srv.last_export
                 sp = {k: srv.spans[k] - sp0[k] for k in srv.spans}
-                log(f"phase 15a {method} ({label}): {WCS_SIZE}x{WCS_SIZE} "
+                log(f"phase 15a {method} ({label}): "
+                    f"{WCS_EXPORT}x{WCS_EXPORT} "
                     f"GetCoverage over HTTP {secs:.3f} s, "
                     f"{mpix / secs:.2f} Mpix/s, body {len(body)} B, nodata "
                     f"{nd:.4f}; launches {got} for {st['tiles']} tiles "
@@ -3746,7 +3751,7 @@ def phase_wcs(data_root, store, card):
                     ref = a
             os.environ["GSKY_EXPORT_PIPELINE"] = "0"
             try:
-                url = wcs_url(pair.base, "landsat", box, WCS_SIZE, "cubic")
+                url = wcs_url(pair.base, "landsat", box, WCS_EXPORT, "cubic")
                 (status, _, body, secs), got = counted(
                     "15a serial", lambda: http_fetch(url))
             finally:
@@ -7373,20 +7378,23 @@ def phase_guard(data_root, data_paths, card):
     22c injected incidents and 22d a real out-of-memory
     (`phase_incidents`), 22e a wave's failover (`phase_wave_failover`),
     22f the encode pool (`phase_encode_pool`).  GSKY_DEVICE_HANG_S=1 and
-    GSKY_DEVICE_REINIT_BACKOFF=0.1,0.5 inside, the residency journal in
-    the archive's directory; the supervisor, the fault plan and the
-    pressure monitor reset at the end.  Returns the launches."""
+    GSKY_DEVICE_REINIT_BACKOFF=0.1,0.5 inside 22b-f, the residency
+    journal in the archive's directory; the supervisor, the fault plan
+    and the pressure monitor reset at the end.  Returns the launches."""
     from gsky_tpu_torch import resilience
     kernels = _kernel_counts()
     total = dict.fromkeys(kernels, 0)
+    t0 = time.perf_counter()
+    # 22a: the command line's server with its watchdog at the default
+    # deadline: without prewarm its first tile loads the kernels inside
+    # a guarded call, which outlasted 22b-f's 1 s on a busy host
+    phase_prewarm(data_root, data_paths, card)
     saved = {k: os.environ.get(k) for k in
              list(GUARD_ENV) + ["GSKY_POOL_JOURNAL"]}
     os.environ.update(GUARD_ENV)
     os.environ["GSKY_POOL_JOURNAL"] = os.path.join(data_root,
                                                    "journal22.jsonl")
-    t0 = time.perf_counter()
     try:
-        phase_prewarm(data_root, data_paths, card)
         store = crawl((p, NS) for p in data_paths)
         styles = [{"name": m, "title": m, "rgb_products": [NS],
                    "resample": m} for m in METHODS]
@@ -8555,6 +8563,29 @@ def phase_fabric(sat_root, store, fleet, fab_ready, card):
 
     # -- 24c: the preempt fault ----------------------------------------
     cc = WorkerClient([c, b])
+    # the fault node exits two seconds before its grace ends, which a
+    # slow burst outlasts: its worker_info read until it is gone, the
+    # last answer kept.  Every RPC rolls the node's faults, so the
+    # reads start only once a burst tile has carried the notice (its
+    # log line), which must land on a busy node
+    pid = fleet.procs[c].pid
+    last_c = {}
+    gone = threading.Event()
+
+    def watch_c():
+        while pid not in fleet.notice_at:
+            if gone.wait(0.02):
+                return
+        while not gone.is_set():
+            try:
+                last_c["info"] = fleet.info(c)
+            except Exception:  # exited (or not answering): keep the last
+                if fleet.procs[c].poll() is not None:
+                    return
+            gone.wait(0.2)
+
+    watcher = threading.Thread(target=watch_c, daemon=True)
+    watcher.start()
     try:
         k0 = fleet.counts([b])
         t0 = time.perf_counter()
@@ -8562,10 +8593,20 @@ def phase_fabric(sat_root, store, fleet, fab_ready, card):
                                   FAB_THREADS)
         for i, g in enumerate(got):
             same_warp(g, want[i], f"24c tile {i}")
-        info_c = fleet.info(c)
-        kc = fleet.counts([c])
+        # a burst tile carried the notice: its log line, read by now
+        wait_until(lambda: fleet.notice_at.get(pid),
+                   "the fault node's notice from the burst", 5.0)
+        if fleet.procs[c].poll() is None:
+            last_c["info"] = fleet.info(c)
+        gone.set()
+        watcher.join(35)
+        info_c = last_c.get("info")
+        if info_c is None:
+            raise AssertionError("24c: the fault node answered no "
+                                 "worker_info after its notice")
+        kc = {name: sum(info_c["kernels"][sym] for sym in syms)
+              for name, syms in WORKER_SYMBOLS.items()}
         kb = count_delta(k0, fleet.counts([b]))
-        pid = fleet.procs[c].pid
         rc = fleet.wait(c, FAB_FAULT_GRACE + 15)
         # the notice came with the node's first RPC: its log line's
         # arrival, to the node's exit
@@ -8579,6 +8620,9 @@ def phase_fabric(sat_root, store, fleet, fab_ready, card):
     if not el_c["preempted"] or \
             el_c["counters"]["preemptions"] != {"graceful": 1, "nograce": 0}:
         raise AssertionError(f"24c: the fault node's elastic block {el_c}")
+    if t_notice < 0:
+        raise AssertionError(f"24c: the notice came {-t_notice:.3f} s "
+                             f"before the burst")
     if rc != 0 or t_exit > FAB_FAULT_GRACE:
         raise AssertionError(f"24c: the fault node exited {rc} "
                              f"{t_exit:.3f} s after its notice")
@@ -9747,7 +9791,7 @@ def phase_26_alone(card):
 
 SOAK_SCENES = 12             # 27: dates, one Landsat 8 scene each
 SOAK_SHAPE = (SCENE_H, SCENE_W)
-SOAK_CHURN_S = 60.0          # 27: its first quarter fills the cache
+SOAK_CHURN_S = 40.0          # 27: its first quarter fills the cache
 SOAK_CONC = 8                # 27
 
 
@@ -9889,6 +9933,161 @@ def phase_27_alone(card):
     return 0
 
 
+# -- phase 28: the soak's overload, ingest and fleet on the card -------
+
+SOAK28_SCENES = 4            # 28: the reference's four products, a date each
+SOAK28_S = 20.0              # 28: each scenario's --seconds
+SOAK28_CONC = 64             # 28: past the WMS limit of 4, so that it sheds
+SOAK28_RUNS = ("overload", "ingest", "fleet")
+
+
+def phase_soak_ops(card):
+    """28: `tools/soak_torch.py`'s overload, ingest and fleet on the card
+    over four Landsat-size dates (the reference's four products), each
+    through the tool's own scenario function with the default serving
+    path, and each held to the tool's criteria; no page pinned at the
+    end of any served process, no plain-version call; the phase's first
+    B1 and B2 launch of each method (`CheckWide`) and its first B4
+    launch (the fleet's remote tiles, mosaicked in this process) held
+    against their plain versions.  The worker nodes warp in plain torch
+    (the reference's gather), so no kernel of theirs is counted; their
+    launch counts (`worker_info`) are logged.  Returns (launches by
+    kernel, max |diff| by kernel)."""
+    import torch
+    from gsky_tpu_torch.ops import first_valid
+    from gsky_tpu_torch.pipeline.scene_cache import _bucket
+    st = soak_tool()
+    kernels = _kernel_counts()
+    root = os.path.join(ROOT, "build", "smoke_soak28")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = None
+    outs, launches, secs = {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        env = st.SoakEnv(root, SOAK28_SCENES, SOAK_SHAPE, "cuda")
+        disk = sum(os.path.getsize(p) for p in env.paths)
+        scene_b = _bucket(SOAK_SHAPE[0]) * _bucket(SOAK_SHAPE[1]) * 4
+        log(f"phase 28: {SOAK28_SCENES} scenes of {SOAK_SHAPE[0]} x "
+            f"{SOAK_SHAPE[1]} int16, one a product and date "
+            f"({disk} B uncompressed, tiled 256) written + crawled in "
+            f"{time.perf_counter() - t0:.1f} s; resident as padded f32 "
+            f"{scene_b} B a scene, {SOAK28_SCENES * scene_b} B for all")
+        args = st.parse_args(["--seconds", str(SOAK28_S),
+                              "--conc", str(SOAK28_CONC)])
+        # phase 1 built the kernels: no prewarm in the soak's servers, so
+        # that the first launches held are the scenarios' own; the worker
+        # nodes prewarm before they listen, as deployed nodes do (their
+        # own kernels: none of their launches is held here)
+        env.prewarm = False
+        with WavesOn():
+            torch.cuda.synchronize()
+            chk = CheckWide((256, 256), what="28")
+            b4 = CaptureFirst(first_valid, "mosaic_first_valid_kernel")
+            plain = PlainCalls()
+            try:
+                for name in SOAK28_RUNS:
+                    reset_counts(kernels)
+                    t0 = time.perf_counter()
+                    try:
+                        outs[name] = st.RUNS[name](env, args)
+                    finally:
+                        env.close()
+                    secs[name] = time.perf_counter() - t0
+                    launches[name] = read_counts(kernels)
+            finally:
+                plain.remove()
+                b4.remove()
+                chk.remove()
+        for name in SOAK28_RUNS:
+            out, ok = outs[name]
+            log(f"phase 28 {name}: {json.dumps(out)}")
+            log(f"phase 28 {name}: {'passed' if ok else 'FAILED'} in "
+                f"{secs[name]:.1f} s, launches {launches[name]} ({card})")
+        failed = {n: outs[n][0].get("unmet") for n in SOAK28_RUNS
+                  if not outs[n][1]}
+        if failed:
+            raise AssertionError(f"28: the soak failed, unmet: {failed}")
+        ov, ing, fl = (outs[n][0] for n in SOAK28_RUNS)
+        holds = [h["hold_s"] for h in ov["cancellation"]["holds"]
+                 if h["answer"] == "cancelled"]
+        log(f"phase 28 overload: storm at {ov['phases']['storm_conc']} "
+            f"{ov['phases']['storm']}, sheds {ov['sheds']}, adjustments "
+            f"{ov['adjustments']} ({ov['adjustments_since_reconfigure']} "
+            f"since the knobs), cancellations {ov['cancellation']['fired']}"
+            f" (holds cancelled {holds}; stages "
+            f"{ov['cancel']['stages']}), drained "
+            f"{ov['cancellation']['drained']}, clamp {ov['clamp']}, "
+            f"brownout labels {ov['brownout_labelled']}, recovery "
+            f"{ov['phases']['recovery_ok']} of 3")
+        legs = ("baseline", "ranged", "prefetch")
+        log("phase 28 ingest: " + "; ".join(
+            f"{leg} {ing[leg]['bytes_read']} B read "
+            f"({ing[leg]['ranged_windows']} ranged windows), p50 "
+            f"{ing[leg]['p50_ms']} ms" for leg in legs)
+            + f"; planner hit rate {ing['prefetch']['planner']['hit_rate']}"
+            f" ({ing['prefetch']['planner']['hit']} hit, "
+            f"{ing['prefetch']['planner']['miss']} miss, "
+            f"{ing['prefetch']['planner']['declined_budget']} declined for "
+            f"budget); card after each leg's close "
+            f"{[ing[leg].get('card_after_close') for leg in legs]}")
+        log(f"phase 28 fleet: locality {fl['locality']}, rerouted "
+            f"{fl['rerouted']} of {fl['routed']}, kill phase "
+            f"{fl['kill_phase']}, revived {fl['revived_state']}, hedge "
+            f"p99 {fl['hedge'].get('hedged_p99_ms')} ms hedged / "
+            f"{fl['hedge'].get('unhedged_p99_ms')} unhedged "
+            f"({fl['hedge'].get('hedge_wins')} wins of "
+            f"{fl['hedge'].get('hedges')} hedges), stitched traces "
+            f"{fl['stitched_traces']}; nodes' VmRSS MB and launches "
+            f"{fl['node_rss']}")
+        pools = {"overload": ov["pool"], "fleet": fl["pool"],
+                 **{f"ingest/{leg}": ing[leg]["pool"] for leg in legs}}
+        pinned = {k: p["pinned"] for k, p in pools.items() if p["pinned"]}
+        if pinned:
+            raise AssertionError(f"28: pages pinned at the end: {pinned}")
+        if plain.calls:
+            raise AssertionError(f"28: {plain.calls} plain-version calls "
+                                 f"on the card")
+        errs = {}
+        for k in ("B1", "B2"):
+            held = [v for (kk, _), v in chk.errs.items() if kk == k]
+            if not held:
+                raise AssertionError(f"28: no {k} launch held against its "
+                                     f"plain version ({launches})")
+            errs[k] = max(held)
+        if b4.args is None:
+            raise AssertionError(f"28: no B4 launch ({launches})")
+        saved = first_valid.first_valid_kernel.launches
+        b4_same(first_valid.mosaic_first_valid_kernel(*b4.args[0]),
+                first_valid.mosaic_first_valid_plain(*b4.args[0]),
+                "28 B4 vs plain")
+        first_valid.first_valid_kernel.launches = saved
+        errs["B4"] = 0.0
+        log(f"phase 28: the first B1 and B2 launch of each method against "
+            f"their plain versions on the same inputs, max |diff| "
+            f"{sorted(chk.errs.items())}; the first B4 launch "
+            f"({tuple(b4.args[0][0].shape)}) bit-exact")
+    finally:
+        if env is not None:
+            env.close()
+        shutil.rmtree(root, ignore_errors=True)
+    total = {k: sum(launches[n][k] for n in SOAK28_RUNS) for k in kernels}
+    if not total["B4"] or not launches["fleet"]["B4"]:
+        raise AssertionError(f"28: the fleet's remote tiles launched no "
+                             f"B4: {launches}")
+    return total, errs
+
+
+def phase_28_alone(card):
+    """``--phase 28``: phase 28 alone (after phase 1); no result line."""
+    os.environ["GSKY_PREFETCH"] = "0"
+    t0 = time.perf_counter()
+    launches, errs = phase_soak_ops(card)
+    log(f"phase 28: launches {launches}, max |diff| {errs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return 0
+
+
 def torch_equal(a, b):
     import torch
     return bool(torch.equal(a, b))
@@ -9919,6 +10118,8 @@ def main() -> int:
         return phase_26_alone(card)
     if sys.argv[1:] == ["--phase", "27"]:
         return phase_27_alone(card)
+    if sys.argv[1:] == ["--phase", "28"]:
+        return phase_28_alone(card)
 
     # -- phase 2: kernels vs plain on the card ------------------------
     n_cmp = phase_kernels()
@@ -10366,6 +10567,11 @@ def main() -> int:
     soak27, soak27_err = phase_soak(card)
     log(f"phase 27: launches {soak27} ({time.perf_counter() - t0:.1f} s)")
 
+    # -- phase 28: the soak's overload, ingest and fleet ----------------
+    t0 = time.perf_counter()
+    soak28, soak28_err = phase_soak_ops(card)
+    log(f"phase 28: launches {soak28} ({time.perf_counter() - t0:.1f} s)")
+
     # the kernels line reports the bilinear rows (the GetMap default
     # interpolated method): B1 at phase 3's tile, B2 at input (c), the
     # 4x zoomed-out tile; every method's and input's numbers are logged
@@ -10390,7 +10596,9 @@ def main() -> int:
     # the swath's warps on the fabric's workers, 24e's renders on the
     # replay gateways), and phase 25's (the virtual mesh: B1 a member a
     # granule wave, B2 a member a block of the x layout and a GSKY_SPMD
-    # tile or mosaic, B3 a member a time wave or GSKY_SPMD reduction)
+    # tile or mosaic, B3 a member a time wave or GSKY_SPMD reduction),
+    # and phases 27's and 28's (the soak's scenarios: B1 and B2 their
+    # tiles, B4 the fleet's remote tiles mosaicked here)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -10402,9 +10610,11 @@ def main() -> int:
          + wcs_launches["B1"] + gw_launches["B1"] + sat["B1"]
          + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
          + obs21["B1"] + guard22["B1"] + fleet23["B1"] + fab24["B1"]
-         + fab24e["B1"] + mesh25["B1"] + tiles26["B1"] + soak27["B1"],
+         + fab24e["B1"] + mesh25["B1"] + tiles26["B1"] + soak27["B1"]
+         + soak28["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             ing_err["B1"], obs21_err, soak27_err["B1"],
+                            soak28_err["B1"],
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B1")),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
@@ -10416,10 +10626,11 @@ def main() -> int:
          + gw_launches["B2"] + sat["B2"] + ing["B2"] + srv20["B2"]
          + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"]
          + fleet23["B2"] + fab24.get("B2", 0) + fab24e["B2"]
-         + mesh25["B2"] + mesh25m + tiles26["B2"] + soak27["B2"],
+         + mesh25["B2"] + mesh25m + tiles26["B2"] + soak27["B2"]
+         + soak28["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
-                            soak27_err["B2"],
+                            soak27_err["B2"], soak28_err["B2"],
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B2")),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,
@@ -10429,7 +10640,8 @@ def main() -> int:
          "replaces": "gsky_tpu/ops/pallas_tpu.py:362",
          "launches": b3_launches + b3_wave_launches + b3_wps + sat["B3"]
          + ing["B3"] + srv20["B3"] + dl20["B3"] + be20["B3"]
-         + fleet23["B3"] + mesh25c["B3"] + mesh25c["B3K"],
+         + fleet23["B3"] + mesh25c["B3"] + mesh25c["B3K"]
+         + soak28["B3"],
          "max_abs_err": max(b3_err, b3_main_err, b3k_err, ing_err["B3"]),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
@@ -10437,8 +10649,9 @@ def main() -> int:
          "source": "gsky_tpu_torch/csrc/first_valid.cu",
          "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
          "launches": b4_launches + b4_wcs + b4_gfi + sat["B4"] + ing["B4"]
-         + srv20["B4"] + dl20["B4"] + be20["B4"] + fleet23["B4"],
-         "max_abs_err": max(b4_row[4], ing_err["B4"]),
+         + srv20["B4"] + dl20["B4"] + be20["B4"] + fleet23["B4"]
+         + soak28["B4"],
+         "max_abs_err": max(b4_row[4], ing_err["B4"], soak28_err["B4"]),
          "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
          "bound_by": "bytes", "library_ms": b4_row[3]},
     ]}

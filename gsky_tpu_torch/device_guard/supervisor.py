@@ -501,6 +501,10 @@ class _SyncWorker:
             job, done = self._jobs.get()
             job()
             done.set()
+            # an idle worker keeps no job: a job closes over what its
+            # sync read (a wave's entries, their page pool), which would
+            # stay on the card after their server closed
+            del job, done
             with _idle_lock:
                 _idle_workers.append(self)
 

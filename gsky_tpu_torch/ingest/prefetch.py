@@ -31,16 +31,21 @@ Discipline over enthusiasm:
 The planner knows nothing about layers or granules: the server
 registers a ``warm_fn(layer, bbox, width, height, crs, time_s)``
 callback that resolves granules and warms them (returning approximate
-bytes warmed, for the budget).  Tests register their own.  Knobs:
+bytes warmed, for the budget).  A bound method is held weakly: the
+planner never keeps the server that fed it (and that server's scene
+cache and page pool) alive, and a server dropped unbinds itself; a
+closed one lets go with `unbind`.  Tests register their own.  Knobs:
 ``GSKY_PREFETCH=0`` (off), ``GSKY_PREFETCH_BUDGET_MB``,
 ``GSKY_PREFETCH_TTL_S``; ``GSKY_INGEST=0`` turns it off too.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict, deque
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
@@ -84,6 +89,7 @@ class PrefetchPlanner:
 
     def __init__(self, warm_fn: Optional[WarmFn] = None):
         from ..resilience.cancel import CancelToken
+        self._warm_ref = None
         self.warm_fn = warm_fn
         self._lock = threading.Lock()
         self._pending: "OrderedDict[Key, Tuple]" = OrderedDict()
@@ -229,6 +235,26 @@ class PrefetchPlanner:
                 return k
         return None
 
+    @property
+    def warm_fn(self) -> Optional[WarmFn]:
+        """The warm callback, or None (none bound, or its server gone)."""
+        ref = self._warm_ref
+        return ref() if ref is not None else None
+
+    @warm_fn.setter
+    def warm_fn(self, fn: Optional[WarmFn]) -> None:
+        if fn is None:
+            self._warm_ref = None
+        elif inspect.ismethod(fn):
+            self._warm_ref = weakref.WeakMethod(fn)
+        else:
+            self._warm_ref = lambda: fn
+
+    def unbind(self, fn: WarmFn) -> None:
+        """Drop the warm callback if it is ``fn`` (a closing server's)."""
+        if self.warm_fn == fn:
+            self.warm_fn = None
+
     # -- worker ---------------------------------------------------------
 
     def _enqueue(self, preds: List[Key]) -> None:
@@ -282,11 +308,16 @@ class PrefetchPlanner:
                 with self._lock:
                     self.declined_budget += 1
                 continue
+            warm = self.warm_fn
+            if warm is None:
+                with self._lock:
+                    self.declined_disabled += 1
+                continue
             layer, qb, width, height, crs, time_s = key
             warmed_bytes = 0
             try:
                 with cancel_scope(self._token):
-                    warmed_bytes = self.warm_fn(
+                    warmed_bytes = warm(
                         layer, qb, width, height, crs, time_s) or 0
             except RequestCancelled:
                 return
@@ -368,6 +399,14 @@ def default_planner() -> PrefetchPlanner:
         if _default is None:
             _default = PrefetchPlanner()
         return _default
+
+
+def unbind(fn: WarmFn) -> None:
+    """Let the process-wide planner (if any) drop ``fn``."""
+    with _default_lock:
+        planner = _default
+    if planner is not None:
+        planner.unbind(fn)
 
 
 def reset_default_planner() -> None:

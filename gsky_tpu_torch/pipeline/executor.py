@@ -319,6 +319,12 @@ class WarpExecutor:
                               dst_bbox=dst_gt.bbox(width, height),
                               dst_crs=dst_crs)
 
+    def scene_resident(self, g, dst_gt: GeoTransform, dst_crs: CRS,
+                       height: int, width: int) -> bool:
+        """Whether `warm_scene` would find its scene resident."""
+        return self.cache.resident(g, self._scene_stride(
+            g, dst_gt, dst_crs, height, width))
+
     def _geo_cache_get(self, key):
         with self._lock:
             hit = self._geo_cache.get(key)

@@ -276,6 +276,12 @@ class SceneCache:
                 self._inflight.pop(key).set()
         return scene
 
+    def resident(self, g: Granule, stride: float = 1.0) -> bool:
+        """Whether `get` would find the scene at this stride resident."""
+        key = self._key(g) + (self._pick_level(g, stride),)
+        with self._lock:
+            return key in self._scenes
+
     def clear(self) -> None:
         """Drop every resident scene; loads in flight insert theirs when
         they finish.  The pressure monitor's critical relief calls it."""

@@ -480,40 +480,47 @@ class WaveScheduler:
                 continue
             if item is None:
                 return
-            groups, done, observe = item
-            flat = [d for _k, _es, devs in groups for d in devs]
+            # a wave in a frame of its own: its entries, outputs and the
+            # pool they name go when it is served, not when the next
+            # wave replaces the loop's locals (an idle drainer held the
+            # last wave, and a closed server's page pool, on the card)
+            self._drain_wave(*item)
+            del item
 
-            def read(groups=groups, flat=flat, done=done, observe=observe):
-                if observe is not None:
-                    # a mesh wave: each member's completion timed before
-                    # the copy
-                    for _k, _es, devs in groups:
-                        observe(devs)
-                if done is not None:
-                    done.synchronize()
-                return tuple(self._to_host(d) for d in flat)
+    def _drain_wave(self, groups, done, observe) -> None:
+        flat = [d for _k, _es, devs in groups for d in devs]
 
-            try:
-                # one supervised readback a wave: one integrity probe
-                # over its outputs
-                host = device_guard.guarded_readback("wave.readback", read)
-            except Exception as exc:
-                for _k, es, _d in groups:
-                    self._failover(es, exc)
-                continue
-            i0 = 0
-            for _kind, es, devs in groups:
-                lanes = host[i0:i0 + len(devs)]
-                i0 += len(devs)
-                for i, e in enumerate(es):
-                    if e.dead():
-                        with self._lock:
-                            self.cancelled += 1
-                        e.future.cancel()
-                        continue
-                    if not e.future.done():
-                        e.future.set_result(lanes[0][i] if len(lanes) == 1
-                                            else tuple(h[i] for h in lanes))
+        def read():
+            if observe is not None:
+                # a mesh wave: each member's completion timed before the
+                # copy
+                for _k, _es, devs in groups:
+                    observe(devs)
+            if done is not None:
+                done.synchronize()
+            return tuple(self._to_host(d) for d in flat)
+
+        try:
+            # one supervised readback a wave: one integrity probe over
+            # its outputs
+            host = device_guard.guarded_readback("wave.readback", read)
+        except Exception as exc:
+            for _k, es, _d in groups:
+                self._failover(es, exc)
+            return
+        i0 = 0
+        for _kind, es, devs in groups:
+            lanes = host[i0:i0 + len(devs)]
+            i0 += len(devs)
+            for i, e in enumerate(es):
+                if e.dead():
+                    with self._lock:
+                        self.cancelled += 1
+                    e.future.cancel()
+                    continue
+                if not e.future.done():
+                    e.future.set_result(lanes[0][i] if len(lanes) == 1
+                                        else tuple(h[i] for h in lanes))
 
     def _to_host(self, d: torch.Tensor) -> np.ndarray:
         """One copy of a wave output to host memory (pinned on the

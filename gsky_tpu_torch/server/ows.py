@@ -694,9 +694,14 @@ class OWSServer:
 
     def close(self) -> None:
         """Close the namespaces' worker clients and the fabric's fetch
-        threads (idempotent)."""
+        threads, and let go of the process-wide prefetch planner
+        (idempotent)."""
         if self.fabric is not None:
             self.fabric.close()
+        # the planner warms through the first server that fed it: the
+        # next server binds it, not a closed server's caches
+        from ..ingest import prefetch
+        prefetch.unbind(self._prefetch_warm)
         with self._lock:
             pipes = [pipe for _, pipe in self._pipelines.values()]
         for pipe in pipes:
@@ -1006,7 +1011,11 @@ class OWSServer:
         GetMap would (layer, tile request, index query), load its
         distinct scenes into the scene cache and stage the pages the
         tile will read.  Returns the bytes warmed (the planner's budget
-        currency)."""
+        currency): the scenes it loaded.  A scene already resident costs
+        nothing (the reference charges its size: at Landsat size one
+        warm of four resident scenes spent four minutes of the default
+        budget, and the planner declined every later prediction,
+        ROADMAP C.24)."""
         ns, _, lname = layer_key.partition("\x1f")
         cfg = self.watcher.get(ns)
         if cfg is None:
@@ -1029,10 +1038,13 @@ class OWSServer:
             if k in seen:
                 continue
             seen.add(k)
+            resident = pipe.executor.scene_resident(
+                g, dst_gt, req.crs, req.height, req.width)
             sc = pipe.executor.warm_scene(g, dst_gt, req.crs, req.height,
                                           req.width)
             if sc is not None:
-                warmed += sc.dev.numel() * sc.dev.element_size()
+                if not resident:
+                    warmed += sc.dev.numel() * sc.dev.element_size()
                 self._prewarm_pages(pipe.executor.pool, sc, req)
         return warmed
 

@@ -452,6 +452,11 @@ class AdmissionController:
         with self._lock:
             return sum(st.adjustments for st in self._classes.values())
 
+    @property
+    def total_cancelled(self) -> int:
+        with self._lock:
+            return sum(st.cancelled for st in self._classes.values())
+
     def stats(self) -> Dict:
         with self._lock:
             tenants = {}

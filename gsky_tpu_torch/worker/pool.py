@@ -217,6 +217,12 @@ class Process:
     def pid(self) -> Optional[int]:
         return self.proc.pid if self.proc is not None else None
 
+    def ready(self) -> bool:
+        """Alive with its socket bound."""
+        proc = self.proc
+        return proc is not None and proc.poll() is None \
+            and os.path.exists(self.sock_path)
+
     # -- task loop -----------------------------------------------------------
 
     def _respawn(self, crashed: bool = False) -> bool:
@@ -336,10 +342,27 @@ class ProcessPool:
     def child_pids(self) -> List[int]:
         return [p.pid for p in self.processes if p.pid is not None]
 
+    def ready_count(self) -> int:
+        """Children alive with their socket bound: ready for a task."""
+        return sum(1 for p in self.processes if p.ready())
+
+    def wait_ready(self, timeout: float) -> bool:
+        """Wait until every child is ready, or has failed to start (the
+        crash-loop breaker's from there), or ``timeout`` passes; whether
+        every child is ready."""
+        deadline = time.monotonic() + timeout
+        while not all(p.ready() or p.spawn_failures
+                      for p in self.processes):
+            if time.monotonic() >= deadline or self.closed:
+                break
+            time.sleep(0.02)
+        return self.ready_count() == self.size
+
     def stats(self) -> dict:
         """Folded into the worker's info block (_worker_info) so the
         client-side fleet health monitor sees crash-loop state."""
-        return {"size": self.size, "queue_depth": self.queue.qsize(),
+        return {"size": self.size, "ready": self.ready_count(),
+                "queue_depth": self.queue.qsize(),
                 "crash_loop": self.breaker.stats()}
 
     def close(self):

@@ -104,6 +104,9 @@ SERVICE = "gskyrpc.GDAL"
 METHOD = f"/{SERVICE}/Process"
 # RPCs the server runs at once (the reference's gRPC executor size)
 HANDLER_SLOTS = 32
+# how long a booting node waits for its decode children (a child's own
+# start-up window, `pool.Process._spawn`) before it listens anyway
+POOL_READY_S = 60.0
 
 
 def _compile_probe():
@@ -756,6 +759,14 @@ def main(argv=None):
         warm = prewarm({}, svc.executor)
         log.info("prewarm: %d fresh compile(s) in %ss", warm["compiles"],
                  warm["seconds"])
+    # the decode children up before the listen socket opens: a node
+    # that answered while they still imported torch was re-admitted by
+    # its router and queued its first tiles for seconds, which were
+    # hedged away (a revived node's keys; the reference listens at
+    # once).  A child that cannot start is the crash-loop breaker's
+    if not pool.wait_ready(POOL_READY_S):
+        log.warning("decode pool: %d of %d children ready",
+                    pool.ready_count(), pool.size)
     monitor = None
     if a.oom_threshold:
         def _oom_killed(pid: int) -> None:

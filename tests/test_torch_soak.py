@@ -109,7 +109,8 @@ def run(senv, name, seconds=None):
 
 # -- every scenario passes -------------------------------------------------
 
-@pytest.mark.parametrize("name", [n for n in st.SCENARIOS if n != "hot"])
+@pytest.mark.parametrize("name", [n for n in st.SCENARIOS if n not in (
+    "hot", "overload", "ingest", "fleet")])     # the last three: soak_ops
 def test_scenario_passes(senv, fresh, name):
     out, ok = run(senv, name)
     assert ok, json.dumps(out)[:4000]

@@ -2,8 +2,9 @@
 """Soak the PyTorch/CUDA port's in-process OWS server.
 
 The port's counterpart of ``tools/soak.py``: a long-lived server under
-concurrent distinct requests, held to the reference's bounds.  Seven
-scenarios, each with the pass criteria of its reference counterpart:
+concurrent distinct requests, held to the reference's bounds.  Ten
+scenarios, each with the pass criteria and knobs of its reference
+counterpart:
 
 ``--scenario churn`` (default): sustained GetMap load over distinct
 tiles (cache churn, not cache hits), the gateway off, sampling the
@@ -51,6 +52,43 @@ export spool: every one a 200 DAP4 body, ``GSKY_DAP_STREAM=0``
 byte-identical, the peak rechunk buffer under twice the chunk ceiling,
 RSS (and card memory) bounded.
 
+``--scenario overload``: the process-wide gateway's adaptive admission
+(``GSKY_ADMIT_ADAPTIVE=1``, ``GSKY_ADMIT_WMS=4``,
+``GSKY_ADMIT_QUEUE_S=1.0``, ``GSKY_ADMIT_INTERVAL_S=0.2``, tenants
+``key:bulk:0.25,key:premium:4``) through a serial warm lap of 6, a
+two-tenant storm at ``max(--conc, 10)``, a cooldown, a disconnect
+volley (holds 0.3-0.75 s over a 400 ms injected decode and an empty
+scene cache), a forced brownout (pressure 1, then 2) and a recovery:
+no bare 5xx or dropped connection, 6 warm answers, at least one shed
+and every shed a 503 with ``Retry-After``, an AIMD adjustment, a
+cancellation and every class drained, a ``brownout`` label, the
+effective limit clamped to half, 3 of 3 clean after, and
+``gsky_admit_limit``, ``gsky_cancelled_total``, ``gsky_pressure_state``
+in a strict ``/metrics``.
+
+``--scenario ingest``: a pan-and-zoom walk (8 steps along a row of a
+16 x 16 grid, then 2 halvings) of temporal-range GetMaps over three
+legs, each with its own server (closed before the next), ingest
+counters, sources, staging pool and planner: whole files
+(``GSKY_INGEST=0``), ranged windows (``GSKY_INGEST_WINDOW_FRAC=0.5``)
+and the prefetch planner after a priming lap: every answer a 200 PNG,
+the ranged leg reading fewer bytes than the whole-file leg, the
+planner's hit rate at least 0.5, the ingest families in ``/metrics``.
+
+``--scenario fleet``: three worker nodes (``python -m
+gsky_tpu_torch.worker.server -device`` the soak's device, `Nodes`)
+behind a ``fleet`` namespace's router: a locality baseline, a node
+SIGKILLed under load, revived on its port and re-admitted healthy, a
+re-home lap and a recovery; then hedged ``worker_info`` calls against
+a node slowed by ``node:slow:250ms``: no bare 5xx, answers during the
+kill, a reroute, locality over 1/3 and recovering to 0.9 of it,
+``gsky_worker_rpc_seconds``, a trace stitched across the process
+boundary, hedged p99 under unhedged.  The nodes' VmRSS and launch
+counts are reported, not bounded; every node is killed at the end.
+
+Each of these three also reports, on a card, ``memory_allocated`` and
+``memory_reserved`` of the serving process at its start and end.
+
     python3 tools/soak_torch.py [--scenario churn] [--seconds 120]
         [--conc 8] [--scenes 4] [--scene-shape 1536x1536] [--device cuda]
 
@@ -97,7 +135,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 sys.path.insert(0, HERE)
 
-SCENARIOS = ("churn", "hot", "wcs", "chaos", "burst", "wave", "dap4")
+SCENARIOS = ("churn", "hot", "wcs", "chaos", "burst", "wave", "dap4",
+             "overload", "ingest", "fleet")
 N_PRODUCTS = 4                     # the reference's layers list four
 GEO_CACHE_MAX = 256                # pipeline/executor.py _GEO_CACHE_MAX
 REF_SCENE = 1536                   # the reference soak's scene edge
@@ -414,11 +453,16 @@ class SoakEnv:
         self.watcher = ConfigWatcher(self.conf_dir,
                                      mas_factory=lambda a: self.mas,
                                      install_signal=False)
+        # on a card each server prewarms before it listens; False skips
+        # it (the worker nodes a scenario starts prewarm as the command
+        # line's do, unless GSKY_PREWARM=0)
+        self.prewarm = True
         self._served = []
 
-    def server(self, gateway=None):
+    def server(self, gateway=None, metrics=None):
         """(OWSServer, "host:port") serving this archive on a thread;
-        ``gateway`` None serves every request raw.  On a card the
+        ``gateway`` None serves every request raw; ``metrics`` its
+        records' sink (a fresh `MetricsLogger` by default).  On a card the
         kernels are built, loaded and launched before it listens, as
         the command line's server does (`server.prewarm`): a first
         request that waited for nvcc took up to 30 s, past the layers'
@@ -428,8 +472,8 @@ class SoakEnv:
         from gsky_tpu_torch.server.prewarm import prewarm_from_watcher
         srv = OWSServer(self.watcher, mas_factory=lambda a: self.mas,
                         device=self.device, gateway=gateway,
-                        metrics=MetricsLogger())
-        if self.device.type == "cuda":
+                        metrics=metrics or MetricsLogger())
+        if self.device.type == "cuda" and self.prewarm:
             prewarm_from_watcher(self.watcher, srv.executor)
         httpd = srv.serve("127.0.0.1", 0)
         self._served.append((srv, httpd))
@@ -493,6 +537,56 @@ class SoakEnv:
                 f"&bbox={self.bbox(fx, fy, w)}&width={px}&height={px}"
                 f"&format=GeoTIFF&time={iso(self.dates[0])}")
 
+    def overload_url(self, host: str, i: int) -> str:
+        """The overload's ``i``-th GetMap: a multiplicative-hash bbox
+        (~4096 distinct values an axis, so that every request is an
+        uncached render and admission gates real work, not
+        response-cache hits, which bypass it) 0.22 of `unit` wide, at
+        date ``i`` of the first four."""
+        fx = 0.75 * ((i * 2654435761) % 4096) / 4096.0
+        fy = 0.75 * ((i * 1597334677) % 4096) / 4096.0
+        return self.getmap(host, "landsat", fx, fy, self.unit * 0.22,
+                           self.dates[i % min(4, len(self.dates))])
+
+    def fleet_namespace(self, nodes) -> None:
+        """Write the ``fleet`` namespace (its layer ``landsat_fleet``
+        over the soak's products, ``worker_nodes`` ``nodes``), in a
+        directory of its own so that its nodes reach no other layer, and
+        reload; ``nodes`` None removes it."""
+        d = os.path.join(self.conf_dir, "fleet")
+        if nodes is None:
+            shutil.rmtree(d, ignore_errors=True)
+        else:
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, "config.json"), "w") as fp:
+                json.dump({
+                    "service_config": {"ows_hostname": "",
+                                       "mas_address": "",
+                                       "worker_nodes": list(nodes)},
+                    "layers": [{
+                        "name": "landsat_fleet", "title": "fleet soak",
+                        "data_source": self.root,
+                        "rgb_products": [product(k)
+                                         for k in range(N_PRODUCTS)],
+                        "time_generator": "mas", "wms_timeout": 120,
+                        "wcs_max_width": 4096, "wcs_max_height": 4096,
+                        "wcs_max_tile_width": 256,
+                        "wcs_max_tile_height": 256}]}, fp)
+        self.watcher.reload()
+
+    def fleet_tiles(self):
+        """The fleet's fixed 3 x 3 grid of (fx, fy)."""
+        frac = np.linspace(0.0, 0.75, 3)
+        return [(float(fx), float(fy)) for fx in frac for fy in frac]
+
+    def fleet_url(self, host: str, tile, layer: str = "landsat_fleet",
+                  ns: str = "/fleet") -> str:
+        """A fleet tile, a quarter of `unit` wide at the first date."""
+        return (f"http://{host}/ows{ns}?service=WMS&request=GetMap"
+                f"&version=1.3.0&layers={layer}&crs=EPSG:3857"
+                f"&bbox={self.bbox(*tile, self.unit * 0.25)}&width=256"
+                f"&height=256&format=image/png&time={iso(self.dates[0])}")
+
     def drill_url(self, host: str) -> str:
         """WPS geometryDrill over one small polygon inside the first
         scene (lon/lat)."""
@@ -523,12 +617,22 @@ class SoakEnv:
               f"time >= {iso(self.dates[k])}")
         return f"http://{host}/ows?dap4.ce=" + urllib.parse.quote(ce)
 
+    def release(self, server) -> None:
+        """Stop and close one server this environment booted."""
+        for item in [it for it in self._served if it[0] is server]:
+            self._served.remove(item)
+            _stop(*item)
+
     def close(self) -> None:
-        for srv, httpd in self._served:
-            httpd.shutdown()
-            httpd.server_close()
-            srv.close()
+        for item in self._served:
+            _stop(*item)
         self._served.clear()
+
+
+def _stop(srv, httpd) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    srv.close()
 
 
 def fetch_png(url: str, errors=None) -> bool:
@@ -789,12 +893,12 @@ def run_wcs(env: SoakEnv, args):
     return out, ok
 
 
-def classify(url: str, hard=None) -> str:
+def classify(url: str, hard=None, need_retry_after: bool = True) -> str:
     """ok (clean 2xx), degraded (2xx with X-GSKY-Degraded), ogc_error
     (an OGC exception, not a 500), hard_5xx (a bare 500, a body that is
-    not OGC XML or a 503 without Retry-After) or transport (a dropped
-    connection).  A hard answer's status and body head go to ``hard``
-    (a list, its first 5 kept)."""
+    not OGC XML or, with ``need_retry_after``, a 503 without
+    Retry-After) or transport (a dropped connection).  A hard answer's
+    status and body head go to ``hard`` (a list, its first 5 kept)."""
     try:
         with urllib.request.urlopen(url, timeout=120) as r:
             degraded = r.headers.get("X-GSKY-Degraded")
@@ -804,7 +908,8 @@ def classify(url: str, hard=None) -> str:
         ctype = e.headers.get("Content-Type", "")
         body = e.read()
         if e.code == 500 or "vnd.ogc.se_xml" not in ctype \
-                or (e.code == 503 and not e.headers.get("Retry-After")):
+                or (need_retry_after and e.code == 503
+                    and not e.headers.get("Retry-After")):
             if hard is not None and len(hard) < 5:
                 hard.append(f"{e.code} {ctype} "
                             f"{body[:300].decode(errors='replace')}")
@@ -1276,9 +1381,879 @@ def _dap4(env, args, om, dap4):
     return out, ok
 
 
+# -- overload, ingest, fleet -----------------------------------------------
+
+def card_memory(device):
+    """``memory_allocated`` and ``memory_reserved`` of this process in
+    MiB on a card; None elsewhere."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    return {"allocated_mb": round(device_mb(device), 1),
+            "reserved_mb": round(torch.cuda.memory_reserved(device)
+                                 / float(1 << 20), 1)}
+
+
+def settled_pool(server, timeout: float = 15.0) -> dict:
+    """`pool_stats` once nothing is pinned, or when ``timeout`` ends."""
+    t_end = time.time() + timeout
+    while True:
+        st = pool_stats(server)
+        if st["pinned"] == 0 or time.time() > t_end:
+            return st
+        time.sleep(0.25)
+
+
+def status_logger():
+    """A `MetricsLogger` that also keeps each logged request's status
+    (``status``: raw URL -> HTTP status; a request whose client went
+    away is not logged)."""
+    from gsky_tpu_torch.server.metrics import MetricsLogger
+
+    class StatusLog(MetricsLogger):
+        def __init__(self):
+            super().__init__()
+            self.status = {}
+
+        def write(self, info):
+            self.status[info["url"]["raw_url"]] = info["http_status"]
+            super().write(info)
+
+    return StatusLog()
+
+
+# the reference's overload knobs (`tools/soak.py` run_overload): a small
+# WMS ceiling and a short queue deadline so that the storm queues and
+# sheds, a fast AIMD cadence, distinct weights for the two tenants
+OVERLOAD_KNOBS = {"GSKY_ADMIT_ADAPTIVE": "1", "GSKY_ADMIT_WMS": "4",
+                  "GSKY_ADMIT_QUEUE_S": "1.0",
+                  "GSKY_ADMIT_INTERVAL_S": "0.2",
+                  "GSKY_TENANT_WEIGHTS": "key:bulk:0.25,key:premium:4"}
+VOLLEY_HOLDS = (0.3, 0.3, 0.45, 0.45, 0.6, 0.6, 0.75, 0.75)
+VOLLEY_FAULTS = "decode:latency:400ms:1.0"
+def verdict(out: dict, checks: dict) -> bool:
+    """A scenario's pass criteria by name: those that do not hold into
+    ``out["unmet"]``; whether every one holds."""
+    out["unmet"] = [k for k, held in checks.items() if not held]
+    return not out["unmet"]
+
+
+# the reference's shortest storm, cooldown and critical phases, and
+# its wait for the volley's permits to come back (s)
+OVERLOAD_MIN_S = {"storm": 8.0, "cooldown": 3.0, "critical": 4.0}
+OVERLOAD_DRAIN_S = 20.0
+
+
+def run_overload(env: SoakEnv, args):
+    """Adaptive admission under a two-tenant storm, client disconnects
+    handing their permits back, a forced brownout, a clean recovery.
+    The server is fronted by the process-wide `default_gateway`, so
+    that ``gsky_admit_limit`` reads the admission it uses; the knobs are
+    restored and admission reconfigured from them after the run."""
+    from gsky_tpu_torch.resilience.pressure import default_monitor
+    from gsky_tpu_torch.serving import default_gateway
+
+    adm = default_gateway.admission
+    mon = default_monitor()
+    try:
+        with EnvOverride(**OVERLOAD_KNOBS):
+            adm.reconfigure()
+            mon.force(None)
+            return _overload(env, args, default_gateway, mon)
+    finally:
+        mon.force(None)
+        adm.reconfigure()
+
+
+def _overload(env, args, gateway, mon):
+    from gsky_tpu_torch.resilience import cancel_stats, faults
+
+    adm = gateway.admission
+    adjustments0 = adm.total_adjustments
+    log = status_logger()
+    mem0 = card_memory(env.device)
+    server, host = env.server(gateway=gateway, metrics=log)
+    counter = itertools.count()
+    lock = threading.Lock()
+    shed_meta = {"sheds": 0, "missing_retry_after": 0}
+    hard: list = []
+
+    def url_for(i: int) -> str:
+        return env.overload_url(host, i)
+
+    def classify_shed(url: str, headers=None) -> str:
+        # no faults in the storm: every 503 is an admission shed, and
+        # it must carry Retry-After
+        req = urllib.request.Request(url, headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                degraded = r.headers.get("X-GSKY-Degraded")
+                r.read()
+                return "degraded" if degraded else "ok"
+        except urllib.error.HTTPError as e:
+            ctype = e.headers.get("Content-Type", "")
+            retry = e.headers.get("Retry-After")
+            body = e.read()
+            if e.code == 500 or "vnd.ogc.se_xml" not in ctype:
+                with lock:
+                    if len(hard) < 5:
+                        hard.append(f"{e.code} {ctype} "
+                                    f"{body[:300].decode(errors='replace')}")
+                return "hard_5xx"
+            if e.code == 503:
+                with lock:
+                    shed_meta["sheds"] += 1
+                    if not retry:
+                        shed_meta["missing_retry_after"] += 1
+            return "ogc_error"
+        except (OSError, ValueError) as exc:
+            with lock:
+                if len(hard) < 5:
+                    hard.append(f"transport {exc!r:.200}")
+            return "transport"
+
+    def drive(seconds: float, conc: int, counts: dict):
+        tenants = ("premium", "bulk")
+
+        def one(_):
+            i = next(counter)
+            c = classify_shed(url_for(i),
+                              {"X-API-Key": tenants[i % len(tenants)]})
+            with lock:
+                counts[c] = counts.get(c, 0) + 1
+
+        t_end = time.time() + seconds
+        with cf.ThreadPoolExecutor(conc) as ex:
+            while time.time() < t_end:
+                list(ex.map(one, range(conc * 2)))
+
+    # 1: a serial warm lap sets the AIMD latency baseline low, so that
+    # the contended storm after it reads as a knee
+    warm_counts: dict = {}
+    for _ in range(6):
+        c = classify_shed(url_for(next(counter)))
+        warm_counts[c] = warm_counts.get(c, 0) + 1
+
+    # 2: a two-tenant storm well past the limit: contended renders
+    # inflate service time (decrease), queue waits past the deadline
+    # shed as clean 503s
+    storm_counts: dict = {}
+    t0 = time.time()
+    drive(max(args.seconds * 0.4, OVERLOAD_MIN_S["storm"]),
+          max(args.conc, 10), storm_counts)
+    storm_s = time.time() - t0
+
+    # 3: cooldown, light serial load: room for additive recovery
+    cool_counts: dict = {}
+    t_end = time.time() + max(args.seconds * 0.15,
+                              OVERLOAD_MIN_S["cooldown"])
+    while time.time() < t_end:
+        c = classify_shed(url_for(next(counter)))
+        cool_counts[c] = cool_counts.get(c, 0) + 1
+    adjustments = adm.total_adjustments
+
+    # 4: a disconnect volley: renders slowed past the shortest holds
+    # (injected decode latency, an empty scene cache), then aborted
+    # mid-flight; each request's token must fire and its permit (or
+    # queue slot) come back
+    h, _, p = host.partition(":")
+    fired0 = cancel_stats()["fired"] + adm.total_cancelled
+    volley: list = []
+    refused = [0]
+
+    def disconnect_midflight(hold_s: float):
+        # the default size: an oversized request is refused before
+        # admission with nothing to cancel
+        path = url_for(next(counter)).split(host, 1)[1]
+        with lock:
+            volley.append((hold_s, path))
+        try:
+            s = socket.create_connection((h, int(p)), timeout=10)
+            try:
+                s.sendall((f"GET {path} HTTP/1.1\r\nHost: {host}\r\n"
+                           "Connection: close\r\n\r\n").encode())
+                time.sleep(hold_s)
+            finally:
+                s.close()
+        except OSError:
+            with lock:
+                refused[0] += 1
+
+    server.executor.cache.clear()
+    faults.configure(VOLLEY_FAULTS, seed=5)
+    try:
+        ths = [threading.Thread(target=disconnect_midflight, args=(hold,))
+               for hold in VOLLEY_HOLDS]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(60)
+    finally:
+        faults.reset()
+    cancel_seen = 0
+    drained = False
+    t_end = time.time() + OVERLOAD_DRAIN_S
+    while time.time() < t_end:
+        cancel_seen = (cancel_stats()["fired"] + adm.total_cancelled
+                       - fired0)
+        drained = all(c["in_use"] == 0 and c["queued"] == 0
+                      for c in adm.stats()["classes"].values())
+        if drained and cancel_seen >= 1:
+            break
+        time.sleep(0.5)
+    # each hold's request as the server logged it: the status where the
+    # render beat the hold; a request whose token fired is not logged
+    # (its answer has no client), so once drained "cancelled"
+    holds = [{"hold_s": hold, "answer": log.status.get(
+        path, "cancelled" if drained else None)}
+        for hold, path in sorted(volley)]
+
+    # 5: a forced brownout: elevated pressure labels fresh renders
+    # degraded; critical pressure clamps the effective limit and still
+    # answers
+    mon.force(1)
+    brown_hdr = 0
+    brown_counts: dict = {}
+    crit_counts: dict = {}
+    clamped = False
+    wms: dict = {}
+    try:
+        for _ in range(4):
+            req = urllib.request.Request(url_for(next(counter)))
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    tag = r.headers.get("X-GSKY-Degraded") or ""
+                    r.read()
+                    if "brownout" in tag:
+                        brown_hdr += 1
+                    k = "degraded" if tag else "ok"
+                    brown_counts[k] = brown_counts.get(k, 0) + 1
+            except (OSError, ValueError):
+                brown_counts["error"] = brown_counts.get("error", 0) + 1
+        mon.force(2)
+        wms = adm.stats()["classes"]["WMS"]
+        clamped = wms["effective_limit"] <= max(1, wms["limit"] // 2)
+        drive(max(args.seconds * 0.2, OVERLOAD_MIN_S["critical"]),
+              max(args.conc, 8), crit_counts)
+    finally:
+        mon.force(None)
+
+    # 6: recovery: the falling hysteresis waited out (state(), not
+    # stats(), recomputes the falling edge), then serial renders clean
+    t_end = time.time() + 15
+    while time.time() < t_end and mon.state() != 0:
+        time.sleep(0.25)
+    rec_ok = sum(classify_shed(url_for(next(counter))) == "ok"
+                 for _ in range(3))
+
+    metrics = check_metrics(host, require=(
+        "gsky_requests_total", "gsky_request_seconds",
+        "gsky_stage_seconds", "gsky_admit_limit", "gsky_cancelled_total",
+        "gsky_pressure_state"))
+    trace_rep = slowest_trace_report(host)
+    dbg = fetch_json(host, "/debug")
+    all_counts: dict = {}
+    for d in (warm_counts, storm_counts, cool_counts, brown_counts,
+              crit_counts):
+        for k, v in d.items():
+            all_counts[k] = all_counts.get(k, 0) + v
+    out = {
+        "scenario": "overload", "device": str(env.device),
+        "phases": {"warm": warm_counts, "storm": storm_counts,
+                   "storm_conc": max(args.conc, 10),
+                   "storm_s": round(storm_s, 1),
+                   "cooldown": cool_counts, "brownout": brown_counts,
+                   "critical": crit_counts, "recovery_ok": rec_ok},
+        "sheds": shed_meta, "hard_answers": hard,
+        "adjustments": adjustments,
+        "adjustments_since_reconfigure": adjustments - adjustments0,
+        "cancellation": {"fired": cancel_seen, "drained": drained,
+                         "holds": holds, "refused": refused[0]},
+        "brownout_labelled": brown_hdr,
+        "pressure_clamped": clamped,
+        "clamp": {k: wms.get(k) for k in ("limit", "effective_limit")},
+        "admission": adm.stats(), "cancel": cancel_stats(),
+        "pressure": mon.stats(), "metrics": metrics,
+        "slowest_trace": trace_rep,
+        "pool": settled_pool(server), "kernels": kernel_counts(dbg),
+    }
+    if mem0 is not None:
+        out["card_memory"] = {"start": mem0,
+                              "end": card_memory(env.device)}
+    return out, verdict(out, {
+        "no_hard_5xx": all_counts.get("hard_5xx", 0) == 0,
+        "no_transport": all_counts.get("transport", 0) == 0,
+        "some_ok": all_counts.get("ok", 0) > 0,
+        "warm_lap": warm_counts.get("ok", 0) == 6,
+        "shed": shed_meta["sheds"] >= 1,
+        "retry_after": shed_meta["missing_retry_after"] == 0,
+        "adjusted": adjustments >= 1,
+        # the reference's count includes the reconfigure's own change
+        # of ceiling: the controller must have moved after it
+        "adjusted_since_reconfigure": adjustments - adjustments0 >= 1,
+        "cancelled": cancel_seen >= 1,
+        "drained": drained,
+        "brownout_labelled": brown_hdr >= 1,
+        "clamped": clamped,
+        "recovery": rec_ok == 3,
+        "metrics": not metrics["missing"]})
+
+
+INGEST_KEYS = ("GSKY_INGEST", "GSKY_PREFETCH", "GSKY_INGEST_WINDOW_FRAC",
+               "GSKY_INGEST_WINDOW_PROMOTE")
+INGEST_LEGS = {
+    "baseline": {"GSKY_INGEST": "0", "GSKY_PREFETCH": "0",
+                 "GSKY_INGEST_WINDOW_FRAC": "0",
+                 "GSKY_INGEST_WINDOW_PROMOTE": "0"},
+    "ranged": {"GSKY_INGEST": "1", "GSKY_PREFETCH": "0",
+               "GSKY_INGEST_WINDOW_FRAC": "0.5",
+               "GSKY_INGEST_WINDOW_PROMOTE": "0"},
+    "prefetch": {"GSKY_INGEST": "1", "GSKY_PREFETCH": "1",
+                 "GSKY_INGEST_WINDOW_FRAC": "0",
+                 "GSKY_INGEST_WINDOW_PROMOTE": "0"}}
+INGEST_TIME = "2020-01-09T00:00:00.000Z,2020-01-15T00:00:00.000Z"
+
+
+def ingest_walk(env: SoakEnv):
+    """The ingest walk's boxes (EPSG:3857): on a 16 x 16 grid over the
+    `unit` square, eight pan steps one tile apart along its middle row,
+    then two in-place halvings of the last tile."""
+    grid = 16
+    uh = env.merc.height * env.unit / env.merc.width
+    tw, th = env.unit / grid, uh / grid
+    x_min, y_min = env.merc.xmin, env.merc.ymax - uh
+    j = grid // 2
+    boxes = []
+    for i in range(4, 12):                 # pan: one row, a visit a tile
+        x0, y0 = x_min + i * tw, y_min + j * th
+        boxes.append((x0, y0, x0 + tw, y0 + th))
+    x0, y0, x1, y1 = boxes[-1]
+    for _ in range(2):                     # zoom: halve in place twice
+        cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+        w, h = (x1 - x0) / 2, (y1 - y0) / 2
+        x0, y0 = cx - w / 2, cy - h / 2
+        x1, y1 = cx + w / 2, cy + h / 2
+        boxes.append((x0, y0, x1, y1))
+    return boxes
+
+
+def ingest_url(host: str, bb) -> str:
+    """A temporal-range GetMap of ``bb``: the walk touches every scene
+    of the range, so the whole-file leg pays each one's residency while
+    the ranged leg reads only the chunks it touches."""
+    return (f"http://{host}/ows?service=WMS&request=GetMap"
+            f"&version=1.3.0&layers=landsat&crs=EPSG:3857"
+            f"&bbox={bb[0]},{bb[1]},{bb[2]},{bb[3]}"
+            f"&width=256&height=256&format=image/png&time={INGEST_TIME}")
+
+
+def run_ingest(env: SoakEnv, args):
+    """The pan-and-zoom walk over three legs, each with a fresh server
+    (its own scene cache and page pool, closed before the next leg
+    starts), reset ingest counters, sources, staging pool and planner,
+    so that the byte counts compare decode work, not cache luck."""
+    boxes = ingest_walk(env)
+    # three legs must fit --seconds, and each step leaves the
+    # background warm room to land before the next request
+    pause = min(0.35, max(0.1, args.seconds / (3.0 * len(boxes) * 2.0)))
+    mem0 = card_memory(env.device)
+    legs = {name: _ingest_leg(env, boxes, pause, knobs,
+                              prefetch_on=name == "prefetch",
+                              scrape_ingest=name == "prefetch")
+            for name, knobs in INGEST_LEGS.items()}
+    base, ranged, prefetch = (legs[k] for k in INGEST_LEGS)
+    reduction = (round(1.0 - ranged["bytes_read"]
+                       / max(base["bytes_read"], 1), 3)
+                 if base["bytes_read"] else None)
+    out = {"scenario": "ingest", "device": str(env.device),
+           "walk": len(boxes), "pause_s": pause, **legs,
+           "bytes_reduction": reduction,
+           "tiles_equal_across_legs": all(
+               legs[k]["digests"] == base["digests"] for k in legs)}
+    if mem0 is not None:
+        out["card_memory"] = {"start": mem0,
+                              "end": card_memory(env.device)}
+    return out, verdict(out, {
+        "all_png": all(leg["failed"] == 0 for leg in legs.values()),
+        "no_bare_5xx": all(leg["bare_5xx"] == 0 for leg in legs.values()),
+        "ranged_windows": ranged["ranged_windows"] > 0,
+        "ranged_bytes": ranged["bytes_read"] < base["bytes_read"],
+        "hit_rate": prefetch["planner"]["hit_rate"] >= 0.5,
+        "metrics": not any(leg["metrics"]["missing"]
+                           for leg in legs.values())})
+
+
+def _ingest_leg(env, boxes, pause, knobs, prefetch_on, scrape_ingest):
+    import gc
+    import hashlib
+    from gsky_tpu_torch.ingest import (default_planner,
+                                       reset_default_planner,
+                                       reset_sources, reset_staging_pool)
+    from gsky_tpu_torch.ingest import stats as ingest_stats
+
+    def reset():
+        ingest_stats.reset()
+        reset_sources()
+        reset_staging_pool()
+        reset_default_planner()
+
+    with EnvOverride(**knobs):
+        reset()
+        server, host = env.server(gateway=None)
+        try:
+            if prefetch_on:
+                # a priming lap: the scenes resident before the walk, so
+                # that the background warms race the client's next tile,
+                # not a cold decode of every scene
+                try:
+                    with urllib.request.urlopen(
+                            ingest_url(host, boxes[0]), timeout=120) as r:
+                        r.read()
+                except (OSError, ValueError):
+                    pass             # the walk decides
+                time.sleep(min(1.0, pause * 4))
+            statuses, lats, digests = [], [], []
+            for bb in boxes:
+                t0 = time.time()
+                try:
+                    with urllib.request.urlopen(ingest_url(host, bb),
+                                                timeout=120) as r:
+                        body = r.read()
+                        ok = r.status == 200 and body[:8] == PNG
+                        statuses.append(r.status if ok else -r.status)
+                        digests.append(hashlib.sha256(body).hexdigest()[:16]
+                                       if ok else None)
+                except urllib.error.HTTPError as e:
+                    statuses.append(-e.code)
+                    digests.append(None)
+                except (OSError, ValueError):
+                    statuses.append(0)
+                    digests.append(None)
+                lats.append(time.time() - t0)
+                time.sleep(pause)
+            snap = ingest_stats.snapshot()
+            extra = ("gsky_ranged_reads_total",
+                     "gsky_ranged_read_bytes_total", "gsky_prefetch_total",
+                     "gsky_ingest_overlap_ratio") if scrape_ingest else ()
+            metrics = check_metrics(host, require=(
+                "gsky_requests_total", "gsky_request_seconds") + extra)
+            dbg = fetch_json(host, "/debug")
+            out = {
+                "requests": len(statuses),
+                "failed": sum(1 for s in statuses if s != 200),
+                "bare_5xx": sum(1 for s in statuses if -600 < s <= -500),
+                "p50_ms": round(sorted(lats)[len(lats) // 2] * 1e3, 1),
+                "bytes_read": int(snap["ranged_read_bytes"]
+                                  + snap["whole_read_bytes"]),
+                "ranged_read_bytes": int(snap["ranged_read_bytes"]),
+                "whole_read_bytes": int(snap["whole_read_bytes"]),
+                "ranged_windows": snap["ranged_windows"],
+                "fallbacks": snap["fallbacks"],
+                "window_routed": server.executor.cache.window_routed,
+                "metrics": metrics, "digests": digests,
+                "pool": settled_pool(server),
+                "kernels": kernel_counts(dbg),
+            }
+            if prefetch_on:
+                ps = default_planner().stats()
+                hits, misses = ps["hit"], ps["miss"]
+                ps["hit_rate"] = round(hits / max(hits + misses, 1), 3)
+                out["planner"] = ps
+        finally:
+            env.release(server)
+            del server
+            reset()
+            gc.collect()
+    if env.device.type == "cuda":
+        # what the card still holds once the leg's server is gone
+        out["card_after_close"] = card_memory(env.device)
+    return out
+
+
+# the reference fleet's routing knobs, each set only where unset: 1 s
+# active probes, so that a revived node is re-admitted within a few
+# beats, and a looser load bound, so that the home node keeps its
+# repeat keys at the soak's concurrency
+FLEET_KNOBS = {"GSKY_FLEET_PROBE_S": "1.0", "GSKY_FLEET_BOUND": "2.5"}
+FLEET_SLOW = "node:slow:250ms:1.0"
+FLEET_WARM_S = 420.0          # the first remote tile: every node's first warp
+FLEET_BOOT_S = 600.0          # every node listening
+FLEET_MIN_S = 6.0             # the reference's shortest load phase
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class Nodes:
+    """Worker nodes (``python -m gsky_tpu_torch.worker.server``), each a
+    process of its own on ``device`` (``-device``; a node asked for
+    cuda raises without CUDA, it never falls back), its output in
+    ``log_dir/node-PORT.log``: spawned, killed, revived on the same
+    port, waited for (each boot's first ``worker_info`` kept in
+    ``first_info``), measured.  `close` kills every one."""
+
+    def __init__(self, log_dir: str, device: str):
+        self.log_dir = log_dir
+        self.device = device
+        self.procs: dict = {}
+        self.first_info: dict = {}      # port -> its boot's first answer
+        repo = os.path.dirname(HERE)
+        self.repo = repo
+        self.env = dict(os.environ, PYTHONUNBUFFERED="1",
+                        PYTHONPATH=repo + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+
+    def spawn(self, port: int, extra_env=None) -> None:
+        import subprocess
+        e = dict(self.env)
+        e.update(extra_env or {})
+        with open(self.log_path(port), "ab") as logf:
+            self.procs[port] = subprocess.Popen(
+                [sys.executable, "-m", "gsky_tpu_torch.worker.server",
+                 "-p", str(port), "-host", "127.0.0.1", "-n", "1",
+                 "-oom_threshold", "0", "-device", self.device],
+                env=e, cwd=self.repo, stdout=logf,
+                stderr=subprocess.STDOUT)
+
+    def log_path(self, port: int) -> str:
+        return os.path.join(self.log_dir, f"node-{port}.log")
+
+    def log_tail(self, port: int, nbytes: int = 2000) -> str:
+        """The end of a node's output."""
+        try:
+            with open(self.log_path(port), "rb") as fp:
+                fp.seek(0, os.SEEK_END)
+                fp.seek(max(0, fp.tell() - nbytes))
+                return fp.read().decode(errors="replace")
+        except OSError:
+            return ""
+
+    def info(self, port: int, timeout: float = 30.0) -> dict:
+        """``worker_info``'s ``info_json`` over a fresh channel."""
+        from gsky_tpu_torch.worker import gskyrpc as pb
+        from gsky_tpu_torch.worker.client import dial
+        ch, call = dial(f"127.0.0.1:{port}")
+        try:
+            res = call(pb.Task(operation="worker_info"), timeout=timeout)
+            return json.loads(res.info_json or "{}")
+        finally:
+            ch.close()
+
+    def wait_ready(self, port: int, deadline_s: float) -> bool:
+        """Poll ``worker_info`` until the node answers, False when it
+        dies or ``deadline_s`` passes.  A fresh channel an attempt: one
+        dialled before the node listens parks in gRPC's reconnect
+        backoff and fails every call without dialling again."""
+        t_end = time.time() + deadline_s
+        while time.time() < t_end:
+            if self.procs[port].poll() is not None:
+                return False                # died while booting
+            try:
+                self.first_info[port] = self.info(port, timeout=2.0)
+                return True
+            except Exception:  # not listening yet: any gRPC error
+                time.sleep(0.5)
+        return False
+
+    def kill(self, port: int) -> None:
+        """SIGKILL, and reap."""
+        proc = self.procs[port]
+        proc.kill()
+        proc.wait(30)
+
+    def rss_mb(self, port: int):
+        """The node's ``VmRSS`` in MiB (None once it has exited)."""
+        try:
+            with open(f"/proc/{self.procs[port].pid}/status") as fp:
+                for line in fp:
+                    if line.startswith("VmRSS:"):
+                        return round(int(line.split()[1]) / 1024.0, 1)
+        except OSError:
+            pass
+        return None
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            try:
+                proc.kill()
+                proc.wait(30)
+            except Exception:  # already reaped
+                pass
+
+
+def run_fleet(env: SoakEnv, args):
+    """Three worker nodes behind the consistent-hash router of a
+    ``fleet`` namespace: a locality baseline, SIGKILL of one node under
+    load, its revival on the same port and re-admission, locality
+    recovered; then hedged dispatch against a slow node.  The remote
+    tiles are mosaicked on this process (B4 on a card).  Every node is
+    killed and the namespace removed at the end."""
+    knobs = {k: v for k, v in FLEET_KNOBS.items() if k not in os.environ}
+    nodes = Nodes(env.root, str(env.device))
+    try:
+        with EnvOverride(**knobs):
+            return _fleet(env, args, nodes)
+    finally:
+        nodes.close()
+        env.fleet_namespace(None)
+
+
+def _fleet(env, args, nodes):
+    from gsky_tpu_torch.fleet import HedgePolicy
+    from gsky_tpu_torch.worker import gskyrpc as pb
+    from gsky_tpu_torch.worker.client import WorkerClient
+
+    ports = [free_port() for _ in range(3)]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    for p in ports:
+        nodes.spawn(p)
+    boot_end = time.time() + FLEET_BOOT_S
+    for p in ports:
+        if not nodes.wait_ready(p, max(boot_end - time.time(), 1.0)):
+            return {"scenario": "fleet", "device": str(env.device),
+                    "error": f"node :{p} never came up",
+                    "node_log": nodes.log_tail(p)}, False
+    # each boot's decode pool at the node's first answer
+    boot_pools = {f"{a} start": nodes.first_info[p].get("pool")
+                  for a, p in zip(addrs, ports)}
+
+    env.fleet_namespace(addrs)
+    mem0 = card_memory(env.device)
+    # no gateway: a response-cache hit would skip the worker RPCs and
+    # the locality ledger would measure nothing
+    server, host = env.server(gateway=None)
+
+    tiles = env.fleet_tiles()
+
+    def url_for(fx: float, fy: float) -> str:
+        return env.fleet_url(host, (fx, fy))
+
+    hard: list = []
+
+    def classify_fleet(url: str) -> str:
+        # the reference fleet's classes: a bare 500 or a body that is
+        # not OGC XML is hard
+        return classify(url, hard, need_retry_after=False)
+
+    def router():
+        # the server's own router of the namespace (what /debug's
+        # fleet block reports under its name)
+        return server._pipeline(env.watcher.get("fleet")).remote.fleet
+
+    def loc():
+        st = router().stats()["locality"]
+        return st["hits"], st["misses"]
+
+    def hedges():
+        hs = router().hedge.stats()
+        return hs["primaries"], hs["hedges"], hs["hedge_wins"]
+
+    def delta(a, b):
+        return [y - x for x, y in zip(a, b)]
+
+    def rate(h0, m0, h1, m1) -> float:
+        return (h1 - h0) / max((h1 - h0) + (m1 - m0), 1)
+
+    def drive(seconds: float, counts: dict):
+        counter = itertools.count()
+        lock = threading.Lock()
+
+        def one(_):
+            c = classify_fleet(url_for(*tiles[next(counter) % len(tiles)]))
+            with lock:
+                counts[c] = counts.get(c, 0) + 1
+
+        conc = min(args.conc, 4)
+        t_end = time.time() + seconds
+        with cf.ThreadPoolExecutor(conc) as ex:
+            while time.time() < t_end:
+                list(ex.map(one, range(conc * 2)))
+
+    def lap(retries: int = 3) -> int:
+        bad = 0
+        for fx, fy in tiles:
+            for _ in range(retries):
+                if classify_fleet(url_for(fx, fy)) in ("ok", "degraded"):
+                    break
+            else:
+                bad += 1
+        return bad
+
+    # warm: the first warp on each node pays its library load and first
+    # launches; retry until the fleet answers
+    warm_end = time.time() + FLEET_WARM_S
+    while time.time() < warm_end:
+        if classify_fleet(url_for(*tiles[0])) == "ok":
+            break
+        time.sleep(2.0)
+    warm_bad = lap()
+
+    # A: the locality baseline under a healthy fleet
+    rss = {a: {"baseline_start_mb": nodes.rss_mb(p)}
+           for a, p in zip(addrs, ports)}
+    counts: dict = {}
+    h0, m0 = loc()
+    q0 = hedges()
+    drive(max(args.seconds * 0.35, FLEET_MIN_S), counts)
+    h1, m1 = loc()
+    q1 = hedges()
+    baseline = rate(h0, m0, h1, m1)
+
+    # B: SIGKILL one node under load; the router eats the failure
+    kill_port = ports[1]
+    killed = f"127.0.0.1:{kill_port}"
+    nodes.kill(kill_port)
+    kill_counts: dict = {}
+    drive(max(args.seconds * 0.3, FLEET_MIN_S), kill_counts)
+
+    # revive on the same port (the router's channels reconnect), then
+    # wait for the health detector to re-admit it
+    t0 = time.time()
+    nodes.spawn(kill_port)
+    revived = nodes.wait_ready(kill_port, 300)
+    revive = {"ready_s": round(time.time() - t0, 1)}
+    state = None
+    if revived:
+        boot_pools[f"{killed} revived"] = \
+            nodes.first_info[kill_port].get("pool")
+        t_end = time.time() + 120
+        while time.time() < t_end:
+            state = router().stats().get("health", {}).get(
+                killed, {}).get("state")
+            if state == "healthy":
+                break
+            time.sleep(1.0)
+    revive["healthy_s"] = round(time.time() - t0, 1)
+
+    # one uncounted re-home lap flips each key's last node back to its
+    # ring home; the measured phase then shows whether locality
+    # recovered, not the one-off re-home misses
+    t0 = time.time()
+    lap(retries=2)
+    revive["rehome_lap_s"] = round(time.time() - t0, 1)
+    h2, m2 = loc()
+    q2 = hedges()
+    drive(max(args.seconds * 0.35, FLEET_MIN_S), counts)
+    h3, m3 = loc()
+    q3 = hedges()
+    recovery = rate(h2, m2, h3, m3)
+    fb = router().stats()
+
+    # the worker-RPC family in a strict /metrics, and a trace stitched
+    # across the process boundary (worker spans under this trace id)
+    metrics = check_metrics(host, require=(
+        "gsky_requests_total", "gsky_request_seconds",
+        "gsky_stage_seconds", "gsky_worker_rpc_seconds"))
+    listing = fetch_json(host, "/debug/trace")
+    stitched = [t for t in listing.get("traces", [])
+                if "worker" in (t.get("processes") or [])]
+    trace_rep = slowest_trace_report(host)
+    dbg = fetch_json(host, "/debug")
+    for a, p in zip(addrs, ports):
+        rss[a]["end_mb"] = nodes.rss_mb(p)
+        try:
+            rss[a]["kernels"] = nodes.info(p).get("kernels", {})
+        except Exception as exc:  # a node that stopped answering
+            rss[a]["kernels"] = f"{exc!r:.120}"
+    pool = settled_pool(server)
+    mem1 = card_memory(env.device)
+
+    # the hedge coda: one fast node kept, one slow one added
+    for p in ports[1:]:
+        nodes.kill(p)
+    slow_port = free_port()
+    nodes.spawn(slow_port, {"GSKY_FAULTS": FLEET_SLOW})
+    hedge = {"ready": nodes.wait_ready(slow_port, 300)}
+    if hedge["ready"]:
+        boot_pools[f"127.0.0.1:{slow_port} slow"] = \
+            nodes.first_info[slow_port].get("pool")
+        pair = [addrs[0], f"127.0.0.1:{slow_port}"]
+        keys = [f"soak-hedge-{k}" for k in range(64)]
+
+        def p99_ms(client, n=72) -> float:
+            lats = []
+            for k in range(n):
+                t0 = time.time()
+                client.process(pb.Task(operation="worker_info"),
+                               route_key=keys[k % len(keys)])
+                lats.append(time.time() - t0)
+            return round(float(np.percentile(lats, 99)) * 1e3, 1)
+
+        uh = WorkerClient(pair)
+        uh.fleet.hedge_enabled = False
+        try:
+            hedge["unhedged_p99_ms"] = p99_ms(uh)
+        finally:
+            uh.close()
+        hc = WorkerClient(pair)
+        # a fixed 30 ms hedge delay and a budget that cannot run dry:
+        # the soak shows the mechanism, the unit tests its arithmetic
+        hc.fleet.hedge = HedgePolicy(min_delay_s=0.03, initial_delay_s=0.03,
+                                     budget=1.0, min_samples=10 ** 6)
+        try:
+            hedge["hedged_p99_ms"] = p99_ms(hc)
+            hedge.update({k: hc.fleet.hedge.stats()[k] for k in
+                          ("primaries", "hedges", "hedge_wins")})
+        finally:
+            hc.close()
+
+    out = {
+        "scenario": "fleet", "device": str(env.device), "nodes": addrs,
+        "killed": killed, "warm_failures": warm_bad,
+        "responses": counts, "kill_phase": kill_counts,
+        "hard_answers": hard,
+        "locality": {"baseline": round(baseline, 3),
+                     "recovery": round(recovery, 3),
+                     # (hits, misses) and the tile router's (primaries,
+                     # hedges, hedge wins) in each measured phase
+                     "baseline_hits_misses": [h1 - h0, m1 - m0],
+                     "recovery_hits_misses": [h3 - h2, m3 - m2],
+                     "baseline_hedging": delta(q0, q1),
+                     "recovery_hedging": delta(q2, q3)},
+        "rerouted": fb.get("rerouted", 0), "routed": fb.get("routed", 0),
+        "revived_state": state, "revive": revive, "hedge": hedge,
+        "metrics": metrics,
+        "stitched_traces": len(stitched), "slowest_trace": trace_rep,
+        "node_rss": rss, "boot_pools": boot_pools, "pool": pool,
+        "kernels": kernel_counts(dbg),
+    }
+    if mem0 is not None:
+        out["card_memory"] = {"start": mem0, "end": mem1}
+    all_counts: dict = {}
+    for d in (counts, kill_counts):
+        for k, v in d.items():
+            all_counts[k] = all_counts.get(k, 0) + v
+    return out, verdict(out, {
+        "warm": warm_bad == 0,
+        "no_hard_5xx": all_counts.get("hard_5xx", 0) == 0,
+        "no_transport": all_counts.get("transport", 0) == 0,
+        "some_ok": all_counts.get("ok", 0) > 0,
+        "ok_during_kill": kill_counts.get("ok", 0) > 0,
+        "rerouted": fb.get("rerouted", 0) > 0,
+        "revived_healthy": bool(revived) and state == "healthy",
+        # keyed routing must beat the random-assignment null (1/3 over
+        # 3 nodes); bounded load and winning hedges keep it under 1.0
+        "baseline_locality": baseline > 1.0 / 3.0,
+        "recovered_locality": recovery >= 0.9 * baseline,
+        "metrics": not metrics["missing"],
+        "stitched": len(stitched) > 0,
+        "hedge_ready": hedge.get("ready") is True,
+        "hedge_wins": hedge.get("hedge_wins", 0) > 0,
+        "hedge_budget": (hedge.get("hedges", 0)
+                         <= hedge.get("primaries", 0) + 10),
+        "hedge_p99": (hedge.get("hedged_p99_ms", 1e9)
+                      < hedge.get("unhedged_p99_ms", 0))})
+
+
 RUNS = {"churn": run_churn, "hot": run_hot, "wcs": run_wcs,
         "chaos": run_chaos, "burst": run_burst, "wave": run_wave,
-        "dap4": run_dap4}
+        "dap4": run_dap4, "overload": run_overload, "ingest": run_ingest,
+        "fleet": run_fleet}
 
 
 def run(args) -> int:
