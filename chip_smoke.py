@@ -89,7 +89,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    bodies).  12b, over phase 10's archive: the masked LC08_B4 and NDVI
    layers, 8 tiles each through B4.  Every kernel count is set to 0
    before each route and must equal its route's launches after it;
-   two tiles per route from a second `OWSServer(device="cpu")` decode
+   a tile per route from a second `OWSServer(device="cpu")` decodes
    to the same RGBA (nearest) or within 0.1% of bytes; tiles/s, p50,
    p90 and the share of a request's wall time outside the pipeline
    (parse, encode, socket) are logged per route.
@@ -125,7 +125,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    counts (every tile paged or declined: a declined tile one B2
    launch); 15b one 1024 x 1024 tile per method at native resolution
    (declined: B2) and at 0.25x (paged: B1), each launch held against
-   its plain version on the same inputs; 15c a 1024 x 1024 export in
+   its plain version on the same inputs; 15c a 512 x 512 export in
    256 x 256 tiles per method against a CPU server's (nodata at the
    same pixels, nearest bit-exact, <= 2 ulp otherwise); 15d a 5120 x
    5120 GeoTIFF streamed through `GeoTIFFWriter.write_region` (equal to
@@ -384,7 +384,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    functions: 12 dates of one 7681 x 7821 int16 scene each, written
    uncompressed and crawled by the tool under ``build/smoke_soak/``
    (padded f32 on the card, more bytes than the scene cache's 2 GiB, so
-   that it evicts), its churn for 60 s from 8 threads with the default
+   that it evicts), its churn for 30 s from 8 threads with the default
    serving path (waves, the staged GetMap path), native tiles (B1) and
    tiles of the reference's ground size, twice the native (B2 where
    their windows decline), then one lap
@@ -398,6 +398,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    Logs the tool's JSON lines, tiles/s, the memory samples, the
    reserved and allocated peaks and the evictions.  ``python3
    chip_smoke.py --phase 27`` runs phase 1 and phase 27 alone.
+28. the soak's overload, ingest and fleet over `SoakArchive`'s four
+   Landsat-size dates, each held to the tool's criteria, no page
+   pinned, no plain-version call, the first B1, B2 and B4 launch held
+   against their plain versions (``--phase 28`` alone).
+29. the soak's occupancy, algebra and animation over the same archive
+   (`SOAK29_S`), each held to the tool's criteria but those read on
+   the host's clock (the occupancy's gap comparison, reported: C.26),
+   no page pinned, no plain-version call, the first B1 launch of each method and n_ns
+   (expression lanes at n_ns 2 included) and the first B3 launch of
+   each form held against their plain versions (``--phase 29`` alone).
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -473,6 +483,7 @@ L2_FLUSH_BYTES = 64 << 20     # written between launches for a cold L2
 # native ground resolution; their windows need more than the default 8
 # pages, so each declines to B2
 ZOOMS = (2.0, 4.0)
+CPU_TILES = 1                # 5: tiles a method and zoom held against the CPU
 # the gate tile (16 < pages <= 32) is the first such among tiles at these
 GATE_ZOOMS = (3.0, 3.5)
 # B2 is timed at (a) phase 3's first native tile, (b) the first 2x tile
@@ -2219,7 +2230,7 @@ def time_b4(main_args, card):
 # points (carried across the zone line) and its tiles at this one
 CRS_ORIGINS = ((620000.0, 6160000.0), (623000.0, 6157000.0))
 CRS_TILES_AT = (640000.0, 6140000.0)
-HTTP_CPU_TILES = 2           # tiles per route held against the CPU server
+HTTP_CPU_TILES = 1           # tiles per route held against the CPU server
 
 
 def write_crs_archive(root, data_paths, shape=(SCENE_H, SCENE_W)):
@@ -2413,7 +2424,7 @@ def phase_ows_fused(data_root, data_paths, card):
     resolution, one B2 each; a palette layer; a tile past the zoom
     limit (the placeholder, no launch); a layer over two of phase 3's
     granules and two UTM-56S ones, 8 tiles through `_render_fused`, two
-    B2 launches each.  Then two tiles per route from the CPU server."""
+    B2 launches each.  Then a tile per route from the CPU server."""
     import concurrent.futures as cf
     crs_root = data_root + "_crs"
     shutil.rmtree(crs_root, ignore_errors=True)
@@ -3463,7 +3474,8 @@ WCS_EXPORT = 2048
 WCS_TILE = 1024              # the layers' wcs_max_tile_width / height
 WCS_STREAM_SIZE = 5120       # 15d: past WCS_STREAM_PIXELS: streamed
 WCS_DAP = 2048               # 15d: the DAP4 and NetCDF coverages
-WCS_MASKED = 1024            # 15d: the masked coverage, tiles of half
+WCS_MASKED = 512             # 15d: the masked coverage, tiles of half
+WCS_CPU = 512                # 15c: each method's export against the CPU's
 WCS_NODATA = -9999.0
 WCS_T = (1578614400.0, 1578960000.0)       # 2020-01-10 .. 01-14
 WPS_DRILLS = 10
@@ -3576,13 +3588,16 @@ class CheckWide:
     ``times`` maps (kernel, method) to (device ms, plain ms, bound ms,
     bound bytes).  The plain versions are the ones installed before it
     (`PlainCalls` counts the main path's calls of them, not these), and
-    the timing launches leave the launch counts as they were."""
+    the timing launches leave the launch counts as they were.  With
+    ``by_ns`` a B1 launch is held once for each (method, n_ns): the
+    expression lanes' n_ns 2 beside a tile's n_ns 1."""
 
-    def __init__(self, hw, timed=(), what="15b"):
+    def __init__(self, hw, timed=(), what="15b", by_ns=False):
         from gsky_tpu_torch.ops import paged, warp_render
         self.hw = tuple(hw)
         self.timed = tuple(timed)
         self.what = what
+        self.by_ns = by_ns
         self.errs = {}
         self.times = {}
         self.mods = (paged, warp_render)
@@ -3597,12 +3612,12 @@ class CheckWide:
             blk=None):
         ck, bk = self.b1(pool, tables, params, sx, sy, method, n_ns, sb_of,
                          blk)
-        if tuple(sx.shape[-2:]) == self.hw and ("B1", method) not in \
-                self.errs:
+        key = ("B1", f"{method} n_ns {n_ns}" if self.by_ns else method)
+        if tuple(sx.shape[-2:]) == self.hw and key not in self.errs:
             cp, bp = self.p1(pool, tables, params, sx, sy, method, n_ns,
                              sb_of)
-            self.errs[("B1", method)] = check_pair(
-                method, ck, bk, cp, bp, f"{self.what} B1 {method} {self.hw}")
+            self.errs[key] = check_pair(
+                method, ck, bk, cp, bp, f"{self.what} B1 {key[1]} {self.hw}")
             if method in self.timed and sx.numel() == sx.shape[-1] * \
                     sx.shape[-2]:
                 from gsky_tpu_torch.ops import paged
@@ -3801,17 +3816,18 @@ def phase_wcs(data_root, store, card):
                 raise AssertionError(f"15b: timed {sorted(chk.times)}")
             errs = chk.errs
 
-            # -- 15c: card vs CPU, 1024 x 1024 in 256 x 256 tiles ---------
+            # -- 15c: card vs CPU, WCS_CPU^2 in 256 x 256 tiles -----------
             t0 = time.perf_counter()
             for method in METHODS:
-                url = wcs_url(pair.base, "landsat_256", wcs_box(1024), 1024,
-                              method)
+                url = wcs_url(pair.base, "landsat_256", wcs_box(WCS_CPU),
+                              WCS_CPU, method)
                 (status, _, body, _), got = counted(
                     f"15c {method}", lambda: http_fetch(url), 1)
                 cpu = tiff_values(pair.cpu_body(url))
                 d = same_coverage(method, tiff_values(body), cpu,
                                   f"15c {method}")
-                log(f"phase 15c {method}: 16 tiles of 256 x 256, launches "
+                log(f"phase 15c {method}: {(WCS_CPU // 256) ** 2} tiles of "
+                    f"256 x 256, launches "
                     f"{got}; CPU coverage within bounds (max |difference| "
                     f"{d:.3g})")
             log(f"phase 15c: {time.perf_counter() - t0:.1f} s")
@@ -3931,8 +3947,8 @@ def phase_wcs(data_root, store, card):
 
 
 def phase_wcs_masked(root, store, card):
-    """Phase 15d's masked export over phase 10's archive: 1024 x 1024 in
-    tiles of 512 through the engine's masked route (B4).  Returns the
+    """Phase 15d's masked export over phase 10's archive: WCS_MASKED^2 in
+    4 tiles of half through the engine's masked route (B4).  Returns the
     B4 launches."""
     mask = {"id": "pixel_qa", "bit_tests": CLOUD_SHADOW}
     layers = [{"name": "masked_b4", "data_source": root,
@@ -8597,7 +8613,10 @@ def phase_fabric(sat_root, store, fleet, fab_ready, card):
         wait_until(lambda: fleet.notice_at.get(pid),
                    "the fault node's notice from the burst", 5.0)
         if fleet.procs[c].poll() is None:
-            last_c["info"] = fleet.info(c)
+            try:
+                last_c["info"] = fleet.info(c)
+            except Exception:  # draining to its exit: the last answer
+                pass           # stands, as the watcher keeps it
         gone.set()
         watcher.join(35)
         info_c = last_c.get("info")
@@ -9791,7 +9810,7 @@ def phase_26_alone(card):
 
 SOAK_SCENES = 12             # 27: dates, one Landsat 8 scene each
 SOAK_SHAPE = (SCENE_H, SCENE_W)
-SOAK_CHURN_S = 40.0          # 27: its first quarter fills the cache
+SOAK_CHURN_S = 30.0          # 27: its first quarter fills the cache
 SOAK_CONC = 8                # 27
 
 
@@ -9936,141 +9955,150 @@ def phase_27_alone(card):
 # -- phase 28: the soak's overload, ingest and fleet on the card -------
 
 SOAK28_SCENES = 4            # 28: the reference's four products, a date each
-SOAK28_S = 20.0              # 28: each scenario's --seconds
+SOAK28_S = 10.0              # 28: each scenario's --seconds
 SOAK28_CONC = 64             # 28: past the WMS limit of 4, so that it sheds
 SOAK28_RUNS = ("overload", "ingest", "fleet")
 
 
-def phase_soak_ops(card):
-    """28: `tools/soak_torch.py`'s overload, ingest and fleet on the card
-    over four Landsat-size dates (the reference's four products), each
-    through the tool's own scenario function with the default serving
-    path, and each held to the tool's criteria; no page pinned at the
-    end of any served process, no plain-version call; the phase's first
-    B1 and B2 launch of each method (`CheckWide`) and its first B4
-    launch (the fleet's remote tiles, mosaicked in this process) held
-    against their plain versions.  The worker nodes warp in plain torch
-    (the reference's gather), so no kernel of theirs is counted; their
-    launch counts (`worker_info`) are logged.  Returns (launches by
-    kernel, max |diff| by kernel)."""
-    import torch
-    from gsky_tpu_torch.ops import first_valid
-    from gsky_tpu_torch.pipeline.scene_cache import _bucket
-    st = soak_tool()
-    kernels = _kernel_counts()
-    root = os.path.join(ROOT, "build", "smoke_soak28")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    env = None
-    outs, launches, secs = {}, {}, {}
-    try:
+class SoakArchive:
+    """Phases 28 and 29's archive: SOAK28_SCENES Landsat-size dates (the
+    reference's four products, a date each) under
+    ``build/smoke_soak28``, crawled, with the tool's config; written
+    once for both phases, deleted on exit."""
+
+    def __enter__(self):
+        from gsky_tpu_torch.pipeline.scene_cache import _bucket
+        st = soak_tool()
+        self.root = os.path.join(ROOT, "build", "smoke_soak28")
+        shutil.rmtree(self.root, ignore_errors=True)
+        os.makedirs(self.root)
         t0 = time.perf_counter()
-        env = st.SoakEnv(root, SOAK28_SCENES, SOAK_SHAPE, "cuda")
-        disk = sum(os.path.getsize(p) for p in env.paths)
+        self.env = st.SoakEnv(self.root, SOAK28_SCENES, SOAK_SHAPE, "cuda")
+        disk = sum(os.path.getsize(p) for p in self.env.paths)
         scene_b = _bucket(SOAK_SHAPE[0]) * _bucket(SOAK_SHAPE[1]) * 4
-        log(f"phase 28: {SOAK28_SCENES} scenes of {SOAK_SHAPE[0]} x "
+        log(f"phases 28-29: {SOAK28_SCENES} scenes of {SOAK_SHAPE[0]} x "
             f"{SOAK_SHAPE[1]} int16, one a product and date "
             f"({disk} B uncompressed, tiled 256) written + crawled in "
             f"{time.perf_counter() - t0:.1f} s; resident as padded f32 "
             f"{scene_b} B a scene, {SOAK28_SCENES * scene_b} B for all")
-        args = st.parse_args(["--seconds", str(SOAK28_S),
-                              "--conc", str(SOAK28_CONC)])
-        # phase 1 built the kernels: no prewarm in the soak's servers, so
-        # that the first launches held are the scenarios' own; the worker
-        # nodes prewarm before they listen, as deployed nodes do (their
-        # own kernels: none of their launches is held here)
-        env.prewarm = False
-        with WavesOn():
-            torch.cuda.synchronize()
-            chk = CheckWide((256, 256), what="28")
-            b4 = CaptureFirst(first_valid, "mosaic_first_valid_kernel")
-            plain = PlainCalls()
-            try:
-                for name in SOAK28_RUNS:
-                    reset_counts(kernels)
-                    t0 = time.perf_counter()
-                    try:
-                        outs[name] = st.RUNS[name](env, args)
-                    finally:
-                        env.close()
-                    secs[name] = time.perf_counter() - t0
-                    launches[name] = read_counts(kernels)
-            finally:
-                plain.remove()
-                b4.remove()
-                chk.remove()
-        for name in SOAK28_RUNS:
-            out, ok = outs[name]
-            log(f"phase 28 {name}: {json.dumps(out)}")
-            log(f"phase 28 {name}: {'passed' if ok else 'FAILED'} in "
-                f"{secs[name]:.1f} s, launches {launches[name]} ({card})")
-        failed = {n: outs[n][0].get("unmet") for n in SOAK28_RUNS
-                  if not outs[n][1]}
-        if failed:
-            raise AssertionError(f"28: the soak failed, unmet: {failed}")
-        ov, ing, fl = (outs[n][0] for n in SOAK28_RUNS)
-        holds = [h["hold_s"] for h in ov["cancellation"]["holds"]
-                 if h["answer"] == "cancelled"]
-        log(f"phase 28 overload: storm at {ov['phases']['storm_conc']} "
-            f"{ov['phases']['storm']}, sheds {ov['sheds']}, adjustments "
-            f"{ov['adjustments']} ({ov['adjustments_since_reconfigure']} "
-            f"since the knobs), cancellations {ov['cancellation']['fired']}"
-            f" (holds cancelled {holds}; stages "
-            f"{ov['cancel']['stages']}), drained "
-            f"{ov['cancellation']['drained']}, clamp {ov['clamp']}, "
-            f"brownout labels {ov['brownout_labelled']}, recovery "
-            f"{ov['phases']['recovery_ok']} of 3")
-        legs = ("baseline", "ranged", "prefetch")
-        log("phase 28 ingest: " + "; ".join(
-            f"{leg} {ing[leg]['bytes_read']} B read "
-            f"({ing[leg]['ranged_windows']} ranged windows), p50 "
-            f"{ing[leg]['p50_ms']} ms" for leg in legs)
-            + f"; planner hit rate {ing['prefetch']['planner']['hit_rate']}"
-            f" ({ing['prefetch']['planner']['hit']} hit, "
-            f"{ing['prefetch']['planner']['miss']} miss, "
-            f"{ing['prefetch']['planner']['declined_budget']} declined for "
-            f"budget); card after each leg's close "
-            f"{[ing[leg].get('card_after_close') for leg in legs]}")
-        log(f"phase 28 fleet: locality {fl['locality']}, rerouted "
-            f"{fl['rerouted']} of {fl['routed']}, kill phase "
-            f"{fl['kill_phase']}, revived {fl['revived_state']}, hedge "
-            f"p99 {fl['hedge'].get('hedged_p99_ms')} ms hedged / "
-            f"{fl['hedge'].get('unhedged_p99_ms')} unhedged "
-            f"({fl['hedge'].get('hedge_wins')} wins of "
-            f"{fl['hedge'].get('hedges')} hedges), stitched traces "
-            f"{fl['stitched_traces']}; nodes' VmRSS MB and launches "
-            f"{fl['node_rss']}")
-        pools = {"overload": ov["pool"], "fleet": fl["pool"],
-                 **{f"ingest/{leg}": ing[leg]["pool"] for leg in legs}}
-        pinned = {k: p["pinned"] for k, p in pools.items() if p["pinned"]}
-        if pinned:
-            raise AssertionError(f"28: pages pinned at the end: {pinned}")
-        if plain.calls:
-            raise AssertionError(f"28: {plain.calls} plain-version calls "
-                                 f"on the card")
-        errs = {}
-        for k in ("B1", "B2"):
-            held = [v for (kk, _), v in chk.errs.items() if kk == k]
-            if not held:
-                raise AssertionError(f"28: no {k} launch held against its "
-                                     f"plain version ({launches})")
-            errs[k] = max(held)
-        if b4.args is None:
-            raise AssertionError(f"28: no B4 launch ({launches})")
-        saved = first_valid.first_valid_kernel.launches
-        b4_same(first_valid.mosaic_first_valid_kernel(*b4.args[0]),
-                first_valid.mosaic_first_valid_plain(*b4.args[0]),
-                "28 B4 vs plain")
-        first_valid.first_valid_kernel.launches = saved
-        errs["B4"] = 0.0
-        log(f"phase 28: the first B1 and B2 launch of each method against "
-            f"their plain versions on the same inputs, max |diff| "
-            f"{sorted(chk.errs.items())}; the first B4 launch "
-            f"({tuple(b4.args[0][0].shape)}) bit-exact")
-    finally:
-        if env is not None:
-            env.close()
-        shutil.rmtree(root, ignore_errors=True)
+        return self.env
+
+    def __exit__(self, *exc):
+        self.env.close()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def phase_soak_ops(card, env):
+    """28: `tools/soak_torch.py`'s overload, ingest and fleet on the card
+    over `SoakArchive`'s four Landsat-size dates, each through the
+    tool's own scenario function with the default serving path, and
+    each held to the tool's criteria; no page pinned at the end of any
+    served process, no plain-version call; the phase's first B1 and B2
+    launch of each method (`CheckWide`) and its first B4 launch (the
+    fleet's remote tiles, mosaicked in this process) held against their
+    plain versions.  The worker nodes warp in plain torch (the
+    reference's gather), so no kernel of theirs is counted; their
+    launch counts (`worker_info`) are logged.  Returns (launches by
+    kernel, max |diff| by kernel)."""
+    import torch
+    from gsky_tpu_torch.ops import first_valid
+    st = soak_tool()
+    kernels = _kernel_counts()
+    outs, launches, secs = {}, {}, {}
+    args = st.parse_args(["--seconds", str(SOAK28_S),
+                          "--conc", str(SOAK28_CONC)])
+    # phase 1 built the kernels: no prewarm in the soak's servers, so
+    # that the first launches held are the scenarios' own; the worker
+    # nodes prewarm before they listen, as deployed nodes do (their
+    # own kernels: none of their launches is held here)
+    env.prewarm = False
+    with WavesOn():
+        torch.cuda.synchronize()
+        chk = CheckWide((256, 256), what="28")
+        b4 = CaptureFirst(first_valid, "mosaic_first_valid_kernel")
+        plain = PlainCalls()
+        try:
+            for name in SOAK28_RUNS:
+                reset_counts(kernels)
+                t0 = time.perf_counter()
+                try:
+                    outs[name] = st.RUNS[name](env, args)
+                finally:
+                    env.close()
+                secs[name] = time.perf_counter() - t0
+                launches[name] = read_counts(kernels)
+        finally:
+            plain.remove()
+            b4.remove()
+            chk.remove()
+    for name in SOAK28_RUNS:
+        out, ok = outs[name]
+        log(f"phase 28 {name}: {json.dumps(out)}")
+        log(f"phase 28 {name}: {'passed' if ok else 'FAILED'} in "
+            f"{secs[name]:.1f} s, launches {launches[name]} ({card})")
+    failed = {n: outs[n][0].get("unmet") for n in SOAK28_RUNS
+              if not outs[n][1]}
+    if failed:
+        raise AssertionError(f"28: the soak failed, unmet: {failed}")
+    ov, ing, fl = (outs[n][0] for n in SOAK28_RUNS)
+    holds = [h["hold_s"] for h in ov["cancellation"]["holds"]
+             if h["answer"] == "cancelled"]
+    log(f"phase 28 overload: storm at {ov['phases']['storm_conc']} "
+        f"{ov['phases']['storm']}, sheds {ov['sheds']}, adjustments "
+        f"{ov['adjustments']} ({ov['adjustments_since_reconfigure']} "
+        f"since the knobs), cancellations {ov['cancellation']['fired']}"
+        f" (holds cancelled {holds}; stages "
+        f"{ov['cancel']['stages']}), drained "
+        f"{ov['cancellation']['drained']}, clamp {ov['clamp']}, "
+        f"brownout labels {ov['brownout_labelled']}, recovery "
+        f"{ov['phases']['recovery_ok']} of 3")
+    legs = ("baseline", "ranged", "prefetch")
+    log("phase 28 ingest: " + "; ".join(
+        f"{leg} {ing[leg]['bytes_read']} B read "
+        f"({ing[leg]['ranged_windows']} ranged windows), p50 "
+        f"{ing[leg]['p50_ms']} ms" for leg in legs)
+        + f"; planner hit rate {ing['prefetch']['planner']['hit_rate']}"
+        f" ({ing['prefetch']['planner']['hit']} hit, "
+        f"{ing['prefetch']['planner']['miss']} miss, "
+        f"{ing['prefetch']['planner']['declined_budget']} declined for "
+        f"budget); card after each leg's close "
+        f"{[ing[leg].get('card_after_close') for leg in legs]}")
+    log(f"phase 28 fleet: locality {fl['locality']}, rerouted "
+        f"{fl['rerouted']} of {fl['routed']}, kill phase "
+        f"{fl['kill_phase']}, revived {fl['revived_state']}, hedge "
+        f"p99 {fl['hedge'].get('hedged_p99_ms')} ms hedged / "
+        f"{fl['hedge'].get('unhedged_p99_ms')} unhedged "
+        f"({fl['hedge'].get('hedge_wins')} wins of "
+        f"{fl['hedge'].get('hedges')} hedges), stitched traces "
+        f"{fl['stitched_traces']}; nodes' VmRSS MB and launches "
+        f"{fl['node_rss']}")
+    pools = {"overload": ov["pool"], "fleet": fl["pool"],
+             **{f"ingest/{leg}": ing[leg]["pool"] for leg in legs}}
+    pinned = {k: p["pinned"] for k, p in pools.items() if p["pinned"]}
+    if pinned:
+        raise AssertionError(f"28: pages pinned at the end: {pinned}")
+    if plain.calls:
+        raise AssertionError(f"28: {plain.calls} plain-version calls "
+                             f"on the card")
+    errs = {}
+    for k in ("B1", "B2"):
+        held = [v for (kk, _), v in chk.errs.items() if kk == k]
+        if not held:
+            raise AssertionError(f"28: no {k} launch held against its "
+                                 f"plain version ({launches})")
+        errs[k] = max(held)
+    if b4.args is None:
+        raise AssertionError(f"28: no B4 launch ({launches})")
+    saved = first_valid.first_valid_kernel.launches
+    b4_same(first_valid.mosaic_first_valid_kernel(*b4.args[0]),
+            first_valid.mosaic_first_valid_plain(*b4.args[0]),
+            "28 B4 vs plain")
+    first_valid.first_valid_kernel.launches = saved
+    errs["B4"] = 0.0
+    log(f"phase 28: the first B1 and B2 launch of each method against "
+        f"their plain versions on the same inputs, max |diff| "
+        f"{sorted(chk.errs.items())}; the first B4 launch "
+        f"({tuple(b4.args[0][0].shape)}) bit-exact")
     total = {k: sum(launches[n][k] for n in SOAK28_RUNS) for k in kernels}
     if not total["B4"] or not launches["fleet"]["B4"]:
         raise AssertionError(f"28: the fleet's remote tiles launched no "
@@ -10082,8 +10110,181 @@ def phase_28_alone(card):
     """``--phase 28``: phase 28 alone (after phase 1); no result line."""
     os.environ["GSKY_PREFETCH"] = "0"
     t0 = time.perf_counter()
-    launches, errs = phase_soak_ops(card)
+    with SoakArchive() as env:
+        launches, errs = phase_soak_ops(card, env)
     log(f"phase 28: launches {launches}, max |diff| {errs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return 0
+
+
+# -- phase 29: the soak's occupancy, algebra and animation on the card --
+
+# 29: each scenario's --seconds; the occupancy's legs are half of it,
+# the reference's shortest (8 s)
+SOAK29_S = {"occupancy": 16.0, "algebra": 5.0, "animation": 5.0}
+SOAK29_RUNS = tuple(SOAK29_S)
+
+
+def phase_soak_waves(card, env):
+    """29: `tools/soak_torch.py`'s occupancy, algebra and animation on
+    the card over `SoakArchive`'s four Landsat-size dates, each through
+    the tool's own scenario function on the default serving path (the
+    scenarios set their wave knobs), each held to the tool's criteria
+    but those read on the host's clock (`HOST_CLOCK`: the occupancy's
+    gap comparison, logged, C.26); no page pinned at the end of any, no
+    plain-version call; the
+    phase's first B1 launch of each method and n_ns (`CheckWide`: the
+    algebra's expression lanes at n_ns 2 beside the tiles' n_ns 1) and
+    its first B3 launch in each form it took (the drill's per call, the
+    waves' K-block form) held against their plain versions.  Returns
+    (launches by kernel, B3's K-block form counted in B3, max |diff| by
+    kernel)."""
+    import torch
+    from gsky_tpu_torch.ops import stats
+    from gsky_tpu_torch.pipeline import drill
+    st = soak_tool()
+    kernels = {**_kernel_counts(), "B3K": stats.masked_stats_many_kernel}
+    outs, launches, secs = {}, {}, {}
+    # no prewarm: the first launches held are the scenarios' own
+    env.prewarm = False
+    # this process holds every earlier phase's objects: each full
+    # collection would scan them inside the storms whose gaps the
+    # occupancy reads, pauses a server that starts here does not pay;
+    # they are frozen out of the collector for the phase (timed: one
+    # full collection over them), and the phase's own collections timed
+    t0 = time.perf_counter()
+    gc.collect()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    gc.freeze()
+    frozen = gc.get_freeze_count()
+    pauses = {0: [], 1: [], 2: []}
+    started = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            pauses[info["generation"]].append(
+                (time.perf_counter() - started[0]) * 1e3)
+
+    gc.callbacks.append(on_gc)
+    with WavesOn():
+        torch.cuda.synchronize()
+        chk = CheckWide((256, 256), what="29", by_ns=True)
+        b3 = {"B3": CaptureFirst(drill, "masked_stats"),
+              "B3K": CaptureFirst(stats, "masked_stats_many")}
+        plain = PlainCalls()
+        try:
+            for name in SOAK29_RUNS:
+                reset_counts(kernels)
+                t0 = time.perf_counter()
+                try:
+                    outs[name] = st.RUNS[name](env, st.parse_args(
+                        ["--seconds", str(SOAK29_S[name])]))
+                finally:
+                    env.close()
+                secs[name] = time.perf_counter() - t0
+                launches[name] = read_counts(kernels)
+        finally:
+            plain.remove()
+            for cap in b3.values():
+                cap.remove()
+            chk.remove()
+            gc.callbacks.remove(on_gc)
+            gc.unfreeze()
+    log(f"phase 29: {frozen} objects of earlier phases frozen out of the "
+        f"collector (one full collection over them {full_ms:.1f} ms); "
+        f"the phase's collections by generation: " + ", ".join(
+            f"{g}: {len(v)}, max {max(v, default=0.0):.2f} ms, total "
+            f"{sum(v):.1f} ms" for g, v in pauses.items()))
+    for name in SOAK29_RUNS:
+        out, ok = outs[name]
+        log(f"phase 29 {name}: {json.dumps(out)}")
+        log(f"phase 29 {name}: {'passed' if ok else 'FAILED'} in "
+            f"{secs[name]:.1f} s, launches {launches[name]} ({card})")
+    # held: every criterion but those read on the host's clock, which
+    # are reported (C.26)
+    held = {n: [c for c in outs[n][0]["unmet"]
+                if c not in st.HOST_CLOCK.get(n, ())] for n in SOAK29_RUNS}
+    failed = {n: unmet for n, unmet in held.items() if unmet}
+    if failed:
+        raise AssertionError(f"29: the soak failed, unmet: {failed}")
+    oc, al, an = (outs[n][0] for n in SOAK29_RUNS)
+    sy, pi = oc["synchronous"], oc["pipelined"]
+    log(f"phase 29 occupancy, rounds {oc['rounds']}: gap p99 "
+        f"{sy['gap_ms_p99']} ms synchronous / {pi['gap_ms_p99']} ms "
+        f"pipelined ({oc['gap_p99_reduction_x']}x; p50 {sy['gap_ms_p50']}"
+        f" / {pi['gap_ms_p50']}, p90 {sy['gap_ms_p90']} / "
+        f"{pi['gap_ms_p90']}, max {sy['gap_ms_max']} / "
+        f"{pi['gap_ms_max']}; samples {sy['gap_samples']} / "
+        f"{pi['gap_samples']}); rounds (p99, lead-in ms, idle fraction) "
+        f"{[tuple(r.values()) for r in sy['rounds']]} / "
+        f"{[tuple(r.values()) for r in pi['rounds']]}; staged waves "
+        f"{pi['staged_waves']}, requests {sy['http']} / {pi['http']}; "
+        f"the host-clock criteria {st.HOST_CLOCK['occupancy']} "
+        f"{'met' if oc['unmet'] == [] else 'unmet'} (reported, C.26)")
+    log(f"phase 29 algebra: {al['sources']} sources, {al['structures']} "
+        f"structures, expression cache {al['expr_cache']}, fused "
+        f"{al['fused']}, escape hatch over {al['escape_hatch_probe']} "
+        f"byte-identical {al['escape_hatch_byte_identical']} (unfused "
+        f"{al['escape_hatch_unfused']}, with data "
+        f"{al['escape_hatch_with_data']}), requests {al['requests']}, "
+        f"waves {al['waves']}")
+    log(f"phase 29 animation: warm sequence {an['warm_amortisation']}, "
+        f"requests {an['requests']}, cancellations "
+        f"{an['cancellation']}, temporal {an['temporal']}, waves "
+        f"{an['waves']}")
+    pinned = {n: outs[n][0]["pool"]["pinned"] for n in SOAK29_RUNS
+              if outs[n][0]["pool"]["pinned"]}
+    if pinned:
+        raise AssertionError(f"29: pages pinned at the end: {pinned}")
+    if plain.calls:
+        raise AssertionError(f"29: {plain.calls} plain-version calls on "
+                             f"the card")
+    total = {k: sum(launches[n][k] for n in SOAK29_RUNS) for k in kernels}
+    held = {k[1]: v for k, v in chk.errs.items() if k[0] == "B1"}
+    if not total["B1"] or not any(k.endswith("n_ns 2") for k in held) \
+            or not any(k.endswith("n_ns 1") for k in held):
+        raise AssertionError(f"29: B1 launches {total['B1']}, held "
+                             f"{sorted(held)}: want tiles (n_ns 1) and "
+                             f"expression lanes (n_ns 2)")
+    if not total["B3"] + total["B3K"]:
+        raise AssertionError(f"29: no B3 launch ({launches})")
+    # each form's first launch again, beside its plain version on the
+    # same inputs, bit-exact (B3's bound since phase 6); the launch
+    # counts left as they were
+    b3_shapes = {}
+    for key, kernel, plain_fn in (
+            ("B3", stats.masked_stats, stats.masked_stats_plain),
+            ("B3K", stats.masked_stats_many, stats.masked_stats_many_plain)):
+        if b3[key].args is None:
+            continue
+        a, k = b3[key].args
+        saved = kernels[key].launches
+        (s, c), (sp, cp) = kernel(*a, **k), plain_fn(*a, **k)
+        kernels[key].launches = saved
+        if not (torch.equal(s, sp) and torch.equal(c, cp)):
+            raise AssertionError(f"29 {key}: kernel != plain")
+        b3_shapes[key] = (f"{len(a[0])} x {tuple(a[0][0].shape)}"
+                          if key == "B3K" else tuple(a[0].shape))
+    log(f"phase 29: the first B1 launch of each method and n_ns against "
+        f"its plain version, max |diff| {sorted(held.items())}; the first "
+        f"B3 launch of each form bit-exact against its plain version "
+        f"{b3_shapes}; launches {total} (B3K: B3's K-block form)")
+    errs = {"B1": max(held.values()), "B3": 0.0}
+    if any(k == "B2" for k, _ in chk.errs):
+        errs["B2"] = max(v for (k, _), v in chk.errs.items() if k == "B2")
+    total["B3"] += total.pop("B3K")
+    return total, errs
+
+
+def phase_29_alone(card):
+    """``--phase 29``: phase 29 alone (after phase 1); no result line."""
+    os.environ["GSKY_PREFETCH"] = "0"
+    t0 = time.perf_counter()
+    with SoakArchive() as env:
+        launches, errs = phase_soak_waves(card, env)
+    log(f"phase 29: launches {launches}, max |diff| {errs} "
         f"({time.perf_counter() - t0:.1f} s)")
     return 0
 
@@ -10120,6 +10321,8 @@ def main() -> int:
         return phase_27_alone(card)
     if sys.argv[1:] == ["--phase", "28"]:
         return phase_28_alone(card)
+    if sys.argv[1:] == ["--phase", "29"]:
+        return phase_29_alone(card)
 
     # -- phase 2: kernels vs plain on the card ------------------------
     n_cmp = phase_kernels()
@@ -10301,12 +10504,14 @@ def main() -> int:
         cpu = make_pipeline(store, "cpu")
         t0 = time.perf_counter()
         for method in METHODS:
-            got, _ = render(cpu, data_root, boxes[:2], method)
-            compare_tiles(method, card_tiles[method][:2], got, "card vs cpu")
+            got, _ = render(cpu, data_root, boxes[:CPU_TILES], method)
+            compare_tiles(method, card_tiles[method][:CPU_TILES], got,
+                          "card vs cpu")
             for zoom in ZOOMS:
-                got, _ = render(cpu, data_root, zoom_boxes(zoom)[:2], method)
-                compare_tiles(method, zoom_tiles[(zoom, method)][:2], got,
-                              f"card vs cpu at {zoom}x")
+                got, _ = render(cpu, data_root,
+                                zoom_boxes(zoom)[:CPU_TILES], method)
+                compare_tiles(method, zoom_tiles[(zoom, method)][:CPU_TILES],
+                              got, f"card vs cpu at {zoom}x")
         log(f"phase 5: CPU tiles match the card, native and at "
             f"{', '.join(map(str, ZOOMS))}x "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -10567,10 +10772,17 @@ def main() -> int:
     soak27, soak27_err = phase_soak(card)
     log(f"phase 27: launches {soak27} ({time.perf_counter() - t0:.1f} s)")
 
-    # -- phase 28: the soak's overload, ingest and fleet ----------------
+    # -- phases 28 and 29: the soak's overload, ingest and fleet, then
+    # its occupancy, algebra and animation, over one archive -----------
     t0 = time.perf_counter()
-    soak28, soak28_err = phase_soak_ops(card)
-    log(f"phase 28: launches {soak28} ({time.perf_counter() - t0:.1f} s)")
+    with SoakArchive() as env:
+        soak28, soak28_err = phase_soak_ops(card, env)
+        log(f"phase 28: launches {soak28} "
+            f"({time.perf_counter() - t0:.1f} s, the archive included)")
+        t0 = time.perf_counter()
+        soak29, soak29_err = phase_soak_waves(card, env)
+        log(f"phase 29: launches {soak29} "
+            f"({time.perf_counter() - t0:.1f} s)")
 
     # the kernels line reports the bilinear rows (the GetMap default
     # interpolated method): B1 at phase 3's tile, B2 at input (c), the
@@ -10597,8 +10809,10 @@ def main() -> int:
     # replay gateways), and phase 25's (the virtual mesh: B1 a member a
     # granule wave, B2 a member a block of the x layout and a GSKY_SPMD
     # tile or mosaic, B3 a member a time wave or GSKY_SPMD reduction),
-    # and phases 27's and 28's (the soak's scenarios: B1 and B2 their
-    # tiles, B4 the fleet's remote tiles mosaicked here)
+    # and phases 27's, 28's and 29's (the soak's scenarios: B1 and B2
+    # their tiles, B1 the algebra's expression lanes and the animation's
+    # frames, B3 the drills in both forms, B4 the fleet's remote tiles
+    # mosaicked here)
     m, err1, ms1, pms1, bd1 = b1_rows[1]
     ms2, _, pms2, bd2, _, _ = b2_rows[("c", "bilinear")]
     b3_ms, b3_pms, b3_bd, b3_lib, b3_main_err = b3_row
@@ -10611,10 +10825,10 @@ def main() -> int:
          + ing["B1"] + srv20["B1"] + dl20["B1"] + be20["B1"]
          + obs21["B1"] + guard22["B1"] + fleet23["B1"] + fab24["B1"]
          + fab24e["B1"] + mesh25["B1"] + tiles26["B1"] + soak27["B1"]
-         + soak28["B1"],
+         + soak28["B1"] + soak29["B1"],
          "max_abs_err": max(max(r[1] for r in b1_rows), wide_err, sat_odd,
                             ing_err["B1"], obs21_err, soak27_err["B1"],
-                            soak28_err["B1"],
+                            soak28_err["B1"], soak29_err["B1"],
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B1")),
          "ms": ms1, "plain_ms": pms1, "bound_ms": bd1,
@@ -10627,10 +10841,11 @@ def main() -> int:
          + dl20["B2"] + be20["B2"] + obs21["B2"] + guard22["B2"]
          + fleet23["B2"] + fab24.get("B2", 0) + fab24e["B2"]
          + mesh25["B2"] + mesh25m + tiles26["B2"] + soak27["B2"]
-         + soak28["B2"],
+         + soak28["B2"] + soak29["B2"],
          "max_abs_err": max(max(r[5] for r in b2_rows.values()),
                             wide_err, sat_odd, ing_err["B2"],
                             soak27_err["B2"], soak28_err["B2"],
+                            soak29_err.get("B2", 0.0),
                             max(v for (k, _), v in wcs_errs.items()
                                 if k == "B2")),
          "ms": ms2, "plain_ms": pms2, "bound_ms": bd2,
@@ -10641,8 +10856,9 @@ def main() -> int:
          "launches": b3_launches + b3_wave_launches + b3_wps + sat["B3"]
          + ing["B3"] + srv20["B3"] + dl20["B3"] + be20["B3"]
          + fleet23["B3"] + mesh25c["B3"] + mesh25c["B3K"]
-         + soak28["B3"],
-         "max_abs_err": max(b3_err, b3_main_err, b3k_err, ing_err["B3"]),
+         + soak28["B3"] + soak29["B3"],
+         "max_abs_err": max(b3_err, b3_main_err, b3k_err, ing_err["B3"],
+                            soak29_err["B3"]),
          "ms": b3_ms, "plain_ms": b3_pms, "bound_ms": b3_bd,
          "bound_by": "bytes", "library_ms": b3_lib},
         {"name": "first_valid (B4)", "route": "cuda",
@@ -10650,7 +10866,7 @@ def main() -> int:
          "replaces": "gsky_tpu/ops/pallas_tpu.py:308",
          "launches": b4_launches + b4_wcs + b4_gfi + sat["B4"] + ing["B4"]
          + srv20["B4"] + dl20["B4"] + be20["B4"] + fleet23["B4"]
-         + soak28["B4"],
+         + soak28["B4"] + soak29["B4"],
          "max_abs_err": max(b4_row[4], ing_err["B4"], soak28_err["B4"]),
          "ms": b4_row[0], "plain_ms": b4_row[1], "bound_ms": b4_row[2],
          "bound_by": "bytes", "library_ms": b4_row[3]},

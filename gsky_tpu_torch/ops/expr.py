@@ -506,6 +506,15 @@ def expr_cache_stats() -> Dict[str, int]:
                 "hits": _cache_hits, "misses": _cache_misses}
 
 
+def reset_expr_cache() -> None:
+    """Drop every cached compile and zero the counters."""
+    global _cache_hits, _cache_misses
+    with _cache_lock:
+        _cache.clear()
+        _cache_hits = 0
+        _cache_misses = 0
+
+
 @dataclass
 class BandExpressions:
     """Parsed `rgb_products` list."""

@@ -501,9 +501,12 @@ class PagePool:
             yield self._pool
 
     def handoff(self) -> int:
-        """The staging generation, taken when a wave is assembled."""
-        with self.lock:
-            return self._handoff_gen
+        """The staging generation, taken when a wave is assembled.  Read
+        without the pool's lock, which a dispatch holds while it
+        enqueues: assembly must not wait for the wave before it.  A
+        teardown bumps the generation last, under the lock, so that
+        `handoff_ok` sees any teardown after this read."""
+        return self._handoff_gen
 
     def handoff_ok(self, gen: int) -> bool:
         """True while a `handoff` token is still dispatchable: the slot

@@ -1027,6 +1027,11 @@ class WaveScheduler:
             for _k, es, _d in (item[0] if item is not None else ()):
                 self._failover(es, RuntimeError("wave scheduler shut down"))
 
+    def gap_samples(self) -> List[float]:
+        """The inter-wave dispatch gaps kept (ms, oldest first)."""
+        with self._lock:
+            return list(self._gap_ms)
+
     def stats(self) -> Dict:
         with self._lock:
             gaps = np.asarray(self._gap_ms) if self._gap_ms else None

@@ -110,7 +110,8 @@ def run(senv, name, seconds=None):
 # -- every scenario passes -------------------------------------------------
 
 @pytest.mark.parametrize("name", [n for n in st.SCENARIOS if n not in (
-    "hot", "overload", "ingest", "fleet")])     # the last three: soak_ops
+    "hot", "overload", "ingest", "fleet",       # soak_ops, soak_fleet
+    "occupancy", "algebra", "animation")])      # soak_waves
 def test_scenario_passes(senv, fresh, name):
     out, ok = run(senv, name)
     assert ok, json.dumps(out)[:4000]

@@ -2,7 +2,7 @@
 """Soak the PyTorch/CUDA port's in-process OWS server.
 
 The port's counterpart of ``tools/soak.py``: a long-lived server under
-concurrent distinct requests, held to the reference's bounds.  Ten
+concurrent distinct requests, held to the reference's bounds.  Thirteen
 scenarios, each with the pass criteria and knobs of its reference
 counterpart:
 
@@ -86,7 +86,42 @@ kill, a reroute, locality over 1/3 and recovering to 0.9 of it,
 boundary, hedged p99 under unhedged.  The nodes' VmRSS and launch
 counts are reported, not bounded; every node is killed at the end.
 
-Each of these three also reports, on a card, ``memory_allocated`` and
+``--scenario occupancy``: a GetMap + WPS drill storm (``landsat_burst``
+at the first date, a drill in eight requests) on the wave path
+(``GSKY_WAVE_MAX=8``, ``GSKY_WAVE_TICK_MS=10``, ``GSKY_WAVE_QUEUE=2``)
+with the synchronous ticker (``GSKY_WAVE_PIPELINE=0``) and pipelined,
+each leg ``max(8, --seconds / 2)`` s in four rounds taken in turns, a
+fresh scheduler a round: no failed request, 3+ gap samples a leg, a
+wave staged ahead of dispatch, the pipelined leg's p99 inter-wave gap
+below the synchronous one's (or at most 2 ms), each round's lead-in
+(its warm tile's wave to the storm's first) left out of its gaps, no
+pin, the wave-gap families in a strict ``/metrics``.
+
+``--scenario algebra``: ``landsat_algebra`` GetMaps in its twelve
+sources (``GSKY_EXPR_FUSE=1``, ``GSKY_WAVE_TICK_MS=100``,
+``GSKY_PAGE_SLOTS=16``) with an ``algebraDrill`` in sixteen: a warm lap
+of every style, no failed request, fused requests, the expression
+cache's misses at most the sources and under its hits, at most one
+fused program a structure (``programs``: the distinct fingerprints
+launched through the fused epilogue, `ops.paged.note_expr_program`;
+not compiled programs, since the port's fused epilogue is one CUDA
+kernel for every structure), a concurrent volley of six tiles
+byte-identical with ``GSKY_EXPR_FUSE=0`` and counted unfused (the
+volley's sources those over fewer products first, and some of its
+tiles holding data: stricter than the reference, whose volley at the
+first date is all nodata, C.27), no pin, the expression families in a
+strict ``/metrics``.
+
+``--scenario animation``: APNG sequences of ``landsat`` over every date
+(``GSKY_ANIM=1``, ``GSKY_WAVE_TICK_MS=100``), an mp4 request in ten: the
+serial warm sequence's frames in at most half as many waves, every
+answer a 200 APNG (signature, ``acTL``) of every frame
+(``X-Gsky-Anim-Frames``), the mp4 ones labelled ``apng-stub``, a
+disconnect volley cancelling a sequence or its lanes, no pin, the
+animation families in a strict ``/metrics``.
+
+Each scenario from ``overload`` on names its failed criteria in the
+JSON's ``unmet`` and reports, on a card, ``memory_allocated`` and
 ``memory_reserved`` of the serving process at its start and end.
 
     python3 tools/soak_torch.py [--scenario churn] [--seconds 120]
@@ -136,7 +171,8 @@ sys.path.insert(0, os.path.dirname(HERE))
 sys.path.insert(0, HERE)
 
 SCENARIOS = ("churn", "hot", "wcs", "chaos", "burst", "wave", "dap4",
-             "overload", "ingest", "fleet")
+             "overload", "ingest", "fleet", "occupancy", "algebra",
+             "animation")
 N_PRODUCTS = 4                     # the reference's layers list four
 GEO_CACHE_MAX = 256                # pipeline/executor.py _GEO_CACHE_MAX
 REF_SCENE = 1536                   # the reference soak's scene edge
@@ -377,13 +413,16 @@ def write_config(conf_dir: str, root: str, shape, utm):
     """The reference soak's config.json for the port's layers:
     ``landsat``, ``landsat_chaos`` (``cache_max_age`` 3),
     ``landsat_burst`` (one product), the DAP4 frame ``landsat_dap``
-    (tiled 2 x 2) and the ``geometryDrill`` process.  Returns the
-    extent the requests cover, in EPSG:3857."""
+    (tiled 2 x 2), the band-algebra layer ``landsat_algebra`` (its
+    default ``nd`` and eleven ``name = expr`` styles over the first two
+    products) and the ``geometryDrill`` and ``algebraDrill``
+    processes.  Returns the extent the requests cover, in EPSG:3857."""
     from gsky_tpu_torch.geo.crs import EPSG3857, EPSG4326
     from gsky_tpu_torch.geo.transform import BBox, transform_bbox
 
     h, w = shape
     prods = [product(k) for k in range(N_PRODUCTS)]
+    p0, p1 = prods[:2]
     core = BBox(590000.0, 6105000.0 - h * 30.0 * 1.3,
                 590000.0 + w * 30.0 * 1.3, 6105000.0)
     dap_ll = transform_bbox(core, utm, EPSG4326)
@@ -404,12 +443,23 @@ def write_config(conf_dir: str, root: str, shape, utm):
                               dap_ll.ymax],
          "default_geo_size": [256, 256],
          "wcs_max_width": 4096, "wcs_max_height": 4096,
-         "wcs_max_tile_width": 128, "wcs_max_tile_height": 128}]
+         "wcs_max_tile_width": 128, "wcs_max_tile_height": 128},
+        {"name": "landsat_algebra", "title": "algebra soak",
+         "data_source": root,
+         "rgb_products": [f"nd = ({p0} - {p1}) / ({p0} + {p1})"],
+         "time_generator": "mas", "styles": algebra_styles(p0, p1)}]
     processes = [{
         "identifier": "geometryDrill", "title": "Geometry drill",
         "max_area": 10000,
         "data_sources": [{"data_source": root, "rgb_products": prods}],
-        "approx": False}]
+        "approx": False},
+        # the drill minority evaluates band expressions per date
+        {"identifier": "algebraDrill", "title": "Band-algebra drill",
+         "max_area": 10000,
+         "data_sources": [{"data_source": root, "rgb_products": [
+             f"nd = ({p0} - {p1}) / ({p0} + {p1})",
+             f"dif = abs({p0} - {p1})"]}],
+         "approx": False}]
     os.makedirs(conf_dir, exist_ok=True)
     with open(os.path.join(conf_dir, "config.json"), "w") as fp:
         json.dump({"service_config": {"ows_hostname": "",
@@ -417,6 +467,26 @@ def write_config(conf_dir: str, root: str, shape, utm):
                    "layers": layers, "processes": processes}, fp)
     return transform_bbox(transform_bbox(core, utm, EPSG4326),
                           EPSG4326, EPSG3857)
+
+
+def algebra_styles(p0: str, p1: str):
+    """The reference's eleven single-entry ``name = expr`` styles over
+    products ``p0`` and ``p1``: ten structures across twelve sources
+    with the layer's default, since ``nd_rev`` (renamed variables) and
+    ``mask2`` (a shifted constant) are twins of ``nd`` and ``mask1``
+    and share their fingerprints."""
+    return [{"name": name, "rgb_products": [src]} for name, src in (
+        ("nd_rev", f"nd_rev = ({p1} - {p0}) / ({p1} + {p0})"),
+        ("mask1", f"mask1 = {p0} > 1200 ? {p1} : {p0}"),
+        ("mask2", f"mask2 = {p0} > 1800 ? {p1} : {p0}"),
+        ("blend", f"blend = 0.5 * {p0} + 0.5 * {p1}"),
+        ("root", f"root = sqrt({p0} * {p1})"),
+        ("dif", f"dif = abs({p0} - {p1})"),
+        ("logr", f"logr = log({p0} + 1000)"),
+        ("gate", f"gate = {p0} > 500 && {p1} > 500 ? {p0} + {p1} : 0"),
+        ("quant", f"quant = floor({p0} / 16) * 16"),
+        ("clip", f"clip = min(max({p0}, 400), 2600)"),
+        ("curve", f"curve = pow({p0} / 3000, 2) * 3000"))]
 
 
 class SoakEnv:
@@ -587,23 +657,60 @@ class SoakEnv:
                 f"&bbox={self.bbox(*tile, self.unit * 0.25)}&width=256"
                 f"&height=256&format=image/png&time={iso(self.dates[0])}")
 
-    def drill_url(self, host: str) -> str:
-        """WPS geometryDrill over one small polygon inside the first
-        scene (lon/lat)."""
+    def drill_url(self, host: str, identifier: str = "geometryDrill",
+                  at=(0.35, 0.25)) -> str:
+        """WPS ``identifier`` over one small polygon (lon/lat) whose
+        corner lies at ``at``: fractions of the extent from its west
+        and its north edge (the reference's geometryDrill inside the
+        first scene by default, its algebraDrill at (0.40, 0.45), where
+        the first two scenes overlap)."""
         from gsky_tpu_torch.geo.crs import EPSG3857, EPSG4326
         from gsky_tpu_torch.geo.transform import transform_bbox
         ll = transform_bbox(self.merc, EPSG3857, EPSG4326)
         d = 0.03 * min(1.0, (ll.xmax - ll.xmin) / 0.6)
-        x0 = ll.xmin + 0.35 * (ll.xmax - ll.xmin)
-        y0 = ll.ymax - 0.25 * (ll.ymax - ll.ymin)
+        x0 = ll.xmin + at[0] * (ll.xmax - ll.xmin)
+        y0 = ll.ymax - at[1] * (ll.ymax - ll.ymin)
         geom = json.dumps({"type": "FeatureCollection", "features": [{
             "type": "Feature", "geometry": {
                 "type": "Polygon", "coordinates": [[
                     [x0, y0], [x0 + d, y0], [x0 + d, y0 + d],
                     [x0, y0 + d], [x0, y0]]]}}]})
         return (f"http://{host}/ows?service=WPS&request=Execute"
-                f"&identifier=geometryDrill"
+                f"&identifier={identifier}"
                 f"&datainputs=geometry={urllib.parse.quote(geom)}")
+
+    def algebra_tiles(self):
+        """The algebra's 8 x 4 grid of (fx, fy), fractions of the whole
+        extent where the first two scenes overlap at any scene size
+        (the reference's ``xs`` 0.30-0.58 by 0.04, ``ys`` 0.32-0.68)."""
+        xs = np.arange(0.30, 0.62, 0.04)
+        ys = (0.32, 0.44, 0.56, 0.68)
+        return [(float(fx), float(fy)) for fy in ys for fx in xs]
+
+    def algebra_url(self, host: str, style: str, tile) -> str:
+        """A ``landsat_algebra`` GetMap in ``style`` ("" the layer's
+        default), 0.12 of `unit` wide, at the first date."""
+        return (f"http://{host}/ows?service=WMS&request=GetMap"
+                f"&version=1.3.0&layers=landsat_algebra&styles={style}"
+                f"&crs=EPSG:3857"
+                f"&bbox={self.bbox(*tile, self.unit * 0.12, whole=True)}"
+                f"&width=256&height=256&format=image/png"
+                f"&time={iso(self.dates[0])}")
+
+    def anim_tiles(self):
+        """The animation's 5 x 5 grid of (fx, fy)."""
+        frac = np.linspace(0.0, 0.6, 5)
+        frac_y = np.linspace(0.1, 0.6, 5)
+        return [(float(fx), float(fy)) for fx in frac for fy in frac_y]
+
+    def anim_url(self, host: str, tile, fmt: str = "image/apng") -> str:
+        """A ``landsat`` animation over a TIME list of every date, 0.2
+        of `unit` wide, in ``fmt``."""
+        times = ",".join(iso(d) for d in self.dates)
+        return (f"http://{host}/ows?service=WMS&request=GetMap"
+                f"&version=1.3.0&layers=landsat&crs=EPSG:3857"
+                f"&bbox={self.bbox(*tile, self.unit * 0.2)}&width=256"
+                f"&height=256&format={fmt}&time={times}")
 
     def dap_url(self, host: str, i: int) -> str:
         """A ``dap4.ce`` subset rotating product and x clamp; its time
@@ -668,6 +775,41 @@ def storm(conc: int, seconds: float, one) -> None:
         t.start()
     for t in ths:
         t.join(seconds + 300)
+
+
+def disconnect_volleys(host: str, path_of, holds, seen,
+                       deadline_s: float = 30.0):
+    """Volleys of requests whose clients hang up after each of
+    ``holds`` seconds (``path_of()`` gives each one's path), until
+    ``seen()`` counts a cancellation or ``deadline_s`` passes; 1.5 s
+    after each volley for the server to notice.  (seen, volleys)."""
+    h, _, p = host.partition(":")
+
+    def one(hold_s: float):
+        path = path_of()
+        try:
+            s = socket.create_connection((h, int(p)), timeout=10)
+            try:
+                s.sendall((f"GET {path} HTTP/1.1\r\nHost: {host}\r\n"
+                           "Connection: close\r\n\r\n").encode())
+                time.sleep(hold_s)
+            finally:
+                s.close()
+        except OSError:
+            pass            # the volley is best-effort: counted by seen()
+
+    n_seen = volleys = 0
+    deadline = time.time() + deadline_s
+    while time.time() < deadline and n_seen < 1:
+        ths = [threading.Thread(target=one, args=(hold,)) for hold in holds]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(15)
+        volleys += 1
+        time.sleep(1.5)
+        n_seen = seen()
+    return n_seen, volleys
 
 
 def kernel_counts(dbg: dict) -> dict:
@@ -1221,39 +1363,13 @@ def _wave(env, args):
 
     # requests dropped mid-flight must leave their wave (the
     # scheduler's `cancelled`); staggered holds cover the queued and
-    # the in-wave windows
-    h, _, p = host.partition(":")
-
-    def disconnect_midflight(hold_s: float):
-        path = getmap_url(next(counter)).split(host, 1)[1]
-        try:
-            s = socket.create_connection((h, int(p)), timeout=10)
-            try:
-                s.sendall((f"GET {path} HTTP/1.1\r\nHost: {host}\r\n"
-                           "Connection: close\r\n\r\n").encode())
-                time.sleep(hold_s)
-            finally:
-                s.close()
-        except OSError:
-            pass            # the volley is best-effort: counted below
-
+    # the in-wave windows: the reference's, and shorter ones, since a
+    # card answers a tile in tens of milliseconds
     cancelled0 = wave_stats_of(env.device).get("cancelled", 0)
-    cancel_seen = volleys = 0
-    deadline = time.time() + 30
-    while time.time() < deadline and cancel_seen < 1:
-        # the reference's holds, and shorter ones: a card answers a
-        # tile in tens of milliseconds
-        ths = [threading.Thread(target=disconnect_midflight, args=(hold,))
-               for hold in (0.005, 0.01, 0.02, 0.05, 0.1, 0.2, 0.35, 0.5,
-                            0.8)]
-        for t in ths:
-            t.start()
-        for t in ths:
-            t.join(15)
-        volleys += 1
-        time.sleep(1.5)
-        cancel_seen = wave_stats_of(env.device).get("cancelled", 0) \
-            - cancelled0
+    cancel_seen, volleys = disconnect_volleys(
+        host, lambda: getmap_url(next(counter)).split(host, 1)[1],
+        (0.005, 0.01, 0.02, 0.05, 0.1, 0.2, 0.35, 0.5, 0.8),
+        lambda: wave_stats_of(env.device).get("cancelled", 0) - cancelled0)
 
     # every page the storm pinned must be back
     pinned = -1
@@ -2112,9 +2228,12 @@ def _fleet(env, args, nodes):
     drive(max(args.seconds * 0.3, FLEET_MIN_S), kill_counts)
 
     # revive on the same port (the router's channels reconnect), then
-    # wait for the health detector to re-admit it
+    # wait for the health detector to re-admit it; the hedge coda's
+    # slow node (outside the namespace) boots meanwhile
     t0 = time.time()
     nodes.spawn(kill_port)
+    slow_port = free_port()
+    nodes.spawn(slow_port, {"GSKY_FAULTS": FLEET_SLOW})
     revived = nodes.wait_ready(kill_port, 300)
     revive = {"ready_s": round(time.time() - t0, 1)}
     state = None
@@ -2166,8 +2285,6 @@ def _fleet(env, args, nodes):
     # the hedge coda: one fast node kept, one slow one added
     for p in ports[1:]:
         nodes.kill(p)
-    slow_port = free_port()
-    nodes.spawn(slow_port, {"GSKY_FAULTS": FLEET_SLOW})
     hedge = {"ready": nodes.wait_ready(slow_port, 300)}
     if hedge["ready"]:
         boot_pools[f"127.0.0.1:{slow_port} slow"] = \
@@ -2250,10 +2367,492 @@ def _fleet(env, args, nodes):
                       < hedge.get("unhedged_p99_ms", 0))})
 
 
+# -- occupancy, algebra, animation ----------------------------------------
+
+def fetch_answer(url: str, errors: list, lock, what: str,
+                 timeout: float = 180.0):
+    """(status, headers, body) of ``url`` (an HTTP error's too), or None
+    when the connection fails: then ``what`` and the exception go to
+    ``errors`` (its first 5 kept)."""
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+    except (OSError, ValueError) as exc:
+        with lock:
+            if len(errors) < 5:
+                errors.append(f"{what}: {exc!r:.200}")
+        return None
+
+
+def wave_kind_ok(ans, kind: str) -> bool:
+    """A flat 200 with its body: a PNG for ``map``, a succeeded WPS
+    Execute otherwise."""
+    if ans is None or ans[0] != 200:
+        return False
+    return ans[2][:8] == PNG if kind == "map" \
+        else b"ProcessSucceeded" in ans[2]
+
+
+def wave_start(env) -> dict:
+    """A wave scenario's opening record: device, card memory."""
+    out = {"device": str(env.device)}
+    mem0 = card_memory(env.device)
+    if mem0 is not None:
+        out["card_memory"] = {"start": mem0}
+    return out
+
+
+def wave_end(env, server, host: str, out: dict) -> None:
+    """A wave scenario's closing record: the pool once settled, the
+    launches, card memory at the end."""
+    out["pool"] = settled_pool(server)
+    out["pool_pinned"] = out["pool"]["pinned"]
+    out["kernels"] = kernel_counts(fetch_json(host, "/debug"))
+    if "card_memory" in out:
+        out["card_memory"]["end"] = card_memory(env.device)
+
+
+# the reference's occupancy knobs: a short tick keeps waves frequent
+# (many gap samples), queue depth 2 lets assembly run ahead in the
+# pipelined leg
+OCCUPANCY_KNOBS = {"GSKY_WAVES": "1", "GSKY_WAVE_MAX": "8",
+                   "GSKY_WAVE_TICK_MS": "10", "GSKY_WAVE_QUEUE": "2"}
+OCCUPANCY_MIN_S = 8.0          # the reference's shortest leg
+GAP_FLOOR_MS = 2.0             # back-to-back dispatch: the reference's floor
+# GSKY_WAVE_PIPELINE a round: each leg in four rounds, in turns (ABBA
+# BAAB), so that the host's drift falls on both legs alike
+OCCUPANCY_ROUNDS = ("0", "1", "1", "0", "1", "0", "0", "1")
+# criteria read on the host's clock: on a card the gap comparison sits
+# inside the host's noise (C.26), so `chip_smoke.py` phase 29 and the
+# CPU tests report it and hold the scenario's other criteria
+HOST_CLOCK = {"occupancy": ("gap_p99",)}
+
+
+def run_occupancy(env: SoakEnv, args):
+    """The same GetMap + WPS drill storm against one server with the
+    synchronous ticker (``GSKY_WAVE_PIPELINE=0``: plan, stack, upload
+    and dispatch on one thread) and pipelined (assembly stages wave N+1
+    while wave N runs), each leg in four rounds taken in turns, a fresh
+    scheduler a round, so that each round's inter-wave gaps are its
+    own; a leg's gaps are its rounds' pooled, less each round's lead-in
+    (the gap from its warm tile's wave to the storm's first, reported
+    as ``lead_in_ms``).  The pipelined p99 gap must be below the
+    synchronous one (or at most the 2 ms floor), a wave must have been
+    staged ahead of dispatch, no page left pinned.  The reference runs
+    each leg once, synchronous first, its lead-in among its gaps
+    (C.26)."""
+    from gsky_tpu_torch.pipeline.waves import reset_waves
+
+    with EnvOverride(**OCCUPANCY_KNOBS, GSKY_WAVE_PIPELINE="0"):
+        reset_waves()
+        try:
+            return _occupancy(env, args, reset_waves)
+        finally:
+            reset_waves()
+
+
+def _occupancy(env, args, reset_waves):
+    from gsky_tpu_torch.pipeline.waves import active_waves
+
+    out = {"scenario": "occupancy", **wave_start(env)}
+    server, host = env.server(gateway=None)
+    grid = 6
+    frac = np.linspace(0.0, 0.6, grid)
+    frac_y = np.linspace(0.1, 0.6, grid)
+    tiles = [(float(fx), float(fy)) for fx in frac for fy in frac_y]
+    w = env.unit * 0.2
+
+    def getmap_url(k):
+        return env.getmap(host, "landsat_burst", *tiles[k % len(tiles)],
+                          w, env.dates[0])
+
+    drill = env.drill_url(host)
+    lock = threading.Lock()
+    errors: list = []
+
+    def fetch(url, kind):
+        return wave_kind_ok(fetch_answer(url, errors, lock, kind), kind)
+
+    def one_round(seconds: float, leg: dict) -> None:
+        counter = itertools.count()
+
+        def one():
+            i = next(counter)
+            kind, url = ("wps", drill) if i % 24 < 3 \
+                else ("map", getmap_url(i))
+            ok = fetch(url, kind)
+            with lock:
+                leg["http"][kind] += 1
+                leg["failed"] += not ok
+
+        sched = active_waves(env.device)
+        n0 = len(sched.gap_samples()) if sched is not None else 0
+        storm(max(args.conc, 12), seconds, one)
+        ws = wave_stats_of(env.device)
+        sched = sched or active_waves(env.device)
+        # the storm's first gap runs from the warm tile's wave to the
+        # storm's first: the clients' start, not the scheduler's
+        lead = sched.gap_samples()[n0:] if sched is not None else []
+        gaps = lead[1:]
+        leg["gaps"] += gaps
+        for k in ("dispatches", "requests", "staged_waves", "cancelled",
+                  "fallbacks", "failed_waves"):
+            leg[k] += ws.get("failed" if k == "failed_waves" else k, 0)
+        for n, c in ws.get("occupancy", {}).items():
+            leg["occupancy"][n] = leg["occupancy"].get(n, 0) + c
+        leg["rounds"].append({
+            "gap_ms_p99": round(float(np.percentile(gaps, 99)), 3)
+            if gaps else None,
+            "lead_in_ms": round(lead[0], 3) if lead else None,
+            "dispatch_idle_fraction": round(
+                ws.get("dispatch_idle_fraction", 0.0), 4)})
+
+    half = max(OCCUPANCY_MIN_S, args.seconds / 2.0)
+    n_rounds = OCCUPANCY_ROUNDS.count("0")
+    legs = {m: {"http": {"map": 0, "wps": 0}, "failed": 0, "gaps": [],
+                "dispatches": 0, "requests": 0, "staged_waves": 0,
+                "cancelled": 0, "fallbacks": 0, "failed_waves": 0,
+                "occupancy": {}, "rounds": []} for m in ("0", "1")}
+    # the warm tile and drill pay scene decode and first launches
+    # outside every round's gaps; a warm tile a round pays its fresh
+    # scheduler's first wave
+    warm_ok = fetch(getmap_url(0), "map") and fetch(drill, "wps")
+    for k, mode in enumerate(OCCUPANCY_ROUNDS):
+        reset_waves()
+        os.environ["GSKY_WAVE_PIPELINE"] = mode
+        warm_ok = fetch(getmap_url(k + 1), "map") and warm_ok
+        one_round(half / n_rounds, legs[mode])
+
+    def summary(leg):
+        g = np.asarray(leg.pop("gaps"))
+        q = {f"gap_ms_p{p}": round(float(np.percentile(g, p)), 3)
+             if g.size else 0.0 for p in (50, 90, 99)}
+        return {**leg, **q, "gap_ms_max": round(float(g.max()), 3)
+                if g.size else 0.0, "gap_samples": int(g.size)}
+
+    sync, pipe = summary(legs["0"]), summary(legs["1"])
+    metrics = check_metrics(host, require=(
+        "gsky_requests_total", "gsky_wave_dispatches_total",
+        "gsky_wave_gap_ms", "gsky_wave_staged_total"))
+    trace_rep = slowest_trace_report(host)
+    sync_p99, pipe_p99 = sync["gap_ms_p99"], pipe["gap_ms_p99"]
+    n_done = sum(sync["http"].values()) + sum(pipe["http"].values())
+    out.update({
+        "warm_ok": warm_ok, "leg_s": half, "rounds": "".join(
+            "S" if m == "0" else "P" for m in OCCUPANCY_ROUNDS),
+        "synchronous": sync, "pipelined": pipe,
+        "gap_p99_reduction_x": (round(sync_p99 / pipe_p99, 2)
+                                if pipe_p99 else None),
+        "errors": errors, "metrics": metrics, "slowest_trace": trace_rep})
+    wave_end(env, server, host, out)
+    return out, verdict(out, {
+        "warm": warm_ok,
+        "served": n_done > 0,
+        "no_failures": sync["failed"] == 0 and pipe["failed"] == 0,
+        "sync_gap_samples": sync["gap_samples"] >= 3,
+        "pipelined_gap_samples": pipe["gap_samples"] >= 3,
+        "staged": pipe["staged_waves"] >= 1,
+        # under the floor the dispatch stage already enqueues back to
+        # back: the host, not the pipeline, bounds a tiny baseline
+        "gap_p99": pipe_p99 < sync_p99 or 0 < pipe_p99 <= GAP_FLOOR_MS,
+        "unpinned": out["pool_pinned"] == 0,
+        "metrics": not metrics["missing"]})
+
+
+# a wide tick lets concurrent styled tiles of one fingerprint stack into
+# one fused wave dispatch
+ALGEBRA_KNOBS = {"GSKY_WAVES": "1", "GSKY_WAVE_MAX": "8",
+                 "GSKY_WAVE_TICK_MS": "100", "GSKY_EXPR_FUSE": "1",
+                 "GSKY_PAGE_SLOTS": "16"}
+
+
+def run_algebra(env: SoakEnv, args):
+    """Fused band algebra: a storm of ``landsat_algebra`` GetMaps in its
+    twelve sources (the default and eleven styles) with an
+    ``algebraDrill`` minority.  Compiles stay bounded (the compile
+    cache misses at most once a source), the fused programs at most one
+    a structure (the twins share theirs), the same volley with
+    ``GSKY_EXPR_FUSE=0`` is byte-identical, takes the unfused leg and
+    holds data, no page left pinned.  ``programs`` counts the distinct fingerprints
+    launched through the fused epilogue (`ops.paged.note_expr_program`);
+    it counts no compiled program, as the reference's does, since the
+    port's fused epilogue is one CUDA kernel for every structure."""
+    from gsky_tpu_torch.ops import paged
+    from gsky_tpu_torch.ops.expr import reset_expr_cache
+    from gsky_tpu_torch.pipeline.waves import reset_waves
+
+    with EnvOverride(**ALGEBRA_KNOBS):
+        reset_waves()
+        reset_expr_cache()
+        paged.reset_expr_fused_stats()
+        try:
+            return _algebra(env, args, paged)
+        finally:
+            reset_waves()
+            reset_expr_cache()
+            paged.reset_expr_fused_stats()
+
+
+def _algebra(env, args, paged):
+    from gsky_tpu_torch.io.png import decode_png
+    from gsky_tpu_torch.ops.expr import (expr_cache_stats, fingerprint,
+                                         parse_band_expressions)
+
+    out = {"scenario": "algebra", **wave_start(env)}
+    # gateway off: a response-cache hit would bypass the pipeline and
+    # the bounded-compile claim would measure the cache
+    server, host = env.server(gateway=None)
+    # the sources as the served config holds them
+    cfg = next(c for c in env.watcher.configs.values()
+               if c.layer("landsat_algebra") is not None)
+    lay = cfg.layer("landsat_algebra")
+    styles = [""] + [s.name for s in lay.styles]
+    sources = [lay.rgb_products[0]] + [s.rgb_products[0]
+                                       for s in lay.styles]
+    drill_sources = list(
+        cfg.process("algebraDrill").data_sources[0].rgb_products)
+    n_structures = len({
+        fingerprint(parse_band_expressions([s]).expressions[0]).hash
+        for s in sources})
+    n_sources = len(set(sources) | set(drill_sources))
+    tiles = env.algebra_tiles()
+    drill = env.drill_url(host, "algebraDrill", at=(0.40, 0.45))
+    lock = threading.Lock()
+    counter = itertools.count()
+    errors: list = []
+
+    def fetch(url, kind):
+        """(ok, body)."""
+        ans = fetch_answer(url, errors, lock, kind, timeout=300)
+        return wave_kind_ok(ans, kind), (ans[2] if ans else b"")
+
+    # a warm lap: every source once, and one drill
+    warm_ok = all([fetch(env.algebra_url(host, s, tiles[k]), "map")[0]
+                   for k, s in enumerate(styles)])
+    warm_ok = fetch(drill, "drill")[0] and warm_ok
+
+    bad = [0]
+    n_req = {"map": 0, "drill": 0}
+
+    def one():
+        i = next(counter)
+        # the map majority rotates styles, so that concurrent arrivals
+        # mix fingerprints and the scheduler groups them by structure
+        if i % 16 == 7:
+            kind, url = "drill", drill
+        else:
+            kind, url = "map", env.algebra_url(
+                host, styles[i % len(styles)], tiles[i % len(tiles)])
+        ok = fetch(url, kind)[0]
+        with lock:
+            n_req[kind] += 1
+            bad[0] += not ok
+
+    storm(max(args.conc, 12), args.seconds, one)
+    cs = expr_cache_stats()
+    ef = paged.expr_fused_stats()
+    fused_n = sum(v for k, v in ef["paths"].items() if k != "unfused")
+
+    # the escape hatch: the same concurrent volley with fusion off, six
+    # sources at their warm-lap tiles, those over fewer products first:
+    # at the first date only the first product has a granule, so a
+    # source over both answers nodata (C.27) and cannot show a fused /
+    # unfused difference
+    n_vars = [len(parse_band_expressions([s]).var_list) for s in sources]
+    probe = [(styles[k], tiles[k]) for k in sorted(
+        range(len(styles)), key=lambda k: n_vars[k])[:6]]
+
+    def volley():
+        bodies = [None] * len(probe)
+
+        def grab(k, s, t):
+            bodies[k] = fetch(env.algebra_url(host, s, t), "map")[1]
+
+        ths = [threading.Thread(target=grab, args=(k, s, t))
+               for k, (s, t) in enumerate(probe)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(300)
+        return bodies
+
+    bodies_on = volley()
+    unfused0 = paged.expr_fused_stats()["paths"].get("unfused", 0)
+    with EnvOverride(GSKY_EXPR_FUSE="0"):
+        bodies_off = volley()
+    unfused1 = paged.expr_fused_stats()["paths"].get("unfused", 0)
+    byte_identical = all(bodies_on) and bodies_on == bodies_off
+    # stricter than the reference: the compared bodies hold data
+    with_data = sum(1 for b in bodies_on if b[:8] == PNG
+                    and np.count_nonzero(decode_png(b)[..., 3]))
+
+    ws = wave_stats_of(env.device)
+    metrics = check_metrics(host, require=(
+        "gsky_requests_total", "gsky_wave_dispatches_total",
+        "gsky_expr_fused_total", "gsky_expr_cache_hits_total",
+        "gsky_expr_programs"))
+    out.update({
+        "warm_ok": warm_ok, "requests": n_req, "failed": bad[0],
+        "errors": errors, "sources": n_sources,
+        "structures": n_structures, "expr_cache": cs,
+        "fused": {"programs": ef["programs"], "paths": ef["paths"],
+                  "dispatches": fused_n},
+        "escape_hatch_byte_identical": byte_identical,
+        "escape_hatch_unfused": unfused1 - unfused0,
+        "escape_hatch_probe": [s for s, _ in probe],
+        "escape_hatch_with_data": with_data,
+        "waves": {k: ws.get(k) for k in
+                  ("dispatches", "requests", "occupancy", "cancelled",
+                   "fallbacks", "failed")},
+        "metrics": metrics})
+    wave_end(env, server, host, out)
+    return out, verdict(out, {
+        "warm": warm_ok,
+        "served": sum(n_req.values()) > 0,
+        "no_failures": bad[0] == 0,
+        "fused": fused_n > 0,
+        # the misses are the distinct sources compiled: a storm that
+        # recompiled per request would blow far past them
+        "compiles_bounded": 0 < cs["misses"] <= n_sources
+        and cs["hits"] > cs["misses"],
+        # at most one program a structure: the twins shared theirs
+        "fingerprint_sharing": 1 <= ef["programs"] <= n_structures,
+        "escape_hatch_byte_identical": byte_identical,
+        "escape_hatch_unfused": unfused1 > unfused0,
+        "escape_hatch_has_data": with_data > 0,
+        "unpinned": out["pool_pinned"] == 0,
+        "metrics": not metrics["missing"]})
+
+
+# a wide tick gives each sequence's frame lanes a coalescing window
+ANIMATION_KNOBS = {"GSKY_WAVES": "1", "GSKY_WAVE_MAX": "8",
+                   "GSKY_WAVE_TICK_MS": "100", "GSKY_ANIM": "1"}
+# the reference's holds (prep, render and container windows), and
+# shorter ones: a card answers a sequence in tens of milliseconds
+ANIMATION_HOLDS = (0.005, 0.01, 0.02, 0.05, 0.15, 0.35, 0.7, 1.2, 2.0)
+
+
+def run_animation(env: SoakEnv, args):
+    """Temporal wave serving: APNG sequences over every date whose
+    frames share wave dispatches (the serial warm sequence in at most
+    half as many waves as frames), an mp4 minority answered as labelled
+    APNG, disconnects that cancel a sequence or its lanes, no page left
+    pinned."""
+    from gsky_tpu_torch.obs import metrics as om
+    from gsky_tpu_torch.pipeline.waves import reset_waves
+
+    with EnvOverride(**ANIMATION_KNOBS):
+        reset_waves()
+        om.reset_temporal()
+        try:
+            return _animation(env, args, om)
+        finally:
+            reset_waves()
+            om.reset_temporal()
+
+
+def _animation(env, args, om):
+    out = {"scenario": "animation", **wave_start(env)}
+    # gateway off: the warm sequence must measure the scheduler
+    server, host = env.server(gateway=None)
+    n_frames = len(env.dates)
+    tiles = env.anim_tiles()
+    lock = threading.Lock()
+    counter = itertools.count()
+    errors: list = []
+
+    def fetch(url, kind) -> bool:
+        # a flat 200 APNG (the signature, acTL) of every frame; the mp4
+        # stub labelled as APNG bytes
+        ans = fetch_answer(url, errors, lock, kind)
+        if ans is None or ans[0] != 200:
+            return False
+        status, headers, body = ans
+        if body[:8] != PNG or b"acTL" not in body[:256] \
+                or headers.get("X-Gsky-Anim-Frames") != str(n_frames):
+            return False
+        return kind != "mp4" \
+            or headers.get("X-Gsky-Anim-Container") == "apng-stub"
+
+    # the serial warm sequence: with nothing else in flight its wave
+    # delta is its own (the storm's deltas are telemetry only); the
+    # server records it a beat after the client has read it
+    warm_ok = fetch(env.anim_url(host, tiles[0]), "apng")
+    st_warm = om.temporal_stats()
+    t_w = time.time() + 10
+    while time.time() < t_w and st_warm.get("sequences", 0) < 1:
+        time.sleep(0.1)
+        st_warm = om.temporal_stats()
+    warm_frames = int(st_warm.get("frames", 0))
+    warm_waves = int(st_warm.get("waves", 0))
+
+    bad = [0]
+    n_req = {"apng": 0, "mp4": 0}
+
+    def one():
+        i = next(counter)
+        kind = "mp4" if i % 10 == 0 else "apng"
+        ok = fetch(env.anim_url(host, tiles[i % len(tiles)],
+                                "video/mp4" if kind == "mp4"
+                                else "image/apng"), kind)
+        with lock:
+            n_req[kind] += 1
+            bad[0] += not ok
+
+    storm(max(args.conc, 8), args.seconds, one)
+
+    # a sequence aborted mid-flight is cancelled in its streaming loop
+    # (the sequences' cancelled outcome) or earlier, where its request's
+    # token drops its frame lanes from the wave (the scheduler's)
+    def cancelled():
+        return int(om.temporal_stats().get("cancelled", 0)
+                   + wave_stats_of(env.device).get("cancelled", 0))
+
+    c0 = cancelled()
+
+    def path_of():
+        i = next(counter)
+        return env.anim_url(host, tiles[i % len(tiles)]).split(host, 1)[1]
+
+    cancel_seen, volleys = disconnect_volleys(
+        host, path_of, ANIMATION_HOLDS, lambda: cancelled() - c0)
+    st = om.temporal_stats()
+    metrics = check_metrics(host, require=(
+        "gsky_requests_total", "gsky_request_seconds",
+        "gsky_anim_sequences_total", "gsky_anim_frames_per_wave",
+        "gsky_wave_dispatches_total"))
+    trace_rep = slowest_trace_report(host)
+    ws = wave_stats_of(env.device)
+    out.update({
+        "warm_ok": warm_ok, "frames": n_frames,
+        "warm_amortisation": {"frames": warm_frames, "waves": warm_waves},
+        "requests": n_req, "failed": bad[0], "errors": errors,
+        "cancellation": {"seen": cancel_seen, "volleys": volleys},
+        "temporal": st,
+        "waves": {k: ws.get(k) for k in
+                  ("dispatches", "requests", "occupancy", "cancelled",
+                   "fallbacks", "failed")},
+        "metrics": metrics, "slowest_trace": trace_rep})
+    wave_end(env, server, host, out)
+    return out, verdict(out, {
+        "warm": warm_ok,
+        "warm_amortised": warm_frames == n_frames
+        and warm_waves * 2 <= warm_frames,
+        "served": sum(n_req.values()) > 0,
+        "no_failures": bad[0] == 0,
+        "sequences": st.get("sequences", 0) >= 1,
+        "cancelled": cancel_seen >= 1,
+        "unpinned": out["pool_pinned"] == 0,
+        "metrics": not metrics["missing"]})
+
+
 RUNS = {"churn": run_churn, "hot": run_hot, "wcs": run_wcs,
         "chaos": run_chaos, "burst": run_burst, "wave": run_wave,
         "dap4": run_dap4, "overload": run_overload, "ingest": run_ingest,
-        "fleet": run_fleet}
+        "fleet": run_fleet, "occupancy": run_occupancy,
+        "algebra": run_algebra, "animation": run_animation}
 
 
 def run(args) -> int:
