@@ -408,6 +408,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    no page pinned, no plain-version call, the first B1 launch of each method and n_ns
    (expression lanes at n_ns 2 included) and the first B3 launch of
    each form held against their plain versions (``--phase 29`` alone).
+30. the soak's fabric (``--seconds 20``) and elastic (``--seconds 30``)
+   over the same archive, their worker nodes on the card (a process and
+   a page journal each), each held to the tool's criteria, no page
+   pinned, no plain-version call here, the first B1 launch (the seed
+   laps, rendered here) and the first B4 launch (the remote tiles,
+   mosaicked here) held against their plain versions, every node boot
+   rendering on the card (``worker_info``'s ``platform``; the nodes'
+   launches are reported: they warp in plain torch, as the reference's
+   gather, and launch none).  Not in the default run (it boots
+   9-11 node processes, 19-28 s each; phases 23 and 24 drive the fabric
+   and elastic paths there): ``python3 chip_smoke.py --phase 30`` runs
+   phase 1 and phase 30 alone, and prints its launches here and on the
+   nodes as a JSON line.
 
 Then each kernel's device time (torch.profiler) is taken at the main
 path's shapes beside its plain version and its memory bound (B1 and B2
@@ -10289,6 +10302,144 @@ def phase_29_alone(card):
     return 0
 
 
+# -- phase 30: the soak's fabric and elastic on the card ----------------
+
+# 30: each scenario's --seconds, the reference's documented commands
+SOAK30_S = {"fabric": 20.0, "elastic": 30.0}
+SOAK30_RUNS = tuple(SOAK30_S)
+
+
+def phase_soak_nodes(card, env):
+    """30: `tools/soak_torch.py`'s fabric and elastic on the card over
+    `SoakArchive`'s four Landsat-size dates, their worker nodes on the
+    card (a process each, a page journal each), each through the tool's
+    own scenario function on the default serving path and held to the
+    tool's criteria; no page pinned at the end of either, no
+    plain-version call in this process; the phase's first B1 launch of
+    each method (the seed laps' tiles, rendered here: `CheckWide`) and
+    its first B4 launch (the remote tiles, mosaicked here) held against
+    their plain versions; every node boot's executor on the card
+    (``worker_info``'s ``platform``).  The nodes warp the Landsat
+    granules in plain torch (the reference's gather: `WarpExecutor.
+    warp_all`) and their prewarm, without layers, builds and launches
+    nothing, so their launches (``worker_info``'s ``kernels``) are
+    reported, not held.  Returns (launches here by kernel, the nodes'
+    launches by kernel, max |diff| by kernel, node boots)."""
+    import torch
+    from gsky_tpu_torch.ops import first_valid
+    st = soak_tool()
+    kernels = _kernel_counts()
+    outs, launches, secs = {}, {}, {}
+    # no prewarm in the soak's servers: the first launches held are the
+    # scenarios' own; the nodes prewarm before they listen, as deployed
+    # nodes do
+    env.prewarm = False
+    with WavesOn():
+        torch.cuda.synchronize()
+        chk = CheckWide((256, 256), what="30")
+        b4 = CaptureFirst(first_valid, "mosaic_first_valid_kernel")
+        plain = PlainCalls()
+        try:
+            for name in SOAK30_RUNS:
+                reset_counts(kernels)
+                t0 = time.perf_counter()
+                try:
+                    outs[name] = st.RUNS[name](env, st.parse_args(
+                        ["--seconds", str(SOAK30_S[name])]))
+                finally:
+                    env.close()
+                secs[name] = time.perf_counter() - t0
+                launches[name] = read_counts(kernels)
+        finally:
+            plain.remove()
+            b4.remove()
+            chk.remove()
+    for name in SOAK30_RUNS:
+        out, ok = outs[name]
+        log(f"phase 30 {name}: {json.dumps(out)}")
+        log(f"phase 30 {name}: {'passed' if ok else 'FAILED'} in "
+            f"{secs[name]:.1f} s, launches {launches[name]}, on the nodes "
+            f"{out.get('node_kernels')} ({card})")
+    failed = {n: outs[n][0].get("unmet", outs[n][0].get("error"))
+              for n in SOAK30_RUNS if not outs[n][1]}
+    if failed:
+        raise AssertionError(f"30: the soak failed, unmet: {failed}")
+    fa, el = (outs[n][0] for n in SOAK30_RUNS)
+    log(f"phase 30 fabric: storm {fa['storm']} (cache {fa['storm_cache']}"
+        f"), recovery {fa['recovery']}, replay {fa['recovery_replay']}, "
+        f"peer-served {fa['recovery_peer_served']}; the revived node "
+        f"{fa['worker_refill']}; escape hatch {fa['fabric_off']}; nodes' "
+        f"VmRSS MB {fa['node_rss']}")
+    log(f"phase 30 elastic: decisions {el['decisions']}, counters "
+        f"{el['counters']}, hand-off {el['handoff']} "
+        f"({el['handoff_notes']}), p99 s {el['p99_s']}, responses "
+        f"{el['responses']}, escape hatch {el['elastic_off']}; nodes' "
+        f"VmRSS MB {el['node_rss']}")
+    pinned = {n: outs[n][0]["pool"]["pinned"] for n in SOAK30_RUNS
+              if outs[n][0]["pool"]["pinned"]}
+    if pinned:
+        raise AssertionError(f"30: pages pinned at the end: {pinned}")
+    if plain.calls:
+        raise AssertionError(f"30: {plain.calls} plain-version calls on "
+                             f"the card")
+    errs = {}
+    held = [v for (k, _), v in chk.errs.items() if k == "B1"]
+    if not held:
+        raise AssertionError(f"30: no B1 launch held against its plain "
+                             f"version ({launches})")
+    errs["B1"] = max(held)
+    if any(k == "B2" for k, _ in chk.errs):
+        errs["B2"] = max(v for (k, _), v in chk.errs.items() if k == "B2")
+    if b4.args is None:
+        raise AssertionError(f"30: no B4 launch ({launches})")
+    saved = first_valid.first_valid_kernel.launches
+    b4_same(first_valid.mosaic_first_valid_kernel(*b4.args[0]),
+            first_valid.mosaic_first_valid_plain(*b4.args[0]),
+            "30 B4 vs plain")
+    first_valid.first_valid_kernel.launches = saved
+    errs["B4"] = 0.0
+    total = {k: sum(launches[n][k] for n in SOAK30_RUNS) for k in kernels}
+    nodes = {k: sum(int((outs[n][0].get("node_kernels") or {}).get(s, 0))
+                    for n in SOAK30_RUNS for s in syms)
+             for k, syms in WORKER_SYMBOLS.items()}
+    log(f"phase 30: the first B1 launch of each method against its plain "
+        f"version, max |diff| {sorted(chk.errs.items())}; the first B4 "
+        f"launch ({tuple(b4.args[0][0].shape)}) bit-exact; launches here "
+        f"{total}, on the nodes {nodes}")
+    if not total["B4"] or not all(launches[n]["B4"] for n in SOAK30_RUNS):
+        raise AssertionError(f"30: a scenario's remote tiles launched no "
+                             f"B4: {launches}")
+    boots = {f"{n} {b}": p for n in SOAK30_RUNS
+             for b, p in outs[n][0]["boot_platforms"].items()}
+    off_card = {b: p for b, p in boots.items() if p != "cuda"}
+    if off_card or not boots:
+        raise AssertionError(f"30: node boots off the card: {off_card}")
+    log(f"phase 30: {len(boots)} node boots, each rendering on the card "
+        f"(worker_info platform cuda)")
+    return total, nodes, errs, len(boots)
+
+
+def phase_30_alone(card):
+    """``--phase 30``: phase 30 alone (after phase 1): its JSON line of
+    launches here and on the nodes by kernel, with each kernel's max
+    |diff| against its plain version, before the card's line; no
+    result line."""
+    os.environ["GSKY_PREFETCH"] = "0"
+    t0 = time.perf_counter()
+    with SoakArchive() as env:
+        launches, nodes, errs, boots = phase_soak_nodes(card, env)
+    log(f"phase 30: launches {launches}, on the nodes {nodes} ({boots} "
+        f"boots), max |diff| {errs} ({time.perf_counter() - t0:.1f} s)")
+    names = {"B1": "paged_render (B1)", "B2": "warp_render (B2)",
+             "B3": "masked_stats (B3)", "B4": "first_valid (B4)"}
+    print(json.dumps({"phase": 30, "kernels": [
+        {"name": names[k], "launches": launches[k],
+         "node_launches": nodes[k], "max_abs_err": errs.get(k)}
+        for k in names]}), flush=True)
+    print(f"card: {card}", flush=True)
+    return 0
+
+
 def torch_equal(a, b):
     import torch
     return bool(torch.equal(a, b))
@@ -10323,6 +10474,8 @@ def main() -> int:
         return phase_28_alone(card)
     if sys.argv[1:] == ["--phase", "29"]:
         return phase_29_alone(card)
+    if sys.argv[1:] == ["--phase", "30"]:
+        return phase_30_alone(card)
 
     # -- phase 2: kernels vs plain on the card ------------------------
     n_cmp = phase_kernels()

@@ -148,14 +148,19 @@ def _scored_entries(doc: dict) -> list:
 class WorkerService:
     """Op dispatch shared by the RPC server and in-process callers.
     ``device`` ("cuda" by default) is where the executor renders;
-    without CUDA it must be "cpu"."""
+    without CUDA it must be "cpu".  ``executor``: the `WarpExecutor`
+    whose page pool ``page_fetch`` serves and whose device warps, by
+    default one of its own on ``device``; an OWS server's, for a page
+    peer fronting the pool that server's renders fill."""
 
-    def __init__(self, pool: ProcessPool, device="cuda"):
+    def __init__(self, pool: ProcessPool, device="cuda", executor=None):
         self.device = resolve_device(device)
         self.pool = pool
         self.drain = DrainController("worker-node")
-        from ..pipeline.executor import WarpExecutor
-        self.executor = WarpExecutor(device=self.device)
+        if executor is None:
+            from ..pipeline.executor import WarpExecutor
+            executor = WarpExecutor(device=self.device)
+        self.executor = executor
         # the elastic lifecycle (`fleet.elastic`): how this node names
         # itself to its peers (set by `main`, or GSKY_ELASTIC_SELF), the
         # preemption's state and the hand-off's counts

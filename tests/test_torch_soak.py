@@ -111,7 +111,8 @@ def run(senv, name, seconds=None):
 
 @pytest.mark.parametrize("name", [n for n in st.SCENARIOS if n not in (
     "hot", "overload", "ingest", "fleet",       # soak_ops, soak_fleet
-    "occupancy", "algebra", "animation")])      # soak_waves
+    "occupancy", "algebra", "animation",        # soak_waves
+    "fabric", "elastic")])                      # soak_fabric, _elastic
 def test_scenario_passes(senv, fresh, name):
     out, ok = run(senv, name)
     assert ok, json.dumps(out)[:4000]

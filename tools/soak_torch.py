@@ -2,7 +2,7 @@
 """Soak the PyTorch/CUDA port's in-process OWS server.
 
 The port's counterpart of ``tools/soak.py``: a long-lived server under
-concurrent distinct requests, held to the reference's bounds.  Thirteen
+concurrent distinct requests, held to the reference's bounds.  Fifteen
 scenarios, each with the pass criteria and knobs of its reference
 counterpart:
 
@@ -120,6 +120,37 @@ answer a 200 APNG (signature, ``acTL``) of every frame
 disconnect volley cancelling a sequence or its lanes, no pin, the
 animation families in a strict ``/metrics``.
 
+``--scenario fabric``: two gateway replicas (a response cache and a
+``ReplayFabric`` each) over a ``fabric`` namespace of three worker nodes
+(`Nodes`, ``GSKY_FABRIC=1``, the other nodes their page peers, a page
+journal each): a Zipf storm across both gateways at ``min(--conc, 4)``
+for ``max(8, --seconds / 2)`` s, every hot tile fetched from B; A
+replaced by a cold replica that fetches each tile twice; a seed lap of
+``/ows`` tiles on B stages B's pool, a page peer in this process (the
+real worker RPC, `page_peer`) serves it, and a node SIGKILLed and
+revived with that peer refills over ``page_fetch``; ``GSKY_FABRIC=0``
+against a fabric-less server.  No bare 5xx or dropped connection, a
+replay rate of at least 0.5 with answers labelled ``X-Gsky-Cache:
+peer``, ``peer_filled`` at least half of the revived node's
+``rehydrated``, the escape hatch byte-identical and dormant, the fabric
+families in a strict ``/metrics`` and a ``/debug`` ``fabric`` block.
+
+``--scenario elastic``: the autoscaler (``min_nodes=2``,
+``max_nodes=4``, thresholds 0.5 / 0.2, ``node_conc=1``, the reference's
+arguments) over `LocalSubprocessProvider` nodes (a page journal each,
+their page peer the one in this process, up before the first boots:
+C.28): a ramp at 2, 4 then 8 clients, two preemptions with a 6 s grace
+under load at 4, the floor refilled, a third member at 8 clients
+(C.29), a steady phase at 4 and a quiet one, and
+``GSKY_ELASTIC=0``.  No bare 5xx or dropped connection, an up and a
+down decision, a join gated on readiness, both preemptions noticed,
+purged and counted (one graceful at least), the hand-off's ``filled``
+at least its ``cold``, the steady p99 under 90 s, the escape hatch
+byte-identical with no elastic family or ``/debug`` block, the elastic
+families in a strict ``/metrics``.  Both report each node's VmRSS,
+each boot's first ``worker_info`` (``boot_pools``) and the nodes'
+launches (``node_kernels``).
+
 Each scenario from ``overload`` on names its failed criteria in the
 JSON's ``unmet`` and reports, on a card, ``memory_allocated`` and
 ``memory_reserved`` of the serving process at its start and end.
@@ -172,7 +203,7 @@ sys.path.insert(0, HERE)
 
 SCENARIOS = ("churn", "hot", "wcs", "chaos", "burst", "wave", "dap4",
              "overload", "ingest", "fleet", "occupancy", "algebra",
-             "animation")
+             "animation", "fabric", "elastic")
 N_PRODUCTS = 4                     # the reference's layers list four
 GEO_CACHE_MAX = 256                # pipeline/executor.py _GEO_CACHE_MAX
 REF_SCENE = 1536                   # the reference soak's scene edge
@@ -529,20 +560,21 @@ class SoakEnv:
         self.prewarm = True
         self._served = []
 
-    def server(self, gateway=None, metrics=None):
+    def server(self, gateway=None, metrics=None, fabric=None):
         """(OWSServer, "host:port") serving this archive on a thread;
         ``gateway`` None serves every request raw; ``metrics`` its
-        records' sink (a fresh `MetricsLogger` by default).  On a card the
-        kernels are built, loaded and launched before it listens, as
-        the command line's server does (`server.prewarm`): a first
-        request that waited for nvcc took up to 30 s, past the layers'
-        20 s WMS deadline."""
+        records' sink (a fresh `MetricsLogger` by default); ``fabric``
+        its replay ring (a `fabric.replay.ReplayFabric`; None: none).
+        On a card the kernels are built, loaded and launched before it
+        listens, as the command line's server does (`server.prewarm`):
+        a first request that waited for nvcc took up to 30 s, past the
+        layers' 20 s WMS deadline."""
         from gsky_tpu_torch.server.metrics import MetricsLogger
         from gsky_tpu_torch.server.ows import OWSServer
         from gsky_tpu_torch.server.prewarm import prewarm_from_watcher
         srv = OWSServer(self.watcher, mas_factory=lambda a: self.mas,
                         device=self.device, gateway=gateway,
-                        metrics=metrics or MetricsLogger())
+                        metrics=metrics or MetricsLogger(), fabric=fabric)
         if self.device.type == "cuda" and self.prewarm:
             prewarm_from_watcher(self.watcher, srv.executor)
         httpd = srv.serve("127.0.0.1", 0)
@@ -618,12 +650,12 @@ class SoakEnv:
         return self.getmap(host, "landsat", fx, fy, self.unit * 0.22,
                            self.dates[i % min(4, len(self.dates))])
 
-    def fleet_namespace(self, nodes) -> None:
-        """Write the ``fleet`` namespace (its layer ``landsat_fleet``
+    def fleet_namespace(self, nodes, name: str = "fleet") -> None:
+        """Write the namespace ``name`` (its layer ``landsat_<name>``
         over the soak's products, ``worker_nodes`` ``nodes``), in a
         directory of its own so that its nodes reach no other layer, and
         reload; ``nodes`` None removes it."""
-        d = os.path.join(self.conf_dir, "fleet")
+        d = os.path.join(self.conf_dir, name)
         if nodes is None:
             shutil.rmtree(d, ignore_errors=True)
         else:
@@ -634,7 +666,8 @@ class SoakEnv:
                                        "mas_address": "",
                                        "worker_nodes": list(nodes)},
                     "layers": [{
-                        "name": "landsat_fleet", "title": "fleet soak",
+                        "name": f"landsat_{name}",
+                        "title": f"{name} soak",
                         "data_source": self.root,
                         "rgb_products": [product(k)
                                          for k in range(N_PRODUCTS)],
@@ -644,9 +677,10 @@ class SoakEnv:
                         "wcs_max_tile_height": 256}]}, fp)
         self.watcher.reload()
 
-    def fleet_tiles(self):
-        """The fleet's fixed 3 x 3 grid of (fx, fy)."""
-        frac = np.linspace(0.0, 0.75, 3)
+    def fleet_tiles(self, n: int = 3):
+        """The fleet's fixed ``n`` x ``n`` grid of (fx, fy) (the
+        fabric's is 4 x 4)."""
+        frac = np.linspace(0.0, 0.75, n)
         return [(float(fx), float(fy)) for fx in frac for fy in frac]
 
     def fleet_url(self, host: str, tile, layer: str = "landsat_fleet",
@@ -1041,11 +1075,19 @@ def classify(url: str, hard=None, need_retry_after: bool = True) -> str:
     not OGC XML or, with ``need_retry_after``, a 503 without
     Retry-After) or transport (a dropped connection).  A hard answer's
     status and body head go to ``hard`` (a list, its first 5 kept)."""
+    return classify_answer(url, hard, need_retry_after)[0]
+
+
+def classify_answer(url: str, hard=None, need_retry_after: bool = True,
+                    timeout: float = 120.0):
+    """(`classify`'s class, the answer's ``X-Gsky-Cache``, its body);
+    the body is empty unless the class is ok or degraded."""
     try:
-        with urllib.request.urlopen(url, timeout=120) as r:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
             degraded = r.headers.get("X-GSKY-Degraded")
-            r.read()
-            return "degraded" if degraded else "ok"
+            body = r.read()
+            return ("degraded" if degraded else "ok",
+                    r.headers.get("X-Gsky-Cache", ""), body)
     except urllib.error.HTTPError as e:
         ctype = e.headers.get("Content-Type", "")
         body = e.read()
@@ -1055,12 +1097,12 @@ def classify(url: str, hard=None, need_retry_after: bool = True) -> str:
             if hard is not None and len(hard) < 5:
                 hard.append(f"{e.code} {ctype} "
                             f"{body[:300].decode(errors='replace')}")
-            return "hard_5xx"
-        return "ogc_error"
+            return "hard_5xx", "", b""
+        return "ogc_error", "", b""
     except (OSError, ValueError) as exc:
         if hard is not None and len(hard) < 5:
             hard.append(f"transport {exc!r:.200}")
-        return "transport"
+        return "transport", "", b""
 
 
 def run_chaos(env: SoakEnv, args):
@@ -2005,6 +2047,33 @@ def free_port() -> int:
     return port
 
 
+def worker_info(addr: str, timeout: float = 30.0) -> dict:
+    """A node's ``worker_info`` over a fresh channel: its ``info_json``
+    with ``platform``, the device type its executor renders on."""
+    from gsky_tpu_torch.worker import gskyrpc as pb
+    from gsky_tpu_torch.worker.client import dial
+    ch, call = dial(addr)
+    try:
+        res = call(pb.Task(operation="worker_info"), timeout=timeout)
+    finally:
+        ch.close()
+    info = json.loads(res.info_json or "{}")
+    info["platform"] = res.worker.platform
+    return info
+
+
+def pid_rss_mb(pid: int):
+    """A process's ``VmRSS`` in MiB (None once it has exited)."""
+    try:
+        with open(f"/proc/{pid}/status") as fp:
+            for line in fp:
+                if line.startswith("VmRSS:"):
+                    return round(int(line.split()[1]) / 1024.0, 1)
+    except OSError:
+        pass
+    return None
+
+
 class Nodes:
     """Worker nodes (``python -m gsky_tpu_torch.worker.server``), each a
     process of its own on ``device`` (``-device``; a node asked for
@@ -2050,15 +2119,8 @@ class Nodes:
             return ""
 
     def info(self, port: int, timeout: float = 30.0) -> dict:
-        """``worker_info``'s ``info_json`` over a fresh channel."""
-        from gsky_tpu_torch.worker import gskyrpc as pb
-        from gsky_tpu_torch.worker.client import dial
-        ch, call = dial(f"127.0.0.1:{port}")
-        try:
-            res = call(pb.Task(operation="worker_info"), timeout=timeout)
-            return json.loads(res.info_json or "{}")
-        finally:
-            ch.close()
+        """`worker_info` of the node on ``port``."""
+        return worker_info(f"127.0.0.1:{port}", timeout)
 
     def wait_ready(self, port: int, deadline_s: float) -> bool:
         """Poll ``worker_info`` until the node answers, False when it
@@ -2084,14 +2146,7 @@ class Nodes:
 
     def rss_mb(self, port: int):
         """The node's ``VmRSS`` in MiB (None once it has exited)."""
-        try:
-            with open(f"/proc/{self.procs[port].pid}/status") as fp:
-                for line in fp:
-                    if line.startswith("VmRSS:"):
-                        return round(int(line.split()[1]) / 1024.0, 1)
-        except OSError:
-            pass
-        return None
+        return pid_rss_mb(self.procs[port].pid)
 
     def close(self) -> None:
         for proc in self.procs.values():
@@ -2848,11 +2903,689 @@ def _animation(env, args, om):
         "metrics": not metrics["missing"]})
 
 
+# -- fabric, elastic -------------------------------------------------------
+
+FABRIC_MIN_S = 8.0             # the reference's shortest storm
+FABRIC_GRID = 4                # the reference's 4 x 4 hot tiles
+# the waits that bound the fabric's legs (s), the reference's: every
+# node listening, the first remote tile, the killed node's revival and
+# its first page from a peer
+FABRIC_WAIT_S = {"boot": 600.0, "warm": 420.0, "revive": 300.0,
+                 "refill": 90.0}
+
+
+class LegClock:
+    """Seconds between marks, by leg: where a scenario's time goes."""
+
+    def __init__(self):
+        self.t = time.monotonic()
+        self.legs: dict = {}
+
+    def mark(self, leg: str) -> None:
+        now = time.monotonic()
+        self.legs[leg] = round(now - self.t, 1)
+        self.t = now
+
+
+def page_peer(device, executor):
+    """(service, RPC server, "host:port"): the real worker RPC over
+    ``executor``'s page pool, in this process, on a free port: the page
+    peer whose pool this process's renders fill (``page_fetch``,
+    ``journal_export`` of this process's journal)."""
+    from gsky_tpu_torch.worker.pool import ProcessPool
+    from gsky_tpu_torch.worker.server import WorkerService, make_server
+    svc = WorkerService(ProcessPool(size=1), device=device,
+                        executor=executor)
+    srv = make_server(svc, "127.0.0.1:0").start()
+    return svc, srv, f"127.0.0.1:{srv.port}"
+
+
+def close_page_peer(peer) -> None:
+    """Stop a `page_peer`, its decode pool and its preemption hook."""
+    from gsky_tpu_torch.resilience import faults
+    svc, srv, _ = peer
+    srv.stop(0)
+    svc.close()
+    faults.set_preempt_handler(None)
+
+
+def node_launches(infos: dict) -> dict:
+    """Each kernel's launches summed over ``worker_info`` answers."""
+    total: dict = {}
+    for info in infos.values():
+        for k, v in ((info or {}).get("kernels") or {}).items():
+            total[k] = total.get(k, 0) + int(v)
+    return total
+
+
+def run_fabric(env: SoakEnv, args):
+    """Two gateway replicas on the replay ring over three page-peered
+    worker nodes (`Nodes`, a page journal each): a Zipf storm across
+    both, gateway A replaced by a cold replica that serves the hot set
+    from B's bytes, a node SIGKILLed and revived whose warm boot refills
+    its pool from a page peer in this process, and a ``GSKY_FABRIC=0``
+    leg byte-identical to a fabric-less server.  The knobs are restored,
+    every node killed and the namespace removed at the end."""
+    journal = os.path.join(env.root, "fabric-journal.jsonl")
+    if os.path.exists(journal):
+        os.remove(journal)
+    nodes = Nodes(env.root, str(env.device))
+    held: dict = {}
+    try:
+        with EnvOverride(GSKY_FABRIC="1", GSKY_POOL_JOURNAL=journal):
+            return _fabric(env, args, nodes, held)
+    finally:
+        if held.get("peer"):
+            close_page_peer(held["peer"])
+        nodes.close()
+        env.fleet_namespace(None, "fabric")
+
+
+def _fabric(env, args, nodes, held):
+    from gsky_tpu_torch.fabric.replay import ReplayFabric
+    from gsky_tpu_torch.serving import ServingGateway
+
+    mem0 = card_memory(env.device)
+    clock = LegClock()
+    ports = [free_port() for _ in range(3)]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+
+    def node_env(port: int, page_peers: str = "") -> dict:
+        # a journal of each node's own (C.18); the page peers are the
+        # other nodes, as the reference configures them
+        me = f"127.0.0.1:{port}"
+        return {"GSKY_FABRIC": "1",
+                "GSKY_FABRIC_PAGE_PEERS": page_peers or ",".join(
+                    a for a in addrs if a != me),
+                "GSKY_POOL_JOURNAL": os.path.join(
+                    env.root, f"fabric-journal-{port}.jsonl")}
+
+    for p in ports:
+        nodes.spawn(p, node_env(p))
+    boot_end = time.time() + FABRIC_WAIT_S["boot"]
+    for p in ports:
+        if not nodes.wait_ready(p, max(boot_end - time.time(), 1.0)):
+            return {"scenario": "fabric", "device": str(env.device),
+                    "error": f"node :{p} never came up",
+                    "node_log": nodes.log_tail(p)}, False
+    boot_pools = {f"{a} start": nodes.first_info[p].get("pool")
+                  for a, p in zip(addrs, ports)}
+    # the device each boot's executor renders on
+    boot_platforms = {f"{a} start": nodes.first_info[p].get("platform")
+                      for a, p in zip(addrs, ports)}
+    rss = {a: {"start_mb": nodes.rss_mb(p)} for a, p in zip(addrs, ports)}
+    clock.mark("boot")
+    env.fleet_namespace(addrs, "fabric")
+
+    # the ring wants each replica's address before it listens: boot
+    # with placeholders, then set the membership (a generation bump, as
+    # a redeploy's)
+    fab_a = ReplayFabric("http://pending-a", [])
+    fab_b = ReplayFabric("http://pending-b", [])
+    srv_a, host_a = env.server(gateway=ServingGateway(), fabric=fab_a)
+    srv_b, host_b = env.server(gateway=ServingGateway(), fabric=fab_b)
+    url_a, url_b = f"http://{host_a}", f"http://{host_b}"
+    fab_a.self_addr = url_a
+    fab_a.set_peers([url_b])
+    fab_b.self_addr = url_b
+    fab_b.set_peers([url_a])
+
+    tiles = env.fleet_tiles(FABRIC_GRID)
+    rng = np.random.default_rng(7)
+    ranks = (rng.zipf(1.2, size=100_000) - 1) % len(tiles)
+    hard: list = []
+
+    def url_for(host: str, k: int) -> str:
+        return env.fleet_url(host, tiles[k], "landsat_fabric", "/fabric")
+
+    def fetchc(url: str):
+        return classify_answer(url, hard, need_retry_after=False,
+                               timeout=180.0)
+
+    # warm: the first remote tile pays each node's first warp
+    warm_end = time.time() + FABRIC_WAIT_S["warm"]
+    while time.time() < warm_end:
+        if fetchc(url_for(host_a, 0))[0] == "ok":
+            break
+        time.sleep(2.0)
+    clock.mark("warm")
+
+    # A: a Zipf storm alternating gateways; both caches fill, and a
+    # non-owner's miss replays across the ring
+    counts: dict = {}
+    cache_outcomes: dict = {}
+    counter = itertools.count()
+    lock = threading.Lock()
+
+    def one(_):
+        i = next(counter)
+        host = host_a if i % 2 == 0 else host_b
+        c, src, _body = fetchc(url_for(host, int(ranks[i % len(ranks)])))
+        with lock:
+            counts[c] = counts.get(c, 0) + 1
+            if src:
+                cache_outcomes[src] = cache_outcomes.get(src, 0) + 1
+
+    conc = min(args.conc, 4)
+    t_end = time.time() + max(args.seconds * 0.5, FABRIC_MIN_S)
+    with cf.ThreadPoolExecutor(conc) as ex:
+        while time.time() < t_end:
+            list(ex.map(one, range(conc * 2)))
+    # every hot tile resident on B, the survivor, before A goes: the
+    # recovery then measures the fabric, not luck
+    for k in range(len(tiles)):
+        fetchc(url_for(host_b, k))
+    clock.mark("storm")
+
+    # B: gateway A dies; a cold replica takes its place and must refill
+    # from B's bytes over the ring, not by rendering
+    env.release(srv_a)
+    fab_a2 = ReplayFabric("http://pending-a2", [])
+    _srv_a2, host_a2 = env.server(gateway=ServingGateway(), fabric=fab_a2)
+    fab_a2.self_addr = f"http://{host_a2}"
+    fab_a2.set_peers([url_b])
+    fab_b.set_peers([f"http://{host_a2}"])      # B re-homes too
+    recovery_counts: dict = {}
+    peer_served = 0
+    for k in list(range(len(tiles))) * 2:
+        c, src, _body = fetchc(url_for(host_a2, k))
+        recovery_counts[c] = recovery_counts.get(c, 0) + 1
+        if src == "peer":
+            peer_served += 1
+    a2 = fab_a2.stats()["outcomes"]
+    probed = a2.get("hit", 0) + a2.get("miss", 0) + a2.get("error", 0)
+    replay_rate = a2.get("hit", 0) / max(probed, 1)
+    clock.mark("recovery")
+
+    # C: page peering.  The default namespace renders in this process
+    # (B's executor, the one every namespace of B shares): a seed lap
+    # of /ows tiles stages its pool and this process's journal, the
+    # real worker RPC serves that pool, and a SIGKILLed node revived
+    # with it as its page peer must refill over page_fetch
+    for k in list(range(len(tiles))) * 2:      # twice: stage, then heat
+        fetchc(env.fleet_url(host_b, tiles[k], "landsat", ""))
+    seeded = srv_b.executor.pool.stats()
+    held["peer"] = page_peer(env.device, srv_b.executor)
+    peer_addr = held["peer"][2]
+    kill_port = ports[2]
+    killed = addrs[2]
+    nodes.kill(kill_port)
+    t0 = time.time()
+    nodes.spawn(kill_port, node_env(kill_port, page_peers=peer_addr))
+    worker_back = nodes.wait_ready(kill_port, FABRIC_WAIT_S["revive"])
+    revive = {"ready_s": round(time.time() - t0, 1)}
+    refill: dict = {}
+    if worker_back:
+        boot_pools[f"{killed} revived"] = \
+            nodes.first_info[kill_port].get("pool")
+        boot_platforms[f"{killed} revived"] = \
+            nodes.first_info[kill_port].get("platform")
+        t_end = time.time() + FABRIC_WAIT_S["refill"]
+        while time.time() < t_end:
+            try:
+                refill = nodes.info(kill_port).get("pages", {})
+            except Exception:  # a node that stopped answering
+                refill = {}
+            if refill.get("peer_filled", 0) > 0:
+                break
+            time.sleep(1.0)
+        # the poll stops at the first fill, mid-rehydrate: let the warm
+        # boot end before the ratio is read
+        time.sleep(3.0)
+        try:
+            refill = nodes.info(kill_port).get("pages", {}) or refill
+        except Exception:  # keep the last answer
+            pass
+    revive["refilled_s"] = round(time.time() - t0, 1)
+    clock.mark("seed_and_refill")
+    peer_filled = refill.get("peer_filled", 0)
+    rehydrated = refill.get("rehydrated", 0)
+
+    # D: the escape hatch.  GSKY_FABRIC=0 answers what a fabric-less
+    # server does, byte for byte, and the fabric never probes a peer
+    with EnvOverride(GSKY_FABRIC="0"):
+        fab_off = ReplayFabric("http://off", [url_b])
+        _s, host_off = env.server(gateway=ServingGateway(), fabric=fab_off)
+        _s, host_plain = env.server(gateway=ServingGateway())
+        c_off, _src, body_off = fetchc(url_for(host_off, 0))
+        c_plain, _src, body_plain = fetchc(url_for(host_plain, 0))
+    identical = (c_off == c_plain == "ok" and body_off == body_plain
+                 and len(body_off) > 0)
+    off_outcomes = fab_off.stats()["outcomes"]
+    off_dormant = set(off_outcomes) <= {"disabled"}
+    clock.mark("escape_hatch")
+
+    # a strict exposition with the fabric's families, its /debug block
+    metrics = check_metrics(host_b, require=(
+        "gsky_requests_total", "gsky_fabric_replay_total",
+        "gsky_fabric_page_fills_total"))
+    dbg = fetch_json(host_b, "/debug")
+    infos = {}
+    for a, p in zip(addrs, ports):
+        rss[a]["end_mb"] = nodes.rss_mb(p)
+        try:
+            infos[a] = nodes.info(p)
+        except Exception as exc:  # a node that stopped answering
+            infos[a] = {"error": f"{exc!r:.120}"}
+        rss[a]["kernels"] = infos[a].get("kernels", infos[a].get("error"))
+    pool = settled_pool(srv_b)
+    out = {
+        "scenario": "fabric", "device": str(env.device), "nodes": addrs,
+        "gateways": [host_a, host_b, host_a2], "killed": killed,
+        "storm": counts, "storm_cache": cache_outcomes,
+        "recovery": recovery_counts, "recovery_peer_served": peer_served,
+        "recovery_replay": {"outcomes": a2, "rate": round(replay_rate, 3)},
+        "worker_refill": {"back": worker_back,
+                          "seeded": seeded.get("staged", 0),
+                          "peer_filled": peer_filled,
+                          "rehydrated": rehydrated, "revive": revive},
+        "fabric_off": {"identical": identical, "outcomes": off_outcomes},
+        "hard_answers": hard, "metrics": metrics,
+        "debug_fabric": bool(dbg.get("fabric")),
+        "node_rss": rss, "boot_pools": boot_pools,
+        "boot_platforms": boot_platforms,
+        "node_kernels": node_launches(infos), "pool": pool,
+        "kernels": kernel_counts(dbg), "legs_s": clock.legs,
+    }
+    if mem0 is not None:
+        out["card_memory"] = {"start": mem0,
+                              "end": card_memory(env.device)}
+    both = (counts, recovery_counts)
+    return out, verdict(out, {
+        "storm_ok": counts.get("ok", 0) > 0,
+        "no_hard_5xx": sum(d.get("hard_5xx", 0) for d in both) == 0,
+        "no_transport": sum(d.get("transport", 0) for d in both) == 0,
+        "recovery_ok": recovery_counts.get("ok", 0) > 0,
+        # at least half of the peer-owned hot set came back as replays
+        "replay_hits": a2.get("hit", 0) > 0,
+        "peer_served": peer_served > 0,
+        "replay_rate": replay_rate >= 0.5,
+        # at least half of the revived node's refill came from a peer
+        "worker_back": bool(worker_back),
+        "seeded": seeded.get("staged", 0) > 0,
+        "peer_filled": peer_filled > 0,
+        "refill_from_peers": peer_filled >= rehydrated - peer_filled,
+        "escape_identical": identical,
+        "escape_dormant": off_dormant,
+        "metrics": not metrics["missing"],
+        "debug_fabric": bool(dbg.get("fabric"))})
+
+
+# the elastic fleet's phases: the reference's shortest ramp leg and
+# steady phase (s), and the waits that bound its legs (s)
+ELASTIC_MIN_S = {"ramp": 4.0, "steady": 8.0}
+ELASTIC_WAIT_S = {"boot": 600.0, "warm": 420.0, "up": 60.0, "join": 300.0,
+                  "members": 300.0, "purge": 60.0, "refill": 300.0,
+                  "third": 240.0, "handoff": 90.0, "down": 120.0,
+                  "dormant": 30.0}
+ELASTIC_GRACE_S = 6.0          # the preemption notices' grace window
+ELASTIC_P99_S = 90.0           # the steady phase's p99 budget
+
+
+def run_elastic(env: SoakEnv, args):
+    """The autoscaler over a preemptible fleet of local node processes
+    (`LocalSubprocessProvider`, a page journal each): a ramp to a
+    readiness-gated scale-up, two preemptions under load with a warm
+    hand-off, the floor refilled, a steady phase and a quiet one that
+    must scale down, and a ``GSKY_ELASTIC=0`` leg byte-identical with
+    no trace of elastic.  The page peer in this process fronts the pool
+    a seed lap filled, and is up before the first node boots (C.28).
+    The knobs and the elastic counters are restored, every node killed
+    and the namespace removed at the end."""
+    from gsky_tpu_torch.fleet import elastic
+    journal = os.path.join(env.root, "elastic-journal.jsonl")
+    if os.path.exists(journal):
+        os.remove(journal)
+    knobs = {k: v for k, v in FLEET_KNOBS.items() if k not in os.environ}
+    held: dict = {}
+    try:
+        with EnvOverride(GSKY_FABRIC="1", GSKY_ELASTIC="1",
+                         GSKY_POOL_JOURNAL=journal, **knobs):
+            return _elastic(env, args, held)
+    finally:
+        if held.get("autoscaler") is not None:
+            held["autoscaler"].stop()
+        if held.get("provider") is not None:
+            held["provider"].close()
+        if held.get("peer"):
+            close_page_peer(held["peer"])
+        env.fleet_namespace(None, "elastic")
+        held.clear()
+        elastic.reset_stats()
+
+
+def _elastic(env, args, held):
+    import gc
+
+    from gsky_tpu_torch.fleet import elastic
+    from gsky_tpu_torch.serving import ServingGateway
+
+    mem0 = card_memory(env.device)
+    clock = LegClock()
+    server, host = env.server(gateway=ServingGateway())
+    tiles = env.fleet_tiles()
+    hard: list = []
+
+    def fetch(url: str):
+        c, _src, body = classify_answer(url, hard, need_retry_after=False,
+                                        timeout=180.0)
+        return c, body
+
+    def seed_url(tile) -> str:
+        return env.fleet_url(host, tile, "landsat", "")
+
+    def url_for(tile, salt: int = 0) -> str:
+        # the salt moves the bbox by about two response-cache quanta
+        # (1/256 px) a step: every request a key of its own, so the load
+        # reaches the fleet and its demand signal, within a few pixels,
+        # on the same pages
+        step = 0.25 / 256.0 / 128.0
+        fx = tile[0] + (salt % 997) * step
+        fy = tile[1] + (salt // 997 % 997) * step
+        return env.fleet_url(host, (fx, fy), "landsat_elastic", "/elastic")
+
+    # the seed lap renders in this process (the default namespace: B1 on
+    # a card), twice: stage, then heat; then the real worker RPC fronts
+    # that pool and this process's journal, before any node boots, so
+    # that every node's warm boot takes the hot set (C.28)
+    for tile in tiles * 2:
+        fetch(seed_url(tile))
+    seeded = server.executor.pool.stats()
+    held["peer"] = page_peer(env.device, server.executor)
+    peer_addr = held["peer"][2]
+    clock.mark("seed")
+
+    first_info: dict = {}       # addr -> its boot's first worker_info
+    last_info: dict = {}        # addr -> its last answer
+    rss: dict = {}
+    repo = os.path.dirname(HERE)
+    provider = held["provider"] = elastic.LocalSubprocessProvider(
+        extra_env={"PYTHONPATH": repo + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""),
+                   "PYTHONUNBUFFERED": "1", "GSKY_FABRIC": "1",
+                   "GSKY_FABRIC_PAGE_PEERS": peer_addr},
+        pool_size=1, log_dir=env.root, device=str(env.device),
+        journal_dir=env.root)
+
+    def probe(addr: str):
+        # the autoscaler's readiness probe, each answer kept
+        try:
+            info = worker_info(addr, timeout=5.0)
+        except Exception:  # not answering: booting, or gone
+            info = None
+        if info is not None:
+            if addr not in first_info:
+                first_info[addr] = info
+                proc = provider._procs.get(addr)
+                rss[addr] = {"start_mb": pid_rss_mb(proc.pid)
+                             if proc is not None else None}
+            last_info[addr] = info
+        return info
+
+    initial = [provider.launch() for _ in range(2)]
+    boot_end = time.time() + ELASTIC_WAIT_S["boot"]
+    for addr in initial:
+        while time.time() < boot_end and provider.alive(addr):
+            if probe(addr) is not None:
+                break
+            time.sleep(0.5)
+        if addr not in first_info:
+            return {"scenario": "elastic", "device": str(env.device),
+                    "error": f"{addr} never came up"}, False
+    clock.mark("boot")
+    env.fleet_namespace(initial, "elastic")
+
+    # warm: the first remote tile pays each node's first warp
+    warm_end = time.time() + ELASTIC_WAIT_S["warm"]
+    while time.time() < warm_end:
+        if fetch(url_for(tiles[0]))[0] == "ok":
+            break
+        time.sleep(2.0)
+    clock.mark("warm")
+    # the server's own client of the namespace is the routing surface
+    # the autoscaler scales
+    client = server._pipeline(env.watcher.get("elastic")).remote
+    autoscaler = held["autoscaler"] = elastic.Autoscaler(
+        provider, client, name="soak",
+        min_nodes=2, max_nodes=4, interval_s=0.5,
+        up=0.5, down=0.2, up_ticks=2, down_ticks=4,
+        cooldown_s=4.0, ready_timeout_s=150.0, drain_grace_s=8.0,
+        # a node's target of 1: the soak's tiles are page-warm, so the
+        # worker RPC is a small slice of a request and in flight stays
+        # low
+        demand=elastic.DemandSignal(admission=server.gateway.admission,
+                                    router=client.fleet, node_conc=1),
+        probe=probe)
+    autoscaler.start()
+    t_scaler = time.monotonic()         # the autoscaler's clock
+
+    counts: dict = {}
+    lats: dict = {"ramp": [], "preempt": [], "steady": []}
+    lock = threading.Lock()
+    counter = itertools.count()      # no URL repeats across phases
+
+    def drive_bg(conc: int, phase: str):
+        """Load at ``conc`` in the background until its event is set."""
+        stop_ev = threading.Event()
+
+        def one(_):
+            i = next(counter)
+            t0 = time.time()
+            c, _b = fetch(url_for(tiles[i % len(tiles)], salt=i))
+            with lock:
+                counts[c] = counts.get(c, 0) + 1
+                if c == "ok":
+                    lats[phase].append(time.time() - t0)
+
+        def loop():
+            with cf.ThreadPoolExecutor(conc) as ex:
+                while not stop_ev.is_set():
+                    list(ex.map(one, range(conc)))
+
+        th = threading.Thread(target=loop, daemon=True)
+        th.start()
+        return stop_ev, th
+
+    def stop(bg) -> None:
+        bg[0].set()
+        bg[1].join(300)
+
+    def wait_for(pred, timeout_s: float) -> bool:
+        t_end = time.time() + timeout_s
+        while time.time() < t_end:
+            if pred():
+                return True
+            time.sleep(1.0)
+        return bool(pred())
+
+    def decided(direction: str) -> bool:
+        return any(d["dir"] == direction for d in autoscaler.decisions)
+
+    # A: the ramp doubles the load twice; demand must cross the
+    # scale-up threshold, and the launch joins once its probe is warm
+    ramp_s = max(args.seconds * 0.1, ELASTIC_MIN_S["ramp"])
+    for conc in (2, 4):
+        bg = drive_bg(conc, "ramp")
+        time.sleep(ramp_s)
+        stop(bg)
+    bg = drive_bg(8, "ramp")
+    up_seen = wait_for(lambda: decided("up"), ELASTIC_WAIT_S["up"])
+    clock.mark("ramp")
+    join_seen = wait_for(lambda: decided("join"), ELASTIC_WAIT_S["join"])
+    stop(bg)
+    clock.mark("join")
+
+    # B: two preemptions under load, a short grace, an explicit
+    # successor; every answer must stay clean
+    bg = drive_bg(4, "preempt")
+    handoff_notes = []
+    for victim in initial:
+        # the victim leaves a live successor: two members at least
+        wait_for(lambda: len(client.nodes) >= 2, ELASTIC_WAIT_S["members"])
+        live = list(client.nodes)
+        if victim not in live:
+            break
+        succ = client.fleet.ring.successor(victim) or \
+            next((n for n in live if n != victim), None)
+        peers = [n for n in live if n != victim] + [peer_addr]
+        # the pages its warm boot took from the page peer: the hot set
+        # it ships (C.28)
+        held_pages = ((probe(victim) or {}).get("pages") or {}).get(
+            "peer_filled")
+        noticed = provider.preempt(victim, ELASTIC_GRACE_S,
+                                   successor=succ, peers=peers)
+        gone = wait_for(lambda: victim not in client.nodes,
+                        ELASTIC_WAIT_S["purge"])
+        handoff_notes.append({"victim": victim, "successor": succ,
+                              "victim_peer_filled": held_pages,
+                              "noticed": noticed, "purged": gone})
+        clock.mark(f"preempt_{len(handoff_notes)}")
+    # the floor refilled, then three members for the quiet phase to
+    # shed, scaled up by demand at the ramp's top load (C.29)
+    refilled = wait_for(lambda: len(client.nodes) >= 2,
+                        ELASTIC_WAIT_S["refill"])
+    stop(bg)
+    clock.mark("refill")
+    bg = drive_bg(8, "preempt")
+    third = wait_for(lambda: len(client.nodes) >= 3, ELASTIC_WAIT_S["third"])
+    stop(bg)
+    clock.mark("third")
+
+    def handoff_totals() -> dict:
+        # the warm hand-off across the surviving fleet
+        tot = {"entries": 0, "filled": 0, "cold": 0, "active": 0}
+        for n in list(client.nodes):
+            h = ((probe(n) or {}).get("elastic") or {}).get("handoff") or {}
+            for k in tot:
+                tot[k] += int(h.get(k, 0))
+        return tot
+
+    wait_for(lambda: (handoff_totals()["entries"] > 0
+                      and handoff_totals()["active"] == 0),
+             ELASTIC_WAIT_S["handoff"])
+    handoff = handoff_totals()
+    clock.mark("handoff")
+
+    # C: steady load on the recovered fleet (its p99), then quiet, which
+    # must bring a scale-down
+    bg = drive_bg(4, "steady")
+    time.sleep(max(args.seconds * 0.2, ELASTIC_MIN_S["steady"]))
+    stop(bg)
+    clock.mark("steady")
+    down_seen = wait_for(lambda: decided("down"), ELASTIC_WAIT_S["down"])
+    clock.mark("down")
+
+    # while the subsystem is live: a strict exposition with the elastic
+    # families, and the /debug block
+    metrics = check_metrics(host, require=(
+        "gsky_requests_total", "gsky_elastic_nodes",
+        "gsky_elastic_decisions_total", "gsky_preemptions_total",
+        "gsky_handoff_pages_total"))
+    dbg = fetch_json(host, "/debug")
+    decisions = list(autoscaler.decisions)
+    counters = elastic.counters()
+    ready_joins = [d for d in decisions
+                   if d["dir"] == "join" and d["reason"] == "ready"]
+    autoscaler.stop()
+    final_nodes = list(client.nodes)
+    for addr in provider.addrs():
+        if provider.alive(addr):
+            probe(addr)
+            proc = provider._procs.get(addr)
+            rss.setdefault(addr, {})["end_mb"] = \
+                pid_rss_mb(proc.pid) if proc is not None else None
+    pool = settled_pool(server)
+    kernels = kernel_counts(dbg)
+
+    # D: the escape hatch.  GSKY_ELASTIC=0: the bytes of a server that
+    # never met elastic, no elastic family, no /debug block
+    with EnvOverride(GSKY_ELASTIC="0"):
+        autoscaler = held["autoscaler"] = None   # the registry is weak
+        t_end = time.time() + ELASTIC_WAIT_S["dormant"]
+        while True:
+            elastic.reset_stats()
+            gc.collect()
+            # a retiring node's thread may hold the autoscaler a while
+            if elastic.dormant() or time.time() > t_end:
+                break
+            time.sleep(1.0)
+        off_dormant_fn = elastic.dormant()
+        _s, host_off = env.server(gateway=None)
+        _s, host_plain = env.server(gateway=None)
+        su = seed_url(tiles[0])
+        c_off, body_off = fetch(su.replace(host, host_off))
+        c_plain, body_plain = fetch(su.replace(host, host_plain))
+        with urllib.request.urlopen(f"http://{host_off}/metrics",
+                                    timeout=30) as r:
+            off_expo = r.read().decode()
+        off_debug = fetch_json(host_off, "/debug")
+    clock.mark("escape_hatch")
+    identical = (c_off == c_plain == "ok" and body_off == body_plain
+                 and len(body_off) > 0)
+    off_dormant = (off_dormant_fn and "gsky_elastic" not in off_expo
+                   and "gsky_preemptions" not in off_expo
+                   and "elastic" not in off_debug)
+
+    p99 = {ph: (round(float(np.percentile(v, 99)), 3) if v else None)
+           for ph, v in lats.items()}
+    out = {
+        "scenario": "elastic", "device": str(env.device),
+        "initial": initial, "final_nodes": final_nodes,
+        "page_peer": peer_addr, "seeded": seeded.get("staged", 0),
+        "responses": counts, "hard_answers": hard, "p99_s": p99,
+        # each decision with its time (s) since the autoscaler started
+        "decisions": [{**{k: d.get(k) for k in ("dir", "reason", "node")},
+                       "t_s": round(d["t"] - t_scaler, 1)}
+                      for d in decisions],
+        "counters": counters, "handoff": handoff,
+        "handoff_notes": handoff_notes, "ready_joins": len(ready_joins),
+        "third_member": third,
+        "elastic_off": {"identical": identical, "dormant": off_dormant},
+        "metrics": metrics, "debug_elastic": bool(dbg.get("elastic")),
+        "node_rss": rss,
+        "boot_pools": {a: i.get("pool") for a, i in first_info.items()},
+        "boot_platforms": {a: i.get("platform")
+                           for a, i in first_info.items()},
+        "node_kernels": node_launches(last_info), "pool": pool,
+        "kernels": kernels, "legs_s": clock.legs,
+    }
+    if mem0 is not None:
+        out["card_memory"] = {"start": mem0,
+                              "end": card_memory(env.device)}
+    pre = counters["preemptions"]
+    return out, verdict(out, {
+        "some_ok": counts.get("ok", 0) > 0,
+        "no_hard_5xx": counts.get("hard_5xx", 0) == 0,
+        "no_transport": counts.get("transport", 0) == 0,
+        "scale_up": up_seen and counters["decisions"]["up"] >= 1,
+        # the readiness gate: a join that waited for the warm probe,
+        # not for its deadline
+        "ready_join": join_seen and len(ready_joins) >= 1,
+        "scale_down": down_seen and counters["decisions"]["down"] >= 1,
+        "preemptions_handled": len(handoff_notes) == 2 and all(
+            n["noticed"] and n["purged"] for n in handoff_notes),
+        # both seen, at least one in its draining window (a starved
+        # host can miss the other's probe beat and call it dead)
+        "preemptions_counted": (pre["graceful"] + pre["nograce"] >= 2
+                                and pre["graceful"] >= 1),
+        "refilled": refilled,
+        # at least half of the inherited hot set from peers' pools
+        "handoff": handoff["entries"] > 0
+        and handoff["filled"] >= handoff["cold"],
+        "steady_p99": p99["steady"] is not None
+        and p99["steady"] < ELASTIC_P99_S,
+        "escape_identical": identical,
+        "escape_dormant": off_dormant,
+        "metrics": not metrics["missing"],
+        "debug_elastic": bool(dbg.get("elastic"))})
+
+
 RUNS = {"churn": run_churn, "hot": run_hot, "wcs": run_wcs,
         "chaos": run_chaos, "burst": run_burst, "wave": run_wave,
         "dap4": run_dap4, "overload": run_overload, "ingest": run_ingest,
         "fleet": run_fleet, "occupancy": run_occupancy,
-        "algebra": run_algebra, "animation": run_animation}
+        "algebra": run_algebra, "animation": run_animation,
+        "fabric": run_fabric, "elastic": run_elastic}
 
 
 def run(args) -> int:
